@@ -1,0 +1,44 @@
+"""Architecture registry of the PyTorch package.
+
+``get_config("smollm-135m")`` -> full ModelConfig
+``get_config("smollm-135m", reduced=True)`` -> small test variant
+
+Only the dense family is registered so far; the other families join with the
+slices that port their models.
+"""
+
+from __future__ import annotations
+
+import importlib
+from typing import Dict, List
+
+from repro_torch.configs.base import (  # noqa: F401  (re-exported)
+    EncDecConfig,
+    HybridConfig,
+    ModelConfig,
+    MoEConfig,
+    SSMConfig,
+    VisionStubConfig,
+    pad_vocab,
+)
+
+# arch-id -> module name under repro_torch.configs
+_ARCH_MODULES: Dict[str, str] = {
+    "internlm2-20b": "internlm2_20b",
+    "chatglm3-6b": "chatglm3_6b",
+    "minitron-8b": "minitron_8b",
+    "smollm-135m": "smollm_135m",
+}
+
+
+def list_configs() -> List[str]:
+    return sorted(_ARCH_MODULES)
+
+
+def get_config(arch_id: str, reduced: bool = False) -> ModelConfig:
+    if arch_id not in _ARCH_MODULES:
+        raise KeyError(
+            f"unknown arch {arch_id!r}; available: {sorted(_ARCH_MODULES)}")
+    mod = importlib.import_module(
+        f"repro_torch.configs.{_ARCH_MODULES[arch_id]}")
+    return mod.REDUCED if reduced else mod.CONFIG

@@ -1,0 +1,60 @@
+"""Carries parameters and caches between the JAX package's trees and the
+port's modules, as numpy arrays: neither side imports the other.
+
+The JAX tree stacks the layers on a leading axis (``layers.ln1`` is
+``(L, d)``, ``layers.attn.wq`` is ``(L, d, h*hd)``, ``dense_ffn.wg`` is
+``(L, d, d_ff)``); the port's state dict has one entry per layer
+(``layers.3.attn.wq``). Matrices keep their ``(d_in, d_out)`` layout, so the
+conversion is a copy.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Mapping
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+
+
+def _to_tensor(arr) -> torch.Tensor:
+    """numpy -> torch, bfloat16 included: numpy knows bf16 only as an
+    extension type, so its 16 bits are reinterpreted."""
+    arr = np.ascontiguousarray(arr)
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.view(np.int16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(arr.copy())
+
+
+def from_jax_params(params: Mapping, cfg: ModelConfig
+                    ) -> Dict[str, torch.Tensor]:
+    """Nested dicts of numpy arrays (``jax.tree.map(np.asarray, params)`` of
+    the JAX dense transformer) -> a state dict for
+    ``repro_torch.models.transformer.Transformer.load_state_dict``."""
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"family {cfg.family!r} is not ported yet (ROADMAP Queue 1)")
+    state = {"embed": _to_tensor(params["embed"]),
+             "ln_f": _to_tensor(params["ln_f"])}
+    if "head" in params:
+        state["head"] = _to_tensor(params["head"])
+    layers, ffn = params["layers"], params["dense_ffn"]
+    for i in range(cfg.num_layers):
+        state[f"layers.{i}.ln1"] = _to_tensor(layers["ln1"][i])
+        state[f"layers.{i}.ln2"] = _to_tensor(layers["ln2"][i])
+        for name, stacked in layers["attn"].items():
+            state[f"layers.{i}.attn.{name}"] = _to_tensor(stacked[i])
+        for name, stacked in ffn.items():
+            state[f"layers.{i}.ffn.{name}"] = _to_tensor(stacked[i])
+    return state
+
+
+def cache_to_numpy(cache: Mapping[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """The port's KV cache as numpy arrays in the JAX package's layout
+    (``k``/``v``: (L, b, S, hkv, d), ``pos``: (b,)); bf16 widens to fp32."""
+    out = {}
+    for name, t in cache.items():
+        t = t.detach().cpu()
+        out[name] = (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+    return out

@@ -1,0 +1,12 @@
+"""Hand-written Hopper kernels for the compute layers the JAX package wrote
+in Pallas.
+
+flash_attention — GQA flash attention forward (csrc/flash_attention.cu)
+rmsnorm         — fused RMSNorm forward (csrc/rmsnorm.cu)
+
+ops.py: the public wrappers, each with a launch counter. Each kernel's module
+holds its plain PyTorch version beside the function that launches it.
+_build.py: nvcc -> one shared library -> ctypes, at first use.
+"""
+
+from repro_torch.kernels import ops  # noqa: F401

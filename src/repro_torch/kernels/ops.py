@@ -1,0 +1,53 @@
+"""Public wrappers around the CUDA kernels.
+
+Counterpart of ``src/repro/kernels/ops.py``. The device of the input decides
+the route and nothing else does: a tensor on a CUDA device goes to the
+hand-written kernel (or the call raises), a tensor on the CPU goes to the
+plain PyTorch version, which is how the CPU tests run. There is no switch and
+no fall-back.
+
+Each wrapper counts its kernel launches in ``<wrapper>.launches``, a plain
+integer raised where the kernel is launched and nowhere else, so a run can
+show that it went through the kernels.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels.flash_attention import (
+    flash_attention_cuda,
+    flash_attention_plain,
+)
+from repro_torch.kernels.rmsnorm import rmsnorm_cuda, rmsnorm_plain
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True,
+                    kv_len: Optional[torch.Tensor] = None,
+                    q_offset: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """q: (b, h, sq, d), k/v: (b, hkv, skv, d) -> (b, h, sq, d).
+
+    ``kv_len`` / ``q_offset``: optional int32 (b,), see
+    ``repro_torch.kernels.flash_attention``."""
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal, kv_len, q_offset)
+    out = flash_attention_cuda(q, k, v, causal, kv_len, q_offset)
+    flash_attention.launches += 1
+    return out
+
+
+def rmsnorm(x: torch.Tensor, gamma: torch.Tensor,
+            eps: float = 1e-5) -> torch.Tensor:
+    """x: (..., d); gamma: (d,)."""
+    if x.device.type == "cpu":
+        return rmsnorm_plain(x, gamma, eps)
+    out = rmsnorm_cuda(x, gamma, eps)
+    rmsnorm.launches += 1
+    return out
+
+
+flash_attention.launches = 0
+rmsnorm.launches = 0

@@ -1,0 +1,26 @@
+"""Model registry: family -> constructor.
+
+``get_model(cfg)`` returns the class that builds the model for ``cfg``; every
+model offers ``forward``, ``init_cache``, ``prefill`` and ``decode_step``.
+Only the dense family is ported so far.
+"""
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.transformer import Transformer
+
+_PENDING = {
+    "moe": "ROADMAP Queue 1: MoE + VLM in the transformer",
+    "vlm": "ROADMAP Queue 1: MoE + VLM in the transformer",
+    "ssm": "ROADMAP Queue 1: models/mamba.py with the ssd_scan kernel",
+    "hybrid": "ROADMAP Queue 1: models/mamba.py with the ssd_scan kernel",
+    "encdec": "ROADMAP Queue 1: models/encdec.py",
+}
+
+
+def get_model(cfg: ModelConfig):
+    if cfg.family == "dense":
+        return Transformer
+    if cfg.family in _PENDING:
+        raise NotImplementedError(
+            f"family {cfg.family!r} is not ported yet ({_PENDING[cfg.family]})")
+    raise ValueError(f"unknown family {cfg.family!r}")

@@ -1,0 +1,231 @@
+"""Shared model layers: RMSNorm, RoPE, GQA attention (uncached and with a KV
+cache), FFN.
+
+Counterpart of ``src/repro/models/common.py`` for the dense family. Plain
+functions on tensors; parameters arrive as mappings from the JAX package's
+leaf names (``wq``, ``wk``, ...) to tensors laid out ``(d_in, d_out)`` and
+applied as ``x @ w``, so weights carry across without a transpose.
+
+Attention and RMSNorm go through ``repro_torch.kernels.ops``: the hand-written
+CUDA kernels for tensors on the GPU, their plain versions for tensors on the
+CPU. The other products (projections, FFN, logits) are ``torch.matmul``, as
+the JAX package leaves them to XLA.
+
+Still to come with their slices: MoE, cross-attention, ``layer_norm``,
+``cross_entropy_loss`` and the sharding hints.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Mapping, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import ops
+
+DEFAULT_DTYPE = torch.bfloat16
+
+
+# --------------------------------------------------------------------- #
+# Initializers
+# --------------------------------------------------------------------- #
+
+def dense_init(generator: torch.Generator, shape, dtype=DEFAULT_DTYPE,
+               scale: Optional[float] = None) -> torch.Tensor:
+    """Normal truncated at two standard deviations, fan-in scaled. Drawn on
+    the generator's device in fp32 by inverting the normal CDF."""
+    fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
+    std = scale if scale is not None else 1.0 / math.sqrt(fan_in)
+    lo = 0.5 * (1.0 + math.erf(-2.0 / math.sqrt(2.0)))
+    u = torch.rand(shape, generator=generator, device=generator.device,
+                   dtype=torch.float32)
+    u = lo + u * (1.0 - 2.0 * lo)
+    x = math.sqrt(2.0) * torch.erfinv((2.0 * u - 1.0).clamp_(-1 + 1e-7,
+                                                             1 - 1e-7))
+    return (x.clamp_(-2.0, 2.0) * std).to(dtype)
+
+
+def embed_init(generator: torch.Generator, shape,
+               dtype=DEFAULT_DTYPE) -> torch.Tensor:
+    x = torch.randn(shape, generator=generator, device=generator.device,
+                    dtype=torch.float32)
+    return (x * 0.02).to(dtype)
+
+
+# --------------------------------------------------------------------- #
+# Norm
+# --------------------------------------------------------------------- #
+
+def rms_norm(x: torch.Tensor, gamma: torch.Tensor,
+             eps: float = 1e-5) -> torch.Tensor:
+    """fp32 arithmetic, one rounding into ``x.dtype``. The kernel takes
+    contiguous rows, so a strided ``x`` is copied first."""
+    return ops.rmsnorm(x.contiguous(), gamma, eps)
+
+
+# --------------------------------------------------------------------- #
+# RoPE (with partial-rotary support for chatglm3's "2d RoPE")
+# --------------------------------------------------------------------- #
+
+def rope_frequencies(head_dim: int, fraction: float, theta: float,
+                     positions: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """cos/sin tables for the rotary fraction of the head dim.
+
+    positions: (..., seq) integer. Returns (..., seq, rot_dim//2) fp32 each."""
+    rot_dim = int(head_dim * fraction)
+    rot_dim -= rot_dim % 2
+    exponent = torch.arange(0, rot_dim, 2, dtype=torch.float32,
+                            device=positions.device) / rot_dim
+    inv_freq = 1.0 / (theta ** exponent)
+    angles = positions[..., None].to(torch.float32) * inv_freq
+    return torch.cos(angles), torch.sin(angles)
+
+
+def rope_positions(seq: int, offset: Optional[torch.Tensor],
+                   device) -> torch.Tensor:
+    """Positions of ``seq`` new tokens: (1, seq) from 0, or (b, seq) from
+    each sequence's own clock ``offset`` (b,)."""
+    base = torch.arange(seq, device=device)[None, :]
+    return base if offset is None else base + offset[:, None]
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor,
+               sin: torch.Tensor) -> torch.Tensor:
+    """x: (batch, seq, heads, head_dim); cos/sin: (batch, seq, rot//2).
+
+    Pairs are interleaved (even with the following odd element), and cos/sin
+    are cast to ``x.dtype`` before the multiply, as in the reference."""
+    rot = 2 * cos.shape[-1]
+    x_rot, x_pass = x[..., :rot], x[..., rot:]
+    x1, x2 = x_rot[..., 0::2], x_rot[..., 1::2]
+    c = cos[..., None, :].to(x.dtype)  # broadcast over heads
+    s = sin[..., None, :].to(x.dtype)
+    y1 = x1 * c - x2 * s
+    y2 = x2 * c + x1 * s
+    y = torch.stack([y1, y2], dim=-1).reshape(x_rot.shape)
+    return torch.cat([y, x_pass], dim=-1) if x_pass.shape[-1] else y
+
+
+# --------------------------------------------------------------------- #
+# Attention
+# --------------------------------------------------------------------- #
+
+def _repeat_kv(k: torch.Tensor, num_q_heads: int) -> torch.Tensor:
+    """(b, s, kv_heads, d) -> (b, s, q_heads, d) by group broadcast."""
+    kv_heads = k.shape[-2]
+    if kv_heads == num_q_heads:
+        return k
+    return k.repeat_interleave(num_q_heads // kv_heads, dim=-2)
+
+
+def naive_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True, q_offset: int = 0) -> torch.Tensor:
+    """Reference attention, the literal translation of the JAX package's.
+    q: (b, sq, h, d), k/v: (b, skv, h_kv, d). Tests hold ``attention``
+    against it; the model does not call it."""
+    b, sq, h, d = q.shape
+    k = _repeat_kv(k, h)
+    v = _repeat_kv(v, h)
+    scale = 1.0 / math.sqrt(d)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q, k).float() * scale
+    if causal:
+        qpos = torch.arange(sq, device=q.device) + q_offset
+        kpos = torch.arange(k.shape[1], device=q.device)
+        mask = kpos[None, :] <= qpos[:, None]
+        logits = torch.where(mask[None, None], logits, -1e30)
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              causal: bool = True,
+              q_offset: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """q: (b, sq, h, d), k/v: (b, skv, h_kv, d) -> (b, sq, h, d).
+
+    Hands the flash-attention wrapper transposed views: no copy, and no
+    repeat of the KV heads. ``q_offset``: optional int32 (b,), the position
+    of each sequence's first query row."""
+    out = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                              v.transpose(1, 2), causal, q_offset=q_offset)
+    return out.transpose(1, 2)
+
+
+def attention_block(
+    params: Mapping[str, torch.Tensor],
+    x: torch.Tensor,                   # (b, s, d_in)
+    *,
+    num_heads: int,
+    num_kv_heads: int,
+    head_dim: int,
+    rope_fraction: float = 1.0,
+    rope_theta: float = 10_000.0,
+    causal: bool = True,
+    kv_cache: Optional[dict] = None,   # {"k","v": (b, max_s, hkv, d), "pos"}
+    rope: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+) -> torch.Tensor:
+    """GQA self-attention. With ``kv_cache`` the new keys and values are
+    written into ``kv_cache["k"]`` / ``["v"]`` IN PLACE (the JAX package
+    returns a new cache; here the caller's tensors are updated) and
+    ``kv_cache["pos"]``, the per-sequence (b,) clock, is only read: the
+    caller advances it once for all layers. ``rope``: the (cos, sin) tables
+    of ``rope_positions`` + ``rope_frequencies`` if the caller has them
+    already (they are the same for every layer of one forward pass)."""
+    b, s, _ = x.shape
+    q = (x @ params["wq"]).reshape(b, s, num_heads, head_dim)
+    k = (x @ params["wk"]).reshape(b, s, num_kv_heads, head_dim)
+    v = (x @ params["wv"]).reshape(b, s, num_kv_heads, head_dim)
+
+    offset = None
+    if kv_cache is not None:
+        offset = kv_cache["pos"]
+        if offset.dim() == 0:
+            offset = offset.expand(b)
+    if rope_fraction > 0:
+        if rope is None:
+            rope = rope_frequencies(head_dim, rope_fraction, rope_theta,
+                                    rope_positions(s, offset, x.device))
+        # One pass over the q and k heads together: the rotation is per
+        # element, and eager PyTorch pays for every launch.
+        qk = apply_rope(torch.cat([q, k], dim=2), *rope)
+        q, k = qk[:, :, :num_heads], qk[:, :, num_heads:]
+
+    if kv_cache is None:
+        out = attention(q, k, v, causal=causal)
+    elif s == 1:
+        # Decode: each sequence writes at its own position and attends over
+        # the cache up to it. A slot that no request owns keeps ticking and
+        # may run past the cache: its position is clamped to the last row,
+        # where the write and the mask stay in range. No active sequence is
+        # touched, since submit() keeps every request below max_seq.
+        kc, vc = kv_cache["k"], kv_cache["v"]
+        at = offset.clamp(max=kc.shape[1] - 1).to(torch.int32)
+        rows = (torch.arange(b, device=x.device), at.long())
+        kc[rows] = k[:, 0].to(kc.dtype)
+        vc[rows] = v[:, 0].to(vc.dtype)
+        out = attention(q, kc.to(q.dtype), vc.to(q.dtype), causal=True,
+                        q_offset=at)
+    else:
+        # Prefill: fresh cache, every sequence starts at 0. The reference
+        # attends over the whole zero-filled cache under the causal mask; the
+        # masked positions weigh exp(-1e30) = 0, so attending over the prompt
+        # alone is the same sum.
+        kv_cache["k"][:, :s] = k.to(kv_cache["k"].dtype)
+        kv_cache["v"][:, :s] = v.to(kv_cache["v"].dtype)
+        out = attention(q, k, v, causal=True)
+    out = out.reshape(b, s, num_heads * head_dim)
+    return out @ params["wo"]
+
+
+# --------------------------------------------------------------------- #
+# FFN
+# --------------------------------------------------------------------- #
+
+def ffn_block(params: Mapping[str, torch.Tensor], x: torch.Tensor,
+              activation: str) -> torch.Tensor:
+    if activation == "swiglu":
+        return (F.silu(x @ params["wg"]) * (x @ params["wu"])) @ params["wd"]
+    # jax.nn.gelu defaults to the tanh approximation
+    return F.gelu(x @ params["wu"], approximate="tanh") @ params["wd"]

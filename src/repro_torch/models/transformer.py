@@ -1,0 +1,182 @@
+"""Decoder-only transformer LM, dense GQA family.
+
+Counterpart of ``src/repro/models/transformer.py`` for the dense configs
+(internlm2, chatglm3, minitron, smollm). The module tree carries the JAX
+package's leaf names: ``embed``, ``layers[i].ln1``, ``layers[i].attn.{wq,wk,
+wv,wo}``, ``layers[i].ln2``, ``layers[i].ffn.{wg,wu,wd}``, ``ln_f`` and, for
+untied embeddings, ``head``. A Python loop over the layers takes the place of
+``lax.scan`` over stacked parameters.
+
+The forward path runs the hand-written kernels on the GPU, which have no
+backward yet: the serving calls run under ``torch.no_grad()``. Still to come
+with their slices: ``loss``, ``apply_remat``, MoE blocks and VLM ``patches``.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+from torch import nn
+
+from repro_torch import resolve_device
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.common import (
+    DEFAULT_DTYPE,
+    attention_block,
+    dense_init,
+    embed_init,
+    ffn_block,
+    rms_norm,
+    rope_frequencies,
+    rope_positions,
+)
+
+
+def _param(t: torch.Tensor, device: torch.device) -> nn.Parameter:
+    return nn.Parameter(t.to(device), requires_grad=False)
+
+
+class Attention(nn.Module):
+    def __init__(self, cfg: ModelConfig, generator, dtype, device):
+        super().__init__()
+        hd = cfg.resolved_head_dim
+        d, h, hkv = cfg.d_model, cfg.num_heads, cfg.num_kv_heads
+        self.wq = _param(dense_init(generator, (d, h * hd), dtype), device)
+        self.wk = _param(dense_init(generator, (d, hkv * hd), dtype), device)
+        self.wv = _param(dense_init(generator, (d, hkv * hd), dtype), device)
+        self.wo = _param(dense_init(generator, (h * hd, d), dtype,
+                                    scale=1.0 / (h * hd) ** 0.5), device)
+        self.cfg = cfg
+
+    def forward(self, x: torch.Tensor, kv_cache: Optional[dict],
+                rope=None) -> torch.Tensor:
+        cfg = self.cfg
+        return attention_block(
+            {"wq": self.wq, "wk": self.wk, "wv": self.wv, "wo": self.wo}, x,
+            num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
+            head_dim=cfg.resolved_head_dim, rope_fraction=cfg.rope_fraction,
+            rope_theta=cfg.rope_theta, causal=True, kv_cache=kv_cache,
+            rope=rope)
+
+
+class FFN(nn.Module):
+    def __init__(self, cfg: ModelConfig, generator, dtype, device):
+        super().__init__()
+        d, f = cfg.d_model, cfg.d_ff
+        if cfg.activation == "swiglu":
+            self.wg = _param(dense_init(generator, (d, f), dtype), device)
+        self.wu = _param(dense_init(generator, (d, f), dtype), device)
+        self.wd = _param(dense_init(generator, (f, d), dtype), device)
+        self.activation = cfg.activation
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return ffn_block(dict(self.named_parameters()), x, self.activation)
+
+
+class Block(nn.Module):
+    def __init__(self, cfg: ModelConfig, generator, dtype, device):
+        super().__init__()
+        self.ln1 = _param(torch.ones(cfg.d_model, dtype=dtype), device)
+        self.attn = Attention(cfg, generator, dtype, device)
+        self.ln2 = _param(torch.ones(cfg.d_model, dtype=dtype), device)
+        self.ffn = FFN(cfg, generator, dtype, device)
+
+
+class Transformer(nn.Module):
+    """Dense decoder. Weights are drawn from ``generator`` (a fresh one
+    seeded with 0 if none is given) and are not trainable yet."""
+
+    def __init__(self, cfg: ModelConfig, *, dtype: torch.dtype = DEFAULT_DTYPE,
+                 device=None, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        if cfg.family != "dense":
+            raise NotImplementedError(
+                f"family {cfg.family!r} is not ported yet (ROADMAP Queue 1)")
+        device = resolve_device(device)
+        if generator is None:
+            generator = torch.Generator(device="cpu").manual_seed(0)
+        self.cfg = cfg
+        self.embed = _param(embed_init(
+            generator, (cfg.padded_vocab, cfg.d_model), dtype), device)
+        self.layers = nn.ModuleList(
+            Block(cfg, generator, dtype, device)
+            for _ in range(cfg.num_layers))
+        self.ln_f = _param(torch.ones(cfg.d_model, dtype=dtype), device)
+        if not cfg.tie_embeddings:
+            self.head = _param(dense_init(
+                generator, (cfg.d_model, cfg.padded_vocab), dtype), device)
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.device
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.embed.dtype
+
+    # ------------------------------------------------------------------ #
+    def _trunk(self, tokens: torch.Tensor,
+               cache: Optional[dict]) -> torch.Tensor:
+        """Embedding and all layers. tokens: (b, s) integer -> (b, s, d).
+        Writes the cache's K/V in place and advances its clock."""
+        cfg = self.cfg
+        x = self.embed[tokens]
+        # The rotary tables depend on the positions only: once per pass, not
+        # once per layer (eager PyTorch folds nothing).
+        rope = None
+        if cfg.rope_fraction > 0:
+            rope = rope_frequencies(
+                cfg.resolved_head_dim, cfg.rope_fraction, cfg.rope_theta,
+                rope_positions(tokens.shape[1],
+                               None if cache is None else cache["pos"],
+                               tokens.device))
+        for i, layer in enumerate(self.layers):
+            kv = None
+            if cache is not None:
+                kv = {"k": cache["k"][i], "v": cache["v"][i],
+                      "pos": cache["pos"]}
+            h = rms_norm(x, layer.ln1, cfg.norm_eps)
+            x = x + layer.attn(h, kv, rope)
+            h = rms_norm(x, layer.ln2, cfg.norm_eps)
+            x = x + layer.ffn(h)
+        if cache is not None:
+            cache["pos"] = cache["pos"] + tokens.shape[1]
+        return x
+
+    def _logits(self, x: torch.Tensor) -> torch.Tensor:
+        x = rms_norm(x, self.ln_f, self.cfg.norm_eps)
+        head = self.embed.T if self.cfg.tie_embeddings else self.head
+        return x @ head
+
+    def forward(self, tokens: torch.Tensor, cache: Optional[dict] = None
+                ) -> Tuple[torch.Tensor, Optional[dict]]:
+        """tokens: (b, s) integer. Returns (logits (b, s, padded_vocab),
+        cache). The cache is the caller's own dict, updated in place."""
+        return self._logits(self._trunk(tokens, cache)), cache
+
+    def init_cache(self, batch: int, max_seq: int,
+                   dtype: Optional[torch.dtype] = None) -> dict:
+        cfg = self.cfg
+        shape = (cfg.num_layers, batch, max_seq, cfg.num_kv_heads,
+                 cfg.resolved_head_dim)
+        dtype = dtype or self.dtype
+        return {"k": torch.zeros(shape, dtype=dtype, device=self.device),
+                "v": torch.zeros(shape, dtype=dtype, device=self.device),
+                "pos": torch.zeros((batch,), dtype=torch.int32,
+                                   device=self.device)}
+
+    @torch.no_grad()
+    def prefill(self, tokens: torch.Tensor, cache: dict
+                ) -> Tuple[torch.Tensor, dict]:
+        """Fill a fresh cache from the prompt; logits of the last position,
+        (b, 1, padded_vocab). Only that position goes through the final norm
+        and the head: the others' logits are not needed to serve."""
+        x = self._trunk(tokens, cache)
+        return self._logits(x[:, -1:, :]), cache
+
+    @torch.no_grad()
+    def decode_step(self, cache: dict, tokens: torch.Tensor
+                    ) -> Tuple[torch.Tensor, dict]:
+        """tokens: (b, 1) — one new token per sequence."""
+        return self.forward(tokens, cache)

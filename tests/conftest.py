@@ -8,3 +8,10 @@ import pytest
 @pytest.fixture(scope="session")
 def rng():
     return jax.random.PRNGKey(0)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA GPU and nvcc (the hand-written kernels of "
+        "repro_torch); skipped where there is none")

@@ -1,0 +1,252 @@
+"""repro_torch kernels' modules against the JAX package, on the CPU.
+
+The same numpy-seeded inputs go through the JAX function (the Pallas kernel
+in interpret mode and its jnp oracle) and through the port's plain PyTorch
+version, which is what the port's wrappers run for CPU tensors. Tolerances
+are the reference tests': attention fp32 2e-5, bf16 3e-2; RMSNorm fp32 1e-5,
+bf16 1e-2. Tests marked ``cuda`` hold the CUDA kernels against the plain
+versions and need the card: ``python -m pytest -m cuda tests/test_torch_kernels.py``.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ref
+from repro.kernels.flash_attention import flash_attention_fwd
+from repro.kernels.rmsnorm import rmsnorm as rmsnorm_pallas
+from repro.models.common import naive_attention as naive_attention_jax
+from repro_torch.kernels import ops
+from repro_torch.kernels.flash_attention import (
+    flash_attention_cuda,
+    flash_attention_plain,
+)
+from repro_torch.kernels.rmsnorm import rmsnorm_cuda, rmsnorm_plain
+from repro_torch.models import common as tcommon
+
+torch.set_num_threads(1)
+
+# b, h, hkv, s, d, causal, block_q, block_k: the table of tests/test_kernels.py
+ATTN_TABLE = [
+    (2, 4, 2, 256, 64, True, 128, 128),
+    (1, 8, 8, 130, 32, True, 64, 64),        # ragged seq
+    (2, 2, 1, 64, 128, False, 32, 32),       # MQA, non-causal
+    (1, 4, 4, 100, 64, True, 64, 32),        # uneven blocks
+    (1, 6, 2, 96, 16, True, 32, 32),         # GQA group=3
+]
+
+
+def _qkv(seed, b, h, hkv, sq, skv, d):
+    rs = np.random.RandomState(seed)
+    return (rs.randn(b, h, sq, d).astype(np.float32),
+            rs.randn(b, hkv, skv, d).astype(np.float32),
+            rs.randn(b, hkv, skv, d).astype(np.float32))
+
+
+def _bf16(x):
+    """numpy fp32 -> (jax bf16 array, torch bf16 tensor) of equal values."""
+    return (jnp.asarray(x).astype(jnp.bfloat16),
+            torch.from_numpy(x).to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("b,h,hkv,s,d,causal,bq,bk", ATTN_TABLE)
+def test_flash_plain_matches_pallas_kernel(b, h, hkv, s, d, causal, bq, bk):
+    q, k, v = _qkv(0, b, h, hkv, s, s, d)
+    want = flash_attention_fwd(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                               causal=causal, block_q=bq, block_k=bk,
+                               interpret=True)
+    got = flash_attention_plain(*map(torch.from_numpy, (q, k, v)),
+                                causal=causal)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("b,h,hkv,s,d,causal,bq,bk", ATTN_TABLE)
+def test_flash_plain_matches_attention_ref(b, h, hkv, s, d, causal, bq, bk):
+    q, k, v = _qkv(1, b, h, hkv, s, s, d)
+    want = ref.attention_ref(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                             causal=causal)
+    got = ops.flash_attention(*map(torch.from_numpy, (q, k, v)),
+                              causal=causal)          # CPU -> plain version
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("oracle", ["pallas", "ref"])
+def test_flash_plain_bf16(oracle):
+    q, k, v = _qkv(2, 1, 2, 2, 128, 128, 64)
+    (qj, qt), (kj, kt), (vj, vt) = _bf16(q), _bf16(k), _bf16(v)
+    if oracle == "pallas":
+        want = flash_attention_fwd(qj, kj, vj, interpret=True)
+    else:
+        want = ref.attention_ref(qj, kj, vj)
+    got = flash_attention_plain(qt, kt, vt)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want.astype(jnp.float32)), atol=3e-2)
+
+
+@pytest.mark.parametrize("sq,skv,offset", [(1, 12, 11), (5, 12, 7),
+                                           (3, 40, 0), (8, 8, 0)])
+def test_flash_plain_q_offset_matches_naive_attention(sq, skv, offset):
+    """sq != skv: the only oracle with the port's alignment is
+    ``naive_attention(q_offset=...)`` (``attention_ref`` is bottom-right
+    aligned and agrees only at sq == skv)."""
+    b, h, hkv, d = 2, 4, 2, 16
+    q, k, v = _qkv(3, b, h, hkv, sq, skv, d)
+    want = naive_attention_jax(
+        *(jnp.asarray(a.transpose(0, 2, 1, 3)) for a in (q, k, v)),
+        causal=True, q_offset=offset)                      # (b, sq, h, d)
+    got = flash_attention_plain(
+        *map(torch.from_numpy, (q, k, v)), causal=True,
+        q_offset=torch.full((b,), offset, dtype=torch.int32))
+    np.testing.assert_allclose(got.numpy().transpose(0, 2, 1, 3),
+                               np.asarray(want), atol=2e-5, rtol=2e-5)
+
+
+def test_flash_plain_per_sequence_offset_and_kv_len():
+    """Each sequence has its own q_offset and kv_len: equal to running the
+    reference on each sequence alone, with the keys cut at kv_len."""
+    b, h, hkv, sq, skv, d = 3, 4, 2, 4, 20, 16
+    q, k, v = _qkv(4, b, h, hkv, sq, skv, d)
+    offsets, lens = [0, 9, 16], [20, 11, 18]
+    got = flash_attention_plain(
+        *map(torch.from_numpy, (q, k, v)), causal=True,
+        kv_len=torch.tensor(lens, dtype=torch.int32),
+        q_offset=torch.tensor(offsets, dtype=torch.int32)).numpy()
+    for i in range(b):
+        want = naive_attention_jax(
+            jnp.asarray(q[i:i + 1].transpose(0, 2, 1, 3)),
+            jnp.asarray(k[i:i + 1, :, :lens[i]].transpose(0, 2, 1, 3)),
+            jnp.asarray(v[i:i + 1, :, :lens[i]].transpose(0, 2, 1, 3)),
+            causal=True, q_offset=offsets[i])
+        np.testing.assert_allclose(got[i:i + 1].transpose(0, 2, 1, 3),
+                                   np.asarray(want), atol=2e-5, rtol=2e-5)
+
+
+def test_flash_plain_row_without_keys_is_zero():
+    q, k, v = map(torch.from_numpy, _qkv(5, 2, 2, 1, 3, 6, 16))
+    out = flash_attention_plain(q, k, v, causal=False,
+                                kv_len=torch.tensor([6, 0], dtype=torch.int32))
+    assert torch.isfinite(out).all()
+    assert out[0].abs().max() > 0 and out[1].abs().max() == 0
+
+
+@pytest.mark.parametrize("sq,skv,offset", [(6, 6, 0), (1, 9, 8), (4, 10, 3)])
+def test_model_attention_matches_jax_naive(sq, skv, offset):
+    """The port's model-layout entry (``attention``, through the wrapper) and
+    its literal ``naive_attention`` both equal the JAX ``naive_attention``."""
+    b, h, hkv, d = 2, 6, 2, 16
+    rs = np.random.RandomState(6)
+    q = rs.randn(b, sq, h, d).astype(np.float32)
+    k = rs.randn(b, skv, hkv, d).astype(np.float32)
+    v = rs.randn(b, skv, hkv, d).astype(np.float32)
+    want = np.asarray(naive_attention_jax(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=True,
+        q_offset=offset))
+    tq, tk, tv = map(torch.from_numpy, (q, k, v))
+    naive = tcommon.naive_attention(tq, tk, tv, causal=True, q_offset=offset)
+    fused = tcommon.attention(
+        tq, tk, tv, causal=True,
+        q_offset=torch.full((b,), offset, dtype=torch.int32))
+    np.testing.assert_allclose(naive.numpy(), want, atol=2e-5, rtol=2e-5)
+    np.testing.assert_allclose(fused.numpy(), want, atol=2e-5, rtol=2e-5)
+
+
+RMS_TABLE = [((4, 64), "float32"), ((3, 17, 128), "float32"),
+             ((2, 100, 256), "bfloat16"), ((8, 1, 576), "float32"),
+             ((5, 576), "bfloat16")]
+
+
+@pytest.mark.parametrize("shape,dtype", RMS_TABLE)
+@pytest.mark.parametrize("oracle", ["pallas", "ref"])
+def test_rmsnorm_plain_matches_jax(shape, dtype, oracle):
+    rs = np.random.RandomState(7)
+    x = rs.randn(*shape).astype(np.float32)
+    g = rs.randn(shape[-1]).astype(np.float32)
+    if dtype == "bfloat16":
+        (xj, xt), (gj, gt), atol = _bf16(x), _bf16(g), 1e-2
+    else:
+        xj, gj, atol = jnp.asarray(x), jnp.asarray(g), 1e-5
+        xt, gt = torch.from_numpy(x), torch.from_numpy(g)
+    if oracle == "pallas":
+        want = rmsnorm_pallas(xj, gj, interpret=True)
+    else:
+        want = ref.rmsnorm_ref(xj, gj)
+    got = ops.rmsnorm(xt, gt)                          # CPU -> plain version
+    assert got.dtype == xt.dtype and got.shape == xt.shape
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want.astype(jnp.float32)),
+                               atol=atol)
+    np.testing.assert_array_equal(got.float().numpy(),
+                                  rmsnorm_plain(xt, gt).float().numpy())
+
+
+def test_cpu_calls_do_not_count_as_launches():
+    before = ops.flash_attention.launches, ops.rmsnorm.launches
+    q = torch.zeros(1, 1, 2, 64)
+    ops.flash_attention(q, q, q)
+    ops.rmsnorm(torch.ones(2, 8), torch.ones(8))
+    assert (ops.flash_attention.launches, ops.rmsnorm.launches) == before
+
+
+def test_launch_functions_refuse_cpu_tensors():
+    """The functions that launch the kernels never compute another way."""
+    q = torch.zeros(1, 1, 2, 64)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention_cuda(q, q, q)
+    with pytest.raises(ValueError, match="CUDA"):
+        rmsnorm_cuda(torch.ones(2, 8), torch.ones(8))
+
+
+# ------------------------------------------------------------------------- #
+# On the card: the CUDA kernels against the plain versions.
+# ------------------------------------------------------------------------- #
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 2e-5),
+                                        (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("b,h,hkv,sq,skv,d,causal", [
+    (2, 4, 2, 256, 256, 64, True), (2, 2, 1, 64, 64, 128, False),
+    (1, 9, 3, 130, 130, 64, True), (8, 9, 3, 1, 512, 64, True)])
+def test_flash_kernel_matches_plain(cuda_device, dtype, atol, b, h, hkv, sq,
+                                    skv, d, causal):
+    q, k, v = (torch.from_numpy(a).to(cuda_device, dtype)
+               for a in _qkv(8, b, h, hkv, sq, skv, d))
+    offset = None
+    if sq != skv:
+        offset = torch.arange(b, dtype=torch.int32, device=cuda_device) * 37
+    before = ops.flash_attention.launches
+    got = ops.flash_attention(q, k, v, causal, q_offset=offset)
+    torch.cuda.synchronize()
+    assert ops.flash_attention.launches == before + 1
+    want = flash_attention_plain(q, k, v, causal, q_offset=offset)
+    assert (got.float() - want.float()).abs().max().item() <= atol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-5),
+                                        (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("shape", [(8, 1, 576), (3, 37, 576), (2, 5, 4096),
+                                   (3, 7, 100)])
+def test_rmsnorm_kernel_matches_plain(cuda_device, dtype, atol, shape):
+    rs = np.random.RandomState(9)
+    x = torch.from_numpy(rs.randn(*shape).astype(np.float32)).to(
+        cuda_device, dtype)
+    g = torch.from_numpy(rs.randn(shape[-1]).astype(np.float32)).to(
+        cuda_device, dtype)
+    before = ops.rmsnorm.launches
+    got = ops.rmsnorm(x, g)
+    torch.cuda.synchronize()
+    assert ops.rmsnorm.launches == before + 1
+    want = rmsnorm_plain(x, g)
+    assert (got.float() - want.float()).abs().max().item() <= atol

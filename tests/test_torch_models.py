@@ -1,0 +1,308 @@
+"""repro_torch models against the JAX package on shared weights, on the CPU.
+
+JAX params -> numpy -> ``from_jax_params`` -> the port's modules, fp32,
+``device="cpu"`` (so attention and RMSNorm run their plain versions). Inputs
+are made with numpy from a seed and handed to both sides.
+"""
+
+import subprocess
+import sys
+import textwrap
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as get_config_jax
+from repro.models import common as jcommon
+from repro.models import get_model as get_model_jax
+from repro_torch import resolve_device
+from repro_torch.configs import get_config, list_configs
+from repro_torch.convert import cache_to_numpy, from_jax_params
+from repro_torch.models import common as tcommon
+from repro_torch.models import get_model
+
+torch.set_num_threads(1)
+
+ARCHS = ["smollm-135m", "chatglm3-6b", "minitron-8b", "internlm2-20b"]
+
+
+def _pair(arch, seed=0, dtype=jnp.float32):
+    """The JAX (module, cfg, params) and the port's model on equal weights."""
+    cfg_j = get_config_jax(arch, reduced=True)
+    mod = get_model_jax(cfg_j)
+    params = mod.init_params(jax.random.PRNGKey(seed), cfg_j, dtype=dtype)
+    cfg = get_config(arch, reduced=True)
+    tdtype = torch.float32 if dtype == jnp.float32 else torch.bfloat16
+    model = get_model(cfg)(cfg, dtype=tdtype, device="cpu")
+    model.load_state_dict(
+        from_jax_params(jax.tree.map(np.asarray, params), cfg))
+    return mod, cfg_j, params, model
+
+
+def _tokens(cfg, b, s, seed=0):
+    return np.random.RandomState(seed).randint(0, cfg.vocab_size, size=(b, s))
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("reduced", [False, True])
+def test_config_copy_equals_reference(arch, reduced):
+    import dataclasses
+    mine = dataclasses.asdict(get_config(arch, reduced=reduced))
+    theirs = dataclasses.asdict(get_config_jax(arch, reduced=reduced))
+    mine.pop("notes"), theirs.pop("notes")     # prose, reworded in the copy
+    assert mine == theirs
+    assert (get_config(arch, reduced=reduced).padded_vocab
+            == get_config_jax(arch, reduced=reduced).padded_vocab)
+    assert (get_config(arch, reduced=reduced).param_count()
+            == get_config_jax(arch, reduced=reduced).param_count())
+
+
+def test_get_config_unknown_arch_raises_keyerror():
+    assert "smollm-135m" in list_configs()
+    with pytest.raises(KeyError):
+        get_config("mamba2-780m")        # waits for its slice
+    with pytest.raises(KeyError):
+        get_config("no-such-arch")
+
+
+def test_get_model_names_pending_families():
+    import dataclasses
+    cfg = dataclasses.replace(get_config("smollm-135m", reduced=True),
+                              family="ssm")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        get_model(cfg)
+
+
+@pytest.mark.parametrize("fraction", [1.0, 0.5])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_apply_rope_matches_jax(fraction, dtype):
+    rs = np.random.RandomState(1)
+    x = rs.randn(2, 7, 3, 16).astype(np.float32)
+    pos = rs.randint(0, 500, size=(2, 7))
+    cj, sj = jcommon.rope_frequencies(16, fraction, 10_000.0, jnp.asarray(pos))
+    ct, st = tcommon.rope_frequencies(16, fraction, 10_000.0,
+                                      torch.from_numpy(pos))
+    np.testing.assert_allclose(ct.numpy(), np.asarray(cj), atol=1e-6)
+    np.testing.assert_allclose(st.numpy(), np.asarray(sj), atol=1e-6)
+    if dtype == "float32":
+        want = jcommon.apply_rope(jnp.asarray(x), cj, sj)
+        got = tcommon.apply_rope(torch.from_numpy(x), ct, st)
+        atol = 1e-5
+    else:
+        # bf16 rounds cos/sin before the multiply on both sides; one bf16
+        # ulp at the largest |x| here (< 4) is 2^-6
+        want = jcommon.apply_rope(jnp.asarray(x).astype(jnp.bfloat16), cj, sj)
+        got = tcommon.apply_rope(torch.from_numpy(x).bfloat16(), ct, st)
+        want, got, atol = want.astype(jnp.float32), got.float(), 2 ** -6
+    assert got.shape == x.shape
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=atol)
+
+
+def test_rms_norm_and_ffn_match_jax():
+    rs = np.random.RandomState(2)
+    x = rs.randn(2, 5, 24).astype(np.float32)
+    g = rs.randn(24).astype(np.float32)
+    np.testing.assert_allclose(
+        tcommon.rms_norm(torch.from_numpy(x), torch.from_numpy(g)).numpy(),
+        np.asarray(jcommon.rms_norm(jnp.asarray(x), jnp.asarray(g))),
+        atol=1e-5)
+    for act, names in (("swiglu", ("wg", "wu", "wd")), ("gelu", ("wu", "wd"))):
+        w = {n: (rs.randn(48, 24) if n == "wd" else rs.randn(24, 48)
+                 ).astype(np.float32) * 0.2 for n in names}
+        want = jcommon.ffn_block({n: jnp.asarray(a) for n, a in w.items()},
+                                 jnp.asarray(x), act)
+        got = tcommon.ffn_block({n: torch.from_numpy(a) for n, a in w.items()},
+                                torch.from_numpy(x), act)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4)
+
+
+def _attn_weights(rs, d_in, h, hkv, hd):
+    shapes = {"wq": (d_in, h * hd), "wk": (d_in, hkv * hd),
+              "wv": (d_in, hkv * hd), "wo": (h * hd, d_in)}
+    return {n: rs.randn(*s).astype(np.float32) * 0.2 for n, s in shapes.items()}
+
+
+@pytest.mark.parametrize("fraction", [1.0, 0.5])
+def test_attention_block_without_cache_matches_jax(fraction):
+    rs = np.random.RandomState(3)
+    h, hkv, hd, d_in = 6, 2, 16, 32
+    w = _attn_weights(rs, d_in, h, hkv, hd)
+    x = rs.randn(2, 9, d_in).astype(np.float32)
+    kw = dict(num_heads=h, num_kv_heads=hkv, head_dim=hd,
+              rope_fraction=fraction)
+    want, _ = jcommon.attention_block(
+        {n: jnp.asarray(a) for n, a in w.items()}, jnp.asarray(x), **kw)
+    got = tcommon.attention_block(
+        {n: torch.from_numpy(a) for n, a in w.items()}, torch.from_numpy(x),
+        **kw)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
+
+
+def test_attention_block_with_cache_matches_jax():
+    """Prefill (the reference attends over the whole zero-filled cache, the
+    port over the prompt only: equal, the masked keys weigh 0) and then
+    decode steps with the sequences at different depths."""
+    rs = np.random.RandomState(4)
+    h, hkv, hd, d_in, b, s, S = 6, 2, 16, 32, 2, 7, 20
+    w = _attn_weights(rs, d_in, h, hkv, hd)
+    wj = {n: jnp.asarray(a) for n, a in w.items()}
+    wt = {n: torch.from_numpy(a) for n, a in w.items()}
+    kw = dict(num_heads=h, num_kv_heads=hkv, head_dim=hd)
+    x = rs.randn(b, s, d_in).astype(np.float32)
+    cache_j = {"k": jnp.zeros((b, S, hkv, hd)), "v": jnp.zeros((b, S, hkv, hd)),
+               "pos": jnp.zeros((b,), jnp.int32)}
+    cache_t = {"k": torch.zeros(b, S, hkv, hd), "v": torch.zeros(b, S, hkv, hd),
+               "pos": torch.zeros(b, dtype=torch.int32)}
+    want, cache_j = jcommon.attention_block(wj, jnp.asarray(x),
+                                            kv_cache=cache_j, **kw)
+    got = tcommon.attention_block(wt, torch.from_numpy(x), kv_cache=cache_t,
+                                  **kw)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
+    # the port's block leaves the clock to its caller; put the sequences at
+    # different depths on both sides
+    pos = np.array([s, s - 3], np.int32)
+    cache_j["pos"] = jnp.asarray(pos)
+    cache_t["pos"] = torch.from_numpy(pos.copy())
+    for step in range(3):
+        x1 = rs.randn(b, 1, d_in).astype(np.float32)
+        want, cache_j = jcommon.attention_block(wj, jnp.asarray(x1),
+                                                kv_cache=cache_j, **kw)
+        got = tcommon.attention_block(wt, torch.from_numpy(x1),
+                                      kv_cache=cache_t, **kw)
+        cache_t["pos"] = cache_t["pos"] + 1
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
+    np.testing.assert_allclose(cache_t["k"].numpy(), np.asarray(cache_j["k"]),
+                               atol=1e-6)
+    np.testing.assert_allclose(cache_t["v"].numpy(), np.asarray(cache_j["v"]),
+                               atol=1e-6)
+    np.testing.assert_array_equal(cache_t["pos"].numpy(),
+                                  np.asarray(cache_j["pos"]))
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_forward_logits_match_jax(arch):
+    mod, cfg_j, params, model = _pair(arch)
+    toks = _tokens(cfg_j, 2, 13)
+    want, _, _ = mod.forward(params, cfg_j, jnp.asarray(toks))
+    with torch.no_grad():
+        got, cache = model(torch.from_numpy(toks))
+    assert cache is None
+    assert got.shape == (2, 13, cfg_j.padded_vocab)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_serving_matches_forward_and_jax(arch):
+    """prefill + decode_step equal the full forward (the contract of
+    tests/test_models_smoke.py::test_serving_matches_forward) and the JAX
+    package's prefill/decode on the same weights; so does the cache."""
+    mod, cfg_j, params, model = _pair(arch)
+    b, s = 2, 12
+    toks = _tokens(cfg_j, b, s + 1, seed=1)
+    with torch.no_grad():
+        full, _ = model(torch.from_numpy(toks))
+    cache = model.init_cache(b, 32)
+    lg, cache = model.prefill(torch.from_numpy(toks[:, :s]), cache)
+    lg2, cache = model.decode_step(cache, torch.from_numpy(toks[:, s:]))
+    assert lg.shape == (b, 1, cfg_j.padded_vocab)
+    np.testing.assert_allclose(lg[:, 0].numpy(), full[:, s - 1].numpy(),
+                               atol=2e-3, rtol=1e-3)
+    np.testing.assert_allclose(lg2[:, 0].numpy(), full[:, s].numpy(),
+                               atol=2e-3, rtol=1e-3)
+
+    cache_j = mod.init_cache(cfg_j, b, 32, dtype=jnp.float32)
+    lg_j, cache_j = mod.prefill(params, cfg_j, jnp.asarray(toks[:, :s]),
+                                cache_j)
+    after_prefill = jax.tree.map(np.asarray, cache_j)
+    lg2_j, cache_j = mod.decode_step(params, cfg_j, cache_j,
+                                     jnp.asarray(toks[:, s:]))
+    np.testing.assert_allclose(lg.numpy(), np.asarray(lg_j), atol=1e-4)
+    np.testing.assert_allclose(lg2.numpy(), np.asarray(lg2_j), atol=1e-4)
+    mine = cache_to_numpy(cache)
+    for name in ("k", "v"):
+        assert mine[name].shape == after_prefill[name].shape
+        np.testing.assert_allclose(mine[name][:, :, :s],
+                                   after_prefill[name][:, :, :s], atol=1e-5)
+        np.testing.assert_allclose(mine[name], np.asarray(cache_j[name]),
+                                   atol=1e-5)
+    np.testing.assert_array_equal(mine["pos"], np.asarray(cache_j["pos"]))
+
+
+def test_from_jax_params_carries_bf16_bits():
+    mod, cfg_j, params, model = _pair("smollm-135m", dtype=jnp.bfloat16)
+    assert model.embed.dtype == torch.bfloat16
+    np.testing.assert_array_equal(
+        model.embed.float().numpy(),
+        np.asarray(params["embed"].astype(jnp.float32)))
+    np.testing.assert_array_equal(
+        model.layers[1].attn.wq.float().numpy(),
+        np.asarray(params["layers"]["attn"]["wq"][1].astype(jnp.float32)))
+    toks = _tokens(cfg_j, 1, 6)
+    with torch.no_grad():
+        got, _ = model(torch.from_numpy(toks))
+    assert got.dtype == torch.bfloat16 and torch.isfinite(got.float()).all()
+
+
+def test_model_init_is_seeded_and_scaled():
+    cfg = get_config("smollm-135m", reduced=True)
+    make = lambda seed: get_model(cfg)(
+        cfg, dtype=torch.float32, device="cpu",
+        generator=torch.Generator().manual_seed(seed))
+    a, b, c = make(0), make(0), make(1)
+    assert torch.equal(a.layers[0].attn.wq, b.layers[0].attn.wq)
+    assert not torch.equal(a.layers[0].attn.wq, c.layers[0].attn.wq)
+    wq = a.layers[0].attn.wq
+    std = 1.0 / cfg.d_model ** 0.5
+    assert wq.abs().max() <= 2 * std + 1e-6          # truncated at 2 sigma
+    assert 0.7 * std < wq.std() < std
+    assert not hasattr(a, "head")                     # tied embeddings
+
+
+def test_decode_past_the_cache_end_stays_in_range():
+    """A sequence whose clock has run past max_seq (an idle engine slot)
+    writes and attends at the last row instead of out of range."""
+    cfg = get_config("smollm-135m", reduced=True)
+    model = get_model(cfg)(cfg, dtype=torch.float32, device="cpu")
+    cache = model.init_cache(2, 8)
+    cache["pos"] = torch.tensor([3, 50], dtype=torch.int32)
+    logits, cache = model.decode_step(cache, torch.tensor([[1], [2]]))
+    assert torch.isfinite(logits).all()
+    assert cache["pos"].tolist() == [4, 51]
+
+
+def test_no_gpu_means_an_explicit_choice():
+    """Entry points use the GPU unless told otherwise; without one they
+    raise and do not drop to the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device resolves")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        resolve_device(None)
+    cfg = get_config("smollm-135m", reduced=True)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        get_model(cfg)(cfg, dtype=torch.float32)
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    """Every module of repro_torch, and chip_smoke.py's own imports, in a
+    fresh interpreter: neither ``jax`` nor ``repro`` gets loaded."""
+    code = textwrap.dedent("""
+        import importlib, pkgutil, sys
+        import repro_torch
+        names = [m.name for m in pkgutil.walk_packages(
+            repro_torch.__path__, "repro_torch.")]
+        assert len(names) >= 15, names
+        for name in names:
+            importlib.import_module(name)
+        bad = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+        assert not bad, bad
+        print("imported", len(names))
+    """)
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("imported")
