@@ -18,13 +18,16 @@ run with a non-zero exit code (nothing drops to the CPU or to a plain version):
            counters show that the run went through the kernels; then the
            kernel path against the plain path in fp32 on the same weights
   profile  a few decode ticks under torch.profiler: the device's busy share
+  serve_mamba, profile_mamba
+           the same for mamba2-780m at full width and depth (prefill through
+           the SSD scan kernel, every norm through the RMSNorm kernel)
 
 The last three lines are the card as nvidia-smi names it, one JSON object
 describing every kernel, and the verdict.
 
 fp32 comparisons run with TF32 switched off
-(``torch.backends.cuda.matmul.allow_tf32 = False``), so the plain version's
-products are full fp32 like the kernels'.
+(``torch.backends.cuda.matmul.allow_tf32 = False``, and for cuDNN too), so the
+plain version's products are full fp32 like the kernels'.
 """
 
 from __future__ import annotations
@@ -47,6 +50,11 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention_plain  # noqa: E402
 from repro_torch.kernels.rmsnorm import rmsnorm_plain  # noqa: E402
+from repro_torch.kernels.ssd_scan import (  # noqa: E402
+    P_TILES,
+    ssd_scan_cuda,
+    ssd_scan_plain,
+)
 from repro_torch.models import get_model  # noqa: E402
 from repro_torch.serve import Engine, EngineConfig, Request  # noqa: E402
 
@@ -59,6 +67,13 @@ L2_BYTES = 50 * 2 ** 20
 ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
 NORM_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 LOGIT_TOL = 2e-3    # fp32 logits, kernel path against plain path
+# SSD scan: max |kernel - plain| over y and over the final state, each against
+# its own scale max(1, max |plain|). fp32: both sum the same terms in another
+# order; the decays exp(cs_i - cs_j) carry the rounding of cumsums that reach
+# |cs| ~ Q * |dt * A|, i.e. ~1e-5 of the output's scale. bf16: y is rounded
+# to bf16 once on each side, one ulp is up to 2^-7 of |y|.
+SSD_REL_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+SSD_NO_LIBRARY = "no single PyTorch call computes the SSD scan"
 
 DEVICE = "cuda"
 
@@ -159,7 +174,11 @@ def phase_build() -> None:
          sources=sorted(p.name for p in _build.CSRC.glob("*.cu")))
 
 
-def _rmsnorm_case(shape, dtype, gen) -> dict:
+def _rmsnorm_case(shape, dtype, gen, ulp_tol=False) -> dict:
+    """``ulp_tol``: in bf16, allow one bf16 ulp of the largest output. Kernel
+    and plain version round once from fp32 values a few fp32 ulps apart, so
+    they may land one bf16 ulp apart, 2^-7 of |y|: above the absolute 1e-2
+    wherever |y| >= 2, which a large random input reaches."""
     d = shape[-1]
     x = torch.randn(shape, generator=gen, device=DEVICE).to(dtype)
     gamma = (1.0 + 0.1 * torch.randn(d, generator=gen, device=DEVICE)).to(dtype)
@@ -167,6 +186,9 @@ def _rmsnorm_case(shape, dtype, gen) -> dict:
     torch.cuda.synchronize()
     want = rmsnorm_plain(x, gamma, 1e-5)
     err = (got.float() - want.float()).abs().max().item()
+    tol = NORM_TOL[dtype]
+    if ulp_tol and dtype == torch.bfloat16:
+        tol = max(tol, 2 ** -7 * want.float().abs().max().item())
     sets = [(x.clone(), gamma) for _ in range(copies_for_cold_l2([x, x]))]
     rows = x.numel() // d
     nbytes = (2 * rows * d + d) * x.element_size()
@@ -176,7 +198,7 @@ def _rmsnorm_case(shape, dtype, gen) -> dict:
     kernel = time_ms(lambda a, g: ops.rmsnorm(a, g, 1e-5), sets)
     return {
         "kernel": "rmsnorm", "shape": list(shape), "dtype": dtype_name(dtype),
-        "max_abs_err": err, "tol": NORM_TOL[dtype],
+        "max_abs_err": err, "tol": tol,
         "kernel_ms": kernel["device"], "kernel_eager_ms": kernel["eager"],
         "plain_ms": time_ms(lambda a, g: rmsnorm_plain(a, g, 1e-5),
                             sets)["device"],
@@ -257,8 +279,80 @@ def _attention_case(name, b, h, hkv, sq, skv, d, causal, dtype, gen,
     }
 
 
+def _ssd_case(name, b, s, h, p, n, g, chunk, dtype, gen,
+              p_tiles=False) -> dict:
+    """Inputs in the model's layout: x, B and C are views of one conv output
+    (b, s, h*p + 2*g*n), as ``mamba_layer`` hands them over; dt is
+    softplus-ed, A negative, as the reference tests draw them."""
+    di, gn = h * p, g * n
+    xbc = torch.randn((b, s, di + 2 * gn), generator=gen,
+                      device=DEVICE).to(dtype)
+    x = xbc[..., :di].unflatten(-1, (h, p))
+    B = xbc[..., di:di + gn].unflatten(-1, (g, n))
+    C = xbc[..., di + gn:].unflatten(-1, (g, n))
+    dt = F.softplus(torch.randn((b, s, h), generator=gen, device=DEVICE))
+    A = -torch.exp(0.5 * torch.randn((h,), generator=gen, device=DEVICE))
+    y, state = ops.ssd_scan(x, dt, A, B, C, chunk)
+    torch.cuda.synchronize()
+    want_y, want_state = ssd_scan_plain(x, dt, A, B, C, chunk)
+    err_y = (y.float() - want_y.float()).abs().max().item()
+    err_state = (state - want_state).abs().max().item()
+    scale_y = max(1.0, want_y.float().abs().max().item())
+    scale_state = max(1.0, want_state.abs().max().item())
+    rel = SSD_REL_TOL[dtype]
+
+    # What this call's data needs: every chunk as long as it is.
+    q = min(chunk, s)
+    lens = [min(q, s - t0) for t0 in range(0, s, q)]
+    flops = sum(b * g * L * (L + 1) * n                       # C B^T, j <= i
+                + b * h * (L * (L + 1) * p + 4 * L * p * n)   # G x, C S^T, S
+                for L in lens)
+    item = x.element_size()
+    nbytes = ((2 * b * s * h * p + 2 * b * s * g * n) * item
+              + 4 * (b * s * h + h + b * h * p * n))
+    bound_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    bound_ops = flops / PEAK_FLOPS[dtype] * 1e3
+
+    def views():
+        t = clone_like(xbc)
+        return (t[..., :di].unflatten(-1, (h, p)),
+                t[..., di:di + gn].unflatten(-1, (g, n)),
+                t[..., di + gn:].unflatten(-1, (g, n)))
+    sets = [views() for _ in range(copies_for_cold_l2([xbc, dt]))]
+    iters = 20
+    kernel = time_ms(lambda x_, B_, C_: ops.ssd_scan(x_, dt, A, B_, C_, chunk),
+                     sets, iters)
+    case = {
+        "kernel": "ssd_scan", "case": name,
+        "shape": {"b": b, "s": s, "h": h, "p": p, "n": n, "g": g,
+                  "chunk": chunk},
+        "dtype": dtype_name(dtype),
+        "max_abs_err": max(err_y, err_state), "tol": rel * scale_y,
+        "max_abs_err_y": err_y, "max_abs_err_state": err_state,
+        "rel_tol": rel, "scale_y": scale_y, "scale_state": scale_state,
+        "ok": err_y <= rel * scale_y and err_state <= rel * scale_state,
+        "kernel_ms": kernel["device"], "kernel_eager_ms": kernel["eager"],
+        "plain_ms": time_ms(lambda x_, B_, C_: ssd_scan_plain(
+            x_, dt, A, B_, C_, chunk), sets, iters)["device"],
+        "library_ms": None, "library_note": SSD_NO_LIBRARY,
+        "bound_ms": max(bound_bytes, bound_ops),
+        "bound_by": "bytes" if bound_bytes >= bound_ops else "operations",
+        "flops": flops, "bytes": nbytes, "cold_copies": len(sets),
+    }
+    if p_tiles:
+        # The p-tile is the kernel's one occupancy knob: time each choice.
+        case["p_tile_ms"] = {
+            str(t): time_ms(lambda x_, B_, C_, t=t: ssd_scan_cuda(
+                x_, dt, A, B_, C_, chunk, p_tile=t), sets, iters)["device"]
+            for t in P_TILES}
+    return case
+
+
 def phase_kernels() -> list:
     gen = torch.Generator(device=DEVICE).manual_seed(0)
+    # mamba2's cases draw from a stream of their own, so the dense cases
+    # keep the inputs they always had
+    gen_mamba = torch.Generator(device=DEVICE).manual_seed(1)
     rs = np.random.RandomState(0)
     cases = []
     with torch.no_grad():
@@ -291,7 +385,30 @@ def phase_kernels() -> list:
             cases.append(_attention_case(
                 "3 rows non-causal with kv_len, d=128", 2, 8, 2, 3, 300, 128,
                 False, dtype, gen, kv_len=[300, 1]))
-    failed = [c for c in cases if not c["max_abs_err"] <= c["tol"]]
+            # mamba2-780m's norms: decode tick and prefill, d_model 1536
+            # and the gated norm's d_inner 3072
+            for shape in ((8, 1, 1536), (8, 1, 3072), (1, 1024, 3072)):
+                cases.append(_rmsnorm_case(shape, dtype, gen_mamba,
+                                           ulp_tol=True))
+            # SSD scan: the main path's prefill, a ragged last chunk, a
+            # prompt shorter than a chunk, the reference tests' table (B/C
+            # one group each) and a grouped case
+            cases.append(_ssd_case("main prefill", 1, 1024, 48, 64, 128, 1,
+                                   256, dtype, gen_mamba, p_tiles=True))
+            for s in (700, 17):
+                cases.append(_ssd_case(f"prefill s={s}", 1, s, 48, 64, 128,
+                                       1, 256, dtype, gen_mamba))
+            for b, h, s, p, n, chunk in ((2, 3, 128, 16, 32, 32),
+                                         (1, 2, 100, 8, 16, 32),
+                                         (2, 4, 64, 32, 64, 64),
+                                         (1, 1, 256, 64, 128, 128)):
+                cases.append(_ssd_case(f"table b{b} h{h} s{s} p{p} n{n} "
+                                       f"chunk{chunk}", b, s, h, p, n, 1,
+                                       chunk, dtype, gen_mamba))
+            cases.append(_ssd_case("grouped h4 g2", 2, 45, 4, 16, 16, 2, 32,
+                                   dtype, gen_mamba))
+    failed = [c for c in cases
+              if not c.get("ok", c["max_abs_err"] <= c["tol"])]
     emit("kernels", cases=cases, failed=len(failed))
     if failed:
         raise SystemExit(f"chip_smoke: {len(failed)} kernel case(s) disagree "
@@ -324,12 +441,34 @@ class _Timed:
         return out
 
 
-def phase_serve() -> dict:
-    cfg = get_config("smollm-135m")
+PLAIN = {"flash_attention": flash_attention_plain, "rmsnorm": rmsnorm_plain,
+         "ssd_scan": ssd_scan_plain}
+
+
+def _expected_launches(cfg, prefills: int, ticks: int) -> dict:
+    """Each kernel's launches on the serve path, by the model's structure:
+    two norms a layer and the final norm in every forward; attention in
+    every layer of every forward (dense), the scan in every layer of a
+    prefill (mamba2: a decode tick is the plain recurrence)."""
+    forwards = prefills + ticks
+    mamba = cfg.family == "ssm"
+    return {"flash_attention": 0 if mamba else cfg.num_layers * forwards,
+            "rmsnorm": (2 * cfg.num_layers + 1) * forwards,
+            "ssd_scan": cfg.num_layers * prefills if mamba else 0}
+
+
+def phase_serve(arch: str, phase: str, weight_device: str) -> dict:
+    """Full-size ``arch`` in bf16 with random weights drawn on
+    ``weight_device`` from seed 0, 16 requests through the engine, launch
+    counts checked; then the kernel path against the plain path in fp32 on
+    the same weights (one prefill of (2, 300) and one decode tick)."""
+    cfg = get_config(arch)
     make = lambda dtype: get_model(cfg)(
         cfg, dtype=dtype, device=DEVICE,
-        generator=torch.Generator(device="cpu").manual_seed(0))
+        generator=torch.Generator(device=weight_device).manual_seed(0))
+    t0 = time.perf_counter()
     model = make(torch.bfloat16)
+    init_seconds = time.perf_counter() - t0
     n_params = sum(p.numel() for p in model.parameters())
     ecfg = EngineConfig(max_batch=8, max_seq=2048, seed=0)
     engine = Engine(cfg, model, ecfg, dtype=torch.bfloat16)
@@ -349,19 +488,17 @@ def phase_serve() -> dict:
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     # The main path: counters to 0 just before, read just after.
-    ops.flash_attention.launches = 0
-    ops.rmsnorm.launches = 0
+    for name in PLAIN:
+        getattr(ops, name).launches = 0
     t0 = time.perf_counter()
     for req in requests:
         engine.submit(req)
     done = engine.run_until_drained()
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = {"flash_attention": ops.flash_attention.launches,
-                "rmsnorm": ops.rmsnorm.launches}
+    launches = {name: getattr(ops, name).launches for name in PLAIN}
 
     prefills, ticks = len(prefill_timer.ms), len(tick_timer.ms)
-    forwards = prefills + ticks
     tokens = [t for r in done for t in r.out_tokens]
     problems = []
     if len(done) != n_requests or prefills != n_requests:
@@ -371,12 +508,9 @@ def phase_serve() -> dict:
         problems.append("a request did not get its 32 tokens")
     if not all(0 <= t < cfg.padded_vocab for t in tokens):
         problems.append("a token lies outside the padded vocabulary")
-    if launches["flash_attention"] != cfg.num_layers * forwards:
-        problems.append(f"flash_attention launches {launches['flash_attention']}"
-                        f" != {cfg.num_layers} x {forwards}")
-    if launches["rmsnorm"] != (2 * cfg.num_layers + 1) * forwards:
-        problems.append(f"rmsnorm launches {launches['rmsnorm']} != "
-                        f"{2 * cfg.num_layers + 1} x {forwards}")
+    expected = _expected_launches(cfg, prefills, ticks)
+    if launches != expected:
+        problems.append(f"launches {launches} != {expected}")
     peak_bytes = torch.cuda.max_memory_allocated()
     del model.prefill, model.decode_step      # back to the class's methods
 
@@ -394,12 +528,15 @@ def phase_serve() -> dict:
         return first.float(), second.float()
 
     kernel_first, kernel_second = run_both()
-    kernel_wrappers = ops.flash_attention, ops.rmsnorm
-    ops.flash_attention, ops.rmsnorm = flash_attention_plain, rmsnorm_plain
+    kernel_wrappers = {name: getattr(ops, name) for name in PLAIN}
+    for name, plain in PLAIN.items():
+        setattr(ops, name, plain)
     try:
         plain_first, plain_second = run_both()
     finally:
-        ops.flash_attention, ops.rmsnorm = kernel_wrappers
+        for name, wrapper in kernel_wrappers.items():
+            setattr(ops, name, wrapper)
+    del model32
     logit_err = {
         "prefill": (kernel_first - plain_first).abs().max().item(),
         "decode": (kernel_second - plain_second).abs().max().item()}
@@ -422,21 +559,25 @@ def phase_serve() -> dict:
         "tick_ms_mean": float(np.mean(tick_timer.ms)),
         "tick_ms_median": float(np.median(tick_timer.ms)),
         "launches": launches, "peak_memory_bytes": peak_bytes,
+        "weights_init_seconds": init_seconds,
         "fp32_logit_max_abs_err": logit_err, "fp32_logit_tol": LOGIT_TOL,
+        "fp32_logit_max_abs": {"prefill": plain_first.abs().max().item(),
+                               "decode": plain_second.abs().max().item()},
         "problems": problems,
     }
-    emit("serve", **result)
+    emit(phase, **result)
     if problems:
-        raise SystemExit(f"chip_smoke: serve phase failed: {problems}")
+        raise SystemExit(f"chip_smoke: {phase} phase failed: {problems}")
     result["engine"] = engine
     return result
 
 
-def phase_profile(engine: Engine) -> None:
+def phase_profile(engine: Engine, phase: str) -> None:
     """More decode ticks of the drained engine's model (its slots are idle
-    ones with clamped positions; the work per tick is the same): first timed
-    on the host's clock, then traced by torch.profiler for the kernels' time
-    on the device. The busy share is device time over the untraced wall
+    ones: dense positions are clamped to the cache's last row, mamba2 slots
+    go on decoding their stale state; the work per tick is the same): first
+    timed on the host's clock, then traced by torch.profiler for the kernels'
+    time on the device. The busy share is device time over the untraced wall
     time, since tracing itself slows the host."""
     from torch.profiler import ProfilerActivity, profile
     ticks = 8
@@ -466,17 +607,18 @@ def phase_profile(engine: Engine) -> None:
                             "device_us_per_launch": us / evt.count})
     by_name.sort(key=lambda e: -e["launches_per_tick"]
                  * e["device_us_per_launch"])
+    arch = engine.cfg.arch_id
     if device_us == 0:
-        emit("profile", ticks=ticks, wall_ms_per_tick=wall_ms,
+        emit(phase, arch=arch, ticks=ticks, wall_ms_per_tick=wall_ms,
              device_busy_share="not measured",
              reason="torch.profiler reported no device time")
         return
     device_ms = device_us / 1e3 / ticks
-    emit("profile", ticks=ticks, wall_ms_per_tick=wall_ms,
+    emit(phase, arch=arch, ticks=ticks, wall_ms_per_tick=wall_ms,
          device_ms_per_tick=device_ms, device_busy_share=device_ms / wall_ms,
          device_idle_share=1.0 - device_ms / wall_ms,
          device_launches_per_tick=launches / ticks,
-         top_device_time=by_name[:8])
+         top_device_time=by_name[:12])
 
 
 # ------------------------------------------------------------------------- #
@@ -491,21 +633,29 @@ KERNELS = (
     ("rmsnorm", "src/repro_torch/kernels/csrc/rmsnorm.cu",
      "src/repro/kernels/rmsnorm.py:24",
      lambda c: c.get("shape") == [8, 1, 576] and c["dtype"] == "bfloat16"),
+    ("ssd_scan", "src/repro_torch/kernels/csrc/ssd_scan.cu",
+     "src/repro/kernels/ssd_scan.py:80",
+     lambda c: c.get("case") == "main prefill" and c["dtype"] == "bfloat16"),
 )
 
 
-def kernels_line(cases: list, launches: dict) -> dict:
-    """One entry per kernel: its launches on the main path, its largest error
-    over every case compared, and its times at the shape the main path gives
-    it most often (one decode tick of the bf16 serve phase). The other shapes'
-    times are in the ``kernels`` phase's line."""
+def kernels_line(cases: list, launches_by_path: dict) -> dict:
+    """One entry per kernel: its launches on the main paths (each serve
+    phase's count, read just after that phase, and their sum), its largest
+    error over every case compared, and its times at the shape the main path
+    gives it most often (attention and RMSNorm: one decode tick of the bf16
+    dense serve phase; the SSD scan: the bf16 1024-token prefill). The other
+    shapes' times are in the ``kernels`` phase's line."""
     entries = []
     for name, source, replaces, is_main in KERNELS:
         mine = [c for c in cases if c["kernel"] == name]
         main_case = next(c for c in mine if is_main(c))
+        by_path = {path: counts[name]
+                   for path, counts in launches_by_path.items()}
         entries.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches[name],
+            "replaces": replaces, "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
             "max_abs_err": max(c["max_abs_err"] for c in mine),
             "ms": main_case["kernel_ms"],
             "eager_ms": main_case["kernel_eager_ms"],
@@ -513,6 +663,8 @@ def kernels_line(cases: list, launches: dict) -> dict:
             "bound_ms": main_case["bound_ms"],
             "bound_by": main_case["bound_by"],
             "library_ms": main_case["library_ms"],
+            **({"library_note": main_case["library_note"]}
+               if "library_note" in main_case else {}),
             "timed_at": {k: main_case[k] for k in ("case", "shape", "dtype")
                          if k in main_case},
             "cases_compared": len(mine),
@@ -524,14 +676,23 @@ def main() -> int:
     env = phase_env()
     phase_build()
     cases = phase_kernels()
-    serve = phase_serve()
-    phase_profile(serve["engine"])
-    for entry in kernels_line(cases, serve["launches"])["kernels"]:
+    launches = {}
+    # The dense path keeps drawing its weights on the CPU, as it always did;
+    # mamba2's 781 M are drawn on the card.
+    for arch, phase, weight_device in (("smollm-135m", "serve", "cpu"),
+                                       ("mamba2-780m", "serve_mamba", DEVICE)):
+        serve = phase_serve(arch, phase, weight_device)
+        phase_profile(serve["engine"], phase.replace("serve", "profile"))
+        launches[phase] = serve["launches"]
+        del serve
+        torch.cuda.empty_cache()
+    line = kernels_line(cases, launches)
+    for entry in line["kernels"]:
         if entry["launches"] <= 0:
             raise SystemExit(f"chip_smoke: the main path never launched "
                              f"{entry['name']}")
     print(env["card"], flush=True)
-    print(json.dumps(kernels_line(cases, serve["launches"])), flush=True)
+    print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -3,8 +3,8 @@
 ``get_config("smollm-135m")`` -> full ModelConfig
 ``get_config("smollm-135m", reduced=True)`` -> small test variant
 
-Only the dense family is registered so far; the other families join with the
-slices that port their models.
+Registered: the dense family and mamba2 (``ssm``); the other families join
+with the slices that port their models.
 """
 
 from __future__ import annotations
@@ -28,6 +28,7 @@ _ARCH_MODULES: Dict[str, str] = {
     "chatglm3-6b": "chatglm3_6b",
     "minitron-8b": "minitron_8b",
     "smollm-135m": "smollm_135m",
+    "mamba2-780m": "mamba2_780m",
 }
 
 

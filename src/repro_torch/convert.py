@@ -3,8 +3,9 @@ port's modules, as numpy arrays: neither side imports the other.
 
 The JAX tree stacks the layers on a leading axis (``layers.ln1`` is
 ``(L, d)``, ``layers.attn.wq`` is ``(L, d, h*hd)``, ``dense_ffn.wg`` is
-``(L, d, d_ff)``); the port's state dict has one entry per layer
-(``layers.3.attn.wq``). Matrices keep their ``(d_in, d_out)`` layout, so the
+``(L, d, d_ff)``; for mamba2 ``layers.wz`` is ``(L, d, d_inner)``); the
+port's state dict has one entry per layer (``layers.3.attn.wq``,
+``layers.3.wz``). Matrices keep their ``(d_in, d_out)`` layout, so the
 conversion is a copy.
 """
 
@@ -30,16 +31,22 @@ def _to_tensor(arr) -> torch.Tensor:
 def from_jax_params(params: Mapping, cfg: ModelConfig
                     ) -> Dict[str, torch.Tensor]:
     """Nested dicts of numpy arrays (``jax.tree.map(np.asarray, params)`` of
-    the JAX dense transformer) -> a state dict for
-    ``repro_torch.models.transformer.Transformer.load_state_dict``."""
-    if cfg.family != "dense":
+    the JAX dense transformer or mamba2) -> a state dict for
+    ``load_state_dict`` of the model ``get_model(cfg)`` builds."""
+    if cfg.family not in ("dense", "ssm"):
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet (ROADMAP Queue 1)")
     state = {"embed": _to_tensor(params["embed"]),
              "ln_f": _to_tensor(params["ln_f"])}
     if "head" in params:
         state["head"] = _to_tensor(params["head"])
-    layers, ffn = params["layers"], params["dense_ffn"]
+    layers = params["layers"]
+    if cfg.family == "ssm":
+        for i in range(cfg.num_layers):
+            for name, stacked in layers.items():
+                state[f"layers.{i}.{name}"] = _to_tensor(stacked[i])
+        return state
+    ffn = params["dense_ffn"]
     for i in range(cfg.num_layers):
         state[f"layers.{i}.ln1"] = _to_tensor(layers["ln1"][i])
         state[f"layers.{i}.ln2"] = _to_tensor(layers["ln2"][i])
@@ -51,10 +58,13 @@ def from_jax_params(params: Mapping, cfg: ModelConfig
 
 
 def cache_to_numpy(cache: Mapping[str, torch.Tensor]) -> Dict[str, np.ndarray]:
-    """The port's KV cache as numpy arrays in the JAX package's layout
-    (``k``/``v``: (L, b, S, hkv, d), ``pos``: (b,)); bf16 widens to fp32."""
+    """The port's cache as numpy arrays in the JAX package's layout (dense:
+    ``k``/``v`` (L, b, S, hkv, d); mamba2: ``conv`` (L, b, width - 1,
+    conv_ch), ``ssm`` (L, b, h, p, n); ``pos`` (b,)); bf16 widens to fp32.
+    The arrays are copies: the port updates its cache in place, so a view
+    would change under the caller at the next decode step."""
     out = {}
     for name, t in cache.items():
         t = t.detach().cpu()
-        out[name] = (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+        out[name] = (t.float() if t.dtype == torch.bfloat16 else t).numpy().copy()
     return out

@@ -98,6 +98,8 @@ def lib() -> ctypes.CDLL:
     loaded.repro_flash_attention.argtypes = (
         [ptr] * 6 + [i32] * 6 + [i64] * 12 + [f32, i32, i32, ptr])
     loaded.repro_flash_attention.restype = i32
+    loaded.repro_ssd_scan.argtypes = [ptr] * 7 + [i32] * 8 + [i64] * 15 + [i32, ptr]
+    loaded.repro_ssd_scan.restype = i32
     loaded.repro_cuda_error_string.argtypes = [i32]
     loaded.repro_cuda_error_string.restype = ctypes.c_char_p
     _lib = loaded

@@ -13,7 +13,7 @@ show that it went through the kernels.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -22,6 +22,7 @@ from repro_torch.kernels.flash_attention import (
     flash_attention_plain,
 )
 from repro_torch.kernels.rmsnorm import rmsnorm_cuda, rmsnorm_plain
+from repro_torch.kernels.ssd_scan import ssd_scan_cuda, ssd_scan_plain
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -49,5 +50,19 @@ def rmsnorm(x: torch.Tensor, gamma: torch.Tensor,
     return out
 
 
+def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+             B: torch.Tensor, C: torch.Tensor, chunk: int = 256
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: (b, s, h, p), dt: (b, s, h) fp32, A: (h,) fp32, B/C: (b, s, g, n)
+    -> (y (b, s, h, p), final state (b, h, p, n) fp32); see
+    ``repro_torch.kernels.ssd_scan``."""
+    if x.device.type == "cpu":
+        return ssd_scan_plain(x, dt, A, B, C, chunk)
+    out = ssd_scan_cuda(x, dt, A, B, C, chunk)
+    ssd_scan.launches += 1
+    return out
+
+
 flash_attention.launches = 0
 rmsnorm.launches = 0
+ssd_scan.launches = 0

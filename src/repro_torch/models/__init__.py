@@ -2,17 +2,18 @@
 
 ``get_model(cfg)`` returns the class that builds the model for ``cfg``; every
 model offers ``forward``, ``init_cache``, ``prefill`` and ``decode_step``.
-Only the dense family is ported so far.
+Ported so far: the dense family (``Transformer``) and the pure-SSM family
+(``Mamba``).
 """
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models.mamba import HYBRID_PENDING, Mamba
 from repro_torch.models.transformer import Transformer
 
 _PENDING = {
     "moe": "ROADMAP Queue 1: MoE + VLM in the transformer",
     "vlm": "ROADMAP Queue 1: MoE + VLM in the transformer",
-    "ssm": "ROADMAP Queue 1: models/mamba.py with the ssd_scan kernel",
-    "hybrid": "ROADMAP Queue 1: models/mamba.py with the ssd_scan kernel",
+    "hybrid": HYBRID_PENDING,
     "encdec": "ROADMAP Queue 1: models/encdec.py",
 }
 
@@ -20,6 +21,8 @@ _PENDING = {
 def get_model(cfg: ModelConfig):
     if cfg.family == "dense":
         return Transformer
+    if cfg.family == "ssm":
+        return Mamba
     if cfg.family in _PENDING:
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet ({_PENDING[cfg.family]})")

@@ -1,0 +1,276 @@
+"""Mamba2 (SSD, state-space duality) language model, ``ssm`` family.
+
+Counterpart of ``src/repro/models/mamba.py`` for the pure-SSM configs
+(mamba2). The module tree carries the JAX package's leaf names: ``embed``,
+``layers[i].{ln, wz, wx, wB, wC, wdt, conv_wx, conv_wB, conv_wC, conv_b,
+A_log, D, dt_bias, norm_g, out_proj}``, ``ln_f``; embeddings are tied when the
+config says so. ``A_log``, ``D`` and ``dt_bias`` stay fp32 whatever the
+model's type, as in the reference.
+
+Prefill runs each layer's scan through ``ops.ssd_scan`` (the hand-written
+kernel on the GPU) and every norm through ``ops.rmsnorm``. The causal conv
+and the one-token decode recurrence have no Pallas kernel in the reference
+and stay plain PyTorch. Decode updates the cache's conv and ssm state IN
+PLACE (the JAX package returns a new cache). The zamba2 ``hybrid`` family
+(one shared attention block every few layers) is not ported yet.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch import resolve_device
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops
+from repro_torch.models.common import (
+    DEFAULT_DTYPE,
+    dense_init,
+    embed_init,
+    rms_norm,
+)
+from repro_torch.models.transformer import _param
+
+HYBRID_PENDING = "ROADMAP Queue 1: zamba2 hybrid, the shared attention block"
+
+
+def _dims(cfg: ModelConfig):
+    ssm = cfg.ssm
+    gn = ssm.ngroups * ssm.state_dim
+    return ssm, cfg.d_inner, cfg.ssm_heads, gn, cfg.d_inner + 2 * gn
+
+
+class MambaLayer(nn.Module):
+    """One Mamba2 block's parameters; ``mamba_layer`` and
+    ``mamba_decode_step`` apply them."""
+
+    def __init__(self, cfg: ModelConfig, generator, dtype, device):
+        super().__init__()
+        ssm, di, heads, gn, conv_ch = _dims(cfg)
+        d, w = cfg.d_model, ssm.conv_width
+        conv_scale = 1.0 / math.sqrt(w)
+        f32 = torch.float32
+        self.ln = _param(torch.ones(d, dtype=dtype), device)
+        self.wz = _param(dense_init(generator, (d, di), dtype), device)
+        self.wx = _param(dense_init(generator, (d, di), dtype), device)
+        self.wB = _param(dense_init(generator, (d, gn), dtype), device)
+        self.wC = _param(dense_init(generator, (d, gn), dtype), device)
+        self.wdt = _param(dense_init(generator, (d, heads), dtype), device)
+        self.conv_wx = _param(dense_init(generator, (w, di), dtype,
+                                         scale=conv_scale), device)
+        self.conv_wB = _param(dense_init(generator, (w, gn), dtype,
+                                         scale=conv_scale), device)
+        self.conv_wC = _param(dense_init(generator, (w, gn), dtype,
+                                         scale=conv_scale), device)
+        self.conv_b = _param(torch.zeros(conv_ch, dtype=dtype), device)
+        self.A_log = _param(torch.log(torch.linspace(1.0, 16.0, heads,
+                                                     dtype=f32)), device)
+        self.D = _param(torch.ones(heads, dtype=f32), device)
+        self.dt_bias = _param(torch.zeros(heads, dtype=f32), device)
+        self.norm_g = _param(torch.ones(di, dtype=dtype), device)
+        self.out_proj = _param(dense_init(generator, (di, d), dtype), device)
+
+    def conv_weight(self) -> torch.Tensor:
+        """(width, conv_ch): the x, B and C columns of the depthwise conv."""
+        return torch.cat([self.conv_wx, self.conv_wB, self.conv_wC], dim=-1)
+
+
+# --------------------------------------------------------------------- #
+# Mamba2 layer (full sequence and single-step decode)
+# --------------------------------------------------------------------- #
+
+def _project(lp: MambaLayer, x: torch.Tensor):
+    """x: (..., d) -> (z, xbc_raw, dt) with xbc_raw = concat(x', B, C)."""
+    z = x @ lp.wz
+    xbc = torch.cat([x @ lp.wx, x @ lp.wB, x @ lp.wC], dim=-1)
+    return z, xbc, x @ lp.wdt
+
+
+def _causal_conv(xbc: torch.Tensor, w: torch.Tensor,
+                 b: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv1d as the reference writes it: ``width`` shifted
+    multiply-adds (no cuDNN, so fp32 stays fp32). xbc: (batch, s, ch),
+    w: (width, ch)."""
+    width, s = w.shape[0], xbc.shape[1]
+    pad = F.pad(xbc, (0, 0, width - 1, 0))
+    out = pad[:, 0:s] * w[0]
+    for i in range(1, width):
+        out = out + pad[:, i:i + s] * w[i]
+    return F.silu(out + b)
+
+
+def _gated_out(lp: MambaLayer, cfg: ModelConfig, y: torch.Tensor,
+               xi: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+    """D skip, then rms_norm(y * silu(z)) and the out projection.
+    y, xi: (..., h, p); z: (..., d_inner)."""
+    y = y + xi * lp.D[:, None].to(xi.dtype)
+    y = y.flatten(-2)
+    return rms_norm(y * F.silu(z), lp.norm_g, cfg.norm_eps) @ lp.out_proj
+
+
+def mamba_layer(lp: MambaLayer, cfg: ModelConfig, x: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Full-sequence Mamba2 block from a zero state. x: (b, s, d).
+
+    Returns (out, final ssm state (b, h, p, n) fp32, conv tail): the tail is
+    the last (width - 1) raw xbc rows, left-padded with zeros for a prompt
+    shorter than that — the decode conv state."""
+    ssm, di, heads, gn, _ = _dims(cfg)
+    z, xbc_raw, dt = _project(lp, x)
+    keep = ssm.conv_width - 1
+    tail = xbc_raw[:, -keep:]
+    if tail.shape[1] < keep:
+        tail = F.pad(tail, (0, 0, keep - tail.shape[1], 0))
+    xbc = _causal_conv(xbc_raw, lp.conv_weight(), lp.conv_b)
+    # Views of the conv output in the kernel's layout: no copy.
+    xi = xbc[..., :di].unflatten(-1, (heads, ssm.head_dim))
+    B = xbc[..., di:di + gn].unflatten(-1, (ssm.ngroups, ssm.state_dim))
+    C = xbc[..., di + gn:].unflatten(-1, (ssm.ngroups, ssm.state_dim))
+    # softplus in fp32; F.softplus returns its input above 20, where the
+    # exact value differs from it by less than 1e-8
+    dt = F.softplus(dt.float() + lp.dt_bias)
+    A = -torch.exp(lp.A_log)
+    y, state = ops.ssd_scan(xi, dt, A, B, C, ssm.chunk_size)
+    return _gated_out(lp, cfg, y, xi, z), state, tail
+
+
+def mamba_decode_step(lp: MambaLayer, cfg: ModelConfig, x: torch.Tensor,
+                      conv_state: torch.Tensor,
+                      ssm_state: torch.Tensor) -> torch.Tensor:
+    """One-token recurrent step. x: (b, 1, d); conv_state: (b, width - 1,
+    conv_ch) and ssm_state: (b, h, p, n) fp32 are views into the cache and
+    are advanced IN PLACE. Returns the block's output (b, 1, d)."""
+    ssm, di, heads, gn, _ = _dims(cfg)
+    g, r = ssm.ngroups, heads // ssm.ngroups
+    z, xbc, dt = _project(lp, x[:, 0])
+    window = torch.cat([conv_state.to(xbc.dtype), xbc[:, None]], dim=1)
+    conv_state.copy_(window[:, 1:])
+    xbc = F.silu((window * lp.conv_weight()).sum(dim=1) + lp.conv_b)
+    b = x.shape[0]
+    xi = xbc[:, :di].reshape(b, g, r, ssm.head_dim)
+    B = xbc[:, di:di + gn].reshape(b, g, ssm.state_dim).float()
+    C = xbc[:, di + gn:].reshape(b, g, ssm.state_dim).float()
+    dt = F.softplus(dt.float() + lp.dt_bias)                     # (b, h)
+    decay = torch.exp(dt * -torch.exp(lp.A_log))                 # (b, h)
+    dtx = (xi * dt.reshape(b, g, r, 1).to(xi.dtype)).float()     # (b, g, r, p)
+    # The heads of group k read B[:, k] and C[:, k] by broadcast.
+    state = ssm_state.view(b, g, r, ssm.head_dim, ssm.state_dim)
+    state.mul_(decay.reshape(b, g, r, 1, 1))
+    state.add_(dtx[..., None] * B[:, :, None, None, :])
+    y = torch.einsum("bgn,bgrpn->bgrp", C, state).to(xi.dtype)
+    return _gated_out(lp, cfg, y.reshape(b, heads, -1),
+                      xi.reshape(b, heads, -1), z)[:, None]
+
+
+# --------------------------------------------------------------------- #
+# Model
+# --------------------------------------------------------------------- #
+
+class Mamba(nn.Module):
+    """Pure Mamba2 LM. Weights are drawn from ``generator`` (a fresh one
+    seeded with 0 if none is given) and are not trainable yet. Same
+    constructor as ``Transformer``."""
+
+    def __init__(self, cfg: ModelConfig, *, dtype: torch.dtype = DEFAULT_DTYPE,
+                 device=None, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        if cfg.family == "hybrid":
+            raise NotImplementedError(
+                f"family 'hybrid' is not ported yet ({HYBRID_PENDING})")
+        if cfg.family != "ssm":
+            raise ValueError(f"Mamba builds the ssm family, not {cfg.family!r}")
+        device = resolve_device(device)
+        if generator is None:
+            generator = torch.Generator(device="cpu").manual_seed(0)
+        self.cfg = cfg
+        self.embed = _param(embed_init(
+            generator, (cfg.padded_vocab, cfg.d_model), dtype), device)
+        self.layers = nn.ModuleList(
+            MambaLayer(cfg, generator, dtype, device)
+            for _ in range(cfg.num_layers))
+        self.ln_f = _param(torch.ones(cfg.d_model, dtype=dtype), device)
+        if not cfg.tie_embeddings:
+            self.head = _param(dense_init(
+                generator, (cfg.d_model, cfg.padded_vocab), dtype), device)
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.device
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.embed.dtype
+
+    # ------------------------------------------------------------------ #
+    def _trunk(self, tokens: torch.Tensor,
+               cache: Optional[dict]) -> torch.Tensor:
+        """Embedding and all layers from a zero state. tokens: (b, s) ->
+        (b, s, d). With a cache, each layer's conv tail and final state
+        OVERWRITE the cache's (never start from them), and the clock
+        advances by s."""
+        cfg = self.cfg
+        x = self.embed[tokens]
+        for i, lp in enumerate(self.layers):
+            y, state, tail = mamba_layer(lp, cfg, rms_norm(x, lp.ln,
+                                                           cfg.norm_eps))
+            x = x + y
+            if cache is not None:
+                cache["ssm"][i].copy_(state)
+                cache["conv"][i].copy_(tail)
+        if cache is not None:
+            cache["pos"] = cache["pos"] + tokens.shape[1]
+        return x
+
+    def _logits(self, x: torch.Tensor) -> torch.Tensor:
+        x = rms_norm(x, self.ln_f, self.cfg.norm_eps)
+        head = self.embed.T if self.cfg.tie_embeddings else self.head
+        return x @ head
+
+    def forward(self, tokens: torch.Tensor, cache: Optional[dict] = None
+                ) -> Tuple[torch.Tensor, Optional[dict]]:
+        """Full-sequence forward. tokens: (b, s) integer. Returns (logits
+        (b, s, padded_vocab), cache); a given cache is filled as by a
+        prefill (the caller's dict, updated in place)."""
+        return self._logits(self._trunk(tokens, cache)), cache
+
+    def init_cache(self, batch: int, max_seq: int,
+                   dtype: Optional[torch.dtype] = None) -> dict:
+        """conv (L, b, width - 1, conv_ch) in ``dtype``, ssm (L, b, h, p, n)
+        fp32, pos (b,). O(1) in the context: ``max_seq`` sizes nothing."""
+        cfg = self.cfg
+        ssm, _, heads, _, conv_ch = _dims(cfg)
+        L = cfg.num_layers
+        return {"conv": torch.zeros((L, batch, ssm.conv_width - 1, conv_ch),
+                                    dtype=dtype or self.dtype,
+                                    device=self.device),
+                "ssm": torch.zeros((L, batch, heads, ssm.head_dim,
+                                    ssm.state_dim), dtype=torch.float32,
+                                   device=self.device),
+                "pos": torch.zeros((batch,), dtype=torch.int32,
+                                   device=self.device)}
+
+    @torch.no_grad()
+    def prefill(self, tokens: torch.Tensor, cache: dict
+                ) -> Tuple[torch.Tensor, dict]:
+        """Fill the cache from the prompt; logits of the last position,
+        (b, 1, padded_vocab). Only that position goes through the final norm
+        and the head."""
+        x = self._trunk(tokens, cache)
+        return self._logits(x[:, -1:, :]), cache
+
+    @torch.no_grad()
+    def decode_step(self, cache: dict, tokens: torch.Tensor
+                    ) -> Tuple[torch.Tensor, dict]:
+        """tokens: (b, 1), one new token per sequence. Advances the cache's
+        conv and ssm state in place."""
+        cfg = self.cfg
+        x = self.embed[tokens]
+        for i, lp in enumerate(self.layers):
+            x = x + mamba_decode_step(lp, cfg, rms_norm(x, lp.ln, cfg.norm_eps),
+                                      cache["conv"][i], cache["ssm"][i])
+        cache["pos"] = cache["pos"] + 1
+        return self._logits(x), cache

@@ -8,9 +8,10 @@ length cap) free their slot, and queued requests are prefilled into free
 slots.
 
 Where it departs from the functional reference, on purpose:
-  * the batched KV cache is updated in place. A request is prefilled straight
-    into its slot's rows of the cache (a view), where the reference fills a
-    fresh single-sequence cache and splices a copy of the whole batch;
+  * the batched cache (dense: KV; mamba2: conv and ssm state) is updated in
+    place. A request is prefilled straight into its slot's rows of the cache
+    (a view), where the reference fills a fresh single-sequence cache and
+    splices a copy of the whole batch;
   * a tick moves the sampled tokens to the host once (one ``tolist``), not
     once per slot: on the GPU each read is a synchronisation;
   * sampling at ``temperature > 0`` draws from a ``torch.Generator``; its
@@ -51,7 +52,8 @@ class EngineConfig:
 
 class Engine:
     """``model``: a built model of ``cfg``'s family (the port's counterpart
-    of the reference's ``params``); ``dtype``: the KV cache's type.
+    of the reference's ``params``); ``dtype``: the cache's type (mamba2's
+    ssm state is fp32 whatever it is).
     ``device``: the GPU unless the caller asks for another; with no GPU and
     no request this raises. The model must lie on that device."""
 
@@ -104,14 +106,17 @@ class Engine:
             req = self.queue.popleft()
             prompt = torch.as_tensor(np.asarray(req.prompt), dtype=torch.long,
                                      device=self.device)[None, :]
-            # A view of this slot's rows: the prefill writes the batched
-            # cache in place. Rows past the prompt keep the last owner's
-            # values; the causal mask hides them until they are overwritten.
+            # A view of this slot's entry of every cache tensor (the batch
+            # axis is 1 in both layouts): the prefill writes the batched cache
+            # in place. Dense: rows past the prompt keep the last owner's K/V,
+            # which the causal mask hides until they are overwritten. Mamba2:
+            # the prefill overwrites the slot's conv and ssm state and never
+            # starts from them.
             slot_cache = {
-                "k": self.cache["k"][:, slot:slot + 1],
-                "v": self.cache["v"][:, slot:slot + 1],
-                "pos": torch.zeros((1,), dtype=torch.int32,
-                                   device=self.device)}
+                name: t[:, slot:slot + 1]
+                for name, t in self.cache.items() if name != "pos"}
+            slot_cache["pos"] = torch.zeros((1,), dtype=torch.int32,
+                                            device=self.device)
             logits, slot_cache = self.model.prefill(prompt, slot_cache)
             self.cache["pos"][slot] = slot_cache["pos"][0]
             tok = self._sample(logits[:, -1, :], req.temperature)

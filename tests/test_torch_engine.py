@@ -217,6 +217,81 @@ def test_launch_serve_runs_on_cpu(capsys):
     assert "served 3 requests, 12 tokens" in out and "on cpu" in out
 
 
+# ------------------------------------------------------------------------- #
+# mamba2 (ssm family), reduced: the cache is conv and ssm state per slot
+# ------------------------------------------------------------------------- #
+
+@pytest.fixture(scope="module")
+def shared_mamba():
+    cfg_j = get_config_jax("mamba2-780m", reduced=True)
+    params = get_model_jax(cfg_j).init_params(jax.random.PRNGKey(SEED), cfg_j,
+                                              dtype=jnp.float32)
+    cfg = get_config("mamba2-780m", reduced=True)
+    model = get_model(cfg)(cfg, dtype=torch.float32, device="cpu")
+    model.load_state_dict(
+        from_jax_params(jax.tree.map(np.asarray, params), cfg))
+    return cfg_j, params, cfg, model
+
+
+# prompt lengths 2..12: 2 is shorter than the conv window (width - 1 = 3)
+MAMBA_PROMPTS = [np.random.RandomState(6).randint(0, 256, size=n)
+                 for n in (5, 2, 12, 3, 9)]
+
+
+def test_mamba_greedy_margin_is_wide(shared_mamba):
+    for p in MAMBA_PROMPTS:
+        _, margin = _direct_greedy(shared_mamba[3], p, 6, with_margin=True)
+        assert margin > 1e-3, margin
+
+
+@pytest.mark.parametrize("max_batch", [1, 2])
+def test_mamba_engine_greedy_tokens_equal_jax_engine(shared_mamba, max_batch):
+    """Five requests through fewer slots: every slot is reused."""
+    cfg_j, params, cfg, model = shared_mamba
+    eng_j = EngineJax(cfg_j, params,
+                      EngineConfigJax(max_batch=max_batch, max_seq=64),
+                      dtype=jnp.float32)
+    eng_t = Engine(cfg, model, EngineConfig(max_batch=max_batch, max_seq=64),
+                   dtype=torch.float32, device="cpu")
+    for i, p in enumerate(MAMBA_PROMPTS):
+        eng_j.submit(RequestJax(uid=i, prompt=p, max_new_tokens=6))
+        eng_t.submit(Request(uid=i, prompt=p.copy(), max_new_tokens=6))
+    done_j = eng_j.run_until_drained()
+    done_t = eng_t.run_until_drained()
+    assert [r.uid for r in done_t] == [r.uid for r in done_j]
+    want = {r.uid: r.out_tokens for r in done_j}
+    for r in done_t:
+        assert r.out_tokens == want[r.uid], (r.uid, r.out_tokens, want[r.uid])
+
+
+def test_mamba_reused_slot_answers_as_a_fresh_engine(shared_mamba):
+    """The slot's conv and ssm state still hold the previous request's when
+    the next one is admitted; its prefill overwrites them, so the second
+    request gets the tokens it gets alone in a fresh engine."""
+    _, _, cfg, model = shared_mamba
+
+    def serve(prompts):
+        eng = Engine(cfg, model, EngineConfig(max_batch=1, max_seq=64),
+                     dtype=torch.float32, device="cpu")
+        for i, p in enumerate(prompts):
+            eng.submit(Request(uid=i, prompt=p, max_new_tokens=5))
+        done = {r.uid: r.out_tokens for r in eng.run_until_drained()}
+        return done, eng.cache
+
+    first, second = MAMBA_PROMPTS[2], MAMBA_PROMPTS[1]
+    both, _ = serve([first, second])
+    alone, _ = serve([second])
+    assert both[1] == alone[0]
+    assert both[1] == _direct_greedy(model, second, 5)
+
+
+def test_launch_serve_runs_mamba_on_cpu(capsys):
+    launch_serve.main(["--arch", "mamba2-780m", "--reduced", "--device",
+                       "cpu", "--num-requests", "3", "--max-new-tokens", "4"])
+    out = capsys.readouterr().out
+    assert "served 3 requests, 12 tokens" in out and "on cpu" in out
+
+
 def test_launch_serve_without_gpu_raises():
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: the default device resolves")

@@ -4,8 +4,9 @@ The same numpy-seeded inputs go through the JAX function (the Pallas kernel
 in interpret mode and its jnp oracle) and through the port's plain PyTorch
 version, which is what the port's wrappers run for CPU tensors. Tolerances
 are the reference tests': attention fp32 2e-5, bf16 3e-2; RMSNorm fp32 1e-5,
-bf16 1e-2. Tests marked ``cuda`` hold the CUDA kernels against the plain
-versions and need the card: ``python -m pytest -m cuda tests/test_torch_kernels.py``.
+bf16 1e-2; SSD scan fp32 5e-4 / rtol 1e-3. Tests marked ``cuda`` hold the
+CUDA kernels against the plain versions and need the card:
+``python -m pytest -m cuda tests/test_torch_kernels.py``.
 """
 
 import jax.numpy as jnp
@@ -16,13 +17,16 @@ import torch
 from repro.kernels import ref
 from repro.kernels.flash_attention import flash_attention_fwd
 from repro.kernels.rmsnorm import rmsnorm as rmsnorm_pallas
+from repro.kernels.ssd_scan import ssd_scan as ssd_scan_pallas
 from repro.models.common import naive_attention as naive_attention_jax
+from repro.models.mamba import ssd_chunked
 from repro_torch.kernels import ops
 from repro_torch.kernels.flash_attention import (
     flash_attention_cuda,
     flash_attention_plain,
 )
 from repro_torch.kernels.rmsnorm import rmsnorm_cuda, rmsnorm_plain
+from repro_torch.kernels.ssd_scan import ssd_scan_cuda, ssd_scan_plain
 from repro_torch.models import common as tcommon
 
 torch.set_num_threads(1)
@@ -200,6 +204,120 @@ def test_launch_functions_refuse_cpu_tensors():
         rmsnorm_cuda(torch.ones(2, 8), torch.ones(8))
 
 
+# b, h, s, p, n, chunk, g: the table of tests/test_kernels.py (one group of
+# B/C each), then a grouped case whose length is not a multiple of the chunk
+SSD_TABLE = [
+    (2, 3, 128, 16, 32, 32, 1),
+    (1, 2, 100, 8, 16, 32, 1),      # ragged chunks
+    (2, 4, 64, 32, 64, 64, 1),
+    (1, 1, 256, 64, 128, 128, 1),   # production-like dims
+    (2, 4, 45, 16, 16, 32, 2),      # two groups of two heads, ragged
+]
+
+
+def _ssd_inputs(seed, b, h, s, p, n, g):
+    """Model layout: x (b,s,h,p), dt (b,s,h) softplus-ed, A (h,) < 0,
+    B/C (b,s,g,n), drawn as the reference tests draw them."""
+    rs = np.random.RandomState(seed)
+    return (rs.randn(b, s, h, p).astype(np.float32),
+            np.log1p(np.exp(rs.randn(b, s, h))).astype(np.float32),
+            (-np.exp(0.5 * rs.randn(h))).astype(np.float32),
+            rs.randn(b, s, g, n).astype(np.float32),
+            rs.randn(b, s, g, n).astype(np.float32))
+
+
+def _ssd_oracle(oracle, x, dt, A, B, C, chunk):
+    """The JAX function in the model's layout: ``ssd_chunked`` takes it as
+    is; the Pallas kernel and ``ref.ssd_ref`` take (b,h,s,*) with B/C
+    repeated per head."""
+    if oracle == "chunked":
+        y, st = ssd_chunked(*map(jnp.asarray, (x, dt, A, B, C)), chunk)
+        return np.asarray(y.astype(jnp.float32)), np.asarray(st)
+    reps = x.shape[2] // B.shape[2]
+    heads_first = lambda a: jnp.asarray(a).swapaxes(1, 2)
+    args = (heads_first(x), heads_first(dt), jnp.asarray(A),
+            heads_first(jnp.repeat(jnp.asarray(B), reps, axis=2)),
+            heads_first(jnp.repeat(jnp.asarray(C), reps, axis=2)))
+    if oracle == "pallas":
+        y, st = ssd_scan_pallas(*args, chunk=chunk, interpret=True)
+    else:
+        y, st = ref.ssd_ref(*args)
+    return np.asarray(y.astype(jnp.float32)).swapaxes(1, 2), np.asarray(st)
+
+
+@pytest.mark.parametrize("b,h,s,p,n,chunk,g", SSD_TABLE)
+@pytest.mark.parametrize("oracle", ["pallas", "ref", "chunked"])
+def test_ssd_plain_matches_jax(oracle, b, h, s, p, n, chunk, g):
+    x, dt, A, B, C = _ssd_inputs(10, b, h, s, p, n, g)
+    want_y, want_st = _ssd_oracle(oracle, x, dt, A, B, C, chunk)
+    y, st = ops.ssd_scan(*map(torch.from_numpy, (x, dt, A, B, C)),
+                         chunk)                     # CPU -> plain version
+    assert y.shape == (b, s, h, p) and st.shape == (b, h, p, n)
+    assert y.dtype == torch.float32 and st.dtype == torch.float32
+    np.testing.assert_allclose(y.numpy(), want_y, atol=5e-4, rtol=1e-3)
+    np.testing.assert_allclose(st.numpy(), want_st, atol=5e-4, rtol=1e-3)
+
+
+def test_ssd_plain_bf16_matches_pallas_kernel():
+    """bf16 inputs: both sides widen to fp32, compute, and round y to bf16
+    once, from fp32 values ~1e-6 of |y| apart, so they differ by at most one
+    bf16 ulp: 2^-7 of |y| (rtol 1e-2; atol 1e-2 covers values near 0). The
+    state is fp32 on both sides: the fp32 tolerance."""
+    x, dt, A, B, C = _ssd_inputs(11, 1, 2, 100, 16, 16, 1)
+    bf = lambda a: torch.from_numpy(a).to(torch.bfloat16)
+    xt, Bt, Ct = bf(x), bf(B), bf(C)
+    want_y, want_st = _ssd_oracle(
+        "pallas", xt.float().numpy(), dt, A, Bt.float().numpy(),
+        Ct.float().numpy(), 32)
+    jx = jnp.asarray(xt.float().numpy()).astype(jnp.bfloat16).swapaxes(1, 2)
+    y_pallas, _ = ssd_scan_pallas(
+        jx, jnp.asarray(dt).swapaxes(1, 2), jnp.asarray(A),
+        jnp.asarray(Bt.float().numpy()).swapaxes(1, 2).astype(jnp.bfloat16),
+        jnp.asarray(Ct.float().numpy()).swapaxes(1, 2).astype(jnp.bfloat16),
+        chunk=32, interpret=True)
+    y, st = ssd_scan_plain(xt, torch.from_numpy(dt), torch.from_numpy(A),
+                           Bt, Ct, 32)
+    assert y.dtype == torch.bfloat16 and st.dtype == torch.float32
+    np.testing.assert_allclose(
+        y.float().numpy(),
+        np.asarray(y_pallas.astype(jnp.float32)).swapaxes(1, 2),
+        atol=1e-2, rtol=1e-2)
+    np.testing.assert_allclose(y.float().numpy(), want_y, atol=1e-2, rtol=1e-2)
+    np.testing.assert_allclose(st.numpy(), want_st, atol=5e-4, rtol=1e-3)
+
+
+def test_ssd_plain_takes_views_of_the_conv_output():
+    """The model hands over strided views of one (b, s, h*p + 2*g*n)
+    tensor; the result is the one of contiguous copies."""
+    b, s, h, p, n, g = 2, 40, 4, 16, 16, 2
+    rs = np.random.RandomState(12)
+    xbc = torch.from_numpy(rs.randn(b, s, h * p + 2 * g * n).astype(np.float32))
+    x = xbc[..., :h * p].unflatten(-1, (h, p))
+    B = xbc[..., h * p:h * p + g * n].unflatten(-1, (g, n))
+    C = xbc[..., h * p + g * n:].unflatten(-1, (g, n))
+    assert not x.is_contiguous()
+    _, dt, A, _, _ = _ssd_inputs(12, b, h, s, p, n, g)
+    dt, A = torch.from_numpy(dt), torch.from_numpy(A)
+    got = ops.ssd_scan(x, dt, A, B, C, 32)
+    want = ops.ssd_scan(x.contiguous(), dt, A, B.contiguous(),
+                        C.contiguous(), 32)
+    for a, w in zip(got, want):
+        np.testing.assert_array_equal(a.numpy(), w.numpy())
+
+
+def test_ssd_cpu_call_does_not_count_as_launch():
+    before = ops.ssd_scan.launches
+    ops.ssd_scan(*map(torch.from_numpy, _ssd_inputs(13, 1, 2, 8, 8, 16, 1)), 4)
+    assert ops.ssd_scan.launches == before
+
+
+def test_ssd_launch_function_refuses_cpu_tensors():
+    """The function that launches the kernel never computes another way."""
+    with pytest.raises(ValueError, match="CUDA"):
+        ssd_scan_cuda(*map(torch.from_numpy,
+                           _ssd_inputs(14, 1, 2, 8, 8, 16, 1)), 4)
+
+
 # ------------------------------------------------------------------------- #
 # On the card: the CUDA kernels against the plain versions.
 # ------------------------------------------------------------------------- #
@@ -250,3 +368,26 @@ def test_rmsnorm_kernel_matches_plain(cuda_device, dtype, atol, shape):
     assert ops.rmsnorm.launches == before + 1
     want = rmsnorm_plain(x, g)
     assert (got.float() - want.float()).abs().max().item() <= atol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,rel", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("b,h,s,p,n,chunk,g", SSD_TABLE + [
+    (1, 48, 1024, 64, 128, 256, 1), (1, 48, 700, 64, 128, 256, 1),
+    (1, 48, 17, 64, 128, 256, 1)])
+def test_ssd_kernel_matches_plain(cuda_device, dtype, rel, b, h, s, p, n,
+                                  chunk, g):
+    """Tolerance as chip_smoke.py states it: max |kernel - plain| against
+    rel * max(1, max |plain|), for y and for the state."""
+    x, dt, A, B, C = (torch.from_numpy(a).to(cuda_device)
+                      for a in _ssd_inputs(15, b, h, s, p, n, g))
+    x, B, C = x.to(dtype), B.to(dtype), C.to(dtype)
+    before = ops.ssd_scan.launches
+    y, st = ops.ssd_scan(x, dt, A, B, C, chunk)
+    torch.cuda.synchronize()
+    assert ops.ssd_scan.launches == before + 1
+    want_y, want_st = ssd_scan_plain(x, dt, A, B, C, chunk)
+    for got, want in ((y.float(), want_y.float()), (st, want_st)):
+        scale = max(1.0, want.abs().max().item())
+        assert (got - want).abs().max().item() <= rel * scale

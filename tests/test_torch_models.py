@@ -5,6 +5,7 @@ JAX params -> numpy -> ``from_jax_params`` -> the port's modules, fp32,
 are made with numpy from a seed and handed to both sides.
 """
 
+import dataclasses
 import subprocess
 import sys
 import textwrap
@@ -27,6 +28,7 @@ from repro_torch.models import get_model
 torch.set_num_threads(1)
 
 ARCHS = ["smollm-135m", "chatglm3-6b", "minitron-8b", "internlm2-20b"]
+CONFIG_ARCHS = ARCHS + ["mamba2-780m"]
 
 
 def _pair(arch, seed=0, dtype=jnp.float32):
@@ -46,7 +48,7 @@ def _tokens(cfg, b, s, seed=0):
     return np.random.RandomState(seed).randint(0, cfg.vocab_size, size=(b, s))
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", CONFIG_ARCHS)
 @pytest.mark.parametrize("reduced", [False, True])
 def test_config_copy_equals_reference(arch, reduced):
     import dataclasses
@@ -63,7 +65,7 @@ def test_config_copy_equals_reference(arch, reduced):
 def test_get_config_unknown_arch_raises_keyerror():
     assert "smollm-135m" in list_configs()
     with pytest.raises(KeyError):
-        get_config("mamba2-780m")        # waits for its slice
+        get_config("zamba2-2.7b")        # waits for its slice
     with pytest.raises(KeyError):
         get_config("no-such-arch")
 
@@ -71,7 +73,7 @@ def test_get_config_unknown_arch_raises_keyerror():
 def test_get_model_names_pending_families():
     import dataclasses
     cfg = dataclasses.replace(get_config("smollm-135m", reduced=True),
-                              family="ssm")
+                              family="hybrid")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         get_model(cfg)
 
@@ -229,6 +231,137 @@ def test_serving_matches_forward_and_jax(arch):
         np.testing.assert_allclose(mine[name], np.asarray(cache_j[name]),
                                    atol=1e-5)
     np.testing.assert_array_equal(mine["pos"], np.asarray(cache_j["pos"]))
+
+
+# ------------------------------------------------------------------------- #
+# mamba2 (ssm family), reduced: 8 SSD heads of p 16, n 16, chunk 32
+# ------------------------------------------------------------------------- #
+
+def test_mamba_param_count_and_tree():
+    """The full config counts 781,252,608 parameters (``param_count`` leaves
+    out conv_b, dt_bias and norm_g, as the reference's does); the module tree
+    has the JAX tree's leaves, shapes and sizes."""
+    assert get_config("mamba2-780m").param_count() == 781_252_608
+    mod, cfg_j, params, model = _pair("mamba2-780m")
+    assert model.layers[0].A_log.dtype == torch.float32
+    converted = from_jax_params(jax.tree.map(np.asarray, params), cfg_j)
+    assert set(converted) == set(model.state_dict())
+    for name, t in model.state_dict().items():
+        assert t.shape == converted[name].shape, name
+    assert (sum(p.numel() for p in model.parameters())
+            == sum(a.size for a in jax.tree.leaves(params)))
+
+
+def test_mamba_forward_logits_match_jax():
+    """45 tokens cross the 32-token chunk and leave a ragged tail."""
+    mod, cfg_j, params, model = _pair("mamba2-780m")
+    toks = _tokens(cfg_j, 2, 45)
+    want, _, _ = mod.forward(params, cfg_j, jnp.asarray(toks))
+    with torch.no_grad():
+        got, cache = model(torch.from_numpy(toks))
+    assert cache is None
+    assert got.shape == (2, 45, cfg_j.padded_vocab)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4)
+
+
+@pytest.mark.parametrize("s", [45, 2])
+def test_mamba_serving_matches_forward_and_jax(s):
+    """prefill + two decode steps equal the full forward and the JAX
+    package's prefill/decode_step, the conv/ssm/pos cache included. s = 2 is
+    shorter than the conv window (width - 1 = 3): the conv tail is padded on
+    the left."""
+    mod, cfg_j, params, model = _pair("mamba2-780m")
+    b = 2
+    toks = _tokens(cfg_j, b, s + 2, seed=1)
+    with torch.no_grad():
+        full, _ = model(torch.from_numpy(toks))
+    cache = model.init_cache(b, 64)
+    cache_j = mod.init_cache(cfg_j, b, 64, dtype=jnp.float32)
+    lg, cache = model.prefill(torch.from_numpy(toks[:, :s]), cache)
+    lg_j, cache_j = mod.prefill(params, cfg_j, jnp.asarray(toks[:, :s]),
+                                cache_j)
+    steps = [(lg, lg_j, cache_to_numpy(cache),
+              jax.tree.map(np.asarray, cache_j))]
+    for t in range(s, s + 2):
+        lg, cache = model.decode_step(cache, torch.from_numpy(toks[:, t:t + 1]))
+        lg_j, cache_j = mod.decode_step(params, cfg_j, cache_j,
+                                        jnp.asarray(toks[:, t:t + 1]))
+        steps.append((lg, lg_j, cache_to_numpy(cache),
+                      jax.tree.map(np.asarray, cache_j)))
+    for k, (got, want, mine, theirs) in enumerate(steps):
+        assert got.shape == (b, 1, cfg_j.padded_vocab)
+        np.testing.assert_allclose(got[:, 0].numpy(),
+                                   full[:, s - 1 + k].numpy(),
+                                   atol=2e-3, rtol=1e-3)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4)
+        assert set(mine) == set(theirs) == {"conv", "ssm", "pos"}
+        for name in ("conv", "ssm"):
+            assert mine[name].shape == theirs[name].shape
+            np.testing.assert_allclose(mine[name], theirs[name], atol=1e-5)
+        np.testing.assert_array_equal(mine["pos"], theirs["pos"])
+
+
+def test_mamba_prefill_overwrites_the_cache_state():
+    """A prefill starts from zeros whatever the cache holds: a cache full of
+    another sequence's state gives the logits and state of a fresh one."""
+    _, cfg_j, _, model = _pair("mamba2-780m")
+    toks = torch.from_numpy(_tokens(cfg_j, 1, 9, seed=2))
+    fresh = model.init_cache(1, 64)
+    lg_fresh, fresh = model.prefill(toks, fresh)
+    stale = model.init_cache(1, 64)
+    model.prefill(torch.from_numpy(_tokens(cfg_j, 1, 30, seed=3)), stale)
+    stale["pos"].zero_()
+    lg_stale, stale = model.prefill(toks, stale)
+    torch.testing.assert_close(lg_stale, lg_fresh, rtol=0, atol=0)
+    for name in ("conv", "ssm", "pos"):
+        torch.testing.assert_close(stale[name], fresh[name], rtol=0, atol=0)
+
+
+def test_mamba_decode_updates_the_cache_in_place():
+    _, cfg_j, _, model = _pair("mamba2-780m")
+    cache = model.init_cache(2, 64)
+    _, cache = model.prefill(torch.from_numpy(_tokens(cfg_j, 2, 5)), cache)
+    ptrs = {n: cache[n].data_ptr() for n in ("conv", "ssm")}
+    before = {n: cache[n].clone() for n in ("conv", "ssm")}
+    _, cache = model.decode_step(cache, torch.tensor([[3], [4]]))
+    for name in ("conv", "ssm"):
+        assert cache[name].data_ptr() == ptrs[name]
+        assert not torch.equal(cache[name], before[name])
+    assert cache["pos"].tolist() == [6, 6]
+
+
+def test_mamba_layer_hands_the_scan_views(monkeypatch):
+    """x, B and C reach ``ops.ssd_scan`` as strided views of the conv output
+    in the model's layout (b, s, h, p) / (b, s, g, n): nothing transposed,
+    repeated or copied on the way."""
+    from repro_torch.kernels import ops
+    _, cfg_j, _, model = _pair("mamba2-780m")
+    seen = []
+    real = ops.ssd_scan
+
+    def spy(x, dt, A, B, C, chunk):
+        seen.append((x, dt, A, B, C, chunk))
+        return real(x, dt, A, B, C, chunk)
+    monkeypatch.setattr(ops, "ssd_scan", spy)
+    with torch.no_grad():
+        model(torch.from_numpy(_tokens(cfg_j, 1, 7)))
+    cfg = model.cfg
+    assert len(seen) == cfg.num_layers
+    x, dt, A, B, C, chunk = seen[0]
+    assert x.shape == (1, 7, cfg.ssm_heads, cfg.ssm.head_dim)
+    assert B.shape == C.shape == (1, 7, cfg.ssm.ngroups, cfg.ssm.state_dim)
+    assert x.data_ptr() == B.data_ptr() - cfg.d_inner * x.element_size()
+    assert not x.is_contiguous() and x.stride(-1) == 1
+    assert dt.dtype == A.dtype == torch.float32 and (A < 0).all()
+    assert chunk == cfg.ssm.chunk_size
+
+
+def test_mamba_hybrid_is_not_ported_yet():
+    from repro_torch.models.mamba import Mamba
+    cfg = dataclasses.replace(get_config("mamba2-780m", reduced=True),
+                              family="hybrid")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        Mamba(cfg, dtype=torch.float32, device="cpu")
 
 
 def test_from_jax_params_carries_bf16_bits():
