@@ -21,6 +21,15 @@ run with a non-zero exit code (nothing drops to the CPU or to a plain version):
   serve_mamba, profile_mamba
            the same for mamba2-780m at full width and depth (prefill through
            the SSD scan kernel, every norm through the RMSNorm kernel)
+  train_dlrm
+           dlrm-1.2t at every published width, tables cut to 200,000 rows,
+           fp32, weights from a seed: 20 training steps (loss -> backward ->
+           AdamW) on batches of 4096 from the port's data pipeline, through
+           the embedding-bag forward and backward kernels once each a step;
+           then two steps under torch.profiler
+  train_dlrm_check
+           one step of the kernel path against the plain path, fp32, on the
+           same weights and batch: loss, logits, gradients, updated weights
 
 The last three lines are the card as nvidia-smi names it, one JSON object
 describing every kernel, and the verdict.
@@ -32,6 +41,7 @@ plain version's products are full fp32 like the kernels'.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import subprocess
@@ -46,8 +56,16 @@ import torch.nn.functional as F
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs import get_config, get_dlrm_config  # noqa: E402
+from repro_torch.data import DataConfig, DataIterator, dlrm_batch  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
+from repro_torch.kernels.embedding_bag import (  # noqa: E402
+    EmbeddingBagPlain,
+    embedding_bag_backward_cuda,
+    embedding_bag_backward_plain,
+    embedding_bag_cuda,
+    embedding_bag_plain,
+)
 from repro_torch.kernels.flash_attention import flash_attention_plain  # noqa: E402
 from repro_torch.kernels.rmsnorm import rmsnorm_plain  # noqa: E402
 from repro_torch.kernels.ssd_scan import (  # noqa: E402
@@ -56,7 +74,13 @@ from repro_torch.kernels.ssd_scan import (  # noqa: E402
     ssd_scan_plain,
 )
 from repro_torch.models import get_model  # noqa: E402
+from repro_torch.models.dlrm import DLRM  # noqa: E402
 from repro_torch.serve import Engine, EngineConfig, Request  # noqa: E402
+from repro_torch.train.optimizer import (  # noqa: E402
+    AdamWConfig,
+    apply_updates,
+    init_state,
+)
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet, dense rates).
 HBM_BYTES_PER_S = 3.35e12
@@ -75,6 +99,15 @@ LOGIT_TOL = 2e-3    # fp32 logits, kernel path against plain path
 SSD_REL_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 SSD_NO_LIBRARY = "no single PyTorch call computes the SSD scan"
 
+# DLRM training: dlrm-1.2t at every published width, the tables cut from
+# 146,484,375 rows to 200,000 (6.55 GB of fp32 tables; the whole model's 1.2e12
+# parameters fit no card); global batch 4096; launch/train.py's learning rate.
+DLRM_ROWS = 200_000
+DLRM_BATCH = 4096
+DLRM_STEPS = 20
+DLRM_OPT = dict(lr=3e-3, warmup_steps=2, total_steps=20, use_master=False)
+DLRM_SAMPLE_BAGS = 64   # bags whose table rows the kernel-vs-plain step reads
+
 DEVICE = "cuda"
 
 
@@ -90,14 +123,18 @@ def dtype_name(dtype: torch.dtype) -> str:
 # Timing
 # ------------------------------------------------------------------------- #
 
-def time_ms(fn, arg_sets, iters: int = 50) -> dict:
+def time_ms(fn, arg_sets, iters: int = 50, graph: bool = True) -> dict:
     """Milliseconds of one ``fn(*args)``, mean of ``iters`` launches that
     rotate through ``arg_sets``, taken twice by CUDA events:
 
     ``device``: the launches captured into one CUDA graph and replayed, so
     the host's launch rate does not cap the reading: the time on the card;
     ``eager``: the same launches issued one by one from Python, as the main
-    path issues them: at small shapes this is the host's time per call."""
+    path issues them: at small shapes this is the host's time per call.
+
+    ``graph=False`` for calls of several milliseconds whose temporaries are
+    gigabytes (a capture would keep every launch's): there the host's time
+    per call is a small part of the eager reading, which stands for both."""
     def run():
         for i in range(iters):
             fn(*arg_sets[i % len(arg_sets)])
@@ -115,11 +152,13 @@ def time_ms(fn, arg_sets, iters: int = 50) -> dict:
     for args in arg_sets[:2]:
         fn(*args)
     eager = timed(run)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    if not graph:
+        return {"device": eager, "eager": eager}
+    cuda_graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(cuda_graph):
         run()
-    graph.replay()
-    return {"device": timed(graph.replay), "eager": eager}
+    cuda_graph.replay()
+    return {"device": timed(cuda_graph.replay), "eager": eager}
 
 
 def copies_for_cold_l2(tensors) -> int:
@@ -348,6 +387,171 @@ def _ssd_case(name, b, s, h, p, n, g, chunk, dtype, gen,
     return case
 
 
+def _bag_tol(want: torch.Tensor, dtype) -> float:
+    """Embedding bag, kernel against plain, both directions. fp32: the two
+    sum the same terms in another order (the backward's atomics in an order
+    that changes from run to run), at most a few hundred terms a value:
+    1e-5 of the output's scale. bf16: both round once from fp32 values a few
+    fp32 ulps apart, so they may land one bf16 ulp apart, 2^-7 of |out|."""
+    scale = max(1.0, want.float().abs().max().item())
+    return (1e-5 if dtype == torch.float32 else 2 ** -7) * scale
+
+
+def _bag_err(got: torch.Tensor, want: torch.Tensor, dtype):
+    """(max |got - want|, the tolerance), both as floats."""
+    err = (got.float() - want.float()).abs().max().item()
+    return err, _bag_tol(want, dtype)
+
+
+def _library_bag(tables, idx):
+    """The yardstick's inputs: ``F.embedding_bag`` over the flattened
+    (T * R, E) table with each table's indices shifted by t * R, one bag a
+    row; None where an index lies outside [0, R) (the library call has no
+    wrap, clamp or drop)."""
+    t, r, e = tables.shape
+    if int(idx.min()) < 0 or int(idx.max()) >= r:
+        return None
+    shift = r * torch.arange(t, device=idx.device, dtype=torch.int64)
+    flat = (idx.long() + shift[None, :, None]).reshape(-1, idx.shape[2])
+    return tables.view(t * r, e), flat
+
+
+def _bag_case(name, tables, idx, direction, big, gen) -> dict:
+    """One embedding-bag case, forward or backward, on the inputs given.
+    ``big``: the main shape, timed eagerly over 10 calls (each is
+    milliseconds, the plain versions' temporaries gigabytes)."""
+    t, r, e = tables.shape
+    b, _, n = idx.shape
+    dtype, item = tables.dtype, tables.element_size()
+    wrapped = torch.where(idx < 0, idx.long() + r, idx.long())
+    shift = r * torch.arange(t, device=idx.device)[None, :, None]
+    timing = dict(iters=10, graph=False) if big else {}
+    timed = "eager, 10 calls" if big else "graph replay of 50 calls"
+    library = _library_bag(tables, idx)
+    lookups = b * t * n
+    idx_bytes = lookups * 4
+    if direction == "forward":
+        rows = (wrapped.clamp(0, r - 1) + shift).flatten()
+        distinct = int(torch.unique(rows).numel())
+        got = ops.embedding_bag(tables, idx)
+        torch.cuda.synchronize()
+        err, tol = _bag_err(got, embedding_bag_plain(tables, idx), dtype)
+        del got
+        # what this call's data needs: each distinct row read once, the
+        # indices, the output written once
+        nbytes = distinct * e * item + idx_bytes + b * t * e * item
+        all_bytes = lookups * e * item + idx_bytes + b * t * e * item
+        flops = lookups * e
+        sets = [(tables, idx)]
+        kernel = time_ms(embedding_bag_cuda, sets, **timing)
+        plain_ms = time_ms(embedding_bag_plain, sets, **timing)["device"]
+        library_ms = None
+        if library is not None:
+            # eager: the library call is not known to be capturable
+            weight, flat = library
+            timed = f"{timed}; library: eager"
+            library_ms = time_ms(lambda w, f: F.embedding_bag(
+                f, w, mode="sum"), [(weight, flat)],
+                iters=timing.get("iters", 50), graph=False)["device"]
+    else:
+        dout = torch.randn((b, t + 1, e), generator=gen,
+                           device=DEVICE).to(dtype)[:, 1:]   # the model's view
+        valid = (wrapped >= 0) & (wrapped < r)
+        distinct = int(torch.unique((wrapped + shift)[valid]).numel())
+        got = embedding_bag_backward_cuda(dout, idx, r)
+        torch.cuda.synchronize()
+        err, tol = _bag_err(got, embedding_bag_backward_plain(dout, idx, r),
+                            dtype)
+        del got
+        # dout and the indices read once, the dense dtables written once
+        nbytes = b * t * e * item + idx_bytes + t * r * e * item
+        all_bytes = nbytes
+        flops = int(valid.sum()) * e
+        sets = [(dout, idx)]
+        kernel = time_ms(lambda d, i: embedding_bag_backward_cuda(d, i, r),
+                         sets, **timing)
+        # The plain version's masked select and autograd's backward cannot
+        # be captured into a graph: both are timed eagerly.
+        eager = dict(iters=timing.get("iters", 50), graph=False)
+        timed = f"kernel: {timed}; plain and library: eager"
+        plain_ms = time_ms(lambda d, i: embedding_bag_backward_plain(d, i, r),
+                           sets, **eager)["device"]
+        library_ms = None
+        if library is not None:
+            weight = library[0].detach().clone().requires_grad_()
+            with torch.enable_grad():
+                out = F.embedding_bag(library[1], weight, mode="sum")
+            dflat = dout.reshape(b * t, e)
+            library_ms = time_ms(lambda o, g: torch.autograd.grad(
+                o, weight, g, retain_graph=True), [(out, dflat)],
+                **eager)["device"]
+            del weight, out
+        del dout
+    bound_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    bound_ops = flops / PEAK_FLOPS[torch.float32] * 1e3
+    return {
+        "kernel": ("embedding_bag" if direction == "forward"
+                   else "embedding_bag_backward"),
+        "case": name, "shape": {"t": t, "r": r, "e": e, "b": b, "l": n},
+        "dtype": dtype_name(dtype), "max_abs_err": err, "tol": tol,
+        "kernel_ms": kernel["device"], "kernel_eager_ms": kernel["eager"],
+        "timed": timed,
+        "plain_ms": plain_ms, "library_ms": library_ms,
+        **({} if library_ms is not None else {
+            "library_note": "an index outside [0, R): F.embedding_bag has no "
+                            "wrap, clamp or drop"}),
+        "bound_ms": max(bound_bytes, bound_ops),
+        "bound_by": "bytes" if bound_bytes >= bound_ops else "operations",
+        "bytes": nbytes, "bytes_all_lookups": all_bytes,
+        "distinct_rows": distinct, "lookups": lookups,
+    }
+
+
+def _bag_cases() -> list:
+    """Embedding-bag cases, forward and backward, fp32 and bf16: the DLRM
+    training step's shape (batch 4096 over 64 tables of 200,000 x 128, 32
+    lookups), the reference tests' table, the reduced config's shape, and a
+    case with negative and >= R indices (scalar path: rows of 40 bytes).
+    Every backward case has a duplicate row in every bag."""
+    gen = torch.Generator(device=DEVICE).manual_seed(2)
+    cfg = _dlrm_setup()[0]
+    small = [("table t4 r50 e16 b3 l7", 4, 50, 16, 3, 7),
+             ("table t2 r128 e32 b8 l1", 2, 128, 32, 8, 1),
+             ("table t8 r16 e8 b2 l16", 8, 16, 8, 2, 16),
+             ("reduced config", 4, 1000, 16, 64, 32),
+             ("out of range", 3, 10, 10, 5, 9)]
+    cases = []
+    with torch.no_grad():
+        main = torch.randn((cfg.num_tables, cfg.rows_per_table, cfg.emb_dim),
+                           generator=gen, device=DEVICE)
+        shape = (DLRM_BATCH, cfg.num_tables, cfg.lookups_per_table)
+        for dtype in (torch.float32, torch.bfloat16):
+            tables = main if dtype == torch.float32 else main.to(dtype)
+            idx = torch.randint(0, cfg.rows_per_table, shape, generator=gen,
+                                device=DEVICE, dtype=torch.int32)
+            cases.append(_bag_case("main", tables, idx, "forward", True, gen))
+            idx[..., 1] = idx[..., 0]
+            cases.append(_bag_case("main", tables, idx, "backward", True, gen))
+            del tables, idx
+            for name, t, r, e, b, n in small:
+                tables = torch.randn((t, r, e), generator=gen,
+                                     device=DEVICE).to(dtype)
+                lo = -2 * r if name == "out of range" else 0
+                idx = torch.randint(lo, 2 * r if lo else r, (b, t, n),
+                                    generator=gen, device=DEVICE,
+                                    dtype=torch.int32)
+                cases.append(_bag_case(name, tables, idx, "forward", False,
+                                       gen))
+                if n > 1:
+                    idx[..., 1] = idx[..., 0]
+                cases.append(_bag_case(name, tables, idx, "backward", False,
+                                       gen))
+            torch.cuda.empty_cache()
+        del main
+    torch.cuda.empty_cache()
+    return cases
+
+
 def phase_kernels() -> list:
     gen = torch.Generator(device=DEVICE).manual_seed(0)
     # mamba2's cases draw from a stream of their own, so the dense cases
@@ -407,6 +611,7 @@ def phase_kernels() -> list:
                                        chunk, dtype, gen_mamba))
             cases.append(_ssd_case("grouped h4 g2", 2, 45, 4, 16, 16, 2, 32,
                                    dtype, gen_mamba))
+    cases.extend(_bag_cases())
     failed = [c for c in cases
               if not c.get("ok", c["max_abs_err"] <= c["tol"])]
     emit("kernels", cases=cases, failed=len(failed))
@@ -572,6 +777,24 @@ def phase_serve(arch: str, phase: str, weight_device: str) -> dict:
     return result
 
 
+def _device_time(prof, units: int, unit: str):
+    """torch.profiler's device time: the total in µs, the launches, and each
+    kernel's launches per ``unit`` and µs per launch, largest share first."""
+    device_us, launches, by_name = 0.0, 0, []
+    for evt in prof.key_averages():
+        us = getattr(evt, "self_device_time_total",
+                     getattr(evt, "self_cuda_time_total", 0.0))
+        if us:
+            device_us += us
+            launches += evt.count
+            by_name.append({"name": evt.key[:60],
+                            f"launches_per_{unit}": evt.count / units,
+                            "device_us_per_launch": us / evt.count})
+    by_name.sort(key=lambda e: -e[f"launches_per_{unit}"]
+                 * e["device_us_per_launch"])
+    return device_us, launches, by_name
+
+
 def phase_profile(engine: Engine, phase: str) -> None:
     """More decode ticks of the drained engine's model (its slots are idle
     ones: dense positions are clamped to the cache's last row, mamba2 slots
@@ -595,18 +818,7 @@ def phase_profile(engine: Engine, phase: str) -> None:
     wall_ms = (time.perf_counter() - t0) * 1e3 / ticks
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         run_ticks()
-    device_us, launches, by_name = 0.0, 0, []
-    for evt in prof.key_averages():
-        us = getattr(evt, "self_device_time_total",
-                     getattr(evt, "self_cuda_time_total", 0.0))
-        if us:
-            device_us += us
-            launches += evt.count
-            by_name.append({"name": evt.key[:60],
-                            "launches_per_tick": evt.count / ticks,
-                            "device_us_per_launch": us / evt.count})
-    by_name.sort(key=lambda e: -e["launches_per_tick"]
-                 * e["device_us_per_launch"])
+    device_us, launches, by_name = _device_time(prof, ticks, "tick")
     arch = engine.cfg.arch_id
     if device_us == 0:
         emit(phase, arch=arch, ticks=ticks, wall_ms_per_tick=wall_ms,
@@ -619,6 +831,272 @@ def phase_profile(engine: Engine, phase: str) -> None:
          device_idle_share=1.0 - device_ms / wall_ms,
          device_launches_per_tick=launches / ticks,
          top_device_time=by_name[:12])
+
+
+# ------------------------------------------------------------------------- #
+# DLRM training
+# ------------------------------------------------------------------------- #
+
+def _dlrm_setup():
+    cfg = dataclasses.replace(get_dlrm_config(), rows_per_table=DLRM_ROWS)
+    dcfg = DataConfig(vocab_size=0, seq_len=0, global_batch=DLRM_BATCH,
+                      seed=0, num_dense=cfg.num_dense_features,
+                      num_tables=cfg.num_tables,
+                      lookups=cfg.lookups_per_table, rows=cfg.rows_per_table)
+    return cfg, dcfg, AdamWConfig(**DLRM_OPT)
+
+
+def _dlrm_step(model, params, state, ocfg, batch):
+    """The reference's composition: loss -> backward -> apply_updates (in
+    place), then the gradients are let go."""
+    loss, _ = model.loss(batch)
+    loss.backward()
+    _, _, metrics = apply_updates(
+        params, {n: p.grad for n, p in params.items()}, state, ocfg)
+    model.zero_grad(set_to_none=True)
+    return loss, metrics
+
+
+def phase_train_dlrm() -> dict:
+    """dlrm-1.2t at full width (rows cut to DLRM_ROWS), fp32 parameters and
+    Adam moments, weights from seed 0 drawn on the card, batches from the
+    port's DataIterator: DLRM_STEPS steps, each synchronised and timed; then
+    two more under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    cfg, dcfg, ocfg = _dlrm_setup()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = DLRM(cfg, seed=0, device=DEVICE)
+    params = dict(model.named_parameters())
+    state = init_state(params, ocfg)
+    torch.cuda.synchronize()
+    init_seconds = time.perf_counter() - t0
+    data = DataIterator(dcfg, kind="dlrm", device=DEVICE)
+
+    def step():
+        loss, metrics = _dlrm_step(model, params, state, ocfg, next(data))
+        return loss.item(), metrics
+
+    losses, step_ms = [], []
+    torch.cuda.synchronize()
+    # The main path: counters to 0 just before, read just after.
+    ops.embedding_bag.launches = 0
+    ops.embedding_bag.backward_launches = 0
+    t_run = time.perf_counter()
+    for _ in range(DLRM_STEPS):
+        t1 = time.perf_counter()
+        loss, metrics = step()
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+        losses.append(loss)
+    run_seconds = time.perf_counter() - t_run
+    launches = {"embedding_bag": ops.embedding_bag.launches,
+                "embedding_bag_backward": ops.embedding_bag.backward_launches}
+    peak_bytes = torch.cuda.max_memory_allocated()
+
+    profiled = 2
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(profiled):
+            step()
+        torch.cuda.synchronize()
+    device_us, device_launches, by_name = _device_time(prof, profiled, "step")
+
+    problems = []
+    if not all(math.isfinite(x) for x in losses):
+        problems.append(f"a loss is not finite: {losses}")
+    first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    if not last < first:
+        problems.append(f"the loss did not fall: first 5 {first}, last 5 "
+                        f"{last}")
+    expected = {name: DLRM_STEPS for name in launches}
+    if launches != expected:
+        problems.append(f"launches {launches} != {expected} (one forward and "
+                        "one backward a step)")
+    median_ms = float(np.median(step_ms))
+    result = {
+        "arch": cfg.arch_id, "rows_per_table": cfg.rows_per_table,
+        "rows_cut_from": get_dlrm_config().rows_per_table,
+        "widths": {"tables": cfg.num_tables, "emb_dim": cfg.emb_dim,
+                   "lookups": cfg.lookups_per_table,
+                   "dense": cfg.num_dense_features,
+                   "bottom_mlp": cfg.bottom_mlp, "top_mlp": cfg.top_mlp,
+                   "top_in": cfg.top_in()},
+        "params": sum(p.numel() for p in params.values()),
+        "dtype": "float32", "optimizer": DLRM_OPT, "batch": DLRM_BATCH,
+        "steps": DLRM_STEPS, "losses": losses,
+        "step_ms": step_ms, "step_ms_median": median_ms,
+        "step_ms_mean": float(np.mean(step_ms)),
+        "samples_per_s": DLRM_STEPS * DLRM_BATCH / run_seconds,
+        "samples_per_s_at_median": DLRM_BATCH / median_ms * 1e3,
+        "launches": launches,
+        "launches_per_step": {k: v / DLRM_STEPS for k, v in launches.items()},
+        "peak_memory_bytes": peak_bytes, "init_seconds": init_seconds,
+        "grad_norm_last": metrics["grad_norm"].item(),
+        "problems": problems,
+    }
+    if device_us:
+        device_ms = device_us / 1e3 / profiled
+        result.update(
+            device_ms_per_step=device_ms,
+            device_idle_share=1.0 - device_ms / median_ms,
+            device_launches_per_step=device_launches / profiled,
+            top_device_time=by_name[:12])
+    else:
+        result.update(device_idle_share="not measured",
+                      reason="torch.profiler reported no device time")
+    emit("train_dlrm", **result)
+    if problems:
+        raise SystemExit(f"chip_smoke: train_dlrm phase failed: {problems}")
+    del model, params, state, data, prof
+    torch.cuda.empty_cache()
+    return launches
+
+
+# Kernel path against plain path, one step from the same weights and batch,
+# fp32 with TF32 off. Two comparisons:
+#
+# In the kernel path's step itself, each kernel against its plain version on
+# the inputs the step gave it: the bag's output against embedding_bag_plain
+# of the same tables and indices, and the whole dtables against
+# embedding_bag_backward_plain of the dout the step produced. 1e-5 of the
+# output's scale, as in the kernels phase (the same sums in another order).
+#
+# The two paths end to end. Their forwards differ only in the order of the
+# bag's sums (~1e-7 relative), so loss and logits agree within 1e-5 of their
+# scale. Their gradients do not agree that closely: a top-MLP pre-activation
+# within rounding of 0 takes the other side of its ReLU in one path and moves
+# that sample's share of every gradient before it (one sample's share of a
+# sum over 4096 samples of either sign is about 1/64 of a typical element,
+# and several such flips may meet in one leaf). So the
+# gradients (the MLP leaves and the tables rows of 64 sampled bags) agree
+# within 3e-2 of each leaf's largest. Adam's first step moves an element by
+# lr * g / (|g| + eps), about lr * sign(g): an element whose gradient lies
+# within that share of 0 may step the other way (at most 2 * lr). Updated
+# parameters: no element moves by more than 2 * lr from the other path's,
+# and at most 5 % of a leaf's elements (those whose gradient lies within a
+# few such shares of 0) differ by more than 1e-3 * lr.
+DLRM_CHECK_TOL = {"kernel_in_step": 1e-5, "loss": 1e-5, "logits": 1e-5,
+                  "grads": 3e-2, "params_lr": 1e-3, "params_share": 5e-2}
+
+
+def _dlrm_one_step(plain: bool) -> dict:
+    cfg, dcfg, ocfg = _dlrm_setup()
+    model = DLRM(cfg, seed=0, device=DEVICE)
+    params = dict(model.named_parameters())
+    state = init_state(params, ocfg)
+    batch = dlrm_batch(dcfg, 0, device=DEVICE)
+    bags = torch.arange(DLRM_SAMPLE_BAGS, device=DEVICE)
+    b_s = bags * (DLRM_BATCH // DLRM_SAMPLE_BAGS)
+    t_s = bags % cfg.num_tables
+    rows = batch["sparse"][b_s, t_s].long()                    # (bags, L)
+    kernel_wrapper = ops.embedding_bag
+    seen = {}
+
+    def spy(tables, indices):
+        """The kernel path, keeping the bag's output and its gradient."""
+        out = kernel_wrapper(tables, indices)
+        if out.requires_grad:
+            seen["out"] = out.detach()
+            out.register_hook(lambda g: seen.__setitem__("dout", g))
+        return out
+
+    # the wrapper's counters are looked up on ops.embedding_bag
+    spy.launches = spy.backward_launches = 0
+    ops.embedding_bag = EmbeddingBagPlain.apply if plain else spy
+    try:
+        with torch.no_grad():
+            logits = model(batch["dense"], batch["sparse"])
+        loss, _ = model.loss(batch)
+        loss.backward()
+        out = {"loss": loss.item(), "logits": logits,
+               "grads": {n: p.grad.clone() for n, p in params.items()
+                         if n != "tables"}}
+        out["grads"]["tables[sampled rows]"] = (
+            params["tables"].grad[t_s[:, None], rows].clone())
+        if not plain:
+            with torch.no_grad():
+                tables, r = params["tables"], cfg.rows_per_table
+                out["kernel_in_step"] = {
+                    "embedding_bag": _bag_err(
+                        seen["out"], embedding_bag_plain(tables,
+                                                         batch["sparse"]),
+                        torch.float32),
+                    "embedding_bag_backward": _bag_err(
+                        tables.grad, embedding_bag_backward_plain(
+                            seen["dout"], batch["sparse"], r),
+                        torch.float32)}
+            seen.clear()
+        _, _, metrics = apply_updates(
+            params, {n: p.grad for n, p in params.items()}, state, ocfg)
+        out["lr"] = metrics["lr"]
+        out["grad_norm"] = metrics["grad_norm"].item()
+        with torch.no_grad():
+            out["params"] = {n: p.detach().clone() for n, p in params.items()
+                             if n != "tables"}
+            out["params"]["tables[sampled rows]"] = (
+                params["tables"][t_s[:, None], rows].clone())
+    finally:
+        ops.embedding_bag = kernel_wrapper
+    del model, params, state
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_train_dlrm_check() -> None:
+    """One step of the kernel path, then one of the plain path, each from a
+    fresh model drawn from seed 0 and the data's step 0, in sequence."""
+    kernel = _dlrm_one_step(plain=False)
+    plain = _dlrm_one_step(plain=True)
+    tol = DLRM_CHECK_TOL
+    problems = []
+
+    def rel_err(got, want):
+        scale = want.abs().max().item()
+        return (got - want).abs().max().item(), scale
+
+    in_step = {}
+    for name, (err, bag_tol) in kernel["kernel_in_step"].items():
+        in_step[name] = {"max_abs_err": err, "tol": bag_tol}
+        if not err <= bag_tol:
+            problems.append(f"{name} in the step: {err} > {bag_tol}")
+    loss_err = abs(kernel["loss"] - plain["loss"])
+    if not loss_err <= tol["loss"] * max(1.0, abs(plain["loss"])):
+        problems.append(f"loss differs by {loss_err}")
+    logit_err, logit_scale = rel_err(kernel["logits"], plain["logits"])
+    if (kernel["logits"].shape != (DLRM_BATCH,)
+            or not torch.isfinite(kernel["logits"]).all()):
+        problems.append("logits: wrong shape or not finite")
+    if not logit_err <= tol["logits"] * max(1.0, logit_scale):
+        problems.append(f"logits differ by {logit_err}")
+    grad_err = {}
+    for name, want in plain["grads"].items():
+        err, scale = rel_err(kernel["grads"][name], want)
+        grad_err[name] = {"max_abs_err": err, "max_abs": scale}
+        if not err <= tol["grads"] * scale:
+            problems.append(f"gradient {name} differs by {err} (scale {scale})")
+    lr = kernel["lr"]
+    param_err = {}
+    for name, want in plain["params"].items():
+        diff = (kernel["params"][name] - want).abs()
+        over = int((diff > tol["params_lr"] * lr).sum())
+        param_err[name] = {"max_abs_err": diff.max().item(),
+                           "elements_over": over, "elements": diff.numel()}
+        if (over > tol["params_share"] * diff.numel()
+                or diff.max().item() > 2 * lr * (1 + 1e-3)):
+            problems.append(f"updated {name}: max difference "
+                            f"{diff.max().item()}, {over} elements differ by "
+                            f"more than {tol['params_lr']} * lr")
+    gnorm_err = abs(kernel["grad_norm"] - plain["grad_norm"])
+    if not gnorm_err <= 1e-4 * plain["grad_norm"]:
+        problems.append(f"grad_norm differs by {gnorm_err}")
+    emit("train_dlrm_check", tol=tol, kernel_in_step=in_step,
+         loss=plain["loss"], loss_abs_err=loss_err,
+         logit_max_abs=logit_scale, logit_max_abs_err=logit_err,
+         grad_norm=plain["grad_norm"], grad_norm_abs_err=gnorm_err, lr=lr,
+         grads=grad_err, updated_params=param_err,
+         sampled_bags=DLRM_SAMPLE_BAGS, problems=problems)
+    if problems:
+        raise SystemExit(f"chip_smoke: train_dlrm_check failed: {problems}")
 
 
 # ------------------------------------------------------------------------- #
@@ -636,21 +1114,29 @@ KERNELS = (
     ("ssd_scan", "src/repro_torch/kernels/csrc/ssd_scan.cu",
      "src/repro/kernels/ssd_scan.py:80",
      lambda c: c.get("case") == "main prefill" and c["dtype"] == "bfloat16"),
+    ("embedding_bag", "src/repro_torch/kernels/csrc/embedding_bag.cu",
+     "src/repro/kernels/embedding_bag.py:37",
+     lambda c: c.get("case") == "main" and c["dtype"] == "float32"),
+    ("embedding_bag_backward", "src/repro_torch/kernels/csrc/embedding_bag.cu",
+     "src/repro/kernels/embedding_bag.py:37",
+     lambda c: c.get("case") == "main" and c["dtype"] == "float32"),
 )
 
 
 def kernels_line(cases: list, launches_by_path: dict) -> dict:
-    """One entry per kernel: its launches on the main paths (each serve
-    phase's count, read just after that phase, and their sum), its largest
-    error over every case compared, and its times at the shape the main path
-    gives it most often (attention and RMSNorm: one decode tick of the bf16
-    dense serve phase; the SSD scan: the bf16 1024-token prefill). The other
-    shapes' times are in the ``kernels`` phase's line."""
+    """One entry per kernel: its launches on the main paths (each path's
+    count, read just after that path; 0 where a path never launches it; and
+    their sum), its largest error over every case compared, and its times at
+    the shape the main path gives it most often (attention and RMSNorm: one
+    decode tick of the bf16 dense serve phase; the SSD scan: the bf16
+    1024-token prefill; the embedding bag, both directions: the fp32 DLRM
+    training step). The other shapes' times are in the ``kernels`` phase's
+    line."""
     entries = []
     for name, source, replaces, is_main in KERNELS:
         mine = [c for c in cases if c["kernel"] == name]
         main_case = next(c for c in mine if is_main(c))
-        by_path = {path: counts[name]
+        by_path = {path: counts.get(name, 0)
                    for path, counts in launches_by_path.items()}
         entries.append({
             "name": name, "route": "cuda", "source": source,
@@ -686,6 +1172,8 @@ def main() -> int:
         launches[phase] = serve["launches"]
         del serve
         torch.cuda.empty_cache()
+    launches["train_dlrm"] = phase_train_dlrm()
+    phase_train_dlrm_check()
     line = kernels_line(cases, launches)
     for entry in line["kernels"]:
         if entry["launches"] <= 0:

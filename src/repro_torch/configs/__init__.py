@@ -4,7 +4,8 @@
 ``get_config("smollm-135m", reduced=True)`` -> small test variant
 
 Registered: the dense family and mamba2 (``ssm``); the other families join
-with the slices that port their models.
+with the slices that port their models. The DLRM has a config of its own:
+``get_dlrm_config()``.
 """
 
 from __future__ import annotations
@@ -43,3 +44,10 @@ def get_config(arch_id: str, reduced: bool = False) -> ModelConfig:
     mod = importlib.import_module(
         f"repro_torch.configs.{_ARCH_MODULES[arch_id]}")
     return mod.REDUCED if reduced else mod.CONFIG
+
+
+def get_dlrm_config(reduced: bool = False):
+    """The DLRM's own config (``DLRMConfig`` is not a ``ModelConfig``, so
+    ``get_config`` does not know it)."""
+    from repro_torch.configs import dlrm_1p2t
+    return dlrm_1p2t.REDUCED if reduced else dlrm_1p2t.CONFIG

@@ -6,7 +6,8 @@ The JAX tree stacks the layers on a leading axis (``layers.ln1`` is
 ``(L, d, d_ff)``; for mamba2 ``layers.wz`` is ``(L, d, d_inner)``); the
 port's state dict has one entry per layer (``layers.3.attn.wq``,
 ``layers.3.wz``). Matrices keep their ``(d_in, d_out)`` layout, so the
-conversion is a copy.
+conversion is a copy. The DLRM's tree has no stacked layers: its MLPs are
+lists, whose entries become ``bottom.0.w`` and so on.
 """
 
 from __future__ import annotations
@@ -54,6 +55,17 @@ def from_jax_params(params: Mapping, cfg: ModelConfig
             state[f"layers.{i}.attn.{name}"] = _to_tensor(stacked[i])
         for name, stacked in ffn.items():
             state[f"layers.{i}.ffn.{name}"] = _to_tensor(stacked[i])
+    return state
+
+
+def from_jax_dlrm_params(params: Mapping) -> Dict[str, torch.Tensor]:
+    """The JAX DLRM's tree of numpy arrays (``tables`` and the lists
+    ``bottom`` / ``top`` of ``{w, b}``) -> a state dict for ``DLRM``."""
+    state = {"tables": _to_tensor(params["tables"])}
+    for mlp in ("bottom", "top"):
+        for i, layer in enumerate(params[mlp]):
+            for name in ("w", "b"):
+                state[f"{mlp}.{i}.{name}"] = _to_tensor(layer[name])
     return state
 
 

@@ -4,6 +4,8 @@ in Pallas.
 flash_attention — GQA flash attention forward (csrc/flash_attention.cu)
 rmsnorm         — fused RMSNorm forward (csrc/rmsnorm.cu)
 ssd_scan        — Mamba2 SSD chunked scan forward (csrc/ssd_scan.cu)
+embedding_bag   — DLRM pooled lookup, forward and backward
+                  (csrc/embedding_bag.cu)
 
 ops.py: the public wrappers, each with a launch counter. Each kernel's module
 holds its plain PyTorch version beside the function that launches it.

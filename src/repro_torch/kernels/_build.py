@@ -100,6 +100,11 @@ def lib() -> ctypes.CDLL:
     loaded.repro_flash_attention.restype = i32
     loaded.repro_ssd_scan.argtypes = [ptr] * 7 + [i32] * 8 + [i64] * 15 + [i32, ptr]
     loaded.repro_ssd_scan.restype = i32
+    loaded.repro_embedding_bag.argtypes = [ptr] * 3 + [i32] * 5 + [i64] * 5 + [i32, ptr]
+    loaded.repro_embedding_bag.restype = i32
+    loaded.repro_embedding_bag_backward.argtypes = (
+        [ptr] * 4 + [i32] * 5 + [i64] * 5 + [i32, ptr])
+    loaded.repro_embedding_bag_backward.restype = i32
     loaded.repro_cuda_error_string.argtypes = [i32]
     loaded.repro_cuda_error_string.restype = ctypes.c_char_p
     _lib = loaded

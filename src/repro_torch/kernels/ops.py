@@ -8,7 +8,8 @@ no fall-back.
 
 Each wrapper counts its kernel launches in ``<wrapper>.launches``, a plain
 integer raised where the kernel is launched and nowhere else, so a run can
-show that it went through the kernels.
+show that it went through the kernels. ``embedding_bag`` has a gradient: its
+backward kernel counts in ``embedding_bag.backward_launches``.
 """
 
 from __future__ import annotations
@@ -17,6 +18,11 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.kernels.embedding_bag import (
+    EmbeddingBagPlain,
+    embedding_bag_backward_cuda,
+    embedding_bag_cuda,
+)
 from repro_torch.kernels.flash_attention import (
     flash_attention_cuda,
     flash_attention_plain,
@@ -63,6 +69,38 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     return out
 
 
+class _EmbeddingBagKernel(torch.autograd.Function):
+    """Both directions through the CUDA kernels, each counted where it is
+    launched."""
+
+    @staticmethod
+    def forward(ctx, tables, indices):
+        ctx.save_for_backward(indices)
+        ctx.num_rows = tables.shape[1]
+        out = embedding_bag_cuda(tables, indices)
+        embedding_bag.launches += 1
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        (indices,) = ctx.saved_tensors
+        dtables = embedding_bag_backward_cuda(dout, indices, ctx.num_rows)
+        embedding_bag.backward_launches += 1
+        return dtables, None
+
+
+def embedding_bag(tables: torch.Tensor, indices: torch.Tensor) -> torch.Tensor:
+    """tables: (T, R, E), indices: (B, T, L) int32 -> (B, T, E), with a
+    gradient for ``tables``; see ``repro_torch.kernels.embedding_bag``.
+    ``embedding_bag.launches`` counts the forward kernel's launches,
+    ``embedding_bag.backward_launches`` the backward's."""
+    if tables.device.type == "cpu":
+        return EmbeddingBagPlain.apply(tables, indices)
+    return _EmbeddingBagKernel.apply(tables, indices)
+
+
 flash_attention.launches = 0
 rmsnorm.launches = 0
 ssd_scan.launches = 0
+embedding_bag.launches = 0
+embedding_bag.backward_launches = 0

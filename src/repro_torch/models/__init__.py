@@ -3,7 +3,8 @@
 ``get_model(cfg)`` returns the class that builds the model for ``cfg``; every
 model offers ``forward``, ``init_cache``, ``prefill`` and ``decode_step``.
 Ported so far: the dense family (``Transformer``) and the pure-SSM family
-(``Mamba``).
+(``Mamba``). The DLRM, which has its own config, is
+``repro_torch.models.dlrm.DLRM``.
 """
 
 from repro_torch.configs.base import ModelConfig

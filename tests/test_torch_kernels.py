@@ -4,11 +4,13 @@ The same numpy-seeded inputs go through the JAX function (the Pallas kernel
 in interpret mode and its jnp oracle) and through the port's plain PyTorch
 version, which is what the port's wrappers run for CPU tensors. Tolerances
 are the reference tests': attention fp32 2e-5, bf16 3e-2; RMSNorm fp32 1e-5,
-bf16 1e-2; SSD scan fp32 5e-4 / rtol 1e-3. Tests marked ``cuda`` hold the
+bf16 1e-2; SSD scan fp32 5e-4 / rtol 1e-3; embedding bag fp32 1e-5, bf16
+1e-2, its backward against ``jax.grad``. Tests marked ``cuda`` hold the
 CUDA kernels against the plain versions and need the card:
 ``python -m pytest -m cuda tests/test_torch_kernels.py``.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -18,9 +20,16 @@ from repro.kernels import ref
 from repro.kernels.flash_attention import flash_attention_fwd
 from repro.kernels.rmsnorm import rmsnorm as rmsnorm_pallas
 from repro.kernels.ssd_scan import ssd_scan as ssd_scan_pallas
+from repro.models import dlrm as dlrm_jax
 from repro.models.common import naive_attention as naive_attention_jax
 from repro.models.mamba import ssd_chunked
 from repro_torch.kernels import ops
+from repro_torch.kernels.embedding_bag import (
+    embedding_bag_backward_cuda,
+    embedding_bag_backward_plain,
+    embedding_bag_cuda,
+    embedding_bag_plain,
+)
 from repro_torch.kernels.flash_attention import (
     flash_attention_cuda,
     flash_attention_plain,
@@ -319,6 +328,116 @@ def test_ssd_launch_function_refuses_cpu_tensors():
 
 
 # ------------------------------------------------------------------------- #
+# Embedding bag (DLRM). The Pallas kernel does not run on this jax (it calls
+# pl.load, which jax 0.9.0 no longer has), so the oracles are
+# ref.embedding_bag_ref and models.dlrm.embedding_bag, and jax.grad of the
+# latter for the backward. Tolerances: fp32 1e-5, bf16 1e-2 (the reference
+# test's; the tables are drawn at 0.05 so that a bf16 ulp of the sums stays
+# below 1e-2).
+# ------------------------------------------------------------------------- #
+
+# t, r, e, b, n: the table of tests/test_kernels.py::TestEmbeddingBag
+BAG_TABLE = [(4, 50, 16, 3, 7), (2, 128, 32, 8, 1), (8, 16, 8, 2, 16)]
+
+
+def _bag_inputs(seed, t, r, e, b, n):
+    rs = np.random.RandomState(seed)
+    return ((0.05 * rs.randn(t, r, e)).astype(np.float32),
+            rs.randint(0, r, size=(b, t, n)).astype(np.int32))
+
+
+def _jax_bag_grad(tables, idx, cot):
+    """jax.grad of <embedding_bag(tables, idx), cot> with respect to tables."""
+    return np.asarray(jax.grad(lambda tb: jnp.sum(
+        dlrm_jax.embedding_bag(tb, jnp.asarray(idx)) * jnp.asarray(cot)))(
+            jnp.asarray(tables)))
+
+
+@pytest.mark.parametrize("t,r,e,b,n", BAG_TABLE)
+@pytest.mark.parametrize("oracle", ["ref", "dlrm"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_embedding_bag_plain_matches_jax(t, r, e, b, n, oracle, dtype):
+    tables, idx = _bag_inputs(20, t, r, e, b, n)
+    fn = ref.embedding_bag_ref if oracle == "ref" else dlrm_jax.embedding_bag
+    if dtype == "bfloat16":
+        (tj, tt), atol = _bf16(tables), 1e-2
+    else:
+        tj, tt, atol = jnp.asarray(tables), torch.from_numpy(tables), 1e-5
+    want = fn(tj, jnp.asarray(idx))
+    got = embedding_bag_plain(tt, torch.from_numpy(idx))
+    assert got.dtype == tt.dtype and got.shape == (b, t, e)
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want.astype(jnp.float32)),
+                               atol=atol, rtol=atol)
+
+
+@pytest.mark.parametrize("t,r,e,b,n", BAG_TABLE)
+@pytest.mark.parametrize("route", ["plain", "ops"])
+def test_embedding_bag_backward_plain_matches_jax_grad(t, r, e, b, n, route):
+    """``route="ops"``: the gradient autograd takes through the wrapper on
+    CPU tensors, which is the plain backward under an autograd.Function."""
+    tables, idx = _bag_inputs(21, t, r, e, b, n)
+    cot = np.random.RandomState(22).randn(b, t, e).astype(np.float32)
+    want = _jax_bag_grad(tables, idx, cot)
+    if route == "plain":
+        got = embedding_bag_backward_plain(torch.from_numpy(cot),
+                                           torch.from_numpy(idx), r)
+    else:
+        tt = torch.from_numpy(tables).requires_grad_()
+        ops.embedding_bag(tt, torch.from_numpy(idx)).backward(
+            torch.from_numpy(cot))
+        got = tt.grad
+    assert got.shape == (t, r, e) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=1e-5)
+
+
+def test_embedding_bag_out_of_range_indices_follow_jax():
+    """A negative index wraps by +R; in the forward an index still outside
+    [0, R) is clamped, in the gradient it is dropped. R = 5, indices [7, -1]:
+    the forward sums row 4 twice, the gradient puts 1 (not 2) in row 4."""
+    rs = np.random.RandomState(23)
+    tables = rs.randn(2, 5, 6).astype(np.float32)
+    idx = np.array([[[7, -1], [0, 3]],
+                    [[-6, -5], [5, 4]],
+                    [[2, -2], [9, -9]]], np.int32)             # (3, 2, 2)
+    cot = rs.randn(3, 2, 6).astype(np.float32)
+    tt = torch.from_numpy(tables).requires_grad_()
+    out = ops.embedding_bag(tt, torch.from_numpy(idx))
+    np.testing.assert_allclose(
+        out.detach().numpy(),
+        np.asarray(dlrm_jax.embedding_bag(jnp.asarray(tables),
+                                          jnp.asarray(idx))), atol=1e-6)
+    np.testing.assert_allclose(out[0, 0].detach().numpy(), 2 * tables[0, 4],
+                               atol=1e-6)
+    out.backward(torch.from_numpy(cot))
+    np.testing.assert_allclose(tt.grad.numpy(),
+                               _jax_bag_grad(tables, idx, cot), atol=1e-6)
+    ones = embedding_bag_backward_plain(torch.ones(1, 1, 6),
+                                        torch.tensor([[[7, -1]]],
+                                                     dtype=torch.int32), 5)
+    assert ones[0, 4].tolist() == [1.0] * 6 and ones.sum().item() == 6.0
+
+
+def test_embedding_bag_cpu_calls_do_not_count_as_launches():
+    before = (ops.embedding_bag.launches, ops.embedding_bag.backward_launches)
+    tables, idx = map(torch.from_numpy, _bag_inputs(24, 2, 10, 8, 3, 4))
+    tables.requires_grad_()
+    ops.embedding_bag(tables, idx).sum().backward()
+    assert tables.grad is not None
+    assert (ops.embedding_bag.launches,
+            ops.embedding_bag.backward_launches) == before
+
+
+def test_embedding_bag_launch_functions_refuse_cpu_tensors():
+    """The functions that launch the kernels never compute another way."""
+    tables, idx = map(torch.from_numpy, _bag_inputs(25, 2, 10, 8, 3, 4))
+    with pytest.raises(ValueError, match="CUDA"):
+        embedding_bag_cuda(tables, idx)
+    with pytest.raises(ValueError, match="CUDA"):
+        embedding_bag_backward_cuda(torch.zeros(3, 2, 8), idx, 10)
+
+
+# ------------------------------------------------------------------------- #
 # On the card: the CUDA kernels against the plain versions.
 # ------------------------------------------------------------------------- #
 
@@ -391,3 +510,65 @@ def test_ssd_kernel_matches_plain(cuda_device, dtype, rel, b, h, s, p, n,
     for got, want in ((y.float(), want_y.float()), (st, want_st)):
         scale = max(1.0, want.abs().max().item())
         assert (got - want).abs().max().item() <= rel * scale
+
+
+# t, r, e, b, n: the reference table, the reduced DLRM, an out-of-range case
+# whose rows are not 16-byte packs (the scalar path) and a wide one
+BAG_CUDA_TABLE = BAG_TABLE + [(4, 1000, 16, 64, 32), (3, 10, 10, 5, 9),
+                              (64, 20000, 128, 256, 32)]
+
+
+def _bag_tol(want: torch.Tensor, dtype) -> float:
+    """fp32: the two sum up to a few hundred terms in another order, 1e-5 of
+    the output's scale. bf16: both round once from fp32 values a few fp32
+    ulps apart, so they may land one bf16 ulp apart, 2^-7 of |out|."""
+    scale = max(1.0, want.float().abs().max().item())
+    return (1e-5 if dtype == torch.float32 else 2 ** -7) * scale
+
+
+def _bag_cuda_inputs(device, dtype, t, r, e, b, n, seed):
+    tables, idx = _bag_inputs(seed, t, r, e, b, n)
+    if r == 10:                                   # wrap, clamp and drop
+        idx = np.random.RandomState(seed).randint(-2 * r, 2 * r,
+                                                  size=idx.shape)
+    if n > 1:                                     # a duplicate in every bag
+        idx[..., 1] = idx[..., 0]
+    return (torch.from_numpy(tables).to(device, dtype),
+            torch.from_numpy(idx.astype(np.int32)).to(device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t,r,e,b,n", BAG_CUDA_TABLE)
+def test_embedding_bag_kernel_matches_plain(cuda_device, dtype, t, r, e, b, n):
+    tables, idx = _bag_cuda_inputs(cuda_device, dtype, t, r, e, b, n, 26)
+    before = ops.embedding_bag.launches
+    got = ops.embedding_bag(tables, idx)
+    torch.cuda.synchronize()
+    assert ops.embedding_bag.launches == before + 1
+    want = embedding_bag_plain(tables, idx)
+    assert got.dtype == dtype and got.shape == (b, t, e)
+    assert (got.float() - want.float()).abs().max().item() <= _bag_tol(want,
+                                                                       dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t,r,e,b,n", BAG_CUDA_TABLE)
+def test_embedding_bag_backward_kernel_matches_plain(cuda_device, dtype, t, r,
+                                                     e, b, n):
+    """Through autograd, with dout a strided view (as the DLRM's cat hands
+    it over)."""
+    tables, idx = _bag_cuda_inputs(cuda_device, dtype, t, r, e, b, n, 27)
+    wide = torch.randn((b, t + 1, e), device=cuda_device).to(dtype)
+    dout = wide[:, 1:]
+    tables.requires_grad_()
+    before = ops.embedding_bag.backward_launches
+    ops.embedding_bag(tables, idx).backward(dout)
+    torch.cuda.synchronize()
+    assert ops.embedding_bag.backward_launches == before + 1
+    want = embedding_bag_backward_plain(dout, idx, r)
+    got = tables.grad
+    assert got.dtype == dtype and got.shape == (t, r, e)
+    assert (got.float() - want.float()).abs().max().item() <= _bag_tol(want,
+                                                                       dtype)

@@ -439,3 +439,101 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.startswith("imported")
+
+
+# ------------------------------------------------------------------------- #
+# DLRM (dlrm-reduced: 4 tables of 1000 x 16, 32 lookups, MLPs 13-32-16 and
+# 27-32-16-1), fp32, parameters carried from JAX by from_jax_dlrm_params
+# ------------------------------------------------------------------------- #
+
+def _dlrm_pair(seed=0):
+    from repro.configs import get_dlrm_config as get_dlrm_config_jax
+    from repro.models import dlrm as dlrm_jax
+    from repro_torch.configs import get_dlrm_config
+    from repro_torch.convert import from_jax_dlrm_params
+    from repro_torch.models.dlrm import DLRM
+    cfg_j = get_dlrm_config_jax(reduced=True)
+    params = dlrm_jax.init_params(jax.random.PRNGKey(seed), cfg_j)
+    cfg = get_dlrm_config(reduced=True)
+    model = DLRM(cfg, device="cpu")
+    model.load_state_dict(from_jax_dlrm_params(jax.tree.map(np.asarray,
+                                                            params)))
+    return dlrm_jax, cfg_j, params, model
+
+
+def _dlrm_batch_np(cfg, b, seed):
+    rs = np.random.RandomState(seed)
+    dense = rs.randn(b, cfg.num_dense_features).astype(np.float32)
+    return {"dense": dense,
+            "sparse": rs.randint(0, cfg.rows_per_table, size=(
+                b, cfg.num_tables, cfg.lookups_per_table)).astype(np.int32),
+            "labels": (dense.sum(-1) + 0.5 * rs.randn(b) > 0).astype(np.int32)}
+
+
+def _flat_jax_grads(grads) -> dict:
+    flat = {"tables": np.asarray(grads["tables"])}
+    for mlp in ("bottom", "top"):
+        for i, layer in enumerate(grads[mlp]):
+            for name in ("w", "b"):
+                flat[f"{mlp}.{i}.{name}"] = np.asarray(layer[name])
+    return flat
+
+
+@pytest.mark.parametrize("reduced", [False, True])
+def test_dlrm_config_copy_equals_reference(reduced):
+    from repro.configs import get_dlrm_config as get_dlrm_config_jax
+    from repro_torch.configs import get_dlrm_config
+    mine, theirs = get_dlrm_config(reduced), get_dlrm_config_jax(reduced)
+    assert dataclasses.asdict(mine) == dataclasses.asdict(theirs)
+    for fn in ("embedding_params", "mlp_params", "param_count"):
+        assert getattr(mine, fn)() == getattr(theirs, fn)()
+    with pytest.raises(KeyError):
+        get_config(mine.arch_id)          # not a ModelConfig
+
+
+def test_dlrm_tree_matches_jax():
+    _, cfg_j, params, model = _dlrm_pair()
+    names = [n for n, _ in model.named_parameters()]
+    assert names[0] == "tables" and "bottom.1.w" in names and "top.2.b" in names
+    assert set(names) == set(_flat_jax_grads(params))
+    assert all(p.requires_grad for p in model.parameters())
+    assert (sum(p.numel() for p in model.parameters())
+            == cfg_j.param_count())
+
+
+def test_dlrm_logits_loss_and_grads_match_jax():
+    dlrm_jax, cfg_j, params, model = _dlrm_pair()
+    batch = _dlrm_batch_np(cfg_j, 6, seed=1)
+    jb = {k: jnp.asarray(v) for k, v in batch.items()}
+    tb = {k: torch.from_numpy(v) for k, v in batch.items()}
+    want_logits = np.asarray(dlrm_jax.forward(params, cfg_j, jb["dense"],
+                                              jb["sparse"]))
+    (want_loss, _), grads = jax.value_and_grad(
+        lambda p: dlrm_jax.loss(p, cfg_j, jb), has_aux=True)(params)
+    logits = model(tb["dense"], tb["sparse"])
+    assert logits.shape == (6,)
+    np.testing.assert_allclose(logits.detach().numpy(), want_logits,
+                               rtol=1e-5, atol=1e-6)
+    loss, aux = model.loss(tb)
+    assert aux["bce"] is loss and loss.dtype == torch.float32
+    np.testing.assert_allclose(loss.item(), float(want_loss), rtol=1e-5)
+    loss.backward()
+    want = _flat_jax_grads(grads)
+    for name, p in model.named_parameters():
+        np.testing.assert_allclose(p.grad.numpy(), want[name], atol=1e-5,
+                                   rtol=1e-5, err_msg=name)
+
+
+def test_dlrm_init_is_seeded_on_its_device():
+    from repro_torch.configs import get_dlrm_config
+    from repro_torch.models.dlrm import DLRM
+    cfg = get_dlrm_config(reduced=True)
+    a, b, c = (DLRM(cfg, seed=s, device="cpu") for s in (0, 0, 1))
+    assert torch.equal(a.tables, b.tables) and torch.equal(a.top[0].w,
+                                                           b.top[0].w)
+    assert not torch.equal(a.tables, c.tables)
+    assert 0.015 < a.tables.std().item() < 0.025        # embed_init: 0.02
+    assert a.bottom[0].b.abs().max() == 0
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            DLRM(cfg)
