@@ -66,7 +66,11 @@ from repro_torch.kernels.embedding_bag import (  # noqa: E402
     embedding_bag_cuda,
     embedding_bag_plain,
 )
-from repro_torch.kernels.flash_attention import flash_attention_plain  # noqa: E402
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    DECODE_CLUSTERS,
+    flash_attention_cuda,
+    flash_attention_plain,
+)
 from repro_torch.kernels.rmsnorm import rmsnorm_plain  # noqa: E402
 from repro_torch.kernels.ssd_scan import (  # noqa: E402
     P_TILES,
@@ -260,9 +264,10 @@ def _sdpa(q, k, v, causal, mask):
 
 
 def _attention_case(name, b, h, hkv, sq, skv, d, causal, dtype, gen,
-                    kv_len=None, q_offset=None) -> dict:
+                    kv_len=None, q_offset=None, clusters=False) -> dict:
     """Inputs in the model's layout, (b, s, heads, d), handed over as
-    transposed views like the model's activations and cache."""
+    transposed views like the model's activations and cache. ``clusters``:
+    also time the decode kernel at each cluster size it takes."""
     def draw(s, heads):
         t = torch.randn((b, s, heads, d), generator=gen, device=DEVICE)
         return t.to(dtype).transpose(1, 2)
@@ -301,7 +306,7 @@ def _attention_case(name, b, h, hkv, sq, skv, d, causal, dtype, gen,
     sets = [(clone_like(q), clone_like(k), clone_like(v)) for _ in range(n)]
     kernel = time_ms(lambda a, b_, c: ops.flash_attention(
         a, b_, c, causal, kv_len_t, q_off_t), sets)
-    return {
+    case = {
         "kernel": "flash_attention", "case": name,
         "shape": {"b": b, "h": h, "hkv": hkv, "sq": sq, "skv": skv, "d": d,
                   "causal": causal, "kv_len": kv_len is not None,
@@ -316,6 +321,15 @@ def _attention_case(name, b, h, hkv, sq, skv, d, causal, dtype, gen,
         "bound_by": "bytes" if bound_bytes >= bound_ops else "operations",
         "cold_copies": n,
     }
+    if clusters:
+        # The cluster size is the decode kernel's one occupancy knob: time
+        # each choice.
+        case["cluster_ms"] = {
+            str(c): time_ms(lambda a, b_, v_, c=c: flash_attention_cuda(
+                a, b_, v_, causal, kv_len_t, q_off_t, decode_cluster=c),
+                sets)["device"]
+            for c in DECODE_CLUSTERS}
+    return case
 
 
 def _ssd_case(name, b, s, h, p, n, g, chunk, dtype, gen,
@@ -557,7 +571,11 @@ def phase_kernels() -> list:
     # mamba2's cases draw from a stream of their own, so the dense cases
     # keep the inputs they always had
     gen_mamba = torch.Generator(device=DEVICE).manual_seed(1)
+    # and the cases added with the redesigned attention kernels from a third
+    # (their positions too, so the decode tick keeps its positions)
+    gen_attn = torch.Generator(device=DEVICE).manual_seed(3)
     rs = np.random.RandomState(0)
+    rs_attn = np.random.RandomState(3)
     cases = []
     with torch.no_grad():
         for dtype in (torch.float32, torch.bfloat16):
@@ -569,7 +587,7 @@ def phase_kernels() -> list:
             decode_pos = rs.randint(0, 2048, size=8).tolist()
             cases.append(_attention_case(
                 "decode tick", 8, 9, 3, 1, 2048, 64, True, dtype, gen,
-                q_offset=decode_pos))
+                q_offset=decode_pos, clusters=True))
             for s in (17, 130, 1024, 2048):
                 cases.append(_attention_case(
                     f"prefill s={s}", 1, 9, 3, s, s, 64, True, dtype, gen))
@@ -589,6 +607,23 @@ def phase_kernels() -> list:
             cases.append(_attention_case(
                 "3 rows non-causal with kv_len, d=128", 2, 8, 2, 3, 300, 128,
                 False, dtype, gen, kv_len=[300, 1]))
+            # every slot at the cache's end (the idle slots' clamp), a
+            # chatglm3-6b tick (group 16, d 128), a mid-length prompt
+            cases.append(_attention_case(
+                "decode at the cache's end", 8, 9, 3, 1, 2048, 64, True,
+                dtype, gen_attn, q_offset=[2047] * 8))
+            # one key a sequence: the decode kernel's fixed cost (launch,
+            # q, the merges)
+            cases.append(_attention_case(
+                "decode, one key a sequence", 8, 9, 3, 1, 2048, 64, True,
+                dtype, gen_attn, q_offset=[0] * 8))
+            cases.append(_attention_case(
+                "decode chatglm3 group 16, d=128", 8, 32, 2, 1, 2048, 128,
+                True, dtype, gen_attn,
+                q_offset=rs_attn.randint(0, 2048, size=8).tolist()))
+            cases.append(_attention_case(
+                "prefill s=512", 1, 9, 3, 512, 512, 64, True, dtype,
+                gen_attn))
             # mamba2-780m's norms: decode tick and prefill, d_model 1536
             # and the gated norm's d_inner 3072
             for shape in ((8, 1, 1536), (8, 1, 3072), (1, 1024, 3072)):
@@ -1130,7 +1165,8 @@ def kernels_line(cases: list, launches_by_path: dict) -> dict:
     the shape the main path gives it most often (attention and RMSNorm: one
     decode tick of the bf16 dense serve phase; the SSD scan: the bf16
     1024-token prefill; the embedding bag, both directions: the fp32 DLRM
-    training step). The other shapes' times are in the ``kernels`` phase's
+    training step); attention also carries the bf16 1024-token prefill under
+    ``prefill``. The other shapes' times are in the ``kernels`` phase's
     line."""
     entries = []
     for name, source, replaces, is_main in KERNELS:
@@ -1155,6 +1191,13 @@ def kernels_line(cases: list, launches_by_path: dict) -> dict:
                          if k in main_case},
             "cases_compared": len(mine),
         })
+        if name == "flash_attention":
+            prefill = next(c for c in mine if c["case"] == "prefill s=1024"
+                           and c["dtype"] == "bfloat16")
+            entries[-1]["prefill"] = {
+                k: prefill[k] for k in ("case", "kernel_ms", "kernel_eager_ms",
+                                        "plain_ms", "library_ms", "bound_ms",
+                                        "bound_by")}
     return {"kernels": entries}
 
 

@@ -96,7 +96,7 @@ def lib() -> ctypes.CDLL:
     loaded.repro_rmsnorm.argtypes = [ptr, ptr, ptr, i64, i32, f32, i32, ptr]
     loaded.repro_rmsnorm.restype = i32
     loaded.repro_flash_attention.argtypes = (
-        [ptr] * 6 + [i32] * 6 + [i64] * 12 + [f32, i32, i32, ptr])
+        [ptr] * 6 + [i32] * 6 + [i64] * 12 + [f32, i32, i32, i32, ptr])
     loaded.repro_flash_attention.restype = i32
     loaded.repro_ssd_scan.argtypes = [ptr] * 7 + [i32] * 8 + [i64] * 15 + [i32, ptr]
     loaded.repro_ssd_scan.restype = i32

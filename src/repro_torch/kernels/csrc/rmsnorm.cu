@@ -6,16 +6,23 @@
 //
 // Bound on this card: bytes. Each element is read once and written once and
 // takes three floating-point operations, far below the ~295 operations per
-// byte at which an H100 turns compute-bound. So the design moves each byte
-// once: one warp owns one row, reads it with 16-byte loads (neighbouring lanes
-// on neighbouring addresses), parks the raw values in shared memory while the
-// sum of squares is reduced with warp shuffles, and writes the scaled row from
-// shared memory without touching device memory again. The TPU kernel's 256-row
-// blocks and its row padding have no counterpart: the ragged last block is a
-// warp that returns, and `d` needs to be neither a power of two nor a multiple
-// of the warp size (a scalar path covers rows that are not 16-byte aligned).
-// At the few rows of a decode tick the kernel is launch- and latency-bound;
-// fusing it into its neighbours is the cure, in a later change.
+// byte at which an H100 turns compute-bound. At the main path's sizes (a
+// decode tick's 8 rows of 576 to 3072 values) the time is latency: the launch
+// and one trip to memory. So the design makes the trip once:
+//  * `rmsnorm_regs_kernel` (rows of up to 1024 units a lane can hold: 16-byte
+//    packs where rows are whole packs, so bf16 d <= 8192 and fp32 d <= 4096,
+//    else single elements, d <= 1024): a team of TW warps owns a row and each
+//    lane a compile-time number NP of its units, neighbouring lanes on
+//    neighbouring addresses. The loads of x and of gamma are issued together
+//    before the reduction, the row stays in registers, and the sum of
+//    squares is a warp shuffle (and, with two warps a row, one exchange in
+//    shared memory). A launch of at most 8 rows is one block, so the rows run
+//    side by side; more rows take blocks of 4 warps.
+//  * `rmsnorm_smem_kernel` (wider rows): one warp a row parks the raw row in
+//    shared memory while the sum is reduced, then reads gamma.
+// The TPU kernel's 256-row blocks and its row padding have no counterpart: the
+// ragged last block has warps that do nothing, and `d` needs to be neither a
+// power of two nor a multiple of the warp size.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -23,7 +30,7 @@
 
 namespace {
 
-constexpr int kWarpsPerBlock = 4;
+constexpr int kSmemWarps = 4;
 constexpr int kMaxDynamicSmem = 232448;  // 227 KB, the most one block can take
 
 __device__ __forceinline__ float to_float(float v) { return v; }
@@ -37,16 +44,97 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// One warp per row. VEC: rows are 16-byte aligned and hold a whole number of
-// 16-byte packs, so loads and stores are uint4.
+// A team of TW warps a row, NP units a lane, in registers. VEC: a unit is a
+// 16-byte pack (rows are 16-byte aligned and hold a whole number of packs);
+// otherwise one element.
 template <typename T, bool VEC>
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
-rmsnorm_kernel(const T* __restrict__ x, const T* __restrict__ gamma, T* __restrict__ out,
-               long long rows, int d, float eps) {
+struct Unit {
+  using type = T;
+  static constexpr int ELEMS = 1;
+};
+
+template <typename T>
+struct Unit<T, true> {
+  using type = uint4;
+  static constexpr int ELEMS = 16 / sizeof(T);
+};
+
+template <typename T, int NP, int TW, bool VEC>
+__global__ void __launch_bounds__(256)
+rmsnorm_regs_kernel(const T* __restrict__ x, const T* __restrict__ gamma, T* __restrict__ out,
+                    long long rows, int d, float eps) {
+  using U = typename Unit<T, VEC>::type;
+  constexpr int PER = Unit<T, VEC>::ELEMS;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int team = warp / TW;
+  const int slot0 = (warp % TW) * 32 + lane;
+  const long long row = (long long)blockIdx.x * (blockDim.x / (32 * TW)) + team;
+  const bool live = row < rows;
+  const int nvec = d / PER;
+  const U* xv = reinterpret_cast<const U*>(x + (live ? row : 0) * d);
+  const U* gv = reinterpret_cast<const U*>(gamma);
+
+  U xr[NP], gr[NP];
+#pragma unroll
+  for (int j = 0; j < NP; ++j) {
+    const int i = slot0 + j * 32 * TW;
+    if (live && i < nvec) {
+      xr[j] = xv[i];
+      gr[j] = gv[i];
+    }
+  }
+  float ss = 0.f;
+#pragma unroll
+  for (int j = 0; j < NP; ++j) {
+    const int i = slot0 + j * 32 * TW;
+    if (live && i < nvec) {
+      const T* e = reinterpret_cast<const T*>(&xr[j]);
+#pragma unroll
+      for (int u = 0; u < PER; ++u) {
+        const float f = to_float(e[u]);
+        ss += f * f;
+      }
+    }
+  }
+  ss = warp_sum(ss);
+  if (TW > 1) {
+    __shared__ float part[8];
+    if (lane == 0) part[warp] = ss;
+    __syncthreads();
+    ss = 0.f;
+#pragma unroll
+    for (int w = 0; w < TW; ++w) ss += part[team * TW + w];
+  }
+  const float inv = 1.0f / sqrtf(ss / (float)d + eps);
+
+  U* ov = reinterpret_cast<U*>(out + (live ? row : 0) * d);
+#pragma unroll
+  for (int j = 0; j < NP; ++j) {
+    const int i = slot0 + j * 32 * TW;
+    if (live && i < nvec) {
+      U res;
+      const T* e = reinterpret_cast<const T*>(&xr[j]);
+      const T* g = reinterpret_cast<const T*>(&gr[j]);
+      T* r = reinterpret_cast<T*>(&res);
+#pragma unroll
+      for (int u = 0; u < PER; ++u) from_float(to_float(e[u]) * inv * to_float(g[u]), &r[u]);
+      ov[i] = res;
+    }
+  }
+}
+
+// One warp per row, the raw row parked in shared memory. VEC: rows are
+// 16-byte aligned and hold a whole number of 16-byte packs, so loads and
+// stores are uint4; otherwise scalar.
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(kSmemWarps * 32)
+rmsnorm_smem_kernel(const T* __restrict__ x, const T* __restrict__ gamma, T* __restrict__ out,
+                    long long rows, int d, float eps) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const long long row = (long long)blockIdx.x * kWarpsPerBlock + warp;
+  const long long row = (long long)blockIdx.x * kSmemWarps + warp;
   if (row >= rows) return;  // no block-wide barrier below, so a warp may leave
 
   T* srow = reinterpret_cast<T*>(smem_raw) + (size_t)warp * d;
@@ -103,23 +191,61 @@ rmsnorm_kernel(const T* __restrict__ x, const T* __restrict__ gamma, T* __restri
   }
 }
 
+template <typename T, int NP, int TW, bool VEC>
+cudaError_t launch_regs(const T* x, const T* gamma, T* out, long long rows, int d, float eps,
+                        cudaStream_t stream) {
+  // At most 8 rows: one block, a team a row. Otherwise 4 warps a block.
+  const long long teams = rows * TW <= 8 ? rows : 4 / TW;
+  const long long blocks = (rows + teams - 1) / teams;
+  if (blocks > 2147483647LL) return cudaErrorInvalidValue;
+  rmsnorm_regs_kernel<T, NP, TW, VEC><<<(unsigned)blocks, (unsigned)(teams * TW * 32), 0, stream>>>(
+      x, gamma, out, rows, d, eps);
+  return cudaGetLastError();
+}
+
+// The fewest unit slots a lane that cover a row of `units`; false when the
+// row is wider than 1024 units.
+template <typename T, bool VEC>
+bool launch_regs_for(const T* x, const T* gamma, T* out, long long rows, int d, float eps,
+                     cudaStream_t stream, cudaError_t* err) {
+  const int units = VEC ? (int)((size_t)d * sizeof(T) / 16) : d;
+  const int lane_units = (units + 31) / 32;
+  if (lane_units <= 1) *err = launch_regs<T, 1, 1, VEC>(x, gamma, out, rows, d, eps, stream);
+  else if (lane_units <= 2) *err = launch_regs<T, 2, 1, VEC>(x, gamma, out, rows, d, eps, stream);
+  else if (lane_units <= 3) *err = launch_regs<T, 3, 1, VEC>(x, gamma, out, rows, d, eps, stream);
+  else if (lane_units <= 4) *err = launch_regs<T, 4, 1, VEC>(x, gamma, out, rows, d, eps, stream);
+  else if (lane_units <= 6) *err = launch_regs<T, 6, 1, VEC>(x, gamma, out, rows, d, eps, stream);
+  else if (lane_units <= 8) *err = launch_regs<T, 8, 1, VEC>(x, gamma, out, rows, d, eps, stream);
+  else if (lane_units <= 12) *err = launch_regs<T, 12, 1, VEC>(x, gamma, out, rows, d, eps, stream);
+  else if (lane_units <= 16) *err = launch_regs<T, 16, 1, VEC>(x, gamma, out, rows, d, eps, stream);
+  else if (lane_units <= 24) *err = launch_regs<T, 12, 2, VEC>(x, gamma, out, rows, d, eps, stream);
+  else if (lane_units <= 32) *err = launch_regs<T, 16, 2, VEC>(x, gamma, out, rows, d, eps, stream);
+  else return false;
+  return true;
+}
+
 template <typename T>
-cudaError_t launch(const void* x, const void* gamma, void* out, long long rows, int d, float eps,
+cudaError_t launch(const void* xp, const void* gp, void* op, long long rows, int d, float eps,
                    cudaStream_t stream) {
-  const size_t smem = (size_t)kWarpsPerBlock * d * sizeof(T);
-  if (smem > (size_t)kMaxDynamicSmem) return cudaErrorInvalidValue;
+  const T* x = static_cast<const T*>(xp);
+  const T* gamma = static_cast<const T*>(gp);
+  T* out = static_cast<T*>(op);
   const bool vec = ((size_t)d * sizeof(T)) % 16 == 0 && (uintptr_t)x % 16 == 0 &&
                    (uintptr_t)gamma % 16 == 0 && (uintptr_t)out % 16 == 0;
-  auto kernel = vec ? rmsnorm_kernel<T, true> : rmsnorm_kernel<T, false>;
+  cudaError_t err = cudaSuccess;
+  if (vec ? launch_regs_for<T, true>(x, gamma, out, rows, d, eps, stream, &err)
+          : launch_regs_for<T, false>(x, gamma, out, rows, d, eps, stream, &err))
+    return err;
+  const size_t smem = (size_t)kSmemWarps * d * sizeof(T);
+  if (smem > (size_t)kMaxDynamicSmem) return cudaErrorInvalidValue;
+  auto kernel = vec ? rmsnorm_smem_kernel<T, true> : rmsnorm_smem_kernel<T, false>;
   if (smem > 48 * 1024) {
-    cudaError_t err =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
   }
-  const long long blocks = (rows + kWarpsPerBlock - 1) / kWarpsPerBlock;
+  const long long blocks = (rows + kSmemWarps - 1) / kSmemWarps;
   if (blocks > 2147483647LL) return cudaErrorInvalidValue;
-  kernel<<<(unsigned)blocks, kWarpsPerBlock * 32, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(gamma), static_cast<T*>(out), rows, d, eps);
+  kernel<<<(unsigned)blocks, kSmemWarps * 32, smem, stream>>>(x, gamma, out, rows, d, eps);
   return cudaGetLastError();
 }
 

@@ -24,6 +24,9 @@ from repro_torch.kernels import _build
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (64, 128)
 NEG_INF = -1e30
+# Decode (sq <= 8): each (batch, KV head) splits its keys over a thread block
+# cluster of one of these sizes (8 unless the caller picks another).
+DECODE_CLUSTERS = (1, 2, 4, 8)
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -68,12 +71,15 @@ def _check_index_vector(name: str, t: torch.Tensor, b: int,
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          causal: bool = True,
                          kv_len: Optional[torch.Tensor] = None,
-                         q_offset: Optional[torch.Tensor] = None
+                         q_offset: Optional[torch.Tensor] = None,
+                         decode_cluster: Optional[int] = None
                          ) -> torch.Tensor:
     """Launch the CUDA kernel on PyTorch's current stream. Inputs are taken by
     their strides (transposed views are fine; only the last dim must be
-    contiguous and every row 16-byte aligned). Raises on anything the kernel
-    does not take; never computes the result another way."""
+    contiguous and every row 16-byte aligned). ``decode_cluster``: blocks a
+    (batch, KV head) splits its keys over when ``sq <= 8`` (one of
+    ``DECODE_CLUSTERS``; None for the kernel's default). Raises on anything
+    the kernel does not take; never computes the result another way."""
     if not (q.is_cuda and k.device == q.device and v.device == q.device):
         raise ValueError(
             f"flash attention kernel: q, k, v on {q.device}, {k.device}, "
@@ -113,6 +119,10 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         _check_index_vector("kv_len", kv_len, b, q.device)
     if q_offset is not None:
         _check_index_vector("q_offset", q_offset, b, q.device)
+    if decode_cluster is not None and decode_cluster not in DECODE_CLUSTERS:
+        raise ValueError(
+            f"flash attention kernel: decode_cluster {decode_cluster} not in "
+            f"{DECODE_CLUSTERS}")
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         raise RuntimeError(
@@ -131,7 +141,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             b, h, hkv, sq, skv, d,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
             *out.stride()[:3],
-            1.0 / math.sqrt(d), int(bool(causal)), _DTYPE_CODE[q.dtype],
-            stream)
+            1.0 / math.sqrt(d), int(bool(causal)), decode_cluster or 0,
+            _DTYPE_CODE[q.dtype], stream)
     _build.check(code, "flash attention kernel launch")
     return out
