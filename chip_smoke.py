@@ -20,7 +20,9 @@ run with a non-zero exit code (nothing drops to the CPU or to a plain version):
   profile  a few decode ticks under torch.profiler: the device's busy share
   serve_mamba, profile_mamba
            the same for mamba2-780m at full width and depth (prefill through
-           the SSD scan kernel, every norm through the RMSNorm kernel)
+           the SSD scan's stage kernels, every norm through the RMSNorm
+           kernel); profile_mamba also traces one 1024-token prefill and
+           reports the scan's share of its device time
   train_dlrm
            dlrm-1.2t at every published width, tables cut to 200,000 rows,
            fp32, weights from a seed: 20 training steps (loss -> backward ->
@@ -73,9 +75,11 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
 )
 from repro_torch.kernels.rmsnorm import rmsnorm_plain  # noqa: E402
 from repro_torch.kernels.ssd_scan import (  # noqa: E402
-    P_TILES,
-    ssd_scan_cuda,
+    KERNELS_PER_CALL,
+    STAGES,
+    ssd_buffers,
     ssd_scan_plain,
+    ssd_stages_cuda,
 )
 from repro_torch.models import get_model  # noqa: E402
 from repro_torch.models.dlrm import DLRM  # noqa: E402
@@ -333,7 +337,7 @@ def _attention_case(name, b, h, hkv, sq, skv, d, causal, dtype, gen,
 
 
 def _ssd_case(name, b, s, h, p, n, g, chunk, dtype, gen,
-              p_tiles=False) -> dict:
+              stages=False) -> dict:
     """Inputs in the model's layout: x, B and C are views of one conv output
     (b, s, h*p + 2*g*n), as ``mamba_layer`` hands them over; dt is
     softplus-ed, A negative, as the reference tests draw them."""
@@ -391,13 +395,18 @@ def _ssd_case(name, b, s, h, p, n, g, chunk, dtype, gen,
         "bound_ms": max(bound_bytes, bound_ops),
         "bound_by": "bytes" if bound_bytes >= bound_ops else "operations",
         "flops": flops, "bytes": nbytes, "cold_copies": len(sets),
+        "kernels_per_call": KERNELS_PER_CALL,
     }
-    if p_tiles:
-        # The p-tile is the kernel's one occupancy knob: time each choice.
-        case["p_tile_ms"] = {
-            str(t): time_ms(lambda x_, B_, C_, t=t: ssd_scan_cuda(
-                x_, dt, A, B_, C_, chunk, p_tile=t), sets, iters)["device"]
-            for t in P_TILES}
+    if stages:
+        # Each stage kernel's device time alone, on the scratch of one whole
+        # call (a stage reads what the stages before it wrote).
+        bufs = ssd_buffers(x, B, chunk)
+        ssd_stages_cuda(x, dt, A, B, C, chunk, bufs)
+        case["stage_ms"] = {
+            stage: time_ms(lambda x_, B_, C_, stage=stage: ssd_stages_cuda(
+                x_, dt, A, B_, C_, chunk, bufs, (stage,)), sets,
+                iters)["device"]
+            for stage in STAGES}
     return case
 
 
@@ -633,7 +642,7 @@ def phase_kernels() -> list:
             # prompt shorter than a chunk, the reference tests' table (B/C
             # one group each) and a grouped case
             cases.append(_ssd_case("main prefill", 1, 1024, 48, 64, 128, 1,
-                                   256, dtype, gen_mamba, p_tiles=True))
+                                   256, dtype, gen_mamba, stages=True))
             for s in (700, 17):
                 cases.append(_ssd_case(f"prefill s={s}", 1, s, 48, 64, 128,
                                        1, 256, dtype, gen_mamba))
@@ -861,11 +870,55 @@ def phase_profile(engine: Engine, phase: str) -> None:
              reason="torch.profiler reported no device time")
         return
     device_ms = device_us / 1e3 / ticks
+    prefill = _traced_prefill(engine) if engine.cfg.family == "ssm" else {}
     emit(phase, arch=arch, ticks=ticks, wall_ms_per_tick=wall_ms,
          device_ms_per_tick=device_ms, device_busy_share=device_ms / wall_ms,
          device_idle_share=1.0 - device_ms / wall_ms,
          device_launches_per_tick=launches / ticks,
-         top_device_time=by_name[:12])
+         top_device_time=by_name[:12], **prefill)
+
+
+# The SSD scan's stage kernels as torch.profiler names them (either type).
+SSD_KERNEL_NAMES = tuple(f"{stage}_{kind}_kernel" for stage in STAGES
+                         if stage != "pass" for kind in ("mma", "f32")
+                         ) + ("pass_kernel",)
+
+
+def _traced_prefill(engine: Engine) -> dict:
+    """One 1024-token prefill of one sequence (the longest prompt the serve
+    phase draws), timed on the host's clock and then traced: its device ms
+    and launches, and the SSD scan's share of them (its stage kernels)."""
+    from torch.profiler import ProfilerActivity, profile
+    model, tokens = engine.model, torch.from_numpy(
+        np.random.RandomState(1).randint(
+            0, engine.cfg.vocab_size, size=(1, 1024))).to(DEVICE)
+
+    def run():
+        logits, _ = model.prefill(tokens, model.init_cache(1, 1024))
+        logits[:, 0].argmax(-1).tolist()
+        torch.cuda.synchronize()
+
+    run()
+    t0 = time.perf_counter()
+    run()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+    device_us, launches, by_name = _device_time(prof, 1, "prefill")
+    scan_us, scan_launches = 0.0, 0
+    for evt in prof.key_averages():
+        if any(k in evt.key for k in SSD_KERNEL_NAMES):
+            scan_us += getattr(evt, "self_device_time_total",
+                               getattr(evt, "self_cuda_time_total", 0.0))
+            scan_launches += evt.count
+    if device_us == 0:
+        return {"prefill_1024": "not measured: torch.profiler reported no "
+                                "device time"}
+    return {"prefill_1024": {
+        "wall_ms": wall_ms, "device_ms": device_us / 1e3,
+        "device_launches": launches, "scan_device_ms": scan_us / 1e3,
+        "scan_launches": scan_launches, "scan_share": scan_us / device_us,
+        "top_device_time": by_name[:8]}}
 
 
 # ------------------------------------------------------------------------- #
@@ -1191,6 +1244,9 @@ def kernels_line(cases: list, launches_by_path: dict) -> dict:
                          if k in main_case},
             "cases_compared": len(mine),
         })
+        if name == "ssd_scan":
+            entries[-1]["kernels_per_call"] = main_case["kernels_per_call"]
+            entries[-1]["stage_ms"] = main_case["stage_ms"]
         if name == "flash_attention":
             prefill = next(c for c in mine if c["case"] == "prefill s=1024"
                            and c["dtype"] == "bfloat16")

@@ -1,13 +1,16 @@
-"""Times this tree's flash attention and RMSNorm kernels against another
-tree's sources on the same inputs, in one process on one card, in turns
-(other, this, this, other), so that two versions are compared within one run.
+"""Times this tree's flash attention, RMSNorm and SSD scan kernels against
+another tree's sources on the same inputs, in one process on one card, in
+turns (other, this, this, other), so that two versions are compared within
+one run. An SSD scan source with the older single-kernel entry point (its
+``p_tile`` argument) is called with p-tiles of 32, its default.
 
     git archive <rev> src/repro_torch/kernels/csrc | tar -x -C build/ab_other
     python3 kernel_ab.py build/ab_other/src/repro_torch/kernels/csrc
 
 Prints one JSON line per case: each side's two device times (CUDA graph
 replay over cold copies, as ``chip_smoke.py`` times) and its largest error
-against the plain version. Needs one CUDA device and ``nvcc``.
+against the plain version (the SSD scan's: over y and the final state). Needs
+one CUDA device and ``nvcc``.
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ import chip_smoke as cs  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention_plain  # noqa: E402
 from repro_torch.kernels.rmsnorm import rmsnorm_plain  # noqa: E402
+from repro_torch.kernels.ssd_scan import _DTYPE_CODE, ssd_scan_plain  # noqa: E402
 
 OUT = ROOT / "build" / "kernel_ab"
 ORDER = ("other", "this", "this", "other")
@@ -48,10 +52,14 @@ class _NoClusterArg:
         return getattr(self.lib, name)
 
 
-def _load(name: str, takes_cluster: bool):
+def _load(name: str, takes_cluster: bool, ssd_p_tile: bool):
     ptr, i32, i64, f32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                           ctypes.c_float)
     lib = ctypes.CDLL(str(OUT / f"{name}.so"))
+    lib.repro_ssd_scan.argtypes = (
+        [ptr] * 7 + [i32] * 8 + [i64] * 15 + [i32, ptr] if ssd_p_tile else
+        [ptr] * 10 + [i32] * 7 + [i64] * 15 + [i32, i32, ptr])
+    lib.repro_ssd_scan.restype = i32
     lib.repro_rmsnorm.argtypes = [ptr, ptr, ptr, i64, i32, f32, i32, ptr]
     lib.repro_rmsnorm.restype = i32
     tail = [f32, i32, i32, i32, ptr] if takes_cluster else [f32, i32, i32, ptr]
@@ -67,22 +75,69 @@ def build(other: Path) -> dict:
     sides = {"this": _build.CSRC, "other": other}
     nvcc = _build._nvcc()
     _build._run_all([[nvcc, *_build.NVCC_FLAGS, "-shared", "-o", str(OUT / f"{name}.so"),
-                      str(src / "flash_attention.cu"), str(src / "rmsnorm.cu")]
+                      str(src / "flash_attention.cu"), str(src / "rmsnorm.cu"),
+                      str(src / "ssd_scan.cu")]
                      for name, src in sides.items()])
-    return {name: _load(name, "int cluster" in (src / "flash_attention.cu").read_text())
+    return {name: _load(name, "int cluster" in (src / "flash_attention.cu").read_text(),
+                        "int p_tile" in (src / "ssd_scan.cu").read_text())
             for name, src in sides.items()}
 
 
-def ab(libs, name, dtype, fn, plain, sets) -> None:
+def _max_err(got, want) -> float:
+    if isinstance(want, tuple):
+        return max(_max_err(g, w) for g, w in zip(got, want))
+    return (got.float() - want.float()).abs().max().item()
+
+
+def ab(libs, name, dtype, fn, plain, sets, fns=None) -> None:
+    """``fn`` on both sides, or ``fns[side]`` where the sides' entry points
+    differ."""
     row = {"case": name, "dtype": cs.dtype_name(dtype), "err": {}}
-    want = plain(*sets[0]).float()
+    want = plain(*sets[0])
     for side in ORDER:
         _build._lib = libs[side]
-        got = fn(*sets[0])
+        f = fns[side] if fns else fn
+        got = f(*sets[0])
         torch.cuda.synchronize()
-        row["err"][side] = (got.float() - want).abs().max().item()
-        row.setdefault(side, []).append(cs.time_ms(fn, sets)["device"])
+        row["err"][side] = _max_err(got, want)
+        row.setdefault(side, []).append(cs.time_ms(f, sets)["device"])
     print(json.dumps(row), flush=True)
+
+
+def _ssd_p_tile_call(lib, x, dt, A, B, C, chunk):
+    """The single-kernel SSD entry point, p-tiles of 32."""
+    b, s, h, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    y = torch.empty((b, s, h, p), dtype=x.dtype, device=x.device)
+    state = torch.empty((b, h, p, n), dtype=torch.float32, device=x.device)
+    code = lib.repro_ssd_scan(
+        x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(), C.data_ptr(),
+        y.data_ptr(), state.data_ptr(), b, s, h, p, g, n, min(chunk, s), 32,
+        *x.stride()[:3], *dt.stride(), *B.stride()[:3], *C.stride()[:3],
+        *y.stride()[:3], _DTYPE_CODE[x.dtype],
+        torch.cuda.current_stream().cuda_stream)
+    _build.check(code, "ssd_scan kernel launch")
+    return y, state
+
+
+def ssd_case(libs, name, b, s, h, p, n, g, chunk, dtype, gen) -> None:
+    """Inputs drawn as ``chip_smoke._ssd_case`` draws them: x, B, C views of
+    one conv output."""
+    di, gn = h * p, g * n
+    xbc = torch.randn((b, s, di + 2 * gn), generator=gen, device="cuda").to(dtype)
+    dt = torch.nn.functional.softplus(torch.randn((b, s, h), generator=gen, device="cuda"))
+    A = -torch.exp(0.5 * torch.randn((h,), generator=gen, device="cuda"))
+
+    def views(t):
+        return (t[..., :di].unflatten(-1, (h, p)), t[..., di:di + gn].unflatten(-1, (g, n)),
+                t[..., di + gn:].unflatten(-1, (g, n)))
+    sets = [views(cs.clone_like(xbc)) for _ in range(cs.copies_for_cold_l2([xbc, dt]))]
+    fns = {side: (lambda x_, B_, C_, lib=lib: _ssd_p_tile_call(lib, x_, dt, A, B_, C_, chunk))
+           if len(lib.repro_ssd_scan.argtypes) == 32  # the p_tile entry point
+           else (lambda x_, B_, C_: ops.ssd_scan(x_, dt, A, B_, C_, chunk))
+           for side, lib in libs.items()}
+    ab(libs, f"ssd_scan {name}", dtype, None,
+       lambda x_, B_, C_: ssd_scan_plain(x_, dt, A, B_, C_, chunk), sets, fns)
 
 
 def norm_case(libs, shape, dtype, gen) -> None:
@@ -142,6 +197,17 @@ def main() -> int:
                       dtype, gen, q_offset=rs_attn.randint(0, 2048, size=8).tolist())
             attn_case(libs, "decode 8 rows x group 16, d=128", 2, 32, 2, 8, 300, 128, True,
                       dtype, gen, q_offset=[100, 292])
+        # chip_smoke.py's SSD cases, from their own stream
+        gen_mamba = torch.Generator(device="cuda").manual_seed(1)
+        for dtype in (torch.float32, torch.bfloat16):
+            ssd_case(libs, "main prefill", 1, 1024, 48, 64, 128, 1, 256, dtype, gen_mamba)
+            for s in (700, 17):
+                ssd_case(libs, f"prefill s={s}", 1, s, 48, 64, 128, 1, 256, dtype, gen_mamba)
+            for b, h, s, p, n, chunk in ((2, 3, 128, 16, 32, 32), (1, 2, 100, 8, 16, 32),
+                                         (2, 4, 64, 32, 64, 64), (1, 1, 256, 64, 128, 128)):
+                ssd_case(libs, f"table b{b} h{h} s{s} p{p} n{n} chunk{chunk}", b, s, h, p, n,
+                         1, chunk, dtype, gen_mamba)
+            ssd_case(libs, "grouped h4 g2", 2, 45, 4, 16, 16, 2, 32, dtype, gen_mamba)
     return 0
 
 

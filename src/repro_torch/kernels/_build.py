@@ -98,7 +98,7 @@ def lib() -> ctypes.CDLL:
     loaded.repro_flash_attention.argtypes = (
         [ptr] * 6 + [i32] * 6 + [i64] * 12 + [f32, i32, i32, i32, ptr])
     loaded.repro_flash_attention.restype = i32
-    loaded.repro_ssd_scan.argtypes = [ptr] * 7 + [i32] * 8 + [i64] * 15 + [i32, ptr]
+    loaded.repro_ssd_scan.argtypes = [ptr] * 10 + [i32] * 7 + [i64] * 15 + [i32, i32, ptr]
     loaded.repro_ssd_scan.restype = i32
     loaded.repro_embedding_bag.argtypes = [ptr] * 3 + [i32] * 5 + [i64] * 5 + [i32, ptr]
     loaded.repro_embedding_bag.restype = i32

@@ -25,7 +25,7 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (64, 128)
 NEG_INF = -1e30
 # Decode (sq <= 8): each (batch, KV head) splits its keys over a thread block
-# cluster of one of these sizes (8 unless the caller picks another).
+# cluster of one of these sizes (4 unless the caller picks another).
 DECODE_CLUSTERS = (1, 2, 4, 8)
 
 

@@ -27,7 +27,9 @@ from repro_torch.models.common import dense_init, embed_init
 
 
 class Linear(nn.Module):
-    """``x @ w + b`` with ``w`` (d_in, d_out): the reference's ``{w, b}``."""
+    """``x @ w + b`` with ``w`` (d_in, d_out): the reference's ``{w, b}``,
+    in the type JAX promotes the operands to (an fp32 activation against
+    bf16 weights computes in fp32)."""
 
     def __init__(self, generator: torch.Generator, d_in: int, d_out: int,
                  dtype: torch.dtype):
@@ -37,7 +39,8 @@ class Linear(nn.Module):
                                           device=generator.device))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return x @ self.w + self.b
+        dtype = torch.promote_types(x.dtype, self.w.dtype)
+        return x.to(dtype) @ self.w.to(dtype) + self.b.to(dtype)
 
 
 def _mlp(generator, dims, dtype) -> nn.ModuleList:
@@ -79,9 +82,11 @@ class DLRM(nn.Module):
     def forward(self, dense: torch.Tensor,
                 sparse: torch.Tensor) -> torch.Tensor:
         """dense: (b, num_dense); sparse: (b, T, L) int32 -> logits (b,).
-        ``dense`` is cast to the parameters' type."""
-        bot = _run_mlp(self.bottom, dense.to(self.tables.dtype))      # (b, E)
+        Types promote as in the reference: fp32 ``dense`` keeps the MLPs,
+        the interaction and the logits in fp32 over bf16 parameters."""
+        bot = _run_mlp(self.bottom, dense)                            # (b, E)
         emb = ops.embedding_bag(self.tables, sparse)                  # (b, T, E)
+        # cat promotes a bf16 ``emb`` to fp32, as jnp.concatenate does
         feats = torch.cat([bot[:, None, :], emb], dim=1)              # (b, T+1, E)
         inter = torch.bmm(feats, feats.transpose(1, 2))
         # the strict upper triangle, row-major as jnp.triu_indices orders it

@@ -35,7 +35,19 @@ from repro_torch.kernels.flash_attention import (
     flash_attention_plain,
 )
 from repro_torch.kernels.rmsnorm import rmsnorm_cuda, rmsnorm_plain
-from repro_torch.kernels.ssd_scan import ssd_scan_cuda, ssd_scan_plain
+from repro_torch.kernels.ssd_scan import (
+    MAX_CHUNK,
+    STAGES,
+    ssd_buffers,
+    ssd_chunk_outputs_plain,
+    ssd_chunk_scores_plain,
+    ssd_chunk_states_plain,
+    ssd_scan_cuda,
+    ssd_scan_plain,
+    ssd_scan_stages_plain,
+    ssd_stages_cuda,
+    ssd_state_pass_plain,
+)
 from repro_torch.models import common as tcommon
 
 torch.set_num_threads(1)
@@ -314,6 +326,53 @@ def test_ssd_plain_takes_views_of_the_conv_output():
         np.testing.assert_array_equal(a.numpy(), w.numpy())
 
 
+@pytest.mark.parametrize("b,h,s,p,n,chunk,g", SSD_TABLE)
+def test_ssd_stages_compose_to_the_plain_scan(b, h, s, p, n, chunk, g):
+    """The four stages as the kernels run them (scores, chunk states, the
+    state pass, outputs) give what the chunk loop gives; the sums are taken
+    in another order, so fp32 rounding apart (1e-5 of the scale)."""
+    args = tuple(map(torch.from_numpy, _ssd_inputs(16, b, h, s, p, n, g)))
+    want_y, want_st = ssd_scan_plain(*args, chunk)
+    y, st = ssd_scan_stages_plain(*args, chunk)
+    for got, want in ((y, want_y), (st, want_st)):
+        scale = max(1.0, want.abs().max().item())
+        assert (got - want).abs().max().item() <= 1e-5 * scale
+
+
+@pytest.mark.parametrize("b,h,s,p,n,chunk,g", SSD_TABLE)
+@pytest.mark.parametrize("oracle", ["pallas", "chunked"])
+def test_ssd_stages_match_jax(oracle, b, h, s, p, n, chunk, g):
+    """The composed stages against ``ssd_chunked`` and the Pallas kernel in
+    interpret mode, at the tolerance of the other SSD tests."""
+    x, dt, A, B, C = _ssd_inputs(17, b, h, s, p, n, g)
+    want_y, want_st = _ssd_oracle(oracle, x, dt, A, B, C, chunk)
+    y, st = ssd_scan_stages_plain(*map(torch.from_numpy, (x, dt, A, B, C)),
+                                  chunk)
+    np.testing.assert_allclose(y.numpy(), want_y, atol=5e-4, rtol=1e-3)
+    np.testing.assert_allclose(st.numpy(), want_st, atol=5e-4, rtol=1e-3)
+
+
+def test_ssd_stage_shapes_and_scratch():
+    """What each plain stage returns, and the kernels' scratch: a ragged
+    last chunk (s 100, chunk 32: 4 chunks), the cumsum flat past its last
+    position, the first incoming state zero, G's rows padded to 64."""
+    b, h, s, p, n, chunk, g = 1, 4, 100, 8, 16, 32, 2
+    x, dt, A, B, C = map(torch.from_numpy, _ssd_inputs(18, b, h, s, p, n, g))
+    G = ssd_chunk_scores_plain(B, C, chunk)
+    cs, states = ssd_chunk_states_plain(x, dt, A, B, chunk)
+    incoming, final = ssd_state_pass_plain(states, cs)
+    assert G.shape == (b, g, 4, 32, 32)
+    assert cs.shape == (b, h, 4, 32) and states.shape == (b, h, 4, p, n)
+    assert torch.equal(cs[:, :, 3, 4:], cs[:, :, 3, 3:4].expand(-1, -1, 28))
+    assert incoming.abs()[:, :, 0].max() == 0 and final.shape == (b, h, p, n)
+    y = ssd_chunk_outputs_plain(x, dt, cs, B, C, incoming, chunk)
+    assert y.shape == x.shape and y.dtype == x.dtype
+    bufs = {k: tuple(v.shape) for k, v in ssd_buffers(x, B, chunk).items()}
+    assert bufs == {"y": (b, s, h, p), "state": (b, h, p, n),
+                    "scores": (b, g, 4, 64, 64), "cs": (b, h, 4, 64),
+                    "states": (b, h, 4, p, n)}
+
+
 def test_ssd_cpu_call_does_not_count_as_launch():
     before = ops.ssd_scan.launches
     ops.ssd_scan(*map(torch.from_numpy, _ssd_inputs(13, 1, 2, 8, 8, 16, 1)), 4)
@@ -321,10 +380,12 @@ def test_ssd_cpu_call_does_not_count_as_launch():
 
 
 def test_ssd_launch_function_refuses_cpu_tensors():
-    """The function that launches the kernel never computes another way."""
+    """The functions that launch the kernels never compute another way."""
+    args = tuple(map(torch.from_numpy, _ssd_inputs(14, 1, 2, 8, 8, 16, 1)))
     with pytest.raises(ValueError, match="CUDA"):
-        ssd_scan_cuda(*map(torch.from_numpy,
-                           _ssd_inputs(14, 1, 2, 8, 8, 16, 1)), 4)
+        ssd_scan_cuda(*args, 4)
+    with pytest.raises(ValueError, match="CUDA"):
+        ssd_stages_cuda(*args, 4, ssd_buffers(args[0], args[3], 4))
 
 
 # ------------------------------------------------------------------------- #
@@ -556,7 +617,7 @@ def test_rmsnorm_kernel_matches_plain(cuda_device, dtype, atol, shape):
                                        (torch.bfloat16, 1e-2)])
 @pytest.mark.parametrize("b,h,s,p,n,chunk,g", SSD_TABLE + [
     (1, 48, 1024, 64, 128, 256, 1), (1, 48, 700, 64, 128, 256, 1),
-    (1, 48, 17, 64, 128, 256, 1)])
+    (1, 48, 17, 64, 128, 256, 1), (1, 4, 2500, 72, 64, MAX_CHUNK, 2)])
 def test_ssd_kernel_matches_plain(cuda_device, dtype, rel, b, h, s, p, n,
                                   chunk, g):
     """Tolerance as chip_smoke.py states it: max |kernel - plain| against
@@ -570,6 +631,60 @@ def test_ssd_kernel_matches_plain(cuda_device, dtype, rel, b, h, s, p, n,
     assert ops.ssd_scan.launches == before + 1
     want_y, want_st = ssd_scan_plain(x, dt, A, B, C, chunk)
     for got, want in ((y.float(), want_y.float()), (st, want_st)):
+        scale = max(1.0, want.abs().max().item())
+        assert (got - want).abs().max().item() <= rel * scale
+
+
+# b, h, s, p, n, chunk, g: the main prefill, a ragged chunk with p over two
+# p-tiles, a long chunk with groups, narrow shapes
+SSD_STAGE_TABLE = [(1, 48, 1024, 64, 128, 256, 1), (2, 4, 300, 72, 32, 128, 2),
+                   (1, 2, 1100, 16, 16, MAX_CHUNK, 1), (2, 3, 45, 8, 64, 32, 3)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,rel", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("b,h,s,p,n,chunk,g", SSD_STAGE_TABLE)
+@pytest.mark.parametrize("stage", STAGES)
+def test_ssd_stage_kernel_matches_plain(cuda_device, stage, dtype, rel, b, h,
+                                        s, p, n, chunk, g):
+    """One stage kernel against its plain stage, fed the plain stages'
+    results for what it reads. Tolerance as ``test_ssd_kernel_matches_plain``
+    states it: max |kernel - plain| against rel * max(1, max |plain|)."""
+    x, dt, A, B, C = (torch.from_numpy(a).to(cuda_device)
+                      for a in _ssd_inputs(19, b, h, s, p, n, g))
+    x, B, C = x.to(dtype), B.to(dtype), C.to(dtype)
+    q = min(chunk, s)
+    cs, states = ssd_chunk_states_plain(x, dt, A, B, chunk)
+    incoming, final = ssd_state_pass_plain(states, cs)
+    bufs = ssd_buffers(x, B, chunk)
+    for t in bufs.values():
+        t.fill_(float("nan"))       # what a stage reads must be written
+    if stage in ("pass", "outputs"):
+        bufs["cs"][..., :q] = cs
+        bufs["cs"][..., q:] = cs[..., -1:]
+    if stage == "pass":
+        bufs["states"].copy_(states)
+    if stage == "outputs":
+        bufs["states"].copy_(incoming)
+        G = ssd_chunk_scores_plain(B, C, chunk)
+        bufs["scores"].zero_()
+        bufs["scores"][..., :q, :q] = G
+    ssd_stages_cuda(x, dt, A, B, C, chunk, bufs, stages=(stage,))
+    torch.cuda.synchronize()
+    if stage == "scores":
+        G = ssd_chunk_scores_plain(B, C, chunk)
+        lower = torch.ones((q, q), dtype=torch.bool,
+                           device=cuda_device).tril()
+        pairs = [(bufs["scores"][..., :q, :q][..., lower], G[..., lower])]
+    elif stage == "states":
+        pairs = [(bufs["cs"][..., :q], cs), (bufs["states"], states)]
+    elif stage == "pass":
+        pairs = [(bufs["states"], incoming), (bufs["state"], final)]
+    else:
+        want = ssd_chunk_outputs_plain(x, dt, cs, B, C, incoming, chunk)
+        pairs = [(bufs["y"].float(), want.float())]
+    for got, want in pairs:
         scale = max(1.0, want.abs().max().item())
         assert (got - want).abs().max().item() <= rel * scale
 

@@ -446,16 +446,17 @@ def test_port_imports_neither_jax_nor_the_jax_package():
 # 27-32-16-1), fp32, parameters carried from JAX by from_jax_dlrm_params
 # ------------------------------------------------------------------------- #
 
-def _dlrm_pair(seed=0):
+def _dlrm_pair(seed=0, dtype=jnp.float32):
     from repro.configs import get_dlrm_config as get_dlrm_config_jax
     from repro.models import dlrm as dlrm_jax
     from repro_torch.configs import get_dlrm_config
     from repro_torch.convert import from_jax_dlrm_params
     from repro_torch.models.dlrm import DLRM
     cfg_j = get_dlrm_config_jax(reduced=True)
-    params = dlrm_jax.init_params(jax.random.PRNGKey(seed), cfg_j)
+    params = dlrm_jax.init_params(jax.random.PRNGKey(seed), cfg_j, dtype)
     cfg = get_dlrm_config(reduced=True)
-    model = DLRM(cfg, device="cpu")
+    tdtype = torch.float32 if dtype == jnp.float32 else torch.bfloat16
+    model = DLRM(cfg, device="cpu", dtype=tdtype)
     model.load_state_dict(from_jax_dlrm_params(jax.tree.map(np.asarray,
                                                             params)))
     return dlrm_jax, cfg_j, params, model
@@ -522,6 +523,31 @@ def test_dlrm_logits_loss_and_grads_match_jax():
     for name, p in model.named_parameters():
         np.testing.assert_allclose(p.grad.numpy(), want[name], atol=1e-5,
                                    rtol=1e-5, err_msg=name)
+
+
+def test_dlrm_bf16_promotes_as_jax_does():
+    """bf16 parameters, fp32 dense features: JAX promotes ``dense @ w`` and
+    the concatenation with the bf16 bags to fp32, so the MLPs, the
+    interaction and the logits are fp32 on both sides. What differs is the
+    bf16 bag sums, which both round once from fp32 sums taken in another
+    order (one bf16 ulp, 2^-8 of a sum, apart at most): the logits and the
+    loss are held at 1e-4 of their scale, far below a bf16 ulp."""
+    dlrm_jax, cfg_j, params, model = _dlrm_pair(dtype=jnp.bfloat16)
+    assert model.tables.dtype == torch.bfloat16
+    batch = _dlrm_batch_np(cfg_j, 6, seed=2)
+    jb = {k: jnp.asarray(v) for k, v in batch.items()}
+    tb = {k: torch.from_numpy(v) for k, v in batch.items()}
+    want_logits = dlrm_jax.forward(params, cfg_j, jb["dense"], jb["sparse"])
+    assert want_logits.dtype == jnp.float32
+    want_loss, _ = dlrm_jax.loss(params, cfg_j, jb)
+    with torch.no_grad():
+        logits = model(tb["dense"], tb["sparse"])
+        loss, _ = model.loss(tb)
+    assert logits.dtype == torch.float32 and logits.shape == (6,)
+    scale = max(1e-3, float(np.abs(np.asarray(want_logits)).max()))
+    np.testing.assert_allclose(logits.numpy(), np.asarray(want_logits),
+                               rtol=0, atol=1e-4 * scale)
+    np.testing.assert_allclose(loss.item(), float(want_loss), rtol=1e-4)
 
 
 def test_dlrm_init_is_seeded_on_its_device():
