@@ -12,7 +12,9 @@ run with a non-zero exit code (nothing drops to the CPU or to a plain version):
   kernels  each hand-written kernel against its plain PyTorch version on the
            card, fp32 and bf16, with times (on the card, from a CUDA graph's
            replay; and issued eagerly, host included), the card's bound and a
-           library call's time as a yardstick
+           library call's time as a yardstick; the embedding-bag backward
+           also per stage, and at its two main shapes (uniform and Zipf
+           indices) three calls that must agree bitwise
   serve    smollm-135m at full width and depth, bf16, random weights from a
            seed: the continuous-batching engine answers 16 requests; launch
            counters show that the run went through the kernels; then the
@@ -62,9 +64,13 @@ from repro_torch.configs import get_config, get_dlrm_config  # noqa: E402
 from repro_torch.data import DataConfig, DataIterator, dlrm_batch  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels.embedding_bag import (  # noqa: E402
+    BACKWARD_STAGES,
     EmbeddingBagPlain,
+    backward_kernels_per_call,
+    embedding_bag_backward_buffers,
     embedding_bag_backward_cuda,
     embedding_bag_backward_plain,
+    embedding_bag_backward_stages_cuda,
     embedding_bag_cuda,
     embedding_bag_plain,
 )
@@ -115,6 +121,8 @@ DLRM_BATCH = 4096
 DLRM_STEPS = 20
 DLRM_OPT = dict(lr=3e-3, warmup_steps=2, total_steps=20, use_master=False)
 DLRM_SAMPLE_BAGS = 64   # bags whose table rows the kernel-vs-plain step reads
+ZIPF_ALPHA = 1.05       # the skewed bag case: row k of a table drawn ~ k^-1.05
+BAG_REPEATS = 3         # backward calls at a main shape that must agree bitwise
 
 DEVICE = "cuda"
 
@@ -412,10 +420,14 @@ def _ssd_case(name, b, s, h, p, n, g, chunk, dtype, gen,
 
 def _bag_tol(want: torch.Tensor, dtype) -> float:
     """Embedding bag, kernel against plain, both directions. fp32: the two
-    sum the same terms in another order (the backward's atomics in an order
-    that changes from run to run), at most a few hundred terms a value:
-    1e-5 of the output's scale. bf16: both round once from fp32 values a few
-    fp32 ulps apart, so they may land one bf16 ulp apart, 2^-7 of |out|."""
+    sum the same terms in another order, up to a few hundred terms a value
+    at uniform indices: 1e-5 of the output's scale. The backward's plain
+    version is summed in fp64 here (in the kernels phase), because at Zipf
+    indices a hot row sums ~13 k terms of either sign, and an fp32 sum of
+    that many in index_add_'s order is itself off by up to ~1e-5 of the
+    scale; the kernel sums pieces of 128 first and stays well inside. bf16:
+    both round once from fp32 values a few fp32 ulps apart, so they may
+    land one bf16 ulp apart, 2^-7 of |out|."""
     scale = max(1.0, want.float().abs().max().item())
     return (1e-5 if dtype == torch.float32 else 2 ** -7) * scale
 
@@ -451,6 +463,7 @@ def _bag_case(name, tables, idx, direction, big, gen) -> dict:
     timing = dict(iters=10, graph=False) if big else {}
     timed = "eager, 10 calls" if big else "graph replay of 50 calls"
     library = _library_bag(tables, idx)
+    extra = {}
     lookups = b * t * n
     idx_bytes = lookups * 4
     if direction == "forward":
@@ -483,8 +496,17 @@ def _bag_case(name, tables, idx, direction, big, gen) -> dict:
         distinct = int(torch.unique((wrapped + shift)[valid]).numel())
         got = embedding_bag_backward_cuda(dout, idx, r)
         torch.cuda.synchronize()
-        err, tol = _bag_err(got, embedding_bag_backward_plain(dout, idx, r),
+        # fp32: the plain version summed in fp64, so that what is compared
+        # is the kernel's own rounding (see _bag_tol)
+        exact = dout.double() if dtype == torch.float32 else dout
+        err, tol = _bag_err(got, embedding_bag_backward_plain(exact, idx, r),
                             dtype)
+        if big:   # the same inputs give the same bits, call after call
+            extra["bitwise_equal_calls"] = 1 + sum(
+                torch.equal(embedding_bag_backward_cuda(dout, idx, r), got)
+                for _ in range(BAG_REPEATS - 1))
+            extra["ok"] = (err <= tol and
+                           extra["bitwise_equal_calls"] == BAG_REPEATS)
         del got
         # dout and the indices read once, the dense dtables written once
         nbytes = b * t * e * item + idx_bytes + t * r * e * item
@@ -493,6 +515,18 @@ def _bag_case(name, tables, idx, direction, big, gen) -> dict:
         sets = [(dout, idx)]
         kernel = time_ms(lambda d, i: embedding_bag_backward_cuda(d, i, r),
                          sets, **timing)
+        extra["kernels_per_call"] = backward_kernels_per_call(b, t, n, r)
+        if big:
+            # each stage's device time alone, on the scratch of one whole
+            # call (a stage reads what the stages before it wrote)
+            bufs = embedding_bag_backward_buffers(dout, idx, r)
+            embedding_bag_backward_stages_cuda(dout, idx, r, bufs)
+            extra["stage_ms"] = {
+                stage: time_ms(
+                    lambda d, i, stage=stage: embedding_bag_backward_stages_cuda(
+                        d, i, r, bufs, (stage,)), sets, **timing)["device"]
+                for stage in BACKWARD_STAGES}
+            del bufs
         # The plain version's masked select and autograd's backward cannot
         # be captured into a graph: both are timed eagerly.
         eager = dict(iters=timing.get("iters", 50), graph=False)
@@ -526,17 +560,34 @@ def _bag_case(name, tables, idx, direction, big, gen) -> dict:
         "bound_ms": max(bound_bytes, bound_ops),
         "bound_by": "bytes" if bound_bytes >= bound_ops else "operations",
         "bytes": nbytes, "bytes_all_lookups": all_bytes,
-        "distinct_rows": distinct, "lookups": lookups,
+        "distinct_rows": distinct, "lookups": lookups, **extra,
     }
+
+
+def _zipf_indices(gen, b, t, n, r) -> torch.Tensor:
+    """(b, t, n) int32: each table's rows drawn with replacement, row k with
+    weight (k + 1)^-ZIPF_ALPHA, on the card from ``gen``."""
+    weight = torch.arange(1, r + 1, device=DEVICE,
+                          dtype=torch.float32) ** -ZIPF_ALPHA
+    rows = torch.multinomial(weight.expand(t, r), b * n, replacement=True,
+                             generator=gen)
+    return rows.view(t, b, n).permute(1, 0, 2).contiguous().int()
 
 
 def _bag_cases() -> list:
     """Embedding-bag cases, forward and backward, fp32 and bf16: the DLRM
     training step's shape (batch 4096 over 64 tables of 200,000 x 128, 32
-    lookups), the reference tests' table, the reduced config's shape, and a
-    case with negative and >= R indices (scalar path: rows of 40 bytes).
-    Every backward case has a duplicate row in every bag."""
+    lookups) at uniform indices and at Zipf-skewed ones (the hottest row of
+    a table takes ~13 k of its 131 k lookups), the reference tests' table,
+    the reduced config's shape, and a case with negative and >= R indices
+    (scalar path: rows of 40 bytes). Every uniform backward case has a
+    duplicate row in every bag. At the two main shapes the backward also
+    runs BAG_REPEATS times on the same inputs, and a result that differs in
+    any bit fails the case."""
     gen = torch.Generator(device=DEVICE).manual_seed(2)
+    # the Zipf cases draw from a stream of their own, so the other cases
+    # keep the inputs they always had
+    gen_zipf = torch.Generator(device=DEVICE).manual_seed(4)
     cfg = _dlrm_setup()[0]
     small = [("table t4 r50 e16 b3 l7", 4, 50, 16, 3, 7),
              ("table t2 r128 e32 b8 l1", 2, 128, 32, 8, 1),
@@ -555,6 +606,10 @@ def _bag_cases() -> list:
             cases.append(_bag_case("main", tables, idx, "forward", True, gen))
             idx[..., 1] = idx[..., 0]
             cases.append(_bag_case("main", tables, idx, "backward", True, gen))
+            idx = _zipf_indices(gen_zipf, *shape, cfg.rows_per_table)
+            cases.append(_bag_case("zipf", tables, idx, "forward", True, gen))
+            cases.append(_bag_case("zipf", tables, idx, "backward", True,
+                                   gen))
             del tables, idx
             for name, t, r, e, b, n in small:
                 tables = torch.randn((t, r, e), generator=gen,
@@ -1219,7 +1274,8 @@ def kernels_line(cases: list, launches_by_path: dict) -> dict:
     decode tick of the bf16 dense serve phase; the SSD scan: the bf16
     1024-token prefill; the embedding bag, both directions: the fp32 DLRM
     training step); attention also carries the bf16 1024-token prefill under
-    ``prefill``. The other shapes' times are in the ``kernels`` phase's
+    ``prefill``, the embedding bag the same step at Zipf indices under
+    ``zipf``. The other shapes' times are in the ``kernels`` phase's
     line."""
     entries = []
     for name, source, replaces, is_main in KERNELS:
@@ -1244,9 +1300,19 @@ def kernels_line(cases: list, launches_by_path: dict) -> dict:
                          if k in main_case},
             "cases_compared": len(mine),
         })
-        if name == "ssd_scan":
+        if name in ("ssd_scan", "embedding_bag_backward"):
             entries[-1]["kernels_per_call"] = main_case["kernels_per_call"]
             entries[-1]["stage_ms"] = main_case["stage_ms"]
+        if name.startswith("embedding_bag"):
+            zipf = next(c for c in mine if c["case"] == "zipf"
+                        and c["dtype"] == "float32")
+            entries[-1]["zipf"] = {
+                k: zipf[k] for k in ("kernel_ms", "plain_ms", "library_ms",
+                                     "bound_ms", "bound_by", "stage_ms",
+                                     "bitwise_equal_calls") if k in zipf}
+        if name == "embedding_bag_backward":
+            entries[-1]["bitwise_equal_calls"] = main_case[
+                "bitwise_equal_calls"]
         if name == "flash_attention":
             prefill = next(c for c in mine if c["case"] == "prefill s=1024"
                            and c["dtype"] == "bfloat16")

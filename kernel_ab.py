@@ -1,8 +1,11 @@
-"""Times this tree's flash attention, RMSNorm and SSD scan kernels against
-another tree's sources on the same inputs, in one process on one card, in
-turns (other, this, this, other), so that two versions are compared within
-one run. An SSD scan source with the older single-kernel entry point (its
-``p_tile`` argument) is called with p-tiles of 32, its default.
+"""Times this tree's flash attention, RMSNorm, SSD scan and embedding-bag
+backward kernels against another tree's sources on the same inputs, in one
+process on one card, in turns (other, this, this, other), so that two
+versions are compared within one run. An SSD scan source with the older
+single-kernel entry point (its ``p_tile`` argument) is called with p-tiles
+of 32, its default; an embedding-bag source with the older atomic backward
+(no ``stages`` argument) is called as its wrapper called it, on a
+zero-filled fp32 (T, R, E).
 
     git archive <rev> src/repro_torch/kernels/csrc | tar -x -C build/ab_other
     python3 kernel_ab.py build/ab_other/src/repro_torch/kernels/csrc
@@ -29,6 +32,10 @@ sys.path.insert(0, str(ROOT))
 
 import chip_smoke as cs  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
+from repro_torch.kernels.embedding_bag import (  # noqa: E402
+    embedding_bag_backward_cuda,
+    embedding_bag_backward_plain,
+)
 from repro_torch.kernels.flash_attention import flash_attention_plain  # noqa: E402
 from repro_torch.kernels.rmsnorm import rmsnorm_plain  # noqa: E402
 from repro_torch.kernels.ssd_scan import _DTYPE_CODE, ssd_scan_plain  # noqa: E402
@@ -52,7 +59,7 @@ class _NoClusterArg:
         return getattr(self.lib, name)
 
 
-def _load(name: str, takes_cluster: bool, ssd_p_tile: bool):
+def _load(name: str, takes_cluster: bool, ssd_p_tile: bool, bag_stages: bool):
     ptr, i32, i64, f32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                           ctypes.c_float)
     lib = ctypes.CDLL(str(OUT / f"{name}.so"))
@@ -65,6 +72,10 @@ def _load(name: str, takes_cluster: bool, ssd_p_tile: bool):
     tail = [f32, i32, i32, i32, ptr] if takes_cluster else [f32, i32, i32, ptr]
     lib.repro_flash_attention.argtypes = [ptr] * 6 + [i32] * 6 + [i64] * 12 + tail
     lib.repro_flash_attention.restype = i32
+    lib.repro_embedding_bag_backward.argtypes = (
+        [ptr] * 11 + [i32] * 5 + [i64] * 5 + [i32, i32, ptr] if bag_stages else
+        [ptr] * 4 + [i32] * 5 + [i64] * 5 + [i32, ptr])
+    lib.repro_embedding_bag_backward.restype = i32
     lib.repro_cuda_error_string.argtypes = [i32]
     lib.repro_cuda_error_string.restype = ctypes.c_char_p
     return lib if takes_cluster else _NoClusterArg(lib)
@@ -76,10 +87,11 @@ def build(other: Path) -> dict:
     nvcc = _build._nvcc()
     _build._run_all([[nvcc, *_build.NVCC_FLAGS, "-shared", "-o", str(OUT / f"{name}.so"),
                       str(src / "flash_attention.cu"), str(src / "rmsnorm.cu"),
-                      str(src / "ssd_scan.cu")]
+                      str(src / "ssd_scan.cu"), str(src / "embedding_bag.cu")]
                      for name, src in sides.items()])
     return {name: _load(name, "int cluster" in (src / "flash_attention.cu").read_text(),
-                        "int p_tile" in (src / "ssd_scan.cu").read_text())
+                        "int p_tile" in (src / "ssd_scan.cu").read_text(),
+                        "int stages" in (src / "embedding_bag.cu").read_text())
             for name, src in sides.items()}
 
 
@@ -89,9 +101,9 @@ def _max_err(got, want) -> float:
     return (got.float() - want.float()).abs().max().item()
 
 
-def ab(libs, name, dtype, fn, plain, sets, fns=None) -> None:
+def ab(libs, name, dtype, fn, plain, sets, fns=None, **timing) -> None:
     """``fn`` on both sides, or ``fns[side]`` where the sides' entry points
-    differ."""
+    differ; ``timing``: ``chip_smoke.time_ms``'s options."""
     row = {"case": name, "dtype": cs.dtype_name(dtype), "err": {}}
     want = plain(*sets[0])
     for side in ORDER:
@@ -100,7 +112,8 @@ def ab(libs, name, dtype, fn, plain, sets, fns=None) -> None:
         got = f(*sets[0])
         torch.cuda.synchronize()
         row["err"][side] = _max_err(got, want)
-        row.setdefault(side, []).append(cs.time_ms(f, sets)["device"])
+        del got
+        row.setdefault(side, []).append(cs.time_ms(f, sets, **timing)["device"])
     print(json.dumps(row), flush=True)
 
 
@@ -138,6 +151,35 @@ def ssd_case(libs, name, b, s, h, p, n, g, chunk, dtype, gen) -> None:
            for side, lib in libs.items()}
     ab(libs, f"ssd_scan {name}", dtype, None,
        lambda x_, B_, C_: ssd_scan_plain(x_, dt, A, B_, C_, chunk), sets, fns)
+
+
+def _atomic_bag_backward(lib, dout, idx, r):
+    """The older backward entry point: fp32 atomics into a zero-filled
+    (T, R, E), rounded once into a bf16 result."""
+    b, t, e = dout.shape
+    acc = torch.zeros((t, r, e), dtype=torch.float32, device=dout.device)
+    out = acc if dout.dtype == torch.float32 else torch.empty(
+        (t, r, e), dtype=dout.dtype, device=dout.device)
+    code = lib.repro_embedding_bag_backward(
+        dout.data_ptr(), idx.data_ptr(), acc.data_ptr(), out.data_ptr(), b, t, idx.shape[2],
+        r, e, dout.stride(0), dout.stride(1), *idx.stride(), _DTYPE_CODE[dout.dtype],
+        torch.cuda.current_stream().cuda_stream)
+    _build.check(code, "embedding_bag backward kernel launch")
+    return out
+
+
+def bag_backward_case(libs, name, idx, r, e, dtype, gen) -> None:
+    """dout the model's strided view, as ``chip_smoke._bag_case`` draws it;
+    timed as chip_smoke.py times the main shapes (eager, 10 calls)."""
+    b, t, _ = idx.shape
+    dout = torch.randn((b, t + 1, e), generator=gen, device="cuda").to(dtype)[:, 1:]
+    fns = {side: (lambda d, i, lib=lib: _atomic_bag_backward(lib, d, i, r))
+           if len(lib.repro_embedding_bag_backward.argtypes) == 16  # the atomic entry point
+           else (lambda d, i: embedding_bag_backward_cuda(d, i, r))
+           for side, lib in libs.items()}
+    ab(libs, f"embedding_bag_backward {name}", dtype, None,
+       lambda d, i: embedding_bag_backward_plain(d, i, r), [(dout, idx)], fns,
+       iters=10, graph=False)
 
 
 def norm_case(libs, shape, dtype, gen) -> None:
@@ -208,6 +250,20 @@ def main() -> int:
                 ssd_case(libs, f"table b{b} h{h} s{s} p{p} n{n} chunk{chunk}", b, s, h, p, n,
                          1, chunk, dtype, gen_mamba)
             ssd_case(libs, "grouped h4 g2", 2, 45, 4, 16, 16, 2, 32, dtype, gen_mamba)
+        # the embedding-bag backward at the DLRM step's shape, uniform (a
+        # duplicate row in every bag) and Zipf-skewed indices
+        gen_bag = torch.Generator(device="cuda").manual_seed(2)
+        cfg = cs._dlrm_setup()[0]
+        shape = (cs.DLRM_BATCH, cfg.num_tables, cfg.lookups_per_table)
+        r = cfg.rows_per_table
+        uniform = torch.randint(0, r, shape, generator=gen_bag, device="cuda",
+                                dtype=torch.int32)
+        uniform[..., 1] = uniform[..., 0]
+        zipf = cs._zipf_indices(gen_bag, *shape, r)
+        for dtype in (torch.float32, torch.bfloat16):
+            for name, idx in (("main", uniform), ("zipf", zipf)):
+                bag_backward_case(libs, name, idx, r, cfg.emb_dim, dtype, gen_bag)
+                torch.cuda.empty_cache()
     return 0
 
 

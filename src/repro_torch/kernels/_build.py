@@ -103,7 +103,7 @@ def lib() -> ctypes.CDLL:
     loaded.repro_embedding_bag.argtypes = [ptr] * 3 + [i32] * 5 + [i64] * 5 + [i32, ptr]
     loaded.repro_embedding_bag.restype = i32
     loaded.repro_embedding_bag_backward.argtypes = (
-        [ptr] * 4 + [i32] * 5 + [i64] * 5 + [i32, ptr])
+        [ptr] * 11 + [i32] * 5 + [i64] * 5 + [i32, i32, ptr])
     loaded.repro_embedding_bag_backward.restype = i32
     loaded.repro_cuda_error_string.argtypes = [i32]
     loaded.repro_cuda_error_string.restype = ctypes.c_char_p

@@ -9,7 +9,8 @@ no fall-back.
 Each wrapper counts its kernel launches in ``<wrapper>.launches``, a plain
 integer raised where the kernel is launched and nowhere else, so a run can
 show that it went through the kernels. ``embedding_bag`` has a gradient: its
-backward kernel counts in ``embedding_bag.backward_launches``.
+backward counts in ``embedding_bag.backward_launches``, one a call of its
+kernels (``backward_kernels_per_call`` of them).
 """
 
 from __future__ import annotations
@@ -93,7 +94,7 @@ def embedding_bag(tables: torch.Tensor, indices: torch.Tensor) -> torch.Tensor:
     """tables: (T, R, E), indices: (B, T, L) int32 -> (B, T, E), with a
     gradient for ``tables``; see ``repro_torch.kernels.embedding_bag``.
     ``embedding_bag.launches`` counts the forward kernel's launches,
-    ``embedding_bag.backward_launches`` the backward's."""
+    ``embedding_bag.backward_launches`` the backward's calls."""
     if tables.device.type == "cpu":
         return EmbeddingBagPlain.apply(tables, indices)
     return _EmbeddingBagKernel.apply(tables, indices)

@@ -25,8 +25,19 @@ from repro.models.common import naive_attention as naive_attention_jax
 from repro.models.mamba import ssd_chunked
 from repro_torch.kernels import ops
 from repro_torch.kernels.embedding_bag import (
+    BACKWARD_STAGES,
+    PIECE,
+    backward_kernels_per_call,
+    embedding_bag_backward_buffers,
     embedding_bag_backward_cuda,
+    embedding_bag_backward_keys_plain,
+    embedding_bag_backward_links,
+    embedding_bag_backward_pieces_plain,
     embedding_bag_backward_plain,
+    embedding_bag_backward_sort_plain,
+    embedding_bag_backward_sorted_plain,
+    embedding_bag_backward_stages_cuda,
+    embedding_bag_backward_write_plain,
     embedding_bag_cuda,
     embedding_bag_plain,
 )
@@ -496,6 +507,131 @@ def test_embedding_bag_launch_functions_refuse_cpu_tensors():
         embedding_bag_cuda(tables, idx)
     with pytest.raises(ValueError, match="CUDA"):
         embedding_bag_backward_cuda(torch.zeros(3, 2, 8), idx, 10)
+    dout = torch.zeros(3, 2, 8)
+    with pytest.raises(ValueError, match="CUDA"):
+        embedding_bag_backward_stages_cuda(
+            dout, idx, 10, embedding_bag_backward_buffers(dout, idx, 10))
+
+
+# The backward kernels' design in PyTorch: keys with the sentinel, a stable
+# sort, the pieces' head and tail sums, the segmented sum. Cases: the
+# reference table, the wrap/clamp/drop case, every lookup of a bag on one
+# row, and a Zipf-like draw (alpha 1.05) whose hot rows cross pieces.
+def _bag_grad_case(case):
+    rs = np.random.RandomState(28)
+    if case in range(len(BAG_TABLE)):
+        t, r, e, b, n = BAG_TABLE[case]
+        tables, idx = _bag_inputs(21, t, r, e, b, n)
+    elif case == "out of range":
+        tables = rs.randn(2, 5, 6).astype(np.float32)
+        idx = np.array([[[7, -1], [0, 3]], [[-6, -5], [5, 4]],
+                        [[2, -2], [9, -9]]], np.int32)
+    elif case == "one row a bag":
+        t, r, e, b, n = 3, 40, 8, 64, 32      # rows 0-2 named, ~680 each
+        tables = (0.05 * rs.randn(t, r, e)).astype(np.float32)
+        idx = np.repeat(rs.randint(0, 3, size=(b, t, 1)), n, axis=2)
+    else:                                                    # zipf
+        t, r, e, b, n = 2, 50, 8, 96, 32
+        tables = (0.05 * rs.randn(t, r, e)).astype(np.float32)
+        weight = np.arange(1, r + 1) ** -1.05
+        idx = rs.choice(r, size=(b, t, n), p=weight / weight.sum())
+    cot = rs.randn(idx.shape[0], idx.shape[1], tables.shape[2])
+    return tables, idx.astype(np.int32), cot.astype(np.float32)
+
+
+BAG_GRAD_CASES = [*range(len(BAG_TABLE)), "out of range", "one row a bag",
+                  "zipf"]
+
+
+def _scaled_tol(want) -> float:
+    """1e-5 of the gradient's scale: the same fp32 terms, up to ~700 of them
+    a value here, summed in another order."""
+    return 1e-5 * max(1.0, float(np.abs(np.asarray(want)).max()))
+
+
+@pytest.mark.parametrize("case", BAG_GRAD_CASES)
+def test_embedding_bag_backward_sorted_plain_matches_jax_grad(case):
+    tables, idx, cot = _bag_grad_case(case)
+    r = tables.shape[1]
+    want = _jax_bag_grad(tables, idx, cot)
+    got = embedding_bag_backward_sorted_plain(torch.from_numpy(cot),
+                                              torch.from_numpy(idx), r)
+    assert got.shape == tables.shape and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, atol=_scaled_tol(want),
+                               rtol=0)
+    if case in ("one row a bag", "zipf"):     # hot rows cross pieces
+        keys, _ = embedding_bag_backward_sort_plain(torch.from_numpy(idx), r)
+        assert embedding_bag_backward_links(keys, r, tables.shape[0]).sum() >= 2
+
+
+def test_embedding_bag_backward_plain_sums_float64_in_float64():
+    """fp64 dout is summed and returned in fp64 (the yardstick chip_smoke.py
+    holds the fp32 kernel against): equal to numpy's fp64 scatter-add."""
+    tables, idx, cot = _bag_grad_case("zipf")
+    t, r, e = tables.shape
+    got = embedding_bag_backward_plain(torch.from_numpy(cot).double(),
+                                       torch.from_numpy(idx), r)
+    assert got.dtype == torch.float64
+    want = np.zeros((t, r, e))
+    b_i, t_i, _ = np.indices(idx.shape)
+    np.add.at(want, (t_i, idx), cot.astype(np.float64)[b_i, t_i])
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-12)
+
+
+def test_embedding_bag_backward_keys_sentinel_and_stable_order():
+    """R 5, T 2: key t * 5 + wrap(idx), the sentinel 10 for a dropped index,
+    payload b; the stable sort keeps lookup order within a key."""
+    idx = torch.tensor([[[7, -1], [0, 3]],
+                        [[3, -6], [5, 0]]], dtype=torch.int32)
+    keys, payload = embedding_bag_backward_keys_plain(idx, 5)
+    assert keys.dtype == payload.dtype == torch.int32
+    assert keys.tolist() == [10, 4, 5, 8, 3, 10, 10, 5]
+    assert payload.tolist() == [0, 0, 0, 0, 1, 1, 1, 1]
+    keys, payload = embedding_bag_backward_sort_plain(idx, 5)
+    assert keys.tolist() == [3, 4, 5, 5, 8, 10, 10, 10]
+    assert payload.tolist() == [1, 0, 0, 1, 0, 0, 1, 1]
+
+
+def test_embedding_bag_backward_pieces_and_scratch():
+    """Table 1 takes 600 lookups, all on row 3 (key 10); table 0's are all
+    dropped (the sentinel 14). Pieces of 128: 0-3 are all key 10 and linked
+    to the next, piece 4 starts with 88 of key 10 and ends with the
+    sentinel, pieces 5-9 are the sentinel's. And the kernels' scratch and
+    launches."""
+    b, t, n, r, e = 60, 2, 10, 7, 4
+    idx = torch.full((b, t, n), 3, dtype=torch.int32)
+    idx[:, 0] = -20                                          # all dropped
+    dout = torch.from_numpy(
+        np.random.RandomState(29).randn(b, t, e).astype(np.float32))
+    keys, payload = embedding_bag_backward_sort_plain(idx, r)
+    assert embedding_bag_backward_links(keys, r, t).tolist() == [True] * 4 + [
+        False] * 5
+    pieces = embedding_bag_backward_pieces_plain(dout, keys, payload, r)
+    assert pieces["head_len"].tolist() == [128] * 4 + [88] + [0] * 5
+    rows = dout[:, 1].repeat_interleave(n, dim=0)             # sorted order
+    want = torch.cat([rows[:512].view(4, PIECE, e).sum(1),
+                      rows[512:].sum(0, keepdim=True)])
+    tol = _scaled_tol(want)
+    torch.testing.assert_close(pieces["head"][:5], want, rtol=0, atol=tol)
+    torch.testing.assert_close(pieces["tail"][:4], want[:4], rtol=0, atol=tol)
+    assert pieces["tail"][4:].abs().max() == 0
+    assert pieces["head"][5:].abs().max() == 0
+    got = embedding_bag_backward_write_plain(dout, keys, payload, pieces, r)
+    want = embedding_bag_backward_plain(dout, idx, r)
+    torch.testing.assert_close(got, want, rtol=0, atol=_scaled_tol(want))
+    bufs = {k: (tuple(v.shape), v.dtype) for k, v in
+            embedding_bag_backward_buffers(dout, idx, r).items()}
+    i32 = torch.int32
+    assert bufs == {"dtables": ((t, r, e), torch.float32),
+                    "keys": ((1200,), i32), "vals": ((1200,), i32),
+                    "keys_tmp": ((1200,), i32), "vals_tmp": ((1200,), i32),
+                    "hist": ((256 * 1 + 256,), i32),
+                    "head": ((10, e), torch.float32),
+                    "tail": ((10, e), torch.float32),
+                    "head_len": ((10,), i32)}
+    assert backward_kernels_per_call(b, t, n, r) == 3 + 1 + 1
+    assert backward_kernels_per_call(4096, 64, 32, 200_000) == 3 * 3 + 2
+    assert BACKWARD_STAGES == ("sort", "pieces", "write")
 
 
 # ------------------------------------------------------------------------- #
@@ -696,9 +832,11 @@ BAG_CUDA_TABLE = BAG_TABLE + [(4, 1000, 16, 64, 32), (3, 10, 10, 5, 9),
 
 
 def _bag_tol(want: torch.Tensor, dtype) -> float:
-    """fp32: the two sum up to a few hundred terms in another order, 1e-5 of
-    the output's scale. bf16: both round once from fp32 values a few fp32
-    ulps apart, so they may land one bf16 ulp apart, 2^-7 of |out|."""
+    """fp32: the kernel sums in sorted order (full pieces first summed
+    apart), the plain version in index_add_'s order: the same terms, up to
+    a few hundred of them a value, in another order, 1e-5 of the output's
+    scale. bf16: both round once from fp32 values a few fp32 ulps apart, so
+    they may land one bf16 ulp apart, 2^-7 of |out|."""
     scale = max(1.0, want.float().abs().max().item())
     return (1e-5 if dtype == torch.float32 else 2 ** -7) * scale
 
@@ -749,3 +887,121 @@ def test_embedding_bag_backward_kernel_matches_plain(cuda_device, dtype, t, r,
     assert got.dtype == dtype and got.shape == (t, r, e)
     assert (got.float() - want.float()).abs().max().item() <= _bag_tol(want,
                                                                        dtype)
+
+
+# t, r, e, b, n, draw: the cases of the backward's stages. "zipf": rows drawn
+# with weight k^-1.05 (hot rows over many pieces); "one row": every lookup of
+# a table on row 7; "wrap": indices in [-2R, 2R) (dropped ones, the scalar
+# path); "uniform": the reduced DLRM.
+BAG_STAGE_TABLE = [(4, 20000, 128, 1024, 32, "zipf"),
+                   (2, 1000, 128, 512, 32, "one row"),
+                   (3, 10, 10, 5, 9, "wrap"),
+                   (4, 1000, 16, 64, 32, "uniform")]
+
+
+def _bag_stage_inputs(device, dtype, t, r, e, b, n, draw, seed=30):
+    rs = np.random.RandomState(seed)
+    if draw == "zipf":
+        weight = np.arange(1, r + 1) ** -1.05
+        idx = rs.choice(r, size=(b, t, n), p=weight / weight.sum())
+    elif draw == "one row":
+        idx = np.full((b, t, n), 7)
+    elif draw == "wrap":
+        idx = rs.randint(-2 * r, 2 * r, size=(b, t, n))
+    else:
+        idx = rs.randint(0, r, size=(b, t, n))
+    wide = torch.from_numpy(rs.randn(b, t + 1, e).astype(np.float32))
+    dout = wide.to(device, dtype)[:, 1:]          # the DLRM's strided view
+    return dout, torch.from_numpy(idx.astype(np.int32)).to(device)
+
+
+def _assert_near_exact(got, dout, idx, r, dtype):
+    """got against the exact gradient (index_add_ in float64). Any order of
+    an fp32 sum of c terms lies within (c - 1) * 2^-24 * sum |terms| of the
+    exact sum (Higham, Accuracy and Stability of Numerical Algorithms, 4.2),
+    so a hot row of 16 k terms gets a wide margin and a row of one term
+    none. bf16 rounds that sum once more: one bf16 ulp, 2^-7 of |exact|."""
+    t, e = dout.shape[1], dout.shape[2]
+    keys, payload = embedding_bag_backward_keys_plain(idx, r)
+    valid = keys < t * r
+    k = keys[valid].long()
+    rows = dout.double()[payload[valid].long(), k // r]
+    exact = torch.zeros((t * r, e), dtype=torch.float64, device=dout.device)
+    abs_sum, count = torch.zeros_like(exact), torch.zeros_like(exact[:, 0])
+    exact.index_add_(0, k, rows)
+    abs_sum.index_add_(0, k, rows.abs())
+    count.index_add_(0, k, torch.ones_like(rows[:, 0]))
+    allowed = (count - 1).clamp(min=0)[:, None] * 2.0 ** -24 * abs_sum
+    if dtype == torch.bfloat16:
+        allowed = 2 * allowed + 2 ** -7 * exact.abs()
+    err = (got.double().view(t * r, e) - exact).abs()
+    assert (err <= allowed).all(), (err - allowed).max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t,r,e,b,n,draw", BAG_STAGE_TABLE)
+@pytest.mark.parametrize("stage", BACKWARD_STAGES)
+def test_embedding_bag_backward_stage_kernel_matches_plain(
+        cuda_device, stage, dtype, t, r, e, b, n, draw):
+    """One stage's kernels against the plain stage, fed the plain stages'
+    results for what they read. The sort's output is unique: equal exactly.
+    The writer starts from NaN: every row is written, those no lookup names
+    with 0."""
+    dout, idx = _bag_stage_inputs(cuda_device, dtype, t, r, e, b, n, draw)
+    keys, payload = embedding_bag_backward_sort_plain(idx, r)
+    pieces = embedding_bag_backward_pieces_plain(dout, keys, payload, r)
+    bufs = embedding_bag_backward_buffers(dout, idx, r)
+    for buf in bufs.values():
+        buf.fill_(-1 if buf.dtype == torch.int32 else float("nan"))
+    if stage != "sort":
+        bufs["keys"].copy_(keys)
+        bufs["vals"].copy_(payload)
+    # pieces whose first / last key is not the sentinel: what the kernel
+    # writes and the writer reads
+    last = keys[torch.clamp(torch.arange(1, len(pieces["head"]) + 1,
+                                         device=keys.device) * PIECE,
+                            max=keys.numel()) - 1]
+    heads, tails = keys[::PIECE] < t * r, last < t * r
+    if stage == "write":
+        for name, valid in (("head", heads), ("tail", tails),
+                            ("head_len", heads)):
+            bufs[name][valid] = pieces[name][valid]
+    embedding_bag_backward_stages_cuda(dout, idx, r, bufs, stages=(stage,))
+    torch.cuda.synchronize()
+    if stage == "sort":
+        assert torch.equal(bufs["keys"], keys)
+        assert torch.equal(bufs["vals"], payload)
+    elif stage == "pieces":
+        assert torch.equal(bufs["head_len"][heads], pieces["head_len"][heads])
+        rows = dout.float()[payload.long(), (keys.clamp(max=t * r - 1)
+                                             // r).long()]
+        pad = len(heads) * PIECE - keys.numel()
+        abs_sum = torch.cat([rows.abs(), rows.new_zeros((pad, e))]).view(
+            -1, PIECE, e).sum(1)
+        for name, valid in (("head", heads), ("tail", tails)):
+            got, want = bufs[name][valid], pieces[name][valid]
+            # up to PIECE terms, summed in two orders
+            assert ((got - want).abs()
+                    <= 2 * PIECE * 2.0 ** -24 * abs_sum[valid]).all()
+    else:
+        got = bufs["dtables"]
+        assert got.dtype == dtype and not got.isnan().any()
+        untouched = torch.ones(t * r, dtype=torch.bool, device=cuda_device)
+        untouched[keys[keys < t * r].long()] = False
+        assert not got.view(t * r, e)[untouched].any()
+        _assert_near_exact(got, dout, idx, r, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t,r,e,b,n,draw", BAG_STAGE_TABLE[:2])
+def test_embedding_bag_backward_kernel_is_deterministic(cuda_device, dtype, t,
+                                                        r, e, b, n, draw):
+    """Five calls on a Zipf-hot and on a single-row input: bitwise equal,
+    and near the exact gradient."""
+    dout, idx = _bag_stage_inputs(cuda_device, dtype, t, r, e, b, n, draw)
+    first = embedding_bag_backward_cuda(dout, idx, r)
+    for _ in range(4):
+        assert torch.equal(embedding_bag_backward_cuda(dout, idx, r), first)
+    _assert_near_exact(first, dout, idx, r, dtype)
