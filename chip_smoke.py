@@ -14,7 +14,8 @@ run with a non-zero exit code (nothing drops to the CPU or to a plain version):
            replay; and issued eagerly, host included), the card's bound and a
            library call's time as a yardstick; the embedding-bag backward
            also per stage, and at its two main shapes (uniform and Zipf
-           indices) three calls that must agree bitwise
+           indices) three calls that must agree bitwise; the attention and
+           RMSNorm backwards the same, three calls at each main shape
   serve    smollm-135m at full width and depth, bf16, random weights from a
            seed: the continuous-batching engine answers 16 requests; launch
            counters show that the run went through the kernels; then the
@@ -34,6 +35,17 @@ run with a non-zero exit code (nothing drops to the CPU or to a plain version):
   train_dlrm_check
            one step of the kernel path against the plain path, fp32, on the
            same weights and batch: loss, logits, gradients, updated weights
+  train_lm smollm-135m at full width and depth, fp32 as launch.train trains
+           it, weights from a seed: the training entry point's own objects
+           (init_train_state, make_train_step, Trainer, DataIterator) take
+           2 warm-up and 20 timed steps on batches of 8 x 2048 tokens, with
+           the memory plan's remat ("dots"), through the attention and RMSNorm
+           kernels in both directions; launches held to the count reckoned
+           from the layers and the policy; then 2 steps under torch.profiler
+  train_lm_check
+           one step of a 2-layer, full-width smollm through the kernels and
+           through the plain versions (autograd) on the same weights and
+           batch, fp32 and bf16: loss, grad norm, every gradient leaf
 
 The last three lines are the card as nvidia-smi names it, one JSON object
 describing every kernel, and the verdict.
@@ -74,12 +86,22 @@ from repro_torch.kernels.embedding_bag import (  # noqa: E402
     embedding_bag_cuda,
     embedding_bag_plain,
 )
+from repro_torch.kernels import flash_attention as fa_module  # noqa: E402
+from repro_torch.kernels import rmsnorm as rms_module  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     DECODE_CLUSTERS,
+    flash_attention_backward_cuda,
+    flash_attention_backward_plain,
     flash_attention_cuda,
+    flash_attention_forward_plain,
+    flash_attention_lse_cuda,
     flash_attention_plain,
 )
-from repro_torch.kernels.rmsnorm import rmsnorm_plain  # noqa: E402
+from repro_torch.kernels.rmsnorm import (  # noqa: E402
+    rmsnorm_backward_cuda,
+    rmsnorm_backward_plain,
+    rmsnorm_plain,
+)
 from repro_torch.kernels.ssd_scan import (  # noqa: E402
     KERNELS_PER_CALL,
     STAGES,
@@ -89,7 +111,15 @@ from repro_torch.kernels.ssd_scan import (  # noqa: E402
 )
 from repro_torch.models import get_model  # noqa: E402
 from repro_torch.models.dlrm import DLRM  # noqa: E402
+from repro_torch.parallel import plan_memory  # noqa: E402
 from repro_torch.serve import Engine, EngineConfig, Request  # noqa: E402
+from repro_torch.train import (  # noqa: E402
+    Trainer,
+    TrainerConfig,
+    init_train_state,
+    make_train_step,
+)
+from repro_torch.train import train_step as train_step_module  # noqa: E402
 from repro_torch.train.optimizer import (  # noqa: E402
     AdamWConfig,
     apply_updates,
@@ -123,6 +153,41 @@ DLRM_OPT = dict(lr=3e-3, warmup_steps=2, total_steps=20, use_master=False)
 DLRM_SAMPLE_BAGS = 64   # bags whose table rows the kernel-vs-plain step reads
 ZIPF_ALPHA = 1.05       # the skewed bag case: row k of a table drawn ~ k^-1.05
 BAG_REPEATS = 3         # backward calls at a main shape that must agree bitwise
+
+# The backwards: each gradient's max |kernel - plain| against its own
+# largest magnitude (fp32: the same sums in another order; bf16: each result
+# rounded once to bf16 on both sides, and the kernel's forward rounds P with
+# the tensor cores' exp2 where the plain version uses softmax).
+BWD_TOL = {"flash_attention_backward": {torch.float32: 2e-5,
+                                        torch.bfloat16: 3e-2},
+           "rmsnorm_backward": {torch.float32: 1e-5, torch.bfloat16: 1e-2}}
+BWD_REPEATS = 3         # backward calls at a main shape that must agree bitwise
+# The training route's forward (output and the rows' log-sum-exp) against
+# the plain forward: the output to the forward cases' ATTN_TOL (absolute);
+# the log-sum-exp, in nats, to LSE_TOL of max(1, its largest magnitude) (the
+# same fp32 sums of exact products in another order, exp2 on the card).
+LSE_TOL = 1e-4
+
+# Dense-LM training: smollm-135m at full width and depth, fp32 parameters as
+# launch.train makes them, 8 sequences of SmolLM's 2048-token context a
+# step, launch.train's learning rate with a 2-step warmup.
+LM_ARCH = "smollm-135m"
+LM_BATCH, LM_SEQ = 8, 2048
+LM_WARMUP, LM_STEPS, LM_PROFILED = 2, 20, 2
+LM_LR = 3e-3
+# The check: 2 layers at full width, one step, kernel route against plain
+# route (autograd through the plain versions) on the card. fp32: the CPU
+# tests' tolerances against the JAX package (loss 1e-5 relative, each
+# gradient leaf 1e-4 of its largest magnitude, and the grad norm 1e-4). bf16:
+# both routes round every activation to bf16, in other places (the kernels
+# round once from fp32 registers, the plain versions after each PyTorch
+# op), so an activation may differ by a bf16 ulp (2^-8 relative) in each of
+# the ~20 roundings between a leaf and the loss: loss 1e-2 relative, each
+# leaf 5e-2 of its largest magnitude, the grad norm 2e-2.
+LM_CHECK_LAYERS, LM_CHECK_BATCH, LM_CHECK_SEQ = 2, 4, 1024
+LM_CHECK_TOL = {torch.float32: {"loss": 1e-5, "grads": 1e-4, "grad_norm": 1e-4},
+                torch.bfloat16: {"loss": 1e-2, "grads": 5e-2,
+                                 "grad_norm": 2e-2}}
 
 DEVICE = "cuda"
 
@@ -175,6 +240,36 @@ def time_ms(fn, arg_sets, iters: int = 50, graph: bool = True) -> dict:
         run()
     cuda_graph.replay()
     return {"device": timed(cuda_graph.replay), "eager": eager}
+
+
+def trace_ms(fn, arg_sets, iters: int = 10) -> dict:
+    """Milliseconds of one ``fn(*args)`` on the card by torch.profiler: the
+    sum of the device time of every kernel, copy and fill it launched,
+    over ``iters`` calls that rotate through ``arg_sets``, per call. No
+    capture, so it takes a call whose temporaries a CUDA graph could not
+    hold (autograd's backward of a library call), and no host time between
+    launches, which is all an eager reading sees of a short call.
+    ``kernels``: the four that take the most time, by name; ``backend``:
+    the attention backend those names show (cudnn, flash, efficient by its
+    ``fmha`` kernels, or math when none of them)."""
+    from torch.profiler import ProfilerActivity, profile
+    for args in arg_sets[:2]:
+        fn(*args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(iters):
+            fn(*arg_sets[i % len(arg_sets)])
+        torch.cuda.synchronize()
+    device_us, _, by_name = _device_time(prof, iters, "call")
+    if device_us == 0:
+        raise RuntimeError("torch.profiler reported no device time")
+    names = [e["name"] for e in by_name]
+    joined = " ".join(names).lower()
+    backend = next((tag for tag, key in (
+        ("cudnn", "cudnn"), ("flash", "flash"), ("efficient", "fmha"))
+        if key in joined), "math")
+    return {"ms": device_us / 1e3 / iters, "kernels": names[:4],
+            "backend": backend}
 
 
 def copies_for_cold_l2(tensors) -> int:
@@ -342,6 +437,199 @@ def _attention_case(name, b, h, hkv, sq, skv, d, causal, dtype, gen,
                 sets)["device"]
             for c in DECODE_CLUSTERS}
     return case
+
+
+def _scaled_errors(got, want) -> list:
+    """(max |got - want|, max |want|) of each gradient."""
+    return [((g.float() - w.float()).abs().max().item(),
+             w.float().abs().max().item()) for g, w in zip(got, want)]
+
+
+def _bitwise_repeats(fn, first) -> int:
+    """Calls of ``fn`` (the first given) that equal ``first`` bit for bit."""
+    return 1 + sum(all(torch.equal(a, b) for a, b in zip(fn(), first))
+                   for _ in range(BWD_REPEATS - 1))
+
+
+def _attention_backward_case(name, b, h, hkv, s, d, causal, dtype, gen,
+                             main=False) -> dict:
+    """The training route at one shape: the forward with the rows'
+    log-sum-exp against the plain forward, then the backward against the
+    plain backward, which takes the plain forward's o and lse (nothing the
+    kernels made). Inputs in the model's layout, (b, s, heads, d), handed
+    over as transposed views. ``main``: three calls must agree bitwise; the
+    plain version is timed eagerly (its temporaries are gigabytes).
+    ``library_ms``: autograd's backward of one
+    ``F.scaled_dot_product_attention`` (GQA by ``enable_gqa``), and
+    ``kernel_trace_ms`` the backward kernels, both as torch.profiler's sum
+    of device time (``trace_ms``)."""
+    def draw(heads):
+        t = torch.randn((b, s, heads, d), generator=gen, device=DEVICE)
+        return t.to(dtype).transpose(1, 2)
+    q, k, v, do = draw(h), draw(hkv), draw(hkv), draw(h)
+    out, lse = flash_attention_lse_cuda(q, k, v, causal)
+    got = flash_attention_backward_cuda(q, k, v, out, lse, do, causal)
+    torch.cuda.synchronize()
+    want_out, want_lse = flash_attention_forward_plain(q, k, v, causal)
+    out_err = (out.float() - want_out.float()).abs().max().item()
+    lse_err = (lse - want_lse).abs().max().item()
+    lse_scale = max(1.0, want_lse.abs().max().item())
+    want = flash_attention_backward_plain(q, k, v, want_out, want_lse, do,
+                                          causal)
+    del want_out, want_lse
+    errs = _scaled_errors(got, want)
+    tol = BWD_TOL["flash_attention_backward"][dtype]
+    extra = {}
+    if main:
+        extra["bitwise_equal_calls"] = _bitwise_repeats(
+            lambda: flash_attention_backward_cuda(q, k, v, out, lse, do,
+                                                  causal), got)
+    del got, want
+    ok = (out_err <= ATTN_TOL[dtype] and lse_err <= LSE_TOL * lse_scale
+          and all(e <= tol * scale for e, scale in errs)
+          and extra.get("bitwise_equal_calls", BWD_REPEATS) == BWD_REPEATS)
+
+    # Five products of 2 d flops for each (query, key) pair the mask
+    # allows; each input read once, each gradient written once.
+    pairs = b * (s * (s + 1) // 2 if causal else s * s)
+    flops = 10 * pairs * h * d
+    item = q.element_size()
+    nbytes = (item * (3 * b * h * s * d + 2 * b * hkv * s * d      # q o dO, k v
+                      + b * h * s * d + 2 * b * hkv * s * d)       # dq, dk dv
+              + 4 * b * h * s)                                     # lse
+    bound_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    bound_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    # the forward with the log-sum-exp: two products; q k v read, o and lse
+    # written
+    fwd_bound = max(
+        (item * (2 * b * h * s * d + 2 * b * hkv * s * d) + 4 * b * h * s)
+        / HBM_BYTES_PER_S * 1e3, 4 * pairs * h * d / PEAK_FLOPS[dtype] * 1e3)
+    sets = [(q, k, v, out, lse, do)]
+    kernel = time_ms(lambda *a: flash_attention_backward_cuda(*a, causal),
+                     sets, **(dict(iters=20) if main else {}))
+    kernel_trace = trace_ms(
+        lambda *a: flash_attention_backward_cuda(*a, causal), sets)
+    forward = time_ms(lambda q_, k_, v_, *_: flash_attention_lse_cuda(
+        q_, k_, v_, causal), sets)
+    plain_ms = time_ms(lambda *a: flash_attention_backward_plain(*a, causal),
+                       sets, iters=10 if main else 50, graph=False)["device"]
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    with torch.enable_grad():
+        lib_out = F.scaled_dot_product_attention(*leaves, is_causal=causal,
+                                                 enable_gqa=True)
+    library = trace_ms(lambda o, g: torch.autograd.grad(
+        o, leaves, g, retain_graph=True), [(lib_out, do)])
+    del lib_out, leaves
+    return {
+        "kernel": "flash_attention_backward", "case": name,
+        "shape": {"b": b, "h": h, "hkv": hkv, "s": s, "d": d,
+                  "causal": causal},
+        "dtype": dtype_name(dtype),
+        "max_abs_err": max(e for e, _ in errs),
+        "grad_max_abs_err": dict(zip(("dq", "dk", "dv"), (e for e, _ in errs))),
+        "grad_max_abs": dict(zip(("dq", "dk", "dv"), (m for _, m in errs))),
+        "tol": tol, "tol_is": "of each gradient's largest magnitude",
+        "forward_out_max_abs_err": out_err, "forward_out_tol": ATTN_TOL[dtype],
+        "lse_max_abs_err": lse_err, "lse_tol": LSE_TOL * lse_scale,
+        "ok": ok,
+        "kernel_ms": kernel["device"], "kernel_eager_ms": kernel["eager"],
+        "kernel_trace_ms": kernel_trace["ms"],
+        "forward_lse_ms": forward["device"], "forward_lse_bound_ms": fwd_bound,
+        "kernels_per_call": fa_module.BACKWARD_KERNELS_PER_CALL,
+        "plain_ms": plain_ms, "library_ms": library["ms"],
+        "library_kernels": library["kernels"],
+        "library_backend": library["backend"],
+        "bound_ms": max(bound_bytes, bound_ops),
+        "bound_by": "bytes" if bound_bytes >= bound_ops else "operations",
+        "flops": flops, "bytes": nbytes, **extra,
+    }
+
+
+def _rmsnorm_backward_case(shape, dtype, gen, main=False) -> dict:
+    """dx and dgamma against the plain backward; ``main``: three calls must
+    agree bitwise. ``library_ms``: autograd's backward of one
+    ``F.rms_norm``, and ``kernel_trace_ms`` the backward kernels, both as
+    torch.profiler's sum of device time over the same cold copies."""
+    d = shape[-1]
+    x = torch.randn(shape, generator=gen, device=DEVICE).to(dtype)
+    gamma = (1.0 + 0.1 * torch.randn(d, generator=gen, device=DEVICE)).to(dtype)
+    dy = torch.randn(shape, generator=gen, device=DEVICE).to(dtype)
+    got = rmsnorm_backward_cuda(x, gamma, dy)
+    torch.cuda.synchronize()
+    want = rmsnorm_backward_plain(x, gamma, dy)
+    errs = _scaled_errors(got, want)
+    tol = BWD_TOL["rmsnorm_backward"][dtype]
+    extra = {}
+    if main:
+        extra["bitwise_equal_calls"] = _bitwise_repeats(
+            lambda: rmsnorm_backward_cuda(x, gamma, dy), got)
+    ok = (all(e <= tol * scale for e, scale in errs)
+          and extra.get("bitwise_equal_calls", BWD_REPEATS) == BWD_REPEATS)
+    rows = x.numel() // d
+    item = x.element_size()
+    nbytes = (3 * rows * d + 2 * d) * item    # x, dy, dx; gamma, dgamma
+    flops = 10 * rows * d
+    bound_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    bound_ops = flops / PEAK_FLOPS[torch.float32] * 1e3
+    sets = [(x.clone(), gamma, dy.clone())
+            for _ in range(copies_for_cold_l2([x, dy, x]))]
+    kernel = time_ms(lambda a, g, e: rmsnorm_backward_cuda(a, g, e), sets)
+    kernel_trace = trace_ms(lambda a, g, e: rmsnorm_backward_cuda(a, g, e),
+                            sets)
+    plain_ms = time_ms(lambda a, g, e: rmsnorm_backward_plain(a, g, e), sets,
+                       iters=20, graph=False)["device"]
+    lib_sets = []
+    for xs, _, dys in sets:
+        xl = xs.detach().requires_grad_()
+        gl = gamma.detach().clone().requires_grad_()
+        with torch.enable_grad():
+            lib_sets.append((F.rms_norm(xl, (d,), gl, 1e-5), (xl, gl), dys))
+    library = trace_ms(lambda o, leaves, g: torch.autograd.grad(
+        o, leaves, g, retain_graph=True), lib_sets)
+    del lib_sets
+    return {
+        "kernel": "rmsnorm_backward", "shape": list(shape),
+        "dtype": dtype_name(dtype), "max_abs_err": max(e for e, _ in errs),
+        "grad_max_abs_err": {"dx": errs[0][0], "dgamma": errs[1][0]},
+        "grad_max_abs": {"dx": errs[0][1], "dgamma": errs[1][1]},
+        "tol": tol, "tol_is": "of each gradient's largest magnitude",
+        "ok": ok, "kernel_ms": kernel["device"],
+        "kernel_eager_ms": kernel["eager"], "kernel_trace_ms": kernel_trace["ms"],
+        "kernels_per_call": rms_module.BACKWARD_KERNELS_PER_CALL,
+        "plain_ms": plain_ms, "library_ms": library["ms"],
+        "library_kernels": library["kernels"],
+        "bound_ms": max(bound_bytes, bound_ops),
+        "bound_by": "bytes" if bound_bytes >= bound_ops else "operations",
+        "cold_copies": len(sets), **extra,
+    }
+
+
+def _backward_cases() -> list:
+    """The training route's kernels. Attention: smollm-135m's layer at the
+    train_lm phase's shape (the main case), a chatglm3-6b-like layer (d 128,
+    32 heads over 2), a ragged tile, a non-causal one, and the reduced
+    configs' layer at launch.train's default batch (d 16). RMSNorm: the
+    train_lm phase's rows (8 x 2048 of 576, the main case), ragged and wide
+    rows and one that is not a whole number of 16-byte packs."""
+    gen = torch.Generator(device=DEVICE).manual_seed(4)
+    cases = []
+    for dtype in (torch.float32, torch.bfloat16):
+        cases.append(_attention_backward_case(
+            "train main", LM_BATCH, 9, 3, LM_SEQ, 64, True, dtype, gen,
+            main=True))
+        cases.append(_attention_backward_case(
+            "chatglm3-like d=128", 1, 32, 2, 1024, 128, True, dtype, gen))
+        cases.append(_attention_backward_case(
+            "ragged s=37", 1, 4, 4, 37, 64, True, dtype, gen))
+        cases.append(_attention_backward_case(
+            "non-causal s=130", 2, 6, 2, 130, 64, False, dtype, gen))
+        cases.append(_attention_backward_case(
+            "reduced d=16", 8, 4, 2, 128, 16, True, dtype, gen))
+        cases.append(_rmsnorm_backward_case((LM_BATCH * LM_SEQ, 576), dtype,
+                                            gen, main=True))
+        for shape in ((3, 37, 576), (2, 64, 4096), (3, 7, 100)):
+            cases.append(_rmsnorm_backward_case(shape, dtype, gen))
+    return cases
 
 
 def _ssd_case(name, b, s, h, p, n, g, chunk, dtype, gen,
@@ -711,6 +999,7 @@ def phase_kernels() -> list:
             cases.append(_ssd_case("grouped h4 g2", 2, 45, 4, 16, 16, 2, 32,
                                    dtype, gen_mamba))
     cases.extend(_bag_cases())
+    cases.extend(_backward_cases())
     failed = [c for c in cases
               if not c.get("ok", c["max_abs_err"] <= c["tol"])]
     emit("kernels", cases=cases, failed=len(failed))
@@ -1243,6 +1532,242 @@ def phase_train_dlrm_check() -> None:
 
 
 # ------------------------------------------------------------------------- #
+# Dense-LM training
+# ------------------------------------------------------------------------- #
+
+LM_KERNELS = ("flash_attention", "flash_attention_backward", "rmsnorm",
+              "rmsnorm_backward")
+
+
+def _lm_counts() -> dict:
+    return {"flash_attention": ops.flash_attention.launches,
+            "flash_attention_backward": ops.flash_attention.backward_launches,
+            "rmsnorm": ops.rmsnorm.launches,
+            "rmsnorm_backward": ops.rmsnorm.backward_launches}
+
+
+def _zero_lm_counts() -> None:
+    for wrapper in (ops.flash_attention, ops.rmsnorm):
+        wrapper.launches = 0
+        wrapper.backward_launches = 0
+
+
+def _expected_lm_launches(cfg, remat: str, steps: int) -> dict:
+    """Each kernel's calls in ``steps`` training steps of one microbatch: a
+    layer runs attention once and RMSNorm twice, the final norm once, each
+    forward with one backward; a policy that recomputes the layers
+    (anything but "none") runs the layers' forwards again in the
+    backward."""
+    layers = cfg.num_layers
+    again = 1 if remat == "none" else 2
+    return {"flash_attention": again * layers * steps,
+            "flash_attention_backward": layers * steps,
+            "rmsnorm": (again * 2 * layers + 1) * steps,
+            "rmsnorm_backward": (2 * layers + 1) * steps}
+
+
+def _lm_memory_reckoned(cfg, batch: int, seq: int) -> dict:
+    """Bytes reckoned from the shapes, fp32: parameters, gradients, m, v and
+    the master copy; the logits and their gradient; the projections the
+    "dots" policy keeps (q, k, v, the attention output's projection, the
+    FFN's two inputs and its output, a layer)."""
+    params = cfg.param_count()
+    tokens = batch * seq
+    hd = cfg.resolved_head_dim
+    per_layer = (cfg.num_heads * hd + 2 * cfg.num_kv_heads * hd + cfg.d_model
+                 + 2 * cfg.d_ff + cfg.d_model)
+    return {"state_bytes": 5 * 4 * params,
+            "logits_and_grad_bytes": 2 * tokens * cfg.padded_vocab * 4,
+            "dots_saved_bytes": cfg.num_layers * tokens * per_layer * 4}
+
+
+def phase_train_lm() -> dict:
+    """Full-width, full-depth smollm-135m in fp32 through the training entry
+    point's objects: LM_WARMUP + LM_STEPS steps (the first LM_WARMUP not
+    timed), each step read back once by the trainer, then LM_PROFILED more
+    under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    cfg = get_config(LM_ARCH)
+    plan = plan_memory(cfg, tp=1, dp=1)
+    steps = LM_WARMUP + LM_STEPS
+    ocfg = AdamWConfig(lr=LM_LR, warmup_steps=LM_WARMUP, total_steps=steps,
+                       state_dtype=plan.opt_dtype, use_master=plan.use_master)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = init_train_state(cfg, plan,
+                             torch.Generator(device=DEVICE).manual_seed(0),
+                             ocfg, dtype=torch.float32, device=DEVICE)
+    torch.cuda.synchronize()
+    init_seconds = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in state["params"].values())
+    data = DataIterator(DataConfig(vocab_size=cfg.vocab_size, seq_len=LM_SEQ,
+                                   global_batch=LM_BATCH, seed=0),
+                        device=DEVICE)
+    trainer = Trainer(make_train_step(cfg, plan, ocfg), state, data,
+                      TrainerConfig(total_steps=steps, log_interval=1, seed=0))
+
+    torch.cuda.synchronize()
+    # The main path: counters to 0 just before, read just after.
+    _zero_lm_counts()
+    summary = trainer.run()
+    launches = _lm_counts()
+    peak_bytes = torch.cuda.max_memory_allocated()
+    losses = [row["loss"] for row in trainer.metrics_log]
+
+    trainer.cfg.total_steps = steps + LM_PROFILED
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        trainer.run()
+        torch.cuda.synchronize()
+    device_us, device_launches, by_name = _device_time(prof, LM_PROFILED,
+                                                       "step")
+
+    step_ms = [t * 1e3 for t in trainer.step_times[LM_WARMUP:steps]]
+    timed_s = sum(step_ms) / 1e3
+    median_ms = float(np.median(step_ms))
+    problems = []
+    if not all(math.isfinite(x) for x in losses):
+        problems.append(f"a loss is not finite: {losses}")
+    first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    if not last < first:
+        problems.append(f"the loss did not fall: first 5 {first}, last 5 "
+                        f"{last}")
+    if summary["final_step"] != steps:
+        problems.append(f"the trainer stopped at step {summary['final_step']}")
+    expected = _expected_lm_launches(cfg, plan.remat, steps)
+    if launches != expected:
+        problems.append(f"launches {launches} != {expected}, reckoned from "
+                        f"{cfg.num_layers} layers and remat {plan.remat!r}")
+    result = {
+        "arch": cfg.arch_id, "layers": cfg.num_layers, "d_model": cfg.d_model,
+        "params": n_params, "dtype": "float32",
+        "plan": {"remat": plan.remat, "microbatches": plan.microbatches,
+                 "opt_dtype": plan.opt_dtype, "use_master": plan.use_master,
+                 "zero_stage": plan.zero_stage},
+        "optimizer": {"lr": LM_LR, "warmup_steps": LM_WARMUP,
+                      "total_steps": steps},
+        "global_batch": LM_BATCH, "seq_len": LM_SEQ,
+        "warmup_steps_untimed": LM_WARMUP, "timed_steps": LM_STEPS,
+        "losses": losses, "loss_first": losses[0], "loss_last": losses[-1],
+        "step_ms": step_ms, "step_ms_median": median_ms,
+        "step_ms_mean": float(np.mean(step_ms)),
+        "samples_per_s": LM_BATCH * LM_STEPS / timed_s,
+        "tokens_per_s": LM_BATCH * LM_SEQ * LM_STEPS / timed_s,
+        "straggler_steps": summary["straggler_steps"],
+        "launches": launches, "launches_per_step": {
+            k: v / steps for k, v in launches.items()},
+        "peak_memory_bytes": peak_bytes,
+        "memory_reckoned": _lm_memory_reckoned(cfg, LM_BATCH, LM_SEQ),
+        "init_seconds": init_seconds, "problems": problems,
+    }
+    if device_us:
+        device_ms = device_us / 1e3 / LM_PROFILED
+        result.update(
+            device_ms_per_step=device_ms,
+            device_idle_share=1.0 - device_ms / median_ms,
+            device_launches_per_step=device_launches / LM_PROFILED,
+            top_device_time=by_name[:14])
+    else:
+        result.update(device_idle_share="not measured",
+                      reason="torch.profiler reported no device time")
+    emit("train_lm", **result)
+    if problems:
+        raise SystemExit(f"chip_smoke: train_lm phase failed: {problems}")
+    del trainer, state, data, prof
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _lm_one_step(dtype: torch.dtype, plain: bool) -> dict:
+    """One training step of LM_CHECK_LAYERS layers of full-width smollm
+    from seed 0, on the data's step 0: the loss, the gradients (as the step
+    hands them to the optimizer) and the grad norm. ``plain``: attention and
+    RMSNorm are the plain versions, differentiated by autograd."""
+    cfg = dataclasses.replace(get_config(LM_ARCH), num_layers=LM_CHECK_LAYERS)
+    plan = plan_memory(cfg, tp=1, dp=1)
+    ocfg = AdamWConfig(lr=LM_LR, warmup_steps=1, total_steps=10,
+                       state_dtype=plan.opt_dtype, use_master=plan.use_master)
+    state = init_train_state(cfg, plan,
+                             torch.Generator(device=DEVICE).manual_seed(0),
+                             ocfg, dtype=dtype, device=DEVICE)
+    batch = next(DataIterator(DataConfig(vocab_size=cfg.vocab_size,
+                                         seq_len=LM_CHECK_SEQ,
+                                         global_batch=LM_CHECK_BATCH, seed=0),
+                              device=DEVICE))
+    seen = {}
+
+    def spy(params, grads, *args, **kwargs):
+        seen["grads"] = {n: g.clone() for n, g in grads.items()}
+        return apply_updates(params, grads, *args, **kwargs)
+
+    kernels = {"flash_attention": ops.flash_attention, "rmsnorm": ops.rmsnorm}
+    _zero_lm_counts()
+    train_step_module.apply_updates = spy
+    if plain:
+        ops.flash_attention, ops.rmsnorm = flash_attention_plain, rmsnorm_plain
+    try:
+        _, metrics = make_train_step(cfg, plan, ocfg)(state, batch)
+        torch.cuda.synchronize()
+    finally:
+        train_step_module.apply_updates = apply_updates
+        ops.flash_attention, ops.rmsnorm = (kernels["flash_attention"],
+                                            kernels["rmsnorm"])
+    out = {"loss": metrics["loss"].item(),
+           "grad_norm": metrics["grad_norm"].item(), "grads": seen["grads"],
+           "launches": _lm_counts(), "remat": plan.remat, "cfg": cfg}
+    del state
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_train_lm_check() -> None:
+    """For fp32 and bf16: one step through the kernels, then one through the
+    plain versions, each from a fresh model drawn from seed 0."""
+    report, problems = {}, []
+    for dtype in (torch.float32, torch.bfloat16):
+        tol = LM_CHECK_TOL[dtype]
+        kernel = _lm_one_step(dtype, plain=False)
+        plain = _lm_one_step(dtype, plain=True)
+        name = dtype_name(dtype)
+        expected = _expected_lm_launches(kernel["cfg"], kernel["remat"], 1)
+        if kernel["launches"] != expected:
+            problems.append(f"{name}: launches {kernel['launches']} != "
+                            f"{expected}")
+        if any(plain["launches"].values()):
+            problems.append(f"{name}: the plain route launched a kernel: "
+                            f"{plain['launches']}")
+        loss_err = abs(kernel["loss"] - plain["loss"])
+        if not (math.isfinite(kernel["loss"])
+                and loss_err <= tol["loss"] * abs(plain["loss"])):
+            problems.append(f"{name}: loss {kernel['loss']} against "
+                            f"{plain['loss']}")
+        gnorm_err = abs(kernel["grad_norm"] - plain["grad_norm"])
+        if not gnorm_err <= tol["grad_norm"] * plain["grad_norm"]:
+            problems.append(f"{name}: grad norm {kernel['grad_norm']} against "
+                            f"{plain['grad_norm']}")
+        grads = {}
+        for leaf, want in plain["grads"].items():
+            got = kernel["grads"][leaf]
+            err = (got - want).abs().max().item()
+            scale = want.abs().max().item()
+            grads[leaf] = err / scale if scale else err
+            if not (torch.isfinite(got).all() and err <= tol["grads"] * scale):
+                problems.append(f"{name}: gradient {leaf} differs by {err} "
+                                f"(largest {scale})")
+        worst = max(grads, key=grads.get)
+        report[name] = {
+            "tol": tol, "loss": plain["loss"], "loss_abs_err": loss_err,
+            "grad_norm": plain["grad_norm"], "grad_norm_abs_err": gnorm_err,
+            "grad_leaves": len(grads),
+            "grad_worst_leaf": {"leaf": worst, "err_of_max": grads[worst]},
+            "launches": kernel["launches"]}
+    emit("train_lm_check", arch=LM_ARCH, layers=LM_CHECK_LAYERS,
+         batch=LM_CHECK_BATCH, seq_len=LM_CHECK_SEQ, **report,
+         problems=problems)
+    if problems:
+        raise SystemExit(f"chip_smoke: train_lm_check failed: {problems}")
+
+
+# ------------------------------------------------------------------------- #
 # The kernels' line
 # ------------------------------------------------------------------------- #
 
@@ -1263,6 +1788,17 @@ KERNELS = (
     ("embedding_bag_backward", "src/repro_torch/kernels/csrc/embedding_bag.cu",
      "src/repro/kernels/embedding_bag.py:37",
      lambda c: c.get("case") == "main" and c["dtype"] == "float32"),
+    # The two training backwards have no Pallas counterpart (jax.grad
+    # differentiates the reference): each names the forward it is the
+    # gradient of.
+    ("flash_attention_backward",
+     "src/repro_torch/kernels/csrc/flash_attention_backward.cu",
+     "src/repro/kernels/flash_attention.py:79",
+     lambda c: c.get("case") == "train main" and c["dtype"] == "float32"),
+    ("rmsnorm_backward", "src/repro_torch/kernels/csrc/rmsnorm.cu",
+     "src/repro/kernels/rmsnorm.py:24",
+     lambda c: c.get("shape") == [LM_BATCH * LM_SEQ, 576]
+     and c["dtype"] == "float32"),
 )
 
 
@@ -1273,10 +1809,12 @@ def kernels_line(cases: list, launches_by_path: dict) -> dict:
     the shape the main path gives it most often (attention and RMSNorm: one
     decode tick of the bf16 dense serve phase; the SSD scan: the bf16
     1024-token prefill; the embedding bag, both directions: the fp32 DLRM
-    training step); attention also carries the bf16 1024-token prefill under
-    ``prefill``, the embedding bag the same step at Zipf indices under
-    ``zipf``. The other shapes' times are in the ``kernels`` phase's
-    line."""
+    training step; the attention and RMSNorm backwards: the fp32 train_lm
+    step's layer, with bf16 beside it); attention also carries the bf16
+    1024-token prefill under ``prefill`` and the train_lm forward (with the
+    log-sum-exp) under ``train_forward_with_lse``, the embedding bag the
+    same step at Zipf indices under ``zipf``. The other shapes' times are in
+    the ``kernels`` phase's line."""
     entries = []
     for name, source, replaces, is_main in KERNELS:
         mine = [c for c in cases if c["kernel"] == name]
@@ -1310,9 +1848,28 @@ def kernels_line(cases: list, launches_by_path: dict) -> dict:
                 k: zipf[k] for k in ("kernel_ms", "plain_ms", "library_ms",
                                      "bound_ms", "bound_by", "stage_ms",
                                      "bitwise_equal_calls") if k in zipf}
-        if name == "embedding_bag_backward":
+        if name in ("embedding_bag_backward", "flash_attention_backward",
+                    "rmsnorm_backward"):
             entries[-1]["bitwise_equal_calls"] = main_case[
                 "bitwise_equal_calls"]
+        if name in ("flash_attention_backward", "rmsnorm_backward"):
+            # library_ms of a backward is a torch.profiler sum of device time
+            # (trace_ms); kernel_trace_ms is the kernels' read the same way.
+            entries[-1]["kernels_per_call"] = main_case["kernels_per_call"]
+            entries[-1].update({k: main_case[k] for k in (
+                "kernel_trace_ms", "library_kernels", "library_backend")
+                if k in main_case})
+            entries[-1]["replaces_note"] = (
+                "no Pallas backward: the gradient of the kernel named; "
+                "jax.grad of the reference model is the oracle")
+            bf16 = next(c for c in mine if c["dtype"] == "bfloat16"
+                        and c.get("case") == main_case.get("case")
+                        and c["shape"] == main_case["shape"])
+            entries[-1]["bfloat16"] = {
+                k: bf16[k] for k in ("kernel_ms", "kernel_trace_ms",
+                                     "plain_ms", "library_ms",
+                                     "library_backend", "bound_ms",
+                                     "bound_by", "max_abs_err") if k in bf16}
         if name == "flash_attention":
             prefill = next(c for c in mine if c["case"] == "prefill s=1024"
                            and c["dtype"] == "bfloat16")
@@ -1320,6 +1877,15 @@ def kernels_line(cases: list, launches_by_path: dict) -> dict:
                 k: prefill[k] for k in ("case", "kernel_ms", "kernel_eager_ms",
                                         "plain_ms", "library_ms", "bound_ms",
                                         "bound_by")}
+            train = next(c for c in cases
+                         if c["kernel"] == "flash_attention_backward"
+                         and c["case"] == "train main"
+                         and c["dtype"] == "float32")
+            entries[-1]["train_forward_with_lse"] = {
+                "ms": train["forward_lse_ms"],
+                "bound_ms": train["forward_lse_bound_ms"],
+                "out_max_abs_err": train["forward_out_max_abs_err"],
+                "lse_max_abs_err": train["lse_max_abs_err"]}
     return {"kernels": entries}
 
 
@@ -1339,6 +1905,8 @@ def main() -> int:
         torch.cuda.empty_cache()
     launches["train_dlrm"] = phase_train_dlrm()
     phase_train_dlrm_check()
+    launches["train_lm"] = phase_train_lm()
+    phase_train_lm_check()
     line = kernels_line(cases, launches)
     for entry in line["kernels"]:
         if entry["launches"] <= 0:

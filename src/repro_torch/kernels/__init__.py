@@ -1,8 +1,9 @@
 """Hand-written Hopper kernels for the compute layers the JAX package wrote
 in Pallas.
 
-flash_attention — GQA flash attention forward (csrc/flash_attention.cu)
-rmsnorm         — fused RMSNorm forward (csrc/rmsnorm.cu)
+flash_attention — GQA flash attention forward (csrc/flash_attention.cu) and
+                  backward (csrc/flash_attention_backward.cu)
+rmsnorm         — fused RMSNorm forward and backward (csrc/rmsnorm.cu)
 ssd_scan        — Mamba2 SSD chunked scan forward (csrc/ssd_scan.cu)
 embedding_bag   — DLRM pooled lookup, forward and backward
                   (csrc/embedding_bag.cu)

@@ -95,9 +95,17 @@ def lib() -> ctypes.CDLL:
                           ctypes.c_float)
     loaded.repro_rmsnorm.argtypes = [ptr, ptr, ptr, i64, i32, f32, i32, ptr]
     loaded.repro_rmsnorm.restype = i32
+    loaded.repro_rmsnorm_backward.argtypes = [ptr] * 6 + [i64, i32, f32, i32, i32, ptr]
+    loaded.repro_rmsnorm_backward.restype = i32
     loaded.repro_flash_attention.argtypes = (
         [ptr] * 6 + [i32] * 6 + [i64] * 12 + [f32, i32, i32, i32, ptr])
     loaded.repro_flash_attention.restype = i32
+    loaded.repro_flash_attention_lse.argtypes = (
+        [ptr] * 5 + [i32] * 6 + [i64] * 12 + [f32, i32, i32, ptr])
+    loaded.repro_flash_attention_lse.restype = i32
+    loaded.repro_flash_attention_backward.argtypes = (
+        [ptr] * 10 + [i32] * 6 + [i64] * 24 + [f32, i32, i32, ptr])
+    loaded.repro_flash_attention_backward.restype = i32
     loaded.repro_ssd_scan.argtypes = [ptr] * 10 + [i32] * 7 + [i64] * 15 + [i32, i32, ptr]
     loaded.repro_ssd_scan.restype = i32
     loaded.repro_embedding_bag.argtypes = [ptr] * 3 + [i32] * 5 + [i64] * 5 + [i32, ptr]

@@ -23,6 +23,14 @@
 //    mask becomes `kpos <= qpos + q_offset[b]`). The kv loop stops at the last
 //    key any row of the tile may see, so a decode tick over a long cache reads
 //    only the positions that are filled. A row with no visible key gives zeros.
+//  * Training needs the rows' log-sum-exp m + log(l) (natural log, scaled
+//    scores) for the backward (flash_attention_backward.cu), which recomputes
+//    the probabilities from it instead of storing them. The prefill kernels
+//    write it at their finalize, where m and l are in registers anyway, when
+//    the caller passes `lse` (`repro_flash_attention_lse`); that entry point
+//    takes them at any length, the decode kernels never. Serving passes none.
+//    The training route also takes head_dim 16 (the reduced test configs), in
+//    the prefill kernels only; serving takes 64 and 128.
 //
 // Four kernels, chosen by the type and the number of query rows. Both bf16
 // kernels run the same warp step (`mma_attend`): 16 query rows against a kv
@@ -84,6 +92,7 @@ namespace {
 
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 constexpr int kDecodeMaxSq = 8;
 constexpr int kDecodeMaxCluster = 8;  // the portable cluster size
 constexpr int kDecodeDefaultCluster = 4;  // the fastest of 1, 2, 4, 8 at a decode tick
@@ -96,6 +105,7 @@ struct Params {
   void* o;
   const int* kv_len;    // (b,) or nullptr: every key of skv counts
   const int* q_offset;  // (b,) or nullptr: 0
+  float* lse;           // (b, h, sq) fp32 or nullptr: the rows' log-sum-exp
   int b, h, hkv, sq, skv;
   long long q_sb, q_sh, q_ss;  // strides in elements; the last dim has stride 1
   long long k_sb, k_sh, k_ss;
@@ -107,6 +117,15 @@ struct Params {
 
 __device__ __forceinline__ int seq_kv_len(const Params& p, int bi) {
   return p.kv_len ? min(p.kv_len[bi], p.skv) : p.skv;
+}
+
+// The log-sum-exp of query row `row` of head `hi` (natural log, scores
+// scaled), which the backward recomputes the probabilities from: `m` the row
+// maximum, `l` the sum of exp(score - m). A row that saw no key gets +inf,
+// so that every probability recomputed from it is 0.
+__device__ __forceinline__ void store_lse(const Params& p, int bi, int hi, int row, float m,
+                                          float l) {
+  p.lse[((long long)bi * p.h + hi) * p.sq + row] = l > 0.f ? m + logf(l) : INFINITY;
 }
 
 // Four output values at p (16 or 8 bytes, aligned), rounded once.
@@ -206,11 +225,11 @@ template <int D, int NT, int ROWS>
 __device__ __forceinline__ void stage_rows_bf16(const __nv_bfloat16* base, long long ss, int row0,
                                                 int valid, __nv_bfloat16* dst, int t) {
   constexpr int CH = D / 8;  // 16-byte chunks a row
-  static_assert(ROWS * CH % NT == 0, "whole chunks a thread");
-  constexpr int N = ROWS * CH / NT;
+  constexpr int N = (ROWS * CH + NT - 1) / NT;
 #pragma unroll
   for (int i = 0; i < N; ++i) {
     const int idx = t + i * NT;
+    if (ROWS * CH % NT != 0 && idx >= ROWS * CH) break;  // d 16: fewer chunks than threads
     const int r = idx / CH;
     const int c = (idx % CH) * 8;
     const bool in = row0 + r < valid;
@@ -548,6 +567,10 @@ __global__ void __launch_bounds__(MM_GROUPS * MM_GROUP_THREADS) flash_mma_kernel
   mma_rows_merge<D, MM_GROUP_THREADS, G>(st, xfer);
   const float inv0 = 1.0f / fmaxf(st.l0, 1e-30f);
   const float inv1 = 1.0f / fmaxf(st.l1, 1e-30f);
+  if (p.lse && t4 == 0) {  // m is in the log2 domain
+    if (r0 < p.sq) store_lse(p, bi, hi, r0, st.m0 * kLn2, st.l0);
+    if (r0 + 8 < p.sq) store_lse(p, bi, hi, r0 + 8, st.m1 * kLn2, st.l1);
+  }
   if (r0 < p.sq) {
     __nv_bfloat16* orow = ob + (long long)r0 * p.o_ss + 2 * t4;
 #pragma unroll
@@ -598,10 +621,18 @@ __device__ __forceinline__ void load_tile(const float* base, long long ss, int r
   }
 }
 
+// A thread's output columns: 64 jj + 4 tx + e (four at a time) when D is a
+// multiple of 64, else tx + 16 j (d 16, the training route's reduced head).
+template <int D>
+__host__ __device__ constexpr bool wide_columns() {
+  return D % 64 == 0;
+}
+
 template <int D>
 __global__ void __launch_bounds__(TX * TY) flash_tile_kernel(Params p) {
   constexpr int LD = D + 4;    // row pitch of Q, K, V tiles (floats), keeps float4 alignment
   constexpr int DC = D / TX;   // output columns per thread
+  static_assert(D % TX == 0 && (wide_columns<D>() || D < 64), "head_dim");
   extern __shared__ __align__(16) float smem[];
   float* Qs = smem;
   float* Ks = Qs + BM * LD;
@@ -702,13 +733,27 @@ __global__ void __launch_bounds__(TX * TY) flash_tile_kernel(Params p) {
     // A row of Ps is written and read by the same 16 lanes of one warp.
     __syncwarp();
 
-    // acc += P V: rows ty + 16 i, columns 64 jj + 4 tx .. + 3.
+    // acc += P V: rows ty + 16 i, this thread's columns.
 #pragma unroll 2
     for (int c = 0; c < BN; c += 4) {
       float4 pv[RM];
 #pragma unroll
       for (int i = 0; i < RM; ++i)
         pv[i] = *reinterpret_cast<const float4*>(&Ps[(ty + TY * i) * LDP + c]);
+      if constexpr (!wide_columns<D>()) {
+#pragma unroll
+        for (int cc = 0; cc < 4; ++cc)
+#pragma unroll
+          for (int j = 0; j < DC; ++j) {
+            const float vv = Vs[(c + cc) * LD + tx + TX * j];
+#pragma unroll
+            for (int i = 0; i < RM; ++i) {
+              const float pe = cc == 0 ? pv[i].x : cc == 1 ? pv[i].y : cc == 2 ? pv[i].z : pv[i].w;
+              acc[i][j] = fmaf(pe, vv, acc[i][j]);
+            }
+          }
+        continue;
+      }
 #pragma unroll
       for (int cc = 0; cc < 4; ++cc) {
 #pragma unroll
@@ -732,12 +777,18 @@ __global__ void __launch_bounds__(TX * TY) flash_tile_kernel(Params p) {
   for (int i = 0; i < RM; ++i) {
     const int qpos = q0 + ty + TY * i;
     if (qpos >= p.sq) continue;
+    if (p.lse && tx == 0) store_lse(p, bi, hi, qpos, m[i], l[i]);
     const float inv = 1.0f / fmaxf(l[i], 1e-30f);
     float* orow = ob + (long long)qpos * p.o_ss;
+    if constexpr (wide_columns<D>()) {
 #pragma unroll
-    for (int jj = 0; jj < DC / 4; ++jj)
+      for (int jj = 0; jj < DC / 4; ++jj)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) orow[jj * 64 + tx * 4 + e] = acc[i][jj * 4 + e] * inv;
+        for (int e = 0; e < 4; ++e) orow[jj * 64 + tx * 4 + e] = acc[i][jj * 4 + e] * inv;
+    } else {
+#pragma unroll
+      for (int j = 0; j < DC; ++j) orow[tx + TX * j] = acc[i][j] * inv;
+    }
   }
 }
 
@@ -1267,7 +1318,12 @@ cudaError_t launch_decode(void (*kernel)(Params), const Params& p, int rows_a_bl
 template <typename T, int D>
 cudaError_t launch(const Params& p, int cluster, cudaStream_t stream) {
   constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
-  if (p.sq <= kDecodeMaxSq) {
+  // The decode kernels write no log-sum-exp: a call that wants it (the
+  // training route) takes the prefill kernels at any length. They have no
+  // d 16 (that head dim is the training route's alone).
+  if constexpr (D == 16) {
+    if (p.lse == nullptr) return cudaErrorInvalidValue;
+  } else if (p.sq <= kDecodeMaxSq && p.lse == nullptr) {
     int csize = cluster > 0 ? cluster : kDecodeDefaultCluster;
     csize = max(1, min(csize, (p.skv + kDecodeTile - 1) / kDecodeTile));  // no wider than the keys
     while (csize & (csize - 1)) --csize;  // 1, 2, 4 or 8: other sizes ran far slower (PERF.md)
@@ -1303,26 +1359,23 @@ cudaError_t launch(const Params& p, int cluster, cudaStream_t stream) {
 
 template <typename T>
 cudaError_t launch_d(const Params& p, int d, int cluster, cudaStream_t stream) {
+  if (d == 16) return launch<T, 16>(p, cluster, stream);
   if (d == 64) return launch<T, 64>(p, cluster, stream);
   if (d == 128) return launch<T, 128>(p, cluster, stream);
   return cudaErrorInvalidValue;
 }
 
-}  // namespace
-
 // q, o: (b, h, sq, d); k, v: (b, hkv, skv, d); strides in elements, last dim
 // contiguous, every row 16-byte aligned. kv_len and q_offset are int32 (b,) on
-// the device or null. dtype: 0 = float32, 1 = bfloat16. d: 64 or 128.
-// cluster: blocks a (batch, KV head) splits its keys over when sq <= 8 (1, 2,
-// 4 or 8; 0 for the default). Returns the CUDA error code of the launch (0 on
-// success).
-extern "C" int repro_flash_attention(
-    const void* q, const void* k, const void* v, void* o, const void* kv_len,
-    const void* q_offset, int b, int h, int hkv, int sq, int skv, int d,
-    long long q_sb, long long q_sh, long long q_ss, long long k_sb, long long k_sh,
-    long long k_ss, long long v_sb, long long v_sh, long long v_ss, long long o_sb,
-    long long o_sh, long long o_ss, float scale, int causal, int cluster, int dtype,
-    void* stream) {
+// the device or null. lse is fp32 (b, h, sq) contiguous or null. dtype: 0 =
+// float32, 1 = bfloat16. d: 64 or 128, or 16 with lse. cluster: blocks a
+// (batch, KV head) splits its keys over when sq <= 8 and lse is null (1, 2, 4
+// or 8; 0 for the default). Returns the CUDA error code of the launch (0 on success).
+int run(const void* q, const void* k, const void* v, void* o, void* lse, const void* kv_len,
+        const void* q_offset, int b, int h, int hkv, int sq, int skv, int d, long long q_sb,
+        long long q_sh, long long q_ss, long long k_sb, long long k_sh, long long k_ss,
+        long long v_sb, long long v_sh, long long v_ss, long long o_sb, long long o_sh,
+        long long o_ss, float scale, int causal, int cluster, int dtype, void* stream) {
   if (b <= 0 || h <= 0 || hkv <= 0 || sq <= 0 || skv <= 0 || h % hkv != 0 || h > 65535 ||
       b > 65535 || cluster < 0 || cluster > kDecodeMaxCluster)
     return (int)cudaErrorInvalidValue;
@@ -1330,6 +1383,7 @@ extern "C" int repro_flash_attention(
   p.q = q; p.k = k; p.v = v; p.o = o;
   p.kv_len = static_cast<const int*>(kv_len);
   p.q_offset = static_cast<const int*>(q_offset);
+  p.lse = static_cast<float*>(lse);
   p.b = b; p.h = h; p.hkv = hkv; p.sq = sq; p.skv = skv;
   p.q_sb = q_sb; p.q_sh = q_sh; p.q_ss = q_ss;
   p.k_sb = k_sb; p.k_sh = k_sh; p.k_ss = k_ss;
@@ -1341,4 +1395,32 @@ extern "C" int repro_flash_attention(
   if (dtype == 0) return (int)launch_d<float>(p, d, cluster, s);
   if (dtype == 1) return (int)launch_d<__nv_bfloat16>(p, d, cluster, s);
   return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+// The serving entry point: no log-sum-exp. Arguments as `run`.
+extern "C" int repro_flash_attention(
+    const void* q, const void* k, const void* v, void* o, const void* kv_len,
+    const void* q_offset, int b, int h, int hkv, int sq, int skv, int d,
+    long long q_sb, long long q_sh, long long q_ss, long long k_sb, long long k_sh,
+    long long k_ss, long long v_sb, long long v_sh, long long v_ss, long long o_sb,
+    long long o_sh, long long o_ss, float scale, int causal, int cluster, int dtype,
+    void* stream) {
+  return run(q, k, v, o, nullptr, kv_len, q_offset, b, h, hkv, sq, skv, d, q_sb, q_sh, q_ss,
+             k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss, scale, causal, cluster, dtype,
+             stream);
+}
+
+// The training entry point: also writes the rows' log-sum-exp into `lse`
+// (fp32 (b, h, sq), contiguous), with the prefill kernels at every length.
+extern "C" int repro_flash_attention_lse(
+    const void* q, const void* k, const void* v, void* o, void* lse, int b, int h, int hkv,
+    int sq, int skv, int d, long long q_sb, long long q_sh, long long q_ss, long long k_sb,
+    long long k_sh, long long k_ss, long long v_sb, long long v_sh, long long v_ss,
+    long long o_sb, long long o_sh, long long o_ss, float scale, int causal, int dtype,
+    void* stream) {
+  if (lse == nullptr) return (int)cudaErrorInvalidValue;
+  return run(q, k, v, o, lse, nullptr, nullptr, b, h, hkv, sq, skv, d, q_sb, q_sh, q_ss, k_sb,
+             k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss, scale, causal, 0, dtype, stream);
 }

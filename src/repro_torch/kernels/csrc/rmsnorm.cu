@@ -23,6 +23,20 @@
 // The TPU kernel's 256-row blocks and its row padding have no counterpart: the
 // ragged last block has warps that do nothing, and `d` needs to be neither a
 // power of two nor a multiple of the warp size.
+//
+// The backward (no Pallas counterpart: `jax.grad` of
+// src/repro/models/common.py `rms_norm` is the oracle): with x^ = x * rstd
+// and g = dy * gamma, dx = rstd * (g - x^ * mean(g * x^)) and dgamma =
+// sum over rows of dy * x^, all in fp32, each rounded once into its type.
+// Bound: bytes (x and dy read, dx written). This first version is simple and
+// deterministic, with no atomics:
+//  * `rmsnorm_bwd_kernel`: a block owns a fixed run of rows, one warp a row
+//    at a time; a row is read twice (the second time from cache), and each
+//    warp sums dy * x^ into its own fp32 row of shared memory. The block
+//    then adds its warps' rows in order and writes one partial row of dgamma.
+//  * `rmsnorm_dgamma_kernel`: one thread a column adds the blocks' partial
+//    rows in order. The grid depends on the shape alone, so every call sums
+//    in the same order and gives the same bits.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -249,7 +263,105 @@ cudaError_t launch(const void* xp, const void* gp, void* op, long long rows, int
   return cudaGetLastError();
 }
 
+// ------------------------------------------------------------------------- //
+// Backward
+// ------------------------------------------------------------------------- //
+
+constexpr int kBwdWarps = 4;
+
+template <typename T>
+__global__ void __launch_bounds__(kBwdWarps * 32)
+rmsnorm_bwd_kernel(const T* __restrict__ x, const T* __restrict__ gamma, const T* __restrict__ dy,
+                   T* __restrict__ dx, float* __restrict__ part, long long rows, int d, float eps,
+                   long long rows_per_block) {
+  extern __shared__ __align__(16) float acc_s[];  // (kBwdWarps, d)
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  float* acc = acc_s + (size_t)warp * d;
+  for (int c = lane; c < d; c += 32) acc[c] = 0.f;
+  const long long r0 = (long long)blockIdx.x * rows_per_block;
+  const long long r1 = min(rows, r0 + rows_per_block);
+  for (long long row = r0 + warp; row < r1; row += kBwdWarps) {
+    const T* xr = x + row * d;
+    const T* gr = dy + row * d;
+    float ss = 0.f, dot = 0.f;
+    for (int c = lane; c < d; c += 32) {
+      const float xf = to_float(xr[c]);
+      ss = fmaf(xf, xf, ss);
+      dot = fmaf(to_float(gr[c]) * to_float(gamma[c]), xf, dot);
+    }
+    ss = warp_sum(ss);
+    dot = warp_sum(dot);
+    const float rstd = 1.0f / sqrtf(ss / (float)d + eps);
+    const float mean_gx = dot * rstd / (float)d;  // mean(g * x^)
+    T* out = dx + row * d;
+    for (int c = lane; c < d; c += 32) {
+      const float xh = to_float(xr[c]) * rstd;
+      const float dyf = to_float(gr[c]);
+      from_float(rstd * (dyf * to_float(gamma[c]) - xh * mean_gx), &out[c]);
+      acc[c] = fmaf(dyf, xh, acc[c]);
+    }
+  }
+  __syncthreads();
+  for (int c = threadIdx.x; c < d; c += kBwdWarps * 32) {
+    float total = 0.f;
+#pragma unroll
+    for (int w = 0; w < kBwdWarps; ++w) total += acc_s[(size_t)w * d + c];
+    part[(size_t)blockIdx.x * d + c] = total;
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(256)
+rmsnorm_dgamma_kernel(const float* __restrict__ part, T* __restrict__ dgamma, int blocks, int d) {
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= d) return;
+  float total = 0.f;
+  for (int b = 0; b < blocks; ++b) total += part[(size_t)b * d + c];
+  from_float(total, &dgamma[c]);
+}
+
+template <typename T>
+cudaError_t launch_backward(const void* xp, const void* gp, const void* dyp, void* dxp,
+                            void* dgp, float* part, long long rows, int d, float eps, int blocks,
+                            cudaStream_t stream) {
+  const size_t smem = (size_t)kBwdWarps * d * sizeof(float);
+  if (smem > (size_t)kMaxDynamicSmem || blocks <= 0) return cudaErrorInvalidValue;
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        rmsnorm_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  const long long per_block = (rows + blocks - 1) / blocks;
+  rmsnorm_bwd_kernel<T><<<blocks, kBwdWarps * 32, smem, stream>>>(
+      static_cast<const T*>(xp), static_cast<const T*>(gp), static_cast<const T*>(dyp),
+      static_cast<T*>(dxp), part, rows, d, eps, per_block);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  rmsnorm_dgamma_kernel<T><<<(d + 255) / 256, 256, 0, stream>>>(part, static_cast<T*>(dgp),
+                                                                blocks, d);
+  return cudaGetLastError();
+}
+
 }  // namespace
+
+// The backward. x, dy and dx are (rows, d) contiguous, gamma and dgamma are
+// (d,); part is fp32 (blocks, d) scratch, blocks from the caller (the grid
+// of the first kernel; rows are split evenly over it). dtype as the forward's.
+// Returns the CUDA error code of the first launch that failed (0 on success).
+extern "C" int repro_rmsnorm_backward(const void* x, const void* gamma, const void* dy, void* dx,
+                                      void* dgamma, void* part, long long rows, int d, float eps,
+                                      int blocks, int dtype, void* stream) {
+  if (rows <= 0 || d <= 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* pf = static_cast<float*>(part);
+  if (dtype == 0)
+    return (int)launch_backward<float>(x, gamma, dy, dx, dgamma, pf, rows, d, eps, blocks, s);
+  if (dtype == 1)
+    return (int)launch_backward<__nv_bfloat16>(x, gamma, dy, dx, dgamma, pf, rows, d, eps,
+                                               blocks, s);
+  return (int)cudaErrorInvalidValue;
+}
 
 // dtype: 0 = float32, 1 = bfloat16. x and out are (rows, d) contiguous, gamma is (d,).
 // Returns the CUDA error code of the launch (0 on success).

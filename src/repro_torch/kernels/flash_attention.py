@@ -10,12 +10,18 @@ The causal mask is top-left aligned like the reference kernel's
 tensors: ``kv_len`` masks keys at ``kpos >= kv_len[b]`` and ``q_offset``
 shifts the diagonal to ``kpos <= qpos + q_offset[b]``. A query row that may
 see no key at all gives zeros.
+
+Training adds the backward (``csrc/flash_attention_backward.cu``; the JAX
+package has no Pallas backward, ``jax.grad`` differentiates its attention):
+the forward then also returns each query row's log-sum-exp ``lse`` (fp32
+``(b, h, sq)``), from which the backward recomputes the probabilities. The
+training route takes neither ``kv_len`` nor ``q_offset``.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -23,6 +29,9 @@ from repro_torch.kernels import _build
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (64, 128)
+# The training route (the forward with the log-sum-exp and the backward)
+# also takes the reduced configs' head_dim 16.
+TRAIN_HEAD_DIMS = (16,) + HEAD_DIMS
 NEG_INF = -1e30
 # Decode (sq <= 8): each (batch, KV head) splits its keys over a thread block
 # cluster of one of these sizes (4 unless the caller picks another).
@@ -34,28 +43,95 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           kv_len: Optional[torch.Tensor] = None,
                           q_offset: Optional[torch.Tensor] = None
                           ) -> torch.Tensor:
-    """Plain PyTorch, any device. Scores and softmax in fp32; probabilities
-    are rounded to ``q.dtype`` before ``P @ V``, as in the kernel."""
-    b, h, sq, d = q.shape
+    """Plain PyTorch, any device. Scores and softmax in fp32 (fp64 for fp64
+    inputs); probabilities are rounded to ``q.dtype`` before ``P @ V``, as
+    in the kernel."""
+    b, h, sq, _ = q.shape
     hkv, skv = k.shape[1], k.shape[2]
-    if hkv != h:
-        k = k.repeat_interleave(h // hkv, dim=1)
-        v = v.repeat_interleave(h // hkv, dim=1)
-    scores = torch.matmul(q.float(), k.float().transpose(-1, -2))
-    scores = scores * (1.0 / math.sqrt(d))
-    kpos = torch.arange(skv, device=q.device)
-    allowed = torch.ones((b, 1, sq, skv), dtype=torch.bool, device=q.device)
+    allowed = _allowed(b, sq, skv, causal, q.device, kv_len, q_offset)
+    scores = torch.where(allowed, _scores(q, k), NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    probs = torch.where(allowed, probs, 0.0)     # a row with no key: zeros
+    return torch.matmul(probs.to(q.dtype), v.repeat_interleave(h // hkv, dim=1))
+
+
+def _allowed(b: int, sq: int, skv: int, causal: bool, device,
+             kv_len: Optional[torch.Tensor] = None,
+             q_offset: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(b, 1, sq, skv) bool: the (query, key) pairs the masks let through."""
+    kpos = torch.arange(skv, device=device)
+    allowed = torch.ones((b, 1, sq, skv), dtype=torch.bool, device=device)
     if kv_len is not None:
         allowed = allowed & (kpos < kv_len.view(b, 1, 1, 1))
     if causal:
-        qpos = torch.arange(sq, device=q.device).view(1, sq).expand(b, sq)
+        qpos = torch.arange(sq, device=device).view(1, sq).expand(b, sq)
         if q_offset is not None:
             qpos = qpos + q_offset.view(b, 1)
         allowed = allowed & (kpos.view(1, 1, 1, skv) <= qpos.view(b, 1, sq, 1))
-    scores = torch.where(allowed, scores, NEG_INF)
-    probs = torch.softmax(scores, dim=-1)
-    probs = torch.where(allowed, probs, 0.0)     # a row with no key: zeros
-    return torch.matmul(probs.to(q.dtype), v)
+    return allowed
+
+
+def _work_dtype(dtype: torch.dtype) -> torch.dtype:
+    """fp32 for fp32 and bf16 inputs; fp64 stays fp64 (the tests' exact
+    arithmetic)."""
+    return torch.promote_types(dtype, torch.float32)
+
+
+def _scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """Scaled scores (b, h, sq, skv) in the work type, K's heads repeated
+    over their query heads."""
+    h, hkv, d = q.shape[1], k.shape[1], q.shape[3]
+    wt = _work_dtype(q.dtype)
+    k = k.to(wt).repeat_interleave(h // hkv, dim=1)
+    return torch.matmul(q.to(wt), k.transpose(-1, -2)) * (1.0 / math.sqrt(d))
+
+
+def flash_attention_forward_plain(q: torch.Tensor, k: torch.Tensor,
+                                  v: torch.Tensor, causal: bool = True
+                                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The training route's forward, plain PyTorch, any device: the output
+    of ``flash_attention_plain`` and each row's log-sum-exp of its visible
+    scaled scores, fp32 ``(b, h, sq)`` (+inf for a row that sees no key)."""
+    b, h, sq, _ = q.shape
+    skv = k.shape[2]
+    out = flash_attention_plain(q, k, v, causal)
+    allowed = _allowed(b, sq, skv, causal, q.device)
+    scores = torch.where(allowed, _scores(q, k), -math.inf)
+    lse = torch.logsumexp(scores, dim=-1)
+    lse = torch.where(allowed.any(-1), lse, math.inf)
+    return out, lse.to(_work_dtype(q.dtype))
+
+
+def flash_attention_backward_plain(q: torch.Tensor, k: torch.Tensor,
+                                   v: torch.Tensor, o: torch.Tensor,
+                                   lse: torch.Tensor, do: torch.Tensor,
+                                   causal: bool = True
+                                   ) -> Tuple[torch.Tensor, torch.Tensor,
+                                              torch.Tensor]:
+    """(dq, dk, dv), plain PyTorch, any device; the kernel's arithmetic.
+
+    The probabilities are recomputed from ``lse``; dV takes them rounded to
+    ``q.dtype`` as the forward's ``P @ V`` did; ``D = rowsum(dO * O)``; the
+    rest in fp32 (fp64 for fp64 inputs, where this equals autograd through
+    ``flash_attention_plain``). A KV head's gradients sum over the query
+    heads of its group."""
+    b, h, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    group = h // hkv
+    wt = _work_dtype(q.dtype)
+    allowed = _allowed(b, sq, skv, causal, q.device)
+    probs = torch.where(allowed, torch.exp(_scores(q, k) - lse[..., None]), 0.0)
+    g = do.to(wt)
+    dv = torch.matmul(probs.to(q.dtype).to(wt).transpose(-1, -2), g)
+    dp = torch.matmul(g, v.to(wt).repeat_interleave(group, dim=1)
+                      .transpose(-1, -2))
+    delta = (g * o.to(wt)).sum(-1, keepdim=True)
+    ds = probs * (dp - delta) * (1.0 / math.sqrt(d))
+    dq = torch.matmul(ds, k.to(wt).repeat_interleave(group, dim=1))
+    dk = torch.matmul(ds.transpose(-1, -2), q.to(wt))
+    dk = dk.view(b, hkv, group, skv, d).sum(2)
+    dv = dv.view(b, hkv, group, skv, d).sum(2)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def _check_index_vector(name: str, t: torch.Tensor, b: int,
@@ -66,6 +142,72 @@ def _check_index_vector(name: str, t: torch.Tensor, b: int,
             f"flash attention kernel: {name} must be a contiguous int32 "
             f"({b},) tensor on {device}, got {t.dtype} {tuple(t.shape)} on "
             f"{t.device}")
+
+
+def _check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  *more: Tuple[str, torch.Tensor],
+                  head_dims: Tuple[int, ...] = HEAD_DIMS) -> None:
+    """Raise on what the kernels do not take. ``more``: further (name,
+    tensor) pairs of q's shape (the backward's o, dO), held to the same type
+    and layout rules."""
+    tensors = (("q", q), ("k", k), ("v", v), *more)
+    if not all(t.is_cuda and t.device == q.device for _, t in tensors):
+        raise ValueError(
+            "flash attention kernel: " + ", ".join(
+                f"{n} on {t.device}" for n, t in tensors)
+            + "; all must lie on one CUDA device")
+    if q.dtype not in _DTYPE_CODE or any(t.dtype != q.dtype
+                                         for _, t in tensors):
+        raise TypeError(
+            "flash attention kernel takes float32 or bfloat16, one type for "
+            "all its inputs; got " + ", ".join(f"{n} {t.dtype}"
+                                               for n, t in tensors))
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError(
+            f"flash attention kernel: q {tuple(q.shape)}, k {tuple(k.shape)}, "
+            f"v {tuple(v.shape)}; want (b,h,sq,d) and two (b,hkv,skv,d)")
+    b, h, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    if k.shape[0] != b or k.shape[3] != d or hkv == 0 or h % hkv != 0:
+        raise ValueError(
+            f"flash attention kernel: q {tuple(q.shape)} and k "
+            f"{tuple(k.shape)} do not fit (batch, head_dim, h % hkv)")
+    for name, t in more:
+        if t.shape != q.shape:
+            raise ValueError(
+                f"flash attention kernel: {name} {tuple(t.shape)} is not q's "
+                f"shape {tuple(q.shape)}")
+    if d not in head_dims:
+        raise ValueError(
+            f"flash attention kernel takes head_dim in {head_dims}, got {d}")
+    if b > 65535 or h > 65535:
+        raise ValueError("flash attention kernel: batch and heads <= 65535")
+    if 0 in (b, h, sq, skv):
+        raise ValueError(
+            f"flash attention kernel: empty input, q {tuple(q.shape)}, "
+            f"k {tuple(k.shape)}")
+    for name, t in tensors:
+        if not rows_aligned(t):
+            raise ValueError(
+                f"flash attention kernel: the last dim of {name} is not "
+                "contiguous or its rows are not 16-byte aligned")
+
+
+def rows_aligned(t: torch.Tensor) -> bool:
+    """Whether the kernels take ``t`` by its strides: the last dim
+    contiguous, the start and every row 16-byte aligned."""
+    pitches = [s * t.element_size() for s in t.stride()[:-1]]
+    return (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
+            and all(p % 16 == 0 for p in pitches))
+
+
+def _new_like_heads(b: int, s: int, heads: int, d: int,
+                    like: torch.Tensor) -> torch.Tensor:
+    """(b, heads, s, d) allocated as (b, s, heads, d) and returned
+    transposed, so the caller's transpose back to the model's layout is a
+    view of contiguous memory."""
+    out = torch.empty((b, s, heads, d), dtype=like.dtype, device=like.device)
+    return out.transpose(1, 2)
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -80,41 +222,9 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (batch, KV head) splits its keys over when ``sq <= 8`` (one of
     ``DECODE_CLUSTERS``; None for the kernel's default). Raises on anything
     the kernel does not take; never computes the result another way."""
-    if not (q.is_cuda and k.device == q.device and v.device == q.device):
-        raise ValueError(
-            f"flash attention kernel: q, k, v on {q.device}, {k.device}, "
-            f"{v.device}; all must lie on one CUDA device")
-    if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(
-            "flash attention kernel takes float32 or bfloat16, one type for "
-            f"q, k and v; got {q.dtype}, {k.dtype}, {v.dtype}")
-    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
-        raise ValueError(
-            f"flash attention kernel: q {tuple(q.shape)}, k {tuple(k.shape)}, "
-            f"v {tuple(v.shape)}; want (b,h,sq,d) and two (b,hkv,skv,d)")
+    _check_inputs(q, k, v)
     b, h, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
-    if k.shape[0] != b or k.shape[3] != d or hkv == 0 or h % hkv != 0:
-        raise ValueError(
-            f"flash attention kernel: q {tuple(q.shape)} and k "
-            f"{tuple(k.shape)} do not fit (batch, head_dim, h % hkv)")
-    if d not in HEAD_DIMS:
-        raise ValueError(
-            f"flash attention kernel takes head_dim in {HEAD_DIMS}, got {d}")
-    if b > 65535 or h > 65535:
-        raise ValueError("flash attention kernel: batch and heads <= 65535")
-    if 0 in (b, h, sq, skv):
-        raise ValueError(
-            f"flash attention kernel: empty input, q {tuple(q.shape)}, "
-            f"k {tuple(k.shape)}")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.stride(3) != 1:
-            raise ValueError(
-                f"flash attention kernel: last dim of {name} not contiguous")
-        pitches = [s * t.element_size() for s in t.stride()[:3]]
-        if t.data_ptr() % 16 or any(p % 16 for p in pitches):
-            raise ValueError(
-                f"flash attention kernel: rows of {name} not 16-byte aligned")
     if kv_len is not None:
         _check_index_vector("kv_len", kv_len, b, q.device)
     if q_offset is not None:
@@ -123,15 +233,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(
             f"flash attention kernel: decode_cluster {decode_cluster} not in "
             f"{DECODE_CLUSTERS}")
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
-                                    or v.requires_grad):
-        raise RuntimeError(
-            "flash attention kernel has no backward yet; call it under "
-            "torch.no_grad()")
-    # Allocated as (b, sq, h, d) and returned transposed, so the caller's
-    # transpose back to the model's layout is a view of contiguous memory.
-    out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
-    out = out.transpose(1, 2)
+    out = _new_like_heads(b, sq, h, d, q)
     with _build.on_device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         code = _build.lib().repro_flash_attention(
@@ -145,3 +247,75 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             _DTYPE_CODE[q.dtype], stream)
     _build.check(code, "flash attention kernel launch")
     return out
+
+
+def flash_attention_lse_cuda(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, causal: bool = True
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The training route's forward on the card: the output and each row's
+    log-sum-exp (fp32 ``(b, h, sq)``), from the prefill kernels at any
+    length (a row of at most 8 queries does not take the decode kernels,
+    which write no log-sum-exp), head_dim in ``TRAIN_HEAD_DIMS``. Raises
+    as ``flash_attention_cuda``."""
+    _check_inputs(q, k, v, head_dims=TRAIN_HEAD_DIMS)
+    b, h, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    out = _new_like_heads(b, sq, h, d, q)
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    with _build.on_device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        code = _build.lib().repro_flash_attention_lse(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr(), b, h, hkv, sq, skv, d,
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            *out.stride()[:3],
+            1.0 / math.sqrt(d), int(bool(causal)), _DTYPE_CODE[q.dtype],
+            stream)
+    _build.check(code, "flash attention kernel launch")
+    return out, lse
+
+
+# Kernels one backward call launches: D = rowsum(dO * O), then dK and dV,
+# then dQ.
+BACKWARD_KERNELS_PER_CALL = 3
+
+
+def flash_attention_backward_cuda(q: torch.Tensor, k: torch.Tensor,
+                                  v: torch.Tensor, o: torch.Tensor,
+                                  lse: torch.Tensor, do: torch.Tensor,
+                                  causal: bool = True
+                                  ) -> Tuple[torch.Tensor, torch.Tensor,
+                                             torch.Tensor]:
+    """Launch the backward's kernels on PyTorch's current stream: (dq, dk,
+    dv), each allocated in the model's (b, s, heads, d) layout and returned
+    transposed like the forward's output. ``o`` and ``lse`` are the
+    forward's (``flash_attention_lse_cuda``), ``do`` the output's gradient;
+    all taken by their strides. Deterministic: the same inputs give the same
+    bits. head_dim in ``TRAIN_HEAD_DIMS``. Raises on anything the kernels
+    do not take."""
+    _check_inputs(q, k, v, ("o", o), ("do", do), head_dims=TRAIN_HEAD_DIMS)
+    b, h, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    if (not lse.is_cuda or lse.device != q.device
+            or lse.dtype != torch.float32 or lse.shape != (b, h, sq)
+            or not lse.is_contiguous()):
+        raise ValueError(
+            f"flash attention backward: lse must be a contiguous float32 "
+            f"({b}, {h}, {sq}) tensor on {q.device}, got {lse.dtype} "
+            f"{tuple(lse.shape)} on {lse.device}")
+    delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    dq = _new_like_heads(b, sq, h, d, q)
+    dk = _new_like_heads(b, skv, hkv, d, q)
+    dv = _new_like_heads(b, skv, hkv, d, q)
+    with _build.on_device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        code = _build.lib().repro_flash_attention_backward(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            lse.data_ptr(), do.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), b, h, hkv, sq, skv, d,
+            *(st for t in (q, k, v, o, do, dq, dk, dv)
+              for st in t.stride()[:3]),
+            1.0 / math.sqrt(d), int(bool(causal)), _DTYPE_CODE[q.dtype],
+            stream)
+    _build.check(code, "flash attention backward launch")
+    return dq, dk, dv

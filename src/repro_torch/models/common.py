@@ -1,5 +1,5 @@
 """Shared model layers: RMSNorm, RoPE, GQA attention (uncached and with a KV
-cache), FFN.
+cache), FFN, the token cross-entropy.
 
 Counterpart of ``src/repro/models/common.py`` for the dense family. Plain
 functions on tensors; parameters arrive as mappings from the JAX package's
@@ -8,11 +8,12 @@ applied as ``x @ w``, so weights carry across without a transpose.
 
 Attention and RMSNorm go through ``repro_torch.kernels.ops``: the hand-written
 CUDA kernels for tensors on the GPU, their plain versions for tensors on the
-CPU. The other products (projections, FFN, logits) are ``torch.matmul``, as
-the JAX package leaves them to XLA.
+CPU, forward and (when an input requires grad) backward. The other products
+(projections, FFN, logits) are ``torch.matmul``, as the JAX package leaves
+them to XLA.
 
-Still to come with their slices: MoE, cross-attention, ``layer_norm``,
-``cross_entropy_loss`` and the sharding hints.
+Still to come with their slices: MoE, cross-attention, ``layer_norm`` and the
+sharding hints.
 """
 
 from __future__ import annotations
@@ -229,3 +230,25 @@ def ffn_block(params: Mapping[str, torch.Tensor], x: torch.Tensor,
         return (F.silu(x @ params["wg"]) * (x @ params["wu"])) @ params["wd"]
     # jax.nn.gelu defaults to the tanh approximation
     return F.gelu(x @ params["wu"], approximate="tanh") @ params["wd"]
+
+
+# --------------------------------------------------------------------- #
+# Loss
+# --------------------------------------------------------------------- #
+
+def cross_entropy_loss(logits: torch.Tensor, targets: torch.Tensor,
+                       ignore_id: int = -1) -> torch.Tensor:
+    """Mean token NLL in fp32 over the targets that are not ``ignore_id``
+    (divided by at least 1). logits: (..., V), targets: (...) integer.
+
+    The reference picks the gold logit by an iota compare (for the sake of
+    a vocab-sharded axis); one device needs no such care, so it is a
+    gather here. A target outside [0, V) picks nothing there: here it must
+    be ``ignore_id``, whose pick is masked out."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    mask = targets != ignore_id
+    picks = torch.where(mask, targets, 0).long()
+    gold = torch.gather(logits, -1, picks[..., None])[..., 0]
+    maskf = mask.float()
+    return ((logz - gold) * maskf).sum() / maskf.sum().clamp(min=1.0)

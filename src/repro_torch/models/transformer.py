@@ -7,23 +7,32 @@ wv,wo}``, ``layers[i].ln2``, ``layers[i].ffn.{wg,wu,wd}``, ``ln_f`` and, for
 untied embeddings, ``head``. A Python loop over the layers takes the place of
 ``lax.scan`` over stacked parameters.
 
-The forward path runs the hand-written kernels on the GPU, which have no
-backward yet: the serving calls run under ``torch.no_grad()``. Still to come
-with their slices: ``loss``, ``apply_remat``, MoE blocks and VLM ``patches``.
+Trainable: ``loss`` is the reference's, with its remat policies
+(``apply_remat``) on ``torch.utils.checkpoint``; attention and RMSNorm run
+their kernels in both directions on the GPU. Serving (``prefill``,
+``decode_step``) runs under ``torch.no_grad()``. Still to come with their
+slices: MoE blocks and VLM ``patches``.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import functools
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.common import (
     DEFAULT_DTYPE,
     attention_block,
+    cross_entropy_loss,
     dense_init,
     embed_init,
     ffn_block,
@@ -34,7 +43,43 @@ from repro_torch.models.common import (
 
 
 def _param(t: torch.Tensor, device: torch.device) -> nn.Parameter:
-    return nn.Parameter(t.to(device), requires_grad=False)
+    return nn.Parameter(t.to(device))
+
+
+_SAVED_BY_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """Save the outputs of the unbatched matrix products (the projections,
+    the FFN), recompute the rest: ``dots_with_no_batch_dims_saveable``.
+    Attention's batched products and the kernels, which this policy cannot
+    see, are recomputed."""
+    if op in _SAVED_BY_DOTS:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def apply_remat(fn: Callable, policy: Optional[str]) -> Callable:
+    """``fn`` wrapped in the remat ``policy``, as the reference's:
+
+    * ``none`` (or None): ``fn`` itself, every activation kept;
+    * ``full``: nothing inside ``fn`` kept, all recomputed in the backward;
+    * ``dots``: the outputs of ``aten.mm`` / ``aten.addmm`` kept;
+    * ``blocks``: the reference keeps the attention and FFN outputs it tags
+      ``block_out``. Here the trunk checkpoints the attention and the FFN
+      sub-blocks each on its own (``full`` on each), so what is kept is
+      the residual stream between them: as many bytes, the same gradients;
+      each sub-block's last projection is recomputed as well."""
+    if policy is None or policy == "none":
+        return fn
+    if policy in ("full", "blocks"):
+        return functools.partial(checkpoint, fn, use_reentrant=False)
+    if policy == "dots":
+        return functools.partial(
+            checkpoint, fn, use_reentrant=False,
+            context_fn=functools.partial(create_selective_checkpoint_contexts,
+                                         _dots_policy))
+    raise ValueError(f"unknown remat policy {policy!r}")
 
 
 class Attention(nn.Module):
@@ -85,7 +130,7 @@ class Block(nn.Module):
 
 class Transformer(nn.Module):
     """Dense decoder. Weights are drawn from ``generator`` (a fresh one
-    seeded with 0 if none is given) and are not trainable yet."""
+    seeded with 0 if none is given), on its device, and are trainable."""
 
     def __init__(self, cfg: ModelConfig, *, dtype: torch.dtype = DEFAULT_DTYPE,
                  device=None, generator: Optional[torch.Generator] = None):
@@ -116,11 +161,26 @@ class Transformer(nn.Module):
         return self.embed.dtype
 
     # ------------------------------------------------------------------ #
-    def _trunk(self, tokens: torch.Tensor,
-               cache: Optional[dict]) -> torch.Tensor:
+    def _attn_part(self, layer: "Block", x: torch.Tensor,
+                   kv: Optional[dict] = None, rope=None) -> torch.Tensor:
+        return layer.attn(rms_norm(x, layer.ln1, self.cfg.norm_eps), kv, rope)
+
+    def _ffn_part(self, layer: "Block", x: torch.Tensor) -> torch.Tensor:
+        return layer.ffn(rms_norm(x, layer.ln2, self.cfg.norm_eps))
+
+    def _block(self, layer: "Block", x: torch.Tensor,
+               kv: Optional[dict] = None, rope=None) -> torch.Tensor:
+        x = x + self._attn_part(layer, x, kv, rope)
+        return x + self._ffn_part(layer, x)
+
+    def _trunk(self, tokens: torch.Tensor, cache: Optional[dict],
+               remat: Optional[str] = None) -> torch.Tensor:
         """Embedding and all layers. tokens: (b, s) integer -> (b, s, d).
-        Writes the cache's K/V in place and advances its clock."""
+        Writes the cache's K/V in place and advances its clock. ``remat``:
+        the policy each layer runs under (none with a cache)."""
         cfg = self.cfg
+        if cache is not None:
+            remat = None
         x = self.embed[tokens]
         # The rotary tables depend on the positions only: once per pass, not
         # once per layer (eager PyTorch folds nothing).
@@ -131,15 +191,20 @@ class Transformer(nn.Module):
                 rope_positions(tokens.shape[1],
                                None if cache is None else cache["pos"],
                                tokens.device))
+        if remat == "blocks":
+            attn_part = apply_remat(self._attn_part, remat)
+            ffn_part = apply_remat(self._ffn_part, remat)
+            for layer in self.layers:
+                x = x + attn_part(layer, x, None, rope)
+                x = x + ffn_part(layer, x)
+            return x
+        block = apply_remat(self._block, remat)
         for i, layer in enumerate(self.layers):
             kv = None
             if cache is not None:
                 kv = {"k": cache["k"][i], "v": cache["v"][i],
                       "pos": cache["pos"]}
-            h = rms_norm(x, layer.ln1, cfg.norm_eps)
-            x = x + layer.attn(h, kv, rope)
-            h = rms_norm(x, layer.ln2, cfg.norm_eps)
-            x = x + layer.ffn(h)
+            x = block(layer, x, kv, rope)
         if cache is not None:
             cache["pos"] = cache["pos"] + tokens.shape[1]
         return x
@@ -154,6 +219,16 @@ class Transformer(nn.Module):
         """tokens: (b, s) integer. Returns (logits (b, s, padded_vocab),
         cache). The cache is the caller's own dict, updated in place."""
         return self._logits(self._trunk(tokens, cache)), cache
+
+    def loss(self, batch: Dict[str, torch.Tensor], remat: Optional[str] = "dots"
+             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """batch: {tokens, targets} (b, s) integer -> (total, {ce, aux}):
+        the mean token cross-entropy in fp32 (targets of -1 ignored); the
+        dense family has no auxiliary loss, so ``aux`` is 0."""
+        logits = self._logits(self._trunk(batch["tokens"], None, remat))
+        ce = cross_entropy_loss(logits, batch["targets"])
+        aux = torch.zeros((), dtype=torch.float32, device=ce.device)
+        return ce + aux, {"ce": ce, "aux": aux}
 
     def init_cache(self, batch: int, max_seq: int,
                    dtype: Optional[torch.dtype] = None) -> dict:

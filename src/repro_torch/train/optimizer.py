@@ -12,8 +12,8 @@ works IN PLACE, because the largest leaf may be most of the card (a DLRM's
 tables): parameters, master copies and moments are updated where they lie,
 and each gradient is consumed (scaled by the clip factor and reused as
 scratch). The operations and their order are the reference's: clip by the
-global norm, bias-corrected moments, decay only where ``ndim >= 2``, then the
-master and bf16 paths. fp32 temporaries are made only for leaves that are not
+global norm, bias-corrected moments, decay only where ``ndim >= 2`` in the
+reference's tree, then the master and bf16 paths. fp32 temporaries are made only for leaves that are not
 fp32. The step counter is a host integer tensor, so the learning rate and the
 bias corrections are host numbers and a step never waits for the device.
 """
@@ -90,12 +90,18 @@ def _stochastic_round(x: torch.Tensor, generator: Optional[torch.Generator],
     return torch.where(r < frac, neighbor, y)
 
 
+def _sum_of_squares(g: torch.Tensor) -> torch.Tensor:
+    """A leaf's sum of squares in fp32: its dot product with itself, which
+    makes no temporary of the leaf's size for a contiguous fp32 leaf.
+    (``torch.linalg.vector_norm`` on the CPU was seen 3.5e-5 relative off
+    the reference's ``sum(g ** 2)`` for a (2048, 64) gradient.)"""
+    flat = g.float().reshape(-1)
+    return torch.dot(flat, flat)
+
+
 def global_norm(tree: Tree) -> torch.Tensor:
-    """sqrt of the sum of squares of every leaf, in fp32, with no temporary
-    of a leaf's size."""
-    sq = sum(torch.linalg.vector_norm(g, dtype=torch.float32).square()
-             for g in tree.values())
-    return torch.sqrt(sq)
+    """sqrt of the sum of squares of every leaf, in fp32."""
+    return torch.sqrt(sum(_sum_of_squares(g) for g in tree.values()))
 
 
 @torch.no_grad()
@@ -104,7 +110,12 @@ def apply_updates(params: Tree, grads: Tree, state: dict, cfg: AdamWConfig,
                   ) -> Tuple[Tree, dict, dict]:
     """Returns (params, state, metrics): the caller's own dictionaries,
     updated in place. ``generator`` draws the stochastic rounding of bf16
-    parameters without a master copy (the reference's ``rng``)."""
+    parameters without a master copy (the reference's ``rng``).
+
+    Weight decay takes the reference's rule on the reference's leaves: a
+    leaf of two or more dimensions there. The reference stacks a model's
+    layers, so a leaf under ``layers.`` carries one dimension more than the
+    port's (the per-layer norm gains are decayed, ``ln_f`` is not)."""
     step = int(state["step"]) + 1
     lr = lr_schedule(cfg, step)
     gnorm = global_norm(grads)
@@ -126,7 +137,8 @@ def apply_updates(params: Tree, grads: Tree, state: dict, cfg: AdamWConfig,
         upd = torch.div(v2, b2c, out=g).sqrt_().add_(cfg.eps)
         upd = torch.div(m2, upd, out=upd).div_(b1c)
         base = state["master"][name] if use_master else p.float()
-        if cfg.weight_decay > 0 and p.dim() >= 2:
+        decayed = p.dim() + name.startswith("layers.") >= 2
+        if cfg.weight_decay > 0 and decayed:
             upd.add_(base, alpha=cfg.weight_decay)
         base.add_(upd, alpha=-lr)        # base is now the new value
         if p.dtype == torch.bfloat16 and not use_master and generator is not None:

@@ -22,6 +22,7 @@ from repro.kernels.rmsnorm import rmsnorm as rmsnorm_pallas
 from repro.kernels.ssd_scan import ssd_scan as ssd_scan_pallas
 from repro.models import dlrm as dlrm_jax
 from repro.models.common import naive_attention as naive_attention_jax
+from repro.models.common import rms_norm as rms_norm_jax
 from repro.models.mamba import ssd_chunked
 from repro_torch.kernels import ops
 from repro_torch.kernels.embedding_bag import (
@@ -42,10 +43,20 @@ from repro_torch.kernels.embedding_bag import (
     embedding_bag_plain,
 )
 from repro_torch.kernels.flash_attention import (
+    flash_attention_backward_cuda,
+    flash_attention_backward_plain,
     flash_attention_cuda,
+    flash_attention_forward_plain,
+    flash_attention_lse_cuda,
     flash_attention_plain,
 )
-from repro_torch.kernels.rmsnorm import rmsnorm_cuda, rmsnorm_plain
+from repro_torch.kernels.rmsnorm import (
+    rmsnorm_backward_blocks,
+    rmsnorm_backward_cuda,
+    rmsnorm_backward_plain,
+    rmsnorm_cuda,
+    rmsnorm_plain,
+)
 from repro_torch.kernels.ssd_scan import (
     MAX_CHUNK,
     STAGES,
@@ -234,6 +245,178 @@ def test_launch_functions_refuse_cpu_tensors():
         flash_attention_cuda(q, q, q)
     with pytest.raises(ValueError, match="CUDA"):
         rmsnorm_cuda(torch.ones(2, 8), torch.ones(8))
+
+
+# ------------------------------------------------------------------------- #
+# The training route: attention and RMSNorm backwards against jax.grad
+# ------------------------------------------------------------------------- #
+
+def _scaled_err(got: torch.Tensor, want) -> float:
+    """max |got - want| over max |want| (1 where want is all zero)."""
+    want = np.asarray(want, dtype=np.float32)
+    scale = max(float(np.abs(want).max()), 1e-30)
+    return float(np.abs(got.detach().float().numpy() - want).max()) / scale
+
+
+def _jax_attention_vjp(q, k, v, cot, causal, dtype):
+    """jax.vjp of the JAX package's naive_attention, in the kernels' layout
+    (b, heads, s, d) on both sides; the gradients as fp32 numpy."""
+    cast = (lambda a: jnp.asarray(a).astype(jnp.bfloat16)) \
+        if dtype == "bfloat16" else jnp.asarray
+    tr = lambda a: jnp.swapaxes(a, 1, 2)
+    fn = lambda q_, k_, v_: tr(naive_attention_jax(tr(q_), tr(k_), tr(v_),
+                                                   causal=causal))
+    out, vjp = jax.vjp(fn, cast(q), cast(k), cast(v))
+    grads = vjp(cast(cot).astype(out.dtype))
+    return [np.asarray(g.astype(jnp.float32)) for g in grads]
+
+
+def _torch_leaf(a, dtype):
+    t = torch.from_numpy(a)
+    t = t.to(torch.bfloat16) if dtype == "bfloat16" else t
+    return t.requires_grad_(True)
+
+
+@pytest.mark.parametrize("dtype,tol", [("float32", 2e-5), ("bfloat16", 3e-2)])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("group", [1, 3, 4])
+def test_flash_backward_plain_matches_jax_grad(group, d, causal, dtype, tol):
+    """The training route on the CPU (the plain forward and the plain
+    backward, through ``ops.flash_attention``'s autograd Function) against
+    ``jax.grad`` of ``naive_attention``: dq, dk, dv, each within ``tol`` of
+    its largest magnitude."""
+    b, hkv, s = 2, 2, 19
+    h = hkv * group
+    q, k, v = _qkv(20 + group, b, h, hkv, s, s, d)
+    cot = np.random.RandomState(21).randn(b, h, s, d).astype(np.float32)
+    want = _jax_attention_vjp(q, k, v, cot, causal, dtype)
+    leaves = [_torch_leaf(a, dtype) for a in (q, k, v)]
+    out = ops.flash_attention(*leaves, causal=causal)
+    out.backward(torch.from_numpy(cot).to(out.dtype))
+    for name, leaf, w in zip("qkv", leaves, want):
+        assert leaf.grad.dtype == leaf.dtype and leaf.grad.shape == leaf.shape
+        assert _scaled_err(leaf.grad, w) <= tol, name
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("b,h,hkv,sq,skv", [(2, 6, 2, 23, 23), (1, 4, 4, 5, 9),
+                                            (2, 3, 1, 8, 8)])
+def test_flash_backward_plain_is_autograd_in_float64(b, h, hkv, sq, skv,
+                                                     causal):
+    """In fp64 (no rounding of the probabilities) the plain backward equals
+    autograd through ``flash_attention_plain``."""
+    q, k, v = (torch.from_numpy(a).double().requires_grad_(True)
+               for a in _qkv(22, b, h, hkv, sq, skv, 16))
+    g = torch.from_numpy(np.random.RandomState(23).randn(b, h, sq, 16))
+    flash_attention_plain(q, k, v, causal).backward(g)
+    out, lse = flash_attention_forward_plain(q.detach(), k.detach(),
+                                             v.detach(), causal)
+    np.testing.assert_allclose(out.numpy(), flash_attention_plain(
+        q, k, v, causal).detach().numpy(), rtol=0, atol=0)
+    got = flash_attention_backward_plain(q.detach(), k.detach(), v.detach(),
+                                         out, lse, g, causal)
+    for name, leaf, gr in zip("qkv", (q, k, v), got):
+        np.testing.assert_allclose(gr.numpy(), leaf.grad.numpy(), atol=1e-12,
+                                   err_msg=name)
+
+
+def test_flash_forward_plain_lse_is_the_rows_logsumexp():
+    b, h, hkv, s, d = 2, 4, 2, 11, 16
+    q, k, v = _qkv(24, b, h, hkv, s, s, d)
+    _, lse = flash_attention_forward_plain(*map(torch.from_numpy, (q, k, v)),
+                                           causal=True)
+    kk = np.repeat(k, h // hkv, axis=1)
+    scores = np.einsum("bhqd,bhkd->bhqk", q.astype(np.float64),
+                       kk.astype(np.float64)) / np.sqrt(d)
+    scores = np.where(np.tril(np.ones((s, s), bool)), scores, -np.inf)
+    top = scores.max(-1, keepdims=True)
+    want = (top + np.log(np.exp(scores - top).sum(-1, keepdims=True)))[..., 0]
+    assert lse.dtype == torch.float32 and lse.shape == (b, h, s)
+    np.testing.assert_allclose(lse.numpy(), want, rtol=1e-6, atol=1e-6)
+
+
+def test_flash_training_route_takes_no_cache_arguments():
+    q = torch.zeros(1, 2, 3, 16, requires_grad=True)
+    with pytest.raises(ValueError, match="training route"):
+        ops.flash_attention(q, q, q, True,
+                            q_offset=torch.zeros(1, dtype=torch.int32))
+    with torch.no_grad():        # the serve route takes them
+        ops.flash_attention(q, q, q, True,
+                            q_offset=torch.zeros(1, dtype=torch.int32))
+
+
+RMS_GRAD_TABLE = [((4, 64), "float32"), ((3, 17, 128), "float32"),
+                  ((2, 100, 576), "float32"), ((2, 100, 256), "bfloat16"),
+                  ((5, 576), "bfloat16"), ((3, 7, 100), "bfloat16")]
+
+
+@pytest.mark.parametrize("shape,dtype", RMS_GRAD_TABLE)
+def test_rmsnorm_backward_plain_matches_jax_grad(shape, dtype):
+    """dx and dgamma through ``ops.rmsnorm``'s autograd Function on the CPU
+    against ``jax.grad`` of the JAX package's ``rms_norm``: fp32 1e-5, bf16
+    1e-2, of each gradient's largest magnitude."""
+    rs = np.random.RandomState(25)
+    x = rs.randn(*shape).astype(np.float32)
+    g = (1.0 + 0.2 * rs.randn(shape[-1])).astype(np.float32)
+    dy = rs.randn(*shape).astype(np.float32)
+    tol = 1e-5 if dtype == "float32" else 1e-2
+    jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    out, vjp = jax.vjp(lambda a, b_: rms_norm_jax(a, b_),
+                       jnp.asarray(x).astype(jdt), jnp.asarray(g).astype(jdt))
+    want = vjp(jnp.asarray(dy).astype(jdt))
+    xt, gt = _torch_leaf(x, dtype), _torch_leaf(g, dtype)
+    got = ops.rmsnorm(xt, gt)
+    np.testing.assert_allclose(got.detach().float().numpy(),
+                               np.asarray(out.astype(jnp.float32)),
+                               atol=tol * 4)
+    got.backward(torch.from_numpy(dy).to(got.dtype))
+    for name, leaf, w in (("dx", xt, want[0]), ("dgamma", gt, want[1])):
+        assert leaf.grad.dtype == leaf.dtype
+        assert _scaled_err(leaf.grad, np.asarray(w.astype(jnp.float32))) <= tol, name
+
+
+def test_rmsnorm_backward_plain_is_autograd_in_float64():
+    rs = np.random.RandomState(26)
+    x = torch.from_numpy(rs.randn(3, 5, 48)).requires_grad_(True)
+    g = torch.from_numpy(rs.randn(48)).requires_grad_(True)
+    dy = torch.from_numpy(rs.randn(3, 5, 48))
+    rmsnorm_plain(x, g).backward(dy)
+    dx, dg = rmsnorm_backward_plain(x.detach(), g.detach(), dy)
+    np.testing.assert_allclose(dx.numpy(), x.grad.numpy(), atol=1e-13)
+    np.testing.assert_allclose(dg.numpy(), g.grad.numpy(), atol=1e-13)
+
+
+def test_rmsnorm_backward_blocks_depend_on_rows_alone():
+    assert rmsnorm_backward_blocks(1) == 1
+    assert rmsnorm_backward_blocks(5) == 2
+    assert rmsnorm_backward_blocks(16_384) == 8 * 132
+    assert rmsnorm_backward_blocks(16_384) == rmsnorm_backward_blocks(16_384)
+
+
+def test_cpu_backward_calls_do_not_count_as_launches():
+    before = (ops.flash_attention.launches,
+              ops.flash_attention.backward_launches,
+              ops.rmsnorm.launches, ops.rmsnorm.backward_launches)
+    q = torch.zeros(1, 1, 2, 64, requires_grad=True)
+    ops.flash_attention(q, q, q).sum().backward()
+    x = torch.ones(2, 8, requires_grad=True)
+    ops.rmsnorm(x, torch.ones(8, requires_grad=True)).sum().backward()
+    assert (ops.flash_attention.launches,
+            ops.flash_attention.backward_launches,
+            ops.rmsnorm.launches, ops.rmsnorm.backward_launches) == before
+
+
+def test_backward_launch_functions_refuse_cpu_tensors():
+    q = torch.zeros(1, 1, 2, 64)
+    lse = torch.zeros(1, 1, 2)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention_lse_cuda(q, q, q)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention_backward_cuda(q, q, q, q, lse, q)
+    x = torch.ones(2, 8)
+    with pytest.raises(ValueError, match="CUDA"):
+        rmsnorm_backward_cuda(x, torch.ones(8), x)
 
 
 # b, h, s, p, n, chunk, g: the table of tests/test_kernels.py (one group of
@@ -1005,3 +1188,146 @@ def test_embedding_bag_backward_kernel_is_deterministic(cuda_device, dtype, t,
     for _ in range(4):
         assert torch.equal(embedding_bag_backward_cuda(dout, idx, r), first)
     _assert_near_exact(first, dout, idx, r, dtype)
+
+
+# ------------------------------------------------------------------------- #
+# On the card: the training route's kernels against the plain versions.
+# ------------------------------------------------------------------------- #
+
+# b, h, hkv, s, d, causal (training: sq == skv, no kv_len, no q_offset):
+# smollm-135m's layer at the train phase's length, a chatglm3-like d 128,
+# ragged tiles, non-causal, and short rows, which the serve route sends to the
+# decode kernels and the training route to the prefill kernels; then the
+# reduced configs' head_dim 16 (the training route's alone).
+FLASH_BWD_CUDA_TABLE = [
+    (8, 9, 3, 2048, 64, True),
+    (2, 32, 2, 512, 128, True),
+    (1, 4, 4, 37, 64, True),
+    (2, 6, 2, 130, 64, False),
+    (2, 4, 1, 100, 128, False),
+    (3, 6, 3, 2, 64, True),
+    (2, 9, 3, 8, 64, True),
+    (2, 8, 2, 5, 128, True),
+    (4, 4, 2, 32, 16, True),
+    (2, 4, 2, 130, 16, False),
+    (3, 4, 4, 70, 16, True),
+    (2, 4, 2, 5, 16, True),
+]
+BWD_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
+
+
+def _grad_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    scale = max(want.float().abs().max().item(), 1e-30)
+    return (got.float() - want.float()).abs().max().item() / scale
+
+
+def _flash_train_inputs(device, dtype, b, h, hkv, s, d, seed=40):
+    """q, k, v as transposed views of (b, s, heads, d), as the model hands
+    them over, and an output gradient in the same layout."""
+    rs = np.random.RandomState(seed)
+    draw = lambda heads: torch.from_numpy(
+        rs.randn(b, s, heads, d).astype(np.float32)).to(
+            device, dtype).transpose(1, 2)
+    return draw(h), draw(hkv), draw(hkv), draw(h)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,hkv,s,d,causal", FLASH_BWD_CUDA_TABLE)
+def test_flash_backward_kernel_matches_plain(cuda_device, dtype, b, h, hkv, s,
+                                             d, causal):
+    """The forward with lse against the plain forward, and the backward's
+    dq, dk, dv against the plain backward on the same o and lse; three
+    backward calls bitwise equal."""
+    q, k, v, do = _flash_train_inputs(cuda_device, dtype, b, h, hkv, s, d)
+    out, lse = flash_attention_lse_cuda(q, k, v, causal)
+    torch.cuda.synchronize()
+    want_out, want_lse = flash_attention_forward_plain(q, k, v, causal)
+    assert (out.float() - want_out.float()).abs().max().item() <= BWD_TOL[dtype]
+    assert (lse - want_lse).abs().max().item() <= 1e-4 * max(
+        1.0, want_lse.abs().max().item())
+    got = flash_attention_backward_cuda(q, k, v, out, lse, do, causal)
+    torch.cuda.synchronize()
+    want = flash_attention_backward_plain(q, k, v, out, lse, do, causal)
+    for name, g, w in zip("qkv", got, want):
+        assert g.shape == w.shape and g.dtype == dtype
+        assert _grad_err(g, w) <= BWD_TOL[dtype], name
+    for _ in range(2):
+        again = flash_attention_backward_cuda(q, k, v, out, lse, do, causal)
+        assert all(torch.equal(a, g) for a, g in zip(again, got))
+
+
+@pytest.mark.cuda
+def test_flash_serve_route_refuses_head_dim_16(cuda_device):
+    """head_dim 16 is the training route's alone: the serve entry raises
+    on it rather than launch a kernel it has not."""
+    q, k, v, _ = _flash_train_inputs(cuda_device, torch.float32, 1, 4, 2, 20,
+                                     16)
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_attention_cuda(q, k, v, True)
+    out, lse = flash_attention_lse_cuda(q, k, v, True)
+    assert out.shape == q.shape and lse.shape == (1, 4, 20)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s", [2, 3, 5, 8])
+def test_flash_short_causal_prefill_both_routes(cuda_device, dtype, s):
+    """A causal prefill of 2-8 tokens with no q_offset and skv == sq: the
+    serve route (the decode kernels) and, with grad, the training route
+    (the prefill kernels) forward, and its backward, against the plain
+    versions; the autograd Function counts one launch each way."""
+    q, k, v, do = _flash_train_inputs(cuda_device, dtype, 2, 9, 3, s, 64,
+                                      seed=41)
+    want = flash_attention_plain(q, k, v, True)
+    with torch.no_grad():
+        served = ops.flash_attention(q, k, v, True)
+    assert (served.float() - want.float()).abs().max().item() <= BWD_TOL[dtype]
+    leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+    before = (ops.flash_attention.launches,
+              ops.flash_attention.backward_launches)
+    out = ops.flash_attention(*leaves, causal=True)
+    out.backward(do)
+    torch.cuda.synchronize()
+    assert (ops.flash_attention.launches,
+            ops.flash_attention.backward_launches) == (before[0] + 1,
+                                                       before[1] + 1)
+    assert (out.float() - want.float()).abs().max().item() <= BWD_TOL[dtype]
+    _, lse = flash_attention_forward_plain(q, k, v, True)
+    grads = flash_attention_backward_plain(q, k, v, out.detach(), lse, do,
+                                           True)
+    for name, leaf, w in zip("qkv", leaves, grads):
+        assert _grad_err(leaf.grad, w) <= BWD_TOL[dtype], name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("shape", [(8, 2048, 576), (3, 37, 576), (2, 5, 4096),
+                                   (3, 7, 100), (1, 1, 64)])
+def test_rmsnorm_backward_kernel_matches_plain(cuda_device, dtype, tol, shape):
+    """dx and dgamma against the plain backward, each within ``tol`` of its
+    largest magnitude; three calls bitwise equal; the autograd Function
+    counts one launch each way."""
+    rs = np.random.RandomState(42)
+    x = torch.from_numpy(rs.randn(*shape).astype(np.float32)).to(
+        cuda_device, dtype)
+    g = torch.from_numpy((1 + 0.2 * rs.randn(shape[-1])).astype(
+        np.float32)).to(cuda_device, dtype)
+    dy = torch.from_numpy(rs.randn(*shape).astype(np.float32)).to(
+        cuda_device, dtype)
+    got = rmsnorm_backward_cuda(x, g, dy)
+    torch.cuda.synchronize()
+    want = rmsnorm_backward_plain(x, g, dy)
+    for name, a, w in zip(("dx", "dgamma"), got, want):
+        assert a.dtype == dtype and a.shape == w.shape
+        assert _grad_err(a, w) <= tol, name
+    for _ in range(2):
+        again = rmsnorm_backward_cuda(x, g, dy)
+        assert all(torch.equal(a, b_) for a, b_ in zip(again, got))
+    xl, gl = x.clone().requires_grad_(True), g.clone().requires_grad_(True)
+    before = ops.rmsnorm.launches, ops.rmsnorm.backward_launches
+    ops.rmsnorm(xl, gl).backward(dy)
+    assert (ops.rmsnorm.launches, ops.rmsnorm.backward_launches) == (
+        before[0] + 1, before[1] + 1)
+    assert torch.equal(xl.grad, got[0]) and torch.equal(gl.grad, got[1])

@@ -368,10 +368,10 @@ def test_from_jax_params_carries_bf16_bits():
     mod, cfg_j, params, model = _pair("smollm-135m", dtype=jnp.bfloat16)
     assert model.embed.dtype == torch.bfloat16
     np.testing.assert_array_equal(
-        model.embed.float().numpy(),
+        model.embed.detach().float().numpy(),
         np.asarray(params["embed"].astype(jnp.float32)))
     np.testing.assert_array_equal(
-        model.layers[1].attn.wq.float().numpy(),
+        model.layers[1].attn.wq.detach().float().numpy(),
         np.asarray(params["layers"]["attn"]["wq"][1].astype(jnp.float32)))
     toks = _tokens(cfg_j, 1, 6)
     with torch.no_grad():
@@ -563,3 +563,138 @@ def test_dlrm_init_is_seeded_on_its_device():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             DLRM(cfg)
+
+
+# ------------------------------------------------------------------------- #
+# Training: the loss, its gradients and the remat policies, fp32 on the CPU
+# (attention and RMSNorm through their autograd Functions: the plain forward
+# and the plain backward). Loss 1e-5 relative; every gradient leaf within
+# 1e-4 of its largest magnitude.
+# ------------------------------------------------------------------------- #
+
+def _lm_batch_np(cfg, b, s, seed, ignore=0):
+    rs = np.random.RandomState(seed)
+    toks = rs.randint(0, cfg.vocab_size, size=(b, s + 1)).astype(np.int32)
+    targets = toks[:, 1:].copy()
+    if ignore:
+        targets[rs.rand(b, s) < ignore] = -1
+    return {"tokens": toks[:, :-1], "targets": targets}
+
+
+def _leaf_err(got: torch.Tensor, want: np.ndarray) -> float:
+    scale = max(float(np.abs(want).max()), 1e-30)
+    return float(np.abs(got.detach().numpy() - want).max()) / scale
+
+
+def test_cross_entropy_loss_matches_jax():
+    rs = np.random.RandomState(30)
+    logits = (3 * rs.randn(3, 7, 50)).astype(np.float32)
+    targets = rs.randint(0, 50, size=(3, 7)).astype(np.int32)
+    targets[0, :3] = -1
+    targets[2, 6] = -1
+    want = float(jcommon.cross_entropy_loss(jnp.asarray(logits),
+                                            jnp.asarray(targets)))
+    got = tcommon.cross_entropy_loss(torch.from_numpy(logits),
+                                     torch.from_numpy(targets))
+    assert got.dtype == torch.float32 and got.dim() == 0
+    np.testing.assert_allclose(got.item(), want, rtol=1e-6)
+    every = np.full((2, 3), -1, np.int32)        # nothing to count: 0 / 1
+    assert float(jcommon.cross_entropy_loss(
+        jnp.asarray(logits[:2, :3]), jnp.asarray(every))) == 0.0
+    assert tcommon.cross_entropy_loss(torch.from_numpy(logits[:2, :3]),
+                                      torch.from_numpy(every)).item() == 0.0
+
+
+@pytest.mark.parametrize("arch", ["smollm-135m", "chatglm3-6b"])
+def test_loss_and_grads_match_jax(arch):
+    """``Transformer.loss`` (remat "dots", the reference's default) and the
+    gradient of every leaf against ``jax.value_and_grad`` of the JAX
+    package's ``loss`` on the same weights and batch."""
+    mod, cfg_j, params, model = _pair(arch)
+    batch = _lm_batch_np(cfg_j, 2, 12, seed=31, ignore=0.2)
+    (want_loss, want_parts), grads = jax.value_and_grad(
+        lambda p: mod.loss(p, cfg_j, {k: jnp.asarray(v)
+                                      for k, v in batch.items()}),
+        has_aux=True)(params)
+    loss, parts = model.loss({k: torch.from_numpy(v)
+                              for k, v in batch.items()})
+    assert loss.dtype == torch.float32 and parts["aux"].item() == 0.0
+    np.testing.assert_allclose(loss.item(), float(want_loss), rtol=1e-5)
+    np.testing.assert_allclose(parts["ce"].item(), float(want_parts["ce"]),
+                               rtol=1e-5)
+    loss.backward()
+    want = from_jax_params(jax.tree.map(np.asarray, grads), model.cfg)
+    named = dict(model.named_parameters())
+    assert set(named) == set(want)
+    for name, p in named.items():
+        assert _leaf_err(p.grad, want[name].numpy()) <= 1e-4, name
+
+
+def _counting(monkeypatch, name):
+    """Count the calls of ``ops.<name>`` (a plain version the CPU route's
+    autograd Functions call) while delegating to it."""
+    from repro_torch.kernels import ops
+    real = getattr(ops, name)
+    calls = []
+
+    def counted(*args, **kwargs):
+        calls.append(1)
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(ops, name, counted)
+    return calls
+
+
+# forward calls of attention and RMSNorm a loss and its backward, by policy:
+# a recomputed layer runs its forwards again
+REMAT_FORWARDS = {"none": (1, 2), "full": (2, 4), "dots": (2, 4),
+                  "blocks": (2, 4)}
+
+
+@pytest.mark.parametrize("policy", ["full", "dots", "blocks"])
+def test_remat_policies_match_none(policy, monkeypatch):
+    """Each remat policy gives the loss and every gradient of ``none``, and
+    recomputes the attention and RMSNorm forwards of every layer (the final
+    norm lies outside the layers)."""
+    _, cfg_j, _, model = _pair("smollm-135m")
+    batch = {k: torch.from_numpy(v)
+             for k, v in _lm_batch_np(cfg_j, 2, 10, seed=32).items()}
+
+    def run(remat):
+        model.zero_grad(set_to_none=True)
+        attn = _counting(monkeypatch, "flash_attention_forward_plain")
+        norm = _counting(monkeypatch, "rmsnorm_plain")
+        loss, _ = model.loss(batch, remat=remat)
+        loss.backward()
+        monkeypatch.undo()
+        layers = model.cfg.num_layers
+        per_attn, per_norm = REMAT_FORWARDS[remat]
+        assert (len(attn), len(norm)) == (per_attn * layers,
+                                          per_norm * layers + 1), remat
+        return loss.item(), {n: p.grad.clone()
+                             for n, p in model.named_parameters()}
+
+    want_loss, want = run("none")
+    loss, got = run(policy)
+    assert loss == pytest.approx(want_loss, rel=1e-6)
+    for name, g in got.items():
+        assert _leaf_err(g, want[name].numpy()) <= 1e-6, name
+
+
+def test_remat_unknown_policy_raises():
+    _, cfg_j, _, model = _pair("smollm-135m")
+    batch = {k: torch.from_numpy(v)
+             for k, v in _lm_batch_np(cfg_j, 1, 4, seed=33).items()}
+    with pytest.raises(ValueError, match="remat"):
+        model.loss(batch, remat="everything")
+
+
+def test_serving_keeps_parameters_out_of_autograd():
+    """Parameters are trainable, but prefill and decode run under no_grad,
+    so serving takes the kernels' serve route and builds no graph."""
+    _, cfg_j, _, model = _pair("smollm-135m")
+    assert all(p.requires_grad for p in model.parameters())
+    cache = model.init_cache(2, 16)
+    lg, cache = model.prefill(torch.from_numpy(_tokens(cfg_j, 2, 5)), cache)
+    lg2, cache = model.decode_step(cache, torch.tensor([[1], [2]]))
+    assert not lg.requires_grad and not lg2.requires_grad

@@ -1,12 +1,21 @@
-"""repro_torch.train.optimizer against the JAX package's, on the CPU, and
+"""repro_torch.train against the JAX package's, on the CPU: the optimizer,
 three DLRM training steps (loss -> backward -> apply_updates) against the
-JAX package's own composition on JAX-made batches.
+JAX package's own composition on JAX-made batches, the dense LM's
+``make_train_step`` (two microbatches) against the JAX single-device step,
+the memory planner, the trainer and ``launch.train``.
 
 Tolerances: the learning rate 1e-6 relative (the reference computes it in
 fp32, the port in float64); one ``apply_updates`` 1e-6 per leaf (the port
 fuses the same operations in place, a few fp32 ulps apart); three DLRM steps
-1e-5 (the losses and the final parameters).
+1e-5 (the losses and the final parameters); one dense-LM step: the metrics
+1e-5 relative, every updated parameter and master copy 1e-5 absolute and
+relative (1 % of the step's learning rate), m and v 1e-5 of their largest
+magnitude.
 """
+
+import dataclasses
+import re
+import time
 
 import jax
 import jax.numpy as jnp
@@ -14,15 +23,31 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs import SHAPES
+from repro.configs import get_config as get_config_jax
 from repro.configs import get_dlrm_config as get_dlrm_config_jax
 from repro.data.pipeline import DataConfig as DataConfigJax
 from repro.data.pipeline import dlrm_batch as dlrm_batch_jax
 from repro.models import dlrm as dlrm_jax
+from repro.models import get_model as get_model_jax
+from repro.parallel.policy import MemoryPlan as MemoryPlanJax
+from repro.parallel.policy import plan_memory as plan_memory_jax
 from repro.train import optimizer as opt_jax
-from repro_torch.configs import get_dlrm_config
-from repro_torch.convert import from_jax_dlrm_params
+from repro.train.train_step import make_train_step as make_train_step_jax
+from repro_torch.configs import get_config, get_dlrm_config, list_configs
+from repro_torch.convert import from_jax_dlrm_params, from_jax_params
+from repro_torch.launch import train as launch_train
+from repro_torch.models import get_model
 from repro_torch.models.dlrm import DLRM
+from repro_torch.parallel import H100_HBM_BYTES, MemoryPlan, plan_memory
+from repro_torch.train import (
+    Trainer,
+    TrainerConfig,
+    init_train_state,
+    make_train_step,
+)
 from repro_torch.train import optimizer as opt
+from repro_torch.data import DataConfig, DataIterator
 
 torch.set_num_threads(1)
 
@@ -64,6 +89,19 @@ def test_global_norm_matches_jax():
     got = opt.global_norm({k: torch.from_numpy(v) for k, v in grads.items()})
     assert got.dtype == torch.float32
     assert got.item() == pytest.approx(want, rel=1e-6)
+
+
+def test_global_norm_of_a_padded_embedding_gradient_matches_jax():
+    """A (2048, 64) leaf, reduced smollm's padded embedding: the sum of
+    squares must be the reference's to fp32 accuracy (a norm routine that
+    loses 3.5e-5 relative here once passed the small case above)."""
+    rs = np.random.RandomState(35)
+    g = (rs.randn(2048, 64) * np.exp(rs.randn(2048, 1))).astype(np.float32)
+    want = float(opt_jax.global_norm({"embed": jnp.asarray(g)}))
+    got = opt.global_norm({"embed": torch.from_numpy(g)}).item()
+    assert got == pytest.approx(want, rel=2e-6)
+    assert got == pytest.approx(float(np.linalg.norm(g.astype(np.float64))),
+                                rel=2e-6)
 
 
 def _to_torch(tree, dtype):
@@ -194,3 +232,193 @@ def test_dlrm_three_training_steps_match_jax():
     for name, p in model.named_parameters():
         np.testing.assert_allclose(p.detach().numpy(), want[name].numpy(),
                                    atol=1e-5, rtol=1e-5, err_msg=name)
+
+
+
+# ------------------------------------------------------------------------- #
+# The dense LM: one step of make_train_step, the planner, the trainer and
+# the launcher (reduced smollm-135m, fp32, on the CPU)
+# ------------------------------------------------------------------------- #
+
+def _lm_batch(cfg, b, s, seed):
+    rs = np.random.RandomState(seed)
+    toks = rs.randint(0, cfg.vocab_size, size=(b, s + 1)).astype(np.int32)
+    return {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+
+
+def _scaled(got: torch.Tensor, want: torch.Tensor) -> float:
+    scale = max(want.abs().max().item(), 1e-30)
+    return (got.detach() - want).abs().max().item() / scale
+
+
+def test_make_train_step_two_microbatches_matches_jax():
+    """One step with the batch split into two microbatches, from the same
+    weights, optimizer state and batch, against the JAX package's
+    single-device ``make_train_step``: the metrics, every updated parameter
+    and the optimizer's m, v and master copies."""
+    cfg_j = get_config_jax("smollm-135m", reduced=True)
+    params = get_model_jax(cfg_j).init_params(jax.random.PRNGKey(3), cfg_j,
+                                              dtype=jnp.float32)
+    cj, ct = _cfgs(lr=1e-3, warmup_steps=0, total_steps=10)
+    batch = _lm_batch(cfg_j, 4, 12, seed=34)
+    step_j = make_train_step_jax(
+        cfg_j, MemoryPlanJax(1, "float32", True, "dots", 0.0, 2), cj)
+    new_j, metrics_j = step_j(
+        {"params": params, "opt": opt_jax.init_state(params, cj)},
+        {k: jnp.asarray(v) for k, v in batch.items()}, jax.random.PRNGKey(0))
+
+    cfg = get_config("smollm-135m", reduced=True)
+    model = get_model(cfg)(cfg, dtype=torch.float32, device="cpu")
+    model.load_state_dict(from_jax_params(jax.tree.map(np.asarray, params),
+                                          cfg))
+    tparams = dict(model.named_parameters())
+    state = {"model": model, "params": tparams,
+             "opt": opt.init_state(tparams, ct)}
+    step = make_train_step(cfg, MemoryPlan(1, "float32", True, "dots", 0.0, 2),
+                           ct)
+    state, metrics = step(state, {k: torch.from_numpy(v)
+                                  for k, v in batch.items()},
+                          torch.Generator().manual_seed(0))
+    assert set(metrics) == set(metrics_j) == {"loss", "ce", "aux", "lr",
+                                              "grad_norm"}
+    for name, want in metrics_j.items():
+        got = metrics[name]
+        got = got.item() if torch.is_tensor(got) else got
+        assert got == pytest.approx(float(want), rel=1e-5, abs=1e-12), name
+    want_params = from_jax_params(jax.tree.map(np.asarray, new_j["params"]),
+                                  cfg)
+    for name, p in tparams.items():
+        np.testing.assert_allclose(p.detach().numpy(), want_params[name].numpy(),
+                                   atol=1e-5, rtol=1e-5, err_msg=name)
+        assert p.grad is None
+    for part in ("m", "v", "master"):
+        want = from_jax_params(jax.tree.map(np.asarray, new_j["opt"][part]),
+                               cfg)
+        for name, t in state["opt"][part].items():
+            if part == "master":
+                np.testing.assert_allclose(t.numpy(), want[name].numpy(),
+                                           atol=1e-5, rtol=1e-5,
+                                           err_msg=name)
+            else:
+                assert _scaled(t, want[name]) <= 1e-5, (part, name)
+    assert int(state["opt"]["step"]) == int(new_j["opt"]["step"]) == 1
+
+
+DENSE_ARCHS = ["smollm-135m", "chatglm3-6b", "minitron-8b", "internlm2-20b"]
+
+
+@pytest.mark.parametrize("arch", DENSE_ARCHS)
+def test_plan_memory_matches_reference(arch):
+    """The port's planner against the reference's at one H100's 80 GB, for
+    every dense config, without a shape and at each training shape, on one
+    device and on a few meshes."""
+    assert arch in list_configs()
+    shapes = [None] + [sh for sh in SHAPES.values() if sh.kind == "train"]
+    for tp, dp in ((1, 1), (4, 1), (8, 32)):
+        for shape in shapes:
+            mine = plan_memory(get_config(arch), tp=tp, dp=dp, shape=shape)
+            ref = plan_memory_jax(get_config_jax(arch), tp=tp, dp=dp,
+                                  hbm_bytes=80e9, shape=shape)
+            assert dataclasses.asdict(mine) == dataclasses.asdict(ref), (
+                tp, dp, shape)
+    assert H100_HBM_BYTES == 80e9
+    plan = plan_memory(get_config("smollm-135m"), tp=1, dp=1)
+    assert (plan.remat, plan.microbatches, plan.opt_dtype) == ("dots", 1,
+                                                               "float32")
+
+
+def _reduced_trainer(steps, step_fn_wrap=None, **trainer_kw):
+    cfg = get_config("smollm-135m", reduced=True)
+    plan = plan_memory(cfg, tp=1, dp=1)
+    ocfg = opt.AdamWConfig(lr=3e-3, total_steps=steps, warmup_steps=1,
+                           state_dtype=plan.opt_dtype,
+                           use_master=plan.use_master)
+    state = init_train_state(cfg, plan, torch.Generator().manual_seed(0),
+                             ocfg, dtype=torch.float32, device="cpu")
+    step_fn = make_train_step(cfg, plan, ocfg)
+    if step_fn_wrap is not None:
+        step_fn = step_fn_wrap(step_fn)
+    data = DataIterator(DataConfig(vocab_size=cfg.vocab_size, seq_len=32,
+                                   global_batch=4, seed=0), device="cpu")
+    return Trainer(step_fn, state, data,
+                   TrainerConfig(total_steps=steps, **trainer_kw))
+
+
+def test_trainer_loss_falls_and_watchdog_counts_a_straggler():
+    """20 steps of reduced smollm: the loss falls; step 15 is made slow, and
+    the watchdog (median of the last 50 once there are 10) reports it."""
+    def slow_at_15(step_fn):
+        calls = []
+
+        def wrapped(state, batch, gen):
+            calls.append(1)
+            if len(calls) == 16:
+                time.sleep(1.5)
+            return step_fn(state, batch, gen)
+        return wrapped
+
+    reported = []
+    trainer = _reduced_trainer(20, slow_at_15, log_interval=1)
+    trainer.on_straggler = lambda step, ratio: reported.append((step, ratio))
+    summary = trainer.run()
+    losses = [row["loss"] for row in trainer.metrics_log]
+    assert len(losses) == 20 and all(np.isfinite(losses))
+    assert np.mean(losses[-5:]) < np.mean(losses[:5])
+    assert summary["final_step"] == 20 and not summary["preempted"]
+    assert summary["straggler_steps"] >= 1
+    assert 15 in [step for step, _ in reported]
+    assert all(ratio > 3.0 for _, ratio in reported)
+    assert set(summary) >= {"median_step_s", "final_loss", "final_ce",
+                            "final_aux", "final_lr", "final_grad_norm"}
+
+
+def test_trainer_checkpoint_dir_waits_for_the_checkpointer():
+    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
+        _reduced_trainer(2, ckpt_dir="ckpt")
+    trainer = _reduced_trainer(1)
+    assert trainer.try_resume() is False
+
+
+def test_launch_train_reduced_on_cpu(capsys):
+    """``python -m repro_torch.launch.train --arch smollm-135m --reduced
+    --device cpu --steps 20``: runs to its summary, the loss falls."""
+    summary = launch_train.main(["--arch", "smollm-135m", "--reduced",
+                                 "--device", "cpu", "--steps", "20"])
+    out = capsys.readouterr().out
+    logged = {int(m.group(1)): float(m.group(2)) for m in re.finditer(
+        r"step=(\d+) time_s=\S+ loss=(\S+)", out)}
+    assert sorted(logged) == [10, 20]
+    assert logged[20] < logged[10]
+    assert summary["final_step"] == 20
+    assert summary["final_loss"] == pytest.approx(logged[20], rel=1e-4)
+    assert "summary:" in out
+
+
+@pytest.mark.cuda
+def test_launch_train_reduced_on_the_card(capsys):
+    """The same command without ``--device``: on the card the reduced
+    config (head_dim 16) trains through the kernels both ways, and the
+    loss falls."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    before = launch_train.kernel_launches()
+    summary = launch_train.main(["--arch", "smollm-135m", "--reduced",
+                                 "--steps", "20"])
+    out = capsys.readouterr().out
+    logged = {int(m.group(1)): float(m.group(2)) for m in re.finditer(
+        r"step=(\d+) time_s=\S+ loss=(\S+)", out)}
+    assert sorted(logged) == [10, 20] and logged[20] < logged[10]
+    assert summary["final_step"] == 20
+    layers = get_config("smollm-135m", reduced=True).num_layers
+    after = launch_train.kernel_launches()
+    for name, n in after.items():
+        assert n - before[name] >= 20 * layers, name
+    assert "kernel launches:" in out
+
+
+@pytest.mark.parametrize("flags", [["--ckpt-dir", "ckpt"],
+                                   ["--resume", "auto"]])
+def test_launch_train_checkpoint_flags_raise(flags):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
+        launch_train.main(["--reduced", "--device", "cpu", "--steps", "1",
+                           *flags])
