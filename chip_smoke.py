@@ -15,7 +15,8 @@ run with a non-zero exit code (nothing drops to the CPU or to a plain version):
            library call's time as a yardstick; the embedding-bag backward
            also per stage, and at its two main shapes (uniform and Zipf
            indices) three calls that must agree bitwise; the attention and
-           RMSNorm backwards the same, three calls at each main shape
+           RMSNorm backwards the same, three calls at each main shape, and
+           the kernels a call launched, counted in a trace, as planned
   serve    smollm-135m at full width and depth, bf16, random weights from a
            seed: the continuous-batching engine answers 16 requests; launch
            counters show that the run went through the kernels; then the
@@ -41,7 +42,8 @@ run with a non-zero exit code (nothing drops to the CPU or to a plain version):
            2 warm-up and 20 timed steps on batches of 8 x 2048 tokens, with
            the memory plan's remat ("dots"), through the attention and RMSNorm
            kernels in both directions; launches held to the count reckoned
-           from the layers and the policy; then 2 steps under torch.profiler
+           from the layers and the policy; then 2 steps under torch.profiler,
+           whose attention-backward kernels must be as the plan reckons
   train_lm_check
            one step of a 2-layer, full-width smollm through the kernels and
            through the plain versions (autograd) on the same weights and
@@ -52,7 +54,8 @@ describing every kernel, and the verdict.
 
 fp32 comparisons run with TF32 switched off
 (``torch.backends.cuda.matmul.allow_tf32 = False``, and for cuDNN too), so the
-plain version's products are full fp32 like the kernels'.
+plain version's products are full fp32, as the kernels' are (on the fp32
+pipes, or as 3xTF32 on the tensor cores).
 """
 
 from __future__ import annotations
@@ -60,6 +63,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -86,11 +90,11 @@ from repro_torch.kernels.embedding_bag import (  # noqa: E402
     embedding_bag_cuda,
     embedding_bag_plain,
 )
-from repro_torch.kernels import flash_attention as fa_module  # noqa: E402
 from repro_torch.kernels import rmsnorm as rms_module  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     DECODE_CLUSTERS,
     flash_attention_backward_cuda,
+    flash_attention_backward_plan,
     flash_attention_backward_plain,
     flash_attention_cuda,
     flash_attention_forward_plain,
@@ -130,6 +134,14 @@ from repro_torch.train.optimizer import (  # noqa: E402
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12,   # tensor cores
               torch.float32: 67e12}     # fp32 outside the tensor cores
+PEAK_TF32_FLOPS = 495e12                # TF32 on the tensor cores
+# A matrix product's bound takes the fastest way the card computes it to the
+# input type's accuracy: bf16 on the tensor cores; fp32 as three TF32
+# products on the tensor cores (3xTF32: hi hi + hi lo + lo hi), 165 TFLOP/s,
+# faster than the fp32 pipes' 67.
+PRODUCT_FLOPS = {torch.bfloat16: PEAK_FLOPS[torch.bfloat16],
+                 torch.float32: max(PEAK_FLOPS[torch.float32],
+                                    PEAK_TF32_FLOPS / 3)}
 L2_BYTES = 50 * 2 ** 20
 
 ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
@@ -162,6 +174,7 @@ BWD_TOL = {"flash_attention_backward": {torch.float32: 2e-5,
                                         torch.bfloat16: 3e-2},
            "rmsnorm_backward": {torch.float32: 1e-5, torch.bfloat16: 1e-2}}
 BWD_REPEATS = 3         # backward calls at a main shape that must agree bitwise
+TRACE_TRIES = 3         # traces trace_ms takes before an empty one is an error
 # The training route's forward (output and the rows' log-sum-exp) against
 # the plain forward: the output to the forward cases' ATTN_TOL (absolute);
 # the log-sum-exp, in nats, to LSE_TOL of max(1, its largest magnitude) (the
@@ -251,25 +264,32 @@ def trace_ms(fn, arg_sets, iters: int = 10) -> dict:
     launches, which is all an eager reading sees of a short call.
     ``kernels``: the four that take the most time, by name; ``backend``:
     the attention backend those names show (cudnn, flash, efficient by its
-    ``fmha`` kernels, or math when none of them)."""
+    ``fmha`` kernels, or math when none of them); ``launches_per_call``:
+    the kernels, copies and fills a call launched. A trace that comes back
+    with no device event at all (the profiler drops one now and then) is
+    taken again, up to ``TRACE_TRIES`` times."""
     from torch.profiler import ProfilerActivity, profile
     for args in arg_sets[:2]:
         fn(*args)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for i in range(iters):
-            fn(*arg_sets[i % len(arg_sets)])
-        torch.cuda.synchronize()
-    device_us, _, by_name = _device_time(prof, iters, "call")
-    if device_us == 0:
-        raise RuntimeError("torch.profiler reported no device time")
+    for _ in range(TRACE_TRIES):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for i in range(iters):
+                fn(*arg_sets[i % len(arg_sets)])
+            torch.cuda.synchronize()
+        device_us, launches, by_name = _device_time(prof, iters, "call")
+        if device_us:
+            break
+    else:
+        raise RuntimeError(f"torch.profiler reported no device time in "
+                           f"{TRACE_TRIES} traces")
     names = [e["name"] for e in by_name]
     joined = " ".join(names).lower()
     backend = next((tag for tag, key in (
         ("cudnn", "cudnn"), ("flash", "flash"), ("efficient", "fmha"))
         if key in joined), "math")
     return {"ms": device_us / 1e3 / iters, "kernels": names[:4],
-            "backend": backend}
+            "backend": backend, "launches_per_call": launches / iters}
 
 
 def copies_for_cold_l2(tensors) -> int:
@@ -321,7 +341,8 @@ def phase_build() -> None:
     _build.lib()
     emit("build", seconds=round(time.perf_counter() - t0, 3),
          library=str(path.relative_to(ROOT)),
-         sources=sorted(p.name for p in _build.CSRC.glob("*.cu")))
+         sources=sorted(p.name for p in (*_build.CSRC.glob("*.cu"),
+                                         *_build.CSRC.glob("*.cuh"))))
 
 
 def _rmsnorm_case(shape, dtype, gen, ulp_tol=False) -> dict:
@@ -404,7 +425,7 @@ def _attention_case(name, b, h, hkv, sq, skv, d, causal, dtype, gen,
     nbytes = (2 * b * h * sq * d + 2 * kv_rows * hkv * d) * item
     flops = 4 * pairs * h * d
     bound_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    bound_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    bound_ops = flops / PRODUCT_FLOPS[dtype] * 1e3
 
     mask = None
     if kv_len is not None or q_offset is not None:
@@ -462,7 +483,12 @@ def _attention_backward_case(name, b, h, hkv, s, d, causal, dtype, gen,
     ``library_ms``: autograd's backward of one
     ``F.scaled_dot_product_attention`` (GQA by ``enable_gqa``), and
     ``kernel_trace_ms`` the backward kernels, both as torch.profiler's sum
-    of device time (``trace_ms``)."""
+    of device time (``trace_ms``); ``forward_library_ms``: one
+    ``F.scaled_dot_product_attention`` forward the same way, beside
+    ``forward_lse_ms``. ``splits``, ``plan_kernels_per_call`` and
+    ``scratch_bytes``: the call's ``flash_attention_backward_plan``;
+    ``kernels_per_call``: the kernels a call launched, counted in the
+    trace, which must equal the plan's."""
     def draw(heads):
         t = torch.randn((b, s, heads, d), generator=gen, device=DEVICE)
         return t.to(dtype).transpose(1, 2)
@@ -485,9 +511,6 @@ def _attention_backward_case(name, b, h, hkv, s, d, causal, dtype, gen,
             lambda: flash_attention_backward_cuda(q, k, v, out, lse, do,
                                                   causal), got)
     del got, want
-    ok = (out_err <= ATTN_TOL[dtype] and lse_err <= LSE_TOL * lse_scale
-          and all(e <= tol * scale for e, scale in errs)
-          and extra.get("bitwise_equal_calls", BWD_REPEATS) == BWD_REPEATS)
 
     # Five products of 2 d flops for each (query, key) pair the mask
     # allows; each input read once, each gradient written once.
@@ -498,12 +521,16 @@ def _attention_backward_case(name, b, h, hkv, s, d, causal, dtype, gen,
                       + b * h * s * d + 2 * b * hkv * s * d)       # dq, dk dv
               + 4 * b * h * s)                                     # lse
     bound_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    bound_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    bound_ops = flops / PRODUCT_FLOPS[dtype] * 1e3
+    # the same bound with the products on the fp32 pipes, beside it
+    pipes_bound = (max(bound_bytes, flops / PEAK_FLOPS[dtype] * 1e3)
+                   if dtype == torch.float32 else None)
     # the forward with the log-sum-exp: two products; q k v read, o and lse
     # written
     fwd_bound = max(
         (item * (2 * b * h * s * d + 2 * b * hkv * s * d) + 4 * b * h * s)
-        / HBM_BYTES_PER_S * 1e3, 4 * pairs * h * d / PEAK_FLOPS[dtype] * 1e3)
+        / HBM_BYTES_PER_S * 1e3,
+        4 * pairs * h * d / PRODUCT_FLOPS[dtype] * 1e3)
     sets = [(q, k, v, out, lse, do)]
     kernel = time_ms(lambda *a: flash_attention_backward_cuda(*a, causal),
                      sets, **(dict(iters=20) if main else {}))
@@ -511,6 +538,15 @@ def _attention_backward_case(name, b, h, hkv, s, d, causal, dtype, gen,
         lambda *a: flash_attention_backward_cuda(*a, causal), sets)
     forward = time_ms(lambda q_, k_, v_, *_: flash_attention_lse_cuda(
         q_, k_, v_, causal), sets)
+    forward_library = trace_ms(lambda q_, k_, v_, *_: (
+        F.scaled_dot_product_attention(q_, k_, v_, is_causal=causal,
+                                       enable_gqa=True)), sets)
+    splits, plan_kernels, scratch_bytes = flash_attention_backward_plan(
+        b, h, hkv, s, d)
+    ok = (out_err <= ATTN_TOL[dtype] and lse_err <= LSE_TOL * lse_scale
+          and all(e <= tol * scale for e, scale in errs)
+          and extra.get("bitwise_equal_calls", BWD_REPEATS) == BWD_REPEATS
+          and kernel_trace["launches_per_call"] == plan_kernels)
     plain_ms = time_ms(lambda *a: flash_attention_backward_plain(*a, causal),
                        sets, iters=10 if main else 50, graph=False)["device"]
     leaves = [t.detach().requires_grad_() for t in (q, k, v)]
@@ -535,12 +571,17 @@ def _attention_backward_case(name, b, h, hkv, s, d, causal, dtype, gen,
         "kernel_ms": kernel["device"], "kernel_eager_ms": kernel["eager"],
         "kernel_trace_ms": kernel_trace["ms"],
         "forward_lse_ms": forward["device"], "forward_lse_bound_ms": fwd_bound,
-        "kernels_per_call": fa_module.BACKWARD_KERNELS_PER_CALL,
+        "forward_library_ms": forward_library["ms"],
+        "forward_library_backend": forward_library["backend"],
+        "splits": splits, "plan_kernels_per_call": plan_kernels,
+        "kernels_per_call": kernel_trace["launches_per_call"],
+        "scratch_bytes": scratch_bytes,
         "plain_ms": plain_ms, "library_ms": library["ms"],
         "library_kernels": library["kernels"],
         "library_backend": library["backend"],
         "bound_ms": max(bound_bytes, bound_ops),
         "bound_by": "bytes" if bound_bytes >= bound_ops else "operations",
+        "bound_fp32_pipes_ms": pipes_bound,
         "flops": flops, "bytes": nbytes, **extra,
     }
 
@@ -549,7 +590,9 @@ def _rmsnorm_backward_case(shape, dtype, gen, main=False) -> dict:
     """dx and dgamma against the plain backward; ``main``: three calls must
     agree bitwise. ``library_ms``: autograd's backward of one
     ``F.rms_norm``, and ``kernel_trace_ms`` the backward kernels, both as
-    torch.profiler's sum of device time over the same cold copies."""
+    torch.profiler's sum of device time over the same cold copies;
+    ``kernels_per_call``: the kernels a call launched, counted in that
+    trace, which must equal ``BACKWARD_KERNELS_PER_CALL``."""
     d = shape[-1]
     x = torch.randn(shape, generator=gen, device=DEVICE).to(dtype)
     gamma = (1.0 + 0.1 * torch.randn(d, generator=gen, device=DEVICE)).to(dtype)
@@ -563,8 +606,6 @@ def _rmsnorm_backward_case(shape, dtype, gen, main=False) -> dict:
     if main:
         extra["bitwise_equal_calls"] = _bitwise_repeats(
             lambda: rmsnorm_backward_cuda(x, gamma, dy), got)
-    ok = (all(e <= tol * scale for e, scale in errs)
-          and extra.get("bitwise_equal_calls", BWD_REPEATS) == BWD_REPEATS)
     rows = x.numel() // d
     item = x.element_size()
     nbytes = (3 * rows * d + 2 * d) * item    # x, dy, dx; gamma, dgamma
@@ -576,6 +617,10 @@ def _rmsnorm_backward_case(shape, dtype, gen, main=False) -> dict:
     kernel = time_ms(lambda a, g, e: rmsnorm_backward_cuda(a, g, e), sets)
     kernel_trace = trace_ms(lambda a, g, e: rmsnorm_backward_cuda(a, g, e),
                             sets)
+    ok = (all(e <= tol * scale for e, scale in errs)
+          and extra.get("bitwise_equal_calls", BWD_REPEATS) == BWD_REPEATS
+          and kernel_trace["launches_per_call"]
+          == rms_module.BACKWARD_KERNELS_PER_CALL)
     plain_ms = time_ms(lambda a, g, e: rmsnorm_backward_plain(a, g, e), sets,
                        iters=20, graph=False)["device"]
     lib_sets = []
@@ -595,7 +640,7 @@ def _rmsnorm_backward_case(shape, dtype, gen, main=False) -> dict:
         "tol": tol, "tol_is": "of each gradient's largest magnitude",
         "ok": ok, "kernel_ms": kernel["device"],
         "kernel_eager_ms": kernel["eager"], "kernel_trace_ms": kernel_trace["ms"],
-        "kernels_per_call": rms_module.BACKWARD_KERNELS_PER_CALL,
+        "kernels_per_call": kernel_trace["launches_per_call"],
         "plain_ms": plain_ms, "library_ms": library["ms"],
         "library_kernels": library["kernels"],
         "bound_ms": max(bound_bytes, bound_ops),
@@ -664,7 +709,7 @@ def _ssd_case(name, b, s, h, p, n, g, chunk, dtype, gen,
     nbytes = ((2 * b * s * h * p + 2 * b * s * g * n) * item
               + 4 * (b * s * h + h + b * h * p * n))
     bound_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    bound_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    bound_ops = flops / PRODUCT_FLOPS[dtype] * 1e3
 
     def views():
         t = clone_like(xbc)
@@ -1566,6 +1611,24 @@ def _expected_lm_launches(cfg, remat: str, steps: int) -> dict:
             "rmsnorm_backward": (2 * layers + 1) * steps}
 
 
+def _lm_backward_plan(cfg, launches: dict, steps: int,
+                      by_name: list) -> dict:
+    """The attention backward's plan at the train_lm layer, the device
+    kernels its counted calls launched, reckoned from the plan, and the
+    ``bwd_*`` kernels a profiled step launched (``by_name``, from
+    ``_device_time``)."""
+    splits, per_call, scratch = flash_attention_backward_plan(
+        LM_BATCH, cfg.num_heads, cfg.num_kv_heads, LM_SEQ,
+        cfg.resolved_head_dim)
+    calls = launches["flash_attention_backward"]
+    return {"splits": splits, "kernels_per_call": per_call,
+            "scratch_bytes": scratch, "kernels": calls * per_call,
+            "kernels_per_step": calls * per_call / steps,
+            "kernels_traced_per_step": sum(
+                e["launches_per_step"] for e in by_name
+                if re.search(r"(^|[\s:])bwd_\w+_kernel", e["name"]))}
+
+
 def _lm_memory_reckoned(cfg, batch: int, seq: int) -> dict:
     """Bytes reckoned from the shapes, fp32: parameters, gradients, m, v and
     the master copy; the logits and their gradient; the projections the
@@ -1637,6 +1700,12 @@ def phase_train_lm() -> dict:
     if launches != expected:
         problems.append(f"launches {launches} != {expected}, reckoned from "
                         f"{cfg.num_layers} layers and remat {plan.remat!r}")
+    bwd_plan = _lm_backward_plan(cfg, launches, steps, by_name)
+    if (device_us and bwd_plan["kernels_traced_per_step"]
+            != bwd_plan["kernels_per_step"]):
+        problems.append(f"attention backward kernels a step: traced "
+                        f"{bwd_plan['kernels_traced_per_step']}, reckoned "
+                        f"{bwd_plan['kernels_per_step']} from the plan")
     result = {
         "arch": cfg.arch_id, "layers": cfg.num_layers, "d_model": cfg.d_model,
         "params": n_params, "dtype": "float32",
@@ -1655,6 +1724,7 @@ def phase_train_lm() -> dict:
         "straggler_steps": summary["straggler_steps"],
         "launches": launches, "launches_per_step": {
             k: v / steps for k, v in launches.items()},
+        "attention_backward_plan": bwd_plan,
         "peak_memory_bytes": peak_bytes,
         "memory_reckoned": _lm_memory_reckoned(cfg, LM_BATCH, LM_SEQ),
         "init_seconds": init_seconds, "problems": problems,
@@ -1884,6 +1954,7 @@ def kernels_line(cases: list, launches_by_path: dict) -> dict:
             entries[-1]["train_forward_with_lse"] = {
                 "ms": train["forward_lse_ms"],
                 "bound_ms": train["forward_lse_bound_ms"],
+                "library_ms": train["forward_library_ms"],
                 "out_max_abs_err": train["forward_out_max_abs_err"],
                 "lse_max_abs_err": train["lse_max_abs_err"]}
     return {"kernels": entries}

@@ -1,11 +1,9 @@
-"""Times this tree's flash attention, RMSNorm, SSD scan and embedding-bag
-backward kernels against another tree's sources on the same inputs, in one
-process on one card, in turns (other, this, this, other), so that two
-versions are compared within one run. An SSD scan source with the older
-single-kernel entry point (its ``p_tile`` argument) is called with p-tiles
-of 32, its default; an embedding-bag source with the older atomic backward
-(no ``stages`` argument) is called as its wrapper called it, on a
-zero-filled fp32 (T, R, E).
+"""Times this tree's flash attention (forward and backward), RMSNorm, SSD
+scan and embedding-bag backward kernels against another tree's sources on
+the same inputs, in one process on one card, in turns (other, this, this,
+other), so that two versions are compared within one run. An attention
+backward without the ``splits`` argument (one block a KV head's whole group)
+is called without scratch.
 
     git archive <rev> src/repro_torch/kernels/csrc | tar -x -C build/ab_other
     python3 kernel_ab.py build/ab_other/src/repro_torch/kernels/csrc
@@ -36,49 +34,61 @@ from repro_torch.kernels.embedding_bag import (  # noqa: E402
     embedding_bag_backward_cuda,
     embedding_bag_backward_plain,
 )
-from repro_torch.kernels.flash_attention import flash_attention_plain  # noqa: E402
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    flash_attention_backward_cuda,
+    flash_attention_backward_plain,
+    flash_attention_forward_plain,
+    flash_attention_plain,
+)
 from repro_torch.kernels.rmsnorm import rmsnorm_plain  # noqa: E402
-from repro_torch.kernels.ssd_scan import _DTYPE_CODE, ssd_scan_plain  # noqa: E402
+from repro_torch.kernels.ssd_scan import ssd_scan_plain  # noqa: E402
 
 OUT = ROOT / "build" / "kernel_ab"
 ORDER = ("other", "this", "this", "other")
 
 
-class _NoClusterArg:
-    """An older entry point without the decode-cluster argument."""
+class _NoSplitsArg:
+    """An older attention backward entry point without the scratch pointer
+    and the ``splits`` argument."""
 
     def __init__(self, lib):
         self.lib = lib
 
-    def repro_flash_attention(self, *args):
+    def repro_flash_attention_backward(self, *args):
         args = list(args)
-        del args[-3]
-        return self.lib.repro_flash_attention(*args)
+        del args[17]  # splits
+        del args[7]   # scratch
+        return self.lib.repro_flash_attention_backward(*args)
 
     def __getattr__(self, name):
         return getattr(self.lib, name)
 
 
-def _load(name: str, takes_cluster: bool, ssd_p_tile: bool, bag_stages: bool):
+def _load(name: str, bwd_splits: bool):
     ptr, i32, i64, f32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                           ctypes.c_float)
     lib = ctypes.CDLL(str(OUT / f"{name}.so"))
-    lib.repro_ssd_scan.argtypes = (
-        [ptr] * 7 + [i32] * 8 + [i64] * 15 + [i32, ptr] if ssd_p_tile else
-        [ptr] * 10 + [i32] * 7 + [i64] * 15 + [i32, i32, ptr])
+    lib.repro_ssd_scan.argtypes = [ptr] * 10 + [i32] * 7 + [i64] * 15 + [i32, i32, ptr]
     lib.repro_ssd_scan.restype = i32
     lib.repro_rmsnorm.argtypes = [ptr, ptr, ptr, i64, i32, f32, i32, ptr]
     lib.repro_rmsnorm.restype = i32
-    tail = [f32, i32, i32, i32, ptr] if takes_cluster else [f32, i32, i32, ptr]
-    lib.repro_flash_attention.argtypes = [ptr] * 6 + [i32] * 6 + [i64] * 12 + tail
+    lib.repro_flash_attention.argtypes = ([ptr] * 6 + [i32] * 6 + [i64] * 12
+                                          + [f32, i32, i32, i32, ptr])
     lib.repro_flash_attention.restype = i32
-    lib.repro_embedding_bag_backward.argtypes = (
-        [ptr] * 11 + [i32] * 5 + [i64] * 5 + [i32, i32, ptr] if bag_stages else
-        [ptr] * 4 + [i32] * 5 + [i64] * 5 + [i32, ptr])
+    lib.repro_embedding_bag_backward.argtypes = ([ptr] * 11 + [i32] * 5 + [i64] * 5
+                                                 + [i32, i32, ptr])
     lib.repro_embedding_bag_backward.restype = i32
+    lib.repro_flash_attention_backward.argtypes = (
+        [ptr] * 11 + [i32] * 7 + [i64] * 24 + [f32, i32, i32, ptr] if bwd_splits else
+        [ptr] * 10 + [i32] * 6 + [i64] * 24 + [f32, i32, i32, ptr])
+    lib.repro_flash_attention_backward.restype = i32
     lib.repro_cuda_error_string.argtypes = [i32]
     lib.repro_cuda_error_string.restype = ctypes.c_char_p
-    return lib if takes_cluster else _NoClusterArg(lib)
+    return lib if bwd_splits else _NoSplitsArg(lib)
+
+
+SOURCES = ("flash_attention.cu", "flash_attention_backward.cu", "rmsnorm.cu", "ssd_scan.cu",
+           "embedding_bag.cu")
 
 
 def build(other: Path) -> dict:
@@ -86,12 +96,9 @@ def build(other: Path) -> dict:
     sides = {"this": _build.CSRC, "other": other}
     nvcc = _build._nvcc()
     _build._run_all([[nvcc, *_build.NVCC_FLAGS, "-shared", "-o", str(OUT / f"{name}.so"),
-                      str(src / "flash_attention.cu"), str(src / "rmsnorm.cu"),
-                      str(src / "ssd_scan.cu"), str(src / "embedding_bag.cu")]
+                      *(str(src / f) for f in SOURCES)]
                      for name, src in sides.items()])
-    return {name: _load(name, "int cluster" in (src / "flash_attention.cu").read_text(),
-                        "int p_tile" in (src / "ssd_scan.cu").read_text(),
-                        "int stages" in (src / "embedding_bag.cu").read_text())
+    return {name: _load(name, "int splits" in (src / "flash_attention_backward.cu").read_text())
             for name, src in sides.items()}
 
 
@@ -101,36 +108,18 @@ def _max_err(got, want) -> float:
     return (got.float() - want.float()).abs().max().item()
 
 
-def ab(libs, name, dtype, fn, plain, sets, fns=None, **timing) -> None:
-    """``fn`` on both sides, or ``fns[side]`` where the sides' entry points
-    differ; ``timing``: ``chip_smoke.time_ms``'s options."""
+def ab(libs, name, dtype, fn, plain, sets, **timing) -> None:
+    """``fn`` on both sides; ``timing``: ``chip_smoke.time_ms``'s options."""
     row = {"case": name, "dtype": cs.dtype_name(dtype), "err": {}}
     want = plain(*sets[0])
     for side in ORDER:
         _build._lib = libs[side]
-        f = fns[side] if fns else fn
-        got = f(*sets[0])
+        got = fn(*sets[0])
         torch.cuda.synchronize()
         row["err"][side] = _max_err(got, want)
         del got
-        row.setdefault(side, []).append(cs.time_ms(f, sets, **timing)["device"])
+        row.setdefault(side, []).append(cs.time_ms(fn, sets, **timing)["device"])
     print(json.dumps(row), flush=True)
-
-
-def _ssd_p_tile_call(lib, x, dt, A, B, C, chunk):
-    """The single-kernel SSD entry point, p-tiles of 32."""
-    b, s, h, p = x.shape
-    g, n = B.shape[2], B.shape[3]
-    y = torch.empty((b, s, h, p), dtype=x.dtype, device=x.device)
-    state = torch.empty((b, h, p, n), dtype=torch.float32, device=x.device)
-    code = lib.repro_ssd_scan(
-        x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(), C.data_ptr(),
-        y.data_ptr(), state.data_ptr(), b, s, h, p, g, n, min(chunk, s), 32,
-        *x.stride()[:3], *dt.stride(), *B.stride()[:3], *C.stride()[:3],
-        *y.stride()[:3], _DTYPE_CODE[x.dtype],
-        torch.cuda.current_stream().cuda_stream)
-    _build.check(code, "ssd_scan kernel launch")
-    return y, state
 
 
 def ssd_case(libs, name, b, s, h, p, n, g, chunk, dtype, gen) -> None:
@@ -145,27 +134,9 @@ def ssd_case(libs, name, b, s, h, p, n, g, chunk, dtype, gen) -> None:
         return (t[..., :di].unflatten(-1, (h, p)), t[..., di:di + gn].unflatten(-1, (g, n)),
                 t[..., di + gn:].unflatten(-1, (g, n)))
     sets = [views(cs.clone_like(xbc)) for _ in range(cs.copies_for_cold_l2([xbc, dt]))]
-    fns = {side: (lambda x_, B_, C_, lib=lib: _ssd_p_tile_call(lib, x_, dt, A, B_, C_, chunk))
-           if len(lib.repro_ssd_scan.argtypes) == 32  # the p_tile entry point
-           else (lambda x_, B_, C_: ops.ssd_scan(x_, dt, A, B_, C_, chunk))
-           for side, lib in libs.items()}
-    ab(libs, f"ssd_scan {name}", dtype, None,
-       lambda x_, B_, C_: ssd_scan_plain(x_, dt, A, B_, C_, chunk), sets, fns)
-
-
-def _atomic_bag_backward(lib, dout, idx, r):
-    """The older backward entry point: fp32 atomics into a zero-filled
-    (T, R, E), rounded once into a bf16 result."""
-    b, t, e = dout.shape
-    acc = torch.zeros((t, r, e), dtype=torch.float32, device=dout.device)
-    out = acc if dout.dtype == torch.float32 else torch.empty(
-        (t, r, e), dtype=dout.dtype, device=dout.device)
-    code = lib.repro_embedding_bag_backward(
-        dout.data_ptr(), idx.data_ptr(), acc.data_ptr(), out.data_ptr(), b, t, idx.shape[2],
-        r, e, dout.stride(0), dout.stride(1), *idx.stride(), _DTYPE_CODE[dout.dtype],
-        torch.cuda.current_stream().cuda_stream)
-    _build.check(code, "embedding_bag backward kernel launch")
-    return out
+    ab(libs, f"ssd_scan {name}", dtype,
+       lambda x_, B_, C_: ops.ssd_scan(x_, dt, A, B_, C_, chunk),
+       lambda x_, B_, C_: ssd_scan_plain(x_, dt, A, B_, C_, chunk), sets)
 
 
 def bag_backward_case(libs, name, idx, r, e, dtype, gen) -> None:
@@ -173,12 +144,9 @@ def bag_backward_case(libs, name, idx, r, e, dtype, gen) -> None:
     timed as chip_smoke.py times the main shapes (eager, 10 calls)."""
     b, t, _ = idx.shape
     dout = torch.randn((b, t + 1, e), generator=gen, device="cuda").to(dtype)[:, 1:]
-    fns = {side: (lambda d, i, lib=lib: _atomic_bag_backward(lib, d, i, r))
-           if len(lib.repro_embedding_bag_backward.argtypes) == 16  # the atomic entry point
-           else (lambda d, i: embedding_bag_backward_cuda(d, i, r))
-           for side, lib in libs.items()}
-    ab(libs, f"embedding_bag_backward {name}", dtype, None,
-       lambda d, i: embedding_bag_backward_plain(d, i, r), [(dout, idx)], fns,
+    ab(libs, f"embedding_bag_backward {name}", dtype,
+       lambda d, i: embedding_bag_backward_cuda(d, i, r),
+       lambda d, i: embedding_bag_backward_plain(d, i, r), [(dout, idx)],
        iters=10, graph=False)
 
 
@@ -206,11 +174,32 @@ def attn_case(libs, name, b, h, hkv, sq, skv, d, causal, dtype, gen,
        lambda a, b_, c: flash_attention_plain(a, b_, c, causal, kl, qo), sets)
 
 
+def attn_backward_case(libs, name, b, h, hkv, s, d, dtype, gen) -> None:
+    """The backward on the training forward's o and lse, inputs as
+    ``chip_smoke._attention_backward_case`` draws them (causal); both sides
+    timed by CUDA graph replay and held to the plain backward."""
+    def draw(heads):
+        t = torch.randn((b, s, heads, d), generator=gen, device="cuda")
+        return t.to(dtype).transpose(1, 2)
+    q, k, v, do = draw(h), draw(hkv), draw(hkv), draw(h)
+    out, lse = flash_attention_forward_plain(q, k, v, True)
+    ab(libs, f"attention_backward {name}", dtype,
+       lambda *a: flash_attention_backward_cuda(*a, True),
+       lambda *a: flash_attention_backward_plain(*a, True), [(q, k, v, out, lse, do)],
+       iters=20)
+
+
 def main() -> int:
     if len(sys.argv) != 2:
         raise SystemExit(__doc__)
     cs.phase_env()
     libs = build(Path(sys.argv[1]).resolve())
+    # chip_smoke.py's train_lm layer and its chatglm3-like layer
+    gen_bwd = torch.Generator(device="cuda").manual_seed(4)
+    for dtype in (torch.float32, torch.bfloat16):
+        attn_backward_case(libs, "train main", cs.LM_BATCH, 9, 3, cs.LM_SEQ, 64, dtype, gen_bwd)
+        attn_backward_case(libs, "chatglm3-like d=128", 1, 32, 2, 1024, 128, dtype, gen_bwd)
+        torch.cuda.empty_cache()
     # chip_smoke.py's cases, positions drawn as there
     gen = torch.Generator(device="cuda").manual_seed(0)
     rs, rs_attn = np.random.RandomState(0), np.random.RandomState(3)

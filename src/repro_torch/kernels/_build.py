@@ -5,8 +5,9 @@ The sources have plain C entry points and include nothing of PyTorch, so the
 build takes seconds. It happens at the first kernel launch of a process, never
 at import: each ``.cu`` is compiled by its own ``nvcc`` (all started together),
 the objects are linked into ``build/repro_torch/`` at the root of the checkout,
-and the library's name carries a hash of the sources, so a changed source is
-rebuilt and an unchanged one is reused.
+and the library's name carries a hash of the sources and the headers they
+include (``csrc/*.cuh``), so a changed source or header is rebuilt and an
+unchanged tree is reused.
 """
 
 from __future__ import annotations
@@ -53,18 +54,24 @@ def _run_all(commands) -> None:
                 f"kernel build failed ({proc.returncode}): {' '.join(cmd)}\n{out}")
 
 
-def build() -> Path:
-    """Compile ``csrc/*.cu`` if the library for these sources is not there
-    yet; return the library's path."""
-    sources = sorted(CSRC.glob("*.cu"))
-    if not sources:
-        raise RuntimeError(f"no CUDA sources under {CSRC}")
+def _source_digest(csrc: Path) -> str:
+    """A hash of every source and header under ``csrc`` (``*.cu``,
+    ``*.cuh``) and of the compiler flags: the library's tag."""
     digest = hashlib.sha256()
-    for src in sources:
+    for src in sorted([*csrc.glob("*.cu"), *csrc.glob("*.cuh")]):
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
-    tag = digest.hexdigest()[:16]
+    return digest.hexdigest()[:16]
+
+
+def build() -> Path:
+    """Compile ``csrc/*.cu`` if the library for these sources and headers is
+    not there yet; return the library's path."""
+    sources = sorted(CSRC.glob("*.cu"))
+    if not sources:
+        raise RuntimeError(f"no CUDA sources under {CSRC}")
+    tag = _source_digest(CSRC)
     lib_path = BUILD_DIR / f"librepro_torch_{tag}.so"
     if lib_path.exists():
         return lib_path
@@ -104,7 +111,7 @@ def lib() -> ctypes.CDLL:
         [ptr] * 5 + [i32] * 6 + [i64] * 12 + [f32, i32, i32, ptr])
     loaded.repro_flash_attention_lse.restype = i32
     loaded.repro_flash_attention_backward.argtypes = (
-        [ptr] * 10 + [i32] * 6 + [i64] * 24 + [f32, i32, i32, ptr])
+        [ptr] * 11 + [i32] * 7 + [i64] * 24 + [f32, i32, i32, ptr])
     loaded.repro_flash_attention_backward.restype = i32
     loaded.repro_ssd_scan.argtypes = [ptr] * 10 + [i32] * 7 + [i64] * 15 + [i32, i32, ptr]
     loaded.repro_ssd_scan.restype = i32

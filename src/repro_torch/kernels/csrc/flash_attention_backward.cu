@@ -1,4 +1,4 @@
-// Flash attention backward for Hopper (sm_90a).
+// Flash attention backward for Hopper (sm_90a), on the tensor cores.
 //
 // The JAX package has no Pallas backward: `jax.grad` differentiates the
 // attention of src/repro/models/common.py. This is the gradient of the
@@ -8,30 +8,67 @@
 // returns dQ, dK, dV. GQA (query head i reads KV head i / (h / hkv)), causal
 // top-left (`kpos <= qpos`) or not; no kv_len, no q_offset.
 //
-// The arithmetic is the forward's, in fp32: S = Q K^T * scale, P = exp(S -
-// lse) (0 where masked), with P rounded to the input type where the forward
-// rounds it (before P V, so dV = P^T dO takes the rounded P); dP = dO V^T;
-// D = rowsum(dO * O); dS = P * (dP - D); dQ = dS K * scale, dK = dS^T Q *
-// scale. Inputs are read in their type and widened to fp32 in shared memory;
-// every sum is fp32; the results are rounded once.
+// The arithmetic is the forward's: S = Q K^T * scale, P = exp(S - lse) (0
+// where masked), with P rounded to the input type where the forward rounds it
+// (before P V, so dV = P^T dO takes the rounded P); dP = dO V^T; D =
+// rowsum(dO * O); dS = P * (dP - D); dQ = dS K * scale, dK = dS^T Q * scale.
+// Every sum is fp32; the results are rounded once.
 //
 // Bound on this card: operations, 5 products of 2 s^2 d a head (half when
-// causal) against 2 x 4 s d + 2 x 2 s d values moved. This first version is
-// the simple FlashAttention-2 schedule on the fp32 pipes (no tensor cores),
-// and deterministic: no float atomics, each result written once, every sum
-// in a fixed order.
-//  (a) `bwd_delta_kernel`: D, one warp a query row.
-//  (b) `bwd_dkdv_kernel`: one block per (batch, KV head, 64-key tile). It
-//      keeps the tile's K and V in shared memory and dK, dV in registers, and
-//      loops over the query heads of its group and, for each, over the query
-//      tiles that may see its keys. So the GQA reduction over the group is a
-//      sum in registers, in a fixed order, and dK, dV are written once.
-//  (c) `bwd_dq_kernel`: one block per (batch, head, 64-query tile), looping
-//      over the key tiles its rows may see, dQ in registers.
-// S and P are recomputed in (b) and (c), two products more than the bound
-// counts (7 against 5); the price of no atomics. A block is 256 threads, each
-// owning a 4 x 4 patch of a 64 x 64 score tile (16 lanes along the columns,
-// so a row's reduction stays within a warp), as in the forward's fp32 kernel.
+// causal) against 2 x 4 s d + 2 x 2 s d values moved: at smollm-135m's
+// training layer (b 8, h 9, hkv 3, s 2048, d 64, causal) 0.098 ms in bf16 at
+// 989 TFLOP/s; in fp32 1.443 ms on the fp32 pipes (67 TFLOP/s) or 0.586 ms as
+// three TF32 products at 495 TFLOP/s. Every product runs on `mma.sync`:
+//  * bf16: `m16n8k16` (bf16 in, fp32 accumulators). Tiles stay bf16 in shared
+//    memory and are fetched by `ldmatrix` (`.trans` where the tile is the B
+//    operand along its rows); a warp's own 16 rows of K and V (dK/dV) or of
+//    Q and dO (dQ) stay in registers as A fragments at d <= 64. P and dS
+//    enter their second products rounded once to bf16, re-packed from the
+//    score accumulators straight into A operands in registers, as the
+//    forward's `mma_attend` packs P.
+//  * fp32: 3xTF32 on `m16n8k8`: each operand split into hi (its low 13 bits
+//    cleared) and lo = v - hi (`split_tf32`) on its way out of shared memory
+//    or out of the score accumulators, and hi lo + lo hi + hi hi summed in
+//    fp32: ~20 bits of each product, where one TF32 product keeps 10 and
+//    could not hold fp32's 2e-5. Tiles stay fp32 in shared memory, rows
+//    padded by 16 bytes, which puts the fragment loads of a warp on 32
+//    distinct banks; the k index of a product whose A operand comes from
+//    accumulators is taken in the accumulators' own column order (k = t <->
+//    column 2 t, k = t + 4 <-> 2 t + 1), so no shuffle re-packs them. The
+//    tensor cores' accumulation rounds toward zero, so a long sum (dK and dV
+//    over ~6,000 queries) takes each tile's product in a fresh fragment and
+//    adds it by an fp32 add.
+// Tiles arrive by 16-byte `cp.async` into rings of stages, so the next tile
+// loads while one computes; the causal mask is applied only in the tiles that
+// cross the diagonal or an edge (the others take an unmasked copy of the
+// element-wise step, whose predicated form was its largest cost). What
+// stands between these kernels and the bound: the two recomputed products,
+// and `mma.sync` itself; `wgmma`, at twice its rate with larger warp tiles,
+// is later work.
+//
+// Deterministic: no float atomics, each result written once, every sum in a
+// fixed order. Kernels, in order on the stream:
+//  (a) `bwd_delta_kernel`: D, 16 bytes of a row a lane.
+//  (b) `bwd_dkdv_kernel`: one block of 4 warps per (batch, KV head, 64-key
+//      tile, split). Each warp owns 16 keys: it computes S^T = K Q^T and dP^T =
+//      V dO^T as accumulator fragments for a tile of queries, builds P^T and
+//      dS^T in registers, and adds dV += P^T dO and dK += dS^T Q, which stay in
+//      registers over the loop. The block walks the query heads of its split
+//      of the GQA group and, for each, the query tiles that may see its keys,
+//      so the reduction over the group is a sum in registers in a fixed order.
+//      Where one split (the whole group) would leave the card with fewer than
+//      about two blocks an SM, the host splits the group's heads over blocks
+//      (`flash_attention_backward_plan`); each block then writes fp32
+//      partials of dK, dV to scratch (b, hkv, splits, skv, d) and
+//  (b') `bwd_sum_kernel` adds them in split order and rounds once.
+//  (c) `bwd_dq_kernel`: one block of 4 warps per (batch, head, 64-query tile),
+//      each warp 16 queries, looping over the key tiles its rows may see: S
+//      and dP again, dS in registers, dQ += dS K.
+// S and dP are recomputed in (b) and (c), two products more than the bound
+// counts (7 against 5); storing dS or adding dQ by atomics would cost s^2
+// bytes a head or the determinism. At d 128 a streamed tile is 32 rows (the
+// dK and dV accumulators take 128 registers a thread), and fp32 at d 128 has
+// a ring of one stage, so two blocks fit an SM.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -40,16 +77,13 @@
 
 #include <type_traits>
 
+#include "mma.cuh"
+
 namespace {
 
-constexpr int BM = 64;        // query rows a tile
-constexpr int BN = 64;        // keys a tile
-constexpr int TX = 16;        // threads along a patch's columns
-constexpr int TY = 16;        // threads along its rows
-constexpr int NT = TX * TY;   // threads a block
-constexpr int RP = 4;         // rows of a thread's patch (ty + 16 i)
-constexpr int CP = 4;         // columns of it (tx + 16 j)
-constexpr int LDP = 64 + 16;  // row pitch of a score tile: 16 banks apart
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kRows = 64;      // keys of a dK/dV block, queries of a dQ block
+constexpr int kThreads = 128;  // 4 warps, 16 of those rows each
 
 struct BwdParams {
   const void* q;
@@ -59,10 +93,11 @@ struct BwdParams {
   const void* dout;
   const float* lse;  // (b, h, sq), contiguous
   float* delta;      // (b, h, sq), contiguous: scratch for D
+  float* part;       // (2, b, hkv, splits, skv, d) fp32 partial dK, dV; splits > 1 only
   void* dq;
   void* dk;
   void* dv;
-  int b, h, hkv, sq, skv;
+  int b, h, hkv, sq, skv, splits;
   long long q_sb, q_sh, q_ss;  // strides in elements; the last dim has stride 1
   long long k_sb, k_sh, k_ss;
   long long v_sb, v_sh, v_ss;
@@ -75,360 +110,575 @@ struct BwdParams {
   int causal;
 };
 
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ void from_float(float v, float* out) { *out = v; }
-__device__ __forceinline__ void from_float(float v, __nv_bfloat16* out) {
-  *out = __float2bfloat16(v);
-}
-
-// A probability as the forward's P V saw it: rounded to the input type.
 template <typename T>
-__device__ __forceinline__ float round_like_input(float p) {
-  if constexpr (std::is_same<T, __nv_bfloat16>::value)
-    return __bfloat162float(__float2bfloat16(p));
-  return p;
+constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
+
+// Rows of a streamed tile (queries for dK/dV, keys for dQ).
+template <int D>
+__host__ __device__ constexpr int tile_rows() {
+  return D == 128 ? 32 : 64;
 }
 
-// Eight values of a row at p (32 or 16 bytes, aligned), widened to fp32.
-__device__ __forceinline__ void load8(const float* p, float4& a, float4& b) {
-  a = reinterpret_cast<const float4*>(p)[0];
-  b = reinterpret_cast<const float4*>(p)[1];
-}
-
-__device__ __forceinline__ void load8(const __nv_bfloat16* p, float4& a, float4& b) {
-  const uint4 raw = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-  const float2 f0 = __bfloat1622float2(h[0]), f1 = __bfloat1622float2(h[1]);
-  const float2 f2 = __bfloat1622float2(h[2]), f3 = __bfloat1622float2(h[3]);
-  a = make_float4(f0.x, f0.y, f1.x, f1.y);
-  b = make_float4(f2.x, f2.y, f3.x, f3.y);
-}
-
-// Rows [row0, row0 + 64) of a (rows, D) slab with row stride `ss` into shared
-// memory as fp32 with pitch D + 4; rows at or beyond `valid` become zeros.
+// Stages of a ring: one for fp32 at d 128, else two.
 template <typename T, int D>
-__device__ __forceinline__ void load_tile(const T* base, long long ss, int row0, int valid,
-                                          float* dst) {
-  constexpr int CH = D / 8;  // 8-value chunks a row
-  constexpr int LD = D + 4;
-  for (int idx = threadIdx.x; idx < 64 * CH; idx += NT) {
+__host__ __device__ constexpr int ring_stages() {
+  return sizeof(T) == 4 && D == 128 ? 1 : 2;
+}
+
+// Row pitch in shared memory, in elements: 16 bytes of padding.
+template <typename T, int D>
+__host__ __device__ constexpr int pitch() {
+  return D + 16 / (int)sizeof(T);
+}
+
+// Two neighbouring values of a row, rounded once.
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+// Rows [row0, row0 + ROWS) of a (rows, D) slab with row stride `ss` into
+// shared memory with pitch `pitch<T, D>()`, by 16-byte cp.async from the
+// block's threads; rows at or beyond `valid` become zeros. The caller commits.
+template <typename T, int D, int ROWS>
+__device__ __forceinline__ void stage_rows(const T* base, long long ss, int row0, int valid,
+                                           T* dst) {
+  constexpr int PER = 16 / (int)sizeof(T);  // values a chunk
+  constexpr int CH = D / PER;               // chunks a row
+  constexpr int LD = pitch<T, D>();
+  for (int idx = threadIdx.x; idx < ROWS * CH; idx += kThreads) {
     const int r = idx / CH;
-    const int c = (idx % CH) * 8;
-    float4 a = make_float4(0.f, 0.f, 0.f, 0.f), b = a;
-    if (row0 + r < valid) load8(base + (long long)(row0 + r) * ss + c, a, b);
-    *reinterpret_cast<float4*>(&dst[r * LD + c]) = a;
-    *reinterpret_cast<float4*>(&dst[r * LD + c + 4]) = b;
+    const int c = (idx % CH) * PER;
+    const bool in = row0 + r < valid;
+    cp_async16(dst + r * LD + c, in ? base + (long long)(row0 + r) * ss + c : base, in);
   }
 }
 
-// acc[i][j] = sum_d A[ty + 16 i][d] * B[tx + 16 j][d], A and B with pitch D + 4.
-template <int D>
-__device__ __forceinline__ void patch_product(const float* A, const float* B, int tx, int ty,
-                                              float (&acc)[RP][CP]) {
-  constexpr int LD = D + 4;
+// c[n] += A B_n^T for n < NC: A the warp's 16 rows of a tile, B_n rows
+// [8 n, 8 n + 8) of another, both (rows, D) in shared memory. c in mma
+// accumulator layout: this lane holds rows g and g + 8 (g = lane / 4) and
+// columns 2 t, 2 t + 1 (t = lane % 4) of each 8-column n-tile.
+template <typename T, int D, int NC>
+__device__ __forceinline__ void warp_scores(float (&c)[NC][4], const T* A, const T* B, int lane,
+                                            const uint32_t (*af)[4] = nullptr) {
+  constexpr int LD = pitch<T, D>();
+  if constexpr (kBf16<T>) {
+    static_assert(NC % 2 == 0, "n-tiles come in pairs");
 #pragma unroll
-  for (int i = 0; i < RP; ++i)
-#pragma unroll
-    for (int j = 0; j < CP; ++j) acc[i][j] = 0.f;
-#pragma unroll 4
-  for (int d = 0; d < D; d += 4) {
-    float4 av[RP], bv[CP];
-#pragma unroll
-    for (int i = 0; i < RP; ++i) av[i] = *reinterpret_cast<const float4*>(&A[(ty + TY * i) * LD + d]);
-#pragma unroll
-    for (int j = 0; j < CP; ++j) bv[j] = *reinterpret_cast<const float4*>(&B[(tx + TX * j) * LD + d]);
-#pragma unroll
-    for (int i = 0; i < RP; ++i)
-#pragma unroll
-      for (int j = 0; j < CP; ++j) {
-        acc[i][j] = fmaf(av[i].x, bv[j].x, acc[i][j]);
-        acc[i][j] = fmaf(av[i].y, bv[j].y, acc[i][j]);
-        acc[i][j] = fmaf(av[i].z, bv[j].z, acc[i][j]);
-        acc[i][j] = fmaf(av[i].w, bv[j].w, acc[i][j]);
+    for (int kk = 0; kk < D / 16; ++kk) {
+      uint32_t a[4];
+      if (af) {
+        a[0] = af[kk][0]; a[1] = af[kk][1]; a[2] = af[kk][2]; a[3] = af[kk][3];
+      } else {
+        ldmatrix_x4(a, A + (lane & 15) * LD + kk * 16 + (lane >> 4) * 8);
       }
-  }
-}
-
-// A thread's columns of a (rows, D) result: 64 jj + 4 tx + e (four at a
-// time) when D is a multiple of 64, else tx + 16 j (d 16, the reduced
-// configs' head).
-template <int D>
-__host__ __device__ constexpr bool wide_columns() {
-  static_assert(D % TX == 0 && (D % 64 == 0 || D < 64), "head_dim");
-  return D % 64 == 0;
-}
-
-// out[i][c] += sum_n W[ty + 16 i][n] * X[n][col(c)] over n < 64, W with pitch
-// LDP, X with pitch D + 4; col(c) is this thread's c-th column.
-template <int D>
-__device__ __forceinline__ void patch_accumulate(const float* W, const float* X, int tx, int ty,
-                                                 float (&out)[RP][D / TX]) {
-  constexpr int LD = D + 4;
-  constexpr int DC = D / TX;
-#pragma unroll 2
-  for (int n = 0; n < 64; n += 4) {
-    float4 wv[RP];
 #pragma unroll
-    for (int i = 0; i < RP; ++i) wv[i] = *reinterpret_cast<const float4*>(&W[(ty + TY * i) * LDP + n]);
-    if constexpr (!wide_columns<D>()) {
-#pragma unroll
-      for (int nn = 0; nn < 4; ++nn)
-#pragma unroll
-        for (int j = 0; j < DC; ++j) {
-          const float x = X[(n + nn) * LD + tx + TX * j];
-#pragma unroll
-          for (int i = 0; i < RP; ++i) {
-            const float w = nn == 0 ? wv[i].x : nn == 1 ? wv[i].y : nn == 2 ? wv[i].z : wv[i].w;
-            out[i][j] = fmaf(w, x, out[i][j]);
-          }
-        }
-      continue;
+      for (int np = 0; np < NC / 2; ++np) {
+        uint32_t b[4];
+        ldmatrix_x4(b, B + (np * 16 + (lane & 7) + ((lane >> 4) << 3)) * LD + kk * 16 +
+                           ((lane >> 3) & 1) * 8);
+        mma_bf16(c[2 * np], a, b[0], b[1]);
+        mma_bf16(c[2 * np + 1], a, b[2], b[3]);
+      }
     }
+  } else {
+    const int g = lane >> 2, t = lane & 3;
 #pragma unroll
-    for (int nn = 0; nn < 4; ++nn) {
+    for (int kk = 0; kk < D / 8; ++kk) {
+      const float* ar = A + g * LD + kk * 8 + t;
+      uint32_t ah[4], al[4];
+      split_tf32(ar[0], ah[0], al[0]);
+      split_tf32(ar[8 * LD], ah[1], al[1]);
+      split_tf32(ar[4], ah[2], al[2]);
+      split_tf32(ar[8 * LD + 4], ah[3], al[3]);
 #pragma unroll
-      for (int jj = 0; jj < DC / 4; ++jj) {
-        const float4 xv = *reinterpret_cast<const float4*>(&X[(n + nn) * LD + jj * 64 + tx * 4]);
-#pragma unroll
-        for (int i = 0; i < RP; ++i) {
-          const float w = nn == 0 ? wv[i].x : nn == 1 ? wv[i].y : nn == 2 ? wv[i].z : wv[i].w;
-          out[i][jj * 4 + 0] = fmaf(w, xv.x, out[i][jj * 4 + 0]);
-          out[i][jj * 4 + 1] = fmaf(w, xv.y, out[i][jj * 4 + 1]);
-          out[i][jj * 4 + 2] = fmaf(w, xv.z, out[i][jj * 4 + 2]);
-          out[i][jj * 4 + 3] = fmaf(w, xv.w, out[i][jj * 4 + 3]);
-        }
+      for (int n = 0; n < NC; ++n) {
+        const float* br = B + (n * 8 + g) * LD + kk * 8 + t;
+        uint32_t bh[2], bl[2];
+        split_tf32(br[0], bh[0], bl[0]);
+        split_tf32(br[4], bh[1], bl[1]);
+        mma_3xtf32(c[n], ah, al, bh, bl);
       }
     }
   }
 }
 
-// Rows [row0, row0 + 64) of a thread's patch columns, times `mul`, into a
-// (rows, D) slab of T with row stride `ss`; rows at or beyond `valid` skipped.
-template <typename T, int D>
-__device__ __forceinline__ void store_patch(T* base, long long ss, int row0, int valid, int tx,
-                                            int ty, const float (&acc)[RP][D / TX], float mul) {
-  constexpr int DC = D / TX;
+// acc += W B: W the warp's 16 rows x 8 NC columns as accumulator fragments
+// (w[j]: columns [8 j, 8 j + 8)), rounded to bf16 or split into TF32 parts on
+// the way into the A operand; B a (8 NC, D) tile in shared memory, taken
+// along its rows; acc (16, D) in accumulator layout.
+template <typename T, int D, int NC>
+__device__ __forceinline__ void warp_accumulate(float (&acc)[D / 8][4], const float (&w)[NC][4],
+                                                const T* B, int lane) {
+  constexpr int LD = pitch<T, D>();
+  if constexpr (kBf16<T>) {
+    // k-step kk: W's n-tiles 2 kk (registers 0, 1) and 2 kk + 1 (2, 3).
 #pragma unroll
-  for (int i = 0; i < RP; ++i) {
-    const int r = row0 + ty + TY * i;
+    for (int kk = 0; kk < NC / 2; ++kk) {
+      const uint32_t a[4] = {pack_bf16(w[2 * kk][0], w[2 * kk][1]),
+                             pack_bf16(w[2 * kk][2], w[2 * kk][3]),
+                             pack_bf16(w[2 * kk + 1][0], w[2 * kk + 1][1]),
+                             pack_bf16(w[2 * kk + 1][2], w[2 * kk + 1][3])};
+#pragma unroll
+      for (int dp = 0; dp < D / 16; ++dp) {
+        uint32_t b[4];
+        ldmatrix_x4_trans(b, B + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD + dp * 16 +
+                                 (lane >> 4) * 8);
+        mma_bf16(acc[2 * dp], a, b[0], b[1]);
+        mma_bf16(acc[2 * dp + 1], a, b[2], b[3]);
+      }
+    }
+  } else {
+    // k-step j: W's columns 8 j + 2 t as k = t and 8 j + 2 t + 1 as k = t + 4,
+    // B's rows in the same order. The tile's sum goes into a fresh fragment,
+    // CH n-tiles at a time, and then into acc by fp32 adds: the tensor
+    // cores' accumulation rounds toward zero, which over the ~2,300 mma steps
+    // of a long sum (dK at the train_lm layer) drifts 6e-5 of the largest
+    // gradient, where one tile's 3 NC steps stay near fp32.
+    constexpr int CH = D / 8 < 8 ? D / 8 : 8;
+    const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+    for (int c0 = 0; c0 < D / 8; c0 += CH) {
+      float tile[CH][4];
+#pragma unroll
+      for (int n = 0; n < CH; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) tile[n][e] = 0.f;
+#pragma unroll
+      for (int j = 0; j < NC; ++j) {
+        uint32_t ah[4], al[4];
+        split_tf32(w[j][0], ah[0], al[0]);
+        split_tf32(w[j][2], ah[1], al[1]);
+        split_tf32(w[j][1], ah[2], al[2]);
+        split_tf32(w[j][3], ah[3], al[3]);
+        const float* br = B + (j * 8 + 2 * t) * LD + c0 * 8 + g;
+#pragma unroll
+        for (int n = 0; n < CH; ++n) {
+          uint32_t bh[2], bl[2];
+          split_tf32(br[n * 8], bh[0], bl[0]);
+          split_tf32(br[LD + n * 8], bh[1], bl[1]);
+          mma_3xtf32(tile[n], ah, al, bh, bl);
+        }
+      }
+#pragma unroll
+      for (int n = 0; n < CH; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[c0 + n][e] += tile[n][e];
+    }
+  }
+}
+
+// A warp's (16, D) accumulator, times `mul`, into rows [row0, row0 + 16) of
+// a (rows, D) slab with row stride `ss`; rows at or beyond `valid` skipped.
+template <typename OUT, int D>
+__device__ __forceinline__ void store_rows(OUT* base, long long ss, int row0, int valid,
+                                           const float (&acc)[D / 8][4], float mul, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = row0 + g + 8 * half;
     if (r >= valid) continue;
-    T* row = base + (long long)r * ss;
-    if constexpr (wide_columns<D>()) {
+    OUT* row = base + (long long)r * ss + 2 * t;
 #pragma unroll
-      for (int jj = 0; jj < DC / 4; ++jj)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          from_float(acc[i][jj * 4 + e] * mul, &row[jj * 64 + tx * 4 + e]);
-    } else {
-#pragma unroll
-      for (int j = 0; j < DC; ++j) from_float(acc[i][j] * mul, &row[tx + TX * j]);
-    }
+    for (int n = 0; n < D / 8; ++n)
+      store2(row + n * 8, acc[n][2 * half] * mul, acc[n][2 * half + 1] * mul);
   }
 }
 
-// (a) D = rowsum(dO * O) in fp32: one warp a row of (b, h, sq).
+// (a) D = rowsum(dO * O) in fp32 for the rows of (b, h, sq): 16 bytes of a
+// row a lane, L lanes a row, summed by shuffles in a fixed order.
+template <typename T, int D>
+__host__ __device__ constexpr int delta_lanes() {
+  return D * (int)sizeof(T) / 16;
+}
+
+__device__ __forceinline__ float dot16(const float* o, const float* g) {
+  const float4 a = *reinterpret_cast<const float4*>(o), b = *reinterpret_cast<const float4*>(g);
+  return a.x * b.x + a.y * b.y + a.z * b.z + a.w * b.w;
+}
+
+__device__ __forceinline__ float dot16(const __nv_bfloat16* o, const __nv_bfloat16* g) {
+  const uint4 ra = *reinterpret_cast<const uint4*>(o), rb = *reinterpret_cast<const uint4*>(g);
+  const __nv_bfloat162* a = reinterpret_cast<const __nv_bfloat162*>(&ra);
+  const __nv_bfloat162* b = reinterpret_cast<const __nv_bfloat162*>(&rb);
+  float acc = 0.f;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 x = __bfloat1622float2(a[i]), y = __bfloat1622float2(b[i]);
+    acc = fmaf(x.x, y.x, acc);
+    acc = fmaf(x.y, y.y, acc);
+  }
+  return acc;
+}
+
 template <typename T, int D>
 __global__ void __launch_bounds__(256) bwd_delta_kernel(BwdParams p) {
-  const long long row = (long long)blockIdx.x * 8 + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  if (row >= (long long)p.b * p.h * p.sq) return;
-  const int qi = (int)(row % p.sq);
-  const int hi = (int)((row / p.sq) % p.h);
-  const int bi = (int)(row / ((long long)p.sq * p.h));
-  const T* o = static_cast<const T*>(p.o) + bi * p.o_sb + hi * p.o_sh + qi * p.o_ss;
-  const T* g = static_cast<const T*>(p.dout) + bi * p.do_sb + hi * p.do_sh + qi * p.do_ss;
+  constexpr int L = delta_lanes<T, D>();
+  const long long row = ((long long)blockIdx.x * 256 + threadIdx.x) / L;
+  const int c = (threadIdx.x % L) * (16 / (int)sizeof(T));
+  const bool in = row < (long long)p.b * p.h * p.sq;
   float acc = 0.f;
-  for (int c = lane; c < D; c += 32) acc = fmaf(to_float(o[c]), to_float(g[c]), acc);
+  if (in) {
+    const int qi = (int)(row % p.sq);
+    const int hi = (int)((row / p.sq) % p.h);
+    const int bi = (int)(row / ((long long)p.sq * p.h));
+    acc = dot16(static_cast<const T*>(p.o) + bi * p.o_sb + hi * p.o_sh + qi * p.o_ss + c,
+                static_cast<const T*>(p.dout) + bi * p.do_sb + hi * p.do_sh + qi * p.do_ss + c);
+  }
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
-  if (lane == 0) p.delta[row] = acc;
+  for (int off = L / 2; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (in && c == 0) p.delta[row] = acc;
 }
 
-template <int D>
-__host__ __device__ constexpr int dkdv_smem_bytes() {
-  return (int)sizeof(float) * (4 * 64 * (D + 4) + 2 * BN * LDP + 2 * BM);
-}
-
-// (b) dK, dV of one 64-key tile of one KV head.
-template <typename T, int D>
-__global__ void __launch_bounds__(NT) bwd_dkdv_kernel(BwdParams p) {
-  constexpr int LD = D + 4;
-  constexpr int DC = D / TX;
-  extern __shared__ __align__(16) float smem[];
-  float* Ks = smem;
-  float* Vs = Ks + BN * LD;
-  float* Qs = Vs + BN * LD;
-  float* Gs = Qs + BM * LD;   // dO
-  float* Ps = Gs + BM * LD;   // P^T (keys x queries), rounded like the forward's
-  float* Ds = Ps + BN * LDP;  // dS^T
-  float* lse_s = Ds + BN * LDP;
-  float* del_s = lse_s + BM;
-
-  const int tx = threadIdx.x % TX;
-  const int ty = threadIdx.x / TX;
-  const int k0 = blockIdx.x * BN;  // tile 0 first: the most query tiles when causal
-  const int hk = blockIdx.y;
-  const int bi = blockIdx.z;
-  const int group = p.h / p.hkv;
-
-  const T* kb = static_cast<const T*>(p.k) + bi * p.k_sb + hk * p.k_sh;
-  const T* vb = static_cast<const T*>(p.v) + bi * p.v_sb + hk * p.v_sh;
-  load_tile<T, D>(kb, p.k_ss, k0, p.skv, Ks);
-  load_tile<T, D>(vb, p.v_ss, k0, p.skv, Vs);
-
-  float dk[RP][DC], dv[RP][DC];
+// P^T and dS^T of a warp's 16 keys (kw + g, kw + g + 8) against a tile's
+// queries q0 + column, in place of S^T and dP^T: lse and D of the columns in
+// shared memory; MASK where the tile crosses the causal diagonal or an edge.
+template <bool MASK, int NQ>
+__device__ __forceinline__ void dkdv_probs(float (&s)[NQ][4], float (&dp)[NQ][4],
+                                           const float* lse, const float* del, float sl, int kw,
+                                           int q0, const BwdParams& p, int lane) {
+  const int g = lane >> 2, t = lane & 3;
 #pragma unroll
-  for (int i = 0; i < RP; ++i)
+  for (int n = 0; n < NQ; ++n) {
+    const int col = n * 8 + 2 * t;
+    const float2 l = *reinterpret_cast<const float2*>(lse + col);
+    const float2 d = *reinterpret_cast<const float2*>(del + col);
 #pragma unroll
-    for (int c = 0; c < DC; ++c) dk[i][c] = dv[i][c] = 0.f;
-
-  // Causal: query tiles from the one holding row k0 (BM == BN).
-  const int qt0 = p.causal ? k0 / BM : 0;
-  const int nqt = (p.sq + BM - 1) / BM;
-  for (int hh = 0; hh < group; ++hh) {
-    const int hi = hk * group + hh;
-    const T* qb = static_cast<const T*>(p.q) + bi * p.q_sb + hi * p.q_sh;
-    const T* gb = static_cast<const T*>(p.dout) + bi * p.do_sb + hi * p.do_sh;
-    const long long row_base = ((long long)bi * p.h + hi) * p.sq;
-    for (int qt = qt0; qt < nqt; ++qt) {
-      const int q0 = qt * BM;
-      __syncthreads();  // the previous tile's readers are done
-      load_tile<T, D>(qb, p.q_ss, q0, p.sq, Qs);
-      load_tile<T, D>(gb, p.do_ss, q0, p.sq, Gs);
-      if (threadIdx.x < BM) {
-        const int r = q0 + threadIdx.x;
-        lse_s[threadIdx.x] = r < p.sq ? p.lse[row_base + r] : 0.f;
-        del_s[threadIdx.x] = r < p.sq ? p.delta[row_base + r] : 0.f;
+    for (int e = 0; e < 4; ++e) {
+      const float pr = fast_exp2(fmaf(s[n][e], sl, -(e & 1 ? l.y : l.x) * kLog2e));
+      float keep = pr;
+      if (MASK) {
+        const int key = kw + g + (e >> 1) * 8;
+        const int q = q0 + col + (e & 1);
+        keep = key < p.skv && q < p.sq && (!p.causal || key <= q) ? pr : 0.f;
       }
-      __syncthreads();
-
-      // Patches over (keys ty + 16 i, queries tx + 16 j).
-      float s[RP][CP], dp[RP][CP];
-      patch_product<D>(Ks, Qs, tx, ty, s);
-      patch_product<D>(Vs, Gs, tx, ty, dp);
-#pragma unroll
-      for (int i = 0; i < RP; ++i) {
-        const int key = k0 + ty + TY * i;
-#pragma unroll
-        for (int j = 0; j < CP; ++j) {
-          const int qc = tx + TX * j;
-          const int qpos = q0 + qc;
-          const bool valid = key < p.skv && qpos < p.sq && (!p.causal || key <= qpos);
-          const float pr = valid ? expf(s[i][j] * p.scale - lse_s[qc]) : 0.f;
-          Ps[(ty + TY * i) * LDP + qc] = round_like_input<T>(pr);
-          Ds[(ty + TY * i) * LDP + qc] = pr * (dp[i][j] - del_s[qc]);
-        }
-      }
-      // A row of Ps and Ds is written and read by the same 16 lanes.
-      __syncwarp();
-      patch_accumulate<D>(Ps, Gs, tx, ty, dv);
-      patch_accumulate<D>(Ds, Qs, tx, ty, dk);
+      s[n][e] = keep;                                 // P^T (rounded to T on its way into dV)
+      dp[n][e] = keep * (dp[n][e] - (e & 1 ? d.y : d.x));  // dS^T
     }
   }
-  T* dkb = static_cast<T*>(p.dk) + bi * p.dk_sb + hk * p.dk_sh;
-  T* dvb = static_cast<T*>(p.dv) + bi * p.dv_sb + hk * p.dv_sh;
-  store_patch<T, D>(dkb, p.dk_ss, k0, p.skv, tx, ty, dk, p.scale);
-  store_patch<T, D>(dvb, p.dv_ss, k0, p.skv, tx, ty, dv, 1.f);
 }
 
-template <int D>
+// dS of a warp's 16 query rows (qw + g, qw + g + 8; lse in the log2 domain
+// and D of each in registers) against a tile's keys k0 + column, in place
+// of dP; MASK as above.
+template <bool MASK, int NK>
+__device__ __forceinline__ void dq_grads(const float (&s)[NK][4], float (&dp)[NK][4],
+                                         const float (&lse2)[2], const float (&del)[2], float sl,
+                                         int k0, int qw, const BwdParams& p, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int n = 0; n < NK; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float pr = fast_exp2(fmaf(s[n][e], sl, -lse2[e >> 1]));
+      if (MASK) {
+        const int key = k0 + n * 8 + 2 * t + (e & 1);
+        const int row = qw + g + (e >> 1) * 8;
+        pr = key < p.skv && row < p.sq && (!p.causal || key <= row) ? pr : 0.f;
+      }
+      dp[n][e] = pr * (dp[n][e] - del[e >> 1]);  // dS
+    }
+}
+
+template <typename T, int D>
+__host__ __device__ constexpr int dkdv_smem_bytes() {
+  constexpr int BQ = tile_rows<D>();
+  constexpr int ST = ring_stages<T, D>();
+  return (2 * kRows + ST * 2 * BQ) * pitch<T, D>() * (int)sizeof(T) +
+         ST * 2 * BQ * (int)sizeof(float);
+}
+
+// (b) dK, dV of one 64-key tile of one KV head, over one split of its group.
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads, 2) bwd_dkdv_kernel(BwdParams p) {
+  constexpr int LD = pitch<T, D>();
+  constexpr int BQ = tile_rows<D>();
+  constexpr int NQ = BQ / 8;  // n-tiles of S^T (8 queries each)
+  constexpr int ST = ring_stages<T, D>();
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* Ks = reinterpret_cast<T*>(smem_raw);
+  T* Vs = Ks + kRows * LD;
+  T* ring = Vs + kRows * LD;  // ST stages of (Q, dO), BQ rows each
+  float* stats = reinterpret_cast<float*>(ring + ST * 2 * BQ * LD);  // ST of (lse, D)
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int k0 = blockIdx.x * kRows;  // tile 0 first: the most query tiles when causal
+  const int hk = blockIdx.y / p.splits;
+  const int sp = blockIdx.y % p.splits;
+  const int bi = blockIdx.z;
+  const int heads = p.h / p.hkv / p.splits;  // query heads of this split
+  const int h0 = hk * (p.h / p.hkv) + sp * heads;
+  // Causal: query tiles from the one holding row k0.
+  const int qt0 = p.causal ? k0 / BQ : 0;
+  const int nqt = (p.sq + BQ - 1) / BQ - qt0;
+  const int items = nqt > 0 ? heads * nqt : 0;  // (head, query tile) pairs
+  const float sl = p.scale * kLog2e;
+
+  stage_rows<T, D, kRows>(static_cast<const T*>(p.k) + bi * p.k_sb + hk * p.k_sh, p.k_ss, k0,
+                          p.skv, Ks);
+  stage_rows<T, D, kRows>(static_cast<const T*>(p.v) + bi * p.v_sb + hk * p.v_sh, p.v_ss, k0,
+                          p.skv, Vs);
+  // Item i (head h0 + i / nqt, query tile qt0 + i % nqt) into stage i % ST,
+  // with its rows' lse and D (zeros past sq, where the mask holds).
+  auto issue = [&](int i) {
+    const int hi = h0 + i / nqt;
+    const int q0 = (qt0 + i % nqt) * BQ;
+    T* Qd = ring + (i % ST) * 2 * BQ * LD;
+    stage_rows<T, D, BQ>(static_cast<const T*>(p.q) + bi * p.q_sb + hi * p.q_sh, p.q_ss, q0, p.sq,
+                         Qd);
+    stage_rows<T, D, BQ>(static_cast<const T*>(p.dout) + bi * p.do_sb + hi * p.do_sh, p.do_ss,
+                         q0, p.sq, Qd + BQ * LD);
+    if (threadIdx.x < BQ) {
+      const int r = q0 + threadIdx.x;
+      const long long row = ((long long)bi * p.h + hi) * p.sq + (r < p.sq ? r : 0);
+      float* st = stats + (i % ST) * 2 * BQ + threadIdx.x;
+      cp_async4(st, p.lse + row, r < p.sq);
+      cp_async4(st + BQ, p.delta + row, r < p.sq);
+    }
+  };
+#pragma unroll
+  for (int i = 0; i < ST - 1; ++i) {
+    if (i < items) issue(i);
+    cp_async_commit();  // K and V join the first group
+  }
+
+  float dk[D / 8][4], dv[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
+  const int kw = k0 + warp * 16;  // this warp's first key
+  const T* Kw = Ks + warp * 16 * LD;
+  const T* Vw = Vs + warp * 16 * LD;
+  constexpr bool KEEP = kBf16<T> && D <= 64;
+  uint32_t kf[KEEP ? D / 16 : 1][4], vf[KEEP ? D / 16 : 1][4];
+
+  for (int i = 0; i < items; ++i) {
+    if (i + ST - 1 < items) issue(i + ST - 1);
+    cp_async_commit();        // possibly empty: the group count stays uniform
+    cp_async_wait<ST - 1>();  // item i has landed for this thread...
+    __syncthreads();          // ...and for the block
+    const int q0 = (qt0 + i % nqt) * BQ;
+    const T* Qt = ring + (i % ST) * 2 * BQ * LD;
+    const T* Gt = Qt + BQ * LD;
+    const float* lse = stats + (i % ST) * 2 * BQ;
+    const float* del = lse + BQ;
+    if (KEEP && i == 0) {
+#pragma unroll
+      for (int kk = 0; kk < (KEEP ? D / 16 : 0); ++kk) {
+        ldmatrix_x4(kf[kk], Kw + (lane & 15) * LD + kk * 16 + (lane >> 4) * 8);
+        ldmatrix_x4(vf[kk], Vw + (lane & 15) * LD + kk * 16 + (lane >> 4) * 8);
+      }
+    }
+    // Causal: nothing to do when every query of the tile precedes every key.
+    if (!p.causal || q0 + BQ - 1 >= kw) {
+      float s[NQ][4], dp[NQ][4];
+#pragma unroll
+      for (int n = 0; n < NQ; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+      warp_scores<T, D, NQ>(s, Kw, Qt, lane, KEEP ? kf : nullptr);   // S^T: keys x queries
+      warp_scores<T, D, NQ>(dp, Vw, Gt, lane, KEEP ? vf : nullptr);  // dP^T
+      // The mask only where the tile crosses the diagonal or an edge.
+      if (q0 + BQ <= p.sq && kw + 16 <= p.skv && (!p.causal || q0 >= kw + 15))
+        dkdv_probs<false, NQ>(s, dp, lse, del, sl, kw, q0, p, lane);
+      else
+        dkdv_probs<true, NQ>(s, dp, lse, del, sl, kw, q0, p, lane);
+      warp_accumulate<T, D, NQ>(dv, s, Gt, lane);   // dV += P^T dO
+      warp_accumulate<T, D, NQ>(dk, dp, Qt, lane);  // dK += dS^T Q
+    }
+    __syncthreads();  // the block is done with this stage before it is refilled
+  }
+  cp_async_commit();
+  cp_async_wait<0>();
+
+  if (p.splits == 1) {
+    store_rows<T, D>(static_cast<T*>(p.dk) + bi * p.dk_sb + hk * p.dk_sh, p.dk_ss, kw, p.skv, dk,
+                     p.scale, lane);
+    store_rows<T, D>(static_cast<T*>(p.dv) + bi * p.dv_sb + hk * p.dv_sh, p.dv_ss, kw, p.skv, dv,
+                     1.f, lane);
+  } else {
+    const long long slab = (long long)p.skv * D;  // one (b, hkv, split)'s partial
+    const long long half = (long long)p.b * p.hkv * p.splits * slab;
+    float* pk = p.part + (((long long)bi * p.hkv + hk) * p.splits + sp) * slab;
+    store_rows<float, D>(pk, D, kw, p.skv, dk, 1.f, lane);
+    store_rows<float, D>(pk + half, D, kw, p.skv, dv, 1.f, lane);
+  }
+}
+
+// (b') dK and dV from the splits' partials: each sum in split order, dK times
+// the scale, rounded once. A thread takes 4 values.
+template <typename T, int D>
+__global__ void __launch_bounds__(256) bwd_sum_kernel(BwdParams p) {
+  const long long quads = (long long)p.b * p.hkv * p.skv * (D / 4);
+  long long idx = (long long)blockIdx.x * 256 + threadIdx.x;
+  if (idx >= 2 * quads) return;
+  const bool is_dv = idx >= quads;
+  if (is_dv) idx -= quads;
+  const int c = (int)(idx % (D / 4)) * 4;
+  const long long r = idx / (D / 4);
+  const int key = (int)(r % p.skv);
+  const int hk = (int)((r / p.skv) % p.hkv);
+  const int bi = (int)(r / ((long long)p.skv * p.hkv));
+  const long long slab = (long long)p.skv * D;
+  const float* src = p.part + (is_dv ? (long long)p.b * p.hkv * p.splits * slab : 0) +
+                     ((long long)bi * p.hkv + hk) * p.splits * slab + (long long)key * D + c;
+  float4 acc = *reinterpret_cast<const float4*>(src);
+  for (int sp = 1; sp < p.splits; ++sp) {
+    const float4 x = *reinterpret_cast<const float4*>(src + sp * slab);
+    acc.x += x.x;
+    acc.y += x.y;
+    acc.z += x.z;
+    acc.w += x.w;
+  }
+  const float mul = is_dv ? 1.f : p.scale;
+  T* out = is_dv ? static_cast<T*>(p.dv) + bi * p.dv_sb + hk * p.dv_sh + key * p.dv_ss
+                 : static_cast<T*>(p.dk) + bi * p.dk_sb + hk * p.dk_sh + key * p.dk_ss;
+  store2(out + c, acc.x * mul, acc.y * mul);
+  store2(out + c + 2, acc.z * mul, acc.w * mul);
+}
+
+template <typename T, int D>
 __host__ __device__ constexpr int dq_smem_bytes() {
-  return (int)sizeof(float) * (4 * 64 * (D + 4) + BM * LDP + 2 * BM);
+  return (2 * kRows + ring_stages<T, D>() * 2 * tile_rows<D>()) * pitch<T, D>() * (int)sizeof(T);
 }
 
 // (c) dQ of one 64-row tile of one query head.
 template <typename T, int D>
-__global__ void __launch_bounds__(NT) bwd_dq_kernel(BwdParams p) {
-  constexpr int LD = D + 4;
-  constexpr int DC = D / TX;
-  extern __shared__ __align__(16) float smem[];
-  float* Qs = smem;
-  float* Gs = Qs + BM * LD;  // dO
-  float* Ks = Gs + BM * LD;
-  float* Vs = Ks + BN * LD;
-  float* Ds = Vs + BN * LD;  // dS (queries x keys)
-  float* lse_s = Ds + BM * LDP;
-  float* del_s = lse_s + BM;
+__global__ void __launch_bounds__(kThreads, kBf16<T> ? 3 : 2) bwd_dq_kernel(BwdParams p) {
+  constexpr int LD = pitch<T, D>();
+  constexpr int BN = tile_rows<D>();
+  constexpr int NK = BN / 8;  // n-tiles of S (8 keys each)
+  constexpr int ST = ring_stages<T, D>();
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* Qs = reinterpret_cast<T*>(smem_raw);
+  T* Gs = Qs + kRows * LD;    // dO
+  T* ring = Gs + kRows * LD;  // ST stages of (K, V), BN rows each
 
-  const int tx = threadIdx.x % TX;
-  const int ty = threadIdx.x / TX;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * BM;  // longest causal rows first
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kRows;  // longest causal rows first
   const int hi = blockIdx.y;
   const int bi = blockIdx.z;
   const int hk = hi / (p.h / p.hkv);
-  const long long row_base = ((long long)bi * p.h + hi) * p.sq;
-
-  load_tile<T, D>(static_cast<const T*>(p.q) + bi * p.q_sb + hi * p.q_sh, p.q_ss, q0, p.sq, Qs);
-  load_tile<T, D>(static_cast<const T*>(p.dout) + bi * p.do_sb + hi * p.do_sh, p.do_ss, q0, p.sq,
-                  Gs);
-  if (threadIdx.x < BM) {
-    const int r = q0 + threadIdx.x;
-    lse_s[threadIdx.x] = r < p.sq ? p.lse[row_base + r] : 0.f;
-    del_s[threadIdx.x] = r < p.sq ? p.delta[row_base + r] : 0.f;
-  }
+  const float sl = p.scale * kLog2e;
   const T* kb = static_cast<const T*>(p.k) + bi * p.k_sb + hk * p.k_sh;
   const T* vb = static_cast<const T*>(p.v) + bi * p.v_sb + hk * p.v_sh;
 
-  float dq[RP][DC];
-#pragma unroll
-  for (int i = 0; i < RP; ++i)
-#pragma unroll
-    for (int c = 0; c < DC; ++c) dq[i][c] = 0.f;
-
+  stage_rows<T, D, kRows>(static_cast<const T*>(p.q) + bi * p.q_sb + hi * p.q_sh, p.q_ss, q0,
+                          p.sq, Qs);
+  stage_rows<T, D, kRows>(static_cast<const T*>(p.dout) + bi * p.do_sb + hi * p.do_sh, p.do_ss,
+                          q0, p.sq, Gs);
   // One past the last key any row of this tile may see.
-  const int kv_hi = p.causal ? min(p.skv, min(q0 + BM, p.sq)) : p.skv;
-  for (int k0 = 0; k0 < kv_hi; k0 += BN) {
-    __syncthreads();  // the previous tile's readers are done
-    load_tile<T, D>(kb, p.k_ss, k0, p.skv, Ks);
-    load_tile<T, D>(vb, p.v_ss, k0, p.skv, Vs);
-    __syncthreads();
+  const int kv_hi = p.causal ? min(p.skv, min(q0 + kRows, p.sq)) : p.skv;
+  const int tiles = (kv_hi + BN - 1) / BN;
+  auto issue = [&](int i) {
+    T* Kd = ring + (i % ST) * 2 * BN * LD;
+    stage_rows<T, D, BN>(kb, p.k_ss, i * BN, p.skv, Kd);
+    stage_rows<T, D, BN>(vb, p.v_ss, i * BN, p.skv, Kd + BN * LD);
+  };
+#pragma unroll
+  for (int i = 0; i < ST - 1; ++i) {
+    if (i < tiles) issue(i);
+    cp_async_commit();  // Q and dO join the first group
+  }
 
-    // Patches over (queries ty + 16 i, keys tx + 16 j).
-    float s[RP][CP], dp[RP][CP];
-    patch_product<D>(Qs, Ks, tx, ty, s);
-    patch_product<D>(Gs, Vs, tx, ty, dp);
+  // This lane's two rows: qw + g and qw + g + 8.
+  const int qw = q0 + warp * 16;
+  float lse2[2], del[2];
 #pragma unroll
-    for (int i = 0; i < RP; ++i) {
-      const int qr = ty + TY * i;
-      const int qpos = q0 + qr;
+  for (int half = 0; half < 2; ++half) {
+    const int r = qw + g + 8 * half;
+    const long long row = ((long long)bi * p.h + hi) * p.sq + r;
+    lse2[half] = r < p.sq ? p.lse[row] * kLog2e : INFINITY;
+    del[half] = r < p.sq ? p.delta[row] : 0.f;
+  }
+  float dq[D / 8][4];
 #pragma unroll
-      for (int j = 0; j < CP; ++j) {
-        const int key = k0 + tx + TX * j;
-        const bool valid = key < p.skv && qpos < p.sq && (!p.causal || key <= qpos);
-        const float pr = valid ? expf(s[i][j] * p.scale - lse_s[qr]) : 0.f;
-        Ds[qr * LDP + tx + TX * j] = pr * (dp[i][j] - del_s[qr]);
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dq[n][e] = 0.f;
+  const T* Qw = Qs + warp * 16 * LD;
+  const T* Gw = Gs + warp * 16 * LD;
+  constexpr bool KEEP = kBf16<T> && D <= 64;
+  uint32_t qf[KEEP ? D / 16 : 1][4], gf[KEEP ? D / 16 : 1][4];
+
+  for (int i = 0; i < tiles; ++i) {
+    if (i + ST - 1 < tiles) issue(i + ST - 1);
+    cp_async_commit();
+    cp_async_wait<ST - 1>();
+    __syncthreads();
+    const int k0 = i * BN;
+    const T* Kt = ring + (i % ST) * 2 * BN * LD;
+    const T* Vt = Kt + BN * LD;
+    if (KEEP && i == 0) {
+#pragma unroll
+      for (int kk = 0; kk < (KEEP ? D / 16 : 0); ++kk) {
+        ldmatrix_x4(qf[kk], Qw + (lane & 15) * LD + kk * 16 + (lane >> 4) * 8);
+        ldmatrix_x4(gf[kk], Gw + (lane & 15) * LD + kk * 16 + (lane >> 4) * 8);
       }
     }
-    __syncwarp();  // a row of Ds is written and read by the same 16 lanes
-    patch_accumulate<D>(Ds, Ks, tx, ty, dq);
+    // Causal: nothing to do when every key of the tile follows every row.
+    if (!p.causal || k0 <= qw + 15) {
+      float s[NK][4], dp[NK][4];
+#pragma unroll
+      for (int n = 0; n < NK; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+      warp_scores<T, D, NK>(s, Qw, Kt, lane, KEEP ? qf : nullptr);   // S: queries x keys
+      warp_scores<T, D, NK>(dp, Gw, Vt, lane, KEEP ? gf : nullptr);  // dP
+      if (k0 + BN <= p.skv && qw + 16 <= p.sq && (!p.causal || k0 + BN - 1 <= qw))
+        dq_grads<false, NK>(s, dp, lse2, del, sl, k0, qw, p, lane);
+      else
+        dq_grads<true, NK>(s, dp, lse2, del, sl, k0, qw, p, lane);
+      warp_accumulate<T, D, NK>(dq, dp, Kt, lane);  // dQ += dS K
+    }
+    __syncthreads();
   }
-  store_patch<T, D>(static_cast<T*>(p.dq) + bi * p.dq_sb + hi * p.dq_sh, p.dq_ss, q0, p.sq, tx,
-                    ty, dq, p.scale);
+  cp_async_commit();
+  cp_async_wait<0>();
+  store_rows<T, D>(static_cast<T*>(p.dq) + bi * p.dq_sb + hi * p.dq_sh, p.dq_ss, qw, p.sq, dq,
+                   p.scale, lane);
 }
 
 template <typename T, int D>
 cudaError_t launch(const BwdParams& p, cudaStream_t stream) {
   const long long rows = (long long)p.b * p.h * p.sq;
-  const long long delta_blocks = (rows + 7) / 8;
+  const long long delta_blocks = (rows * delta_lanes<T, D>() + 255) / 256;
   if (delta_blocks > 2147483647LL) return cudaErrorInvalidValue;
   bwd_delta_kernel<T, D><<<(unsigned)delta_blocks, 256, 0, stream>>>(p);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
-  constexpr int smem_kv = dkdv_smem_bytes<D>();
+  constexpr int smem_kv = dkdv_smem_bytes<T, D>();
   err = cudaFuncSetAttribute(bwd_dkdv_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              smem_kv);
   if (err != cudaSuccess) return err;
-  bwd_dkdv_kernel<T, D><<<dim3((p.skv + BN - 1) / BN, p.hkv, p.b), NT, smem_kv, stream>>>(p);
+  bwd_dkdv_kernel<T, D><<<dim3((p.skv + kRows - 1) / kRows, p.hkv * p.splits, p.b), kThreads,
+                          smem_kv, stream>>>(p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
-  constexpr int smem_q = dq_smem_bytes<D>();
+  if (p.splits > 1) {
+    const long long quads = 2LL * p.b * p.hkv * p.skv * (D / 4);
+    if ((quads + 255) / 256 > 2147483647LL) return cudaErrorInvalidValue;
+    bwd_sum_kernel<T, D><<<(unsigned)((quads + 255) / 256), 256, 0, stream>>>(p);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+
+  constexpr int smem_q = dq_smem_bytes<T, D>();
   err = cudaFuncSetAttribute(bwd_dq_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              smem_q);
   if (err != cudaSuccess) return err;
-  bwd_dq_kernel<T, D><<<dim3((p.sq + BM - 1) / BM, p.h, p.b), NT, smem_q, stream>>>(p);
+  bwd_dq_kernel<T, D><<<dim3((p.sq + kRows - 1) / kRows, p.h, p.b), kThreads, smem_q, stream>>>(
+      p);
   return cudaGetLastError();
 }
 
@@ -444,27 +694,31 @@ cudaError_t launch_d(const BwdParams& p, int d, cudaStream_t stream) {
 
 // q, o, dout, dq: (b, h, sq, d); k, v, dk, dv: (b, hkv, skv, d); strides in
 // elements, last dim contiguous, every row 16-byte aligned. lse (the forward's)
-// and delta (scratch) are fp32 (b, h, sq), contiguous. dtype: 0 = float32, 1 =
-// bfloat16. d: 16, 64 or 128. Three launches on `stream`; returns the CUDA error
-// code of the first that failed (0 on success).
+// and delta (scratch) are fp32 (b, h, sq), contiguous. `splits` divides the
+// group h / hkv; when it is above 1, `part` is fp32 scratch of 2 b hkv splits
+// skv d values (16-byte aligned), else it may be null. dtype: 0 = float32, 1 =
+// bfloat16. d: 16, 64 or 128. Three launches on `stream`, four when splits >
+// 1; returns the CUDA error code of the first that failed (0 on success).
 extern "C" int repro_flash_attention_backward(
     const void* q, const void* k, const void* v, const void* o, const void* lse,
-    const void* dout, void* delta, void* dq, void* dk, void* dv, int b, int h, int hkv, int sq,
-    int skv, int d, long long q_sb, long long q_sh, long long q_ss, long long k_sb,
-    long long k_sh, long long k_ss, long long v_sb, long long v_sh, long long v_ss,
-    long long o_sb, long long o_sh, long long o_ss, long long do_sb, long long do_sh,
-    long long do_ss, long long dq_sb, long long dq_sh, long long dq_ss, long long dk_sb,
-    long long dk_sh, long long dk_ss, long long dv_sb, long long dv_sh, long long dv_ss,
-    float scale, int causal, int dtype, void* stream) {
+    const void* dout, void* delta, void* part, void* dq, void* dk, void* dv, int b, int h,
+    int hkv, int sq, int skv, int d, int splits, long long q_sb, long long q_sh, long long q_ss,
+    long long k_sb, long long k_sh, long long k_ss, long long v_sb, long long v_sh,
+    long long v_ss, long long o_sb, long long o_sh, long long o_ss, long long do_sb,
+    long long do_sh, long long do_ss, long long dq_sb, long long dq_sh, long long dq_ss,
+    long long dk_sb, long long dk_sh, long long dk_ss, long long dv_sb, long long dv_sh,
+    long long dv_ss, float scale, int causal, int dtype, void* stream) {
   if (b <= 0 || h <= 0 || hkv <= 0 || sq <= 0 || skv <= 0 || h % hkv != 0 || h > 65535 ||
-      b > 65535 || hkv > 65535)
+      b > 65535 || hkv > 65535 || splits <= 0 || (h / hkv) % splits != 0 ||
+      (splits > 1 && part == nullptr))
     return (int)cudaErrorInvalidValue;
   BwdParams p;
   p.q = q; p.k = k; p.v = v; p.o = o; p.dout = dout;
   p.lse = static_cast<const float*>(lse);
   p.delta = static_cast<float*>(delta);
+  p.part = static_cast<float*>(part);
   p.dq = dq; p.dk = dk; p.dv = dv;
-  p.b = b; p.h = h; p.hkv = hkv; p.sq = sq; p.skv = skv;
+  p.b = b; p.h = h; p.hkv = hkv; p.sq = sq; p.skv = skv; p.splits = splits;
   p.q_sb = q_sb; p.q_sh = q_sh; p.q_ss = q_ss;
   p.k_sb = k_sb; p.k_sh = k_sh; p.k_ss = k_ss;
   p.v_sb = v_sb; p.v_sh = v_sh; p.v_ss = v_ss;

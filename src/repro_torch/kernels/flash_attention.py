@@ -15,7 +15,10 @@ Training adds the backward (``csrc/flash_attention_backward.cu``; the JAX
 package has no Pallas backward, ``jax.grad`` differentiates its attention):
 the forward then also returns each query row's log-sum-exp ``lse`` (fp32
 ``(b, h, sq)``), from which the backward recomputes the probabilities. The
-training route takes neither ``kv_len`` nor ``q_offset``.
+training route takes neither ``kv_len`` nor ``q_offset``. A backward call is
+three or four kernels (``flash_attention_backward_plan``);
+``flash_attention_backward_stages_plain`` is their decomposition in plain
+PyTorch.
 """
 
 from __future__ import annotations
@@ -275,9 +278,71 @@ def flash_attention_lse_cuda(q: torch.Tensor, k: torch.Tensor,
     return out, lse
 
 
-# Kernels one backward call launches: D = rowsum(dO * O), then dK and dV,
-# then dQ.
-BACKWARD_KERNELS_PER_CALL = 3
+# The backward's dK/dV kernel takes 64 keys a block; a GQA group's query
+# heads are split over blocks when the grid would be smaller than about two
+# blocks for each of the H100's 132 SMs.
+BACKWARD_KEY_TILE = 64
+BACKWARD_MIN_BLOCKS = 2 * 132
+
+
+def flash_attention_backward_plan(b: int, h: int, hkv: int, skv: int,
+                                  d: int) -> Tuple[int, int, int]:
+    """(splits, kernels a call, scratch bytes) of one backward call.
+
+    ``splits``: the blocks over which each (batch, KV head, key tile) splits
+    the query heads of its group, the smallest divisor of ``h // hkv`` that
+    gives the dK/dV kernel ``BACKWARD_MIN_BLOCKS`` blocks (the whole group
+    when none does). Kernels: D = rowsum(dO * O), dK and dV, their partials'
+    sum when ``splits > 1``, then dQ. Scratch: the fp32 partial dK and dV,
+    ``(2, b, hkv, splits, skv, d)``, when ``splits > 1``, else none."""
+    group = h // hkv
+    blocks = -(-skv // BACKWARD_KEY_TILE) * hkv * b
+    splits = next((s for s in range(1, group + 1)
+                   if group % s == 0 and blocks * s >= BACKWARD_MIN_BLOCKS),
+                  group)
+    if splits == 1:
+        return 1, 3, 0
+    return splits, 4, 2 * b * hkv * splits * skv * d * 4
+
+
+def flash_attention_backward_stages_plain(q: torch.Tensor, k: torch.Tensor,
+                                          v: torch.Tensor, o: torch.Tensor,
+                                          lse: torch.Tensor, do: torch.Tensor,
+                                          causal: bool, splits: int
+                                          ) -> Tuple[torch.Tensor,
+                                                     torch.Tensor,
+                                                     torch.Tensor]:
+    """The kernels' decomposition in plain PyTorch, any device: D =
+    rowsum(dO * O); for each of ``splits`` consecutive slices of a group's
+    query heads, the partial dK and dV (unscaled dK) in the work type; the
+    partials summed in split order, dK scaled, rounded once; dQ. Equals
+    ``flash_attention_backward_plain`` up to the order of the sums over the
+    group."""
+    b, h, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    group = h // hkv
+    if splits <= 0 or group % splits:
+        raise ValueError(f"splits {splits} does not divide the group {group}")
+    wt = _work_dtype(q.dtype)
+    scale = 1.0 / math.sqrt(d)
+    allowed = _allowed(b, sq, skv, causal, q.device)
+    probs = torch.where(allowed, torch.exp(_scores(q, k) - lse[..., None]), 0.0)
+    g = do.to(wt)
+    delta = (g * o.to(wt)).sum(-1, keepdim=True)
+    dp = torch.matmul(g, v.to(wt).repeat_interleave(group, dim=1)
+                      .transpose(-1, -2))
+    ds = probs * (dp - delta)
+    part_k = torch.matmul(ds.transpose(-1, -2), q.to(wt))
+    part_v = torch.matmul(probs.to(q.dtype).to(wt).transpose(-1, -2), g)
+    # (b, hkv, splits, heads of a split, skv, d): each split's heads summed
+    # in order, then the splits in order.
+    part_k = part_k.view(b, hkv, splits, group // splits, skv, d).sum(3)
+    part_v = part_v.view(b, hkv, splits, group // splits, skv, d).sum(3)
+    dk, dv = part_k[:, :, 0], part_v[:, :, 0]
+    for sp in range(1, splits):
+        dk, dv = dk + part_k[:, :, sp], dv + part_v[:, :, sp]
+    dq = torch.matmul(ds, k.to(wt).repeat_interleave(group, dim=1)) * scale
+    return dq.to(q.dtype), (dk * scale).to(k.dtype), dv.to(v.dtype)
 
 
 def flash_attention_backward_cuda(q: torch.Tensor, k: torch.Tensor,
@@ -286,8 +351,9 @@ def flash_attention_backward_cuda(q: torch.Tensor, k: torch.Tensor,
                                   causal: bool = True
                                   ) -> Tuple[torch.Tensor, torch.Tensor,
                                              torch.Tensor]:
-    """Launch the backward's kernels on PyTorch's current stream: (dq, dk,
-    dv), each allocated in the model's (b, s, heads, d) layout and returned
+    """Launch the backward's kernels on PyTorch's current stream, as
+    ``flash_attention_backward_plan`` splits the call: (dq, dk, dv), each
+    allocated in the model's (b, s, heads, d) layout and returned
     transposed like the forward's output. ``o`` and ``lse`` are the
     forward's (``flash_attention_lse_cuda``), ``do`` the output's gradient;
     all taken by their strides. Deterministic: the same inputs give the same
@@ -303,7 +369,11 @@ def flash_attention_backward_cuda(q: torch.Tensor, k: torch.Tensor,
             f"flash attention backward: lse must be a contiguous float32 "
             f"({b}, {h}, {sq}) tensor on {q.device}, got {lse.dtype} "
             f"{tuple(lse.shape)} on {lse.device}")
+    splits, _, scratch_bytes = flash_attention_backward_plan(b, h, hkv, skv,
+                                                             d)
     delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    part = (torch.empty(scratch_bytes // 4, dtype=torch.float32,
+                        device=q.device) if scratch_bytes else None)
     dq = _new_like_heads(b, sq, h, d, q)
     dk = _new_like_heads(b, skv, hkv, d, q)
     dv = _new_like_heads(b, skv, hkv, d, q)
@@ -311,8 +381,9 @@ def flash_attention_backward_cuda(q: torch.Tensor, k: torch.Tensor,
         stream = torch.cuda.current_stream(q.device).cuda_stream
         code = _build.lib().repro_flash_attention_backward(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            lse.data_ptr(), do.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-            dk.data_ptr(), dv.data_ptr(), b, h, hkv, sq, skv, d,
+            lse.data_ptr(), do.data_ptr(), delta.data_ptr(),
+            None if part is None else part.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), b, h, hkv, sq, skv, d, splits,
             *(st for t in (q, k, v, o, do, dq, dk, dv)
               for st in t.stride()[:3]),
             1.0 / math.sqrt(d), int(bool(causal)), _DTYPE_CODE[q.dtype],

@@ -10,6 +10,9 @@ CUDA kernels against the plain versions and need the card:
 ``python -m pytest -m cuda tests/test_torch_kernels.py``.
 """
 
+import math
+import shutil
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -24,7 +27,7 @@ from repro.models import dlrm as dlrm_jax
 from repro.models.common import naive_attention as naive_attention_jax
 from repro.models.common import rms_norm as rms_norm_jax
 from repro.models.mamba import ssd_chunked
-from repro_torch.kernels import ops
+from repro_torch.kernels import _build, ops
 from repro_torch.kernels.embedding_bag import (
     BACKWARD_STAGES,
     PIECE,
@@ -45,6 +48,8 @@ from repro_torch.kernels.embedding_bag import (
 from repro_torch.kernels.flash_attention import (
     flash_attention_backward_cuda,
     flash_attention_backward_plain,
+    flash_attention_backward_plan,
+    flash_attention_backward_stages_plain,
     flash_attention_cuda,
     flash_attention_forward_plain,
     flash_attention_lse_cuda,
@@ -344,6 +349,157 @@ def test_flash_training_route_takes_no_cache_arguments():
     with torch.no_grad():        # the serve route takes them
         ops.flash_attention(q, q, q, True,
                             q_offset=torch.zeros(1, dtype=torch.int32))
+
+
+# b, h, hkv, skv, d -> (splits, kernels a call, scratch bytes): the train_lm
+# layer keeps one split (768 blocks) and three kernels; a small grid splits
+# its group over the smallest divisor that reaches 264 blocks, or the whole
+# group, and adds the partials' sum; a group of one never splits.
+BWD_PLAN_TABLE = [
+    ((8, 9, 3, 2048, 64), (1, 3, 0)),
+    ((1, 32, 2, 1024, 128), (16, 4, 2 * 1 * 2 * 16 * 1024 * 128 * 4)),
+    ((8, 4, 2, 128, 16), (2, 4, 2 * 8 * 2 * 2 * 128 * 16 * 4)),
+    ((2, 6, 2, 130, 64), (3, 4, 2 * 2 * 2 * 3 * 130 * 64 * 4)),
+    ((4, 8, 1, 512, 64), (8, 4, 2 * 4 * 1 * 8 * 512 * 64 * 4)),
+    ((1, 4, 4, 37, 64), (1, 3, 0)),
+    ((4, 8, 2, 1024, 128), (4, 4, 2 * 4 * 2 * 4 * 1024 * 128 * 4)),
+]
+
+
+@pytest.mark.parametrize("shape,want", BWD_PLAN_TABLE)
+def test_flash_backward_plan(shape, want):
+    b, h, hkv, skv, d = shape
+    splits, kernels, scratch = flash_attention_backward_plan(*shape)
+    assert (splits, kernels, scratch) == want
+    assert (h // hkv) % splits == 0
+    blocks = -(-skv // 64) * hkv * b
+    # the smallest split that reaches the grid's floor, or the whole group
+    assert blocks * splits >= 264 or splits == h // hkv
+    assert all(blocks * s < 264 for s in range(1, splits) if h // hkv % s == 0)
+
+
+@pytest.mark.parametrize("splits", [1, 2, 3, 6])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_backward_stages_plain_is_plain_in_float64(causal, splits):
+    """The kernels' decomposition (D, per-split partial dK/dV summed in split
+    order, dQ) gives the plain backward's result in fp64."""
+    b, h, hkv, s, d = 2, 12, 2, 21, 16
+    q, k, v = (torch.from_numpy(a).double() for a in _qkv(25, b, h, hkv, s,
+                                                          s, d))
+    do = torch.from_numpy(np.random.RandomState(26).randn(b, h, s, d))
+    out, lse = flash_attention_forward_plain(q, k, v, causal)
+    want = flash_attention_backward_plain(q, k, v, out, lse, do, causal)
+    got = flash_attention_backward_stages_plain(q, k, v, out, lse, do, causal,
+                                                splits)
+    for name, g, w in zip("qkv", got, want):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=0, atol=1e-12,
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("group,splits", [(3, 3), (4, 2), (4, 4)])
+def test_flash_backward_stages_plain_matches_jax_grad(group, splits, causal):
+    """The decomposition in fp32 against ``jax.grad`` of the reference
+    attention, at ``test_flash_backward_plain_matches_jax_grad``'s
+    tolerance."""
+    b, hkv, s, d = 2, 2, 19, 64
+    h = hkv * group
+    q, k, v = _qkv(20 + group, b, h, hkv, s, s, d)
+    cot = np.random.RandomState(21).randn(b, h, s, d).astype(np.float32)
+    want = _jax_attention_vjp(q, k, v, cot, causal, "float32")
+    qt, kt, vt, dot = map(torch.from_numpy, (q, k, v, cot))
+    out, lse = flash_attention_forward_plain(qt, kt, vt, causal)
+    got = flash_attention_backward_stages_plain(qt, kt, vt, out, lse, dot,
+                                                causal, splits)
+    for name, g, w in zip("qkv", got, want):
+        assert _scaled_err(g, w) <= 2e-5, name
+
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """fp32 -> TF32 by bit masking: the low 13 mantissa bits cleared, as
+    the kernel splits a value and as the mma reads an fp32 register."""
+    bits = x.contiguous().view(torch.int32)
+    return (bits & ~0x1FFF).view(torch.float32)
+
+
+def _mm_3xtf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b as the kernel's fp32 route takes it: both split into TF32 hi
+    and lo (lo = v - hi, read as TF32), hi lo + lo hi + hi hi summed in
+    fp32, lo lo dropped."""
+    ah, bh = _tf32(a), _tf32(b)
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    return ah @ bl + al @ bh + ah @ bh
+
+
+def _emulated_backward(q, k, v, o, lse, do, causal):
+    """The kernels' roundings on fp32 or bf16 inputs: fp32 products as
+    3xTF32; bf16 products of exact bf16 operands in fp32, with P rounded to
+    bf16 for dV and dS rounded once to bf16 for dK and dQ; P = 2^(S scale
+    log2 e - lse log2 e); results rounded once to the input type. Its sums
+    are PyTorch's fp32 products, which round to nearest in their own order:
+    it does not model the tensor cores' accumulation, which truncates, nor
+    the kernels' order over key and query tiles, so the card's error can
+    exceed it (the ``cuda`` cases hold the kernels themselves)."""
+    b, h, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    group = h // hkv
+    bf16 = q.dtype == torch.bfloat16
+    f = lambda t: t.float()
+    mm = (lambda x, y: x @ y) if bf16 else _mm_3xtf32
+    rnd = (lambda t: t.to(torch.bfloat16).float()) if bf16 else (lambda t: t)
+    kk = f(k).repeat_interleave(group, dim=1)
+    vv = f(v).repeat_interleave(group, dim=1)
+    scale, log2e = 1.0 / math.sqrt(d), 1.4426950408889634
+    allowed = torch.ones(sq, skv, dtype=torch.bool)
+    if causal:
+        allowed = torch.tril(allowed)
+    s = mm(f(q), kk.transpose(-1, -2))
+    p = torch.where(allowed, torch.exp2(s * (scale * log2e)
+                                        - lse[..., None] * log2e), 0.0)
+    delta = (f(do) * f(o)).sum(-1, keepdim=True)
+    dp = mm(f(do), vv.transpose(-1, -2))
+    ds = p * (dp - delta)
+    dv = mm(rnd(p).transpose(-1, -2), f(do))
+    dk = mm(rnd(ds).transpose(-1, -2), f(q))
+    dq = mm(rnd(ds), kk) * scale
+    dk = dk.view(b, hkv, group, skv, d).sum(2) * scale
+    dv = dv.view(b, hkv, group, skv, d).sum(2)
+    return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("d", [16, 64, 128])
+def test_flash_backward_kernel_roundings_hold_the_tolerance(d, dtype, tol):
+    """The error budget of the kernels' operand roundings (3xTF32 in fp32;
+    P and dS rounded once to bf16 in bf16) at a small causal GQA shape:
+    within the card's tolerance of the fp64 backward. The accumulation's
+    rounding is not modelled (``_emulated_backward``)."""
+    b, h, hkv, s = 2, 6, 2, 70
+    q, k, v = (torch.from_numpy(a).to(dtype) for a in _qkv(27, b, h, hkv, s,
+                                                           s, d))
+    do = torch.from_numpy(np.random.RandomState(28).randn(b, h, s, d)
+                          .astype(np.float32)).to(dtype)
+    out, lse = flash_attention_forward_plain(q, k, v, True)
+    exact = flash_attention_backward_plain(*(t.double() for t in (q, k, v,
+                                                                  out)),
+                                           lse.double(), do.double(), True)
+    got = _emulated_backward(q, k, v, out, lse, do, True)
+    for name, g, w in zip("qkv", got, exact):
+        assert _scaled_err(g, w.numpy()) <= tol, name
+
+
+@pytest.mark.parametrize("changed", ["mma.cuh", "flash_attention_backward.cu"])
+def test_build_digest_covers_sources_and_headers(tmp_path, changed):
+    """The library's tag changes when a header changes, not only a source,
+    so a stale library under build/ is never loaded."""
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    before = _build._source_digest(csrc)
+    assert before == _build._source_digest(_build.CSRC)
+    path = csrc / changed
+    path.write_text(path.read_text() + "\n// changed\n")
+    assert _build._source_digest(csrc) != before
 
 
 RMS_GRAD_TABLE = [((4, 64), "float32"), ((3, 17, 128), "float32"),
@@ -1198,7 +1354,9 @@ def test_embedding_bag_backward_kernel_is_deterministic(cuda_device, dtype, t,
 # smollm-135m's layer at the train phase's length, a chatglm3-like d 128,
 # ragged tiles, non-causal, and short rows, which the serve route sends to the
 # decode kernels and the training route to the prefill kernels; then the
-# reduced configs' head_dim 16 (the training route's alone).
+# reduced configs' head_dim 16 (the training route's alone). The last two:
+# a group of 8 split over 8 blocks with a ragged key tile, and head_dim 16
+# with its group split.
 FLASH_BWD_CUDA_TABLE = [
     (8, 9, 3, 2048, 64, True),
     (2, 32, 2, 512, 128, True),
@@ -1212,6 +1370,8 @@ FLASH_BWD_CUDA_TABLE = [
     (2, 4, 2, 130, 16, False),
     (3, 4, 4, 70, 16, True),
     (2, 4, 2, 5, 16, True),
+    (1, 16, 2, 300, 64, True),
+    (2, 8, 2, 200, 16, True),
 ]
 BWD_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
 
