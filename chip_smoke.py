@@ -485,7 +485,9 @@ def _attention_backward_case(name, b, h, hkv, s, d, causal, dtype, gen,
     ``kernel_trace_ms`` the backward kernels, both as torch.profiler's sum
     of device time (``trace_ms``); ``forward_library_ms``: one
     ``F.scaled_dot_product_attention`` forward the same way, beside
-    ``forward_lse_ms``. ``splits``, ``plan_kernels_per_call`` and
+    ``forward_lse_ms`` and the plain forward's ``forward_plain_ms``; at
+    ``main`` three forward calls must agree bitwise too. ``splits``,
+    ``plan_kernels_per_call`` and
     ``scratch_bytes``: the call's ``flash_attention_backward_plan``;
     ``kernels_per_call``: the kernels a call launched, counted in the
     trace, which must equal the plan's."""
@@ -510,6 +512,8 @@ def _attention_backward_case(name, b, h, hkv, s, d, causal, dtype, gen,
         extra["bitwise_equal_calls"] = _bitwise_repeats(
             lambda: flash_attention_backward_cuda(q, k, v, out, lse, do,
                                                   causal), got)
+        extra["forward_bitwise_equal_calls"] = _bitwise_repeats(
+            lambda: flash_attention_lse_cuda(q, k, v, causal), (out, lse))
     del got, want
 
     # Five products of 2 d flops for each (query, key) pair the mask
@@ -546,9 +550,15 @@ def _attention_backward_case(name, b, h, hkv, s, d, causal, dtype, gen,
     ok = (out_err <= ATTN_TOL[dtype] and lse_err <= LSE_TOL * lse_scale
           and all(e <= tol * scale for e, scale in errs)
           and extra.get("bitwise_equal_calls", BWD_REPEATS) == BWD_REPEATS
+          and extra.get("forward_bitwise_equal_calls",
+                        BWD_REPEATS) == BWD_REPEATS
           and kernel_trace["launches_per_call"] == plan_kernels)
     plain_ms = time_ms(lambda *a: flash_attention_backward_plain(*a, causal),
                        sets, iters=10 if main else 50, graph=False)["device"]
+    forward_plain_ms = time_ms(
+        lambda q_, k_, v_, *_: flash_attention_forward_plain(q_, k_, v_,
+                                                             causal),
+        sets, iters=10 if main else 50, graph=False)["device"]
     leaves = [t.detach().requires_grad_() for t in (q, k, v)]
     with torch.enable_grad():
         lib_out = F.scaled_dot_product_attention(*leaves, is_causal=causal,
@@ -571,6 +581,7 @@ def _attention_backward_case(name, b, h, hkv, s, d, causal, dtype, gen,
         "kernel_ms": kernel["device"], "kernel_eager_ms": kernel["eager"],
         "kernel_trace_ms": kernel_trace["ms"],
         "forward_lse_ms": forward["device"], "forward_lse_bound_ms": fwd_bound,
+        "forward_plain_ms": forward_plain_ms,
         "forward_library_ms": forward_library["ms"],
         "forward_library_backend": forward_library["backend"],
         "splits": splits, "plan_kernels_per_call": plan_kernels,
@@ -1611,12 +1622,25 @@ def _expected_lm_launches(cfg, remat: str, steps: int) -> dict:
             "rmsnorm_backward": (2 * layers + 1) * steps}
 
 
+def _traced(by_name: list, kernel: str) -> dict:
+    """The launches a profiled step made of the device kernels whose names
+    match ``kernel`` (a regular expression for the bare name; the profiler
+    prefixes a namespace) and their device ms a step (``by_name``, from
+    ``_device_time``)."""
+    rows = [e for e in by_name
+            if re.search(r"(^|[\s:])" + kernel + r"\b", e["name"])]
+    return {"kernels_traced_per_step": sum(e["launches_per_step"]
+                                           for e in rows),
+            "device_ms_per_step": sum(e["launches_per_step"]
+                                      * e["device_us_per_launch"]
+                                      for e in rows) / 1e3}
+
+
 def _lm_backward_plan(cfg, launches: dict, steps: int,
                       by_name: list) -> dict:
     """The attention backward's plan at the train_lm layer, the device
     kernels its counted calls launched, reckoned from the plan, and the
-    ``bwd_*`` kernels a profiled step launched (``by_name``, from
-    ``_device_time``)."""
+    ``bwd_*`` kernels a profiled step launched, with their device ms."""
     splits, per_call, scratch = flash_attention_backward_plan(
         LM_BATCH, cfg.num_heads, cfg.num_kv_heads, LM_SEQ,
         cfg.resolved_head_dim)
@@ -1624,9 +1648,16 @@ def _lm_backward_plan(cfg, launches: dict, steps: int,
     return {"splits": splits, "kernels_per_call": per_call,
             "scratch_bytes": scratch, "kernels": calls * per_call,
             "kernels_per_step": calls * per_call / steps,
-            "kernels_traced_per_step": sum(
-                e["launches_per_step"] for e in by_name
-                if re.search(r"(^|[\s:])bwd_\w+_kernel", e["name"]))}
+            **_traced(by_name, r"bwd_\w+_kernel")}
+
+
+def _lm_forward_trace(launches: dict, steps: int, by_name: list) -> dict:
+    """The attention forward at the train_lm layer (fp32, with the
+    log-sum-exp): one ``flash_tf32_kernel`` a counted call, and the ones a
+    profiled step launched, with their device ms."""
+    return {"kernel": "flash_tf32_kernel",
+            "kernels_per_step": launches["flash_attention"] / steps,
+            **_traced(by_name, "flash_tf32_kernel")}
 
 
 def _lm_memory_reckoned(cfg, batch: int, seq: int) -> dict:
@@ -1701,11 +1732,13 @@ def phase_train_lm() -> dict:
         problems.append(f"launches {launches} != {expected}, reckoned from "
                         f"{cfg.num_layers} layers and remat {plan.remat!r}")
     bwd_plan = _lm_backward_plan(cfg, launches, steps, by_name)
-    if (device_us and bwd_plan["kernels_traced_per_step"]
-            != bwd_plan["kernels_per_step"]):
-        problems.append(f"attention backward kernels a step: traced "
-                        f"{bwd_plan['kernels_traced_per_step']}, reckoned "
-                        f"{bwd_plan['kernels_per_step']} from the plan")
+    fwd_trace = _lm_forward_trace(launches, steps, by_name)
+    for what, got in (("backward", bwd_plan), ("forward", fwd_trace)):
+        if (device_us and got["kernels_traced_per_step"]
+                != got["kernels_per_step"]):
+            problems.append(f"attention {what} kernels a step: traced "
+                            f"{got['kernels_traced_per_step']}, reckoned "
+                            f"{got['kernels_per_step']} from the counts")
     result = {
         "arch": cfg.arch_id, "layers": cfg.num_layers, "d_model": cfg.d_model,
         "params": n_params, "dtype": "float32",
@@ -1725,6 +1758,7 @@ def phase_train_lm() -> dict:
         "launches": launches, "launches_per_step": {
             k: v / steps for k, v in launches.items()},
         "attention_backward_plan": bwd_plan,
+        "attention_forward_trace": fwd_trace,
         "peak_memory_bytes": peak_bytes,
         "memory_reckoned": _lm_memory_reckoned(cfg, LM_BATCH, LM_SEQ),
         "init_seconds": init_seconds, "problems": problems,
@@ -1952,11 +1986,14 @@ def kernels_line(cases: list, launches_by_path: dict) -> dict:
                          and c["case"] == "train main"
                          and c["dtype"] == "float32")
             entries[-1]["train_forward_with_lse"] = {
+                "kernel": "flash_tf32_kernel",
                 "ms": train["forward_lse_ms"],
                 "bound_ms": train["forward_lse_bound_ms"],
                 "library_ms": train["forward_library_ms"],
+                "plain_ms": train["forward_plain_ms"],
                 "out_max_abs_err": train["forward_out_max_abs_err"],
-                "lse_max_abs_err": train["lse_max_abs_err"]}
+                "lse_max_abs_err": train["lse_max_abs_err"],
+                "bitwise_equal_calls": train["forward_bitwise_equal_calls"]}
     return {"kernels": entries}
 
 

@@ -6,18 +6,22 @@ backward without the ``splits`` argument (one block a KV head's whole group)
 is called without scratch.
 
     git archive <rev> src/repro_torch/kernels/csrc | tar -x -C build/ab_other
-    python3 kernel_ab.py build/ab_other/src/repro_torch/kernels/csrc
+    python3 kernel_ab.py build/ab_other/src/repro_torch/kernels/csrc [PATTERN]
+
+PATTERN, a regular expression, keeps only the cases whose names it matches.
 
 Prints one JSON line per case: each side's two device times (CUDA graph
-replay over cold copies, as ``chip_smoke.py`` times) and its largest error
-against the plain version (the SSD scan's: over y and the final state). Needs
-one CUDA device and ``nvcc``.
+replay over cold copies, as ``chip_smoke.py`` times), its largest error
+against the plain version (the SSD scan's: over y and the final state), and
+whether the two sides' results are equal bit for bit. Needs one CUDA device
+and ``nvcc``.
 """
 
 from __future__ import annotations
 
 import ctypes
 import json
+import re
 import sys
 from pathlib import Path
 
@@ -38,6 +42,7 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention_backward_cuda,
     flash_attention_backward_plain,
     flash_attention_forward_plain,
+    flash_attention_lse_cuda,
     flash_attention_plain,
 )
 from repro_torch.kernels.rmsnorm import rmsnorm_plain  # noqa: E402
@@ -45,6 +50,7 @@ from repro_torch.kernels.ssd_scan import ssd_scan_plain  # noqa: E402
 
 OUT = ROOT / "build" / "kernel_ab"
 ORDER = ("other", "this", "this", "other")
+PATTERN = None  # the cases to run (a regular expression), or None for all
 
 
 class _NoSplitsArg:
@@ -75,6 +81,9 @@ def _load(name: str, bwd_splits: bool):
     lib.repro_flash_attention.argtypes = ([ptr] * 6 + [i32] * 6 + [i64] * 12
                                           + [f32, i32, i32, i32, ptr])
     lib.repro_flash_attention.restype = i32
+    lib.repro_flash_attention_lse.argtypes = ([ptr] * 5 + [i32] * 6 + [i64] * 12
+                                              + [f32, i32, i32, ptr])
+    lib.repro_flash_attention_lse.restype = i32
     lib.repro_embedding_bag_backward.argtypes = ([ptr] * 11 + [i32] * 5 + [i64] * 5
                                                  + [i32, i32, ptr])
     lib.repro_embedding_bag_backward.restype = i32
@@ -108,8 +117,18 @@ def _max_err(got, want) -> float:
     return (got.float() - want.float()).abs().max().item()
 
 
+def _same_bits(a, b) -> bool:
+    if isinstance(a, tuple):
+        return all(_same_bits(x, y) for x, y in zip(a, b))
+    return torch.equal(a, b)
+
+
 def ab(libs, name, dtype, fn, plain, sets, **timing) -> None:
-    """``fn`` on both sides; ``timing``: ``chip_smoke.time_ms``'s options."""
+    """``fn`` on both sides; ``timing``: ``chip_smoke.time_ms``'s options.
+    ``same_bits``: whether the two sides' first results are equal bit for
+    bit."""
+    if PATTERN and not re.search(PATTERN, name):
+        return
     row = {"case": name, "dtype": cs.dtype_name(dtype), "err": {}}
     want = plain(*sets[0])
     for side in ORDER:
@@ -117,6 +136,11 @@ def ab(libs, name, dtype, fn, plain, sets, **timing) -> None:
         got = fn(*sets[0])
         torch.cuda.synchronize()
         row["err"][side] = _max_err(got, want)
+        if side == "other" and "same_bits" not in row:
+            other_first = got
+        elif "same_bits" not in row:
+            row["same_bits"] = _same_bits(got, other_first)
+            del other_first
         del got
         row.setdefault(side, []).append(cs.time_ms(fn, sets, **timing)["device"])
     print(json.dumps(row), flush=True)
@@ -174,6 +198,20 @@ def attn_case(libs, name, b, h, hkv, sq, skv, d, causal, dtype, gen,
        lambda a, b_, c: flash_attention_plain(a, b_, c, causal, kl, qo), sets)
 
 
+def attn_forward_lse_case(libs, name, b, h, hkv, s, d, dtype, gen) -> None:
+    """The training route's forward (the output and the rows' log-sum-exp,
+    causal) on cold copies, held to the plain forward."""
+    def draw(heads):
+        t = torch.randn((b, s, heads, d), generator=gen, device="cuda")
+        return t.to(dtype).transpose(1, 2)
+    q, k, v = draw(h), draw(hkv), draw(hkv)
+    sets = [(cs.clone_like(q), cs.clone_like(k), cs.clone_like(v))
+            for _ in range(cs.copies_for_cold_l2([q, k, v]))]
+    ab(libs, f"attention_forward_lse {name}", dtype,
+       lambda *a: flash_attention_lse_cuda(*a, True),
+       lambda *a: flash_attention_forward_plain(*a, True), sets)
+
+
 def attn_backward_case(libs, name, b, h, hkv, s, d, dtype, gen) -> None:
     """The backward on the training forward's o and lse, inputs as
     ``chip_smoke._attention_backward_case`` draws them (causal); both sides
@@ -190,10 +228,19 @@ def attn_backward_case(libs, name, b, h, hkv, s, d, dtype, gen) -> None:
 
 
 def main() -> int:
-    if len(sys.argv) != 2:
+    global PATTERN
+    if len(sys.argv) not in (2, 3):
         raise SystemExit(__doc__)
+    PATTERN = sys.argv[2] if len(sys.argv) == 3 else None
     cs.phase_env()
     libs = build(Path(sys.argv[1]).resolve())
+    # the training forward with the log-sum-exp at the same two layers
+    gen_fwd = torch.Generator(device="cuda").manual_seed(5)
+    for dtype in (torch.float32, torch.bfloat16):
+        attn_forward_lse_case(libs, "train main", cs.LM_BATCH, 9, 3, cs.LM_SEQ, 64, dtype,
+                              gen_fwd)
+        attn_forward_lse_case(libs, "chatglm3-like d=128", 1, 32, 2, 1024, 128, dtype, gen_fwd)
+        torch.cuda.empty_cache()
     # chip_smoke.py's train_lm layer and its chatglm3-like layer
     gen_bwd = torch.Generator(device="cuda").manual_seed(4)
     for dtype in (torch.float32, torch.bfloat16):

@@ -67,11 +67,28 @@
 //    stores and arrives. What is left is latency: about 5 us even when every
 //    sequence has one key (launch, the `q_offset` read before any K/V load,
 //    the merges and the cluster barrier).
-//  * `flash_tile_kernel` (fp32, sq > 8): the fp32 pipes, which keep fp32
-//    inputs exact (TF32 would not). One block of 256 threads per (batch, head,
-//    64 query rows), kv tiles of 64 keys in shared memory; a thread owns a 4x4
-//    patch of the scores and the same 4 rows of the output, so a row
-//    reduction is a shuffle over 16 lanes.
+//  * `flash_tf32_kernel` (fp32, sq > 8): both products on the tensor cores
+//    as 3xTF32 (`mma.sync.m16n8k8`, each operand split into TF32 hi and lo,
+//    hi lo + lo hi + hi hi summed in fp32: ~20 bits of each product, where
+//    one TF32 product keeps 10 and could not hold fp32's 2e-5), through the
+//    backward's warp step (attn_warp.cuh: `warp_scores`, `warp_accumulate`).
+//    Bound: operations, 2 products of 2 s^2 d a head (half when causal) at
+//    495/3 TFLOP/s: 0.234 ms at the train_lm layer (b 8, h 9, s 2048, d 64),
+//    0.577 on the fp32 pipes. One block of 4 warps per (head, batch, 64 query
+//    rows), query tiles in reverse so the longest causal rows start first;
+//    each warp owns 16 rows, its Q as TF32 parts in registers at d <= 64.
+//    K/V tiles of `tile_rows<D>()` keys (64; 32 at d 128) stay fp32 in
+//    shared memory, rows padded by 16 bytes, and arrive by 16-byte
+//    `cp.async` into a ring of two stages (two blocks an SM at every head
+//    dim; three, with 32-key tiles, ran no faster at the train_lm layer and
+//    slower on long prompts); Q's and K's fragments come by `ldmatrix`. The
+//    online softmax runs on S's accumulator fragments (row max by quad
+//    shuffles, log2 domain), and P enters P V from them with no trip through
+//    shared memory; each tile's P V is summed in a fresh fragment and added
+//    to acc by fp32 adds (the tensor cores' accumulation truncates). Only
+//    tiles that cross a row's limit (the diagonal, kv_len) take the
+//    per-element mask; a warp skips tiles past its last row. Deterministic:
+//    every sum in a fixed order, each output written once.
 //  * `flash_decode_f32_kernel` (fp32, sq <= 8): the bf16 decode kernel's split
 //    of the keys and its merges, on the fp32 pipes, 4 query rows a block: a
 //    lane scores one key of a 32-key tile against every row (q in shared
@@ -84,9 +101,7 @@
 #include <math.h>
 #include <stdint.h>
 
-#include <type_traits>
-
-#include "mma.cuh"
+#include "attn_warp.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -162,26 +177,6 @@ __device__ __forceinline__ void cluster_arrive() {
 
 __device__ __forceinline__ void cluster_wait() {
   asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
-}
-
-// Rows [row0, row0 + ROWS) of a (rows, D) bf16 slab with row stride `ss` into
-// shared memory with pitch D + 8 by cp.async, issued by NT threads (`t` is
-// this thread's index among them); rows at or beyond `valid` become zeros.
-template <int D, int NT, int ROWS>
-__device__ __forceinline__ void stage_rows_bf16(const __nv_bfloat16* base, long long ss, int row0,
-                                                int valid, __nv_bfloat16* dst, int t) {
-  constexpr int CH = D / 8;  // 16-byte chunks a row
-  constexpr int N = (ROWS * CH + NT - 1) / NT;
-#pragma unroll
-  for (int i = 0; i < N; ++i) {
-    const int idx = t + i * NT;
-    if (ROWS * CH % NT != 0 && idx >= ROWS * CH) break;  // d 16: fewer chunks than threads
-    const int r = idx / CH;
-    const int c = (idx % CH) * 8;
-    const bool in = row0 + r < valid;
-    const __nv_bfloat16* src = in ? base + (long long)(row0 + r) * ss + c : base;
-    cp_async16(dst + r * (D + 8) + c, src, in);
-  }
 }
 
 // ------------------------------------------------------------------------- //
@@ -459,13 +454,15 @@ __global__ void __launch_bounds__(MM_GROUPS * MM_GROUP_THREADS) flash_mma_kernel
   auto issue = [&](int i) {
     const int row0 = (grp + G * i) * MM_BN;
     const int st = i % ST;
-    stage_rows_bf16<D, MM_GROUP_THREADS, MM_BN>(kb, p.k_ss, row0, kvlen, Ks + st * MM_BN * LD, tg);
-    stage_rows_bf16<D, MM_GROUP_THREADS, MM_BN>(vb, p.v_ss, row0, kvlen, Vs + st * MM_BN * LD, tg);
+    stage_rows<__nv_bfloat16, D, MM_BN, MM_GROUP_THREADS>(kb, p.k_ss, row0, kvlen,
+                                                          Ks + st * MM_BN * LD, tg);
+    stage_rows<__nv_bfloat16, D, MM_BN, MM_GROUP_THREADS>(vb, p.v_ss, row0, kvlen,
+                                                          Vs + st * MM_BN * LD, tg);
   };
 
   // Q by every thread and each group's first tile; then Q's fragments for
   // the whole loop; then the group's next ST - 2 tiles.
-  stage_rows_bf16<D, NTH, MM_BM>(qb, p.q_ss, q0, p.sq, Qs, threadIdx.x);
+  stage_rows<__nv_bfloat16, D, MM_BM, NTH>(qb, p.q_ss, q0, p.sq, Qs, threadIdx.x);
   if (ng > 0) issue(0);
   cp_async_commit();
   cp_async_wait<0>();
@@ -534,208 +531,185 @@ __global__ void __launch_bounds__(MM_GROUPS * MM_GROUP_THREADS) flash_mma_kernel
 }
 
 // ------------------------------------------------------------------------- //
-// Prefill, fp32: the fp32 pipes, 64 query rows per block.
+// Prefill, fp32: tensor cores, 3xTF32.
 // ------------------------------------------------------------------------- //
 
-constexpr int BM = 64;  // query rows per block
-constexpr int BN = 64;  // keys per kv tile
-constexpr int TX = 16;  // threads along keys / output columns
-constexpr int TY = 16;  // threads along query rows
-constexpr int RM = BM / TY;
-constexpr int CN = BN / TX;
-constexpr int LDP = BN + 16;  // row pitch of the probabilities (floats)
+constexpr int TF_ROWS = 64;      // query rows a block, 16 a warp
+constexpr int TF_THREADS = 128;  // 4 warps
+constexpr int TF_STAGES = 2;     // of the K/V ring: two blocks an SM at every head dim
 
+// A warp keeps its Q rows as TF32 parts in registers at d <= 64 (64 of
+// them a thread; a few percent faster at the train_lm layer than loading
+// and splitting them again each tile, as d 128 must).
 template <int D>
-__host__ __device__ constexpr int tile_smem_bytes() {
-  return (int)sizeof(float) * ((BM + 2 * BN) * (D + 4) + BM * LDP);
+__host__ __device__ constexpr bool tf32_keep_q() {
+  return D <= 64;
 }
 
-// Rows [row0, row0 + 64) of a (rows, D) fp32 slab with row stride `ss` into
-// shared memory with pitch D + 4; rows at or beyond `valid_rows` become zeros.
 template <int D>
-__device__ __forceinline__ void load_tile(const float* base, long long ss, int row0, int valid_rows,
-                                          float* dst) {
-  constexpr int CHUNKS = D / 4;
-  constexpr int LD = D + 4;
-  for (int idx = threadIdx.x; idx < 64 * CHUNKS; idx += TX * TY) {
-    const int r = idx / CHUNKS;
-    const int c = (idx % CHUNKS) * 4;
-    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row0 + r < valid_rows)
-      val = *reinterpret_cast<const float4*>(base + (long long)(row0 + r) * ss + c);
-    *reinterpret_cast<float4*>(&dst[r * LD + c]) = val;
+__host__ __device__ constexpr int tf32_smem_bytes() {
+  return (TF_ROWS + TF_STAGES * 2 * tile_rows<D>()) * pitch<float, D>() * (int)sizeof(float);
+}
+
+// The online softmax of one key tile on S's accumulator fragments, in
+// place (S becomes P): the tile's row maximum by quad shuffles, m in the
+// log2 domain, P = 2^(S scale log2 e - m), l and acc rescaled by
+// 2^(m_old - m). MASK where the tile crosses a row's limit (`lim0`, `lim1`:
+// one past the last key rows g and g + 8 may see).
+template <bool MASK, int D, int NK>
+__device__ __forceinline__ void tf32_softmax(MmaRows<D>& st, float (&s)[NK][4], float sl, int k0,
+                                             int lim0, int lim1, int lane) {
+  const int t4 = lane & 3;
+  float mx0 = kNegInf, mx1 = kNegInf;
+#pragma unroll
+  for (int n = 0; n < NK; ++n)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      if (MASK) {
+        const int kpos = k0 + n * 8 + 2 * t4 + e;
+        s[n][e] = kpos < lim0 ? s[n][e] : kNegInf;
+        s[n][2 + e] = kpos < lim1 ? s[n][2 + e] : kNegInf;
+      }
+      mx0 = fmaxf(mx0, s[n][e]);
+      mx1 = fmaxf(mx1, s[n][2 + e]);
+    }
+#pragma unroll
+  for (int o = 1; o <= 2; o <<= 1) {
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, o));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, o));
+  }
+  // A row with no visible key keeps m = kNegInf and subtracts 0, so a masked
+  // score gives probability 0 either way (a masked maximum is not scaled:
+  // sl < 1 would lift it above kNegInf).
+  const float mn0 = fmaxf(st.m0, mx0 == kNegInf ? kNegInf : mx0 * sl);
+  const float mn1 = fmaxf(st.m1, mx1 == kNegInf ? kNegInf : mx1 * sl);
+  const float mu0 = mn0 == kNegInf ? 0.f : mn0, mu1 = mn1 == kNegInf ? 0.f : mn1;
+  const float alpha0 = fast_exp2(st.m0 - mu0), alpha1 = fast_exp2(st.m1 - mu1);
+  st.m0 = mn0;
+  st.m1 = mn1;
+  float rs0 = 0.f, rs1 = 0.f;
+#pragma unroll
+  for (int n = 0; n < NK; ++n) {
+    s[n][0] = fast_exp2(fmaf(s[n][0], sl, -mu0));
+    s[n][1] = fast_exp2(fmaf(s[n][1], sl, -mu0));
+    s[n][2] = fast_exp2(fmaf(s[n][2], sl, -mu1));
+    s[n][3] = fast_exp2(fmaf(s[n][3], sl, -mu1));
+    rs0 += s[n][0] + s[n][1];
+    rs1 += s[n][2] + s[n][3];
+  }
+  st.l0 = st.l0 * alpha0 + rs0;
+  st.l1 = st.l1 * alpha1 + rs1;
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+    st.acc[n][0] *= alpha0;
+    st.acc[n][1] *= alpha0;
+    st.acc[n][2] *= alpha1;
+    st.acc[n][3] *= alpha1;
   }
 }
 
-// A thread's output columns: 64 jj + 4 tx + e (four at a time) when D is a
-// multiple of 64, else tx + 16 j (d 16, the training route's reduced head).
 template <int D>
-__host__ __device__ constexpr bool wide_columns() {
-  return D % 64 == 0;
-}
+__global__ void __launch_bounds__(TF_THREADS, 2) flash_tf32_kernel(Params p) {
+  constexpr int LD = pitch<float, D>();
+  constexpr int BN = tile_rows<D>();  // keys a tile
+  constexpr int NK = BN / 8;          // n-tiles of S (8 keys each)
+  constexpr int ST = TF_STAGES;
+  constexpr bool KEEP = tf32_keep_q<D>();
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* Qs = reinterpret_cast<float*>(smem_raw);
+  float* ring = Qs + TF_ROWS * LD;  // ST stages of (K, V), BN rows each
 
-template <int D>
-__global__ void __launch_bounds__(TX * TY) flash_tile_kernel(Params p) {
-  constexpr int LD = D + 4;    // row pitch of Q, K, V tiles (floats), keeps float4 alignment
-  constexpr int DC = D / TX;   // output columns per thread
-  static_assert(D % TX == 0 && (wide_columns<D>() || D < 64), "head_dim");
-  extern __shared__ __align__(16) float smem[];
-  float* Qs = smem;
-  float* Ks = Qs + BM * LD;
-  float* Vs = Ks + BN * LD;
-  float* Ps = Vs + BN * LD;
-
-  const int tx = threadIdx.x % TX;
-  const int ty = threadIdx.x / TX;
-  const int q0 = blockIdx.x * BM;
-  const int hi = blockIdx.y;
-  const int bi = blockIdx.z;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int hi = blockIdx.x;
+  const int bi = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * TF_ROWS;  // longest causal rows first
   const int hk = hi / (p.h / p.hkv);
   const int kvlen = seq_kv_len(p, bi);
   const int off = p.q_offset ? p.q_offset[bi] : 0;
+  const float sl = p.scale * kLog2e;
   // One past the last key that any row of this tile may see.
   int kv_hi = kvlen;
-  if (p.causal) kv_hi = min(kv_hi, min(q0 + BM, p.sq) + off);
-
-  const float* qb = static_cast<const float*>(p.q) + bi * p.q_sb + hi * p.q_sh;
+  if (p.causal) kv_hi = min(kv_hi, min(q0 + TF_ROWS, p.sq) + off);
+  const int tiles = kv_hi > 0 ? (kv_hi + BN - 1) / BN : 0;
   const float* kb = static_cast<const float*>(p.k) + bi * p.k_sb + hk * p.k_sh;
   const float* vb = static_cast<const float*>(p.v) + bi * p.v_sb + hk * p.v_sh;
-  float* ob = static_cast<float*>(p.o) + bi * p.o_sb + hi * p.o_sh;
 
-  load_tile<D>(qb, p.q_ss, q0, p.sq, Qs);
-
-  float m[RM], l[RM], acc[RM][DC];
-  int lim[RM];  // one past the last key row i may see
+  stage_rows<float, D, TF_ROWS, TF_THREADS>(
+      static_cast<const float*>(p.q) + bi * p.q_sb + hi * p.q_sh, p.q_ss, q0, p.sq, Qs,
+      threadIdx.x);
+  auto issue = [&](int i) {
+    float* Kd = ring + (i % ST) * 2 * BN * LD;
+    stage_rows<float, D, BN, TF_THREADS>(kb, p.k_ss, i * BN, kvlen, Kd, threadIdx.x);
+    stage_rows<float, D, BN, TF_THREADS>(vb, p.v_ss, i * BN, kvlen, Kd + BN * LD, threadIdx.x);
+  };
 #pragma unroll
-  for (int i = 0; i < RM; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
-    lim[i] = p.causal ? min(kvlen, q0 + ty + TY * i + off + 1) : kvlen;
-#pragma unroll
-    for (int j = 0; j < DC; ++j) acc[i][j] = 0.f;
+  for (int i = 0; i < ST - 1; ++i) {
+    if (i < tiles) issue(i);
+    cp_async_commit();  // Q joins the first group
   }
 
-  for (int k0 = 0; k0 < kv_hi; k0 += BN) {
-    __syncthreads();  // the previous tile's readers are done with Ks, Vs, Ps
-    load_tile<D>(kb, p.k_ss, k0, kvlen, Ks);
-    load_tile<D>(vb, p.v_ss, k0, kvlen, Vs);
-    __syncthreads();
+  // This warp's rows qw .. qw + 15; this lane's r0 (fragment row g) and r0 + 8.
+  const int qw = q0 + warp * 16;
+  const int r0 = qw + g;
+  const int lim0 = p.causal ? min(kvlen, r0 + off + 1) : kvlen;
+  const int lim1 = p.causal ? min(kvlen, r0 + 8 + off + 1) : kvlen;
+  // Keys below `full` are seen by every row of the warp; none at or past
+  // `warp_hi` by any (a warp wholly past sq computes nothing).
+  const int full = p.causal ? min(kvlen, qw + off + 1) : kvlen;
+  const int warp_hi = qw >= p.sq ? 0 : p.causal ? min(kvlen, qw + 16 + off) : kvlen;
+  const float* Qw = Qs + warp * 16 * LD;
+  uint32_t qf[KEEP ? D / 4 : 1][4];  // k-step kk: hi in qf[2 kk], lo in qf[2 kk + 1]
+  MmaRows<D> st;
+  st.init();
 
-    // S = Q K^T for this thread's 4x4 patch: rows ty + 16 i, keys tx + 16 j.
-    float s[RM][CN];
+  for (int i = 0; i < tiles; ++i) {
+    if (i + ST - 1 < tiles) issue(i + ST - 1);
+    cp_async_commit();        // possibly empty: the group count stays uniform
+    cp_async_wait<ST - 1>();  // tile i has landed for this thread...
+    __syncthreads();          // ...and for the block
+    const int k0 = i * BN;
+    const float* Kt = ring + (i % ST) * 2 * BN * LD;
+    if (KEEP && i == 0) {
 #pragma unroll
-    for (int i = 0; i < RM; ++i)
-#pragma unroll
-      for (int j = 0; j < CN; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; d += 4) {
-      float4 qv[RM], kv[CN];
-#pragma unroll
-      for (int i = 0; i < RM; ++i)
-        qv[i] = *reinterpret_cast<const float4*>(&Qs[(ty + TY * i) * LD + d]);
-#pragma unroll
-      for (int j = 0; j < CN; ++j)
-        kv[j] = *reinterpret_cast<const float4*>(&Ks[(tx + TX * j) * LD + d]);
-#pragma unroll
-      for (int i = 0; i < RM; ++i)
-#pragma unroll
-        for (int j = 0; j < CN; ++j) {
-          s[i][j] = fmaf(qv[i].x, kv[j].x, s[i][j]);
-          s[i][j] = fmaf(qv[i].y, kv[j].y, s[i][j]);
-          s[i][j] = fmaf(qv[i].z, kv[j].z, s[i][j]);
-          s[i][j] = fmaf(qv[i].w, kv[j].w, s[i][j]);
-        }
+      for (int kk = 0; kk < (KEEP ? D / 8 : 0); ++kk)
+        tf32_a_fragment<D>(Qw, kk, lane, qf[2 * kk], qf[2 * kk + 1]);
     }
-
-    // Online softmax. The 16 threads of one row are 16 neighbouring lanes.
+    if (k0 < warp_hi) {
+      float s[NK][4];
 #pragma unroll
-    for (int i = 0; i < RM; ++i) {
-      bool valid[CN];
-      float mx = kNegInf;
+      for (int n = 0; n < NK; ++n)
 #pragma unroll
-      for (int j = 0; j < CN; ++j) {
-        valid[j] = (k0 + tx + TX * j) < lim[i];
-        s[i][j] = valid[j] ? s[i][j] * p.scale : kNegInf;
-        mx = fmaxf(mx, s[i][j]);
-      }
-#pragma unroll
-      for (int o = TX / 2; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-      const float m_new = fmaxf(m[i], mx);
-      const float alpha = expf(m[i] - m_new);
-      float rowsum = 0.f;
-#pragma unroll
-      for (int j = 0; j < CN; ++j) {
-        const float pe = valid[j] ? expf(s[i][j] - m_new) : 0.f;
-        rowsum += pe;
-        Ps[(ty + TY * i) * LDP + tx + TX * j] = pe;
-      }
-#pragma unroll
-      for (int o = TX / 2; o > 0; o >>= 1) rowsum += __shfl_xor_sync(0xffffffffu, rowsum, o);
-      l[i] = l[i] * alpha + rowsum;
-      m[i] = m_new;
-#pragma unroll
-      for (int j = 0; j < DC; ++j) acc[i][j] *= alpha;
+        for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+      warp_scores<float, D, NK>(s, Qw, Kt, lane, KEEP ? qf : nullptr);  // S = Q K^T
+      if (k0 + BN <= full)
+        tf32_softmax<false, D, NK>(st, s, sl, k0, lim0, lim1, lane);
+      else
+        tf32_softmax<true, D, NK>(st, s, sl, k0, lim0, lim1, lane);
+      warp_accumulate<float, D, NK>(st.acc, s, Kt + BN * LD, lane);  // acc += P V
     }
-    // A row of Ps is written and read by the same 16 lanes of one warp.
-    __syncwarp();
-
-    // acc += P V: rows ty + 16 i, this thread's columns.
-#pragma unroll 2
-    for (int c = 0; c < BN; c += 4) {
-      float4 pv[RM];
-#pragma unroll
-      for (int i = 0; i < RM; ++i)
-        pv[i] = *reinterpret_cast<const float4*>(&Ps[(ty + TY * i) * LDP + c]);
-      if constexpr (!wide_columns<D>()) {
-#pragma unroll
-        for (int cc = 0; cc < 4; ++cc)
-#pragma unroll
-          for (int j = 0; j < DC; ++j) {
-            const float vv = Vs[(c + cc) * LD + tx + TX * j];
-#pragma unroll
-            for (int i = 0; i < RM; ++i) {
-              const float pe = cc == 0 ? pv[i].x : cc == 1 ? pv[i].y : cc == 2 ? pv[i].z : pv[i].w;
-              acc[i][j] = fmaf(pe, vv, acc[i][j]);
-            }
-          }
-        continue;
-      }
-#pragma unroll
-      for (int cc = 0; cc < 4; ++cc) {
-#pragma unroll
-        for (int jj = 0; jj < DC / 4; ++jj) {
-          const float4 vv =
-              *reinterpret_cast<const float4*>(&Vs[(c + cc) * LD + jj * 64 + tx * 4]);
-#pragma unroll
-          for (int i = 0; i < RM; ++i) {
-            const float pe = cc == 0 ? pv[i].x : cc == 1 ? pv[i].y : cc == 2 ? pv[i].z : pv[i].w;
-            acc[i][jj * 4 + 0] = fmaf(pe, vv.x, acc[i][jj * 4 + 0]);
-            acc[i][jj * 4 + 1] = fmaf(pe, vv.y, acc[i][jj * 4 + 1]);
-            acc[i][jj * 4 + 2] = fmaf(pe, vv.z, acc[i][jj * 4 + 2]);
-            acc[i][jj * 4 + 3] = fmaf(pe, vv.w, acc[i][jj * 4 + 3]);
-          }
-        }
-      }
-    }
+    __syncthreads();  // the block is done with this stage before it is refilled
   }
+  cp_async_commit();
+  cp_async_wait<0>();
+  st.quad_sum_l();
 
-#pragma unroll
-  for (int i = 0; i < RM; ++i) {
-    const int qpos = q0 + ty + TY * i;
-    if (qpos >= p.sq) continue;
-    if (p.lse && tx == 0) store_lse(p, bi, hi, qpos, m[i], l[i]);
-    const float inv = 1.0f / fmaxf(l[i], 1e-30f);
-    float* orow = ob + (long long)qpos * p.o_ss;
-    if constexpr (wide_columns<D>()) {
-#pragma unroll
-      for (int jj = 0; jj < DC / 4; ++jj)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) orow[jj * 64 + tx * 4 + e] = acc[i][jj * 4 + e] * inv;
-    } else {
-#pragma unroll
-      for (int j = 0; j < DC; ++j) orow[tx + TX * j] = acc[i][j] * inv;
-    }
+  const float inv0 = 1.0f / fmaxf(st.l0, 1e-30f);
+  const float inv1 = 1.0f / fmaxf(st.l1, 1e-30f);
+  if (p.lse && (lane & 3) == 0) {  // m is in the log2 domain
+    if (r0 < p.sq) store_lse(p, bi, hi, r0, st.m0 * kLn2, st.l0);
+    if (r0 + 8 < p.sq) store_lse(p, bi, hi, r0 + 8, st.m1 * kLn2, st.l1);
   }
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+    st.acc[n][0] *= inv0;
+    st.acc[n][1] *= inv0;
+    st.acc[n][2] *= inv1;
+    st.acc[n][3] *= inv1;
+  }
+  store_rows<float, D>(static_cast<float*>(p.o) + bi * p.o_sb + hi * p.o_sh, p.o_ss, qw, p.sq,
+                       st.acc, 1.f, lane);
 }
 
 // ------------------------------------------------------------------------- //
@@ -922,8 +896,9 @@ __global__ void __launch_bounds__(DM_WARPS * 32) flash_decode_mma_kernel(Params 
   // neighbouring lanes on neighbouring 16 bytes; keys from kv_hi on are zeros.
   auto issue = [&](int i) {
     __nv_bfloat16* dst = ring + (i % ST) * dm_stage_elems<D>();
-    stage_rows_bf16<D, 32, TILE>(kb, p.k_ss, split.key0(i), split.kv_hi, dst, lane);
-    stage_rows_bf16<D, 32, TILE>(vb, p.v_ss, split.key0(i), split.kv_hi, dst + TILE * LD, lane);
+    stage_rows<__nv_bfloat16, D, TILE, 32>(kb, p.k_ss, split.key0(i), split.kv_hi, dst, lane);
+    stage_rows<__nv_bfloat16, D, TILE, 32>(vb, p.v_ss, split.key0(i), split.kv_hi,
+                                           dst + TILE * LD, lane);
   };
 #pragma unroll
   for (int i = 0; i < ST; ++i) {
@@ -1263,7 +1238,6 @@ cudaError_t launch_decode(void (*kernel)(Params), const Params& p, int rows_a_bl
 
 template <typename T, int D>
 cudaError_t launch(const Params& p, int cluster, cudaStream_t stream) {
-  constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
   // The decode kernels write no log-sum-exp: a call that wants it (the
   // training route) takes the prefill kernels at any length. They have no
   // d 16 (that head dim is the training route's alone).
@@ -1273,7 +1247,7 @@ cudaError_t launch(const Params& p, int cluster, cudaStream_t stream) {
     int csize = cluster > 0 ? cluster : kDecodeDefaultCluster;
     csize = max(1, min(csize, (p.skv + kDecodeTile - 1) / kDecodeTile));  // no wider than the keys
     while (csize & (csize - 1)) --csize;  // 1, 2, 4 or 8: other sizes ran far slower (PERF.md)
-    if constexpr (kBf16) {
+    if constexpr (kBf16<T>) {
       return launch_decode(flash_decode_mma_kernel<D>, p, DM_ROWS, DM_WARPS * 32,
                            dm_smem_bytes<D>(), merge_slot_floats<DM_ROWS, D>(), csize, stream);
     } else {
@@ -1286,7 +1260,7 @@ cudaError_t launch(const Params& p, int cluster, cudaStream_t stream) {
                            csize, stream);
     }
   }
-  if constexpr (kBf16) {
+  if constexpr (kBf16<T>) {
     constexpr int smem = mma_smem_bytes<D>();
     cudaError_t err =
         cudaFuncSetAttribute(flash_mma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -1294,11 +1268,13 @@ cudaError_t launch(const Params& p, int cluster, cudaStream_t stream) {
     flash_mma_kernel<D><<<dim3(p.h, (p.sq + MM_BM - 1) / MM_BM, p.b),
                           MM_GROUPS * MM_GROUP_THREADS, smem, stream>>>(p);
   } else {
-    constexpr int smem = tile_smem_bytes<D>();
-    cudaError_t err = cudaFuncSetAttribute(flash_tile_kernel<D>,
+    constexpr int smem = tf32_smem_bytes<D>();
+    const int qtiles = (p.sq + TF_ROWS - 1) / TF_ROWS;
+    if (qtiles > 65535) return cudaErrorInvalidValue;
+    cudaError_t err = cudaFuncSetAttribute(flash_tf32_kernel<D>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
-    flash_tile_kernel<D><<<dim3((p.sq + BM - 1) / BM, p.h, p.b), TX * TY, smem, stream>>>(p);
+    flash_tf32_kernel<D><<<dim3(p.h, p.b, qtiles), TF_THREADS, smem, stream>>>(p);
   }
   return cudaGetLastError();
 }

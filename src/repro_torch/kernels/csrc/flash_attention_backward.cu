@@ -32,9 +32,12 @@
 //    fp32: ~20 bits of each product, where one TF32 product keeps 10 and
 //    could not hold fp32's 2e-5. Tiles stay fp32 in shared memory, rows
 //    padded by 16 bytes, which puts the fragment loads of a warp on 32
-//    distinct banks; the k index of a product whose A operand comes from
-//    accumulators is taken in the accumulators' own column order (k = t <->
-//    column 2 t, k = t + 4 <-> 2 t + 1), so no shuffle re-packs them. The
+//    distinct banks; a fragment whose rows run along k comes by `ldmatrix`
+//    (on fp32 rows it hands lane (g, t) row g's value t, the TF32 fragment
+//    layout), the others by scalar loads; the k index of a product whose A
+//    operand comes from accumulators is taken in the accumulators' own
+//    column order (k = t <-> column 2 t, k = t + 4 <-> 2 t + 1), so no
+//    shuffle re-packs them. The
 //    tensor cores' accumulation rounds toward zero, so a long sum (dK and dV
 //    over ~6,000 queries) takes each tile's product in a fresh fragment and
 //    adds it by an fp32 add.
@@ -44,7 +47,8 @@
 // element-wise step, whose predicated form was its largest cost). What
 // stands between these kernels and the bound: the two recomputed products,
 // and `mma.sync` itself; `wgmma`, at twice its rate with larger warp tiles,
-// is later work.
+// is later work. The warp step (`warp_scores`, `warp_accumulate`) and the
+// staging of tiles live in attn_warp.cuh, shared with the fp32 forward.
 //
 // Deterministic: no float atomics, each result written once, every sum in a
 // fixed order. Kernels, in order on the stream:
@@ -75,9 +79,7 @@
 #include <math.h>
 #include <stdint.h>
 
-#include <type_traits>
-
-#include "mma.cuh"
+#include "attn_warp.cuh"
 
 namespace {
 
@@ -109,184 +111,6 @@ struct BwdParams {
   float scale;
   int causal;
 };
-
-template <typename T>
-constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
-
-// Rows of a streamed tile (queries for dK/dV, keys for dQ).
-template <int D>
-__host__ __device__ constexpr int tile_rows() {
-  return D == 128 ? 32 : 64;
-}
-
-// Stages of a ring: one for fp32 at d 128, else two.
-template <typename T, int D>
-__host__ __device__ constexpr int ring_stages() {
-  return sizeof(T) == 4 && D == 128 ? 1 : 2;
-}
-
-// Row pitch in shared memory, in elements: 16 bytes of padding.
-template <typename T, int D>
-__host__ __device__ constexpr int pitch() {
-  return D + 16 / (int)sizeof(T);
-}
-
-// Two neighbouring values of a row, rounded once.
-__device__ __forceinline__ void store2(float* p, float a, float b) {
-  *reinterpret_cast<float2*>(p) = make_float2(a, b);
-}
-
-__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
-}
-
-// Rows [row0, row0 + ROWS) of a (rows, D) slab with row stride `ss` into
-// shared memory with pitch `pitch<T, D>()`, by 16-byte cp.async from the
-// block's threads; rows at or beyond `valid` become zeros. The caller commits.
-template <typename T, int D, int ROWS>
-__device__ __forceinline__ void stage_rows(const T* base, long long ss, int row0, int valid,
-                                           T* dst) {
-  constexpr int PER = 16 / (int)sizeof(T);  // values a chunk
-  constexpr int CH = D / PER;               // chunks a row
-  constexpr int LD = pitch<T, D>();
-  for (int idx = threadIdx.x; idx < ROWS * CH; idx += kThreads) {
-    const int r = idx / CH;
-    const int c = (idx % CH) * PER;
-    const bool in = row0 + r < valid;
-    cp_async16(dst + r * LD + c, in ? base + (long long)(row0 + r) * ss + c : base, in);
-  }
-}
-
-// c[n] += A B_n^T for n < NC: A the warp's 16 rows of a tile, B_n rows
-// [8 n, 8 n + 8) of another, both (rows, D) in shared memory. c in mma
-// accumulator layout: this lane holds rows g and g + 8 (g = lane / 4) and
-// columns 2 t, 2 t + 1 (t = lane % 4) of each 8-column n-tile.
-template <typename T, int D, int NC>
-__device__ __forceinline__ void warp_scores(float (&c)[NC][4], const T* A, const T* B, int lane,
-                                            const uint32_t (*af)[4] = nullptr) {
-  constexpr int LD = pitch<T, D>();
-  if constexpr (kBf16<T>) {
-    static_assert(NC % 2 == 0, "n-tiles come in pairs");
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t a[4];
-      if (af) {
-        a[0] = af[kk][0]; a[1] = af[kk][1]; a[2] = af[kk][2]; a[3] = af[kk][3];
-      } else {
-        ldmatrix_x4(a, A + (lane & 15) * LD + kk * 16 + (lane >> 4) * 8);
-      }
-#pragma unroll
-      for (int np = 0; np < NC / 2; ++np) {
-        uint32_t b[4];
-        ldmatrix_x4(b, B + (np * 16 + (lane & 7) + ((lane >> 4) << 3)) * LD + kk * 16 +
-                           ((lane >> 3) & 1) * 8);
-        mma_bf16(c[2 * np], a, b[0], b[1]);
-        mma_bf16(c[2 * np + 1], a, b[2], b[3]);
-      }
-    }
-  } else {
-    const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-    for (int kk = 0; kk < D / 8; ++kk) {
-      const float* ar = A + g * LD + kk * 8 + t;
-      uint32_t ah[4], al[4];
-      split_tf32(ar[0], ah[0], al[0]);
-      split_tf32(ar[8 * LD], ah[1], al[1]);
-      split_tf32(ar[4], ah[2], al[2]);
-      split_tf32(ar[8 * LD + 4], ah[3], al[3]);
-#pragma unroll
-      for (int n = 0; n < NC; ++n) {
-        const float* br = B + (n * 8 + g) * LD + kk * 8 + t;
-        uint32_t bh[2], bl[2];
-        split_tf32(br[0], bh[0], bl[0]);
-        split_tf32(br[4], bh[1], bl[1]);
-        mma_3xtf32(c[n], ah, al, bh, bl);
-      }
-    }
-  }
-}
-
-// acc += W B: W the warp's 16 rows x 8 NC columns as accumulator fragments
-// (w[j]: columns [8 j, 8 j + 8)), rounded to bf16 or split into TF32 parts on
-// the way into the A operand; B a (8 NC, D) tile in shared memory, taken
-// along its rows; acc (16, D) in accumulator layout.
-template <typename T, int D, int NC>
-__device__ __forceinline__ void warp_accumulate(float (&acc)[D / 8][4], const float (&w)[NC][4],
-                                                const T* B, int lane) {
-  constexpr int LD = pitch<T, D>();
-  if constexpr (kBf16<T>) {
-    // k-step kk: W's n-tiles 2 kk (registers 0, 1) and 2 kk + 1 (2, 3).
-#pragma unroll
-    for (int kk = 0; kk < NC / 2; ++kk) {
-      const uint32_t a[4] = {pack_bf16(w[2 * kk][0], w[2 * kk][1]),
-                             pack_bf16(w[2 * kk][2], w[2 * kk][3]),
-                             pack_bf16(w[2 * kk + 1][0], w[2 * kk + 1][1]),
-                             pack_bf16(w[2 * kk + 1][2], w[2 * kk + 1][3])};
-#pragma unroll
-      for (int dp = 0; dp < D / 16; ++dp) {
-        uint32_t b[4];
-        ldmatrix_x4_trans(b, B + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD + dp * 16 +
-                                 (lane >> 4) * 8);
-        mma_bf16(acc[2 * dp], a, b[0], b[1]);
-        mma_bf16(acc[2 * dp + 1], a, b[2], b[3]);
-      }
-    }
-  } else {
-    // k-step j: W's columns 8 j + 2 t as k = t and 8 j + 2 t + 1 as k = t + 4,
-    // B's rows in the same order. The tile's sum goes into a fresh fragment,
-    // CH n-tiles at a time, and then into acc by fp32 adds: the tensor
-    // cores' accumulation rounds toward zero, which over the ~2,300 mma steps
-    // of a long sum (dK at the train_lm layer) drifts 6e-5 of the largest
-    // gradient, where one tile's 3 NC steps stay near fp32.
-    constexpr int CH = D / 8 < 8 ? D / 8 : 8;
-    const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-    for (int c0 = 0; c0 < D / 8; c0 += CH) {
-      float tile[CH][4];
-#pragma unroll
-      for (int n = 0; n < CH; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) tile[n][e] = 0.f;
-#pragma unroll
-      for (int j = 0; j < NC; ++j) {
-        uint32_t ah[4], al[4];
-        split_tf32(w[j][0], ah[0], al[0]);
-        split_tf32(w[j][2], ah[1], al[1]);
-        split_tf32(w[j][1], ah[2], al[2]);
-        split_tf32(w[j][3], ah[3], al[3]);
-        const float* br = B + (j * 8 + 2 * t) * LD + c0 * 8 + g;
-#pragma unroll
-        for (int n = 0; n < CH; ++n) {
-          uint32_t bh[2], bl[2];
-          split_tf32(br[n * 8], bh[0], bl[0]);
-          split_tf32(br[LD + n * 8], bh[1], bl[1]);
-          mma_3xtf32(tile[n], ah, al, bh, bl);
-        }
-      }
-#pragma unroll
-      for (int n = 0; n < CH; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[c0 + n][e] += tile[n][e];
-    }
-  }
-}
-
-// A warp's (16, D) accumulator, times `mul`, into rows [row0, row0 + 16) of
-// a (rows, D) slab with row stride `ss`; rows at or beyond `valid` skipped.
-template <typename OUT, int D>
-__device__ __forceinline__ void store_rows(OUT* base, long long ss, int row0, int valid,
-                                           const float (&acc)[D / 8][4], float mul, int lane) {
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int r = row0 + g + 8 * half;
-    if (r >= valid) continue;
-    OUT* row = base + (long long)r * ss + 2 * t;
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n)
-      store2(row + n * 8, acc[n][2 * half] * mul, acc[n][2 * half + 1] * mul);
-  }
-}
 
 // (a) D = rowsum(dO * O) in fp32 for the rows of (b, h, sq): 16 bytes of a
 // row a lane, L lanes a row, summed by shuffles in a fixed order.
@@ -419,20 +243,20 @@ __global__ void __launch_bounds__(kThreads, 2) bwd_dkdv_kernel(BwdParams p) {
   const int items = nqt > 0 ? heads * nqt : 0;  // (head, query tile) pairs
   const float sl = p.scale * kLog2e;
 
-  stage_rows<T, D, kRows>(static_cast<const T*>(p.k) + bi * p.k_sb + hk * p.k_sh, p.k_ss, k0,
-                          p.skv, Ks);
-  stage_rows<T, D, kRows>(static_cast<const T*>(p.v) + bi * p.v_sb + hk * p.v_sh, p.v_ss, k0,
-                          p.skv, Vs);
+  stage_rows<T, D, kRows, kThreads>(static_cast<const T*>(p.k) + bi * p.k_sb + hk * p.k_sh,
+                                    p.k_ss, k0, p.skv, Ks, threadIdx.x);
+  stage_rows<T, D, kRows, kThreads>(static_cast<const T*>(p.v) + bi * p.v_sb + hk * p.v_sh,
+                                    p.v_ss, k0, p.skv, Vs, threadIdx.x);
   // Item i (head h0 + i / nqt, query tile qt0 + i % nqt) into stage i % ST,
   // with its rows' lse and D (zeros past sq, where the mask holds).
   auto issue = [&](int i) {
     const int hi = h0 + i / nqt;
     const int q0 = (qt0 + i % nqt) * BQ;
     T* Qd = ring + (i % ST) * 2 * BQ * LD;
-    stage_rows<T, D, BQ>(static_cast<const T*>(p.q) + bi * p.q_sb + hi * p.q_sh, p.q_ss, q0, p.sq,
-                         Qd);
-    stage_rows<T, D, BQ>(static_cast<const T*>(p.dout) + bi * p.do_sb + hi * p.do_sh, p.do_ss,
-                         q0, p.sq, Qd + BQ * LD);
+    stage_rows<T, D, BQ, kThreads>(static_cast<const T*>(p.q) + bi * p.q_sb + hi * p.q_sh,
+                                   p.q_ss, q0, p.sq, Qd, threadIdx.x);
+    stage_rows<T, D, BQ, kThreads>(static_cast<const T*>(p.dout) + bi * p.do_sb + hi * p.do_sh,
+                                   p.do_ss, q0, p.sq, Qd + BQ * LD, threadIdx.x);
     if (threadIdx.x < BQ) {
       const int r = q0 + threadIdx.x;
       const long long row = ((long long)bi * p.h + hi) * p.sq + (r < p.sq ? r : 0);
@@ -571,17 +395,17 @@ __global__ void __launch_bounds__(kThreads, kBf16<T> ? 3 : 2) bwd_dq_kernel(BwdP
   const T* kb = static_cast<const T*>(p.k) + bi * p.k_sb + hk * p.k_sh;
   const T* vb = static_cast<const T*>(p.v) + bi * p.v_sb + hk * p.v_sh;
 
-  stage_rows<T, D, kRows>(static_cast<const T*>(p.q) + bi * p.q_sb + hi * p.q_sh, p.q_ss, q0,
-                          p.sq, Qs);
-  stage_rows<T, D, kRows>(static_cast<const T*>(p.dout) + bi * p.do_sb + hi * p.do_sh, p.do_ss,
-                          q0, p.sq, Gs);
+  stage_rows<T, D, kRows, kThreads>(static_cast<const T*>(p.q) + bi * p.q_sb + hi * p.q_sh,
+                                    p.q_ss, q0, p.sq, Qs, threadIdx.x);
+  stage_rows<T, D, kRows, kThreads>(static_cast<const T*>(p.dout) + bi * p.do_sb + hi * p.do_sh,
+                                    p.do_ss, q0, p.sq, Gs, threadIdx.x);
   // One past the last key any row of this tile may see.
   const int kv_hi = p.causal ? min(p.skv, min(q0 + kRows, p.sq)) : p.skv;
   const int tiles = (kv_hi + BN - 1) / BN;
   auto issue = [&](int i) {
     T* Kd = ring + (i % ST) * 2 * BN * LD;
-    stage_rows<T, D, BN>(kb, p.k_ss, i * BN, p.skv, Kd);
-    stage_rows<T, D, BN>(vb, p.v_ss, i * BN, p.skv, Kd + BN * LD);
+    stage_rows<T, D, BN, kThreads>(kb, p.k_ss, i * BN, p.skv, Kd, threadIdx.x);
+    stage_rows<T, D, BN, kThreads>(vb, p.v_ss, i * BN, p.skv, Kd + BN * LD, threadIdx.x);
   };
 #pragma unroll
   for (int i = 0; i < ST - 1; ++i) {

@@ -489,7 +489,121 @@ def test_flash_backward_kernel_roundings_hold_the_tolerance(d, dtype, tol):
         assert _scaled_err(g, w.numpy()) <= tol, name
 
 
-@pytest.mark.parametrize("changed", ["mma.cuh", "flash_attention_backward.cu"])
+def _emulated_forward(q, k, v, causal, kv_len=None, q_offset=None):
+    """The fp32 forward kernel's roundings (``flash_tf32_kernel``): Q K^T
+    and P V as 3xTF32 (``_mm_3xtf32``) over key tiles of 64 (32 at d 128);
+    the online softmax tile by tile in the kernel's order, in the log2
+    domain (m = max(m, tile max of S times scale log2 e), P = 2^(S scale
+    log2 e - m) with one rounding, l and acc rescaled by 2^(m_old - m) before
+    the tile's terms are added); each tile's P V summed alone and then added
+    to acc; the output acc / max(l, 1e-30) and lse = m ln 2 + ln l (+inf
+    where l is 0). Returns (out, lse), fp32. Not modelled: the tensor cores'
+    accumulation inside a tile's product, which truncates where PyTorch's
+    fp32 products round to nearest; the order of the sums inside a tile
+    (the kernel sums a lane's share of l, then a quad's); ``ex2.approx``'s
+    error (~2 ulp). The ``cuda`` cases hold the kernel itself."""
+    b, h, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    kk = k.repeat_interleave(h // hkv, dim=1)
+    vv = v.repeat_interleave(h // hkv, dim=1)
+    allowed = _visible(b, sq, skv, causal, kv_len, q_offset)[:, None]
+    sl = (torch.tensor(1.0 / math.sqrt(d), dtype=torch.float32)
+          * torch.tensor(1.4426950408889634, dtype=torch.float32))
+    m = torch.full((b, h, sq, 1), -1e30)
+    l = torch.zeros((b, h, sq, 1))
+    acc = torch.zeros((b, h, sq, d))
+    bn = 32 if d == 128 else 64
+    for k0 in range(0, skv, bn):
+        s = _mm_3xtf32(q, kk[:, :, k0:k0 + bn].transpose(-1, -2))
+        s = torch.where(allowed[..., k0:k0 + bn], s, -1e30)
+        top = s.amax(-1, keepdim=True)
+        mn = torch.maximum(m, torch.where(top == -1e30, -1e30, top * sl))
+        mu = torch.where(mn == -1e30, 0.0, mn)
+        alpha = torch.exp2(m - mu)
+        p = torch.exp2((s.double() * sl.double() - mu.double()).float())
+        l = l * alpha + p.sum(-1, keepdim=True)
+        acc = acc * alpha + _mm_3xtf32(p, vv[:, :, k0:k0 + bn])
+        m = mn
+    out = acc * (1.0 / torch.clamp(l, min=1e-30))
+    lse = torch.where(l > 0, m * math.log(2.0) + torch.log(l), math.inf)
+    return out, lse[..., 0]
+
+
+def _visible(b, sq, skv, causal, kv_len=None, q_offset=None):
+    """(b, sq, skv) bool: the keys each query row may see."""
+    kpos = np.arange(skv)[None, None, :]
+    lens = np.full(b, skv) if kv_len is None else np.asarray(kv_len)
+    offs = np.zeros(b, int) if q_offset is None else np.asarray(q_offset)
+    seen = np.broadcast_to(kpos < lens[:, None, None], (b, sq, skv))
+    if causal:
+        seen = seen & (kpos <= np.arange(sq)[None, :, None]
+                       + offs[:, None, None])
+    return torch.from_numpy(np.ascontiguousarray(seen))
+
+
+def _lse_f64(q, k, seen):
+    """Each row's log-sum-exp of its visible scaled scores in fp64 (+inf
+    for a row with none)."""
+    kk = np.repeat(k, q.shape[1] // k.shape[1], axis=1).astype(np.float64)
+    scores = np.einsum("bhqd,bhkd->bhqk", q.astype(np.float64), kk)
+    scores = np.where(seen[:, None], scores / np.sqrt(q.shape[-1]), -np.inf)
+    top = scores.max(-1, keepdims=True)
+    with np.errstate(invalid="ignore", divide="ignore"):
+        lse = top[..., 0] + np.log(np.exp(scores - top).sum(-1))
+    return np.where(seen.any(-1)[:, None], lse, np.inf)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [16, 64, 128])
+def test_flash_forward_kernel_roundings_hold_the_tolerance(d, causal):
+    """The fp32 forward kernel's roundings (``_emulated_forward``) at a GQA
+    group of 3 with a ragged last key tile (70 keys: 64 + 6, or 2 x 32 + 6
+    at d 128) against the JAX package's ``naive_attention`` and its Pallas
+    kernel in interpret mode, fp32 2e-5; the log-sum-exp within 1e-4 of
+    the fp64 one."""
+    b, h, hkv, s = 2, 6, 2, 70
+    q, k, v = _qkv(29, b, h, hkv, s, s, d)
+    out, lse = _emulated_forward(*map(torch.from_numpy, (q, k, v)), causal)
+    tr = lambda a: jnp.asarray(a.transpose(0, 2, 1, 3))
+    naive = np.asarray(naive_attention_jax(tr(q), tr(k), tr(v),
+                                           causal=causal))
+    pallas = np.asarray(flash_attention_fwd(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal,
+        block_q=64, block_k=64, interpret=True))
+    np.testing.assert_allclose(out.numpy(), naive.transpose(0, 2, 1, 3),
+                               atol=2e-5, rtol=0)
+    np.testing.assert_allclose(out.numpy(), pallas, atol=2e-5, rtol=0)
+    np.testing.assert_allclose(lse.numpy(), _lse_f64(q, k, _visible(
+        b, s, s, causal).numpy()), atol=1e-4, rtol=0)
+
+
+def test_flash_forward_kernel_roundings_with_offset_and_kv_len():
+    """The serving route's arguments through the fp32 forward's roundings
+    at d 128: a chunk of 40 rows into a cache, each sequence with its own
+    q_offset and kv_len, against ``naive_attention`` on each sequence alone
+    (keys cut at kv_len), fp32 2e-5; the third sequence has no key and
+    gives zeros and an lse of +inf."""
+    b, h, hkv, sq, skv, d = 3, 4, 2, 40, 100, 128
+    offsets, lens = [60, 10, 0], [100, 45, 0]
+    q, k, v = _qkv(30, b, h, hkv, sq, skv, d)
+    out, lse = _emulated_forward(*map(torch.from_numpy, (q, k, v)), True,
+                                 kv_len=lens, q_offset=offsets)
+    for i in range(2):
+        want = naive_attention_jax(
+            jnp.asarray(q[i:i + 1].transpose(0, 2, 1, 3)),
+            jnp.asarray(k[i:i + 1, :, :lens[i]].transpose(0, 2, 1, 3)),
+            jnp.asarray(v[i:i + 1, :, :lens[i]].transpose(0, 2, 1, 3)),
+            causal=True, q_offset=offsets[i])
+        np.testing.assert_allclose(out[i:i + 1].numpy().transpose(0, 2, 1, 3),
+                                   np.asarray(want), atol=2e-5, rtol=0)
+    seen = _visible(b, sq, skv, True, lens, offsets).numpy()
+    np.testing.assert_allclose(lse[:2].numpy(), _lse_f64(q, k, seen)[:2],
+                               atol=1e-4, rtol=0)
+    assert out[2].abs().max() == 0 and torch.isinf(lse[2]).all()
+
+
+@pytest.mark.parametrize("changed", ["mma.cuh", "attn_warp.cuh",
+                                     "flash_attention_backward.cu"])
 def test_build_digest_covers_sources_and_headers(tmp_path, changed):
     """The library's tag changes when a header changes, not only a source,
     so a stale library under build/ is never loaded."""
@@ -999,8 +1113,14 @@ FLASH_CUDA_TABLE = [
     (1, 9, 3, 65, 65, 64, True, None, None),
     (1, 9, 3, 1000, 1000, 64, True, None, None),
     (1, 8, 2, 200, 200, 128, True, None, None),
+    # d 128 with a ragged last tile of 32 keys, causal and not
+    (2, 6, 2, 77, 77, 128, True, None, None),
+    (1, 4, 1, 100, 100, 128, False, None, None),
     # a chunk of 40 rows into a cache
     (2, 4, 2, 40, 200, 128, True, [160, 37], [200, 77]),
+    # a chunk of 70 rows at d 64; a sequence with no key gives zeros
+    (2, 9, 3, 70, 300, 64, True, [230, 5], [300, 60]),
+    (2, 4, 2, 20, 50, 64, False, None, [50, 0]),
     # decode, groups 1, 3 and 16 (chatglm3: 32 heads over 2 KV heads)
     (8, 8, 8, 1, 512, 128, True, [511, 3, 100, 257, 0, 64, 33, 490], None),
     (8, 9, 3, 1, 2048, 64, True, [1999, 5, 700, 1024, 31, 32, 2047, 1500],
@@ -1354,9 +1474,10 @@ def test_embedding_bag_backward_kernel_is_deterministic(cuda_device, dtype, t,
 # smollm-135m's layer at the train phase's length, a chatglm3-like d 128,
 # ragged tiles, non-causal, and short rows, which the serve route sends to the
 # decode kernels and the training route to the prefill kernels; then the
-# reduced configs' head_dim 16 (the training route's alone). The last two:
-# a group of 8 split over 8 blocks with a ragged key tile, and head_dim 16
-# with its group split.
+# reduced configs' head_dim 16 (the training route's alone). Then a group
+# of 8 split over 8 blocks with a ragged key tile, head_dim 16 with its group
+# split, and ragged key tiles of the fp32 forward at d 128 (32 keys) and
+# d 16 (64 keys), causal and not.
 FLASH_BWD_CUDA_TABLE = [
     (8, 9, 3, 2048, 64, True),
     (2, 32, 2, 512, 128, True),
@@ -1372,6 +1493,8 @@ FLASH_BWD_CUDA_TABLE = [
     (2, 4, 2, 5, 16, True),
     (1, 16, 2, 300, 64, True),
     (2, 8, 2, 200, 16, True),
+    (2, 6, 2, 77, 128, True),
+    (1, 3, 3, 33, 16, False),
 ]
 BWD_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
 
@@ -1418,6 +1541,18 @@ def test_flash_backward_kernel_matches_plain(cuda_device, dtype, b, h, hkv, s,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_training_forward_is_deterministic(cuda_device, dtype):
+    """At the train_lm layer (b 8, h 9, hkv 3, s 2048, d 64, causal) three
+    calls of the forward with the log-sum-exp give the same bits."""
+    q, k, v, _ = _flash_train_inputs(cuda_device, dtype, 8, 9, 3, 2048, 64)
+    first = flash_attention_lse_cuda(q, k, v, True)
+    for _ in range(2):
+        again = flash_attention_lse_cuda(q, k, v, True)
+        assert all(torch.equal(a, b_) for a, b_ in zip(again, first))
+
+
+@pytest.mark.cuda
 def test_flash_serve_route_refuses_head_dim_16(cuda_device):
     """head_dim 16 is the training route's alone: the serve entry raises
     on it rather than launch a kernel it has not."""
@@ -1431,13 +1566,15 @@ def test_flash_serve_route_refuses_head_dim_16(cuda_device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("s", [2, 3, 5, 8])
-def test_flash_short_causal_prefill_both_routes(cuda_device, dtype, s):
-    """A causal prefill of 2-8 tokens with no q_offset and skv == sq: the
-    serve route (the decode kernels) and, with grad, the training route
-    (the prefill kernels) forward, and its backward, against the plain
-    versions; the autograd Function counts one launch each way."""
-    q, k, v, do = _flash_train_inputs(cuda_device, dtype, 2, 9, 3, s, 64,
+@pytest.mark.parametrize("s", [2, 3, 5, 8, 9, 65])
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_short_causal_prefill_both_routes(cuda_device, dtype, s, d):
+    """A causal prefill of 2-65 tokens with no q_offset and skv == sq: the
+    serve route (the decode kernels up to 8 tokens, the prefill kernels
+    above) and, with grad, the training route (the prefill kernels)
+    forward, and its backward, against the plain versions; the autograd
+    Function counts one launch each way."""
+    q, k, v, do = _flash_train_inputs(cuda_device, dtype, 2, 9, 3, s, d,
                                       seed=41)
     want = flash_attention_plain(q, k, v, True)
     with torch.no_grad():
