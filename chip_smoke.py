@@ -7,7 +7,8 @@ Needs one CUDA device, nvcc and no arguments. Imports nothing of JAX and
 nothing of the JAX package. Phases, one JSON line each; any failure ends the
 run with a non-zero exit code (nothing drops to the CPU or to a plain version):
 
-  env      versions, the card's name and power limit
+  env      versions, the card's name and power limit, the driver version
+           and the GPU's UUID
   build    nvcc over src/repro_torch/kernels/csrc/*.cu, loaded with ctypes
   kernels  each hand-written kernel against its plain PyTorch version on the
            card, fp32 and bf16, with times (on the card, from a CUDA graph's
@@ -17,6 +18,12 @@ run with a non-zero exit code (nothing drops to the CPU or to a plain version):
            indices) three calls that must agree bitwise; the attention and
            RMSNorm backwards the same, three calls at each main shape, and
            the kernels a call launched, counted in a trace, as planned
+  repeats  100 calls each of the attention forward (with the log-sum-exp)
+           and backward at the train_lm layer and at a chatglm3-like layer,
+           and of the RMSNorm backward at the train_lm rows, fp32 and bf16:
+           the calls whose bits differ from the first call's, which must be
+           none (with the env phase's driver version and GPU UUID, this ties
+           a recurrence of an unequal repeat to a machine)
   serve    smollm-135m at full width and depth, bf16, random weights from a
            seed: the continuous-batching engine answers 16 requests; launch
            counters show that the run went through the kernels; then the
@@ -43,7 +50,8 @@ run with a non-zero exit code (nothing drops to the CPU or to a plain version):
            the memory plan's remat ("dots"), through the attention and RMSNorm
            kernels in both directions; launches held to the count reckoned
            from the layers and the policy; then 2 steps under torch.profiler,
-           whose attention-backward kernels must be as the plan reckons
+           whose attention and RMSNorm-backward kernels must be as the
+           counts reckon
   train_lm_check
            one step of a 2-layer, full-width smollm through the kernels and
            through the plain versions (autograd) on the same weights and
@@ -174,7 +182,8 @@ BWD_TOL = {"flash_attention_backward": {torch.float32: 2e-5,
                                         torch.bfloat16: 3e-2},
            "rmsnorm_backward": {torch.float32: 1e-5, torch.bfloat16: 1e-2}}
 BWD_REPEATS = 3         # backward calls at a main shape that must agree bitwise
-TRACE_TRIES = 3         # traces trace_ms takes before an empty one is an error
+REPEAT_CALLS = 100      # the repeats phase: calls at each shape, all bitwise equal
+TRACE_TRIES = 3         # traces trace_ms takes of a call while events are lost
 # The training route's forward (output and the rows' log-sum-exp) against
 # the plain forward: the output to the forward cases' ATTN_TOL (absolute);
 # the log-sum-exp, in nats, to LSE_TOL of max(1, its largest magnitude) (the
@@ -265,9 +274,10 @@ def trace_ms(fn, arg_sets, iters: int = 10) -> dict:
     ``kernels``: the four that take the most time, by name; ``backend``:
     the attention backend those names show (cudnn, flash, efficient by its
     ``fmha`` kernels, or math when none of them); ``launches_per_call``:
-    the kernels, copies and fills a call launched. A trace that comes back
-    with no device event at all (the profiler drops one now and then) is
-    taken again, up to ``TRACE_TRIES`` times."""
+    the kernels, copies and fills a call launched. A trace that lost
+    events (the profiler drops them now and then: all of a trace's, or one
+    call's, so that a kernel counts other than a whole number of times a
+    call) is taken again, up to ``TRACE_TRIES`` times; the last is kept."""
     from torch.profiler import ProfilerActivity, profile
     for args in arg_sets[:2]:
         fn(*args)
@@ -278,9 +288,10 @@ def trace_ms(fn, arg_sets, iters: int = 10) -> dict:
                 fn(*arg_sets[i % len(arg_sets)])
             torch.cuda.synchronize()
         device_us, launches, by_name = _device_time(prof, iters, "call")
-        if device_us:
+        if device_us and all(e["launches_per_call"] % 1 == 0
+                             for e in by_name):
             break
-    else:
+    if not device_us:
         raise RuntimeError(f"torch.profiler reported no device time in "
                            f"{TRACE_TRIES} traces")
     names = [e["name"] for e in by_name]
@@ -318,17 +329,25 @@ def clone_like(t: torch.Tensor) -> torch.Tensor:
 # Phases
 # ------------------------------------------------------------------------- #
 
+def _smi(fields: str) -> str:
+    """The first card's ``fields`` as nvidia-smi gives them."""
+    out = subprocess.run(
+        ["nvidia-smi", f"--query-gpu={fields}", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True).stdout
+    return out.strip().splitlines()[0]
+
+
 def phase_env() -> dict:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
                          "this script needs one CUDA device")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        check=True, capture_output=True, text=True).stdout.strip()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # the driver and the card's UUID tie a run's bitwise checks to a machine
+    driver, uuid = (v.strip() for v in _smi("driver_version,uuid").split(","))
     env = {"python": sys.version.split()[0], "torch": torch.__version__,
-           "cuda": torch.version.cuda, "card": smi.splitlines()[0],
+           "cuda": torch.version.cuda, "card": _smi("name,power.limit"),
+           "driver": driver, "gpu_uuid": uuid,
            "device_count": torch.cuda.device_count(),
            "allow_tf32": torch.backends.cuda.matmul.allow_tf32}
     emit("env", **env)
@@ -599,11 +618,13 @@ def _attention_backward_case(name, b, h, hkv, s, d, causal, dtype, gen,
 
 def _rmsnorm_backward_case(shape, dtype, gen, main=False) -> dict:
     """dx and dgamma against the plain backward; ``main``: three calls must
-    agree bitwise. ``library_ms``: autograd's backward of one
-    ``F.rms_norm``, and ``kernel_trace_ms`` the backward kernels, both as
-    torch.profiler's sum of device time over the same cold copies;
-    ``kernels_per_call``: the kernels a call launched, counted in that
-    trace, which must equal ``BACKWARD_KERNELS_PER_CALL``."""
+    agree bitwise, and ``stage_ms`` is each stage kernel's device time
+    alone. ``library_ms``: autograd's backward of one ``F.rms_norm``, and
+    ``kernel_trace_ms`` the backward kernels, both as torch.profiler's sum
+    of device time over the same cold copies; ``kernels_per_call``: the
+    kernels a call launched, counted in that trace, which must equal
+    ``BACKWARD_KERNELS_PER_CALL``; ``plan``: the call's
+    ``rmsnorm_backward_plan``."""
     d = shape[-1]
     x = torch.randn(shape, generator=gen, device=DEVICE).to(dtype)
     gamma = (1.0 + 0.1 * torch.randn(d, generator=gen, device=DEVICE)).to(dtype)
@@ -643,6 +664,19 @@ def _rmsnorm_backward_case(shape, dtype, gen, main=False) -> dict:
     library = trace_ms(lambda o, leaves, g: torch.autograd.grad(
         o, leaves, g, retain_graph=True), lib_sets)
     del lib_sets
+    plan = rms_module.rmsnorm_backward_plan(rows, d, dtype)
+    if main:
+        # each stage's device time alone, on the buffers of one whole call
+        # (the dgamma stage reads the partial rows the rows stage wrote)
+        bufs = rms_module.rmsnorm_backward_buffers(x, gamma)
+        rms_module.rmsnorm_backward_stages_cuda(x, gamma, dy, 1e-5, bufs)
+        extra["stage_ms"] = {
+            stage: time_ms(lambda a, g, e, stage=stage:
+                           rms_module.rmsnorm_backward_stages_cuda(
+                               a, g, e, 1e-5, bufs, (stage,)),
+                           sets)["device"]
+            for stage in rms_module.BACKWARD_STAGES}
+        del bufs
     return {
         "kernel": "rmsnorm_backward", "shape": list(shape),
         "dtype": dtype_name(dtype), "max_abs_err": max(e for e, _ in errs),
@@ -656,7 +690,7 @@ def _rmsnorm_backward_case(shape, dtype, gen, main=False) -> dict:
         "library_kernels": library["kernels"],
         "bound_ms": max(bound_bytes, bound_ops),
         "bound_by": "bytes" if bound_bytes >= bound_ops else "operations",
-        "cold_copies": len(sets), **extra,
+        "cold_copies": len(sets), "plan": dataclasses.asdict(plan), **extra,
     }
 
 
@@ -665,8 +699,10 @@ def _backward_cases() -> list:
     train_lm phase's shape (the main case), a chatglm3-6b-like layer (d 128,
     32 heads over 2), a ragged tile, a non-causal one, and the reduced
     configs' layer at launch.train's default batch (d 16). RMSNorm: the
-    train_lm phase's rows (8 x 2048 of 576, the main case), ragged and wide
-    rows and one that is not a whole number of 16-byte packs."""
+    train_lm phase's rows (8 x 2048 of 576, the main case), ragged rows,
+    few wide rows, a chatglm3-6b/minitron-8b-width training layer (the
+    same 8 x 2048 rows of 4096) and rows that are not a whole number of
+    16-byte packs."""
     gen = torch.Generator(device=DEVICE).manual_seed(4)
     cases = []
     for dtype in (torch.float32, torch.bfloat16):
@@ -685,6 +721,13 @@ def _backward_cases() -> list:
                                             gen, main=True))
         for shape in ((3, 37, 576), (2, 64, 4096), (3, 7, 100)):
             cases.append(_rmsnorm_backward_case(shape, dtype, gen))
+    # the wide layer draws from a stream of its own, so the other cases keep
+    # the inputs they always had
+    gen_wide = torch.Generator(device=DEVICE).manual_seed(5)
+    for dtype in (torch.float32, torch.bfloat16):
+        cases.append(_rmsnorm_backward_case((LM_BATCH * LM_SEQ, 4096), dtype,
+                                            gen_wide))
+        torch.cuda.empty_cache()
     return cases
 
 
@@ -1070,6 +1113,66 @@ def phase_kernels() -> list:
         pass
     else:
         raise SystemExit("chip_smoke: head_dim 32 was accepted")
+    return cases
+
+
+def _differing_calls(fn) -> int:
+    """Of REPEAT_CALLS calls of ``fn``, those after the first whose results
+    differ from the first's in any bit."""
+    first = fn()
+    torch.cuda.synchronize()
+    return sum(not all(torch.equal(a, b) for a, b in zip(fn(), first))
+               for _ in range(REPEAT_CALLS - 1))
+
+
+def phase_repeats() -> list:
+    """The open fault F3 (on one machine, repeated attention-backward calls
+    were not bitwise equal): REPEAT_CALLS calls each of the attention
+    forward with the log-sum-exp and of its backward at the train_lm layer
+    and at the chatglm3-like layer (the backward's group split over 16
+    blocks), and of the RMSNorm backward at the train_lm rows, fp32 and
+    bf16; each call's bits against the first call's. Any difference fails
+    the phase."""
+    gen = torch.Generator(device=DEVICE).manual_seed(7)
+    cases = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for name, b, h, hkv, s, d in (
+                ("train main", LM_BATCH, 9, 3, LM_SEQ, 64),
+                ("chatglm3-like d=128", 1, 32, 2, 1024, 128)):
+            q, k, v, do = (
+                torch.randn((b, s, heads, d), generator=gen, device=DEVICE)
+                .to(dtype).transpose(1, 2) for heads in (h, hkv, hkv, h))
+            out, lse = flash_attention_lse_cuda(q, k, v, True)
+            shape = {"b": b, "h": h, "hkv": hkv, "s": s, "d": d,
+                     "splits": flash_attention_backward_plan(
+                         b, h, hkv, s, d)[0]}
+            for kernel, fn in (
+                    ("flash_attention_forward_lse",
+                     lambda: flash_attention_lse_cuda(q, k, v, True)),
+                    ("flash_attention_backward",
+                     lambda: flash_attention_backward_cuda(q, k, v, out, lse,
+                                                           do, True))):
+                cases.append({"kernel": kernel, "case": name, "shape": shape,
+                              "dtype": dtype_name(dtype),
+                              "calls": REPEAT_CALLS,
+                              "differing": _differing_calls(fn)})
+            del q, k, v, do, out, lse
+        shape = (LM_BATCH * LM_SEQ, 576)
+        x, dy = (torch.randn(shape, generator=gen, device=DEVICE).to(dtype)
+                 for _ in range(2))
+        gamma = (1.0 + 0.1 * torch.randn(shape[-1], generator=gen,
+                                         device=DEVICE)).to(dtype)
+        cases.append({"kernel": "rmsnorm_backward", "case": "train main",
+                      "shape": list(shape), "dtype": dtype_name(dtype),
+                      "calls": REPEAT_CALLS, "differing": _differing_calls(
+                          lambda: rmsnorm_backward_cuda(x, gamma, dy))})
+        del x, dy, gamma
+    torch.cuda.empty_cache()
+    failed = [c for c in cases if c["differing"]]
+    emit("repeats", cases=cases, failed=len(failed))
+    if failed:
+        raise SystemExit(f"chip_smoke: {len(failed)} repeat check(s) gave "
+                         f"results that differ from the first call: {failed}")
     return cases
 
 
@@ -1660,6 +1763,18 @@ def _lm_forward_trace(launches: dict, steps: int, by_name: list) -> dict:
             **_traced(by_name, "flash_tf32_kernel")}
 
 
+def _lm_norm_backward_trace(launches: dict, steps: int,
+                            by_name: list) -> dict:
+    """The RMSNorm backward at the train_lm rows: BACKWARD_KERNELS_PER_CALL
+    kernels a counted call, and the ones a profiled step launched, with
+    their device ms."""
+    return {"kernels": "rmsnorm_bwd_rows_kernel, rmsnorm_dgamma_kernel",
+            "calls_per_step": launches["rmsnorm_backward"] / steps,
+            "kernels_per_step": launches["rmsnorm_backward"]
+            * rms_module.BACKWARD_KERNELS_PER_CALL / steps,
+            **_traced(by_name, r"rmsnorm_(bwd_rows|dgamma)_kernel")}
+
+
 def _lm_memory_reckoned(cfg, batch: int, seq: int) -> dict:
     """Bytes reckoned from the shapes, fp32: parameters, gradients, m, v and
     the master copy; the logits and their gradient; the projections the
@@ -1733,10 +1848,13 @@ def phase_train_lm() -> dict:
                         f"{cfg.num_layers} layers and remat {plan.remat!r}")
     bwd_plan = _lm_backward_plan(cfg, launches, steps, by_name)
     fwd_trace = _lm_forward_trace(launches, steps, by_name)
-    for what, got in (("backward", bwd_plan), ("forward", fwd_trace)):
+    norm_trace = _lm_norm_backward_trace(launches, steps, by_name)
+    for what, got in (("attention backward", bwd_plan),
+                      ("attention forward", fwd_trace),
+                      ("RMSNorm backward", norm_trace)):
         if (device_us and got["kernels_traced_per_step"]
                 != got["kernels_per_step"]):
-            problems.append(f"attention {what} kernels a step: traced "
+            problems.append(f"{what} kernels a step: traced "
                             f"{got['kernels_traced_per_step']}, reckoned "
                             f"{got['kernels_per_step']} from the counts")
     result = {
@@ -1759,6 +1877,7 @@ def phase_train_lm() -> dict:
             k: v / steps for k, v in launches.items()},
         "attention_backward_plan": bwd_plan,
         "attention_forward_trace": fwd_trace,
+        "rmsnorm_backward_trace": norm_trace,
         "peak_memory_bytes": peak_bytes,
         "memory_reckoned": _lm_memory_reckoned(cfg, LM_BATCH, LM_SEQ),
         "init_seconds": init_seconds, "problems": problems,
@@ -1906,7 +2025,7 @@ KERNELS = (
 )
 
 
-def kernels_line(cases: list, launches_by_path: dict) -> dict:
+def kernels_line(cases: list, launches_by_path: dict, repeats: list) -> dict:
     """One entry per kernel: its launches on the main paths (each path's
     count, read just after that path; 0 where a path never launches it; and
     their sum), its largest error over every case compared, and its times at
@@ -1917,8 +2036,9 @@ def kernels_line(cases: list, launches_by_path: dict) -> dict:
     step's layer, with bf16 beside it); attention also carries the bf16
     1024-token prefill under ``prefill`` and the train_lm forward (with the
     log-sum-exp) under ``train_forward_with_lse``, the embedding bag the
-    same step at Zipf indices under ``zipf``. The other shapes' times are in
-    the ``kernels`` phase's line."""
+    same step at Zipf indices under ``zipf``; the two backwards their
+    repeats phase's counts under ``repeat_check``. The other shapes' times
+    are in the ``kernels`` phase's line."""
     entries = []
     for name, source, replaces, is_main in KERNELS:
         mine = [c for c in cases if c["kernel"] == name]
@@ -1957,6 +2077,11 @@ def kernels_line(cases: list, launches_by_path: dict) -> dict:
             entries[-1]["bitwise_equal_calls"] = main_case[
                 "bitwise_equal_calls"]
         if name in ("flash_attention_backward", "rmsnorm_backward"):
+            entries[-1]["repeat_check"] = [
+                {k: r[k] for k in ("case", "dtype", "calls", "differing")}
+                for r in repeats if r["kernel"] == name]
+            if name == "rmsnorm_backward":
+                entries[-1]["stage_ms"] = main_case["stage_ms"]
             # library_ms of a backward is a torch.profiler sum of device time
             # (trace_ms); kernel_trace_ms is the kernels' read the same way.
             entries[-1]["kernels_per_call"] = main_case["kernels_per_call"]
@@ -2001,6 +2126,7 @@ def main() -> int:
     env = phase_env()
     phase_build()
     cases = phase_kernels()
+    repeats = phase_repeats()
     launches = {}
     # The dense path keeps drawing its weights on the CPU, as it always did;
     # mamba2's 781 M are drawn on the card.
@@ -2015,7 +2141,7 @@ def main() -> int:
     phase_train_dlrm_check()
     launches["train_lm"] = phase_train_lm()
     phase_train_lm_check()
-    line = kernels_line(cases, launches)
+    line = kernels_line(cases, launches, repeats)
     for entry in line["kernels"]:
         if entry["launches"] <= 0:
             raise SystemExit(f"chip_smoke: the main path never launched "

@@ -1,9 +1,12 @@
-"""Times this tree's flash attention (forward and backward), RMSNorm, SSD
-scan and embedding-bag backward kernels against another tree's sources on
-the same inputs, in one process on one card, in turns (other, this, this,
-other), so that two versions are compared within one run. An attention
-backward without the ``splits`` argument (one block a KV head's whole group)
-is called without scratch.
+"""Times this tree's flash attention (forward and backward), RMSNorm
+(forward and backward), SSD scan and embedding-bag backward kernels against
+another tree's sources on the same inputs, in one process on one card, in
+turns (other, this, this, other), so that two versions are compared within
+one run. An attention backward without the ``splits`` argument (one block a
+KV head's whole group) is called without scratch; an older RMSNorm
+backward without a launch plan (one ``blocks`` argument) on scratch of its
+own. First, each side's RMSNorm backward row-pass instances: registers,
+stack and spill bytes a thread, as ``cuobjdump -res-usage`` reads them.
 
     git archive <rev> src/repro_torch/kernels/csrc | tar -x -C build/ab_other
     python3 kernel_ab.py build/ab_other/src/repro_torch/kernels/csrc [PATTERN]
@@ -12,9 +15,10 @@ PATTERN, a regular expression, keeps only the cases whose names it matches.
 
 Prints one JSON line per case: each side's two device times (CUDA graph
 replay over cold copies, as ``chip_smoke.py`` times), its largest error
-against the plain version (the SSD scan's: over y and the final state), and
-whether the two sides' results are equal bit for bit. Needs one CUDA device
-and ``nvcc``.
+against the plain version (the SSD scan's: over y and the final state; the
+RMSNorm backward's: over dx and dgamma, each against its largest
+magnitude), and whether the two sides' results are equal bit for bit. Needs
+one CUDA device and ``nvcc``.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ from __future__ import annotations
 import ctypes
 import json
 import re
+import subprocess
 import sys
 from pathlib import Path
 
@@ -45,7 +50,11 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention_lse_cuda,
     flash_attention_plain,
 )
-from repro_torch.kernels.rmsnorm import rmsnorm_plain  # noqa: E402
+from repro_torch.kernels.rmsnorm import (  # noqa: E402
+    rmsnorm_backward_cuda,
+    rmsnorm_backward_plain,
+    rmsnorm_plain,
+)
 from repro_torch.kernels.ssd_scan import ssd_scan_plain  # noqa: E402
 
 OUT = ROOT / "build" / "kernel_ab"
@@ -70,7 +79,31 @@ class _NoSplitsArg:
         return getattr(self.lib, name)
 
 
-def _load(name: str, bwd_splits: bool):
+class _NoPlanArg:
+    """An older RMSNorm backward entry point that takes its grid as one
+    ``blocks`` argument (ceil(rows / 4) blocks of 4 warps, at most 8 an SM)
+    and fp32 scratch of (blocks, d): given here, once for each size."""
+
+    def __init__(self, lib):
+        self.lib = lib
+        self.scratch = {}
+
+    def repro_rmsnorm_backward(self, x, gamma, dy, dx, dgamma, part, rows, d,
+                               eps, team_warps, lane_units, teams, blocks,
+                               rows_per_block, stages, dtype, stream):
+        old_blocks = max(1, min(-(-rows // 4), 8 * 132))
+        if old_blocks * d not in self.scratch:
+            self.scratch[old_blocks * d] = torch.empty(
+                old_blocks * d, dtype=torch.float32, device="cuda")
+        return self.lib.repro_rmsnorm_backward(
+            x, gamma, dy, dx, dgamma, self.scratch[old_blocks * d].data_ptr(),
+            rows, d, eps, old_blocks, dtype, stream)
+
+    def __getattr__(self, name):
+        return getattr(self.lib, name)
+
+
+def _load(name: str, bwd_splits: bool, norm_plan: bool):
     ptr, i32, i64, f32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                           ctypes.c_float)
     lib = ctypes.CDLL(str(OUT / f"{name}.so"))
@@ -78,6 +111,10 @@ def _load(name: str, bwd_splits: bool):
     lib.repro_ssd_scan.restype = i32
     lib.repro_rmsnorm.argtypes = [ptr, ptr, ptr, i64, i32, f32, i32, ptr]
     lib.repro_rmsnorm.restype = i32
+    lib.repro_rmsnorm_backward.argtypes = (
+        [ptr] * 6 + [i64, i32, f32, i32, i32, i32, i32, i64, i32, i32, ptr] if norm_plan else
+        [ptr] * 6 + [i64, i32, f32, i32, i32, ptr])
+    lib.repro_rmsnorm_backward.restype = i32
     lib.repro_flash_attention.argtypes = ([ptr] * 6 + [i32] * 6 + [i64] * 12
                                           + [f32, i32, i32, i32, ptr])
     lib.repro_flash_attention.restype = i32
@@ -93,7 +130,8 @@ def _load(name: str, bwd_splits: bool):
     lib.repro_flash_attention_backward.restype = i32
     lib.repro_cuda_error_string.argtypes = [i32]
     lib.repro_cuda_error_string.restype = ctypes.c_char_p
-    return lib if bwd_splits else _NoSplitsArg(lib)
+    lib = lib if bwd_splits else _NoSplitsArg(lib)
+    return lib if norm_plan else _NoPlanArg(lib)
 
 
 SOURCES = ("flash_attention.cu", "flash_attention_backward.cu", "rmsnorm.cu", "ssd_scan.cu",
@@ -107,8 +145,27 @@ def build(other: Path) -> dict:
     _build._run_all([[nvcc, *_build.NVCC_FLAGS, "-shared", "-o", str(OUT / f"{name}.so"),
                       *(str(src / f) for f in SOURCES)]
                      for name, src in sides.items()])
-    return {name: _load(name, "int splits" in (src / "flash_attention_backward.cu").read_text())
+    return {name: _load(name, "int splits" in (src / "flash_attention_backward.cu").read_text(),
+                        "int team_warps" in (src / "rmsnorm.cu").read_text())
             for name, src in sides.items()}
+
+
+def norm_backward_resources(sides) -> None:
+    """One line per side: each RMSNorm backward row-pass instance's
+    registers, stack and local (spill) bytes a thread, from ``cuobjdump
+    -res-usage`` of the side's library, names demangled by ``cu++filt``."""
+    tools = Path(_build._nvcc()).parent
+    for side in sides:
+        dump = subprocess.run([str(tools / "cuobjdump"), "-res-usage", str(OUT / f"{side}.so")],
+                              capture_output=True, text=True, check=True).stdout
+        found = re.findall(r"Function (\S*rmsnorm_bwd\S*?):?\s+REG:(\d+) STACK:(\d+) "
+                           r"SHARED:\d+ LOCAL:(\d+)", dump)
+        names = subprocess.run([str(tools / "cu++filt")], input="\n".join(f[0] for f in found),
+                               capture_output=True, text=True, check=True).stdout.split("\n")
+        print(json.dumps({"case": "rmsnorm_backward resources", "side": side, "kernels": [
+            {"kernel": name.rsplit(">(", 1)[0] + ">", "registers": int(reg), "stack": int(stack),
+             "local": int(local)} for name, (_, reg, stack, local) in zip(names, found)]}),
+              flush=True)
 
 
 def _max_err(got, want) -> float:
@@ -117,13 +174,19 @@ def _max_err(got, want) -> float:
     return (got.float() - want.float()).abs().max().item()
 
 
+def _scaled_err(got, want) -> float:
+    """The largest of each result's max |got - want| over its max |want|."""
+    return max((g.float() - w.float()).abs().max().item()
+               / w.float().abs().max().item() for g, w in zip(got, want))
+
+
 def _same_bits(a, b) -> bool:
     if isinstance(a, tuple):
         return all(_same_bits(x, y) for x, y in zip(a, b))
     return torch.equal(a, b)
 
 
-def ab(libs, name, dtype, fn, plain, sets, **timing) -> None:
+def ab(libs, name, dtype, fn, plain, sets, err=_max_err, **timing) -> None:
     """``fn`` on both sides; ``timing``: ``chip_smoke.time_ms``'s options.
     ``same_bits``: whether the two sides' first results are equal bit for
     bit."""
@@ -135,7 +198,7 @@ def ab(libs, name, dtype, fn, plain, sets, **timing) -> None:
         _build._lib = libs[side]
         got = fn(*sets[0])
         torch.cuda.synchronize()
-        row["err"][side] = _max_err(got, want)
+        row["err"][side] = err(got, want)
         if side == "other" and "same_bits" not in row:
             other_first = got
         elif "same_bits" not in row:
@@ -181,6 +244,18 @@ def norm_case(libs, shape, dtype, gen) -> None:
     sets = [(x.clone(), g) for _ in range(cs.copies_for_cold_l2([x, x]))]
     ab(libs, f"rmsnorm {list(shape)}", dtype, lambda a, b: ops.rmsnorm(a, b, 1e-5),
        lambda a, b: rmsnorm_plain(a, b, 1e-5), sets)
+
+
+def norm_backward_case(libs, shape, dtype, gen) -> None:
+    """x, gamma, dy as ``chip_smoke._rmsnorm_backward_case`` draws them,
+    on the cold copies it times over."""
+    d = shape[-1]
+    x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    g = (1.0 + 0.1 * torch.randn(d, generator=gen, device="cuda")).to(dtype)
+    dy = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    sets = [(x.clone(), g, dy.clone()) for _ in range(cs.copies_for_cold_l2([x, dy, x]))]
+    ab(libs, f"rmsnorm_backward {list(shape)}", dtype, rmsnorm_backward_cuda,
+       rmsnorm_backward_plain, sets, err=_scaled_err)
 
 
 def attn_case(libs, name, b, h, hkv, sq, skv, d, causal, dtype, gen,
@@ -234,6 +309,17 @@ def main() -> int:
     PATTERN = sys.argv[2] if len(sys.argv) == 3 else None
     cs.phase_env()
     libs = build(Path(sys.argv[1]).resolve())
+    norm_backward_resources(libs)
+    # the RMSNorm backward at chip_smoke.py's train_lm rows, few wide rows, a
+    # chatglm3/minitron-width training layer and rows of 100 (not whole
+    # 16-byte units)
+    gen_norm = torch.Generator(device="cuda").manual_seed(6)
+    norm_shapes = ((cs.LM_BATCH * cs.LM_SEQ, 576), (2, 64, 4096),
+                   (cs.LM_BATCH * cs.LM_SEQ, 4096), (3, 7, 100))
+    for dtype in (torch.float32, torch.bfloat16):
+        for shape in norm_shapes:
+            norm_backward_case(libs, shape, dtype, gen_norm)
+            torch.cuda.empty_cache()
     # the training forward with the log-sum-exp at the same two layers
     gen_fwd = torch.Generator(device="cuda").manual_seed(5)
     for dtype in (torch.float32, torch.bfloat16):

@@ -102,7 +102,8 @@ def lib() -> ctypes.CDLL:
                           ctypes.c_float)
     loaded.repro_rmsnorm.argtypes = [ptr, ptr, ptr, i64, i32, f32, i32, ptr]
     loaded.repro_rmsnorm.restype = i32
-    loaded.repro_rmsnorm_backward.argtypes = [ptr] * 6 + [i64, i32, f32, i32, i32, ptr]
+    loaded.repro_rmsnorm_backward.argtypes = (
+        [ptr] * 6 + [i64, i32, f32, i32, i32, i32, i32, i64, i32, i32, ptr])
     loaded.repro_rmsnorm_backward.restype = i32
     loaded.repro_flash_attention.argtypes = (
         [ptr] * 6 + [i32] * 6 + [i64] * 12 + [f32, i32, i32, i32, ptr])

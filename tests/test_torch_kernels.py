@@ -11,6 +11,7 @@ CUDA kernels against the plain versions and need the card:
 """
 
 import math
+import re
 import shutil
 
 import jax
@@ -56,9 +57,14 @@ from repro_torch.kernels.flash_attention import (
     flash_attention_plain,
 )
 from repro_torch.kernels.rmsnorm import (
-    rmsnorm_backward_blocks,
+    BACKWARD_KERNELS_PER_CALL as RMS_BACKWARD_KERNELS_PER_CALL,
+    BACKWARD_STAGES as RMS_BACKWARD_STAGES,
+    _bwd_registers,
+    rmsnorm_backward_buffers,
     rmsnorm_backward_cuda,
+    rmsnorm_backward_plan,
     rmsnorm_backward_plain,
+    rmsnorm_backward_stages_cuda,
     rmsnorm_cuda,
     rmsnorm_plain,
 )
@@ -657,11 +663,133 @@ def test_rmsnorm_backward_plain_is_autograd_in_float64():
     np.testing.assert_allclose(dg.numpy(), g.grad.numpy(), atol=1e-13)
 
 
-def test_rmsnorm_backward_blocks_depend_on_rows_alone():
-    assert rmsnorm_backward_blocks(1) == 1
-    assert rmsnorm_backward_blocks(5) == 2
-    assert rmsnorm_backward_blocks(16_384) == 8 * 132
-    assert rmsnorm_backward_blocks(16_384) == rmsnorm_backward_blocks(16_384)
+# (rows, d): one row; few wide rows (chip_smoke.py's (2, 64, 4096)); the
+# train_lm rows; a chatglm3/minitron-width training layer; internlm2's
+# width; rows that are not whole 16-byte units; ragged rows of 576; the
+# widest row the kernels take today's callers to (14,528) and their limit
+ROWS_PLAN_TABLE = [(1, 64), (1, 576), (128, 4096), (16_384, 576),
+                   (16_384, 4096), (4, 6144), (21, 100), (111, 576),
+                   (2, 14_528), (3, 16_384), (5000, 64)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,d", ROWS_PLAN_TABLE)
+def test_rmsnorm_backward_plan_covers_rows_and_columns_once(rows, d, dtype):
+    """The plan is a function of the shape alone; its teams walk every row
+    exactly once and a team's lanes hold every 16-byte unit of a row
+    exactly once; a block is at most 8 warps, a lane at most 4 fp32 / 3
+    bf16 units (16 / 8 at the widest rows), the grid at most one wave and,
+    rows allowing, a block an SM; 128 rows of 4096 spread over 128 SMs."""
+    plan = rmsnorm_backward_plan(rows, d, dtype)
+    assert plan == rmsnorm_backward_plan(rows, d, dtype)
+    per = 16 // dtype.itemsize
+    assert plan.per == per and plan.units * per >= d > (plan.units - 1) * per
+    seen = [r for b in range(plan.blocks) for t in range(plan.teams)
+            for r in plan.team_rows(b, t)]
+    assert sorted(seen) == list(range(rows))
+    cols = [u for w in range(plan.team_warps) for lane in range(32)
+            for u in plan.lane_units_of(w, lane)]
+    assert sorted(cols) == list(range(plan.units))
+    assert plan.team_warps in (1, 2, 4, 8)
+    assert plan.teams * plan.team_warps <= 8
+    assert plan.lane_units <= (16 if dtype == torch.float32 else 8)
+    assert plan.blocks <= 132 * 2 * 8 // (plan.teams * plan.team_warps)
+    assert plan.part_shape == (plan.blocks, plan.units * per)
+    assert (plan.lane_units <= (4 if dtype == torch.float32 else 3)
+            or plan.team_warps == 8)
+    if rows >= 132:
+        assert plan.blocks >= min(132, rows // plan.teams)
+    if (rows, d) == (128, 4096):
+        assert plan.blocks == 128 and plan.team_warps == 8
+
+
+def _kernel_bwd_registers(np_: int, itemsize: int) -> dict:
+    """``BwdRegs<T, NP>`` of ``csrc/rmsnorm.cu``, its lines evaluated in
+    order as Python (``a ? b : c`` as ``b if a else c``)."""
+    src = (_build.CSRC / "rmsnorm.cu").read_text()
+    body = re.search(r"struct BwdRegs \{(.*?)\};", src, re.S).group(1)
+    env = {"NP": np_}
+    for name, expr in re.findall(
+            r"static constexpr (?:int|bool) (\w+) = (.+?);", body):
+        expr = expr.replace("sizeof(T)", str(itemsize)).replace("/", "//")
+        expr = re.sub(r"(.+?) \? (.+?) : (.+)", r"(\2 if \1 else \3)", expr)
+        env[name] = eval(expr, {}, env)
+    return env
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_backward_plan_registers_match_the_kernels(dtype):
+    """The plan's register reckoning (``_bwd_registers``: blocks an SM, the
+    next row loaded early) is the kernel's ``BwdRegs`` (its launch bounds
+    and early load) for every number of units a lane can hold."""
+    for np_ in range(1, 17):
+        regs = _kernel_bwd_registers(np_, dtype.itemsize)
+        assert regs["PER"] == 16 // dtype.itemsize
+        assert _bwd_registers(np_, regs["PER"]) == (
+            regs["MIN_BLOCKS"], regs["PREFETCH"]), np_
+
+
+def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """fmaf in fp32: the product exact, one rounding of the sum."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def _emulated_rmsnorm_backward(x, gamma, dy, plan, eps=1e-5):
+    """(dx, dgamma) as the two kernels sum them on ``plan``, fp32 inputs:
+    each row's rstd from its sum of squares; dx = rstd (dy gamma - x^
+    mean(g x^)); dgamma: each team's lanes fma dy x^ over the team's rows
+    in order into fp32 sums, the block adds its teams' sums in team order
+    into its partial row, and the dgamma kernel's warp w of 8 adds partial
+    rows w, w + 8, ... in order, then the 8 warps' sums in order. Not
+    modelled: the order of the row's two sums over lanes and warps."""
+    d = x.shape[-1]
+    xf = x.reshape(-1, d).float()
+    dyf = dy.reshape(-1, d).float()
+    gf = gamma.float()
+    rstd = 1.0 / torch.sqrt(xf.square().sum(-1, keepdim=True) / d + eps)
+    xh = xf * rstd
+    mean_gx = (dyf * gf * xf).sum(-1, keepdim=True) * rstd / d
+    dx = rstd * _fma(dyf, gf.expand_as(dyf), -(xh * mean_gx))
+    blocks = torch.arange(plan.blocks)[:, None]
+    part = None
+    for t in range(plan.teams):
+        acc = torch.zeros(plan.blocks, d)
+        for k in range(-(-plan.rows_per_block // plan.teams)):
+            row = blocks * plan.rows_per_block + t + k * plan.teams
+            end = torch.clamp((blocks + 1) * plan.rows_per_block, max=plan.rows)
+            live = row < end
+            r = torch.where(live, row, 0)[:, 0]
+            acc = torch.where(live, _fma(dyf[r], xh[r], acc), acc)
+        part = acc if part is None else part + acc
+    total = None
+    for w in range(8):
+        s = torch.zeros(d)
+        for p_ in range(w, plan.blocks, 8):
+            s = s + part[p_]
+        total = s if total is None else total + s
+    return dx.reshape(x.shape), total
+
+
+@pytest.mark.parametrize("shape", [(6000, 64), (2, 64, 4096), (3, 7, 100),
+                                   (4, 2048, 576), (2, 6144)])
+def test_rmsnorm_backward_kernel_order_matches_jax_grad(shape):
+    """The kernels' summation order on the fp32 plan
+    (``_emulated_rmsnorm_backward``) against ``jax.grad`` of the JAX
+    package's ``rms_norm``: dx and dgamma within 1e-5 of each gradient's
+    largest magnitude. (6000, 64): eight teams a block, three rows a team;
+    (4, 2048, 576): the train_lm rows' plan at half the rows."""
+    rs = np.random.RandomState(43)
+    x = rs.randn(*shape).astype(np.float32)
+    g = (1.0 + 0.2 * rs.randn(shape[-1])).astype(np.float32)
+    dy = rs.randn(*shape).astype(np.float32)
+    _, vjp = jax.vjp(lambda a, b_: rms_norm_jax(a, b_), jnp.asarray(x),
+                     jnp.asarray(g))
+    want = vjp(jnp.asarray(dy))
+    plan = rmsnorm_backward_plan(x.size // shape[-1], shape[-1],
+                                 torch.float32)
+    got = _emulated_rmsnorm_backward(*map(torch.from_numpy, (x, g, dy)), plan)
+    for name, a, w in zip(("dx", "dgamma"), got, want):
+        assert _scaled_err(a, np.asarray(w)) <= 1e-5, name
 
 
 def test_cpu_backward_calls_do_not_count_as_launches():
@@ -1600,15 +1728,24 @@ def test_flash_short_causal_prefill_both_routes(cuda_device, dtype, s, d):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
                                        (torch.bfloat16, 1e-2)])
-@pytest.mark.parametrize("shape", [(8, 2048, 576), (3, 37, 576), (2, 5, 4096),
-                                   (3, 7, 100), (1, 1, 64)])
-def test_rmsnorm_backward_kernel_matches_plain(cuda_device, dtype, tol, shape):
+@pytest.mark.parametrize("shape,offset", [
+    ((8, 2048, 576), 0), ((3, 37, 576), 0), ((2, 5, 4096), 0),
+    ((3, 7, 100), 0), ((1, 1, 64), 0), ((2, 64, 4096), 0), ((4, 6144), 0),
+    ((2, 14_528), 0),
+    # x's storage one element in: not 16-byte aligned, the scalar route
+    ((3, 37, 576), 1), ((2, 64, 4096), 1)])
+def test_rmsnorm_backward_kernel_matches_plain(cuda_device, dtype, tol, shape,
+                                               offset):
     """dx and dgamma against the plain backward, each within ``tol`` of its
     largest magnitude; three calls bitwise equal; the autograd Function
-    counts one launch each way."""
+    counts one launch each way and gives the same bits on an aligned copy
+    of x (where x is one element in, the 16-byte route's bits against the
+    scalar route's, on the same plan)."""
     rs = np.random.RandomState(42)
-    x = torch.from_numpy(rs.randn(*shape).astype(np.float32)).to(
-        cuda_device, dtype)
+    n = int(np.prod(shape))
+    x = torch.empty(n + offset, device=cuda_device, dtype=dtype)[offset:]
+    x = x.view(shape)
+    x.copy_(torch.from_numpy(rs.randn(*shape).astype(np.float32)))
     g = torch.from_numpy((1 + 0.2 * rs.randn(shape[-1])).astype(
         np.float32)).to(cuda_device, dtype)
     dy = torch.from_numpy(rs.randn(*shape).astype(np.float32)).to(
@@ -1628,3 +1765,33 @@ def test_rmsnorm_backward_kernel_matches_plain(cuda_device, dtype, tol, shape):
     assert (ops.rmsnorm.launches, ops.rmsnorm.backward_launches) == (
         before[0] + 1, before[1] + 1)
     assert torch.equal(xl.grad, got[0]) and torch.equal(gl.grad, got[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 1e-2)])
+# each a layout of its own on rmsnorm_backward_plan: several teams a block
+# walking several rows each; a block a row of 8-warp teams; few narrow rows;
+# eight one-warp teams a block with a short last block; a block a row of
+# 2- / 1-warp teams; the widest units a lane (16 fp32, 8 bf16)
+@pytest.mark.parametrize("shape", [(16_384, 576), (128, 4096), (21, 100),
+                                   (5000, 64), (111, 576), (3, 16_384)])
+def test_rmsnorm_backward_stages_give_the_whole_call(cuda_device, dtype, tol,
+                                                      shape):
+    """The two stages launched one at a time give the whole call's bits,
+    and the whole call is within ``tol`` of the plain backward."""
+    rs = np.random.RandomState(44)
+    x, dy = (torch.from_numpy(rs.randn(*shape).astype(np.float32)).to(
+        cuda_device, dtype) for _ in range(2))
+    g = torch.from_numpy((1 + 0.2 * rs.randn(shape[-1])).astype(
+        np.float32)).to(cuda_device, dtype)
+    assert RMS_BACKWARD_KERNELS_PER_CALL == len(RMS_BACKWARD_STAGES) == 2
+    whole = rmsnorm_backward_cuda(x, g, dy)
+    bufs = rmsnorm_backward_buffers(x, g)
+    for stage in RMS_BACKWARD_STAGES:
+        rmsnorm_backward_stages_cuda(x, g, dy, 1e-5, bufs, (stage,))
+    assert torch.equal(bufs["dx"], whole[0])
+    assert torch.equal(bufs["dgamma"], whole[1])
+    want = rmsnorm_backward_plain(x, g, dy)
+    for name, a, w in zip(("dx", "dgamma"), whole, want):
+        assert _grad_err(a, w) <= tol, name
