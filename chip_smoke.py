@@ -34,6 +34,11 @@ run with a non-zero exit code (nothing drops to the CPU or to a plain version):
            the SSD scan's stage kernels, every norm through the RMSNorm
            kernel); profile_mamba also traces one 1024-token prefill and
            reports the scan's share of its device time
+  serve_moe, profile_moe
+           the same for granite-moe-3b-a800m at full width and depth (32
+           layers, 24 / 8 heads of 64, 40 experts top-8, weights drawn on
+           the card): attention and RMSNorm through the kernels at its
+           shapes, the experts as batched products
   train_dlrm
            dlrm-1.2t at every published width, tables cut to 200,000 rows,
            fp32, weights from a seed: 20 training steps (loss -> backward ->
@@ -56,6 +61,13 @@ run with a non-zero exit code (nothing drops to the CPU or to a plain version):
            one step of a 2-layer, full-width smollm through the kernels and
            through the plain versions (autograd) on the same weights and
            batch, fp32 and bf16: loss, grad norm, every gradient leaf
+  checkpoint
+           the train_lm configuration again: 6 steps straight against 3
+           steps that checkpoint (the trainer's async save, in the JAX
+           package's format, to a temporary directory) and a new Trainer
+           that resumes and takes 3 more; every leaf of params, m, v and
+           the step bitwise equal; the state's bytes, the save's ms on the
+           loop, the writer thread's seconds, the restore's ms
 
 The last three lines are the card as nvidia-smi names it, one JSON object
 describing every kernel, and the verdict.
@@ -71,9 +83,12 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -210,6 +225,16 @@ LM_CHECK_LAYERS, LM_CHECK_BATCH, LM_CHECK_SEQ = 2, 4, 1024
 LM_CHECK_TOL = {torch.float32: {"loss": 1e-5, "grads": 1e-4, "grad_norm": 1e-4},
                 torch.bfloat16: {"loss": 1e-2, "grads": 5e-2,
                                  "grad_norm": 2e-2}}
+
+# Serving a MoE: granite-moe-3b-a800m at full width and depth (32 layers,
+# 40 experts of d_ff 512, top-8), bf16, weights from seed 0 drawn on the card.
+MOE_ARCH = "granite-moe-3b-a800m"
+
+# Checkpoint and resume: the train_lm configuration (full-width smollm-135m,
+# fp32, 8 x 2048 tokens a step), 2 * CKPT_K steps straight against CKPT_K
+# steps that checkpoint at CKPT_K, then a new Trainer that resumes from the
+# checkpoint and takes CKPT_K more; every leaf must agree bit for bit.
+CKPT_K = 3
 
 DEVICE = "cuda"
 
@@ -1025,8 +1050,11 @@ def phase_kernels() -> list:
     # and the cases added with the redesigned attention kernels from a third
     # (their positions too, so the decode tick keeps its positions)
     gen_attn = torch.Generator(device=DEVICE).manual_seed(3)
+    # granite-moe's shapes from a fourth
+    gen_moe = torch.Generator(device=DEVICE).manual_seed(4)
     rs = np.random.RandomState(0)
     rs_attn = np.random.RandomState(3)
+    rs_moe = np.random.RandomState(4)
     cases = []
     with torch.no_grad():
         for dtype in (torch.float32, torch.bfloat16):
@@ -1097,6 +1125,17 @@ def phase_kernels() -> list:
                                        chunk, dtype, gen_mamba))
             cases.append(_ssd_case("grouped h4 g2", 2, 45, 4, 16, 16, 2, 32,
                                    dtype, gen_mamba))
+            # granite-moe-3b-a800m's layer (serve_moe): 24 query heads, 8 KV
+            # heads of 64; its decode tick, a 1024-token prefill, and the
+            # prefill's norms at d_model 1536 (its tick's are mamba2's above)
+            cases.append(_attention_case(
+                "granite decode tick", 8, 24, 8, 1, 2048, 64, True, dtype,
+                gen_moe, q_offset=rs_moe.randint(0, 2048, size=8).tolist()))
+            cases.append(_attention_case(
+                "granite prefill s=1024", 1, 24, 8, 1024, 1024, 64, True,
+                dtype, gen_moe))
+            cases.append(_rmsnorm_case((1, 1024, 1536), dtype, gen_moe,
+                                       ulp_tol=True))
     cases.extend(_bag_cases())
     cases.extend(_backward_cases())
     failed = [c for c in cases
@@ -1991,6 +2030,141 @@ def phase_train_lm_check() -> None:
 
 
 # ------------------------------------------------------------------------- #
+# Checkpoint and resume
+# ------------------------------------------------------------------------- #
+
+def _ckpt_trainer(cfg, plan, ocfg, total_steps, ckpt_dir=None, seed=0):
+    """launch.train's objects for the checkpoint phase; ``seed`` draws the
+    initial weights (a resumed run's are overwritten by the restore)."""
+    state = init_train_state(cfg, plan,
+                             torch.Generator(device=DEVICE).manual_seed(seed),
+                             ocfg, dtype=torch.float32, device=DEVICE)
+    data = DataIterator(DataConfig(vocab_size=cfg.vocab_size, seq_len=LM_SEQ,
+                                   global_batch=LM_BATCH, seed=0),
+                        device=DEVICE)
+    return Trainer(make_train_step(cfg, plan, ocfg), state, data,
+                   TrainerConfig(total_steps=total_steps, ckpt_dir=ckpt_dir,
+                                 ckpt_interval=CKPT_K, log_interval=CKPT_K,
+                                 seed=0))
+
+
+def _state_leaves(state: dict) -> dict:
+    opt = state["opt"]
+    out = {f"params.{k}": v for k, v in state["params"].items()}
+    for part in ("m", "v", "master"):
+        out.update({f"{part}.{k}": v for k, v in opt.get(part, {}).items()})
+    out["step"] = opt["step"]
+    return out
+
+
+def phase_checkpoint() -> None:
+    """Full-width smollm-135m training in fp32 through launch.train's
+    objects: 2 * CKPT_K steps straight, against CKPT_K steps with a
+    checkpoint directory (the cadence's async save at CKPT_K) and a new
+    Trainer that resumes from it (``try_resume``) and takes CKPT_K more.
+    Every leaf of params, m, v (master where the plan keeps one) and the
+    step must be bitwise equal, and neither the save nor the restore may
+    raise the device's peak memory above the live state's (the layers are
+    stacked and unstacked on the host). Prints the checkpoint's bytes, the
+    ms the loop paid for the async save, the writer thread's seconds, the
+    restore's ms and the device bytes each allocated above the live ones;
+    the directory is removed at the end."""
+    cfg = get_config(LM_ARCH)
+    plan = plan_memory(cfg, tp=1, dp=1)
+    steps = 2 * CKPT_K
+    ocfg = AdamWConfig(lr=LM_LR, warmup_steps=LM_WARMUP, total_steps=steps,
+                       state_dtype=plan.opt_dtype, use_master=plan.use_master)
+    straight = _ckpt_trainer(cfg, plan, ocfg, steps)
+    straight.run()
+    directory = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        first = _ckpt_trainer(cfg, plan, ocfg, CKPT_K, ckpt_dir=directory)
+        manager = first.manager
+        paid_ms, write_s, save_above = [], [], []
+        maybe_save, write = manager.maybe_save, manager.ckpt._write
+
+        def timed_save(*args, **kwargs):
+            torch.cuda.synchronize()
+            live = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            saved = maybe_save(*args, **kwargs)
+            if saved:
+                paid_ms.append((time.perf_counter() - t0) * 1e3)
+                save_above.append(torch.cuda.max_memory_allocated() - live)
+            return saved
+
+        def timed_write(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = write(*args, **kwargs)
+            write_s.append(time.perf_counter() - t0)
+            return out
+
+        manager.maybe_save, manager.ckpt._write = timed_save, timed_write
+        first.run()
+        state_bytes = sum(t.numel() * t.element_size()
+                          for t in _state_leaves(first.state).values())
+        files_bytes = sum(os.path.getsize(os.path.join(root, name))
+                          for root, _, names in os.walk(directory)
+                          for name in names)
+        committed = manager.latest_step()
+        del first, manager
+        torch.cuda.empty_cache()
+
+        resumed = _ckpt_trainer(cfg, plan, ocfg, steps, ckpt_dir=directory,
+                                seed=1)
+        torch.cuda.synchronize()
+        live = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        restored = resumed.try_resume()
+        torch.cuda.synchronize()
+        restore_ms = (time.perf_counter() - t0) * 1e3
+        restore_above = torch.cuda.max_memory_allocated() - live
+        restored_step = resumed.step
+        resumed.run()
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+
+    want, got = _state_leaves(straight.state), _state_leaves(resumed.state)
+    differing = sorted(name for name, t in want.items()
+                       if not torch.equal(t, got[name]))
+    problems = []
+    if not restored or restored_step != CKPT_K or committed != CKPT_K:
+        problems.append(f"restored {restored} at step {restored_step}, "
+                        f"committed step {committed}, expected {CKPT_K}")
+    if set(want) != set(got) or differing:
+        problems.append(f"{len(differing)} of {len(want)} leaves differ from "
+                        f"the straight run: {differing[:8]}")
+    if len(paid_ms) != 1 or len(write_s) != 1:
+        problems.append(f"{len(paid_ms)} saves, {len(write_s)} writes; "
+                        "expected the cadence's one async save")
+    if any(save_above) or restore_above:
+        problems.append(f"device bytes above the live state: save "
+                        f"{save_above}, restore {restore_above}; expected 0")
+    result = {
+        "arch": cfg.arch_id, "dtype": "float32", "global_batch": LM_BATCH,
+        "seq_len": LM_SEQ, "steps_straight": steps,
+        "steps_before_checkpoint": CKPT_K, "steps_after_resume": CKPT_K,
+        "plan": {"remat": plan.remat, "use_master": plan.use_master},
+        "leaves": len(want), "leaves_differing": len(differing),
+        "state_bytes": state_bytes, "checkpoint_files_bytes": files_bytes,
+        "save_async_ms_paid_by_loop": paid_ms, "writer_thread_s": write_s,
+        "restore_ms": restore_ms,
+        "save_device_bytes_above_live": save_above,
+        "restore_device_bytes_above_live": restore_above,
+        "loss_straight_last": straight.metrics_log[-1]["loss"],
+        "loss_resumed_last": resumed.metrics_log[-1]["loss"],
+        "problems": problems,
+    }
+    emit("checkpoint", **result)
+    if problems:
+        raise SystemExit(f"chip_smoke: checkpoint phase failed: {problems}")
+    del straight, resumed
+    torch.cuda.empty_cache()
+
+
+# ------------------------------------------------------------------------- #
 # The kernels' line
 # ------------------------------------------------------------------------- #
 
@@ -2099,6 +2273,15 @@ def kernels_line(cases: list, launches_by_path: dict, repeats: list) -> dict:
                                      "plain_ms", "library_ms",
                                      "library_backend", "bound_ms",
                                      "bound_by", "max_abs_err") if k in bf16}
+        if name in ("flash_attention", "rmsnorm"):
+            granite = [c for c in mine if c["dtype"] == "bfloat16" and (
+                c.get("case", "").startswith("granite")
+                or c.get("shape") in ([8, 1, 1536], [1, 1024, 1536]))]
+            entries[-1]["granite"] = [
+                {k: c[k] for k in ("case", "shape", "kernel_ms",
+                                   "kernel_eager_ms", "plain_ms", "library_ms",
+                                   "bound_ms", "bound_by", "max_abs_err")
+                 if k in c} for c in granite]
         if name == "flash_attention":
             prefill = next(c for c in mine if c["case"] == "prefill s=1024"
                            and c["dtype"] == "bfloat16")
@@ -2129,9 +2312,10 @@ def main() -> int:
     repeats = phase_repeats()
     launches = {}
     # The dense path keeps drawing its weights on the CPU, as it always did;
-    # mamba2's 781 M are drawn on the card.
+    # mamba2's 781 M and granite-moe's 3.3 G are drawn on the card.
     for arch, phase, weight_device in (("smollm-135m", "serve", "cpu"),
-                                       ("mamba2-780m", "serve_mamba", DEVICE)):
+                                       ("mamba2-780m", "serve_mamba", DEVICE),
+                                       (MOE_ARCH, "serve_moe", DEVICE)):
         serve = phase_serve(arch, phase, weight_device)
         phase_profile(serve["engine"], phase.replace("serve", "profile"))
         launches[phase] = serve["launches"]
@@ -2141,6 +2325,7 @@ def main() -> int:
     phase_train_dlrm_check()
     launches["train_lm"] = phase_train_lm()
     phase_train_lm_check()
+    phase_checkpoint()
     line = kernels_line(cases, launches, repeats)
     for entry in line["kernels"]:
         if entry["launches"] <= 0:

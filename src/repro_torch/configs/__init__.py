@@ -3,7 +3,8 @@
 ``get_config("smollm-135m")`` -> full ModelConfig
 ``get_config("smollm-135m", reduced=True)`` -> small test variant
 
-Registered: the dense family and mamba2 (``ssm``); the other families join
+Registered: the dense family, the MoE family (granite-moe, llama4-maverick),
+the VLM backbone (internvl2) and mamba2 (``ssm``); the other families join
 with the slices that port their models. The DLRM has a config of its own:
 ``get_dlrm_config()``.
 """
@@ -30,6 +31,9 @@ _ARCH_MODULES: Dict[str, str] = {
     "minitron-8b": "minitron_8b",
     "smollm-135m": "smollm_135m",
     "mamba2-780m": "mamba2_780m",
+    "granite-moe-3b-a800m": "granite_moe_3b_a800m",
+    "llama4-maverick-400b-a17b": "llama4_maverick_400b_a17b",
+    "internvl2-76b": "internvl2_76b",
 }
 
 

@@ -1,7 +1,7 @@
 """End-to-end training entry point.
 
     python -m repro_torch.launch.train --arch smollm-135m --steps 300 \\
-        --global-batch 8 --seq-len 128
+        --global-batch 8 --seq-len 128 --ckpt-dir build/ckpt --resume auto
 
 Counterpart of ``src/repro/launch/train.py``: fp32 parameters, the memory
 plan for one device (``plan_memory(cfg, tp=1, dp=1)``), the reference's
@@ -9,8 +9,9 @@ AdamW settings, the port's data pipeline and trainer. Runs on the GPU,
 through the attention and RMSNorm kernels in both directions (built at the
 first launch), and prints their launches at the end; ``--device cpu`` runs
 the plain PyTorch path instead, and ``--reduced`` the small same-family
-config. ``--ckpt-dir`` and ``--resume auto`` raise ``NotImplementedError``
-until the checkpointer is ported (ROADMAP Queue 1 item 3).
+config. ``--ckpt-dir`` saves every ``--ckpt-interval`` steps and at the end
+(or on SIGTERM/SIGINT) in the JAX package's checkpoint format; ``--resume
+auto`` restores the latest checkpoint there, the data cursor included.
 """
 
 from __future__ import annotations
@@ -31,7 +32,6 @@ from repro_torch.train import (
     init_train_state,
     make_train_step,
 )
-from repro_torch.train.trainer import CHECKPOINT_PENDING
 
 
 def main(argv=None):
@@ -43,13 +43,12 @@ def main(argv=None):
     ap.add_argument("--seq-len", type=int, default=128)
     ap.add_argument("--lr", type=float, default=3e-3)
     ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-interval", type=int, default=50)
     ap.add_argument("--resume", default="no", choices=["no", "auto"])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="default: cuda; raises if there is none")
     args = ap.parse_args(argv)
-    if args.resume == "auto":
-        raise NotImplementedError(f"--resume auto: {CHECKPOINT_PENDING}")
 
     device = resolve_device(args.device)
     cfg = get_config(args.arch, reduced=args.reduced)
@@ -66,11 +65,15 @@ def main(argv=None):
         vocab_size=cfg.vocab_size, seq_len=args.seq_len,
         global_batch=args.global_batch, seed=args.seed), device=str(device))
     trainer = Trainer(step_fn, state, data, TrainerConfig(
-        total_steps=args.steps, ckpt_dir=args.ckpt_dir, log_interval=10,
-        seed=args.seed))
+        total_steps=args.steps, ckpt_dir=args.ckpt_dir,
+        ckpt_interval=args.ckpt_interval, log_interval=10, seed=args.seed))
     print(f"plan: remat={plan.remat} microbatches={plan.microbatches} "
           f"opt={plan.opt_dtype} master={plan.use_master} on {device}",
           flush=True)
+    if args.resume == "auto":
+        resumed = trainer.try_resume()
+        print("resume: " + (f"restored step {trainer.step}" if resumed
+                            else "fresh start"), flush=True)
     summary = trainer.run(gen)
     print("summary:", summary)
     if device.type == "cuda":

@@ -2,8 +2,8 @@
 
 ``get_model(cfg)`` returns the class that builds the model for ``cfg``; every
 model offers ``forward``, ``init_cache``, ``prefill`` and ``decode_step``.
-Ported so far: the dense family (``Transformer``) and the pure-SSM family
-(``Mamba``). The DLRM, which has its own config, is
+Ported so far: the dense, MoE and VLM families (``Transformer``) and the
+pure-SSM family (``Mamba``). The DLRM, which has its own config, is
 ``repro_torch.models.dlrm.DLRM``.
 """
 
@@ -12,15 +12,13 @@ from repro_torch.models.mamba import HYBRID_PENDING, Mamba
 from repro_torch.models.transformer import Transformer
 
 _PENDING = {
-    "moe": "ROADMAP Queue 1: MoE + VLM in the transformer",
-    "vlm": "ROADMAP Queue 1: MoE + VLM in the transformer",
     "hybrid": HYBRID_PENDING,
     "encdec": "ROADMAP Queue 1: models/encdec.py",
 }
 
 
 def get_model(cfg: ModelConfig):
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe", "vlm"):
         return Transformer
     if cfg.family == "ssm":
         return Mamba

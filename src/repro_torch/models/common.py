@@ -1,7 +1,7 @@
 """Shared model layers: RMSNorm, RoPE, GQA attention (uncached and with a KV
-cache), FFN, the token cross-entropy.
+cache), FFN, the MoE block, the token cross-entropy.
 
-Counterpart of ``src/repro/models/common.py`` for the dense family. Plain
+Counterpart of ``src/repro/models/common.py``. Plain
 functions on tensors; parameters arrive as mappings from the JAX package's
 leaf names (``wq``, ``wk``, ...) to tensors laid out ``(d_in, d_out)`` and
 applied as ``x @ w``, so weights carry across without a transpose.
@@ -9,10 +9,10 @@ applied as ``x @ w``, so weights carry across without a transpose.
 Attention and RMSNorm go through ``repro_torch.kernels.ops``: the hand-written
 CUDA kernels for tensors on the GPU, their plain versions for tensors on the
 CPU, forward and (when an input requires grad) backward. The other products
-(projections, FFN, logits) are ``torch.matmul``, as the JAX package leaves
-them to XLA.
+(projections, FFN, the experts' batched products, logits) are
+``torch.matmul`` / ``torch.bmm``, as the JAX package leaves them to XLA.
 
-Still to come with their slices: MoE, cross-attention, ``layer_norm`` and the
+Still to come with their slices: cross-attention, ``layer_norm`` and the
 sharding hints.
 """
 
@@ -224,12 +224,122 @@ def attention_block(
 # FFN
 # --------------------------------------------------------------------- #
 
+def init_ffn_params(generator: torch.Generator, d_model: int, d_ff: int,
+                    activation: str, dtype=DEFAULT_DTYPE) -> dict:
+    p = {}
+    if activation == "swiglu":
+        p["wg"] = dense_init(generator, (d_model, d_ff), dtype)
+    p["wu"] = dense_init(generator, (d_model, d_ff), dtype)
+    p["wd"] = dense_init(generator, (d_ff, d_model), dtype)
+    return p
+
+
 def ffn_block(params: Mapping[str, torch.Tensor], x: torch.Tensor,
               activation: str) -> torch.Tensor:
     if activation == "swiglu":
         return (F.silu(x @ params["wg"]) * (x @ params["wu"])) @ params["wd"]
     # jax.nn.gelu defaults to the tanh approximation
     return F.gelu(x @ params["wu"], approximate="tanh") @ params["wd"]
+
+
+# --------------------------------------------------------------------- #
+# MoE block (capacity-based top-k routing)
+# --------------------------------------------------------------------- #
+
+def init_moe_params(generator: torch.Generator, d_model: int, d_ff: int,
+                    num_experts: int, activation: str, shared_d_ff: int = 0,
+                    dtype=DEFAULT_DTYPE) -> dict:
+    """The reference's leaves: ``router`` (d, e) in fp32 whatever ``dtype``,
+    the experts' ``we_up`` / ``we_gate`` (e, d, f) and ``we_down`` (e, f, d)
+    stacked on a leading experts axis, and the ``shared`` expert's FFN."""
+    p = {
+        "router": dense_init(generator, (d_model, num_experts), torch.float32),
+        "we_up": dense_init(generator, (num_experts, d_model, d_ff), dtype),
+        "we_down": dense_init(generator, (num_experts, d_ff, d_model), dtype),
+    }
+    if activation == "swiglu":
+        p["we_gate"] = dense_init(generator, (num_experts, d_model, d_ff),
+                                  dtype)
+    if shared_d_ff:
+        p["shared"] = init_ffn_params(generator, d_model, shared_d_ff,
+                                      activation, dtype)
+    return p
+
+
+def stable_top_k(x: torch.Tensor, k: int
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The ``k`` largest entries of the last axis, largest first, equal
+    values lowest index first: ``jax.lax.top_k``'s order. ``torch.topk``
+    promises no order among ties, and ties are common here (every gate is
+    1.0 at top-1; an expert's unrouted tokens all weigh 0), so this is a
+    stable descending sort."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def _expert_ffn(params: Mapping[str, torch.Tensor], x: torch.Tensor,
+                activation: str) -> torch.Tensor:
+    """Every expert on its own rows: x (e, n, d) -> (e, n, d)."""
+    if activation == "swiglu":
+        h = F.silu(torch.bmm(x, params["we_gate"])) * torch.bmm(
+            x, params["we_up"])
+    else:
+        h = F.gelu(torch.bmm(x, params["we_up"]), approximate="tanh")
+    return torch.bmm(h, params["we_down"])
+
+
+def moe_block(params: Mapping, x: torch.Tensor, *, top_k: int,
+              capacity_factor: float, activation: str,
+              aux_loss_weight: float = 0.0, dispatch: str = "gather"
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """MoE FFN. x: (b, s, d) -> (y (b, s, d), the Switch auxiliary loss).
+
+    The router is fp32; each token's top-k gates are renormalised to sum to
+    one (the reference's ``combine`` matrix). ``dispatch="gather"``: each
+    expert keeps its top ``cap`` tokens by gate and drops the overflow,
+    ``cap = t`` for one-token decode steps (serving never drops), else
+    ``min(t, max(1, int(t * top_k * capacity_factor / e)))``.
+    ``dispatch="dense"``: every expert on every token, weighted by the
+    combine matrix. Both add the shared expert.
+
+    The combine is deterministic on every device: each token gathers its
+    k experts' outputs in ascending expert order and sums them, a reduction
+    of fixed shape with no atomics (the reference scatter-adds; a token's
+    dropped experts are exact zeros in the sum)."""
+    b, s, d = x.shape
+    e = params["we_up"].shape[0]
+    t = b * s
+    xt = x.reshape(t, d)
+    probs = torch.softmax(xt.float() @ params["router"], dim=-1)   # (t, e)
+    gate_vals, gate_idx = stable_top_k(probs, top_k)              # (t, k)
+    gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True).clamp(min=1e-9)
+    combine = torch.zeros((t, e), dtype=torch.float32,
+                          device=x.device).scatter(1, gate_idx, gate_vals)
+
+    if dispatch == "dense":
+        ye = _expert_ffn(params, xt[None].expand(e, t, d), activation)
+        cw = combine.to(xt.dtype).T[..., None]                    # (e, t, 1)
+        y = (ye * cw).sum(0)
+    else:
+        cap = t if s == 1 else min(t, max(
+            1, int(t * top_k * capacity_factor / e)))
+        sel_val, sel_idx = stable_top_k(combine.T, cap)           # (e, cap)
+        ye = _expert_ffn(params, xt[sel_idx], activation)         # (e, cap, d)
+        ye = ye * sel_val[..., None].to(ye.dtype)
+        # Inverse index: the slot of each (expert, token), -1 if not kept.
+        slot = torch.full((e, t), -1, dtype=torch.long, device=x.device)
+        slot.scatter_(1, sel_idx, torch.arange(
+            cap, device=x.device).expand(e, cap))
+        order, _ = torch.sort(gate_idx, dim=-1)                   # (t, k)
+        at = slot[order, torch.arange(t, device=x.device)[:, None]]  # (t, k)
+        part = ye[order, at.clamp(min=0)]                         # (t, k, d)
+        y = torch.where((at >= 0)[..., None], part, 0).sum(1)
+    if "shared" in params:
+        y = y + ffn_block(params["shared"], xt, activation)
+    # Load-balancing aux loss (Switch-style).
+    density = combine.mean(dim=0)
+    aux = aux_loss_weight * e * torch.sum(density * probs.mean(dim=0))
+    return y.reshape(b, s, d), aux
 
 
 # --------------------------------------------------------------------- #

@@ -1,17 +1,24 @@
-"""Decoder-only transformer LM, dense GQA family.
+"""Decoder-only transformer LM: dense GQA, interleaved MoE, and the VLM
+backbone.
 
-Counterpart of ``src/repro/models/transformer.py`` for the dense configs
-(internlm2, chatglm3, minitron, smollm). The module tree carries the JAX
-package's leaf names: ``embed``, ``layers[i].ln1``, ``layers[i].attn.{wq,wk,
-wv,wo}``, ``layers[i].ln2``, ``layers[i].ffn.{wg,wu,wd}``, ``ln_f`` and, for
-untied embeddings, ``head``. A Python loop over the layers takes the place of
-``lax.scan`` over stacked parameters.
+Counterpart of ``src/repro/models/transformer.py``: the dense configs
+(internlm2, chatglm3, minitron, smollm), the MoE family (granite: MoE in
+every layer; llama4-maverick: MoE every ``moe_every`` layers with a shared
+expert, dense FFNs between) and the VLM backbone (internvl2: precomputed
+patch embeddings prepended to the token stream). The module tree carries the
+JAX package's leaf names: ``embed``, ``layers[i].ln1``,
+``layers[i].attn.{wq,wk,wv,wo}``, ``layers[i].ln2``, then
+``layers[i].ffn.{wg,wu,wd}`` or, at the last position of each super-block of
+``moe_every`` layers, ``layers[i].moe.{router,we_gate,we_up,we_down,
+shared.*}``; ``ln_f`` and, for untied embeddings, ``head``
+(``convert.py`` maps them to the reference's stacked tree). A Python loop
+over the layers takes the place of ``lax.scan`` over stacked parameters.
 
-Trainable: ``loss`` is the reference's, with its remat policies
-(``apply_remat``) on ``torch.utils.checkpoint``; attention and RMSNorm run
-their kernels in both directions on the GPU. Serving (``prefill``,
-``decode_step``) runs under ``torch.no_grad()``. Still to come with their
-slices: MoE blocks and VLM ``patches``.
+Trainable: ``loss`` is the reference's (the MoE layers' auxiliary losses
+summed into ``aux``), with its remat policies (``apply_remat``) on
+``torch.utils.checkpoint``; attention and RMSNorm run their kernels in both
+directions on the GPU. Serving (``prefill``, ``decode_step``) runs under
+``torch.no_grad()``; a decode step ignores the auxiliary loss.
 """
 
 from __future__ import annotations
@@ -36,6 +43,9 @@ from repro_torch.models.common import (
     dense_init,
     embed_init,
     ffn_block,
+    init_ffn_params,
+    init_moe_params,
+    moe_block,
     rms_norm,
     rope_frequencies,
     rope_positions,
@@ -106,38 +116,82 @@ class Attention(nn.Module):
 
 
 class FFN(nn.Module):
-    def __init__(self, cfg: ModelConfig, generator, dtype, device):
+    """A dense FFN's leaves (``init_ffn_params``) as parameters."""
+
+    def __init__(self, params: Dict[str, torch.Tensor], activation: str,
+                 device):
         super().__init__()
-        d, f = cfg.d_model, cfg.d_ff
-        if cfg.activation == "swiglu":
-            self.wg = _param(dense_init(generator, (d, f), dtype), device)
-        self.wu = _param(dense_init(generator, (d, f), dtype), device)
-        self.wd = _param(dense_init(generator, (f, d), dtype), device)
-        self.activation = cfg.activation
+        for name, t in params.items():
+            setattr(self, name, _param(t, device))
+        self.activation = activation
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return ffn_block(dict(self.named_parameters()), x, self.activation)
 
 
-class Block(nn.Module):
+class MoE(nn.Module):
+    """A MoE block's leaves (``init_moe_params``): the fp32 router, the
+    stacked experts and, where the config has one, the shared expert."""
+
     def __init__(self, cfg: ModelConfig, generator, dtype, device):
+        super().__init__()
+        m = cfg.moe
+        p = init_moe_params(generator, cfg.d_model, m.d_ff, m.num_experts,
+                            cfg.activation,
+                            m.shared_d_ff if m.shared_expert else 0, dtype)
+        shared = p.pop("shared", None)
+        for name, t in p.items():
+            setattr(self, name, _param(t, device))
+        if shared is not None:
+            self.shared = FFN(shared, cfg.activation, device)
+        self.cfg = cfg
+
+    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        m = self.cfg.moe
+        params = dict(self.named_parameters(recurse=False))
+        if hasattr(self, "shared"):
+            params["shared"] = dict(self.shared.named_parameters())
+        return moe_block(params, x, top_k=m.top_k,
+                         capacity_factor=m.capacity_factor,
+                         activation=self.cfg.activation,
+                         aux_loss_weight=m.aux_loss_weight,
+                         dispatch=m.dispatch)
+
+
+class Block(nn.Module):
+    def __init__(self, cfg: ModelConfig, generator, dtype, device,
+                 is_moe: bool):
         super().__init__()
         self.ln1 = _param(torch.ones(cfg.d_model, dtype=dtype), device)
         self.attn = Attention(cfg, generator, dtype, device)
         self.ln2 = _param(torch.ones(cfg.d_model, dtype=dtype), device)
-        self.ffn = FFN(cfg, generator, dtype, device)
+        if is_moe:
+            self.moe = MoE(cfg, generator, dtype, device)
+        else:
+            self.ffn = FFN(init_ffn_params(generator, cfg.d_model, cfg.d_ff,
+                                           cfg.activation, dtype),
+                           cfg.activation, device)
+
+
+def is_moe_layer(cfg: ModelConfig, i: int) -> bool:
+    """MoE at the last position of each super-block of ``moe_every``."""
+    return cfg.moe is not None and i % cfg.moe.moe_every == cfg.moe.moe_every - 1
 
 
 class Transformer(nn.Module):
-    """Dense decoder. Weights are drawn from ``generator`` (a fresh one
-    seeded with 0 if none is given), on its device, and are trainable."""
+    """Dense, MoE or VLM decoder. Weights are drawn from ``generator`` (a
+    fresh one seeded with 0 if none is given), on its device, and are
+    trainable."""
 
     def __init__(self, cfg: ModelConfig, *, dtype: torch.dtype = DEFAULT_DTYPE,
                  device=None, generator: Optional[torch.Generator] = None):
         super().__init__()
-        if cfg.family != "dense":
+        if cfg.family not in ("dense", "moe", "vlm"):
             raise NotImplementedError(
                 f"family {cfg.family!r} is not ported yet (ROADMAP Queue 1)")
+        if cfg.moe is not None and cfg.num_layers % cfg.moe.moe_every:
+            raise ValueError(f"{cfg.num_layers} layers do not split into "
+                             f"super-blocks of {cfg.moe.moe_every}")
         device = resolve_device(device)
         if generator is None:
             generator = torch.Generator(device="cpu").manual_seed(0)
@@ -145,8 +199,8 @@ class Transformer(nn.Module):
         self.embed = _param(embed_init(
             generator, (cfg.padded_vocab, cfg.d_model), dtype), device)
         self.layers = nn.ModuleList(
-            Block(cfg, generator, dtype, device)
-            for _ in range(cfg.num_layers))
+            Block(cfg, generator, dtype, device, is_moe_layer(cfg, i))
+            for i in range(cfg.num_layers))
         self.ln_f = _param(torch.ones(cfg.d_model, dtype=dtype), device)
         if not cfg.tie_embeddings:
             self.head = _param(dense_init(
@@ -165,69 +219,102 @@ class Transformer(nn.Module):
                    kv: Optional[dict] = None, rope=None) -> torch.Tensor:
         return layer.attn(rms_norm(x, layer.ln1, self.cfg.norm_eps), kv, rope)
 
-    def _ffn_part(self, layer: "Block", x: torch.Tensor) -> torch.Tensor:
-        return layer.ffn(rms_norm(x, layer.ln2, self.cfg.norm_eps))
+    def _ffn_part(self, layer: "Block", x: torch.Tensor
+                  ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """The FFN sub-block's output and, for a MoE layer, its aux loss."""
+        h = rms_norm(x, layer.ln2, self.cfg.norm_eps)
+        if hasattr(layer, "moe"):
+            return layer.moe(h)
+        return layer.ffn(h), None
 
     def _block(self, layer: "Block", x: torch.Tensor,
-               kv: Optional[dict] = None, rope=None) -> torch.Tensor:
+               kv: Optional[dict] = None, rope=None
+               ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         x = x + self._attn_part(layer, x, kv, rope)
-        return x + self._ffn_part(layer, x)
+        y, aux = self._ffn_part(layer, x)
+        return x + y, aux
 
-    def _trunk(self, tokens: torch.Tensor, cache: Optional[dict],
-               remat: Optional[str] = None) -> torch.Tensor:
-        """Embedding and all layers. tokens: (b, s) integer -> (b, s, d).
-        Writes the cache's K/V in place and advances its clock. ``remat``:
-        the policy each layer runs under (none with a cache)."""
+    def _embed(self, tokens: torch.Tensor,
+               patches: Optional[torch.Tensor]) -> torch.Tensor:
+        """Token embeddings (b, s, d), behind the VLM's patch embeddings
+        (b, p, d) when there are any."""
+        x = self.embed[tokens]
+        if patches is not None:
+            x = torch.cat([patches.to(x.dtype), x], dim=1)
+        return x
+
+    def _trunk(self, x: torch.Tensor, cache: Optional[dict],
+               remat: Optional[str] = None
+               ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """All layers over the embedded sequence x (b, s, d) -> (x, the MoE
+        layers' summed aux loss, fp32, or None without a MoE layer: a dense
+        pass makes no tensor for it). Writes the cache's K/V in place and
+        advances its clock. ``remat``: the policy each layer runs under
+        (none with a cache)."""
         cfg = self.cfg
         if cache is not None:
             remat = None
-        x = self.embed[tokens]
+        aux = None
         # The rotary tables depend on the positions only: once per pass, not
         # once per layer (eager PyTorch folds nothing).
         rope = None
         if cfg.rope_fraction > 0:
             rope = rope_frequencies(
                 cfg.resolved_head_dim, cfg.rope_fraction, cfg.rope_theta,
-                rope_positions(tokens.shape[1],
+                rope_positions(x.shape[1],
                                None if cache is None else cache["pos"],
-                               tokens.device))
+                               x.device))
         if remat == "blocks":
             attn_part = apply_remat(self._attn_part, remat)
             ffn_part = apply_remat(self._ffn_part, remat)
             for layer in self.layers:
                 x = x + attn_part(layer, x, None, rope)
-                x = x + ffn_part(layer, x)
-            return x
+                y, layer_aux = ffn_part(layer, x)
+                x = x + y
+                if layer_aux is not None:
+                    aux = layer_aux if aux is None else aux + layer_aux
+            return x, aux
         block = apply_remat(self._block, remat)
         for i, layer in enumerate(self.layers):
             kv = None
             if cache is not None:
                 kv = {"k": cache["k"][i], "v": cache["v"][i],
                       "pos": cache["pos"]}
-            x = block(layer, x, kv, rope)
+            x, layer_aux = block(layer, x, kv, rope)
+            if layer_aux is not None:
+                aux = layer_aux if aux is None else aux + layer_aux
         if cache is not None:
-            cache["pos"] = cache["pos"] + tokens.shape[1]
-        return x
+            cache["pos"] = cache["pos"] + x.shape[1]
+        return x, aux
 
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
         x = rms_norm(x, self.ln_f, self.cfg.norm_eps)
         head = self.embed.T if self.cfg.tie_embeddings else self.head
         return x @ head
 
-    def forward(self, tokens: torch.Tensor, cache: Optional[dict] = None
+    def forward(self, tokens: torch.Tensor, cache: Optional[dict] = None,
+                patches: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, Optional[dict]]:
-        """tokens: (b, s) integer. Returns (logits (b, s, padded_vocab),
-        cache). The cache is the caller's own dict, updated in place."""
-        return self._logits(self._trunk(tokens, cache)), cache
+        """tokens: (b, s) integer; patches: (b, p, d) for the VLM. Returns
+        (logits (b, p + s, padded_vocab), cache). The cache is the caller's
+        own dict, updated in place."""
+        x, _ = self._trunk(self._embed(tokens, patches), cache)
+        return self._logits(x), cache
 
     def loss(self, batch: Dict[str, torch.Tensor], remat: Optional[str] = "dots"
              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        """batch: {tokens, targets} (b, s) integer -> (total, {ce, aux}):
-        the mean token cross-entropy in fp32 (targets of -1 ignored); the
-        dense family has no auxiliary loss, so ``aux`` is 0."""
-        logits = self._logits(self._trunk(batch["tokens"], None, remat))
-        ce = cross_entropy_loss(logits, batch["targets"])
-        aux = torch.zeros((), dtype=torch.float32, device=ce.device)
+        """batch: {tokens, targets} (b, s) integer, and ``patches`` (b, p, d)
+        for the VLM -> (total, {ce, aux}): the mean token cross-entropy in
+        fp32 (targets of -1 ignored) over the token positions (the patches'
+        are dropped), and the MoE layers' summed aux loss (0 without MoE)."""
+        patches = batch.get("patches")
+        x, aux = self._trunk(self._embed(batch["tokens"], patches), None,
+                             remat)
+        n_patch = 0 if patches is None else patches.shape[1]
+        ce = cross_entropy_loss(self._logits(x[:, n_patch:]),
+                                batch["targets"])
+        if aux is None:
+            aux = torch.zeros((), dtype=torch.float32, device=ce.device)
         return ce + aux, {"ce": ce, "aux": aux}
 
     def init_cache(self, batch: int, max_seq: int,
@@ -242,12 +329,14 @@ class Transformer(nn.Module):
                                    device=self.device)}
 
     @torch.no_grad()
-    def prefill(self, tokens: torch.Tensor, cache: dict
+    def prefill(self, tokens: torch.Tensor, cache: dict,
+                patches: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, dict]:
-        """Fill a fresh cache from the prompt; logits of the last position,
-        (b, 1, padded_vocab). Only that position goes through the final norm
-        and the head: the others' logits are not needed to serve."""
-        x = self._trunk(tokens, cache)
+        """Fill a fresh cache from the prompt (behind ``patches`` for the
+        VLM); logits of the last position, (b, 1, padded_vocab). Only that
+        position goes through the final norm and the head: the others'
+        logits are not needed to serve."""
+        x, _ = self._trunk(self._embed(tokens, patches), cache)
         return self._logits(x[:, -1:, :]), cache
 
     @torch.no_grad()

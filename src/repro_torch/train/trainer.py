@@ -1,20 +1,21 @@
 """Fault-tolerant training loop.
 
 Counterpart of ``src/repro/train/trainer.py``:
+  * checkpoint/restart — ``CheckpointManager`` cadence + auto-resume (the
+    data iterator's cursor travels inside the checkpoint). The state is
+    saved in the JAX package's layout (``convert.to_jax_train_state``), so
+    either package resumes from the other's checkpoint. The layers are
+    stacked on the host as they are saved and unstacked there as they are
+    restored (``checkpoint.Stacked``): neither makes a second copy of the
+    state on the device,
   * preemption — SIGTERM/SIGINT set a flag; the loop stops after the step
-    it is in (and, once the checkpointer is ported, writes one final
-    forced checkpoint),
+    it is in and writes one final forced checkpoint before it returns,
   * straggler mitigation — a per-step wall-time watchdog tracks a robust
     (median) step time; steps slower than ``straggler_factor`` x the median
     of the last 50 (once there are 10) are counted and surfaced, and an
     optional callback lets the launcher react,
   * metrics — one host read of a step's metrics (which waits for the step),
     logged and printed every ``log_interval`` steps and at the last.
-
-Checkpoint/restart waits for the port's checkpointer (ROADMAP Queue 1 item
-3): ``try_resume`` and ``_checkpoint`` keep their places, and a ``ckpt_dir``
-raises ``NotImplementedError`` rather than train without the checkpoints it
-asks for.
 """
 
 from __future__ import annotations
@@ -27,16 +28,17 @@ from typing import Callable, Dict, List, Optional
 
 import torch
 
+from repro_torch.checkpoint import CheckpointManager, Stacked
+from repro_torch.convert import to_jax_train_state
 from repro_torch.data.pipeline import DataIterator
-
-CHECKPOINT_PENDING = ("checkpoints are not ported yet (ROADMAP Queue 1 item "
-                      "3: the checkpointer)")
 
 
 @dataclasses.dataclass
 class TrainerConfig:
     total_steps: int
     ckpt_dir: Optional[str] = None
+    ckpt_interval: int = 100
+    ckpt_keep: int = 3
     log_interval: int = 10
     straggler_factor: float = 3.0
     seed: int = 0
@@ -55,9 +57,6 @@ class Trainer:
     def __init__(self, step_fn: Callable, state: dict, data: DataIterator,
                  cfg: TrainerConfig,
                  on_straggler: Optional[Callable[[int, float], None]] = None):
-        if cfg.ckpt_dir is not None:
-            raise NotImplementedError(
-                f"ckpt_dir={cfg.ckpt_dir!r}: {CHECKPOINT_PENDING}")
         self.step_fn = step_fn
         self.state = state
         self.data = data
@@ -68,24 +67,35 @@ class Trainer:
         self.straggler_steps = 0
         self.metrics_log: List[Dict] = []
         self._preempted = False
-        self.manager = None      # the checkpointer, once it is ported
+        self.manager = (CheckpointManager(cfg.ckpt_dir, cfg.ckpt_interval,
+                                          cfg.ckpt_keep)
+                        if cfg.ckpt_dir else None)
 
     # ------------------------------------------------------------------ #
-    def _install_signal_handlers(self):
+    def _install_signal_handlers(self) -> dict:
+        """Install the preemption handlers; returns the ones they replace."""
         def handler(signum, frame):
             self._preempted = True
+        previous = {}
         for sig in (signal.SIGTERM, signal.SIGINT):
             try:
-                signal.signal(sig, handler)
+                old = signal.signal(sig, handler)
             except ValueError:
-                pass  # not on main thread (tests)
+                continue  # not on main thread (tests)
+            if old is not None:      # None: installed outside Python
+                previous[sig] = old
+        return previous
 
     def try_resume(self) -> bool:
-        """Restore the latest checkpoint; False when there is none (always,
-        until the checkpointer is ported: no ``ckpt_dir`` is taken)."""
-        if self.manager is None:
+        """Restore the latest checkpoint into the state's own tensors, the
+        step and the data cursor; False when there is none."""
+        if self.manager is None or self.manager.latest_step() is None:
             return False
-        raise NotImplementedError(CHECKPOINT_PENDING)
+        _, extra = self.manager.restore_latest(
+            target=to_jax_train_state(self.state, stack=Stacked))
+        self.step = int(extra.get("step", 0))
+        self.data.restore(extra.get("data", {"step": self.step}))
+        return True
 
     # ------------------------------------------------------------------ #
     def _watchdog(self, dt: float) -> None:
@@ -101,7 +111,11 @@ class Trainer:
     def _checkpoint(self, force: bool = False) -> None:
         if self.manager is None:
             return
-        raise NotImplementedError(CHECKPOINT_PENDING)
+        extra = {"step": self.step, "data": self.data.state()}
+        self.manager.maybe_save(self.step,
+                                lambda: to_jax_train_state(self.state,
+                                                           stack=Stacked),
+                                extra, force=force)
 
     def _device(self) -> torch.device:
         return next(iter(self.state["params"].values())).device
@@ -122,7 +136,14 @@ class Trainer:
     def run(self, generator: Optional[torch.Generator] = None) -> Dict:
         """Train to ``total_steps`` (or a preemption signal). ``generator``:
         the run's seed (its ``initial_seed``); ``cfg.seed`` when None."""
-        self._install_signal_handlers()
+        previous = self._install_signal_handlers()
+        try:
+            return self._run(generator)
+        finally:
+            for sig, handler in previous.items():
+                signal.signal(sig, handler)
+
+    def _run(self, generator: Optional[torch.Generator]) -> Dict:
         seed = self.cfg.seed if generator is None else generator.initial_seed()
         device = self._device()
         last_metrics: Dict = {}
@@ -146,6 +167,8 @@ class Trainer:
             self._checkpoint()
         # final / preemption flush
         self._checkpoint(force=True)
+        if self.manager:
+            self.manager.wait()
         return {
             "final_step": self.step,
             "preempted": self._preempted,

@@ -28,7 +28,8 @@ from repro_torch.models import get_model
 torch.set_num_threads(1)
 
 ARCHS = ["smollm-135m", "chatglm3-6b", "minitron-8b", "internlm2-20b"]
-CONFIG_ARCHS = ARCHS + ["mamba2-780m"]
+MOE_ARCHS = ["granite-moe-3b-a800m", "llama4-maverick-400b-a17b"]
+CONFIG_ARCHS = ARCHS + ["mamba2-780m"] + MOE_ARCHS + ["internvl2-76b"]
 
 
 def _pair(arch, seed=0, dtype=jnp.float32):

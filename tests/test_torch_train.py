@@ -305,13 +305,15 @@ def test_make_train_step_two_microbatches_matches_jax():
 
 
 DENSE_ARCHS = ["smollm-135m", "chatglm3-6b", "minitron-8b", "internlm2-20b"]
+MOE_VLM_ARCHS = ["granite-moe-3b-a800m", "llama4-maverick-400b-a17b",
+                 "internvl2-76b"]
 
 
-@pytest.mark.parametrize("arch", DENSE_ARCHS)
+@pytest.mark.parametrize("arch", DENSE_ARCHS + MOE_VLM_ARCHS)
 def test_plan_memory_matches_reference(arch):
     """The port's planner against the reference's at one H100's 80 GB, for
-    every dense config, without a shape and at each training shape, on one
-    device and on a few meshes."""
+    every transformer config, without a shape and at each training shape,
+    on one device and on a few meshes."""
     assert arch in list_configs()
     shapes = [None] + [sh for sh in SHAPES.values() if sh.kind == "train"]
     for tp, dp in ((1, 1), (4, 1), (8, 32)):
@@ -372,11 +374,16 @@ def test_trainer_loss_falls_and_watchdog_counts_a_straggler():
                             "final_aux", "final_lr", "final_grad_norm"}
 
 
-def test_trainer_checkpoint_dir_waits_for_the_checkpointer():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        _reduced_trainer(2, ckpt_dir="ckpt")
-    trainer = _reduced_trainer(1)
+def test_trainer_checkpoint_dir_waits_for_the_checkpointer(tmp_path):
+    """A ``ckpt_dir`` builds the manager, an empty directory resumes
+    nothing, and a run commits its last step. (The name is from before the
+    checkpointer was ported, when a ``ckpt_dir`` raised.)"""
+    trainer = _reduced_trainer(2, ckpt_dir=str(tmp_path), ckpt_interval=1)
+    assert trainer.manager is not None
     assert trainer.try_resume() is False
+    trainer.run()
+    assert trainer.manager.latest_step() == 2
+    assert _reduced_trainer(1).try_resume() is False
 
 
 def test_launch_train_reduced_on_cpu(capsys):
@@ -418,7 +425,16 @@ def test_launch_train_reduced_on_the_card(capsys):
 
 @pytest.mark.parametrize("flags", [["--ckpt-dir", "ckpt"],
                                    ["--resume", "auto"]])
-def test_launch_train_checkpoint_flags_raise(flags):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        launch_train.main(["--reduced", "--device", "cpu", "--steps", "1",
-                           *flags])
+def test_launch_train_checkpoint_flags_raise(flags, tmp_path, monkeypatch,
+                                             capsys):
+    """``--ckpt-dir`` commits the last step; ``--resume auto`` without a
+    directory is a fresh start. (The name is from before the checkpointer
+    was ported, when both flags raised.)"""
+    monkeypatch.chdir(tmp_path)
+    summary = launch_train.main(["--reduced", "--device", "cpu", "--steps",
+                                 "1", *flags])
+    assert summary["final_step"] == 1
+    if "--ckpt-dir" in flags:
+        assert (tmp_path / "ckpt" / "step_00000001.done").exists()
+    else:
+        assert "resume: fresh start" in capsys.readouterr().out
