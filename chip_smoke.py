@@ -39,6 +39,20 @@ run with a non-zero exit code (nothing drops to the CPU or to a plain version):
            layers, 24 / 8 heads of 64, 40 experts top-8, weights drawn on
            the card): attention and RMSNorm through the kernels at its
            shapes, the experts as batched products
+  serve_zamba, profile_zamba
+           the same for zamba2-2.7b at full width and depth (54 Mamba2
+           layers, the one shared attention block after every 6th: 32 heads
+           of 160 on concat(h, emb0), weights drawn on the card): the scan in
+           every layer of a prefill, attention at head_dim 160 in every
+           application of the shared block
+  serve_encdec
+           seamless-m4t-large-v2 at full width and depth (24 + 24 layers,
+           d 1024, vocabulary 258,048), bf16, weights drawn on the card: a
+           batch of 8 sources of 1024 frames from a seeded generator, 64-token
+           prompts, one prefill and 32 greedy ticks called directly (the
+           engine takes no frames); non-causal encoder and cross-attention
+           through the kernels; launches checked, the ticks profiled; then
+           the kernel path against the plain path in fp32
   train_dlrm
            dlrm-1.2t at every published width, tables cut to 200,000 rows,
            fp32, weights from a seed: 20 training steps (loss -> backward ->
@@ -116,6 +130,7 @@ from repro_torch.kernels.embedding_bag import (  # noqa: E402
 from repro_torch.kernels import rmsnorm as rms_module  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     DECODE_CLUSTERS,
+    decode_cluster_fits,
     flash_attention_backward_cuda,
     flash_attention_backward_plan,
     flash_attention_backward_plain,
@@ -229,6 +244,11 @@ LM_CHECK_TOL = {torch.float32: {"loss": 1e-5, "grads": 1e-4, "grad_norm": 1e-4},
 # Serving a MoE: granite-moe-3b-a800m at full width and depth (32 layers,
 # 40 experts of d_ff 512, top-8), bf16, weights from seed 0 drawn on the card.
 MOE_ARCH = "granite-moe-3b-a800m"
+
+# Serving the hybrid: zamba2-2.7b at full width and depth (54 Mamba2 layers,
+# the shared attention block after every 6th: 32 heads of 160), bf16,
+# weights from seed 0 drawn on the card, through the engine as above.
+ZAMBA_ARCH = "zamba2-2.7b"
 
 # Checkpoint and resume: the train_lm configuration (full-width smollm-135m,
 # fp32, 8 x 2048 tokens a step), 2 * CKPT_K steps straight against CKPT_K
@@ -495,12 +515,13 @@ def _attention_case(name, b, h, hkv, sq, skv, d, causal, dtype, gen,
     }
     if clusters:
         # The cluster size is the decode kernel's one occupancy knob: time
-        # each choice.
+        # each choice whose shared memory fits a block.
         case["cluster_ms"] = {
             str(c): time_ms(lambda a, b_, v_, c=c: flash_attention_cuda(
                 a, b_, v_, causal, kv_len_t, q_off_t, decode_cluster=c),
                 sets)["device"]
-            for c in DECODE_CLUSTERS}
+            for c in DECODE_CLUSTERS
+            if decode_cluster_fits(d, dtype, h // hkv * sq, c)}
     return case
 
 
@@ -1050,11 +1071,13 @@ def phase_kernels() -> list:
     # and the cases added with the redesigned attention kernels from a third
     # (their positions too, so the decode tick keeps its positions)
     gen_attn = torch.Generator(device=DEVICE).manual_seed(3)
-    # granite-moe's shapes from a fourth
+    # granite-moe's shapes from a fourth, zamba2's and seamless's from a fifth
     gen_moe = torch.Generator(device=DEVICE).manual_seed(4)
+    gen_zamba = torch.Generator(device=DEVICE).manual_seed(5)
     rs = np.random.RandomState(0)
     rs_attn = np.random.RandomState(3)
     rs_moe = np.random.RandomState(4)
+    rs_zamba = np.random.RandomState(5)
     cases = []
     with torch.no_grad():
         for dtype in (torch.float32, torch.bfloat16):
@@ -1136,6 +1159,31 @@ def phase_kernels() -> list:
                 dtype, gen_moe))
             cases.append(_rmsnorm_case((1, 1024, 1536), dtype, gen_moe,
                                        ulp_tol=True))
+            # zamba2-2.7b's shapes (serve_zamba): the shared block's MHA
+            # at head_dim 160, its decode tick and a 1024-token prefill; the
+            # scan at 80 heads of 64, n 64; the prefill's norm at 5120 (the
+            # shared block's input and the gated norm's d_inner)
+            cases.append(_attention_case(
+                "zamba2 decode tick, d=160", 8, 32, 32, 1, 2048, 160, True,
+                dtype, gen_zamba,
+                q_offset=rs_zamba.randint(0, 2048, size=8).tolist(),
+                clusters=True))
+            cases.append(_attention_case(
+                "zamba2 prefill s=1024, d=160", 1, 32, 32, 1024, 1024, 160,
+                True, dtype, gen_zamba))
+            cases.append(_ssd_case("zamba2 prefill", 1, 1024, 80, 64, 64, 1,
+                                   256, dtype, gen_zamba))
+            cases.append(_rmsnorm_case((1, 1024, 5120), dtype, gen_zamba,
+                                       ulp_tol=True))
+            # seamless-m4t-large-v2's (serve_encdec): an encoder layer's
+            # attention over 1024 frames, not causal, and a decode tick's
+            # cross-attention over them
+            cases.append(_attention_case(
+                "seamless encoder layer", 8, 16, 16, 1024, 1024, 64, False,
+                dtype, gen_zamba))
+            cases.append(_attention_case(
+                "seamless cross decode", 8, 16, 16, 1, 1024, 64, False,
+                dtype, gen_zamba))
     cases.extend(_bag_cases())
     cases.extend(_backward_cases())
     failed = [c for c in cases
@@ -1240,11 +1288,16 @@ def _expected_launches(cfg, prefills: int, ticks: int) -> dict:
     """Each kernel's launches on the serve path, by the model's structure:
     two norms a layer and the final norm in every forward; attention in
     every layer of every forward (dense), the scan in every layer of a
-    prefill (mamba2: a decode tick is the plain recurrence)."""
+    prefill (mamba2: a decode tick is the plain recurrence). zamba2 adds
+    its shared block after each group of ``attn_every`` layers: attention
+    and two norms, in every forward."""
     forwards = prefills + ticks
-    mamba = cfg.family == "ssm"
-    return {"flash_attention": 0 if mamba else cfg.num_layers * forwards,
-            "rmsnorm": (2 * cfg.num_layers + 1) * forwards,
+    mamba = cfg.family in ("ssm", "hybrid")
+    groups = (cfg.num_layers // cfg.hybrid.attn_every
+              if cfg.family == "hybrid" else 0)
+    return {"flash_attention": (groups if mamba else cfg.num_layers)
+            * forwards,
+            "rmsnorm": (2 * cfg.num_layers + 2 * groups + 1) * forwards,
             "ssd_scan": cfg.num_layers * prefills if mamba else 0}
 
 
@@ -1381,21 +1434,21 @@ def _device_time(prof, units: int, unit: str):
     return device_us, launches, by_name
 
 
-def phase_profile(engine: Engine, phase: str) -> None:
-    """More decode ticks of the drained engine's model (its slots are idle
-    ones: dense positions are clamped to the cache's last row, mamba2 slots
-    go on decoding their stale state; the work per tick is the same): first
-    timed on the host's clock, then traced by torch.profiler for the kernels'
-    time on the device. The busy share is device time over the untraced wall
-    time, since tracing itself slows the host."""
+PROFILED_TICKS = 8
+
+
+def _tick_profile(tick) -> dict:
+    """``PROFILED_TICKS`` calls of ``tick`` (one decode tick, its sampled
+    tokens read to the host), twice: first timed on the host's clock, then
+    traced by torch.profiler for the kernels' time on the device. The busy
+    share is device time over the untraced wall time, since tracing itself
+    slows the host."""
     from torch.profiler import ProfilerActivity, profile
-    ticks = 8
+    ticks = PROFILED_TICKS
 
     def run_ticks():
         for _ in range(ticks):
-            logits, _ = engine.model.decode_step(engine.cache,
-                                                 engine.last_tokens)
-            logits[:, 0].argmax(-1).tolist()
+            tick()
         torch.cuda.synchronize()
 
     run_ticks()
@@ -1405,19 +1458,184 @@ def phase_profile(engine: Engine, phase: str) -> None:
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         run_ticks()
     device_us, launches, by_name = _device_time(prof, ticks, "tick")
-    arch = engine.cfg.arch_id
     if device_us == 0:
-        emit(phase, arch=arch, ticks=ticks, wall_ms_per_tick=wall_ms,
-             device_busy_share="not measured",
-             reason="torch.profiler reported no device time")
-        return
+        return {"ticks": ticks, "wall_ms_per_tick": wall_ms,
+                "device_busy_share": "not measured",
+                "reason": "torch.profiler reported no device time"}
     device_ms = device_us / 1e3 / ticks
-    prefill = _traced_prefill(engine) if engine.cfg.family == "ssm" else {}
-    emit(phase, arch=arch, ticks=ticks, wall_ms_per_tick=wall_ms,
-         device_ms_per_tick=device_ms, device_busy_share=device_ms / wall_ms,
-         device_idle_share=1.0 - device_ms / wall_ms,
-         device_launches_per_tick=launches / ticks,
-         top_device_time=by_name[:12], **prefill)
+    return {"ticks": ticks, "wall_ms_per_tick": wall_ms,
+            "device_ms_per_tick": device_ms,
+            "device_busy_share": device_ms / wall_ms,
+            "device_idle_share": 1.0 - device_ms / wall_ms,
+            "device_launches_per_tick": launches / ticks,
+            "top_device_time": by_name[:12]}
+
+
+def phase_profile(engine: Engine, phase: str) -> None:
+    """More decode ticks of the drained engine's model (its slots are idle
+    ones: dense positions are clamped to the cache's last row, mamba2 slots
+    go on decoding their stale state; the work per tick is the same), by
+    ``_tick_profile``; for the SSM families also one traced prefill."""
+    def tick():
+        logits, _ = engine.model.decode_step(engine.cache, engine.last_tokens)
+        logits[:, 0].argmax(-1).tolist()
+
+    ticks = _tick_profile(tick)
+    prefill = (_traced_prefill(engine)
+               if engine.cfg.family in ("ssm", "hybrid")
+               and "device_ms_per_tick" in ticks else {})
+    emit(phase, arch=engine.cfg.arch_id, **ticks, **prefill)
+
+
+# ------------------------------------------------------------------------- #
+# Serving the encoder-decoder
+# ------------------------------------------------------------------------- #
+
+# seamless-m4t-large-v2 at full width and depth, bf16, weights from seed 0
+# drawn on the card: a batch of 8 sources of src_len = source_frac * 2048
+# frames (the audio frontend is a stub: the frames are drawn from a seeded
+# generator), decoder prompts of 64 tokens, 32 greedy ticks. The engine has
+# no frames input (nor has the reference's), so the phase calls prefill and
+# decode_step itself, as the reference's test_serving_matches_forward does.
+ENCDEC_ARCH = "seamless-m4t-large-v2"
+ENCDEC_BATCH, ENCDEC_PROMPT, ENCDEC_TICKS, ENCDEC_MAX_SEQ = 8, 64, 32, 2048
+
+
+def _expected_encdec_launches(cfg, prefills: int, ticks: int) -> dict:
+    """A prefill: the encoder's attention and two norms a layer and
+    ``ln_enc``, then the decoder's self- and cross-attention and three
+    norms a layer and ``ln_f``; a tick: the decoder's alone."""
+    enc, dec = cfg.encdec.encoder_layers, cfg.encdec.decoder_layers
+    return {"flash_attention": (enc + 2 * dec) * prefills + 2 * dec * ticks,
+            "rmsnorm": (2 * enc + 1 + 3 * dec + 1) * prefills
+            + (3 * dec + 1) * ticks,
+            "ssd_scan": 0}
+
+
+def phase_serve_encdec() -> dict:
+    """The batch's prefill and its ticks through the kernels, launch counts
+    checked, the ticks profiled; then the kernel path against the plain
+    path in fp32 on the same weights (a prefill of 2 x 40 tokens over 256
+    frames and one tick)."""
+    cfg = get_config(ENCDEC_ARCH)
+    make = lambda dtype: get_model(cfg)(
+        cfg, dtype=dtype, device=DEVICE,
+        generator=torch.Generator(device=DEVICE).manual_seed(0))
+    t0 = time.perf_counter()
+    model = make(torch.bfloat16)
+    init_seconds = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    src_len = int(cfg.encdec.source_frac * ENCDEC_MAX_SEQ)
+    frames = torch.randn(
+        (ENCDEC_BATCH, src_len, cfg.d_model), device=DEVICE,
+        generator=torch.Generator(device=DEVICE).manual_seed(1))
+    rs = np.random.RandomState(2)
+    prompts = torch.from_numpy(rs.randint(
+        0, cfg.vocab_size, size=(ENCDEC_BATCH, ENCDEC_PROMPT))).to(DEVICE)
+    prefill, tick = _Timed(model.prefill), _Timed(model.decode_step)
+
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    # The main path: counters to 0 just before, read just after.
+    for name in PLAIN:
+        getattr(ops, name).launches = 0
+    t0 = time.perf_counter()
+    cache = model.init_cache(ENCDEC_BATCH, ENCDEC_MAX_SEQ, src_len)
+    logits, cache = prefill(prompts, cache, frames)
+    tokens = [logits[:, -1].argmax(-1)]
+    for _ in range(ENCDEC_TICKS):
+        logits, cache = tick(cache, tokens[-1][:, None])
+        tokens.append(logits[:, -1].argmax(-1))
+    out = torch.stack(tokens, dim=1).tolist()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {name: getattr(ops, name).launches for name in PLAIN}
+    peak_bytes = torch.cuda.max_memory_allocated()
+
+    problems = []
+    expected = _expected_encdec_launches(cfg, 1, ENCDEC_TICKS)
+    if launches != expected:
+        problems.append(f"launches {launches} != {expected}")
+    if not all(0 <= t < cfg.padded_vocab for row in out for t in row):
+        problems.append("a token lies outside the padded vocabulary")
+    if logits.shape != (ENCDEC_BATCH, 1, cfg.padded_vocab) or not bool(
+            torch.isfinite(logits).all()):
+        problems.append(f"tick logits: shape {tuple(logits.shape)} or "
+                        "values not finite")
+    if cache["pos"].tolist() != [ENCDEC_PROMPT + ENCDEC_TICKS] * ENCDEC_BATCH:
+        problems.append(f"cache clock {cache['pos'].tolist()}")
+
+    def one_tick():
+        lg, _ = model.decode_step(cache, tokens[-1][:, None])
+        lg[:, -1].argmax(-1).tolist()
+
+    profile = _tick_profile(one_tick)
+    del cache, model, frames
+    torch.cuda.empty_cache()
+
+    # The same weights in fp32: kernel path against plain path on the card.
+    model32 = make(torch.float32)
+    frames32 = torch.randn((2, 256, cfg.d_model), device=DEVICE,
+                           generator=torch.Generator(device=DEVICE)
+                           .manual_seed(3))
+    prompt32 = torch.from_numpy(rs.randint(0, cfg.vocab_size,
+                                           size=(2, 40))).to(DEVICE)
+    nxt = torch.from_numpy(rs.randint(0, cfg.vocab_size,
+                                      size=(2, 1))).to(DEVICE)
+
+    def run_both():
+        c = model32.init_cache(2, 64, 256)
+        first, c = model32.prefill(prompt32, c, frames32)
+        second, c = model32.decode_step(c, nxt)
+        torch.cuda.synchronize()
+        return first.float(), second.float()
+
+    kernel_first, kernel_second = run_both()
+    kernel_wrappers = {name: getattr(ops, name) for name in PLAIN}
+    for name, plain in PLAIN.items():
+        setattr(ops, name, plain)
+    try:
+        plain_first, plain_second = run_both()
+    finally:
+        for name, wrapper in kernel_wrappers.items():
+            setattr(ops, name, wrapper)
+    del model32
+    torch.cuda.empty_cache()
+    logit_err = {
+        "prefill": (kernel_first - plain_first).abs().max().item(),
+        "decode": (kernel_second - plain_second).abs().max().item()}
+    for name, got in (("prefill", kernel_first), ("decode", kernel_second)):
+        if got.shape != (2, 1, cfg.padded_vocab) or not torch.isfinite(got).all():
+            problems.append(f"fp32 {name} logits: shape {tuple(got.shape)} or "
+                            "values not finite")
+        if not logit_err[name] <= LOGIT_TOL:
+            problems.append(f"fp32 {name} logits differ from the plain path "
+                            f"by {logit_err[name]} > {LOGIT_TOL}")
+
+    result = {
+        "arch": cfg.arch_id, "encoder_layers": cfg.encdec.encoder_layers,
+        "decoder_layers": cfg.encdec.decoder_layers, "d_model": cfg.d_model,
+        "params": n_params, "dtype": "bfloat16", "batch": ENCDEC_BATCH,
+        "src_len": src_len, "prompt_len": ENCDEC_PROMPT,
+        "max_seq": ENCDEC_MAX_SEQ, "ticks": ENCDEC_TICKS,
+        "tokens": ENCDEC_BATCH * (ENCDEC_TICKS + 1), "seconds": seconds,
+        "tokens_per_s": ENCDEC_BATCH * (ENCDEC_TICKS + 1) / seconds,
+        "prefill_ms": prefill.ms[0],
+        "tick_ms_mean": float(np.mean(tick.ms)),
+        "tick_ms_median": float(np.median(tick.ms)),
+        "launches": launches, "expected_launches": expected,
+        "peak_memory_bytes": peak_bytes,
+        "weights_init_seconds": init_seconds,
+        "profile": profile,
+        "fp32_logit_max_abs_err": logit_err, "fp32_logit_tol": LOGIT_TOL,
+        "fp32_logit_max_abs": {"prefill": plain_first.abs().max().item(),
+                               "decode": plain_second.abs().max().item()},
+        "problems": problems,
+    }
+    emit("serve_encdec", **result)
+    if problems:
+        raise SystemExit(f"chip_smoke: serve_encdec phase failed: {problems}")
+    return result
 
 
 # The SSD scan's stage kernels as torch.profiler names them (either type).
@@ -2282,6 +2500,17 @@ def kernels_line(cases: list, launches_by_path: dict, repeats: list) -> dict:
                                    "kernel_eager_ms", "plain_ms", "library_ms",
                                    "bound_ms", "bound_by", "max_abs_err")
                  if k in c} for c in granite]
+        if name in ("flash_attention", "rmsnorm", "ssd_scan"):
+            # zamba2's and seamless's shapes (serve_zamba, serve_encdec),
+            # both types
+            entries[-1]["zamba2_seamless"] = [
+                {k: c[k] for k in ("case", "shape", "dtype", "kernel_ms",
+                                   "kernel_eager_ms", "plain_ms", "library_ms",
+                                   "bound_ms", "bound_by", "max_abs_err",
+                                   "cluster_ms") if k in c}
+                for c in mine if c.get("case", "").startswith(
+                    ("zamba2", "seamless"))
+                or c.get("shape") == [1, 1024, 5120]]
         if name == "flash_attention":
             prefill = next(c for c in mine if c["case"] == "prefill s=1024"
                            and c["dtype"] == "bfloat16")
@@ -2312,15 +2541,19 @@ def main() -> int:
     repeats = phase_repeats()
     launches = {}
     # The dense path keeps drawing its weights on the CPU, as it always did;
-    # mamba2's 781 M and granite-moe's 3.3 G are drawn on the card.
+    # mamba2's 781 M, granite-moe's 3.3 G and zamba2's 2.4 G are drawn on
+    # the card.
     for arch, phase, weight_device in (("smollm-135m", "serve", "cpu"),
                                        ("mamba2-780m", "serve_mamba", DEVICE),
-                                       (MOE_ARCH, "serve_moe", DEVICE)):
+                                       (MOE_ARCH, "serve_moe", DEVICE),
+                                       (ZAMBA_ARCH, "serve_zamba", DEVICE)):
         serve = phase_serve(arch, phase, weight_device)
         phase_profile(serve["engine"], phase.replace("serve", "profile"))
         launches[phase] = serve["launches"]
         del serve
         torch.cuda.empty_cache()
+    launches["serve_encdec"] = phase_serve_encdec()["launches"]
+    torch.cuda.empty_cache()
     launches["train_dlrm"] = phase_train_dlrm()
     phase_train_dlrm_check()
     launches["train_lm"] = phase_train_lm()

@@ -3,9 +3,10 @@
 ``get_config("smollm-135m")`` -> full ModelConfig
 ``get_config("smollm-135m", reduced=True)`` -> small test variant
 
-Registered: the dense family, the MoE family (granite-moe, llama4-maverick),
-the VLM backbone (internvl2) and mamba2 (``ssm``); the other families join
-with the slices that port their models. The DLRM has a config of its own:
+Registered: every assigned architecture of the JAX package: the dense
+family, the MoE family (granite-moe, llama4-maverick), the VLM backbone
+(internvl2), mamba2 (``ssm``), zamba2 (``hybrid``) and seamless-m4t
+(``encdec``). The DLRM has a config of its own:
 ``get_dlrm_config()``.
 """
 
@@ -34,6 +35,8 @@ _ARCH_MODULES: Dict[str, str] = {
     "granite-moe-3b-a800m": "granite_moe_3b_a800m",
     "llama4-maverick-400b-a17b": "llama4_maverick_400b_a17b",
     "internvl2-76b": "internvl2_76b",
+    "zamba2-2.7b": "zamba2_2p7b",
+    "seamless-m4t-large-v2": "seamless_m4t_large_v2",
 }
 
 

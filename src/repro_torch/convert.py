@@ -3,9 +3,12 @@ trees and the port's modules: neither side imports the other.
 
 The JAX tree stacks the layers on a leading axis (``layers.ln1`` is
 ``(L, d)``, ``layers.attn.wq`` is ``(L, d, h*hd)``, ``dense_ffn.wg`` is
-``(L, d, d_ff)``; for mamba2 ``layers.wz`` is ``(L, d, d_inner)``); the
-port's state dict has one entry per layer (``layers.3.attn.wq``,
-``layers.3.wz``). A MoE transformer groups its layers in super-blocks of
+``(L, d, d_ff)``; for mamba2 and zamba2 ``layers.wz`` is ``(L, d,
+d_inner)``; seamless stacks ``encoder.*`` and ``decoder.*``); the port's
+state dict has one entry per layer (``layers.3.attn.wq``, ``layers.3.wz``,
+``decoder.3.cross_attn.wq``). zamba2's one ``shared_attn`` tree and the
+unstacked leaves (``embed``, ``ln_f``, ``ln_enc``, ``head``) keep their
+dotted names. A MoE transformer groups its layers in super-blocks of
 ``moe_every``: the MoE sits at the last position of each, ``moe.*`` stacked
 over the ``nb`` super-blocks, and the dense FFNs of the other positions are
 ``dense_ffn.*`` stacked ``nb * (moe_every - 1)`` (none when ``moe_every`` is
@@ -37,6 +40,12 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models.transformer import is_moe_layer
 
 _TRANSFORMER_FAMILIES = ("dense", "moe", "vlm")
+_FAMILIES = _TRANSFORMER_FAMILIES + ("ssm", "hybrid", "encdec")
+# The stacks of each family other than the transformer's: (tree name, layers)
+_STACKS = {"ssm": lambda cfg: (("layers", cfg.num_layers),),
+           "hybrid": lambda cfg: (("layers", cfg.num_layers),),
+           "encdec": lambda cfg: (("encoder", cfg.encdec.encoder_layers),
+                                  ("decoder", cfg.encdec.decoder_layers))}
 
 
 def _to_tensor(arr) -> torch.Tensor:
@@ -84,27 +93,35 @@ def _moe_slot(cfg: ModelConfig, i: int):
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family not in _TRANSFORMER_FAMILIES + ("ssm",):
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (ROADMAP Queue 1)")
+    if cfg.family not in _FAMILIES:
+        raise ValueError(f"unknown family {cfg.family!r}")
 
 
 def from_jax_params(params: Mapping, cfg: ModelConfig
                     ) -> Dict[str, torch.Tensor]:
     """Nested dicts of numpy arrays (``jax.tree.map(np.asarray, params)`` of
-    the JAX transformer or mamba2) -> a state dict for ``load_state_dict`` of
+    any JAX model but the DLRM) -> a state dict for ``load_state_dict`` of
     the model ``get_model(cfg)`` builds."""
     _check_family(cfg)
+    if cfg.family in _STACKS:
+        stacks = dict(_STACKS[cfg.family](cfg))
+        state = {}
+        for top, tree in params.items():
+            if top in stacks:
+                for name, stacked in _leaves(tree):
+                    for i in range(stacks[top]):
+                        state[f"{top}.{i}.{name}"] = _to_tensor(stacked[i])
+            elif isinstance(tree, Mapping):
+                for name, leaf in _leaves(tree, f"{top}."):
+                    state[name] = _to_tensor(leaf)
+            else:
+                state[top] = _to_tensor(tree)
+        return state
     state = {"embed": _to_tensor(params["embed"]),
              "ln_f": _to_tensor(params["ln_f"])}
     if "head" in params:
         state["head"] = _to_tensor(params["head"])
     layers = params["layers"]
-    if cfg.family == "ssm":
-        for i in range(cfg.num_layers):
-            for name, stacked in layers.items():
-                state[f"layers.{i}.{name}"] = _to_tensor(stacked[i])
-        return state
     for i in range(cfg.num_layers):
         state[f"layers.{i}.ln1"] = _to_tensor(layers["ln1"][i])
         state[f"layers.{i}.ln2"] = _to_tensor(layers["ln2"][i])
@@ -138,13 +155,20 @@ def to_jax_params(state_dict: Mapping[str, torch.Tensor], cfg: ModelConfig,
                                        for i in layers])
                       for n in names})
 
+    if cfg.family in _STACKS:
+        stacks = dict(_STACKS[cfg.family](cfg))
+        tree = _nest({k: v for k, v in sd.items()
+                      if k.split(".", 1)[0] not in stacks})
+        for top, n in stacks.items():
+            head = f"{top}.0."
+            names = [k[len(head):] for k in sd if k.startswith(head)]
+            tree[top] = _nest({name: stacked_leaf(
+                [f"{top}.{i}.{name}" for i in range(n)]) for name in names})
+        return tree
     tree = {"embed": sd["embed"], "ln_f": sd["ln_f"]}
     if "head" in sd:
         tree["head"] = sd["head"]
     every = list(range(cfg.num_layers))
-    if cfg.family == "ssm":
-        tree["layers"] = stacked(every, "")
-        return tree
     tree["layers"] = {"ln1": stacked_leaf([f"layers.{i}.ln1" for i in every]),
                       "ln2": stacked_leaf([f"layers.{i}.ln2" for i in every]),
                       "attn": stacked(every, "attn.")}
@@ -228,7 +252,10 @@ def load_jax_train_state(state: Mapping, tree: Mapping) -> None:
 def cache_to_numpy(cache: Mapping[str, torch.Tensor]) -> Dict[str, np.ndarray]:
     """The port's cache as numpy arrays in the JAX package's layout (dense:
     ``k``/``v`` (L, b, S, hkv, d); mamba2: ``conv`` (L, b, width - 1,
-    conv_ch), ``ssm`` (L, b, h, p, n); ``pos`` (b,)); bf16 widens to fp32.
+    conv_ch), ``ssm`` (L, b, h, p, n), and zamba2's ``attn_k``/``attn_v``
+    (n_groups, b, S, hkv, d); seamless: ``self_k``/``self_v`` (L, b, S,
+    hkv, d), ``cross_k``/``cross_v`` (L, b, src, hkv, d); ``pos`` (b,));
+    bf16 widens to fp32.
     The arrays are copies: the port updates its cache in place, so a view
     would change under the caller at the next decode step."""
     out = {}

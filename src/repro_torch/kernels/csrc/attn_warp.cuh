@@ -21,6 +21,15 @@ namespace {
 template <typename T>
 constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
 
+// The n-tiles a pass of `warp_accumulate`'s fp32 route sums at once: the
+// largest divisor of the n-tiles that is at most 8 (8 at d 64 and 128, 5 at
+// d 160's twenty).
+__host__ __device__ constexpr int n_tiles_a_pass(int n) {
+  int c = n < 8 ? n : 8;
+  while (n % c) --c;
+  return c;
+}
+
 // Rows of a streamed tile (keys for the forward and dQ, queries for dK/dV).
 template <int D>
 __host__ __device__ constexpr int tile_rows() {
@@ -183,7 +192,7 @@ __device__ __forceinline__ void warp_accumulate(float (&acc)[D / 8][4], const fl
     // cores' accumulation rounds toward zero, which over the ~2,300 mma steps
     // of a long sum (dK at the train_lm layer) drifts 6e-5 of the largest
     // gradient, where one tile's 3 NC steps stay near fp32.
-    constexpr int CH = D / 8 < 8 ? D / 8 : 8;
+    constexpr int CH = n_tiles_a_pass(D / 8);
     const int g = lane >> 2, t = lane & 3;
 #pragma unroll
     for (int c0 = 0; c0 < D / 8; c0 += CH) {

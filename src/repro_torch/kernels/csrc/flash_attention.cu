@@ -30,7 +30,9 @@
 //    the caller passes `lse` (`repro_flash_attention_lse`); that entry point
 //    takes them at any length, the decode kernels never. Serving passes none.
 //    The training route also takes head_dim 16 (the reduced test configs), in
-//    the prefill kernels only; serving takes 64 and 128.
+//    the prefill kernels only; serving takes 64, 128 and 160 (zamba2's shared
+//    block: 32 heads of 160, ten k-steps of 16 for bf16, twenty of 8 for
+//    3xTF32, twenty 8-column n-tiles of the output).
 //
 // Four kernels, chosen by the type and the number of query rows. Both bf16
 // kernels run the same warp step (`mma_attend`): 16 query rows against a kv
@@ -389,7 +391,7 @@ constexpr int MM_GROUP_THREADS = 128;
 // Warp groups (group g takes the kv tiles j = g mod G): two (256 threads a
 // block) ran faster than four at every prefill length measured.
 // Stages of each group's K/V ring: three fit shared memory at d 64, two at
-// d 128.
+// d 128 and 160 (193,536 bytes a block at d 160).
 constexpr int MM_GROUPS = 2;
 
 template <int D>
@@ -825,7 +827,10 @@ constexpr int DM_WARPS = 4;  // warps a block, each with keys of its own
 // at once the tick ran faster than with two or three (and than with more
 // warps a block or 64-key tiles). The block then takes 163 KiB with its
 // merge slots, one a SM, which a decode tick's 96 blocks allow. At d 128 two
-// stages and the slots take 173 KiB.
+// stages and the slots take 173 KiB. At d 160 two stages take 177,408 bytes
+// and each block of the cluster adds a 10,368-byte slot: a cluster of 4 fits
+// a block's 232,448, one of 8 does not (the attribute call refuses it, so
+// it is never launched; the wrapper refuses it first).
 template <int D>
 __host__ __device__ constexpr int dm_stages() {
   return D == 64 ? 4 : 2;
@@ -989,14 +994,18 @@ __host__ __device__ constexpr int decode_f32_smem_bytes() {
 }
 
 // N consecutive floats at p (N * 4 bytes, aligned).
+// Five at d 160 (a lane's 20 bytes are not 8-byte aligned): scalar loads.
 template <int N>
 __device__ __forceinline__ void load_cols(const float* p, float* out) {
-  if (N == 4) {
+  if constexpr (N == 4) {
     const float4 v = *reinterpret_cast<const float4*>(p);
     out[0] = v.x; out[1] = v.y; out[2] = v.z; out[3] = v.w;
-  } else {
+  } else if constexpr (N == 2) {
     const float2 v = *reinterpret_cast<const float2*>(p);
     out[0] = v.x; out[1] = v.y;
+  } else {
+#pragma unroll
+    for (int u = 0; u < N; ++u) out[u] = p[u];
   }
 }
 
@@ -1284,13 +1293,14 @@ cudaError_t launch_d(const Params& p, int d, int cluster, cudaStream_t stream) {
   if (d == 16) return launch<T, 16>(p, cluster, stream);
   if (d == 64) return launch<T, 64>(p, cluster, stream);
   if (d == 128) return launch<T, 128>(p, cluster, stream);
+  if (d == 160) return launch<T, 160>(p, cluster, stream);
   return cudaErrorInvalidValue;
 }
 
 // q, o: (b, h, sq, d); k, v: (b, hkv, skv, d); strides in elements, last dim
 // contiguous, every row 16-byte aligned. kv_len and q_offset are int32 (b,) on
 // the device or null. lse is fp32 (b, h, sq) contiguous or null. dtype: 0 =
-// float32, 1 = bfloat16. d: 64 or 128, or 16 with lse. cluster: blocks a
+// float32, 1 = bfloat16. d: 64, 128 or 160, or 16 with lse. cluster: blocks a
 // (batch, KV head) splits its keys over when sq <= 8 and lse is null (1, 2, 4
 // or 8; 0 for the default). Returns the CUDA error code of the launch (0 on success).
 int run(const void* q, const void* k, const void* v, void* o, void* lse, const void* kv_len,

@@ -31,14 +31,26 @@ import torch
 from repro_torch.kernels import _build
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (64, 128)
+# Serving: 160 is zamba2's shared attention block.
+HEAD_DIMS = (64, 128, 160)
 # The training route (the forward with the log-sum-exp and the backward)
-# also takes the reduced configs' head_dim 16.
-TRAIN_HEAD_DIMS = (16,) + HEAD_DIMS
+# takes the reduced configs' head_dim 16 too, and not 160 yet (ROADMAP
+# Queue 2: the backward at d 160 comes with zamba2's training).
+TRAIN_HEAD_DIMS = (16, 64, 128)
 NEG_INF = -1e30
 # Decode (sq <= 8): each (batch, KV head) splits its keys over a thread block
-# cluster of one of these sizes (4 unless the caller picks another).
+# cluster of one of these sizes (4 unless the caller picks another) whose
+# shared memory fits a block (``decode_cluster_fits``).
 DECODE_CLUSTERS = (1, 2, 4, 8)
+DECODE_DEFAULT_CLUSTER = 4
+
+# The decode kernels' shared memory as csrc/flash_attention.cu reckons it
+# (``dm_smem_bytes``, ``decode_f32_smem_bytes``, ``merge_slot_floats``);
+# a CPU test holds these constants to the source's.
+SMEM_PER_BLOCK = 232_448     # the most a block of an H100 may opt in to
+DECODE_TILE = 32             # kDecodeTile
+DM_ROWS, DM_WARPS = 16, 4    # bf16 decode
+DEC_WARPS, DEC_ROWS, DEC_PITCH_PAD = 4, 4, 4     # fp32 decode
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -213,6 +225,34 @@ def _new_like_heads(b: int, s: int, heads: int, d: int,
     return out.transpose(1, 2)
 
 
+def decode_smem_bytes(d: int, dtype: torch.dtype, group_rows: int,
+                      cluster: int) -> int:
+    """Bytes of shared memory a decode block takes at head_dim ``d``:
+    the kernel's own, then one merge slot for each block of the cluster.
+    ``group_rows``: the query rows of a KV head, ``h // hkv * sq`` (the fp32
+    kernel holds one row a block when it is 1, else ``DEC_ROWS``)."""
+    def slot_floats(rows):
+        return rows * d + (2 * rows + 3) // 4 * 4
+    if dtype == torch.bfloat16:
+        stages = 4 if d == 64 else 2
+        own = (DM_ROWS * (d + 8)
+               + DM_WARPS * stages * 2 * DECODE_TILE * (d + 8)) * 2
+        rows = DM_ROWS
+    else:
+        rows = 1 if group_rows == 1 else DEC_ROWS
+        stages = 2 if d * 4 <= 256 else 1
+        own = 4 * (DEC_WARPS * stages * 2 * DECODE_TILE * (d + DEC_PITCH_PAD)
+                   + rows * d + DEC_WARPS * rows * DECODE_TILE)
+    return own + cluster * slot_floats(rows) * 4
+
+
+def decode_cluster_fits(d: int, dtype: torch.dtype, group_rows: int,
+                        cluster: int) -> bool:
+    """Whether a decode cluster of ``cluster`` blocks fits a block's shared
+    memory (at d 160, bf16, a cluster of 8 does not)."""
+    return decode_smem_bytes(d, dtype, group_rows, cluster) <= SMEM_PER_BLOCK
+
+
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          causal: bool = True,
                          kv_len: Optional[torch.Tensor] = None,
@@ -223,8 +263,9 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     their strides (transposed views are fine; only the last dim must be
     contiguous and every row 16-byte aligned). ``decode_cluster``: blocks a
     (batch, KV head) splits its keys over when ``sq <= 8`` (one of
-    ``DECODE_CLUSTERS``; None for the kernel's default). Raises on anything
-    the kernel does not take; never computes the result another way."""
+    ``DECODE_CLUSTERS`` that ``decode_cluster_fits``; None for the kernel's
+    default). Raises on anything the kernel does not take; never computes
+    the result another way."""
     _check_inputs(q, k, v)
     b, h, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
@@ -236,6 +277,14 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(
             f"flash attention kernel: decode_cluster {decode_cluster} not in "
             f"{DECODE_CLUSTERS}")
+    cluster = decode_cluster or DECODE_DEFAULT_CLUSTER
+    if sq <= 8 and not decode_cluster_fits(d, q.dtype, h // hkv * sq,
+                                           cluster):
+        raise ValueError(
+            f"flash attention kernel: a decode cluster of {cluster} blocks at "
+            f"head_dim {d}, {q.dtype}, needs "
+            f"{decode_smem_bytes(d, q.dtype, h // hkv * sq, cluster)} bytes "
+            f"of shared memory a block, more than {SMEM_PER_BLOCK}")
     out = _new_like_heads(b, sq, h, d, q)
     with _build.on_device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream

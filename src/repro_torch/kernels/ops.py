@@ -13,7 +13,8 @@ and ``rmsnorm`` have gradients (``torch.autograd.Function``s whose backward
 is a kernel too on the card, the plain backward on the CPU): the backward
 counts in ``<wrapper>.backward_launches``, one a call of its kernels. A
 forward that a remat policy recomputes during the backward is launched, and
-counted, again.
+counted, again. ``ssd_scan`` has no backward kernel: on the card it refuses
+a call that wants a gradient.
 """
 
 from __future__ import annotations
@@ -143,9 +144,19 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (b, s, h, p), dt: (b, s, h) fp32, A: (h,) fp32, B/C: (b, s, g, n)
     -> (y (b, s, h, p), final state (b, h, p, n) fp32); see
-    ``repro_torch.kernels.ssd_scan``."""
+    ``repro_torch.kernels.ssd_scan``.
+
+    The kernels have no backward: on the card a call that wants a gradient
+    (an input requires grad and grad mode is on) raises rather than return
+    a result that would drop it. On the CPU autograd runs through the plain
+    version."""
     if x.device.type == "cpu":
         return ssd_scan_plain(x, dt, A, B, C, chunk)
+    if _wants_grad(x, dt, A, B, C):
+        raise NotImplementedError(
+            "ssd_scan: the CUDA kernels have no backward yet (ROADMAP "
+            "Queue 2, SSD scan backward); call under torch.no_grad() on "
+            "the card, or on CPU tensors for a gradient")
     out = ssd_scan_cuda(x, dt, A, B, C, chunk)
     ssd_scan.launches += 1
     return out

@@ -1,5 +1,6 @@
-"""Shared model layers: RMSNorm, RoPE, GQA attention (uncached and with a KV
-cache), FFN, the MoE block, the token cross-entropy.
+"""Shared model layers: RMSNorm, RoPE, GQA attention (uncached, with a KV
+cache, and cross-attention over a source or a frozen cross K/V), FFN, the
+MoE block, the token cross-entropy.
 
 Counterpart of ``src/repro/models/common.py``. Plain
 functions on tensors; parameters arrive as mappings from the JAX package's
@@ -12,8 +13,8 @@ CPU, forward and (when an input requires grad) backward. The other products
 (projections, FFN, the experts' batched products, logits) are
 ``torch.matmul`` / ``torch.bmm``, as the JAX package leaves them to XLA.
 
-Still to come with their slices: cross-attention, ``layer_norm`` and the
-sharding hints.
+Still to come with their slices: the sharding hints. ``layer_norm`` is not
+ported: no model of the reference calls it.
 """
 
 from __future__ import annotations
@@ -166,18 +167,36 @@ def attention_block(
     causal: bool = True,
     kv_cache: Optional[dict] = None,   # {"k","v": (b, max_s, hkv, d), "pos"}
     rope: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    xkv: Optional[torch.Tensor] = None,   # cross-attention source (b, src, d)
+    precomputed_kv: bool = False,      # kv_cache holds frozen cross K/V
 ) -> torch.Tensor:
-    """GQA self-attention. With ``kv_cache`` the new keys and values are
+    """GQA attention. With ``kv_cache`` the new keys and values are
     written into ``kv_cache["k"]`` / ``["v"]`` IN PLACE (the JAX package
     returns a new cache; here the caller's tensors are updated) and
     ``kv_cache["pos"]``, the per-sequence (b,) clock, is only read: the
     caller advances it once for all layers. ``rope``: the (cos, sin) tables
     of ``rope_positions`` + ``rope_frequencies`` if the caller has them
-    already (they are the same for every layer of one forward pass)."""
+    already (they are the same for every layer of one forward pass).
+
+    Cross-attention, as the reference's: ``xkv`` gives the keys and values
+    (the encoder output) and ``precomputed_kv`` says that ``kv_cache``
+    holds them already projected, frozen and whole (``k``, ``v``: (b, src,
+    hkv, d)); either way no RoPE is applied on either side, the attention
+    is not causal, and nothing is written."""
     b, s, _ = x.shape
     q = (x @ params["wq"]).reshape(b, s, num_heads, head_dim)
-    k = (x @ params["wk"]).reshape(b, s, num_kv_heads, head_dim)
-    v = (x @ params["wv"]).reshape(b, s, num_kv_heads, head_dim)
+    if precomputed_kv:
+        if kv_cache is None:
+            raise ValueError("precomputed_kv needs the cross K/V in kv_cache")
+        out = attention(q, kv_cache["k"].to(q.dtype),
+                        kv_cache["v"].to(q.dtype), causal=False)
+        return out.reshape(b, s, num_heads * head_dim) @ params["wo"]
+    src = x if xkv is None else xkv
+    k = (src @ params["wk"]).reshape(b, src.shape[1], num_kv_heads, head_dim)
+    v = (src @ params["wv"]).reshape(b, src.shape[1], num_kv_heads, head_dim)
+    if xkv is not None:
+        out = attention(q, k, v, causal=False)
+        return out.reshape(b, s, num_heads * head_dim) @ params["wo"]
 
     offset = None
     if kv_cache is not None:

@@ -1,0 +1,249 @@
+"""Encoder-decoder backbone (seamless-m4t-large-v2), ``encdec`` family.
+
+Counterpart of ``src/repro/models/encdec.py``. The audio frontend is a stub,
+as there: the model consumes precomputed frame embeddings ``frames`` (b,
+src_len, d_model). The module tree carries the JAX package's leaf names:
+``embed``, ``encoder[i].{ln1, attn.{wq, wk, wv, wo}, ln2, ffn.*}``,
+``decoder[i].{ln1, self_attn.*, lnx, cross_attn.*, ln2, ffn.*}``,
+``ln_enc``, ``ln_f``, ``head`` (``convert.py`` maps them to the reference's
+stacked trees). The encoder's self-attention is not causal, the decoder's
+is; both rotate q and k. Cross-attention takes its keys and values from the
+encoder output with no RoPE and no causal mask.
+
+Serving: ``prefill`` encodes the source, projects every decoder layer's
+cross K/V once into the cache, and runs the decoder over the prompt;
+``decode_step`` runs the decoder one token at a time against the frozen
+cross K/V. Every attention goes through ``ops.flash_attention`` and every
+norm through ``ops.rmsnorm``. The cache is updated IN PLACE, so unlike the
+reference (whose ``init_cache`` makes a cross K/V of length 0 that the
+prefill replaces) ``init_cache`` sizes the cross K/V at ``src_len`` and the
+prefill fills it.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+from torch import nn
+
+from repro_torch import resolve_device
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.common import (
+    DEFAULT_DTYPE,
+    attention_block,
+    cross_entropy_loss,
+    dense_init,
+    embed_init,
+    init_ffn_params,
+    rms_norm,
+    rope_frequencies,
+    rope_positions,
+)
+from repro_torch.models.transformer import FFN, Attention, _param, apply_remat
+
+
+class EncoderLayer(nn.Module):
+    def __init__(self, cfg: ModelConfig, generator, dtype, device):
+        super().__init__()
+        self.ln1 = _param(torch.ones(cfg.d_model, dtype=dtype), device)
+        self.attn = Attention(cfg, generator, dtype, device)
+        self.ln2 = _param(torch.ones(cfg.d_model, dtype=dtype), device)
+        self.ffn = FFN(init_ffn_params(generator, cfg.d_model, cfg.d_ff,
+                                       cfg.activation, dtype),
+                       cfg.activation, device)
+
+
+class DecoderLayer(nn.Module):
+    def __init__(self, cfg: ModelConfig, generator, dtype, device):
+        super().__init__()
+        self.ln1 = _param(torch.ones(cfg.d_model, dtype=dtype), device)
+        self.self_attn = Attention(cfg, generator, dtype, device)
+        self.lnx = _param(torch.ones(cfg.d_model, dtype=dtype), device)
+        self.cross_attn = Attention(cfg, generator, dtype, device)
+        self.ln2 = _param(torch.ones(cfg.d_model, dtype=dtype), device)
+        self.ffn = FFN(init_ffn_params(generator, cfg.d_model, cfg.d_ff,
+                                       cfg.activation, dtype),
+                       cfg.activation, device)
+
+
+class EncDec(nn.Module):
+    """Encoder-decoder LM. Weights are drawn from ``generator`` (a fresh one
+    seeded with 0 if none is given), on its device, and are trainable. Same
+    constructor as ``Transformer``."""
+
+    def __init__(self, cfg: ModelConfig, *, dtype: torch.dtype = DEFAULT_DTYPE,
+                 device=None, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        if cfg.family != "encdec":
+            raise ValueError(f"EncDec builds the encdec family, not "
+                             f"{cfg.family!r}")
+        device = resolve_device(device)
+        if generator is None:
+            generator = torch.Generator(device="cpu").manual_seed(0)
+        self.cfg = cfg
+        self.embed = _param(embed_init(
+            generator, (cfg.padded_vocab, cfg.d_model), dtype), device)
+        self.encoder = nn.ModuleList(
+            EncoderLayer(cfg, generator, dtype, device)
+            for _ in range(cfg.encdec.encoder_layers))
+        self.decoder = nn.ModuleList(
+            DecoderLayer(cfg, generator, dtype, device)
+            for _ in range(cfg.encdec.decoder_layers))
+        self.ln_enc = _param(torch.ones(cfg.d_model, dtype=dtype), device)
+        self.ln_f = _param(torch.ones(cfg.d_model, dtype=dtype), device)
+        self.head = _param(dense_init(
+            generator, (cfg.d_model, cfg.padded_vocab), dtype), device)
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.device
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.embed.dtype
+
+    # ------------------------------------------------------------------ #
+    def _attend(self, attn: Attention, x: torch.Tensor, **kw) -> torch.Tensor:
+        cfg = self.cfg
+        return attention_block(
+            attn.params(), x, num_heads=cfg.num_heads,
+            num_kv_heads=cfg.num_kv_heads, head_dim=cfg.resolved_head_dim,
+            rope_theta=cfg.rope_theta, **kw)
+
+    def _rope(self, s: int, offset: Optional[torch.Tensor], device):
+        cfg = self.cfg
+        if cfg.rope_fraction <= 0:
+            return None
+        return rope_frequencies(cfg.resolved_head_dim, cfg.rope_fraction,
+                                cfg.rope_theta,
+                                rope_positions(s, offset, device))
+
+    def _encoder_layer(self, layer: EncoderLayer, x: torch.Tensor,
+                       rope) -> torch.Tensor:
+        cfg = self.cfg
+        x = x + self._attend(layer.attn, rms_norm(x, layer.ln1, cfg.norm_eps),
+                             rope_fraction=cfg.rope_fraction, causal=False,
+                             rope=rope)
+        return x + layer.ffn(rms_norm(x, layer.ln2, cfg.norm_eps))
+
+    def encode(self, frames: torch.Tensor, remat: Optional[str] = None
+               ) -> torch.Tensor:
+        """frames (b, src, d) -> the encoder output (b, src, d), after
+        ``ln_enc``. ``remat``: the policy each layer runs under."""
+        x = frames.to(self.dtype)
+        rope = self._rope(x.shape[1], None, x.device)
+        layer_fn = apply_remat(self._encoder_layer, remat)
+        for layer in self.encoder:
+            x = layer_fn(layer, x, rope)
+        return rms_norm(x, self.ln_enc, self.cfg.norm_eps)
+
+    def _decoder_layer(self, i: int, x: torch.Tensor,
+                       enc_out: Optional[torch.Tensor],
+                       cache: Optional[dict], rope) -> torch.Tensor:
+        cfg = self.cfg
+        layer = self.decoder[i]
+        self_kv = cross_kv = None
+        if cache is not None:
+            self_kv = {"k": cache["self_k"][i], "v": cache["self_v"][i],
+                       "pos": cache["pos"]}
+            cross_kv = {"k": cache["cross_k"][i], "v": cache["cross_v"][i]}
+        x = x + self._attend(layer.self_attn,
+                             rms_norm(x, layer.ln1, cfg.norm_eps),
+                             rope_fraction=cfg.rope_fraction, causal=True,
+                             kv_cache=self_kv, rope=rope)
+        x = x + self._attend(layer.cross_attn,
+                             rms_norm(x, layer.lnx, cfg.norm_eps),
+                             rope_fraction=0.0, causal=False,
+                             kv_cache=cross_kv, xkv=enc_out,
+                             precomputed_kv=cross_kv is not None)
+        return x + layer.ffn(rms_norm(x, layer.ln2, cfg.norm_eps))
+
+    def decode_stack(self, x: torch.Tensor, enc_out: Optional[torch.Tensor],
+                     cache: Optional[dict] = None,
+                     remat: Optional[str] = None) -> torch.Tensor:
+        """The decoder over embedded tokens x (b, s, d), after ``ln_f``.
+        Either ``enc_out`` (training: the cross K/V projected on the fly) or
+        ``cache`` (serving: the self K/V, written in place at each
+        sequence's position, and the frozen cross K/V) is given; with a
+        cache the clock advances by s. ``remat`` applies without a cache."""
+        rope = self._rope(x.shape[1], None if cache is None else cache["pos"],
+                          x.device)
+        layer_fn = apply_remat(self._decoder_layer,
+                               None if cache is not None else remat)
+        for i in range(len(self.decoder)):
+            x = layer_fn(i, x, enc_out, cache, rope)
+        if cache is not None:
+            cache["pos"] = cache["pos"] + x.shape[1]
+        return rms_norm(x, self.ln_f, self.cfg.norm_eps)
+
+    def precompute_cross_kv(self, enc_out: torch.Tensor
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Every decoder layer's cross K/V of the encoder output: (L, b,
+        src, hkv, hd) each."""
+        cfg = self.cfg
+        b, src, _ = enc_out.shape
+        shape = (b, src, cfg.num_kv_heads, cfg.resolved_head_dim)
+        ks = [(enc_out @ layer.cross_attn.wk).reshape(shape)
+              for layer in self.decoder]
+        vs = [(enc_out @ layer.cross_attn.wv).reshape(shape)
+              for layer in self.decoder]
+        return torch.stack(ks), torch.stack(vs)
+
+    # ------------------------------------------------------------------ #
+    def forward(self, tokens: torch.Tensor, frames: torch.Tensor
+                ) -> Tuple[torch.Tensor, None]:
+        """tokens (b, s) integer, frames (b, src, d) -> (logits (b, s,
+        padded_vocab), None)."""
+        x = self.decode_stack(self.embed[tokens], self.encode(frames))
+        return x @ self.head, None
+
+    def loss(self, batch: Dict[str, torch.Tensor], remat: Optional[str] = "dots"
+             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """batch: {tokens, targets} (b, s) integer and frames (b, src, d) ->
+        (total, {ce, aux}): the mean token cross-entropy in fp32 (targets of
+        -1 ignored); aux is 0, as in the reference."""
+        enc_out = self.encode(batch["frames"], remat)
+        x = self.decode_stack(self.embed[batch["tokens"]], enc_out,
+                              remat=remat)
+        ce = cross_entropy_loss(x @ self.head, batch["targets"])
+        aux = torch.zeros((), dtype=torch.float32, device=ce.device)
+        return ce + aux, {"ce": ce, "aux": aux}
+
+    def init_cache(self, batch: int, max_seq: int, src_len: int,
+                   dtype: Optional[torch.dtype] = None) -> dict:
+        """self_k / self_v (L, b, max_seq, hkv, hd), cross_k / cross_v (L,
+        b, src_len, hkv, hd), all in ``dtype``, and pos (b,). The cross K/V
+        is sized here and filled by ``prefill``."""
+        cfg = self.cfg
+        L, hkv, hd = len(self.decoder), cfg.num_kv_heads, cfg.resolved_head_dim
+        dtype = dtype or self.dtype
+        new = lambda s: torch.zeros((L, batch, s, hkv, hd), dtype=dtype,
+                                    device=self.device)
+        return {"self_k": new(max_seq), "self_v": new(max_seq),
+                "cross_k": new(src_len), "cross_v": new(src_len),
+                "pos": torch.zeros((batch,), dtype=torch.int32,
+                                   device=self.device)}
+
+    @torch.no_grad()
+    def prefill(self, tokens: torch.Tensor, cache: dict, frames: torch.Tensor
+                ) -> Tuple[torch.Tensor, dict]:
+        """Encode ``frames`` into the cache's cross K/V, then fill the self
+        K/V from the prompt; logits of the last position, (b, 1,
+        padded_vocab)."""
+        if cache["cross_k"].shape[2] != frames.shape[1]:
+            raise ValueError(
+                f"the cache holds a source of {cache['cross_k'].shape[2]} "
+                f"frames, the prefill gives {frames.shape[1]}")
+        ck, cv = self.precompute_cross_kv(self.encode(frames))
+        cache["cross_k"].copy_(ck)
+        cache["cross_v"].copy_(cv)
+        x = self.decode_stack(self.embed[tokens], None, cache=cache)
+        return x[:, -1:] @ self.head, cache
+
+    @torch.no_grad()
+    def decode_step(self, cache: dict, tokens: torch.Tensor
+                    ) -> Tuple[torch.Tensor, dict]:
+        """tokens: (b, 1), one new token per sequence."""
+        x = self.decode_stack(self.embed[tokens], None, cache=cache)
+        return x @ self.head, cache

@@ -1,24 +1,36 @@
-"""Mamba2 (SSD, state-space duality) language model, ``ssm`` family.
+"""Mamba2 (SSD, state-space duality) language model, ``ssm`` family, and
+the Zamba2-style ``hybrid``.
 
-Counterpart of ``src/repro/models/mamba.py`` for the pure-SSM configs
-(mamba2). The module tree carries the JAX package's leaf names: ``embed``,
-``layers[i].{ln, wz, wx, wB, wC, wdt, conv_wx, conv_wB, conv_wC, conv_b,
-A_log, D, dt_bias, norm_g, out_proj}``, ``ln_f``; embeddings are tied when the
-config says so. ``A_log``, ``D`` and ``dt_bias`` stay fp32 whatever the
-model's type, as in the reference.
+Counterpart of ``src/repro/models/mamba.py``. The module tree carries the
+JAX package's leaf names: ``embed``, ``layers[i].{ln, wz, wx, wB, wC, wdt,
+conv_wx, conv_wB, conv_wC, conv_b, A_log, D, dt_bias, norm_g, out_proj}``,
+``ln_f``; embeddings are tied when the config says so. ``A_log``, ``D`` and
+``dt_bias`` stay fp32 whatever the model's type, as in the reference.
+
+The hybrid (zamba2) adds ONE shared attention block, ``shared_attn.{ln,
+attn.{wq, wk, wv, wo}, ln_ffn, ffn.*}``: after every ``attn_every``-th layer
+the same weights run attention and an FFN on ``rms_norm(concat(h, emb0))``,
+emb0 being the token embeddings (reference ``_shared_attn``). Each of its
+``num_layers // attn_every`` applications has its own slice of the cache's
+``attn_k`` / ``attn_v`` (n_groups, b, max_seq, hkv, hd).
 
 Prefill runs each layer's scan through ``ops.ssd_scan`` (the hand-written
-kernel on the GPU) and every norm through ``ops.rmsnorm``. The causal conv
-and the one-token decode recurrence have no Pallas kernel in the reference
-and stay plain PyTorch. Decode updates the cache's conv and ssm state IN
-PLACE (the JAX package returns a new cache). The zamba2 ``hybrid`` family
-(one shared attention block every few layers) is not ported yet.
+kernel on the GPU), the shared block's attention through
+``ops.flash_attention`` and every norm through ``ops.rmsnorm``. The causal
+conv and the one-token decode recurrence have no Pallas kernel in the
+reference and stay plain PyTorch. Decode updates the cache's conv and ssm
+state and writes the shared block's K/V IN PLACE (the JAX package returns a
+new cache).
+
+``loss`` is the reference's; autograd runs through the plain scan on the
+CPU. The scan's kernels have no backward, so on the card a loss raises in
+``ops.ssd_scan`` (ROADMAP Queue 2) rather than drop the gradient.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -29,13 +41,16 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models.common import (
     DEFAULT_DTYPE,
+    attention_block,
+    cross_entropy_loss,
     dense_init,
     embed_init,
+    init_ffn_params,
     rms_norm,
+    rope_frequencies,
+    rope_positions,
 )
-from repro_torch.models.transformer import _param
-
-HYBRID_PENDING = "ROADMAP Queue 1: zamba2 hybrid, the shared attention block"
+from repro_torch.models.transformer import FFN, Attention, _param, apply_remat
 
 
 def _dims(cfg: ModelConfig):
@@ -167,22 +182,62 @@ def mamba_decode_step(lp: MambaLayer, cfg: ModelConfig, x: torch.Tensor,
 
 
 # --------------------------------------------------------------------- #
+# Shared attention block (zamba2)
+# --------------------------------------------------------------------- #
+
+class SharedAttn(nn.Module):
+    """The hybrid's one attention block: ``ln`` over its input (2 d_model
+    wide with ``attn_concat_embedding``), ``attn`` (MHA or GQA, causal,
+    RoPE), ``ln_ffn`` and ``ffn``."""
+
+    def __init__(self, cfg: ModelConfig, generator, dtype, device):
+        super().__init__()
+        d_in = (2 * cfg.d_model if cfg.hybrid.attn_concat_embedding
+                else cfg.d_model)
+        self.ln = _param(torch.ones(d_in, dtype=dtype), device)
+        self.attn = Attention(cfg, generator, dtype, device, d_in=d_in)
+        self.ln_ffn = _param(torch.ones(cfg.d_model, dtype=dtype), device)
+        self.ffn = FFN(init_ffn_params(generator, cfg.d_model, cfg.d_ff,
+                                       cfg.activation, dtype),
+                       cfg.activation, device)
+        self.cfg = cfg
+
+    def forward(self, h: torch.Tensor, emb0: torch.Tensor,
+                kv_cache: Optional[dict], rope) -> torch.Tensor:
+        """h, emb0: (b, s, d) -> h after attention and the FFN, each with
+        its residual. ``kv_cache``: this application's {k, v, pos}, written
+        in place; ``rope``: the pass's (cos, sin) tables."""
+        cfg = self.cfg
+        a_in = torch.cat([h, emb0], dim=-1) if (
+            cfg.hybrid.attn_concat_embedding) else h
+        h = h + attention_block(
+            self.attn.params(), rms_norm(a_in, self.ln, cfg.norm_eps),
+            num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
+            head_dim=cfg.resolved_head_dim, rope_fraction=cfg.rope_fraction,
+            rope_theta=cfg.rope_theta, causal=True, kv_cache=kv_cache,
+            rope=rope)
+        return h + self.ffn(rms_norm(h, self.ln_ffn, cfg.norm_eps))
+
+
+# --------------------------------------------------------------------- #
 # Model
 # --------------------------------------------------------------------- #
 
 class Mamba(nn.Module):
-    """Pure Mamba2 LM. Weights are drawn from ``generator`` (a fresh one
-    seeded with 0 if none is given) and are not trainable yet. Same
+    """Mamba2 LM, pure (``ssm``) or with zamba2's shared attention block
+    (``hybrid``). Weights are drawn from ``generator`` (a fresh one seeded
+    with 0 if none is given), on its device, and are trainable. Same
     constructor as ``Transformer``."""
 
     def __init__(self, cfg: ModelConfig, *, dtype: torch.dtype = DEFAULT_DTYPE,
                  device=None, generator: Optional[torch.Generator] = None):
         super().__init__()
-        if cfg.family == "hybrid":
-            raise NotImplementedError(
-                f"family 'hybrid' is not ported yet ({HYBRID_PENDING})")
-        if cfg.family != "ssm":
-            raise ValueError(f"Mamba builds the ssm family, not {cfg.family!r}")
+        if cfg.family not in ("ssm", "hybrid"):
+            raise ValueError(
+                f"Mamba builds the ssm and hybrid families, not {cfg.family!r}")
+        if cfg.family == "hybrid" and cfg.num_layers % cfg.hybrid.attn_every:
+            raise ValueError(f"{cfg.num_layers} layers do not split into "
+                             f"groups of {cfg.hybrid.attn_every}")
         device = resolve_device(device)
         if generator is None:
             generator = torch.Generator(device="cpu").manual_seed(0)
@@ -196,6 +251,8 @@ class Mamba(nn.Module):
         if not cfg.tie_embeddings:
             self.head = _param(dense_init(
                 generator, (cfg.d_model, cfg.padded_vocab), dtype), device)
+        if cfg.family == "hybrid":
+            self.shared_attn = SharedAttn(cfg, generator, dtype, device)
 
     @property
     def device(self) -> torch.device:
@@ -206,21 +263,61 @@ class Mamba(nn.Module):
         return self.embed.dtype
 
     # ------------------------------------------------------------------ #
-    def _trunk(self, tokens: torch.Tensor,
-               cache: Optional[dict]) -> torch.Tensor:
-        """Embedding and all layers from a zero state. tokens: (b, s) ->
-        (b, s, d). With a cache, each layer's conv tail and final state
-        OVERWRITE the cache's (never start from them), and the clock
-        advances by s."""
+    @property
+    def attn_every(self) -> int:
+        """Layers a group: the shared block follows each group (hybrid);
+        0 for the pure SSM, which has none."""
+        return self.cfg.hybrid.attn_every if self.cfg.family == "hybrid" else 0
+
+    def _group(self, first: int, x: torch.Tensor, emb0: torch.Tensor,
+               cache: Optional[dict], rope) -> torch.Tensor:
+        """Layers [first, first + group) from a zero state, then (hybrid)
+        the shared block. With a cache, each layer's conv tail and final
+        state OVERWRITE the cache's (never start from them) and the shared
+        block writes its K/V."""
         cfg = self.cfg
-        x = self.embed[tokens]
-        for i, lp in enumerate(self.layers):
+        every = self.attn_every
+        for i in range(first, first + max(every, 1)):
+            lp = self.layers[i]
             y, state, tail = mamba_layer(lp, cfg, rms_norm(x, lp.ln,
                                                            cfg.norm_eps))
             x = x + y
             if cache is not None:
                 cache["ssm"][i].copy_(state)
                 cache["conv"][i].copy_(tail)
+        if every:
+            kv = None
+            if cache is not None:
+                g = first // every
+                kv = {"k": cache["attn_k"][g], "v": cache["attn_v"][g],
+                      "pos": cache["pos"]}
+            x = self.shared_attn(x, emb0, kv, rope)
+        return x
+
+    def _rope(self, s: int, cache: Optional[dict], device):
+        """The shared block's rotary tables for this pass (once, not once a
+        group), or None."""
+        cfg = self.cfg
+        if not self.attn_every or cfg.rope_fraction <= 0:
+            return None
+        return rope_frequencies(
+            cfg.resolved_head_dim, cfg.rope_fraction, cfg.rope_theta,
+            rope_positions(s, None if cache is None else cache["pos"],
+                           device))
+
+    def _trunk(self, tokens: torch.Tensor, cache: Optional[dict],
+               remat: Optional[str] = None) -> torch.Tensor:
+        """Embedding and all layers from a zero state. tokens: (b, s) ->
+        (b, s, d). With a cache the groups fill it (see ``_group``) and the
+        clock advances by s. ``remat``: the policy each group runs under
+        (none with a cache), as the reference's."""
+        x = self.embed[tokens]
+        emb0 = x
+        rope = self._rope(tokens.shape[1], cache, x.device)
+        group = apply_remat(self._group, None if cache is not None else remat)
+        every = max(self.attn_every, 1)
+        for first in range(0, self.cfg.num_layers, every):
+            x = group(first, x, emb0, cache, rope)
         if cache is not None:
             cache["pos"] = cache["pos"] + tokens.shape[1]
         return x
@@ -237,21 +334,40 @@ class Mamba(nn.Module):
         prefill (the caller's dict, updated in place)."""
         return self._logits(self._trunk(tokens, cache)), cache
 
+    def loss(self, batch: Dict[str, torch.Tensor], remat: Optional[str] = "dots"
+             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """batch: {tokens, targets} (b, s) integer -> (total, {ce, aux}): the
+        mean token cross-entropy in fp32 (targets of -1 ignored); aux is 0,
+        as in the reference."""
+        x = self._trunk(batch["tokens"], None, remat)
+        ce = cross_entropy_loss(self._logits(x), batch["targets"])
+        aux = torch.zeros((), dtype=torch.float32, device=ce.device)
+        return ce + aux, {"ce": ce, "aux": aux}
+
     def init_cache(self, batch: int, max_seq: int,
                    dtype: Optional[torch.dtype] = None) -> dict:
         """conv (L, b, width - 1, conv_ch) in ``dtype``, ssm (L, b, h, p, n)
-        fp32, pos (b,). O(1) in the context: ``max_seq`` sizes nothing."""
+        fp32, pos (b,); the pure SSM's is O(1) in the context. The hybrid
+        adds the shared block's attn_k / attn_v (n_groups, b, max_seq, hkv,
+        hd) in ``dtype``, the batch on axis 1 like the others."""
         cfg = self.cfg
         ssm, _, heads, _, conv_ch = _dims(cfg)
         L = cfg.num_layers
-        return {"conv": torch.zeros((L, batch, ssm.conv_width - 1, conv_ch),
-                                    dtype=dtype or self.dtype,
+        dtype = dtype or self.dtype
+        cache = {"conv": torch.zeros((L, batch, ssm.conv_width - 1, conv_ch),
+                                     dtype=dtype, device=self.device),
+                 "ssm": torch.zeros((L, batch, heads, ssm.head_dim,
+                                     ssm.state_dim), dtype=torch.float32,
                                     device=self.device),
-                "ssm": torch.zeros((L, batch, heads, ssm.head_dim,
-                                    ssm.state_dim), dtype=torch.float32,
-                                   device=self.device),
-                "pos": torch.zeros((batch,), dtype=torch.int32,
-                                   device=self.device)}
+                 "pos": torch.zeros((batch,), dtype=torch.int32,
+                                    device=self.device)}
+        if self.attn_every:
+            shape = (L // self.attn_every, batch, max_seq, cfg.num_kv_heads,
+                     cfg.resolved_head_dim)
+            cache["attn_k"] = torch.zeros(shape, dtype=dtype,
+                                          device=self.device)
+            cache["attn_v"] = torch.zeros_like(cache["attn_k"])
+        return cache
 
     @torch.no_grad()
     def prefill(self, tokens: torch.Tensor, cache: dict
@@ -266,11 +382,20 @@ class Mamba(nn.Module):
     def decode_step(self, cache: dict, tokens: torch.Tensor
                     ) -> Tuple[torch.Tensor, dict]:
         """tokens: (b, 1), one new token per sequence. Advances the cache's
-        conv and ssm state in place."""
+        conv and ssm state in place; the hybrid's shared block writes its K/V
+        at each sequence's position and attends over its cache."""
         cfg = self.cfg
         x = self.embed[tokens]
+        emb0 = x
+        every = self.attn_every
+        rope = self._rope(1, cache, x.device)
         for i, lp in enumerate(self.layers):
             x = x + mamba_decode_step(lp, cfg, rms_norm(x, lp.ln, cfg.norm_eps),
                                       cache["conv"][i], cache["ssm"][i])
+            if every and (i + 1) % every == 0:
+                g = i // every
+                x = self.shared_attn(x, emb0, {
+                    "k": cache["attn_k"][g], "v": cache["attn_v"][g],
+                    "pos": cache["pos"]}, rope)
         cache["pos"] = cache["pos"] + 1
         return self._logits(x), cache

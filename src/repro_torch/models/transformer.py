@@ -93,22 +93,36 @@ def apply_remat(fn: Callable, policy: Optional[str]) -> Callable:
 
 
 class Attention(nn.Module):
-    def __init__(self, cfg: ModelConfig, generator, dtype, device):
+    """The leaves of the reference's ``init_attention_params``: ``wq``,
+    ``wk``, ``wv`` (d_in, heads * head_dim) and ``wo`` (h * head_dim,
+    d_model); ``d_in`` is d_model unless given (zamba2's shared block reads
+    concat(h, emb0), twice as wide). ``forward`` is the self-attention of
+    the transformer's layers; other callers hand ``params()`` to
+    ``attention_block`` with their own options."""
+
+    def __init__(self, cfg: ModelConfig, generator, dtype, device,
+                 d_in: Optional[int] = None):
         super().__init__()
         hd = cfg.resolved_head_dim
         d, h, hkv = cfg.d_model, cfg.num_heads, cfg.num_kv_heads
-        self.wq = _param(dense_init(generator, (d, h * hd), dtype), device)
-        self.wk = _param(dense_init(generator, (d, hkv * hd), dtype), device)
-        self.wv = _param(dense_init(generator, (d, hkv * hd), dtype), device)
+        d_in = d_in or d
+        self.wq = _param(dense_init(generator, (d_in, h * hd), dtype), device)
+        self.wk = _param(dense_init(generator, (d_in, hkv * hd), dtype),
+                         device)
+        self.wv = _param(dense_init(generator, (d_in, hkv * hd), dtype),
+                         device)
         self.wo = _param(dense_init(generator, (h * hd, d), dtype,
                                     scale=1.0 / (h * hd) ** 0.5), device)
         self.cfg = cfg
+
+    def params(self) -> Dict[str, torch.Tensor]:
+        return {"wq": self.wq, "wk": self.wk, "wv": self.wv, "wo": self.wo}
 
     def forward(self, x: torch.Tensor, kv_cache: Optional[dict],
                 rope=None) -> torch.Tensor:
         cfg = self.cfg
         return attention_block(
-            {"wq": self.wq, "wk": self.wk, "wv": self.wv, "wo": self.wo}, x,
+            self.params(), x,
             num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
             head_dim=cfg.resolved_head_dim, rope_fraction=cfg.rope_fraction,
             rope_theta=cfg.rope_theta, causal=True, kv_cache=kv_cache,

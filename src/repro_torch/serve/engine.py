@@ -8,8 +8,8 @@ length cap) free their slot, and queued requests are prefilled into free
 slots.
 
 Where it departs from the functional reference, on purpose:
-  * the batched cache (dense: KV; mamba2: conv and ssm state) is updated in
-    place. A request is prefilled straight into its slot's rows of the cache
+  * the batched cache (dense: KV; mamba2: conv and ssm state; zamba2: both,
+    the shared block's KV too) is updated in place. A request is prefilled straight into its slot's rows of the cache
     (a view), where the reference fills a fresh single-sequence cache and
     splices a copy of the whole batch;
   * a tick moves the sampled tokens to the host once (one ``tolist``), not
@@ -52,8 +52,9 @@ class EngineConfig:
 
 class Engine:
     """``model``: a built model of ``cfg``'s family (the port's counterpart
-    of the reference's ``params``); ``dtype``: the cache's type (mamba2's
-    ssm state is fp32 whatever it is).
+    of the reference's ``params``) but the encoder-decoder, which needs
+    frames; ``dtype``: the cache's type (mamba2's and zamba2's ssm state is
+    fp32 whatever it is).
     ``device``: the GPU unless the caller asks for another; with no GPU and
     no request this raises. The model must lie on that device."""
 
@@ -62,6 +63,12 @@ class Engine:
                  device=None):
         self.device = resolve_device(device)
         self.cfg = cfg
+        if cfg.family == "encdec":
+            raise ValueError(
+                f"{cfg.arch_id}: the engine takes token prompts only, and an "
+                "encoder-decoder needs its source frames (the reference's "
+                "engine has no frames input either); call the model's "
+                "prefill(tokens, cache, frames) and decode_step instead")
         if not isinstance(model, get_model(cfg)):
             raise TypeError(
                 f"model is a {type(model).__name__}, not the "

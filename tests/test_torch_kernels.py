@@ -249,6 +249,100 @@ def test_cpu_calls_do_not_count_as_launches():
     assert (ops.flash_attention.launches, ops.rmsnorm.launches) == before
 
 
+# ------------------------------------------------------------------------- #
+# head_dim 160 (zamba2's shared attention block: 32 heads of 160)
+# ------------------------------------------------------------------------- #
+
+@pytest.mark.parametrize("b,h,hkv,s,causal,bq,bk", [
+    (1, 2, 2, 130, True, 64, 64), (2, 4, 2, 64, False, 32, 32),
+    (1, 3, 3, 100, True, 64, 32)])
+def test_flash_plain_matches_pallas_kernel_at_head_dim_160(b, h, hkv, s,
+                                                           causal, bq, bk):
+    """The Pallas kernel takes any head dim; the plain version at d 160
+    matches it in interpret mode at the fp32 tolerance, 2e-5."""
+    q, k, v = _qkv(20, b, h, hkv, s, s, 160)
+    want = flash_attention_fwd(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                               causal=causal, block_q=bq, block_k=bk,
+                               interpret=True)
+    got = flash_attention_plain(*map(torch.from_numpy, (q, k, v)),
+                                causal=causal)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               atol=2e-5, rtol=2e-5)
+
+
+def _cu_constants(*names) -> dict:
+    """``constexpr int NAME = value;`` of csrc/flash_attention.cu."""
+    src = (_build.CSRC / "flash_attention.cu").read_text()
+    return {n: int(re.search(rf"constexpr int {n} = (\d+);", src).group(1))
+            for n in names}
+
+
+def test_forward_shared_memory_at_head_dim_160():
+    """The shared memory of the four forward kernels at d 160, reckoned from
+    the source's constants: the bf16 prefill (two stages) 193,536 bytes;
+    the bf16 decode 177,408 and a 10,368-byte merge slot a cluster block, so
+    a cluster of 4 fits a block's 232,448 bytes and one of 8 does not; the
+    fp32 prefill (a 64-key tile, two stages, 164-float rows) 209,920; the
+    fp32 decode (one 32-key stage: a 640-byte row is over the 256 that two
+    take) fits at every cluster size. The wrapper's ``decode_smem_bytes``
+    is the same reckoning."""
+    from repro_torch.kernels import flash_attention as fa
+    c = _cu_constants("MM_BM", "MM_BN", "MM_GROUPS", "TF_ROWS", "TF_STAGES",
+                      "kDecodeTile", "DM_ROWS", "DM_WARPS", "DEC_WARPS",
+                      "DEC_ROWS", "DEC_PITCH_PAD")
+    assert (c["kDecodeTile"], c["DM_ROWS"], c["DM_WARPS"], c["DEC_WARPS"],
+            c["DEC_ROWS"], c["DEC_PITCH_PAD"]) == (
+        fa.DECODE_TILE, fa.DM_ROWS, fa.DM_WARPS, fa.DEC_WARPS, fa.DEC_ROWS,
+        fa.DEC_PITCH_PAD)
+    assert _cu_constants("kDecodeDefaultCluster")[
+        "kDecodeDefaultCluster"] == fa.DECODE_DEFAULT_CLUSTER
+    d, ld = 160, 168
+    mma = (c["MM_BM"] * ld + c["MM_GROUPS"] * 2 * 2 * c["MM_BN"] * ld) * 2
+    assert mma == 193_536 <= fa.SMEM_PER_BLOCK
+    tf32 = (c["TF_ROWS"] + c["TF_STAGES"] * 2 * 64) * (d + 4) * 4
+    assert tf32 == 209_920 <= fa.SMEM_PER_BLOCK
+    own = fa.decode_smem_bytes(d, torch.bfloat16, 32, 0)
+    assert own == 177_408
+    assert fa.decode_smem_bytes(d, torch.bfloat16, 32, 1) - own == 10_368
+    fits = [cl for cl in fa.DECODE_CLUSTERS
+            if fa.decode_cluster_fits(d, torch.bfloat16, 32, cl)]
+    assert fits == [1, 2, 4]
+    for rows in (1, 32):
+        assert all(fa.decode_cluster_fits(d, torch.float32, rows, cl)
+                   for cl in fa.DECODE_CLUSTERS)
+    # every cluster still fits at the head dims served before
+    for d_old in (64, 128):
+        for dtype in (torch.float32, torch.bfloat16):
+            assert all(fa.decode_cluster_fits(d_old, dtype, 3, cl)
+                       for cl in fa.DECODE_CLUSTERS)
+
+
+def test_flash_attention_head_dims():
+    """Serving takes 160; the training route does not (no backward at 160
+    yet; the ``cuda`` test holds its refusal on the card)."""
+    from repro_torch.kernels import flash_attention as fa
+    assert fa.HEAD_DIMS == (64, 128, 160)
+    assert 160 not in fa.TRAIN_HEAD_DIMS
+
+
+def test_ssd_scan_keeps_the_gradient_on_the_cpu():
+    """On the CPU a scan that wants a gradient runs autograd through the
+    plain version: every input gets one (a loss through the scan, held to
+    ``jax.grad`` by the model tests)."""
+    rs = np.random.RandomState(21)
+    b, s, h, p, g, n = 1, 9, 2, 4, 1, 4
+    x = torch.from_numpy(rs.randn(b, s, h, p).astype(np.float32))
+    dt = torch.from_numpy(rs.rand(b, s, h).astype(np.float32))
+    A = -torch.from_numpy(rs.rand(h).astype(np.float32) + 0.5)
+    B, C = (torch.from_numpy(rs.randn(b, s, g, n).astype(np.float32))
+            for _ in range(2))
+    ins = [t.requires_grad_() for t in (x, dt, A, B, C)]
+    y, state = ops.ssd_scan(*ins, 4)
+    (y.sum() + state.sum()).backward()
+    assert all(t.grad is not None and torch.isfinite(t.grad).all()
+               for t in ins)
+
+
 def test_launch_functions_refuse_cpu_tensors():
     """The functions that launch the kernels never compute another way."""
     q = torch.zeros(1, 1, 2, 64)
@@ -1307,6 +1401,97 @@ def test_flash_decode_cluster_sizes_match_plain(cuda_device, dtype, atol,
     torch.cuda.synchronize()
     want = flash_attention_plain(q, k, v, True, None, offset)
     assert (got.float() - want.float()).abs().max().item() <= atol
+
+
+# b, h, hkv, sq, skv, causal, q_offset, kv_len at head_dim 160: each of the
+# four forward kernels (bf16 and fp32 prefill, bf16 and fp32 decode), zamba2's
+# MHA decode tick (group 1: one query row a block), its prefill, a GQA group
+# and a chunk into a cache with both per-sequence arguments.
+FLASH_D160_TABLE = [
+    (8, 32, 32, 1, 2048, True, [1999, 5, 700, 1024, 31, 32, 2047, 1500], None),
+    (1, 32, 32, 1024, 1024, True, None, None),
+    (1, 4, 4, 130, 130, True, None, None),
+    (2, 4, 2, 77, 77, False, None, None),
+    (2, 8, 2, 3, 300, False, None, [300, 1]),
+    (2, 4, 2, 40, 200, True, [160, 37], [200, 77]),
+    (4, 6, 3, 1, 256, True, [0, 0, 255, 100], [1, 1, 1, 256]),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 2e-5),
+                                        (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("b,h,hkv,sq,skv,causal,q_off,lens",
+                         FLASH_D160_TABLE)
+def test_flash_kernel_at_head_dim_160_matches_plain(
+        cuda_device, dtype, atol, b, h, hkv, sq, skv, causal, q_off, lens):
+    q, k, v, offset, kv_len = _flash_cuda_case(cuda_device, dtype, b, h, hkv,
+                                               sq, skv, 160, q_off, lens)
+    before = ops.flash_attention.launches
+    got = ops.flash_attention(q, k, v, causal, kv_len, offset)
+    torch.cuda.synchronize()
+    assert ops.flash_attention.launches == before + 1
+    want = flash_attention_plain(q, k, v, causal, kv_len, offset)
+    assert got.shape == want.shape and got.dtype == dtype
+    assert (got.float() - want.float()).abs().max().item() <= atol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 2e-5),
+                                        (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8])
+def test_flash_decode_clusters_at_head_dim_160(cuda_device, dtype, atol,
+                                               cluster):
+    """Each cluster that fits a block gives the plain result; one that does
+    not (8 blocks, bf16) is refused before anything is launched."""
+    from repro_torch.kernels.flash_attention import decode_cluster_fits
+    offsets = [1999, 5, 700, 1024, 31, 32, 2047, 1500]
+    q, k, v, offset, _ = _flash_cuda_case(cuda_device, dtype, 8, 32, 32, 1,
+                                          2048, 160, offsets, None)
+    if not decode_cluster_fits(160, dtype, 1, cluster):
+        with pytest.raises(ValueError, match="shared memory"):
+            flash_attention_cuda(q, k, v, True, None, offset,
+                                 decode_cluster=cluster)
+        return
+    got = flash_attention_cuda(q, k, v, True, None, offset,
+                               decode_cluster=cluster)
+    torch.cuda.synchronize()
+    want = flash_attention_plain(q, k, v, True, None, offset)
+    assert (got.float() - want.float()).abs().max().item() <= atol
+
+
+@pytest.mark.cuda
+def test_flash_training_route_refuses_head_dim_160(cuda_device):
+    q = torch.zeros((1, 2, 16, 160), device=cuda_device, requires_grad=True)
+    with pytest.raises(ValueError, match="head_dim"):
+        ops.flash_attention(q, q, q)
+
+
+@pytest.mark.cuda
+def test_ssd_scan_refuses_a_gradient_on_the_card(cuda_device):
+    """The scan's kernels have no backward: a call that wants a gradient
+    raises instead of returning a result without one; under no_grad, and
+    with no input that requires grad, it launches."""
+    rs = np.random.RandomState(22)
+    b, s, h, p, g, n = 1, 40, 2, 16, 1, 16
+    x = torch.from_numpy(rs.randn(b, s, h, p).astype(np.float32)).to(
+        cuda_device)
+    dt = torch.from_numpy(rs.rand(b, s, h).astype(np.float32)).to(cuda_device)
+    A = -torch.from_numpy(rs.rand(h).astype(np.float32) + 0.5).to(cuda_device)
+    B, C = (torch.from_numpy(rs.randn(b, s, g, n).astype(np.float32)).to(
+        cuda_device) for _ in range(2))
+    before = ops.ssd_scan.launches
+    for wants in range(5):
+        ins = [x, dt, A, B, C]
+        ins[wants] = ins[wants].clone().requires_grad_()
+        with pytest.raises(NotImplementedError, match="backward"):
+            ops.ssd_scan(*ins, 16)
+        with torch.no_grad():
+            y, _ = ops.ssd_scan(*ins, 16)
+        assert not y.requires_grad
+    assert ops.ssd_scan.launches == before + 5
+    ops.ssd_scan(x, dt, A, B, C, 16)
+    assert ops.ssd_scan.launches == before + 6
 
 
 @pytest.mark.cuda

@@ -29,7 +29,9 @@ torch.set_num_threads(1)
 
 ARCHS = ["smollm-135m", "chatglm3-6b", "minitron-8b", "internlm2-20b"]
 MOE_ARCHS = ["granite-moe-3b-a800m", "llama4-maverick-400b-a17b"]
-CONFIG_ARCHS = ARCHS + ["mamba2-780m"] + MOE_ARCHS + ["internvl2-76b"]
+CONFIG_ARCHS = ARCHS + ["mamba2-780m"] + MOE_ARCHS + ["internvl2-76b",
+                                                      "zamba2-2.7b",
+                                                      "seamless-m4t-large-v2"]
 
 
 def _pair(arch, seed=0, dtype=jnp.float32):
@@ -64,19 +66,26 @@ def test_config_copy_equals_reference(arch, reduced):
 
 
 def test_get_config_unknown_arch_raises_keyerror():
-    assert "smollm-135m" in list_configs()
+    from repro.configs import ASSIGNED_ARCHS
+    assert set(ASSIGNED_ARCHS) <= set(list_configs())
     with pytest.raises(KeyError):
-        get_config("zamba2-2.7b")        # waits for its slice
+        get_config("transformer-1t")     # waits for the dry run's slice
     with pytest.raises(KeyError):
         get_config("no-such-arch")
 
 
 def test_get_model_names_pending_families():
-    import dataclasses
-    cfg = dataclasses.replace(get_config("smollm-135m", reduced=True),
-                              family="hybrid")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_model(cfg)
+    """No family is pending any more: each maps to the class that builds
+    it, as the reference maps each to its module, and an unknown family
+    raises ValueError."""
+    from repro_torch.models import EncDec, Mamba, Transformer
+    want = {"dense": Transformer, "moe": Transformer, "vlm": Transformer,
+            "ssm": Mamba, "hybrid": Mamba, "encdec": EncDec}
+    base = get_config("smollm-135m", reduced=True)
+    for family, cls in want.items():
+        assert get_model(dataclasses.replace(base, family=family)) is cls
+    with pytest.raises(ValueError, match="unknown family"):
+        get_model(dataclasses.replace(base, family="rnn"))
 
 
 @pytest.mark.parametrize("fraction", [1.0, 0.5])
@@ -357,12 +366,282 @@ def test_mamba_layer_hands_the_scan_views(monkeypatch):
     assert chunk == cfg.ssm.chunk_size
 
 
-def test_mamba_hybrid_is_not_ported_yet():
-    from repro_torch.models.mamba import Mamba
-    cfg = dataclasses.replace(get_config("mamba2-780m", reduced=True),
-                              family="hybrid")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Mamba(cfg, dtype=torch.float32, device="cpu")
+# ------------------------------------------------------------------------- #
+# zamba2 (hybrid family), reduced: 2 Mamba2 layers, the shared block after
+# both (4 heads over 2 KV heads of 16, on concat(h, emb0) 128 wide); the
+# "4 layers" variant has two groups, so the one shared block runs twice
+# ------------------------------------------------------------------------- #
+
+ZAMBA = "zamba2-2.7b"
+
+
+def _zamba_pair(layers=None, seed=0):
+    """``_pair`` for zamba2 reduced, or with ``layers`` layers (groups of
+    attn_every 2) on both sides."""
+    if layers is None:
+        return _pair(ZAMBA, seed)
+    cfg_j = dataclasses.replace(get_config_jax(ZAMBA, reduced=True),
+                                num_layers=layers)
+    mod = get_model_jax(cfg_j)
+    params = mod.init_params(jax.random.PRNGKey(seed), cfg_j,
+                             dtype=jnp.float32)
+    cfg = dataclasses.replace(get_config(ZAMBA, reduced=True),
+                              num_layers=layers)
+    model = get_model(cfg)(cfg, dtype=torch.float32, device="cpu")
+    model.load_state_dict(
+        from_jax_params(jax.tree.map(np.asarray, params), cfg))
+    return mod, cfg_j, params, model
+
+
+def test_zamba_param_count_and_tree():
+    """The full config counts 2,407,693,248 parameters (``param_count``
+    leaves out conv_b, dt_bias and norm_g, as the reference's does); the
+    module tree has the JAX tree's leaves and sizes, and carries back to
+    it."""
+    from repro_torch.convert import to_jax_params
+    assert get_config(ZAMBA).param_count() == 2_407_693_248
+    mod, cfg_j, params, model = _zamba_pair()
+    converted = from_jax_params(jax.tree.map(np.asarray, params), cfg_j)
+    assert set(converted) == set(model.state_dict())
+    for name, t in model.state_dict().items():
+        assert t.shape == converted[name].shape, name
+    assert (sum(p.numel() for p in model.parameters())
+            == sum(a.size for a in jax.tree.leaves(params)))
+    back = to_jax_params(model.state_dict(), model.cfg)
+    assert (jax.tree.structure(jax.tree.map(lambda a: 0, back))
+            == jax.tree.structure(jax.tree.map(lambda a: 0, params)))
+    for (path, got), want in zip(jax.tree_util.tree_leaves_with_path(back),
+                                 jax.tree.leaves(params)):
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want),
+                                      err_msg=str(path))
+
+
+def test_zamba_shared_attention_weights_are_shared(monkeypatch):
+    """One attention block's parameters, reused at every application
+    point: ONE ``shared_attn`` (2-D ``wq``, as in the reference's tree),
+    and a forward over two groups runs that one module twice."""
+    from repro_torch.models.mamba import SharedAttn
+    _, cfg_j, params, model = _zamba_pair(layers=4)
+    assert params["shared_attn"]["attn"]["wq"].ndim == 2
+    assert model.shared_attn.attn.wq.dim() == 2
+    assert sum(isinstance(m, SharedAttn) for m in model.modules()) == 1
+    assert not any(k.startswith("layers.") and "shared" in k
+                   for k in model.state_dict())
+    seen = []
+    real = SharedAttn.forward
+
+    def spy(self, *args, **kwargs):
+        seen.append(self)
+        return real(self, *args, **kwargs)
+    monkeypatch.setattr(SharedAttn, "forward", spy)
+    with torch.no_grad():
+        model(torch.from_numpy(_tokens(cfg_j, 1, 5)))
+    assert len(seen) == 2 and all(m is model.shared_attn for m in seen)
+
+
+@pytest.mark.parametrize("layers,s", [(None, 13), (4, 45)])
+def test_zamba_forward_logits_match_jax(layers, s):
+    """45 tokens cross the 32-token chunk and leave a ragged tail."""
+    mod, cfg_j, params, model = _zamba_pair(layers)
+    toks = _tokens(cfg_j, 2, s)
+    want, _, _ = mod.forward(params, cfg_j, jnp.asarray(toks))
+    with torch.no_grad():
+        got, cache = model(torch.from_numpy(toks))
+    assert cache is None
+    assert got.shape == (2, s, cfg_j.padded_vocab)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4)
+
+
+@pytest.mark.parametrize("layers,s", [(None, 12), (4, 2)])
+def test_zamba_serving_matches_forward_and_jax(layers, s):
+    """A prefill then three decode steps equal the full forward and the JAX
+    package's prefill/decode_step, every cache tensor included (the shared
+    block's attn_k/attn_v at each group)."""
+    mod, cfg_j, params, model = _zamba_pair(layers)
+    b = 2
+    toks = _tokens(cfg_j, b, s + 3, seed=1)
+    with torch.no_grad():
+        full, _ = model(torch.from_numpy(toks))
+    cache = model.init_cache(b, 32)
+    cache_j = mod.init_cache(cfg_j, b, 32, dtype=jnp.float32)
+    lg, cache = model.prefill(torch.from_numpy(toks[:, :s]), cache)
+    lg_j, cache_j = mod.prefill(params, cfg_j, jnp.asarray(toks[:, :s]),
+                                cache_j)
+    steps = [(lg, lg_j, cache_to_numpy(cache),
+              jax.tree.map(np.asarray, cache_j))]
+    for t in range(s, s + 3):
+        lg, cache = model.decode_step(cache, torch.from_numpy(toks[:, t:t + 1]))
+        lg_j, cache_j = mod.decode_step(params, cfg_j, cache_j,
+                                        jnp.asarray(toks[:, t:t + 1]))
+        steps.append((lg, lg_j, cache_to_numpy(cache),
+                      jax.tree.map(np.asarray, cache_j)))
+    names = {"conv", "ssm", "attn_k", "attn_v", "pos"}
+    for k, (got, want, mine, theirs) in enumerate(steps):
+        assert got.shape == (b, 1, cfg_j.padded_vocab)
+        np.testing.assert_allclose(got[:, 0].numpy(),
+                                   full[:, s - 1 + k].numpy(),
+                                   atol=2e-3, rtol=1e-3)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4)
+        assert set(mine) == set(theirs) == names
+        for name in names - {"pos"}:
+            assert mine[name].shape == theirs[name].shape, name
+            np.testing.assert_allclose(mine[name], theirs[name], atol=1e-5,
+                                       err_msg=name)
+        np.testing.assert_array_equal(mine["pos"], theirs["pos"])
+
+
+@pytest.mark.parametrize("arch,layers", [("mamba2-780m", None),
+                                         (ZAMBA, None), (ZAMBA, 4)])
+def test_mamba_loss_and_grads_match_jax(arch, layers):
+    """``Mamba.loss`` (remat "dots") and the gradient of every leaf, through
+    autograd over the plain scan, against ``jax.value_and_grad`` of the JAX
+    package's ``loss``: 45 tokens cross the 32-token chunk."""
+    mod, cfg_j, params, model = (_pair(arch) if arch != ZAMBA
+                                 else _zamba_pair(layers))
+    batch = _lm_batch_np(cfg_j, 2, 45, seed=34, ignore=0.2)
+    (want_loss, want_parts), grads = jax.value_and_grad(
+        lambda p: mod.loss(p, cfg_j, {k: jnp.asarray(v)
+                                      for k, v in batch.items()}),
+        has_aux=True)(params)
+    loss, parts = model.loss({k: torch.from_numpy(v)
+                              for k, v in batch.items()})
+    assert loss.dtype == torch.float32 and parts["aux"].item() == 0.0
+    np.testing.assert_allclose(loss.item(), float(want_loss), rtol=1e-5)
+    np.testing.assert_allclose(parts["ce"].item(), float(want_parts["ce"]),
+                               rtol=1e-5)
+    loss.backward()
+    want = from_jax_params(jax.tree.map(np.asarray, grads), model.cfg)
+    named = dict(model.named_parameters())
+    assert set(named) == set(want)
+    for name, p in named.items():
+        assert _leaf_err(p.grad, want[name].numpy()) <= 1e-4, name
+
+
+@pytest.mark.parametrize("policy", ["none", "full", "blocks"])
+def test_zamba_remat_policies_match_dots(policy):
+    """Every remat policy gives the loss and the gradients of ``dots``."""
+    _, cfg_j, _, model = _zamba_pair(layers=4)
+    batch = {k: torch.from_numpy(v)
+             for k, v in _lm_batch_np(cfg_j, 2, 10, seed=35).items()}
+
+    def run(remat):
+        model.zero_grad(set_to_none=True)
+        loss, _ = model.loss(batch, remat=remat)
+        loss.backward()
+        return loss.item(), {n: p.grad.clone()
+                             for n, p in model.named_parameters()}
+    want_loss, want = run("dots")
+    loss, got = run(policy)
+    assert loss == pytest.approx(want_loss, rel=1e-6)
+    for name, g in got.items():
+        assert _leaf_err(g, want[name].numpy()) <= 1e-6, name
+
+
+def test_zamba_engine_greedy_tokens_match_jax_engine():
+    """zamba2 reduced through both engines on shared weights: prompts of
+    mixed lengths, more requests than slots (a slot is refilled, its
+    prefill overwriting the conv/ssm state and the shared block's K/V
+    rows); greedy tokens equal token for token."""
+    from repro.serve import Engine as EngineJax
+    from repro.serve import EngineConfig as EngineConfigJax
+    from repro.serve import Request as RequestJax
+    from repro_torch.serve import Engine, EngineConfig, Request
+    mod, cfg_j, params, model = _zamba_pair()
+    rs = np.random.RandomState(36)
+    prompts = [rs.randint(0, cfg_j.vocab_size, size=n).astype(np.int32)
+               for n in (5, 2, 9, 3)]
+    eng_j = EngineJax(cfg_j, params,
+                      EngineConfigJax(max_batch=2, max_seq=32),
+                      dtype=jnp.float32)
+    eng = Engine(model.cfg, model, EngineConfig(max_batch=2, max_seq=32),
+                 dtype=torch.float32, device="cpu")
+    for i, p in enumerate(prompts):
+        eng_j.submit(RequestJax(uid=i, prompt=p, max_new_tokens=6))
+        eng.submit(Request(uid=i, prompt=p, max_new_tokens=6))
+    want = {r.uid: r.out_tokens for r in eng_j.run_until_drained()}
+    got = {r.uid: r.out_tokens for r in eng.run_until_drained()}
+    assert len(got) == 4 and got == want
+
+
+# ------------------------------------------------------------------------- #
+# tests/test_models_smoke.py's TestArchSmoke restated for the port: every
+# assigned architecture's reduced config, fp32 on the CPU
+# ------------------------------------------------------------------------- #
+
+def _smoke_batch(cfg, b=2, s=16):
+    rs = np.random.RandomState(37)
+    tokens = torch.from_numpy(rs.randint(0, cfg.vocab_size, size=(b, s)))
+    batch = {"tokens": tokens, "targets": tokens}
+    if cfg.family == "encdec":
+        batch["frames"] = torch.from_numpy(
+            rs.randn(b, 8, cfg.d_model).astype(np.float32))
+    if cfg.family == "vlm":
+        batch["patches"] = torch.from_numpy(rs.randn(
+            b, cfg.vision.num_patches, cfg.d_model).astype(np.float32))
+    return batch
+
+
+def _assigned():
+    from repro.configs import ASSIGNED_ARCHS
+    return ASSIGNED_ARCHS
+
+
+@pytest.mark.parametrize("arch", _assigned())
+class TestArchSmoke:
+    def test_train_step_finite(self, arch):
+        """One step of the port's train step (init_train_state,
+        make_train_step): a finite loss, a positive finite gradient norm,
+        every parameter moved, and logits of the padded vocabulary."""
+        from repro_torch.parallel import MemoryPlan
+        from repro_torch.train import init_train_state, make_train_step
+        cfg = get_config(arch, reduced=True)
+        plan = MemoryPlan(1, "float32", True, "dots", 0.0, 1)
+        state = init_train_state(
+            cfg, plan, generator=torch.Generator().manual_seed(0),
+            dtype=torch.float32, device="cpu")
+        before = {n: p.detach().clone() for n, p in state["params"].items()}
+        batch = _smoke_batch(cfg)
+        state, metrics = make_train_step(cfg, plan)(state, batch)
+        assert np.isfinite(metrics["loss"].item())
+        gnorm = metrics["grad_norm"].item()
+        assert np.isfinite(gnorm) and gnorm > 0
+        assert all(not torch.equal(p, before[n])
+                   for n, p in state["params"].items()), arch
+        kw = {k: v for k, v in batch.items() if k in ("frames", "patches")}
+        with torch.no_grad():
+            logits, _ = state["model"](batch["tokens"], **kw)
+        assert logits.shape[-1] == cfg.padded_vocab
+        assert torch.isfinite(logits).all()
+
+    def test_serving_matches_forward(self, arch):
+        cfg = get_config(arch, reduced=True)
+        if cfg.moe is not None:  # exact-capacity variant for determinism
+            cfg = dataclasses.replace(
+                cfg, moe=dataclasses.replace(
+                    cfg.moe, capacity_factor=float(cfg.moe.num_experts)))
+        model = get_model(cfg)(cfg, dtype=torch.float32, device="cpu")
+        b, s = 2, 12
+        batch = _smoke_batch(cfg, b, s)
+        kw = {k: v for k, v in batch.items() if k in ("frames", "patches")}
+        if cfg.family == "encdec":
+            cache = model.init_cache(b, 32, src_len=8)
+        elif cfg.family == "vlm":
+            cache = model.init_cache(b, 32 + cfg.vision.num_patches)
+        else:
+            cache = model.init_cache(b, 32)
+        tokens = batch["tokens"]
+        tok_full = torch.cat([tokens, tokens[:, :1]], dim=1)
+        with torch.no_grad():
+            full, _ = model(tok_full, **kw)
+        lg, cache = model.prefill(tokens, cache, **kw)
+        lg2, cache = model.decode_step(cache, tokens[:, :1])
+        off = cfg.vision.num_patches if cfg.family == "vlm" else 0
+        np.testing.assert_allclose(lg[:, 0].numpy(),
+                                   full[:, s - 1 + off].numpy(),
+                                   atol=2e-3, rtol=1e-3)
+        np.testing.assert_allclose(lg2[:, 0].numpy(),
+                                   full[:, s + off].numpy(),
+                                   atol=2e-3, rtol=1e-3)
 
 
 def test_from_jax_params_carries_bf16_bits():
@@ -429,6 +708,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         names = [m.name for m in pkgutil.walk_packages(
             repro_torch.__path__, "repro_torch.")]
         assert len(names) >= 15, names
+        assert {"repro_torch.models.encdec",
+                "repro_torch.configs.zamba2_2p7b",
+                "repro_torch.configs.seamless_m4t_large_v2"} <= set(names)
         for name in names:
             importlib.import_module(name)
         bad = sorted(m for m in sys.modules
@@ -699,3 +981,55 @@ def test_serving_keeps_parameters_out_of_autograd():
     lg, cache = model.prefill(torch.from_numpy(_tokens(cfg_j, 2, 5)), cache)
     lg2, cache = model.decode_step(cache, torch.tensor([[1], [2]]))
     assert not lg.requires_grad and not lg2.requires_grad
+
+
+# ------------------------------------------------------------------------- #
+# On the card: zamba2's layer stack at full width (d 2560, the shared block
+# on 5120 with 32 heads of 160, 80 SSD heads) through the kernels against
+# the same weights on the CPU, fp32
+# ------------------------------------------------------------------------- #
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+def test_zamba_stack_on_the_card_matches_the_cpu(cuda_device):
+    """4 layers in 2 groups, a small vocabulary: a 70-token prefill (the
+    scan's kernels, the shared block's prefill attention at d 160) and two
+    decode ticks (its decode attention) against the plain versions on the
+    CPU on the same weights: logits within 2e-3."""
+    from repro_torch.kernels import ops
+    from repro_torch.models.mamba import Mamba
+    cfg = dataclasses.replace(get_config(ZAMBA), num_layers=4,
+                              vocab_size=2048,
+                              hybrid=dataclasses.replace(
+                                  get_config(ZAMBA).hybrid, attn_every=2))
+    cpu = Mamba(cfg, dtype=torch.float32, device="cpu",
+                generator=torch.Generator().manual_seed(0))
+    gpu = Mamba(cfg, dtype=torch.float32, device=cuda_device,
+                generator=torch.Generator().manual_seed(0))
+    toks = _tokens(cfg, 2, 72, seed=9)
+    outs = {}
+    for name, model in (("cpu", cpu), ("gpu", gpu)):
+        dev = model.device
+        cache = model.init_cache(2, 128)
+        before = (ops.flash_attention.launches, ops.ssd_scan.launches)
+        lg, cache = model.prefill(torch.from_numpy(toks[:, :70]).to(dev),
+                                  cache)
+        got = [lg]
+        for t in (70, 71):
+            lg, cache = model.decode_step(
+                cache, torch.from_numpy(toks[:, t:t + 1]).to(dev))
+            got.append(lg)
+        outs[name] = [g.float().cpu() for g in got]
+        if name == "gpu":
+            assert (ops.flash_attention.launches - before[0],
+                    ops.ssd_scan.launches - before[1]) == (2 * 3, 4)
+    for got, want in zip(outs["gpu"], outs["cpu"]):
+        assert torch.isfinite(got).all()
+        assert (got - want).abs().max().item() <= 2e-3

@@ -374,10 +374,9 @@ def test_trainer_loss_falls_and_watchdog_counts_a_straggler():
                             "final_aux", "final_lr", "final_grad_norm"}
 
 
-def test_trainer_checkpoint_dir_waits_for_the_checkpointer(tmp_path):
+def test_trainer_checkpoint_dir_builds_the_manager_and_commits(tmp_path):
     """A ``ckpt_dir`` builds the manager, an empty directory resumes
-    nothing, and a run commits its last step. (The name is from before the
-    checkpointer was ported, when a ``ckpt_dir`` raised.)"""
+    nothing, and a run commits its last step."""
     trainer = _reduced_trainer(2, ckpt_dir=str(tmp_path), ckpt_interval=1)
     assert trainer.manager is not None
     assert trainer.try_resume() is False
@@ -425,11 +424,10 @@ def test_launch_train_reduced_on_the_card(capsys):
 
 @pytest.mark.parametrize("flags", [["--ckpt-dir", "ckpt"],
                                    ["--resume", "auto"]])
-def test_launch_train_checkpoint_flags_raise(flags, tmp_path, monkeypatch,
-                                             capsys):
+def test_launch_train_checkpoint_flags_commit_or_start_fresh(
+        flags, tmp_path, monkeypatch, capsys):
     """``--ckpt-dir`` commits the last step; ``--resume auto`` without a
-    directory is a fresh start. (The name is from before the checkpointer
-    was ported, when both flags raised.)"""
+    directory is a fresh start."""
     monkeypatch.chdir(tmp_path)
     summary = launch_train.main(["--reduced", "--device", "cpu", "--steps",
                                  "1", *flags])
