@@ -82,6 +82,18 @@ run with a non-zero exit code (nothing drops to the CPU or to a plain version):
            that resumes and takes 3 more; every leaf of params, m, v and
            the step bitwise equal; the state's bytes, the save's ms on the
            loop, the writer thread's seconds, the restore's ms
+  parallel the distribution layer: a one-rank NCCL group and a (1 data,
+           1 model) mesh; 3 sharded_train_steps of full-width smollm-135m
+           (fp32, train_lm's 8 x 2048 tokens) against 3 make_train_steps
+           from the same state, every collective an identity: metrics and
+           every leaf of params, m, v and master bitwise equal; both step
+           times, the NCCL kernels' share of a profiled step's device time;
+           compressed_psum over 64 MiB on NCCL (ms, bytes, error); then two
+           processes on the card over gloo with CUDA tensors: the (1, 2) and
+           (2, 1) sharded steps against one process (loss, global norm,
+           params, m, v, master), which must pass. gpipe is not run here:
+           gloo's point-to-point sends refuse CUDA tensors, so it is held
+           on the CPU (tests/test_torch_distributed.py)
 
 The last three lines are the card as nvidia-smi names it, one JSON object
 describing every kernel, and the verdict.
@@ -108,6 +120,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 ROOT = Path(__file__).resolve().parent
@@ -153,13 +166,17 @@ from repro_torch.kernels.ssd_scan import (  # noqa: E402
 )
 from repro_torch.models import get_model  # noqa: E402
 from repro_torch.models.dlrm import DLRM  # noqa: E402
-from repro_torch.parallel import plan_memory  # noqa: E402
+from repro_torch.parallel import build_mesh, plan_memory  # noqa: E402
+from repro_torch.parallel.compression import compressed_psum  # noqa: E402
 from repro_torch.serve import Engine, EngineConfig, Request  # noqa: E402
 from repro_torch.train import (  # noqa: E402
     Trainer,
     TrainerConfig,
+    gather_train_state,
     init_train_state,
     make_train_step,
+    shard_train_state,
+    sharded_train_step,
 )
 from repro_torch.train import train_step as train_step_module  # noqa: E402
 from repro_torch.train.optimizer import (  # noqa: E402
@@ -2383,6 +2400,294 @@ def phase_checkpoint() -> None:
 
 
 # ------------------------------------------------------------------------- #
+# The distribution layer
+# ------------------------------------------------------------------------- #
+
+# The sharded step on one card: smollm-135m at full width and depth, fp32,
+# remat "dots", at train_lm's batch; 3 steps of each entry point from one
+# state (two states side by side: 2.15 GB more than train_lm's 29.8 GB).
+PAR_BATCH, PAR_SEQ, PAR_STEPS = LM_BATCH, LM_SEQ, 3
+PSUM_BYTES = 64 * 2 ** 20       # compressed_psum's fp32 input
+# Two processes on the card over gloo: one step at 2 x 512 tokens (gloo
+# stages every CUDA tensor through host memory), held to the CPU tests'
+# tolerances against one process (tests/test_torch_distributed.py: loss
+# 2e-4, every parameter 5e-3, the global norm 1e-5 relative, m, v and
+# master 5e-3 of each leaf's largest magnitude).
+PAR2_BATCH, PAR2_SEQ = 2, 512
+PAR_LOSS_TOL, PAR_PARAM_TOL, PAR_NORM_RTOL, PAR_OPT_TOL = 2e-4, 5e-3, 1e-5, 5e-3
+PAR_TIMEOUT_S = 180             # a pair of processes' join
+
+
+def _par_plan_and_opt(cfg):
+    plan = plan_memory(cfg, tp=1, dp=1)
+    ocfg = AdamWConfig(lr=LM_LR, warmup_steps=LM_WARMUP,
+                       total_steps=PAR_STEPS + 1,
+                       state_dtype=plan.opt_dtype, use_master=plan.use_master)
+    return plan, ocfg
+
+
+def _par_state(cfg, plan, ocfg):
+    return init_train_state(cfg, plan,
+                            torch.Generator(device=DEVICE).manual_seed(0),
+                            ocfg, dtype=torch.float32, device=DEVICE)
+
+
+def _par_batches(cfg, n: int, batch: int = PAR_BATCH,
+                 seq: int = PAR_SEQ) -> list:
+    data = DataIterator(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                                   global_batch=batch, seed=0),
+                        device=DEVICE)
+    return [next(data) for _ in range(n)]
+
+
+def _timed_steps(step, state, batches) -> tuple:
+    """Each step's metrics (read to the host) and its host-clock ms."""
+    ms, metrics = [], []
+    for batch in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        m = {k: (v.item() if torch.is_tensor(v) else v) for k, v in m.items()}
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        metrics.append(m)
+    return state, metrics, ms
+
+
+def _scaled_err(got: dict, want: dict) -> float:
+    """The largest error over the leaves of ``want``, each over that
+    leaf's largest magnitude."""
+    return max(((got[n] - t).abs().max()
+                / max(t.abs().max().item(), 1e-30)).item()
+               for n, t in want.items())
+
+
+def _gloo_rank(rank: int, directory: str) -> None:
+    """One of two processes on the one card, over gloo with CUDA tensors
+    (NCCL refuses two ranks on one GPU): one step of the (1 data, 2 model)
+    and of the (2 data, 1 model) sharded step against make_train_step from
+    the same state and batch. Writes its results as JSON to
+    ``directory``."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{directory}/store",
+                            rank=rank, world_size=2)
+    cfg = get_config(LM_ARCH)
+    plan, ocfg = _par_plan_and_opt(cfg)
+    batch = _par_batches(cfg, 1, PAR2_BATCH, PAR2_SEQ)[0]
+    ref = _par_state(cfg, plan, ocfg)
+    ref, ref_m, ref_ms = _timed_steps(make_train_step(cfg, plan, ocfg),
+                                      ref, [batch])
+    out = {}
+    for shape in ((1, 2), (2, 1)):
+        mesh = build_mesh(shape, ("data", "model"))
+        state = shard_train_state(cfg, plan, _par_state(cfg, plan, ocfg),
+                                  mesh)
+        state, m, ms = _timed_steps(
+            sharded_train_step(cfg, plan, mesh, ocfg), state, [batch])
+        full = gather_train_state(state, mesh)
+        out[f"{shape[0]}x{shape[1]}"] = {
+            "loss": m[0]["loss"], "ref_loss": ref_m[0]["loss"],
+            "grad_norm": m[0]["grad_norm"],
+            "ref_grad_norm": ref_m[0]["grad_norm"],
+            "param_max_abs_err": max(
+                (full["params"][n] - p.detach()).abs().max().item()
+                for n, p in ref["params"].items()),
+            **{f"{part}_scaled_err": _scaled_err(full["opt"][part],
+                                                 ref["opt"][part])
+               for part in ("m", "v", "master")},
+            "step_ms": ms[0], "ref_step_ms": ref_ms[0]}
+        del state, full
+        torch.cuda.empty_cache()
+    with open(os.path.join(directory, f"rank_{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def _gloo_pair() -> list:
+    """``_gloo_rank`` in two fresh processes; each rank's results. A rank
+    that exits other than 0, or a pair that has not ended in
+    PAR_TIMEOUT_S, fails the run (the other rank is killed then)."""
+    import multiprocessing
+    ctx = multiprocessing.get_context("spawn")
+    directory = tempfile.mkdtemp(prefix="chip_smoke_gloo_")
+    try:
+        procs = [ctx.Process(target=_gloo_rank, args=(r, directory))
+                 for r in range(2)]
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + PAR_TIMEOUT_S
+        while (any(p.is_alive() for p in procs)
+               and not any(p.exitcode for p in procs)
+               and time.monotonic() < deadline):
+            time.sleep(0.2)
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+            p.join()
+        codes = [p.exitcode for p in procs]
+        if codes != [0, 0]:
+            raise SystemExit(f"chip_smoke: parallel_gloo phase failed: the "
+                             f"two ranks exited {codes} (a negative code is "
+                             f"a kill, at {PAR_TIMEOUT_S} s or after the "
+                             "other rank failed)")
+        return [json.loads(Path(directory, f"rank_{r}.json").read_text())
+                for r in range(2)]
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+
+
+def _compressed_psum_case(group) -> dict:
+    """compressed_psum over the one-rank NCCL group on PSUM_BYTES of fp32:
+    its ms (CUDA events, 20 calls), the bytes it moves on the device and
+    over the wire, and its error against the exact sum (x itself)."""
+    n = PSUM_BYTES // 4
+    world = dist.get_world_size(group)
+    x = torch.randn(n, device=DEVICE,
+                    generator=torch.Generator(device=DEVICE).manual_seed(2))
+    total, err = compressed_psum(x, group)
+    torch.cuda.synchronize()
+    scale = x.abs().max().item() / 127.0
+    max_err = (total - x).abs().max().item()
+    iters = 20
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(iters):
+        compressed_psum(x, group)
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / iters
+    # Read x (4 B), write the error (4 B) and the sum (4 B), write the int8
+    # tensor (1 B), and write and read the gathered int8 tensors (2 N B).
+    device_bytes = n * (13 + 2 * world)
+    return {"numel": n, "input_bytes": 4 * n, "ranks": world, "ms": ms,
+            "wire_bytes_per_rank": n + 4,
+            "device_bytes": device_bytes,
+            "bound_ms": device_bytes / HBM_BYTES_PER_S * 1e3,
+            "bound_by": "bytes", "max_abs_err": max_err,
+            "err_bound": world * scale}
+
+
+def _nccl_share(prof) -> dict:
+    """The profiled step's device time, and the share of it in NCCL's
+    kernels."""
+    device_us, launches, by_name = _device_time(prof, 1, "step")
+    nccl = [e for e in by_name if "nccl" in e["name"].lower()]
+    nccl_us = sum(e["launches_per_step"] * e["device_us_per_launch"]
+                  for e in nccl)
+    if not device_us:
+        return {"nccl_share": "not measured",
+                "reason": "torch.profiler reported no device time"}
+    return {"device_ms": device_us / 1e3, "device_launches": launches,
+            "nccl_launches": sum(e["launches_per_step"] for e in nccl),
+            "nccl_ms": nccl_us / 1e3, "nccl_share": nccl_us / device_us}
+
+
+def phase_parallel() -> dict:
+    """The distribution layer on the card, one rank: a NCCL group and a
+    (1 data, 1 model) mesh; PAR_STEPS sharded_train_steps of full-width,
+    full-depth smollm-135m (the kernels' counts zeroed just before, read
+    just after) against PAR_STEPS make_train_steps from the same state and
+    batches, every collective an identity: the metrics and every leaf of
+    params, m, v and master bitwise equal; both step times, and one more
+    sharded step under torch.profiler for the NCCL kernels' share of the
+    device time; compressed_psum over 64 MiB. Returns the sharded steps'
+    kernel launches."""
+    from torch.profiler import ProfilerActivity, profile
+    cfg = get_config(LM_ARCH)
+    plan, ocfg = _par_plan_and_opt(cfg)
+    directory = tempfile.mkdtemp(prefix="chip_smoke_nccl_")
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"file://{directory}/store",
+                            rank=0, world_size=1)
+    try:
+        mesh = build_mesh((1, 1), ("data", "model"))
+        batches = _par_batches(cfg, PAR_STEPS + 1)
+        state = shard_train_state(cfg, plan, _par_state(cfg, plan, ocfg),
+                                  mesh)
+        step = sharded_train_step(cfg, plan, mesh, ocfg)
+        torch.cuda.synchronize()
+        _zero_lm_counts()
+        state, metrics, step_ms = _timed_steps(step, state,
+                                               batches[:PAR_STEPS])
+        launches = _lm_counts()
+        ref = _par_state(cfg, plan, ocfg)
+        ref, ref_metrics, ref_ms = _timed_steps(
+            make_train_step(cfg, plan, ocfg), ref, batches[:PAR_STEPS])
+        want, got = _state_leaves(ref), _state_leaves(state)
+        differing = sorted(n for n, t in want.items()
+                           if not torch.equal(t, got[n]))
+        metrics_equal = [{k: m[k] == r[k] for k in ("loss", "grad_norm")}
+                         for m, r in zip(metrics, ref_metrics)]
+        del ref
+        torch.cuda.empty_cache()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            state, _ = step(state, batches[PAR_STEPS])
+            torch.cuda.synchronize()
+        nccl = _nccl_share(prof)
+        del state
+        torch.cuda.empty_cache()
+        psum = _compressed_psum_case(dist.group.WORLD)
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(directory, ignore_errors=True)
+
+    problems = []
+    if differing or set(want) != set(got):
+        problems.append(f"{len(differing)} of {len(want)} leaves differ from "
+                        f"make_train_step's: {differing[:8]}")
+    if not all(all(e.values()) for e in metrics_equal):
+        problems.append(f"metrics differ: {metrics_equal}")
+    expected = _expected_lm_launches(cfg, plan.remat, PAR_STEPS)
+    if launches != expected:
+        problems.append(f"launches {launches} != {expected}")
+    if not psum["max_abs_err"] <= psum["err_bound"]:
+        problems.append(f"compressed_psum off the exact sum by "
+                        f"{psum['max_abs_err']} > {psum['err_bound']}")
+    emit("parallel", arch=cfg.arch_id, dtype="float32",
+         global_batch=PAR_BATCH, seq_len=PAR_SEQ, mesh=[1, 1],
+         backend="nccl", plan={"remat": plan.remat,
+                               "zero_stage": plan.zero_stage,
+                               "use_master": plan.use_master},
+         steps=PAR_STEPS, leaves=len(want), leaves_differing=len(differing),
+         metrics_equal=metrics_equal, losses=[m["loss"] for m in metrics],
+         sharded_step_ms=step_ms, make_train_step_ms=ref_ms,
+         launches=launches, profiled_sharded_step=nccl,
+         compressed_psum=psum, problems=problems)
+    if problems:
+        raise SystemExit(f"chip_smoke: parallel phase failed: {problems}")
+    return launches
+
+
+def phase_parallel_gloo() -> None:
+    """Two processes on the card over gloo with CUDA tensors: the (1, 2)
+    and (2, 1) sharded steps of full-width smollm-135m against one process
+    on every rank, which must pass. (gloo refuses ``batch_isend_irecv`` of
+    CUDA tensors, so gpipe is held on the CPU only.)"""
+    ranks, problems = _gloo_pair(), []
+    for rank, result in enumerate(ranks):
+        if sorted(result) != ["1x2", "2x1"]:
+            problems.append(f"rank {rank} reported {sorted(result)}")
+        for shape, s in result.items():
+            ok = (abs(s["loss"] - s["ref_loss"]) <= PAR_LOSS_TOL
+                  * max(1.0, abs(s["ref_loss"]))
+                  and abs(s["grad_norm"] - s["ref_grad_norm"])
+                  <= PAR_NORM_RTOL * abs(s["ref_grad_norm"])
+                  and s["param_max_abs_err"] <= PAR_PARAM_TOL
+                  and all(s[f"{part}_scaled_err"] <= PAR_OPT_TOL
+                          for part in ("m", "v", "master")))
+            if not ok:
+                problems.append(f"rank {rank} {shape} off one process: {s}")
+    emit("parallel_gloo", global_batch=PAR2_BATCH, seq_len=PAR2_SEQ,
+         ranks=ranks, problems=problems)
+    if problems:
+        raise SystemExit(f"chip_smoke: parallel_gloo phase failed: "
+                         f"{problems}")
+
+
+# ------------------------------------------------------------------------- #
 # The kernels' line
 # ------------------------------------------------------------------------- #
 
@@ -2559,6 +2864,8 @@ def main() -> int:
     launches["train_lm"] = phase_train_lm()
     phase_train_lm_check()
     phase_checkpoint()
+    launches["parallel"] = phase_parallel()
+    phase_parallel_gloo()
     line = kernels_line(cases, launches, repeats)
     for entry in line["kernels"]:
         if entry["launches"] <= 0:

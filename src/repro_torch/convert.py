@@ -31,7 +31,7 @@ package wrote it.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Mapping
+from typing import Callable, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -95,6 +95,33 @@ def _moe_slot(cfg: ModelConfig, i: int):
 def _check_family(cfg: ModelConfig) -> None:
     if cfg.family not in _FAMILIES:
         raise ValueError(f"unknown family {cfg.family!r}")
+
+
+def reference_leaf(cfg: ModelConfig, name: str
+                   ) -> Tuple[Tuple[str, ...], Optional[Tuple[int, int]]]:
+    """Where one of the port's parameters lies in the JAX package's tree:
+    its path there, and, for a layer's leaf, (the stack's length, the
+    layer's index in it); None for a leaf that is not stacked.
+    ``layers.3.attn.wq`` -> (("layers", "attn", "wq"), (L, 3))."""
+    _check_family(cfg)
+    top, *rest = name.split(".")
+    if cfg.family in _STACKS:
+        stacks = dict(_STACKS[cfg.family](cfg))
+        if top in stacks:
+            return (top, *rest[1:]), (stacks[top], int(rest[0]))
+        return tuple(name.split(".")), None
+    if top != "layers":
+        return (top, *rest), None
+    i, sub, *leaf = rest
+    i = int(i)
+    if sub in ("ln1", "ln2"):
+        return ("layers", sub), (cfg.num_layers, i)
+    if sub == "attn":
+        return ("layers", "attn", *leaf), (cfg.num_layers, i)
+    group, k = _moe_slot(cfg, i)
+    every = range(cfg.num_layers)
+    n = sum(1 for j in every if _moe_slot(cfg, j)[0] == group)
+    return (group, *leaf), (n, k)
 
 
 def from_jax_params(params: Mapping, cfg: ModelConfig

@@ -13,8 +13,11 @@ CPU, forward and (when an input requires grad) backward. The other products
 (projections, FFN, the experts' batched products, logits) are
 ``torch.matmul`` / ``torch.bmm``, as the JAX package leaves them to XLA.
 
-Still to come with their slices: the sharding hints. ``layer_norm`` is not
-ported: no model of the reference calls it.
+Tensor parallelism is explicit (the reference leaves it to GSPMD):
+``attention_block`` and ``ffn_block`` take the ``model`` axis's process
+group when their weights are shards of it (``parallel/tensor.py``'s region
+ops around the column- and row-parallel products), and the local head
+counts. ``layer_norm`` is not ported: no model of the reference calls it.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
+from repro_torch.parallel.tensor import copy_to_region, reduce_from_region
 
 DEFAULT_DTYPE = torch.bfloat16
 
@@ -169,6 +173,7 @@ def attention_block(
     rope: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     xkv: Optional[torch.Tensor] = None,   # cross-attention source (b, src, d)
     precomputed_kv: bool = False,      # kv_cache holds frozen cross K/V
+    group=None,                        # the model axis, weights its shards
 ) -> torch.Tensor:
     """GQA attention. With ``kv_cache`` the new keys and values are
     written into ``kv_cache["k"]`` / ``["v"]`` IN PLACE (the JAX package
@@ -182,21 +187,33 @@ def attention_block(
     (the encoder output) and ``precomputed_kv`` says that ``kv_cache``
     holds them already projected, frozen and whole (``k``, ``v``: (b, src,
     hkv, d)); either way no RoPE is applied on either side, the attention
-    is not causal, and nothing is written."""
+    is not causal, and nothing is written.
+
+    With ``group``, ``wq``/``wk``/``wv`` hold this rank's heads' columns
+    and ``wo`` their rows, ``num_heads``/``num_kv_heads`` count this rank's
+    heads, the inputs enter through ``copy_to_region`` and the output is
+    summed over the group (``reduce_from_region``)."""
     b, s, _ = x.shape
+    if group is not None:
+        x = copy_to_region(x, group)
+        if xkv is not None:
+            xkv = copy_to_region(xkv, group)
+
+    def project_out(out: torch.Tensor) -> torch.Tensor:
+        y = out.reshape(b, s, num_heads * head_dim) @ params["wo"]
+        return y if group is None else reduce_from_region(y, group)
+
     q = (x @ params["wq"]).reshape(b, s, num_heads, head_dim)
     if precomputed_kv:
         if kv_cache is None:
             raise ValueError("precomputed_kv needs the cross K/V in kv_cache")
-        out = attention(q, kv_cache["k"].to(q.dtype),
-                        kv_cache["v"].to(q.dtype), causal=False)
-        return out.reshape(b, s, num_heads * head_dim) @ params["wo"]
+        return project_out(attention(q, kv_cache["k"].to(q.dtype),
+                                     kv_cache["v"].to(q.dtype), causal=False))
     src = x if xkv is None else xkv
     k = (src @ params["wk"]).reshape(b, src.shape[1], num_kv_heads, head_dim)
     v = (src @ params["wv"]).reshape(b, src.shape[1], num_kv_heads, head_dim)
     if xkv is not None:
-        out = attention(q, k, v, causal=False)
-        return out.reshape(b, s, num_heads * head_dim) @ params["wo"]
+        return project_out(attention(q, k, v, causal=False))
 
     offset = None
     if kv_cache is not None:
@@ -235,8 +252,7 @@ def attention_block(
         kv_cache["k"][:, :s] = k.to(kv_cache["k"].dtype)
         kv_cache["v"][:, :s] = v.to(kv_cache["v"].dtype)
         out = attention(q, k, v, causal=True)
-    out = out.reshape(b, s, num_heads * head_dim)
-    return out @ params["wo"]
+    return project_out(out)
 
 
 # --------------------------------------------------------------------- #
@@ -254,11 +270,18 @@ def init_ffn_params(generator: torch.Generator, d_model: int, d_ff: int,
 
 
 def ffn_block(params: Mapping[str, torch.Tensor], x: torch.Tensor,
-              activation: str) -> torch.Tensor:
+              activation: str, group=None) -> torch.Tensor:
+    """With ``group``, ``wg``/``wu`` hold this rank's columns of the hidden
+    layer and ``wd`` its rows: the input enters through ``copy_to_region``
+    and the output is summed over the group."""
+    if group is not None:
+        x = copy_to_region(x, group)
     if activation == "swiglu":
-        return (F.silu(x @ params["wg"]) * (x @ params["wu"])) @ params["wd"]
-    # jax.nn.gelu defaults to the tanh approximation
-    return F.gelu(x @ params["wu"], approximate="tanh") @ params["wd"]
+        y = (F.silu(x @ params["wg"]) * (x @ params["wu"])) @ params["wd"]
+    else:
+        # jax.nn.gelu defaults to the tanh approximation
+        y = F.gelu(x @ params["wu"], approximate="tanh") @ params["wd"]
+    return y if group is None else reduce_from_region(y, group)
 
 
 # --------------------------------------------------------------------- #

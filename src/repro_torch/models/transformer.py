@@ -27,6 +27,7 @@ import functools
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 from torch import nn
 from torch.utils.checkpoint import (
     CheckpointPolicy,
@@ -49,6 +50,11 @@ from repro_torch.models.common import (
     rms_norm,
     rope_frequencies,
     rope_positions,
+)
+from repro_torch.parallel.tensor import (
+    copy_to_region,
+    vocab_parallel_cross_entropy,
+    vocab_parallel_embed,
 )
 
 
@@ -98,7 +104,13 @@ class Attention(nn.Module):
     d_model); ``d_in`` is d_model unless given (zamba2's shared block reads
     concat(h, emb0), twice as wide). ``forward`` is the self-attention of
     the transformer's layers; other callers hand ``params()`` to
-    ``attention_block`` with their own options."""
+    ``attention_block`` with their own options.
+
+    ``tp_group``: the model axis's process group where the weights are
+    shards of it (set by ``parallel.tensor.apply_tensor_parallel``): ``wq``
+    and ``wo`` hold this rank's heads; ``wk``/``wv`` hold its KV heads, or,
+    where the KV heads do not divide over the group, all of them, and the
+    rank takes the one its query heads share."""
 
     def __init__(self, cfg: ModelConfig, generator, dtype, device,
                  d_in: Optional[int] = None):
@@ -114,33 +126,64 @@ class Attention(nn.Module):
         self.wo = _param(dense_init(generator, (h * hd, d), dtype,
                                     scale=1.0 / (h * hd) ** 0.5), device)
         self.cfg = cfg
+        self.tp_group = None
 
     def params(self) -> Dict[str, torch.Tensor]:
         return {"wq": self.wq, "wk": self.wk, "wv": self.wv, "wo": self.wo}
 
+    def _local_heads(self, params: Dict[str, torch.Tensor]
+                     ) -> Tuple[int, int]:
+        """This rank's (query heads, KV heads) under ``tp_group``; narrows
+        replicated ``wk``/``wv`` in ``params`` to the KV head its query
+        heads share."""
+        cfg, group = self.cfg, self.tp_group
+        hd, tp = cfg.resolved_head_dim, dist.get_world_size(group)
+        heads = cfg.num_heads // tp
+        if cfg.num_kv_heads % tp == 0:
+            return heads, cfg.num_kv_heads // tp
+        per_kv = cfg.num_heads // cfg.num_kv_heads     # query heads a KV head
+        if per_kv % heads:
+            raise NotImplementedError(
+                f"{heads} query heads a rank straddle KV groups of {per_kv}")
+        kv = dist.get_rank(group) * heads // per_kv
+        for name in ("wk", "wv"):
+            # every rank's grads of the replicated weight, summed
+            w = copy_to_region(params[name], group)
+            params[name] = w[:, kv * hd:(kv + 1) * hd]
+        return heads, 1
+
     def forward(self, x: torch.Tensor, kv_cache: Optional[dict],
                 rope=None) -> torch.Tensor:
         cfg = self.cfg
+        params = self.params()
+        heads, kv_heads = cfg.num_heads, cfg.num_kv_heads
+        if self.tp_group is not None:
+            heads, kv_heads = self._local_heads(params)
         return attention_block(
-            self.params(), x,
-            num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
+            params, x, num_heads=heads, num_kv_heads=kv_heads,
             head_dim=cfg.resolved_head_dim, rope_fraction=cfg.rope_fraction,
             rope_theta=cfg.rope_theta, causal=True, kv_cache=kv_cache,
-            rope=rope)
+            rope=rope, group=self.tp_group)
 
 
 class FFN(nn.Module):
-    """A dense FFN's leaves (``init_ffn_params``) as parameters."""
+    """A dense FFN's leaves (``init_ffn_params``) as parameters; under
+    ``tp_group`` (as ``Attention``'s) this rank's columns of the hidden
+    layer. The leaves are read as attributes, as ZeRO-3's gather-on-use
+    (``parallel.zero.gather_on_use``) needs."""
 
     def __init__(self, params: Dict[str, torch.Tensor], activation: str,
                  device):
         super().__init__()
         for name, t in params.items():
             setattr(self, name, _param(t, device))
+        self.leaves = tuple(params)
         self.activation = activation
+        self.tp_group = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return ffn_block(dict(self.named_parameters()), x, self.activation)
+        return ffn_block({n: getattr(self, n) for n in self.leaves}, x,
+                         self.activation, self.tp_group)
 
 
 class MoE(nn.Module):
@@ -156,15 +199,17 @@ class MoE(nn.Module):
         shared = p.pop("shared", None)
         for name, t in p.items():
             setattr(self, name, _param(t, device))
+        self.leaves = tuple(p)
         if shared is not None:
             self.shared = FFN(shared, cfg.activation, device)
         self.cfg = cfg
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         m = self.cfg.moe
-        params = dict(self.named_parameters(recurse=False))
+        params = {n: getattr(self, n) for n in self.leaves}
         if hasattr(self, "shared"):
-            params["shared"] = dict(self.shared.named_parameters())
+            params["shared"] = {n: getattr(self.shared, n)
+                                for n in self.shared.leaves}
         return moe_block(params, x, top_k=m.top_k,
                          capacity_factor=m.capacity_factor,
                          activation=self.cfg.activation,
@@ -219,6 +264,10 @@ class Transformer(nn.Module):
         if not cfg.tie_embeddings:
             self.head = _param(dense_init(
                 generator, (cfg.d_model, cfg.padded_vocab), dtype), device)
+        # The model axis's group where ``embed`` (and ``head``) hold this
+        # rank's block of the vocabulary (parallel.tensor): the loss then
+        # runs on the block's logits, and serving is refused.
+        self.vocab_group = None
 
     @property
     def device(self) -> torch.device:
@@ -252,7 +301,10 @@ class Transformer(nn.Module):
                patches: Optional[torch.Tensor]) -> torch.Tensor:
         """Token embeddings (b, s, d), behind the VLM's patch embeddings
         (b, p, d) when there are any."""
-        x = self.embed[tokens]
+        if self.vocab_group is None:
+            x = self.embed[tokens]
+        else:
+            x = vocab_parallel_embed(self.embed, tokens, self.vocab_group)
         if patches is not None:
             x = torch.cat([patches.to(x.dtype), x], dim=1)
         return x
@@ -302,9 +354,19 @@ class Transformer(nn.Module):
         return x, aux
 
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
+        """Logits over the vocabulary, or over this rank's block of it under
+        ``vocab_group``."""
         x = rms_norm(x, self.ln_f, self.cfg.norm_eps)
         head = self.embed.T if self.cfg.tie_embeddings else self.head
+        if self.vocab_group is not None:
+            x = copy_to_region(x, self.vocab_group)
         return x @ head
+
+    def _serving(self) -> None:
+        if self.vocab_group is not None:
+            raise NotImplementedError(
+                "a vocabulary split over the model axis trains only: "
+                "serving it waits for its slice (ROADMAP Queue 1)")
 
     def forward(self, tokens: torch.Tensor, cache: Optional[dict] = None,
                 patches: Optional[torch.Tensor] = None
@@ -312,6 +374,7 @@ class Transformer(nn.Module):
         """tokens: (b, s) integer; patches: (b, p, d) for the VLM. Returns
         (logits (b, p + s, padded_vocab), cache). The cache is the caller's
         own dict, updated in place."""
+        self._serving()
         x, _ = self._trunk(self._embed(tokens, patches), cache)
         return self._logits(x), cache
 
@@ -325,8 +388,12 @@ class Transformer(nn.Module):
         x, aux = self._trunk(self._embed(batch["tokens"], patches), None,
                              remat)
         n_patch = 0 if patches is None else patches.shape[1]
-        ce = cross_entropy_loss(self._logits(x[:, n_patch:]),
-                                batch["targets"])
+        logits = self._logits(x[:, n_patch:])
+        if self.vocab_group is None:
+            ce = cross_entropy_loss(logits, batch["targets"])
+        else:
+            ce = vocab_parallel_cross_entropy(logits, batch["targets"],
+                                              self.vocab_group)
         if aux is None:
             aux = torch.zeros((), dtype=torch.float32, device=ce.device)
         return ce + aux, {"ce": ce, "aux": aux}
@@ -350,6 +417,7 @@ class Transformer(nn.Module):
         VLM); logits of the last position, (b, 1, padded_vocab). Only that
         position goes through the final norm and the head: the others'
         logits are not needed to serve."""
+        self._serving()
         x, _ = self._trunk(self._embed(tokens, patches), cache)
         return self._logits(x[:, -1:, :]), cache
 

@@ -1,0 +1,106 @@
+"""Megatron-style tensor parallelism on the "model" axis's process group.
+
+The port's own module: in the reference GSPMD partitions the compute from
+the sharding specs; here it is explicit. A column-parallel product (wq/wk/wv,
+the FFN's up and gate) takes its input through ``copy_to_region`` (identity
+forward, all-reduce of the gradient backward) and a row-parallel one (wo,
+the FFN's down) gives its output through ``reduce_from_region`` (all-reduce
+forward, identity backward), so that every rank of the group holds the same
+activations between blocks. The embedding and the logits are split over the
+vocabulary: ``vocab_parallel_embed`` looks up the rank's rows and sums over
+the group; ``vocab_parallel_cross_entropy`` all-reduces the rows' maximum
+and the sum of their exponentials. Every rank computes the same loss from
+the same replicated values, so each backward gives its rank the gradient of
+its own shards.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.distributed as dist
+
+from repro_torch.parallel.mesh import MODEL_AXIS
+
+
+class _CopyToRegion(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.contiguous().clone()
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None
+
+
+class _ReduceFromRegion(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        out = x.contiguous().clone()
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def copy_to_region(x: torch.Tensor, group) -> torch.Tensor:
+    """Identity forward; the gradient summed over ``group`` backward."""
+    return _CopyToRegion.apply(x, group)
+
+
+def reduce_from_region(x: torch.Tensor, group) -> torch.Tensor:
+    """Sum over ``group`` forward; the gradient as it is backward."""
+    return _ReduceFromRegion.apply(x, group)
+
+
+def _vocab_range(local_rows: int, group):
+    lo = dist.get_rank(group) * local_rows
+    return lo, lo + local_rows
+
+
+def vocab_parallel_embed(embed: torch.Tensor, tokens: torch.Tensor,
+                         group) -> torch.Tensor:
+    """This rank's vocabulary rows ``embed`` (V / tp, d), a contiguous block
+    in rank order: each token's row from the rank that holds it."""
+    lo, hi = _vocab_range(embed.shape[0], group)
+    mine = (tokens >= lo) & (tokens < hi)
+    x = embed[torch.where(mine, tokens - lo, 0)]
+    return reduce_from_region(torch.where(mine[..., None], x, 0), group)
+
+
+def vocab_parallel_cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
+                                 group, ignore_id: int = -1) -> torch.Tensor:
+    """``models.common.cross_entropy_loss`` over logits split on the
+    vocabulary: this rank's (..., V / tp), a contiguous block in rank
+    order."""
+    logits = logits.float()
+    lo, hi = _vocab_range(logits.shape[-1], group)
+    top = logits.detach().amax(dim=-1)
+    dist.all_reduce(top, op=dist.ReduceOp.MAX, group=group)
+    sumexp = torch.exp(logits - top[..., None]).sum(dim=-1)
+    logz = torch.log(reduce_from_region(sumexp, group)) + top
+    mine = (targets >= lo) & (targets < hi)
+    picks = torch.where(mine, targets - lo, 0).long()
+    gold = torch.gather(logits, -1, picks[..., None])[..., 0]
+    gold = reduce_from_region(torch.where(mine, gold, 0.0), group)
+    maskf = (targets != ignore_id).float()
+    return ((logz - gold) * maskf).sum() / maskf.sum().clamp(min=1.0)
+
+
+def apply_tensor_parallel(model, placements, group) -> None:
+    """Point a dense ``Transformer`` whose parameters are this rank's pieces
+    under ``placements`` (``parallel.sharding.param_shardings``) at the
+    model axis's ``group``: each attention and FFN whose weights the rules
+    split over the axis runs on its shards, the others stay replicated (the
+    rules' replicate-if-not-divisible), and so does the vocabulary."""
+    def split(name: str):
+        return group if MODEL_AXIS in placements[name].axes() else None
+
+    model.vocab_group = split("embed")
+    for i, layer in enumerate(model.layers):
+        layer.attn.tp_group = split(f"layers.{i}.attn.wq")
+        layer.ffn.tp_group = split(f"layers.{i}.ffn.wu")

@@ -106,11 +106,15 @@ def global_norm(tree: Tree) -> torch.Tensor:
 
 @torch.no_grad()
 def apply_updates(params: Tree, grads: Tree, state: dict, cfg: AdamWConfig,
-                  generator: Optional[torch.Generator] = None
+                  generator: Optional[torch.Generator] = None,
+                  grad_norm: Optional[torch.Tensor] = None
                   ) -> Tuple[Tree, dict, dict]:
     """Returns (params, state, metrics): the caller's own dictionaries,
     updated in place. ``generator`` draws the stochastic rounding of bf16
     parameters without a master copy (the reference's ``rng``).
+    ``grad_norm``: the global norm, where ``grads`` are one rank's pieces
+    of a larger tree (``train_step.sharded_train_step``); else
+    ``global_norm(grads)``.
 
     Weight decay takes the reference's rule on the reference's leaves: a
     leaf of two or more dimensions there. The reference stacks a model's
@@ -118,7 +122,7 @@ def apply_updates(params: Tree, grads: Tree, state: dict, cfg: AdamWConfig,
     port's (the per-layer norm gains are decayed, ``ln_f`` is not)."""
     step = int(state["step"]) + 1
     lr = lr_schedule(cfg, step)
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads) if grad_norm is None else grad_norm
     scale = (torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9), max=1.0)
              if cfg.grad_clip > 0 else None)
     b1c = 1 - cfg.b1 ** step
