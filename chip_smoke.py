@@ -94,6 +94,21 @@ run with a non-zero exit code (nothing drops to the CPU or to a plain version):
            params, m, v, master), which must pass. gpipe is not run here:
            gloo's point-to-point sends refuse CUDA tensors, so it is held
            on the CPU (tests/test_torch_distributed.py)
+  study    COMET's batch evaluator (repro_torch.core: the port of the JAX
+           package's jax_engine) over the paper's transformer-1t study grid:
+           the paper shape (seq 2048, batch 1024), strategies (mp, dp) =
+           (64, 16), (16, 64), (8, 128) and (mp 16, dp 16, pp 4), each over
+           4,096 DGX-A100 environments (peak_flops, local_bw and intra_bw
+           each scaled by 0.5 + 0.25 i, i = 0..15): time_compiled on the card
+           against the same on the CPU, every field of every cell within
+           1e-9 relative (abs 1e-12), two card calls bitwise equal; each
+           strategy's path, wall ms on both, and the split of the card call
+           (comm_matrix, the device call, the breakdowns' assembly), its
+           device ms and launches (torch.profiler) and idle share; then
+           stage_compute_exposed alone at 4,096 and 32,768 environments, and
+           the event walk against the closed form on one full-size stage.
+           It launches none of the hand-written kernels (their counts are
+           read after it: all 0)
 
 The last three lines are the card as nvidia-smi names it, one JSON object
 describing every kernel, and the verdict.
@@ -126,7 +141,15 @@ import torch.nn.functional as F
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-from repro_torch.configs import get_config, get_dlrm_config  # noqa: E402
+from repro_torch.configs import (  # noqa: E402
+    ShapeConfig,
+    get_config,
+    get_dlrm_config,
+)
+from repro_torch.core import torch_engine  # noqa: E402
+from repro_torch.core.cluster import BASELINE_DGX_A100  # noqa: E402
+from repro_torch.core.simulator import time_compiled  # noqa: E402
+from repro_torch.core.workload import decompose  # noqa: E402
 from repro_torch.data import DataConfig, DataIterator, dlrm_batch  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels.embedding_bag import (  # noqa: E402
@@ -272,6 +295,17 @@ ZAMBA_ARCH = "zamba2-2.7b"
 # steps that checkpoint at CKPT_K, then a new Trainer that resumes from the
 # checkpoint and takes CKPT_K more; every leaf must agree bit for bit.
 CKPT_K = 3
+
+# The study grid of the analytic evaluator: the paper's transformer-1t
+# (§V-B) at its training shape, the strategies of the repo's own grid
+# (benchmarks/run.py, _jax_grid_trajectory) and one pipeline strategy, over
+# STUDY_STEPS^3 environments of the paper's DGX-A100 baseline (Table I).
+STUDY_ARCH = "transformer-1t"
+STUDY_SHAPE = ShapeConfig("paper", 2048, 1024, "train")
+STUDY_STRATEGIES = ((64, 16, 1), (16, 64, 1), (8, 128, 1), (16, 16, 4))
+STUDY_STEPS, STUDY_BIG_STEPS = 16, 32          # 4,096 and 32,768 environments
+STUDY_REL, STUDY_ABS = 1e-9, 1e-12
+STUDY_REPS = 3                                 # timed calls, median kept
 
 DEVICE = "cuda"
 
@@ -2722,6 +2756,261 @@ KERNELS = (
 )
 
 
+# ------------------------------------------------------------------------- #
+# The analytic evaluator over the transformer-1t study grid
+# ------------------------------------------------------------------------- #
+
+def _kernel_counts() -> dict:
+    return {"flash_attention": ops.flash_attention.launches,
+            "flash_attention_backward": ops.flash_attention.backward_launches,
+            "rmsnorm": ops.rmsnorm.launches,
+            "rmsnorm_backward": ops.rmsnorm.backward_launches,
+            "ssd_scan": ops.ssd_scan.launches,
+            "embedding_bag": ops.embedding_bag.launches,
+            "embedding_bag_backward": ops.embedding_bag.backward_launches}
+
+
+def _zero_kernel_counts() -> None:
+    for wrapper in (ops.flash_attention, ops.rmsnorm, ops.ssd_scan,
+                    ops.embedding_bag):
+        wrapper.launches = 0
+        if hasattr(wrapper, "backward_launches"):
+            wrapper.backward_launches = 0
+
+
+def _study_envs(steps: int) -> list:
+    """The grid of benchmarks/run.py's _jax_grid_trajectory: the DGX-A100
+    baseline's node and topology with peak_flops, local_bw and intra_bw each
+    scaled by 0.5 + (4 / steps) i, i = 0..steps - 1."""
+    base = BASELINE_DGX_A100
+    step = 4.0 / steps
+
+    def env(i, j, k):
+        node = dataclasses.replace(
+            base.node, peak_flops=base.node.peak_flops * (0.5 + step * i),
+            local_bw=base.node.local_bw * (0.5 + step * j))
+        topo = dataclasses.replace(
+            base.topology, intra_bw=base.topology.intra_bw * (0.5 + step * k))
+        return node, topo
+
+    r = range(steps)
+    return [env(i, j, k) for i in r for j in r for k in r]
+
+
+def _cells(breakdowns) -> np.ndarray:
+    """Every field of every cell as one float64 row: the breakdown, the
+    memory bandwidth, the bubble, feasibility and the footprint report."""
+    return np.array([[b.fp.compute, b.fp.exposed_comm,
+                      b.ig.compute, b.ig.exposed_comm, b.wg.compute,
+                      b.wg.exposed_comm, b.optimizer, b.total, b.mem_bw,
+                      b.bubble_fraction, b.feasible,
+                      b.footprint.model_states,
+                      b.footprint.activation_working, b.footprint.total,
+                      b.footprint.fits_local, b.footprint.fits_total]
+                     for b in breakdowns], dtype=np.float64)
+
+
+def _agreement(got: np.ndarray, want: np.ndarray) -> dict:
+    """Cells outside ``|got - want| <= max(rel |want|, abs)`` and the
+    largest relative difference."""
+    diff = np.abs(got - want)
+    bad = ~(diff <= np.maximum(STUDY_REL * np.abs(want), STUDY_ABS))
+    rel = diff / np.maximum(np.maximum(np.abs(got), np.abs(want)), 1e-300)
+    return {"cells_outside": int(bad.any(axis=1).sum()),
+            "max_rel_diff": float(rel.max())}
+
+
+def _timed_call(fn) -> tuple:
+    """``fn()``'s result and its host-clock ms, and the ms spent inside
+    ``torch_engine.comm_matrix`` and ``torch_engine.stage_compute_exposed``
+    during it (the simulator reaches both through the module, so they are
+    wrapped there for the call)."""
+    spent = {"comm_matrix": 0.0, "stage_compute_exposed": 0.0}
+    originals = {name: getattr(torch_engine, name) for name in spent}
+
+    def clocked(name):
+        def call(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return originals[name](*args, **kwargs)
+            finally:
+                spent[name] += (time.perf_counter() - t0) * 1e3
+        return call
+
+    try:
+        for name in spent:
+            setattr(torch_engine, name, clocked(name))
+        t0 = time.perf_counter()
+        out = fn()
+        wall = (time.perf_counter() - t0) * 1e3
+    finally:
+        for name, f in originals.items():
+            setattr(torch_engine, name, f)
+    return out, wall, spent
+
+
+def _median_call(fn) -> tuple:
+    """``STUDY_REPS`` timed calls of ``fn``: the last result, and the
+    median call's wall ms and split."""
+    runs = [_timed_call(fn) for _ in range(STUDY_REPS)]
+    out = runs[-1][0]
+    runs.sort(key=lambda r: r[1])
+    _, wall, spent = runs[len(runs) // 2]
+    return out, wall, spent
+
+
+def _profiled(fn, units: int = 1) -> dict:
+    """torch.profiler's device time and launches of ``units`` calls of
+    ``fn``, per call."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(units):
+            fn()
+        torch.cuda.synchronize()
+    device_us, launches, by_name = _device_time(prof, units, "call")
+    if not device_us:
+        raise SystemExit("chip_smoke: study: torch.profiler reported no "
+                         "device time")
+    return {"device_ms": device_us / 1e3 / units,
+            "launches": launches / units, "top_device_time": by_name[:6]}
+
+
+def _stage_args(cw, s: int, envs, device) -> tuple:
+    """The arguments time_compiled gives stage ``s``'s
+    stage_compute_exposed (memory bandwidth from the stage's footprint)."""
+    from repro_torch.core.memory import per_node_footprint, stage_footprints
+    from repro_torch.core.simulator import _compiled_mem_bws
+    wl = cw.workload
+    total = (stage_footprints(wl, None, 2)[s].total if wl.pp > 1
+             else per_node_footprint(wl, None, 2).total)
+    nodes = [n for n, _ in envs]
+    return (cw.stages[s], envs, nodes,
+            _compiled_mem_bws(nodes, total, None), wl.mp, wl.dp, wl.pp,
+            wl.ep, None, device)
+
+
+def _walk_against_closed_form(cw, envs) -> dict:
+    """One full-size stage through both stage kernels on the card: the
+    event walk (_stage_fn_scan) against the closed form (_stage_fn_fast)."""
+    stage, envs, nodes, mem_bw, mp, dp, pp, ep, _, _ = _stage_args(
+        cw, 0, envs, DEVICE)
+    T, fast = torch_engine._device_prep(stage, torch.device(DEVICE))
+    f64 = dict(dtype=torch.float64, device=DEVICE)
+    args = (T, torch.tensor([max(int(n.sram_bytes), 1) for n in nodes], **f64),
+            torch.tensor([n.peak_flops for n in nodes], **f64),
+            torch.as_tensor(mem_bw, **f64),
+            torch.as_tensor(torch_engine.comm_matrix(stage, envs, mp, dp, pp,
+                                                     ep, None), **f64))
+    out = {}
+    for name, fn in (("closed_form", torch_engine._stage_fn_fast),
+                     ("walk", torch_engine._stage_fn_scan)):
+        result = [t.cpu().numpy() for t in fn(*args)]
+        t0 = time.perf_counter()
+        fn(*args)[1].cpu()
+        out[name] = {"wall_ms": (time.perf_counter() - t0) * 1e3,
+                     **_profiled(lambda: fn(*args)[1].cpu()),
+                     "result": result}
+    fast_c, fast_e = out["closed_form"].pop("result")
+    walk_c, walk_e = out["walk"].pop("result")
+    agree = _agreement(np.concatenate([walk_c, walk_e]),
+                       np.concatenate([fast_c, fast_e]))
+    events = len(T["fwd"]["comm"]) + len(T["bwd"]["comm"])
+    return {"stage": [cw.workload.mp, cw.workload.dp, 0], "envs": len(envs),
+            "events": events, "eligible_for_closed_form": fast,
+            **out, **agree}
+
+
+def phase_study() -> dict:
+    """COMET's batch evaluator over the transformer-1t study grid (see the
+    module docstring). Returns the hand-written kernels' launches in it."""
+    cfg = get_config(STUDY_ARCH)
+    envs = _study_envs(STUDY_STEPS)
+    problems, rows, card_runs = [], [], {}
+    _zero_kernel_counts()
+    for mp, dp, pp in STUDY_STRATEGIES:
+        cw = decompose(cfg, STUDY_SHAPE, mp=mp, dp=dp, pp=pp).compiled()
+
+        def on(device):
+            return time_compiled(cw, envs, device=device)
+
+        on(DEVICE)                        # the lowering's prep and copies
+        card, card_ms, split = _median_call(lambda: on(DEVICE))
+        again = on(DEVICE)
+        cpu, cpu_ms, cpu_split = _median_call(lambda: on("cpu"))
+        got, want, rep = _cells(card), _cells(cpu), _cells(again)
+        agree = _agreement(got, want)
+        bitwise = bool(np.array_equal(got, rep))
+        finite = bool(np.isfinite(got).all())
+        prof = _profiled(lambda: [torch_engine.stage_compute_exposed(
+            *_stage_args(cw, s, envs, DEVICE)) for s in range(len(cw.stages))])
+        device_call_ms = split["stage_compute_exposed"] - split["comm_matrix"]
+        row = {"strategy": {"mp": mp, "dp": dp, "pp": pp},
+               "stages": len(cw.stages), "cells": len(card),
+               "path": sorted({"closed form" if torch_engine._prep(st)[1]
+                               else "walk" for st in cw.stages}),
+               "card_ms": card_ms, "cpu_ms": cpu_ms,
+               "card_split_ms": {
+                   "comm_matrix": split["comm_matrix"],
+                   "device_call": device_call_ms,
+                   "assembly": card_ms - split["stage_compute_exposed"]},
+               "cpu_split_ms": {
+                   "comm_matrix": cpu_split["comm_matrix"],
+                   "device_call": cpu_split["stage_compute_exposed"]
+                   - cpu_split["comm_matrix"],
+                   "assembly": cpu_ms - cpu_split["stage_compute_exposed"]},
+               "stage_compute_exposed": prof,
+               "device_idle_share": 1.0 - prof["device_ms"] / card_ms,
+               "cuda_vs_cpu": agree, "two_card_calls_bitwise": bitwise,
+               "finite": finite,
+               "total_s": {"min": float(got[:, 7].min()),
+                           "max": float(got[:, 7].max())}}
+        emit("study", **row)
+        rows.append(row)
+        card_runs[(mp, dp, pp)] = cw
+        if agree["cells_outside"] or not bitwise or not finite \
+                or len(card) != len(envs):
+            problems.append({"strategy": [mp, dp, pp], **agree,
+                             "bitwise": bitwise, "finite": finite})
+    launches = _kernel_counts()
+    cw = card_runs[STUDY_STRATEGIES[0]]
+    scaling = []
+    for steps in (STUDY_STEPS, STUDY_BIG_STEPS):
+        grid = _study_envs(steps)
+        for device in (DEVICE, "cpu"):
+            torch_engine.stage_compute_exposed(*_stage_args(cw, 0, grid,
+                                                            device))
+        entry = {"envs": len(grid)}
+        for device in (DEVICE, "cpu"):
+            _, ms, split = _median_call(
+                lambda: torch_engine.stage_compute_exposed(
+                    *_stage_args(cw, 0, grid, device)))
+            entry[device] = {"wall_ms": ms,
+                             "comm_matrix_ms": split["comm_matrix"]}
+        entry[DEVICE].update(_profiled(
+            lambda: torch_engine.stage_compute_exposed(
+                *_stage_args(cw, 0, grid, DEVICE))))
+        scaling.append(entry)
+    walk = _walk_against_closed_form(cw, envs)
+    if walk["cells_outside"]:
+        problems.append({"walk_vs_closed_form": walk["max_rel_diff"]})
+    if any(launches.values()):
+        problems.append({"kernel_launches": launches})
+    emit("study_summary", arch=STUDY_ARCH,
+         shape=dataclasses.asdict(STUDY_SHAPE), envs=len(envs),
+         grid_cells=sum(r["cells"] for r in rows if r["strategy"]["pp"] == 1),
+         pipeline_cells=sum(r["cells"] for r in rows
+                            if r["strategy"]["pp"] > 1),
+         cells_outside=sum(r["cuda_vs_cpu"]["cells_outside"] for r in rows),
+         max_rel_diff=max(r["cuda_vs_cpu"]["max_rel_diff"] for r in rows),
+         tolerance={"rel": STUDY_REL, "abs": STUDY_ABS},
+         stage_compute_exposed_scaling=scaling, walk=walk,
+         kernel_launches=launches, problems=problems)
+    if problems:
+        raise SystemExit(f"chip_smoke: study phase failed: {problems}")
+    return launches
+
+
 def kernels_line(cases: list, launches_by_path: dict, repeats: list) -> dict:
     """One entry per kernel: its launches on the main paths (each path's
     count, read just after that path; 0 where a path never launches it; and
@@ -2866,6 +3155,7 @@ def main() -> int:
     phase_checkpoint()
     launches["parallel"] = phase_parallel()
     phase_parallel_gloo()
+    launches["study"] = phase_study()
     line = kernels_line(cases, launches, repeats)
     for entry in line["kernels"]:
         if entry["launches"] <= 0:

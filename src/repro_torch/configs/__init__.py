@@ -6,7 +6,9 @@
 Registered: every assigned architecture of the JAX package: the dense
 family, the MoE family (granite-moe, llama4-maverick), the VLM backbone
 (internvl2), mamba2 (``ssm``), zamba2 (``hybrid``) and seamless-m4t
-(``encdec``). The DLRM has a config of its own:
+(``encdec``); and the paper's case-study model transformer-1t, which feeds
+the analytic evaluator (``repro_torch.core``) and is not one of the
+assigned architectures. The DLRM has a config of its own:
 ``get_dlrm_config()``.
 """
 
@@ -16,10 +18,12 @@ import importlib
 from typing import Dict, List
 
 from repro_torch.configs.base import (  # noqa: F401  (re-exported)
+    SHAPES,
     EncDecConfig,
     HybridConfig,
     ModelConfig,
     MoEConfig,
+    ShapeConfig,
     SSMConfig,
     VisionStubConfig,
     pad_vocab,
@@ -37,7 +41,11 @@ _ARCH_MODULES: Dict[str, str] = {
     "internvl2-76b": "internvl2_76b",
     "zamba2-2.7b": "zamba2_2p7b",
     "seamless-m4t-large-v2": "seamless_m4t_large_v2",
+    # the paper's case-study model (analytic path; not an assigned arch)
+    "transformer-1t": "transformer_1t",
 }
+
+ASSIGNED_ARCHS: List[str] = [a for a in _ARCH_MODULES if a != "transformer-1t"]
 
 
 def list_configs() -> List[str]:

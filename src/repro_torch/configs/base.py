@@ -1,4 +1,4 @@
-"""Config dataclasses for model architectures.
+"""Config dataclasses for model architectures and input shapes.
 
 The PyTorch package's own copy of the JAX package's ``ModelConfig`` and its
 sub-configs: same fields, same defaults, same ``reduced()`` rule, so a config
@@ -82,6 +82,33 @@ class HybridConfig:
 
     attn_every: int = 6            # shared attention block applied every k layers
     attn_concat_embedding: bool = True  # block input = concat(h, initial_emb)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    """One input-shape cell: (seq_len, global_batch, kind).
+
+    ``num_microbatches`` is the pipeline-parallel microbatch count used
+    when a strategy has pp > 1 (0 = auto: the decomposition defaults to
+    4 * pp, capped at the per-replica batch)."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                      # "train" | "prefill" | "decode"
+    num_microbatches: int = 0
+
+    @property
+    def tokens(self) -> int:
+        return self.seq_len * self.global_batch
+
+
+SHAPES: dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
+}
 
 
 @dataclasses.dataclass(frozen=True)

@@ -27,16 +27,23 @@ port's train state ``{"model", "params", "opt"}`` to the reference's
 ``{"params", "opt": {"m", "v", "step"[, "master"]}}`` and back; the
 checkpointer saves that tree, so a checkpoint is the same files whichever
 package wrote it.
+
+``from_jax_stage`` and ``from_jax_env`` carry the analytic evaluator's
+inputs (a lowered ``CompiledStage``; a ``(NodeConfig, topology)``
+environment) over to the port's classes, field for field, so that the
+port's engine can be held alone to the reference's on identical inputs.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import cluster, compiled, topology
 from repro_torch.models.transformer import is_moe_layer
 
 _TRANSFORMER_FAMILIES = ("dense", "moe", "vlm")
@@ -290,3 +297,37 @@ def cache_to_numpy(cache: Mapping[str, torch.Tensor]) -> Dict[str, np.ndarray]:
         t = t.detach().cpu()
         out[name] = (t.float() if t.dtype == torch.bfloat16 else t).numpy().copy()
     return out
+
+
+def _fields(obj) -> dict:
+    return {f.name: getattr(obj, f.name) for f in dataclasses.fields(obj)}
+
+
+def _copy_field(value):
+    return np.array(value, copy=True) if isinstance(value, np.ndarray) \
+        else value
+
+
+def from_jax_stage(stage) -> compiled.CompiledStage:
+    """A reference ``CompiledStage`` as the port's: every array copied with
+    its dtype, the two passes as the port's ``CompiledPass``."""
+    kw = {name: _copy_field(v) for name, v in _fields(stage).items()}
+    for name in ("fwd", "bwd"):
+        kw[name] = compiled.CompiledPass(
+            **{k: _copy_field(v) for k, v in _fields(kw[name]).items()})
+    return compiled.CompiledStage(**kw)
+
+
+_TOPOLOGIES = {cls.__name__: cls for cls in (
+    topology.HierarchicalSwitch, topology.Torus, topology.SingleSwitch)}
+
+
+def from_jax_env(env) -> tuple:
+    """A reference ``(NodeConfig, topology)`` as the port's. A topology of
+    the three families becomes the port's class of the same name with the
+    same fields; any other object implementing the protocol is its own
+    counterpart and is passed through."""
+    node, topo = env
+    cls = _TOPOLOGIES.get(type(topo).__name__)
+    return (cluster.NodeConfig(**_fields(node)),
+            cls(**_fields(topo)) if cls is not None else topo)
