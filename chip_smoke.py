@@ -109,6 +109,24 @@ run with a non-zero exit code (nothing drops to the CPU or to a plain version):
            the event walk against the closed form on one full-size stage.
            It launches none of the hand-written kernels (their counts are
            read after it: all 0)
+  run_study
+           COMET's study runner (repro_torch.core.study.run_study) over the
+           paper's case studies at their defaults: figure_studies() (fig8 to
+           fig13b), both cluster_comparison_studies (transformer-1t at seq
+           2048, batch 1024 over the Table III clusters; the DLRM at batch
+           4096), pp_ep_study, placement_study, multi_tenant_study and
+           hetero_cost_study. Each spec on the card against the same on the
+           CPU (same keys and types, the same non-float values, every float
+           within 1e-9 relative), two card runs equal, cells and feasible
+           cells, wall ms on both (median of 3), device ms, launches and idle
+           share of one profiled run; placement_study's cells on the
+           assigned pipeline. Then the study phase's grid through the runner:
+           12,288 cells (three scale axes of 16 values over the DGX-A100
+           baseline x (64, 16), (16, 64), (8, 128)), every cell's breakdown
+           equal to time_compiled's for its environment, the wall split into
+           the cells' enumeration (_cells), the prefetch (time_compiled) and
+           the record assembly (_eval_cell) on the card and on the CPU.
+           Hand-written kernels: 0 launches
 
 The last three lines are the card as nvidia-smi names it, one JSON object
 describing every kernel, and the verdict.
@@ -146,9 +164,16 @@ from repro_torch.configs import (  # noqa: E402
     get_config,
     get_dlrm_config,
 )
-from repro_torch.core import torch_engine  # noqa: E402
+from repro_torch.core import dse, study, torch_engine  # noqa: E402
 from repro_torch.core.cluster import BASELINE_DGX_A100  # noqa: E402
 from repro_torch.core.simulator import time_compiled  # noqa: E402
+from repro_torch.core.study import (  # noqa: E402
+    Axis,
+    ExplicitSpace,
+    ParallelSpec,
+    StudySpec,
+    run_study,
+)
 from repro_torch.core.workload import decompose  # noqa: E402
 from repro_torch.data import DataConfig, DataIterator, dlrm_batch  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
@@ -306,6 +331,7 @@ STUDY_STRATEGIES = ((64, 16, 1), (16, 64, 1), (8, 128, 1), (16, 16, 4))
 STUDY_STEPS, STUDY_BIG_STEPS = 16, 32          # 4,096 and 32,768 environments
 STUDY_REL, STUDY_ABS = 1e-9, 1e-12
 STUDY_REPS = 3                                 # timed calls, median kept
+DLRM_STUDY_BATCH = 4096                        # fig15's DLRM global batch
 
 DEVICE = "cuda"
 
@@ -3011,6 +3037,249 @@ def phase_study() -> dict:
     return launches
 
 
+# ------------------------------------------------------------------------- #
+# COMET's study runner over the paper's case studies
+# ------------------------------------------------------------------------- #
+
+def _default_studies() -> list:
+    """(label, spec) of the paper's case studies at their defaults."""
+    cfg, dlrm = get_config(STUDY_ARCH), get_dlrm_config()
+    specs = list(dse.figure_studies().items())
+    t_spec, d_spec = dse.cluster_comparison_studies(cfg, STUDY_SHAPE, dlrm,
+                                                    DLRM_STUDY_BATCH)
+    return specs + [("fig15_transformer", t_spec), ("fig15_dlrm", d_spec),
+                    ("pp_ep", dse.pp_ep_study()),
+                    ("placement", dse.placement_study()),
+                    ("multi_tenant", dse.multi_tenant_study()),
+                    ("hetero_cost", dse.hetero_cost_study(cfg, STUDY_SHAPE))]
+
+
+def _records_problems(got, want) -> dict:
+    """``got``'s records against ``want``'s: keys in order, types, non-float
+    values exactly, floats within ``STUDY_REL`` relative (``STUDY_ABS``;
+    inf and nan by their text)."""
+    bad, worst = [], 0.0
+    if len(got) != len(want):
+        return {"bad": [["cells", len(got), len(want)]], "n_bad": 1,
+                "max_rel_diff": None}
+    for i, (a, b) in enumerate(zip(got.records, want.records)):
+        if list(a) != list(b):
+            bad.append([i, "keys"])
+            continue
+        for k, vb in b.items():
+            va = a[k]
+            if type(va) is not type(vb):
+                bad.append([i, k, "type"])
+            elif isinstance(vb, float) and math.isfinite(vb):
+                diff = abs(va - vb)
+                worst = max(worst, diff / max(abs(va), abs(vb), 1e-300))
+                if not diff <= max(STUDY_REL * abs(vb), STUDY_ABS):
+                    bad.append([i, k, va, vb])
+            elif isinstance(vb, float):
+                if str(va) != str(vb):
+                    bad.append([i, k, va, vb])
+            elif va != vb:
+                bad.append([i, k, repr(va), repr(vb)])
+    return {"bad": bad[:8], "n_bad": len(bad), "max_rel_diff": worst}
+
+
+def _records_text(res) -> str:
+    """The records as exact text (floats by repr, nan and inf included)."""
+    return json.dumps(res.records, default=str)
+
+
+def _timed_runs(spec, device) -> tuple:
+    """``STUDY_REPS`` runs of ``spec`` on ``device``: every result and the
+    median run's wall ms."""
+    results, walls = [], []
+    for _ in range(STUDY_REPS):
+        t0 = time.perf_counter()
+        results.append(run_study(spec, device=device))
+        if device != "cpu":
+            torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return results, sorted(walls)[len(walls) // 2]
+
+
+def _assigned_cells(spec) -> int:
+    """The cells of one run that took the placement-assigned pipeline."""
+    hits = []
+    real = study.compiled_stage_assignment
+
+    def counted(*args, **kwargs):
+        out = real(*args, **kwargs)
+        hits.append(out is not None)
+        return out
+
+    study.compiled_stage_assignment = counted
+    try:
+        run_study(spec, device=DEVICE)
+    finally:
+        study.compiled_stage_assignment = real
+    return sum(hits)
+
+
+def _case_study_row(label: str, spec) -> tuple:
+    run_study(spec, device=DEVICE)            # CUDA's and the profiler's set-up
+    cards, card_ms = _timed_runs(spec, DEVICE)
+    cpus, cpu_ms = _timed_runs(spec, "cpu")
+    card = cards[-1]
+    agree = _records_problems(card, cpus[-1])
+    equal_runs = _records_text(cards[0]) == _records_text(card)
+    prof = _profiled(lambda: run_study(spec, device=DEVICE))
+    cells = len(study._cells(spec))
+    bad_totals = [r.get("strategy") for r in card.records
+                  if "infeasible_reason" not in r
+                  and not math.isfinite(r["total"])]
+    row = {"study": label, "name": spec.name, "cells": len(card),
+           "cells_enumerated": cells,
+           "feasible_cells": sum(bool(r["feasible"]) for r in card.records),
+           "card_ms": card_ms, "cpu_ms": cpu_ms,
+           "device_ms": prof["device_ms"], "launches": prof["launches"],
+           "device_idle_share": 1.0 - prof["device_ms"] / card_ms,
+           "top_device_time": prof["top_device_time"][:3],
+           "card_vs_cpu": agree, "two_card_runs_equal": equal_runs,
+           "non_finite_totals": bad_totals}
+    if label == "placement":
+        row["assigned_pipeline_cells"] = _assigned_cells(spec)
+    problems = []
+    if agree["n_bad"]:
+        problems.append({"card_vs_cpu": agree})
+    if not equal_runs:
+        problems.append("two card runs differ")
+    if len(card) != cells or any(c is None for c in card.cells):
+        problems.append({"missing_cells": [len(card), cells]})
+    if bad_totals:
+        problems.append({"non_finite_totals": bad_totals[:8]})
+    return row, problems
+
+
+def _grid_spec() -> StudySpec:
+    """The study phase's 12,288 cells through the runner: three scale axes
+    of ``STUDY_STEPS`` values over the DGX-A100 baseline x the three flat
+    strategies."""
+    values = tuple(0.5 + (4.0 / STUDY_STEPS) * i for i in range(STUDY_STEPS))
+    return StudySpec(
+        name="transformer-1t-grid", model=get_config(STUDY_ARCH),
+        shape=STUDY_SHAPE, cluster=BASELINE_DGX_A100,
+        strategies=ExplicitSpace(tuple(
+            ParallelSpec(mp=mp, dp=dp)
+            for mp, dp, pp in STUDY_STRATEGIES if pp == 1)),
+        axes=[Axis("flops_x", values, path="node.peak_flops", mode="scale"),
+              Axis("local_bw_x", values, path="node.local_bw", mode="scale"),
+              Axis("intra_bw_x", values, path="topology.intra_bw",
+                   mode="scale")])
+
+
+def _split_run(spec, device) -> tuple:
+    """One run of ``spec`` with its wall ms split: the cells' enumeration
+    (``_cells``: each cell's cluster through the axes), the prefetch
+    (``time_compiled``), the record assembly (``_eval_cell``), the rest
+    (lowering, the prefetch's plan)."""
+    spent = {"enumeration": 0.0, "prefetch": 0.0, "assembly": 0.0}
+    originals = {"_cells": study._cells, "time_compiled": study.time_compiled,
+                 "_eval_cell": study._eval_cell}
+
+    def clocked(name, fn):
+        def call(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                spent[name] += (time.perf_counter() - t0) * 1e3
+        return call
+
+    study._cells = clocked("enumeration", originals["_cells"])
+    study.time_compiled = clocked("prefetch", originals["time_compiled"])
+    study._eval_cell = clocked("assembly", originals["_eval_cell"])
+    try:
+        t0 = time.perf_counter()
+        res = run_study(spec, device=device)
+        wall = (time.perf_counter() - t0) * 1e3
+    finally:
+        for name, fn in originals.items():
+            setattr(study, name, fn)
+    return res, {"wall_ms": wall, **{f"{k}_ms": v for k, v in spent.items()},
+                 "other_ms": wall - sum(spent.values())}
+
+
+def _median_split(spec, device) -> tuple:
+    runs = [_split_run(spec, device) for _ in range(STUDY_REPS)]
+    results = [r for r, _ in runs]
+    splits = sorted((s for _, s in runs), key=lambda s: s["wall_ms"])
+    return results, splits[len(splits) // 2]
+
+
+def _grid_against_time_compiled(res) -> dict:
+    """Every cell's breakdown against ``time_compiled``'s for the cell's
+    environment, one call per strategy over its cells' environments."""
+    by_strategy: dict = {}
+    for cell in res.cells:
+        by_strategy.setdefault(cell.strategy, []).append(cell)
+    cfg, rows = get_config(STUDY_ARCH), {}
+    for strategy, cells in by_strategy.items():
+        cw = decompose(cfg, STUDY_SHAPE, mp=strategy.mp,
+                       dp=strategy.dp).compiled()
+        want = time_compiled(cw, [(c.cluster.node, c.cluster.topology)
+                                  for c in cells], device=DEVICE)
+        got_arr = _cells([c.breakdown for c in cells])
+        want_arr = _cells(want)
+        rows[strategy.label] = {
+            "cells": len(cells), **_agreement(got_arr, want_arr),
+            "bitwise": bool(np.array_equal(got_arr, want_arr))}
+    return rows
+
+
+def phase_run_study() -> dict:
+    """COMET's study runner over the paper's case studies and the study
+    phase's grid (see the module docstring). Returns the hand-written
+    kernels' launches in it."""
+    t_phase = time.perf_counter()
+    problems, rows = [], []
+    _zero_kernel_counts()
+    for label, spec in _default_studies():
+        row, bad = _case_study_row(label, spec)
+        emit("run_study", **row)
+        rows.append(row)
+        problems += [{label: b} for b in bad]
+    spec = _grid_spec()
+    _split_run(spec, DEVICE)                   # first run's set-up
+    cards, card_split = _median_split(spec, DEVICE)
+    cpus, cpu_split = _median_split(spec, "cpu")
+    card = cards[-1]
+    agree = _records_problems(card, cpus[-1])
+    equal_runs = _records_text(cards[0]) == _records_text(card)
+    against = _grid_against_time_compiled(card)
+    expected = STUDY_STEPS ** 3 * len(spec.strategies.strategies)
+    finite = all(math.isfinite(r["total"]) for r in card.records)
+    launches = _kernel_counts()
+    emit("run_study_grid", name=spec.name, cells=len(card),
+         expected_cells=expected, card=card_split, cpu=cpu_split,
+         card_vs_cpu=agree, two_card_runs_equal=equal_runs,
+         against_time_compiled=against, finite=finite)
+    if agree["n_bad"]:
+        problems.append({"grid_card_vs_cpu": agree})
+    if not equal_runs:
+        problems.append("grid: two card runs differ")
+    if len(card) != expected or not finite:
+        problems.append({"grid_cells": len(card), "finite": finite})
+    for label, r in against.items():
+        if r["cells_outside"]:
+            problems.append({"grid_vs_time_compiled": {label: r}})
+    if any(launches.values()):
+        problems.append({"kernel_launches": launches})
+    emit("run_study_summary", studies=len(rows),
+         cells=sum(r["cells"] for r in rows) + len(card),
+         max_rel_diff=max([r["card_vs_cpu"]["max_rel_diff"] or 0.0
+                           for r in rows] + [agree["max_rel_diff"] or 0.0]),
+         tolerance={"rel": STUDY_REL, "abs": STUDY_ABS},
+         kernel_launches=launches, problems=problems,
+         seconds=time.perf_counter() - t_phase)
+    if problems:
+        raise SystemExit(f"chip_smoke: run_study phase failed: {problems}")
+    return launches
+
+
 def kernels_line(cases: list, launches_by_path: dict, repeats: list) -> dict:
     """One entry per kernel: its launches on the main paths (each path's
     count, read just after that path; 0 where a path never launches it; and
@@ -3156,6 +3425,7 @@ def main() -> int:
     launches["parallel"] = phase_parallel()
     phase_parallel_gloo()
     launches["study"] = phase_study()
+    launches["run_study"] = phase_run_study()
     line = kernels_line(cases, launches, repeats)
     for entry in line["kernels"]:
         if entry["launches"] <= 0:

@@ -28,10 +28,12 @@ port's train state ``{"model", "params", "opt"}`` to the reference's
 checkpointer saves that tree, so a checkpoint is the same files whichever
 package wrote it.
 
-``from_jax_stage`` and ``from_jax_env`` carry the analytic evaluator's
-inputs (a lowered ``CompiledStage``; a ``(NodeConfig, topology)``
-environment) over to the port's classes, field for field, so that the
-port's engine can be held alone to the reference's on identical inputs.
+``from_jax_stage``, ``from_jax_env``, ``from_jax_cluster`` and
+``from_jax_placement`` carry the analytic evaluator's inputs (a lowered
+``CompiledStage``; a ``(NodeConfig, topology)`` environment; a
+``ClusterConfig``, ``ClusterSpec`` or ``PodSpec``; a placement) over to the
+port's classes, field for field, so that the port's engine and study runner
+can be held to the reference's on identical inputs.
 """
 
 from __future__ import annotations
@@ -43,7 +45,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core import cluster, compiled, topology
+from repro_torch.core import cluster, compiled, placement, topology
 from repro_torch.models.transformer import is_moe_layer
 
 _TRANSFORMER_FAMILIES = ("dense", "moe", "vlm")
@@ -322,12 +324,51 @@ _TOPOLOGIES = {cls.__name__: cls for cls in (
     topology.HierarchicalSwitch, topology.Torus, topology.SingleSwitch)}
 
 
-def from_jax_env(env) -> tuple:
-    """A reference ``(NodeConfig, topology)`` as the port's. A topology of
-    the three families becomes the port's class of the same name with the
-    same fields; any other object implementing the protocol is its own
-    counterpart and is passed through."""
-    node, topo = env
+def _from_jax_topology(topo):
+    """A topology of the three families becomes the port's class of the
+    same name with the same fields; any other object implementing the
+    protocol (or None) is its own counterpart and is passed through."""
     cls = _TOPOLOGIES.get(type(topo).__name__)
-    return (cluster.NodeConfig(**_fields(node)),
-            cls(**_fields(topo)) if cls is not None else topo)
+    return cls(**_fields(topo)) if cls is not None else topo
+
+
+def from_jax_env(env) -> tuple:
+    """A reference ``(NodeConfig, topology)`` as the port's."""
+    node, topo = env
+    return cluster.NodeConfig(**_fields(node)), _from_jax_topology(topo)
+
+
+def from_jax_cluster(obj):
+    """A reference ``ClusterConfig``, ``ClusterSpec`` or ``PodSpec`` as the
+    port's class of the same name, with its node, topologies, pods and cost
+    model carried over field for field."""
+    kind = type(obj).__name__
+    kw = _fields(obj)
+    if kind == "PodSpec":
+        kw["node"] = cluster.NodeConfig(**_fields(obj.node))
+        kw["fabric"] = _from_jax_topology(obj.fabric)
+        return cluster.PodSpec(**kw)
+    if obj.cost is not None:
+        kw["cost"] = cluster.CostModel(**_fields(obj.cost))
+    if kind == "ClusterConfig":
+        kw["node"] = cluster.NodeConfig(**_fields(obj.node))
+        kw["topology"] = _from_jax_topology(obj.topology)
+        return cluster.ClusterConfig(**kw)
+    if kind == "ClusterSpec":
+        kw["pods"] = tuple(from_jax_cluster(p) for p in obj.pods)
+        kw["interconnect"] = _from_jax_topology(obj.interconnect)
+        return cluster.ClusterSpec(**kw)
+    raise TypeError(f"not a reference cluster: {kind}")
+
+
+_PLACEMENTS = {cls.__name__: cls for cls in (
+    placement.PaperPlacement, placement.EMAwarePlacement,
+    placement.ExplicitPlacement)}
+
+
+def from_jax_placement(pl):
+    """A reference placement as the port's class of the same name (None
+    stays None)."""
+    if pl is None:
+        return None
+    return _PLACEMENTS[type(pl).__name__](**_fields(pl))

@@ -1,11 +1,62 @@
-"""COMET's analytic evaluator in the PyTorch package.
+"""COMET's analytic evaluator and study runner in the PyTorch package.
 
 The port's copies of the JAX package's jax-free analytic modules
 (``topology``, ``collectives``, ``gemm``, ``workload``, ``compiled``,
-``memory``, the evaluator's part of ``cluster``), held equal to the
-reference by ``tests/test_torch_core.py``, and the port of its batch
-evaluator: ``torch_engine`` (the JAX package's ``jax_engine``) under the
-compiled half of ``simulator``. ``simulator.time_compiled`` runs on the GPU
-unless the caller asks for ``device="cpu"``. ``study.run_study`` is not
-ported yet and says so.
+``memory``, ``cluster``, ``placement``), held equal to the reference by
+``tests/test_torch_core.py`` and ``tests/test_torch_placement.py``; the port
+of its batch evaluator, ``torch_engine`` (the JAX package's ``jax_engine``)
+under the compiled half of ``simulator``; and its study runner
+(``study.run_study``) with the paper's case studies (``dse``), held record
+for record by ``tests/test_torch_study.py``. ``simulator.time_compiled`` and
+``study.run_study`` run on the GPU unless the caller asks for
+``device="cpu"``.
 """
+
+from repro_torch.core.cluster import (  # noqa: F401
+    ClusterConfig,
+    ClusterSpec,
+    CostModel,
+    NodeConfig,
+    PodSpec,
+    get_cluster,
+    list_clusters,
+)
+from repro_torch.core.topology import (  # noqa: F401
+    HierarchicalSwitch,
+    SingleSwitch,
+    Topology,
+    Torus,
+)
+from repro_torch.core.placement import (  # noqa: F401
+    EMAwarePlacement,
+    ExplicitPlacement,
+    JobSpec,
+    PaperPlacement,
+    Placement,
+    Schedule,
+    ScheduleModel,
+    get_placement,
+    list_placements,
+)
+from repro_torch.core.simulator import (  # noqa: F401
+    IterationBreakdown,
+    group_breakdowns_compiled,
+    simulate_iteration_compiled,
+    time_compiled,
+)
+from repro_torch.core.study import (  # noqa: F401
+    Axis,
+    ExplicitSpace,
+    FactorizationSpace,
+    GridSpace,
+    ParallelSpec,
+    PowerOfTwoSpace,
+    StrategySpace,
+    StudyResult,
+    StudySpec,
+    get_by_path,
+    placement_axis,
+    run_study,
+    set_by_path,
+)
+from repro_torch.core.workload import Workload, decompose, decompose_dlrm  # noqa: F401

@@ -1,0 +1,441 @@
+"""COMET §V case studies as the port's :mod:`repro_torch.core.study` specs.
+
+The port of the JAX package's ``core/dse.py`` builders, held to them record
+for record by ``tests/test_torch_study.py``: each paper figure is a
+``<fig>_study(...) -> StudySpec`` (axes x strategies over one runner), run
+through :func:`repro_torch.core.study.run_study`. The beyond-paper studies
+over mixed fleets (``hetero_cost_study``, ``placement_study``,
+``multi_tenant_study``) and the four-axis ``pp_ep_study`` come along. The
+reference's ``*_sweep`` / ``*_heatmap`` / ``*_ranking`` wrappers and its
+serving, fleet and reliability studies are not ported.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional, Sequence
+
+from repro_torch.configs.base import ModelConfig, ShapeConfig
+from repro_torch.core.cluster import (
+    ClusterConfig,
+    ClusterLike,
+    ClusterSpec,
+    HierarchicalSwitch,
+    NodeConfig,
+    PodSpec,
+    TABLE_III_CLUSTERS,
+)
+from repro_torch.core.placement import JobSpec
+from repro_torch.core.study import (
+    Axis,
+    GridSpace,
+    ParallelSpec,
+    PowerOfTwoSpace,
+    StudySpec,
+    as_strategy_space,
+    placement_axis,
+)
+from repro_torch.core.workload import decompose_dlrm
+
+GB = 1e9
+
+
+def _expand_axis(values_gbs: Sequence[float]) -> Axis:
+    """EM-bandwidth axis: infinite expanded capacity at the swept bandwidth
+    (capacity is sized to whatever the strategy needs — paper Fig. 9)."""
+    return Axis("bw_em_gbs", tuple(values_gbs),
+                apply=lambda cl, bw: cl.with_node(
+                    cl.node.with_expansion(cap=1e15, bw=bw * GB)))
+
+# --------------------------------------------------------------------- #
+# §V-B1 / Fig. 8: MP-DP sweep at fixed memory bandwidth
+# --------------------------------------------------------------------- #
+
+def mpdp_study(cfg: ModelConfig, shape: ShapeConfig, cluster: ClusterConfig,
+               assume_infinite_capacity: bool = True,
+               min_mp: int = 1) -> StudySpec:
+    return StudySpec(
+        name="fig8-mpdp-sweep", model=cfg, shape=shape, cluster=cluster,
+        strategies=PowerOfTwoSpace(min_mp=min_mp),
+        mem_bw_override="local" if assume_infinite_capacity else None)
+
+# --------------------------------------------------------------------- #
+# §V-B2 / Fig. 9: expanded-memory bandwidth heatmap
+# --------------------------------------------------------------------- #
+
+def memory_expansion_study(
+    cfg: ModelConfig, shape: ShapeConfig, cluster: ClusterConfig,
+    em_bandwidths_gbs: Sequence[float] = (100, 250, 500, 750, 1000, 1500, 2000),
+    strategies: Optional[Sequence] = None,
+) -> StudySpec:
+    return StudySpec(
+        name="fig9-memory-expansion", model=cfg, shape=shape, cluster=cluster,
+        strategies=as_strategy_space(strategies) or PowerOfTwoSpace(),
+        axes=[_expand_axis(em_bandwidths_gbs)])
+
+# --------------------------------------------------------------------- #
+# §V-B3 / Fig. 10: per-node compute-capability scaling
+# --------------------------------------------------------------------- #
+
+def compute_scaling_study(
+    cfg: ModelConfig, shape: ShapeConfig, cluster: ClusterConfig,
+    mp: int, dp: int,
+    compute_factors: Sequence[float] = (0.5, 1.0, 2.0, 4.0, 8.0),
+    em_bandwidths_gbs: Sequence[float] = (500, 1000, 2000),
+) -> StudySpec:
+    return StudySpec(
+        name="fig10-compute-scaling", model=cfg, shape=shape, cluster=cluster,
+        strategies=ParallelSpec(mp=mp, dp=dp),
+        axes=[Axis("compute_x", tuple(compute_factors),
+                   path="node.peak_flops", mode="scale"),
+              _expand_axis(em_bandwidths_gbs)])
+
+# --------------------------------------------------------------------- #
+# §V-B4 / Fig. 11: intra-/inter-pod bandwidth scaling
+# --------------------------------------------------------------------- #
+
+def network_scaling_study(
+    cfg: ModelConfig, shape: ShapeConfig, cluster: ClusterConfig,
+    mp: int, dp: int,
+    intra_factors: Sequence[float] = (0.5, 1.0, 2.0, 4.0),
+    inter_factors: Sequence[float] = (0.5, 1.0, 2.0, 4.0),
+) -> StudySpec:
+    assert isinstance(cluster.topology, HierarchicalSwitch)
+    return StudySpec(
+        name="fig11-network-scaling", model=cfg, shape=shape, cluster=cluster,
+        strategies=ParallelSpec(mp=mp, dp=dp), mem_bw_override="local",
+        axes=[Axis("intra_x", tuple(intra_factors),
+                   path="topology.intra_bw", mode="scale"),
+              Axis("inter_x", tuple(inter_factors),
+                   path="topology.inter_bw", mode="scale")])
+
+# --------------------------------------------------------------------- #
+# §V-B4 / Fig. 12: fixed-aggregate bandwidth re-balancing
+# --------------------------------------------------------------------- #
+
+def bandwidth_rebalance_study(
+    cfg: ModelConfig, shape: ShapeConfig, cluster: ClusterConfig,
+    mp: int, dp: int,
+    ratios: Sequence[float] = (1, 2, 3, 4, 5, 6, 7, 8, 9.6, 12, 16),
+) -> StudySpec:
+    assert isinstance(cluster.topology, HierarchicalSwitch)
+    agg = cluster.topology.intra_bw + cluster.topology.inter_bw
+
+    def rebalance(cl: ClusterConfig, r: float) -> ClusterConfig:
+        inter = agg / (1 + r)
+        return cl.with_topology(dataclasses.replace(
+            cl.topology, intra_bw=agg - inter, inter_bw=inter))
+
+    return StudySpec(
+        name="fig12-bandwidth-rebalance", model=cfg, shape=shape,
+        cluster=cluster, strategies=ParallelSpec(mp=mp, dp=dp),
+        mem_bw_override="local",
+        axes=[Axis("ratio", tuple(ratios), apply=rebalance)])
+
+# --------------------------------------------------------------------- #
+# §V-C / Fig. 13: DLRM cluster-size sweep + memory-expansion study
+# --------------------------------------------------------------------- #
+
+def dlrm_cluster_size_study(dlrm_cfg, cluster: ClusterConfig,
+                            global_batch: int = 4096,
+                            node_counts: Sequence[int] = (64, 32, 16, 8),
+                            ) -> StudySpec:
+    from repro_torch.core.memory import per_node_footprint
+    base = cluster
+    return StudySpec(
+        name="fig13a-dlrm-cluster-size", cluster=cluster,
+        axes=[Axis("nodes", tuple(node_counts),
+                   apply=lambda cl, n: dataclasses.replace(cl, num_nodes=n)
+                   .with_node(base.node.with_expansion(
+                       cap=1e15, bw=base.node.local_bw)))],
+        workload=lambda ctx: decompose_dlrm(dlrm_cfg, global_batch,
+                                            ctx.point["nodes"]),
+        workload_deps=("nodes",),
+        metrics={"footprint_gb":
+                 lambda ctx: per_node_footprint(ctx.workload,
+                                                base.node).total / GB})
+
+
+def dlrm_memory_expansion_study(
+    dlrm_cfg, cluster: ClusterConfig, global_batch: int = 4096,
+    total_nodes: int = 64, num_instances: int = 8,
+    em_bandwidths_gbs: Sequence[float] = (250, 500, 800, 1000, 1500, 2000),
+    nodes_per_instance_opts: Sequence[int] = (64, 32, 16, 8),
+) -> StudySpec:
+    """N concurrent DLRM instances on a ``total_nodes`` fleet: the waves /
+    turnaround bookkeeping is the study-native :class:`JobSpec` layer (the
+    engine schedules instances over the fleet's node groups and writes the
+    ``turnaround``/``waves`` columns the legacy lambdas used to compute)."""
+    fleet = dataclasses.replace(cluster, num_nodes=total_nodes)
+    return StudySpec(
+        name="fig13b-dlrm-memory-expansion", cluster=fleet,
+        axes=[Axis("nodes_per_inst", tuple(nodes_per_instance_opts)),
+              _expand_axis(em_bandwidths_gbs)],
+        workload=lambda ctx: decompose_dlrm(dlrm_cfg, global_batch,
+                                            ctx.point["nodes_per_inst"]),
+        workload_deps=("nodes_per_inst",),
+        job=lambda ctx: JobSpec(
+            instances=num_instances,
+            nodes_per_instance=ctx.point["nodes_per_inst"]))
+
+# --------------------------------------------------------------------- #
+# Beyond Fig. 13: heterogeneous pod mix ranked by perf-per-dollar
+# --------------------------------------------------------------------- #
+
+def _em_pod_mix(plain: str = "B0", expanded: str = "B1"):
+    """``apply(cluster, frac) -> ClusterSpec`` mixing the ``plain``
+    cluster's pods with the ``expanded`` cluster's memory-expanded pods
+    (same interconnect / pod size / fleet size), priced by the expanded
+    cluster's cost model so the EM pods carry their $/GB premium."""
+    base, em = TABLE_III_CLUSTERS[plain], TABLE_III_CLUSTERS[expanded]
+    pod = base.topology.pod_size
+    num_pods = base.num_nodes // pod
+
+    def mix(_, frac: float) -> ClusterSpec:
+        if not 0.0 <= frac <= 1.0:
+            raise ValueError(f"em_pod_frac must be in [0, 1], got {frac}")
+        n_em = int(round(frac * num_pods))
+        pods = tuple(
+            p for p in (PodSpec(base.node, count=num_pods - n_em,
+                                nodes_per_pod=pod),
+                        PodSpec(em.node, count=n_em, nodes_per_pod=pod))
+            if p.count > 0)
+        return ClusterSpec(
+            name=f"{plain}+{expanded}-em{n_em}of{num_pods}",
+            pods=pods, interconnect=base.topology, cost=em.cost,
+            notes=f"{num_pods - n_em} plain + {n_em} memory-expanded pods.")
+
+    return mix
+
+
+def hetero_cost_study(
+    cfg: ModelConfig, shape: ShapeConfig,
+    em_pod_fractions: Sequence[float] = (0.0, 0.25, 0.5, 1.0),
+    plain: str = "B0", expanded: str = "B1",
+    strategies=None,
+) -> StudySpec:
+    """Fig.-8-style sweep over clusters mixing plain and memory-expanded
+    pods, with ``cost_usd``/``tco``/``perf_per_dollar`` columns.
+
+    Each ``em_pod_frac`` value builds a :class:`ClusterSpec` whose pods mix
+    the ``plain`` cluster's node with the ``expanded`` cluster's node (same
+    interconnect and pod size).  Synchronous-training semantics apply: a
+    strategy is feasible only if its shard fits the *plain* pods too, so
+    the ranking quantifies when partial EM deployment is money wasted and
+    when full EM wins perf-per-dollar (Fig. 15's B0-vs-B1 story)."""
+    mix = _em_pod_mix(plain, expanded)
+    return StudySpec(
+        name="hetero-em-tco", model=cfg, shape=shape,
+        strategies=as_strategy_space(strategies) or PowerOfTwoSpace(min_mp=8),
+        axes=[Axis("em_pod_frac", tuple(em_pod_fractions), apply=mix)])
+
+# --------------------------------------------------------------------- #
+# Beyond Fig. 8: the full MP x DP x PP x EP joint sweep
+# --------------------------------------------------------------------- #
+
+def pp_ep_study(
+    cfg: Optional[ModelConfig] = None,
+    shape: Optional[ShapeConfig] = None,
+    clusters: Sequence[str] = ("A0", "B1"),
+    mp: Sequence[int] = (4, 8, 16, 32, 64),
+    dp: Sequence[int] = (1, 2, 4, 8, 16, 32, 64, 128, 256),
+    pp: Sequence[int] = (1, 2, 4),
+    ep: Sequence[int] = (1, 2),
+    num_microbatches: Sequence[int] = (0,),
+) -> StudySpec:
+    """MoE transformer over the four-axis MP x DP x PP x EP product on the
+    registry clusters (default: bandwidth-starved A0 vs memory-expanded B1).
+
+    Every cell runs the default workload builder — PP stages with their
+    p2p boundary transfers and microbatch bubble, EP expert sharding with
+    all-to-all dispatch/combine — so the ranking shows where pipeline or
+    expert degrees beat the paper's pure MP x DP slice."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.cluster import get_cluster
+
+    cfg = cfg or get_config("llama4-maverick-400b-a17b")
+    shape = shape or ShapeConfig("pp_ep", 4096, 256, "train")
+    names = tuple(clusters)
+    return StudySpec(
+        name="pp-ep-four-axis", model=cfg, shape=shape,
+        axes=[Axis("cluster", names,
+                   apply=lambda _, name: get_cluster(name))],
+        strategies=GridSpace(mp=tuple(mp), dp=tuple(dp), pp=tuple(pp),
+                             ep=tuple(ep),
+                             num_microbatches=tuple(num_microbatches)))
+
+# --------------------------------------------------------------------- #
+# §V-D / Fig. 15: comparative training across 11 clusters
+# --------------------------------------------------------------------- #
+
+def _dlrm_group_nodes_per_instance(node: NodeConfig, fleet_nodes: int) -> int:
+    """Paper §V-D placement rule for one node type:
+    mem0 -> 64, mem1 -> 16, mem2 -> 8."""
+    if node.exp_cap > 0.75 * node.local_cap:
+        return 16 if node.exp_bw <= 500 * GB else 8
+    return min(64, fleet_nodes)
+
+
+def _dlrm_nodes_per_instance(cl: ClusterLike) -> int:
+    """§V-D rule routed through ``node_groups`` so heterogeneous
+    ``ClusterSpec`` inputs work (``cl.node`` raises on >1 node types):
+    the largest group's node type sizes the instance."""
+    g = max(cl.node_groups, key=lambda g: g.num_nodes)
+    return _dlrm_group_nodes_per_instance(g.node, cl.num_nodes)
+
+
+def cluster_comparison_studies(
+    transformer_cfg: ModelConfig, transformer_shape: ShapeConfig,
+    dlrm_cfg, dlrm_batch: int = 4096,
+    clusters: Optional[Dict[str, ClusterLike]] = None,
+):
+    """(transformer study, dlrm study) over a cluster-valued axis."""
+    clusters = clusters or TABLE_III_CLUSTERS
+    # Workload depends only on the strategy, so decompositions are shared
+    # across same-size clusters (workload_deps stays empty).
+    transformer = StudySpec(
+        name="fig15-transformer", model=transformer_cfg,
+        shape=transformer_shape,
+        axes=[Axis("cluster", tuple(clusters),
+                   apply=lambda _, name: clusters[name])],
+        strategies=PowerOfTwoSpace())
+
+    # 8 DLRM instances on (at most) 64 fleet nodes: the waves/turnaround
+    # bookkeeping is the study-native JobSpec layer now.
+    dlrm = StudySpec(
+        name="fig15-dlrm",
+        axes=[Axis("cluster", tuple(clusters),
+                   apply=lambda _, name: clusters[name])],
+        workload=lambda ctx: decompose_dlrm(
+            dlrm_cfg, dlrm_batch,
+            _dlrm_nodes_per_instance(clusters[ctx.point["cluster"]])),
+        workload_deps=("cluster",),
+        job=lambda ctx: JobSpec(
+            instances=8, max_nodes=64,
+            nodes_per_instance=_dlrm_nodes_per_instance(ctx.cluster)))
+    return transformer, dlrm
+
+# --------------------------------------------------------------------- #
+# Placement as a swept study axis; multi-tenant scheduling
+# --------------------------------------------------------------------- #
+
+PLACEMENT_SHAPE = ShapeConfig("placement", 4096, 2048, "train")
+
+
+def placement_study(
+    cfg: Optional[ModelConfig] = None,
+    shape: Optional[ShapeConfig] = None,
+    em_pod_fractions: Sequence[float] = (0.0, 0.25, 0.5, 1.0),
+    plain: str = "B0", expanded: str = "B1",
+    strategies=None,
+    placements: Sequence[str] = ("paper", "em-aware"),
+) -> StudySpec:
+    """Transformer-1T pipeline-stage placement over (EM-pod fraction) x
+    (placement) x pipeline strategies.
+
+    The placement lever exists only for ``pp > 1`` — a flat job has one
+    stage and nothing to place (``hetero_cost_study`` covers that slice:
+    all-or-nothing EM) — so the default strategy grid sweeps the pipeline
+    cells.  Under the default ``PaperPlacement`` every pod group must
+    hold every stage, so a partial-EM fleet is gated by its plain pods
+    and the EM money is wasted.  ``EMAwarePlacement``
+    assigns the memory-hungry stages to the EM pods (1F1B stashes
+    ``pp - s`` microbatches at stage ``s``, so early stages are the fat
+    ones): a half-EM fleet then runs ZeRO-heavy low-MP pipelines the
+    plain fleet cannot fit at nearly the all-EM iteration time but well
+    below the all-EM TCO — and tops ``perf_per_dollar`` over both
+    all-plain and all-EM."""
+    cfg = cfg or _default_transformer()
+    shape = shape or PLACEMENT_SHAPE
+    strategies = as_strategy_space(strategies) or GridSpace(
+        mp=(4, 8, 16, 32), dp=(4, 8, 16, 32, 64, 128), pp=(2, 4, 8))
+    return StudySpec(
+        name="placement-em-aware", model=cfg, shape=shape,
+        strategies=strategies,
+        axes=[Axis("em_pod_frac", tuple(em_pod_fractions),
+                   apply=_em_pod_mix(plain, expanded)),
+              placement_axis(tuple(placements))])
+
+
+def _default_transformer() -> ModelConfig:
+    from repro_torch.configs import get_config
+    return get_config("transformer-1t")
+
+
+def mixed_dlrm_fleet(plain: str = "B0", expanded: str = "B1",
+                     pods_each: int = 2) -> ClusterSpec:
+    """A small two-type fleet for multi-tenant studies: ``pods_each``
+    plain pods + ``pods_each`` memory-expanded pods (16-node Table III
+    pods; the default is the Fig. 13b 64-node fleet, half-expanded)."""
+    base, em = TABLE_III_CLUSTERS[plain], TABLE_III_CLUSTERS[expanded]
+    pod = base.topology.pod_size
+    return ClusterSpec(
+        name=f"{plain}+{expanded}-fleet",
+        pods=(PodSpec(base.node, count=pods_each, nodes_per_pod=pod),
+              PodSpec(em.node, count=pods_each, nodes_per_pod=pod)),
+        interconnect=base.topology, cost=em.cost,
+        notes=f"{pods_each} plain + {pods_each} EM pods x {pod} nodes.")
+
+
+def multi_tenant_study(
+    dlrm_cfg=None,
+    fleet: Optional[ClusterLike] = None,
+    global_batch: int = 4096,
+    num_instances: int = 8,
+    nodes_per_instance_opts: Sequence[int] = (64, 32, 16, 8),
+    placements: Sequence[str] = ("paper", "em-aware"),
+) -> StudySpec:
+    """Fig. 13b generalized: N DLRM instances on a (possibly mixed) fleet.
+
+    Each cell sweeps the per-instance node count and the placement; the
+    engine's JobSpec/ScheduleModel layer places the instances over the
+    fleet's pod groups and emits native ``concurrent_instances`` /
+    ``waves`` / ``turnaround`` / ``makespan`` columns.  On the default
+    half-EM fleet, small (memory-hungry) instances only fit the EM pods:
+    ``EMAwarePlacement`` schedules them there (more waves, but feasible),
+    while the paper placement spreads them fleet-wide and reports the
+    cell infeasible — the §V-C turnaround story, now placement-aware."""
+    if dlrm_cfg is None:
+        from repro_torch.configs import get_dlrm_config
+        dlrm_cfg = get_dlrm_config()
+    fleet = fleet if fleet is not None else mixed_dlrm_fleet()
+    return StudySpec(
+        name="multi-tenant-dlrm", cluster=fleet,
+        axes=[Axis("nodes_per_inst", tuple(nodes_per_instance_opts)),
+              placement_axis(tuple(placements))],
+        workload=lambda ctx: decompose_dlrm(dlrm_cfg, global_batch,
+                                            ctx.point["nodes_per_inst"]),
+        workload_deps=("nodes_per_inst",),
+        job=lambda ctx: JobSpec(
+            instances=num_instances,
+            nodes_per_instance=ctx.point["nodes_per_inst"]))
+
+# --------------------------------------------------------------------- #
+# Figure-study registry
+# --------------------------------------------------------------------- #
+
+def figure_studies(cfg: Optional[ModelConfig] = None,
+                   shape: Optional[ShapeConfig] = None,
+                   dlrm_cfg=None,
+                   cluster: Optional[ClusterConfig] = None,
+                   ) -> Dict[str, StudySpec]:
+    """The seven paper-figure studies as StudySpecs with their defaults,
+    keyed ``fig8`` .. ``fig13b``, each to be run through
+    :func:`repro_torch.core.study.run_study`."""
+    from repro_torch.core.cluster import BASELINE_DGX_A100
+    cfg = cfg if cfg is not None else _default_transformer()
+    shape = shape if shape is not None else ShapeConfig(
+        "paper", seq_len=2048, global_batch=1024, kind="train")
+    if dlrm_cfg is None:
+        from repro_torch.configs import get_dlrm_config
+        dlrm_cfg = get_dlrm_config()
+    cluster = cluster if cluster is not None else BASELINE_DGX_A100
+    return {
+        "fig8": mpdp_study(cfg, shape, cluster),
+        "fig9": memory_expansion_study(cfg, shape, cluster),
+        "fig10": compute_scaling_study(cfg, shape, cluster, mp=8, dp=128),
+        "fig11": network_scaling_study(cfg, shape, cluster, mp=64, dp=16),
+        "fig12": bandwidth_rebalance_study(cfg, shape, cluster, mp=64, dp=16),
+        "fig13a": dlrm_cluster_size_study(dlrm_cfg, cluster),
+        "fig13b": dlrm_memory_expansion_study(dlrm_cfg, cluster),
+    }

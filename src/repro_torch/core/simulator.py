@@ -5,8 +5,8 @@ The port of the compiled half of the JAX package's ``core/simulator.py``:
 :class:`~repro_torch.core.compiled.CompiledWorkload` against a batch of
 (node, topology) environments, the per-stage hot path a float64 device call
 (:func:`repro_torch.core.torch_engine.stage_compute_exposed`);
-:func:`simulate_iteration_compiled` is one cluster of one node group.
-Semantics are the reference's:
+:func:`simulate_iteration_compiled` times a cluster of one or several node
+groups. Semantics are the reference's:
 
   * FP and IG blocking MP collectives serialize with compute on the
     critical path;
@@ -17,11 +17,16 @@ Semantics are the reference's:
   * pipeline workloads (``pp > 1``) are gated by the slowest stage, scaled
     by the schedule's factor ``(m + pp - 1) / m`` (``v * m`` slots for
     Megatron-LM's interleaved schedule), and feasible only if every stage
-    fits its nodes.
+    fits its nodes;
+  * heterogeneous clusters (several node groups) follow the
+    :class:`~repro_torch.core.placement.Placement`: by default every group
+    holds the same shard and the slowest / least-capable group gates the
+    iteration; a placement whose ``assign_stages`` maps pipeline stages to
+    groups (``EMAwarePlacement``, ``ExplicitPlacement``) times each stage
+    on its own group's environment (:func:`_time_compiled_assigned`).
 
 The reference's event loop and NumPy engine are not copied: the tests hold
-this module to them. Placements other than the paper's rank order and
-clusters of several node groups are refused (ROADMAP Queue 1 item 17).
+this module to them.
 """
 
 from __future__ import annotations
@@ -39,8 +44,10 @@ from repro_torch.core.memory import (
     effective_memory_bw,
     per_node_footprint,
     stage_footprints,
+    worst_report,
 )
 from repro_torch.core.topology import Topology
+from repro_torch.core.workload import Workload
 
 OPTIM_BYTES_PER_PARAM = 28  # grad read + fp32 m/v/master read+write
 
@@ -129,7 +136,7 @@ def _compiled_mem_bws(nodes, total: float, mem_bw_override) -> np.ndarray:
 
 
 def _time_compiled_flat(cw, envs, zero_stage, mem_bw_override, require_fit,
-                        device) -> List[IterationBreakdown]:
+                        placement, device) -> List[IterationBreakdown]:
     wl = cw.workload
     stage = cw.stages[0]
     nodes = [n for n, _ in envs]
@@ -142,7 +149,7 @@ def _time_compiled_flat(cw, envs, zero_stage, mem_bw_override, require_fit,
     mem_bw = _compiled_mem_bws(nodes, total, mem_bw_override)
     ep = getattr(wl, "ep", 1)
     compute, exposed = torch_engine.stage_compute_exposed(
-        stage, envs, nodes, mem_bw, wl.mp, wl.dp, 1, ep, None, device)
+        stage, envs, nodes, mem_bw, wl.mp, wl.dp, 1, ep, placement, device)
     numer = _optimizer_numer(stage.dense_w, stage.expert_w, stage.sparse,
                              wl.dp * ep, wl.dp, zero_stage)
     out = []
@@ -160,7 +167,8 @@ def _time_compiled_flat(cw, envs, zero_stage, mem_bw_override, require_fit,
 
 
 def _time_compiled_pipeline(cw, envs, zero_stage, mem_bw_override,
-                            require_fit, device) -> List[IterationBreakdown]:
+                            require_fit, placement,
+                            device) -> List[IterationBreakdown]:
     wl = cw.workload
     pp = wl.pp
     m = max(1, wl.num_microbatches)
@@ -182,8 +190,8 @@ def _time_compiled_pipeline(cw, envs, zero_stage, mem_bw_override,
     numers = np.zeros(pp)
     for s, stage in enumerate(cw.stages):
         compute, exposed = torch_engine.stage_compute_exposed(
-            stage, envs, nodes, mem_bws[s], wl.mp, wl.dp, pp, wl.ep, None,
-            device)
+            stage, envs, nodes, mem_bws[s], wl.mp, wl.dp, pp, wl.ep,
+            placement, device)
         computes.append(compute)
         exposeds.append(exposed)
         totals[s] = compute.sum(axis=0) + exposed.sum(axis=0)
@@ -213,6 +221,52 @@ def _time_compiled_pipeline(cw, envs, zero_stage, mem_bw_override,
     return out
 
 
+def _time_compiled_assigned(cw, stage_envs, zero_stage, mem_bw_override,
+                            require_fit, placement,
+                            device) -> IterationBreakdown:
+    """The placement-assigned pipeline (mixed fleet, ``pp > 1``, a
+    placement whose ``assign_stages`` maps stages to node groups): each
+    stage timed on its own (node, topology) environment, one
+    ``stage_compute_exposed`` call a stage. Clause for clause the
+    reference's: per-stage footprints gated against the assigned node,
+    per-stage memory bandwidths, the gating stage, the optimizer as a max
+    over stages, the schedule's scale."""
+    wl = cw.workload
+    pp = wl.pp
+    m = max(1, wl.num_microbatches)
+    v = max(1, getattr(wl, "virtual_stages", 1))
+    nodes = [node for node, _ in stage_envs]
+    reps = stage_footprints(wl, None, zero_stage, nodes=nodes)
+    worst_rep = worst_report(reps)
+    mem_bws = [node.local_bw if mem_bw_override == "local"
+               else mem_bw_override if mem_bw_override is not None
+               else effective_memory_bw(node, r.total)
+               for node, r in zip(nodes, reps)]
+    feasible = worst_rep.fits_total
+    scale, bubble = _schedule_factors(wl.schedule, pp, m, v)
+    if require_fit and not feasible:
+        return _infeasible(worst_rep, min(mem_bws), bubble_fraction=bubble)
+    data_ways = wl.dp * wl.ep
+    per_stage = []
+    for stage, env, bw in zip(cw.stages, stage_envs, mem_bws):
+        compute, exposed = torch_engine.stage_compute_exposed(
+            stage, [env], [env[0]], np.array([bw], dtype=float),
+            wl.mp, wl.dp, pp, wl.ep, placement, device)
+        fp = PhaseBreakdown(float(compute[0, 0]), float(exposed[0, 0]))
+        ig = PhaseBreakdown(float(compute[1, 0]), float(exposed[1, 0]))
+        wg = PhaseBreakdown(float(compute[2, 0]), float(exposed[2, 0]))
+        per_stage.append((fp, ig, wg, fp.total + ig.total + wg.total))
+    k = max(range(pp), key=lambda s: per_stage[s][3])
+    fp, ig, wg, _ = per_stage[k]
+    optim = max(_optimizer_numer(stage.dense_w, stage.expert_w, stage.sparse,
+                                 data_ways, wl.dp, zero_stage) / bw
+                for stage, bw in zip(cw.stages, mem_bws))
+    return IterationBreakdown(fp.scaled(scale), ig.scaled(scale),
+                              wg.scaled(scale), optim, worst_rep,
+                              mem_bws[k], feasible,
+                              bubble_fraction=bubble)
+
+
 def time_compiled(
     cw,
     envs: "List[Tuple[NodeConfig, Topology]]",
@@ -225,18 +279,57 @@ def time_compiled(
     """Time one :class:`~repro_torch.core.compiled.CompiledWorkload` on a
     batch of (node, topology) environments at once: one breakdown per
     environment, as the reference's ``simulate_iteration`` would give on a
-    cluster of that node and topology (within 1e-9 relative). The stages'
-    hot path runs on ``device``, the caller's, else the GPU; with no GPU
-    and no ``device`` this raises."""
-    torch_engine.refuse_placement(placement)
+    cluster of that node and topology (within 1e-9 relative). ``placement``
+    resolves the collectives' hops (None: the paper's rank order). The
+    stages' hot path runs on ``device``, the caller's, else the GPU; with
+    no GPU and no ``device`` this raises."""
     device = resolve_device(device)
     if not envs:
         return []
     if getattr(cw.workload, "pp", 1) > 1:
         return _time_compiled_pipeline(cw, envs, zero_stage, mem_bw_override,
-                                       require_fit, device)
+                                       require_fit, placement, device)
     return _time_compiled_flat(cw, envs, zero_stage, mem_bw_override,
-                               require_fit, device)
+                               require_fit, placement, device)
+
+
+def _env_breakdowns(cw, envs, zero_stage, mem_bw_override, require_fit,
+                    placement, env_cache, device) -> List[IterationBreakdown]:
+    """Per-environment breakdowns through the optional cross-cell cache
+    (key: placement x environment x require_fit; the study runner prefills
+    it with one batch per strategy)."""
+    if env_cache is None:
+        return time_compiled(cw, envs, zero_stage, mem_bw_override,
+                             require_fit, placement, device)
+    missing = [env for env in dict.fromkeys(envs)
+               if (placement, env, require_fit) not in env_cache]
+    if missing:
+        for env, br in zip(missing,
+                           time_compiled(cw, missing, zero_stage,
+                                         mem_bw_override, require_fit,
+                                         placement, device)):
+            env_cache[(placement, env, require_fit)] = br
+    return [env_cache[(placement, env, require_fit)] for env in envs]
+
+
+def compiled_stage_assignment(workload: Workload, cluster: ClusterLike,
+                              placement, zero_stage: int = 2):
+    """The per-stage (node, topology) environments a placement assigns,
+    or None when replicate-everywhere semantics apply (one group, no
+    placement, ``pp == 1``, or the placement declines the fleet). Shared
+    by :func:`simulate_iteration_compiled` and the study runner's
+    prefetch, so the two cannot drift."""
+    groups = cluster.node_groups
+    if len(groups) <= 1 or placement is None \
+            or getattr(workload, "pp", 1) <= 1:
+        return None
+    stage_bytes = [r.total for r in
+                   stage_footprints(workload, None, zero_stage)]
+    nodes_per_stage = workload.mp * workload.dp * workload.ep
+    assign = placement.assign_stages(stage_bytes, groups, nodes_per_stage)
+    if assign is None:
+        return None
+    return [(groups[i].node, groups[i].topology) for i in assign]
 
 
 def simulate_iteration_compiled(
@@ -246,16 +339,55 @@ def simulate_iteration_compiled(
     mem_bw_override: "Optional[float | str]" = None,
     require_fit: bool = False,
     placement=None,
+    env_cache: "Optional[dict]" = None,
     device=None,
 ) -> IterationBreakdown:
-    """The reference's ``simulate_iteration`` over a pre-lowered workload,
-    for a cluster of one node group (``mem_bw_override`` may be a float or
-    ``"local"``, each node's own ``local_bw``)."""
+    """The reference's ``simulate_iteration`` over a pre-lowered workload.
+
+    Single-group clusters and heterogeneous flat / replicate-everywhere
+    cells run batched over the groups' environments, the worst group
+    gating; the placement-assigned pipeline
+    (:func:`compiled_stage_assignment` not None) runs each stage on its
+    assigned environment. ``mem_bw_override`` may be a float or
+    ``"local"``, each group's own ``local_bw``."""
+    device = resolve_device(device)
     groups = cluster.node_groups
-    if len(groups) != 1:
-        raise NotImplementedError(
-            "a cluster of several node groups is not ported yet: ROADMAP "
-            "Queue 1 item 17 (core/placement.py)")
-    g = groups[0]
-    return time_compiled(cw, [(g.node, g.topology)], zero_stage,
-                         mem_bw_override, require_fit, placement, device)[0]
+    stage_envs = compiled_stage_assignment(cw.workload, cluster, placement,
+                                           zero_stage)
+    if stage_envs is not None:
+        return _time_compiled_assigned(cw, stage_envs, zero_stage,
+                                       mem_bw_override, require_fit,
+                                       placement, device)
+    per = _env_breakdowns(cw, [(g.node, g.topology) for g in groups],
+                          zero_stage, mem_bw_override, require_fit,
+                          placement, env_cache, device)
+    if len(per) == 1:
+        return per[0]
+    worst_rep = worst_report([b.footprint for b in per])
+    feasible = all(b.feasible for b in per)
+    if require_fit and not feasible:
+        return _infeasible(worst_rep, min(b.mem_bw for b in per),
+                           bubble_fraction=max(b.bubble_fraction
+                                               for b in per))
+    worst = max(per, key=lambda b: b.total)
+    return IterationBreakdown(worst.fp, worst.ig, worst.wg, worst.optimizer,
+                              worst_rep, worst.mem_bw, feasible,
+                              bubble_fraction=worst.bubble_fraction)
+
+
+def group_breakdowns_compiled(
+    cw,
+    cluster: ClusterLike,
+    zero_stage: int = 2,
+    mem_bw_override: "Optional[float | str]" = None,
+    placement=None,
+    env_cache: "Optional[dict]" = None,
+    device=None,
+) -> List[IterationBreakdown]:
+    """The reference's ``group_breakdowns`` over a pre-lowered workload:
+    one breakdown per node group (the multi-tenant ScheduleModel's
+    per-group instance timings)."""
+    return _env_breakdowns(cw, [(g.node, g.topology)
+                                for g in cluster.node_groups],
+                           zero_stage, mem_bw_override, False, placement,
+                           env_cache, resolve_device(device))

@@ -48,18 +48,6 @@ from repro_torch.core.topology import (
 
 F64 = torch.float64
 
-# Deferred work named where a caller asks for it.
-PLACEMENT_DEFERRED = (
-    "placement orders other than the paper's, and with them the "
-    "placement-assigned pipeline, are not ported yet: ROADMAP Queue 1 item "
-    "17 (core/placement.py)")
-
-
-def refuse_placement(placement) -> None:
-    if placement is not None:
-        raise NotImplementedError(PLACEMENT_DEFERRED)
-
-
 # --------------------------------------------------------------------- #
 # Collective formulas over environment-parameter arrays
 # --------------------------------------------------------------------- #
@@ -219,13 +207,14 @@ def comm_matrix(stage, envs, mp: int, dp: int, pp: int, ep: int,
 
     Rows group by (collective, scope) and are zero when the scope's group
     size is <= 1; each (row group, structural key) is evaluated once over
-    every matching environment column."""
-    refuse_placement(placement)
+    every matching environment column. ``placement`` resolves each
+    group's hops (:mod:`repro_torch.core.placement`); None is the paper's
+    rank order."""
     nenv = len(envs)
     out = np.zeros((len(stage.comm_kinds), nenv))
     if not stage.comm_kinds:
         return out
-    order = _PAPER_ORDER
+    order = placement if placement is not None else _PAPER_ORDER
     sizes_all = np.asarray(stage.comm_sizes, dtype=float)
 
     # Distinct topologies -> their environment columns (dict identity via
@@ -279,7 +268,8 @@ def comm_matrix(stage, envs, mp: int, dp: int, pp: int, ep: int,
                 out[np.ix_(rows, tcols)] = t[:, j:j + 1]
 
     for topo in fallback:
-        coll = CollectiveModel(topo, mp, dp, pp=pp, ep=ep)
+        coll = CollectiveModel(topo, mp, dp, pp=pp, ep=ep,
+                               placement=placement)
         col = coll.time_batch(stage.comm_kinds, stage.comm_sizes,
                               stage.comm_scopes)
         for e in topo_cols[topo]:

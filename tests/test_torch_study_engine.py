@@ -153,6 +153,33 @@ def assert_engine_matches_reference(stage, mp, dp, pp, ep):
         assert_close(g, w)
 
 
+ZERO_CASES = [(c, z) for c in JAX_CASES for z in (0, 1, 3)]
+
+
+@pytest.mark.parametrize("case,zero", ZERO_CASES,
+                         ids=[f"{CASE_IDS[i // 3]}-z{z}"
+                              for i, (_, z) in enumerate(ZERO_CASES)])
+def test_zero_stages_match_reference(case, zero):
+    """ZeRO stages 0, 1 and 3 (the cases above run at the default 2)
+    against the reference's event loop and NumPy engine."""
+    arch, topo_key, node, mp, dp, pp, ep, sched, override, req = case
+    ref_wl, wl = _workloads(arch, mp, dp, pp, ep, sched)
+    ref_cluster, cluster = _clusters(node, TOPOLOGIES[topo_key],
+                                     mp * dp * pp * ep)
+    mine = simulate_iteration_compiled(wl.compiled(), cluster,
+                                       zero_stage=zero,
+                                       mem_bw_override=override,
+                                       require_fit=req, device="cpu")
+    want = simulate_iteration_jax(ref_wl, ref_cluster, zero_stage=zero,
+                                  mem_bw_override=override, require_fit=req)
+    assert_breakdowns_equivalent(want, mine)
+    assert dataclasses.asdict(mine.footprint) == \
+        dataclasses.asdict(want.footprint)
+    assert_breakdowns_equivalent(simulate_iteration_compiled_jax(
+        ref_wl.compiled(), ref_cluster, zero_stage=zero,
+        mem_bw_override=override, require_fit=req), mine)
+
+
 @pytest.mark.parametrize("case", JAX_CASES, ids=CASE_IDS)
 def test_engine_alone_on_reference_inputs(case):
     """``stage_compute_exposed`` fed the reference's own lowered stages and
@@ -274,30 +301,24 @@ def test_default_dtype_stays_float32():
 
 
 def test_entry_points_refuse(monkeypatch):
-    """No GPU and no ``device``: time_compiled raises (it never drops to the
-    CPU). A placement other than the paper's, a cluster of several node
-    groups, or ``run_study`` on the port's engine raise naming their
-    ROADMAP item."""
+    """No GPU and no ``device``: time_compiled, simulate_iteration_compiled
+    and run_study raise (none drops to the CPU). The runner's own refusals
+    are in tests/test_torch_study.py."""
+    from repro_torch.core.study import ParallelSpec, StudySpec, run_study
     _, wl = _workloads("smollm-135m", 4, 4)
     _, cluster = _clusters(SMALL_NODE, TOPOLOGIES["hier"], 16)
     envs = [(cluster.node, cluster.topology)]
+    spec = StudySpec(name="refuse", model=get_config("smollm-135m"),
+                     shape=_shape(), cluster=cluster,
+                     strategies=ParallelSpec(mp=4, dp=4))
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         time_compiled(wl.compiled(), envs)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 17"):
-        time_compiled(wl.compiled(), envs, placement=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 17"):
-        simulate_iteration_compiled(wl.compiled(), cluster,
-                                    placement=object(), device="cpu")
-
-    class TwoGroups:
-        node_groups = (cluster.node_groups[0],) * 2
-
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 17"):
-        simulate_iteration_compiled(wl.compiled(), TwoGroups(), device="cpu")
-    from repro_torch.core.study import run_study
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 18"):
-        run_study(None, engine="torch")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        simulate_iteration_compiled(wl.compiled(), cluster)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_study(spec)
+    assert len(run_study(spec, device="cpu")) == 1
 
 
 @pytest.mark.cuda
