@@ -94,6 +94,19 @@ run with a non-zero exit code (nothing drops to the CPU or to a plain version):
            params, m, v, master), which must pass. gpipe is not run here:
            gloo's point-to-point sends refuse CUDA tensors, so it is held
            on the CPU (tests/test_torch_distributed.py)
+  dryrun   COMET's measured frontend: (a) the op counter
+           (repro_torch.core.op_counter) over the train_lm step, a smollm
+           prefill (b 1, s 1024) and a decode tick (b 8, max_seq 2048,
+           bf16), each counted on the card and on ``meta`` (FLOPs, bytes
+           and collective bytes must be equal), its roofline terms at the
+           H100's rates beside the measured wall and device ms, and the
+           counted peak live bytes beside torch.cuda.max_memory_allocated;
+           the host cost of a call by each dispatcher route, and the
+           kernels' operators against direct launches on the decode tick,
+           alternating; (b) launch.dryrun.lower_cell over the 32 runnable
+           cells on the 16 x 16 mesh and the 12 dense ones on 2 x 16 x 16,
+           on the host, as rank 0 of a fake process group (no group may be
+           held then): dense cells ok, every refusal naming its ROADMAP item
   study    COMET's batch evaluator (repro_torch.core: the port of the JAX
            package's jax_engine) over the paper's transformer-1t study grid:
            the paper shape (seq 2048, batch 1024), strategies (mp, dp) =
@@ -161,6 +174,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch.configs import (  # noqa: E402
     ShapeConfig,
+    all_cells,
     get_config,
     get_dlrm_config,
 )
@@ -174,9 +188,17 @@ from repro_torch.core.study import (  # noqa: E402
     StudySpec,
     run_study,
 )
+from repro_torch.core.hlo import PEAK_FLOPS as HLO_PEAK  # noqa: E402
+from repro_torch.core.hlo import (  # noqa: E402
+    model_flops_util,
+    terms_from_counts,
+)
+from repro_torch.core.op_counter import OpCounter  # noqa: E402
 from repro_torch.core.workload import decompose  # noqa: E402
 from repro_torch.data import DataConfig, DataIterator, dlrm_batch  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
+from repro_torch.kernels import embedding_bag as bag_module  # noqa: E402
+from repro_torch.kernels import flash_attention as attn_module  # noqa: E402
 from repro_torch.kernels.embedding_bag import (  # noqa: E402
     BACKWARD_STAGES,
     EmbeddingBagPlain,
@@ -189,6 +211,7 @@ from repro_torch.kernels.embedding_bag import (  # noqa: E402
     embedding_bag_plain,
 )
 from repro_torch.kernels import rmsnorm as rms_module  # noqa: E402
+from repro_torch.kernels import ssd_scan as ssd_module  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     DECODE_CLUSTERS,
     decode_cluster_fits,
@@ -203,6 +226,7 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
 from repro_torch.kernels.rmsnorm import (  # noqa: E402
     rmsnorm_backward_cuda,
     rmsnorm_backward_plain,
+    rmsnorm_cuda,
     rmsnorm_plain,
 )
 from repro_torch.kernels.ssd_scan import (  # noqa: E402
@@ -215,6 +239,8 @@ from repro_torch.kernels.ssd_scan import (  # noqa: E402
 from repro_torch.models import get_model  # noqa: E402
 from repro_torch.models.dlrm import DLRM  # noqa: E402
 from repro_torch.parallel import build_mesh, plan_memory  # noqa: E402
+from repro_torch.launch.dryrun import run_cell  # noqa: E402
+from repro_torch.launch.specs import model_flops  # noqa: E402
 from repro_torch.parallel.compression import compressed_psum  # noqa: E402
 from repro_torch.serve import Engine, EngineConfig, Request  # noqa: E402
 from repro_torch.train import (  # noqa: E402
@@ -278,7 +304,12 @@ BWD_TOL = {"flash_attention_backward": {torch.float32: 2e-5,
            "rmsnorm_backward": {torch.float32: 1e-5, torch.bfloat16: 1e-2}}
 BWD_REPEATS = 3         # backward calls at a main shape that must agree bitwise
 REPEAT_CALLS = 100      # the repeats phase: calls at each shape, all bitwise equal
-TRACE_TRIES = 3         # traces trace_ms takes of a call while events are lost
+# torch.profiler loses a trace's kernel events now and then, in bursts of
+# consecutive traces (trace_loss.py counts them). trace_ms takes a trace
+# again while events are lost, waiting longer each time so that the next
+# one falls outside the burst.
+TRACE_TRIES = 8         # traces trace_ms takes of a call while events are lost
+TRACE_PAUSE_S = 0.25    # the wait before the n-th retry is n times this
 # The training route's forward (output and the rows' log-sum-exp) against
 # the plain forward: the output to the forward cases' ATTN_TOL (absolute);
 # the log-sum-exp, in nats, to LSE_TOL of max(1, its largest magnitude) (the
@@ -334,6 +365,16 @@ STUDY_REPS = 3                                 # timed calls, median kept
 DLRM_STUDY_BATCH = 4096                        # fig15's DLRM global batch
 
 DEVICE = "cuda"
+
+
+def bound(flops: int, nbytes: int, peak_flops: float) -> dict:
+    """The least time the card takes for a call's work (a kernel module's
+    ``*work`` formula): the larger of its bytes over the memory rate and
+    its flops over ``peak_flops``, and which of the two it is."""
+    bound_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    bound_ops = flops / peak_flops * 1e3
+    return {"bound_ms": max(bound_bytes, bound_ops),
+            "bound_by": "bytes" if bound_bytes >= bound_ops else "operations"}
 
 
 def emit(phase: str, **fields) -> None:
@@ -399,20 +440,25 @@ def trace_ms(fn, arg_sets, iters: int = 10) -> dict:
     the kernels, copies and fills a call launched. A trace that lost
     events (the profiler drops them now and then: all of a trace's, or one
     call's, so that a kernel counts other than a whole number of times a
-    call) is taken again, up to ``TRACE_TRIES`` times; the last is kept."""
+    call) is taken again, up to ``TRACE_TRIES`` times, after a pause that
+    grows with each retry; the last is kept. ``trace_tries``: the traces
+    taken; ``events_lost``: whether the kept one still lost events."""
     from torch.profiler import ProfilerActivity, profile
     for args in arg_sets[:2]:
         fn(*args)
     torch.cuda.synchronize()
-    for _ in range(TRACE_TRIES):
+    for tries in range(1, TRACE_TRIES + 1):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for i in range(iters):
                 fn(*arg_sets[i % len(arg_sets)])
             torch.cuda.synchronize()
         device_us, launches, by_name = _device_time(prof, iters, "call")
-        if device_us and all(e["launches_per_call"] % 1 == 0
-                             for e in by_name):
+        lost = not device_us or any(e["launches_per_call"] % 1
+                                    for e in by_name)
+        if not lost:
             break
+        if tries < TRACE_TRIES:
+            time.sleep(TRACE_PAUSE_S * tries)
     if not device_us:
         raise RuntimeError(f"torch.profiler reported no device time in "
                            f"{TRACE_TRIES} traces")
@@ -422,7 +468,8 @@ def trace_ms(fn, arg_sets, iters: int = 10) -> dict:
         ("cudnn", "cudnn"), ("flash", "flash"), ("efficient", "fmha"))
         if key in joined), "math")
     return {"ms": device_us / 1e3 / iters, "kernels": names[:4],
-            "backend": backend, "launches_per_call": launches / iters}
+            "backend": backend, "launches_per_call": launches / iters,
+            "trace_tries": tries, "events_lost": lost}
 
 
 def copies_for_cold_l2(tensors) -> int:
@@ -502,11 +549,7 @@ def _rmsnorm_case(shape, dtype, gen, ulp_tol=False) -> dict:
     if ulp_tol and dtype == torch.bfloat16:
         tol = max(tol, 2 ** -7 * want.float().abs().max().item())
     sets = [(x.clone(), gamma) for _ in range(copies_for_cold_l2([x, x]))]
-    rows = x.numel() // d
-    nbytes = (2 * rows * d + d) * x.element_size()
-    flops = 4 * rows * d
-    bound_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    bound_ops = flops / PEAK_FLOPS[torch.float32] * 1e3
+    flops, nbytes = rms_module.forward_work(x.numel() // d, d, dtype)
     kernel = time_ms(lambda a, g: ops.rmsnorm(a, g, 1e-5), sets)
     return {
         "kernel": "rmsnorm", "shape": list(shape), "dtype": dtype_name(dtype),
@@ -516,8 +559,7 @@ def _rmsnorm_case(shape, dtype, gen, ulp_tol=False) -> dict:
                             sets)["device"],
         "library_ms": time_ms(lambda a, g: F.rms_norm(a, (d,), g, 1e-5),
                               sets)["device"],
-        "bound_ms": max(bound_bytes, bound_ops),
-        "bound_by": "bytes" if bound_bytes >= bound_ops else "operations",
+        **bound(flops, nbytes, PEAK_FLOPS[torch.float32]),
         "cold_copies": len(sets),
     }
 
@@ -560,13 +602,9 @@ def _attention_case(name, b, h, hkv, sq, skv, d, causal, dtype, gen,
         qpos = np.arange(sq)[None, :, None] + offs[:, None, None]
         allowed = allowed & (kpos <= qpos)
     allowed = np.broadcast_to(allowed, (b, sq, skv))
-    pairs = int(allowed.sum())
-    kv_rows = int(allowed.any(axis=1).sum())
-    item = q.element_size()
-    nbytes = (2 * b * h * sq * d + 2 * kv_rows * hkv * d) * item
-    flops = 4 * pairs * h * d
-    bound_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    bound_ops = flops / PRODUCT_FLOPS[dtype] * 1e3
+    flops, nbytes = attn_module.forward_work(
+        b, h, hkv, sq, skv, d, dtype, causal, pairs=int(allowed.sum()),
+        kv_rows=int(allowed.any(axis=1).sum()))
 
     mask = None
     if kv_len is not None or q_offset is not None:
@@ -586,8 +624,7 @@ def _attention_case(name, b, h, hkv, sq, skv, d, causal, dtype, gen,
             a, b_, c, causal, kv_len_t, q_off_t), sets)["device"],
         "library_ms": time_ms(lambda a, b_, c: _sdpa(a, b_, c, causal, mask),
                               sets)["device"],
-        "bound_ms": max(bound_bytes, bound_ops),
-        "bound_by": "bytes" if bound_bytes >= bound_ops else "operations",
+        **bound(flops, nbytes, PRODUCT_FLOPS[dtype]),
         "cold_copies": n,
     }
     if clusters:
@@ -658,25 +695,14 @@ def _attention_backward_case(name, b, h, hkv, s, d, causal, dtype, gen,
             lambda: flash_attention_lse_cuda(q, k, v, causal), (out, lse))
     del got, want
 
-    # Five products of 2 d flops for each (query, key) pair the mask
-    # allows; each input read once, each gradient written once.
-    pairs = b * (s * (s + 1) // 2 if causal else s * s)
-    flops = 10 * pairs * h * d
-    item = q.element_size()
-    nbytes = (item * (3 * b * h * s * d + 2 * b * hkv * s * d      # q o dO, k v
-                      + b * h * s * d + 2 * b * hkv * s * d)       # dq, dk dv
-              + 4 * b * h * s)                                     # lse
-    bound_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    bound_ops = flops / PRODUCT_FLOPS[dtype] * 1e3
+    flops, nbytes = attn_module.backward_work(b, h, hkv, s, s, d, dtype,
+                                              causal)
     # the same bound with the products on the fp32 pipes, beside it
-    pipes_bound = (max(bound_bytes, flops / PEAK_FLOPS[dtype] * 1e3)
+    pipes_bound = (bound(flops, nbytes, PEAK_FLOPS[dtype])["bound_ms"]
                    if dtype == torch.float32 else None)
-    # the forward with the log-sum-exp: two products; q k v read, o and lse
-    # written
-    fwd_bound = max(
-        (item * (2 * b * h * s * d + 2 * b * hkv * s * d) + 4 * b * h * s)
-        / HBM_BYTES_PER_S * 1e3,
-        4 * pairs * h * d / PRODUCT_FLOPS[dtype] * 1e3)
+    fwd_bound = bound(*attn_module.forward_work(b, h, hkv, s, s, d, dtype,
+                                                causal, lse=True),
+                      PRODUCT_FLOPS[dtype])["bound_ms"]
     sets = [(q, k, v, out, lse, do)]
     kernel = time_ms(lambda *a: flash_attention_backward_cuda(*a, causal),
                      sets, **(dict(iters=20) if main else {}))
@@ -728,12 +754,12 @@ def _attention_backward_case(name, b, h, hkv, s, d, causal, dtype, gen,
         "forward_library_backend": forward_library["backend"],
         "splits": splits, "plan_kernels_per_call": plan_kernels,
         "kernels_per_call": kernel_trace["launches_per_call"],
+        "trace_tries": kernel_trace["trace_tries"],
         "scratch_bytes": scratch_bytes,
         "plain_ms": plain_ms, "library_ms": library["ms"],
         "library_kernels": library["kernels"],
         "library_backend": library["backend"],
-        "bound_ms": max(bound_bytes, bound_ops),
-        "bound_by": "bytes" if bound_bytes >= bound_ops else "operations",
+        **bound(flops, nbytes, PRODUCT_FLOPS[dtype]),
         "bound_fp32_pipes_ms": pipes_bound,
         "flops": flops, "bytes": nbytes, **extra,
     }
@@ -762,11 +788,7 @@ def _rmsnorm_backward_case(shape, dtype, gen, main=False) -> dict:
         extra["bitwise_equal_calls"] = _bitwise_repeats(
             lambda: rmsnorm_backward_cuda(x, gamma, dy), got)
     rows = x.numel() // d
-    item = x.element_size()
-    nbytes = (3 * rows * d + 2 * d) * item    # x, dy, dx; gamma, dgamma
-    flops = 10 * rows * d
-    bound_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    bound_ops = flops / PEAK_FLOPS[torch.float32] * 1e3
+    flops, nbytes = rms_module.backward_work(rows, d, dtype)
     sets = [(x.clone(), gamma, dy.clone())
             for _ in range(copies_for_cold_l2([x, dy, x]))]
     kernel = time_ms(lambda a, g, e: rmsnorm_backward_cuda(a, g, e), sets)
@@ -809,10 +831,10 @@ def _rmsnorm_backward_case(shape, dtype, gen, main=False) -> dict:
         "ok": ok, "kernel_ms": kernel["device"],
         "kernel_eager_ms": kernel["eager"], "kernel_trace_ms": kernel_trace["ms"],
         "kernels_per_call": kernel_trace["launches_per_call"],
+        "trace_tries": kernel_trace["trace_tries"],
         "plain_ms": plain_ms, "library_ms": library["ms"],
         "library_kernels": library["kernels"],
-        "bound_ms": max(bound_bytes, bound_ops),
-        "bound_by": "bytes" if bound_bytes >= bound_ops else "operations",
+        **bound(flops, nbytes, PEAK_FLOPS[torch.float32]),
         "cold_copies": len(sets), "plan": dataclasses.asdict(plan), **extra,
     }
 
@@ -876,17 +898,7 @@ def _ssd_case(name, b, s, h, p, n, g, chunk, dtype, gen,
     scale_state = max(1.0, want_state.abs().max().item())
     rel = SSD_REL_TOL[dtype]
 
-    # What this call's data needs: every chunk as long as it is.
-    q = min(chunk, s)
-    lens = [min(q, s - t0) for t0 in range(0, s, q)]
-    flops = sum(b * g * L * (L + 1) * n                       # C B^T, j <= i
-                + b * h * (L * (L + 1) * p + 4 * L * p * n)   # G x, C S^T, S
-                for L in lens)
-    item = x.element_size()
-    nbytes = ((2 * b * s * h * p + 2 * b * s * g * n) * item
-              + 4 * (b * s * h + h + b * h * p * n))
-    bound_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    bound_ops = flops / PRODUCT_FLOPS[dtype] * 1e3
+    flops, nbytes = ssd_module.work(b, s, h, p, n, g, chunk, dtype)
 
     def views():
         t = clone_like(xbc)
@@ -910,8 +922,7 @@ def _ssd_case(name, b, s, h, p, n, g, chunk, dtype, gen,
         "plain_ms": time_ms(lambda x_, B_, C_: ssd_scan_plain(
             x_, dt, A, B_, C_, chunk), sets, iters)["device"],
         "library_ms": None, "library_note": SSD_NO_LIBRARY,
-        "bound_ms": max(bound_bytes, bound_ops),
-        "bound_by": "bytes" if bound_bytes >= bound_ops else "operations",
+        **bound(flops, nbytes, PRODUCT_FLOPS[dtype]),
         "flops": flops, "bytes": nbytes, "cold_copies": len(sets),
         "kernels_per_call": KERNELS_PER_CALL,
     }
@@ -967,7 +978,7 @@ def _bag_case(name, tables, idx, direction, big, gen) -> dict:
     milliseconds, the plain versions' temporaries gigabytes)."""
     t, r, e = tables.shape
     b, _, n = idx.shape
-    dtype, item = tables.dtype, tables.element_size()
+    dtype = tables.dtype
     wrapped = torch.where(idx < 0, idx.long() + r, idx.long())
     shift = r * torch.arange(t, device=idx.device)[None, :, None]
     timing = dict(iters=10, graph=False) if big else {}
@@ -975,7 +986,6 @@ def _bag_case(name, tables, idx, direction, big, gen) -> dict:
     library = _library_bag(tables, idx)
     extra = {}
     lookups = b * t * n
-    idx_bytes = lookups * 4
     if direction == "forward":
         rows = (wrapped.clamp(0, r - 1) + shift).flatten()
         distinct = int(torch.unique(rows).numel())
@@ -983,11 +993,10 @@ def _bag_case(name, tables, idx, direction, big, gen) -> dict:
         torch.cuda.synchronize()
         err, tol = _bag_err(got, embedding_bag_plain(tables, idx), dtype)
         del got
-        # what this call's data needs: each distinct row read once, the
-        # indices, the output written once
-        nbytes = distinct * e * item + idx_bytes + b * t * e * item
-        all_bytes = lookups * e * item + idx_bytes + b * t * e * item
-        flops = lookups * e
+        # what this call's data needs: each distinct row read once
+        flops, nbytes = bag_module.forward_work(b, t, n, e, dtype,
+                                                rows_read=distinct)
+        all_bytes = bag_module.forward_work(b, t, n, e, dtype)[1]
         sets = [(tables, idx)]
         kernel = time_ms(embedding_bag_cuda, sets, **timing)
         plain_ms = time_ms(embedding_bag_plain, sets, **timing)["device"]
@@ -1018,10 +1027,9 @@ def _bag_case(name, tables, idx, direction, big, gen) -> dict:
             extra["ok"] = (err <= tol and
                            extra["bitwise_equal_calls"] == BAG_REPEATS)
         del got
-        # dout and the indices read once, the dense dtables written once
-        nbytes = b * t * e * item + idx_bytes + t * r * e * item
+        flops, nbytes = bag_module.backward_work(b, t, n, r, e, dtype,
+                                                 kept=int(valid.sum()))
         all_bytes = nbytes
-        flops = int(valid.sum()) * e
         sets = [(dout, idx)]
         kernel = time_ms(lambda d, i: embedding_bag_backward_cuda(d, i, r),
                          sets, **timing)
@@ -1054,8 +1062,6 @@ def _bag_case(name, tables, idx, direction, big, gen) -> dict:
                 **eager)["device"]
             del weight, out
         del dout
-    bound_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    bound_ops = flops / PEAK_FLOPS[torch.float32] * 1e3
     return {
         "kernel": ("embedding_bag" if direction == "forward"
                    else "embedding_bag_backward"),
@@ -1067,8 +1073,7 @@ def _bag_case(name, tables, idx, direction, big, gen) -> dict:
         **({} if library_ms is not None else {
             "library_note": "an index outside [0, R): F.embedding_bag has no "
                             "wrap, clamp or drop"}),
-        "bound_ms": max(bound_bytes, bound_ops),
-        "bound_by": "bytes" if bound_bytes >= bound_ops else "operations",
+        **bound(flops, nbytes, PEAK_FLOPS[torch.float32]),
         "bytes": nbytes, "bytes_all_lookups": all_bytes,
         "distinct_rows": distinct, "lookups": lookups, **extra,
     }
@@ -2625,7 +2630,7 @@ def _compressed_psum_case(group) -> dict:
     return {"numel": n, "input_bytes": 4 * n, "ranks": world, "ms": ms,
             "wire_bytes_per_rank": n + 4,
             "device_bytes": device_bytes,
-            "bound_ms": device_bytes / HBM_BYTES_PER_S * 1e3,
+            "bound_ms": bound(0, device_bytes, PEAK_FLOPS[torch.float32])["bound_ms"],
             "bound_by": "bytes", "max_abs_err": max_err,
             "err_bound": world * scale}
 
@@ -2887,17 +2892,23 @@ def _median_call(fn) -> tuple:
 
 def _profiled(fn, units: int = 1) -> dict:
     """torch.profiler's device time and launches of ``units`` calls of
-    ``fn``, per call."""
+    ``fn``, per call. A trace with no device time is taken again, as
+    ``trace_ms`` does, up to ``TRACE_TRIES`` times."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(units):
-            fn()
-        torch.cuda.synchronize()
-    device_us, launches, by_name = _device_time(prof, units, "call")
+    for tries in range(1, TRACE_TRIES + 1):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(units):
+                fn()
+            torch.cuda.synchronize()
+        device_us, launches, by_name = _device_time(prof, units, "call")
+        if device_us:
+            break
+        if tries < TRACE_TRIES:
+            time.sleep(TRACE_PAUSE_S * tries)
     if not device_us:
-        raise SystemExit("chip_smoke: study: torch.profiler reported no "
-                         "device time")
+        raise SystemExit(f"chip_smoke: study: torch.profiler reported no "
+                         f"device time in {TRACE_TRIES} traces")
     return {"device_ms": device_us / 1e3 / units,
             "launches": launches / units, "top_device_time": by_name[:6]}
 
@@ -3280,6 +3291,310 @@ def phase_run_study() -> dict:
     return launches
 
 
+# COMET's measured frontend: the op counter's terms against measured steps.
+DRYRUN_PREFILL = (1, 1024)              # batch, prompt tokens
+DRYRUN_DECODE = (8, 2048)               # batch, max_seq
+DRYRUN_REPS = 5                         # timed calls a step, median kept
+DRYRUN_DISPATCH_CALLS = 20_000          # calls a route, for its host cost
+DRYRUN_TICKS = 300                      # decode ticks a route, alternating
+
+
+def _dryrun_lm_step(device: str):
+    """The train_lm step (full-width, full-depth smollm-135m, fp32, 8 x
+    2048 tokens, the plan's remat) on ``device``: (run, its arguments)."""
+    cfg = get_config(LM_ARCH)
+    plan = plan_memory(cfg, tp=1, dp=1)
+    ocfg = AdamWConfig(lr=LM_LR, warmup_steps=LM_WARMUP, total_steps=100,
+                       state_dtype=plan.opt_dtype, use_master=plan.use_master)
+    gen = (None if device == "meta"
+           else torch.Generator(device=device).manual_seed(0))
+    state = init_train_state(cfg, plan, gen, ocfg, dtype=torch.float32,
+                             device=device)
+    batch = _par_batches(cfg, 1)[0]
+    if device == "meta":
+        batch = {k: torch.empty_like(v, device="meta")
+                 for k, v in batch.items()}
+    step = make_train_step(cfg, plan, ocfg)
+    hold = ({"params": state["params"], "opt": state["opt"]}, batch)
+    return (lambda: step(state, batch)), hold
+
+
+def _dryrun_serving_step(device: str, kind: str):
+    """smollm-135m at full width and depth, bf16, weights from seed 0 (none
+    drawn on ``meta``): one prefill of DRYRUN_PREFILL on a fresh cache, or
+    one decode tick of DRYRUN_DECODE's batch at the kernels phase's decode
+    positions. (run, its arguments); each run starts from the same cache
+    clock."""
+    cfg = get_config(LM_ARCH)
+    gen = (None if device == "meta"
+           else torch.Generator(device=device).manual_seed(0))
+    model = get_model(cfg)(cfg, dtype=torch.bfloat16, device=device,
+                           generator=gen)
+    rs = np.random.RandomState(0)
+    if kind == "prefill":
+        b, s = DRYRUN_PREFILL
+        cache = model.init_cache(b, DRYRUN_DECODE[1])
+        tokens = torch.from_numpy(rs.randint(0, cfg.vocab_size, size=(b, s)))
+        pos = torch.zeros((b,), dtype=torch.int32)
+    else:
+        b, max_seq = DRYRUN_DECODE
+        cache = model.init_cache(b, max_seq)
+        tokens = torch.from_numpy(rs.randint(0, cfg.vocab_size, size=(b, 1)))
+        pos = torch.from_numpy(rs.randint(0, max_seq - 1, size=b)).int()
+    tokens = tokens.to(device)
+    step = model.prefill if kind == "prefill" else (
+        lambda t, c: model.decode_step(c, t))
+
+    def run():
+        with torch.no_grad():
+            cache["pos"].copy_(pos)
+        return step(tokens, cache)
+
+    hold = (dict(model.named_parameters()), cache, tokens)
+    return run, hold
+
+
+def _counted(run, hold) -> OpCounter:
+    with OpCounter(hold=hold) as counter:
+        run()
+    return counter
+
+
+def _dryrun_row(name: str, shape: ShapeConfig, dtype: torch.dtype,
+                make) -> dict:
+    """One step counted on the card and on ``meta``, the counted terms
+    against the step's measured wall and device ms, the counter's peak live
+    bytes against torch.cuda.max_memory_allocated."""
+    from torch.profiler import ProfilerActivity, profile
+    cfg = get_config(LM_ARCH)
+    run, hold = make(DEVICE)
+    run()                                         # warm-up
+    torch.cuda.synchronize()
+    on_card = _counted(run, hold)
+    torch.cuda.synchronize()
+    live_before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    wall = []
+    for _ in range(DRYRUN_REPS):
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    device_us, launches, by_name = _device_time(prof, 1, "step")
+    del run, hold
+    torch.cuda.empty_cache()
+    run, hold = make("meta")
+    on_meta = _counted(run, hold)
+    del run, hold
+
+    terms = terms_from_counts(on_card.cost, 1, peak_flops=HLO_PEAK[dtype])
+    bound_ms = terms.bound_s * 1e3
+    wall_ms = float(np.median(wall))
+    device_ms = device_us / 1e3 if device_us else "not measured"
+    mf = model_flops(cfg, shape)
+    return {
+        "step": name, "dtype": dtype_name(dtype),
+        "flops": on_card.cost.flops, "hbm_bytes": on_card.cost.bytes,
+        "coll_bytes": sum(on_card.cost.coll.values()),
+        "meta": {"flops": on_meta.cost.flops, "hbm_bytes": on_meta.cost.bytes,
+                 "coll_bytes": sum(on_meta.cost.coll.values()),
+                 "peak_live_bytes": on_meta.peak_bytes},
+        "equal_on_cuda_and_meta": (
+            on_card.cost.flops == on_meta.cost.flops
+            and on_card.cost.bytes == on_meta.cost.bytes
+            and on_card.cost.coll == on_meta.cost.coll),
+        **terms.as_dict(), "bound_ms": bound_ms,
+        "wall_ms_median": wall_ms, "wall_ms": wall, "device_ms": device_ms,
+        "device_launches": launches,
+        "wall_over_bound": wall_ms / bound_ms,
+        "device_over_bound": (device_ms / bound_ms if device_us
+                              else "not measured"),
+        "model_flops": mf, "model_flops_util": model_flops_util(mf, terms),
+        "peak_live_bytes_counted": on_card.peak_bytes,
+        "argument_bytes_counted": on_card.argument_bytes,
+        "max_memory_allocated": peak, "memory_allocated_before": live_before,
+        "top_ops_by_bytes": sorted(
+            ([k, *v] for k, v in on_card.by_op.items()),
+            key=lambda r: -r[3])[:8],
+        "top_device_time": by_name[:6],
+    }
+
+
+def _dispatch_us() -> dict:
+    """The host cost of one call by each route a kernel's wrapper could
+    take to its implementation, on a tiny CPU tensor (the dispatcher's work
+    does not depend on the device): the function itself, an operator
+    defined with ``torch.library.Library`` (the kernels' route), and one
+    defined with ``torch.library.custom_op``."""
+    lib = torch.library.Library("chip_smoke_probe", "DEF")
+    lib.define("through_library(Tensor x) -> Tensor")
+    lib.impl("through_library", lambda x: x.new_empty(x.shape), "CPU")
+
+    @torch.library.custom_op("chip_smoke_probe::through_custom_op",
+                             mutates_args=())
+    def through_custom_op(x: torch.Tensor) -> torch.Tensor:
+        return x.new_empty(x.shape)
+
+    x = torch.zeros(4)
+    routes = {"function": lambda t: t.new_empty(t.shape),
+              "library": torch.ops.chip_smoke_probe.through_library,
+              "custom_op": through_custom_op}
+    out = {}
+    with torch.no_grad():
+        for name, fn in routes.items():
+            for _ in range(1000):
+                fn(x)
+            t0 = time.perf_counter()
+            for _ in range(DRYRUN_DISPATCH_CALLS):
+                fn(x)
+            out[name] = (time.perf_counter() - t0) * 1e6 / DRYRUN_DISPATCH_CALLS
+    return out
+
+
+def _per_call_us(fn, calls: int = 3000) -> float:
+    """Host µs a call of ``fn`` issued back to back (the card keeps up)."""
+    for _ in range(300):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e6 / calls
+
+
+def _dispatch_on_the_tick() -> dict:
+    """What the kernels' dispatcher route costs the serving tick, in one
+    process: smollm's decode tick (``_dryrun_serving_step``) with the
+    wrappers as they are (each kernel an operator) and with wrappers that
+    call the launchers directly (the route before the operators),
+    alternating tick by tick, DRYRUN_TICKS each; and each wrapper's host
+    µs a call at the tick's shapes by both routes."""
+    direct = {
+        "rmsnorm": lambda x, gamma, eps=1e-5: rmsnorm_cuda(x, gamma, eps),
+        "flash_attention": lambda q, k, v, causal=True, kv_len=None,
+        q_offset=None: flash_attention_cuda(q, k, v, causal, kv_len,
+                                            q_offset)}
+    wrappers = {name: getattr(ops, name) for name in direct}
+    run, _ = _dryrun_serving_step(DEVICE, "decode")
+    times = {"operator": [], "direct": []}
+
+    def tick(route):
+        for name in direct:
+            setattr(ops, name, wrappers[name] if route == "operator"
+                    else direct[name])
+        t0 = time.perf_counter()
+        logits, _ = run()
+        logits[:, 0].argmax(-1).tolist()
+        times[route].append((time.perf_counter() - t0) * 1e3)
+
+    try:
+        for i in range(DRYRUN_TICKS):
+            for route in (("operator", "direct") if i % 2
+                          else ("direct", "operator")):
+                tick(route)
+    finally:
+        for name, wrapper in wrappers.items():
+            setattr(ops, name, wrapper)
+    x = torch.randn((8, 1, 576), device=DEVICE).to(torch.bfloat16)
+    gamma = torch.ones(576, device=DEVICE, dtype=torch.bfloat16)
+    q = torch.randn((8, 1, 9, 64), device=DEVICE).to(torch.bfloat16)
+    kv = torch.randn((8, 2048, 3, 64), device=DEVICE).to(torch.bfloat16)
+    q, kv = q.transpose(1, 2), kv.transpose(1, 2)
+    at = torch.full((8,), 1000, dtype=torch.int32, device=DEVICE)
+    with torch.no_grad():
+        per_call = {
+            "rmsnorm_operator": _per_call_us(lambda: ops.rmsnorm(x, gamma)),
+            "rmsnorm_direct": _per_call_us(lambda: rmsnorm_cuda(x, gamma)),
+            "attention_operator": _per_call_us(
+                lambda: ops.flash_attention(q, kv, kv, True, None, at)),
+            "attention_direct": _per_call_us(
+                lambda: flash_attention_cuda(q, kv, kv, True, None, at))}
+    med = {k: float(np.median(v)) for k, v in times.items()}
+    return {"ticks_each": DRYRUN_TICKS, "tick_ms_median": med,
+            "tick_ms_mean": {k: float(np.mean(v)) for k, v in times.items()},
+            "operator_over_direct": med["operator"] / med["direct"],
+            "per_call_us": per_call}
+
+
+def phase_dryrun() -> None:
+    """COMET's measured frontend (repro_torch.core.op_counter, core.hlo,
+    launch.dryrun). (a) The train_lm step, one smollm prefill and one decode
+    tick, each counted by the op counter on the card and on ``meta`` at the
+    same sizes: FLOPs, bytes and collective bytes must be equal; the
+    roofline terms at the H100's rates beside the measured wall and device
+    ms, model_flops_util, and the counted peak live bytes beside
+    torch.cuda.max_memory_allocated. (b) On the host: lower_cell over every
+    runnable cell on the 16 x 16 mesh and the dense family's on the 2 x 16
+    x 16 (a fake process group of 256 / 512 ranks; none may be held here):
+    the ok and refused counts, each cell's trace_s and dominant term; a
+    dense cell must be ok, and every refusal must name its ROADMAP item.
+    Also the host cost of a call by each dispatcher route, and what the
+    kernels' operators cost the decode tick against direct launches."""
+    if dist.is_initialized():
+        raise SystemExit("chip_smoke: dryrun: a process group is held")
+    steps = []
+    for name, shape, dtype, make in (
+            ("train_lm step", ShapeConfig("train_lm", LM_SEQ, LM_BATCH,
+                                          "train"),
+             torch.float32, _dryrun_lm_step),
+            ("prefill", ShapeConfig("prefill", DRYRUN_PREFILL[1],
+                                    DRYRUN_PREFILL[0], "prefill"),
+             torch.bfloat16,
+             lambda dev: _dryrun_serving_step(dev, "prefill")),
+            ("decode tick", ShapeConfig("decode", DRYRUN_DECODE[1],
+                                        DRYRUN_DECODE[0], "decode"),
+             torch.bfloat16,
+             lambda dev: _dryrun_serving_step(dev, "decode"))):
+        steps.append(_dryrun_row(name, shape, dtype, make))
+        torch.cuda.empty_cache()
+
+    tick_cost = _dispatch_on_the_tick()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    cells = [(arch, shape_name, False)
+             for arch, shape_name, runnable, _ in all_cells() if runnable]
+    cells += [(arch, shape_name, True) for arch, shape_name, _ in cells
+              if get_config(arch).family == "dense"]
+    directory = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
+    try:
+        infos = [run_cell(arch, shape_name, mp, directory)
+                 for arch, shape_name, mp in cells]
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+    sweep_s = time.perf_counter() - t0
+    rows = [{"arch": i["arch"], "shape": i["shape"], "mesh": i["mesh"],
+             "status": i["status"],
+             **({"trace_s": i["trace_s"], "dominant": i["dominant"],
+                 "roofline_fraction": i["roofline_fraction"],
+                 "model_flops_util": i["model_flops_util"]}
+                if i["status"] == "ok" else {"error": i["error"][:160]})}
+            for i in infos]
+
+    problems = [f"{r['step']}: counts differ on cuda and meta"
+                for r in steps if not r["equal_on_cuda_and_meta"]]
+    problems += [f"{r['arch']} {r['shape']} {r['mesh']}: {r['error']}"
+                 for r in rows if r["status"] != "ok"
+                 and (get_config(r["arch"]).family == "dense"
+                      or "ROADMAP Queue 1 item" not in r["error"])]
+    if dist.is_initialized():
+        problems.append("a process group was left after the sweep")
+    emit("dryrun", card=_smi("name,power.limit"), steps=steps,
+         sweep={"cells": len(rows),
+                "ok": sum(r["status"] == "ok" for r in rows),
+                "refused": sum(r["status"] != "ok" for r in rows),
+                "seconds": sweep_s, "rows": rows},
+         dispatch_us=_dispatch_us(), dispatch_on_the_tick=tick_cost,
+         problems=problems)
+    if problems:
+        raise SystemExit(f"chip_smoke: dryrun phase failed: {problems}")
+
+
 def kernels_line(cases: list, launches_by_path: dict, repeats: list) -> dict:
     """One entry per kernel: its launches on the main paths (each path's
     count, read just after that path; 0 where a path never launches it; and
@@ -3424,6 +3739,7 @@ def main() -> int:
     phase_checkpoint()
     launches["parallel"] = phase_parallel()
     phase_parallel_gloo()
+    phase_dryrun()
     launches["study"] = phase_study()
     launches["run_study"] = phase_run_study()
     line = kernels_line(cases, launches, repeats)

@@ -66,3 +66,19 @@ def get_dlrm_config(reduced: bool = False):
     ``get_config`` does not know it)."""
     from repro_torch.configs import dlrm_1p2t
     return dlrm_1p2t.REDUCED if reduced else dlrm_1p2t.CONFIG
+
+
+def all_cells() -> List[tuple]:
+    """Every (arch_id, shape_name) cell, including documented skips:
+    (arch_id, shape_name, runnable, skip_reason), as the reference's."""
+    cells = []
+    for arch_id in ASSIGNED_ARCHS:
+        runnable = set(get_config(arch_id).applicable_shapes())
+        for shape_name in SHAPES:
+            if shape_name in runnable:
+                cells.append((arch_id, shape_name, True, ""))
+            else:
+                cells.append((arch_id, shape_name, False,
+                              "long_500k skipped: full quadratic attention at "
+                              "512k context is mis-provisioned"))
+    return cells

@@ -165,6 +165,19 @@ class ModelConfig:
         return self.family == "ssm"
 
     @property
+    def supports_long_context(self) -> bool:
+        """Sub-quadratic sequence mixing -> long_500k is runnable."""
+        return self.family in ("ssm", "hybrid")
+
+    def applicable_shapes(self) -> tuple:
+        """Which of the four assigned shapes this arch runs (the others are
+        the reference's documented skips)."""
+        names = ["train_4k", "prefill_32k", "decode_32k"]
+        if self.supports_long_context:
+            names.append("long_500k")
+        return tuple(names)
+
+    @property
     def d_inner(self) -> int:
         """SSM inner width."""
         assert self.ssm is not None

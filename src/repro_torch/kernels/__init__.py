@@ -8,8 +8,11 @@ ssd_scan        — Mamba2 SSD chunked scan forward (csrc/ssd_scan.cu)
 embedding_bag   — DLRM pooled lookup, forward and backward
                   (csrc/embedding_bag.cu)
 
-ops.py: the public wrappers, each with a launch counter. Each kernel's module
-holds its plain PyTorch version beside the function that launches it.
+ops.py: each kernel entry as an operator of PyTorch's dispatcher
+(``torch.ops.repro_torch.*``: CUDA, CPU and fake implementations) and the
+public wrappers over them, each with a launch counter. Each kernel's module
+holds its plain PyTorch version beside the function that launches it, and
+its work formula ((flops, bytes) from shapes and dtype).
 _build.py: nvcc -> one shared library -> ctypes, at first use.
 """
 

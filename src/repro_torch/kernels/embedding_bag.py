@@ -40,7 +40,7 @@ function the port runs for CPU tensors.
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -57,6 +57,28 @@ BACKWARD_STAGES = ("sort", "pieces", "write")
 def _wrapped(indices: torch.Tensor, num_rows: int) -> torch.Tensor:
     idx = indices.long()
     return torch.where(idx < 0, idx + num_rows, idx)
+
+
+def forward_work(b: int, t: int, lookups: int, e: int, dtype: torch.dtype,
+                 rows_read: Optional[int] = None) -> Tuple[int, int]:
+    """(flops, bytes) of one forward call: one add an element of each
+    lookup; the int32 indices read and the output written once, and
+    ``rows_read`` table rows read once (the distinct rows the call's data
+    names; by default one a lookup)."""
+    n = b * t * lookups
+    rows_read = n if rows_read is None else rows_read
+    return n * e, (rows_read * e + b * t * e) * dtype.itemsize + 4 * n
+
+
+def backward_work(b: int, t: int, lookups: int, r: int, e: int,
+                  dtype: torch.dtype, kept: Optional[int] = None
+                  ) -> Tuple[int, int]:
+    """(flops, bytes) of one backward call: one add an element of each kept
+    lookup (``kept``: those inside [0, R) after the wrap; by default all);
+    dout and the indices read once, the dense dtables written once."""
+    n = b * t * lookups
+    kept = n if kept is None else kept
+    return kept * e, (b * t * e + t * r * e) * dtype.itemsize + 4 * n
 
 
 def embedding_bag_plain(tables: torch.Tensor,

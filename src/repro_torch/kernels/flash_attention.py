@@ -149,6 +149,47 @@ def flash_attention_backward_plain(q: torch.Tensor, k: torch.Tensor,
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+def causal_pairs(sq: int, skv: int) -> int:
+    """The (query, key) pairs of one head a top-left causal mask allows:
+    query ``i`` sees keys ``0 .. min(i, skv - 1)``."""
+    m = min(sq, skv)
+    return m * (m + 1) // 2 + (sq - m) * skv
+
+
+def forward_work(b: int, h: int, hkv: int, sq: int, skv: int, d: int,
+                 dtype: torch.dtype, causal: bool = True, lse: bool = False,
+                 pairs: Optional[int] = None,
+                 kv_rows: Optional[int] = None) -> Tuple[int, int]:
+    """(flops, bytes) of one forward call: the useful work, which the bound
+    of ``chip_smoke.py`` and the op counter (``core/op_counter.py``) read.
+    Two products of ``2 d`` flops for each (batch, query, key) triple the
+    masks allow, over the ``h`` query heads; q read and o written once, the
+    K/V rows that at least one query sees read once; with ``lse`` the rows'
+    fp32 log-sum-exp written too. ``pairs`` / ``kv_rows``: what the call's
+    data allows (``kv_len`` / ``q_offset``), summed over the batch; by
+    default what the plain causal (top-left) or full mask allows."""
+    if pairs is None:
+        pairs = b * (causal_pairs(sq, skv) if causal else sq * skv)
+    if kv_rows is None:
+        kv_rows = b * (min(sq, skv) if causal else skv)
+    nbytes = (2 * b * h * sq * d + 2 * kv_rows * hkv * d) * dtype.itemsize
+    if lse:
+        nbytes += 4 * b * h * sq
+    return 4 * pairs * h * d, nbytes
+
+
+def backward_work(b: int, h: int, hkv: int, sq: int, skv: int, d: int,
+                  dtype: torch.dtype, causal: bool = True
+                  ) -> Tuple[int, int]:
+    """(flops, bytes) of one backward call: five products of ``2 d`` flops
+    for each (query, key) pair the mask allows; q, o, dO, k, v and the fp32
+    log-sum-exp read once, dq, dk, dv written once."""
+    pairs = b * (causal_pairs(sq, skv) if causal else sq * skv)
+    nbytes = ((4 * b * h * sq * d + 4 * b * hkv * skv * d) * dtype.itemsize
+              + 4 * b * h * sq)
+    return 10 * pairs * h * d, nbytes
+
+
 def _check_index_vector(name: str, t: torch.Tensor, b: int,
                         device: torch.device) -> None:
     if (t.device != device or t.dtype != torch.int32 or t.shape != (b,)

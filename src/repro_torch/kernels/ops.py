@@ -1,34 +1,56 @@
-"""Public wrappers around the CUDA kernels.
+"""Public wrappers around the CUDA kernels, and the kernels as operators of
+PyTorch's dispatcher.
 
-Counterpart of ``src/repro/kernels/ops.py``. The device of the input decides
-the route and nothing else does: a tensor on a CUDA device goes to the
-hand-written kernel (or the call raises), a tensor on the CPU goes to the
-plain PyTorch version, which is how the CPU tests run. There is no switch and
-no fall-back.
+Counterpart of ``src/repro/kernels/ops.py``. Every kernel entry is an
+operator of the ``repro_torch`` namespace (``torch.ops.repro_torch.*``,
+defined with ``torch.library.Library``) with three implementations, one a
+dispatch key:
+
+  * ``CUDA``: the hand-written kernel (or the call raises);
+  * ``CPU``: the plain PyTorch version, which is how the CPU tests run;
+  * ``Meta`` (``torch.library.register_fake``): shapes, strides and dtypes
+    only, for ``meta`` and fake tensors.
+
+So the device of the input decides the route and nothing else does: there
+is no switch and no fall-back, and a ``meta`` tensor never reaches a kernel.
+The outputs of all three share the kernels' layout (attention's outputs are
+allocated (b, s, heads, d) and handed back transposed), so that what runs
+after an operator does the same work on every device. A dispatch mode (the
+op counter, ``core/op_counter.py``) sees each operator as one op; its work,
+(flops, bytes) from shapes and dtype, is the kernel module's formula
+(``WORK``; the FLOPs are registered with ``torch.utils.flop_counter`` too).
 
 Each wrapper counts its kernel launches in ``<wrapper>.launches``, a plain
-integer raised where the kernel is launched and nowhere else, so a run can
-show that it went through the kernels. ``embedding_bag``, ``flash_attention``
-and ``rmsnorm`` have gradients (``torch.autograd.Function``s whose backward
-is a kernel too on the card, the plain backward on the CPU): the backward
-counts in ``<wrapper>.backward_launches``, one a call of its kernels. A
-forward that a remat policy recomputes during the backward is launched, and
-counted, again. ``ssd_scan`` has no backward kernel: on the card it refuses
-a call that wants a gradient.
+integer raised in the CUDA implementation, where the kernel is launched,
+and nowhere else, so a run can show that it went through the kernels.
+``embedding_bag``, ``flash_attention`` and ``rmsnorm`` have gradients
+(``torch.autograd.Function``s whose forward and backward call the
+operators): the backward counts in ``<wrapper>.backward_launches``, one a
+call of its kernels. A forward that a remat policy recomputes during the
+backward is launched, and counted, again. ``ssd_scan`` has no backward
+kernel: a call that wants a gradient runs the plain version on the CPU and
+raises on any other device.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
+from repro_torch.kernels import embedding_bag as bag_module
+from repro_torch.kernels import flash_attention as attn_module
+from repro_torch.kernels import rmsnorm as norm_module
+from repro_torch.kernels import ssd_scan as ssd_module
 from repro_torch.kernels.embedding_bag import (
-    EmbeddingBagPlain,
     embedding_bag_backward_cuda,
+    embedding_bag_backward_plain,
     embedding_bag_cuda,
+    embedding_bag_plain,
 )
 from repro_torch.kernels.flash_attention import (
+    _new_like_heads,
     flash_attention_backward_cuda,
     flash_attention_backward_plain,
     flash_attention_cuda,
@@ -45,6 +67,241 @@ from repro_torch.kernels.rmsnorm import (
 )
 from repro_torch.kernels.ssd_scan import ssd_scan_cuda, ssd_scan_plain
 
+NAMESPACE = "repro_torch"
+_LIB = torch.library.Library(NAMESPACE, "DEF")
+
+# op -> (flops, bytes) of one call, from the call's arguments
+WORK: Dict[object, Callable[..., Tuple[int, int]]] = {}
+
+
+def _define(schema: str, cpu: Callable, cuda: Callable, fake: Callable,
+            work: Callable[..., Tuple[int, int]]):
+    """Define ``repro_torch::<schema>`` with its CPU, CUDA and fake
+    implementations and its work formula; return the operator. The CPU
+    implementations look the plain versions up in this module when called,
+    so a test may wrap one here to count its calls."""
+    name = schema.split("(", 1)[0]
+    _LIB.define(schema)
+    _LIB.impl(name, cpu, "CPU")
+    _LIB.impl(name, cuda, "CUDA")
+    torch.library.register_fake(f"{NAMESPACE}::{name}", fake, lib=_LIB)
+    op = getattr(getattr(torch.ops, NAMESPACE), name)
+    WORK[op] = work
+    register_flop_formula(op, get_raw=True)(
+        lambda *args, out_val=None, **kwargs: work(*args, **kwargs)[0])
+    return op
+
+
+def _heads_layout(t: torch.Tensor) -> torch.Tensor:
+    """``t`` (b, heads, s, d) in the kernels' layout: allocated (b, s,
+    heads, d), handed back transposed."""
+    b, heads, s, d = t.shape
+    return _new_like_heads(b, s, heads, d, t).copy_(t)
+
+
+# ----------------------------------------------------------------------- #
+# Attention: the serving route, the training forward, the backward
+# ----------------------------------------------------------------------- #
+
+def _attention_work(q, k, v, causal, kv_len=None, q_offset=None):
+    b, h, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    if kv_len is None and q_offset is None:
+        return attn_module.forward_work(b, h, hkv, sq, skv, d, q.dtype, causal)
+    # The masks' data decides the pairs; a count from shapes alone takes
+    # every key as seen by every query (what the kernel may read at most).
+    return attn_module.forward_work(b, h, hkv, sq, skv, d, q.dtype, causal,
+                                    pairs=b * sq * skv, kv_rows=b * skv)
+
+
+def _attention_cuda(q, k, v, causal, kv_len=None, q_offset=None):
+    out = flash_attention_cuda(q, k, v, causal, kv_len, q_offset)
+    flash_attention.launches += 1
+    return out
+
+
+_attention_op = _define(
+    "flash_attention(Tensor q, Tensor k, Tensor v, bool causal, "
+    "Tensor? kv_len, Tensor? q_offset) -> Tensor",
+    lambda q, k, v, causal, kv_len=None, q_offset=None: _heads_layout(
+        flash_attention_plain(q, k, v, causal, kv_len, q_offset)),
+    _attention_cuda,
+    lambda q, k, v, causal, kv_len=None, q_offset=None: _new_like_heads(
+        q.shape[0], q.shape[2], q.shape[1], q.shape[3], q),
+    _attention_work)
+
+
+def _attention_lse_cpu(q, k, v, causal):
+    out, lse = flash_attention_forward_plain(q, k, v, causal)
+    return _heads_layout(out), lse
+
+
+def _attention_lse_cuda(q, k, v, causal):
+    out = flash_attention_lse_cuda(q, k, v, causal)
+    flash_attention.launches += 1
+    return out
+
+
+def _attention_lse_fake(q, k, v, causal):
+    b, h, sq, d = q.shape
+    return (_new_like_heads(b, sq, h, d, q),
+            q.new_empty((b, h, sq),
+                        dtype=torch.promote_types(q.dtype, torch.float32)))
+
+
+def _attention_lse_work(q, k, v, causal):
+    b, h, sq, d = q.shape
+    return attn_module.forward_work(b, h, k.shape[1], sq, k.shape[2], d,
+                                    q.dtype, causal, lse=True)
+
+
+_attention_lse_op = _define(
+    "flash_attention_lse(Tensor q, Tensor k, Tensor v, bool causal) "
+    "-> (Tensor, Tensor)",
+    _attention_lse_cpu, _attention_lse_cuda, _attention_lse_fake,
+    _attention_lse_work)
+
+
+def _attention_backward_cpu(q, k, v, o, lse, do, causal):
+    return tuple(_heads_layout(g) for g in flash_attention_backward_plain(
+        q, k, v, o, lse, do, causal))
+
+
+def _attention_backward_cuda(q, k, v, o, lse, do, causal):
+    grads = flash_attention_backward_cuda(q, k, v, o, lse, do, causal)
+    flash_attention.backward_launches += 1
+    return grads
+
+
+def _attention_backward_fake(q, k, v, o, lse, do, causal):
+    b, h, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    return (_new_like_heads(b, sq, h, d, q), _new_like_heads(b, skv, hkv, d, k),
+            _new_like_heads(b, skv, hkv, d, v))
+
+
+def _attention_backward_work(q, k, v, o, lse, do, causal):
+    b, h, sq, d = q.shape
+    return attn_module.backward_work(b, h, k.shape[1], sq, k.shape[2], d,
+                                     q.dtype, causal)
+
+
+_attention_backward_op = _define(
+    "flash_attention_backward(Tensor q, Tensor k, Tensor v, Tensor o, "
+    "Tensor lse, Tensor do, bool causal) -> (Tensor, Tensor, Tensor)",
+    _attention_backward_cpu, _attention_backward_cuda,
+    _attention_backward_fake, _attention_backward_work)
+
+
+# ----------------------------------------------------------------------- #
+# RMSNorm
+# ----------------------------------------------------------------------- #
+
+def _rows(x: torch.Tensor) -> int:
+    return x.numel() // x.shape[-1]
+
+
+def _rmsnorm_cuda(x, gamma, eps):
+    out = rmsnorm_cuda(x, gamma, eps)
+    rmsnorm.launches += 1
+    return out
+
+
+_rmsnorm_op = _define(
+    "rmsnorm(Tensor x, Tensor gamma, float eps) -> Tensor",
+    lambda x, gamma, eps: rmsnorm_plain(x, gamma, eps), _rmsnorm_cuda,
+    lambda x, gamma, eps: torch.empty_like(x),
+    lambda x, gamma, eps: norm_module.forward_work(_rows(x), x.shape[-1],
+                                                   x.dtype))
+
+
+def _rmsnorm_backward_cuda(x, gamma, dy, eps):
+    grads = rmsnorm_backward_cuda(x, gamma, dy, eps)
+    rmsnorm.backward_launches += 1
+    return grads
+
+
+_rmsnorm_backward_op = _define(
+    "rmsnorm_backward(Tensor x, Tensor gamma, Tensor dy, float eps) "
+    "-> (Tensor, Tensor)",
+    lambda x, gamma, dy, eps: rmsnorm_backward_plain(x, gamma, dy, eps),
+    _rmsnorm_backward_cuda,
+    lambda x, gamma, dy, eps: (torch.empty_like(x), torch.empty_like(gamma)),
+    lambda x, gamma, dy, eps: norm_module.backward_work(
+        _rows(x), x.shape[-1], x.dtype))
+
+
+# ----------------------------------------------------------------------- #
+# SSD scan
+# ----------------------------------------------------------------------- #
+
+def _ssd_cuda(x, dt, A, B, C, chunk):
+    out = ssd_scan_cuda(x, dt, A, B, C, chunk)
+    ssd_scan.launches += 1
+    return out
+
+
+def _ssd_fake(x, dt, A, B, C, chunk):
+    b, _, h, p = x.shape
+    return (x.new_empty(x.shape),
+            x.new_empty((b, h, p, B.shape[-1]), dtype=torch.float32))
+
+
+def _ssd_work(x, dt, A, B, C, chunk):
+    b, s, h, p = x.shape
+    return ssd_module.work(b, s, h, p, B.shape[-1], B.shape[-2], chunk,
+                           x.dtype)
+
+
+_ssd_op = _define(
+    "ssd_scan(Tensor x, Tensor dt, Tensor A, Tensor B, Tensor C, int chunk) "
+    "-> (Tensor, Tensor)",
+    lambda x, dt, A, B, C, chunk: ssd_scan_plain(x, dt, A, B, C, chunk),
+    _ssd_cuda, _ssd_fake, _ssd_work)
+
+
+# ----------------------------------------------------------------------- #
+# Embedding bag
+# ----------------------------------------------------------------------- #
+
+def _bag_cuda(tables, indices):
+    out = embedding_bag_cuda(tables, indices)
+    embedding_bag.launches += 1
+    return out
+
+
+_bag_op = _define(
+    "embedding_bag(Tensor tables, Tensor indices) -> Tensor",
+    lambda tables, indices: embedding_bag_plain(tables, indices), _bag_cuda,
+    lambda tables, indices: tables.new_empty(
+        (indices.shape[0], indices.shape[1], tables.shape[2])),
+    lambda tables, indices: bag_module.forward_work(
+        indices.shape[0], indices.shape[1], indices.shape[2],
+        tables.shape[2], tables.dtype))
+
+
+def _bag_backward_cuda(dout, indices, num_rows):
+    out = embedding_bag_backward_cuda(dout, indices, num_rows)
+    embedding_bag.backward_launches += 1
+    return out
+
+
+_bag_backward_op = _define(
+    "embedding_bag_backward(Tensor dout, Tensor indices, int num_rows) "
+    "-> Tensor",
+    lambda dout, indices, num_rows: embedding_bag_backward_plain(
+        dout, indices, num_rows),
+    _bag_backward_cuda,
+    lambda dout, indices, num_rows: dout.new_empty(
+        (dout.shape[1], num_rows, dout.shape[2])),
+    lambda dout, indices, num_rows: bag_module.backward_work(
+        dout.shape[0], dout.shape[1], indices.shape[2], num_rows,
+        dout.shape[2], dout.dtype))
+
+
+# ----------------------------------------------------------------------- #
+# The wrappers the models call
+# ----------------------------------------------------------------------- #
 
 def _wants_grad(*tensors: torch.Tensor) -> bool:
     return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
@@ -56,11 +313,7 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal):
-        if q.device.type == "cpu":
-            out, lse = flash_attention_forward_plain(q, k, v, causal)
-        else:
-            out, lse = flash_attention_lse_cuda(q, k, v, causal)
-            flash_attention.launches += 1
+        out, lse = _attention_lse_op(q, k, v, causal)
         ctx.causal = causal
         ctx.save_for_backward(q, k, v, out, lse)
         return out
@@ -68,15 +321,9 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
-        if q.device.type == "cpu":
-            grads = flash_attention_backward_plain(q, k, v, out, lse, dout,
-                                                   ctx.causal)
-        else:
-            if not rows_aligned(dout):
-                dout = dout.contiguous()
-            grads = flash_attention_backward_cuda(q, k, v, out, lse, dout,
-                                                  ctx.causal)
-            flash_attention.backward_launches += 1
+        if dout.is_cuda and not rows_aligned(dout):
+            dout = dout.contiguous()
+        grads = _attention_backward_op(q, k, v, out, lse, dout, ctx.causal)
         return (*grads, None)
 
 
@@ -96,34 +343,20 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 "flash attention: the training route (an input requires "
                 "grad) takes neither kv_len nor q_offset")
         return _FlashAttention.apply(q, k, v, causal)
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal, kv_len, q_offset)
-    out = flash_attention_cuda(q, k, v, causal, kv_len, q_offset)
-    flash_attention.launches += 1
-    return out
+    return _attention_op(q, k, v, causal, kv_len, q_offset)
 
 
 class _RMSNorm(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, gamma, eps):
-        if x.device.type == "cpu":
-            out = rmsnorm_plain(x, gamma, eps)
-        else:
-            out = rmsnorm_cuda(x, gamma, eps)
-            rmsnorm.launches += 1
         ctx.eps = eps
         ctx.save_for_backward(x, gamma)
-        return out
+        return _rmsnorm_op(x, gamma, eps)
 
     @staticmethod
     def backward(ctx, dy):
         x, gamma = ctx.saved_tensors
-        if x.device.type == "cpu":
-            dx, dgamma = rmsnorm_backward_plain(x, gamma, dy, ctx.eps)
-        else:
-            dx, dgamma = rmsnorm_backward_cuda(x, gamma, dy.contiguous(),
-                                               ctx.eps)
-            rmsnorm.backward_launches += 1
+        dx, dgamma = _rmsnorm_backward_op(x, gamma, dy.contiguous(), ctx.eps)
         return dx, dgamma, None
 
 
@@ -132,11 +365,7 @@ def rmsnorm(x: torch.Tensor, gamma: torch.Tensor,
     """x: (..., d); gamma: (d,). With a gradient when either requires it."""
     if _wants_grad(x, gamma):
         return _RMSNorm.apply(x, gamma, eps)
-    if x.device.type == "cpu":
-        return rmsnorm_plain(x, gamma, eps)
-    out = rmsnorm_cuda(x, gamma, eps)
-    rmsnorm.launches += 1
-    return out
+    return _rmsnorm_op(x, gamma, eps)
 
 
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
@@ -146,40 +375,33 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     -> (y (b, s, h, p), final state (b, h, p, n) fp32); see
     ``repro_torch.kernels.ssd_scan``.
 
-    The kernels have no backward: on the card a call that wants a gradient
-    (an input requires grad and grad mode is on) raises rather than return
-    a result that would drop it. On the CPU autograd runs through the plain
-    version."""
-    if x.device.type == "cpu":
-        return ssd_scan_plain(x, dt, A, B, C, chunk)
+    The kernels have no backward: a call that wants a gradient (an input
+    requires grad and grad mode is on) raises on the card rather than
+    return a result that would drop it. On the CPU autograd runs through
+    the plain version."""
     if _wants_grad(x, dt, A, B, C):
+        if x.device.type == "cpu":
+            return ssd_scan_plain(x, dt, A, B, C, chunk)
         raise NotImplementedError(
             "ssd_scan: the CUDA kernels have no backward yet (ROADMAP "
             "Queue 2, SSD scan backward); call under torch.no_grad() on "
             "the card, or on CPU tensors for a gradient")
-    out = ssd_scan_cuda(x, dt, A, B, C, chunk)
-    ssd_scan.launches += 1
-    return out
+    return _ssd_op(x, dt, A, B, C, chunk)
 
 
-class _EmbeddingBagKernel(torch.autograd.Function):
-    """Both directions through the CUDA kernels, each counted where it is
-    launched."""
+class _EmbeddingBag(torch.autograd.Function):
+    """Both directions through the operators."""
 
     @staticmethod
     def forward(ctx, tables, indices):
         ctx.save_for_backward(indices)
         ctx.num_rows = tables.shape[1]
-        out = embedding_bag_cuda(tables, indices)
-        embedding_bag.launches += 1
-        return out
+        return _bag_op(tables, indices)
 
     @staticmethod
     def backward(ctx, dout):
         (indices,) = ctx.saved_tensors
-        dtables = embedding_bag_backward_cuda(dout, indices, ctx.num_rows)
-        embedding_bag.backward_launches += 1
-        return dtables, None
+        return _bag_backward_op(dout, indices, ctx.num_rows), None
 
 
 def embedding_bag(tables: torch.Tensor, indices: torch.Tensor) -> torch.Tensor:
@@ -187,9 +409,7 @@ def embedding_bag(tables: torch.Tensor, indices: torch.Tensor) -> torch.Tensor:
     gradient for ``tables``; see ``repro_torch.kernels.embedding_bag``.
     ``embedding_bag.launches`` counts the forward kernel's launches,
     ``embedding_bag.backward_launches`` the backward's calls."""
-    if tables.device.type == "cpu":
-        return EmbeddingBagPlain.apply(tables, indices)
-    return _EmbeddingBagKernel.apply(tables, indices)
+    return _EmbeddingBag.apply(tables, indices)
 
 
 flash_attention.launches = 0

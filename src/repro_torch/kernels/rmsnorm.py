@@ -55,6 +55,19 @@ def rmsnorm_plain(x: torch.Tensor, gamma: torch.Tensor,
     return (xf * torch.rsqrt(var + eps) * gamma.to(wt)).to(x.dtype)
 
 
+def forward_work(rows: int, d: int, dtype: torch.dtype) -> Tuple[int, int]:
+    """(flops, bytes) of one forward call over ``rows`` rows of ``d``: x
+    read and the output written once, gamma read once; 4 flops an element
+    (square, sum, scale, gain)."""
+    return 4 * rows * d, (2 * rows * d + d) * dtype.itemsize
+
+
+def backward_work(rows: int, d: int, dtype: torch.dtype) -> Tuple[int, int]:
+    """(flops, bytes) of one backward call: x, dy read and dx written once,
+    gamma read and dgamma written once; 10 flops an element."""
+    return 10 * rows * d, (3 * rows * d + 2 * d) * dtype.itemsize
+
+
 def rmsnorm_cuda(x: torch.Tensor, gamma: torch.Tensor,
                  eps: float = 1e-5) -> torch.Tensor:
     """Launch the CUDA kernel on PyTorch's current stream. Raises on anything

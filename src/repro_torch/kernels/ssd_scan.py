@@ -52,6 +52,21 @@ STAGES = ("scores", "states", "pass", "outputs")
 KERNELS_PER_CALL = len(STAGES)  # CUDA kernels one ``ssd_scan_cuda`` launches
 
 
+def work(b: int, s: int, h: int, p: int, n: int, g: int, chunk: int,
+         dtype: torch.dtype) -> Tuple[int, int]:
+    """(flops, bytes) of one call, each chunk as long as it is: C B^T on and
+    below the diagonal once a group, then for each head G x, C S^T and the
+    chunk's state; x, B, C read and y written once in ``dtype``, dt read
+    and the final state written once in fp32, A read once."""
+    q = min(chunk, s)
+    lens = [min(q, s - t0) for t0 in range(0, s, q)]
+    flops = sum(b * g * L * (L + 1) * n
+                + b * h * (L * (L + 1) * p + 4 * L * p * n) for L in lens)
+    nbytes = ((2 * b * s * h * p + 2 * b * s * g * n) * dtype.itemsize
+              + 4 * (b * s * h + h + b * h * p * n))
+    return flops, nbytes
+
+
 def ssd_scan_plain(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                    B: torch.Tensor, C: torch.Tensor, chunk: int = 256
                    ) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -38,10 +38,28 @@ DEFAULT_DTYPE = torch.bfloat16
 # Initializers
 # --------------------------------------------------------------------- #
 
-def dense_init(generator: torch.Generator, shape, dtype=DEFAULT_DTYPE,
+def init_generator(device: torch.device,
+                   generator: Optional[torch.Generator] = None
+                   ) -> Optional[torch.Generator]:
+    """The generator a model's weights are drawn from: the caller's, else a
+    CPU one seeded with 0; None for a model on ``meta``, whose weights are
+    then empty ``meta`` tensors (``dense_init``, ``embed_init``): nothing
+    is drawn or allocated, whatever the model's size."""
+    if device.type == "meta":
+        return None
+    if generator is None:
+        return torch.Generator(device="cpu").manual_seed(0)
+    return generator
+
+
+def dense_init(generator: Optional[torch.Generator], shape,
+               dtype=DEFAULT_DTYPE,
                scale: Optional[float] = None) -> torch.Tensor:
     """Normal truncated at two standard deviations, fan-in scaled. Drawn on
-    the generator's device in fp32 by inverting the normal CDF."""
+    the generator's device in fp32 by inverting the normal CDF; an empty
+    ``meta`` tensor when ``generator`` is None (``init_generator``)."""
+    if generator is None:
+        return torch.empty(shape, dtype=dtype, device="meta")
     fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
     std = scale if scale is not None else 1.0 / math.sqrt(fan_in)
     lo = 0.5 * (1.0 + math.erf(-2.0 / math.sqrt(2.0)))
@@ -53,8 +71,10 @@ def dense_init(generator: torch.Generator, shape, dtype=DEFAULT_DTYPE,
     return (x.clamp_(-2.0, 2.0) * std).to(dtype)
 
 
-def embed_init(generator: torch.Generator, shape,
+def embed_init(generator: Optional[torch.Generator], shape,
                dtype=DEFAULT_DTYPE) -> torch.Tensor:
+    if generator is None:
+        return torch.empty(shape, dtype=dtype, device="meta")
     x = torch.randn(shape, generator=generator, device=generator.device,
                     dtype=torch.float32)
     return (x * 0.02).to(dtype)

@@ -35,6 +35,7 @@ from repro_torch.models.common import (
     cross_entropy_loss,
     dense_init,
     embed_init,
+    init_generator,
     init_ffn_params,
     rms_norm,
     rope_frequencies,
@@ -79,8 +80,7 @@ class EncDec(nn.Module):
             raise ValueError(f"EncDec builds the encdec family, not "
                              f"{cfg.family!r}")
         device = resolve_device(device)
-        if generator is None:
-            generator = torch.Generator(device="cpu").manual_seed(0)
+        generator = init_generator(device, generator)
         self.cfg = cfg
         self.embed = _param(embed_init(
             generator, (cfg.padded_vocab, cfg.d_model), dtype), device)

@@ -45,6 +45,7 @@ from repro_torch.models.common import (
     cross_entropy_loss,
     dense_init,
     embed_init,
+    init_generator,
     init_ffn_params,
     rms_norm,
     rope_frequencies,
@@ -239,8 +240,7 @@ class Mamba(nn.Module):
             raise ValueError(f"{cfg.num_layers} layers do not split into "
                              f"groups of {cfg.hybrid.attn_every}")
         device = resolve_device(device)
-        if generator is None:
-            generator = torch.Generator(device="cpu").manual_seed(0)
+        generator = init_generator(device, generator)
         self.cfg = cfg
         self.embed = _param(embed_init(
             generator, (cfg.padded_vocab, cfg.d_model), dtype), device)

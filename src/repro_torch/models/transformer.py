@@ -43,6 +43,7 @@ from repro_torch.models.common import (
     cross_entropy_loss,
     dense_init,
     embed_init,
+    init_generator,
     ffn_block,
     init_ffn_params,
     init_moe_params,
@@ -51,6 +52,7 @@ from repro_torch.models.common import (
     rope_frequencies,
     rope_positions,
 )
+from repro_torch.parallel.sharding import all_gather_dim
 from repro_torch.parallel.tensor import (
     copy_to_region,
     vocab_parallel_cross_entropy,
@@ -132,15 +134,15 @@ class Attention(nn.Module):
         return {"wq": self.wq, "wk": self.wk, "wv": self.wv, "wo": self.wo}
 
     def _local_heads(self, params: Dict[str, torch.Tensor]
-                     ) -> Tuple[int, int]:
-        """This rank's (query heads, KV heads) under ``tp_group``; narrows
-        replicated ``wk``/``wv`` in ``params`` to the KV head its query
-        heads share."""
+                     ) -> Tuple[int, int, Optional[int]]:
+        """This rank's (query heads, KV heads, the KV head it takes, or None
+        where the KV heads divide over ``tp_group``); narrows replicated
+        ``wk``/``wv`` in ``params`` to the KV head its query heads share."""
         cfg, group = self.cfg, self.tp_group
         hd, tp = cfg.resolved_head_dim, dist.get_world_size(group)
         heads = cfg.num_heads // tp
         if cfg.num_kv_heads % tp == 0:
-            return heads, cfg.num_kv_heads // tp
+            return heads, cfg.num_kv_heads // tp, None
         per_kv = cfg.num_heads // cfg.num_kv_heads     # query heads a KV head
         if per_kv % heads:
             raise NotImplementedError(
@@ -150,7 +152,7 @@ class Attention(nn.Module):
             # every rank's grads of the replicated weight, summed
             w = copy_to_region(params[name], group)
             params[name] = w[:, kv * hd:(kv + 1) * hd]
-        return heads, 1
+        return heads, 1, kv
 
     def forward(self, x: torch.Tensor, kv_cache: Optional[dict],
                 rope=None) -> torch.Tensor:
@@ -158,7 +160,12 @@ class Attention(nn.Module):
         params = self.params()
         heads, kv_heads = cfg.num_heads, cfg.num_kv_heads
         if self.tp_group is not None:
-            heads, kv_heads = self._local_heads(params)
+            heads, kv_heads, kv = self._local_heads(params)
+            if kv is not None and kv_cache is not None:
+                # the cache holds every KV head (the rules replicate them):
+                # this rank reads and writes its own
+                kv_cache = {**kv_cache, "k": kv_cache["k"].narrow(2, kv, 1),
+                            "v": kv_cache["v"].narrow(2, kv, 1)}
         return attention_block(
             params, x, num_heads=heads, num_kv_heads=kv_heads,
             head_dim=cfg.resolved_head_dim, rope_fraction=cfg.rope_fraction,
@@ -252,8 +259,7 @@ class Transformer(nn.Module):
             raise ValueError(f"{cfg.num_layers} layers do not split into "
                              f"super-blocks of {cfg.moe.moe_every}")
         device = resolve_device(device)
-        if generator is None:
-            generator = torch.Generator(device="cpu").manual_seed(0)
+        generator = init_generator(device, generator)
         self.cfg = cfg
         self.embed = _param(embed_init(
             generator, (cfg.padded_vocab, cfg.d_model), dtype), device)
@@ -266,7 +272,7 @@ class Transformer(nn.Module):
                 generator, (cfg.d_model, cfg.padded_vocab), dtype), device)
         # The model axis's group where ``embed`` (and ``head``) hold this
         # rank's block of the vocabulary (parallel.tensor): the loss then
-        # runs on the block's logits, and serving is refused.
+        # runs on the block's logits, serving all-gathers them.
         self.vocab_group = None
 
     @property
@@ -362,11 +368,14 @@ class Transformer(nn.Module):
             x = copy_to_region(x, self.vocab_group)
         return x @ head
 
-    def _serving(self) -> None:
-        if self.vocab_group is not None:
-            raise NotImplementedError(
-                "a vocabulary split over the model axis trains only: "
-                "serving it waits for its slice (ROADMAP Queue 1)")
+    def _serving_logits(self, x: torch.Tensor) -> torch.Tensor:
+        """Logits over the whole vocabulary on every rank: under
+        ``vocab_group`` the ranks' blocks are all-gathered, as the
+        reference's serving steps return their logits replicated."""
+        logits = self._logits(x)
+        if self.vocab_group is None:
+            return logits
+        return all_gather_dim(logits, logits.dim() - 1, self.vocab_group)
 
     def forward(self, tokens: torch.Tensor, cache: Optional[dict] = None,
                 patches: Optional[torch.Tensor] = None
@@ -374,9 +383,8 @@ class Transformer(nn.Module):
         """tokens: (b, s) integer; patches: (b, p, d) for the VLM. Returns
         (logits (b, p + s, padded_vocab), cache). The cache is the caller's
         own dict, updated in place."""
-        self._serving()
         x, _ = self._trunk(self._embed(tokens, patches), cache)
-        return self._logits(x), cache
+        return self._serving_logits(x), cache
 
     def loss(self, batch: Dict[str, torch.Tensor], remat: Optional[str] = "dots"
              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
@@ -417,9 +425,8 @@ class Transformer(nn.Module):
         VLM); logits of the last position, (b, 1, padded_vocab). Only that
         position goes through the final norm and the head: the others'
         logits are not needed to serve."""
-        self._serving()
         x, _ = self._trunk(self._embed(tokens, patches), cache)
-        return self._logits(x[:, -1:, :]), cache
+        return self._serving_logits(x[:, -1:, :]), cache
 
     @torch.no_grad()
     def decode_step(self, cache: dict, tokens: torch.Tensor

@@ -52,7 +52,13 @@ from torch.distributed.device_mesh import DeviceMesh
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import get_model
-from repro_torch.parallel.mesh import MODEL_AXIS, dp_axes, mesh_spec, mp_size
+from repro_torch.parallel.mesh import (
+    MODEL_AXIS,
+    dp_axes,
+    dp_size,
+    mesh_spec,
+    mp_size,
+)
 from repro_torch.parallel.policy import MemoryPlan
 from repro_torch.parallel.sharding import (
     Placement,
@@ -180,51 +186,90 @@ def state_shardings(cfg: ModelConfig, plan: MemoryPlan, state: dict,
             "opt": opt}
 
 
-def _refuse_unported(cfg: ModelConfig, plan: MemoryPlan, mesh) -> None:
-    """Raise for what this slice does not shard (tensor parallelism of a
-    family other than the dense one, ZeRO-3 of one other than the
-    transformer's), and for a mesh with no processes behind it."""
+# ROADMAP Queue 1 items: tensor parallelism of a family other than the
+# dense one (ZeRO-3 of the ssm, hybrid and encdec families: 12), and a batch
+# too small to split over the data-parallel ranks (a split of the sequence).
+TP_ITEMS = {"moe": 11, "ssm": 12, "hybrid": 12, "encdec": 12, "vlm": 25}
+ZERO3_ITEM = 12
+SEQUENCE_SPLIT_ITEM = 13
+
+
+def _refuse_unported(cfg: ModelConfig, plan: MemoryPlan, mesh,
+                     batch_rows: Optional[int] = None) -> None:
+    """Raise for what the port does not shard yet, naming each ROADMAP
+    item (tensor parallelism of a family other than the dense one, ZeRO-3
+    of one other than the transformer's, and, given ``batch_rows``, a batch
+    too small to divide over the data-parallel ranks); then for a mesh with
+    no processes behind it."""
+    reasons = []
     if mp_size(mesh) > 1 and cfg.family != "dense":
-        raise NotImplementedError(
-            f"tensor parallelism of the {cfg.family} family waits for its "
-            "slice (ROADMAP Queue 1): use a mesh whose model axis is 1")
+        reasons.append(
+            f"tensor parallelism of the {cfg.family} family waits for "
+            f"ROADMAP Queue 1 item {TP_ITEMS[cfg.family]}: use a mesh whose "
+            "model axis is 1")
     if (plan.fsdp and mesh_spec(mesh).shape.get("data", 1) > 1
             and cfg.family not in _TRANSFORMERS):
-        raise NotImplementedError(
-            f"ZeRO-3 of the {cfg.family} family waits for its slice "
-            "(ROADMAP Queue 1)")
+        reasons.append(f"ZeRO-3 of the {cfg.family} family waits for "
+                       f"ROADMAP Queue 1 item {ZERO3_ITEM}")
+    if batch_rows is not None and batch_spec(mesh, (batch_rows,))[0] is None \
+            and dp_size(mesh) > 1:
+        reasons.append(
+            f"a batch of {batch_rows} rows over {dp_size(mesh)} data-parallel "
+            "ranks needs a split along the sequence, which waits for ROADMAP "
+            f"Queue 1 item {SEQUENCE_SPLIT_ITEM}")
+    if reasons:
+        raise NotImplementedError("; ".join(reasons))
     if not isinstance(mesh, DeviceMesh):
         raise TypeError(f"a sharded step runs on a device mesh over a "
                         f"process group (parallel.build_mesh), not {mesh!r}")
 
 
+def shard_model(cfg: ModelConfig, plan: MemoryPlan, model, mesh,
+                placements: Optional[Dict[str, Placement]] = None,
+                batch_rows: Optional[int] = None) -> Dict[str, Placement]:
+    """This rank's pieces of a whole model's parameters (every rank holding
+    the same model), in place: each parameter keeps its object and takes its
+    piece as data; the model is pointed at the model axis's group (dense
+    family: its heads, FFN columns and vocabulary block) and, under ZeRO-3,
+    gathers its parameters where it reads them. Returns the placements
+    (``placements``, else ``param_shardings``'s). Serving and training
+    alike; raises, before anything is changed, as ``shard_train_state``,
+    and, given the global batch's ``batch_rows``, for a batch that does not
+    divide over the data-parallel ranks."""
+    _refuse_unported(cfg, plan, mesh, batch_rows)
+    params = dict(model.named_parameters())
+    sh = placements or param_shardings(cfg, params, mesh, fsdp=plan.fsdp)
+    with torch.no_grad():
+        for name, p in params.items():
+            p.data = local_shard(p.data, sh[name], mesh).clone()
+    if mp_size(mesh) > 1:
+        apply_tensor_parallel(model, sh, mesh.get_group(MODEL_AXIS))
+    if plan.fsdp:
+        gather_on_use(model, sh, mesh)
+    return sh
+
+
 def shard_train_state(cfg: ModelConfig, plan: MemoryPlan, state: dict,
                       mesh) -> dict:
     """This rank's pieces of a whole train state (every rank holding the
-    same one, e.g. from ``init_train_state`` with one seed), in place: each
-    parameter keeps its object and takes its piece as data, each optimizer
-    leaf is replaced by its piece; the model is pointed at the model axis's
-    group (dense family) and, under ZeRO-3, gathers its parameters where it
-    reads them. Returns ``{"model", "params", "opt", "shardings"}``.
+    same one, e.g. from ``init_train_state`` with one seed), in place: the
+    parameters as ``shard_model`` takes them, each optimizer leaf replaced
+    by its piece. Returns ``{"model", "params", "opt", "shardings"}``.
 
     Raises, before anything is changed, for tensor parallelism of a family
     other than the dense one, and for ZeRO-3 of a family other than the
     transformer's or of a layer the rules give to one rank."""
     _refuse_unported(cfg, plan, mesh)
     sh = state_shardings(cfg, plan, state, mesh)
-    model, params, opt = state["model"], state["params"], state["opt"]
+    opt = state["opt"]
     with torch.no_grad():
-        for name, p in params.items():
-            p.data = local_shard(p.data, sh["params"][name], mesh).clone()
         for part in _OPT_TREES:
             for name, t in opt.get(part, {}).items():
                 opt[part][name] = local_shard(t, sh["opt"][part][name],
                                               mesh).clone()
-    if mp_size(mesh) > 1:
-        apply_tensor_parallel(model, sh["params"], mesh.get_group(MODEL_AXIS))
-    if plan.fsdp:
-        gather_on_use(model, sh["params"], mesh)
-    return {"model": model, "params": params, "opt": opt, "shardings": sh}
+    shard_model(cfg, plan, state["model"], mesh, sh["params"])
+    return {"model": state["model"], "params": state["params"], "opt": opt,
+            "shardings": sh}
 
 
 def gather_train_state(state: dict, mesh) -> dict:
@@ -315,7 +360,7 @@ def sharded_train_step(cfg: ModelConfig, plan: MemoryPlan, mesh,
             if any(e is not None for e in spec[1:]):
                 raise NotImplementedError(
                     f"{k} {tuple(v.shape)}: a batch split along the sequence "
-                    "waits for its slice (ROADMAP Queue 1)")
+                    f"waits for ROADMAP Queue 1 item {SEQUENCE_SPLIT_ITEM}")
             local[k] = local_shard(v, spec, mesh)
         counts = (local["targets"] != -1).reshape(m, -1).sum(1).float()
         totals = counts.clone()

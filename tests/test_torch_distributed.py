@@ -24,6 +24,7 @@ bit for bit.
 """
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -34,6 +35,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from repro.parallel.compression import compressed_psum as compressed_psum_jax
 from repro.parallel.compression import dequantize_int8 as dequantize_jax
@@ -81,6 +83,53 @@ def scaled_err(got, want):
     return max(((got[n] - t.detach()).abs().max()
                 / max(t.abs().max().item(), 1e-30)).item()
                for n, t in want.items())
+
+
+SERVE_B, SERVE_S, SERVE_TICKS, SERVE_MAX = 4, 12, 3, 32
+
+
+def serve_pair(shape, axes=("data", "model")):
+    \"\"\"A prefill and SERVE_TICKS greedy decode ticks of the reduced smollm
+    split over ``shape`` (``shard_model``, the cache as
+    ``cache_shardings`` lays it out) against the whole model in this
+    process: the largest logit difference at each call and whether this
+    rank's greedy tokens equal the whole model's for its rows.\"\"\"
+    from repro_torch.models import get_model
+    from repro_torch.parallel.sharding import (batch_spec, cache_shardings,
+                                               local_shard)
+    from repro_torch.train import shard_model
+    plan = MemoryPlan(1, "float32", True, "dots", 0.0)
+    make = lambda: get_model(CFG)(CFG, dtype=torch.float32, device="cpu",
+                                  generator=torch.Generator().manual_seed(7))
+    ref, model = make(), make()
+    mesh = build_mesh(shape, axes, "cpu")
+    shard_model(CFG, plan, model, mesh, batch_rows=SERVE_B)
+    rs = np.random.RandomState(11)
+    toks = torch.from_numpy(rs.randint(0, CFG.vocab_size,
+                                       size=(SERVE_B, SERVE_S)))
+    rows = batch_spec(mesh, (SERVE_B,))
+    mine = local_shard(toks, batch_spec(mesh, tuple(toks.shape)), mesh)
+    whole = ref.init_cache(SERVE_B, SERVE_MAX)
+    specs = cache_shardings(CFG, mesh, whole)
+    cache = {n: local_shard(t, rows if n == "pos" else specs[n], mesh).clone()
+             for n, t in whole.items()}
+    out = {"logit_err": [], "tokens_equal": [], "logit_shape_ok": []}
+    with torch.no_grad():
+        lg, cache = model.prefill(mine, cache)
+        lr, whole = ref.prefill(toks, whole)
+        for t in range(SERVE_TICKS + 1):
+            want = local_shard(lr, batch_spec(mesh, tuple(lr.shape)), mesh)
+            out["logit_err"].append((lg - want).abs().max().item())
+            out["logit_shape_ok"].append(tuple(lg.shape) == tuple(want.shape))
+            mine_next = lg[:, -1].argmax(-1, keepdim=True)
+            ref_next = lr[:, -1].argmax(-1, keepdim=True)
+            out["tokens_equal"].append(bool(torch.equal(
+                mine_next, local_shard(ref_next, rows + (None,), mesh))))
+            if t < SERVE_TICKS:
+                lg, cache = model.decode_step(cache, mine_next)
+                lr, whole = ref.decode_step(whole, ref_next)
+    out["cache_heads"] = list(cache["k"].shape)
+    return out
 
 
 def step_pair(shape, axes=("data", "model"), zero_stage=1, micro=2,
@@ -132,6 +181,22 @@ results["dp2_tp2_zero3"] = step_pair((2, 2), zero_stage=3)
 results["dp4_zero3"] = step_pair((4, 1), zero_stage=3, batch=8)
 results["tp4_shared_kv"] = step_pair((1, 4), micro=1)
 results["pod2_dp2"] = step_pair((2, 2, 1), ("pod", "data", "model"), batch=8)
+
+# -- serving split over the model axis against one process ----------------
+results["serve_dp2_tp2"] = serve_pair((2, 2))
+results["serve_tp4_shared_kv"] = serve_pair((1, 4))
+
+# -- the collectives a dense DP x TP step counts on rank 0 ----------------
+from repro_torch.core.op_counter import OpCounter
+plan = MemoryPlan(1, "float32", True, "none", 0.0, 1)
+mesh = build_mesh((2, 2), ("data", "model"), "cpu")
+state = shard_train_state(CFG, plan, fresh(plan), mesh)
+step = sharded_train_step(CFG, plan, mesh, OPT)
+with OpCounter() as counter:
+    step(state, lm_batch(4, 16, seed=40))
+results["counted_step"] = {
+    "coll": counter.cost.coll,
+    "c10d": {k: v for k, v in counter.by_op.items() if k.startswith("c10d.")}}
 
 # -- a MoE model under ZeRO-3 against ZeRO-1, (4 data, 1 model) -----------
 # (both weight each rank's own auxiliary loss: the same function of the
@@ -324,6 +389,10 @@ results["one_rank"] = {"equal_metrics": equal_metrics,
                        "wrong_size": wrong_size}
 """
 
+_TWO_RANKS = """
+results["serve_tp2"] = serve_pair((1, 2))
+"""
+
 _EPILOGUE = """
 with open(os.path.join(out, f"result_{rank}.json"), "w") as f:
     json.dump(results, f)
@@ -373,6 +442,11 @@ def _run_job(body: str, world: int, out) -> list:
 @pytest.fixture(scope="module")
 def four(tmp_path_factory):
     return _run_job(_FOUR_RANKS, 4, tmp_path_factory.mktemp("four_ranks"))
+
+
+@pytest.fixture(scope="module")
+def two(tmp_path_factory):
+    return _run_job(_TWO_RANKS, 2, tmp_path_factory.mktemp("two_ranks"))
 
 
 @pytest.fixture(scope="module")
@@ -591,3 +665,116 @@ def test_one_rank_sharded_step_is_bitwise_make_train_step(one):
     assert r["equal_metrics"] == [True] * 3
     assert r["differing"] == []
     assert r["wrong_size"] and "processes" in r["wrong_size"]
+
+
+# ------------------------------------------------------------------------- #
+# Serving split over the model axis (ROADMAP Queue 1 item 15)
+# ------------------------------------------------------------------------- #
+
+def _check_serving(r):
+    """fp32: every call's logits within the serving tests' 1e-4 (against
+    the JAX package) of the whole model's, the greedy tokens equal."""
+    assert r["logit_shape_ok"] == [True] * (SERVE_TICKS + 1)
+    assert max(r["logit_err"]) <= 1e-4, r["logit_err"]
+    assert r["tokens_equal"] == [True] * (SERVE_TICKS + 1)
+
+
+SERVE_TICKS = 3
+
+
+@pytest.mark.parametrize("case,heads", [("serve_dp2_tp2", 1),
+                                        ("serve_tp4_shared_kv", 2)])
+def test_serving_split_over_the_model_axis_matches_one_process(four, case,
+                                                               heads):
+    """(2 data, 2 model): the KV heads split one a rank, the batch over the
+    data axis; (1, 4): the reduced smollm's 2 KV heads replicated, each
+    rank reading and writing the one its query head shares. A prefill and
+    three greedy ticks; the logits are all-gathered over the model axis, as
+    the reference's serving steps return them replicated."""
+    for res in four:
+        _check_serving(res[case])
+        assert res[case]["cache_heads"][3] == heads
+
+
+def test_serving_split_over_two_ranks_matches_one_process(two):
+    for res in two:
+        _check_serving(res["serve_tp2"])
+        assert res["serve_tp2"]["cache_heads"][3] == 1
+
+
+# ------------------------------------------------------------------------- #
+# The op counter's collectives: a fake group against gloo, and a closed form
+# ------------------------------------------------------------------------- #
+
+def _closed_form_collectives(b: int, s: int) -> dict:
+    """The bytes (output shape, per rank) of every collective of one
+    sharded step of the reduced smollm at (2 data, 2 model), ZeRO-1, fp32,
+    remat "none", one microbatch of ``b`` local rows of ``s`` tokens,
+    written from the config and the sharding rules: the model axis sums the
+    embedding, every attention and FFN output and, backward, the gradients
+    at their inputs and at the head's (fp32 activations, b x s x d each);
+    the vocabulary-split loss sums three (b, s) rows; the data axis sums the
+    target counts (1), the loss parts (3) and, over the world, the squared
+    norm (1); each gradient is reduce-scattered onto its moments' half
+    where ZeRO-1 divides them (and the updated half all-gathered back),
+    else summed whole."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_model
+    from repro_torch.parallel.mesh import MeshSpec
+    from repro_torch.parallel.policy import MemoryPlan
+    from repro_torch.parallel.sharding import param_shardings, shard_shape
+    from repro_torch.parallel.zero import opt_state_shardings
+    cfg = get_config("smollm-135m", reduced=True)
+    mesh = MeshSpec((2, 2), ("data", "model"))
+    plan = MemoryPlan(1, "float32", True, "none", 0.0, 1)
+    params = dict(get_model(cfg)(cfg, dtype=torch.float32,
+                                 device="meta").named_parameters())
+    p_sh = param_shardings(cfg, params, mesh)
+    o_sh = opt_state_shardings(cfg, params, mesh, plan)
+    act, row = b * s * cfg.d_model * 4, b * s * 4
+    out = {"all-reduce": 2 * act * (1 + 2 * cfg.num_layers) + 3 * row
+           + 4 * (1 + 3 + 1), "reduce-scatter": 0, "all-gather": 0}
+    for name in params:
+        piece = math.prod(shard_shape(p_sh[name], mesh)) * 4
+        if "data" in o_sh[name].axes() and "data" not in p_sh[name].axes():
+            out["reduce-scatter"] += piece // 2
+            out["all-gather"] += piece
+        else:
+            out["all-reduce"] += piece
+    return out
+
+
+def test_the_counter_sees_the_same_collectives_on_a_fake_group(four):
+    """The dense DP x TP step at (2, 2), counted on rank 0 of four gloo
+    processes and in this process as rank 0 of a fake group of four on
+    ``meta`` state: the same c10d operators, calls and bytes, and the
+    closed form above."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    from repro_torch.configs import get_config
+    from repro_torch.core.op_counter import OpCounter
+    from repro_torch.parallel import build_mesh
+    from repro_torch.parallel.policy import MemoryPlan
+    from repro_torch.train import (init_train_state, shard_train_state,
+                                   sharded_train_step)
+    from repro_torch.train.optimizer import AdamWConfig
+    cfg = get_config("smollm-135m", reduced=True)
+    plan = MemoryPlan(1, "float32", True, "none", 0.0, 1)
+    opt = AdamWConfig(lr=1e-3, warmup_steps=0, total_steps=10)
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=4)
+    try:
+        mesh = build_mesh((2, 2), ("data", "model"), "cpu")
+        state = shard_train_state(cfg, plan, init_train_state(
+            cfg, plan, None, opt, dtype=torch.float32, device="meta"), mesh)
+        batch = {k: torch.empty((4, 16), dtype=torch.int64, device="meta")
+                 for k in ("tokens", "targets")}
+        with OpCounter() as counter:
+            sharded_train_step(cfg, plan, mesh, opt)(state, batch)
+    finally:
+        dist.destroy_process_group()
+    gloo = four[0]["counted_step"]
+    fake = {k: list(v) for k, v in counter.by_op.items()
+            if k.startswith("c10d.")}
+    assert fake == gloo["c10d"]
+    assert counter.cost.coll == gloo["coll"]
+    assert counter.cost.coll == _closed_form_collectives(2, 16)

@@ -1,0 +1,236 @@
+"""COMET's measured frontend in the port: ``repro_torch.launch.specs`` and
+``repro_torch.launch.dryrun``, on the CPU.
+
+* ``input_specs``, ``abstract_params``, ``abstract_cache`` and
+  ``model_flops`` against the JAX package's ``repro.launch.specs``: every
+  runnable cell's inputs shape for shape and dtype for dtype, every
+  assigned arch's parameters leaf for leaf (through ``convert``'s naming;
+  both sides abstract, so full size is cheap), every serving cell's cache,
+  and ``model_flops`` exactly for all 40 cells.
+* ``lower_cell`` on a (2 data, 2 model) fake group with the reduced
+  configs: the dense family's cells are ``ok`` with the reference's JSON
+  keys, every other family's refusal names its ROADMAP item, and no
+  process group is left behind. The CLI on one full-size cell of the
+  production mesh, in a fresh interpreter that never loads ``jax``.
+"""
+
+import json
+import os
+import subprocess
+import sys
+import textwrap
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+import torch.distributed as dist
+
+from repro.configs import SHAPES as SHAPES_JAX
+from repro.configs import all_cells as all_cells_jax
+from repro.configs import get_config as get_config_jax
+from repro.launch import specs as specs_jax
+from repro_torch.configs import ASSIGNED_ARCHS, SHAPES, all_cells, get_config
+from repro_torch.convert import to_jax_params
+from repro_torch.launch import dryrun, specs
+from repro_torch.launch.mesh import make_debug_mesh
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CELLS = [(a, s) for a, s, runnable, _ in all_cells() if runnable]
+ALL_CELLS = [(a, s) for a, s, _, _ in all_cells()]
+SERVING_CELLS = [(a, s) for a, s in CELLS if SHAPES[s].kind != "train"]
+DENSE = [a for a in ASSIGNED_ARCHS if get_config(a).family == "dense"]
+
+_DTYPES = {jnp.int32: torch.int32, jnp.bfloat16: torch.bfloat16,
+           jnp.float32: torch.float32}
+
+
+def _sds(x):
+    return tuple(x.shape), _DTYPES[x.dtype.type]
+
+
+def _meta(t):
+    assert t.device.type == "meta"
+    return tuple(t.shape), t.dtype
+
+
+def test_cells_match_the_reference():
+    """32 runnable cells of 40, the reference's (the registries list the
+    archs in another order)."""
+    assert ({c[:3] for c in all_cells()}
+            == {c[:3] for c in all_cells_jax()})
+    assert len(CELLS) == 32 and len(ALL_CELLS) == 40
+
+
+@pytest.mark.parametrize("arch,shape", CELLS)
+def test_input_specs_match_the_reference(arch, shape):
+    want = specs_jax.input_specs(get_config_jax(arch), SHAPES_JAX[shape])
+    got = specs.input_specs(get_config(arch), SHAPES[shape])
+    assert ({k: _meta(v) for k, v in got.items()}
+            == {k: _sds(v) for k, v in want.items()})
+
+
+def _flat(tree, prefix=()):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat(v, prefix + (k,)))
+        else:
+            out[prefix + (k,)] = v
+    return out
+
+
+@pytest.mark.parametrize("arch", ASSIGNED_ARCHS)
+def test_abstract_params_match_the_reference(arch):
+    """``jax.eval_shape`` of ``init_params`` against the port's meta
+    parameters carried to the reference's stacked tree by ``convert``."""
+    want = _flat(specs_jax.abstract_params(get_config_jax(arch)))
+    params = specs.abstract_params(get_config(arch))
+    assert all(p.device.type == "meta" for p in params.values())
+    got = _flat(to_jax_params(params, get_config(arch)))
+    assert ({k: _meta(v) for k, v in got.items()}
+            == {k: _sds(v) for k, v in want.items()})
+
+
+@pytest.mark.parametrize("arch,shape", SERVING_CELLS)
+def test_abstract_cache_matches_the_reference(arch, shape):
+    want = specs_jax.abstract_cache(get_config_jax(arch), SHAPES_JAX[shape])
+    got = specs.abstract_cache(get_config(arch), SHAPES[shape])
+    assert ({k: _meta(v) for k, v in got.items()}
+            == {k: _sds(v) for k, v in want.items()})
+
+
+@pytest.mark.parametrize("arch,shape", ALL_CELLS)
+def test_model_flops_equal_the_reference(arch, shape):
+    assert (specs.model_flops(get_config(arch), SHAPES[shape])
+            == specs_jax.model_flops(get_config_jax(arch), SHAPES_JAX[shape]))
+
+
+# ------------------------------------------------------------------------- #
+# lower_cell on a debug mesh
+# ------------------------------------------------------------------------- #
+
+KEYS = {"flops", "hbm_bytes", "coll_bytes", "chips", "compute_s",
+        "memory_s", "collective_s", "dominant", "roofline_fraction",
+        "model_flops", "model_flops_util", "coll_breakdown",
+        "memory_analysis", "arch", "shape", "mesh", "zero_stage",
+        "opt_dtype", "remat", "microbatches", "trace_s"}
+
+
+@pytest.fixture(autouse=True)
+def _debug_mesh(monkeypatch):
+    """The dry run's production mesh replaced by a (2 data, 2 model) one."""
+    monkeypatch.setattr(dryrun, "make_production_mesh",
+                        lambda multi_pod=False: make_debug_mesh(2, 2))
+
+
+def _lower(arch, shape):
+    return dryrun.lower_cell(
+        arch, shape, cfg_transform=lambda _: get_config(arch, reduced=True))
+
+
+@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("shape", ["train_4k", "prefill_32k", "decode_32k"])
+def test_dense_cells_are_ok(arch, shape):
+    """The reduced dense configs at the cells' shapes on a (2, 2) fake
+    group: the reference's keys, the memory analysis, collectives on the
+    model axis (the embedding, attention and FFN outputs summed), the
+    group gone afterwards."""
+    counter, info = _lower(arch, shape)
+    assert not dist.is_initialized()
+    assert KEYS <= set(info)
+    assert set(info["memory_analysis"]) == {"argument_bytes",
+                                            "output_bytes", "temp_bytes"}
+    assert (info["chips"], info["mesh"]) == (4, "2x2")
+    assert info["flops"] == counter.cost.flops * 4
+    assert info["flops"] > 0 and info["hbm_bytes"] > 0
+    assert info["coll_breakdown"]["all-reduce"] > 0
+    assert info["model_flops"] == specs.model_flops(
+        get_config(arch, reduced=True), SHAPES[shape])
+    assert counter.peak_bytes >= info["memory_analysis"]["argument_bytes"]
+    json.dumps(info)
+
+
+REFUSED = [("granite-moe-3b-a800m", "train_4k", [11]),
+           ("llama4-maverick-400b-a17b", "decode_32k", [11]),
+           ("mamba2-780m", "prefill_32k", [12]),
+           ("zamba2-2.7b", "train_4k", [12]),
+           ("seamless-m4t-large-v2", "decode_32k", [12]),
+           ("internvl2-76b", "prefill_32k", [25]),
+           ("mamba2-780m", "long_500k", [12, 13]),
+           ("zamba2-2.7b", "long_500k", [12, 13])]
+
+
+@pytest.mark.parametrize("arch,shape,items", REFUSED)
+def test_other_families_are_refused_naming_their_item(arch, shape, items):
+    with pytest.raises(NotImplementedError) as e:
+        _lower(arch, shape)
+    for item in items:
+        assert f"ROADMAP Queue 1 item {item}" in str(e.value)
+    assert not dist.is_initialized()
+
+
+def test_a_refused_cell_is_recorded_as_the_reference_records_an_error(
+        tmp_path, monkeypatch):
+    monkeypatch.undo()                   # the production mesh
+    info = dryrun.run_cell("granite-moe-3b-a800m", "prefill_32k", True,
+                           str(tmp_path))
+    saved = json.loads(
+        (tmp_path / "granite-moe-3b-a800m_prefill_32k_2x16x16.json")
+        .read_text())
+    assert saved["status"] == info["status"] == "error"
+    assert "ROADMAP Queue 1 item 11" in saved["error"]
+    assert saved["mesh"] == "2x16x16"
+    assert not dist.is_initialized()
+
+
+def test_lower_cell_refuses_a_process_that_holds_a_group():
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=4)
+    try:
+        with pytest.raises(RuntimeError, match="holds one already"):
+            _lower("smollm-135m", "train_4k")
+    finally:
+        dist.destroy_process_group()
+
+
+def test_the_dense_step_counts_its_activations_collectives():
+    """At (2, 2) with ZeRO-1, fp32 moments and the reduced smollm's 4
+    heads and 2 KV heads split one pair a rank: the decode step's
+    collectives are the model axis's all-reduces of the embedding, every
+    attention and every FFN output ((b / 2) x d each, bf16), then the
+    all-gather of the vocabulary blocks of the logits."""
+    cfg = get_config("smollm-135m", reduced=True)
+    counter, info = _lower("smollm-135m", "decode_32k")
+    b = SHAPES["decode_32k"].global_batch // 2
+    act = b * 1 * cfg.d_model * 2
+    assert counter.cost.coll == {
+        "all-reduce": (1 + 2 * cfg.num_layers) * act,
+        "all-gather": b * cfg.padded_vocab * 2}
+    assert counter.by_op["c10d.allreduce_"][0] == 1 + 2 * cfg.num_layers
+
+
+def test_the_cli_writes_a_cell_without_loading_jax(tmp_path):
+    """``python -m repro_torch.launch.dryrun --arch smollm-135m --shape
+    decode_32k`` on the production mesh, in a fresh interpreter: the JSON
+    of the cell, and neither ``jax`` nor ``repro`` in ``sys.modules``."""
+    code = textwrap.dedent(f"""
+        import sys
+        from repro_torch.launch import dryrun
+        dryrun.main(["--arch", "smollm-135m", "--shape", "decode_32k",
+                     "--out", {str(tmp_path)!r}])
+        bad = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+        assert not bad, bad
+    """)
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300, env=env, cwd=REPO)
+    assert out.returncode == 0, out.stderr[-3000:]
+    info = json.loads((tmp_path / "smollm-135m_decode_32k_16x16.json")
+                      .read_text())
+    assert info["status"] == "ok" and KEYS <= set(info)
+    assert (info["chips"], info["zero_stage"]) == (256, 1)
+    assert " ok dom=" in out.stdout
+    np.testing.assert_allclose(
+        info["memory_s"], info["hbm_bytes"] / (256 * 3.35e12))

@@ -709,12 +709,17 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         assert len(names) >= 15, names
         assert {"repro_torch.models.encdec",
                 "repro_torch.configs.zamba2_2p7b",
-                "repro_torch.configs.seamless_m4t_large_v2"} <= set(names)
+                "repro_torch.configs.seamless_m4t_large_v2",
+                "repro_torch.launch.specs", "repro_torch.launch.dryrun",
+                "repro_torch.core.hlo",
+                "repro_torch.core.op_counter"} <= set(names)
         for name in names:
             importlib.import_module(name)
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "repro"))
         assert not bad, bad
+        import torch.distributed as dist
+        assert not dist.is_initialized()    # importing joins no group
         print("imported", len(names))
     """)
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,

@@ -1,0 +1,714 @@
+"""The op counter (``repro_torch.core.op_counter``), the roofline terms
+(``repro_torch.core.hlo``) and the hand-written kernels as dispatcher
+operators (``repro_torch.kernels.ops``), on the CPU.
+
+* The reference's ``tests/test_hlo_analyzer.py`` cases, restated for the
+  counter: a flat N = 256 product, a loop of 10 (20 N^3: eager loops run
+  every iteration, so the trip count comes for free), nested 4 x 4 loops
+  (32 N^3), ``torch.utils.checkpoint`` (> 1.1x the FLOPs), and one layer of
+  a stacked (100, N, N) parameter charged as one layer. Exact, where the
+  reference allows 2 %: the counter counts what ran, not a text.
+* The counter against the reference's ``analyze_hlo`` on smollm-135m at
+  full width with 2 layers, b 1 x s 256, fp32: within 10 % (stated below
+  why not exact); the matrix products exactly a closed form.
+* Each kernel operator: ``torch.library.opcheck``, its fake implementation
+  against its CPU one, ``FlopCounterMode`` counting its formula on ``meta``
+  and on the CPU, and its formula against the bound ``chip_smoke.py``
+  printed before the formulas moved into the package.
+* ``meta`` against the CPU: the reduced smollm train step, prefill and
+  decode tick count the same FLOPs, bytes and peak live bytes.
+"""
+
+import ast
+import dataclasses
+import importlib.util
+import math
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
+from torch.utils.flop_counter import FlopCounterMode
+
+from repro_torch.configs import get_config
+from repro_torch.core.hlo import (
+    H100_BF16_FLOPS,
+    H100_FP32_FLOPS,
+    H100_HBM_BW,
+    H100_NVLINK_BW,
+    PEAK_FLOPS,
+    RooflineTerms,
+    collective_bytes,
+    model_flops_util,
+    terms_from_counts,
+)
+from repro_torch.core.op_counter import Cost, OpCounter
+from repro_torch.kernels import embedding_bag as bag_module
+from repro_torch.kernels import flash_attention as attn_module
+from repro_torch.kernels import ops
+from repro_torch.kernels import rmsnorm as norm_module
+from repro_torch.kernels import ssd_scan as ssd_module
+from repro_torch.models import get_model
+from repro_torch.parallel.policy import MemoryPlan
+from repro_torch.train import init_train_state, make_train_step
+from repro_torch.train.optimizer import AdamWConfig
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+N = 256
+
+
+def _counted(fn, *args, hold=None):
+    with OpCounter(hold=hold) as c:
+        fn(*args)
+    return c
+
+
+# ------------------------------------------------------------------------- #
+# The reference's analyzer cases
+# ------------------------------------------------------------------------- #
+
+class TestFlopCounting:
+    def setup_method(self):
+        g = torch.Generator().manual_seed(0)
+        self.w = torch.randn(N, N, generator=g)
+        self.x = torch.randn(N, N, generator=g)
+
+    def test_flat_matmul(self):
+        assert _counted(lambda x: x @ self.w, self.x).cost.flops == 2 * N ** 3
+
+    def test_loop_multiplies_trip_count(self):
+        """The reference multiplies a scan's body by its known_trip_count;
+        an eager loop runs all ten iterations."""
+        def loop(x):
+            for _ in range(10):
+                x = x @ self.w
+            return x
+        assert _counted(loop, self.x).cost.flops == 20 * N ** 3
+
+    def test_nested_loops(self):
+        def nested(x):
+            for _ in range(4):
+                for _ in range(4):
+                    x = x @ self.w
+            return x
+        assert _counted(nested, self.x).cost.flops == 32 * N ** 3
+
+    def test_remat_increases_flops(self):
+        """The gradient of 8 layers with and without
+        ``torch.utils.checkpoint``: the recomputed forwards are counted."""
+        w = self.w.clone().requires_grad_()
+
+        def layer(x):
+            return torch.tanh(x @ w) @ w
+
+        def grad(f):
+            def run(x):
+                x = x.clone().requires_grad_()
+                y = x
+                for _ in range(8):
+                    y = f(y)
+                y.sum().backward()
+            return run
+
+        base = _counted(grad(layer), self.x).cost.flops
+        re = _counted(grad(lambda x: checkpoint(layer, x,
+                                                use_reentrant=False)),
+                      self.x).cost.flops
+        assert re > base * 1.1
+
+    def test_slice_of_stacked_params_not_full_reads(self):
+        """Indexing one layer of a stacked (100, N, N) parameter is a view:
+        the product reads that layer, not the stack."""
+        ws = torch.zeros(100, N, N)
+        c = _counted(lambda x: x @ ws[37], self.x, hold=(self.x, ws))
+        assert c.cost.bytes == 3 * N * N * 4
+        looped = _counted(lambda x: [x := x @ ws[i] for i in range(100)],
+                          self.x)
+        assert looped.cost.bytes == 100 * 3 * N * N * 4
+
+
+class TestRoofline:
+    def test_roofline_terms_math(self):
+        """The reference's case with the constants passed explicitly."""
+        t = RooflineTerms(flops=197e12 * 256, hbm_bytes=819e9 * 256,
+                          coll_bytes=50e9 * 256, chips=256,
+                          peak_flops=197e12, hbm_bw=819e9, link_bw=50e9)
+        assert t.compute_s == pytest.approx(1.0)
+        assert t.memory_s == pytest.approx(1.0)
+        assert t.collective_s == pytest.approx(1.0)
+        assert t.roofline_fraction() == pytest.approx(1.0)
+
+    def test_dominant_term(self):
+        t = RooflineTerms(flops=1, hbm_bytes=1e15, coll_bytes=1, chips=1)
+        assert t.dominant == "memory"
+        t = RooflineTerms(flops=1e18, hbm_bytes=1, coll_bytes=1, chips=1,
+                          peak_flops=1e15, hbm_bw=1e12, link_bw=1e12)
+        assert (t.dominant, t.bound_s) == ("compute", 1000.0)
+
+    def test_h100_defaults(self):
+        """The H100 SXM's published dense rates, not COMET's Table III."""
+        t = RooflineTerms(flops=989e12, hbm_bytes=3.35e12, coll_bytes=450e9,
+                          chips=1)
+        assert (t.compute_s, t.memory_s, t.collective_s) == (1.0, 1.0, 1.0)
+        assert PEAK_FLOPS == {torch.bfloat16: H100_BF16_FLOPS,
+                              torch.float32: H100_FP32_FLOPS}
+        assert (H100_HBM_BW, H100_NVLINK_BW) == (3.35e12, 450e9)
+
+    def test_terms_from_counts_multiplies_by_chips(self):
+        cost = Cost(flops=10.0, bytes=20.0,
+                    coll={"all-reduce": 3.0, "all-gather": 4.0})
+        t = terms_from_counts(cost, 8, peak_flops=1.0, hbm_bw=1.0,
+                              link_bw=1.0)
+        assert (t.flops, t.hbm_bytes, t.coll_bytes) == (80.0, 160.0, 56.0)
+        assert t.coll_breakdown == {"all-gather": 4, "all-reduce": 3,
+                                    "reduce-scatter": 0, "all-to-all": 0,
+                                    "collective-permute": 0}
+        assert collective_bytes({}) == dict.fromkeys(t.coll_breakdown, 0)
+        assert model_flops_util(40.0, t) == 0.5
+        assert model_flops_util(1.0, RooflineTerms(0, 0, 0, 1)) == 0.0
+
+
+# ------------------------------------------------------------------------- #
+# Bytes rules
+# ------------------------------------------------------------------------- #
+
+def test_views_move_nothing_and_ops_read_and_write():
+    x = torch.randn(64, 32)
+    c = _counted(lambda x: x.t().reshape(32, 64)[:4].unsqueeze(0), x)
+    assert c.cost.bytes == 0 and c.cost.flops == 0
+    c = _counted(lambda x: x + 1.0, x)
+    assert (c.cost.flops, c.cost.bytes) == (64 * 32, 2 * 64 * 32 * 4)
+
+
+def test_writes_through_an_index_or_a_slice_are_charged_for_the_window():
+    """A cache write of one row a sequence, and a prompt copied into the
+    head of a cache: the window, not the cache."""
+    cache = torch.zeros(8, 2048, 64)
+    rows = (torch.arange(8), torch.full((8,), 5))
+    new = torch.randn(8, 64)
+
+    def put():
+        cache[rows] = new
+    c = _counted(put)
+    idx_bytes = 2 * 8 * 8
+    assert c.by_op["aten.index_put_"][2] == idx_bytes + 2 * new.numel() * 4
+
+    def head():
+        cache[:, :16] = torch.ones(8, 16, 64)
+    c = _counted(head)
+    assert c.by_op["aten.copy_"][2] == 2 * 8 * 16 * 64 * 4
+
+
+def test_a_gather_moves_the_rows_it_selects():
+    table = torch.randn(1000, 64)
+    tokens = torch.randint(0, 1000, (4, 8))
+    c = _counted(lambda t: table[t], tokens)
+    assert c.cost.bytes == tokens.numel() * 8 + 2 * 4 * 8 * 64 * 4
+
+
+def test_peak_live_bytes_count_arguments_and_temporaries():
+    x = torch.randn(1024)                        # 4 KiB, held
+
+    def f(x):
+        y = x * 2.0                              # 4 KiB
+        z = torch.cat([y, y])                    # 8 KiB
+        del y
+        return z.sum()
+    c = _counted(f, x, hold=x)
+    assert c.argument_bytes == 4096
+    assert c.peak_bytes == 4096 + 4096 + 8192
+    assert c.memory(None)["temp_bytes"] == 4096 + 8192
+
+
+def test_an_unknown_collective_raises():
+    """No c10d operator is counted without a rule (the counter names it)."""
+    from repro_torch.core import op_counter
+    assert "barrier" in op_counter._C10D_FREE
+    for name, (opcode, _) in op_counter._C10D.items():
+        assert opcode in collective_bytes({})
+
+
+# ------------------------------------------------------------------------- #
+# The counter against the reference's analyze_hlo
+# ------------------------------------------------------------------------- #
+
+def _matmul_closed_form(cfg, s: int, logit_rows: int) -> int:
+    """2 m n k of every projection, FFN product and the logits of
+    ``logit_rows`` positions, for one sequence of ``s`` tokens."""
+    d, hd, ff = cfg.d_model, cfg.resolved_head_dim, cfg.d_ff
+    proj = 2 * s * d * (2 * cfg.num_heads * hd + 2 * cfg.num_kv_heads * hd)
+    ffn = 3 * 2 * s * d * ff
+    return cfg.num_layers * (proj + ffn) + 2 * logit_rows * d * cfg.padded_vocab
+
+
+def test_counter_against_analyze_hlo_on_a_smollm_prefill():
+    """smollm-135m at full width, 2 layers, one sequence of 256 tokens,
+    fp32, CPU. The reference's jitted prefill computes the logits of every
+    position and then keeps the last; the port's ``forward`` with a cache
+    is that computation (``prefill`` skips the head for the other 255
+    positions). Its counted FLOPs are within 10 % of ``analyze_hlo``'s:
+    the reference's attention is a masked product over all 256 x 256
+    (query, key) pairs where the kernel's formula counts the allowed half,
+    and XLA fuses elementwise work that eager ops count one by one. Causal
+    attention is under 2 % of the FLOPs at this shape. The products are
+    exactly their closed form, and ``prefill`` is ``forward`` less the head
+    of 255 positions."""
+    from repro.core.hlo_analyzer import analyze_hlo
+    from repro.configs import get_config as get_config_jax
+    from repro.models import get_model as get_model_jax
+
+    cfg = dataclasses.replace(get_config("smollm-135m"), num_layers=2)
+    cfg_j = dataclasses.replace(get_config_jax("smollm-135m"), num_layers=2)
+    s = 256
+    m = get_model_jax(cfg_j)
+    params = jax.eval_shape(lambda: m.init_params(
+        jax.random.PRNGKey(0), cfg_j, dtype=jnp.float32))
+    cache = jax.eval_shape(lambda: m.init_cache(cfg_j, 1, s,
+                                                dtype=jnp.float32))
+    tokens = jax.ShapeDtypeStruct((1, s), jnp.int32)
+    text = jax.jit(lambda p, t, c: m.prefill(p, cfg_j, t, c)).lower(
+        params, tokens, cache).compile().as_text()
+    want = analyze_hlo(text).flops
+
+    model = get_model(cfg)(cfg, dtype=torch.float32, device="meta")
+    toks = torch.empty((1, s), dtype=torch.int32, device="meta")
+    with torch.no_grad():
+        full = _counted(lambda: model(toks, model.init_cache(1, s)))
+        pre = _counted(lambda: model.prefill(toks, model.init_cache(1, s)))
+    got = full.cost.flops
+    assert abs(got - want) / want < 0.10, (got, want)
+    products = lambda c: sum(c.by_op[k][1] for k in ("aten.mm", "aten.bmm")
+                             if k in c.by_op)
+    assert products(full) == _matmul_closed_form(cfg, s, s)
+    assert products(pre) == _matmul_closed_form(cfg, s, 1)
+    attention = full.by_op["repro_torch.flash_attention"][1]
+    assert attention == (cfg.num_layers * 4 * attn_module.causal_pairs(s, s)
+                         * cfg.num_heads * cfg.resolved_head_dim)
+    assert attention / got < 0.02
+
+
+# ------------------------------------------------------------------------- #
+# The kernels as operators
+# ------------------------------------------------------------------------- #
+
+def _op_cases():
+    """(name, operator, arguments) of every operator, on CPU tensors."""
+    g = torch.Generator().manual_seed(0)
+
+    def r(*shape, dtype=torch.float32):
+        return torch.randn(*shape, generator=g).to(dtype)
+
+    def heads(b, s, h, d):
+        return r(b, s, h, d).transpose(1, 2)        # the model's layout
+
+    q, k, v = heads(2, 8, 4, 16), heads(2, 8, 2, 16), heads(2, 8, 2, 16)
+    i32 = lambda vals: torch.tensor(vals, dtype=torch.int32)
+    out, lse = torch.ops.repro_torch.flash_attention_lse(q, k, v, True)
+    x, gamma = r(3, 5, 32), r(32)
+    b, s, h, p, n, gg = 2, 20, 4, 8, 16, 2
+    tables = r(4, 10, 8)
+    idx = torch.randint(0, 10, (3, 4, 5), generator=g, dtype=torch.int32)
+    o = torch.ops.repro_torch
+    return [
+        ("flash_attention", o.flash_attention, (q, k, v, True, None, None)),
+        ("flash_attention kv_len q_offset", o.flash_attention,
+         (heads(2, 3, 4, 16), k, v, True, i32([5, 8]), i32([0, 4]))),
+        ("flash_attention_lse", o.flash_attention_lse, (q, k, v, False)),
+        ("flash_attention_backward", o.flash_attention_backward,
+         (q, k, v, out, lse, heads(2, 8, 4, 16), True)),
+        ("rmsnorm", o.rmsnorm, (x, gamma, 1e-5)),
+        ("rmsnorm_backward", o.rmsnorm_backward, (x, gamma, r(3, 5, 32),
+                                                  1e-5)),
+        ("ssd_scan", o.ssd_scan, (r(b, s, h, p), F.softplus(r(b, s, h)),
+                                  -torch.exp(r(h)), r(b, s, gg, n),
+                                  r(b, s, gg, n), 8)),
+        ("embedding_bag", o.embedding_bag, (tables, idx)),
+        ("embedding_bag_backward", o.embedding_bag_backward,
+         (r(3, 4, 8), idx, 10)),
+    ]
+
+
+OP_CASES = [c[0] for c in _op_cases()]
+
+
+def _case(name):
+    return next(c for c in _op_cases() if c[0] == name)
+
+
+def _meta(args):
+    return tuple(a.to("meta") if isinstance(a, torch.Tensor) else a
+                 for a in args)
+
+
+def test_every_kernel_is_an_operator_with_three_implementations():
+    for name in ("flash_attention", "flash_attention_lse",
+                 "flash_attention_backward", "rmsnorm", "rmsnorm_backward",
+                 "ssd_scan", "embedding_bag", "embedding_bag_backward"):
+        qualname = f"repro_torch::{name}"
+        for key in ("CPU", "CUDA", "Meta"):
+            assert torch._C._dispatch_has_kernel_for_dispatch_key(
+                qualname, key), (name, key)
+        assert getattr(torch.ops.repro_torch, name) in ops.WORK
+
+
+@pytest.mark.parametrize("name", OP_CASES)
+def test_opcheck(name):
+    _, op, args = _case(name)
+    result = torch.library.opcheck(op, args)
+    assert set(result.values()) == {"SUCCESS"}, result
+
+
+@pytest.mark.parametrize("name", OP_CASES)
+def test_fake_gives_the_cpu_implementations_shapes_and_dtypes(name):
+    """``meta`` in, ``meta`` out, with the CPU result's shapes, dtypes and
+    strides: a meta tensor never reaches a kernel or a plain version."""
+    _, op, args = _case(name)
+    want = op(*args)
+    got = op(*_meta(args))
+    want = want if isinstance(want, tuple) else (want,)
+    got = got if isinstance(got, tuple) else (got,)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.device.type == "meta"
+        assert (g.shape, g.dtype, g.stride()) == (w.shape, w.dtype, w.stride())
+
+
+@pytest.mark.parametrize("name", OP_CASES)
+def test_flop_counter_mode_counts_each_formula(name):
+    """``FlopCounterMode`` (and the op counter) count the kernel module's
+    formula, the same on ``meta`` and on the CPU."""
+    _, op, args = _case(name)
+    want = ops.WORK[op](*args)
+    for a in (args, _meta(args)):
+        with FlopCounterMode(display=False) as fc:
+            op(*a)
+        assert fc.get_total_flops() == want[0]
+        c = _counted(op, *a)
+        assert (c.cost.flops, c.cost.bytes) == want
+    assert want[0] > 0 and want[1] > 0
+
+
+def test_a_cuda_route_is_never_taken_for_meta_or_cpu():
+    """Each operator's CUDA implementation raises for a tensor that is not
+    on the card; the wrappers reach it only through the dispatcher, whose
+    CPU and Meta keys lead elsewhere."""
+    _, _, args = _case("rmsnorm")
+    with pytest.raises(ValueError, match="CUDA"):
+        ops._rmsnorm_cuda(*args)
+    before = ops.rmsnorm.launches
+    ops.rmsnorm(*args)
+    ops.rmsnorm(*_meta(args))
+    assert ops.rmsnorm.launches == before
+
+
+# ------------------------------------------------------------------------- #
+# The work formulas, against the bounds chip_smoke.py printed
+# ------------------------------------------------------------------------- #
+
+HBM = 3.35e12
+F32, BF16_PEAK, PRODUCT_F32 = 67e12, 989e12, max(67e12, 495e12 / 3)
+
+
+def _bound(flops, nbytes, peak):
+    return max(nbytes / HBM * 1e3, flops / peak * 1e3)
+
+
+def _old_attention(b, h, hkv, sq, skv, d, causal, item, kv_len=None,
+                   q_offset=None):
+    """chip_smoke.py's inline arithmetic before the formulas moved into
+    the kernel modules."""
+    kpos = np.arange(skv)[None, None, :]
+    lens = np.full(b, skv) if kv_len is None else np.minimum(kv_len, skv)
+    allowed = kpos < lens[:, None, None]
+    if causal:
+        offs = np.zeros(b, int) if q_offset is None else np.asarray(q_offset)
+        qpos = np.arange(sq)[None, :, None] + offs[:, None, None]
+        allowed = allowed & (kpos <= qpos)
+    allowed = np.broadcast_to(allowed, (b, sq, skv))
+    pairs = int(allowed.sum())
+    kv_rows = int(allowed.any(axis=1).sum())
+    nbytes = (2 * b * h * sq * d + 2 * kv_rows * hkv * d) * item
+    return 4 * pairs * h * d, nbytes, pairs, kv_rows
+
+
+# (case, bound_ms as PERF.md's table records it, from chip_smoke.py runs)
+PRINTED = {
+    "decode tick bf16": 0.002265943880597015,
+    "prefill s=1024 bf16": 0.001222587664307381,
+    "prefill s=2048 bf16": 0.0048879651203235595,
+    "train_lm backward fp32": 0.5859633338181819,
+    "train_lm backward bf16": 0.09775930240647118,
+    "train_lm forward lse fp32": 0.23438533352727273,
+    "rmsnorm tick bf16": 0.000005845970149253731,
+    "rmsnorm backward fp32": 0.03380621373134328,
+    "ssd main bf16": 0.004440854925373134,
+    "bag backward fp32": 2.0063797492537314,
+    "bag backward bf16": 1.0081979988059702,
+}
+
+
+def test_attention_forward_formula_is_the_printed_bound():
+    rs = np.random.RandomState(0)
+    rs.randint(0, 2048, size=8)                        # the fp32 loop's draw
+    pos = rs.randint(0, 2048, size=8).tolist()         # the bf16 loop's
+    flops, nbytes, pairs, kv_rows = _old_attention(8, 9, 3, 1, 2048, 64, True,
+                                                   2, q_offset=pos)
+    got = attn_module.forward_work(8, 9, 3, 1, 2048, 64, torch.bfloat16, True,
+                                   pairs=pairs, kv_rows=kv_rows)
+    assert got == (flops, nbytes)
+    assert _bound(*got, BF16_PEAK) == PRINTED["decode tick bf16"]
+    for s in (1024, 2048):
+        old = _old_attention(1, 9, 3, s, s, 64, True, 2)[:2]
+        got = attn_module.forward_work(1, 9, 3, s, s, 64, torch.bfloat16)
+        assert got == old
+        assert _bound(*got, BF16_PEAK) == PRINTED[f"prefill s={s} bf16"]
+    for case in ((2, 2, 1, 64, 64, 128, False), (2, 4, 2, 40, 200, 128, True),
+                 (1, 4, 4, 100, 100, 64, True)):
+        b, h, hkv, sq, skv, d, causal = case
+        assert (attn_module.forward_work(b, h, hkv, sq, skv, d,
+                                         torch.float32, causal)
+                == _old_attention(*case, 4)[:2])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_backward_and_lse_formulas_are_the_printed_bounds(dtype):
+    b, h, hkv, s, d = 8, 9, 3, 2048, 64
+    item = 4 if dtype == torch.float32 else 2
+    pairs = b * s * (s + 1) // 2
+    old = (10 * pairs * h * d,
+           item * (3 * b * h * s * d + 2 * b * hkv * s * d + b * h * s * d
+                   + 2 * b * hkv * s * d) + 4 * b * h * s)
+    got = attn_module.backward_work(b, h, hkv, s, s, d, dtype)
+    assert got == old
+    peak = PRODUCT_F32 if dtype == torch.float32 else BF16_PEAK
+    assert _bound(*got, peak) == PRINTED[f"train_lm backward "
+                                         f"{'fp32' if item == 4 else 'bf16'}"]
+    lse = attn_module.forward_work(b, h, hkv, s, s, d, dtype, lse=True)
+    assert lse == (4 * pairs * h * d,
+                   item * (2 * b * h * s * d + 2 * b * hkv * s * d)
+                   + 4 * b * h * s)
+    if dtype == torch.float32:
+        assert _bound(*lse, peak) == PRINTED["train_lm forward lse fp32"]
+
+
+def test_rmsnorm_ssd_and_bag_formulas_are_the_printed_bounds():
+    rows, d = 8, 576
+    assert norm_module.forward_work(rows, d, torch.bfloat16) == (
+        4 * rows * d, (2 * rows * d + d) * 2)
+    assert (_bound(*norm_module.forward_work(rows, d, torch.bfloat16), F32)
+            == PRINTED["rmsnorm tick bf16"])
+    rows = 8 * 2048
+    assert norm_module.backward_work(rows, d, torch.float32) == (
+        10 * rows * d, (3 * rows * d + 2 * d) * 4)
+    assert (_bound(*norm_module.backward_work(rows, d, torch.float32), F32)
+            == PRINTED["rmsnorm backward fp32"])
+
+    b, s, h, p, n, g, chunk = 1, 1024, 48, 64, 128, 1, 256
+    lens = [256] * 4
+    flops = sum(b * g * L * (L + 1) * n
+                + b * h * (L * (L + 1) * p + 4 * L * p * n) for L in lens)
+    nbytes = ((2 * b * s * h * p + 2 * b * s * g * n) * 2
+              + 4 * (b * s * h + h + b * h * p * n))
+    got = ssd_module.work(b, s, h, p, n, g, chunk, torch.bfloat16)
+    assert got == (flops, nbytes)
+    assert _bound(*got, BF16_PEAK) == PRINTED["ssd main bf16"]
+    # a ragged last chunk: every chunk as long as it is
+    assert ssd_module.work(1, 700, 48, 64, 128, 1, 256, torch.float32)[0] == \
+        sum(48 * (L * (L + 1) * 64 + 4 * L * 64 * 128) + L * (L + 1) * 128
+            for L in (256, 256, 188))
+
+    b, t, lookups, r, e = 4096, 64, 32, 200_000, 128
+    n_look = b * t * lookups
+    for dtype, item, key in ((torch.float32, 4, "fp32"),
+                             (torch.bfloat16, 2, "bf16")):
+        got = bag_module.backward_work(b, t, lookups, r, e, dtype,
+                                       kept=n_look)
+        assert got == (n_look * e, b * t * e * item + n_look * 4
+                       + t * r * e * item)
+        assert _bound(*got, F32) == PRINTED[f"bag backward {key}"]
+    distinct = 7_000_000
+    assert bag_module.forward_work(b, t, lookups, e, torch.float32,
+                                   rows_read=distinct) == (
+        n_look * e, distinct * e * 4 + n_look * 4 + b * t * e * 4)
+    assert bag_module.forward_work(b, t, lookups, e, torch.float32)[1] == (
+        n_look * e * 4 + n_look * 4 + b * t * e * 4)
+
+
+def _chip_smoke_source() -> ast.Module:
+    with open(os.path.join(REPO, "chip_smoke.py")) as f:
+        return ast.parse(f.read())
+
+
+def test_chip_smoke_reads_every_bound_from_the_formulas():
+    """The kernels phase's cases take (flops, bytes) from the kernel
+    modules' formulas and the bound from ``bound()``; the memory rate is
+    divided by nowhere else."""
+    tree = _chip_smoke_source()
+    funcs = {f.name: f for f in tree.body if isinstance(f, ast.FunctionDef)}
+    formulas = {"_rmsnorm_case": "forward_work",
+                "_attention_case": "forward_work",
+                "_attention_backward_case": "backward_work",
+                "_rmsnorm_backward_case": "backward_work",
+                "_ssd_case": "work", "_bag_case": "forward_work"}
+    for name, formula in formulas.items():
+        calls = {n.func.attr if isinstance(n.func, ast.Attribute)
+                 else getattr(n.func, "id", None)
+                 for n in ast.walk(funcs[name]) if isinstance(n, ast.Call)}
+        assert formula in calls and "bound" in calls, name
+    users = [f.name for f in tree.body if isinstance(f, ast.FunctionDef)
+             and any(isinstance(n, ast.Name) and n.id == "HBM_BYTES_PER_S"
+                     for n in ast.walk(f))]
+    assert users == ["bound"]
+
+
+def _chip_smoke_module():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke_under_test", os.path.join(REPO, "chip_smoke.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def test_chip_smoke_bound_helper_is_the_old_arithmetic():
+    module = _chip_smoke_module()
+    assert module.HBM_BYTES_PER_S == HBM
+    got = module.bound(*attn_module.backward_work(
+        8, 9, 3, 2048, 2048, 64, torch.float32),
+        module.PRODUCT_FLOPS[torch.float32])
+    assert got == {"bound_ms": PRINTED["train_lm backward fp32"],
+                   "bound_by": "operations"}
+    assert module.bound(0, 3.35e9, 1.0) == {"bound_ms": 1.0,
+                                            "bound_by": "bytes"}
+
+
+class _NoTrace:
+    """Stands in for torch.profiler.profile: the traces' contents come
+    from the scripted ``_device_time``."""
+
+    def __init__(self, **_):
+        pass
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *_):
+        return False
+
+
+def _scripted_traces(module, monkeypatch, traces):
+    """Point ``trace_ms`` at ``traces``, one (device_us, launches,
+    {name: launches a call}) a trace taken; return the pauses it makes."""
+    pending = list(traces)
+    pauses = []
+
+    def device_time(prof, units, unit):
+        us, launches, per_call = pending.pop(0)
+        return us, launches, [{"name": name, f"launches_per_{unit}": n,
+                               "device_us_per_launch": 1.0}
+                              for name, n in per_call.items()]
+    monkeypatch.setattr(module, "_device_time", device_time)
+    monkeypatch.setattr(module.time, "sleep", pauses.append)
+    monkeypatch.setattr(torch.profiler, "profile", _NoTrace)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *_: None)
+    return pauses
+
+
+def test_chip_smoke_trace_ms_retakes_a_trace_that_lost_events(monkeypatch):
+    """torch.profiler on the H100 loses a trace's kernel events in bursts
+    (``trace_loss.py``): all of them, or whole calls, or one kernel. A trace
+    whose kernels do not count a whole number of times a call is taken
+    again after a pause that grows, and the first whole one is kept."""
+    module = _chip_smoke_module()
+    whole = {"dkdv": 1.0, "dq": 1.0, "delta": 1.0, "sum": 1.0}
+    pauses = _scripted_traces(module, monkeypatch, [
+        (0.0, 0, {}),
+        (12.0, 12, {"dkdv": 0.3, "dq": 0.3, "delta": 0.3, "sum": 0.3}),
+        (39.0, 39, {"dkdv": 1.0, "dq": 1.0, "delta": 1.0, "sum": 0.9}),
+        (40.0, 40, whole)])
+    got = module.trace_ms(lambda: None, [()])
+    assert got["launches_per_call"] == 4.0
+    assert got["trace_tries"] == 4 and got["events_lost"] is False
+    assert pauses == [module.TRACE_PAUSE_S * n for n in (1, 2, 3)]
+
+
+def test_chip_smoke_trace_ms_keeps_a_lossy_trace_only_at_the_last_try(
+        monkeypatch):
+    """After ``TRACE_TRIES`` lossy traces the last is kept and marked, so
+    that a backward case's launch count disagrees with its plan and the
+    case fails: the check is never passed on a trace that lost events."""
+    module = _chip_smoke_module()
+    lossy = (39.0, 39, {"dkdv": 1.0, "dq": 1.0, "delta": 1.0, "sum": 0.9})
+    pauses = _scripted_traces(module, monkeypatch,
+                              [lossy] * module.TRACE_TRIES)
+    got = module.trace_ms(lambda: None, [()])
+    assert got["launches_per_call"] == 3.9
+    assert got["trace_tries"] == module.TRACE_TRIES
+    assert got["events_lost"] is True
+    assert len(pauses) == module.TRACE_TRIES - 1
+
+
+# ------------------------------------------------------------------------- #
+# meta against the CPU
+# ------------------------------------------------------------------------- #
+
+def _lm_step(device: str):
+    cfg = get_config("smollm-135m", reduced=True)
+    plan = MemoryPlan(1, "float32", True, "dots", 0.0, 2)
+    ocfg = AdamWConfig(lr=1e-3, warmup_steps=0, total_steps=10)
+    gen = None if device == "meta" else torch.Generator().manual_seed(0)
+    state = init_train_state(cfg, plan, gen, ocfg, dtype=torch.float32,
+                             device=device)
+    toks = torch.randint(0, cfg.vocab_size, (4, 33),
+                         generator=torch.Generator().manual_seed(1))
+    batch = {"tokens": toks[:, :-1].clone().to(device),
+             "targets": toks[:, 1:].clone().to(device)}
+    step = make_train_step(cfg, plan, ocfg)
+    hold = ({"params": state["params"], "opt": state["opt"]}, batch)
+    return lambda: step(state, batch), hold
+
+
+def _serving(device: str, kind: str):
+    cfg = get_config("smollm-135m", reduced=True)
+    gen = None if device == "meta" else torch.Generator().manual_seed(0)
+    model = get_model(cfg)(cfg, dtype=torch.float32, device=device,
+                           generator=gen)
+    cache = model.init_cache(2, 64)
+    if kind == "prefill":
+        tokens = torch.ones((2, 24), dtype=torch.long, device=device)
+        return (lambda: model.prefill(tokens, cache),
+                (dict(model.named_parameters()), cache, tokens))
+    tokens = torch.ones((2, 1), dtype=torch.long, device=device)
+    return (lambda: model.decode_step(cache, tokens),
+            (dict(model.named_parameters()), cache, tokens))
+
+
+@pytest.mark.parametrize("step", ["train", "prefill", "decode"])
+def test_meta_counts_what_the_cpu_counts(step):
+    """The reduced smollm step (two microbatches, remat "dots"), prefill
+    and decode tick: equal FLOPs, bytes, collective bytes and peak live
+    bytes on ``meta`` and on CPU tensors."""
+    make = _lm_step if step == "train" else (
+        lambda dev: _serving(dev, step))
+    counts = []
+    for device in ("cpu", "meta"):
+        run, hold = make(device)
+        c = _counted(run, hold=hold)
+        counts.append((c.cost.flops, c.cost.bytes, c.cost.coll,
+                       c.peak_bytes, c.argument_bytes))
+    assert counts[0] == counts[1]
+    assert counts[0][0] > 0 and counts[0][3] > counts[0][4] > 0
+
+
+def test_a_meta_model_draws_nothing():
+    """A full-size model on ``meta`` allocates no parameter and draws no
+    number (internlm2-20b: 19.9 G parameters in a blink)."""
+    cfg = get_config("internlm2-20b")
+    model = get_model(cfg)(cfg, device="meta")
+    params = list(model.parameters())
+    assert all(p.device.type == "meta" for p in params)
+    assert sum(p.numel() for p in params) == cfg.param_count()
+    assert math.isclose(cfg.param_count(), 19_881_596_928)
