@@ -17,10 +17,15 @@ run with a non-zero exit code (nothing drops to the CPU or to a plain version):
            also per stage, and at its two main shapes (uniform and Zipf
            indices) three calls that must agree bitwise; the attention and
            RMSNorm backwards the same, three calls at each main shape, and
-           the kernels a call launched, counted in a trace, as planned
+           the kernels a call launched, counted in a trace, as planned;
+           the SSD scan's backward at mamba2-780m's training layer (the
+           train_mamba phase's), zamba2-2.7b's layer and a ragged grouped
+           case with the final state's cotangent, fp32 and bf16, each with
+           every stage's time alone and three bitwise-equal calls
   repeats  100 calls each of the attention forward (with the log-sum-exp)
            and backward at the train_lm layer and at a chatglm3-like layer,
-           and of the RMSNorm backward at the train_lm rows, fp32 and bf16:
+           of the RMSNorm backward at the train_lm rows and of the SSD scan
+           backward at the train_mamba layer, fp32 and bf16:
            the calls whose bits differ from the first call's, which must be
            none (with the env phase's driver version and GPU UUID, this ties
            a recurrence of an unequal repeat to a machine)
@@ -75,6 +80,21 @@ run with a non-zero exit code (nothing drops to the CPU or to a plain version):
            one step of a 2-layer, full-width smollm through the kernels and
            through the plain versions (autograd) on the same weights and
            batch, fp32 and bf16: loss, grad norm, every gradient leaf
+  train_mamba
+           mamba2-780m at full width and depth, fp32 as launch.train trains
+           it, weights from a seed: the training entry point's objects take
+           2 warm-up and 10 timed steps on batches of 8 x 2048 tokens, with
+           the memory plan's remat ("dots"), through the SSD scan's forward
+           and backward kernels and the RMSNorm kernels both ways; launches
+           held to the count reckoned from the layers and the policy; peak
+           memory beside the plan's and a reckoning; then one step under
+           torch.profiler: device ms, idle share, the SSD backward's share,
+           its kernels and the forward's as the counts reckon
+  train_mamba_check
+           one step of a 2-layer, full-width mamba2 through the kernels and
+           through the plain versions (autograd) with the scan in float64,
+           fp32 elsewhere: loss, grad norm, every gradient leaf (a leaf may
+           miss by up to twice what the plain versions in fp32 miss it by)
   checkpoint
            the train_lm configuration again: 6 steps straight against 3
            steps that checkpoint (the trainer's async save, in the JAX
@@ -301,7 +321,14 @@ BAG_REPEATS = 3         # backward calls at a main shape that must agree bitwise
 # the tensor cores' exp2 where the plain version uses softmax).
 BWD_TOL = {"flash_attention_backward": {torch.float32: 2e-5,
                                         torch.bfloat16: 3e-2},
-           "rmsnorm_backward": {torch.float32: 1e-5, torch.bfloat16: 1e-2}}
+           "rmsnorm_backward": {torch.float32: 1e-5, torch.bfloat16: 1e-2},
+           # the SSD scan: fp32, the same sums in another order, and decays
+           # exp(cs_i - cs_j) from cumsums taken in another order (|cs| up
+           # to Q |dt A|): ~1e-5 of the scale at a chunk of 256; bf16: dx,
+           # dB and dC rounded once to bf16 on each side
+           "ssd_scan_backward": {torch.float32: 1e-4, torch.bfloat16: 1e-2}}
+SSD_BWD_NO_LIBRARY = "no single PyTorch call computes the SSD scan's gradient"
+GRADS_SSD = ("dx", "ddt", "dA", "dB", "dC")
 BWD_REPEATS = 3         # backward calls at a main shape that must agree bitwise
 REPEAT_CALLS = 100      # the repeats phase: calls at each shape, all bitwise equal
 # torch.profiler loses a trace's kernel events now and then, in bursts of
@@ -336,6 +363,17 @@ LM_CHECK_LAYERS, LM_CHECK_BATCH, LM_CHECK_SEQ = 2, 4, 1024
 LM_CHECK_TOL = {torch.float32: {"loss": 1e-5, "grads": 1e-4, "grad_norm": 1e-4},
                 torch.bfloat16: {"loss": 1e-2, "grads": 5e-2,
                                  "grad_norm": 2e-2}}
+
+# mamba2 training: mamba2-780m at full width and depth, fp32 parameters as
+# launch.train makes them, launch.train's --global-batch 8 --seq-len 2048 and
+# learning rate, a 2-step warmup. The check: 2 layers at full width, one
+# step, kernel route against plain route (autograd through ssd_scan_plain and
+# rmsnorm_plain), fp32, at the CPU tests' tolerances against the JAX package.
+MAMBA_ARCH = "mamba2-780m"
+MAMBA_BATCH, MAMBA_SEQ = 8, 2048
+MAMBA_WARMUP, MAMBA_STEPS, MAMBA_PROFILED = 2, 10, 1
+MAMBA_CHECK_LAYERS, MAMBA_CHECK_BATCH, MAMBA_CHECK_SEQ = 2, 4, 1024
+MAMBA_CHECK_TOL = LM_CHECK_TOL[torch.float32]
 
 # Serving a MoE: granite-moe-3b-a800m at full width and depth (32 layers,
 # 40 experts of d_ff 512, top-8), bf16, weights from seed 0 drawn on the card.
@@ -939,6 +977,115 @@ def _ssd_case(name, b, s, h, p, n, g, chunk, dtype, gen,
     return case
 
 
+def _ssd_backward_case(name, b, s, h, p, n, g, chunk, dtype, gen,
+                       dstate=False) -> dict:
+    """The training route at one shape: the training forward's kernels
+    (which keep the scores, cumsums and incoming states), then the
+    backward's kernels against ``ssd_scan_backward_plain`` on the same
+    inputs (it recomputes the forward itself): each gradient to BWD_TOL of
+    its largest magnitude, three calls that must agree bitwise, the kernels
+    a call launched, counted in a trace, equal to
+    ``BACKWARD_KERNELS_PER_CALL``, and ``stage_ms``: each stage kernel's
+    device time alone, on the scratch of one whole call. Inputs as
+    ``_ssd_case`` draws them, dy in x's type, ``dstate`` (fp32) when asked.
+    Calls of milliseconds with a gigabyte of scratch are timed eagerly."""
+    di, gn = h * p, g * n
+    xbc = torch.randn((b, s, di + 2 * gn), generator=gen,
+                      device=DEVICE).to(dtype)
+
+    def split(t):
+        return (t[..., :di].unflatten(-1, (h, p)),
+                t[..., di:di + gn].unflatten(-1, (g, n)),
+                t[..., di + gn:].unflatten(-1, (g, n)))
+    x, B, C = split(xbc)
+    dt = F.softplus(torch.randn((b, s, h), generator=gen, device=DEVICE))
+    A = -torch.exp(0.5 * torch.randn((h,), generator=gen, device=DEVICE))
+    dy = torch.randn((b, s, h, p), generator=gen, device=DEVICE).to(dtype)
+    ds = (torch.randn((b, h, p, n), generator=gen, device=DEVICE)
+          if dstate else None)
+    saved = ssd_module.ssd_scan_train_cuda(x, dt, A, B, C, chunk)[2:]
+
+    def call(x_, B_, C_, dy_):
+        return ssd_module.ssd_scan_backward_cuda(x_, dt, A, B_, C_, dy_, ds,
+                                                 *saved, chunk)
+    got = call(x, B, C, dy)
+    torch.cuda.synchronize()
+    errs = _scaled_errors(got, ssd_module.ssd_scan_backward_plain(
+        x, dt, A, B, C, dy, ds, chunk))
+    repeats = _bitwise_repeats(lambda: call(x, B, C, dy), got)
+    del got
+    tol = BWD_TOL["ssd_scan_backward"][dtype]
+    flops, nbytes = ssd_module.backward_work(b, s, h, p, n, g, chunk, dtype,
+                                             dstate)
+    sets = [(*split(clone_like(xbc)), dy.clone())
+            for _ in range(copies_for_cold_l2([xbc, dy]))]
+    big = flops > 1e10
+    iters = 10 if big else 20
+    kernel = time_ms(call, sets, iters, graph=not big)
+    kernel_trace = trace_ms(call, sets)
+    bufs = ssd_module.ssd_backward_buffers(x, B, chunk)
+    ssd_module.ssd_scan_backward_stages_cuda(x, dt, A, B, C, dy, ds, *saved,
+                                             chunk, bufs)
+    stage_ms = {
+        stage: time_ms(lambda x_, B_, C_, dy_, stage=stage:
+                       ssd_module.ssd_scan_backward_stages_cuda(
+                           x_, dt, A, B_, C_, dy_, ds, *saved, chunk, bufs,
+                           (stage,)), sets, iters, graph=not big)["device"]
+        for stage in ssd_module.BACKWARD_STAGES}
+    scratch = sum(bufs[k].numel() * bufs[k].element_size()
+                  for k in ("dS", "dB_h", "dC_h", "dA_part"))
+    del bufs
+    plain_ms = time_ms(lambda x_, B_, C_, dy_:
+                       ssd_module.ssd_scan_backward_plain(
+                           x_, dt, A, B_, C_, dy_, ds, chunk),
+                       sets, iters=3, graph=False)["device"]
+    ok = (all(e <= tol * scale for e, scale in errs)
+          and repeats == BWD_REPEATS
+          and kernel_trace["launches_per_call"]
+          == ssd_module.BACKWARD_KERNELS_PER_CALL)
+    return {
+        "kernel": "ssd_scan_backward", "case": name,
+        "shape": {"b": b, "s": s, "h": h, "p": p, "n": n, "g": g,
+                  "chunk": chunk, "dstate": dstate},
+        "dtype": dtype_name(dtype), "max_abs_err": max(e for e, _ in errs),
+        "grad_max_abs_err": {k: e for k, (e, _) in zip(GRADS_SSD, errs)},
+        "grad_max_abs": {k: m for k, (_, m) in zip(GRADS_SSD, errs)},
+        "tol": tol, "tol_is": "of each gradient's largest magnitude",
+        "ok": ok, "kernel_ms": kernel["device"],
+        "kernel_eager_ms": kernel["eager"],
+        "kernel_trace_ms": kernel_trace["ms"],
+        "kernels_per_call": kernel_trace["launches_per_call"],
+        "trace_tries": kernel_trace["trace_tries"], "stage_ms": stage_ms,
+        "plain_ms": plain_ms, "library_ms": None,
+        "library_note": SSD_BWD_NO_LIBRARY,
+        **bound(flops, nbytes, PRODUCT_FLOPS[dtype]),
+        "flops": flops, "bytes": nbytes, "scratch_bytes": scratch,
+        "bitwise_equal_calls": repeats, "cold_copies": len(sets),
+    }
+
+
+def _ssd_backward_cases() -> list:
+    """The SSD scan's backward, from a stream of its own: mamba2-780m's
+    training layer at the train_mamba phase's batch (the main case),
+    zamba2-2.7b's layer (80 heads, n 64) and a ragged grouped case with the
+    final state's cotangent (no model passes one), fp32 and bf16."""
+    cfg = get_config(MAMBA_ARCH)
+    gen = torch.Generator(device=DEVICE).manual_seed(6)
+    cases = []
+    for dtype in (torch.float32, torch.bfloat16):
+        cases.append(_ssd_backward_case(
+            "train main", MAMBA_BATCH, MAMBA_SEQ, cfg.ssm_heads,
+            cfg.ssm.head_dim, cfg.ssm.state_dim, cfg.ssm.ngroups,
+            cfg.ssm.chunk_size, dtype, gen))
+        cases.append(_ssd_backward_case("zamba2 layer", 1, 1024, 80, 64, 64,
+                                        1, 256, dtype, gen))
+        cases.append(_ssd_backward_case(
+            "ragged s=130 g=2 with dstate", 2, 130, 4, 32, 32, 2, 64, dtype,
+            gen, dstate=True))
+        torch.cuda.empty_cache()
+    return cases
+
+
 def _bag_tol(want: torch.Tensor, dtype) -> float:
     """Embedding bag, kernel against plain, both directions. fp32: the two
     sum the same terms in another order, up to a few hundred terms a value
@@ -1268,6 +1415,7 @@ def phase_kernels() -> list:
                 dtype, gen_zamba))
     cases.extend(_bag_cases())
     cases.extend(_backward_cases())
+    cases.extend(_ssd_backward_cases())
     failed = [c for c in cases
               if not c.get("ok", c["max_abs_err"] <= c["tol"])]
     emit("kernels", cases=cases, failed=len(failed))
@@ -1299,9 +1447,9 @@ def phase_repeats() -> list:
     were not bitwise equal): REPEAT_CALLS calls each of the attention
     forward with the log-sum-exp and of its backward at the train_lm layer
     and at the chatglm3-like layer (the backward's group split over 16
-    blocks), and of the RMSNorm backward at the train_lm rows, fp32 and
-    bf16; each call's bits against the first call's. Any difference fails
-    the phase."""
+    blocks), of the RMSNorm backward at the train_lm rows and of the SSD
+    scan backward at the train_mamba layer, fp32 and bf16; each call's bits
+    against the first call's. Any difference fails the phase."""
     gen = torch.Generator(device=DEVICE).manual_seed(7)
     cases = []
     for dtype in (torch.float32, torch.bfloat16):
@@ -1336,6 +1484,31 @@ def phase_repeats() -> list:
                       "calls": REPEAT_CALLS, "differing": _differing_calls(
                           lambda: rmsnorm_backward_cuda(x, gamma, dy))})
         del x, dy, gamma
+    # the SSD scan backward from a stream of its own, so the cases above
+    # keep the inputs they always had
+    cfg = get_config(MAMBA_ARCH)
+    b, s, h = MAMBA_BATCH, MAMBA_SEQ, cfg.ssm_heads
+    p, n, chunk = cfg.ssm.head_dim, cfg.ssm.state_dim, cfg.ssm.chunk_size
+    gen_ssd = torch.Generator(device=DEVICE).manual_seed(8)
+    for dtype in (torch.float32, torch.bfloat16):
+        x, dy = (torch.randn((b, s, h, p), generator=gen_ssd, device=DEVICE)
+                 .to(dtype) for _ in range(2))
+        B, C = (torch.randn((b, s, 1, n), generator=gen_ssd, device=DEVICE)
+                .to(dtype) for _ in range(2))
+        dt = F.softplus(torch.randn((b, s, h), generator=gen_ssd,
+                                    device=DEVICE))
+        A = -torch.exp(0.5 * torch.randn((h,), generator=gen_ssd,
+                                         device=DEVICE))
+        saved = ssd_module.ssd_scan_train_cuda(x, dt, A, B, C, chunk)[2:]
+        cases.append({
+            "kernel": "ssd_scan_backward", "case": "train main",
+            "shape": {"b": b, "s": s, "h": h, "p": p, "n": n, "g": 1,
+                      "chunk": chunk},
+            "dtype": dtype_name(dtype), "calls": REPEAT_CALLS,
+            "differing": _differing_calls(
+                lambda: ssd_module.ssd_scan_backward_cuda(
+                    x, dt, A, B, C, dy, None, *saved, chunk))})
+        del x, dy, B, C, saved
     torch.cuda.empty_cache()
     failed = [c for c in cases if c["differing"]]
     emit("repeats", cases=cases, failed=len(failed))
@@ -2044,6 +2217,13 @@ def _lm_counts() -> dict:
             "rmsnorm_backward": ops.rmsnorm.backward_launches}
 
 
+def _mamba_counts() -> dict:
+    return {"rmsnorm": ops.rmsnorm.launches,
+            "rmsnorm_backward": ops.rmsnorm.backward_launches,
+            "ssd_scan": ops.ssd_scan.launches,
+            "ssd_scan_backward": ops.ssd_scan.backward_launches}
+
+
 def _zero_lm_counts() -> None:
     for wrapper in (ops.flash_attention, ops.rmsnorm):
         wrapper.launches = 0
@@ -2239,12 +2419,13 @@ def phase_train_lm() -> dict:
     return launches
 
 
-def _lm_one_step(dtype: torch.dtype, plain: bool) -> dict:
-    """One training step of LM_CHECK_LAYERS layers of full-width smollm
-    from seed 0, on the data's step 0: the loss, the gradients (as the step
-    hands them to the optimizer) and the grad norm. ``plain``: attention and
-    RMSNorm are the plain versions, differentiated by autograd."""
-    cfg = dataclasses.replace(get_config(LM_ARCH), num_layers=LM_CHECK_LAYERS)
+def _one_step(cfg, dtype: torch.dtype, batch_size: int, seq: int,
+              plain: dict, counts) -> dict:
+    """One training step of ``cfg`` from seed 0, on the data's step 0: the
+    loss, the gradients (as the step hands them to the optimizer), the grad
+    norm and the kernel launches (``counts()``). ``plain``: wrapper name in
+    ``ops`` -> the plain version that stands in for it, differentiated by
+    autograd (empty: the kernels)."""
     plan = plan_memory(cfg, tp=1, dp=1)
     ocfg = AdamWConfig(lr=LM_LR, warmup_steps=1, total_steps=10,
                        state_dtype=plan.opt_dtype, use_master=plan.use_master)
@@ -2252,8 +2433,8 @@ def _lm_one_step(dtype: torch.dtype, plain: bool) -> dict:
                              torch.Generator(device=DEVICE).manual_seed(0),
                              ocfg, dtype=dtype, device=DEVICE)
     batch = next(DataIterator(DataConfig(vocab_size=cfg.vocab_size,
-                                         seq_len=LM_CHECK_SEQ,
-                                         global_batch=LM_CHECK_BATCH, seed=0),
+                                         seq_len=seq, global_batch=batch_size,
+                                         seed=0),
                               device=DEVICE))
     seen = {}
 
@@ -2261,24 +2442,87 @@ def _lm_one_step(dtype: torch.dtype, plain: bool) -> dict:
         seen["grads"] = {n: g.clone() for n, g in grads.items()}
         return apply_updates(params, grads, *args, **kwargs)
 
-    kernels = {"flash_attention": ops.flash_attention, "rmsnorm": ops.rmsnorm}
-    _zero_lm_counts()
+    kernels = {name: getattr(ops, name) for name in plain}
+    _zero_kernel_counts()
     train_step_module.apply_updates = spy
-    if plain:
-        ops.flash_attention, ops.rmsnorm = flash_attention_plain, rmsnorm_plain
+    for name, fn in plain.items():
+        setattr(ops, name, fn)
     try:
         _, metrics = make_train_step(cfg, plan, ocfg)(state, batch)
         torch.cuda.synchronize()
     finally:
         train_step_module.apply_updates = apply_updates
-        ops.flash_attention, ops.rmsnorm = (kernels["flash_attention"],
-                                            kernels["rmsnorm"])
+        for name, fn in kernels.items():
+            setattr(ops, name, fn)
     out = {"loss": metrics["loss"].item(),
            "grad_norm": metrics["grad_norm"].item(), "grads": seen["grads"],
-           "launches": _lm_counts(), "remat": plan.remat, "cfg": cfg}
+           "launches": counts(), "remat": plan.remat, "cfg": cfg}
     del state
     torch.cuda.empty_cache()
     return out
+
+
+def _lm_one_step(dtype: torch.dtype, plain: bool) -> dict:
+    """One training step of LM_CHECK_LAYERS layers of full-width smollm.
+    ``plain``: attention and RMSNorm are the plain versions."""
+    cfg = dataclasses.replace(get_config(LM_ARCH), num_layers=LM_CHECK_LAYERS)
+    return _one_step(cfg, dtype, LM_CHECK_BATCH, LM_CHECK_SEQ,
+                     {"flash_attention": flash_attention_plain,
+                      "rmsnorm": rmsnorm_plain} if plain else {}, _lm_counts)
+
+
+def _check_against_plain(kernel: dict, plain: dict, tol: dict,
+                         name: str, problems: list,
+                         fp32_route: dict = None) -> dict:
+    """The kernel route's step against the plain route's: the loss, the
+    grad norm and every gradient leaf, each to ``tol``; a failure is
+    appended to ``problems``. ``fp32_route``: another plain route, held to
+    ``plain`` too; a leaf of the kernel route may then miss by up to twice
+    what that route misses it by, where that is more than ``tol``. Returns
+    the report."""
+    others = {} if fp32_route is None else {
+        leaf: (got - plain["grads"][leaf]).abs().max().item()
+        / max(plain["grads"][leaf].abs().max().item(), 1e-30)
+        for leaf, got in fp32_route["grads"].items()}
+    for route in [plain] + ([fp32_route] if fp32_route else []):
+        if any(route["launches"].values()):
+            problems.append(f"{name}: a plain route launched a kernel: "
+                            f"{route['launches']}")
+    loss_err = abs(kernel["loss"] - plain["loss"])
+    if not (math.isfinite(kernel["loss"])
+            and loss_err <= tol["loss"] * abs(plain["loss"])):
+        problems.append(f"{name}: loss {kernel['loss']} against "
+                        f"{plain['loss']}")
+    gnorm_err = abs(kernel["grad_norm"] - plain["grad_norm"])
+    if not gnorm_err <= tol["grad_norm"] * plain["grad_norm"]:
+        problems.append(f"{name}: grad norm {kernel['grad_norm']} against "
+                        f"{plain['grad_norm']}")
+    grads, widened = {}, {}
+    for leaf, want in plain["grads"].items():
+        got = kernel["grads"][leaf]
+        err = (got - want).abs().max().item()
+        scale = want.abs().max().item()
+        grads[leaf] = err / scale if scale else err
+        allowed = max(tol["grads"], 2 * others.get(leaf, 0.0))
+        if allowed > tol["grads"]:
+            widened[leaf] = {"fp32_route_err_of_max": others[leaf],
+                             "err_of_max": grads[leaf]}
+        if not (torch.isfinite(got).all() and err <= allowed * scale):
+            problems.append(f"{name}: gradient {leaf} differs by {err} "
+                            f"(largest {scale}, allowed {allowed} of it)")
+    worst = max(grads, key=grads.get)
+    report = {"tol": tol, "loss": plain["loss"], "loss_abs_err": loss_err,
+              "grad_norm": plain["grad_norm"],
+              "grad_norm_abs_err": gnorm_err, "grad_leaves": len(grads),
+              "grad_worst_leaf": {"leaf": worst,
+                                  "err_of_max": grads[worst]},
+              "launches": kernel["launches"]}
+    if fp32_route is not None:
+        worst32 = max(others, key=others.get)
+        report.update(fp32_route_worst_leaf={"leaf": worst32,
+                                             "err_of_max": others[worst32]},
+                      leaves_held_to_the_fp32_route=widened)
+    return report
 
 
 def phase_train_lm_check() -> None:
@@ -2286,7 +2530,6 @@ def phase_train_lm_check() -> None:
     plain versions, each from a fresh model drawn from seed 0."""
     report, problems = {}, []
     for dtype in (torch.float32, torch.bfloat16):
-        tol = LM_CHECK_TOL[dtype]
         kernel = _lm_one_step(dtype, plain=False)
         plain = _lm_one_step(dtype, plain=True)
         name = dtype_name(dtype)
@@ -2294,39 +2537,214 @@ def phase_train_lm_check() -> None:
         if kernel["launches"] != expected:
             problems.append(f"{name}: launches {kernel['launches']} != "
                             f"{expected}")
-        if any(plain["launches"].values()):
-            problems.append(f"{name}: the plain route launched a kernel: "
-                            f"{plain['launches']}")
-        loss_err = abs(kernel["loss"] - plain["loss"])
-        if not (math.isfinite(kernel["loss"])
-                and loss_err <= tol["loss"] * abs(plain["loss"])):
-            problems.append(f"{name}: loss {kernel['loss']} against "
-                            f"{plain['loss']}")
-        gnorm_err = abs(kernel["grad_norm"] - plain["grad_norm"])
-        if not gnorm_err <= tol["grad_norm"] * plain["grad_norm"]:
-            problems.append(f"{name}: grad norm {kernel['grad_norm']} against "
-                            f"{plain['grad_norm']}")
-        grads = {}
-        for leaf, want in plain["grads"].items():
-            got = kernel["grads"][leaf]
-            err = (got - want).abs().max().item()
-            scale = want.abs().max().item()
-            grads[leaf] = err / scale if scale else err
-            if not (torch.isfinite(got).all() and err <= tol["grads"] * scale):
-                problems.append(f"{name}: gradient {leaf} differs by {err} "
-                                f"(largest {scale})")
-        worst = max(grads, key=grads.get)
-        report[name] = {
-            "tol": tol, "loss": plain["loss"], "loss_abs_err": loss_err,
-            "grad_norm": plain["grad_norm"], "grad_norm_abs_err": gnorm_err,
-            "grad_leaves": len(grads),
-            "grad_worst_leaf": {"leaf": worst, "err_of_max": grads[worst]},
-            "launches": kernel["launches"]}
+        report[name] = _check_against_plain(kernel, plain,
+                                            LM_CHECK_TOL[dtype], name,
+                                            problems)
     emit("train_lm_check", arch=LM_ARCH, layers=LM_CHECK_LAYERS,
          batch=LM_CHECK_BATCH, seq_len=LM_CHECK_SEQ, **report,
          problems=problems)
     if problems:
         raise SystemExit(f"chip_smoke: train_lm_check failed: {problems}")
+
+
+# ------------------------------------------------------------------------- #
+# mamba2 training
+# ------------------------------------------------------------------------- #
+
+def _expected_mamba_launches(cfg, remat: str, steps: int) -> dict:
+    """Each kernel's calls in ``steps`` training steps of one microbatch: a
+    layer runs the scan once and RMSNorm twice (``ln`` and the gated
+    ``norm_g``), the final norm once, each forward with one backward; a
+    policy that recomputes the layers runs their forwards again."""
+    layers = cfg.num_layers
+    again = 1 if remat == "none" else 2
+    return {"rmsnorm": (again * 2 * layers + 1) * steps,
+            "rmsnorm_backward": (2 * layers + 1) * steps,
+            "ssd_scan": again * layers * steps,
+            "ssd_scan_backward": layers * steps}
+
+
+def _mamba_memory_reckoned(cfg, plan, batch: int, seq: int) -> dict:
+    """Bytes reckoned from the shapes, fp32: the plan's estimate; the
+    parameters, gradients, m, v and master copy; the projections the
+    "dots" policy keeps (z, x, B, C, dt and the out projection, a layer);
+    each layer's input, kept by the checkpoint; the logits and their
+    gradient; the SSD backward's scratch of one layer."""
+    tokens = batch * seq
+    ssm, layers = cfg.ssm, cfg.num_layers
+    gn = ssm.ngroups * ssm.state_dim
+    per_layer = 2 * cfg.d_inner + 2 * gn + cfg.ssm_heads + cfg.d_model
+    nc = -(-seq // ssm.chunk_size)
+    heads_state = batch * cfg.ssm_heads * ssm.head_dim * ssm.state_dim
+    return {"plan_est_bytes_per_chip": plan.est_bytes_per_chip,
+            "state_bytes": 5 * 4 * cfg.param_count(),
+            "dots_saved_bytes": layers * tokens * per_layer * 4,
+            "layer_inputs_bytes": layers * tokens * cfg.d_model * 4,
+            "logits_and_grad_bytes": 2 * tokens * cfg.padded_vocab * 4,
+            "ssd_backward_scratch_bytes": 4 * (
+                nc * heads_state + 2 * tokens * cfg.ssm_heads * ssm.state_dim
+                + batch * cfg.ssm_heads * nc)}
+
+
+def phase_train_mamba() -> dict:
+    """Full-width, full-depth mamba2-780m in fp32 through the training
+    entry point's objects: MAMBA_WARMUP + MAMBA_STEPS steps (the first
+    MAMBA_WARMUP not timed), each step read back once by the trainer, then
+    MAMBA_PROFILED more under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    cfg = get_config(MAMBA_ARCH)
+    plan = plan_memory(cfg, tp=1, dp=1)
+    steps = MAMBA_WARMUP + MAMBA_STEPS
+    ocfg = AdamWConfig(lr=LM_LR, warmup_steps=MAMBA_WARMUP,
+                       total_steps=steps, state_dtype=plan.opt_dtype,
+                       use_master=plan.use_master)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = init_train_state(cfg, plan,
+                             torch.Generator(device=DEVICE).manual_seed(0),
+                             ocfg, dtype=torch.float32, device=DEVICE)
+    torch.cuda.synchronize()
+    init_seconds = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in state["params"].values())
+    data = DataIterator(DataConfig(vocab_size=cfg.vocab_size,
+                                   seq_len=MAMBA_SEQ,
+                                   global_batch=MAMBA_BATCH, seed=0),
+                        device=DEVICE)
+    trainer = Trainer(make_train_step(cfg, plan, ocfg), state, data,
+                      TrainerConfig(total_steps=steps, log_interval=1, seed=0))
+
+    torch.cuda.synchronize()
+    # The main path: counters to 0 just before, read just after.
+    _zero_kernel_counts()
+    summary = trainer.run()
+    launches = _mamba_counts()
+    peak_bytes = torch.cuda.max_memory_allocated()
+    losses = [row["loss"] for row in trainer.metrics_log]
+
+    trainer.cfg.total_steps = steps + MAMBA_PROFILED
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        trainer.run()
+        torch.cuda.synchronize()
+    device_us, device_launches, by_name = _device_time(prof, MAMBA_PROFILED,
+                                                       "step")
+
+    step_ms = [t * 1e3 for t in trainer.step_times[MAMBA_WARMUP:steps]]
+    timed_s = sum(step_ms) / 1e3
+    median_ms = float(np.median(step_ms))
+    problems = []
+    if not all(math.isfinite(x) for x in losses):
+        problems.append(f"a loss is not finite: {losses}")
+    if summary["final_step"] != steps:
+        problems.append(f"the trainer stopped at step {summary['final_step']}")
+    expected = _expected_mamba_launches(cfg, plan.remat, steps)
+    if launches != expected:
+        problems.append(f"launches {launches} != {expected}, reckoned from "
+                        f"{cfg.num_layers} layers and remat {plan.remat!r}")
+    per_step = {k: v / steps for k, v in launches.items()}
+    traces = {
+        "ssd_scan_backward": {
+            "kernels_per_step": per_step["ssd_scan_backward"]
+            * ssd_module.BACKWARD_KERNELS_PER_CALL,
+            **_traced(by_name, r"ssd_bwd_\w+_kernel")},
+        "ssd_scan": {
+            "kernels_per_step": per_step["ssd_scan"]
+            * ssd_module.KERNELS_PER_CALL,
+            **_traced(by_name,
+                      r"((scores|states|outputs)_f32_kernel|pass_kernel)")},
+        "rmsnorm_backward": {
+            "kernels_per_step": per_step["rmsnorm_backward"]
+            * rms_module.BACKWARD_KERNELS_PER_CALL,
+            **_traced(by_name, r"rmsnorm_(bwd_rows|dgamma)_kernel")}}
+    for what, got in traces.items():
+        if (device_us and got["kernels_traced_per_step"]
+                != got["kernels_per_step"]):
+            problems.append(f"{what} kernels a step: traced "
+                            f"{got['kernels_traced_per_step']}, reckoned "
+                            f"{got['kernels_per_step']} from the counts")
+    result = {
+        "arch": cfg.arch_id, "layers": cfg.num_layers, "d_model": cfg.d_model,
+        "d_inner": cfg.d_inner, "ssd_heads": cfg.ssm_heads,
+        "params": n_params, "dtype": "float32",
+        "plan": {"remat": plan.remat, "microbatches": plan.microbatches,
+                 "opt_dtype": plan.opt_dtype, "use_master": plan.use_master,
+                 "zero_stage": plan.zero_stage},
+        "optimizer": {"lr": LM_LR, "warmup_steps": MAMBA_WARMUP,
+                      "total_steps": steps},
+        "global_batch": MAMBA_BATCH, "seq_len": MAMBA_SEQ,
+        "warmup_steps_untimed": MAMBA_WARMUP, "timed_steps": MAMBA_STEPS,
+        "losses": losses, "loss_first": losses[0], "loss_last": losses[-1],
+        "step_ms": step_ms, "step_ms_median": median_ms,
+        "step_ms_mean": float(np.mean(step_ms)),
+        "tokens_per_s": MAMBA_BATCH * MAMBA_SEQ * MAMBA_STEPS / timed_s,
+        "straggler_steps": summary["straggler_steps"],
+        "launches": launches, "launches_per_step": per_step,
+        "traces": traces, "peak_memory_bytes": peak_bytes,
+        "memory_reckoned": _mamba_memory_reckoned(cfg, plan, MAMBA_BATCH,
+                                                  MAMBA_SEQ),
+        "init_seconds": init_seconds, "problems": problems,
+    }
+    if device_us:
+        device_ms = device_us / 1e3 / MAMBA_PROFILED
+        result.update(
+            device_ms_per_step=device_ms,
+            device_idle_share=1.0 - device_ms / median_ms,
+            ssd_backward_share_of_device=(
+                traces["ssd_scan_backward"]["device_ms_per_step"]
+                / device_ms),
+            ssd_forward_share_of_device=(
+                traces["ssd_scan"]["device_ms_per_step"] / device_ms),
+            device_launches_per_step=device_launches / MAMBA_PROFILED,
+            top_device_time=by_name[:14])
+    else:
+        result.update(device_idle_share="not measured",
+                      reason="torch.profiler reported no device time")
+    emit("train_mamba", **result)
+    if problems:
+        raise SystemExit(f"chip_smoke: train_mamba phase failed: {problems}")
+    del trainer, state, data, prof
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _ssd_scan_float64(x, dt, A, B, C, chunk):
+    """``ssd_scan_plain`` computed in float64 (its inputs widened, y handed
+    back in x's type and the final state in fp32): the check's yardstick."""
+    y, state = ssd_scan_plain(x.double(), dt.double(), A.double(),
+                              B.double(), C.double(), chunk)
+    return y.to(x.dtype), state.float()
+
+
+def phase_train_mamba_check() -> None:
+    """fp32: one step of MAMBA_CHECK_LAYERS full-width mamba2 layers through
+    the kernels, one through the plain versions with the scan computed in
+    float64 (the yardstick), and one through the plain versions in fp32,
+    each from a fresh model drawn from seed 0. The gradients of A_log and
+    dt_bias sum the scan's cotangents of dA and dt over every position, on
+    fp32 cumsums (|cs| up to Q |dt A|, some thousands), and the closed form
+    the kernels compute rounds those sums further from a float64 scan than
+    autograd through the plain scan does. So each leaf of the kernel route
+    is held to the yardstick within 1e-4 of its largest, or within twice
+    what the fp32 plain route misses it by, whichever is larger."""
+    cfg = dataclasses.replace(get_config(MAMBA_ARCH),
+                              num_layers=MAMBA_CHECK_LAYERS)
+    kernel, wide, plain = (
+        _one_step(cfg, torch.float32, MAMBA_CHECK_BATCH, MAMBA_CHECK_SEQ,
+                  routes, _mamba_counts)
+        for routes in ({}, {"ssd_scan": _ssd_scan_float64,
+                            "rmsnorm": rmsnorm_plain},
+                       {"ssd_scan": ssd_scan_plain,
+                        "rmsnorm": rmsnorm_plain}))
+    problems = []
+    expected = _expected_mamba_launches(cfg, kernel["remat"], 1)
+    if kernel["launches"] != expected:
+        problems.append(f"launches {kernel['launches']} != {expected}")
+    report = _check_against_plain(kernel, wide, MAMBA_CHECK_TOL, "float32",
+                                  problems, fp32_route=plain)
+    emit("train_mamba_check", arch=MAMBA_ARCH, layers=MAMBA_CHECK_LAYERS,
+         batch=MAMBA_CHECK_BATCH, seq_len=MAMBA_CHECK_SEQ, float32=report,
+         problems=problems)
+    if problems:
+        raise SystemExit(f"chip_smoke: train_mamba_check failed: {problems}")
 
 
 # ------------------------------------------------------------------------- #
@@ -2773,7 +3191,7 @@ KERNELS = (
     ("embedding_bag_backward", "src/repro_torch/kernels/csrc/embedding_bag.cu",
      "src/repro/kernels/embedding_bag.py:37",
      lambda c: c.get("case") == "main" and c["dtype"] == "float32"),
-    # The two training backwards have no Pallas counterpart (jax.grad
+    # The training backwards have no Pallas counterpart (jax.grad
     # differentiates the reference): each names the forward it is the
     # gradient of.
     ("flash_attention_backward",
@@ -2784,6 +3202,9 @@ KERNELS = (
      "src/repro/kernels/rmsnorm.py:24",
      lambda c: c.get("shape") == [LM_BATCH * LM_SEQ, 576]
      and c["dtype"] == "float32"),
+    ("ssd_scan_backward", "src/repro_torch/kernels/csrc/ssd_scan_backward.cu",
+     "src/repro/kernels/ssd_scan.py:80",
+     lambda c: c.get("case") == "train main" and c["dtype"] == "float32"),
 )
 
 
@@ -2797,6 +3218,7 @@ def _kernel_counts() -> dict:
             "rmsnorm": ops.rmsnorm.launches,
             "rmsnorm_backward": ops.rmsnorm.backward_launches,
             "ssd_scan": ops.ssd_scan.launches,
+            "ssd_scan_backward": ops.ssd_scan.backward_launches,
             "embedding_bag": ops.embedding_bag.launches,
             "embedding_bag_backward": ops.embedding_bag.backward_launches}
 
@@ -3643,14 +4065,15 @@ def kernels_line(cases: list, launches_by_path: dict, repeats: list) -> dict:
                                      "bound_ms", "bound_by", "stage_ms",
                                      "bitwise_equal_calls") if k in zipf}
         if name in ("embedding_bag_backward", "flash_attention_backward",
-                    "rmsnorm_backward"):
+                    "rmsnorm_backward", "ssd_scan_backward"):
             entries[-1]["bitwise_equal_calls"] = main_case[
                 "bitwise_equal_calls"]
-        if name in ("flash_attention_backward", "rmsnorm_backward"):
+        if name in ("flash_attention_backward", "rmsnorm_backward",
+                    "ssd_scan_backward"):
             entries[-1]["repeat_check"] = [
                 {k: r[k] for k in ("case", "dtype", "calls", "differing")}
                 for r in repeats if r["kernel"] == name]
-            if name == "rmsnorm_backward":
+            if name in ("rmsnorm_backward", "ssd_scan_backward"):
                 entries[-1]["stage_ms"] = main_case["stage_ms"]
             # library_ms of a backward is a torch.profiler sum of device time
             # (trace_ms); kernel_trace_ms is the kernels' read the same way.
@@ -3668,7 +4091,8 @@ def kernels_line(cases: list, launches_by_path: dict, repeats: list) -> dict:
                 k: bf16[k] for k in ("kernel_ms", "kernel_trace_ms",
                                      "plain_ms", "library_ms",
                                      "library_backend", "bound_ms",
-                                     "bound_by", "max_abs_err") if k in bf16}
+                                     "bound_by", "max_abs_err",
+                                     "stage_ms") if k in bf16}
         if name in ("flash_attention", "rmsnorm"):
             granite = [c for c in mine if c["dtype"] == "bfloat16" and (
                 c.get("case", "").startswith("granite")
@@ -3678,9 +4102,10 @@ def kernels_line(cases: list, launches_by_path: dict, repeats: list) -> dict:
                                    "kernel_eager_ms", "plain_ms", "library_ms",
                                    "bound_ms", "bound_by", "max_abs_err")
                  if k in c} for c in granite]
-        if name in ("flash_attention", "rmsnorm", "ssd_scan"):
-            # zamba2's and seamless's shapes (serve_zamba, serve_encdec),
-            # both types
+        if name in ("flash_attention", "rmsnorm", "ssd_scan",
+                    "ssd_scan_backward"):
+            # zamba2's and seamless's shapes (serve_zamba, serve_encdec; the
+            # backward's zamba2 layer), both types
             entries[-1]["zamba2_seamless"] = [
                 {k: c[k] for k in ("case", "shape", "dtype", "kernel_ms",
                                    "kernel_eager_ms", "plain_ms", "library_ms",
@@ -3736,6 +4161,8 @@ def main() -> int:
     phase_train_dlrm_check()
     launches["train_lm"] = phase_train_lm()
     phase_train_lm_check()
+    launches["train_mamba"] = phase_train_mamba()
+    phase_train_mamba_check()
     phase_checkpoint()
     launches["parallel"] = phase_parallel()
     phase_parallel_gloo()

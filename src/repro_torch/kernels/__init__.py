@@ -4,7 +4,8 @@ in Pallas.
 flash_attention — GQA flash attention forward (csrc/flash_attention.cu) and
                   backward (csrc/flash_attention_backward.cu)
 rmsnorm         — fused RMSNorm forward and backward (csrc/rmsnorm.cu)
-ssd_scan        — Mamba2 SSD chunked scan forward (csrc/ssd_scan.cu)
+ssd_scan        — Mamba2 SSD chunked scan forward (csrc/ssd_scan.cu) and
+                  backward (csrc/ssd_scan_backward.cu)
 embedding_bag   — DLRM pooled lookup, forward and backward
                   (csrc/embedding_bag.cu)
 

@@ -23,13 +23,13 @@ op counter, ``core/op_counter.py``) sees each operator as one op; its work,
 Each wrapper counts its kernel launches in ``<wrapper>.launches``, a plain
 integer raised in the CUDA implementation, where the kernel is launched,
 and nowhere else, so a run can show that it went through the kernels.
-``embedding_bag``, ``flash_attention`` and ``rmsnorm`` have gradients
-(``torch.autograd.Function``s whose forward and backward call the
-operators): the backward counts in ``<wrapper>.backward_launches``, one a
-call of its kernels. A forward that a remat policy recomputes during the
-backward is launched, and counted, again. ``ssd_scan`` has no backward
-kernel: a call that wants a gradient runs the plain version on the CPU and
-raises on any other device.
+Every wrapper has a gradient (``torch.autograd.Function``s whose forward
+and backward call the operators): the backward counts in
+``<wrapper>.backward_launches``, one a call of its kernels. A forward that
+a remat policy recomputes during the backward is launched, and counted,
+again. Attention and the SSD scan take a training forward of their own
+(``flash_attention_lse``, ``ssd_scan_train``) that also hands back what
+the backward reads.
 """
 
 from __future__ import annotations
@@ -65,7 +65,14 @@ from repro_torch.kernels.rmsnorm import (
     rmsnorm_cuda,
     rmsnorm_plain,
 )
-from repro_torch.kernels.ssd_scan import ssd_scan_cuda, ssd_scan_plain
+from repro_torch.kernels.ssd_scan import (
+    ssd_scan_backward_cuda,
+    ssd_scan_backward_plain,
+    ssd_scan_cuda,
+    ssd_scan_plain,
+    ssd_scan_train_cuda,
+    ssd_scan_train_plain,
+)
 
 NAMESPACE = "repro_torch"
 _LIB = torch.library.Library(NAMESPACE, "DEF")
@@ -260,6 +267,57 @@ _ssd_op = _define(
     _ssd_cuda, _ssd_fake, _ssd_work)
 
 
+def _ssd_train_cuda(x, dt, A, B, C, chunk):
+    out = ssd_scan_train_cuda(x, dt, A, B, C, chunk)
+    ssd_scan.launches += 1
+    return out
+
+
+def _ssd_train_fake(x, dt, A, B, C, chunk):
+    specs = ssd_module._buffer_specs(x, B, chunk)
+    return tuple(x.new_empty(specs[name][0], dtype=specs[name][1])
+                 for name in ssd_module.TRAIN_OUTPUTS)
+
+
+_ssd_train_op = _define(
+    "ssd_scan_train(Tensor x, Tensor dt, Tensor A, Tensor B, Tensor C, "
+    "int chunk) -> (Tensor, Tensor, Tensor, Tensor, Tensor)",
+    lambda x, dt, A, B, C, chunk: ssd_scan_train_plain(x, dt, A, B, C,
+                                                       chunk),
+    _ssd_train_cuda, _ssd_train_fake, _ssd_work)
+
+
+def _ssd_backward_cuda(x, dt, A, B, C, dy, dstate, scores, cs, incoming,
+                       chunk):
+    grads = ssd_scan_backward_cuda(x, dt, A, B, C, dy, dstate, scores, cs,
+                                   incoming, chunk)
+    ssd_scan.backward_launches += 1
+    return grads
+
+
+def _ssd_backward_fake(x, dt, A, B, C, dy, dstate, scores, cs, incoming,
+                       chunk):
+    specs = ssd_module._backward_buffer_specs(x, B, chunk)
+    return tuple(x.new_empty(specs[name][0], dtype=specs[name][1])
+                 for name in ssd_module.BACKWARD_OUTPUTS)
+
+
+def _ssd_backward_work(x, dt, A, B, C, dy, dstate, scores, cs, incoming,
+                       chunk):
+    b, s, h, p = x.shape
+    return ssd_module.backward_work(b, s, h, p, B.shape[-1], B.shape[-2],
+                                    chunk, x.dtype, dstate is not None)
+
+
+_ssd_backward_op = _define(
+    "ssd_scan_backward(Tensor x, Tensor dt, Tensor A, Tensor B, Tensor C, "
+    "Tensor dy, Tensor? dstate, Tensor scores, Tensor cs, Tensor incoming, "
+    "int chunk) -> (Tensor, Tensor, Tensor, Tensor, Tensor)",
+    lambda x, dt, A, B, C, dy, dstate, scores, cs, incoming, chunk:
+    ssd_scan_backward_plain(x, dt, A, B, C, dy, dstate, chunk),
+    _ssd_backward_cuda, _ssd_backward_fake, _ssd_backward_work)
+
+
 # ----------------------------------------------------------------------- #
 # Embedding bag
 # ----------------------------------------------------------------------- #
@@ -368,24 +426,40 @@ def rmsnorm(x: torch.Tensor, gamma: torch.Tensor,
     return _rmsnorm_op(x, gamma, eps)
 
 
+class _SSDScan(torch.autograd.Function):
+    """The training route: the forward keeps the chunks' scores, cumsums
+    and incoming states; the backward reads them. A final state that the
+    loss does not use sends no cotangent (None), and costs nothing."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, B, C, chunk):
+        y, state, scores, cs, incoming = _ssd_train_op(x, dt, A, B, C, chunk)
+        ctx.set_materialize_grads(False)
+        ctx.chunk = chunk
+        ctx.save_for_backward(x, dt, A, B, C, scores, cs, incoming)
+        return y, state
+
+    @staticmethod
+    def backward(ctx, dy, dstate):
+        x, dt, A, B, C, scores, cs, incoming = ctx.saved_tensors
+        dy = x.new_zeros(x.shape) if dy is None else dy.contiguous()
+        if dstate is not None:
+            dstate = dstate.contiguous()
+        grads = _ssd_backward_op(x, dt, A, B, C, dy, dstate, scores, cs,
+                                 incoming, ctx.chunk)
+        return (*grads, None)
+
+
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
              B: torch.Tensor, C: torch.Tensor, chunk: int = 256
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (b, s, h, p), dt: (b, s, h) fp32, A: (h,) fp32, B/C: (b, s, g, n)
     -> (y (b, s, h, p), final state (b, h, p, n) fp32); see
-    ``repro_torch.kernels.ssd_scan``.
-
-    The kernels have no backward: a call that wants a gradient (an input
-    requires grad and grad mode is on) raises on the card rather than
-    return a result that would drop it. On the CPU autograd runs through
-    the plain version."""
+    ``repro_torch.kernels.ssd_scan``. When an input requires grad (and
+    grad mode is on) the call takes the training route, with a backward,
+    on every device."""
     if _wants_grad(x, dt, A, B, C):
-        if x.device.type == "cpu":
-            return ssd_scan_plain(x, dt, A, B, C, chunk)
-        raise NotImplementedError(
-            "ssd_scan: the CUDA kernels have no backward yet (ROADMAP "
-            "Queue 2, SSD scan backward); call under torch.no_grad() on "
-            "the card, or on CPU tensors for a gradient")
+        return _SSDScan.apply(x, dt, A, B, C, chunk)
     return _ssd_op(x, dt, A, B, C, chunk)
 
 
@@ -417,5 +491,6 @@ flash_attention.backward_launches = 0
 rmsnorm.launches = 0
 rmsnorm.backward_launches = 0
 ssd_scan.launches = 0
+ssd_scan.backward_launches = 0
 embedding_bag.launches = 0
 embedding_bag.backward_launches = 0

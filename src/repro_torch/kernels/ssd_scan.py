@@ -34,11 +34,48 @@ chunk, ``nc`` chunks and ``qp`` = ``q`` rounded up to ``TILE``:
 The ``*_plain`` functions of the stages compute the same steps in PyTorch;
 composed, they give ``ssd_scan_plain``, which stays the function the model
 runs on the CPU.
+
+The training route's forward (``ssd_scan_train_cuda``) is the same four
+kernels, handing back ``TRAIN_OUTPUTS``: y, the final state, and the
+scratch the backward reads (``scores``, ``cs`` and the incoming states).
+The backward (``ssd_scan_backward_cuda``, csrc/ssd_scan_backward.cu; no
+Pallas counterpart) takes the cotangents dy (b, s, h, p) and, optionally,
+dstate (b, h, p, n) fp32, and gives dx, ddt, dA, dB, dC, each in its
+input's type. With E_ij = e^(cs_i - cs_j), M_ij = G_ij E_ij dt_j, w_j =
+dt_j e^(cs_last - cs_j) and dM_ij = dy_i . x_j, it runs
+``BACKWARD_STAGES``, one kernel each, through scratch that
+``ssd_backward_buffers`` allocates:
+
+    dstates  per (batch, head, chunk): U = sum_i e^(cs_i) dy_i (x) C_i,
+             the cotangent the chunk's outputs send its incoming state
+             (``dS`` (b, h, nc, p, n) fp32)
+    dpass    walks the chunks from last to first: dS[c] = D; D = D
+             e^(cs_last[c]) + U[c], D starting at dstate (or 0): each
+             chunk's final state's cotangent overwrites U
+    chunk    per (batch, head, chunk), with SB_j = dS B_j:
+               dx_j  = sum_{i >= j} M_ij dy_i + w_j SB_j
+               dC_i  = sum_{j <= i} dM_ij E_ij dt_j B_j + e^(cs_i) S_in^T dy_i
+               dB_j  = sum_{i >= j} dM_ij E_ij dt_j C_i + w_j dS^T x_j
+               ddt_j = sum_i G_ij E_ij dM_ij + e^(cs_last - cs_j) x_j . SB_j
+                       + A rev_j
+             where rev is the reverse in-chunk cumsum of cs's cotangent
+               dcs_i = sum_j dM_ij M_ij - sum_k dM_ki M_ki
+                       + e^(cs_i) dy_i . (S_in C_i) - w_i x_i . SB_i
+             (the last position adds sum_j w_j x_j . SB_j + e^(cs_last)
+             <dS, S_in>); each head's dB and dC (``dB_h``, ``dC_h`` (b, s,
+             h, n) fp32) and the chunk's share of dA, sum_j dt_j rev_j
+             (``dA_part`` (b, h, nc))
+    reduce   dB, dC: each group's heads summed in head order; dA: the
+             shares summed over batch and chunks in a fixed order
+
+``ssd_scan_backward_plain`` computes the same closed form chunk by chunk
+(not autograd) and is what the CPU runs; the stages' ``*_plain``
+functions compose to it (``ssd_scan_backward_stages_plain``).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -50,6 +87,13 @@ MAX_CHUNK = 1024
 TILE = 64                # rows and keys of a score tile; p columns a block
 STAGES = ("scores", "states", "pass", "outputs")
 KERNELS_PER_CALL = len(STAGES)  # CUDA kernels one ``ssd_scan_cuda`` launches
+# what the training forward hands back: y, the final state and the scratch
+# the backward reads (the incoming states are the ``states`` buffer)
+TRAIN_OUTPUTS = ("y", "state", "scores", "cs", "states")
+BACKWARD_OUTPUTS = ("dx", "ddt", "dA", "dB", "dC")
+BACKWARD_STAGES = ("dstates", "dpass", "chunk", "reduce")
+BACKWARD_KERNELS_PER_CALL = len(BACKWARD_STAGES)
+MAX_BACKWARD_HEAD_DIM = 64  # the backward holds a head's p columns in one tile
 
 
 def work(b: int, s: int, h: int, p: int, n: int, g: int, chunk: int,
@@ -67,22 +111,50 @@ def work(b: int, s: int, h: int, p: int, n: int, g: int, chunk: int,
     return flops, nbytes
 
 
+def backward_work(b: int, s: int, h: int, p: int, n: int, g: int,
+                  chunk: int, dtype: torch.dtype, dstate: bool = False
+                  ) -> Tuple[int, int]:
+    """(flops, bytes) of one backward call, each chunk as long as it is:
+    C B^T on and below the diagonal once a group; for each head dM = dy
+    x^T, M^T dy and the two products of dM E dt with B and C on and below
+    the diagonal, and the chunk's four state products (U, dS B, dS^T x,
+    S_in^T dy); x, B, C, dy read and dx, dB, dC written once in ``dtype``,
+    dt read and ddt written once in fp32, A read and dA written once, and
+    the final state's cotangent read once where there is one."""
+    q = min(chunk, s)
+    lens = [min(q, s - t0) for t0 in range(0, s, q)]
+    flops = sum(b * g * L * (L + 1) * n
+                + b * h * (2 * L * (L + 1) * (p + n) + 8 * L * p * n)
+                for L in lens)
+    nbytes = ((3 * b * s * h * p + 4 * b * s * g * n) * dtype.itemsize
+              + 4 * (2 * b * s * h + 2 * h
+                     + (b * h * p * n if dstate else 0)))
+    return flops, nbytes
+
+
+def _wide(t: torch.Tensor) -> torch.Tensor:
+    """The plain versions' working type: fp32, or float64 for float64
+    inputs (the CPU tests' exact yardstick)."""
+    return t if t.dtype == torch.float64 else t.float()
+
+
 def ssd_scan_plain(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                    B: torch.Tensor, C: torch.Tensor, chunk: int = 256
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch, any device: the Pallas kernel's chunk loop, one chunk
-    at a time with the state carried, in fp32. The last chunk is simply
-    shorter, which is what padding it with ``dt = 0`` computes. The heads of
-    a group meet B and C through a broadcast over an (h // g) axis."""
+    at a time with the state carried, in fp32 (float64 for float64 inputs).
+    The last chunk is simply shorter, which is what padding it with ``dt =
+    0`` computes. The heads of a group meet B and C through a broadcast over
+    an (h // g) axis."""
     b, s, h, p = x.shape
     g, n = B.shape[-2], B.shape[-1]
     r = h // g
     q = min(chunk, s)
-    xf = x.float().reshape(b, s, g, r, p)
-    dtf = dt.float().reshape(b, s, g, r)
-    Af = A.float().reshape(g, r)
-    Bf, Cf = B.float(), C.float()
-    state = torch.zeros((b, g, r, p, n), dtype=torch.float32, device=x.device)
+    xf = _wide(x).reshape(b, s, g, r, p)
+    dtf = _wide(dt).reshape(b, s, g, r)
+    Af = _wide(A).reshape(g, r)
+    Bf, Cf = _wide(B), _wide(C)
+    state = xf.new_zeros((b, g, r, p, n))
     ys = []
     for t0 in range(0, s, q):
         sl = slice(t0, min(t0 + q, s))
@@ -202,6 +274,223 @@ def ssd_scan_stages_plain(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     return ssd_chunk_outputs_plain(x, dt, cs, B, C, incoming, chunk), final
 
 
+def ssd_scan_train_plain(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                         B: torch.Tensor, C: torch.Tensor, chunk: int = 256
+                         ) -> Tuple[torch.Tensor, ...]:
+    """The training forward in plain PyTorch: ``TRAIN_OUTPUTS`` (y, the
+    final state, the scores, the cumsums, the incoming states) in the
+    kernels' layouts (``_buffer_specs``), from the stages: the q x q
+    scores padded with zeros to qp x qp, the cumsums with their last
+    value."""
+    G = ssd_chunk_scores_plain(B, C, chunk)
+    cs, states = ssd_chunk_states_plain(x, dt, A, B, chunk)
+    incoming, final = ssd_state_pass_plain(states, cs)
+    y = ssd_chunk_outputs_plain(x, dt, cs, B, C, incoming, chunk)
+    q = cs.shape[-1]
+    qp = -(-q // TILE) * TILE
+    scores = G.new_zeros(G.shape[:-2] + (qp, qp))
+    scores[..., :q, :q] = G
+    cs = torch.cat([cs, cs[..., -1:].expand(cs.shape[:-1] + (qp - q,))],
+                   dim=-1)
+    return y.contiguous(), final, scores, cs, incoming
+
+
+def ssd_scan_backward_plain(x: torch.Tensor, dt: torch.Tensor,
+                            A: torch.Tensor, B: torch.Tensor,
+                            C: torch.Tensor, dy: torch.Tensor,
+                            dstate: Optional[torch.Tensor] = None,
+                            chunk: int = 256) -> Tuple[torch.Tensor, ...]:
+    """The gradient of ``ssd_scan_plain`` in closed form (the module's
+    docstring), in fp32 (float64 for float64 inputs), chunk by chunk: a
+    forward walk for each chunk's cumsums and incoming state, then the
+    chunks from last to first with the final state's cotangent carried. dy:
+    (b, s, h, p); dstate: (b, h, p, n) or None. -> (dx, ddt, dA, dB, dC),
+    each in its input's type. The last chunk is simply shorter. Not
+    autograd."""
+    b, s, h, p = x.shape
+    g, n = B.shape[-2], B.shape[-1]
+    r = h // g
+    q = min(chunk, s)
+    xf = _wide(x).reshape(b, s, g, r, p)
+    dyf = _wide(dy).reshape(b, s, g, r, p)
+    dtf = _wide(dt).reshape(b, s, g, r)
+    Af = _wide(A).reshape(g, r)
+    Bf, Cf = _wide(B), _wide(C)
+    slices = [slice(t0, min(t0 + q, s)) for t0 in range(0, s, q)]
+    cums, incoming = [], []
+    S = xf.new_zeros((b, g, r, p, n))
+    for sl in slices:
+        cs = torch.cumsum(dtf[:, sl] * Af, dim=1)               # (b, L, g, r)
+        w = dtf[:, sl] * torch.exp(cs[:, -1:] - cs)
+        cums.append(cs)
+        incoming.append(S)
+        S = (S * cs[:, -1].exp()[..., None, None]
+             + torch.einsum("bjgn,bjgrp->bgrpn", Bf[:, sl],
+                            xf[:, sl] * w[..., None]))
+    dx = torch.empty_like(xf)
+    ddt = torch.empty_like(dtf)
+    dB = torch.empty_like(Bf)
+    dC = torch.empty_like(Cf)
+    dA = torch.zeros_like(Af)
+    D = (torch.zeros_like(S) if dstate is None
+         else dstate.to(S.dtype).reshape(b, g, r, p, n))
+    for k in reversed(range(len(slices))):
+        sl, cs, S_in, dS = slices[k], cums[k], incoming[k], D
+        xc, dyc, dtc = xf[:, sl], dyf[:, sl], dtf[:, sl]
+        Bc, Cc = Bf[:, sl], Cf[:, sl]
+        L = cs.shape[1]
+        causal = torch.ones((L, L), dtype=torch.bool,
+                            device=x.device).tril()[None, :, :, None, None]
+        E = (cs[:, :, None] - cs[:, None, :]).masked_fill(
+            ~causal, float("-inf")).exp()                      # (b, i, j, g, r)
+        G = torch.einsum("bign,bjgn->bijg", Cc, Bc)[..., None]
+        dM = torch.einsum("bigrp,bjgrp->bijgr", dyc, xc)
+        Edt = E * dtc[:, None]
+        M, P, R = G * Edt, dM * Edt, G * E * dM
+        ecs = cs.exp()
+        f = torch.exp(cs[:, -1:] - cs)
+        w = dtc * f
+        SB = torch.einsum("bgrpn,bjgn->bjgrp", dS, Bc)
+        T = torch.einsum("bgrpn,bigrp->bigrn", S_in, dyc) * ecs[..., None]
+        xsb = (xc * SB).sum(-1)                                 # (b, L, g, r)
+        dx[:, sl] = (torch.einsum("bijgr,bigrp->bjgrp", M, dyc)
+                     + w[..., None] * SB)
+        dC[:, sl] = (torch.einsum("bijgr,bjgn->bign", P, Bc)
+                     + T.sum(3))
+        dB[:, sl] = (torch.einsum("bijgr,bign->bjgn", P, Cc)
+                     + torch.einsum("bjgr,bgrpn,bjgrp->bjgn", w, dS, xc))
+        RD = R * dtc[:, None]
+        dcs = (RD.sum(2) - RD.sum(1) + (Cc[:, :, :, None] * T).sum(-1)
+               - w * xsb)
+        dcs[:, -1] += ((w * xsb).sum(1)
+                       + ecs[:, -1] * (dS * S_in).sum((-2, -1)))
+        rev = dcs.flip(1).cumsum(1).flip(1)
+        ddt[:, sl] = R.sum(1) + f * xsb + Af * rev
+        dA += (dtc * rev).sum((0, 1))
+        U = torch.einsum("bign,bigrp->bgrpn", Cc, dyc * ecs[..., None])
+        D = D * ecs[:, -1][..., None, None] + U
+    return (dx.reshape(b, s, h, p).to(x.dtype),
+            ddt.reshape(b, s, h).to(dt.dtype), dA.reshape(h).to(A.dtype),
+            dB.to(B.dtype), dC.to(C.dtype))
+
+
+# ------------------------------------------------------------------------- #
+# The backward's stages, plain: what each kernel computes, in fp32, on the
+# kernels' scratch layouts (cumsums and scores padded to ``qp`` are taken
+# as they come).
+# ------------------------------------------------------------------------- #
+
+def ssd_bwd_dstates_plain(dy: torch.Tensor, C: torch.Tensor,
+                          cs: torch.Tensor, chunk: int) -> torch.Tensor:
+    """Stage ``dstates``: U = sum_i e^(cs_i) dy_i (x) C_i of each (batch,
+    head, chunk) -> (b, h, nc, p, n) fp32."""
+    b, s, h, p = dy.shape
+    g = C.shape[2]
+    q = min(chunk, s)
+    nc = -(-s // q)
+    ecs = cs[..., :q].float().exp().reshape(b, g, h // g, nc, q)
+    dyc = _chunks(dy, q).unflatten(3, (g, h // g))          # (b, c, q, g, r, p)
+    U = torch.einsum("bgrci,bcigrp,bcign->bgrcpn", ecs, dyc, _chunks(C, q))
+    return U.reshape(b, h, nc, p, C.shape[3])
+
+
+def ssd_bwd_state_pass_plain(U: torch.Tensor, cs: torch.Tensor,
+                             dstate: Optional[torch.Tensor] = None
+                             ) -> torch.Tensor:
+    """Stage ``dpass``: from D = dstate (or 0), the chunks from last to
+    first, dS[c] = D, D = D e^(cs_last[c]) + U[c] -> each chunk's final
+    state's cotangent (b, h, nc, p, n)."""
+    decay = torch.exp(cs[..., -1].float())                    # (b, h, nc)
+    dS = torch.empty_like(U)
+    D = (torch.zeros_like(U[:, :, 0]) if dstate is None
+         else dstate.float().clone())
+    for c in reversed(range(U.shape[2])):
+        dS[:, :, c] = D
+        D = D * decay[:, :, c, None, None] + U[:, :, c]
+    return dS
+
+
+def ssd_bwd_chunk_plain(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                        B: torch.Tensor, C: torch.Tensor, dy: torch.Tensor,
+                        scores: torch.Tensor, cs: torch.Tensor,
+                        incoming: torch.Tensor, dS: torch.Tensor, chunk: int
+                        ) -> Tuple[torch.Tensor, ...]:
+    """Stage ``chunk``: every chunk at once -> (dx (b, s, h, p) in x's type,
+    ddt (b, s, h) fp32, each chunk's share of dA (b, h, nc), each head's dB
+    and dC (b, s, h, n) fp32). A padded position adds nothing but the last
+    position's terms, which may sit there: the reverse cumsum carries them
+    down to the chunk's real positions all the same."""
+    b, s, h, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    r = h // g
+    q = min(chunk, s)
+    nc = -(-s // q)
+    xc = _chunks(x, q).unflatten(3, (g, r))                  # (b, c, q, g, r, p)
+    dyc = _chunks(dy, q).unflatten(3, (g, r))
+    dtc = _chunks(dt, q).unflatten(3, (g, r))                # (b, c, q, g, r)
+    Bc, Cc = _chunks(B, q), _chunks(C, q)                    # (b, c, q, g, n)
+    csc = cs[..., :q].float().reshape(b, g, r, nc, q).permute(0, 3, 4, 1, 2)
+    S_in = incoming.float().reshape(b, g, r, nc, p, n)
+    dSc = dS.float().reshape(b, g, r, nc, p, n)
+    causal = torch.ones((q, q), dtype=torch.bool,
+                        device=x.device).tril()[:, :, None, None]
+    E = (csc[:, :, :, None] - csc[:, :, None, :]).masked_fill(
+        ~causal, float("-inf")).exp()                        # (b, c, i, j, g, r)
+    G = torch.where(causal[..., 0], scores[..., :q, :q].float().permute(
+        0, 2, 3, 4, 1), 0.0)[..., None]                      # (b, c, i, j, g, 1)
+    dM = torch.einsum("bcigrp,bcjgrp->bcijgr", dyc, xc)
+    Edt = E * dtc[:, :, None]
+    M, P, R = G * Edt, dM * Edt, G * E * dM
+    ecs = csc.exp()
+    f = torch.exp(csc[:, :, -1:] - csc)
+    w = dtc * f
+    SB = torch.einsum("bgrcpn,bcjgn->bcjgrp", dSc, Bc)
+    T = torch.einsum("bgrcpn,bcigrp->bcigrn", S_in, dyc) * ecs[..., None]
+    xsb = (xc * SB).sum(-1)                                  # (b, c, q, g, r)
+    dx = torch.einsum("bcijgr,bcigrp->bcjgrp", M, dyc) + w[..., None] * SB
+    dC_h = torch.einsum("bcijgr,bcjgn->bcigrn", P, Bc) + T
+    dB_h = (torch.einsum("bcijgr,bcign->bcjgrn", P, Cc)
+            + w[..., None] * torch.einsum("bgrcpn,bcjgrp->bcjgrn", dSc, xc))
+    RD = R * dtc[:, :, None]
+    dcs = (RD.sum(3) - RD.sum(2) + (Cc[:, :, :, :, None] * T).sum(-1)
+           - w * xsb)
+    dcs[:, :, -1] += ((w * xsb).sum(2) + ecs[:, :, -1]
+                      * (dSc * S_in).sum((-2, -1)).permute(0, 3, 1, 2))
+    rev = dcs.flip(2).cumsum(2).flip(2)
+    ddt = R.sum(2) + f * xsb + A.float().reshape(g, r) * rev
+    dA_part = (dtc * rev).sum(2).permute(0, 2, 3, 1).reshape(b, h, nc)
+    cut = lambda t: t.reshape((b, nc * q, h) + t.shape[5:])[:, :s]
+    return (cut(dx).to(x.dtype), cut(ddt), dA_part, cut(dB_h), cut(dC_h))
+
+
+def ssd_bwd_reduce_plain(dB_h: torch.Tensor, dC_h: torch.Tensor,
+                         dA_part: torch.Tensor, g: int, dtype: torch.dtype
+                         ) -> Tuple[torch.Tensor, ...]:
+    """Stage ``reduce``: each group's heads summed -> (dB, dC (b, s, g, n)
+    in ``dtype``), and dA (h,) fp32 from the chunks' shares."""
+    dB = dB_h.unflatten(2, (g, -1)).sum(3).to(dtype)
+    dC = dC_h.unflatten(2, (g, -1)).sum(3).to(dtype)
+    return dB, dC, dA_part.sum((0, 2))
+
+
+def ssd_scan_backward_stages_plain(x: torch.Tensor, dt: torch.Tensor,
+                                   A: torch.Tensor, B: torch.Tensor,
+                                   C: torch.Tensor, dy: torch.Tensor,
+                                   dstate: Optional[torch.Tensor] = None,
+                                   chunk: int = 256
+                                   ) -> Tuple[torch.Tensor, ...]:
+    """The training forward's scratch and the backward's stages composed as
+    the kernels compose them: equal to ``ssd_scan_backward_plain``."""
+    _, _, scores, cs, incoming = ssd_scan_train_plain(x, dt, A, B, C, chunk)
+    dS = ssd_bwd_state_pass_plain(ssd_bwd_dstates_plain(dy, C, cs, chunk),
+                                  cs, dstate)
+    dx, ddt, dA_part, dB_h, dC_h = ssd_bwd_chunk_plain(
+        x, dt, A, B, C, dy, scores, cs, incoming, dS, chunk)
+    dB, dC, dA = ssd_bwd_reduce_plain(dB_h, dC_h, dA_part, B.shape[2],
+                                      B.dtype)
+    return dx, ddt.to(dt.dtype), dA.to(A.dtype), dB, dC
+
+
 # ------------------------------------------------------------------------- #
 # The CUDA kernels.
 # ------------------------------------------------------------------------- #
@@ -256,11 +545,6 @@ def _check(x, dt, A, B, C, chunk) -> int:
                 f"ssd_scan kernel: rows of {name} not 16-byte aligned")
     if not A.is_contiguous():
         raise ValueError("ssd_scan kernel takes a contiguous A")
-    if torch.is_grad_enabled() and any(t.requires_grad
-                                       for t in tensors.values()):
-        raise RuntimeError(
-            "ssd_scan kernel has no backward yet; call it under "
-            "torch.no_grad()")
     return q
 
 
@@ -303,6 +587,22 @@ def _launch(x, dt, A, B, C, q: int, buffers: Dict[str, torch.Tensor],
     _build.check(code, "ssd_scan kernel launch")
 
 
+def _check_buffers(buffers: Dict[str, torch.Tensor], specs: dict,
+                   device: torch.device, what: str) -> None:
+    """Raise unless ``buffers`` are exactly ``specs``' (name -> (shape,
+    dtype)), contiguous, on ``device``."""
+    if set(buffers) != set(specs):
+        raise ValueError(f"{what}: buffers {sorted(buffers)}; want "
+                         f"{sorted(specs)}")
+    for name, (shape, dtype) in specs.items():
+        t = buffers[name]
+        if (t.shape != shape or t.dtype != dtype or t.device != device
+                or not t.is_contiguous()):
+            raise ValueError(f"{what}: buffer {name} {tuple(t.shape)} "
+                             f"{t.dtype}; want {shape} {dtype}, contiguous, "
+                             "on x's device")
+
+
 def ssd_stages_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                     B: torch.Tensor, C: torch.Tensor, chunk: int,
                     buffers: Dict[str, torch.Tensor], stages=STAGES) -> None:
@@ -314,17 +614,8 @@ def ssd_stages_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     unknown = set(stages) - set(STAGES)
     if unknown:
         raise ValueError(f"ssd_scan kernel: no stage {sorted(unknown)}")
-    specs = _buffer_specs(x, B, chunk)
-    if set(buffers) != set(specs):
-        raise ValueError(f"ssd_scan kernel: buffers {sorted(buffers)}; want "
-                         f"{sorted(specs)}")
-    for name, (shape, dtype) in specs.items():
-        t = buffers[name]
-        if (t.shape != shape or t.dtype != dtype or t.device != x.device
-                or not t.is_contiguous()):
-            raise ValueError(f"ssd_scan kernel: buffer {name} "
-                             f"{tuple(t.shape)} {t.dtype}; want {shape} "
-                             f"{dtype}, contiguous, on x's device")
+    _check_buffers(buffers, _buffer_specs(x, B, chunk), x.device,
+                   "ssd_scan kernel")
     _launch(x, dt, A, B, C, q, buffers,
             sum(1 << i for i, name in enumerate(STAGES) if name in stages))
 
@@ -341,3 +632,146 @@ def ssd_scan_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     buffers = ssd_buffers(x, B, chunk)
     _launch(x, dt, A, B, C, q, buffers, (1 << len(STAGES)) - 1)
     return buffers["y"], buffers["state"]
+
+
+def ssd_scan_train_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                        B: torch.Tensor, C: torch.Tensor, chunk: int = 256
+                        ) -> Tuple[torch.Tensor, ...]:
+    """The training route's forward: the same kernels as ``ssd_scan_cuda``,
+    handing back ``TRAIN_OUTPUTS`` (y, the final state, and the scores,
+    cumsums and incoming states the backward reads). Refuses, before it
+    launches, a head_dim the backward does not take."""
+    q = _check(x, dt, A, B, C, chunk)
+    _check_backward_head_dim(x.shape[3])
+    buffers = ssd_buffers(x, B, chunk)
+    _launch(x, dt, A, B, C, q, buffers, (1 << len(STAGES)) - 1)
+    return tuple(buffers[name] for name in TRAIN_OUTPUTS)
+
+
+# ------------------------------------------------------------------------- #
+# The backward's CUDA kernels (csrc/ssd_scan_backward.cu).
+# ------------------------------------------------------------------------- #
+
+def _check_backward_head_dim(p: int) -> None:
+    if p > MAX_BACKWARD_HEAD_DIM:
+        raise ValueError(
+            f"ssd_scan backward kernel takes head_dim p <= "
+            f"{MAX_BACKWARD_HEAD_DIM}, got {p}")
+
+
+def _check_backward(x, dt, A, B, C, dy, dstate, scores, cs, incoming,
+                    chunk) -> int:
+    """Raise on anything the backward's kernels do not take; return the
+    positions a chunk."""
+    q = _check(x, dt, A, B, C, chunk)
+    _check_backward_head_dim(x.shape[3])
+    if not (dy.device == x.device and dy.shape == x.shape
+            and dy.dtype == x.dtype):
+        raise ValueError(
+            f"ssd_scan backward kernel: dy {tuple(dy.shape)} {dy.dtype} on "
+            f"{dy.device}; want x's shape, type and device")
+    pitches = [st * dy.element_size() for st in dy.stride()[:3]]
+    if (dy.stride(3) != 1 or dy.data_ptr() % 16
+            or any(pt % 16 for pt in pitches)):
+        raise ValueError("ssd_scan backward kernel: rows of dy not "
+                         "contiguous and 16-byte aligned")
+    specs = _buffer_specs(x, B, chunk)
+    b, _, h, p = x.shape
+    named = {"scores": scores, "cs": cs, "states": incoming}
+    wanted = {name: specs[name] for name in named}
+    if dstate is not None:
+        named["dstate"] = dstate
+        wanted["dstate"] = ((b, h, p, B.shape[3]), torch.float32)
+    _check_buffers(named, wanted, x.device, "ssd_scan backward kernel")
+    return q
+
+
+def _backward_buffer_specs(x: torch.Tensor, B: torch.Tensor,
+                           chunk: int) -> dict:
+    """name -> (shape, dtype) of the backward's outputs and scratch."""
+    b, s, h, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    nc = -(-s // min(int(chunk), s))
+    f32 = torch.float32
+    return {"dx": ((b, s, h, p), x.dtype), "ddt": ((b, s, h), f32),
+            "dA": ((h,), f32), "dB": ((b, s, g, n), B.dtype),
+            "dC": ((b, s, g, n), B.dtype),
+            "dS": ((b, h, nc, p, n), f32), "dB_h": ((b, s, h, n), f32),
+            "dC_h": ((b, s, h, n), f32), "dA_part": ((b, h, nc), f32)}
+
+
+
+def ssd_backward_buffers(x: torch.Tensor, B: torch.Tensor,
+                         chunk: int) -> Dict[str, torch.Tensor]:
+    """The backward's outputs (``BACKWARD_OUTPUTS``, contiguous) and its
+    scratch: ``dS`` (the chunks' U, then their final states' cotangents),
+    each head's ``dB_h`` and ``dC_h`` (b, s, h, n) fp32, 4 b s h n bytes
+    each, and ``dA_part``; uninitialised, on x's device."""
+    return {name: torch.empty(shape, dtype=dtype, device=x.device)
+            for name, (shape, dtype) in _backward_buffer_specs(
+                x, B, chunk).items()}
+
+
+def _launch_backward(x, dt, A, B, C, dy, dstate, scores, cs, incoming, q,
+                     buffers: Dict[str, torch.Tensor], mask: int) -> None:
+    b, s, h, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    ptr = lambda name: buffers[name].data_ptr()
+    with _build.on_device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        code = _build.lib().repro_ssd_scan_backward(
+            x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
+            C.data_ptr(), dy.data_ptr(),
+            None if dstate is None else dstate.data_ptr(),
+            scores.data_ptr(), cs.data_ptr(), incoming.data_ptr(),
+            ptr("dS"), ptr("dB_h"), ptr("dC_h"), ptr("dA_part"), ptr("dx"),
+            ptr("ddt"), ptr("dA"), ptr("dB"), ptr("dC"),
+            b, s, h, p, g, n, q, *x.stride()[:3], *dt.stride(),
+            *B.stride()[:3], *C.stride()[:3], *dy.stride()[:3],
+            _DTYPE_CODE[x.dtype], mask, stream)
+    _build.check(code, "ssd_scan backward kernel launch")
+
+
+def ssd_scan_backward_stages_cuda(x, dt, A, B, C, dy, dstate, scores, cs,
+                                  incoming, chunk: int,
+                                  buffers: Dict[str, torch.Tensor],
+                                  stages=BACKWARD_STAGES) -> None:
+    """Launch the named backward stage kernels, in ``BACKWARD_STAGES``'
+    order, on PyTorch's current stream, reading and writing ``buffers`` (as
+    ``ssd_backward_buffers`` makes them): a stage reads what the stages
+    before it wrote there. For the card's tests and timings of one
+    stage."""
+    q = _check_backward(x, dt, A, B, C, dy, dstate, scores, cs, incoming,
+                        chunk)
+    unknown = set(stages) - set(BACKWARD_STAGES)
+    if unknown:
+        raise ValueError(f"ssd_scan backward kernel: no stage "
+                         f"{sorted(unknown)}")
+    _check_buffers(buffers, _backward_buffer_specs(x, B, chunk), x.device,
+                   "ssd_scan backward kernel")
+    _launch_backward(x, dt, A, B, C, dy, dstate, scores, cs, incoming, q,
+                     buffers, sum(1 << i for i, name
+                                  in enumerate(BACKWARD_STAGES)
+                                  if name in stages))
+
+
+def ssd_scan_backward_cuda(x: torch.Tensor, dt: torch.Tensor,
+                           A: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
+                           dy: torch.Tensor, dstate: Optional[torch.Tensor],
+                           scores: torch.Tensor, cs: torch.Tensor,
+                           incoming: torch.Tensor, chunk: int = 256
+                           ) -> Tuple[torch.Tensor, ...]:
+    """Launch the ``BACKWARD_KERNELS_PER_CALL`` kernels on PyTorch's current
+    stream, with no synchronisation: the gradient of the scan from dy (x's
+    shape and type, rows contiguous and 16-byte aligned), the final state's
+    cotangent ``dstate`` (or None) and the training forward's ``scores``,
+    ``cs`` and incoming states. -> (dx, ddt, dA, dB, dC), contiguous, each
+    in its input's type. Deterministic: every value is written by one
+    thread, every sum taken in a fixed order. Raises on anything the
+    kernels do not take; never computes the result another way."""
+    q = _check_backward(x, dt, A, B, C, dy, dstate, scores, cs, incoming,
+                        chunk)
+    buffers = ssd_backward_buffers(x, B, chunk)
+    _launch_backward(x, dt, A, B, C, dy, dstate, scores, cs, incoming, q,
+                     buffers, (1 << len(BACKWARD_STAGES)) - 1)
+    return tuple(buffers[name] for name in BACKWARD_OUTPUTS)

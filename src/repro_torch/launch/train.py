@@ -6,10 +6,11 @@
 Counterpart of ``src/repro/launch/train.py``: fp32 parameters, the memory
 plan for one device (``plan_memory(cfg, tp=1, dp=1)``), the reference's
 AdamW settings, the port's data pipeline and trainer. Runs on the GPU,
-through the attention and RMSNorm kernels in both directions (built at the
-first launch), and prints their launches at the end; ``--device cpu`` runs
-the plain PyTorch path instead, and ``--reduced`` the small same-family
-config. ``--ckpt-dir`` saves every ``--ckpt-interval`` steps and at the end
+through the kernels in both directions (attention and RMSNorm for the
+transformers; the SSD scan and RMSNorm for mamba2, ``--arch mamba2-780m``;
+built at the first launch), and prints their launches at the end;
+``--device cpu`` runs the plain PyTorch path instead, and ``--reduced`` the
+small same-family config. ``--ckpt-dir`` saves every ``--ckpt-interval`` steps and at the end
 (or on SIGTERM/SIGINT) in the JAX package's checkpoint format; ``--resume
 auto`` restores the latest checkpoint there, the data cursor included.
 """
@@ -82,11 +83,13 @@ def main(argv=None):
 
 
 def kernel_launches() -> dict:
-    """The training path's kernel launches so far, each direction."""
+    """The training paths' kernel launches so far, each direction."""
     return {"flash_attention": ops.flash_attention.launches,
             "flash_attention_backward": ops.flash_attention.backward_launches,
             "rmsnorm": ops.rmsnorm.launches,
-            "rmsnorm_backward": ops.rmsnorm.backward_launches}
+            "rmsnorm_backward": ops.rmsnorm.backward_launches,
+            "ssd_scan": ops.ssd_scan.launches,
+            "ssd_scan_backward": ops.ssd_scan.backward_launches}
 
 
 if __name__ == "__main__":

@@ -22,9 +22,12 @@ reference and stay plain PyTorch. Decode updates the cache's conv and ssm
 state and writes the shared block's K/V IN PLACE (the JAX package returns a
 new cache).
 
-``loss`` is the reference's; autograd runs through the plain scan on the
-CPU. The scan's kernels have no backward, so on the card a loss raises in
-``ops.ssd_scan`` (ROADMAP Queue 2) rather than drop the gradient.
+``loss`` is the reference's. A loss takes ``ops.ssd_scan``'s training
+route on every device: its forward keeps the chunks' scores, cumsums and
+incoming states, and its backward is the SSD backward's kernels on the card
+(the closed form on the CPU). Under the ``dots`` remat policy each layer's
+scan is recomputed just before its backward, so that scratch lives for one
+layer.
 """
 
 from __future__ import annotations

@@ -75,6 +75,7 @@ from repro_torch.kernels.ssd_scan import (
     ssd_chunk_outputs_plain,
     ssd_chunk_scores_plain,
     ssd_chunk_states_plain,
+    ssd_scan_backward_plain,
     ssd_scan_cuda,
     ssd_scan_plain,
     ssd_scan_stages_plain,
@@ -1469,9 +1470,12 @@ def test_flash_training_route_refuses_head_dim_160(cuda_device):
 
 @pytest.mark.cuda
 def test_ssd_scan_refuses_a_gradient_on_the_card(cuda_device):
-    """The scan's kernels have no backward: a call that wants a gradient
-    raises instead of returning a result without one; under no_grad, and
-    with no input that requires grad, it launches."""
+    """A call that wants a gradient is no longer refused: with any one
+    input requiring grad it takes the training route (the forward's kernels
+    and, on backward, the backward's, each counted once) and that input's
+    gradient is the closed form's; under no_grad, and with no input that
+    requires grad, it launches the forward only. What the card still
+    refuses on this route is a head_dim the backward does not take."""
     rs = np.random.RandomState(22)
     b, s, h, p, g, n = 1, 40, 2, 16, 1, 16
     x = torch.from_numpy(rs.randn(b, s, h, p).astype(np.float32)).to(
@@ -1480,18 +1484,28 @@ def test_ssd_scan_refuses_a_gradient_on_the_card(cuda_device):
     A = -torch.from_numpy(rs.rand(h).astype(np.float32) + 0.5).to(cuda_device)
     B, C = (torch.from_numpy(rs.randn(b, s, g, n).astype(np.float32)).to(
         cuda_device) for _ in range(2))
-    before = ops.ssd_scan.launches
+    dy = torch.from_numpy(rs.randn(b, s, h, p).astype(np.float32)).to(
+        cuda_device)
+    want = ssd_scan_backward_plain(x, dt, A, B, C, dy, None, 16)
+    before = (ops.ssd_scan.launches, ops.ssd_scan.backward_launches)
     for wants in range(5):
         ins = [x, dt, A, B, C]
         ins[wants] = ins[wants].clone().requires_grad_()
-        with pytest.raises(NotImplementedError, match="backward"):
-            ops.ssd_scan(*ins, 16)
+        y, _ = ops.ssd_scan(*ins, 16)
+        (y * dy).sum().backward()
+        got, ref = ins[wants].grad, want[wants]
+        assert (got - ref).abs().max() <= 1e-4 * ref.abs().max()
         with torch.no_grad():
             y, _ = ops.ssd_scan(*ins, 16)
         assert not y.requires_grad
-    assert ops.ssd_scan.launches == before + 5
+    assert (ops.ssd_scan.launches, ops.ssd_scan.backward_launches) == (
+        before[0] + 10, before[1] + 5)
     ops.ssd_scan(x, dt, A, B, C, 16)
-    assert ops.ssd_scan.launches == before + 6
+    assert ops.ssd_scan.launches == before[0] + 11
+    wide = torch.zeros((b, s, h, 128), device=cuda_device,
+                       requires_grad=True)
+    with pytest.raises(ValueError, match="head_dim"):
+        ops.ssd_scan(wide, dt, A, B, C, 16)
 
 
 @pytest.mark.cuda

@@ -347,7 +347,8 @@ def _meta(args):
 def test_every_kernel_is_an_operator_with_three_implementations():
     for name in ("flash_attention", "flash_attention_lse",
                  "flash_attention_backward", "rmsnorm", "rmsnorm_backward",
-                 "ssd_scan", "embedding_bag", "embedding_bag_backward"):
+                 "ssd_scan", "ssd_scan_train", "ssd_scan_backward",
+                 "embedding_bag", "embedding_bag_backward"):
         qualname = f"repro_torch::{name}"
         for key in ("CPU", "CUDA", "Meta"):
             assert torch._C._dispatch_has_kernel_for_dispatch_key(
@@ -553,7 +554,8 @@ def test_chip_smoke_reads_every_bound_from_the_formulas():
                 "_attention_case": "forward_work",
                 "_attention_backward_case": "backward_work",
                 "_rmsnorm_backward_case": "backward_work",
-                "_ssd_case": "work", "_bag_case": "forward_work"}
+                "_ssd_case": "work", "_bag_case": "forward_work",
+                "_ssd_backward_case": "backward_work"}
     for name, formula in formulas.items():
         calls = {n.func.attr if isinstance(n.func, ast.Attribute)
                  else getattr(n.func, "id", None)
