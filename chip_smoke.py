@@ -21,7 +21,8 @@ run with a non-zero exit code (nothing drops to the CPU or to a plain version):
            the SSD scan's backward at mamba2-780m's training layer (the
            train_mamba phase's), zamba2-2.7b's layer and a ragged grouped
            case with the final state's cotangent, fp32 and bf16, each with
-           every stage's time alone and three bitwise-equal calls
+           its launch plan, every stage's time alone and three
+           bitwise-equal calls
   repeats  100 calls each of the attention forward (with the log-sum-exp)
            and backward at the train_lm layer and at a chatglm3-like layer,
            of the RMSNorm backward at the train_lm rows and of the SSD scan
@@ -984,8 +985,9 @@ def _ssd_backward_case(name, b, s, h, p, n, g, chunk, dtype, gen,
     backward's kernels against ``ssd_scan_backward_plain`` on the same
     inputs (it recomputes the forward itself): each gradient to BWD_TOL of
     its largest magnitude, three calls that must agree bitwise, the kernels
-    a call launched, counted in a trace, equal to
-    ``BACKWARD_KERNELS_PER_CALL``, and ``stage_ms``: each stage kernel's
+    a call launched, counted in a trace, equal to the plan's
+    (``ssd_scan_backward_plan``: splits of a group's heads, kernels a call,
+    the dB/dC partials' bytes), and ``stage_ms``: each stage kernel's
     device time alone, on the scratch of one whole call. Inputs as
     ``_ssd_case`` draws them, dy in x's type, ``dstate`` (fp32) when asked.
     Calls of milliseconds with a gigabyte of scratch are timed eagerly."""
@@ -1033,7 +1035,9 @@ def _ssd_backward_case(name, b, s, h, p, n, g, chunk, dtype, gen,
                            (stage,)), sets, iters, graph=not big)["device"]
         for stage in ssd_module.BACKWARD_STAGES}
     scratch = sum(bufs[k].numel() * bufs[k].element_size()
-                  for k in ("dS", "dB_h", "dC_h", "dA_part"))
+                  for k in ("dS", "dcs", "dA_part", "dB_part", "dC_part"))
+    splits, per_call, part_bytes = ssd_module.ssd_scan_backward_plan(
+        b, s, h, g, n, chunk)
     del bufs
     plain_ms = time_ms(lambda x_, B_, C_, dy_:
                        ssd_module.ssd_scan_backward_plain(
@@ -1041,12 +1045,13 @@ def _ssd_backward_case(name, b, s, h, p, n, g, chunk, dtype, gen,
                        sets, iters=3, graph=False)["device"]
     ok = (all(e <= tol * scale for e, scale in errs)
           and repeats == BWD_REPEATS
-          and kernel_trace["launches_per_call"]
-          == ssd_module.BACKWARD_KERNELS_PER_CALL)
+          and kernel_trace["launches_per_call"] == per_call)
     return {
         "kernel": "ssd_scan_backward", "case": name,
         "shape": {"b": b, "s": s, "h": h, "p": p, "n": n, "g": g,
                   "chunk": chunk, "dstate": dstate},
+        "plan": {"splits": splits, "kernels_per_call": per_call,
+                 "partial_bytes": part_bytes},
         "dtype": dtype_name(dtype), "max_abs_err": max(e for e, _ in errs),
         "grad_max_abs_err": {k: e for k, (e, _) in zip(GRADS_SSD, errs)},
         "grad_max_abs": {k: m for k, (_, m) in zip(GRADS_SSD, errs)},
@@ -2569,21 +2574,26 @@ def _mamba_memory_reckoned(cfg, plan, batch: int, seq: int) -> dict:
     parameters, gradients, m, v and master copy; the projections the
     "dots" policy keeps (z, x, B, C, dt and the out projection, a layer);
     each layer's input, kept by the checkpoint; the logits and their
-    gradient; the SSD backward's scratch of one layer."""
+    gradient; the SSD backward's scratch of one layer (the chunks' dS, cs's
+    terms, the chunks' sums, the plan's dB/dC partials)."""
     tokens = batch * seq
     ssm, layers = cfg.ssm, cfg.num_layers
     gn = ssm.ngroups * ssm.state_dim
     per_layer = 2 * cfg.d_inner + 2 * gn + cfg.ssm_heads + cfg.d_model
-    nc = -(-seq // ssm.chunk_size)
+    q = min(ssm.chunk_size, seq)
+    nc, qp = -(-seq // q), -(-q // ssd_module.TILE) * ssd_module.TILE
     heads_state = batch * cfg.ssm_heads * ssm.head_dim * ssm.state_dim
+    partials = ssd_module.ssd_scan_backward_plan(
+        batch, seq, cfg.ssm_heads, ssm.ngroups, ssm.state_dim,
+        ssm.chunk_size)[2]
     return {"plan_est_bytes_per_chip": plan.est_bytes_per_chip,
             "state_bytes": 5 * 4 * cfg.param_count(),
             "dots_saved_bytes": layers * tokens * per_layer * 4,
             "layer_inputs_bytes": layers * tokens * cfg.d_model * 4,
             "logits_and_grad_bytes": 2 * tokens * cfg.padded_vocab * 4,
             "ssd_backward_scratch_bytes": 4 * (
-                nc * heads_state + 2 * tokens * cfg.ssm_heads * ssm.state_dim
-                + batch * cfg.ssm_heads * nc)}
+                nc * heads_state + batch * cfg.ssm_heads * nc * (3 * qp + 2))
+            + partials}
 
 
 def phase_train_mamba() -> dict:

@@ -1,12 +1,15 @@
 """Times this tree's flash attention (forward and backward), RMSNorm
-(forward and backward), SSD scan and embedding-bag backward kernels against
-another tree's sources on the same inputs, in one process on one card, in
-turns (other, this, this, other), so that two versions are compared within
-one run. An attention backward without the ``splits`` argument (one block a
-KV head's whole group) is called without scratch; an older RMSNorm
-backward without a launch plan (one ``blocks`` argument) on scratch of its
-own. First, each side's RMSNorm backward row-pass instances: registers,
-stack and spill bytes a thread, as ``cuobjdump -res-usage`` reads them.
+(forward and backward), SSD scan (forward and backward) and embedding-bag
+backward kernels against another tree's sources on the same inputs, in one
+process on one card, in turns (other, this, this, other), so that two
+versions are compared within one run. An attention backward without the
+``splits`` argument (one block a KV head's whole group) is called without
+scratch; an older RMSNorm backward without a launch plan (one ``blocks``
+argument) on scratch of its own; an SSD backward without a plan (four
+FMA kernels, each head's dB and dC in scratch) on that scratch, allocated
+here; a tree without an SSD backward skips its cases. First,
+each side's RMSNorm backward row-pass instances: registers, stack and
+spill bytes a thread, as ``cuobjdump -res-usage`` reads them.
 
     git archive <rev> src/repro_torch/kernels/csrc | tar -x -C build/ab_other
     python3 kernel_ab.py build/ab_other/src/repro_torch/kernels/csrc [PATTERN]
@@ -16,7 +19,7 @@ PATTERN, a regular expression, keeps only the cases whose names it matches.
 Prints one JSON line per case: each side's two device times (CUDA graph
 replay over cold copies, as ``chip_smoke.py`` times), its largest error
 against the plain version (the SSD scan's: over y and the final state; the
-RMSNorm backward's: over dx and dgamma, each against its largest
+RMSNorm and SSD backwards': over their gradients, each against its largest
 magnitude), and whether the two sides' results are equal bit for bit. Needs
 one CUDA device and ``nvcc``.
 """
@@ -55,7 +58,12 @@ from repro_torch.kernels.rmsnorm import (  # noqa: E402
     rmsnorm_backward_plain,
     rmsnorm_plain,
 )
-from repro_torch.kernels.ssd_scan import ssd_scan_plain  # noqa: E402
+from repro_torch.kernels.ssd_scan import (  # noqa: E402
+    ssd_scan_backward_cuda,
+    ssd_scan_backward_plain,
+    ssd_scan_plain,
+    ssd_scan_train_cuda,
+)
 
 OUT = ROOT / "build" / "kernel_ab"
 ORDER = ("other", "this", "this", "other")
@@ -103,7 +111,33 @@ class _NoPlanArg:
         return getattr(self.lib, name)
 
 
-def _load(name: str, bwd_splits: bool, norm_plan: bool):
+class _NoSsdPlan:
+    """The SSD backward entry point without a plan: four kernels a call (stages mask
+    15), each head's dB and dC in fp32 scratch (b, s, h, n), a (b, h, nc)
+    dA_part, no ``dcs``, partials or ``splits``. The scratch is allocated
+    here, once for each size."""
+
+    def __init__(self, lib):
+        self.lib = lib
+        self.scratch = {}
+
+    def repro_ssd_scan_backward(self, *args):
+        a = list(args)
+        b, s, h, n = a[20], a[21], a[22], a[25]
+        size = b * s * h * n
+        if size not in self.scratch:
+            self.scratch[size] = torch.empty(2 * size, dtype=torch.float32, device="cuda")
+        heads = self.scratch[size]
+        mask = 15 if a[44] == 63 else a[44]
+        return self.lib.repro_ssd_scan_backward(
+            *a[:11], heads.data_ptr(), heads.data_ptr() + 4 * size, a[12], *a[15:27],
+            *a[28:44], mask, a[45])
+
+    def __getattr__(self, name):
+        return getattr(self.lib, name)
+
+
+def _load(name: str, bwd_splits: bool, norm_plan: bool, ssd_plan: bool):
     ptr, i32, i64, f32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                           ctypes.c_float)
     lib = ctypes.CDLL(str(OUT / f"{name}.so"))
@@ -128,14 +162,20 @@ def _load(name: str, bwd_splits: bool, norm_plan: bool):
         [ptr] * 11 + [i32] * 7 + [i64] * 24 + [f32, i32, i32, ptr] if bwd_splits else
         [ptr] * 10 + [i32] * 6 + [i64] * 24 + [f32, i32, i32, ptr])
     lib.repro_flash_attention_backward.restype = i32
+    if hasattr(lib, "repro_ssd_scan_backward"):
+        lib.repro_ssd_scan_backward.argtypes = (
+            [ptr] * 20 + [i32] * 8 + [i64] * 15 + [i32, i32, ptr] if ssd_plan else
+            [ptr] * 19 + [i32] * 7 + [i64] * 15 + [i32, i32, ptr])
+        lib.repro_ssd_scan_backward.restype = i32
     lib.repro_cuda_error_string.argtypes = [i32]
     lib.repro_cuda_error_string.restype = ctypes.c_char_p
+    lib = lib if ssd_plan else _NoSsdPlan(lib)
     lib = lib if bwd_splits else _NoSplitsArg(lib)
     return lib if norm_plan else _NoPlanArg(lib)
 
 
 SOURCES = ("flash_attention.cu", "flash_attention_backward.cu", "rmsnorm.cu", "ssd_scan.cu",
-           "embedding_bag.cu")
+           "ssd_scan_backward.cu", "embedding_bag.cu")
 
 
 def build(other: Path) -> dict:
@@ -143,10 +183,12 @@ def build(other: Path) -> dict:
     sides = {"this": _build.CSRC, "other": other}
     nvcc = _build._nvcc()
     _build._run_all([[nvcc, *_build.NVCC_FLAGS, "-shared", "-o", str(OUT / f"{name}.so"),
-                      *(str(src / f) for f in SOURCES)]
+                      *(str(src / f) for f in SOURCES if (src / f).exists())]
                      for name, src in sides.items()])
+    ssd_bwd = {name: src / "ssd_scan_backward.cu" for name, src in sides.items()}
     return {name: _load(name, "int splits" in (src / "flash_attention_backward.cu").read_text(),
-                        "int team_warps" in (src / "rmsnorm.cu").read_text())
+                        "int team_warps" in (src / "rmsnorm.cu").read_text(),
+                        not ssd_bwd[name].exists() or "int splits" in ssd_bwd[name].read_text())
             for name, src in sides.items()}
 
 
@@ -224,6 +266,35 @@ def ssd_case(libs, name, b, s, h, p, n, g, chunk, dtype, gen) -> None:
     ab(libs, f"ssd_scan {name}", dtype,
        lambda x_, B_, C_: ops.ssd_scan(x_, dt, A, B_, C_, chunk),
        lambda x_, B_, C_: ssd_scan_plain(x_, dt, A, B_, C_, chunk), sets)
+
+
+def ssd_backward_case(libs, name, b, s, h, p, n, g, chunk, dtype, gen) -> None:
+    """The training route's backward, inputs as ``chip_smoke._ssd_backward_case``
+    draws them (x, B, C views of one conv output; dy in x's type; no final
+    state's cotangent, as the model passes none), on the training forward's
+    scratch from this tree's kernels; timed as chip_smoke.py times it (eager,
+    10 calls over cold copies)."""
+    if not all(hasattr(lib, "repro_ssd_scan_backward") for lib in libs.values()):
+        return
+    di, gn = h * p, g * n
+    xbc = torch.randn((b, s, di + 2 * gn), generator=gen, device="cuda").to(dtype)
+    dt = torch.nn.functional.softplus(torch.randn((b, s, h), generator=gen, device="cuda"))
+    A = -torch.exp(0.5 * torch.randn((h,), generator=gen, device="cuda"))
+    dy = torch.randn((b, s, h, p), generator=gen, device="cuda").to(dtype)
+
+    def views(t):
+        return (t[..., :di].unflatten(-1, (h, p)), t[..., di:di + gn].unflatten(-1, (g, n)),
+                t[..., di + gn:].unflatten(-1, (g, n)))
+    _build._lib = libs["this"]
+    x, B, C = views(xbc)
+    saved = ssd_scan_train_cuda(x, dt, A, B, C, chunk)[2:]
+    sets = [(*views(cs.clone_like(xbc)), dy.clone())
+            for _ in range(cs.copies_for_cold_l2([xbc, dy]))]
+    ab(libs, f"ssd_scan_backward {name}", dtype,
+       lambda x_, B_, C_, dy_: ssd_scan_backward_cuda(x_, dt, A, B_, C_, dy_, None, *saved,
+                                                      chunk),
+       lambda x_, B_, C_, dy_: ssd_scan_backward_plain(x_, dt, A, B_, C_, dy_, None, chunk),
+       sets, err=_scaled_err, iters=10, graph=False)
 
 
 def bag_backward_case(libs, name, idx, r, e, dtype, gen) -> None:
@@ -372,6 +443,17 @@ def main() -> int:
                 ssd_case(libs, f"table b{b} h{h} s{s} p{p} n{n} chunk{chunk}", b, s, h, p, n,
                          1, chunk, dtype, gen_mamba)
             ssd_case(libs, "grouped h4 g2", 2, 45, 4, 16, 16, 2, 32, dtype, gen_mamba)
+        # the SSD scan backward at chip_smoke.py's train_mamba layer and at
+        # zamba2-2.7b's, from a stream of its own
+        gen_ssd_bwd = torch.Generator(device="cuda").manual_seed(7)
+        mamba = cs.get_config(cs.MAMBA_ARCH)
+        for dtype in (torch.float32, torch.bfloat16):
+            ssd_backward_case(libs, "train main", cs.MAMBA_BATCH, cs.MAMBA_SEQ,
+                              mamba.ssm_heads, mamba.ssm.head_dim, mamba.ssm.state_dim,
+                              mamba.ssm.ngroups, mamba.ssm.chunk_size, dtype, gen_ssd_bwd)
+            ssd_backward_case(libs, "zamba2 layer", 1, 1024, 80, 64, 64, 1, 256, dtype,
+                              gen_ssd_bwd)
+            torch.cuda.empty_cache()
         # the embedding-bag backward at the DLRM step's shape, uniform (a
         # duplicate row in every bag) and Zipf-skewed indices
         gen_bag = torch.Generator(device="cuda").manual_seed(2)

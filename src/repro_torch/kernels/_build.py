@@ -117,7 +117,7 @@ def lib() -> ctypes.CDLL:
     loaded.repro_ssd_scan.argtypes = [ptr] * 10 + [i32] * 7 + [i64] * 15 + [i32, i32, ptr]
     loaded.repro_ssd_scan.restype = i32
     loaded.repro_ssd_scan_backward.argtypes = (
-        [ptr] * 19 + [i32] * 7 + [i64] * 15 + [i32, i32, ptr])
+        [ptr] * 20 + [i32] * 8 + [i64] * 15 + [i32, i32, ptr])
     loaded.repro_ssd_scan_backward.restype = i32
     loaded.repro_embedding_bag.argtypes = [ptr] * 3 + [i32] * 5 + [i64] * 5 + [i32, ptr]
     loaded.repro_embedding_bag.restype = i32

@@ -41,10 +41,11 @@ scratch the backward reads (``scores``, ``cs`` and the incoming states).
 The backward (``ssd_scan_backward_cuda``, csrc/ssd_scan_backward.cu; no
 Pallas counterpart) takes the cotangents dy (b, s, h, p) and, optionally,
 dstate (b, h, p, n) fp32, and gives dx, ddt, dA, dB, dC, each in its
-input's type. With E_ij = e^(cs_i - cs_j), M_ij = G_ij E_ij dt_j, w_j =
-dt_j e^(cs_last - cs_j) and dM_ij = dy_i . x_j, it runs
-``BACKWARD_STAGES``, one kernel each, through scratch that
-``ssd_backward_buffers`` allocates:
+input's type. With E_ij = e^(cs_i - cs_j), M_ij = G_ij E_ij dt_j, P_ij =
+dM_ij E_ij dt_j, w_j = dt_j e^(cs_last - cs_j), dM_ij = dy_i . x_j and SB_j
+= dS B_j, it runs ``BACKWARD_STAGES``, one kernel each, through scratch that
+``ssd_backward_buffers`` allocates, on the plan ``ssd_scan_backward_plan``
+gives (``splits``: the blocks over which a group's heads are split):
 
     dstates  per (batch, head, chunk): U = sum_i e^(cs_i) dy_i (x) C_i,
              the cotangent the chunk's outputs send its incoming state
@@ -52,25 +53,37 @@ dt_j e^(cs_last - cs_j) and dM_ij = dy_i . x_j, it runs
     dpass    walks the chunks from last to first: dS[c] = D; D = D
              e^(cs_last[c]) + U[c], D starting at dstate (or 0): each
              chunk's final state's cotangent overwrites U
-    chunk    per (batch, head, chunk), with SB_j = dS B_j:
-               dx_j  = sum_{i >= j} M_ij dy_i + w_j SB_j
-               dC_i  = sum_{j <= i} dM_ij E_ij dt_j B_j + e^(cs_i) S_in^T dy_i
-               dB_j  = sum_{i >= j} dM_ij E_ij dt_j C_i + w_j dS^T x_j
-               ddt_j = sum_i G_ij E_ij dM_ij + e^(cs_last - cs_j) x_j . SB_j
-                       + A rev_j
-             where rev is the reverse in-chunk cumsum of cs's cotangent
-               dcs_i = sum_j dM_ij M_ij - sum_k dM_ki M_ki
-                       + e^(cs_i) dy_i . (S_in C_i) - w_i x_i . SB_i
+    rows     per (64-row tile, batch, group, split, chunk), the split's
+             heads in order: dC_i = sum_{j <= i} P_ij B_j + T_i, T_i =
+             e^(cs_i) S_in^T dy_i, summed over the split's heads (``dC_part``
+             (splits, b, s, g, n) fp32); cs's row terms sum_j G_ij P_ij + C_i
+             . T_i (``dcs[:, :, :, 0]``, ``dcs`` (b, h, nc, 3, qp) fp32); and
+             the chunk's e^(cs_last) <dS, S_in> (``dA_part[..., 0]``,
+             ``dA_part`` (b, h, nc, 2) fp32)
+    cols     per (64-column tile, batch, group, split, chunk), likewise:
+             dx_j = sum_{i >= j} M_ij dy_i + w_j SB_j; dB_j = sum_{i >= j}
+             P_ij C_i + w_j dS^T x_j, summed over the split's heads
+             (``dB_part``); rs_j = sum_i G_ij E_ij dM_ij and x_j . SB_j
+             (``dcs[:, :, :, 1]``, ``dcs[:, :, :, 2]``)
+    finish   per (batch, head, chunk): cs's cotangent
+               dcs_j = (row terms)_j - dt_j rs_j - w_j x_j . SB_j
              (the last position adds sum_j w_j x_j . SB_j + e^(cs_last)
-             <dS, S_in>); each head's dB and dC (``dB_h``, ``dC_h`` (b, s,
-             h, n) fp32) and the chunk's share of dA, sum_j dt_j rev_j
-             (``dA_part`` (b, h, nc))
-    reduce   dB, dC: each group's heads summed in head order; dA: the
+             <dS, S_in>), rev its reverse in-chunk cumsum, ddt_j = rs_j +
+             e^(cs_last - cs_j) x_j . SB_j + A rev_j, and the chunk's share
+             of dA, sum_j dt_j rev_j (``dA_part[..., 1]``)
+    reduce   dB, dC: the splits' partials summed in split order; dA: the
              shares summed over batch and chunks in a fixed order
 
-``ssd_scan_backward_plain`` computes the same closed form chunk by chunk
-(not autograd) and is what the CPU runs; the stages' ``*_plain``
-functions compose to it (``ssd_scan_backward_stages_plain``).
+With one split ``rows`` and ``cols`` write dC and dB themselves and the
+partials are empty. ``ssd_scan_backward_plain`` computes the same closed
+form chunk by chunk (not autograd) and is what the CPU runs; the stages'
+``*_plain`` functions compose to it (``ssd_scan_backward_stages_plain``).
+
+What bounds the backward on the card is its products (1.3e11 FLOP against
+0.65 GB at mamba2-780m's training layer): every one runs on the tensor
+cores (3xTF32 for fp32, bf16 for bf16; csrc/ssd_scan_backward.cu says how),
+and the heads of a group are summed in registers, so the dB/dC scratch is
+``splits`` partials of (b, s, g, n) and not one of (b, s, h, n).
 """
 
 from __future__ import annotations
@@ -91,9 +104,12 @@ KERNELS_PER_CALL = len(STAGES)  # CUDA kernels one ``ssd_scan_cuda`` launches
 # the backward reads (the incoming states are the ``states`` buffer)
 TRAIN_OUTPUTS = ("y", "state", "scores", "cs", "states")
 BACKWARD_OUTPUTS = ("dx", "ddt", "dA", "dB", "dC")
-BACKWARD_STAGES = ("dstates", "dpass", "chunk", "reduce")
+BACKWARD_STAGES = ("dstates", "dpass", "rows", "cols", "finish", "reduce")
 BACKWARD_KERNELS_PER_CALL = len(BACKWARD_STAGES)
 MAX_BACKWARD_HEAD_DIM = 64  # the backward holds a head's p columns in one tile
+# `rows` and `cols` blocks the plan asks for: eight an SM (two fit at once),
+# so that tiles of unequal work even out
+BACKWARD_MIN_BLOCKS = 8 * 132
 
 
 def work(b: int, s: int, h: int, p: int, n: int, g: int, chunk: int,
@@ -180,16 +196,17 @@ def ssd_scan_plain(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
 
 
 # ------------------------------------------------------------------------- #
-# The stages, plain: what each kernel computes, in fp32.
+# The stages, plain: what each kernel computes, in fp32 (float64 for
+# float64 inputs).
 # ------------------------------------------------------------------------- #
 
 def _chunks(t: torch.Tensor, q: int) -> torch.Tensor:
-    """(b, s, ...) -> (b, nc, q, ...) in fp32, the last chunk padded with
-    zeros (a padded position has dt = 0: it adds nothing and decays
-    nothing)."""
+    """(b, s, ...) -> (b, nc, q, ...) in fp32 (float64 for float64 inputs),
+    the last chunk padded with zeros (a padded position has dt = 0: it adds
+    nothing and decays nothing)."""
     b, s = t.shape[:2]
     nc = -(-s // q)
-    t = t.float()
+    t = _wide(t)
     if nc * q != s:
         t = torch.cat([t, t.new_zeros((b, nc * q - s) + t.shape[2:])], dim=1)
     return t.reshape((b, nc, q) + t.shape[2:])
@@ -215,7 +232,7 @@ def ssd_chunk_states_plain(x: torch.Tensor, dt: torch.Tensor,
     q = min(chunk, s)
     xf = _chunks(x, q).unflatten(3, (g, r))                  # (b, nc, q, g, r, p)
     dtf = _chunks(dt, q).unflatten(3, (g, r))                # (b, nc, q, g, r)
-    cs = torch.cumsum(dtf * A.float().reshape(g, r), dim=2)
+    cs = torch.cumsum(dtf * _wide(A).reshape(g, r), dim=2)
     w = dtf * torch.exp(cs[:, :, -1:] - cs)
     states = torch.einsum("bcjgrp,bcjgn->bgrcpn", xf * w[..., None],
                           _chunks(B, q))
@@ -375,9 +392,9 @@ def ssd_scan_backward_plain(x: torch.Tensor, dt: torch.Tensor,
 
 
 # ------------------------------------------------------------------------- #
-# The backward's stages, plain: what each kernel computes, in fp32, on the
-# kernels' scratch layouts (cumsums and scores padded to ``qp`` are taken
-# as they come).
+# The backward's stages, plain: what each kernel computes, in fp32 (float64
+# for float64 inputs), on the kernels' scratch layouts (cumsums and scores
+# padded to ``qp`` are taken as they come).
 # ------------------------------------------------------------------------- #
 
 def ssd_bwd_dstates_plain(dy: torch.Tensor, C: torch.Tensor,
@@ -388,7 +405,7 @@ def ssd_bwd_dstates_plain(dy: torch.Tensor, C: torch.Tensor,
     g = C.shape[2]
     q = min(chunk, s)
     nc = -(-s // q)
-    ecs = cs[..., :q].float().exp().reshape(b, g, h // g, nc, q)
+    ecs = _wide(cs[..., :q]).exp().reshape(b, g, h // g, nc, q)
     dyc = _chunks(dy, q).unflatten(3, (g, h // g))          # (b, c, q, g, r, p)
     U = torch.einsum("bgrci,bcigrp,bcign->bgrcpn", ecs, dyc, _chunks(C, q))
     return U.reshape(b, h, nc, p, C.shape[3])
@@ -400,77 +417,162 @@ def ssd_bwd_state_pass_plain(U: torch.Tensor, cs: torch.Tensor,
     """Stage ``dpass``: from D = dstate (or 0), the chunks from last to
     first, dS[c] = D, D = D e^(cs_last[c]) + U[c] -> each chunk's final
     state's cotangent (b, h, nc, p, n)."""
-    decay = torch.exp(cs[..., -1].float())                    # (b, h, nc)
+    decay = torch.exp(_wide(cs[..., -1]))                    # (b, h, nc)
     dS = torch.empty_like(U)
     D = (torch.zeros_like(U[:, :, 0]) if dstate is None
-         else dstate.float().clone())
+         else _wide(dstate).clone())
     for c in reversed(range(U.shape[2])):
         dS[:, :, c] = D
         D = D * decay[:, :, c, None, None] + U[:, :, c]
     return dS
 
 
-def ssd_bwd_chunk_plain(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
-                        B: torch.Tensor, C: torch.Tensor, dy: torch.Tensor,
-                        scores: torch.Tensor, cs: torch.Tensor,
-                        incoming: torch.Tensor, dS: torch.Tensor, chunk: int
-                        ) -> Tuple[torch.Tensor, ...]:
-    """Stage ``chunk``: every chunk at once -> (dx (b, s, h, p) in x's type,
-    ddt (b, s, h) fp32, each chunk's share of dA (b, h, nc), each head's dB
-    and dC (b, s, h, n) fp32). A padded position adds nothing but the last
-    position's terms, which may sit there: the reverse cumsum carries them
-    down to the chunk's real positions all the same."""
+def ssd_scan_backward_plan(b: int, s: int, h: int, g: int, n: int,
+                           chunk: int) -> Tuple[int, int, int]:
+    """(splits, kernels a call, scratch bytes of the dB/dC partials) of one
+    backward call.
+
+    ``splits``: the blocks over which the ``rows`` and ``cols`` kernels
+    split a group's ``h // g`` heads, the smallest divisor of ``h // g``
+    that gives each of them ``BACKWARD_MIN_BLOCKS`` blocks (one a 64-row
+    tile, batch, group, split and chunk; the whole group when none does).
+    A block sums its heads' dB and dC in registers, so the partials are
+    ``(splits, b, s, g, n)`` fp32 each for dB and dC when ``splits > 1``,
+    else none."""
+    q = min(int(chunk), s)
+    per_split = b * g * -(-s // q) * -(-q // TILE)
+    r = h // g
+    splits = next((k for k in range(1, r + 1)
+                   if r % k == 0 and per_split * k >= BACKWARD_MIN_BLOCKS),
+                  r)
+    nbytes = 2 * splits * b * s * g * n * 4 if splits > 1 else 0
+    return splits, BACKWARD_KERNELS_PER_CALL, nbytes
+
+
+def _tile_terms(x, dt, B, C, dy, scores, cs, chunk):
+    """What ``rows`` and ``cols`` each compute from the inputs and the
+    training forward's scratch, every chunk at once, heads as (g, r): the
+    chunks of x, dy (b, c, q, g, r, p), dt (b, c, q, g, r), B, C (b, c, q,
+    g, n), the cumsums (b, c, q, g, r), E (0 above the diagonal), G (0
+    there too) (b, c, i, j, g, r | 1) and dM (b, c, i, j, g, r)."""
     b, s, h, p = x.shape
-    g, n = B.shape[2], B.shape[3]
+    g = B.shape[2]
     r = h // g
     q = min(chunk, s)
     nc = -(-s // q)
-    xc = _chunks(x, q).unflatten(3, (g, r))                  # (b, c, q, g, r, p)
+    xc = _chunks(x, q).unflatten(3, (g, r))
     dyc = _chunks(dy, q).unflatten(3, (g, r))
-    dtc = _chunks(dt, q).unflatten(3, (g, r))                # (b, c, q, g, r)
-    Bc, Cc = _chunks(B, q), _chunks(C, q)                    # (b, c, q, g, n)
-    csc = cs[..., :q].float().reshape(b, g, r, nc, q).permute(0, 3, 4, 1, 2)
-    S_in = incoming.float().reshape(b, g, r, nc, p, n)
-    dSc = dS.float().reshape(b, g, r, nc, p, n)
+    dtc = _chunks(dt, q).unflatten(3, (g, r))
+    csc = _wide(cs[..., :q]).reshape(b, g, r, nc, q).permute(0, 3, 4, 1, 2)
     causal = torch.ones((q, q), dtype=torch.bool,
                         device=x.device).tril()[:, :, None, None]
     E = (csc[:, :, :, None] - csc[:, :, None, :]).masked_fill(
-        ~causal, float("-inf")).exp()                        # (b, c, i, j, g, r)
-    G = torch.where(causal[..., 0], scores[..., :q, :q].float().permute(
-        0, 2, 3, 4, 1), 0.0)[..., None]                      # (b, c, i, j, g, 1)
+        ~causal, float("-inf")).exp()
+    G = torch.where(causal[..., 0], _wide(scores[..., :q, :q]).permute(
+        0, 2, 3, 4, 1), 0.0)[..., None]
     dM = torch.einsum("bcigrp,bcjgrp->bcijgr", dyc, xc)
-    Edt = E * dtc[:, :, None]
-    M, P, R = G * Edt, dM * Edt, G * E * dM
-    ecs = csc.exp()
-    f = torch.exp(csc[:, :, -1:] - csc)
-    w = dtc * f
-    SB = torch.einsum("bgrcpn,bcjgn->bcjgrp", dSc, Bc)
-    T = torch.einsum("bgrcpn,bcigrp->bcigrn", S_in, dyc) * ecs[..., None]
-    xsb = (xc * SB).sum(-1)                                  # (b, c, q, g, r)
-    dx = torch.einsum("bcijgr,bcigrp->bcjgrp", M, dyc) + w[..., None] * SB
+    return xc, dyc, dtc, _chunks(B, q), _chunks(C, q), csc, E, G, dM
+
+
+def _per_head(t: torch.Tensor, qp: int) -> torch.Tensor:
+    """(b, c, q, g, r) -> the kernels' (b, h, nc, qp), zeros past q."""
+    b, nc, q, g, r = t.shape
+    t = t.permute(0, 3, 4, 1, 2).reshape(b, g * r, nc, q)
+    return torch.nn.functional.pad(t, (0, qp - q))
+
+
+def _split_sums(t: torch.Tensor, splits: int, s: int) -> torch.Tensor:
+    """(b, c, q, g, r, n) per head -> (splits, b, s, g, n): each split's
+    heads summed."""
+    b, nc, q, g, r, n = t.shape
+    t = t.unflatten(4, (splits, r // splits)).sum(5)   # (b, c, q, g, k, n)
+    return t.permute(4, 0, 1, 2, 3, 5).reshape(splits, b, nc * q, g, n)[:, :, :s]
+
+
+def ssd_bwd_rows_plain(x: torch.Tensor, dt: torch.Tensor, B: torch.Tensor,
+                       C: torch.Tensor, dy: torch.Tensor, scores: torch.Tensor,
+                       cs: torch.Tensor, incoming: torch.Tensor,
+                       dS: torch.Tensor, chunk: int, splits: int
+                       ) -> Tuple[torch.Tensor, ...]:
+    """Stage ``rows``: every chunk at once -> (each split's dC, (splits, b,
+    s, g, n) fp32; cs's row terms sum_j G_ij P_ij + C_i . T_i (b, h, nc,
+    qp), T_i = e^(cs_i) S_in^T dy_i; each chunk's e^(cs_last) <dS, S_in>
+    (b, h, nc))."""
+    b, s, h, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    r = h // g
+    nc = cs.shape[2]
+    xc, dyc, dtc, Bc, Cc, csc, E, G, dM = _tile_terms(x, dt, B, C, dy,
+                                                      scores, cs, chunk)
+    P = dM * E * dtc[:, :, None]
+    S_in = _wide(incoming).reshape(b, g, r, nc, p, n)
+    T = (torch.einsum("bgrcpn,bcigrp->bcigrn", S_in, dyc)
+         * csc.exp()[..., None])
     dC_h = torch.einsum("bcijgr,bcjgn->bcigrn", P, Bc) + T
+    rows = (G * P).sum(3) + (Cc[:, :, :, :, None] * T).sum(-1)
+    last = _wide(cs[..., -1]).exp() * (_wide(dS) * _wide(incoming)).sum(
+        (-2, -1))
+    return _split_sums(dC_h, splits, s), _per_head(rows, cs.shape[-1]), last
+
+
+def ssd_bwd_cols_plain(x: torch.Tensor, dt: torch.Tensor, B: torch.Tensor,
+                       C: torch.Tensor, dy: torch.Tensor, scores: torch.Tensor,
+                       cs: torch.Tensor, dS: torch.Tensor, chunk: int,
+                       splits: int) -> Tuple[torch.Tensor, ...]:
+    """Stage ``cols``: every chunk at once -> (dx (b, s, h, p) in x's type;
+    each split's dB (splits, b, s, g, n) fp32; rs_j = sum_i G_ij E_ij dM_ij
+    and x_j . SB_j, each (b, h, nc, qp))."""
+    b, s, h, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    r = h // g
+    nc, qp = cs.shape[2], cs.shape[3]
+    xc, dyc, dtc, Bc, Cc, csc, E, G, dM = _tile_terms(x, dt, B, C, dy,
+                                                      scores, cs, chunk)
+    Edt = E * dtc[:, :, None]
+    M, P = G * Edt, dM * Edt
+    dSc = _wide(dS).reshape(b, g, r, nc, p, n)
+    w = dtc * torch.exp(csc[:, :, -1:] - csc)
+    SB = torch.einsum("bgrcpn,bcjgn->bcjgrp", dSc, Bc)
+    dx = torch.einsum("bcijgr,bcigrp->bcjgrp", M, dyc) + w[..., None] * SB
     dB_h = (torch.einsum("bcijgr,bcign->bcjgrn", P, Cc)
             + w[..., None] * torch.einsum("bgrcpn,bcjgrp->bcjgrn", dSc, xc))
-    RD = R * dtc[:, :, None]
-    dcs = (RD.sum(3) - RD.sum(2) + (Cc[:, :, :, :, None] * T).sum(-1)
-           - w * xsb)
-    dcs[:, :, -1] += ((w * xsb).sum(2) + ecs[:, :, -1]
-                      * (dSc * S_in).sum((-2, -1)).permute(0, 3, 1, 2))
-    rev = dcs.flip(2).cumsum(2).flip(2)
-    ddt = R.sum(2) + f * xsb + A.float().reshape(g, r) * rev
-    dA_part = (dtc * rev).sum(2).permute(0, 2, 3, 1).reshape(b, h, nc)
-    cut = lambda t: t.reshape((b, nc * q, h) + t.shape[5:])[:, :s]
-    return (cut(dx).to(x.dtype), cut(ddt), dA_part, cut(dB_h), cut(dC_h))
+    dx = dx.reshape(b, nc * dx.shape[2], h, p)[:, :s].to(x.dtype)
+    return (dx, _split_sums(dB_h, splits, s),
+            _per_head((G * E * dM).sum(2), qp),
+            _per_head((xc * SB).sum(-1), qp))
 
 
-def ssd_bwd_reduce_plain(dB_h: torch.Tensor, dC_h: torch.Tensor,
-                         dA_part: torch.Tensor, g: int, dtype: torch.dtype
+def ssd_bwd_finish_plain(dcs: torch.Tensor, last: torch.Tensor,
+                         dt: torch.Tensor, A: torch.Tensor, cs: torch.Tensor,
+                         chunk: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Stage ``finish``: from the terms ``rows`` and ``cols`` left (``dcs``
+    (b, h, nc, 3, qp), ``last`` (b, h, nc)) -> (ddt (b, s, h) fp32, each
+    chunk's share of dA (b, h, nc)). The last position's terms go to the
+    chunk's last padded position: the reverse cumsum carries them down to
+    its real positions all the same (a padded position has dt = 0)."""
+    b, s, h = dt.shape
+    q = min(chunk, s)
+    nc = cs.shape[2]
+    csq = _wide(cs[..., :q])
+    dtq = _chunks(dt, q).permute(0, 3, 1, 2)                 # (b, h, nc, q)
+    rows, rs, xsb = (dcs[..., k, :q] for k in range(3))
+    f = torch.exp(csq[..., -1:] - csq)
+    xw = dtq * f * xsb
+    d = rows - dtq * rs - xw
+    d[..., -1] += xw.sum(-1) + last
+    rev = d.flip(-1).cumsum(-1).flip(-1)
+    ddt = rs + f * xsb + _wide(A)[:, None, None] * rev
+    ddt = ddt.permute(0, 2, 3, 1).reshape(b, nc * q, h)[:, :s]
+    return ddt, (dtq * rev).sum(-1)
+
+
+def ssd_bwd_reduce_plain(dB_part: torch.Tensor, dC_part: torch.Tensor,
+                         share: torch.Tensor, dtype: torch.dtype
                          ) -> Tuple[torch.Tensor, ...]:
-    """Stage ``reduce``: each group's heads summed -> (dB, dC (b, s, g, n)
+    """Stage ``reduce``: the splits' partials summed -> (dB, dC (b, s, g, n)
     in ``dtype``), and dA (h,) fp32 from the chunks' shares."""
-    dB = dB_h.unflatten(2, (g, -1)).sum(3).to(dtype)
-    dC = dC_h.unflatten(2, (g, -1)).sum(3).to(dtype)
-    return dB, dC, dA_part.sum((0, 2))
+    return (dB_part.sum(0).to(dtype), dC_part.sum(0).to(dtype),
+            share.sum((0, 2)))
 
 
 def ssd_scan_backward_stages_plain(x: torch.Tensor, dt: torch.Tensor,
@@ -480,14 +582,21 @@ def ssd_scan_backward_stages_plain(x: torch.Tensor, dt: torch.Tensor,
                                    chunk: int = 256
                                    ) -> Tuple[torch.Tensor, ...]:
     """The training forward's scratch and the backward's stages composed as
-    the kernels compose them: equal to ``ssd_scan_backward_plain``."""
+    the kernels compose them, on ``ssd_scan_backward_plan``'s splits: equal
+    to ``ssd_scan_backward_plain``."""
+    b, s, h, _ = x.shape
+    g, n = B.shape[2], B.shape[3]
+    splits = ssd_scan_backward_plan(b, s, h, g, n, chunk)[0]
     _, _, scores, cs, incoming = ssd_scan_train_plain(x, dt, A, B, C, chunk)
     dS = ssd_bwd_state_pass_plain(ssd_bwd_dstates_plain(dy, C, cs, chunk),
                                   cs, dstate)
-    dx, ddt, dA_part, dB_h, dC_h = ssd_bwd_chunk_plain(
-        x, dt, A, B, C, dy, scores, cs, incoming, dS, chunk)
-    dB, dC, dA = ssd_bwd_reduce_plain(dB_h, dC_h, dA_part, B.shape[2],
-                                      B.dtype)
+    dC_part, rows, last = ssd_bwd_rows_plain(x, dt, B, C, dy, scores, cs,
+                                             incoming, dS, chunk, splits)
+    dx, dB_part, rs, xsb = ssd_bwd_cols_plain(x, dt, B, C, dy, scores, cs,
+                                              dS, chunk, splits)
+    ddt, share = ssd_bwd_finish_plain(torch.stack([rows, rs, xsb], 3), last,
+                                      dt, A, cs, chunk)
+    dB, dC, dA = ssd_bwd_reduce_plain(dB_part, dC_part, share, B.dtype)
     return dx, ddt.to(dt.dtype), dA.to(A.dtype), dB, dC
 
 
@@ -688,25 +797,31 @@ def _check_backward(x, dt, A, B, C, dy, dstate, scores, cs, incoming,
 
 def _backward_buffer_specs(x: torch.Tensor, B: torch.Tensor,
                            chunk: int) -> dict:
-    """name -> (shape, dtype) of the backward's outputs and scratch."""
+    """name -> (shape, dtype) of the backward's outputs and scratch; the
+    dB/dC partials have ``ssd_scan_backward_plan``'s splits, or none."""
     b, s, h, p = x.shape
     g, n = B.shape[2], B.shape[3]
-    nc = -(-s // min(int(chunk), s))
+    q = min(int(chunk), s)
+    nc, qp = -(-s // q), -(-q // TILE) * TILE
+    splits = ssd_scan_backward_plan(b, s, h, g, n, chunk)[0]
+    parts = ((splits if splits > 1 else 0, b, s, g, n), torch.float32)
     f32 = torch.float32
     return {"dx": ((b, s, h, p), x.dtype), "ddt": ((b, s, h), f32),
             "dA": ((h,), f32), "dB": ((b, s, g, n), B.dtype),
             "dC": ((b, s, g, n), B.dtype),
-            "dS": ((b, h, nc, p, n), f32), "dB_h": ((b, s, h, n), f32),
-            "dC_h": ((b, s, h, n), f32), "dA_part": ((b, h, nc), f32)}
-
+            "dS": ((b, h, nc, p, n), f32), "dcs": ((b, h, nc, 3, qp), f32),
+            "dA_part": ((b, h, nc, 2), f32), "dB_part": parts,
+            "dC_part": parts}
 
 
 def ssd_backward_buffers(x: torch.Tensor, B: torch.Tensor,
                          chunk: int) -> Dict[str, torch.Tensor]:
     """The backward's outputs (``BACKWARD_OUTPUTS``, contiguous) and its
     scratch: ``dS`` (the chunks' U, then their final states' cotangents),
-    each head's ``dB_h`` and ``dC_h`` (b, s, h, n) fp32, 4 b s h n bytes
-    each, and ``dA_part``; uninitialised, on x's device."""
+    ``dcs`` (cs's row terms, rs and x . SB, a head and position),
+    ``dA_part`` (each chunk's e^(cs_last) <dS, S_in> and share of dA) and
+    the splits' ``dB_part`` and ``dC_part`` (empty with one split);
+    uninitialised, on x's device."""
     return {name: torch.empty(shape, dtype=dtype, device=x.device)
             for name, (shape, dtype) in _backward_buffer_specs(
                 x, B, chunk).items()}
@@ -716,6 +831,7 @@ def _launch_backward(x, dt, A, B, C, dy, dstate, scores, cs, incoming, q,
                      buffers: Dict[str, torch.Tensor], mask: int) -> None:
     b, s, h, p = x.shape
     g, n = B.shape[2], B.shape[3]
+    splits = ssd_scan_backward_plan(b, s, h, g, n, q)[0]
     ptr = lambda name: buffers[name].data_ptr()
     with _build.on_device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -724,10 +840,10 @@ def _launch_backward(x, dt, A, B, C, dy, dstate, scores, cs, incoming, q,
             C.data_ptr(), dy.data_ptr(),
             None if dstate is None else dstate.data_ptr(),
             scores.data_ptr(), cs.data_ptr(), incoming.data_ptr(),
-            ptr("dS"), ptr("dB_h"), ptr("dC_h"), ptr("dA_part"), ptr("dx"),
-            ptr("ddt"), ptr("dA"), ptr("dB"), ptr("dC"),
-            b, s, h, p, g, n, q, *x.stride()[:3], *dt.stride(),
-            *B.stride()[:3], *C.stride()[:3], *dy.stride()[:3],
+            ptr("dS"), ptr("dcs"), ptr("dA_part"), ptr("dB_part"),
+            ptr("dC_part"), ptr("dx"), ptr("ddt"), ptr("dA"), ptr("dB"),
+            ptr("dC"), b, s, h, p, g, n, q, splits, *x.stride()[:3],
+            *dt.stride(), *B.stride()[:3], *C.stride()[:3], *dy.stride()[:3],
             _DTYPE_CODE[x.dtype], mask, stream)
     _build.check(code, "ssd_scan backward kernel launch")
 

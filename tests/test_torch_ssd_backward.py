@@ -129,17 +129,22 @@ def test_backward_plain_is_autograd_of_the_plain_scan(case):
         assert _scaled(a32, w.numpy()) <= 1e-5, name
 
 
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.float64, 1e-12)])
 @pytest.mark.parametrize("case", CASES, ids=CASE_IDS)
-def test_backward_stages_compose_to_the_plain_backward(case):
-    """The training forward's scratch and the four backward stages, as the
-    kernels compose them, give the closed form's gradients (1e-5)."""
+def test_backward_stages_compose_to_the_plain_backward(case, dtype, tol):
+    """The training forward's scratch and the six backward stages, as the
+    kernels compose them on the plan's splits, give the closed form's
+    gradients: fp32, sums in another order (1e-5); float64 (the plain
+    stages keep float64 inputs float64), the same numbers (1e-12)."""
     b, h, s, p, n, g, chunk, dstate = case
-    args = _torch(_inputs(42, b, h, s, p, n, g, dstate))
+    args = [None if t is None else t.to(dtype)
+            for t in _torch(_inputs(42, b, h, s, p, n, g, dstate))]
     want = ssd.ssd_scan_backward_plain(*args, chunk=chunk)
     got = ssd.ssd_scan_backward_stages_plain(*args, chunk=chunk)
     for name, a, w in zip(GRADS, got, want):
-        assert a.shape == w.shape and a.dtype == w.dtype, name
-        assert _scaled(a, w.numpy()) <= 1e-5, name
+        assert a.shape == w.shape and a.dtype == w.dtype == dtype, name
+        assert _scaled(a, w.numpy()) <= tol, name
 
 
 def test_backward_plain_bf16_takes_and_gives_each_inputs_type():
@@ -332,16 +337,55 @@ def test_backward_work_formula():
                       + (4 * b * h * p * n if dstate else 0))
             assert ssd.backward_work(b, s, h, p, n, g, chunk, dtype,
                                      dstate) == (flops, nbytes)
-    assert ssd.BACKWARD_STAGES == ("dstates", "dpass", "chunk", "reduce")
-    assert ssd.BACKWARD_KERNELS_PER_CALL == 4
+    assert ssd.BACKWARD_STAGES == ("dstates", "dpass", "rows", "cols",
+                                   "finish", "reduce")
+    assert ssd.BACKWARD_KERNELS_PER_CALL == 6
     x = torch.empty((8, 2048, 48, 64), device="meta")
     B = torch.empty((8, 2048, 1, 128), device="meta")
     bufs = ssd.ssd_backward_buffers(x, B, 256)
     nbytes = {k: t.numel() * t.element_size() for k, t in bufs.items()}
-    assert nbytes["dB_h"] == nbytes["dC_h"] == 402_653_184
+    # six splits of the group's 48 heads: partials of (b, s, g, n), not a
+    # dB and dC of each head (402,653,184 bytes each)
+    assert nbytes["dB_part"] == nbytes["dC_part"] == 6 * 8 * 2048 * 128 * 4
+    assert nbytes["dB_part"] + nbytes["dC_part"] == ssd.ssd_scan_backward_plan(
+        8, 2048, 48, 1, 128, 256)[2] == 100_663_296
     assert nbytes["dS"] == 8 * 48 * 8 * 64 * 128 * 4
-    assert set(bufs) == {*ssd.BACKWARD_OUTPUTS, "dS", "dB_h", "dC_h",
-                         "dA_part"}
+    assert nbytes["dcs"] == 8 * 48 * 8 * 3 * 256 * 4
+    assert nbytes["dA_part"] == 8 * 48 * 8 * 2 * 4
+    assert set(bufs) == {*ssd.BACKWARD_OUTPUTS, "dS", "dcs", "dA_part",
+                         "dB_part", "dC_part"}
+
+
+# (b, s, h, g, n, chunk) -> (splits, kernels, partials' bytes): mamba2-780m's
+# training layer, zamba2-2.7b's, the ragged grouped case of chip_smoke.py,
+# and a batch large enough for one split (no partials)
+PLANS = [((8, 2048, 48, 1, 128, 256), (6, 6, 100_663_296)),
+         ((1, 1024, 80, 1, 64, 256), (80, 6, 41_943_040)),
+         ((2, 130, 4, 2, 32, 64), (2, 6, 266_240)),
+         ((32, 8192, 2, 1, 128, 256), (1, 6, 0))]
+
+
+@pytest.mark.parametrize("shape,plan", PLANS,
+                         ids=["train-main", "zamba2", "ragged", "one-split"])
+def test_backward_plan(shape, plan):
+    """``ssd_scan_backward_plan``: the fewest splits of a group's heads (a
+    divisor of h // g) that give ``rows`` and ``cols`` BACKWARD_MIN_BLOCKS
+    blocks each (one a 64-row tile, batch, group, split, chunk), else the
+    whole group; the buffers' partials take its splits (none for one)."""
+    b, s, h, g, n, chunk = shape
+    assert ssd.ssd_scan_backward_plan(*shape) == plan
+    splits = plan[0]
+    q = min(chunk, s)
+    blocks = b * g * -(-s // q) * -(-q // 64) * splits
+    assert (h // g) % splits == 0
+    assert blocks >= ssd.BACKWARD_MIN_BLOCKS or splits == h // g
+    specs = ssd._backward_buffer_specs(torch.empty((b, s, h, 8),
+                                                   device="meta"),
+                                       torch.empty((b, s, g, n),
+                                                   device="meta"), chunk)
+    parts = splits if splits > 1 else 0
+    assert specs["dB_part"] == specs["dC_part"] == ((parts, b, s, g, n),
+                                                     torch.float32)
 
 
 def test_launch_functions_refuse_cpu_tensors_and_wide_heads():
@@ -529,11 +573,22 @@ def _card_inputs(device, dtype, case, seed=50):
 
 
 # the CPU cases at state dims the kernels take (16, 32, 64, 128), then a
-# mamba2-780m layer and a zamba2-2.7b one at short lengths
+# mamba2-780m layer and a zamba2-2.7b one at short lengths; then the tiles'
+# edges: chunks that are not a multiple of 64 (96, 100) with a ragged last
+# chunk, a long chunk (512, eight row tiles) with a short last one, p 8 with
+# n 16 and p 64 with n 128, groups of 2, 4 and 12 heads, and plans that sum
+# two heads a block (splits 4 of 8 heads, 6 of 12 heads a group). At chunk
+# 1024 the cumsums reach the hundreds and fp32 itself (the plain version
+# against float64) does not hold dA to 1e-4 of its largest
 CARD_CASES = [(b, h, s, p, max(n, 16), g, q, d)
               for b, h, s, p, n, g, q, d in CASES] + [
     (2, 48, 512, 64, 128, 1, 256, False),
-    (1, 80, 300, 64, 64, 1, 256, True)]
+    (1, 80, 300, 64, 64, 1, 256, True),
+    (2, 8, 200, 64, 128, 2, 96, True),
+    (1, 6, 150, 8, 16, 3, 100, False),
+    (3, 4, 1100, 32, 32, 1, 512, True),
+    (16, 8, 2048, 64, 128, 1, 256, False),
+    (8, 24, 1024, 32, 64, 2, 256, True)]
 
 
 @pytest.mark.cuda
@@ -543,18 +598,23 @@ CARD_CASES = [(b, h, s, p, max(n, 16), g, q, d)
 def test_backward_kernels_match_plain_and_repeat_bitwise(cuda_device, dtype,
                                                          tol, case):
     """The training forward's kernels, then the backward's, against the
-    closed form on the same inputs (each gradient to ``tol`` of its largest
-    magnitude: fp32, sums in another order; bf16, dx, dB, dC rounded once
-    on each side); a second call gives the same bits."""
+    closed form on the same inputs in float64 (each gradient to ``tol`` of
+    its largest magnitude: fp32, the kernels' own rounding; bf16, dx, dB,
+    dC rounded once); a second call gives the same bits. float64, since the
+    closed form in fp32 itself misses dA by about the tolerance at long
+    chunks."""
     x, dt, A, B, C, dy, ds = _card_inputs(cuda_device, dtype, case)
     chunk = case[6]
     saved = ssd.ssd_scan_train_cuda(x, dt, A, B, C, chunk)[2:]
     got = ssd.ssd_scan_backward_cuda(x, dt, A, B, C, dy, ds, *saved, chunk)
     torch.cuda.synchronize()
-    want = ssd.ssd_scan_backward_plain(x, dt, A, B, C, dy, ds, chunk)
-    for name, a, w in zip(GRADS, got, want):
-        assert a.dtype == w.dtype and a.shape == w.shape, name
-        assert _scaled(a.float().cpu(), w.float().cpu().numpy()) <= tol, name
+    want = ssd.ssd_scan_backward_plain(
+        *(None if t is None else t.double() for t in (x, dt, A, B, C, dy, ds)),
+        chunk=chunk)
+    types = (dtype, torch.float32, torch.float32, dtype, dtype)
+    for name, a, w, kind in zip(GRADS, got, want, types):
+        assert a.dtype == kind and a.shape == w.shape, name
+        assert _scaled(a.float().cpu(), w.cpu().numpy()) <= tol, name
     again = ssd.ssd_scan_backward_cuda(x, dt, A, B, C, dy, ds, *saved, chunk)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
