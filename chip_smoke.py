@@ -17,7 +17,11 @@ run with a non-zero exit code (nothing drops to the CPU or to a plain version):
            also per stage, and at its two main shapes (uniform and Zipf
            indices) three calls that must agree bitwise; the attention and
            RMSNorm backwards the same, three calls at each main shape, and
-           the kernels a call launched, counted in a trace, as planned;
+           the kernels a call launched, counted in a trace, as planned; the
+           attention backward and its forward (the log-sum-exp) at head_dim
+           160 too: zamba2-2.7b's training layer (the train_zamba phase's,
+           with each fused SDPA backend alone beside it), a ragged tile and
+           a GQA group not causal, each three bitwise-equal calls;
            the SSD scan's backward at mamba2-780m's training layer (the
            train_mamba phase's), zamba2-2.7b's layer and a ragged grouped
            case with the final state's cotangent, fp32 and bf16, each with
@@ -26,7 +30,8 @@ run with a non-zero exit code (nothing drops to the CPU or to a plain version):
   repeats  100 calls each of the attention forward (with the log-sum-exp)
            and backward at the train_lm layer and at a chatglm3-like layer,
            of the RMSNorm backward at the train_lm rows and of the SSD scan
-           backward at the train_mamba layer, fp32 and bf16:
+           backward at the train_mamba layer, fp32 and bf16, and of the
+           attention both ways at the train_zamba layer (head_dim 160), fp32:
            the calls whose bits differ from the first call's, which must be
            none (with the env phase's driver version and GPU UUID, this ties
            a recurrence of an unequal repeat to a machine)
@@ -96,6 +101,23 @@ run with a non-zero exit code (nothing drops to the CPU or to a plain version):
            through the plain versions (autograd) with the scan in float64,
            fp32 elsewhere: loss, grad norm, every gradient leaf (a leaf may
            miss by up to twice what the plain versions in fp32 miss it by)
+  train_zamba
+           zamba2-2.7b at full width and depth (54 Mamba2 layers, the shared
+           block's 32 heads of 160 after every 6th), fp32 as launch.train
+           trains it, weights from a seed, the memory plan (ZeRO-1, fp32 Adam
+           with master, remat "dots"): 2 warm-up and 10 timed steps on
+           batches of 3 x 2048 tokens (the batch cut to fit the card), through
+           the attention kernels both ways at head_dim 160, the SSD scan's
+           and the RMSNorm kernels both ways; launches held to the count
+           reckoned from the layers, the shared block's 9 calls and the
+           policy; peak memory beside the plan's and a reckoning; one step
+           under torch.profiler: device ms, idle share, the attention and
+           SSD backwards' shares, the attention backward's kernels as its
+           plan reckons
+  train_zamba_check
+           one step of 4 full-width zamba2 layers with the shared block after
+           every 2nd through the kernels and through the plain versions with
+           the scan in float64, as train_mamba_check holds mamba2
   checkpoint
            the train_lm configuration again: 6 steps straight against 3
            steps that checkpoint (the trainer's async save, in the JAX
@@ -384,6 +406,20 @@ MOE_ARCH = "granite-moe-3b-a800m"
 # the shared attention block after every 6th: 32 heads of 160), bf16,
 # weights from seed 0 drawn on the card, through the engine as above.
 ZAMBA_ARCH = "zamba2-2.7b"
+# Training it: full width and depth, fp32 parameters as launch.train makes
+# them, the memory plan (ZeRO-1, fp32 Adam with master: 48.2 GB of state),
+# sequences of 2048 tokens, launch.train's learning rate, a 2-step warmup.
+# The batch is cut from launch.train's 8 rows to 3, the most that fits the
+# card: what remat "dots" keeps is some 4.6 MB a token (54 layers'
+# projections, the shared block's nine calls, the logits), and 4 rows ran
+# out of the card's memory.
+# The check: 4 full-width layers with the shared block after every 2nd (two
+# calls of it), one step, the kernel route against the plain route with the
+# scan in float64, under train_mamba_check's rule.
+ZAMBA_BATCH, ZAMBA_SEQ = 3, 2048
+ZAMBA_WARMUP, ZAMBA_STEPS, ZAMBA_PROFILED = 2, 10, 1
+ZAMBA_CHECK_LAYERS, ZAMBA_CHECK_EVERY = 4, 2
+ZAMBA_CHECK_BATCH, ZAMBA_CHECK_SEQ = 4, 1024
 
 # Checkpoint and resume: the train_lm configuration (full-width smollm-135m,
 # fp32, 8 x 2048 tokens a step), 2 * CKPT_K steps straight against CKPT_K
@@ -404,6 +440,7 @@ STUDY_REPS = 3                                 # timed calls, median kept
 DLRM_STUDY_BATCH = 4096                        # fig15's DLRM global batch
 
 DEVICE = "cuda"
+_STARTED = time.perf_counter()
 
 
 def bound(flops: int, nbytes: int, peak_flops: float) -> dict:
@@ -417,7 +454,9 @@ def bound(flops: int, nbytes: int, peak_flops: float) -> dict:
 
 
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    print(json.dumps({"phase": phase, **fields,
+                      "elapsed_s": time.perf_counter() - _STARTED}),
+          flush=True)
 
 
 def dtype_name(dtype: torch.dtype) -> str:
@@ -690,14 +729,51 @@ def _bitwise_repeats(fn, first) -> int:
                    for _ in range(BWD_REPEATS - 1))
 
 
+def _sdpa_backends(q, k, v, do, causal) -> dict:
+    """Each of PyTorch's fused attention backends alone: autograd's backward
+    of its forward on the same inputs, in device ms by torch.profiler
+    (``trace_ms``, as ``library_ms``), or why it refused the forward (its
+    error and the reasons PyTorch's warnings gave)."""
+    import warnings
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    gqa = q.shape[1] != k.shape[1]
+    out = {}
+    for backend in (SDPBackend.CUDNN_ATTENTION, SDPBackend.FLASH_ATTENTION,
+                    SDPBackend.EFFICIENT_ATTENTION, SDPBackend.MATH):
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        try:
+            with warnings.catch_warnings(record=True) as said, \
+                    sdpa_kernel([backend]), torch.enable_grad():
+                warnings.simplefilter("always")
+                o = F.scaled_dot_product_attention(
+                    *leaves, is_causal=causal, enable_gqa=gqa)
+            out[backend.name.lower()] = trace_ms(
+                lambda o_, g: torch.autograd.grad(o_, leaves, g,
+                                                  retain_graph=True),
+                [(o, do)])["ms"]
+            del o
+        except RuntimeError as err:
+            why = " ".join(str(w.message).split("(Triggered")[0].strip()
+                           for w in said)
+            out[backend.name.lower()] = ("refused: " + str(err)[:80] + " "
+                                         + why[:600])
+        del leaves
+        torch.cuda.empty_cache()
+    return out
+
+
 def _attention_backward_case(name, b, h, hkv, s, d, causal, dtype, gen,
-                             main=False) -> dict:
+                             main=False, bitwise=False,
+                             backends=False) -> dict:
     """The training route at one shape: the forward with the rows'
     log-sum-exp against the plain forward, then the backward against the
     plain backward, which takes the plain forward's o and lse (nothing the
     kernels made). Inputs in the model's layout, (b, s, heads, d), handed
     over as transposed views. ``main``: three calls must agree bitwise; the
     plain version is timed eagerly (its temporaries are gigabytes).
+    ``bitwise``: the three calls at another case too. ``backends``:
+    autograd's backward through each fused SDPA backend alone
+    (``_sdpa_backends``).
     ``library_ms``: autograd's backward of one
     ``F.scaled_dot_product_attention`` (GQA by ``enable_gqa``), and
     ``kernel_trace_ms`` the backward kernels, both as torch.profiler's sum
@@ -726,7 +802,7 @@ def _attention_backward_case(name, b, h, hkv, s, d, causal, dtype, gen,
     errs = _scaled_errors(got, want)
     tol = BWD_TOL["flash_attention_backward"][dtype]
     extra = {}
-    if main:
+    if main or bitwise:
         extra["bitwise_equal_calls"] = _bitwise_repeats(
             lambda: flash_attention_backward_cuda(q, k, v, out, lse, do,
                                                   causal), got)
@@ -773,6 +849,8 @@ def _attention_backward_case(name, b, h, hkv, s, d, causal, dtype, gen,
     library = trace_ms(lambda o, g: torch.autograd.grad(
         o, leaves, g, retain_graph=True), [(lib_out, do)])
     del lib_out, leaves
+    if backends:
+        extra["library_by_backend_ms"] = _sdpa_backends(q, k, v, do, causal)
     return {
         "kernel": "flash_attention_backward", "case": name,
         "shape": {"b": b, "h": h, "hkv": hkv, "s": s, "d": d,
@@ -882,7 +960,9 @@ def _backward_cases() -> list:
     """The training route's kernels. Attention: smollm-135m's layer at the
     train_lm phase's shape (the main case), a chatglm3-6b-like layer (d 128,
     32 heads over 2), a ragged tile, a non-causal one, and the reduced
-    configs' layer at launch.train's default batch (d 16). RMSNorm: the
+    configs' layer at launch.train's default batch (d 16); zamba2's shared
+    block at head_dim 160 (its training layer, a ragged tile, a GQA group
+    not causal). RMSNorm: the
     train_lm phase's rows (8 x 2048 of 576, the main case), ragged rows,
     few wide rows, a chatglm3-6b/minitron-8b-width training layer (the
     same 8 x 2048 rows of 4096) and rows that are not a whole number of
@@ -911,6 +991,24 @@ def _backward_cases() -> list:
     for dtype in (torch.float32, torch.bfloat16):
         cases.append(_rmsnorm_backward_case((LM_BATCH * LM_SEQ, 4096), dtype,
                                             gen_wide))
+        torch.cuda.empty_cache()
+    # zamba2's head dim 160, from a stream of its own too: its training
+    # layer (the train_zamba phase's shared block, the d 160 main case, with
+    # each fused SDPA backend alone beside it), a ragged tile and a GQA
+    # group not causal; each three calls bitwise equal
+    gen_160 = torch.Generator(device=DEVICE).manual_seed(6)
+    cfg = get_config(ZAMBA_ARCH)
+    for dtype in (torch.float32, torch.bfloat16):
+        cases.append(_attention_backward_case(
+            "zamba2 train d=160", ZAMBA_BATCH, cfg.num_heads,
+            cfg.num_kv_heads, ZAMBA_SEQ, cfg.resolved_head_dim, True, dtype,
+            gen_160, main=True, backends=True))
+        cases.append(_attention_backward_case(
+            "ragged s=37, d=160", 1, 4, 4, 37, 160, True, dtype, gen_160,
+            bitwise=True))
+        cases.append(_attention_backward_case(
+            "GQA non-causal s=130, d=160", 2, 8, 2, 130, 160, False, dtype,
+            gen_160, bitwise=True))
         torch.cuda.empty_cache()
     return cases
 
@@ -1453,8 +1551,9 @@ def phase_repeats() -> list:
     forward with the log-sum-exp and of its backward at the train_lm layer
     and at the chatglm3-like layer (the backward's group split over 16
     blocks), of the RMSNorm backward at the train_lm rows and of the SSD
-    scan backward at the train_mamba layer, fp32 and bf16; each call's bits
-    against the first call's. Any difference fails the phase."""
+    scan backward at the train_mamba layer, fp32 and bf16, and of the
+    attention both ways at the train_zamba layer (head_dim 160), fp32; each
+    call's bits against the first call's. Any difference fails the phase."""
     gen = torch.Generator(device=DEVICE).manual_seed(7)
     cases = []
     for dtype in (torch.float32, torch.bfloat16):
@@ -1514,6 +1613,29 @@ def phase_repeats() -> list:
                 lambda: ssd_module.ssd_scan_backward_cuda(
                     x, dt, A, B, C, dy, None, *saved, chunk))})
         del x, dy, B, C, saved
+    # attention at zamba2's training layer (head_dim 160), fp32, from a
+    # stream of its own as well
+    gen_160 = torch.Generator(device=DEVICE).manual_seed(9)
+    cfg = get_config(ZAMBA_ARCH)
+    b, s, h, hkv, d = (ZAMBA_BATCH, ZAMBA_SEQ, cfg.num_heads,
+                       cfg.num_kv_heads, cfg.resolved_head_dim)
+    q, k, v, do = (torch.randn((b, s, heads, d), generator=gen_160,
+                               device=DEVICE).transpose(1, 2)
+                   for heads in (h, hkv, hkv, h))
+    out, lse = flash_attention_lse_cuda(q, k, v, True)
+    shape = {"b": b, "h": h, "hkv": hkv, "s": s, "d": d,
+             "splits": flash_attention_backward_plan(b, h, hkv, s, d)[0]}
+    for kernel, fn in (
+            ("flash_attention_forward_lse",
+             lambda: flash_attention_lse_cuda(q, k, v, True)),
+            ("flash_attention_backward",
+             lambda: flash_attention_backward_cuda(q, k, v, out, lse, do,
+                                                   True))):
+        cases.append({"kernel": kernel, "case": "zamba2 train d=160",
+                      "shape": shape, "dtype": "float32",
+                      "calls": REPEAT_CALLS,
+                      "differing": _differing_calls(fn)})
+    del q, k, v, do, out, lse
     torch.cuda.empty_cache()
     failed = [c for c in cases if c["differing"]]
     emit("repeats", cases=cases, failed=len(failed))
@@ -2223,9 +2345,8 @@ def _lm_counts() -> dict:
 
 
 def _mamba_counts() -> dict:
-    return {"rmsnorm": ops.rmsnorm.launches,
-            "rmsnorm_backward": ops.rmsnorm.backward_launches,
-            "ssd_scan": ops.ssd_scan.launches,
+    """mamba2's and zamba2's kernels (attention: zamba2's shared block)."""
+    return {**_lm_counts(), "ssd_scan": ops.ssd_scan.launches,
             "ssd_scan_backward": ops.ssd_scan.backward_launches}
 
 
@@ -2263,14 +2384,14 @@ def _traced(by_name: list, kernel: str) -> dict:
                                       for e in rows) / 1e3}
 
 
-def _lm_backward_plan(cfg, launches: dict, steps: int,
-                      by_name: list) -> dict:
-    """The attention backward's plan at the train_lm layer, the device
-    kernels its counted calls launched, reckoned from the plan, and the
-    ``bwd_*`` kernels a profiled step launched, with their device ms."""
+def _lm_backward_plan(cfg, launches: dict, steps: int, by_name: list,
+                      batch: int = LM_BATCH, seq: int = LM_SEQ) -> dict:
+    """The attention backward's plan at a training layer (train_lm's by
+    default), the device kernels its counted calls launched, reckoned from
+    the plan, and the ``bwd_*`` kernels a profiled step launched, with
+    their device ms."""
     splits, per_call, scratch = flash_attention_backward_plan(
-        LM_BATCH, cfg.num_heads, cfg.num_kv_heads, LM_SEQ,
-        cfg.resolved_head_dim)
+        batch, cfg.num_heads, cfg.num_kv_heads, seq, cfg.resolved_head_dim)
     calls = launches["flash_attention_backward"]
     return {"splits": splits, "kernels_per_call": per_call,
             "scratch_bytes": scratch, "kernels": calls * per_call,
@@ -2553,18 +2674,30 @@ def phase_train_lm_check() -> None:
 
 
 # ------------------------------------------------------------------------- #
-# mamba2 training
+# mamba2 and zamba2 training
 # ------------------------------------------------------------------------- #
+
+def _shared_block_calls(cfg) -> int:
+    """Calls of zamba2's shared attention block in a pass (0 for mamba2)."""
+    return cfg.num_layers // cfg.hybrid.attn_every if (
+        cfg.family == "hybrid") else 0
+
 
 def _expected_mamba_launches(cfg, remat: str, steps: int) -> dict:
     """Each kernel's calls in ``steps`` training steps of one microbatch: a
     layer runs the scan once and RMSNorm twice (``ln`` and the gated
-    ``norm_g``), the final norm once, each forward with one backward; a
-    policy that recomputes the layers runs their forwards again."""
-    layers = cfg.num_layers
+    ``norm_g``); zamba2's shared block, once after every ``attn_every``
+    layers, attention once and RMSNorm twice (``ln`` on concat(h, emb0),
+    ``ln_ffn``); the final norm once; each forward with one backward. A
+    policy that recomputes the layers runs their forwards again (a group's
+    layers and its call of the shared block)."""
+    layers, calls = cfg.num_layers, _shared_block_calls(cfg)
     again = 1 if remat == "none" else 2
-    return {"rmsnorm": (again * 2 * layers + 1) * steps,
-            "rmsnorm_backward": (2 * layers + 1) * steps,
+    norms = 2 * layers + 2 * calls
+    return {"flash_attention": again * calls * steps,
+            "flash_attention_backward": calls * steps,
+            "rmsnorm": (again * norms + 1) * steps,
+            "rmsnorm_backward": (norms + 1) * steps,
             "ssd_scan": again * layers * steps,
             "ssd_scan_backward": layers * steps}
 
@@ -2572,42 +2705,56 @@ def _expected_mamba_launches(cfg, remat: str, steps: int) -> dict:
 def _mamba_memory_reckoned(cfg, plan, batch: int, seq: int) -> dict:
     """Bytes reckoned from the shapes, fp32: the plan's estimate; the
     parameters, gradients, m, v and master copy; the projections the
-    "dots" policy keeps (z, x, B, C, dt and the out projection, a layer);
-    each layer's input, kept by the checkpoint; the logits and their
-    gradient; the SSD backward's scratch of one layer (the chunks' dS, cs's
-    terms, the chunks' sums, the plan's dB/dC partials)."""
+    "dots" policy keeps (z, x, B, C, dt and the out projection, a layer;
+    of each call of zamba2's shared block q, k, v, the attention's output
+    projection, the FFN's two gated inputs and its output); each remat
+    group's input, kept by the checkpoint (a group is one layer of mamba2,
+    six layers and the shared block of zamba2, which keeps the embedding
+    too); the logits and their gradient; the sum of those activations; the
+    SSD backward's scratch of one layer (the chunks' dS, cs's terms, the
+    chunks' sums, the plan's dB/dC partials)."""
     tokens = batch * seq
     ssm, layers = cfg.ssm, cfg.num_layers
+    calls = _shared_block_calls(cfg)
     gn = ssm.ngroups * ssm.state_dim
     per_layer = 2 * cfg.d_inner + 2 * gn + cfg.ssm_heads + cfg.d_model
+    per_call = ((cfg.num_heads + 2 * cfg.num_kv_heads) * cfg.resolved_head_dim
+                + 2 * cfg.d_model + 2 * cfg.d_ff)
+    inputs = calls + 1 if calls else layers
     q = min(ssm.chunk_size, seq)
     nc, qp = -(-seq // q), -(-q // ssd_module.TILE) * ssd_module.TILE
     heads_state = batch * cfg.ssm_heads * ssm.head_dim * ssm.state_dim
     partials = ssd_module.ssd_scan_backward_plan(
         batch, seq, cfg.ssm_heads, ssm.ngroups, ssm.state_dim,
         ssm.chunk_size)[2]
-    return {"plan_est_bytes_per_chip": plan.est_bytes_per_chip,
-            "state_bytes": 5 * 4 * cfg.param_count(),
-            "dots_saved_bytes": layers * tokens * per_layer * 4,
-            "layer_inputs_bytes": layers * tokens * cfg.d_model * 4,
-            "logits_and_grad_bytes": 2 * tokens * cfg.padded_vocab * 4,
-            "ssd_backward_scratch_bytes": 4 * (
-                nc * heads_state + batch * cfg.ssm_heads * nc * (3 * qp + 2))
-            + partials}
+    out = {"plan_est_bytes_per_chip": plan.est_bytes_per_chip,
+           "state_bytes": 5 * 4 * cfg.param_count(),
+           "dots_saved_bytes": layers * tokens * per_layer * 4,
+           "shared_block_dots_saved_bytes": calls * tokens * per_call * 4,
+           "layer_inputs_bytes": inputs * tokens * cfg.d_model * 4,
+           "logits_and_grad_bytes": 2 * tokens * cfg.padded_vocab * 4,
+           "ssd_backward_scratch_bytes": 4 * (
+               nc * heads_state + batch * cfg.ssm_heads * nc * (3 * qp + 2))
+           + partials}
+    out["activations_reckoned_bytes"] = sum(
+        out[k] for k in ("dots_saved_bytes", "shared_block_dots_saved_bytes",
+                         "layer_inputs_bytes", "logits_and_grad_bytes"))
+    return out
 
 
-def phase_train_mamba() -> dict:
-    """Full-width, full-depth mamba2-780m in fp32 through the training
-    entry point's objects: MAMBA_WARMUP + MAMBA_STEPS steps (the first
-    MAMBA_WARMUP not timed), each step read back once by the trainer, then
-    MAMBA_PROFILED more under torch.profiler."""
+def _train_mamba_family(phase: str, arch: str, batch: int, seq: int,
+                        warmup: int, timed: int, profiled: int) -> dict:
+    """Full-width, full-depth ``arch`` (mamba2 or zamba2) in fp32 through
+    the training entry point's objects: ``warmup`` + ``timed`` steps (the
+    first ``warmup`` not timed), each step read back once by the trainer,
+    then ``profiled`` more under torch.profiler. Emits ``phase``'s line and
+    returns the launches of the counted steps."""
     from torch.profiler import ProfilerActivity, profile
-    cfg = get_config(MAMBA_ARCH)
+    cfg = get_config(arch)
     plan = plan_memory(cfg, tp=1, dp=1)
-    steps = MAMBA_WARMUP + MAMBA_STEPS
-    ocfg = AdamWConfig(lr=LM_LR, warmup_steps=MAMBA_WARMUP,
-                       total_steps=steps, state_dtype=plan.opt_dtype,
-                       use_master=plan.use_master)
+    steps = warmup + timed
+    ocfg = AdamWConfig(lr=LM_LR, warmup_steps=warmup, total_steps=steps,
+                       state_dtype=plan.opt_dtype, use_master=plan.use_master)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     state = init_train_state(cfg, plan,
@@ -2615,10 +2762,10 @@ def phase_train_mamba() -> dict:
                              ocfg, dtype=torch.float32, device=DEVICE)
     torch.cuda.synchronize()
     init_seconds = time.perf_counter() - t0
+    state_bytes = torch.cuda.memory_allocated()
     n_params = sum(p.numel() for p in state["params"].values())
-    data = DataIterator(DataConfig(vocab_size=cfg.vocab_size,
-                                   seq_len=MAMBA_SEQ,
-                                   global_batch=MAMBA_BATCH, seed=0),
+    data = DataIterator(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                                   global_batch=batch, seed=0),
                         device=DEVICE)
     trainer = Trainer(make_train_step(cfg, plan, ocfg), state, data,
                       TrainerConfig(total_steps=steps, log_interval=1, seed=0))
@@ -2631,16 +2778,16 @@ def phase_train_mamba() -> dict:
     peak_bytes = torch.cuda.max_memory_allocated()
     losses = [row["loss"] for row in trainer.metrics_log]
 
-    trainer.cfg.total_steps = steps + MAMBA_PROFILED
+    trainer.cfg.total_steps = steps + profiled
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         trainer.run()
         torch.cuda.synchronize()
-    device_us, device_launches, by_name = _device_time(prof, MAMBA_PROFILED,
-                                                       "step")
+    device_us, device_launches, by_name = _device_time(prof, profiled, "step")
 
-    step_ms = [t * 1e3 for t in trainer.step_times[MAMBA_WARMUP:steps]]
+    step_ms = [t * 1e3 for t in trainer.step_times[warmup:steps]]
     timed_s = sum(step_ms) / 1e3
     median_ms = float(np.median(step_ms))
+    calls = _shared_block_calls(cfg)
     problems = []
     if not all(math.isfinite(x) for x in losses):
         problems.append(f"a loss is not finite: {losses}")
@@ -2649,7 +2796,8 @@ def phase_train_mamba() -> dict:
     expected = _expected_mamba_launches(cfg, plan.remat, steps)
     if launches != expected:
         problems.append(f"launches {launches} != {expected}, reckoned from "
-                        f"{cfg.num_layers} layers and remat {plan.remat!r}")
+                        f"{cfg.num_layers} layers, {calls} calls of a shared "
+                        f"block and remat {plan.remat!r}")
     per_step = {k: v / steps for k, v in launches.items()}
     traces = {
         "ssd_scan_backward": {
@@ -2665,6 +2813,14 @@ def phase_train_mamba() -> dict:
             "kernels_per_step": per_step["rmsnorm_backward"]
             * rms_module.BACKWARD_KERNELS_PER_CALL,
             **_traced(by_name, r"rmsnorm_(bwd_rows|dgamma)_kernel")}}
+    if calls:
+        # the shared block's attention: its backward's kernels as its plan
+        # reckons them, and one fp32 training forward a counted call
+        traces["flash_attention_backward"] = _lm_backward_plan(
+            cfg, launches, steps, by_name, batch, seq)
+        traces["flash_attention"] = {
+            "kernels_per_step": per_step["flash_attention"],
+            **_traced(by_name, "flash_tf32_kernel")}
     for what, got in traces.items():
         if (device_us and got["kernels_traced_per_step"]
                 != got["kernels_per_step"]):
@@ -2677,43 +2833,70 @@ def phase_train_mamba() -> dict:
         "params": n_params, "dtype": "float32",
         "plan": {"remat": plan.remat, "microbatches": plan.microbatches,
                  "opt_dtype": plan.opt_dtype, "use_master": plan.use_master,
-                 "zero_stage": plan.zero_stage},
-        "optimizer": {"lr": LM_LR, "warmup_steps": MAMBA_WARMUP,
+                 "zero_stage": plan.zero_stage,
+                 "est_bytes_per_chip": plan.est_bytes_per_chip},
+        "optimizer": {"lr": LM_LR, "warmup_steps": warmup,
                       "total_steps": steps},
-        "global_batch": MAMBA_BATCH, "seq_len": MAMBA_SEQ,
-        "warmup_steps_untimed": MAMBA_WARMUP, "timed_steps": MAMBA_STEPS,
+        "global_batch": batch, "seq_len": seq,
+        "warmup_steps_untimed": warmup, "timed_steps": timed,
         "losses": losses, "loss_first": losses[0], "loss_last": losses[-1],
         "step_ms": step_ms, "step_ms_median": median_ms,
         "step_ms_mean": float(np.mean(step_ms)),
-        "tokens_per_s": MAMBA_BATCH * MAMBA_SEQ * MAMBA_STEPS / timed_s,
+        "tokens_per_s": batch * seq * timed / timed_s,
         "straggler_steps": summary["straggler_steps"],
         "launches": launches, "launches_per_step": per_step,
         "traces": traces, "peak_memory_bytes": peak_bytes,
-        "memory_reckoned": _mamba_memory_reckoned(cfg, plan, MAMBA_BATCH,
-                                                  MAMBA_SEQ),
+        "state_bytes_allocated": state_bytes,
+        "memory_reckoned": _mamba_memory_reckoned(cfg, plan, batch, seq),
         "init_seconds": init_seconds, "problems": problems,
     }
+    if calls:
+        result.update(attn_every=cfg.hybrid.attn_every,
+                      shared_block_calls=calls,
+                      attention={"heads": cfg.num_heads,
+                                 "kv_heads": cfg.num_kv_heads,
+                                 "head_dim": cfg.resolved_head_dim})
     if device_us:
-        device_ms = device_us / 1e3 / MAMBA_PROFILED
+        device_ms = device_us / 1e3 / profiled
         result.update(
             device_ms_per_step=device_ms,
             device_idle_share=1.0 - device_ms / median_ms,
-            ssd_backward_share_of_device=(
-                traces["ssd_scan_backward"]["device_ms_per_step"]
-                / device_ms),
-            ssd_forward_share_of_device=(
-                traces["ssd_scan"]["device_ms_per_step"] / device_ms),
-            device_launches_per_step=device_launches / MAMBA_PROFILED,
+            **{f"{what}_share_of_device":
+               traces[kernel]["device_ms_per_step"] / device_ms
+               for what, kernel in (
+                   ("ssd_backward", "ssd_scan_backward"),
+                   ("ssd_forward", "ssd_scan"),
+                   ("attention_backward", "flash_attention_backward"),
+                   ("attention_forward", "flash_attention"))
+               if kernel in traces},
+            device_launches_per_step=device_launches / profiled,
             top_device_time=by_name[:14])
     else:
         result.update(device_idle_share="not measured",
                       reason="torch.profiler reported no device time")
-    emit("train_mamba", **result)
+    emit(phase, **result)
     if problems:
-        raise SystemExit(f"chip_smoke: train_mamba phase failed: {problems}")
+        raise SystemExit(f"chip_smoke: {phase} phase failed: {problems}")
     del trainer, state, data, prof
     torch.cuda.empty_cache()
     return launches
+
+
+def phase_train_mamba() -> dict:
+    """Full-width, full-depth mamba2-780m: MAMBA_WARMUP + MAMBA_STEPS steps,
+    then MAMBA_PROFILED under torch.profiler (``_train_mamba_family``)."""
+    return _train_mamba_family("train_mamba", MAMBA_ARCH, MAMBA_BATCH,
+                               MAMBA_SEQ, MAMBA_WARMUP, MAMBA_STEPS,
+                               MAMBA_PROFILED)
+
+
+def phase_train_zamba() -> dict:
+    """Full-width, full-depth zamba2-2.7b (the shared block's attention at
+    32 heads of 160 on the training route): ZAMBA_WARMUP + ZAMBA_STEPS
+    steps, then ZAMBA_PROFILED under torch.profiler."""
+    return _train_mamba_family("train_zamba", ZAMBA_ARCH, ZAMBA_BATCH,
+                               ZAMBA_SEQ, ZAMBA_WARMUP, ZAMBA_STEPS,
+                               ZAMBA_PROFILED)
 
 
 def _ssd_scan_float64(x, dt, A, B, C, chunk):
@@ -2724,37 +2907,55 @@ def _ssd_scan_float64(x, dt, A, B, C, chunk):
     return y.to(x.dtype), state.float()
 
 
-def phase_train_mamba_check() -> None:
-    """fp32: one step of MAMBA_CHECK_LAYERS full-width mamba2 layers through
-    the kernels, one through the plain versions with the scan computed in
-    float64 (the yardstick), and one through the plain versions in fp32,
-    each from a fresh model drawn from seed 0. The gradients of A_log and
-    dt_bias sum the scan's cotangents of dA and dt over every position, on
-    fp32 cumsums (|cs| up to Q |dt A|, some thousands), and the closed form
-    the kernels compute rounds those sums further from a float64 scan than
-    autograd through the plain scan does. So each leaf of the kernel route
-    is held to the yardstick within 1e-4 of its largest, or within twice
-    what the fp32 plain route misses it by, whichever is larger."""
-    cfg = dataclasses.replace(get_config(MAMBA_ARCH),
-                              num_layers=MAMBA_CHECK_LAYERS)
+def _mamba_family_check(phase: str, cfg, batch: int, seq: int) -> None:
+    """fp32: one step of ``cfg`` through the kernels, one through the plain
+    versions with the scan computed in float64 (the yardstick), and one
+    through the plain versions in fp32, each from a fresh model drawn from
+    seed 0. The gradients of A_log and dt_bias sum the scan's cotangents of
+    dA and dt over every position, on fp32 cumsums (|cs| up to Q |dt A|,
+    some thousands), and the closed form the kernels compute rounds those
+    sums further from a float64 scan than autograd through the plain scan
+    does. So each leaf of the kernel route is held to the yardstick within
+    1e-4 of its largest, or within twice what the fp32 plain route misses
+    it by, whichever is larger."""
     kernel, wide, plain = (
-        _one_step(cfg, torch.float32, MAMBA_CHECK_BATCH, MAMBA_CHECK_SEQ,
-                  routes, _mamba_counts)
-        for routes in ({}, {"ssd_scan": _ssd_scan_float64,
-                            "rmsnorm": rmsnorm_plain},
-                       {"ssd_scan": ssd_scan_plain,
-                        "rmsnorm": rmsnorm_plain}))
+        _one_step(cfg, torch.float32, batch, seq, routes, _mamba_counts)
+        for routes in ({}, *({"ssd_scan": scan, "rmsnorm": rmsnorm_plain,
+                              "flash_attention": flash_attention_plain}
+                             for scan in (_ssd_scan_float64,
+                                          ssd_scan_plain))))
     problems = []
     expected = _expected_mamba_launches(cfg, kernel["remat"], 1)
     if kernel["launches"] != expected:
         problems.append(f"launches {kernel['launches']} != {expected}")
     report = _check_against_plain(kernel, wide, MAMBA_CHECK_TOL, "float32",
                                   problems, fp32_route=plain)
-    emit("train_mamba_check", arch=MAMBA_ARCH, layers=MAMBA_CHECK_LAYERS,
-         batch=MAMBA_CHECK_BATCH, seq_len=MAMBA_CHECK_SEQ, float32=report,
-         problems=problems)
+    hybrid = ({"attn_every": cfg.hybrid.attn_every}
+              if _shared_block_calls(cfg) else {})
+    emit(phase, arch=cfg.arch_id, layers=cfg.num_layers, **hybrid,
+         batch=batch, seq_len=seq, float32=report, problems=problems)
     if problems:
-        raise SystemExit(f"chip_smoke: train_mamba_check failed: {problems}")
+        raise SystemExit(f"chip_smoke: {phase} failed: {problems}")
+
+
+def phase_train_mamba_check() -> None:
+    """MAMBA_CHECK_LAYERS full-width mamba2 layers (``_mamba_family_check``)."""
+    _mamba_family_check(
+        "train_mamba_check", dataclasses.replace(
+            get_config(MAMBA_ARCH), num_layers=MAMBA_CHECK_LAYERS),
+        MAMBA_CHECK_BATCH, MAMBA_CHECK_SEQ)
+
+
+def phase_train_zamba_check() -> None:
+    """ZAMBA_CHECK_LAYERS full-width zamba2 layers with the shared block
+    (its attention at 32 heads of 160) after every ZAMBA_CHECK_EVERY
+    (``_mamba_family_check``)."""
+    base = get_config(ZAMBA_ARCH)
+    _mamba_family_check(
+        "train_zamba_check", dataclasses.replace(
+            base, num_layers=ZAMBA_CHECK_LAYERS, hybrid=dataclasses.replace(
+                base.hybrid, attn_every=ZAMBA_CHECK_EVERY)),
+        ZAMBA_CHECK_BATCH, ZAMBA_CHECK_SEQ)
 
 
 # ------------------------------------------------------------------------- #
@@ -4037,7 +4238,9 @@ def kernels_line(cases: list, launches_by_path: dict, repeats: list) -> dict:
     training step; the attention and RMSNorm backwards: the fp32 train_lm
     step's layer, with bf16 beside it); attention also carries the bf16
     1024-token prefill under ``prefill`` and the train_lm forward (with the
-    log-sum-exp) under ``train_forward_with_lse``, the embedding bag the
+    log-sum-exp) under ``train_forward_with_lse`` (train_zamba's at head_dim
+    160 under ``train_forward_with_lse_d160``), its backward the head_dim
+    160 cases under ``head_dim_160``, the embedding bag the
     same step at Zipf indices under ``zipf``; the two backwards their
     repeats phase's counts under ``repeat_check``. The other shapes' times
     are in the ``kernels`` phase's line."""
@@ -4094,6 +4297,19 @@ def kernels_line(cases: list, launches_by_path: dict, repeats: list) -> dict:
             entries[-1]["replaces_note"] = (
                 "no Pallas backward: the gradient of the kernel named; "
                 "jax.grad of the reference model is the oracle")
+            if name == "flash_attention_backward":
+                # zamba2's head dim 160 (train_zamba's layer, the ragged and
+                # GQA cases), both types
+                entries[-1]["head_dim_160"] = [
+                    {k: c[k] for k in (
+                        "case", "shape", "dtype", "kernel_ms",
+                        "kernel_trace_ms", "plain_ms", "library_ms",
+                        "library_backend", "library_by_backend_ms",
+                        "bound_ms", "bound_by", "bound_fp32_pipes_ms",
+                        "max_abs_err", "lse_max_abs_err",
+                        "bitwise_equal_calls", "kernels_per_call")
+                     if k in c}
+                    for c in mine if c["shape"]["d"] == 160]
             bf16 = next(c for c in mine if c["dtype"] == "bfloat16"
                         and c.get("case") == main_case.get("case")
                         and c["shape"] == main_case["shape"])
@@ -4144,6 +4360,22 @@ def kernels_line(cases: list, launches_by_path: dict, repeats: list) -> dict:
                 "out_max_abs_err": train["forward_out_max_abs_err"],
                 "lse_max_abs_err": train["lse_max_abs_err"],
                 "bitwise_equal_calls": train["forward_bitwise_equal_calls"]}
+            # the same at train_zamba's layer (head_dim 160), both types
+            entries[-1]["train_forward_with_lse_d160"] = [
+                {"dtype": c["dtype"],
+                 "kernel": ("flash_tf32_kernel" if c["dtype"] == "float32"
+                            else "flash_mma_kernel"),
+                 "ms": c["forward_lse_ms"],
+                 "bound_ms": c["forward_lse_bound_ms"],
+                 "library_ms": c["forward_library_ms"],
+                 "library_backend": c["forward_library_backend"],
+                 "plain_ms": c["forward_plain_ms"],
+                 "out_max_abs_err": c["forward_out_max_abs_err"],
+                 "lse_max_abs_err": c["lse_max_abs_err"],
+                 "lse_tol": c["lse_tol"],
+                 "bitwise_equal_calls": c["forward_bitwise_equal_calls"]}
+                for c in cases if c["kernel"] == "flash_attention_backward"
+                and c["case"] == "zamba2 train d=160"]
     return {"kernels": entries}
 
 
@@ -4173,6 +4405,8 @@ def main() -> int:
     phase_train_lm_check()
     launches["train_mamba"] = phase_train_mamba()
     phase_train_mamba_check()
+    launches["train_zamba"] = phase_train_zamba()
+    phase_train_zamba_check()
     phase_checkpoint()
     launches["parallel"] = phase_parallel()
     phase_parallel_gloo()

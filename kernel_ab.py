@@ -432,6 +432,19 @@ def main() -> int:
                       dtype, gen, q_offset=rs_attn.randint(0, 2048, size=8).tolist())
             attn_case(libs, "decode 8 rows x group 16, d=128", 2, 32, 2, 8, 300, 128, True,
                       dtype, gen, q_offset=[100, 292])
+        # zamba2's shared block at head_dim 160: serving's prefill and decode
+        # tick, and the training forward with the log-sum-exp at train_zamba's
+        # layer, from a stream of their own
+        gen_160 = torch.Generator(device="cuda").manual_seed(8)
+        rs_160 = np.random.RandomState(8)
+        for dtype in (torch.float32, torch.bfloat16):
+            attn_case(libs, "zamba2 prefill s=1024, d=160", 1, 32, 32, 1024, 1024, 160, True,
+                      dtype, gen_160)
+            attn_case(libs, "zamba2 decode tick, d=160", 8, 32, 32, 1, 2048, 160, True, dtype,
+                      gen_160, q_offset=rs_160.randint(0, 2048, size=8).tolist())
+            attn_forward_lse_case(libs, "zamba2 train d=160", cs.ZAMBA_BATCH, 32, 32,
+                                  cs.ZAMBA_SEQ, 160, dtype, gen_160)
+            torch.cuda.empty_cache()
         # chip_smoke.py's SSD cases, from their own stream
         gen_mamba = torch.Generator(device="cuda").manual_seed(1)
         for dtype in (torch.float32, torch.bfloat16):

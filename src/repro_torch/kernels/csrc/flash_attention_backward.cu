@@ -73,6 +73,23 @@
 // bytes a head or the determinism. At d 128 a streamed tile is 32 rows (the
 // dK and dV accumulators take 128 registers a thread), and fp32 at d 128 has
 // a ring of one stage, so two blocks fit an SM.
+//
+// Head dim 160 (zamba2's shared attention block: 32 heads of 160) has tiles
+// of its own (`bwd_rows`, `bwd_stages`; the forward keeps `tile_rows`):
+//  * registers: a warp's dK and dV over its 16 keys are 2 x 20 n-tiles x 4
+//    = 160 fp32 registers a thread for the whole loop, beside S^T and dP^T
+//    (8 registers for each 8 queries a streamed tile holds) and the TF32
+//    splits. fp32 streams 16 queries a tile, bf16 32. The fp32 dK/dV
+//    kernel still takes all 255 registers and spills 8 bytes (48 at 32
+//    queries; d 128 spills 92).
+//  * shared memory: an fp32 row is 164 floats (656 bytes); two stages of 64
+//    rows of Q and dO beside the 64 keys' K and V would take 251,904 bytes,
+//    over a block's 232,448. fp32 streams 16 rows in one stage: 105,088
+//    bytes a dK/dV block and 104,960 a dQ block, so two blocks share an SM,
+//    as at d 128; bf16 32 rows in two stages, 86,528 and 86,016.
+//    (`attn_bwd_variants.py` times these against other rows and stages.)
+//  * D's row of 40 (fp32) or 20 (bf16) 16-byte chunks is not a power of two
+//    of lanes: 8 or 4 lanes take 5 chunks each, in order.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -112,11 +129,20 @@ struct BwdParams {
   int causal;
 };
 
-// (a) D = rowsum(dO * O) in fp32 for the rows of (b, h, sq): 16 bytes of a
-// row a lane, L lanes a row, summed by shuffles in a fixed order.
+// (a) D = rowsum(dO * O) in fp32 for the rows of (b, h, sq): a row's 16-byte
+// chunks over L lanes, the largest power of two up to 32 that divides them
+// (one chunk a lane but at d 160), each lane summing its chunks in order,
+// then the lanes by shuffles in a fixed order.
+template <typename T, int D>
+__host__ __device__ constexpr int delta_chunks() {
+  return D * (int)sizeof(T) / 16;
+}
+
 template <typename T, int D>
 __host__ __device__ constexpr int delta_lanes() {
-  return D * (int)sizeof(T) / 16;
+  int l = 32;
+  while (delta_chunks<T, D>() % l) l >>= 1;
+  return l;
 }
 
 __device__ __forceinline__ float dot16(const float* o, const float* g) {
@@ -141,16 +167,21 @@ __device__ __forceinline__ float dot16(const __nv_bfloat16* o, const __nv_bfloat
 template <typename T, int D>
 __global__ void __launch_bounds__(256) bwd_delta_kernel(BwdParams p) {
   constexpr int L = delta_lanes<T, D>();
+  constexpr int PER = 16 / (int)sizeof(T);  // values a chunk
+  constexpr int N = delta_chunks<T, D>() / L;
   const long long row = ((long long)blockIdx.x * 256 + threadIdx.x) / L;
-  const int c = (threadIdx.x % L) * (16 / (int)sizeof(T));
+  const int c = (threadIdx.x % L) * PER;
   const bool in = row < (long long)p.b * p.h * p.sq;
   float acc = 0.f;
   if (in) {
     const int qi = (int)(row % p.sq);
     const int hi = (int)((row / p.sq) % p.h);
     const int bi = (int)(row / ((long long)p.sq * p.h));
-    acc = dot16(static_cast<const T*>(p.o) + bi * p.o_sb + hi * p.o_sh + qi * p.o_ss + c,
-                static_cast<const T*>(p.dout) + bi * p.do_sb + hi * p.do_sh + qi * p.do_ss + c);
+    const T* o = static_cast<const T*>(p.o) + bi * p.o_sb + hi * p.o_sh + qi * p.o_ss + c;
+    const T* g = static_cast<const T*>(p.dout) + bi * p.do_sb + hi * p.do_sh + qi * p.do_ss + c;
+    acc = dot16(o, g);
+#pragma unroll
+    for (int i = 1; i < N; ++i) acc += dot16(o + i * L * PER, g + i * L * PER);
   }
 #pragma unroll
   for (int off = L / 2; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
@@ -207,10 +238,28 @@ __device__ __forceinline__ void dq_grads(const float (&s)[NK][4], float (&dp)[NK
     }
 }
 
+// The streamed tiles' rows and the rings' stages at d 160, fp32 and bf16
+// (the header's note on d 160); the other head dims take the forward's tile
+// and `ring_stages`.
+constexpr int kF32Rows160 = 16;
+constexpr int kF32Stages160 = 1;
+constexpr int kBf16Rows160 = 32;
+constexpr int kBf16Stages160 = 2;
+
+template <typename T, int D>
+__host__ __device__ constexpr int bwd_rows() {
+  return D != 160 ? tile_rows<D>() : kBf16<T> ? kBf16Rows160 : kF32Rows160;
+}
+
+template <typename T, int D>
+__host__ __device__ constexpr int bwd_stages() {
+  return D != 160 ? ring_stages<T, D>() : kBf16<T> ? kBf16Stages160 : kF32Stages160;
+}
+
 template <typename T, int D>
 __host__ __device__ constexpr int dkdv_smem_bytes() {
-  constexpr int BQ = tile_rows<D>();
-  constexpr int ST = ring_stages<T, D>();
+  constexpr int BQ = bwd_rows<T, D>();
+  constexpr int ST = bwd_stages<T, D>();
   return (2 * kRows + ST * 2 * BQ) * pitch<T, D>() * (int)sizeof(T) +
          ST * 2 * BQ * (int)sizeof(float);
 }
@@ -219,9 +268,9 @@ __host__ __device__ constexpr int dkdv_smem_bytes() {
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads, 2) bwd_dkdv_kernel(BwdParams p) {
   constexpr int LD = pitch<T, D>();
-  constexpr int BQ = tile_rows<D>();
+  constexpr int BQ = bwd_rows<T, D>();
   constexpr int NQ = BQ / 8;  // n-tiles of S^T (8 queries each)
-  constexpr int ST = ring_stages<T, D>();
+  constexpr int ST = bwd_stages<T, D>();
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* Ks = reinterpret_cast<T*>(smem_raw);
   T* Vs = Ks + kRows * LD;
@@ -369,16 +418,18 @@ __global__ void __launch_bounds__(256) bwd_sum_kernel(BwdParams p) {
 
 template <typename T, int D>
 __host__ __device__ constexpr int dq_smem_bytes() {
-  return (2 * kRows + ring_stages<T, D>() * 2 * tile_rows<D>()) * pitch<T, D>() * (int)sizeof(T);
+  return (2 * kRows + bwd_stages<T, D>() * 2 * bwd_rows<T, D>()) * pitch<T, D>() * (int)sizeof(T);
 }
 
-// (c) dQ of one 64-row tile of one query head.
+// (c) dQ of one 64-row tile of one query head. Three bf16 blocks an SM up to
+// d 128; at d 160 two fit its shared memory.
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads, kBf16<T> ? 3 : 2) bwd_dq_kernel(BwdParams p) {
+__global__ void __launch_bounds__(kThreads, kBf16<T> && D <= 128 ? 3 : 2)
+    bwd_dq_kernel(BwdParams p) {
   constexpr int LD = pitch<T, D>();
-  constexpr int BN = tile_rows<D>();
+  constexpr int BN = bwd_rows<T, D>();
   constexpr int NK = BN / 8;  // n-tiles of S (8 keys each)
-  constexpr int ST = ring_stages<T, D>();
+  constexpr int ST = bwd_stages<T, D>();
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* Qs = reinterpret_cast<T*>(smem_raw);
   T* Gs = Qs + kRows * LD;    // dO
@@ -511,6 +562,7 @@ cudaError_t launch_d(const BwdParams& p, int d, cudaStream_t stream) {
   if (d == 16) return launch<T, 16>(p, stream);
   if (d == 64) return launch<T, 64>(p, stream);
   if (d == 128) return launch<T, 128>(p, stream);
+  if (d == 160) return launch<T, 160>(p, stream);
   return cudaErrorInvalidValue;
 }
 
@@ -521,8 +573,9 @@ cudaError_t launch_d(const BwdParams& p, int d, cudaStream_t stream) {
 // and delta (scratch) are fp32 (b, h, sq), contiguous. `splits` divides the
 // group h / hkv; when it is above 1, `part` is fp32 scratch of 2 b hkv splits
 // skv d values (16-byte aligned), else it may be null. dtype: 0 = float32, 1 =
-// bfloat16. d: 16, 64 or 128. Three launches on `stream`, four when splits >
-// 1; returns the CUDA error code of the first that failed (0 on success).
+// bfloat16. d: 16, 64, 128 or 160 (zamba2's shared block; its own tiles, see
+// the note at the top). Three launches on `stream`, four when splits > 1;
+// returns the CUDA error code of the first that failed (0 on success).
 extern "C" int repro_flash_attention_backward(
     const void* q, const void* k, const void* v, const void* o, const void* lse,
     const void* dout, void* delta, void* part, void* dq, void* dk, void* dv, int b, int h,

@@ -34,9 +34,8 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # Serving: 160 is zamba2's shared attention block.
 HEAD_DIMS = (64, 128, 160)
 # The training route (the forward with the log-sum-exp and the backward)
-# takes the reduced configs' head_dim 16 too, and not 160 yet (ROADMAP
-# Queue 2: the backward at d 160 comes with zamba2's training).
-TRAIN_HEAD_DIMS = (16, 64, 128)
+# takes the reduced configs' head_dim 16 too.
+TRAIN_HEAD_DIMS = (16, 64, 128, 160)
 NEG_INF = -1e30
 # Decode (sq <= 8): each (batch, KV head) splits its keys over a thread block
 # cluster of one of these sizes (4 unless the caller picks another) whose
@@ -51,6 +50,15 @@ SMEM_PER_BLOCK = 232_448     # the most a block of an H100 may opt in to
 DECODE_TILE = 32             # kDecodeTile
 DM_ROWS, DM_WARPS = 16, 4    # bf16 decode
 DEC_WARPS, DEC_ROWS, DEC_PITCH_PAD = 4, 4, 4     # fp32 decode
+
+# The backward's streamed tiles as csrc/flash_attention_backward.cu sets
+# them: beside a block's own 64 rows (``BACKWARD_KEY_TILE``), the rows of the
+# tiles it streams (queries for dK/dV, keys for dQ) in a ring of stages: the
+# forward's tile (``tile_rows``: 64, 32 at d 128) and ``ring_stages`` (one
+# stage for fp32 at d 128, else two) up to d 128, and at d 160 the
+# backward's own (kF32Rows160, kF32Stages160, kBf16Rows160, kBf16Stages160).
+# A CPU test holds these to the source's.
+BACKWARD_D160_TILE = {torch.float32: (16, 1), torch.bfloat16: (32, 2)}
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -285,6 +293,26 @@ def decode_smem_bytes(d: int, dtype: torch.dtype, group_rows: int,
         own = 4 * (DEC_WARPS * stages * 2 * DECODE_TILE * (d + DEC_PITCH_PAD)
                    + rows * d + DEC_WARPS * rows * DECODE_TILE)
     return own + cluster * slot_floats(rows) * 4
+
+
+def backward_tile(d: int, dtype: torch.dtype) -> Tuple[int, int]:
+    """(rows, stages) of the backward's streamed tiles at head_dim ``d``."""
+    if d == 160:
+        return BACKWARD_D160_TILE[dtype]
+    return (32 if d == 128 else 64,
+            1 if dtype == torch.float32 and d == 128 else 2)
+
+
+def backward_smem_bytes(d: int, dtype: torch.dtype) -> Tuple[int, int]:
+    """Bytes of shared memory a block of the dK/dV kernel and of the dQ
+    kernel takes at head_dim ``d`` (``dkdv_smem_bytes``, ``dq_smem_bytes``):
+    the block's own 64 rows of two inputs and the stages of two streamed
+    tiles, rows padded by 16 bytes; the dK/dV kernel also stages each
+    streamed row's log-sum-exp and D."""
+    rows, stages = backward_tile(d, dtype)
+    row_bytes = d * dtype.itemsize + 16
+    dq = (2 * BACKWARD_KEY_TILE + stages * 2 * rows) * row_bytes
+    return dq + stages * 2 * rows * 4, dq
 
 
 def decode_cluster_fits(d: int, dtype: torch.dtype, group_rows: int,

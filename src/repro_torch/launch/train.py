@@ -8,7 +8,9 @@ plan for one device (``plan_memory(cfg, tp=1, dp=1)``), the reference's
 AdamW settings, the port's data pipeline and trainer. Runs on the GPU,
 through the kernels in both directions (attention and RMSNorm for the
 transformers; the SSD scan and RMSNorm for mamba2, ``--arch mamba2-780m``;
-built at the first launch), and prints their launches at the end;
+all three for zamba2, ``--arch zamba2-2.7b``, whose shared block's
+attention runs at head_dim 160; built at the first launch), and prints
+their launches at the end;
 ``--device cpu`` runs the plain PyTorch path instead, and ``--reduced`` the
 small same-family config. ``--ckpt-dir`` saves every ``--ckpt-interval`` steps and at the end
 (or on SIGTERM/SIGINT) in the JAX package's checkpoint format; ``--resume

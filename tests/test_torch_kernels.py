@@ -319,11 +319,65 @@ def test_forward_shared_memory_at_head_dim_160():
 
 
 def test_flash_attention_head_dims():
-    """Serving takes 160; the training route does not (no backward at 160
-    yet; the ``cuda`` test holds its refusal on the card)."""
+    """Serving takes 64, 128 and 160; the training route (the forward with
+    the log-sum-exp and the backward) takes 160 too, zamba2's shared block,
+    and the reduced configs' 16 (the ``cuda`` tests hold it on the card, and
+    its refusal of a head dim it does not take)."""
     from repro_torch.kernels import flash_attention as fa
     assert fa.HEAD_DIMS == (64, 128, 160)
-    assert 160 not in fa.TRAIN_HEAD_DIMS
+    assert 160 in fa.TRAIN_HEAD_DIMS
+    assert fa.TRAIN_HEAD_DIMS == (16, 64, 128, 160)
+
+
+def _bwd_constants() -> dict:
+    """``constexpr int NAME = value;`` of csrc/flash_attention_backward.cu."""
+    src = (_build.CSRC / "flash_attention_backward.cu").read_text()
+    return {n: int(v) for n, v in
+            re.findall(r"constexpr int (\w+) = (\d+);", src)}
+
+
+def test_backward_tiles_at_head_dim_160_match_the_source():
+    """The d 160 tiles the wrapper reckons with are the source's constants,
+    and the block's own rows are its ``kRows``."""
+    from repro_torch.kernels import flash_attention as fa
+    c = _bwd_constants()
+    assert c["kRows"] == fa.BACKWARD_KEY_TILE == 64
+    assert fa.BACKWARD_D160_TILE == {
+        torch.float32: (c["kF32Rows160"], c["kF32Stages160"]),
+        torch.bfloat16: (c["kBf16Rows160"], c["kBf16Stages160"])}
+    # the forward's tile at the other head dims (attn_warp.cuh)
+    warp = (_build.CSRC / "attn_warp.cuh").read_text()
+    assert "return D == 128 ? 32 : 64;" in warp
+    assert "return sizeof(T) == 4 && D == 128 ? 1 : 2;" in warp
+    assert [fa.backward_tile(d, t) for d in (16, 64, 128)
+            for t in (torch.float32, torch.bfloat16)] == [
+        (64, 2), (64, 2), (64, 2), (64, 2), (32, 1), (32, 2)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [16, 64, 128, 160])
+def test_backward_shared_memory_fits_a_block(d, dtype):
+    """Each backward kernel's shared memory, reckoned as the source does
+    (``dkdv_smem_bytes``, ``dq_smem_bytes``: 64 rows of two inputs, the
+    streamed tiles' stages, 16 bytes of padding a row, the dK/dV kernel's
+    fp32 lse and D a streamed row), fits a block's 232,448 bytes at every
+    head dim of the training route. At d 160, fp32 (16 streamed rows, one
+    stage): 105,088 and 104,960 bytes, two blocks an SM (two stages of 64
+    rows would be 251,904, more than a block takes); bf16 (32 rows, two
+    stages): 86,528 and 86,016."""
+    from repro_torch.kernels import flash_attention as fa
+    dkdv, dq = fa.backward_smem_bytes(d, dtype)
+    rows, stages = fa.backward_tile(d, dtype)
+    pitch = (d + 16 // dtype.itemsize) * dtype.itemsize
+    assert dq == (2 * 64 + stages * 2 * rows) * pitch
+    assert dkdv == dq + stages * 2 * rows * 4
+    assert max(dkdv, dq) <= fa.SMEM_PER_BLOCK
+    if d == 160:
+        assert (dkdv, dq) == {torch.float32: (105_088, 104_960),
+                              torch.bfloat16: (86_528, 86_016)}[dtype]
+    if d == 160 and dtype == torch.float32:
+        assert (2 * 64 + 2 * 2 * 64) * pitch == 251_904 > fa.SMEM_PER_BLOCK
+        assert 2 * dkdv <= 228 * 1024    # two blocks share an SM
 
 
 def test_ssd_scan_keeps_the_gradient_on_the_cpu():
@@ -385,7 +439,7 @@ def _torch_leaf(a, dtype):
 
 @pytest.mark.parametrize("dtype,tol", [("float32", 2e-5), ("bfloat16", 3e-2)])
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 160])
 @pytest.mark.parametrize("group", [1, 3, 4])
 def test_flash_backward_plain_matches_jax_grad(group, d, causal, dtype, tol):
     """The training route on the CPU (the plain forward and the plain
@@ -498,12 +552,14 @@ def test_flash_backward_stages_plain_is_plain_in_float64(causal, splits):
 
 
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("group,splits", [(3, 3), (4, 2), (4, 4)])
-def test_flash_backward_stages_plain_matches_jax_grad(group, splits, causal):
+@pytest.mark.parametrize("group,splits,d", [(3, 3, 64), (4, 2, 64),
+                                            (4, 4, 64), (4, 2, 160)])
+def test_flash_backward_stages_plain_matches_jax_grad(group, splits, d,
+                                                      causal):
     """The decomposition in fp32 against ``jax.grad`` of the reference
     attention, at ``test_flash_backward_plain_matches_jax_grad``'s
-    tolerance."""
-    b, hkv, s, d = 2, 2, 19, 64
+    tolerance; at d 64 and at zamba2's d 160."""
+    b, hkv, s = 2, 2, 19
     h = hkv * group
     q, k, v = _qkv(20 + group, b, h, hkv, s, s, d)
     cot = np.random.RandomState(21).randn(b, h, s, d).astype(np.float32)
@@ -570,7 +626,7 @@ def _emulated_backward(q, k, v, o, lse, do, causal):
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
                                        (torch.bfloat16, 3e-2)])
-@pytest.mark.parametrize("d", [16, 64, 128])
+@pytest.mark.parametrize("d", [16, 64, 128, 160])
 def test_flash_backward_kernel_roundings_hold_the_tolerance(d, dtype, tol):
     """The error budget of the kernels' operand roundings (3xTF32 in fp32;
     P and dS rounded once to bf16 in bf16) at a small causal GQA shape:
@@ -1462,10 +1518,49 @@ def test_flash_decode_clusters_at_head_dim_160(cuda_device, dtype, atol,
 
 
 @pytest.mark.cuda
-def test_flash_training_route_refuses_head_dim_160(cuda_device):
-    q = torch.zeros((1, 2, 16, 160), device=cuda_device, requires_grad=True)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,hkv,s,causal", [(2, 4, 4, 130, True),
+                                              (1, 8, 2, 77, False)])
+def test_flash_training_route_at_head_dim_160_matches_plain(
+        cuda_device, dtype, b, h, hkv, s, causal):
+    """The training route at zamba2's head dim (through ``ops``' autograd
+    Function: the forward with the log-sum-exp and the backward, each
+    counted once) against the plain route (autograd through the plain
+    versions) on the same inputs: the output and dq, dk, dv."""
+    q, k, v, do = _flash_train_inputs(cuda_device, dtype, b, h, hkv, s, 160,
+                                      seed=42)
+    grads = {}
+    for route in ("kernel", "plain"):
+        leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+        before = (ops.flash_attention.launches,
+                  ops.flash_attention.backward_launches)
+        out = (ops.flash_attention(*leaves, causal=causal) if route == "kernel"
+               else flash_attention_plain(*leaves, causal))
+        out.backward(do)
+        torch.cuda.synchronize()
+        launched = (ops.flash_attention.launches - before[0],
+                    ops.flash_attention.backward_launches - before[1])
+        assert launched == ((1, 1) if route == "kernel" else (0, 0))
+        grads[route] = [out.detach()] + [t.grad for t in leaves]
+    for name, g, w in zip(("out", "dq", "dk", "dv"), grads["kernel"],
+                          grads["plain"]):
+        assert g.dtype == dtype and g.shape == w.shape
+        assert _grad_err(g, w) <= BWD_TOL[dtype], name
+
+
+@pytest.mark.cuda
+def test_flash_training_route_refuses_a_head_dim_it_does_not_take(
+        cuda_device):
+    """96 is in neither route's head dims: the training route raises
+    rather than launch a kernel it has not, and the backward's entry
+    too."""
+    q = torch.zeros((1, 2, 16, 96), device=cuda_device, requires_grad=True)
     with pytest.raises(ValueError, match="head_dim"):
         ops.flash_attention(q, q, q)
+    x = q.detach()
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_attention_backward_cuda(x, x, x, x, torch.zeros(
+            (1, 2, 16), device=cuda_device), x)
 
 
 @pytest.mark.cuda
@@ -1822,6 +1917,14 @@ FLASH_BWD_CUDA_TABLE = [
     (2, 8, 2, 200, 16, True),
     (2, 6, 2, 77, 128, True),
     (1, 3, 3, 33, 16, False),
+    # zamba2's head dim 160: its training layer (32 heads, MHA, s 2048), a
+    # ragged tile, a GQA group not causal, short rows, a group split over
+    # blocks with ragged 32-row tiles
+    (2, 32, 32, 2048, 160, True),
+    (1, 4, 4, 37, 160, True),
+    (2, 8, 2, 130, 160, False),
+    (2, 4, 4, 5, 160, True),
+    (1, 16, 2, 77, 160, True),
 ]
 BWD_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
 

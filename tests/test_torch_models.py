@@ -516,6 +516,53 @@ def test_mamba_loss_and_grads_match_jax(arch, layers):
         assert _leaf_err(p.grad, want[name].numpy()) <= 1e-4, name
 
 
+def _zamba_wide_heads_pair(num_kv_heads, seed=0):
+    """``_pair`` for a narrow zamba2 whose shared block runs the published
+    head_dim 160: d_model 320, 4 query heads of 160 on concat(h, emb0)
+    (640 wide), ``num_kv_heads`` KV heads, 2 Mamba2 layers and the shared
+    block after both."""
+    def narrow(cfg):
+        return dataclasses.replace(cfg, d_model=320, num_heads=4,
+                                   num_kv_heads=num_kv_heads, head_dim=160,
+                                   d_ff=256)
+    cfg_j = narrow(get_config_jax(ZAMBA, reduced=True))
+    mod = get_model_jax(cfg_j)
+    params = mod.init_params(jax.random.PRNGKey(seed), cfg_j,
+                             dtype=jnp.float32)
+    cfg = narrow(get_config(ZAMBA, reduced=True))
+    model = get_model(cfg)(cfg, dtype=torch.float32, device="cpu")
+    model.load_state_dict(
+        from_jax_params(jax.tree.map(np.asarray, params), cfg))
+    return mod, cfg_j, params, model
+
+
+@pytest.mark.parametrize("num_kv_heads", [4, 2])
+def test_zamba_shared_block_at_head_dim_160_loss_and_grads_match_jax(
+        num_kv_heads):
+    """The training route at zamba2's head_dim 160 (the shared block MHA
+    as published, and a GQA group of 2): ``Mamba.loss`` and every leaf's
+    gradient, through autograd over the plain versions, against
+    ``jax.value_and_grad`` of the JAX package's ``loss`` on the same
+    weights and batch: the loss within 1e-5, each leaf within 1e-4 of its
+    largest magnitude. 45 tokens cross the 32-token chunk."""
+    mod, cfg_j, params, model = _zamba_wide_heads_pair(num_kv_heads)
+    assert model.cfg.resolved_head_dim == 160
+    batch = _lm_batch_np(cfg_j, 2, 45, seed=36, ignore=0.2)
+    (want_loss, _), grads = jax.value_and_grad(
+        lambda p: mod.loss(p, cfg_j, {k: jnp.asarray(v)
+                                      for k, v in batch.items()}),
+        has_aux=True)(params)
+    loss, _ = model.loss({k: torch.from_numpy(v) for k, v in batch.items()})
+    np.testing.assert_allclose(loss.item(), float(want_loss), rtol=1e-5)
+    loss.backward()
+    want = from_jax_params(jax.tree.map(np.asarray, grads), model.cfg)
+    named = dict(model.named_parameters())
+    assert set(named) == set(want)
+    assert named["shared_attn.attn.wq"].shape == (640, 640)
+    for name, p in named.items():
+        assert _leaf_err(p.grad, want[name].numpy()) <= 1e-4, name
+
+
 @pytest.mark.parametrize("policy", ["none", "full", "blocks"])
 def test_zamba_remat_policies_match_dots(policy):
     """Every remat policy gives the loss and the gradients of ``dots``."""

@@ -657,8 +657,8 @@ def test_chip_smoke_trace_ms_keeps_a_lossy_trace_only_at_the_last_try(
 # meta against the CPU
 # ------------------------------------------------------------------------- #
 
-def _lm_step(device: str):
-    cfg = get_config("smollm-135m", reduced=True)
+def _lm_step(device: str, cfg=None):
+    cfg = cfg or get_config("smollm-135m", reduced=True)
     plan = MemoryPlan(1, "float32", True, "dots", 0.0, 2)
     ocfg = AdamWConfig(lr=1e-3, warmup_steps=0, total_steps=10)
     gen = None if device == "meta" else torch.Generator().manual_seed(0)
@@ -688,13 +688,26 @@ def _serving(device: str, kind: str):
             (dict(model.named_parameters()), cache, tokens))
 
 
-@pytest.mark.parametrize("step", ["train", "prefill", "decode"])
+def _zamba_step(device: str):
+    """A narrow zamba2 whose shared block runs zamba2's head_dim 160 (4
+    heads of 160 on concat(h, emb0)): its training step, attention both
+    ways at d 160 beside the scan's and RMSNorm's."""
+    cfg = dataclasses.replace(get_config("zamba2-2.7b", reduced=True),
+                              d_model=320, num_heads=4, num_kv_heads=4,
+                              head_dim=160, d_ff=256)
+    return _lm_step(device, cfg)
+
+
+@pytest.mark.parametrize("step", ["train", "prefill", "decode",
+                                  "zamba2 train d=160"])
 def test_meta_counts_what_the_cpu_counts(step):
     """The reduced smollm step (two microbatches, remat "dots"), prefill
-    and decode tick: equal FLOPs, bytes, collective bytes and peak live
-    bytes on ``meta`` and on CPU tensors."""
-    make = _lm_step if step == "train" else (
-        lambda dev: _serving(dev, step))
+    and decode tick, and a narrow zamba2 step at head_dim 160: equal
+    FLOPs, bytes, collective bytes and peak live bytes on ``meta`` and on
+    CPU tensors."""
+    make = {"train": _lm_step,
+            "zamba2 train d=160": _zamba_step}.get(
+        step, lambda dev: _serving(dev, step))
     counts = []
     for device in ("cpu", "meta"):
         run, hold = make(device)
