@@ -137,6 +137,18 @@ run with a non-zero exit code (nothing drops to the CPU or to a plain version):
            params, m, v, master), which must pass. gpipe is not run here:
            gloo's point-to-point sends refuse CUDA tensors, so it is held
            on the CPU (tests/test_torch_distributed.py)
+  parallel_gloo_ssm
+           the ssm and hybrid families split over the model axis on two
+           processes over gloo: mamba2-780m and zamba2-2.7b at full width,
+           4 and 6 layers (zamba2's shared block once), one (1 data, 2
+           model) sharded step of 2 x 512 tokens against make_train_step
+           under parallel_gloo's tolerances, every kernel launch as
+           reckoned (the gated norm's split row leaves the RMSNorm kernel)
+           and the SSD kernels at 24 / 40 heads, attention at 16 heads of
+           160, seen by shape; both steps' ms once warm; then split serving
+           in bf16 (a prefill of 2 x 128 tokens, 3 greedy ticks) against
+           the whole model: every call's logits, the picks equal but at a
+           tie
   dryrun   COMET's measured frontend: (a) the op counter
            (repro_torch.core.op_counter) over the train_lm step, a smollm
            prefill (b 1, s 1024) and a decode tick (b 8, max_seq 2048,
@@ -147,9 +159,10 @@ run with a non-zero exit code (nothing drops to the CPU or to a plain version):
            the host cost of a call by each dispatcher route, and the
            kernels' operators against direct launches on the decode tick,
            alternating; (b) launch.dryrun.lower_cell over the 32 runnable
-           cells on the 16 x 16 mesh and the 12 dense ones on 2 x 16 x 16,
-           on the host, as rank 0 of a fake process group (no group may be
-           held then): dense cells ok, every refusal naming its ROADMAP item
+           cells on the 16 x 16 mesh and the 12 dense and 8 ssm and hybrid
+           ones on 2 x 16 x 16, on the host, as rank 0 of a fake process
+           group (no group may be held then): those families' cells ok but
+           long_500k (item 13 alone), every refusal naming its ROADMAP item
   study    COMET's batch evaluator (repro_torch.core: the port of the JAX
            package's jax_engine) over the paper's transformer-1t study grid:
            the paper shape (seq 2048, batch 1024), strategies (mp, dp) =
@@ -211,6 +224,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 import torch.nn.functional as F
+from torch.utils._python_dispatch import TorchDispatchMode
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
@@ -285,6 +299,11 @@ from repro_torch.parallel import build_mesh, plan_memory  # noqa: E402
 from repro_torch.launch.dryrun import run_cell  # noqa: E402
 from repro_torch.launch.specs import model_flops  # noqa: E402
 from repro_torch.parallel.compression import compressed_psum  # noqa: E402
+from repro_torch.parallel.sharding import (  # noqa: E402
+    batch_spec,
+    cache_shardings,
+    local_shard,
+)
 from repro_torch.serve import Engine, EngineConfig, Request  # noqa: E402
 from repro_torch.train import (  # noqa: E402
     Trainer,
@@ -292,6 +311,7 @@ from repro_torch.train import (  # noqa: E402
     gather_train_state,
     init_train_state,
     make_train_step,
+    shard_model,
     shard_train_state,
     sharded_train_step,
 )
@@ -3200,19 +3220,20 @@ def _gloo_rank(rank: int, directory: str) -> None:
     dist.destroy_process_group()
 
 
-def _gloo_pair() -> list:
-    """``_gloo_rank`` in two fresh processes; each rank's results. A rank
-    that exits other than 0, or a pair that has not ended in
-    PAR_TIMEOUT_S, fails the run (the other rank is killed then)."""
+def _gloo_pair(target=_gloo_rank, phase: str = "parallel_gloo",
+               timeout_s: float = PAR_TIMEOUT_S) -> list:
+    """``target`` (``_gloo_rank``) in two fresh processes; each rank's
+    results. A rank that exits other than 0, or a pair that has not ended
+    in ``timeout_s``, fails the run (the other rank is killed then)."""
     import multiprocessing
     ctx = multiprocessing.get_context("spawn")
     directory = tempfile.mkdtemp(prefix="chip_smoke_gloo_")
     try:
-        procs = [ctx.Process(target=_gloo_rank, args=(r, directory))
+        procs = [ctx.Process(target=target, args=(r, directory))
                  for r in range(2)]
         for p in procs:
             p.start()
-        deadline = time.monotonic() + PAR_TIMEOUT_S
+        deadline = time.monotonic() + timeout_s
         while (any(p.is_alive() for p in procs)
                and not any(p.exitcode for p in procs)
                and time.monotonic() < deadline):
@@ -3223,10 +3244,10 @@ def _gloo_pair() -> list:
             p.join()
         codes = [p.exitcode for p in procs]
         if codes != [0, 0]:
-            raise SystemExit(f"chip_smoke: parallel_gloo phase failed: the "
-                             f"two ranks exited {codes} (a negative code is "
-                             f"a kill, at {PAR_TIMEOUT_S} s or after the "
-                             "other rank failed)")
+            raise SystemExit(f"chip_smoke: {phase} phase failed: the two "
+                             f"ranks exited {codes} (a negative code is a "
+                             f"kill, at {timeout_s} s or after the other "
+                             "rank failed)")
         return [json.loads(Path(directory, f"rank_{r}.json").read_text())
                 for r in range(2)]
     finally:
@@ -3379,6 +3400,341 @@ def phase_parallel_gloo() -> None:
     if problems:
         raise SystemExit(f"chip_smoke: parallel_gloo phase failed: "
                          f"{problems}")
+
+
+# The ssm and hybrid families split over the model axis on the same pair of
+# processes: mamba2-780m and zamba2-2.7b at full width, their depth cut to 4
+# and 6 layers (zamba2's shared block once, after its 6th, as published),
+# one sharded (1 data, 2 model) step of PAR2_BATCH x PAR2_SEQ tokens against
+# make_train_step under parallel_gloo's tolerances, the master copies held
+# to the one process's where its gradient is resolved (_master_where_resolved):
+# AdamW's first step moves an element by about lr whatever its gradient, so
+# a gradient at the noise of fp32 sums, whose sign two summation orders
+# disagree on, moves it by +-lr there. Then split
+# serving against the whole model, bf16 and fp32: a prefill of
+# SSM_SERVE_BATCH x SSM_SERVE_PROMPT tokens and SSM_SERVE_TICKS greedy
+# ticks, every call's
+# fp32 logits within LOGIT_TOL, its bf16 logits within twice the distance
+# of the whole bf16 model's from the whole fp32 model's (two bf16 runs of
+# one function, each as far from fp32 as bf16 puts it), the greedy tokens
+# equal except at a tie those differences can flip (the two best logits of
+# the whole model within twice the call's difference).
+SSM_PAR_LAYERS = {MAMBA_ARCH: 4, ZAMBA_ARCH: 6}
+SSM_SERVE_BATCH, SSM_SERVE_PROMPT, SSM_SERVE_TICKS = 2, 128, 3
+SSM_PAR_TIMEOUT_S = 300
+# A one-process first moment above this share of its leaf's largest is a
+# resolved gradient. The fp32 noise of two summation orders flips signs up
+# to some 4e-5 of a leaf's largest (the phase prints ``largest_flip``), and
+# near it, through AdamW's eps, still moves a zero-initialised leaf (conv_b,
+# whose largest master is one step of lr) by about 1e-2 of its largest at
+# 1e-4; at 1e-3 that term is some 100 times smaller.
+MASTER_RESOLVED = 1e-3
+
+
+class _KernelCalls(TorchDispatchMode):
+    """The port's kernel operators a region calls, counted by name and the
+    shape of each call's first input: (b, s, heads, p) for the SSD scan,
+    (b, heads, s, d) for attention, the rows for RMSNorm."""
+
+    def __init__(self):
+        super().__init__()
+        self.calls = {}
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func.namespace == "repro_torch":
+            key = f"{func._opname} {list(args[0].shape)}"
+            self.calls[key] = self.calls.get(key, 0) + 1
+        return func(*args, **(kwargs or {}))
+
+
+def _expected_split_launches(cfg, remat: str) -> dict:
+    """``_expected_mamba_launches`` of one step of a model split over the
+    model axis: the gated norm's row is split, so each layer's ``norm_g``
+    leaves the RMSNorm kernel for ``split_rms_norm``."""
+    out = _expected_mamba_launches(cfg, remat, 1)
+    again = 1 if remat == "none" else 2
+    out["rmsnorm"] -= again * cfg.num_layers
+    out["rmsnorm_backward"] -= cfg.num_layers
+    return out
+
+
+def _worst_leaf(got: dict, want: dict, m: dict) -> dict:
+    """Where ``_scaled_err`` finds its largest error: the leaf, the error
+    over the leaf's largest magnitude, and the one-process first moment
+    there beside the leaf's largest (after one step m is (1 - beta1) times
+    the gradient: how small a gradient AdamW's normalised step carried)."""
+    name = max(want, key=lambda n: ((got[n] - want[n]).abs().max()
+                                    / max(want[n].abs().max().item(), 1e-30)))
+    diff = (got[name] - want[name]).abs().flatten()
+    at = int(diff.argmax())
+    return {"leaf": name,
+            "scaled_err": (diff[at] / max(want[name].abs().max().item(),
+                                          1e-30)).item(),
+            "got": got[name].flatten()[at].item(),
+            "want": want[name].flatten()[at].item(),
+            "m_there": m[name].flatten()[at].item(),
+            "m_largest": m[name].abs().max().item()}
+
+
+def _master_where_resolved(got: dict, want: dict, m_got: dict,
+                           m_want: dict) -> dict:
+    """The split step's master copies (``got``) against the one process's
+    (``want``) where the one-process first moment ``m_want`` exceeds
+    MASTER_RESOLVED of its leaf's largest: the largest error there over the
+    leaf's largest master, and its leaf. Beside it, for the record, the
+    share of elements resolved, how many resolved elements the two steps'
+    first moments disagree in sign on, and the largest one-process first
+    moment (over its leaf's largest) at which they disagree anywhere."""
+    out = {"scaled_err": 0.0, "leaf": None, "resolved": 0, "elements": 0,
+           "resolved_sign_flips": 0, "largest_flip": 0.0}
+    for name, w in want.items():
+        m = m_want[name]
+        largest = max(m.abs().max().item(), 1e-30)
+        resolved = m.abs() > MASTER_RESOLVED * largest
+        flips = (m * m_got[name]) < 0
+        err = ((got[name] - w).abs() * resolved).max().item() / max(
+            w.abs().max().item(), 1e-30)
+        if err >= out["scaled_err"]:
+            out["scaled_err"], out["leaf"] = err, name
+        out["resolved"] += int(resolved.sum())
+        out["elements"] += m.numel()
+        out["resolved_sign_flips"] += int((flips & resolved).sum())
+        if flips.any():
+            out["largest_flip"] = max(out["largest_flip"],
+                                      m.abs()[flips].max().item() / largest)
+    return out
+
+
+def _ssm_sharded_step(cfg, mesh) -> dict:
+    """One (1, 2) sharded step against make_train_step from the same state
+    and batch: the errors, the split step's kernel launches (counts zeroed
+    just before it, read just after) against the reckoned ones. Then, on
+    the same batch, a second step of each: the one process's is timed once
+    warm (its first beside it); the split step's logs the kernels and
+    shapes it calls, so its third is timed."""
+    plan, ocfg = _par_plan_and_opt(cfg)
+    batch = _par_batches(cfg, 1, PAR2_BATCH, PAR2_SEQ)[0]
+    ref = _par_state(cfg, plan, ocfg)
+    ref_step = make_train_step(cfg, plan, ocfg)
+    ref, ref_m, ref_first = _timed_steps(ref_step, ref, [batch])
+    state = shard_train_state(cfg, plan, _par_state(cfg, plan, ocfg), mesh)
+    step = sharded_train_step(cfg, plan, mesh, ocfg)
+    _zero_kernel_counts()
+    state, m, first = _timed_steps(step, state, [batch])
+    launches = _kernel_counts()
+    full = gather_train_state(state, mesh)
+    out = {
+        "remat": plan.remat, "loss": m[0]["loss"],
+        "ref_loss": ref_m[0]["loss"], "grad_norm": m[0]["grad_norm"],
+        "ref_grad_norm": ref_m[0]["grad_norm"],
+        "param_max_abs_err": max(
+            (full["params"][n] - p.detach()).abs().max().item()
+            for n, p in ref["params"].items()),
+        **{f"{part}_scaled_err": _scaled_err(full["opt"][part],
+                                             ref["opt"][part])
+           for part in ("m", "v", "master")},
+        "worst": {part: _worst_leaf(full["opt"][part], ref["opt"][part],
+                                    ref["opt"]["m"])
+                  for part in ("m", "v", "master")},
+        "master_where_resolved": _master_where_resolved(
+            full["opt"]["master"], ref["opt"]["master"], full["opt"]["m"],
+            ref["opt"]["m"]),
+        "step_launches": launches,
+        "expected_step_launches": _expected_split_launches(cfg, plan.remat)}
+    del full
+    ref, _, ref_ms = _timed_steps(ref_step, ref, [batch])
+    del ref
+    with _KernelCalls() as calls:
+        state, _, _ = _timed_steps(step, state, [batch])
+    state, _, ms = _timed_steps(step, state, [batch])
+    out.update(step_ms=ms[0], ref_step_ms=ref_ms[0], first_step_ms=first[0],
+               ref_first_step_ms=ref_first[0], step_kernel_calls=calls.calls)
+    del state
+    torch.cuda.empty_cache()
+    return out
+
+
+def _greedy_calls(model, tokens, cache, feed=None) -> tuple:
+    """A prefill and SSM_SERVE_TICKS ticks: the last position's logits of
+    each call (fp32), and the tokens each tick was fed: ``feed``, else the
+    model's own greedy picks."""
+    out = [model.prefill(tokens, cache)[0][:, -1].float()]
+    picks = []
+    for t in range(SSM_SERVE_TICKS):
+        picks.append(out[-1].argmax(-1, keepdim=True) if feed is None
+                     else feed[t])
+        out.append(model.decode_step(cache, picks[-1])[0][:, -1].float())
+    return out, picks
+
+
+def _compare_calls(got: list, want: list) -> list:
+    """Each call's largest logit difference, the whole model's largest
+    logit, whether the picks are equal, and the picks that differ where
+    the whole model's margin exceeds twice that difference (no tie)."""
+    out = []
+    for g, w in zip(got, want):
+        err = (g - w).abs().max().item()
+        picks, refs = g.argmax(-1), w.argmax(-1)
+        margin = (w.gather(-1, refs[:, None])
+                  - w.gather(-1, picks[:, None]))[:, 0]
+        out.append({"logit_max_abs_err": err,
+                    "logit_scale": w.abs().max().item(),
+                    "tokens_equal": bool(torch.equal(picks, refs)),
+                    "untied_flips": int(((picks != refs)
+                                         & (margin > 2 * err)).sum())})
+    return out
+
+
+def _ssm_split_serving(cfg, mesh) -> dict:
+    """Split serving against the whole model, bf16 and then fp32, each
+    pair drawn from one seed: a prefill and SSM_SERVE_TICKS ticks, every
+    run fed the bf16 whole model's greedy tokens (so a tie that flips one
+    pick steers nothing). Per call: the logits' difference and the picks;
+    for bf16 also how far the whole bf16 model's logits lie from the whole
+    fp32 model's (bf16's own error, the bf16 split's yardstick). The
+    kernels the split calls launched, counted and logged by shape."""
+    plan = plan_memory(cfg, tp=1, dp=1)
+    b, prompt = SSM_SERVE_BATCH, SSM_SERVE_PROMPT
+    tokens = torch.randint(0, cfg.vocab_size, (b, prompt), device=DEVICE,
+                           generator=torch.Generator(
+                               device=DEVICE).manual_seed(2))
+    out, whole_logits, feed = {}, {}, None
+    launches = dict.fromkeys(_kernel_counts(), 0)
+    for dtype in (torch.bfloat16, torch.float32):
+        ref, model = (get_model(cfg)(cfg, dtype=dtype, device=DEVICE,
+                                     generator=torch.Generator(
+                                         device=DEVICE).manual_seed(1))
+                      for _ in range(2))
+        shard_model(cfg, plan, model, mesh, batch_rows=b)
+        whole = ref.init_cache(b, prompt + SSM_SERVE_TICKS + 1)
+        specs = cache_shardings(cfg, mesh, whole)
+        specs["pos"] = batch_spec(mesh, (b,))
+        cache = {n: local_shard(t, specs[n], mesh).clone()
+                 for n, t in whole.items()}
+        with torch.no_grad():
+            want, picks = _greedy_calls(ref, tokens, whole, feed)
+            feed = feed or picks
+            _zero_kernel_counts()
+            with _KernelCalls() as calls:
+                got, _ = _greedy_calls(model, tokens, cache, feed)
+            for name, n in _kernel_counts().items():
+                launches[name] += n
+        whole_logits[dtype] = want
+        out[dtype_name(dtype)] = {"calls": _compare_calls(got, want),
+                                  "kernel_calls": calls.calls}
+        del ref, model, whole, cache
+        torch.cuda.empty_cache()
+    for call, w16, w32 in zip(out["bfloat16"]["calls"],
+                              whole_logits[torch.bfloat16],
+                              whole_logits[torch.float32]):
+        call["whole_bf16_vs_fp32"] = (w16 - w32).abs().max().item()
+    return {"serve": out, "serve_launches": launches,
+            "serve_shape": [b, prompt, SSM_SERVE_TICKS]}
+
+
+def _gloo_ssm_rank(rank: int, directory: str) -> None:
+    """One of two processes on the one card over gloo with CUDA tensors:
+    for mamba2-780m and zamba2-2.7b (full width, cut depth) on a (1 data,
+    2 model) mesh, ``_ssm_sharded_step`` and ``_ssm_split_serving``.
+    Writes its results as JSON to ``directory``."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{directory}/store",
+                            rank=rank, world_size=2)
+    mesh = build_mesh((1, 2), ("data", "model"))
+    out = {}
+    for arch, layers in SSM_PAR_LAYERS.items():
+        cfg = dataclasses.replace(get_config(arch), num_layers=layers)
+        out[arch] = {"layers": layers, **_ssm_sharded_step(cfg, mesh),
+                     **_ssm_split_serving(cfg, mesh)}
+    with open(os.path.join(directory, f"rank_{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def _ssm_rank_problems(rank: int, arch: str, r: dict) -> list:
+    """What one rank's results of one model break: parallel_gloo's
+    tolerances, the reckoned launches, the kernels at the rank's heads,
+    split serving's logits and picks."""
+    cfg = get_config(arch)
+    heads, tag = cfg.ssm_heads // 2, f"rank {rank} {arch}"
+    problems = []
+    ok = (abs(r["loss"] - r["ref_loss"]) <= PAR_LOSS_TOL
+          * max(1.0, abs(r["ref_loss"]))
+          and abs(r["grad_norm"] - r["ref_grad_norm"])
+          <= PAR_NORM_RTOL * abs(r["ref_grad_norm"])
+          and r["param_max_abs_err"] <= PAR_PARAM_TOL
+          and all(r[key] <= PAR_OPT_TOL for key in (
+              "m_scaled_err", "v_scaled_err"))
+          and r["master_where_resolved"]["scaled_err"] <= PAR_OPT_TOL)
+    if not ok:
+        problems.append(f"{tag}: the split step is off one process")
+    for name, n in r["expected_step_launches"].items():
+        if r["step_launches"][name] != n:
+            problems.append(f"{tag}: {name} launched "
+                            f"{r['step_launches'][name]} times, not {n}")
+    want = [f"ssd_scan_train [{PAR2_BATCH}, {PAR2_SEQ}, {heads}, "
+            f"{cfg.ssm.head_dim}]",
+            f"ssd_scan_backward [{PAR2_BATCH}, {PAR2_SEQ}, {heads}, "
+            f"{cfg.ssm.head_dim}]"]
+    if cfg.family == "hybrid":
+        want.append(f"flash_attention_lse [{PAR2_BATCH}, "
+                    f"{cfg.num_heads // 2}, {PAR2_SEQ}, "
+                    f"{cfg.resolved_head_dim}]")
+    problems += [f"{tag}: no {w} in the step" for w in want
+                 if w not in r["step_kernel_calls"]]
+    if (cfg.family == "hybrid" and not any(
+            k.startswith("flash_attention_backward ")
+            for k in r["step_kernel_calls"])):
+        problems.append(f"{tag}: no attention backward in the step")
+    for dtype, run in r["serve"].items():
+        for i, c in enumerate(run["calls"]):
+            tol = (LOGIT_TOL if dtype == "float32"
+                   else 2 * c["whole_bf16_vs_fp32"])
+            if c["logit_max_abs_err"] > tol:
+                problems.append(f"{tag}: {dtype} serving call {i} logits "
+                                f"off by {c['logit_max_abs_err']} > {tol}")
+            if c["untied_flips"]:
+                problems.append(f"{tag}: {dtype} serving call {i} picked "
+                                "other tokens")
+    if r["serve_launches"]["ssd_scan"] != 2 * r["layers"]:
+        problems.append(f"{tag}: the split prefills launched the SSD scan "
+                        f"{r['serve_launches']['ssd_scan']} times")
+    if cfg.family == "hybrid" and r["serve_launches"][
+            "flash_attention"] != 2 * (1 + SSM_SERVE_TICKS):
+        problems.append(f"{tag}: split serving launched attention "
+                        f"{r['serve_launches']['flash_attention']} times")
+    return problems
+
+
+def phase_parallel_gloo_ssm() -> dict:
+    """Two processes on the card over gloo with CUDA tensors: the ssm and
+    hybrid families split over the model axis (``_gloo_ssm_rank``), which
+    must pass on every rank. Returns the kernels' launches on this path,
+    both ranks' step and split serving summed."""
+    t0 = time.perf_counter()
+    ranks = _gloo_pair(_gloo_ssm_rank, "parallel_gloo_ssm", SSM_PAR_TIMEOUT_S)
+    problems = []
+    launches = {}
+    for rank, result in enumerate(ranks):
+        if sorted(result) != sorted(SSM_PAR_LAYERS):
+            problems.append(f"rank {rank} reported {sorted(result)}")
+            continue
+        for arch, r in result.items():
+            problems += _ssm_rank_problems(rank, arch, r)
+            for part in ("step_launches", "serve_launches"):
+                for name, n in r[part].items():
+                    launches[name] = launches.get(name, 0) + n
+    emit("parallel_gloo_ssm", card=_smi("name,power.limit"),
+         mesh=[1, 2], global_batch=PAR2_BATCH, seq_len=PAR2_SEQ,
+         layers=SSM_PAR_LAYERS, ranks=ranks, launches=launches,
+         seconds=time.perf_counter() - t0, problems=problems)
+    if problems:
+        raise SystemExit(f"chip_smoke: parallel_gloo_ssm phase failed: "
+                         f"{problems}")
+    return launches
 
 
 # ------------------------------------------------------------------------- #
@@ -4154,6 +4510,21 @@ def _dispatch_on_the_tick() -> dict:
             "per_call_us": per_call}
 
 
+# The families whose every cell but long_500k traces ok on both meshes; a
+# long_500k cell of theirs may only refuse for its one-row batch (item 13).
+DRYRUN_SPLIT_FAMILIES = ("dense", "ssm", "hybrid")
+ROADMAP_ITEM = r"ROADMAP Queue 1 item (\d+)"
+
+
+def _refused_as_planned(row: dict) -> bool:
+    """A refused cell that names its ROADMAP items (``items``, read from
+    the whole error) as the port plans: another family's naming any item,
+    or a long_500k cell of the split families naming item 13 alone."""
+    if get_config(row["arch"]).family not in DRYRUN_SPLIT_FAMILIES:
+        return bool(row["items"])
+    return row["shape"] == "long_500k" and row["items"] == ["13"]
+
+
 def phase_dryrun() -> None:
     """COMET's measured frontend (repro_torch.core.op_counter, core.hlo,
     launch.dryrun). (a) The train_lm step, one smollm prefill and one decode
@@ -4162,10 +4533,12 @@ def phase_dryrun() -> None:
     roofline terms at the H100's rates beside the measured wall and device
     ms, model_flops_util, and the counted peak live bytes beside
     torch.cuda.max_memory_allocated. (b) On the host: lower_cell over every
-    runnable cell on the 16 x 16 mesh and the dense family's on the 2 x 16
-    x 16 (a fake process group of 256 / 512 ranks; none may be held here):
-    the ok and refused counts, each cell's trace_s and dominant term; a
-    dense cell must be ok, and every refusal must name its ROADMAP item.
+    runnable cell on the 16 x 16 mesh and the dense, ssm and hybrid
+    families' on the 2 x 16 x 16 (a fake process group of 256 / 512 ranks;
+    none may be held here): the ok and refused counts, each cell's trace_s
+    and dominant term; a cell of those families must be ok but for
+    long_500k, which refuses naming item 13 alone, and every other refusal
+    must name its ROADMAP item.
     Also the host cost of a call by each dispatcher route, and what the
     kernels' operators cost the decode tick against direct launches."""
     if dist.is_initialized():
@@ -4193,7 +4566,7 @@ def phase_dryrun() -> None:
     cells = [(arch, shape_name, False)
              for arch, shape_name, runnable, _ in all_cells() if runnable]
     cells += [(arch, shape_name, True) for arch, shape_name, _ in cells
-              if get_config(arch).family == "dense"]
+              if get_config(arch).family in DRYRUN_SPLIT_FAMILIES]
     directory = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
     try:
         infos = [run_cell(arch, shape_name, mp, directory)
@@ -4206,15 +4579,17 @@ def phase_dryrun() -> None:
              **({"trace_s": i["trace_s"], "dominant": i["dominant"],
                  "roofline_fraction": i["roofline_fraction"],
                  "model_flops_util": i["model_flops_util"]}
-                if i["status"] == "ok" else {"error": i["error"][:160]})}
+                if i["status"] == "ok" else {
+                    "error": i["error"][:160],
+                    "items": sorted(set(re.findall(ROADMAP_ITEM,
+                                                   i["error"])))})}
             for i in infos]
 
     problems = [f"{r['step']}: counts differ on cuda and meta"
                 for r in steps if not r["equal_on_cuda_and_meta"]]
     problems += [f"{r['arch']} {r['shape']} {r['mesh']}: {r['error']}"
                  for r in rows if r["status"] != "ok"
-                 and (get_config(r["arch"]).family == "dense"
-                      or "ROADMAP Queue 1 item" not in r["error"])]
+                 and not _refused_as_planned(r)]
     if dist.is_initialized():
         problems.append("a process group was left after the sweep")
     emit("dryrun", card=_smi("name,power.limit"), steps=steps,
@@ -4410,6 +4785,7 @@ def main() -> int:
     phase_checkpoint()
     launches["parallel"] = phase_parallel()
     phase_parallel_gloo()
+    launches["parallel_gloo_ssm"] = phase_parallel_gloo_ssm()
     phase_dryrun()
     launches["study"] = phase_study()
     launches["run_study"] = phase_run_study()

@@ -17,7 +17,11 @@ Tensor parallelism is explicit (the reference leaves it to GSPMD):
 ``attention_block`` and ``ffn_block`` take the ``model`` axis's process
 group when their weights are shards of it (``parallel/tensor.py``'s region
 ops around the column- and row-parallel products), and the local head
-counts. ``layer_norm`` is not ported: no model of the reference calls it.
+counts; ``split_rms_norm`` normalises a row whose columns lie on the
+group's ranks; the LMs' vocabulary (``embed_tokens``, ``lm_logits``,
+``serving_logits``, ``lm_cross_entropy``) takes the group where the
+embedding holds a block of the vocabulary. ``layer_norm`` is not ported: no
+model of the reference calls it.
 """
 
 from __future__ import annotations
@@ -29,7 +33,13 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
-from repro_torch.parallel.tensor import copy_to_region, reduce_from_region
+from repro_torch.parallel.sharding import all_gather_dim
+from repro_torch.parallel.tensor import (
+    copy_to_region,
+    reduce_from_region,
+    vocab_parallel_cross_entropy,
+    vocab_parallel_embed,
+)
 
 DEFAULT_DTYPE = torch.bfloat16
 
@@ -89,6 +99,20 @@ def rms_norm(x: torch.Tensor, gamma: torch.Tensor,
     """fp32 arithmetic, one rounding into ``x.dtype``. The kernel takes
     contiguous rows, so a strided ``x`` is copied first."""
     return ops.rmsnorm(x.contiguous(), gamma, eps)
+
+
+def split_rms_norm(x: torch.Tensor, gamma: torch.Tensor, eps: float,
+                   width: int, group) -> torch.Tensor:
+    """``rms_norm`` of rows of ``width`` whose columns are split over
+    ``group``: x (..., width / tp) and gamma hold this rank's. Each rank sums
+    its columns' squares in fp32 and the sums are all-reduced (b·s values,
+    not the rows); the gradient of that sum is all-reduced too, since each
+    rank's columns give only their part of it. Plain PyTorch: the kernel
+    takes whole rows."""
+    xf = x.float()
+    total = copy_to_region(reduce_from_region(
+        xf.square().sum(dim=-1, keepdim=True), group), group)
+    return (xf * torch.rsqrt(total / width + eps) * gamma.float()).to(x.dtype)
 
 
 # --------------------------------------------------------------------- #
@@ -407,6 +431,43 @@ def moe_block(params: Mapping, x: torch.Tensor, *, top_k: int,
 # --------------------------------------------------------------------- #
 # Loss
 # --------------------------------------------------------------------- #
+
+def embed_tokens(embed: torch.Tensor, tokens: torch.Tensor,
+                 group=None) -> torch.Tensor:
+    """The tokens' rows of ``embed``; with ``group``, ``embed`` holds this
+    rank's block of the vocabulary and every rank gets every row."""
+    if group is None:
+        return embed[tokens]
+    return vocab_parallel_embed(embed, tokens, group)
+
+
+def lm_logits(x: torch.Tensor, gamma: torch.Tensor, head: torch.Tensor,
+              eps: float, group=None) -> torch.Tensor:
+    """The final norm and the head: logits over the vocabulary, or over
+    this rank's block of it when ``head`` is split over ``group``."""
+    x = rms_norm(x, gamma, eps)
+    if group is not None:
+        x = copy_to_region(x, group)
+    return x @ head
+
+
+def serving_logits(logits: torch.Tensor, group=None) -> torch.Tensor:
+    """Logits over the whole vocabulary on every rank: under ``group`` the
+    ranks' blocks are all-gathered, as the reference's serving steps return
+    their logits replicated."""
+    if group is None:
+        return logits
+    return all_gather_dim(logits, logits.dim() - 1, group)
+
+
+def lm_cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
+                     group=None) -> torch.Tensor:
+    """``cross_entropy_loss``, or its vocab-parallel form over logits split
+    over ``group``."""
+    if group is None:
+        return cross_entropy_loss(logits, targets)
+    return vocab_parallel_cross_entropy(logits, targets, group)
+
 
 def cross_entropy_loss(logits: torch.Tensor, targets: torch.Tensor,
                        ignore_id: int = -1) -> torch.Tensor:

@@ -28,6 +28,17 @@ incoming states, and its backward is the SSD backward's kernels on the card
 (the closed form on the CPU). Under the ``dots`` remat policy each layer's
 scan is recomputed just before its backward, so that scratch lives for one
 layer.
+
+Tensor parallelism (``parallel.tensor.apply_tensor_parallel``) follows the
+reference's rules, which GSPMD partitions there: a layer under its
+``tp_group`` runs on this rank's ``h / tp`` SSD heads (``wz``, ``wx``,
+``conv_wx``, ``A_log``, ``D``, ``norm_g`` its pieces, ``out_proj``
+row-parallel) with B, C and dt's projections replicated
+(``MambaLayer.weights``); the gated norm's row is split, so it is
+``split_rms_norm``. In decode the ``ssm`` cache holds the rank's heads and
+the ``conv`` cache stays whole on every rank, each new row's x channels
+all-gathered before it is written. The vocabulary and the shared block
+split as the transformer's do.
 """
 
 from __future__ import annotations
@@ -36,6 +47,7 @@ import math
 from typing import Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -44,17 +56,22 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models.common import (
     DEFAULT_DTYPE,
-    attention_block,
-    cross_entropy_loss,
     dense_init,
     embed_init,
+    embed_tokens,
     init_generator,
     init_ffn_params,
+    lm_cross_entropy,
+    lm_logits,
     rms_norm,
     rope_frequencies,
     rope_positions,
+    serving_logits,
+    split_rms_norm,
 )
 from repro_torch.models.transformer import FFN, Attention, _param, apply_remat
+from repro_torch.parallel.sharding import all_gather_dim
+from repro_torch.parallel.tensor import copy_to_region, reduce_from_region
 
 
 def _dims(cfg: ModelConfig):
@@ -63,9 +80,16 @@ def _dims(cfg: ModelConfig):
     return ssm, cfg.d_inner, cfg.ssm_heads, gn, cfg.d_inner + 2 * gn
 
 
+# The leaves the rules keep whole on every rank of the model axis.
+_REPLICATED = ("wB", "wC", "wdt", "conv_wB", "conv_wC", "conv_b", "dt_bias")
+_LEAVES = ("wz", "wx", "wB", "wC", "wdt", "conv_wx", "conv_wB", "conv_wC",
+           "conv_b", "A_log", "D", "dt_bias", "norm_g", "out_proj")
+
+
 class MambaLayer(nn.Module):
     """One Mamba2 block's parameters; ``mamba_layer`` and
-    ``mamba_decode_step`` apply them."""
+    ``mamba_decode_step`` apply them. ``tp_group``: the model axis's group
+    where the rules split the block's heads over it, else None."""
 
     def __init__(self, cfg: ModelConfig, generator, dtype, device):
         super().__init__()
@@ -92,21 +116,64 @@ class MambaLayer(nn.Module):
         self.dt_bias = _param(torch.zeros(heads, dtype=f32), device)
         self.norm_g = _param(torch.ones(di, dtype=dtype), device)
         self.out_proj = _param(dense_init(generator, (di, d), dtype), device)
+        self.d_inner, self.heads, self.bc_channels = di, heads, 2 * gn
+        self.tp_group = None
 
-    def conv_weight(self) -> torch.Tensor:
-        """(width, conv_ch): the x, B and C columns of the depthwise conv."""
-        return torch.cat([self.conv_wx, self.conv_wB, self.conv_wC], dim=-1)
+    def _rank_range(self, n: int) -> Tuple[int, int]:
+        """This rank's block of ``n`` things split over ``tp_group``."""
+        k = n // dist.get_world_size(self.tp_group)
+        r = dist.get_rank(self.tp_group)
+        return r * k, (r + 1) * k
+
+    def weights(self) -> Dict[str, torch.Tensor]:
+        """The weights as this rank applies them, each parameter read once;
+        ``conv_w`` (width, channels) holds the conv's x, B and C columns.
+
+        Under ``tp_group``, ``wz``, ``wx``, ``conv_wx``, ``A_log``, ``D``,
+        ``norm_g`` and ``out_proj`` are this rank's heads already. Each
+        replicated leaf enters through ``copy_to_region`` (its gradient
+        summed over the group, as ``Attention``'s shared KV heads') and is
+        narrowed to what the rank uses: its heads of ``wdt`` and
+        ``dt_bias``, its x channels of ``conv_b`` beside the B and C ones."""
+        w = {n: getattr(self, n) for n in _LEAVES}
+        if self.tp_group is not None:
+            for n in _REPLICATED:
+                w[n] = copy_to_region(w[n], self.tp_group)
+            lo, hi = self._rank_range(self.heads)
+            w["wdt"] = w["wdt"][:, lo:hi]
+            w["dt_bias"] = w["dt_bias"][lo:hi]
+            w["conv_b"] = self.rank_channels(w["conv_b"])
+        w["conv_w"] = torch.cat([w.pop("conv_wx"), w.pop("conv_wB"),
+                                 w.pop("conv_wC")], dim=-1)
+        return w
+
+    def rank_channels(self, t: torch.Tensor) -> torch.Tensor:
+        """(..., conv_ch) whole -> this rank's x channels and B, C."""
+        if self.tp_group is None:
+            return t
+        lo, hi = self._rank_range(self.d_inner)
+        return torch.cat([t[..., lo:hi], t[..., self.d_inner:]], dim=-1)
+
+    def whole_channels(self, t: torch.Tensor) -> torch.Tensor:
+        """(..., this rank's conv channels) -> (..., conv_ch): the x
+        channels all-gathered over ``tp_group``."""
+        if self.tp_group is None:
+            return t
+        di = t.shape[-1] - self.bc_channels
+        x = all_gather_dim(t[..., :di].contiguous(), t.dim() - 1,
+                           self.tp_group)
+        return torch.cat([x, t[..., di:]], dim=-1)
 
 
 # --------------------------------------------------------------------- #
 # Mamba2 layer (full sequence and single-step decode)
 # --------------------------------------------------------------------- #
 
-def _project(lp: MambaLayer, x: torch.Tensor):
+def _project(w: Dict[str, torch.Tensor], x: torch.Tensor):
     """x: (..., d) -> (z, xbc_raw, dt) with xbc_raw = concat(x', B, C)."""
-    z = x @ lp.wz
-    xbc = torch.cat([x @ lp.wx, x @ lp.wB, x @ lp.wC], dim=-1)
-    return z, xbc, x @ lp.wdt
+    z = x @ w["wz"]
+    xbc = torch.cat([x @ w["wx"], x @ w["wB"], x @ w["wC"]], dim=-1)
+    return z, xbc, x @ w["wdt"]
 
 
 def _causal_conv(xbc: torch.Tensor, w: torch.Tensor,
@@ -122,13 +189,19 @@ def _causal_conv(xbc: torch.Tensor, w: torch.Tensor,
     return F.silu(out + b)
 
 
-def _gated_out(lp: MambaLayer, cfg: ModelConfig, y: torch.Tensor,
-               xi: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+def _gated_out(lp: MambaLayer, cfg: ModelConfig, w: Dict[str, torch.Tensor],
+               y: torch.Tensor, xi: torch.Tensor,
+               z: torch.Tensor) -> torch.Tensor:
     """D skip, then rms_norm(y * silu(z)) and the out projection.
-    y, xi: (..., h, p); z: (..., d_inner)."""
-    y = y + xi * lp.D[:, None].to(xi.dtype)
-    y = y.flatten(-2)
-    return rms_norm(y * F.silu(z), lp.norm_g, cfg.norm_eps) @ lp.out_proj
+    y, xi: (..., h, p); z: (..., d_inner). Under ``tp_group`` the norm's
+    row is split over the group and the projection's output summed."""
+    y = y + xi * w["D"][:, None].to(xi.dtype)
+    y = y.flatten(-2) * F.silu(z)
+    group = lp.tp_group
+    if group is None:
+        return rms_norm(y, w["norm_g"], cfg.norm_eps) @ w["out_proj"]
+    y = split_rms_norm(y, w["norm_g"], cfg.norm_eps, cfg.d_inner, group)
+    return reduce_from_region(y @ w["out_proj"], group)
 
 
 def mamba_layer(lp: MambaLayer, cfg: ModelConfig, x: torch.Tensor
@@ -137,24 +210,30 @@ def mamba_layer(lp: MambaLayer, cfg: ModelConfig, x: torch.Tensor
 
     Returns (out, final ssm state (b, h, p, n) fp32, conv tail): the tail is
     the last (width - 1) raw xbc rows, left-padded with zeros for a prompt
-    shorter than that — the decode conv state."""
-    ssm, di, heads, gn, _ = _dims(cfg)
-    z, xbc_raw, dt = _project(lp, x)
+    shorter than that — the decode conv state (this rank's channels under
+    ``tp_group``, and h its heads)."""
+    ssm = cfg.ssm
+    gn = ssm.ngroups * ssm.state_dim
+    w = lp.weights()
+    if lp.tp_group is not None:
+        x = copy_to_region(x, lp.tp_group)
+    heads, di = w["A_log"].shape[0], w["wx"].shape[1]
+    z, xbc_raw, dt = _project(w, x)
     keep = ssm.conv_width - 1
     tail = xbc_raw[:, -keep:]
     if tail.shape[1] < keep:
         tail = F.pad(tail, (0, 0, keep - tail.shape[1], 0))
-    xbc = _causal_conv(xbc_raw, lp.conv_weight(), lp.conv_b)
+    xbc = _causal_conv(xbc_raw, w["conv_w"], w["conv_b"])
     # Views of the conv output in the kernel's layout: no copy.
     xi = xbc[..., :di].unflatten(-1, (heads, ssm.head_dim))
     B = xbc[..., di:di + gn].unflatten(-1, (ssm.ngroups, ssm.state_dim))
     C = xbc[..., di + gn:].unflatten(-1, (ssm.ngroups, ssm.state_dim))
     # softplus in fp32; F.softplus returns its input above 20, where the
     # exact value differs from it by less than 1e-8
-    dt = F.softplus(dt.float() + lp.dt_bias)
-    A = -torch.exp(lp.A_log)
+    dt = F.softplus(dt.float() + w["dt_bias"])
+    A = -torch.exp(w["A_log"])
     y, state = ops.ssd_scan(xi, dt, A, B, C, ssm.chunk_size)
-    return _gated_out(lp, cfg, y, xi, z), state, tail
+    return _gated_out(lp, cfg, w, y, xi, z), state, tail
 
 
 def mamba_decode_step(lp: MambaLayer, cfg: ModelConfig, x: torch.Tensor,
@@ -162,26 +241,35 @@ def mamba_decode_step(lp: MambaLayer, cfg: ModelConfig, x: torch.Tensor,
                       ssm_state: torch.Tensor) -> torch.Tensor:
     """One-token recurrent step. x: (b, 1, d); conv_state: (b, width - 1,
     conv_ch) and ssm_state: (b, h, p, n) fp32 are views into the cache and
-    are advanced IN PLACE. Returns the block's output (b, 1, d)."""
-    ssm, di, heads, gn, _ = _dims(cfg)
+    are advanced IN PLACE. Returns the block's output (b, 1, d). Under
+    ``tp_group`` h counts this rank's heads; conv_state stays whole."""
+    ssm = cfg.ssm
+    gn = ssm.ngroups * ssm.state_dim
+    w = lp.weights()
+    if lp.tp_group is not None:
+        x = copy_to_region(x, lp.tp_group)
+    heads, di = w["A_log"].shape[0], w["wx"].shape[1]
     g, r = ssm.ngroups, heads // ssm.ngroups
-    z, xbc, dt = _project(lp, x[:, 0])
-    window = torch.cat([conv_state.to(xbc.dtype), xbc[:, None]], dim=1)
-    conv_state.copy_(window[:, 1:])
-    xbc = F.silu((window * lp.conv_weight()).sum(dim=1) + lp.conv_b)
+    z, xbc, dt = _project(w, x[:, 0])
+    window = torch.cat([lp.rank_channels(conv_state).to(xbc.dtype),
+                        xbc[:, None]], dim=1)
+    conv_state.copy_(torch.cat([
+        conv_state[:, 1:],
+        lp.whole_channels(xbc[:, None]).to(conv_state.dtype)], dim=1))
+    xbc = F.silu((window * w["conv_w"]).sum(dim=1) + w["conv_b"])
     b = x.shape[0]
     xi = xbc[:, :di].reshape(b, g, r, ssm.head_dim)
     B = xbc[:, di:di + gn].reshape(b, g, ssm.state_dim).float()
     C = xbc[:, di + gn:].reshape(b, g, ssm.state_dim).float()
-    dt = F.softplus(dt.float() + lp.dt_bias)                     # (b, h)
-    decay = torch.exp(dt * -torch.exp(lp.A_log))                 # (b, h)
+    dt = F.softplus(dt.float() + w["dt_bias"])                   # (b, h)
+    decay = torch.exp(dt * -torch.exp(w["A_log"]))               # (b, h)
     dtx = (xi * dt.reshape(b, g, r, 1).to(xi.dtype)).float()     # (b, g, r, p)
     # The heads of group k read B[:, k] and C[:, k] by broadcast.
     state = ssm_state.view(b, g, r, ssm.head_dim, ssm.state_dim)
     state.mul_(decay.reshape(b, g, r, 1, 1))
     state.add_(dtx[..., None] * B[:, :, None, None, :])
     y = torch.einsum("bgn,bgrpn->bgrp", C, state).to(xi.dtype)
-    return _gated_out(lp, cfg, y.reshape(b, heads, -1),
+    return _gated_out(lp, cfg, w, y.reshape(b, heads, -1),
                       xi.reshape(b, heads, -1), z)[:, None]
 
 
@@ -214,12 +302,8 @@ class SharedAttn(nn.Module):
         cfg = self.cfg
         a_in = torch.cat([h, emb0], dim=-1) if (
             cfg.hybrid.attn_concat_embedding) else h
-        h = h + attention_block(
-            self.attn.params(), rms_norm(a_in, self.ln, cfg.norm_eps),
-            num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
-            head_dim=cfg.resolved_head_dim, rope_fraction=cfg.rope_fraction,
-            rope_theta=cfg.rope_theta, causal=True, kv_cache=kv_cache,
-            rope=rope)
+        h = h + self.attn(rms_norm(a_in, self.ln, cfg.norm_eps), kv_cache,
+                          rope)
         return h + self.ffn(rms_norm(h, self.ln_ffn, cfg.norm_eps))
 
 
@@ -256,6 +340,9 @@ class Mamba(nn.Module):
                 generator, (cfg.d_model, cfg.padded_vocab), dtype), device)
         if cfg.family == "hybrid":
             self.shared_attn = SharedAttn(cfg, generator, dtype, device)
+        # The model axis's group where ``embed`` holds this rank's block of
+        # the vocabulary (parallel.tensor), as the transformer's.
+        self.vocab_group = None
 
     @property
     def device(self) -> torch.device:
@@ -287,7 +374,7 @@ class Mamba(nn.Module):
             x = x + y
             if cache is not None:
                 cache["ssm"][i].copy_(state)
-                cache["conv"][i].copy_(tail)
+                cache["conv"][i].copy_(lp.whole_channels(tail))
         if every:
             kv = None
             if cache is not None:
@@ -314,7 +401,7 @@ class Mamba(nn.Module):
         (b, s, d). With a cache the groups fill it (see ``_group``) and the
         clock advances by s. ``remat``: the policy each group runs under
         (none with a cache), as the reference's."""
-        x = self.embed[tokens]
+        x = embed_tokens(self.embed, tokens, self.vocab_group)
         emb0 = x
         rope = self._rope(tokens.shape[1], cache, x.device)
         group = apply_remat(self._group, None if cache is not None else remat)
@@ -326,16 +413,21 @@ class Mamba(nn.Module):
         return x
 
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
-        x = rms_norm(x, self.ln_f, self.cfg.norm_eps)
+        """Logits over the vocabulary, or over this rank's block of it
+        under ``vocab_group``."""
         head = self.embed.T if self.cfg.tie_embeddings else self.head
-        return x @ head
+        return lm_logits(x, self.ln_f, head, self.cfg.norm_eps,
+                         self.vocab_group)
+
+    def _serving_logits(self, x: torch.Tensor) -> torch.Tensor:
+        return serving_logits(self._logits(x), self.vocab_group)
 
     def forward(self, tokens: torch.Tensor, cache: Optional[dict] = None
                 ) -> Tuple[torch.Tensor, Optional[dict]]:
         """Full-sequence forward. tokens: (b, s) integer. Returns (logits
         (b, s, padded_vocab), cache); a given cache is filled as by a
         prefill (the caller's dict, updated in place)."""
-        return self._logits(self._trunk(tokens, cache)), cache
+        return self._serving_logits(self._trunk(tokens, cache)), cache
 
     def loss(self, batch: Dict[str, torch.Tensor], remat: Optional[str] = "dots"
              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
@@ -343,7 +435,8 @@ class Mamba(nn.Module):
         mean token cross-entropy in fp32 (targets of -1 ignored); aux is 0,
         as in the reference."""
         x = self._trunk(batch["tokens"], None, remat)
-        ce = cross_entropy_loss(self._logits(x), batch["targets"])
+        ce = lm_cross_entropy(self._logits(x), batch["targets"],
+                              self.vocab_group)
         aux = torch.zeros((), dtype=torch.float32, device=ce.device)
         return ce + aux, {"ce": ce, "aux": aux}
 
@@ -379,7 +472,7 @@ class Mamba(nn.Module):
         (b, 1, padded_vocab). Only that position goes through the final norm
         and the head."""
         x = self._trunk(tokens, cache)
-        return self._logits(x[:, -1:, :]), cache
+        return self._serving_logits(x[:, -1:, :]), cache
 
     @torch.no_grad()
     def decode_step(self, cache: dict, tokens: torch.Tensor
@@ -388,7 +481,7 @@ class Mamba(nn.Module):
         conv and ssm state in place; the hybrid's shared block writes its K/V
         at each sequence's position and attends over its cache."""
         cfg = self.cfg
-        x = self.embed[tokens]
+        x = embed_tokens(self.embed, tokens, self.vocab_group)
         emb0 = x
         every = self.attn_every
         rope = self._rope(1, cache, x.device)
@@ -401,4 +494,4 @@ class Mamba(nn.Module):
                     "k": cache["attn_k"][g], "v": cache["attn_v"][g],
                     "pos": cache["pos"]}, rope)
         cache["pos"] = cache["pos"] + 1
-        return self._logits(x), cache
+        return self._serving_logits(x), cache

@@ -40,24 +40,22 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models.common import (
     DEFAULT_DTYPE,
     attention_block,
-    cross_entropy_loss,
     dense_init,
     embed_init,
+    embed_tokens,
     init_generator,
     ffn_block,
     init_ffn_params,
     init_moe_params,
+    lm_cross_entropy,
+    lm_logits,
     moe_block,
     rms_norm,
     rope_frequencies,
     rope_positions,
+    serving_logits,
 )
-from repro_torch.parallel.sharding import all_gather_dim
-from repro_torch.parallel.tensor import (
-    copy_to_region,
-    vocab_parallel_cross_entropy,
-    vocab_parallel_embed,
-)
+from repro_torch.parallel.tensor import copy_to_region
 
 
 def _param(t: torch.Tensor, device: torch.device) -> nn.Parameter:
@@ -307,10 +305,7 @@ class Transformer(nn.Module):
                patches: Optional[torch.Tensor]) -> torch.Tensor:
         """Token embeddings (b, s, d), behind the VLM's patch embeddings
         (b, p, d) when there are any."""
-        if self.vocab_group is None:
-            x = self.embed[tokens]
-        else:
-            x = vocab_parallel_embed(self.embed, tokens, self.vocab_group)
+        x = embed_tokens(self.embed, tokens, self.vocab_group)
         if patches is not None:
             x = torch.cat([patches.to(x.dtype), x], dim=1)
         return x
@@ -362,20 +357,13 @@ class Transformer(nn.Module):
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
         """Logits over the vocabulary, or over this rank's block of it under
         ``vocab_group``."""
-        x = rms_norm(x, self.ln_f, self.cfg.norm_eps)
         head = self.embed.T if self.cfg.tie_embeddings else self.head
-        if self.vocab_group is not None:
-            x = copy_to_region(x, self.vocab_group)
-        return x @ head
+        return lm_logits(x, self.ln_f, head, self.cfg.norm_eps,
+                         self.vocab_group)
 
     def _serving_logits(self, x: torch.Tensor) -> torch.Tensor:
-        """Logits over the whole vocabulary on every rank: under
-        ``vocab_group`` the ranks' blocks are all-gathered, as the
-        reference's serving steps return their logits replicated."""
-        logits = self._logits(x)
-        if self.vocab_group is None:
-            return logits
-        return all_gather_dim(logits, logits.dim() - 1, self.vocab_group)
+        """Logits over the whole vocabulary on every rank."""
+        return serving_logits(self._logits(x), self.vocab_group)
 
     def forward(self, tokens: torch.Tensor, cache: Optional[dict] = None,
                 patches: Optional[torch.Tensor] = None
@@ -397,11 +385,7 @@ class Transformer(nn.Module):
                              remat)
         n_patch = 0 if patches is None else patches.shape[1]
         logits = self._logits(x[:, n_patch:])
-        if self.vocab_group is None:
-            ce = cross_entropy_loss(logits, batch["targets"])
-        else:
-            ce = vocab_parallel_cross_entropy(logits, batch["targets"],
-                                              self.vocab_group)
+        ce = lm_cross_entropy(logits, batch["targets"], self.vocab_group)
         if aux is None:
             aux = torch.zeros((), dtype=torch.float32, device=ce.device)
         return ce + aux, {"ce": ce, "aux": aux}

@@ -2,14 +2,15 @@
 
 The port's own module: in the reference GSPMD partitions the compute from
 the sharding specs; here it is explicit. A column-parallel product (wq/wk/wv,
-the FFN's up and gate) takes its input through ``copy_to_region`` (identity
-forward, all-reduce of the gradient backward) and a row-parallel one (wo,
-the FFN's down) gives its output through ``reduce_from_region`` (all-reduce
-forward, identity backward), so that every rank of the group holds the same
-activations between blocks. The embedding and the logits are split over the
-vocabulary: ``vocab_parallel_embed`` looks up the rank's rows and sums over
-the group; ``vocab_parallel_cross_entropy`` all-reduces the rows' maximum
-and the sum of their exponentials. Every rank computes the same loss from
+the FFN's up and gate, a Mamba2 block's wz/wx) takes its input through
+``copy_to_region`` (identity forward, all-reduce of the gradient backward)
+and a row-parallel one (wo, the FFN's down, out_proj) gives its output
+through ``reduce_from_region`` (all-reduce forward, identity backward), so
+that every rank of the group holds the same activations between blocks.
+The embedding and the logits are split over the vocabulary:
+``vocab_parallel_embed`` looks up the rank's rows and sums over the group;
+``vocab_parallel_cross_entropy`` all-reduces the rows' maximum and the sum
+of their exponentials. Every rank computes the same loss from
 the same replicated values, so each backward gives its rank the gradient of
 its own shards.
 """
@@ -92,15 +93,32 @@ def vocab_parallel_cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
 
 
 def apply_tensor_parallel(model, placements, group) -> None:
-    """Point a dense ``Transformer`` whose parameters are this rank's pieces
-    under ``placements`` (``parallel.sharding.param_shardings``) at the
-    model axis's ``group``: each attention and FFN whose weights the rules
-    split over the axis runs on its shards, the others stay replicated (the
-    rules' replicate-if-not-divisible), and so does the vocabulary."""
+    """Point a model whose parameters are this rank's pieces under
+    ``placements`` (``parallel.sharding.param_shardings``) at the model
+    axis's ``group``: each block whose weights the rules split over the
+    axis runs on its shards, the others stay replicated (the rules'
+    replicate-if-not-divisible), and so does the vocabulary. A
+    ``Transformer``'s attention and FFN; a ``Mamba``'s layers (their SSD
+    heads) and, for the hybrid, its shared block's attention and FFN."""
     def split(name: str):
         return group if MODEL_AXIS in placements[name].axes() else None
 
     model.vocab_group = split("embed")
     for i, layer in enumerate(model.layers):
-        layer.attn.tp_group = split(f"layers.{i}.attn.wq")
-        layer.ffn.tp_group = split(f"layers.{i}.ffn.wu")
+        if hasattr(layer, "attn"):
+            layer.attn.tp_group = split(f"layers.{i}.attn.wq")
+            layer.ffn.tp_group = split(f"layers.{i}.ffn.wu")
+            continue
+        layer.tp_group = split(f"layers.{i}.A_log")
+        cut = split(f"layers.{i}.wx")
+        if cut is not layer.tp_group or (
+                cut is not None and model.cfg.ssm.ngroups > 1):
+            raise NotImplementedError(
+                f"layer {i}: its {layer.heads} SSD heads in "
+                f"{model.cfg.ssm.ngroups} groups do not split over "
+                f"{dist.get_world_size(group)} ranks with its "
+                f"{layer.d_inner} channels")
+    shared = getattr(model, "shared_attn", None)
+    if shared is not None:
+        shared.attn.tp_group = split("shared_attn.attn.wq")
+        shared.ffn.tp_group = split("shared_attn.ffn.wu")

@@ -12,10 +12,12 @@ communication volume vs. plain all-reduce" property.
 
 from __future__ import annotations
 
+import math
 from typing import Dict, Mapping, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 from torch.nn.utils import parametrize
 
@@ -77,17 +79,46 @@ class _GatherDim(torch.autograd.Function):
         return reduce_scatter_dim(grad, ctx.dim, ctx.group), None, None
 
 
+class _FromHolder(torch.autograd.Function):
+    """A layer held whole by one rank of ``group`` (``Placement.owner``):
+    the holder's tensor broadcast to every rank forward (the others pass an
+    empty piece and allocate ``shape``); the gradient summed onto the
+    holder backward, the others left with an empty piece, as
+    ``train_step._reduce_grad``'s owner branch leaves them."""
+
+    @staticmethod
+    def forward(ctx, piece, shape, holder, group):
+        ctx.holder, ctx.group = holder, group
+        ctx.mine = dist.get_rank(group) == holder
+        out = (piece.contiguous().clone() if ctx.mine
+               else piece.new_empty(shape))
+        dist.broadcast(out, dist.get_global_rank(group, holder), group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.contiguous().clone()
+        dist.reduce(grad, dist.get_global_rank(ctx.group, ctx.holder),
+                    group=ctx.group)
+        if not ctx.mine:
+            grad = grad.narrow(0, 0, 0)
+        return grad, None, None, None
+
+
 class _GatherOnUse(nn.Module):
     """A parametrization: the whole tensor over the data axis from this
     rank's piece, each time the module reads it."""
 
-    def __init__(self, gathers):
+    def __init__(self, gathers, owner=None):
         super().__init__()
         self.gathers = gathers          # (dim, group), innermost axis first
+        self.owner = owner              # (shape, holder, group) or None
 
     def forward(self, shard: torch.Tensor) -> torch.Tensor:
         for dim, group in self.gathers:
             shard = _GatherDim.apply(shard, dim, group)
+        if self.owner is not None:
+            shard = _FromHolder.apply(shard, *self.owner)
         return shard
 
 
@@ -98,19 +129,24 @@ def gather_on_use(model: nn.Module, placements: Mapping[str, Placement],
     whole over it where the model reads it, layer by layer, and its gradient
     reduce-scattered back to the piece (``torch.nn.utils.parametrize``; the
     parameter object stays the piece, so the caller's dictionary of
-    parameters stays valid). Dims divided over the model axis stay
-    divided."""
+    parameters stays valid). A layer the rules give whole to one rank of a
+    data axis (``Placement.owner``) is broadcast from that rank where it is
+    read, and its gradient summed onto it. Dims divided over the model axis
+    stay divided."""
     data = set(dp_axes(mesh))
+    sizes = mesh_spec(mesh).shape
     for name, pl in placements.items():
-        if pl.owner is not None:
-            raise NotImplementedError(
-                f"{name}: ZeRO-3 of a layer held whole by one rank (the "
-                "rule sharded the stacked layer axis) waits for its slice "
-                "(ROADMAP Queue 1)")
         gathers = [(d, mesh.get_group(a)) for d, e in enumerate(pl.spec)
                    for a in reversed(entry_axes(e)) if a in data]
-        if gathers:
-            owner, _, attr = name.rpartition(".")
+        owner = None
+        if pl.owner is not None:
+            axis, holder = pl.owner
+            shape = tuple(n // math.prod(sizes[a] for a in entry_axes(e)
+                                         if a not in data)
+                          for n, e in zip(pl.shape, pl.spec))
+            owner = (shape, holder, mesh.get_group(axis))
+        if gathers or owner:
+            module, _, attr = name.rpartition(".")
             parametrize.register_parametrization(
-                model.get_submodule(owner), attr, _GatherOnUse(gathers),
-                unsafe=True)
+                model.get_submodule(module), attr,
+                _GatherOnUse(gathers, owner), unsafe=True)

@@ -89,14 +89,16 @@ SERVE_B, SERVE_S, SERVE_TICKS, SERVE_MAX = 4, 12, 3, 32
 
 
 def serve_pair(shape, axes=("data", "model")):
-    \"\"\"A prefill and SERVE_TICKS greedy decode ticks of the reduced smollm
-    split over ``shape`` (``shard_model``, the cache as
+    \"\"\"A prefill and SERVE_TICKS greedy decode ticks of CFG's reduced
+    model split over ``shape`` (``shard_model``, the cache as
     ``cache_shardings`` lays it out) against the whole model in this
-    process: the largest logit difference at each call and whether this
-    rank's greedy tokens equal the whole model's for its rows.\"\"\"
+    process: the largest logit difference at each call, whether this
+    rank's greedy tokens equal the whole model's for its rows, this rank's
+    cache shapes and each cache gathered whole against the whole model's
+    (its largest error over its largest magnitude).\"\"\"
     from repro_torch.models import get_model
     from repro_torch.parallel.sharding import (batch_spec, cache_shardings,
-                                               local_shard)
+                                               gather_full, local_shard)
     from repro_torch.train import shard_model
     plan = MemoryPlan(1, "float32", True, "dots", 0.0)
     make = lambda: get_model(CFG)(CFG, dtype=torch.float32, device="cpu",
@@ -111,7 +113,8 @@ def serve_pair(shape, axes=("data", "model")):
     mine = local_shard(toks, batch_spec(mesh, tuple(toks.shape)), mesh)
     whole = ref.init_cache(SERVE_B, SERVE_MAX)
     specs = cache_shardings(CFG, mesh, whole)
-    cache = {n: local_shard(t, rows if n == "pos" else specs[n], mesh).clone()
+    specs["pos"] = rows
+    cache = {n: local_shard(t, specs[n], mesh).clone()
              for n, t in whole.items()}
     out = {"logit_err": [], "tokens_equal": [], "logit_shape_ok": []}
     with torch.no_grad():
@@ -128,7 +131,13 @@ def serve_pair(shape, axes=("data", "model")):
             if t < SERVE_TICKS:
                 lg, cache = model.decode_step(cache, mine_next)
                 lr, whole = ref.decode_step(whole, ref_next)
-    out["cache_heads"] = list(cache["k"].shape)
+    out["local_shapes"] = {n: list(t.shape) for n, t in cache.items()}
+    out["cache_err"] = {
+        n: ((gather_full(cache[n], specs[n], mesh) - t).abs().max()
+            / max(t.abs().max().item(), 1e-30)).item()
+        for n, t in whole.items() if n != "pos"}
+    out["pos_equal"] = bool(torch.equal(
+        gather_full(cache["pos"], specs["pos"], mesh), whole["pos"]))
     return out
 
 
@@ -693,13 +702,13 @@ def test_serving_split_over_the_model_axis_matches_one_process(four, case,
     the reference's serving steps return them replicated."""
     for res in four:
         _check_serving(res[case])
-        assert res[case]["cache_heads"][3] == heads
+        assert res[case]["local_shapes"]["k"][3] == heads
 
 
 def test_serving_split_over_two_ranks_matches_one_process(two):
     for res in two:
         _check_serving(res["serve_tp2"])
-        assert res["serve_tp2"]["cache_heads"][3] == 1
+        assert res["serve_tp2"]["local_shapes"]["k"][3] == 1
 
 
 # ------------------------------------------------------------------------- #

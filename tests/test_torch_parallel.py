@@ -14,6 +14,7 @@ multi-process checks are in ``tests/test_torch_distributed.py``.
 
 import dataclasses
 import functools
+import re
 
 import jax
 import jax.numpy as jnp
@@ -50,7 +51,7 @@ from repro_torch.parallel import (
 from repro_torch.parallel import compression, pipeline, sharding, zero
 from repro_torch.parallel.policy import MemoryPlan
 from repro_torch.parallel.sharding import Placement
-from repro_torch.train import init_train_state, shard_train_state
+from repro_torch.train import init_train_state, shard_model, shard_train_state
 from repro_torch.train import sharded_train_step
 
 torch.set_num_threads(1)
@@ -352,11 +353,12 @@ def test_reference_leaf(arch, name, path, layer):
     assert reference_leaf(get_config(arch), name) == (path, layer)
 
 
-@pytest.mark.parametrize("arch", ["mamba2-780m", "granite-moe-3b-a800m",
+@pytest.mark.parametrize("arch", ["internvl2-76b", "granite-moe-3b-a800m",
                                   "seamless-m4t-large-v2"])
 def test_tensor_parallelism_of_other_families_raises_before_any_step(arch):
-    """Only the dense family splits its compute over the model axis: the
-    others raise at once, naming the roadmap, and leave the state whole."""
+    """The dense, ssm and hybrid families split their compute over the
+    model axis; the VLM, the MoE and the encoder-decoder raise at once,
+    naming the roadmap, and leave the state whole."""
     cfg = get_config(arch, reduced=True)
     plan = MemoryPlan(1, "float32", True, "dots", 0.0)
     mesh = MeshSpec((1, 2), ("data", "model"))
@@ -385,11 +387,34 @@ def test_sharded_step_needs_a_device_mesh():
 
 
 def test_zero3_of_the_ssm_family_raises_before_any_step():
+    """The ssm family runs ZeRO-3 (the gloo cases in
+    ``tests/test_torch_distributed_ssm.py``) but, as every family, raises
+    for a one-row batch over two data ranks, naming the sequence split's
+    item alone, before it touches the model."""
     cfg = get_config("mamba2-780m", reduced=True)
+    plan = dataclasses.replace(MemoryPlan(1, "float32", True, "dots", 0.0),
+                               zero_stage=3)
+    model = get_model(cfg)(cfg, dtype=torch.float32, device="cpu",
+                           generator=torch.Generator().manual_seed(0))
+    before = {n: p.shape for n, p in model.named_parameters()}
+    with pytest.raises(NotImplementedError) as raised:
+        shard_model(cfg, plan, model, MeshSpec((2, 1), ("data", "model")),
+                    batch_rows=1)
+    assert re.findall(r"item (\d+)", str(raised.value)) == ["13"]
+    assert {n: p.shape for n, p in model.named_parameters()} == before
+
+
+def test_zero3_of_the_encdec_family_raises_before_any_step():
+    """The ssm and hybrid families run ZeRO-3 now; the encoder-decoder is
+    the family whose ZeRO-3 still raises, naming its item, before any
+    step."""
+    cfg = get_config("seamless-m4t-large-v2", reduced=True)
     plan = dataclasses.replace(MemoryPlan(1, "float32", True, "dots", 0.0),
                                zero_stage=3)
     state = init_train_state(cfg, plan, torch.Generator().manual_seed(0),
                              dtype=torch.float32, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError,
+                       match="ZeRO-3 of the encdec family waits for "
+                             "ROADMAP Queue 1 item 12"):
         shard_train_state(cfg, plan, state,
                           MeshSpec((2, 1), ("data", "model")))
