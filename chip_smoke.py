@@ -22,7 +22,9 @@ run with a non-zero exit code (nothing drops to the CPU or to a plain version):
            160 too: zamba2-2.7b's training layer (the train_zamba phase's,
            with each fused SDPA backend alone beside it), a ragged tile and
            a GQA group not causal, each three bitwise-equal calls;
-           the SSD scan's backward at mamba2-780m's training layer (the
+           seamless-m4t-large-v2's cross-attention at a rank's heads in
+           parallel_gloo_split (512 query rows over 1,024 keys, not
+           causal), three bitwise-equal calls; the SSD scan's backward at mamba2-780m's training layer (the
            train_mamba phase's), zamba2-2.7b's layer and a ragged grouped
            case with the final state's cotangent, fp32 and bf16, each with
            its launch plan, every stage's time alone and three
@@ -149,6 +151,18 @@ run with a non-zero exit code (nothing drops to the CPU or to a plain version):
            in bf16 (a prefill of 2 x 128 tokens, 3 greedy ticks) against
            the whole model: every call's logits, the picks equal but at a
            tie
+  parallel_gloo_split
+           the encoder-decoder and the VLM split over the model axis on two
+           processes over gloo, (1 data, 2 model), full width:
+           seamless-m4t-large-v2 at 4 + 4 layers, one sharded step of 2 x
+           512 target tokens over 1,024 source frames against
+           make_train_step (parallel_gloo_ssm's checks, every launch as
+           reckoned, the cross-attention's kernels at 8 heads, 512 rows
+           over 1,024 keys, seen by shape), then split serving bf16 and
+           fp32 (2 x 64 tokens over 1,024 frames, 3 greedy ticks; the
+           cross K/V cache at 8 heads a rank) against the whole model;
+           internvl2-76b at 2 layers, split serving alone (2 x 64 tokens
+           behind 256 patches; its split step does not fit the card)
   dryrun   COMET's measured frontend: (a) the op counter
            (repro_torch.core.op_counter) over the train_lm step, a smollm
            prefill (b 1, s 1024) and a decode tick (b 8, max_seq 2048,
@@ -159,10 +173,11 @@ run with a non-zero exit code (nothing drops to the CPU or to a plain version):
            the host cost of a call by each dispatcher route, and the
            kernels' operators against direct launches on the decode tick,
            alternating; (b) launch.dryrun.lower_cell over the 32 runnable
-           cells on the 16 x 16 mesh and the 12 dense and 8 ssm and hybrid
-           ones on 2 x 16 x 16, on the host, as rank 0 of a fake process
-           group (no group may be held then): those families' cells ok but
-           long_500k (item 13 alone), every refusal naming its ROADMAP item
+           cells on the 16 x 16 mesh and the dense, ssm, hybrid, encdec
+           and VLM ones (26) on 2 x 16 x 16, on the host, as rank 0 of a
+           fake process group (no group may be held then): those
+           families' cells ok but long_500k (item 13 alone), every refusal
+           naming its ROADMAP item
   study    COMET's batch evaluator (repro_torch.core: the port of the JAX
            package's jax_engine) over the paper's transformer-1t study grid:
            the paper shape (seq 2048, batch 1024), strategies (mp, dp) =
@@ -302,6 +317,7 @@ from repro_torch.parallel.compression import compressed_psum  # noqa: E402
 from repro_torch.parallel.sharding import (  # noqa: E402
     batch_spec,
     cache_shardings,
+    gather_full,
     local_shard,
 )
 from repro_torch.serve import Engine, EngineConfig, Request  # noqa: E402
@@ -784,12 +800,13 @@ def _sdpa_backends(q, k, v, do, causal) -> dict:
 
 def _attention_backward_case(name, b, h, hkv, s, d, causal, dtype, gen,
                              main=False, bitwise=False,
-                             backends=False) -> dict:
+                             backends=False, skv=None) -> dict:
     """The training route at one shape: the forward with the rows'
     log-sum-exp against the plain forward, then the backward against the
     plain backward, which takes the plain forward's o and lse (nothing the
     kernels made). Inputs in the model's layout, (b, s, heads, d), handed
-    over as transposed views. ``main``: three calls must agree bitwise; the
+    over as transposed views; ``skv`` key rows where they are not ``s``
+    (a cross-attention's). ``main``: three calls must agree bitwise; the
     plain version is timed eagerly (its temporaries are gigabytes).
     ``bitwise``: the three calls at another case too. ``backends``:
     autograd's backward through each fused SDPA backend alone
@@ -805,10 +822,12 @@ def _attention_backward_case(name, b, h, hkv, s, d, causal, dtype, gen,
     ``scratch_bytes``: the call's ``flash_attention_backward_plan``;
     ``kernels_per_call``: the kernels a call launched, counted in the
     trace, which must equal the plan's."""
-    def draw(heads):
-        t = torch.randn((b, s, heads, d), generator=gen, device=DEVICE)
+    skv = skv or s
+
+    def draw(heads, rows=s):
+        t = torch.randn((b, rows, heads, d), generator=gen, device=DEVICE)
         return t.to(dtype).transpose(1, 2)
-    q, k, v, do = draw(h), draw(hkv), draw(hkv), draw(h)
+    q, k, v, do = draw(h), draw(hkv, skv), draw(hkv, skv), draw(h)
     out, lse = flash_attention_lse_cuda(q, k, v, causal)
     got = flash_attention_backward_cuda(q, k, v, out, lse, do, causal)
     torch.cuda.synchronize()
@@ -830,12 +849,12 @@ def _attention_backward_case(name, b, h, hkv, s, d, causal, dtype, gen,
             lambda: flash_attention_lse_cuda(q, k, v, causal), (out, lse))
     del got, want
 
-    flops, nbytes = attn_module.backward_work(b, h, hkv, s, s, d, dtype,
+    flops, nbytes = attn_module.backward_work(b, h, hkv, s, skv, d, dtype,
                                               causal)
     # the same bound with the products on the fp32 pipes, beside it
     pipes_bound = (bound(flops, nbytes, PEAK_FLOPS[dtype])["bound_ms"]
                    if dtype == torch.float32 else None)
-    fwd_bound = bound(*attn_module.forward_work(b, h, hkv, s, s, d, dtype,
+    fwd_bound = bound(*attn_module.forward_work(b, h, hkv, s, skv, d, dtype,
                                                 causal, lse=True),
                       PRODUCT_FLOPS[dtype])["bound_ms"]
     sets = [(q, k, v, out, lse, do)]
@@ -849,7 +868,7 @@ def _attention_backward_case(name, b, h, hkv, s, d, causal, dtype, gen,
         F.scaled_dot_product_attention(q_, k_, v_, is_causal=causal,
                                        enable_gqa=True)), sets)
     splits, plan_kernels, scratch_bytes = flash_attention_backward_plan(
-        b, h, hkv, s, d)
+        b, h, hkv, skv, d)
     ok = (out_err <= ATTN_TOL[dtype] and lse_err <= LSE_TOL * lse_scale
           and all(e <= tol * scale for e, scale in errs)
           and extra.get("bitwise_equal_calls", BWD_REPEATS) == BWD_REPEATS
@@ -874,7 +893,7 @@ def _attention_backward_case(name, b, h, hkv, s, d, causal, dtype, gen,
     return {
         "kernel": "flash_attention_backward", "case": name,
         "shape": {"b": b, "h": h, "hkv": hkv, "s": s, "d": d,
-                  "causal": causal},
+                  "causal": causal, **({"skv": skv} if skv != s else {})},
         "dtype": dtype_name(dtype),
         "max_abs_err": max(e for e, _ in errs),
         "grad_max_abs_err": dict(zip(("dq", "dk", "dv"), (e for e, _ in errs))),
@@ -982,7 +1001,8 @@ def _backward_cases() -> list:
     32 heads over 2), a ragged tile, a non-causal one, and the reduced
     configs' layer at launch.train's default batch (d 16); zamba2's shared
     block at head_dim 160 (its training layer, a ragged tile, a GQA group
-    not causal). RMSNorm: the
+    not causal); seamless's cross-attention at a rank's heads (fewer query
+    rows than keys, not causal). RMSNorm: the
     train_lm phase's rows (8 x 2048 of 576, the main case), ragged rows,
     few wide rows, a chatglm3-6b/minitron-8b-width training layer (the
     same 8 x 2048 rows of 4096) and rows that are not a whole number of
@@ -1030,6 +1050,17 @@ def _backward_cases() -> list:
             "GQA non-causal s=130, d=160", 2, 8, 2, 130, 160, False, dtype,
             gen_160, bitwise=True))
         torch.cuda.empty_cache()
+    # seamless-m4t-large-v2's cross-attention at a rank's heads in the
+    # parallel_gloo_split phase's step (8 of 16 heads of 64, 512 target
+    # rows over 1,024 source frames, not causal), from a stream of its own
+    gen_cross = torch.Generator(device=DEVICE).manual_seed(7)
+    cfg = get_config(ENCDEC_ARCH)
+    for dtype in (torch.float32, torch.bfloat16):
+        cases.append(_attention_backward_case(
+            "seamless cross sq=512 skv=1024", SPLIT_BATCH,
+            cfg.num_heads // 2, cfg.num_kv_heads // 2, SPLIT_SEQ,
+            cfg.resolved_head_dim, False, dtype, gen_cross, bitwise=True,
+            skv=SPLIT_SRC))
     return cases
 
 
@@ -1903,14 +1934,25 @@ ENCDEC_ARCH = "seamless-m4t-large-v2"
 ENCDEC_BATCH, ENCDEC_PROMPT, ENCDEC_TICKS, ENCDEC_MAX_SEQ = 8, 64, 32, 2048
 
 
-def _expected_encdec_launches(cfg, prefills: int, ticks: int) -> dict:
+def _expected_encdec_launches(cfg, prefills: int, ticks: int,
+                              steps: int = 0, remat: str = "none") -> dict:
     """A prefill: the encoder's attention and two norms a layer and
     ``ln_enc``, then the decoder's self- and cross-attention and three
-    norms a layer and ``ln_f``; a tick: the decoder's alone."""
+    norms a layer and ``ln_f``; a tick: the decoder's alone. A training
+    step of one microbatch: the prefill's kernels with one backward each;
+    a policy that recomputes the layers (anything but "none") runs their
+    forwards again in the backward (``ln_enc`` and ``ln_f`` lie outside
+    them). Split over the model axis a rank launches as many, on its
+    heads."""
     enc, dec = cfg.encdec.encoder_layers, cfg.encdec.decoder_layers
-    return {"flash_attention": (enc + 2 * dec) * prefills + 2 * dec * ticks,
-            "rmsnorm": (2 * enc + 1 + 3 * dec + 1) * prefills
-            + (3 * dec + 1) * ticks,
+    again = 1 if remat == "none" else 2
+    attn, norms = enc + 2 * dec, 2 * enc + 3 * dec
+    return {"flash_attention": attn * prefills + 2 * dec * ticks
+            + again * attn * steps,
+            "flash_attention_backward": attn * steps,
+            "rmsnorm": (norms + 2) * prefills + (3 * dec + 1) * ticks
+            + (again * norms + 2) * steps,
+            "rmsnorm_backward": (norms + 2) * steps,
             "ssd_scan": 0}
 
 
@@ -1956,7 +1998,7 @@ def phase_serve_encdec() -> dict:
 
     problems = []
     expected = _expected_encdec_launches(cfg, 1, ENCDEC_TICKS)
-    if launches != expected:
+    if any(launches[name] != expected[name] for name in launches):
         problems.append(f"launches {launches} != {expected}")
     if not all(0 <= t < cfg.padded_vocab for row in out for t in row):
         problems.append("a token lies outside the padded vocabulary")
@@ -3434,7 +3476,9 @@ MASTER_RESOLVED = 1e-3
 class _KernelCalls(TorchDispatchMode):
     """The port's kernel operators a region calls, counted by name and the
     shape of each call's first input: (b, s, heads, p) for the SSD scan,
-    (b, heads, s, d) for attention, the rows for RMSNorm."""
+    (b, heads, s, d) for attention, the rows for RMSNorm; an attention call
+    whose keys are not as many as its queries (a cross-attention's, a
+    decode tick's) adds ``skv`` and their count."""
 
     def __init__(self):
         super().__init__()
@@ -3443,6 +3487,9 @@ class _KernelCalls(TorchDispatchMode):
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         if func.namespace == "repro_torch":
             key = f"{func._opname} {list(args[0].shape)}"
+            if (func._opname.startswith("flash_attention")
+                    and args[1].shape[2] != args[0].shape[2]):
+                key += f" skv {args[1].shape[2]}"
             self.calls[key] = self.calls.get(key, 0) + 1
         return func(*args, **(kwargs or {}))
 
@@ -3477,16 +3524,18 @@ def _worst_leaf(got: dict, want: dict, m: dict) -> dict:
 
 
 def _master_where_resolved(got: dict, want: dict, m_got: dict,
-                           m_want: dict) -> dict:
+                           m_want: dict, out: dict = None) -> dict:
     """The split step's master copies (``got``) against the one process's
     (``want``) where the one-process first moment ``m_want`` exceeds
     MASTER_RESOLVED of its leaf's largest: the largest error there over the
     leaf's largest master, and its leaf. Beside it, for the record, the
     share of elements resolved, how many resolved elements the two steps'
     first moments disagree in sign on, and the largest one-process first
-    moment (over its leaf's largest) at which they disagree anywhere."""
-    out = {"scaled_err": 0.0, "leaf": None, "resolved": 0, "elements": 0,
-           "resolved_sign_flips": 0, "largest_flip": 0.0}
+    moment (over its leaf's largest) at which they disagree anywhere.
+    Adds ``want``'s leaves to ``out``, where given (an earlier call's)."""
+    out = out or {"scaled_err": 0.0, "leaf": None, "resolved": 0,
+                  "elements": 0, "resolved_sign_flips": 0,
+                  "largest_flip": 0.0}
     for name, w in want.items():
         m = m_want[name]
         largest = max(m.abs().max().item(), 1e-30)
@@ -3505,60 +3554,81 @@ def _master_where_resolved(got: dict, want: dict, m_got: dict,
     return out
 
 
-def _ssm_sharded_step(cfg, mesh) -> dict:
+def _split_errors(state: dict, ref: dict, mesh) -> dict:
+    """The split state against the one process's, gathered one leaf at a
+    time (a gathered copy of the whole state would hold it a third time
+    on the card): the parameters' largest absolute error; m's, v's and the
+    master's largest over each leaf's largest, and where (``_worst_leaf``);
+    the master where resolved (``_master_where_resolved``)."""
+    sh, opt, parts = state["shardings"], state["opt"], ("m", "v", "master")
+    param_err, worst, resolved = 0.0, {}, None
+    for n, p in ref["params"].items():
+        got = gather_full(state["params"][n].detach(), sh["params"][n], mesh)
+        param_err = max(param_err, (got - p.detach()).abs().max().item())
+        got = {part: {n: gather_full(opt[part][n], sh["opt"][part][n], mesh)}
+               for part in parts}
+        want = {part: {n: ref["opt"][part][n]} for part in parts}
+        for part in parts:
+            w = _worst_leaf(got[part], want[part], want["m"])
+            if part not in worst or w["scaled_err"] > worst[part][
+                    "scaled_err"]:
+                worst[part] = w
+        resolved = _master_where_resolved(got["master"], want["master"],
+                                          got["m"], want["m"], resolved)
+        del got
+    return {"param_max_abs_err": param_err,
+            **{f"{part}_scaled_err": worst[part]["scaled_err"]
+               for part in parts},
+            "worst": worst, "master_where_resolved": resolved}
+
+
+def _split_step(cfg, mesh, batch: dict, expected) -> dict:
     """One (1, 2) sharded step against make_train_step from the same state
-    and batch: the errors, the split step's kernel launches (counts zeroed
-    just before it, read just after) against the reckoned ones. Then, on
-    the same batch, a second step of each: the one process's is timed once
-    warm (its first beside it); the split step's logs the kernels and
-    shapes it calls, so its third is timed."""
+    and ``batch``: the errors, the split step's kernel launches (counts
+    zeroed just before it, read just after) against ``expected(cfg,
+    remat)``. Then, on the same batch, a second step of each: the one
+    process's is timed once warm (its first beside it); the split step's
+    logs the kernels and shapes it calls, so its third is timed. The split
+    state is laid out before the one process's is drawn, so that a rank
+    holds one whole state at a time beside its pieces; ``peak_bytes``: the
+    process's largest allocation on the card."""
     plan, ocfg = _par_plan_and_opt(cfg)
-    batch = _par_batches(cfg, 1, PAR2_BATCH, PAR2_SEQ)[0]
+    torch.cuda.reset_peak_memory_stats()
+    state = shard_train_state(cfg, plan, _par_state(cfg, plan, ocfg), mesh)
+    torch.cuda.empty_cache()
+    step = sharded_train_step(cfg, plan, mesh, ocfg)
     ref = _par_state(cfg, plan, ocfg)
     ref_step = make_train_step(cfg, plan, ocfg)
     ref, ref_m, ref_first = _timed_steps(ref_step, ref, [batch])
-    state = shard_train_state(cfg, plan, _par_state(cfg, plan, ocfg), mesh)
-    step = sharded_train_step(cfg, plan, mesh, ocfg)
     _zero_kernel_counts()
     state, m, first = _timed_steps(step, state, [batch])
     launches = _kernel_counts()
-    full = gather_train_state(state, mesh)
     out = {
         "remat": plan.remat, "loss": m[0]["loss"],
         "ref_loss": ref_m[0]["loss"], "grad_norm": m[0]["grad_norm"],
         "ref_grad_norm": ref_m[0]["grad_norm"],
-        "param_max_abs_err": max(
-            (full["params"][n] - p.detach()).abs().max().item()
-            for n, p in ref["params"].items()),
-        **{f"{part}_scaled_err": _scaled_err(full["opt"][part],
-                                             ref["opt"][part])
-           for part in ("m", "v", "master")},
-        "worst": {part: _worst_leaf(full["opt"][part], ref["opt"][part],
-                                    ref["opt"]["m"])
-                  for part in ("m", "v", "master")},
-        "master_where_resolved": _master_where_resolved(
-            full["opt"]["master"], ref["opt"]["master"], full["opt"]["m"],
-            ref["opt"]["m"]),
+        **_split_errors(state, ref, mesh),
         "step_launches": launches,
-        "expected_step_launches": _expected_split_launches(cfg, plan.remat)}
-    del full
+        "expected_step_launches": expected(cfg, plan.remat)}
     ref, _, ref_ms = _timed_steps(ref_step, ref, [batch])
     del ref
     with _KernelCalls() as calls:
         state, _, _ = _timed_steps(step, state, [batch])
     state, _, ms = _timed_steps(step, state, [batch])
     out.update(step_ms=ms[0], ref_step_ms=ref_ms[0], first_step_ms=first[0],
-               ref_first_step_ms=ref_first[0], step_kernel_calls=calls.calls)
+               ref_first_step_ms=ref_first[0], step_kernel_calls=calls.calls,
+               step_peak_bytes=torch.cuda.max_memory_allocated())
     del state
     torch.cuda.empty_cache()
     return out
 
 
-def _greedy_calls(model, tokens, cache, feed=None) -> tuple:
-    """A prefill and SSM_SERVE_TICKS ticks: the last position's logits of
+def _greedy_calls(model, tokens, cache, feed=None, inputs=None) -> tuple:
+    """A prefill (with the family's ``inputs``: the encdec's frames, the
+    VLM's patches) and SSM_SERVE_TICKS ticks: the last position's logits of
     each call (fp32), and the tokens each tick was fed: ``feed``, else the
     model's own greedy picks."""
-    out = [model.prefill(tokens, cache)[0][:, -1].float()]
+    out = [model.prefill(tokens, cache, **(inputs or {}))[0][:, -1].float()]
     picks = []
     for t in range(SSM_SERVE_TICKS):
         picks.append(out[-1].argmax(-1, keepdim=True) if feed is None
@@ -3585,57 +3655,78 @@ def _compare_calls(got: list, want: list) -> list:
     return out
 
 
-def _ssm_split_serving(cfg, mesh) -> dict:
+def _split_serving(cfg, mesh, prompt: int, inputs=None,
+                   cache_rows: int = 0, src_len=None) -> dict:
     """Split serving against the whole model, bf16 and then fp32, each
-    pair drawn from one seed: a prefill and SSM_SERVE_TICKS ticks, every
-    run fed the bf16 whole model's greedy tokens (so a tie that flips one
-    pick steers nothing). Per call: the logits' difference and the picks;
-    for bf16 also how far the whole bf16 model's logits lie from the whole
-    fp32 model's (bf16's own error, the bf16 split's yardstick). The
-    kernels the split calls launched, counted and logged by shape."""
+    pair drawn from one seed: a prefill of SSM_SERVE_BATCH x ``prompt``
+    tokens (behind the family's ``inputs``, which take ``cache_rows`` more
+    of the cache; ``src_len``: the encdec's source frames) and
+    SSM_SERVE_TICKS ticks, every run fed the bf16 whole model's greedy
+    tokens (so a tie that flips one pick steers nothing). The whole model
+    runs first and is freed before the split one is drawn, so that a rank
+    holds one whole model at a time. Per call: the logits' difference and
+    the picks; for bf16 also how far the whole bf16 model's logits lie from
+    the whole fp32 model's (bf16's own error, the bf16 split's yardstick).
+    The kernels the split calls launched, counted and logged by shape;
+    this rank's cache shapes; the process's largest allocation on the
+    card."""
     plan = plan_memory(cfg, tp=1, dp=1)
-    b, prompt = SSM_SERVE_BATCH, SSM_SERVE_PROMPT
+    b = SSM_SERVE_BATCH
     tokens = torch.randint(0, cfg.vocab_size, (b, prompt), device=DEVICE,
                            generator=torch.Generator(
                                device=DEVICE).manual_seed(2))
+    make = lambda dtype: get_model(cfg)(
+        cfg, dtype=dtype, device=DEVICE,
+        generator=torch.Generator(device=DEVICE).manual_seed(1))
+    cache_args = (b, cache_rows + prompt + SSM_SERVE_TICKS + 1) + (
+        () if src_len is None else (src_len,))
     out, whole_logits, feed = {}, {}, None
     launches = dict.fromkeys(_kernel_counts(), 0)
+    torch.cuda.reset_peak_memory_stats()
     for dtype in (torch.bfloat16, torch.float32):
-        ref, model = (get_model(cfg)(cfg, dtype=dtype, device=DEVICE,
-                                     generator=torch.Generator(
-                                         device=DEVICE).manual_seed(1))
-                      for _ in range(2))
+        ref = make(dtype)
+        with torch.no_grad():
+            want, picks = _greedy_calls(ref, tokens,
+                                        ref.init_cache(*cache_args), feed,
+                                        inputs)
+        feed = feed or picks
+        del ref
+        torch.cuda.empty_cache()
+        model = make(dtype)
+        whole = model.init_cache(*cache_args)
         shard_model(cfg, plan, model, mesh, batch_rows=b)
-        whole = ref.init_cache(b, prompt + SSM_SERVE_TICKS + 1)
         specs = cache_shardings(cfg, mesh, whole)
         specs["pos"] = batch_spec(mesh, (b,))
         cache = {n: local_shard(t, specs[n], mesh).clone()
                  for n, t in whole.items()}
+        del whole
+        torch.cuda.empty_cache()
         with torch.no_grad():
-            want, picks = _greedy_calls(ref, tokens, whole, feed)
-            feed = feed or picks
             _zero_kernel_counts()
             with _KernelCalls() as calls:
-                got, _ = _greedy_calls(model, tokens, cache, feed)
+                got, _ = _greedy_calls(model, tokens, cache, feed, inputs)
             for name, n in _kernel_counts().items():
                 launches[name] += n
         whole_logits[dtype] = want
         out[dtype_name(dtype)] = {"calls": _compare_calls(got, want),
                                   "kernel_calls": calls.calls}
-        del ref, model, whole, cache
+        cache_shapes = {n: list(t.shape) for n, t in cache.items()}
+        del model, cache
         torch.cuda.empty_cache()
     for call, w16, w32 in zip(out["bfloat16"]["calls"],
                               whole_logits[torch.bfloat16],
                               whole_logits[torch.float32]):
         call["whole_bf16_vs_fp32"] = (w16 - w32).abs().max().item()
     return {"serve": out, "serve_launches": launches,
-            "serve_shape": [b, prompt, SSM_SERVE_TICKS]}
+            "serve_shape": [b, prompt, SSM_SERVE_TICKS],
+            "cache_shapes": cache_shapes,
+            "serve_peak_bytes": torch.cuda.max_memory_allocated()}
 
 
 def _gloo_ssm_rank(rank: int, directory: str) -> None:
     """One of two processes on the one card over gloo with CUDA tensors:
     for mamba2-780m and zamba2-2.7b (full width, cut depth) on a (1 data,
-    2 model) mesh, ``_ssm_sharded_step`` and ``_ssm_split_serving``.
+    2 model) mesh, ``_split_step`` and ``_split_serving``.
     Writes its results as JSON to ``directory``."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3646,20 +3737,20 @@ def _gloo_ssm_rank(rank: int, directory: str) -> None:
     out = {}
     for arch, layers in SSM_PAR_LAYERS.items():
         cfg = dataclasses.replace(get_config(arch), num_layers=layers)
-        out[arch] = {"layers": layers, **_ssm_sharded_step(cfg, mesh),
-                     **_ssm_split_serving(cfg, mesh)}
+        batch = _par_batches(cfg, 1, PAR2_BATCH, PAR2_SEQ)[0]
+        out[arch] = {"layers": layers,
+                     **_split_step(cfg, mesh, batch,
+                                   _expected_split_launches),
+                     **_split_serving(cfg, mesh, SSM_SERVE_PROMPT)}
     with open(os.path.join(directory, f"rank_{rank}.json"), "w") as f:
         json.dump(out, f)
     dist.barrier()
     dist.destroy_process_group()
 
 
-def _ssm_rank_problems(rank: int, arch: str, r: dict) -> list:
-    """What one rank's results of one model break: parallel_gloo's
-    tolerances, the reckoned launches, the kernels at the rank's heads,
-    split serving's logits and picks."""
-    cfg = get_config(arch)
-    heads, tag = cfg.ssm_heads // 2, f"rank {rank} {arch}"
+def _step_problems(tag: str, r: dict) -> list:
+    """What a split step's results break: parallel_gloo's tolerances (the
+    master where resolved) and the reckoned launches."""
     problems = []
     ok = (abs(r["loss"] - r["ref_loss"]) <= PAR_LOSS_TOL
           * max(1.0, abs(r["ref_loss"]))
@@ -3675,6 +3766,34 @@ def _ssm_rank_problems(rank: int, arch: str, r: dict) -> list:
         if r["step_launches"][name] != n:
             problems.append(f"{tag}: {name} launched "
                             f"{r['step_launches'][name]} times, not {n}")
+    return problems
+
+
+def _serving_problems(tag: str, r: dict) -> list:
+    """What split serving breaks: fp32 logits within LOGIT_TOL of the whole
+    model's, bf16 within twice the whole bf16 model's distance from the
+    whole fp32 one, no pick off but at a tie."""
+    problems = []
+    for dtype, run in r["serve"].items():
+        for i, c in enumerate(run["calls"]):
+            tol = (LOGIT_TOL if dtype == "float32"
+                   else 2 * c["whole_bf16_vs_fp32"])
+            if c["logit_max_abs_err"] > tol:
+                problems.append(f"{tag}: {dtype} serving call {i} logits "
+                                f"off by {c['logit_max_abs_err']} > {tol}")
+            if c["untied_flips"]:
+                problems.append(f"{tag}: {dtype} serving call {i} picked "
+                                "other tokens")
+    return problems
+
+
+def _ssm_rank_problems(rank: int, arch: str, r: dict) -> list:
+    """What one rank's results of one model break: the step's and
+    serving's checks, the kernels at the rank's heads, the split
+    prefills' scans."""
+    cfg = get_config(arch)
+    heads, tag = cfg.ssm_heads // 2, f"rank {rank} {arch}"
+    problems = _step_problems(tag, r) + _serving_problems(tag, r)
     want = [f"ssd_scan_train [{PAR2_BATCH}, {PAR2_SEQ}, {heads}, "
             f"{cfg.ssm.head_dim}]",
             f"ssd_scan_backward [{PAR2_BATCH}, {PAR2_SEQ}, {heads}, "
@@ -3689,16 +3808,6 @@ def _ssm_rank_problems(rank: int, arch: str, r: dict) -> list:
             k.startswith("flash_attention_backward ")
             for k in r["step_kernel_calls"])):
         problems.append(f"{tag}: no attention backward in the step")
-    for dtype, run in r["serve"].items():
-        for i, c in enumerate(run["calls"]):
-            tol = (LOGIT_TOL if dtype == "float32"
-                   else 2 * c["whole_bf16_vs_fp32"])
-            if c["logit_max_abs_err"] > tol:
-                problems.append(f"{tag}: {dtype} serving call {i} logits "
-                                f"off by {c['logit_max_abs_err']} > {tol}")
-            if c["untied_flips"]:
-                problems.append(f"{tag}: {dtype} serving call {i} picked "
-                                "other tokens")
     if r["serve_launches"]["ssd_scan"] != 2 * r["layers"]:
         problems.append(f"{tag}: the split prefills launched the SSD scan "
                         f"{r['serve_launches']['ssd_scan']} times")
@@ -3733,6 +3842,155 @@ def phase_parallel_gloo_ssm() -> dict:
          seconds=time.perf_counter() - t0, problems=problems)
     if problems:
         raise SystemExit(f"chip_smoke: parallel_gloo_ssm phase failed: "
+                         f"{problems}")
+    return launches
+
+
+# The encoder-decoder and the VLM split over the model axis on two processes
+# over gloo at (1 data, 2 model), full width, under parallel_gloo_ssm's
+# checks. seamless-m4t-large-v2 at 4 + 4 of its 24 + 24 layers, fp32
+# (plan_memory: ZeRO-1, remat "dots"): one step of 2 rows of 512 target
+# tokens over 1,024 source frames (its source_frac of 0.5 would give 256:
+# cut so that the cross-attention's keys outnumber its queries), then split
+# serving of 2 x 64 tokens over 1,024 frames. internvl2-76b at 2 of its 80
+# layers, split serving alone (2 x 64 tokens behind its 256 patches): at
+# even one full-width layer the one process's fp32 train state is ~2.97 B
+# parameters x 16 B = 47.5 GB, and the split's two halves as much again.
+VLM_ARCH = "internvl2-76b"
+SPLIT_ENCDEC_LAYERS, SPLIT_VLM_LAYERS = 4, 2
+SPLIT_BATCH, SPLIT_SEQ, SPLIT_SRC, SPLIT_PROMPT = 2, 512, 1024, 64
+SPLIT_TIMEOUT_S = 300
+
+
+def _split_configs() -> dict:
+    """The two configurations at their cut depths."""
+    enc = get_config(ENCDEC_ARCH)
+    enc = dataclasses.replace(
+        enc, num_layers=2 * SPLIT_ENCDEC_LAYERS,
+        encdec=dataclasses.replace(enc.encdec,
+                                   encoder_layers=SPLIT_ENCDEC_LAYERS,
+                                   decoder_layers=SPLIT_ENCDEC_LAYERS))
+    return {ENCDEC_ARCH: enc,
+            VLM_ARCH: dataclasses.replace(get_config(VLM_ARCH),
+                                          num_layers=SPLIT_VLM_LAYERS)}
+
+
+def _seeded(shape, seed: int) -> torch.Tensor:
+    return torch.randn(shape, device=DEVICE, generator=torch.Generator(
+        device=DEVICE).manual_seed(seed))
+
+
+def _gloo_split_rank(rank: int, directory: str) -> None:
+    """One of two processes on the one card over gloo with CUDA tensors,
+    on a (1 data, 2 model) mesh: seamless's ``_split_step`` and
+    ``_split_serving`` (the source frames beside the tokens), internvl2's
+    ``_split_serving`` (its patches ahead of them). Writes its results as
+    JSON to ``directory``."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{directory}/store",
+                            rank=rank, world_size=2)
+    mesh = build_mesh((1, 2), ("data", "model"))
+    cfgs = _split_configs()
+    enc, vlm = cfgs[ENCDEC_ARCH], cfgs[VLM_ARCH]
+    batch = _par_batches(enc, 1, SPLIT_BATCH, SPLIT_SEQ)[0]
+    batch["frames"] = _seeded((SPLIT_BATCH, SPLIT_SRC, enc.d_model), 3)
+    frames = _seeded((SSM_SERVE_BATCH, SPLIT_SRC, enc.d_model), 4)
+    expected = lambda cfg, remat: _expected_encdec_launches(
+        cfg, 0, 0, steps=1, remat=remat)
+    out = {ENCDEC_ARCH: {**_split_step(enc, mesh, batch, expected),
+                         **_split_serving(enc, mesh, SPLIT_PROMPT,
+                                          {"frames": frames},
+                                          src_len=SPLIT_SRC)}}
+    del batch, frames
+    patches = _seeded((SSM_SERVE_BATCH, vlm.vision.num_patches,
+                       vlm.d_model), 5)
+    out[VLM_ARCH] = _split_serving(vlm, mesh, SPLIT_PROMPT,
+                                   {"patches": patches},
+                                   cache_rows=vlm.vision.num_patches)
+    with open(os.path.join(directory, f"rank_{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def _split_rank_problems(rank: int, arch: str, r: dict) -> list:
+    """What one rank's results of one model break: the step's (seamless)
+    and serving's checks, the launches split serving made against the
+    whole model's reckoning, the kernels at the rank's heads (the cross
+    K/V cache with them)."""
+    cfg = _split_configs()[arch]
+    heads, kv, d = (cfg.num_heads // 2, cfg.num_kv_heads // 2,
+                    cfg.resolved_head_dim)
+    tag = f"rank {rank} {arch}"
+    problems = _serving_problems(tag, r)
+    if arch == ENCDEC_ARCH:
+        problems += _step_problems(tag, r)
+        served = _expected_encdec_launches(cfg, 1, SSM_SERVE_TICKS)
+        b, q, src = SPLIT_BATCH, SPLIT_SEQ, SPLIT_SRC
+        want = [f"flash_attention_lse [{b}, {heads}, {src}, {d}]",
+                f"flash_attention_lse [{b}, {heads}, {q}, {d}]",
+                f"flash_attention_lse [{b}, {heads}, {q}, {d}] skv {src}",
+                f"flash_attention_backward [{b}, {heads}, {src}, {d}]",
+                f"flash_attention_backward [{b}, {heads}, {q}, {d}]",
+                f"flash_attention_backward [{b}, {heads}, {q}, {d}] "
+                f"skv {src}"]
+        problems += [f"{tag}: no {w} in the step" for w in want
+                     if w not in r["step_kernel_calls"]]
+        if r["cache_shapes"]["cross_k"][3] != kv:
+            problems.append(f"{tag}: the cross K/V cache holds "
+                            f"{r['cache_shapes']['cross_k'][3]} heads")
+        prefill = f"flash_attention [{SSM_SERVE_BATCH}, {heads}, {src}, {d}]"
+    else:
+        served = _expected_launches(cfg, 1, SSM_SERVE_TICKS)
+        prefill = (f"flash_attention [{SSM_SERVE_BATCH}, {heads}, "
+                   f"{cfg.vision.num_patches + SPLIT_PROMPT}, {d}]")
+    if prefill not in r["serve"]["float32"]["kernel_calls"]:
+        problems.append(f"{tag}: no {prefill} in the split prefill")
+    for name in ("flash_attention", "rmsnorm"):
+        if r["serve_launches"][name] != 2 * served[name]:
+            problems.append(f"{tag}: split serving launched {name} "
+                            f"{r['serve_launches'][name]} times, not "
+                            f"{2 * served[name]}")
+    return problems
+
+
+def phase_parallel_gloo_split() -> dict:
+    """Two processes on the card over gloo with CUDA tensors: the
+    encoder-decoder and the VLM split over the model axis
+    (``_gloo_split_rank``), which must pass on every rank. Returns the
+    kernels' launches on this path, both ranks' step and split serving
+    summed."""
+    t0 = time.perf_counter()
+    ranks = _gloo_pair(_gloo_split_rank, "parallel_gloo_split",
+                       SPLIT_TIMEOUT_S)
+    problems, launches = [], {}
+    for rank, result in enumerate(ranks):
+        if sorted(result) != sorted(_split_configs()):
+            problems.append(f"rank {rank} reported {sorted(result)}")
+            continue
+        for arch, r in result.items():
+            problems += _split_rank_problems(rank, arch, r)
+            for part in ("step_launches", "serve_launches"):
+                for name, n in r.get(part, {}).items():
+                    launches[name] = launches.get(name, 0) + n
+    emit("parallel_gloo_split", card=_smi("name,power.limit"),
+         mesh=[1, 2], step={"global_batch": SPLIT_BATCH,
+                            "seq_len": SPLIT_SEQ, "src_len": SPLIT_SRC},
+         serve={"batch": SSM_SERVE_BATCH, "prompt": SPLIT_PROMPT,
+                "ticks": SSM_SERVE_TICKS, "src_len": SPLIT_SRC},
+         layers={ENCDEC_ARCH: [SPLIT_ENCDEC_LAYERS, SPLIT_ENCDEC_LAYERS],
+                 VLM_ARCH: SPLIT_VLM_LAYERS},
+         left_out=f"{VLM_ARCH}'s split training step: at one full-width "
+                  "layer the one process's fp32 train state is ~2.97e9 "
+                  "parameters x 16 B = 47.5 GB, the split's halves as much "
+                  "again, more than the card's 80 GB (held on the CPU, "
+                  "tests/test_torch_distributed_encdec.py)",
+         ranks=ranks, launches=launches,
+         seconds=time.perf_counter() - t0, problems=problems)
+    if problems:
+        raise SystemExit(f"chip_smoke: parallel_gloo_split phase failed: "
                          f"{problems}")
     return launches
 
@@ -4512,7 +4770,7 @@ def _dispatch_on_the_tick() -> dict:
 
 # The families whose every cell but long_500k traces ok on both meshes; a
 # long_500k cell of theirs may only refuse for its one-row batch (item 13).
-DRYRUN_SPLIT_FAMILIES = ("dense", "ssm", "hybrid")
+DRYRUN_SPLIT_FAMILIES = ("dense", "ssm", "hybrid", "encdec", "vlm")
 ROADMAP_ITEM = r"ROADMAP Queue 1 item (\d+)"
 
 
@@ -4533,8 +4791,8 @@ def phase_dryrun() -> None:
     roofline terms at the H100's rates beside the measured wall and device
     ms, model_flops_util, and the counted peak live bytes beside
     torch.cuda.max_memory_allocated. (b) On the host: lower_cell over every
-    runnable cell on the 16 x 16 mesh and the dense, ssm and hybrid
-    families' on the 2 x 16 x 16 (a fake process group of 256 / 512 ranks;
+    runnable cell on the 16 x 16 mesh and the DRYRUN_SPLIT_FAMILIES' on
+    the 2 x 16 x 16 (a fake process group of 256 / 512 ranks;
     none may be held here): the ok and refused counts, each cell's trace_s
     and dominant term; a cell of those families must be ok but for
     long_500k, which refuses naming item 13 alone, and every other refusal
@@ -4786,6 +5044,7 @@ def main() -> int:
     launches["parallel"] = phase_parallel()
     phase_parallel_gloo()
     launches["parallel_gloo_ssm"] = phase_parallel_gloo_ssm()
+    launches["parallel_gloo_split"] = phase_parallel_gloo_split()
     phase_dryrun()
     launches["study"] = phase_study()
     launches["run_study"] = phase_run_study()

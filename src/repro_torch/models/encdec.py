@@ -18,6 +18,14 @@ norm through ``ops.rmsnorm``. The cache is updated IN PLACE, so unlike the
 reference (whose ``init_cache`` makes a cross K/V of length 0 that the
 prefill replaces) ``init_cache`` sizes the cross K/V at ``src_len`` and the
 prefill fills it.
+
+Tensor parallelism (``parallel.tensor.apply_tensor_parallel``): every
+attention runs on its ``Attention``'s heads of this rank (``tp_group``), the
+FFNs on their columns, and the vocabulary is split as the transformer's
+(``vocab_group``). The cross K/V cache then holds the rank's KV heads where
+they divide over the model axis, else every KV head, each rank reading the
+one its query heads share: as ``kv_cache_spec`` lays out ``cross_k`` /
+``cross_v``.
 """
 
 from __future__ import annotations
@@ -31,17 +39,19 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.common import (
     DEFAULT_DTYPE,
-    attention_block,
-    cross_entropy_loss,
     dense_init,
     embed_init,
+    embed_tokens,
     init_generator,
     init_ffn_params,
+    lm_cross_entropy,
     rms_norm,
     rope_frequencies,
     rope_positions,
+    serving_logits,
 )
 from repro_torch.models.transformer import FFN, Attention, _param, apply_remat
+from repro_torch.parallel.tensor import copy_to_region
 
 
 class EncoderLayer(nn.Module):
@@ -94,6 +104,9 @@ class EncDec(nn.Module):
         self.ln_f = _param(torch.ones(cfg.d_model, dtype=dtype), device)
         self.head = _param(dense_init(
             generator, (cfg.d_model, cfg.padded_vocab), dtype), device)
+        # The model axis's group where ``embed`` and ``head`` hold this
+        # rank's block of the vocabulary, as the transformer's.
+        self.vocab_group = None
 
     @property
     def device(self) -> torch.device:
@@ -104,13 +117,6 @@ class EncDec(nn.Module):
         return self.embed.dtype
 
     # ------------------------------------------------------------------ #
-    def _attend(self, attn: Attention, x: torch.Tensor, **kw) -> torch.Tensor:
-        cfg = self.cfg
-        return attention_block(
-            attn.params(), x, num_heads=cfg.num_heads,
-            num_kv_heads=cfg.num_kv_heads, head_dim=cfg.resolved_head_dim,
-            rope_theta=cfg.rope_theta, **kw)
-
     def _rope(self, s: int, offset: Optional[torch.Tensor], device):
         cfg = self.cfg
         if cfg.rope_fraction <= 0:
@@ -122,9 +128,8 @@ class EncDec(nn.Module):
     def _encoder_layer(self, layer: EncoderLayer, x: torch.Tensor,
                        rope) -> torch.Tensor:
         cfg = self.cfg
-        x = x + self._attend(layer.attn, rms_norm(x, layer.ln1, cfg.norm_eps),
-                             rope_fraction=cfg.rope_fraction, causal=False,
-                             rope=rope)
+        x = x + layer.attn.attend(rms_norm(x, layer.ln1, cfg.norm_eps),
+                                  causal=False, rope=rope)
         return x + layer.ffn(rms_norm(x, layer.ln2, cfg.norm_eps))
 
     def encode(self, frames: torch.Tensor, remat: Optional[str] = None
@@ -148,15 +153,12 @@ class EncDec(nn.Module):
             self_kv = {"k": cache["self_k"][i], "v": cache["self_v"][i],
                        "pos": cache["pos"]}
             cross_kv = {"k": cache["cross_k"][i], "v": cache["cross_v"][i]}
-        x = x + self._attend(layer.self_attn,
-                             rms_norm(x, layer.ln1, cfg.norm_eps),
-                             rope_fraction=cfg.rope_fraction, causal=True,
-                             kv_cache=self_kv, rope=rope)
-        x = x + self._attend(layer.cross_attn,
-                             rms_norm(x, layer.lnx, cfg.norm_eps),
-                             rope_fraction=0.0, causal=False,
-                             kv_cache=cross_kv, xkv=enc_out,
-                             precomputed_kv=cross_kv is not None)
+        x = x + layer.self_attn.attend(rms_norm(x, layer.ln1, cfg.norm_eps),
+                                       self_kv, causal=True, rope=rope)
+        x = x + layer.cross_attn.attend(
+            rms_norm(x, layer.lnx, cfg.norm_eps), cross_kv,
+            rope_fraction=0.0, causal=False, xkv=enc_out,
+            precomputed_kv=cross_kv is not None)
         return x + layer.ffn(rms_norm(x, layer.ln2, cfg.norm_eps))
 
     def decode_stack(self, x: torch.Tensor, enc_out: Optional[torch.Tensor],
@@ -180,23 +182,34 @@ class EncDec(nn.Module):
     def precompute_cross_kv(self, enc_out: torch.Tensor
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Every decoder layer's cross K/V of the encoder output: (L, b,
-        src, hkv, hd) each."""
-        cfg = self.cfg
+        src, hkv, hd) each, of the KV heads ``wk`` / ``wv`` hold (under
+        tensor parallelism this rank's, or all of them where the rules
+        replicate them)."""
         b, src, _ = enc_out.shape
-        shape = (b, src, cfg.num_kv_heads, cfg.resolved_head_dim)
+        shape = (b, src, -1, self.cfg.resolved_head_dim)
         ks = [(enc_out @ layer.cross_attn.wk).reshape(shape)
               for layer in self.decoder]
         vs = [(enc_out @ layer.cross_attn.wv).reshape(shape)
               for layer in self.decoder]
         return torch.stack(ks), torch.stack(vs)
 
+    def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
+        return embed_tokens(self.embed, tokens, self.vocab_group)
+
+    def _logits(self, x: torch.Tensor) -> torch.Tensor:
+        """The head over ``decode_stack``'s output: logits over the
+        vocabulary, or over this rank's block of it under ``vocab_group``."""
+        if self.vocab_group is not None:
+            x = copy_to_region(x, self.vocab_group)
+        return x @ self.head
+
     # ------------------------------------------------------------------ #
     def forward(self, tokens: torch.Tensor, frames: torch.Tensor
                 ) -> Tuple[torch.Tensor, None]:
         """tokens (b, s) integer, frames (b, src, d) -> (logits (b, s,
         padded_vocab), None)."""
-        x = self.decode_stack(self.embed[tokens], self.encode(frames))
-        return x @ self.head, None
+        x = self.decode_stack(self._embed(tokens), self.encode(frames))
+        return serving_logits(self._logits(x), self.vocab_group), None
 
     def loss(self, batch: Dict[str, torch.Tensor], remat: Optional[str] = "dots"
              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
@@ -204,9 +217,10 @@ class EncDec(nn.Module):
         (total, {ce, aux}): the mean token cross-entropy in fp32 (targets of
         -1 ignored); aux is 0, as in the reference."""
         enc_out = self.encode(batch["frames"], remat)
-        x = self.decode_stack(self.embed[batch["tokens"]], enc_out,
+        x = self.decode_stack(self._embed(batch["tokens"]), enc_out,
                               remat=remat)
-        ce = cross_entropy_loss(x @ self.head, batch["targets"])
+        ce = lm_cross_entropy(self._logits(x), batch["targets"],
+                              self.vocab_group)
         aux = torch.zeros((), dtype=torch.float32, device=ce.device)
         return ce + aux, {"ce": ce, "aux": aux}
 
@@ -238,12 +252,12 @@ class EncDec(nn.Module):
         ck, cv = self.precompute_cross_kv(self.encode(frames))
         cache["cross_k"].copy_(ck)
         cache["cross_v"].copy_(cv)
-        x = self.decode_stack(self.embed[tokens], None, cache=cache)
-        return x[:, -1:] @ self.head, cache
+        x = self.decode_stack(self._embed(tokens), None, cache=cache)
+        return serving_logits(self._logits(x[:, -1:]), self.vocab_group), cache
 
     @torch.no_grad()
     def decode_step(self, cache: dict, tokens: torch.Tensor
                     ) -> Tuple[torch.Tensor, dict]:
         """tokens: (b, 1), one new token per sequence."""
-        x = self.decode_stack(self.embed[tokens], None, cache=cache)
-        return x @ self.head, cache
+        x = self.decode_stack(self._embed(tokens), None, cache=cache)
+        return serving_logits(self._logits(x), self.vocab_group), cache

@@ -68,8 +68,10 @@ _SAVED_BY_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
 def _dots_policy(ctx, op, *args, **kwargs):
     """Save the outputs of the unbatched matrix products (the projections,
     the FFN), recompute the rest: ``dots_with_no_batch_dims_saveable``.
-    Attention's batched products and the kernels, which this policy cannot
-    see, are recomputed."""
+    The kernels reach this policy as the ``repro_torch.*`` dispatcher
+    operators (``kernels/ops.py``: ``flash_attention_lse``, ``rmsnorm``,
+    ``ssd_scan_train``, ...); they are recomputed, as are attention's
+    batched products, since only ``aten.mm`` / ``aten.addmm`` are saved."""
     if op in _SAVED_BY_DOTS:
         return CheckpointPolicy.MUST_SAVE
     return CheckpointPolicy.PREFER_RECOMPUTE
@@ -103,8 +105,8 @@ class Attention(nn.Module):
     ``wk``, ``wv`` (d_in, heads * head_dim) and ``wo`` (h * head_dim,
     d_model); ``d_in`` is d_model unless given (zamba2's shared block reads
     concat(h, emb0), twice as wide). ``forward`` is the self-attention of
-    the transformer's layers; other callers hand ``params()`` to
-    ``attention_block`` with their own options.
+    the transformer's layers; ``attend`` takes other options (the
+    encoder-decoder's non-causal and cross-attention).
 
     ``tp_group``: the model axis's process group where the weights are
     shards of it (set by ``parallel.tensor.apply_tensor_parallel``): ``wq``
@@ -141,10 +143,9 @@ class Attention(nn.Module):
         heads = cfg.num_heads // tp
         if cfg.num_kv_heads % tp == 0:
             return heads, cfg.num_kv_heads // tp, None
-        per_kv = cfg.num_heads // cfg.num_kv_heads     # query heads a KV head
-        if per_kv % heads:
-            raise NotImplementedError(
-                f"{heads} query heads a rank straddle KV groups of {per_kv}")
+        # query heads a KV head; a rank's never straddle two KV groups
+        # (apply_tensor_parallel refuses that)
+        per_kv = cfg.num_heads // cfg.num_kv_heads
         kv = dist.get_rank(group) * heads // per_kv
         for name in ("wk", "wv"):
             # every rank's grads of the replicated weight, summed
@@ -152,23 +153,30 @@ class Attention(nn.Module):
             params[name] = w[:, kv * hd:(kv + 1) * hd]
         return heads, 1, kv
 
-    def forward(self, x: torch.Tensor, kv_cache: Optional[dict],
-                rope=None) -> torch.Tensor:
+    def attend(self, x: torch.Tensor, kv_cache: Optional[dict] = None,
+               **kw) -> torch.Tensor:
+        """``attention_block`` on this module's weights, over this rank's
+        heads under ``tp_group``; ``kw`` are its options (``causal``,
+        ``rope``, ``xkv``, ...). A cache (the self K/V, or a frozen cross
+        K/V) holds the rank's KV heads, or every KV head where the rules
+        replicate them, and then the rank reads and writes its own."""
         cfg = self.cfg
         params = self.params()
         heads, kv_heads = cfg.num_heads, cfg.num_kv_heads
         if self.tp_group is not None:
             heads, kv_heads, kv = self._local_heads(params)
             if kv is not None and kv_cache is not None:
-                # the cache holds every KV head (the rules replicate them):
-                # this rank reads and writes its own
                 kv_cache = {**kv_cache, "k": kv_cache["k"].narrow(2, kv, 1),
                             "v": kv_cache["v"].narrow(2, kv, 1)}
+        kw.setdefault("rope_fraction", cfg.rope_fraction)
         return attention_block(
             params, x, num_heads=heads, num_kv_heads=kv_heads,
-            head_dim=cfg.resolved_head_dim, rope_fraction=cfg.rope_fraction,
-            rope_theta=cfg.rope_theta, causal=True, kv_cache=kv_cache,
-            rope=rope, group=self.tp_group)
+            head_dim=cfg.resolved_head_dim, rope_theta=cfg.rope_theta,
+            kv_cache=kv_cache, group=self.tp_group, **kw)
+
+    def forward(self, x: torch.Tensor, kv_cache: Optional[dict],
+                rope=None) -> torch.Tensor:
+        return self.attend(x, kv_cache, causal=True, rope=rope)
 
 
 class FFN(nn.Module):

@@ -98,16 +98,41 @@ def apply_tensor_parallel(model, placements, group) -> None:
     axis's ``group``: each block whose weights the rules split over the
     axis runs on its shards, the others stay replicated (the rules'
     replicate-if-not-divisible), and so does the vocabulary. A
-    ``Transformer``'s attention and FFN; a ``Mamba``'s layers (their SSD
-    heads) and, for the hybrid, its shared block's attention and FFN."""
+    ``Transformer``'s attention and FFN; an ``EncDec``'s encoder and decoder
+    layers' (the decoder's self- and cross-attention); a ``Mamba``'s layers
+    (their SSD heads) and, for the hybrid, its shared block's attention and
+    FFN. Raises, naming the attention, where a rank's query heads would
+    straddle KV groups."""
     def split(name: str):
         return group if MODEL_AXIS in placements[name].axes() else None
 
+    def point(name: str, block) -> None:
+        """An attention or FFN at ``name``, by its first column-parallel
+        weight's placement."""
+        attn = hasattr(block, "wq")
+        block.tp_group = split(f"{name}.{'wq' if attn else 'wu'}")
+        if not attn or block.tp_group is None:
+            return
+        cfg, tp = block.cfg, dist.get_world_size(group)
+        per_kv = cfg.num_heads // cfg.num_kv_heads
+        if cfg.num_kv_heads % tp and per_kv % (cfg.num_heads // tp):
+            raise NotImplementedError(
+                f"{name}: {cfg.num_heads // tp} query heads a rank "
+                f"straddle KV groups of {per_kv}")
+
     model.vocab_group = split("embed")
+    if hasattr(model, "encoder"):
+        for i, layer in enumerate(model.encoder):
+            point(f"encoder.{i}.attn", layer.attn)
+            point(f"encoder.{i}.ffn", layer.ffn)
+        for i, layer in enumerate(model.decoder):
+            for part in ("self_attn", "cross_attn", "ffn"):
+                point(f"decoder.{i}.{part}", getattr(layer, part))
+        return
     for i, layer in enumerate(model.layers):
         if hasattr(layer, "attn"):
-            layer.attn.tp_group = split(f"layers.{i}.attn.wq")
-            layer.ffn.tp_group = split(f"layers.{i}.ffn.wu")
+            point(f"layers.{i}.attn", layer.attn)
+            point(f"layers.{i}.ffn", layer.ffn)
             continue
         layer.tp_group = split(f"layers.{i}.A_log")
         cut = split(f"layers.{i}.wx")
@@ -120,5 +145,5 @@ def apply_tensor_parallel(model, placements, group) -> None:
                 f"{layer.d_inner} channels")
     shared = getattr(model, "shared_attn", None)
     if shared is not None:
-        shared.attn.tp_group = split("shared_attn.attn.wq")
-        shared.ffn.tp_group = split("shared_attn.ffn.wu")
+        point("shared_attn.attn", shared.attn)
+        point("shared_attn.ffn", shared.ffn)

@@ -23,7 +23,7 @@ the collectives explicit:
 
   * each rank takes its rows of the global batch (``batch_spec``) and runs
     the microbatched forward and backward on its shards (tensor parallelism
-    for the dense, ssm and hybrid families: ``parallel.tensor``; ZeRO-3's
+    for every family but the MoE: ``parallel.tensor``; ZeRO-3's
     parameters gathered over the data axis where they are read, a layer
     held whole by one rank broadcast from it: ``parallel.zero``);
   * a rank's loss is weighted by its share of the microbatch's targets, so
@@ -186,32 +186,26 @@ def state_shardings(cfg: ModelConfig, plan: MemoryPlan, state: dict,
             "opt": opt}
 
 
-# ROADMAP Queue 1 items: tensor parallelism of the MoE (11), the
-# encoder-decoder (12, and its ZeRO-3) and the VLM (25), and a batch too
-# small to split over the data-parallel ranks (13: a split of the sequence).
-# The dense, ssm and hybrid families split over the model axis.
-TP_ITEMS = {"moe": 11, "encdec": 12, "vlm": 25}
-ZERO3_ITEMS = {"encdec": 12}
+# ROADMAP Queue 1 items: tensor parallelism of the MoE (11), and a batch
+# too small to split over the data-parallel ranks (13: a split of the
+# sequence). Every other family splits over the model axis; every family
+# runs ZeRO-3.
+TP_ITEMS = {"moe": 11}
 SEQUENCE_SPLIT_ITEM = 13
 
 
 def _refuse_unported(cfg: ModelConfig, plan: MemoryPlan, mesh,
                      batch_rows: Optional[int] = None) -> None:
     """Raise for what the port does not shard yet, naming each ROADMAP
-    item (tensor parallelism of the MoE, encdec and VLM families, ZeRO-3
-    of the encdec, and, given ``batch_rows``, a batch too small to divide
-    over the data-parallel ranks); then for a mesh with no processes behind
-    it."""
+    item (tensor parallelism of the MoE family and, given ``batch_rows``, a
+    batch too small to divide over the data-parallel ranks); then for a
+    mesh with no processes behind it."""
     reasons = []
     if mp_size(mesh) > 1 and cfg.family in TP_ITEMS:
         reasons.append(
             f"tensor parallelism of the {cfg.family} family waits for "
             f"ROADMAP Queue 1 item {TP_ITEMS[cfg.family]}: use a mesh whose "
             "model axis is 1")
-    if (plan.fsdp and mesh_spec(mesh).shape.get("data", 1) > 1
-            and cfg.family in ZERO3_ITEMS):
-        reasons.append(f"ZeRO-3 of the {cfg.family} family waits for "
-                       f"ROADMAP Queue 1 item {ZERO3_ITEMS[cfg.family]}")
     if batch_rows is not None and batch_spec(mesh, (batch_rows,))[0] is None \
             and dp_size(mesh) > 1:
         reasons.append(
@@ -257,8 +251,8 @@ def shard_train_state(cfg: ModelConfig, plan: MemoryPlan, state: dict,
     parameters as ``shard_model`` takes them, each optimizer leaf replaced
     by its piece. Returns ``{"model", "params", "opt", "shardings"}``.
 
-    Raises, before anything is changed, for tensor parallelism of the MoE,
-    encdec and VLM families and for ZeRO-3 of the encdec family."""
+    Raises, before anything is changed, for tensor parallelism of the MoE
+    family."""
     _refuse_unported(cfg, plan, mesh)
     sh = state_shardings(cfg, plan, state, mesh)
     opt = state["opt"]

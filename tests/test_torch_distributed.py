@@ -66,12 +66,27 @@ from repro_torch.train.optimizer import AdamWConfig
 CFG = get_config("smollm-135m", reduced=True)
 OPT = AdamWConfig(lr=1e-3, warmup_steps=0, total_steps=10)
 results = {}
+SRC_LEN = 24    # the encdec's source frames, unlike its targets' length
+
+
+def family_inputs(b, rs):
+    \"\"\"CFG's family's input beside the tokens, drawn from ``rs``: the
+    encdec's ``frames`` (b, SRC_LEN, d), the VLM's ``patches`` (b, p, d);
+    none for the others.\"\"\"
+    draw = lambda rows: torch.from_numpy(
+        rs.randn(b, rows, CFG.d_model).astype(np.float32))
+    if CFG.family == "encdec":
+        return {"frames": draw(SRC_LEN)}
+    if CFG.family == "vlm":
+        return {"patches": draw(CFG.vision.num_patches)}
+    return {}
 
 
 def lm_batch(b, s, seed):
     rs = np.random.RandomState(seed)
     toks = torch.from_numpy(rs.randint(0, CFG.vocab_size, size=(b, s + 1)))
-    return {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+    return {"tokens": toks[:, :-1], "targets": toks[:, 1:],
+            **family_inputs(b, rs)}
 
 
 def fresh(plan, seed=3):
@@ -86,12 +101,14 @@ def scaled_err(got, want):
 
 
 SERVE_B, SERVE_S, SERVE_TICKS, SERVE_MAX = 4, 12, 3, 32
+KV_CACHES = ("k", "v", "self_k", "self_v", "cross_k", "cross_v", "attn_k",
+             "attn_v")
 
 
 def serve_pair(shape, axes=("data", "model")):
-    \"\"\"A prefill and SERVE_TICKS greedy decode ticks of CFG's reduced
-    model split over ``shape`` (``shard_model``, the cache as
-    ``cache_shardings`` lays it out) against the whole model in this
+    \"\"\"A prefill (with CFG's ``family_inputs``) and SERVE_TICKS greedy
+    decode ticks of CFG's reduced model split over ``shape``
+    (``shard_model``, the cache as ``cache_shardings`` lays it out) against the whole model in this
     process: the largest logit difference at each call, whether this
     rank's greedy tokens equal the whole model's for its rows, this rank's
     cache shapes and each cache gathered whole against the whole model's
@@ -109,17 +126,21 @@ def serve_pair(shape, axes=("data", "model")):
     rs = np.random.RandomState(11)
     toks = torch.from_numpy(rs.randint(0, CFG.vocab_size,
                                        size=(SERVE_B, SERVE_S)))
+    extra = family_inputs(SERVE_B, rs)
     rows = batch_spec(mesh, (SERVE_B,))
     mine = local_shard(toks, batch_spec(mesh, tuple(toks.shape)), mesh)
-    whole = ref.init_cache(SERVE_B, SERVE_MAX)
+    mine_extra = {k: local_shard(v, batch_spec(mesh, tuple(v.shape)), mesh)
+                  for k, v in extra.items()}
+    whole = ref.init_cache(SERVE_B, SERVE_MAX, *(
+        [SRC_LEN] if CFG.family == "encdec" else []))
     specs = cache_shardings(CFG, mesh, whole)
     specs["pos"] = rows
     cache = {n: local_shard(t, specs[n], mesh).clone()
              for n, t in whole.items()}
     out = {"logit_err": [], "tokens_equal": [], "logit_shape_ok": []}
     with torch.no_grad():
-        lg, cache = model.prefill(mine, cache)
-        lr, whole = ref.prefill(toks, whole)
+        lg, cache = model.prefill(mine, cache, **mine_extra)
+        lr, whole = ref.prefill(toks, whole, **extra)
         for t in range(SERVE_TICKS + 1):
             want = local_shard(lr, batch_spec(mesh, tuple(lr.shape)), mesh)
             out["logit_err"].append((lg - want).abs().max().item())
@@ -132,10 +153,19 @@ def serve_pair(shape, axes=("data", "model")):
                 lg, cache = model.decode_step(cache, mine_next)
                 lr, whole = ref.decode_step(whole, ref_next)
     out["local_shapes"] = {n: list(t.shape) for n, t in cache.items()}
-    out["cache_err"] = {
-        n: ((gather_full(cache[n], specs[n], mesh) - t).abs().max()
-            / max(t.abs().max().item(), 1e-30)).item()
-        for n, t in whole.items() if n != "pos"}
+    gathered = {n: gather_full(cache[n], specs[n], mesh)
+                for n in whole if n != "pos"}
+    err = lambda got, want, scale: ((got - want).abs().max()
+                                    / max(scale.abs().max().item(),
+                                          1e-30)).item()
+    out["cache_err"] = {n: err(g, whole[n], whole[n])
+                        for n, g in gathered.items()}
+    # each KV head of a K/V cache (L, b, s, hkv, d) alone: where the rules
+    # replicate the KV heads, a rank writes only the one it reads
+    out["kv_head_err"] = {
+        n: [err(g[:, :, :, h], whole[n][:, :, :, h], whole[n])
+            for h in range(g.shape[3])]
+        for n, g in gathered.items() if n in KV_CACHES}
     out["pos_equal"] = bool(torch.equal(
         gather_full(cache["pos"], specs["pos"], mesh), whole["pos"]))
     return out

@@ -8,8 +8,9 @@
   both sides abstract, so full size is cheap), every serving cell's cache,
   and ``model_flops`` exactly for all 40 cells.
 * ``lower_cell`` on a (2 data, 2 model) fake group with the reduced
-  configs: the dense family's cells are ``ok`` with the reference's JSON
-  keys, every other family's refusal names its ROADMAP item, and no
+  configs: every family's cells but the MoE's are ``ok`` with the
+  reference's JSON keys, each refusal (the MoE, long_500k's one-row
+  batch) names its ROADMAP item, and no
   process group is left behind. The CLI on one full-size cell of the
   production mesh, in a fresh interpreter that never loads ``jax``.
 """
@@ -162,10 +163,18 @@ def test_ssm_and_hybrid_cells_are_ok(arch, shape):
     test_dense_cells_are_ok(arch, shape)
 
 
+@pytest.mark.parametrize("arch", ["seamless-m4t-large-v2", "internvl2-76b"])
+@pytest.mark.parametrize("shape", ["train_4k", "prefill_32k", "decode_32k"])
+def test_encdec_and_vlm_cells_are_ok(arch, shape):
+    """The reduced seamless and internvl2 split over the (2, 2) fake group
+    (2 heads and one KV head a rank; the encdec's cross K/V projected and
+    cached on them, the VLM's patches ahead of the split vocabulary): the
+    checks of ``test_dense_cells_are_ok``."""
+    test_dense_cells_are_ok(arch, shape)
+
+
 REFUSED = [("granite-moe-3b-a800m", "train_4k", [11]),
            ("llama4-maverick-400b-a17b", "decode_32k", [11]),
-           ("seamless-m4t-large-v2", "decode_32k", [12]),
-           ("internvl2-76b", "prefill_32k", [25]),
            ("mamba2-780m", "long_500k", [13]),
            ("zamba2-2.7b", "long_500k", [13])]
 

@@ -353,21 +353,23 @@ def test_reference_leaf(arch, name, path, layer):
     assert reference_leaf(get_config(arch), name) == (path, layer)
 
 
-@pytest.mark.parametrize("arch", ["internvl2-76b", "granite-moe-3b-a800m",
-                                  "seamless-m4t-large-v2"])
+@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m",
+                                  "llama4-maverick-400b-a17b"])
 def test_tensor_parallelism_of_other_families_raises_before_any_step(arch):
-    """The dense, ssm and hybrid families split their compute over the
-    model axis; the VLM, the MoE and the encoder-decoder raise at once,
-    naming the roadmap, and leave the state whole."""
+    """Every family but the MoE splits its compute over the model axis;
+    the MoE raises at once, naming its roadmap item alone, and leaves the
+    state whole."""
     cfg = get_config(arch, reduced=True)
     plan = MemoryPlan(1, "float32", True, "dots", 0.0)
     mesh = MeshSpec((1, 2), ("data", "model"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    match = "ROADMAP Queue 1 item 11"
+    with pytest.raises(NotImplementedError, match=match) as raised:
         sharded_train_step(cfg, plan, mesh)
+    assert re.findall(r"item (\d+)", str(raised.value)) == ["11"]
     state = init_train_state(cfg, plan, torch.Generator().manual_seed(0),
                              dtype=torch.float32, device="cpu")
     before = {n: p.shape for n, p in state["params"].items()}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match=match):
         shard_train_state(cfg, plan, state, mesh)
     assert {n: p.shape for n, p in state["params"].items()} == before
 
@@ -402,19 +404,3 @@ def test_zero3_of_the_ssm_family_raises_before_any_step():
                     batch_rows=1)
     assert re.findall(r"item (\d+)", str(raised.value)) == ["13"]
     assert {n: p.shape for n, p in model.named_parameters()} == before
-
-
-def test_zero3_of_the_encdec_family_raises_before_any_step():
-    """The ssm and hybrid families run ZeRO-3 now; the encoder-decoder is
-    the family whose ZeRO-3 still raises, naming its item, before any
-    step."""
-    cfg = get_config("seamless-m4t-large-v2", reduced=True)
-    plan = dataclasses.replace(MemoryPlan(1, "float32", True, "dots", 0.0),
-                               zero_stage=3)
-    state = init_train_state(cfg, plan, torch.Generator().manual_seed(0),
-                             dtype=torch.float32, device="cpu")
-    with pytest.raises(NotImplementedError,
-                       match="ZeRO-3 of the encdec family waits for "
-                             "ROADMAP Queue 1 item 12"):
-        shard_train_state(cfg, plan, state,
-                          MeshSpec((2, 1), ("data", "model")))
