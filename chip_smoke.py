@@ -163,6 +163,16 @@ run with a non-zero exit code (nothing drops to the CPU or to a plain version):
            cross K/V cache at 8 heads a rank) against the whole model;
            internvl2-76b at 2 layers, split serving alone (2 x 64 tokens
            behind 256 patches; its split step does not fit the card)
+  parallel_gloo_moe
+           the MoE split over the model axis and routed over the data axis
+           on two processes over gloo: granite-moe-3b-a800m at full width,
+           4 of 32 layers, fp32; a (1 data, 2 model) step with 20 of the 40
+           experts a rank (EP) and a (2 data, 1 model) step routing the
+           global microbatch, each of 2 x 512 tokens against
+           make_train_step (parallel_gloo_ssm's checks, every launch as
+           reckoned, the auxiliary loss within 1e-5 relative, each
+           layer's capacity drops equal), then split serving at (1, 2)
+           bf16 and fp32 against the whole model
   dryrun   COMET's measured frontend: (a) the op counter
            (repro_torch.core.op_counter) over the train_lm step, a smollm
            prefill (b 1, s 1024) and a decode tick (b 8, max_seq 2048,
@@ -173,11 +183,9 @@ run with a non-zero exit code (nothing drops to the CPU or to a plain version):
            the host cost of a call by each dispatcher route, and the
            kernels' operators against direct launches on the decode tick,
            alternating; (b) launch.dryrun.lower_cell over the 32 runnable
-           cells on the 16 x 16 mesh and the dense, ssm, hybrid, encdec
-           and VLM ones (26) on 2 x 16 x 16, on the host, as rank 0 of a
-           fake process group (no group may be held then): those
-           families' cells ok but long_500k (item 13 alone), every refusal
-           naming its ROADMAP item
+           cells on each of the 16 x 16 and 2 x 16 x 16 meshes, on the
+           host, as rank 0 of a fake process group (no group may be held
+           then): every cell ok but long_500k's (item 13 alone)
   study    COMET's batch evaluator (repro_torch.core: the port of the JAX
            package's jax_engine) over the paper's transformer-1t study grid:
            the paper shape (seq 2048, batch 1024), strategies (mp, dp) =
@@ -310,7 +318,7 @@ from repro_torch.kernels.ssd_scan import (  # noqa: E402
 )
 from repro_torch.models import get_model  # noqa: E402
 from repro_torch.models.dlrm import DLRM  # noqa: E402
-from repro_torch.parallel import build_mesh, plan_memory  # noqa: E402
+from repro_torch.parallel import build_mesh, dp_axes, plan_memory  # noqa: E402
 from repro_torch.launch.dryrun import run_cell  # noqa: E402
 from repro_torch.launch.specs import model_flops  # noqa: E402
 from repro_torch.parallel.compression import compressed_psum  # noqa: E402
@@ -3582,22 +3590,47 @@ def _split_errors(state: dict, ref: dict, mesh) -> dict:
             "worst": worst, "master_where_resolved": resolved}
 
 
+def _moe_layers(model) -> list:
+    return [layer.moe for layer in getattr(model, "layers", ())
+            if hasattr(layer, "moe")]
+
+
+def _moe_drops(model, mesh=None) -> list:
+    """Each MoE layer's (token, expert) pairs dropped for capacity in its
+    last call (``MoE.stats``), summed over the ranks of ``mesh`` that split
+    them: the data ranks (their rows) and, under EP, the model ranks
+    (their experts)."""
+    out = []
+    for moe in _moe_layers(model):
+        n = (moe.stats["routed"] - moe.stats["kept"]).reshape(1).float()
+        ep = moe.we_up.shape[0] < moe.cfg.moe.num_experts
+        if mesh is not None:
+            for a in dp_axes(mesh) + (("model",) if ep else ()):
+                dist.all_reduce(n, group=mesh.get_group(a))
+        out.append(int(n.item()))
+    return out
+
+
 def _split_step(cfg, mesh, batch: dict, expected) -> dict:
-    """One (1, 2) sharded step against make_train_step from the same state
-    and ``batch``: the errors, the split step's kernel launches (counts
+    """One sharded step on ``mesh`` against make_train_step from the same
+    state and ``batch``: the errors, the split step's kernel launches (counts
     zeroed just before it, read just after) against ``expected(cfg,
     remat)``. Then, on the same batch, a second step of each: the one
     process's is timed once warm (its first beside it); the split step's
     logs the kernels and shapes it calls, so its third is timed. The split
     state is laid out before the one process's is drawn, so that a rank
     holds one whole state at a time beside its pieces; ``peak_bytes``: the
-    process's largest allocation on the card."""
+    process's largest allocation on the card. A MoE's first steps also
+    count, in each of its layers, the (token, expert) pairs each route
+    dropped (``_moe_drops``)."""
     plan, ocfg = _par_plan_and_opt(cfg)
     torch.cuda.reset_peak_memory_stats()
     state = shard_train_state(cfg, plan, _par_state(cfg, plan, ocfg), mesh)
     torch.cuda.empty_cache()
     step = sharded_train_step(cfg, plan, mesh, ocfg)
     ref = _par_state(cfg, plan, ocfg)
+    for moe in _moe_layers(state["model"]) + _moe_layers(ref["model"]):
+        moe.stats = {}
     ref_step = make_train_step(cfg, plan, ocfg)
     ref, ref_m, ref_first = _timed_steps(ref_step, ref, [batch])
     _zero_kernel_counts()
@@ -3606,10 +3639,16 @@ def _split_step(cfg, mesh, batch: dict, expected) -> dict:
     out = {
         "remat": plan.remat, "loss": m[0]["loss"],
         "ref_loss": ref_m[0]["loss"], "grad_norm": m[0]["grad_norm"],
-        "ref_grad_norm": ref_m[0]["grad_norm"],
+        "ref_grad_norm": ref_m[0]["grad_norm"], "aux": m[0]["aux"],
+        "ref_aux": ref_m[0]["aux"],
         **_split_errors(state, ref, mesh),
         "step_launches": launches,
         "expected_step_launches": expected(cfg, plan.remat)}
+    if _moe_layers(ref["model"]):
+        out["dropped"] = _moe_drops(state["model"], mesh)
+        out["ref_dropped"] = _moe_drops(ref["model"])
+        for moe in _moe_layers(state["model"]) + _moe_layers(ref["model"]):
+            moe.stats = None
     ref, _, ref_ms = _timed_steps(ref_step, ref, [batch])
     del ref
     with _KernelCalls() as calls:
@@ -3995,6 +4034,137 @@ def phase_parallel_gloo_split() -> dict:
     return launches
 
 
+# granite-moe-3b-a800m split over two processes on the card over gloo, full
+# width (d 1536, 24 query heads over 8 KV heads of 64, 40 experts of d_ff 512
+# top-8 at capacity 1.5, the 51,200-row padded vocabulary), its 32 layers cut
+# to 4: ~482 M parameters, an fp32 train state of ~7.7 GB in one process and
+# half of its experts (20 a rank: EP) on each rank. (1 data, 2 model): one
+# step of PAR2_BATCH x PAR2_SEQ tokens against make_train_step under
+# parallel_gloo_ssm's checks, the second of each timed, then split serving
+# (bf16 and fp32, a prefill of SSM_SERVE_BATCH x SSM_SERVE_PROMPT tokens and
+# SSM_SERVE_TICKS greedy ticks) against the whole model. (2 data, 1 model):
+# one step whose MoE layers route the global microbatch against
+# make_train_step on the whole batch, the same checks, its auxiliary loss
+# within MOE_AUX_RTOL of the one process's (fp32 sums in another order) and
+# each layer's capacity drops equal.
+MOE_PAR_LAYERS = 4
+MOE_PAR_TIMEOUT_S = 300
+MOE_AUX_RTOL = 1e-5
+
+
+def _moe_par_config():
+    return dataclasses.replace(get_config(MOE_ARCH), num_layers=MOE_PAR_LAYERS)
+
+
+def _gloo_moe_rank(rank: int, directory: str) -> None:
+    """One of two processes on the one card over gloo with CUDA tensors:
+    granite at its cut depth, ``_split_step`` and ``_split_serving`` on a
+    (1 data, 2 model) mesh, then ``_split_step`` on a (2 data, 1 model)
+    one. Writes its results as JSON to ``directory``."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{directory}/store",
+                            rank=rank, world_size=2)
+    cfg = _moe_par_config()
+    batch = _par_batches(cfg, 1, PAR2_BATCH, PAR2_SEQ)[0]
+    expected = lambda cfg, remat: _expected_lm_launches(cfg, remat, 1)
+    mesh = build_mesh((1, 2), ("data", "model"))
+    out = {"1x2": {**_split_step(cfg, mesh, batch, expected),
+                   **_split_serving(cfg, mesh, SSM_SERVE_PROMPT)}}
+    mesh = build_mesh((2, 1), ("data", "model"))
+    out["2x1"] = _split_step(cfg, mesh, batch, expected)
+    with open(os.path.join(directory, f"rank_{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def _moe_rank_problems(rank: int, r: dict) -> list:
+    """What one rank's results break: both steps' checks, their auxiliary
+    losses and capacity drops against one process's; at (1, 2) the
+    kernels at the rank's 12 heads and split serving's checks and
+    launches."""
+    cfg = _moe_par_config()
+    heads, d = cfg.num_heads // 2, cfg.resolved_head_dim
+    problems = []
+    for mesh, step in r.items():
+        tag = f"rank {rank} {mesh}"
+        problems += _step_problems(tag, step)
+        if abs(step["aux"] - step["ref_aux"]) > MOE_AUX_RTOL * abs(
+                step["ref_aux"]):
+            problems.append(f"{tag}: aux {step['aux']} against "
+                            f"{step['ref_aux']}")
+        if step["dropped"] != step["ref_dropped"]:
+            problems.append(f"{tag}: dropped {step['dropped']} against "
+                            f"{step['ref_dropped']}")
+    tag = f"rank {rank} 1x2"
+    split = r["1x2"]
+    problems += _serving_problems(tag, split)
+    b, q = PAR2_BATCH, PAR2_SEQ
+    want = [f"flash_attention_lse [{b}, {heads}, {q}, {d}]",
+            f"flash_attention_backward [{b}, {heads}, {q}, {d}]",
+            f"rmsnorm [{b}, {q}, {cfg.d_model}]"]
+    problems += [f"{tag}: no {w} in the step" for w in want
+                 if w not in split["step_kernel_calls"]]
+    if not any(k.startswith("rmsnorm_backward ") and k.endswith(
+            f"{cfg.d_model}]") for k in split["step_kernel_calls"]):
+        problems.append(f"{tag}: no RMSNorm backward at {cfg.d_model}")
+    prefill = f"flash_attention [{SSM_SERVE_BATCH}, {heads}, " \
+              f"{SSM_SERVE_PROMPT}, {d}]"
+    if prefill not in split["serve"]["float32"]["kernel_calls"]:
+        problems.append(f"{tag}: no {prefill} in the split prefill")
+    served = _expected_launches(cfg, 1, SSM_SERVE_TICKS)
+    for name in ("flash_attention", "rmsnorm"):
+        if split["serve_launches"][name] != 2 * served[name]:
+            problems.append(f"{tag}: split serving launched {name} "
+                            f"{split['serve_launches'][name]} times, not "
+                            f"{2 * served[name]}")
+    return problems
+
+
+def phase_parallel_gloo_moe() -> dict:
+    """Two processes on the card over gloo with CUDA tensors: the MoE split
+    over the model axis and routed globally over the data axis
+    (``_gloo_moe_rank``), which must pass on every rank. Returns the
+    kernels' launches on this path, both ranks' steps and split serving
+    summed."""
+    t0 = time.perf_counter()
+    ranks = _gloo_pair(_gloo_moe_rank, "parallel_gloo_moe", MOE_PAR_TIMEOUT_S)
+    problems, launches = [], {}
+    for rank, result in enumerate(ranks):
+        if sorted(result) != ["1x2", "2x1"]:
+            problems.append(f"rank {rank} reported {sorted(result)}")
+            continue
+        problems += _moe_rank_problems(rank, result)
+        for r in result.values():
+            for part in ("step_launches", "serve_launches"):
+                for name, n in r.get(part, {}).items():
+                    launches[name] = launches.get(name, 0) + n
+    cfg = _moe_par_config()
+    emit("parallel_gloo_moe", card=_smi("name,power.limit"),
+         meshes=[[1, 2], [2, 1]], layers=MOE_PAR_LAYERS,
+         params=cfg.param_count(),
+         experts_a_rank={"1x2": cfg.moe.num_experts // 2, "2x1":
+                         cfg.moe.num_experts},
+         step={"global_batch": PAR2_BATCH, "seq_len": PAR2_SEQ},
+         serve={"batch": SSM_SERVE_BATCH, "prompt": SSM_SERVE_PROMPT,
+                "ticks": SSM_SERVE_TICKS},
+         left_out=f"{MOE_ARCH}'s full depth (32 layers: ~3.3e9 parameters, "
+                  "~53 GB of fp32 train state in one process before "
+                  "activations, and the split's halves beside it); "
+                  "expert-TP: on two ranks at published widths every MoE is "
+                  "EP (40 and 128 experts both divide 2), so expert-TP is "
+                  "held on the CPU only (tests/test_torch_distributed_moe.py)"
+                  "; llama4-maverick-400b-a17b (a 400e9-parameter model)",
+         ranks=ranks, launches=launches,
+         seconds=time.perf_counter() - t0, problems=problems)
+    if problems:
+        raise SystemExit(f"chip_smoke: parallel_gloo_moe phase failed: "
+                         f"{problems}")
+    return launches
+
+
 # ------------------------------------------------------------------------- #
 # The kernels' line
 # ------------------------------------------------------------------------- #
@@ -4140,7 +4310,10 @@ def _median_call(fn) -> tuple:
 def _profiled(fn, units: int = 1) -> dict:
     """torch.profiler's device time and launches of ``units`` calls of
     ``fn``, per call. A trace with no device time is taken again, as
-    ``trace_ms`` does, up to ``TRACE_TRIES`` times."""
+    ``trace_ms`` does, up to ``TRACE_TRIES`` times; where every trace lost
+    its events, CUDA events time the calls instead (``timer``): their span
+    holds the gaps between launches too, so the launches and the device's
+    busy share are not measured then (``_idle_share``)."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     for tries in range(1, TRACE_TRIES + 1):
@@ -4150,14 +4323,30 @@ def _profiled(fn, units: int = 1) -> dict:
             torch.cuda.synchronize()
         device_us, launches, by_name = _device_time(prof, units, "call")
         if device_us:
-            break
+            return {"device_ms": device_us / 1e3 / units,
+                    "launches": launches / units,
+                    "top_device_time": by_name[:6], "timer": "torch.profiler"}
         if tries < TRACE_TRIES:
             time.sleep(TRACE_PAUSE_S * tries)
-    if not device_us:
-        raise SystemExit(f"chip_smoke: study: torch.profiler reported no "
-                         f"device time in {TRACE_TRIES} traces")
-    return {"device_ms": device_us / 1e3 / units,
-            "launches": launches / units, "top_device_time": by_name[:6]}
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(units):
+        fn()
+    end.record()
+    end.synchronize()
+    return {"device_ms": start.elapsed_time(end) / units,
+            "launches": "not measured", "top_device_time": [],
+            "timer": f"CUDA events (torch.profiler reported no device time "
+                     f"in {TRACE_TRIES} traces)"}
+
+
+def _idle_share(prof: dict, wall_ms: float):
+    """The device's idle share of a call that took ``wall_ms`` on the
+    host, from ``_profiled``'s trace; not measured where it fell back to
+    CUDA events."""
+    if prof["timer"] != "torch.profiler":
+        return "not measured"
+    return 1.0 - prof["device_ms"] / wall_ms
 
 
 def _stage_args(cw, s: int, envs, device) -> tuple:
@@ -4244,7 +4433,7 @@ def phase_study() -> dict:
                    - cpu_split["comm_matrix"],
                    "assembly": cpu_ms - cpu_split["stage_compute_exposed"]},
                "stage_compute_exposed": prof,
-               "device_idle_share": 1.0 - prof["device_ms"] / card_ms,
+               "device_idle_share": _idle_share(prof, card_ms),
                "cuda_vs_cpu": agree, "two_card_calls_bitwise": bitwise,
                "finite": finite,
                "total_s": {"min": float(got[:, 7].min()),
@@ -4394,7 +4583,7 @@ def _case_study_row(label: str, spec) -> tuple:
            "feasible_cells": sum(bool(r["feasible"]) for r in card.records),
            "card_ms": card_ms, "cpu_ms": cpu_ms,
            "device_ms": prof["device_ms"], "launches": prof["launches"],
-           "device_idle_share": 1.0 - prof["device_ms"] / card_ms,
+           "device_idle_share": _idle_share(prof, card_ms),
            "top_device_time": prof["top_device_time"][:3],
            "card_vs_cpu": agree, "two_card_runs_equal": equal_runs,
            "non_finite_totals": bad_totals}
@@ -4768,18 +4957,15 @@ def _dispatch_on_the_tick() -> dict:
             "per_call_us": per_call}
 
 
-# The families whose every cell but long_500k traces ok on both meshes; a
-# long_500k cell of theirs may only refuse for its one-row batch (item 13).
-DRYRUN_SPLIT_FAMILIES = ("dense", "ssm", "hybrid", "encdec", "vlm")
+# Every family's cells trace ok on both meshes but long_500k's, which may
+# only refuse for its one-row batch (item 13).
 ROADMAP_ITEM = r"ROADMAP Queue 1 item (\d+)"
 
 
 def _refused_as_planned(row: dict) -> bool:
     """A refused cell that names its ROADMAP items (``items``, read from
-    the whole error) as the port plans: another family's naming any item,
-    or a long_500k cell of the split families naming item 13 alone."""
-    if get_config(row["arch"]).family not in DRYRUN_SPLIT_FAMILIES:
-        return bool(row["items"])
+    the whole error) as the port plans: a long_500k cell naming item 13
+    alone."""
     return row["shape"] == "long_500k" and row["items"] == ["13"]
 
 
@@ -4791,12 +4977,10 @@ def phase_dryrun() -> None:
     roofline terms at the H100's rates beside the measured wall and device
     ms, model_flops_util, and the counted peak live bytes beside
     torch.cuda.max_memory_allocated. (b) On the host: lower_cell over every
-    runnable cell on the 16 x 16 mesh and the DRYRUN_SPLIT_FAMILIES' on
-    the 2 x 16 x 16 (a fake process group of 256 / 512 ranks;
-    none may be held here): the ok and refused counts, each cell's trace_s
-    and dominant term; a cell of those families must be ok but for
-    long_500k, which refuses naming item 13 alone, and every other refusal
-    must name its ROADMAP item.
+    runnable cell on the 16 x 16 and the 2 x 16 x 16 mesh (a fake process
+    group of 256 / 512 ranks; none may be held here): the ok and refused
+    counts, each cell's trace_s and dominant term; every cell must be ok
+    but long_500k's, which refuse naming item 13 alone.
     Also the host cost of a call by each dispatcher route, and what the
     kernels' operators cost the decode tick against direct launches."""
     if dist.is_initialized():
@@ -4821,10 +5005,9 @@ def phase_dryrun() -> None:
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
-    cells = [(arch, shape_name, False)
+    cells = [(arch, shape_name, multi_pod)
+             for multi_pod in (False, True)
              for arch, shape_name, runnable, _ in all_cells() if runnable]
-    cells += [(arch, shape_name, True) for arch, shape_name, _ in cells
-              if get_config(arch).family in DRYRUN_SPLIT_FAMILIES]
     directory = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
     try:
         infos = [run_cell(arch, shape_name, mp, directory)
@@ -5045,6 +5228,7 @@ def main() -> int:
     phase_parallel_gloo()
     launches["parallel_gloo_ssm"] = phase_parallel_gloo_ssm()
     launches["parallel_gloo_split"] = phase_parallel_gloo_split()
+    launches["parallel_gloo_moe"] = phase_parallel_gloo_moe()
     phase_dryrun()
     launches["study"] = phase_study()
     launches["run_study"] = phase_run_study()

@@ -30,6 +30,7 @@ import math
 from typing import Mapping, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
@@ -37,6 +38,7 @@ from repro_torch.parallel.sharding import all_gather_dim
 from repro_torch.parallel.tensor import (
     copy_to_region,
     reduce_from_region,
+    sum_over_group,
     vocab_parallel_cross_entropy,
     vocab_parallel_embed,
 )
@@ -110,8 +112,7 @@ def split_rms_norm(x: torch.Tensor, gamma: torch.Tensor, eps: float,
     rank's columns give only their part of it. Plain PyTorch: the kernel
     takes whole rows."""
     xf = x.float()
-    total = copy_to_region(reduce_from_region(
-        xf.square().sum(dim=-1, keepdim=True), group), group)
+    total = sum_over_group(xf.square().sum(dim=-1, keepdim=True), group)
     return (xf * torch.rsqrt(total / width + eps) * gamma.float()).to(x.dtype)
 
 
@@ -374,9 +375,61 @@ def _expert_ffn(params: Mapping[str, torch.Tensor], x: torch.Tensor,
     return torch.bmm(h, params["we_down"])
 
 
+def _combine(gate_vals: torch.Tensor, gate_idx: torch.Tensor,
+             e: int) -> torch.Tensor:
+    """The (t, e) combine matrix: each token's top-k gates renormalised to
+    sum to one at their experts, zero elsewhere."""
+    gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True).clamp(min=1e-9)
+    return torch.zeros((gate_vals.shape[0], e), dtype=torch.float32,
+                       device=gate_vals.device).scatter(1, gate_idx, gate_vals)
+
+
+def _coordinate(groups) -> Tuple[int, int]:
+    """(this rank's index, the count) over ``groups`` taken together, the
+    first outermost."""
+    index, count = 0, 1
+    for g in groups:
+        index = index * dist.get_world_size(g) + dist.get_rank(g)
+        count *= dist.get_world_size(g)
+    return index, count
+
+
+def _capacity(t: int, top_k: int, capacity_factor: float, e: int) -> int:
+    return min(t, max(1, int(t * top_k * capacity_factor / e)))
+
+
+def _pick(routed: torch.Tensor, t: int, top_k: int, capacity_factor: float,
+          s: int, lo: int, n: int, route_groups):
+    """Experts ``lo .. lo + n``'s tokens within capacity: (gates (n, c),
+    token rows (n, c), which slots are kept (n, c) or None for all). Alone,
+    each expert's top ``cap`` of the ``t`` tokens. Over ``route_groups``,
+    its top ``cap`` of the global microbatch, ``cap`` from the global
+    count: every rank's combine matrix gathered (rank order is global
+    token order), then the rank's own of the picks, which are its local
+    top ``n_j`` by the same order."""
+    e = routed.shape[1]
+    if s == 1:
+        return (*stable_top_k(routed.T[lo:lo + n], t), None)
+    if not route_groups:
+        cap = _capacity(t, top_k, capacity_factor, e)
+        return (*stable_top_k(routed.T[lo:lo + n], cap), None)
+    index, count = _coordinate(route_groups)
+    cap = _capacity(t * count, top_k, capacity_factor, e)
+    whole = routed.detach()
+    for g in reversed(route_groups):                # innermost first
+        whole = all_gather_dim(whole, 0, g)
+    _, picked = stable_top_k(whole.T[lo:lo + n], cap)
+    mine = ((picked >= index * t) & (picked < (index + 1) * t)).sum(1)
+    c = min(cap, t)
+    vals, idx = stable_top_k(routed.T[lo:lo + n], c)
+    return vals, idx, torch.arange(c, device=idx.device) < mine[:, None]
+
+
 def moe_block(params: Mapping, x: torch.Tensor, *, top_k: int,
               capacity_factor: float, activation: str,
-              aux_loss_weight: float = 0.0, dispatch: str = "gather"
+              aux_loss_weight: float = 0.0, dispatch: str = "gather",
+              group=None, shared_group=None, route_groups=(),
+              stats: Optional[dict] = None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """MoE FFN. x: (b, s, d) -> (y (b, s, d), the Switch auxiliary loss).
 
@@ -391,40 +444,91 @@ def moe_block(params: Mapping, x: torch.Tensor, *, top_k: int,
     The combine is deterministic on every device: each token gathers its
     k experts' outputs in ascending expert order and sums them, a reduction
     of fixed shape with no atomics (the reference scatter-adds; a token's
-    dropped experts are exact zeros in the sum)."""
+    dropped experts are exact zeros in the sum).
+
+    ``group``: the model axis's group where the experts are split over it,
+    by experts (EP: ``we_up`` holds ``n`` of the ``e`` experts, this rank's
+    ``rank * n ..``) or else by their hidden layers (expert-TP: all ``e``,
+    each as ``ffn_block`` under a group). Every rank routes its tokens
+    over all ``e`` experts (the router is replicated), runs its part of the
+    experts through ``copy_to_region`` and sums its partial ``y`` over the
+    group: the token's experts in ascending order on each rank, then the
+    ranks' sum, so the result is the one-process result to fp32 rounding,
+    not bit for bit. The gates the experts read enter through
+    ``copy_to_region`` too, so the router's gradient from the dispatch sums
+    every rank's experts; the auxiliary loss, the same on every rank, reads
+    them as they are and counts once. ``shared_group``: the shared expert's
+    group where it is split.
+
+    ``route_groups``: the data-parallel groups (outermost first) when this
+    rank's tokens are its block of a global microbatch: with ``s > 1`` each
+    expert's capacity pick and the auxiliary loss's density and router
+    probability are the global microbatch's, as the reference's one
+    program computes them (``_pick``; the sums through ``sum_over_group``,
+    whose backward sums every rank's gradient of the global loss). A decode
+    step keeps every token alone, and its auxiliary loss, which serving
+    drops, is the rank's own.
+
+    ``stats``: where given, receives this call's ``routed`` (token, expert)
+    pairs and those ``kept`` within capacity, on this rank's tokens and
+    experts, as tensors."""
     b, s, d = x.shape
-    e = params["we_up"].shape[0]
+    e = params["router"].shape[1]
     t = b * s
     xt = x.reshape(t, d)
     probs = torch.softmax(xt.float() @ params["router"], dim=-1)   # (t, e)
     gate_vals, gate_idx = stable_top_k(probs, top_k)              # (t, k)
-    gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True).clamp(min=1e-9)
-    combine = torch.zeros((t, e), dtype=torch.float32,
-                          device=x.device).scatter(1, gate_idx, gate_vals)
+    combine = _combine(gate_vals, gate_idx, e)
+    routed, xe = combine, xt
+    if group is not None:
+        routed = _combine(copy_to_region(probs, group).gather(1, gate_idx),
+                          gate_idx, e)
+        xe = copy_to_region(xt, group)
+    n = params["we_up"].shape[0]                  # the experts this rank runs
+    lo = dist.get_rank(group) * n if n < e else 0
+    spread = tuple(route_groups) if s > 1 else ()
+    order, _ = torch.sort(gate_idx, dim=-1)                       # (t, k)
+    local = order - lo
+    inside = (local >= 0) & (local < n)
+    local = local.clamp(0, n - 1)
 
     if dispatch == "dense":
-        ye = _expert_ffn(params, xt[None].expand(e, t, d), activation)
-        cw = combine.to(xt.dtype).T[..., None]                    # (e, t, 1)
+        ye = _expert_ffn(params, xe[None].expand(n, t, d), activation)
+        cw = routed[:, lo:lo + n].to(xt.dtype).T[..., None]       # (n, t, 1)
         y = (ye * cw).sum(0)
+        kept = inside
     else:
-        cap = t if s == 1 else min(t, max(
-            1, int(t * top_k * capacity_factor / e)))
-        sel_val, sel_idx = stable_top_k(combine.T, cap)           # (e, cap)
-        ye = _expert_ffn(params, xt[sel_idx], activation)         # (e, cap, d)
+        sel_val, sel_idx, keep = _pick(routed, t, top_k, capacity_factor, s,
+                                       lo, n, spread)             # (n, c)
+        c = sel_idx.shape[1]
+        ye = _expert_ffn(params, xe[sel_idx], activation)         # (n, c, d)
         ye = ye * sel_val[..., None].to(ye.dtype)
         # Inverse index: the slot of each (expert, token), -1 if not kept.
-        slot = torch.full((e, t), -1, dtype=torch.long, device=x.device)
-        slot.scatter_(1, sel_idx, torch.arange(
-            cap, device=x.device).expand(e, cap))
-        order, _ = torch.sort(gate_idx, dim=-1)                   # (t, k)
-        at = slot[order, torch.arange(t, device=x.device)[:, None]]  # (t, k)
-        part = ye[order, at.clamp(min=0)]                         # (t, k, d)
-        y = torch.where((at >= 0)[..., None], part, 0).sum(1)
+        slots = torch.arange(c, device=x.device).expand(n, c)
+        if keep is not None:
+            slots = torch.where(keep, slots, -1)
+        slot = torch.full((n, t), -1, dtype=torch.long, device=x.device)
+        slot.scatter_(1, sel_idx, slots)
+        at = slot[local, torch.arange(t, device=x.device)[:, None]]  # (t, k)
+        at = torch.where(inside, at, -1)
+        part = ye[local, at.clamp(min=0)]                         # (t, k, d)
+        kept = at >= 0
+        y = torch.where(kept[..., None], part, 0).sum(1)
+    if stats is not None:
+        stats["routed"], stats["kept"] = inside.sum(), kept.sum()
+    if group is not None:
+        y = reduce_from_region(y, group)
     if "shared" in params:
-        y = y + ffn_block(params["shared"], xt, activation)
+        y = y + ffn_block(params["shared"], xt, activation, shared_group)
     # Load-balancing aux loss (Switch-style).
-    density = combine.mean(dim=0)
-    aux = aux_loss_weight * e * torch.sum(density * probs.mean(dim=0))
+    if spread:
+        sums = torch.stack([combine.sum(0), probs.sum(0)])
+        for g in spread:
+            sums = sum_over_group(sums, g)
+        density, router_prob = (sums / (t * _coordinate(spread)[1])).unbind()
+    else:
+        density, router_prob = combine.mean(dim=0), probs.mean(dim=0)
+    aux = aux_loss_weight * e * torch.sum(density * router_prob)
     return y.reshape(b, s, d), aux
 
 

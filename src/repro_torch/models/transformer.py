@@ -201,7 +201,14 @@ class FFN(nn.Module):
 
 class MoE(nn.Module):
     """A MoE block's leaves (``init_moe_params``): the fp32 router, the
-    stacked experts and, where the config has one, the shared expert."""
+    stacked experts and, where the config has one, the shared expert.
+
+    Set by ``parallel.tensor``: ``tp_group``, the model axis's group where
+    the experts are split over it (by experts, EP, where ``we_up`` holds
+    fewer than all; else by their hidden layers); ``route_groups``, the
+    data-parallel groups whose ranks' tokens are routed as one microbatch
+    (``moe_block``). ``stats``: a dictionary the caller may set, which each
+    call fills with its routed and kept (token, expert) pairs."""
 
     def __init__(self, cfg: ModelConfig, generator, dtype, device):
         super().__init__()
@@ -216,18 +223,25 @@ class MoE(nn.Module):
         if shared is not None:
             self.shared = FFN(shared, cfg.activation, device)
         self.cfg = cfg
+        self.tp_group = None
+        self.route_groups = ()
+        self.stats = None
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         m = self.cfg.moe
         params = {n: getattr(self, n) for n in self.leaves}
+        shared_group = None
         if hasattr(self, "shared"):
             params["shared"] = {n: getattr(self.shared, n)
                                 for n in self.shared.leaves}
+            shared_group = self.shared.tp_group
         return moe_block(params, x, top_k=m.top_k,
                          capacity_factor=m.capacity_factor,
                          activation=self.cfg.activation,
                          aux_loss_weight=m.aux_loss_weight,
-                         dispatch=m.dispatch)
+                         dispatch=m.dispatch, group=self.tp_group,
+                         shared_group=shared_group,
+                         route_groups=self.route_groups, stats=self.stats)
 
 
 class Block(nn.Module):

@@ -13,6 +13,15 @@ The embedding and the logits are split over the vocabulary:
 of their exponentials. Every rank computes the same loss from
 the same replicated values, so each backward gives its rank the gradient of
 its own shards.
+
+A MoE layer splits its experts over the group where their count divides
+(expert parallelism, EP: each rank holds whole experts), else each expert's
+hidden layer (expert-TP, as an FFN); ``models.common.moe_block`` runs
+either. Under data parallelism a MoE layer routes the global microbatch, as
+the reference's one program does (``route_over``): the capacity pick reads
+every data rank's combine matrix, and the auxiliary loss's statistics are
+summed over the data ranks through ``sum_over_group``, whose backward sums
+the gradients too.
 """
 
 from __future__ import annotations
@@ -58,6 +67,14 @@ def reduce_from_region(x: torch.Tensor, group) -> torch.Tensor:
     return _ReduceFromRegion.apply(x, group)
 
 
+def sum_over_group(x: torch.Tensor, group) -> torch.Tensor:
+    """Sum over ``group`` forward, and the gradients summed over it
+    backward: for a sum of every rank's part that each rank then uses whole
+    (``jax.lax.psum``'s transpose), so that each part's gradient counts
+    every rank's use."""
+    return copy_to_region(reduce_from_region(x, group), group)
+
+
 def _vocab_range(local_rows: int, group):
     lo = dist.get_rank(group) * local_rows
     return lo, lo + local_rows
@@ -98,11 +115,13 @@ def apply_tensor_parallel(model, placements, group) -> None:
     axis's ``group``: each block whose weights the rules split over the
     axis runs on its shards, the others stay replicated (the rules'
     replicate-if-not-divisible), and so does the vocabulary. A
-    ``Transformer``'s attention and FFN; an ``EncDec``'s encoder and decoder
-    layers' (the decoder's self- and cross-attention); a ``Mamba``'s layers
-    (their SSD heads) and, for the hybrid, its shared block's attention and
-    FFN. Raises, naming the attention, where a rank's query heads would
-    straddle KV groups."""
+    ``Transformer``'s attention and FFN, or its MoE (its experts split as
+    ``we_up`` is: over the experts, EP, or over their hidden layers,
+    expert-TP; its shared expert as an FFN); an ``EncDec``'s encoder and
+    decoder layers' (the decoder's self- and cross-attention); a
+    ``Mamba``'s layers (their SSD heads) and, for the hybrid, its shared
+    block's attention and FFN. Raises, naming the attention, where a rank's
+    query heads would straddle KV groups."""
     def split(name: str):
         return group if MODEL_AXIS in placements[name].axes() else None
 
@@ -132,7 +151,13 @@ def apply_tensor_parallel(model, placements, group) -> None:
     for i, layer in enumerate(model.layers):
         if hasattr(layer, "attn"):
             point(f"layers.{i}.attn", layer.attn)
-            point(f"layers.{i}.ffn", layer.ffn)
+            if hasattr(layer, "ffn"):
+                point(f"layers.{i}.ffn", layer.ffn)
+                continue
+            moe = layer.moe
+            moe.tp_group = split(f"layers.{i}.moe.we_up")
+            if hasattr(moe, "shared"):
+                point(f"layers.{i}.moe.shared", moe.shared)
             continue
         layer.tp_group = split(f"layers.{i}.A_log")
         cut = split(f"layers.{i}.wx")
@@ -147,3 +172,12 @@ def apply_tensor_parallel(model, placements, group) -> None:
     if shared is not None:
         point("shared_attn.attn", shared.attn)
         point("shared_attn.ffn", shared.ffn)
+
+
+def route_over(model, groups) -> None:
+    """Point a model's MoE layers at the data-parallel ``groups``
+    (outermost axis first): each routes the global batch, its rows being
+    this rank's block of it in the groups' rank order."""
+    for layer in getattr(model, "layers", ()):
+        if hasattr(layer, "moe"):
+            layer.moe.route_groups = tuple(groups)

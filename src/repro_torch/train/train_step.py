@@ -21,15 +21,20 @@ this rank's pieces of a whole state; ``sharded_train_step`` is the
 counterpart of the reference's ``jit_train_step``, one process a device,
 the collectives explicit:
 
-  * each rank takes its rows of the global batch (``batch_spec``) and runs
-    the microbatched forward and backward on its shards (tensor parallelism
-    for every family but the MoE: ``parallel.tensor``; ZeRO-3's
-    parameters gathered over the data axis where they are read, a layer
-    held whole by one rank broadcast from it: ``parallel.zero``);
+  * the global batch is cut into microbatches as the reference cuts it
+    (``plan.microbatches`` blocks of consecutive rows), and each rank takes
+    its rows of each (``batch_spec``), so that the ranks' microbatch i is
+    the reference's; it runs the microbatched forward and backward on its
+    shards (tensor parallelism: ``parallel.tensor``, the MoE's experts by
+    expert or by hidden layer; ZeRO-3's parameters gathered over the data
+    axis where they are read, a layer held whole by one rank broadcast from
+    it: ``parallel.zero``);
   * a rank's loss is weighted by its share of the microbatch's targets, so
     the sum over the data-parallel ranks is the reference's mean over the
-    global microbatch (a MoE layer's auxiliary loss is each rank's own,
-    weighted alike, as the reference's is each microbatch's own);
+    global microbatch; a MoE layer routes the global microbatch (its
+    capacity pick and auxiliary loss over every data rank's tokens:
+    ``parallel.tensor.route_over``), so its auxiliary loss is the same on
+    every rank and, weighted alike, sums to the reference's;
   * each gradient is reduce-scattered onto its optimizer-state shard (the
     reference's gradient sharding constraint, ``train_step.py:83-86,128``)
     and summed over the data-parallel axes it is not divided over;
@@ -71,7 +76,7 @@ from repro_torch.parallel.sharding import (
     reduce_scatter_dim,
     shard_shape,
 )
-from repro_torch.parallel.tensor import apply_tensor_parallel
+from repro_torch.parallel.tensor import apply_tensor_parallel, route_over
 from repro_torch.parallel.zero import gather_on_use, opt_state_shardings
 from repro_torch.train.optimizer import (
     AdamWConfig,
@@ -186,34 +191,22 @@ def state_shardings(cfg: ModelConfig, plan: MemoryPlan, state: dict,
             "opt": opt}
 
 
-# ROADMAP Queue 1 items: tensor parallelism of the MoE (11), and a batch
-# too small to split over the data-parallel ranks (13: a split of the
-# sequence). Every other family splits over the model axis; every family
-# runs ZeRO-3.
-TP_ITEMS = {"moe": 11}
+# ROADMAP Queue 1 item: a batch too small to split over the data-parallel
+# ranks (13: a split of the sequence). Every family splits over the model
+# axis and runs ZeRO-3.
 SEQUENCE_SPLIT_ITEM = 13
 
 
-def _refuse_unported(cfg: ModelConfig, plan: MemoryPlan, mesh,
-                     batch_rows: Optional[int] = None) -> None:
-    """Raise for what the port does not shard yet, naming each ROADMAP
-    item (tensor parallelism of the MoE family and, given ``batch_rows``, a
-    batch too small to divide over the data-parallel ranks); then for a
-    mesh with no processes behind it."""
-    reasons = []
-    if mp_size(mesh) > 1 and cfg.family in TP_ITEMS:
-        reasons.append(
-            f"tensor parallelism of the {cfg.family} family waits for "
-            f"ROADMAP Queue 1 item {TP_ITEMS[cfg.family]}: use a mesh whose "
-            "model axis is 1")
+def _refuse_unported(mesh, batch_rows: Optional[int] = None) -> None:
+    """Raise for what the port does not shard yet, naming its ROADMAP item
+    (given ``batch_rows``, a batch too small to divide over the
+    data-parallel ranks); then for a mesh with no processes behind it."""
     if batch_rows is not None and batch_spec(mesh, (batch_rows,))[0] is None \
             and dp_size(mesh) > 1:
-        reasons.append(
+        raise NotImplementedError(
             f"a batch of {batch_rows} rows over {dp_size(mesh)} data-parallel "
             "ranks needs a split along the sequence, which waits for ROADMAP "
             f"Queue 1 item {SEQUENCE_SPLIT_ITEM}")
-    if reasons:
-        raise NotImplementedError("; ".join(reasons))
     if not isinstance(mesh, DeviceMesh):
         raise TypeError(f"a sharded step runs on a device mesh over a "
                         f"process group (parallel.build_mesh), not {mesh!r}")
@@ -225,13 +218,15 @@ def shard_model(cfg: ModelConfig, plan: MemoryPlan, model, mesh,
     """This rank's pieces of a whole model's parameters (every rank holding
     the same model), in place: each parameter keeps its object and takes its
     piece as data; the model is pointed at the model axis's group (its
-    heads, FFN columns or SSD heads and its vocabulary block) and, under
-    ZeRO-3, gathers its parameters where it reads them. Returns the placements
+    heads, FFN columns, experts or SSD heads and its vocabulary block), its
+    MoE layers at the data-parallel groups (their routing group is the
+    global batch) and, under ZeRO-3, it gathers its parameters where it
+    reads them. Returns the placements
     (``placements``, else ``param_shardings``'s). Serving and training
     alike; raises, before anything is changed, as ``shard_train_state``,
     and, given the global batch's ``batch_rows``, for a batch that does not
     divide over the data-parallel ranks."""
-    _refuse_unported(cfg, plan, mesh, batch_rows)
+    _refuse_unported(mesh, batch_rows)
     params = dict(model.named_parameters())
     sh = placements or param_shardings(cfg, params, mesh, fsdp=plan.fsdp)
     with torch.no_grad():
@@ -239,6 +234,9 @@ def shard_model(cfg: ModelConfig, plan: MemoryPlan, model, mesh,
             p.data = local_shard(p.data, sh[name], mesh).clone()
     if mp_size(mesh) > 1:
         apply_tensor_parallel(model, sh, mesh.get_group(MODEL_AXIS))
+    sizes = mesh_spec(mesh).shape
+    route_over(model, [mesh.get_group(a) for a in dp_axes(mesh)
+                       if sizes[a] > 1])
     if plan.fsdp:
         gather_on_use(model, sh, mesh)
     return sh
@@ -249,11 +247,8 @@ def shard_train_state(cfg: ModelConfig, plan: MemoryPlan, state: dict,
     """This rank's pieces of a whole train state (every rank holding the
     same one, e.g. from ``init_train_state`` with one seed), in place: the
     parameters as ``shard_model`` takes them, each optimizer leaf replaced
-    by its piece. Returns ``{"model", "params", "opt", "shardings"}``.
-
-    Raises, before anything is changed, for tensor parallelism of the MoE
-    family."""
-    _refuse_unported(cfg, plan, mesh)
+    by its piece. Returns ``{"model", "params", "opt", "shardings"}``."""
+    _refuse_unported(mesh)
     sh = state_shardings(cfg, plan, state, mesh)
     opt = state["opt"]
     with torch.no_grad():
@@ -338,9 +333,10 @@ def sharded_train_step(cfg: ModelConfig, plan: MemoryPlan, mesh,
                        opt_cfg: Optional[AdamWConfig] = None) -> Callable:
     """(state, batch, generator) -> (state, metrics) on a device mesh, for a
     state from ``shard_train_state`` on the same mesh and the global batch
-    (every rank passes the whole batch; each takes its rows). The metrics
-    are ``make_train_step``'s, global (the same on every rank)."""
-    _refuse_unported(cfg, plan, mesh)
+    (every rank passes the whole batch; each takes its rows of each
+    microbatch). The metrics are ``make_train_step``'s, global (the same on
+    every rank)."""
+    _refuse_unported(mesh)
     opt_cfg = opt_cfg or _default_opt(plan)
     m = max(1, plan.microbatches)
     dp_groups = [mesh.get_group(a) for a in dp_axes(mesh)]
@@ -350,12 +346,17 @@ def sharded_train_step(cfg: ModelConfig, plan: MemoryPlan, mesh,
         params, opt, sh = state["params"], state["opt"], state["shardings"]
         local = {}
         for k, v in batch.items():
-            spec = batch_spec(mesh, tuple(v.shape), seq_shard=(k == "tokens"))
+            # microbatch i is rows [i B / m, (i + 1) B / m), split over the
+            # data-parallel ranks (the reference's reshape to (m, B / m))
+            mbs = v.reshape((m, v.shape[0] // m) + tuple(v.shape[1:]))
+            spec = batch_spec(mesh, tuple(mbs.shape[1:]),
+                              seq_shard=(k == "tokens"))
             if any(e is not None for e in spec[1:]):
                 raise NotImplementedError(
                     f"{k} {tuple(v.shape)}: a batch split along the sequence "
                     f"waits for ROADMAP Queue 1 item {SEQUENCE_SPLIT_ITEM}")
-            local[k] = local_shard(v, spec, mesh)
+            mine = local_shard(mbs, (None,) + spec, mesh)
+            local[k] = mine.reshape((-1,) + tuple(v.shape[1:]))
         counts = (local["targets"] != -1).reshape(m, -1).sum(1).float()
         totals = counts.clone()
         for group in dp_groups:

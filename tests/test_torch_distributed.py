@@ -238,8 +238,9 @@ results["counted_step"] = {
     "c10d": {k: v for k, v in counter.by_op.items() if k.startswith("c10d.")}}
 
 # -- a MoE model under ZeRO-3 against ZeRO-1, (4 data, 1 model) -----------
-# (both weight each rank's own auxiliary loss: the same function of the
-# batch, so ZeRO-3's gathered leaves must give ZeRO-1's step)
+# (both route the global batch over the data axis, each rank weighing the
+# global auxiliary loss by its share of the targets: the same function of
+# the batch, so ZeRO-3's gathered leaves must give ZeRO-1's step)
 moe_cfg = get_config("granite-moe-3b-a800m", reduced=True)
 moe_out = {}
 for zero_stage in (1, 3):

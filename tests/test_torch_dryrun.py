@@ -8,9 +8,9 @@
   both sides abstract, so full size is cheap), every serving cell's cache,
   and ``model_flops`` exactly for all 40 cells.
 * ``lower_cell`` on a (2 data, 2 model) fake group with the reduced
-  configs: every family's cells but the MoE's are ``ok`` with the
-  reference's JSON keys, each refusal (the MoE, long_500k's one-row
-  batch) names its ROADMAP item, and no
+  configs: every family's cells are ``ok`` with the reference's JSON
+  keys, each refusal (long_500k's one-row batch) names its ROADMAP item,
+  and no
   process group is left behind. The CLI on one full-size cell of the
   production mesh, in a fresh interpreter that never loads ``jax``.
 """
@@ -173,9 +173,26 @@ def test_encdec_and_vlm_cells_are_ok(arch, shape):
     test_dense_cells_are_ok(arch, shape)
 
 
-REFUSED = [("granite-moe-3b-a800m", "train_4k", [11]),
-           ("llama4-maverick-400b-a17b", "decode_32k", [11]),
-           ("mamba2-780m", "long_500k", [13]),
+@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m",
+                                  "llama4-maverick-400b-a17b"])
+@pytest.mark.parametrize("shape", ["train_4k", "prefill_32k", "decode_32k"])
+def test_moe_cells_are_ok(arch, shape):
+    """The reduced granite-moe and llama4-maverick split over the (2, 2)
+    fake group (4 experts, 2 a rank: EP; llama4's shared expert split as
+    an FFN): the checks of ``test_dense_cells_are_ok``. A training step
+    and a prefill route the global microbatch over the data axis: each MoE
+    layer all-gathers the ranks' combine matrices, (t, e) fp32."""
+    test_dense_cells_are_ok(arch, shape)
+    counter, _ = _lower(arch, shape)
+    cfg = get_config(arch, reduced=True)
+    gathers = counter.by_op.get("c10d._allgather_base_", [0])[0]
+    if SHAPES[shape].kind == "decode":
+        assert gathers == 1                       # the logits' blocks
+    else:
+        assert gathers >= cfg.num_layers // cfg.moe.moe_every
+
+
+REFUSED = [("mamba2-780m", "long_500k", [13]),
            ("zamba2-2.7b", "long_500k", [13])]
 
 
@@ -192,13 +209,11 @@ def test_other_families_are_refused_naming_their_item(arch, shape, items):
 def test_a_refused_cell_is_recorded_as_the_reference_records_an_error(
         tmp_path, monkeypatch):
     monkeypatch.undo()                   # the production mesh
-    info = dryrun.run_cell("granite-moe-3b-a800m", "prefill_32k", True,
-                           str(tmp_path))
+    info = dryrun.run_cell("mamba2-780m", "long_500k", True, str(tmp_path))
     saved = json.loads(
-        (tmp_path / "granite-moe-3b-a800m_prefill_32k_2x16x16.json")
-        .read_text())
+        (tmp_path / "mamba2-780m_long_500k_2x16x16.json").read_text())
     assert saved["status"] == info["status"] == "error"
-    assert "ROADMAP Queue 1 item 11" in saved["error"]
+    assert "ROADMAP Queue 1 item 13" in saved["error"]
     assert saved["mesh"] == "2x16x16"
     assert not dist.is_initialized()
 

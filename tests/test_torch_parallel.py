@@ -355,23 +355,50 @@ def test_reference_leaf(arch, name, path, layer):
 
 @pytest.mark.parametrize("arch", ["granite-moe-3b-a800m",
                                   "llama4-maverick-400b-a17b"])
-def test_tensor_parallelism_of_other_families_raises_before_any_step(arch):
-    """Every family but the MoE splits its compute over the model axis;
-    the MoE raises at once, naming its roadmap item alone, and leaves the
-    state whole."""
+def test_moe_state_shards_over_the_model_axis(arch):
+    """The MoE splits over the model axis as every family does: on a
+    (1, 2) mesh of a fake group of two, as its rank 0, the reduced state
+    takes each leaf's piece as ``param_shardings`` places it (the 4 experts
+    2 a rank, EP; the router replicated; llama4's shared expert split as an
+    FFN) and its moments their ZeRO-1 pieces, and every MoE layer is
+    pointed at the model axis's group by experts."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    from repro_torch.parallel.sharding import shard_shape
     cfg = get_config(arch, reduced=True)
     plan = MemoryPlan(1, "float32", True, "dots", 0.0)
-    mesh = MeshSpec((1, 2), ("data", "model"))
-    match = "ROADMAP Queue 1 item 11"
-    with pytest.raises(NotImplementedError, match=match) as raised:
-        sharded_train_step(cfg, plan, mesh)
-    assert re.findall(r"item (\d+)", str(raised.value)) == ["11"]
     state = init_train_state(cfg, plan, torch.Generator().manual_seed(0),
                              dtype=torch.float32, device="cpu")
-    before = {n: p.shape for n, p in state["params"].items()}
-    with pytest.raises(NotImplementedError, match=match):
-        shard_train_state(cfg, plan, state, mesh)
-    assert {n: p.shape for n, p in state["params"].items()} == before
+    want = param_shardings(cfg, state["params"],
+                           MeshSpec((1, 2), ("data", "model")))
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=2)
+    try:
+        mesh = build_mesh((1, 2), ("data", "model"), "cpu")
+        state = shard_train_state(cfg, plan, state, mesh)
+        moes = [layer.moe for layer in state["model"].layers
+                if hasattr(layer, "moe")]
+        pointed = [(m.tp_group is not None, m.we_up.shape[0])
+                   for m in moes]
+        shared = [m.shared.tp_group is not None for m in moes
+                  if hasattr(m, "shared")]
+    finally:
+        dist.destroy_process_group()
+    sh = state["shardings"]
+    assert sh["params"] == want
+    for name, p in state["params"].items():
+        assert tuple(p.shape) == shard_shape(want[name], mesh), name
+    for name, t in state["opt"]["m"].items():
+        assert tuple(t.shape) == shard_shape(sh["opt"]["m"][name], mesh), name
+    layer = cfg.moe.moe_every - 1
+    assert sh["params"][f"layers.{layer}.moe.we_up"].spec == (
+        "model", None, None)
+    assert sh["params"][f"layers.{layer}.moe.we_down"].spec == (
+        "model", None, None)
+    assert sh["params"][f"layers.{layer}.moe.router"].spec == (None, None)
+    assert tuple(state["params"][f"layers.{layer}.moe.we_up"].shape) == (
+        2, cfg.d_model, cfg.moe.d_ff)
+    assert pointed == [(True, 2)] * (cfg.num_layers // cfg.moe.moe_every)
+    assert shared == ([True] * len(moes) if cfg.moe.shared_expert else [])
 
 
 def test_sharded_step_needs_a_device_mesh():
