@@ -232,6 +232,7 @@ pipes, or as 3xTF32 on the tensor cores).
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import json
 import math
 import os
@@ -316,17 +317,23 @@ from repro_torch.kernels.ssd_scan import (  # noqa: E402
     ssd_scan_plain,
     ssd_stages_cuda,
 )
+from repro_torch.models import common as model_common  # noqa: E402
 from repro_torch.models import get_model  # noqa: E402
 from repro_torch.models.dlrm import DLRM  # noqa: E402
 from repro_torch.parallel import build_mesh, dp_axes, plan_memory  # noqa: E402
 from repro_torch.launch.dryrun import run_cell  # noqa: E402
-from repro_torch.launch.specs import model_flops  # noqa: E402
+from repro_torch.launch.specs import abstract_model, model_flops  # noqa: E402
+from repro_torch.parallel import tensor as tensor_module  # noqa: E402
 from repro_torch.parallel.compression import compressed_psum  # noqa: E402
 from repro_torch.parallel.sharding import (  # noqa: E402
+    SEQ_SPLIT,
+    Placement,
     batch_spec,
     cache_shardings,
     gather_full,
     local_shard,
+    shard_shape,
+    split_caches,
 )
 from repro_torch.serve import Engine, EngineConfig, Request  # noqa: E402
 from repro_torch.train import (  # noqa: E402
@@ -409,6 +416,14 @@ TRACE_PAUSE_S = 0.25    # the wait before the n-th retry is n times this
 # the log-sum-exp, in nats, to LSE_TOL of max(1, its largest magnitude) (the
 # same fp32 sums of exact products in another order, exp2 on the card).
 LSE_TOL = 1e-4
+# The partial route (serving over a block of a split cache) against its plain
+# version: the largest output difference as a share of the plain output's
+# largest magnitude. Unit-normal q and k at d 160 give scores of about N(0,
+# 1), so each row averages V over ~10^5 keys of a block of 262,144 and its
+# output is ~1e-3: an absolute ATTN_TOL would pass a kernel that wrote
+# zeros. bf16: P rounded to bf16 for the MMA, ~2^-9 / sqrt(3) of each term,
+# about 1e-3 of the output; fp32: the same sums in another order.
+PARTIAL_REL_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 
 # Dense-LM training: smollm-135m at full width and depth, fp32 parameters as
 # launch.train makes them, 8 sequences of SmolLM's 2048-token context a
@@ -759,6 +774,113 @@ def _attention_case(name, b, h, hkv, sq, skv, d, causal, dtype, gen,
             for c in DECODE_CLUSTERS
             if decode_cluster_fits(d, dtype, h // hkv * sq, c)}
     return case
+
+
+def _decode_blocks(b: int, h: int, hkv: int, sq: int, dtype) -> int:
+    """The decode kernels' grid at a long cache: a cluster of
+    DECODE_DEFAULT_CLUSTER blocks for each (batch, KV head, chunk of its
+    group's h / hkv x sq query rows), the chunk DM_ROWS rows (bf16) or
+    DEC_ROWS (fp32; 1 where the group has one row), as the launch in
+    csrc/flash_attention.cu sizes it."""
+    rows = h // hkv * sq
+    chunk = (attn_module.DM_ROWS if dtype == torch.bfloat16
+             else 1 if rows == 1 else attn_module.DEC_ROWS)
+    return b * hkv * -(-rows // chunk) * attn_module.DECODE_DEFAULT_CLUSTER
+
+
+def _partial_case(name, b, h, hkv, sq, skv, d, dtype, gen,
+                  q_offset) -> dict:
+    """The partial route (serving over a cache split along its sequence:
+    one rank's block of the keys, causal, ``q_offset`` the rows' position
+    in the block): the kernel's fp32 output against the plain version's
+    within PARTIAL_REL_TOL of its largest magnitude, exact zeros where a
+    row sees no key, the log-sum-exp within LSE_TOL and +inf at the same
+    rows; its time beside the plain version's, SDPA's on the
+    same inputs (the mask standing for q_offset) and the bound, from what
+    this call's positions let each row see. Inputs in the model's layout,
+    as ``_attention_case``'s; at a block of 262,144 keys the K/V are 5.37
+    GB in bf16 and 10.7 GB in fp32, so the set is not copied for a cold L2
+    (it is 100 times the L2 already) and the plain and library calls,
+    whose temporaries are gigabytes, are timed eagerly over 3 calls."""
+    def draw(s, heads):
+        t = torch.randn((b, s, heads, d), generator=gen, device=DEVICE)
+        return t.to(dtype).transpose(1, 2)
+    q, k, v = draw(sq, h), draw(skv, hkv), draw(skv, hkv)
+    q_off = torch.tensor(q_offset, dtype=torch.int32, device=DEVICE)
+    got, lse = ops.flash_attention_partial(q, k, v, True, None, q_off)
+    torch.cuda.synchronize()
+    want, want_lse = flash_attention_forward_plain(q, k, v, True, None, q_off,
+                                                   unrounded=True)
+    err = (got - want).abs().max().item()
+    scale = want.abs().max().item()
+    same_inf = bool(torch.equal(torch.isinf(lse), torch.isinf(want_lse)))
+    finite = torch.isfinite(want_lse)
+    lse_err = ((lse[finite] - want_lse[finite]).abs().max().item()
+               if finite.any() else 0.0)
+    keyless_zero = bool((got[~finite] == 0).all())
+    del want, want_lse
+    kpos = np.arange(skv)[None, None, :]
+    qpos = np.arange(sq)[None, :, None] + np.asarray(q_offset)[:, None, None]
+    allowed = np.broadcast_to(kpos <= qpos, (b, sq, skv))
+    flops, nbytes = attn_module.forward_work(
+        b, h, hkv, sq, skv, d, dtype, True, lse=True,
+        pairs=int(allowed.sum()), kv_rows=int(allowed.any(axis=1).sum()),
+        out_itemsize=4)
+    mask = torch.from_numpy(allowed.copy()).to(DEVICE)[:, None]
+    sets = [(q, k, v)]
+    kernel = time_ms(lambda a, b_, c: ops.flash_attention_partial(
+        a, b_, c, True, None, q_off), sets)
+    plain_ms = time_ms(lambda a, b_, c: flash_attention_forward_plain(
+        a, b_, c, True, None, q_off, unrounded=True), sets, iters=3,
+        graph=False)["device"]
+    library_ms = time_ms(lambda a, b_, c: _sdpa(a, b_, c, True, mask), sets,
+                         iters=3, graph=False)["device"]
+    out = {
+        "kernel": "flash_attention_partial", "case": name,
+        "shape": {"b": b, "h": h, "hkv": hkv, "sq": sq, "skv": skv, "d": d,
+                  "causal": True, "q_offset": q_offset},
+        "dtype": dtype_name(dtype), "max_abs_err": err,
+        "plain_max_abs": scale, "err_of_plain_max": err / max(scale, 1e-30),
+        "rel_tol": PARTIAL_REL_TOL[dtype],
+        "tol": PARTIAL_REL_TOL[dtype] * scale, "lse_max_abs_err": lse_err,
+        "lse_tol": LSE_TOL, "lse_inf_rows_equal": same_inf,
+        "keyless_rows_zero": keyless_zero,
+        "ok": (err <= PARTIAL_REL_TOL[dtype] * scale and lse_err <= LSE_TOL
+               and same_inf and keyless_zero),
+        "kernel_ms": kernel["device"], "kernel_eager_ms": kernel["eager"],
+        "plain_ms": plain_ms, "library_ms": library_ms,
+        "library_note": "scaled_dot_product_attention with the boolean "
+                        "mask of q_offset; it writes no log-sum-exp",
+        **bound(flops, nbytes, PRODUCT_FLOPS[dtype]),
+        "blocks": _decode_blocks(b, h, hkv, sq, dtype)}
+    out["of_bound"] = out["bound_ms"] / out["kernel_ms"]
+    del q, k, v, sets
+    torch.cuda.empty_cache()
+    return out
+
+
+# The partial route's cases: zamba2's long_500k row at one of two data
+# ranks' blocks (32 heads of 160 over 262,144 keys, every key visible), a
+# GQA row at d 64 (smollm's 9 heads over 3) over the same block, and rows
+# before and past their block (no visible key: zeros and +inf).
+LONG_HALF = 262_144
+
+
+def _partial_cases() -> list:
+    gen = torch.Generator(device=DEVICE).manual_seed(6)
+    cases = []
+    with torch.no_grad():
+        for dtype in (torch.bfloat16, torch.float32):
+            cases.append(_partial_case(
+                "zamba2 long half", 1, 32, 32, 1, LONG_HALF, 160, dtype, gen,
+                [LONG_HALF - 1]))
+            cases.append(_partial_case(
+                "smollm GQA long half", 1, 9, 3, 1, LONG_HALF, 64, dtype, gen,
+                [LONG_HALF - 1]))
+            cases.append(_partial_case(
+                "no visible key, d=160", 2, 32, 32, 1, 4096, 160, dtype, gen,
+                [-1, 5000]))
+    return cases
 
 
 def _scaled_errors(got, want) -> list:
@@ -1575,6 +1697,7 @@ def phase_kernels() -> list:
             cases.append(_attention_case(
                 "seamless cross decode", 8, 16, 16, 1, 1024, 64, False,
                 dtype, gen_zamba))
+    cases.extend(_partial_cases())
     cases.extend(_bag_cases())
     cases.extend(_backward_cases())
     cases.extend(_ssd_backward_cases())
@@ -4165,6 +4288,460 @@ def phase_parallel_gloo_moe() -> dict:
     return launches
 
 
+# Long-context serving with the cache split along its sequence: zamba2-2.7b
+# at full width (d 2,560, 80 SSD heads of 64 with state 64, the shared
+# block's 32 heads of 160), its 54 layers cut to 6 (the shared block runs
+# once, attn_every 6 as published), on two processes sharing the card over
+# gloo at (2 data, 1 model), B 1 (long_500k's one row, which does not
+# divide over the data ranks: both run it whole, each holding one half of
+# the shared block's cache, the SSM and conv states whole). Against the
+# whole model on the same seeded cache, bf16 and then fp32, every run fed
+# the bf16 whole model's greedy tokens:
+#   * two decode cases at long_500k's published 524,288 rows, each 4
+#     ticks: the cache's first pos0 rows and the SSM and conv states drawn
+#     from a seed (a 524,288-token prefill is ~2.8 PFLOP of causal
+#     attention alone), in blocks of LONG_BLOCK rows with a seed each, so
+#     that a rank draws only its half: pos0 524,280 (both halves full, the
+#     writes on rank 1) and 262,142 (the writes cross from rank 0 to rank 1
+#     at the third tick; rank 1 sees no key until then);
+#   * a prefill case: max_seq 8,192, a 6,144-token prompt through the real
+#     prefill (SSD scans and attention kernels), then 3 ticks; rank 0 holds
+#     rows 0-4,095, rank 1 rows 4,096-8,191.
+# The whole model runs first and is freed before the split one is drawn.
+LONG_LAYERS = 6
+LONG_ROWS = 524_288
+LONG_POS0 = (524_280, 262_142)
+LONG_TICKS = 4
+LONG_BLOCK = 8_192                  # rows of the cache a seed draws
+LONG_PREFILL = (8_192, 6_144, 3)    # max_seq, prompt, ticks
+LONG_TIMEOUT_S = 300
+LONG_CACHE_TOL = {"float32": 1e-5, "bfloat16": 1e-2}   # of the rows' largest
+LONG_KV = ("attn_k", "attn_v")
+# The shared block's attention output at each tick (the combine's result)
+# against the whole model's, as a share of the whole model's largest: the
+# logits check alone may not see it (over 524,288 unit-normal keys a row is
+# ~1e-3). bf16: the P rounding of two kernels over different blocks and one
+# rounding of each output, ~4e-3; fp32: the same sums in another order.
+LONG_ATTN_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
+# A planted fault the check must catch, where the recorded partials make it
+# change the row: a rank's partial dropped, where that rank's weight in the
+# row (averaged over the heads) is at least LONG_FAULT_SHARE; both ranks
+# weighted equally, where a weight lies that far from 1/2.
+LONG_FAULT_SHARE = 0.1
+LONG_SEEDS = (1_000, 2_000_000)     # the blocks' first seeds, K and V
+
+
+def _long_config():
+    return dataclasses.replace(get_config(ZAMBA_ARCH), num_layers=LONG_LAYERS)
+
+
+def _seeded_rows(t: torch.Tensor, first: int, upto: int, seed: int) -> None:
+    """Fill ``t`` (groups, 1, rows, heads, d), this rank's rows ``first ..
+    first + rows`` of a cache, with the seeded draw of every global row
+    below ``upto``: block i of LONG_BLOCK rows is drawn from seed ``seed +
+    i`` whole, in fp32, so that each rank draws the same rows as the whole
+    cache holds, and no more than a block beside its piece."""
+    rows = t.shape[2]
+    for i in range(first // LONG_BLOCK, -(-min(first + rows, upto)
+                                          // LONG_BLOCK)):
+        gen = torch.Generator(device=DEVICE).manual_seed(seed + i)
+        block = torch.randn(t.shape[:2] + (LONG_BLOCK,) + t.shape[3:],
+                            generator=gen, device=DEVICE)
+        lo, hi = i * LONG_BLOCK, min((i + 1) * LONG_BLOCK, upto)
+        a, z = max(lo, first), min(hi, first + rows)
+        if a < z:
+            t[:, :, a - first:z - first] = block[:, :, a - lo:z - lo].to(
+                t.dtype)
+
+
+def _seed_states(cache: dict, pos0: int) -> None:
+    """The SSM and conv states drawn from a seed (small, whole on every
+    rank) and the clock at ``pos0``."""
+    gen = torch.Generator(device=DEVICE).manual_seed(77)
+    for name, scale in (("conv", 1.0), ("ssm", 0.1)):
+        t = cache[name]
+        t.copy_((scale * torch.randn(t.shape, generator=gen,
+                                     device=DEVICE)).to(t.dtype))
+    cache["pos"].fill_(pos0)
+
+
+class _Recorded:
+    """While the region runs, ``module.name`` (a function the port calls by
+    its module's name) is wrapped: ``keep(args, result)`` of each call is
+    appended to ``calls`` where it is not None."""
+
+    def __init__(self, module, name: str, keep):
+        self.module, self.name, self.keep = module, name, keep
+        self.calls = []
+
+    def __enter__(self):
+        self.fn = fn = getattr(self.module, self.name)
+
+        def wrapped(*args, **kwargs):
+            result = fn(*args, **kwargs)
+            kept = self.keep(args, result)
+            if kept is not None:
+                self.calls.append(kept)
+            return result
+
+        setattr(self.module, self.name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.fn)
+
+
+def _decode_attention(args, result):
+    """A decode tick's attention output, (b, h, d) in fp32 on the host."""
+    return result[:, 0].float().cpu() if args[0].shape[1] == 1 else None
+
+
+def _combined(args, result):
+    """A combine's partials and its result, each row's one query: (n, b, h,
+    d) outputs, (n, b, h) log-sum-exps and the (b, h, d) rows."""
+    outs, lses = args[0], args[1]
+    return (outs[..., 0, :].float().cpu(), lses[..., 0].float().cpu(),
+            result[:, :, 0].float().cpu())
+
+
+def _combine_check(split: list, whole: list) -> list:
+    """Each tick's combined attention output against the whole model's,
+    as a share of the whole model's largest, beside the same for the
+    planted faults (a rank's partial dropped, both weighted equally) and
+    each rank's weight in the row (averaged over the heads)."""
+    out = []
+    for (outs, lses, got), want in zip(split, whole):
+        scale = max(want.abs().max().item(), 1e-30)
+        err = lambda x: (x - want).abs().max().item() / scale
+        share = torch.softmax(torch.where(lses == math.inf, -math.inf, lses),
+                              dim=0).nan_to_num(0.0).mean(dim=(1, 2))
+        n = outs.shape[0]
+        dropped = [err(tensor_module.combine_partials(
+            outs[[i for i in range(n) if i != j]],
+            lses[[i for i in range(n) if i != j]], torch.float32))
+            for j in range(n)]
+        out.append({"err": err(got), "share": share.tolist(),
+                    "dropped_err": dropped, "equal_err": err(outs.mean(0)),
+                    "scale": scale})
+    return out
+
+
+def _split_names(cache: dict) -> list:
+    """The caches a sharded cache holds a block of the sequence of."""
+    split = cache.get(SEQ_SPLIT)
+    return [] if split is None else list(split.names)
+
+
+def _long_cache(model, cfg, mesh, rows: int, dtype, pos0: int) -> dict:
+    """A cache of ``rows`` rows: the whole one (``mesh`` None) or this
+    rank's pieces as ``cache_shardings`` lays them out, with ``SEQ_SPLIT``;
+    rows below ``pos0`` and the states drawn from their seeds."""
+    if mesh is None:
+        cache = model.init_cache(1, rows, dtype)
+        first = 0
+    else:
+        whole = abstract_model(cfg, dtype).init_cache(1, rows, dtype)
+        specs = cache_shardings(cfg, mesh, whole)
+        cache = {n: torch.zeros(shard_shape(Placement(specs[n], t.shape),
+                                            mesh) if n != "pos" else t.shape,
+                                dtype=t.dtype, device=DEVICE)
+                 for n, t in whole.items()}
+        cache.update(split_caches(mesh, specs))
+        first = (mesh.get_local_rank("data") * cache["attn_k"].shape[2]
+                 if "attn_k" in _split_names(cache) else 0)
+    for name, seed in zip(LONG_KV, LONG_SEEDS):
+        _seeded_rows(cache[name], first, pos0, seed)
+    if pos0:
+        _seed_states(cache, pos0)
+    return cache
+
+
+def _long_calls(model, cache, first_token, feed, prompt=None) -> tuple:
+    """A prefill of ``prompt`` (or none) and ticks: the first fed
+    ``first_token`` (decode cases), the others ``feed`` or the model's own
+    picks; each call's last logits (fp32, on the host), its ms and the
+    picks."""
+    logits, ms, picks = [], [], []
+
+    def timed(fn, *args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args)[0][:, -1].float()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        logits.append(out)
+        return out
+
+    ticks = LONG_TICKS
+    if prompt is not None:
+        timed(model.prefill, prompt, cache)
+        ticks = LONG_PREFILL[2]
+    for t in range(ticks):
+        if t == 0 and prompt is None:
+            tok = first_token
+        else:
+            tok = (feed[len(picks)] if feed is not None
+                   else logits[-1].argmax(-1, keepdim=True))
+        picks.append(tok)
+        timed(model.decode_step, cache, tok)
+    return [x.cpu() for x in logits], ms, picks
+
+
+def _gloo_long_rank(rank: int, directory: str) -> None:
+    """One of two processes on the one card over gloo with CUDA tensors:
+    zamba2 at 6 layers on a (2 data, 1 model) mesh at B 1, the whole model
+    and then the split one on each case, bf16 and then fp32. Writes its
+    results as JSON to ``directory``."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{directory}/store",
+                            rank=rank, world_size=2)
+    mesh = build_mesh((2, 1), ("data", "model"))
+    cfg = _long_config()
+    plan = plan_memory(cfg, tp=1, dp=1)
+    make = lambda dtype: get_model(cfg)(
+        cfg, dtype=dtype, device=DEVICE,
+        generator=torch.Generator(device=DEVICE).manual_seed(1))
+    gen = torch.Generator(device=DEVICE).manual_seed(2)
+    first_token = torch.randint(0, cfg.vocab_size, (1, 1), device=DEVICE,
+                                generator=gen)
+    max_seq, prompt_len, _ = LONG_PREFILL
+    prompt = torch.randint(0, cfg.vocab_size, (1, prompt_len), device=DEVICE,
+                           generator=gen)
+    cases = [(f"decode pos0={p}", LONG_ROWS, p) for p in LONG_POS0]
+    cases.append((f"prefill {prompt_len} of {max_seq}", max_seq, 0))
+    out = {"cases": {}, "launches": None, "peak_bytes": {}}
+    feed, whole_logits = {}, {}
+    launches = dict.fromkeys(_kernel_counts(), 0)
+    for dtype in (torch.bfloat16, torch.float32):
+        dn = dtype_name(dtype)
+        torch.cuda.reset_peak_memory_stats()
+        # the whole model on every case, then freed
+        ref = make(dtype)
+        want = {}
+        with torch.no_grad():
+            for name, rows, pos0 in cases:
+                cache = _long_cache(ref, cfg, None, rows, dtype, pos0)
+                with _Recorded(model_common, "attention",
+                               _decode_attention) as attn:
+                    logits, ms, picks = _long_calls(
+                        ref, cache, first_token, feed.get(name),
+                        prompt if pos0 == 0 else None)
+                feed.setdefault(name, picks)
+                # the rows the calls wrote: the ticks', or the whole cache
+                lo, hi = (pos0, pos0 + LONG_TICKS) if pos0 else (0, rows)
+                want[name] = {"logits": logits, "ms": ms, "written": (lo, hi),
+                              "attn": attn.calls,
+                              "rows": {n: cache[n][:, :, lo:hi].float().cpu()
+                                       for n in LONG_KV},
+                              "states": {n: cache[n].float().cpu()
+                                         for n in ("conv", "ssm")}}
+                del cache
+                torch.cuda.empty_cache()
+        whole_logits[dn] = {n: w["logits"] for n, w in want.items()}
+        del ref
+        torch.cuda.empty_cache()
+        out["peak_bytes"][dn + " whole"] = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+
+        model = make(dtype)
+        shard_model(cfg, plan, model, mesh, batch_rows=1)
+        with torch.no_grad():
+            for name, rows, pos0 in cases:
+                cache = _long_cache(model, cfg, mesh, rows, dtype, pos0)
+                first = mesh.get_local_rank("data") * cache["attn_k"].shape[2]
+                _zero_kernel_counts()
+                with _KernelCalls() as calls, _Recorded(
+                        tensor_module, "combine_partials", _combined) as comb:
+                    logits, ms, picks = _long_calls(
+                        model, cache, first_token, feed[name],
+                        prompt if pos0 == 0 else None)
+                for k, n in _kernel_counts().items():
+                    launches[k] += n
+                w = want[name]
+                # the written rows this rank holds against the whole
+                # model's; every other row of its piece as drawn (or zero)
+                held = cache["attn_k"].shape[2]
+                lo, hi = w["written"]
+                a, z = max(lo, first), min(hi, first + held)
+                row_err, untouched = {}, True
+                for n, seed in zip(LONG_KV, LONG_SEEDS):
+                    if a < z:
+                        got = cache[n][:, :, a - first:z - first].float().cpu()
+                        ref_rows = w["rows"][n][:, :, a - lo:z - lo]
+                        row_err[n] = ((got - ref_rows).abs().max().item()
+                                      / max(ref_rows.abs().max().item(),
+                                            1e-30))
+                    check = torch.zeros_like(cache[n])
+                    _seeded_rows(check, first, pos0, seed)
+                    if a < z:
+                        check[:, :, a - first:z - first] = \
+                            cache[n][:, :, a - first:z - first]
+                    untouched &= bool(torch.equal(check, cache[n]))
+                    del check
+                state_err = {n: (cache[n].float().cpu() - w["states"][n])
+                             .abs().max().item() / max(w["states"][n].abs()
+                                                       .max().item(), 1e-30)
+                             for n in ("conv", "ssm")}
+                calls_out = _compare_calls(logits, w["logits"])
+                out["cases"].setdefault(name, {})[dn] = {
+                    "calls": calls_out, "ms": ms, "whole_ms": w["ms"],
+                    "digest": [hashlib.sha256(x.numpy().tobytes()).hexdigest()
+                               for x in logits],
+                    "row_err": row_err, "state_err": state_err,
+                    "untouched_rows_equal": untouched,
+                    "attn": _combine_check(comb.calls, w["attn"]),
+                    "kernel_calls": calls.calls,
+                    "local_shapes": {n: list(t.shape) for n, t in cache.items()
+                                     if n != SEQ_SPLIT},
+                    "split": _split_names(cache)}
+                del cache
+                torch.cuda.empty_cache()
+        out["peak_bytes"][dn + " split"] = torch.cuda.max_memory_allocated()
+        del model
+        torch.cuda.empty_cache()
+    for name in out["cases"]:
+        for call, w16, w32 in zip(out["cases"][name]["bfloat16"]["calls"],
+                                  whole_logits["bfloat16"][name],
+                                  whole_logits["float32"][name]):
+            call["whole_bf16_vs_fp32"] = (w16 - w32).abs().max().item()
+    out["launches"] = launches
+    with open(os.path.join(directory, f"rank_{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def _expected_long_launches(cfg) -> dict:
+    """The split runs' launches on one rank, both types: each decode tick's
+    shared-block attention takes the partial route, the prefill's the
+    serving route over the prompt; the norms and scans as the serve
+    phase's."""
+    ticks = len(LONG_POS0) * LONG_TICKS + LONG_PREFILL[2]
+    served = _expected_launches(cfg, 1, ticks)
+    groups = cfg.num_layers // cfg.hybrid.attn_every
+    return {"flash_attention": 2 * groups,
+            "flash_attention_partial": 2 * groups * ticks,
+            "rmsnorm": 2 * served["rmsnorm"],
+            "ssd_scan": 2 * served["ssd_scan"]}
+
+
+def _long_attention_problems(tag: str, ticks: list, tol: float, n: int,
+                             faults: bool) -> list:
+    """``_combine_check``'s ticks: ``n`` of them, each within ``tol``; with
+    ``faults``, each planted fault that would change the row beyond
+    LONG_FAULT_SHARE caught by the same check (a drop of a rank that weighs
+    that much, equal weights where a rank's weight lies that far from
+    1/2)."""
+    problems = [] if len(ticks) == n else [
+        f"{tag}: {len(ticks)} combines recorded, not {n}"]
+    for t, c in enumerate(ticks):
+        if not c["err"] <= tol:
+            problems.append(f"{tag}: tick {t} attention off the whole "
+                            f"model's by {c['err']} of its largest")
+        if not faults:
+            continue
+        for j, (w, e) in enumerate(zip(c["share"], c["dropped_err"])):
+            if w >= LONG_FAULT_SHARE and not e > tol:
+                problems.append(f"{tag}: tick {t} rank {j}'s partial "
+                                f"(weight {w}) dropped passes at {e}")
+        if (max(abs(w - 1 / len(c["share"])) for w in c["share"])
+                >= LONG_FAULT_SHARE and not c["equal_err"] > tol):
+            problems.append(f"{tag}: tick {t} equal weights pass at "
+                            f"{c['equal_err']}")
+    return problems
+
+
+def _long_rank_problems(rank: int, r: dict, cfg) -> list:
+    """What one rank's results break: fp32 logits within LOGIT_TOL of the
+    whole model's, bf16 within twice the whole bf16 model's distance from
+    fp32, no pick off but at a tie, the shared block's attention output at
+    every tick within LONG_ATTN_TOL of the whole model's (and, on the
+    seeded caches, the planted faults outside it), the rank's rows and the
+    states equal the whole model's, the seeded rows untouched, the launches
+    and the kernels by shape."""
+    problems = []
+    half = LONG_ROWS // 2
+    heads, d = cfg.num_heads, cfg.resolved_head_dim
+    for name, by_dtype in r["cases"].items():
+        for dn, c in by_dtype.items():
+            tag = f"rank {rank} {name} {dn}"
+            problems += _serving_problems(tag, {"serve": {dn: c}})
+            for n, err in {**c["row_err"], **c["state_err"]}.items():
+                if not err <= LONG_CACHE_TOL[dn]:
+                    problems.append(f"{tag}: {n} off the whole model's by "
+                                    f"{err} of its largest")
+            if not c["untouched_rows_equal"]:
+                problems.append(f"{tag}: rows the ticks did not write moved")
+            problems += _long_attention_problems(
+                tag, c["attn"], LONG_ATTN_TOL[dn],
+                LONG_TICKS if name.startswith("decode") else LONG_PREFILL[2],
+                faults=name.startswith("decode"))
+            if set(c["split"]) != {"attn_k", "attn_v"}:
+                problems.append(f"{tag}: split caches {c['split']}")
+            rows = c["local_shapes"]["attn_k"][2]
+            if name.startswith("decode"):
+                key = (f"flash_attention_partial [1, {heads}, 1, {d}] "
+                       f"skv {half}")
+                if rows != half or c["kernel_calls"].get(key) != LONG_TICKS:
+                    problems.append(f"{tag}: no {LONG_TICKS} x {key} on "
+                                    f"{rows} rows: {c['kernel_calls']}")
+            else:
+                scan = (f"ssd_scan [1, {LONG_PREFILL[1]}, {cfg.ssm_heads}, "
+                        f"{cfg.ssm.head_dim}]")
+                if c["kernel_calls"].get(scan) != cfg.num_layers:
+                    problems.append(f"{tag}: no {cfg.num_layers} x {scan}")
+            if not any(k.startswith("rmsnorm ") for k in c["kernel_calls"]):
+                problems.append(f"{tag}: no RMSNorm launch")
+    want = _expected_long_launches(cfg)
+    for k, n in want.items():
+        if r["launches"][k] != n:
+            problems.append(f"rank {rank}: {k} launched "
+                            f"{r['launches'][k]} times, not {n}")
+    return problems
+
+
+def phase_parallel_gloo_long() -> dict:
+    """Two processes on the card over gloo with CUDA tensors: zamba2 served
+    at B 1 with its shared block's cache split along the sequence over the
+    data axis (``_gloo_long_rank``), which must pass on both ranks; the two
+    data ranks' logits bitwise equal at every call. Returns the kernels'
+    launches on this path, both ranks' split runs summed."""
+    t0 = time.perf_counter()
+    ranks = _gloo_pair(_gloo_long_rank, "parallel_gloo_long", LONG_TIMEOUT_S)
+    cfg = _long_config()
+    problems, launches = [], {}
+    for rank, r in enumerate(ranks):
+        problems += _long_rank_problems(rank, r, cfg)
+        for k, n in r["launches"].items():
+            launches[k] = launches.get(k, 0) + n
+    for name, by_dtype in ranks[0]["cases"].items():
+        for dn, c in by_dtype.items():
+            if c["digest"] != ranks[1]["cases"][name][dn]["digest"]:
+                problems.append(f"{name} {dn}: the data ranks' logits "
+                                "differ")
+    kv = 2 * LONG_ROWS * cfg.num_kv_heads * cfg.resolved_head_dim
+    emit("parallel_gloo_long", card=_smi("name,power.limit"),
+         mesh=[2, 1], layers=LONG_LAYERS, params=cfg.param_count(),
+         cache_rows=LONG_ROWS, pos0=LONG_POS0, ticks=LONG_TICKS,
+         prefill={"max_seq": LONG_PREFILL[0], "prompt": LONG_PREFILL[1],
+                  "ticks": LONG_PREFILL[2]},
+         cache_bytes={"bfloat16": 2 * kv, "float32": 4 * kv},
+         left_out=f"{ZAMBA_ARCH}'s 54 layers cut to {LONG_LAYERS} (the "
+                  "shared block once, as at every 6th layer); the "
+                  "524,288-token prefill (the cache's rows and the states "
+                  "drawn from seeds instead); the sharded train step and "
+                  "prefill split along the sequence (ROADMAP item 13's "
+                  "second half)",
+         ranks=ranks, launches=launches,
+         seconds=time.perf_counter() - t0, problems=problems)
+    if problems:
+        raise SystemExit(f"chip_smoke: parallel_gloo_long phase failed: "
+                         f"{problems}")
+    return launches
+
+
 # ------------------------------------------------------------------------- #
 # The kernels' line
 # ------------------------------------------------------------------------- #
@@ -4174,6 +4751,14 @@ KERNELS = (
     ("flash_attention", "src/repro_torch/kernels/csrc/flash_attention.cu",
      "src/repro/kernels/flash_attention.py:79",
      lambda c: c.get("case") == "decode tick" and c["dtype"] == "bfloat16"),
+    # the same kernels' partial route (the decode kernels writing the
+    # log-sum-exp): long-context serving over a cache split along its
+    # sequence, timed at zamba2's long_500k block
+    ("flash_attention_partial",
+     "src/repro_torch/kernels/csrc/flash_attention.cu",
+     "src/repro/kernels/flash_attention.py:79",
+     lambda c: c.get("case") == "zamba2 long half"
+     and c["dtype"] == "bfloat16"),
     ("rmsnorm", "src/repro_torch/kernels/csrc/rmsnorm.cu",
      "src/repro/kernels/rmsnorm.py:24",
      lambda c: c.get("shape") == [8, 1, 576] and c["dtype"] == "bfloat16"),
@@ -4210,6 +4795,7 @@ KERNELS = (
 def _kernel_counts() -> dict:
     return {"flash_attention": ops.flash_attention.launches,
             "flash_attention_backward": ops.flash_attention.backward_launches,
+            "flash_attention_partial": ops.flash_attention_partial.launches,
             "rmsnorm": ops.rmsnorm.launches,
             "rmsnorm_backward": ops.rmsnorm.backward_launches,
             "ssd_scan": ops.ssd_scan.launches,
@@ -4219,8 +4805,8 @@ def _kernel_counts() -> dict:
 
 
 def _zero_kernel_counts() -> None:
-    for wrapper in (ops.flash_attention, ops.rmsnorm, ops.ssd_scan,
-                    ops.embedding_bag):
+    for wrapper in (ops.flash_attention, ops.flash_attention_partial,
+                    ops.rmsnorm, ops.ssd_scan, ops.embedding_bag):
         wrapper.launches = 0
         if hasattr(wrapper, "backward_launches"):
             wrapper.backward_launches = 0
@@ -4957,16 +5543,9 @@ def _dispatch_on_the_tick() -> dict:
             "per_call_us": per_call}
 
 
-# Every family's cells trace ok on both meshes but long_500k's, which may
-# only refuse for its one-row batch (item 13).
+# Every family's cells trace ok on both meshes; a refused cell's row names
+# the ROADMAP items its error names.
 ROADMAP_ITEM = r"ROADMAP Queue 1 item (\d+)"
-
-
-def _refused_as_planned(row: dict) -> bool:
-    """A refused cell that names its ROADMAP items (``items``, read from
-    the whole error) as the port plans: a long_500k cell naming item 13
-    alone."""
-    return row["shape"] == "long_500k" and row["items"] == ["13"]
 
 
 def phase_dryrun() -> None:
@@ -4980,7 +5559,7 @@ def phase_dryrun() -> None:
     runnable cell on the 16 x 16 and the 2 x 16 x 16 mesh (a fake process
     group of 256 / 512 ranks; none may be held here): the ok and refused
     counts, each cell's trace_s and dominant term; every cell must be ok
-    but long_500k's, which refuse naming item 13 alone.
+    (long_500k's one row too, served whole on every data rank).
     Also the host cost of a call by each dispatcher route, and what the
     kernels' operators cost the decode tick against direct launches."""
     if dist.is_initialized():
@@ -5029,8 +5608,7 @@ def phase_dryrun() -> None:
     problems = [f"{r['step']}: counts differ on cuda and meta"
                 for r in steps if not r["equal_on_cuda_and_meta"]]
     problems += [f"{r['arch']} {r['shape']} {r['mesh']}: {r['error']}"
-                 for r in rows if r["status"] != "ok"
-                 and not _refused_as_planned(r)]
+                 for r in rows if r["status"] != "ok"]
     if dist.is_initialized():
         problems.append("a process group was left after the sweep")
     emit("dryrun", card=_smi("name,power.limit"), steps=steps,
@@ -5156,6 +5734,16 @@ def kernels_line(cases: list, launches_by_path: dict, repeats: list) -> dict:
                 for c in mine if c.get("case", "").startswith(
                     ("zamba2", "seamless"))
                 or c.get("shape") == [1, 1024, 5120]]
+        if name == "flash_attention_partial":
+            # every case of the route: zamba2's long_500k block, the GQA
+            # row at d 64 (12 blocks for 132 SMs), rows with no key
+            entries[-1]["cases"] = [
+                {k: c[k] for k in ("case", "shape", "dtype", "kernel_ms",
+                                   "plain_ms", "library_ms", "bound_ms",
+                                   "of_bound", "blocks", "max_abs_err",
+                                   "plain_max_abs", "err_of_plain_max",
+                                   "lse_max_abs_err")}
+                for c in mine]
         if name == "flash_attention":
             prefill = next(c for c in mine if c["case"] == "prefill s=1024"
                            and c["dtype"] == "bfloat16")
@@ -5229,6 +5817,7 @@ def main() -> int:
     launches["parallel_gloo_ssm"] = phase_parallel_gloo_ssm()
     launches["parallel_gloo_split"] = phase_parallel_gloo_split()
     launches["parallel_gloo_moe"] = phase_parallel_gloo_moe()
+    launches["parallel_gloo_long"] = phase_parallel_gloo_long()
     phase_dryrun()
     launches["study"] = phase_study()
     launches["run_study"] = phase_run_study()

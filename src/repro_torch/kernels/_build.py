@@ -111,6 +111,9 @@ def lib() -> ctypes.CDLL:
     loaded.repro_flash_attention_lse.argtypes = (
         [ptr] * 5 + [i32] * 6 + [i64] * 12 + [f32, i32, i32, ptr])
     loaded.repro_flash_attention_lse.restype = i32
+    loaded.repro_flash_attention_partial.argtypes = (
+        [ptr] * 7 + [i32] * 6 + [i64] * 12 + [f32, i32, i32, i32, ptr])
+    loaded.repro_flash_attention_partial.restype = i32
     loaded.repro_flash_attention_backward.argtypes = (
         [ptr] * 11 + [i32] * 7 + [i64] * 24 + [f32, i32, i32, ptr])
     loaded.repro_flash_attention_backward.restype = i32

@@ -28,7 +28,12 @@
 //    the probabilities from it instead of storing them. The prefill kernels
 //    write it at their finalize, where m and l are in registers anyway, when
 //    the caller passes `lse` (`repro_flash_attention_lse`); that entry point
-//    takes them at any length, the decode kernels never. Serving passes none.
+//    takes them at any length. Serving over a cache split along its sequence
+//    (one block of the keys a rank) needs it too, to combine the ranks'
+//    partial rows: `repro_flash_attention_partial` takes the decode kernels
+//    at sq <= 8, whose cluster merge (`merge_slots`) holds each row's max and
+//    sum in fp32 and writes the log-sum-exp from them, and writes the
+//    partial output in fp32 (`o_f32`), so that the combine rounds once.
 //    The training route also takes head_dim 16 (the reduced test configs), in
 //    the prefill kernels only; serving takes 64, 128 and 160 (zamba2's shared
 //    block: 32 heads of 160, ten k-steps of 16 for bf16, twenty of 8 for
@@ -125,6 +130,7 @@ struct Params {
   const int* kv_len;    // (b,) or nullptr: every key of skv counts
   const int* q_offset;  // (b,) or nullptr: 0
   float* lse;           // (b, h, sq) fp32 or nullptr: the rows' log-sum-exp
+  int o_f32;            // o is fp32 whatever the inputs' type (the split route's partial)
   int b, h, hkv, sq, skv;
   long long q_sb, q_sh, q_ss;  // strides in elements; the last dim has stride 1
   long long k_sb, k_sh, k_ss;
@@ -516,6 +522,18 @@ __global__ void __launch_bounds__(MM_GROUPS * MM_GROUP_THREADS) flash_mma_kernel
     if (r0 < p.sq) store_lse(p, bi, hi, r0, st.m0 * kLn2, st.l0);
     if (r0 + 8 < p.sq) store_lse(p, bi, hi, r0 + 8, st.m1 * kLn2, st.l1);
   }
+  if (p.o_f32) {  // the split route's partial: fp32, unrounded
+#pragma unroll
+    for (int n = 0; n < NO; ++n) {
+      st.acc[n][0] *= inv0;
+      st.acc[n][1] *= inv0;
+      st.acc[n][2] *= inv1;
+      st.acc[n][3] *= inv1;
+    }
+    store_rows<float, D>(static_cast<float*>(p.o) + bi * p.o_sb + hi * p.o_sh, p.o_ss,
+                         q0 + rw * 16, p.sq, st.acc, 1.f, lane);
+    return;
+  }
   if (r0 < p.sq) {
     __nv_bfloat16* orow = ob + (long long)r0 * p.o_ss + 2 * t4;
 #pragma unroll
@@ -772,10 +790,22 @@ __device__ __forceinline__ float* merge_slot(float* slots) {
   return cluster.map_shared_rank(slots, 0) + (int)cluster.block_rank() * merge_slot_floats<RM, D>();
 }
 
-// Block 0's threads: rows [0, nr) of the output from the `csize` slots,
-// written to `out_row(r) + col`.
-template <int RM, int D, typename OutRow>
-__device__ __forceinline__ void merge_slots(const float* slots, int csize, int nr, OutRow out_row) {
+// Output row r of a decode block: packed row r0 + r of the KV head's group,
+// query head hk * group + (r0 + r) / sq at position (r0 + r) % sq.
+template <typename T>
+__device__ __forceinline__ T* decode_out_row(const Params& p, int bi, int hk, int r0, int r) {
+  const int row = r0 + r;
+  return static_cast<T*>(p.o) + bi * p.o_sb + (long long)(hk * (p.h / p.hkv) + row / p.sq) * p.o_sh +
+         (long long)(row % p.sq) * p.o_ss;
+}
+
+// Block 0's threads: rows [0, nr) of the block's rows r0 .. of KV head hk
+// from the `csize` slots, into the output as OUT; with `lse`, each row's
+// log-sum-exp too: the slots' m are in the log2 domain, so it is
+// big * ln 2 + ln(total), +inf for a row that saw no key (total 0).
+template <int RM, int D, typename OUT>
+__device__ __forceinline__ void merge_slots(const float* slots, int csize, int nr, const Params& p,
+                                            int bi, int hk, int r0) {
   constexpr int SLOT = merge_slot_floats<RM, D>();
   constexpr int Q4 = D / 4;
   for (int e = threadIdx.x; e < nr * Q4; e += blockDim.x) {
@@ -797,17 +827,12 @@ __device__ __forceinline__ void merge_slots(const float* slots, int csize, int n
     const float inv = 1.0f / fmaxf(total, 1e-30f);
 #pragma unroll
     for (int u = 0; u < 4; ++u) o[u] *= inv;
-    store4(out_row(r) + col, o);
+    if (p.lse && col == 0) {
+      const int row = r0 + r;
+      store_lse(p, bi, hk * (p.h / p.hkv) + row / p.sq, row % p.sq, big * kLn2, total);
+    }
+    store4(decode_out_row<OUT>(p, bi, hk, r0, r) + col, o);
   }
-}
-
-// Output row r of a decode block: packed row r0 + r of the KV head's group,
-// query head hk * group + (r0 + r) / sq at position (r0 + r) % sq.
-template <typename T>
-__device__ __forceinline__ T* decode_out_row(const Params& p, int bi, int hk, int r0, int r) {
-  const int row = r0 + r;
-  return static_cast<T*>(p.o) + bi * p.o_sb + (long long)(hk * (p.h / p.hkv) + row / p.sq) * p.o_sh +
-         (long long)(row % p.sq) * p.o_ss;
 }
 
 template <typename T>
@@ -962,9 +987,10 @@ __global__ void __launch_bounds__(DM_WARPS * 32) flash_decode_mma_kernel(Params 
   cg::cluster_group cluster = cg::this_cluster();
   if (cluster.block_rank() != 0) return;
   cluster_wait();
-  merge_slots<DM_ROWS, D>(slots, (int)cluster.num_blocks(), nr, [&](int r) {
-    return decode_out_row<__nv_bfloat16>(p, bi, hk, r0, r);
-  });
+  if (p.o_f32)
+    merge_slots<DM_ROWS, D, float>(slots, (int)cluster.num_blocks(), nr, p, bi, hk, r0);
+  else
+    merge_slots<DM_ROWS, D, __nv_bfloat16>(slots, (int)cluster.num_blocks(), nr, p, bi, hk, r0);
 }
 
 // ---- fp32: the fp32 pipes ------------------------------------------------ //
@@ -1209,9 +1235,7 @@ __global__ void __launch_bounds__(DEC_WARPS * 32) flash_decode_f32_kernel(Params
   cg::cluster_group cluster = cg::this_cluster();
   if (cluster.block_rank() != 0) return;
   cluster_wait();
-  merge_slots<RM, D>(slots, (int)cluster.num_blocks(), nr, [&](int r) {
-    return decode_out_row<float>(p, bi, hk, r0, r);
-  });
+  merge_slots<RM, D, float>(slots, (int)cluster.num_blocks(), nr, p, bi, hk, r0);
 }
 
 // ------------------------------------------------------------------------- //
@@ -1247,12 +1271,13 @@ cudaError_t launch_decode(void (*kernel)(Params), const Params& p, int rows_a_bl
 
 template <typename T, int D>
 cudaError_t launch(const Params& p, int cluster, cudaStream_t stream) {
-  // The decode kernels write no log-sum-exp: a call that wants it (the
-  // training route) takes the prefill kernels at any length. They have no
-  // d 16 (that head dim is the training route's alone).
+  // The training route's log-sum-exp comes from the prefill kernels at any
+  // length; the split serving route (o_f32) takes the decode kernels at
+  // sq <= 8, which then write it too. Neither decode kernel has d 16 (that
+  // head dim is the training route's alone).
   if constexpr (D == 16) {
-    if (p.lse == nullptr) return cudaErrorInvalidValue;
-  } else if (p.sq <= kDecodeMaxSq && p.lse == nullptr) {
+    if (p.lse == nullptr || p.o_f32) return cudaErrorInvalidValue;
+  } else if (p.sq <= kDecodeMaxSq && (p.lse == nullptr || p.o_f32)) {
     int csize = cluster > 0 ? cluster : kDecodeDefaultCluster;
     csize = max(1, min(csize, (p.skv + kDecodeTile - 1) / kDecodeTile));  // no wider than the keys
     while (csize & (csize - 1)) --csize;  // 1, 2, 4 or 8: other sizes ran far slower (PERF.md)
@@ -1299,15 +1324,17 @@ cudaError_t launch_d(const Params& p, int d, int cluster, cudaStream_t stream) {
 
 // q, o: (b, h, sq, d); k, v: (b, hkv, skv, d); strides in elements, last dim
 // contiguous, every row 16-byte aligned. kv_len and q_offset are int32 (b,) on
-// the device or null. lse is fp32 (b, h, sq) contiguous or null. dtype: 0 =
-// float32, 1 = bfloat16. d: 64, 128 or 160, or 16 with lse. cluster: blocks a
-// (batch, KV head) splits its keys over when sq <= 8 and lse is null (1, 2, 4
-// or 8; 0 for the default). Returns the CUDA error code of the launch (0 on success).
+// the device or null. lse is fp32 (b, h, sq) contiguous or null. o_f32: o is
+// fp32 whatever the inputs' type, and sq <= 8 takes the decode kernels even
+// with lse (the split serving route). dtype: 0 = float32, 1 = bfloat16. d:
+// 64, 128 or 160, or 16 with lse and not o_f32. cluster: blocks a (batch, KV
+// head) splits its keys over on the decode kernels (1, 2, 4 or 8; 0 for the
+// default). Returns the CUDA error code of the launch (0 on success).
 int run(const void* q, const void* k, const void* v, void* o, void* lse, const void* kv_len,
         const void* q_offset, int b, int h, int hkv, int sq, int skv, int d, long long q_sb,
         long long q_sh, long long q_ss, long long k_sb, long long k_sh, long long k_ss,
         long long v_sb, long long v_sh, long long v_ss, long long o_sb, long long o_sh,
-        long long o_ss, float scale, int causal, int cluster, int dtype, void* stream) {
+        long long o_ss, float scale, int causal, int cluster, int o_f32, int dtype, void* stream) {
   if (b <= 0 || h <= 0 || hkv <= 0 || sq <= 0 || skv <= 0 || h % hkv != 0 || h > 65535 ||
       b > 65535 || cluster < 0 || cluster > kDecodeMaxCluster)
     return (int)cudaErrorInvalidValue;
@@ -1316,6 +1343,7 @@ int run(const void* q, const void* k, const void* v, void* o, void* lse, const v
   p.kv_len = static_cast<const int*>(kv_len);
   p.q_offset = static_cast<const int*>(q_offset);
   p.lse = static_cast<float*>(lse);
+  p.o_f32 = o_f32;
   p.b = b; p.h = h; p.hkv = hkv; p.sq = sq; p.skv = skv;
   p.q_sb = q_sb; p.q_sh = q_sh; p.q_ss = q_ss;
   p.k_sb = k_sb; p.k_sh = k_sh; p.k_ss = k_ss;
@@ -1340,8 +1368,8 @@ extern "C" int repro_flash_attention(
     long long o_sh, long long o_ss, float scale, int causal, int cluster, int dtype,
     void* stream) {
   return run(q, k, v, o, nullptr, kv_len, q_offset, b, h, hkv, sq, skv, d, q_sb, q_sh, q_ss,
-             k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss, scale, causal, cluster, dtype,
-             stream);
+             k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss, scale, causal, cluster, 0,
+             dtype, stream);
 }
 
 // The training entry point: also writes the rows' log-sum-exp into `lse`
@@ -1354,5 +1382,23 @@ extern "C" int repro_flash_attention_lse(
     void* stream) {
   if (lse == nullptr) return (int)cudaErrorInvalidValue;
   return run(q, k, v, o, lse, nullptr, nullptr, b, h, hkv, sq, skv, d, q_sb, q_sh, q_ss, k_sb,
-             k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss, scale, causal, 0, dtype, stream);
+             k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss, scale, causal, 0, 0, dtype, stream);
+}
+
+// The split serving route: one rank's partial of rows whose keys are split
+// over ranks, for their combine by log-sum-exp. `o` is fp32 (b, h, sq, d)
+// whatever the inputs' type (the row as the kernel holds it, not rounded
+// before the combine) and `lse` the rows' log-sum-exp (+inf for a row that
+// sees no key). The decode kernels at sq <= 8, else the prefill kernels;
+// kv_len, q_offset and cluster as the serving entry point's.
+extern "C" int repro_flash_attention_partial(
+    const void* q, const void* k, const void* v, void* o, void* lse, const void* kv_len,
+    const void* q_offset, int b, int h, int hkv, int sq, int skv, int d, long long q_sb,
+    long long q_sh, long long q_ss, long long k_sb, long long k_sh, long long k_ss,
+    long long v_sb, long long v_sh, long long v_ss, long long o_sb, long long o_sh,
+    long long o_ss, float scale, int causal, int cluster, int dtype, void* stream) {
+  if (lse == nullptr) return (int)cudaErrorInvalidValue;
+  return run(q, k, v, o, lse, kv_len, q_offset, b, h, hkv, sq, skv, d, q_sb, q_sh, q_ss, k_sb,
+             k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss, scale, causal, cluster, 1, dtype,
+             stream);
 }

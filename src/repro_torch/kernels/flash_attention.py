@@ -19,6 +19,14 @@ training route takes neither ``kv_len`` nor ``q_offset``. A backward call is
 three or four kernels (``flash_attention_backward_plan``);
 ``flash_attention_backward_stages_plain`` is their decomposition in plain
 PyTorch.
+
+Serving over a cache split along its sequence (each data-parallel rank
+holding one block of the keys) takes the partial route: one rank's output
+over its own keys in fp32, not rounded, and each row's log-sum-exp, with
+``kv_len`` and ``q_offset`` (``flash_attention_partial_cuda``, the decode
+kernels at ``sq <= 8``); the ranks' partials are then combined by their
+log-sum-exp (``parallel.tensor.combine_attention``). Every route gives a row
+that sees no key zeros and a log-sum-exp of +inf.
 """
 
 from __future__ import annotations
@@ -64,18 +72,23 @@ BACKWARD_D160_TILE = {torch.float32: (16, 1), torch.bfloat16: (32, 2)}
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           causal: bool = True,
                           kv_len: Optional[torch.Tensor] = None,
-                          q_offset: Optional[torch.Tensor] = None
-                          ) -> torch.Tensor:
+                          q_offset: Optional[torch.Tensor] = None,
+                          unrounded: bool = False) -> torch.Tensor:
     """Plain PyTorch, any device. Scores and softmax in fp32 (fp64 for fp64
     inputs); probabilities are rounded to ``q.dtype`` before ``P @ V``, as
-    in the kernel."""
+    in the kernel. ``unrounded``: ``P @ V`` summed and returned in the work
+    type (the partial route's output), else in ``q.dtype``."""
     b, h, sq, _ = q.shape
     hkv, skv = k.shape[1], k.shape[2]
     allowed = _allowed(b, sq, skv, causal, q.device, kv_len, q_offset)
     scores = torch.where(allowed, _scores(q, k), NEG_INF)
     probs = torch.softmax(scores, dim=-1)
     probs = torch.where(allowed, probs, 0.0)     # a row with no key: zeros
-    return torch.matmul(probs.to(q.dtype), v.repeat_interleave(h // hkv, dim=1))
+    v = v.repeat_interleave(h // hkv, dim=1)
+    if unrounded:
+        wt = _work_dtype(q.dtype)
+        return torch.matmul(probs.to(q.dtype).to(wt), v.to(wt))
+    return torch.matmul(probs.to(q.dtype), v)
 
 
 def _allowed(b: int, sq: int, skv: int, causal: bool, device,
@@ -110,15 +123,20 @@ def _scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
 
 
 def flash_attention_forward_plain(q: torch.Tensor, k: torch.Tensor,
-                                  v: torch.Tensor, causal: bool = True
+                                  v: torch.Tensor, causal: bool = True,
+                                  kv_len: Optional[torch.Tensor] = None,
+                                  q_offset: Optional[torch.Tensor] = None,
+                                  unrounded: bool = False
                                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The training route's forward, plain PyTorch, any device: the output
-    of ``flash_attention_plain`` and each row's log-sum-exp of its visible
-    scaled scores, fp32 ``(b, h, sq)`` (+inf for a row that sees no key)."""
+    """The forward with the log-sum-exp, plain PyTorch, any device: the
+    output of ``flash_attention_plain`` and each row's log-sum-exp of its
+    visible scaled scores, fp32 ``(b, h, sq)`` (+inf for a row that sees no
+    key). The training route's (no ``kv_len``, no ``q_offset``) and, with
+    ``unrounded`` output, the partial route's."""
     b, h, sq, _ = q.shape
     skv = k.shape[2]
-    out = flash_attention_plain(q, k, v, causal)
-    allowed = _allowed(b, sq, skv, causal, q.device)
+    out = flash_attention_plain(q, k, v, causal, kv_len, q_offset, unrounded)
+    allowed = _allowed(b, sq, skv, causal, q.device, kv_len, q_offset)
     scores = torch.where(allowed, _scores(q, k), -math.inf)
     lse = torch.logsumexp(scores, dim=-1)
     lse = torch.where(allowed.any(-1), lse, math.inf)
@@ -167,7 +185,8 @@ def causal_pairs(sq: int, skv: int) -> int:
 def forward_work(b: int, h: int, hkv: int, sq: int, skv: int, d: int,
                  dtype: torch.dtype, causal: bool = True, lse: bool = False,
                  pairs: Optional[int] = None,
-                 kv_rows: Optional[int] = None) -> Tuple[int, int]:
+                 kv_rows: Optional[int] = None,
+                 out_itemsize: Optional[int] = None) -> Tuple[int, int]:
     """(flops, bytes) of one forward call: the useful work, which the bound
     of ``chip_smoke.py`` and the op counter (``core/op_counter.py``) read.
     Two products of ``2 d`` flops for each (batch, query, key) triple the
@@ -175,12 +194,16 @@ def forward_work(b: int, h: int, hkv: int, sq: int, skv: int, d: int,
     K/V rows that at least one query sees read once; with ``lse`` the rows'
     fp32 log-sum-exp written too. ``pairs`` / ``kv_rows``: what the call's
     data allows (``kv_len`` / ``q_offset``), summed over the batch; by
-    default what the plain causal (top-left) or full mask allows."""
+    default what the plain causal (top-left) or full mask allows.
+    ``out_itemsize``: bytes of an output element where it is not of
+    ``dtype`` (the partial route's fp32)."""
     if pairs is None:
         pairs = b * (causal_pairs(sq, skv) if causal else sq * skv)
     if kv_rows is None:
         kv_rows = b * (min(sq, skv) if causal else skv)
-    nbytes = (2 * b * h * sq * d + 2 * kv_rows * hkv * d) * dtype.itemsize
+    out_itemsize = out_itemsize or dtype.itemsize
+    nbytes = ((b * h * sq * d + 2 * kv_rows * hkv * d) * dtype.itemsize
+              + b * h * sq * d * out_itemsize)
     if lse:
         nbytes += 4 * b * h * sq
     return 4 * pairs * h * d, nbytes
@@ -342,18 +365,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         _check_index_vector("kv_len", kv_len, b, q.device)
     if q_offset is not None:
         _check_index_vector("q_offset", q_offset, b, q.device)
-    if decode_cluster is not None and decode_cluster not in DECODE_CLUSTERS:
-        raise ValueError(
-            f"flash attention kernel: decode_cluster {decode_cluster} not in "
-            f"{DECODE_CLUSTERS}")
-    cluster = decode_cluster or DECODE_DEFAULT_CLUSTER
-    if sq <= 8 and not decode_cluster_fits(d, q.dtype, h // hkv * sq,
-                                           cluster):
-        raise ValueError(
-            f"flash attention kernel: a decode cluster of {cluster} blocks at "
-            f"head_dim {d}, {q.dtype}, needs "
-            f"{decode_smem_bytes(d, q.dtype, h // hkv * sq, cluster)} bytes "
-            f"of shared memory a block, more than {SMEM_PER_BLOCK}")
+    _check_cluster(q, k, decode_cluster)
     out = _new_like_heads(b, sq, h, d, q)
     with _build.on_device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -370,14 +382,74 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
+def _check_cluster(q: torch.Tensor, k: torch.Tensor,
+                   decode_cluster: Optional[int]) -> None:
+    """Raise for a decode cluster the kernels do not take (sq <= 8)."""
+    b, h, sq, d = q.shape
+    hkv = k.shape[1]
+    if decode_cluster is not None and decode_cluster not in DECODE_CLUSTERS:
+        raise ValueError(
+            f"flash attention kernel: decode_cluster {decode_cluster} not in "
+            f"{DECODE_CLUSTERS}")
+    cluster = decode_cluster or DECODE_DEFAULT_CLUSTER
+    if sq <= 8 and not decode_cluster_fits(d, q.dtype, h // hkv * sq,
+                                           cluster):
+        raise ValueError(
+            f"flash attention kernel: a decode cluster of {cluster} blocks at "
+            f"head_dim {d}, {q.dtype}, needs "
+            f"{decode_smem_bytes(d, q.dtype, h // hkv * sq, cluster)} bytes "
+            f"of shared memory a block, more than {SMEM_PER_BLOCK}")
+
+
+def flash_attention_partial_cuda(q: torch.Tensor, k: torch.Tensor,
+                                 v: torch.Tensor, causal: bool = True,
+                                 kv_len: Optional[torch.Tensor] = None,
+                                 q_offset: Optional[torch.Tensor] = None,
+                                 decode_cluster: Optional[int] = None
+                                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The partial route on the card: this rank's output over the keys it
+    holds, fp32 whatever the inputs' type (allocated (b, sq, h, d), returned
+    transposed), and each row's log-sum-exp, fp32 ``(b, h, sq)``, +inf for
+    a row that sees no key (a negative ``q_offset``, a ``kv_len`` of 0).
+    The decode kernels at ``sq <= 8`` (their cluster merge writes the
+    log-sum-exp), else the prefill kernels. Inputs, ``kv_len``,
+    ``q_offset`` and ``decode_cluster`` as ``flash_attention_cuda``'s;
+    raises as it does."""
+    _check_inputs(q, k, v)
+    b, h, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    if kv_len is not None:
+        _check_index_vector("kv_len", kv_len, b, q.device)
+    if q_offset is not None:
+        _check_index_vector("q_offset", q_offset, b, q.device)
+    _check_cluster(q, k, decode_cluster)
+    out = torch.empty((b, sq, h, d), dtype=torch.float32,
+                      device=q.device).transpose(1, 2)
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    with _build.on_device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        code = _build.lib().repro_flash_attention_partial(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr(),
+            None if kv_len is None else kv_len.data_ptr(),
+            None if q_offset is None else q_offset.data_ptr(),
+            b, h, hkv, sq, skv, d,
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            *out.stride()[:3],
+            1.0 / math.sqrt(d), int(bool(causal)), decode_cluster or 0,
+            _DTYPE_CODE[q.dtype], stream)
+    _build.check(code, "flash attention partial launch")
+    return out, lse
+
+
 def flash_attention_lse_cuda(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor, causal: bool = True
                              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The training route's forward on the card: the output and each row's
     log-sum-exp (fp32 ``(b, h, sq)``), from the prefill kernels at any
-    length (a row of at most 8 queries does not take the decode kernels,
-    which write no log-sum-exp), head_dim in ``TRAIN_HEAD_DIMS``. Raises
-    as ``flash_attention_cuda``."""
+    length (a row of at most 8 queries too: the decode kernels write it on
+    the partial route alone), head_dim in ``TRAIN_HEAD_DIMS``. Raises as
+    ``flash_attention_cuda``."""
     _check_inputs(q, k, v, head_dims=TRAIN_HEAD_DIMS)
     b, h, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]

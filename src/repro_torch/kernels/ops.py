@@ -29,7 +29,10 @@ and backward call the operators): the backward counts in
 a remat policy recomputes during the backward is launched, and counted,
 again. Attention and the SSD scan take a training forward of their own
 (``flash_attention_lse``, ``ssd_scan_train``) that also hands back what
-the backward reads.
+the backward reads. Attention also takes the partial route
+(``flash_attention_partial``, counted in ``flash_attention_partial.
+launches``): serving over a cache split along its sequence, a block of
+the keys in, the rows' fp32 output and log-sum-exp out, no gradient.
 """
 
 from __future__ import annotations
@@ -56,6 +59,7 @@ from repro_torch.kernels.flash_attention import (
     flash_attention_cuda,
     flash_attention_forward_plain,
     flash_attention_lse_cuda,
+    flash_attention_partial_cuda,
     flash_attention_plain,
     rows_aligned,
 )
@@ -191,6 +195,41 @@ def _attention_backward_work(q, k, v, o, lse, do, causal):
     b, h, sq, d = q.shape
     return attn_module.backward_work(b, h, k.shape[1], sq, k.shape[2], d,
                                      q.dtype, causal)
+
+
+def _attention_partial_cpu(q, k, v, causal, kv_len=None, q_offset=None):
+    out, lse = flash_attention_forward_plain(q, k, v, causal, kv_len,
+                                             q_offset, unrounded=True)
+    return _heads_layout(out), lse
+
+
+def _attention_partial_cuda(q, k, v, causal, kv_len=None, q_offset=None):
+    out = flash_attention_partial_cuda(q, k, v, causal, kv_len, q_offset)
+    flash_attention_partial.launches += 1
+    return out
+
+
+def _attention_partial_fake(q, k, v, causal, kv_len=None, q_offset=None):
+    b, h, sq, d = q.shape
+    wt = torch.promote_types(q.dtype, torch.float32)
+    return (q.new_empty((b, sq, h, d), dtype=wt).transpose(1, 2),
+            q.new_empty((b, h, sq), dtype=wt))
+
+
+def _attention_partial_work(q, k, v, causal, kv_len=None, q_offset=None):
+    b, h, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    wide = {} if kv_len is None and q_offset is None else {
+        "pairs": b * sq * skv, "kv_rows": b * skv}
+    return attn_module.forward_work(b, h, hkv, sq, skv, d, q.dtype, causal,
+                                    lse=True, out_itemsize=4, **wide)
+
+
+_attention_partial_op = _define(
+    "flash_attention_partial(Tensor q, Tensor k, Tensor v, bool causal, "
+    "Tensor? kv_len, Tensor? q_offset) -> (Tensor, Tensor)",
+    _attention_partial_cpu, _attention_partial_cuda,
+    _attention_partial_fake, _attention_partial_work)
 
 
 _attention_backward_op = _define(
@@ -404,6 +443,23 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return _attention_op(q, k, v, causal, kv_len, q_offset)
 
 
+def flash_attention_partial(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, causal: bool = True,
+                            kv_len: Optional[torch.Tensor] = None,
+                            q_offset: Optional[torch.Tensor] = None
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """q: (b, h, sq, d), k/v: (b, hkv, skv, d), a block of the keys ->
+    (this block's output (b, h, sq, d) in fp32, each row's log-sum-exp
+    (b, h, sq) fp32, +inf where the row sees none of the block's keys):
+    the partial route, for serving over a cache split along its sequence
+    (``parallel.tensor.combine_attention`` sums the blocks). Serving only:
+    no gradient."""
+    if _wants_grad(q, k, v):
+        raise ValueError("flash attention: the partial route serves only; "
+                         "it has no backward")
+    return _attention_partial_op(q, k, v, causal, kv_len, q_offset)
+
+
 class _RMSNorm(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, gamma, eps):
@@ -488,6 +544,7 @@ def embedding_bag(tables: torch.Tensor, indices: torch.Tensor) -> torch.Tensor:
 
 flash_attention.launches = 0
 flash_attention.backward_launches = 0
+flash_attention_partial.launches = 0
 rmsnorm.launches = 0
 rmsnorm.backward_launches = 0
 ssd_scan.launches = 0

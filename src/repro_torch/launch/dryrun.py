@@ -11,7 +11,10 @@ each cell for a 512-device XLA host mesh. Here, for each cell:
      port's rules (``train.shard_train_state`` / ``train.shard_model``, the
      plan from ``parallel.plan_memory`` as in the reference); a serving
      cell's cache takes the shapes ``parallel.sharding.shard_shape`` gives
-     its placements (``cache_shardings``);
+     its placements (``cache_shardings``), and a batch that does not divide
+     over the data ranks (long_500k's one row) runs whole on every rank,
+     the caches the rules split along the sequence holding a block each
+     (``split_caches``);
   3. one step runs under the op counter (``core/op_counter.py``): the
      sharded train step (``train_4k``), the split prefill (``prefill_32k``)
      or a decode step (``decode_32k``, ``long_500k``), every collective on
@@ -20,8 +23,9 @@ each cell for a 512-device XLA host mesh. Here, for each cell:
      terms at the H100's rates (``core/hlo.py``), with the peak live bytes
      as ``memory_analysis`` — into ``experiments/dryrun_torch/*.json``.
 
-A cell the port cannot shard yet raises naming its ROADMAP item, and is
-recorded as the reference records a failed cell (``status: "error"``).
+A cell the port cannot shard raises naming its ROADMAP item, and is
+recorded as the reference records a failed cell (``status: "error"``);
+every runnable cell of the registry traces.
 Importing this module joins no group and sets nothing; ``lower_cell``
 refuses to run in a process that holds a process group already.
 
@@ -61,6 +65,7 @@ from repro_torch.parallel.sharding import (
     batch_spec,
     cache_shardings,
     shard_shape,
+    split_caches,
 )
 from repro_torch.train import (
     init_train_state,
@@ -114,6 +119,7 @@ def _serving_cell(cfg: ModelConfig, plan, shape: ShapeConfig, mesh):
     rows = batch_spec(mesh, (shape.global_batch,))
     cache = {name: _local(t, rows if name == "pos" else specs[name], mesh)
              for name, t in whole_cache.items()}
+    cache.update(split_caches(mesh, specs))
     del whole_cache
     batch = {k: _local(v, batch_spec(mesh, tuple(v.shape),
                                      seq_shard=(k == "tokens")), mesh)

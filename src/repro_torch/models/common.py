@@ -20,8 +20,11 @@ ops around the column- and row-parallel products), and the local head
 counts; ``split_rms_norm`` normalises a row whose columns lie on the
 group's ranks; the LMs' vocabulary (``embed_tokens``, ``lm_logits``,
 ``serving_logits``, ``lm_cross_entropy``) takes the group where the
-embedding holds a block of the vocabulary. ``layer_norm`` is not ported: no
-model of the reference calls it.
+embedding holds a block of the vocabulary. A batch that does not divide over
+the data ranks is served whole on each of them, every attention cache split
+along its sequence over the data axis (``attention_block``'s
+``seq_group``, which ``kv_view`` reads from the cache's ``SEQ_SPLIT``).
+``layer_norm`` is not ported: no model of the reference calls it.
 """
 
 from __future__ import annotations
@@ -34,8 +37,9 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
-from repro_torch.parallel.sharding import all_gather_dim
+from repro_torch.parallel.sharding import SEQ_SPLIT, all_gather_dim
 from repro_torch.parallel.tensor import (
+    combine_attention,
     copy_to_region,
     reduce_from_region,
     sum_over_group,
@@ -204,6 +208,36 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.transpose(1, 2)
 
 
+def split_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool, q_offset: Optional[torch.Tensor],
+                    group) -> torch.Tensor:
+    """``attention`` of rows whose keys are split over ``group``: k/v (b,
+    skv, h_kv, d) hold this rank's block, ``q_offset`` (b,) the rows'
+    position in it (negative before it). Each rank's partial (the kernels'
+    partial route) and the ranks' combine by log-sum-exp
+    (``combine_attention``): the whole rows, the same on every rank."""
+    out, lse = ops.flash_attention_partial(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), causal,
+        q_offset=q_offset)
+    return combine_attention(out, lse, group, q.dtype).transpose(1, 2)
+
+
+def kv_view(cache: dict, k: str, v: str, i: int, clock: bool = True
+            ) -> dict:
+    """``attention_block``'s ``kv_cache`` of entry ``i`` of a model's
+    cache ``k`` / ``v`` (a layer's, a group's), with the clock unless
+    ``clock`` is False (a frozen cross K/V), and ``seq_group`` where the
+    cache holds this rank's block of the sequence (named in the cache's
+    ``SEQ_SPLIT`` entry, ``parallel.sharding.split_caches``)."""
+    out = {"k": cache[k][i], "v": cache[v][i]}
+    if clock:
+        out["pos"] = cache["pos"]
+    split = cache.get(SEQ_SPLIT)
+    if split is not None and k in split.names:
+        out["seq_group"] = split.group
+    return out
+
+
 def attention_block(
     params: Mapping[str, torch.Tensor],
     x: torch.Tensor,                   # (b, s, d_in)
@@ -214,7 +248,8 @@ def attention_block(
     rope_fraction: float = 1.0,
     rope_theta: float = 10_000.0,
     causal: bool = True,
-    kv_cache: Optional[dict] = None,   # {"k","v": (b, max_s, hkv, d), "pos"}
+    kv_cache: Optional[dict] = None,   # {"k","v": (b, max_s, hkv, d), "pos",
+                                       #  "seq_group" where split}
     rope: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     xkv: Optional[torch.Tensor] = None,   # cross-attention source (b, src, d)
     precomputed_kv: bool = False,      # kv_cache holds frozen cross K/V
@@ -237,8 +272,21 @@ def attention_block(
     With ``group``, ``wq``/``wk``/``wv`` hold this rank's heads' columns
     and ``wo`` their rows, ``num_heads``/``num_kv_heads`` count this rank's
     heads, the inputs enter through ``copy_to_region`` and the output is
-    summed over the group (``reduce_from_region``)."""
+    summed over the group (``reduce_from_region``).
+
+    With ``kv_cache["seq_group"]`` (the data axis's group, ``kv_view``) the
+    cache's ``k``/``v`` hold this rank's block of ``S / n`` rows of a
+    sequence of ``S``, rank r rows ``[r S / n, (r + 1) S / n)``, and ``x``
+    is the whole batch on every rank. A prefill writes the prompt's rows
+    that fall in the block (none where the prompt ends before it) and
+    attends over the prompt whole; a decode step writes its row on the rank
+    that owns it, the idle slot's clamp being the global last row (on the
+    last rank), and attends over each rank's block with the kernels'
+    partial route, the ranks' rows combined by log-sum-exp
+    (``split_attention``); so does a cross-attention over a frozen cross
+    K/V split along its source. Serving only."""
     b, s, _ = x.shape
+    seq_group = None if kv_cache is None else kv_cache.get("seq_group")
     if group is not None:
         x = copy_to_region(x, group)
         if xkv is not None:
@@ -252,8 +300,11 @@ def attention_block(
     if precomputed_kv:
         if kv_cache is None:
             raise ValueError("precomputed_kv needs the cross K/V in kv_cache")
-        return project_out(attention(q, kv_cache["k"].to(q.dtype),
-                                     kv_cache["v"].to(q.dtype), causal=False))
+        kc, vc = kv_cache["k"].to(q.dtype), kv_cache["v"].to(q.dtype)
+        if seq_group is not None:
+            return project_out(split_attention(q, kc, vc, False, None,
+                                               seq_group))
+        return project_out(attention(q, kc, vc, causal=False))
     src = x if xkv is None else xkv
     k = (src @ params["wk"]).reshape(b, src.shape[1], num_kv_heads, head_dim)
     v = (src @ params["wv"]).reshape(b, src.shape[1], num_kv_heads, head_dim)
@@ -275,29 +326,55 @@ def attention_block(
         q, k = qk[:, :, :num_heads], qk[:, :, num_heads:]
 
     if kv_cache is None:
-        out = attention(q, k, v, causal=causal)
-    elif s == 1:
-        # Decode: each sequence writes at its own position and attends over
-        # the cache up to it. A slot that no request owns keeps ticking and
-        # may run past the cache: its position is clamped to the last row,
-        # where the write and the mask stay in range. No active sequence is
-        # touched, since submit() keeps every request below max_seq.
-        kc, vc = kv_cache["k"], kv_cache["v"]
-        at = offset.clamp(max=kc.shape[1] - 1).to(torch.int32)
-        rows = (torch.arange(b, device=x.device), at.long())
-        kc[rows] = k[:, 0].to(kc.dtype)
-        vc[rows] = v[:, 0].to(vc.dtype)
-        out = attention(q, kc.to(q.dtype), vc.to(q.dtype), causal=True,
-                        q_offset=at)
-    else:
+        return project_out(attention(q, k, v, causal=causal))
+    return project_out(_cache_step(q, k, v, kv_cache, offset, seq_group))
+
+
+def _cache_step(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                kv_cache: dict, offset: torch.Tensor, group) -> torch.Tensor:
+    """``attention_block``'s prefill or decode step over its cache, which
+    it writes in place; the attention's output. With ``group`` the cache
+    holds this rank's block of the sequence (see there)."""
+    kc, vc = kv_cache["k"], kv_cache["v"]
+    b, s = q.shape[:2]
+    rows = kc.shape[1]                       # this block's
+    rank, ranks = ((0, 1) if group is None
+                   else (dist.get_rank(group), dist.get_world_size(group)))
+    first, total = rank * rows, ranks * rows
+    if s > 1:
         # Prefill: fresh cache, every sequence starts at 0. The reference
         # attends over the whole zero-filled cache under the causal mask; the
         # masked positions weigh exp(-1e30) = 0, so attending over the prompt
-        # alone is the same sum.
-        kv_cache["k"][:, :s] = k.to(kv_cache["k"].dtype)
-        kv_cache["v"][:, :s] = v.to(kv_cache["v"].dtype)
-        out = attention(q, k, v, causal=True)
-    return project_out(out)
+        # alone is the same sum. The prompt's rows in this block are written.
+        if s > total:
+            raise ValueError(f"a prompt of {s} rows, a cache of {total}")
+        n = max(0, min(s - first, rows))
+        kc[:, :n] = k[:, first:first + n].to(kc.dtype)
+        vc[:, :n] = v[:, first:first + n].to(vc.dtype)
+        return attention(q, k, v, causal=True)
+    # Decode: each sequence writes at its own position and attends over the
+    # cache up to it. A slot that no request owns keeps ticking and may run
+    # past the cache: its position is clamped to the (global) last row,
+    # where the write and the mask stay in range. No active sequence is
+    # touched, since submit() keeps every request below max_seq.
+    at = offset.clamp(max=total - 1).to(torch.int32)
+    knew, vnew = k[:, 0].to(kc.dtype), v[:, 0].to(vc.dtype)
+    if group is not None:
+        # The row in this block's own index; a rank that does not own it
+        # rewrites its row as it was (no sync, no branch).
+        at = at - first
+        mine = ((at >= 0) & (at < rows))[:, None, None]
+        idx = (torch.arange(b, device=q.device), at.clamp(0, rows - 1).long())
+        knew, vnew = (torch.where(mine, knew, kc[idx]),
+                      torch.where(mine, vnew, vc[idx]))
+    else:
+        idx = (torch.arange(b, device=q.device), at.long())
+    kc[idx] = knew
+    vc[idx] = vnew
+    kc, vc = kc.to(q.dtype), vc.to(q.dtype)
+    if group is None:
+        return attention(q, kc, vc, causal=True, q_offset=at)
+    return split_attention(q, kc, vc, True, at, group)
 
 
 # --------------------------------------------------------------------- #

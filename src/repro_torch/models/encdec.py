@@ -33,6 +33,7 @@ from __future__ import annotations
 from typing import Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from repro_torch import resolve_device
@@ -44,6 +45,7 @@ from repro_torch.models.common import (
     embed_tokens,
     init_generator,
     init_ffn_params,
+    kv_view,
     lm_cross_entropy,
     rms_norm,
     rope_frequencies,
@@ -51,6 +53,7 @@ from repro_torch.models.common import (
     serving_logits,
 )
 from repro_torch.models.transformer import FFN, Attention, _param, apply_remat
+from repro_torch.parallel.sharding import SEQ_SPLIT
 from repro_torch.parallel.tensor import copy_to_region
 
 
@@ -150,9 +153,8 @@ class EncDec(nn.Module):
         layer = self.decoder[i]
         self_kv = cross_kv = None
         if cache is not None:
-            self_kv = {"k": cache["self_k"][i], "v": cache["self_v"][i],
-                       "pos": cache["pos"]}
-            cross_kv = {"k": cache["cross_k"][i], "v": cache["cross_v"][i]}
+            self_kv = kv_view(cache, "self_k", "self_v", i)
+            cross_kv = kv_view(cache, "cross_k", "cross_v", i, clock=False)
         x = x + layer.self_attn.attend(rms_norm(x, layer.ln1, cfg.norm_eps),
                                        self_kv, causal=True, rope=rope)
         x = x + layer.cross_attn.attend(
@@ -244,12 +246,21 @@ class EncDec(nn.Module):
                 ) -> Tuple[torch.Tensor, dict]:
         """Encode ``frames`` into the cache's cross K/V, then fill the self
         K/V from the prompt; logits of the last position, (b, 1,
-        padded_vocab)."""
-        if cache["cross_k"].shape[2] != frames.shape[1]:
+        padded_vocab). A cross cache split along the source
+        (``SEQ_SPLIT``) takes this rank's block of the frames."""
+        rows = src = cache["cross_k"].shape[2]
+        split = cache.get(SEQ_SPLIT)
+        rank = 0
+        if split is not None and "cross_k" in split.names:
+            rank = dist.get_rank(split.group)
+            src *= dist.get_world_size(split.group)
+        if src != frames.shape[1]:
             raise ValueError(
-                f"the cache holds a source of {cache['cross_k'].shape[2]} "
-                f"frames, the prefill gives {frames.shape[1]}")
+                f"the cache holds a source of {src} frames, the prefill "
+                f"gives {frames.shape[1]}")
         ck, cv = self.precompute_cross_kv(self.encode(frames))
+        first = rank * rows
+        ck, cv = ck[:, :, first:first + rows], cv[:, :, first:first + rows]
         cache["cross_k"].copy_(ck)
         cache["cross_v"].copy_(cv)
         x = self.decode_stack(self._embed(tokens), None, cache=cache)

@@ -61,6 +61,7 @@ from repro_torch.models.common import (
     embed_tokens,
     init_generator,
     init_ffn_params,
+    kv_view,
     lm_cross_entropy,
     lm_logits,
     rms_norm,
@@ -378,9 +379,7 @@ class Mamba(nn.Module):
         if every:
             kv = None
             if cache is not None:
-                g = first // every
-                kv = {"k": cache["attn_k"][g], "v": cache["attn_v"][g],
-                      "pos": cache["pos"]}
+                kv = kv_view(cache, "attn_k", "attn_v", first // every)
             x = self.shared_attn(x, emb0, kv, rope)
         return x
 
@@ -489,9 +488,7 @@ class Mamba(nn.Module):
             x = x + mamba_decode_step(lp, cfg, rms_norm(x, lp.ln, cfg.norm_eps),
                                       cache["conv"][i], cache["ssm"][i])
             if every and (i + 1) % every == 0:
-                g = i // every
-                x = self.shared_attn(x, emb0, {
-                    "k": cache["attn_k"][g], "v": cache["attn_v"][g],
-                    "pos": cache["pos"]}, rope)
+                x = self.shared_attn(x, emb0, kv_view(
+                    cache, "attn_k", "attn_v", i // every), rope)
         cache["pos"] = cache["pos"] + 1
         return self._serving_logits(x), cache

@@ -47,6 +47,7 @@ from repro_torch.models.common import (
     ffn_block,
     init_ffn_params,
     init_moe_params,
+    kv_view,
     lm_cross_entropy,
     lm_logits,
     moe_block,
@@ -367,8 +368,7 @@ class Transformer(nn.Module):
         for i, layer in enumerate(self.layers):
             kv = None
             if cache is not None:
-                kv = {"k": cache["k"][i], "v": cache["v"][i],
-                      "pos": cache["pos"]}
+                kv = kv_view(cache, "k", "v", i)
             x, layer_aux = block(layer, x, kv, rope)
             if layer_aux is not None:
                 aux = layer_aux if aux is None else aux + layer_aux

@@ -201,19 +201,55 @@ def param_shardings(cfg: ModelConfig, params: Mapping[str, torch.Tensor],
 # Batch / activation / cache shardings
 # ----------------------------------------------------------------------- #
 
+SEQ_AXIS = "data"
+# The entry of a sharded cache (a model's ``init_cache`` dictionary) whose
+# caches hold this rank's block of their sequence: a ``SeqSplit``.
+SEQ_SPLIT = "seq_split"
+
+
+@dataclasses.dataclass(frozen=True)
+class SeqSplit:
+    """The caches of a cache (``names``) that hold this rank's block of
+    their sequence, and the data axis's ``group`` they are split over: the
+    one record of the split, which the models read (``models.common.
+    kv_view``)."""
+    names: Tuple[str, ...]
+    group: object
+
+
+def rows_divide(mesh: Mesh, rows: int) -> bool:
+    """Whether ``rows`` batch rows divide over the data-parallel axes, the
+    rule of ``batch_spec`` and ``kv_cache_spec``."""
+    mesh = mesh_spec(mesh)
+    axes = dp_axes(mesh)
+    dp = int(np.prod([mesh.shape[a] for a in axes])) if axes else 1
+    return bool(axes) and rows % dp == 0 and rows >= dp
+
+
+def sequence_split(mesh: Mesh, rows: int, seq: int) -> bool:
+    """Whether a cache of ``rows`` batch rows and ``seq`` positions splits
+    its sequence over the data axis (``SEQ_AXIS``): where the rows do not
+    divide over the data-parallel axes and the data axis divides ``seq``
+    (long_500k's one row). Such a batch runs whole on every data rank. The
+    rule of ``kv_cache_spec``, which the models read through the sharded
+    cache's ``SEQ_SPLIT`` entry (``split_caches``)."""
+    mesh = mesh_spec(mesh)
+    return (not rows_divide(mesh, rows) and SEQ_AXIS in mesh.axis_names
+            and seq % mesh.shape[SEQ_AXIS] == 0)
+
+
 def batch_spec(mesh: Mesh, shape: Tuple[int, ...],
                seq_shard: bool = False) -> Spec:
     """(B, S, ...) batches: B over the DP axes when divisible; tiny batches
     (long_500k's B=1) shard S over data instead when S divides."""
     mesh = mesh_spec(mesh)
     axes = dp_axes(mesh)
-    dp = int(np.prod([mesh.shape[a] for a in axes])) if axes else 1
     spec = [None] * len(shape)
-    if axes and shape[0] % dp == 0 and shape[0] >= dp:
+    if rows_divide(mesh, shape[0]):
         spec[0] = axes if len(axes) > 1 else axes[0]
-    elif (seq_shard and "data" in mesh.axis_names and len(shape) > 1
-          and shape[1] % mesh.shape["data"] == 0):
-        spec[1] = "data"
+    elif seq_shard and len(shape) > 1 and sequence_split(mesh, shape[0],
+                                                         shape[1]):
+        spec[1] = SEQ_AXIS
     return tuple(spec)
 
 
@@ -221,6 +257,10 @@ def batch_shardings(mesh: Mesh, batch: Mapping[str, torch.Tensor],
                     cfg: ModelConfig) -> Dict[str, Spec]:
     return {k: batch_spec(mesh, tuple(v.shape), seq_shard=(k == "tokens"))
             for k, v in batch.items()}
+
+
+KV_CACHES = ("k", "v", "attn_k", "attn_v", "self_k", "self_v", "cross_k",
+             "cross_v")
 
 
 def kv_cache_spec(cfg: ModelConfig, mesh: Mesh, name: str,
@@ -231,24 +271,23 @@ def kv_cache_spec(cfg: ModelConfig, mesh: Mesh, name: str,
     mesh = mesh_spec(mesh)
     tp = mp_size(mesh)
     axes = dp_axes(mesh)
-    dp = int(np.prod([mesh.shape[a] for a in axes])) if axes else 1
+    rows = axes if len(axes) > 1 else (axes[0] if axes else None)
     spec = [None] * len(shape)
-    if name in ("k", "v", "attn_k", "attn_v", "self_k", "self_v",
-                "cross_k", "cross_v"):
-        if axes and shape[1] % dp == 0 and shape[1] >= dp:
-            spec[1] = axes if len(axes) > 1 else axes[0]
-        elif "data" in mesh.axis_names and shape[2] % mesh.shape["data"] == 0:
-            spec[2] = "data"
+    if name in KV_CACHES:
+        if rows_divide(mesh, shape[1]):
+            spec[1] = rows
+        elif sequence_split(mesh, shape[1], shape[2]):
+            spec[2] = SEQ_AXIS
         if _divisible(shape[3], tp):
             spec[3] = MODEL_AXIS
     elif name == "ssm":
-        if axes and shape[1] % dp == 0 and shape[1] >= dp:
-            spec[1] = axes if len(axes) > 1 else axes[0]
+        if rows_divide(mesh, shape[1]):
+            spec[1] = rows
         if _divisible(shape[2], tp):
             spec[2] = MODEL_AXIS
     elif name == "conv":
-        if axes and shape[1] % dp == 0 and shape[1] >= dp:
-            spec[1] = axes if len(axes) > 1 else axes[0]
+        if rows_divide(mesh, shape[1]):
+            spec[1] = rows
     return tuple(spec)
 
 
@@ -258,7 +297,33 @@ def cache_shardings(cfg: ModelConfig, mesh: Mesh,
     layout) -> a spec per entry; the clock ``pos`` is replicated."""
     return {name: (() if name == "pos" or t.dim() == 0
                    else kv_cache_spec(cfg, mesh, name, tuple(t.shape)))
-            for name, t in cache.items()}
+            for name, t in cache.items() if name != SEQ_SPLIT}
+
+
+def split_caches(mesh: Mesh, specs: Mapping[str, Spec]) -> dict:
+    """``{SEQ_SPLIT: SeqSplit}`` naming the caches whose ``specs``
+    (``cache_shardings``'s) split their sequence over a data axis of more
+    than one rank, with that axis's group; ``{}`` where none does. The
+    entry a sharded cache carries."""
+    size = mesh_spec(mesh).shape.get(SEQ_AXIS, 1)
+    names = tuple(name for name, spec in specs.items()
+                  if size > 1 and len(spec) > 2 and spec[2] == SEQ_AXIS)
+    return {SEQ_SPLIT: SeqSplit(names, mesh.get_group(SEQ_AXIS))} if names \
+        else {}
+
+
+def shard_cache(cfg: ModelConfig, mesh, cache: Mapping[str, torch.Tensor]
+                ) -> dict:
+    """This rank's pieces of a whole cache (copies), as ``cache_shardings``
+    lays them out, the clock as ``batch_spec`` lays out the rows; with the
+    ``SEQ_SPLIT`` entry where a cache is split along its sequence
+    (``split_caches``)."""
+    specs = cache_shardings(cfg, mesh, cache)
+    specs["pos"] = batch_spec(mesh, tuple(cache["pos"].shape))
+    out = {name: local_shard(t, specs[name], mesh).clone()
+           for name, t in cache.items() if name != SEQ_SPLIT}
+    out.update(split_caches(mesh, specs))
+    return out
 
 
 # ----------------------------------------------------------------------- #

@@ -22,14 +22,24 @@ the reference's one program does (``route_over``): the capacity pick reads
 every data rank's combine matrix, and the auxiliary loss's statistics are
 summed over the data ranks through ``sum_over_group``, whose backward sums
 the gradients too.
+
+Serving a batch that does not divide over the data ranks (long_500k's one
+row) runs it whole on every data rank, each holding one block of every
+attention cache's sequence (``parallel.sharding.sequence_split``): a rank
+attends over its block alone (the kernels' partial route) and
+``combine_attention`` sums the ranks' partial rows by their log-sum-exp,
+the same bits on every rank.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.distributed as dist
 
 from repro_torch.parallel.mesh import MODEL_AXIS
+from repro_torch.parallel.sharding import all_gather_stacked
 
 
 class _CopyToRegion(torch.autograd.Function):
@@ -181,3 +191,38 @@ def route_over(model, groups) -> None:
     for layer in getattr(model, "layers", ()):
         if hasattr(layer, "moe"):
             layer.moe.route_groups = tuple(groups)
+
+
+def combine_partials(outs: torch.Tensor, lses: torch.Tensor,
+                     dtype: torch.dtype) -> torch.Tensor:
+    """Rows of attention from the partials of the ``n`` blocks their keys
+    are split into: ``outs`` (n, b, h, sq, d), each normalised over its
+    block's keys, and ``lses`` (n, b, h, sq), their log-sum-exp, +inf where
+    a row sees none of a block's keys (that block then weighs 0). Summed in
+    block order in fp32, each weighted by exp(lse - the rows' largest),
+    divided by the weights' sum and rounded once into ``dtype``; a row that
+    no block sees gives zeros."""
+    outs, lses = outs.float(), lses.float()
+    lses = torch.where(lses == math.inf, -math.inf, lses)
+    top = lses.amax(0)
+    top = torch.where(torch.isfinite(top), top, 0.0)
+    weights = torch.exp(lses - top)
+    acc, total = outs[0] * weights[0, ..., None], weights[0]
+    for i in range(1, outs.shape[0]):
+        acc = acc + outs[i] * weights[i, ..., None]
+        total = total + weights[i]
+    return (acc / total.clamp(min=1e-30)[..., None]).to(dtype)
+
+
+def combine_attention(out: torch.Tensor, lse: torch.Tensor, group,
+                      dtype: torch.dtype) -> torch.Tensor:
+    """Rows of attention whose keys are split over ``group``, from this
+    rank's partial (``ops.flash_attention_partial``: ``out`` (b, h, sq, d)
+    and ``lse`` (b, h, sq), fp32): every rank's, all-gathered in one
+    collective (each row's output beside its log-sum-exp), combined in rank
+    order (``combine_partials``). Every rank sums the same numbers in the
+    same order, so the ranks' rows are bitwise equal. Serving only: no
+    gradient."""
+    packed = torch.cat([out.float(), lse.float()[..., None]], dim=-1)
+    parts = all_gather_stacked(packed.contiguous(), group)
+    return combine_partials(parts[..., :-1], parts[..., -1], dtype)

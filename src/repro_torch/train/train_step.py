@@ -74,6 +74,7 @@ from repro_torch.parallel.sharding import (
     local_shard,
     param_shardings,
     reduce_scatter_dim,
+    rows_divide,
     shard_shape,
 )
 from repro_torch.parallel.tensor import apply_tensor_parallel, route_over
@@ -191,22 +192,15 @@ def state_shardings(cfg: ModelConfig, plan: MemoryPlan, state: dict,
             "opt": opt}
 
 
-# ROADMAP Queue 1 item: a batch too small to split over the data-parallel
-# ranks (13: a split of the sequence). Every family splits over the model
-# axis and runs ZeRO-3.
+# ROADMAP Queue 1 item: a train step over a batch too small to split over
+# the data-parallel ranks (13's second half: the sequence split in training
+# and prefill). Serving such a batch runs (shard_model); every family splits
+# over the model axis and runs ZeRO-3.
 SEQUENCE_SPLIT_ITEM = 13
 
 
-def _refuse_unported(mesh, batch_rows: Optional[int] = None) -> None:
-    """Raise for what the port does not shard yet, naming its ROADMAP item
-    (given ``batch_rows``, a batch too small to divide over the
-    data-parallel ranks); then for a mesh with no processes behind it."""
-    if batch_rows is not None and batch_spec(mesh, (batch_rows,))[0] is None \
-            and dp_size(mesh) > 1:
-        raise NotImplementedError(
-            f"a batch of {batch_rows} rows over {dp_size(mesh)} data-parallel "
-            "ranks needs a split along the sequence, which waits for ROADMAP "
-            f"Queue 1 item {SEQUENCE_SPLIT_ITEM}")
+def _refuse_unported(mesh) -> None:
+    """Raise for a mesh with no processes behind it."""
     if not isinstance(mesh, DeviceMesh):
         raise TypeError(f"a sharded step runs on a device mesh over a "
                         f"process group (parallel.build_mesh), not {mesh!r}")
@@ -218,15 +212,21 @@ def shard_model(cfg: ModelConfig, plan: MemoryPlan, model, mesh,
     """This rank's pieces of a whole model's parameters (every rank holding
     the same model), in place: each parameter keeps its object and takes its
     piece as data; the model is pointed at the model axis's group (its
-    heads, FFN columns, experts or SSD heads and its vocabulary block), its
-    MoE layers at the data-parallel groups (their routing group is the
-    global batch) and, under ZeRO-3, it gathers its parameters where it
-    reads them. Returns the placements
-    (``placements``, else ``param_shardings``'s). Serving and training
-    alike; raises, before anything is changed, as ``shard_train_state``,
-    and, given the global batch's ``batch_rows``, for a batch that does not
-    divide over the data-parallel ranks."""
-    _refuse_unported(mesh, batch_rows)
+    heads, FFN columns, experts or SSD heads and its vocabulary block) and,
+    under ZeRO-3, it gathers its parameters where it reads them. Returns the
+    placements (``placements``, else ``param_shardings``'s). Serving and
+    training alike; raises, before anything is changed, as
+    ``shard_train_state``.
+
+    ``batch_rows``: the global batch's rows, where known. Where they divide
+    over the data-parallel ranks (or are not given), each rank serves or
+    trains its block of them and the MoE layers route the global batch
+    (``route_over`` the data-parallel groups). Where they do not (serving
+    long_500k's one row), every data rank runs the whole batch and the MoE
+    layers route it alone; its cache's pieces (``parallel.sharding.
+    shard_cache``) then name the caches split along the sequence over the
+    data axis, and their group."""
+    _refuse_unported(mesh)
     params = dict(model.named_parameters())
     sh = placements or param_shardings(cfg, params, mesh, fsdp=plan.fsdp)
     with torch.no_grad():
@@ -235,8 +235,10 @@ def shard_model(cfg: ModelConfig, plan: MemoryPlan, model, mesh,
     if mp_size(mesh) > 1:
         apply_tensor_parallel(model, sh, mesh.get_group(MODEL_AXIS))
     sizes = mesh_spec(mesh).shape
-    route_over(model, [mesh.get_group(a) for a in dp_axes(mesh)
-                       if sizes[a] > 1])
+    whole = batch_rows is not None and not rows_divide(mesh, batch_rows)
+    route_over(model, [] if whole else [mesh.get_group(a)
+                                        for a in dp_axes(mesh)
+                                        if sizes[a] > 1])
     if plan.fsdp:
         gather_on_use(model, sh, mesh)
     return sh
@@ -351,10 +353,12 @@ def sharded_train_step(cfg: ModelConfig, plan: MemoryPlan, mesh,
             mbs = v.reshape((m, v.shape[0] // m) + tuple(v.shape[1:]))
             spec = batch_spec(mesh, tuple(mbs.shape[1:]),
                               seq_shard=(k == "tokens"))
-            if any(e is not None for e in spec[1:]):
+            if spec[0] is None and dp_size(mesh) > 1:
                 raise NotImplementedError(
-                    f"{k} {tuple(v.shape)}: a batch split along the sequence "
-                    f"waits for ROADMAP Queue 1 item {SEQUENCE_SPLIT_ITEM}")
+                    f"{k} {tuple(v.shape)}: a microbatch of {mbs.shape[1]} "
+                    f"rows does not divide over {dp_size(mesh)} data-parallel "
+                    "ranks; a train step split along the sequence waits for "
+                    f"ROADMAP Queue 1 item {SEQUENCE_SPLIT_ITEM}")
             mine = local_shard(mbs, (None,) + spec, mesh)
             local[k] = mine.reshape((-1,) + tuple(v.shape[1:]))
         counts = (local["targets"] != -1).reshape(m, -1).sum(1).float()

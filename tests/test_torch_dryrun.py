@@ -9,12 +9,13 @@
   and ``model_flops`` exactly for all 40 cells.
 * ``lower_cell`` on a (2 data, 2 model) fake group with the reduced
   configs: every family's cells are ``ok`` with the reference's JSON
-  keys, each refusal (long_500k's one-row batch) names its ROADMAP item,
-  and no
-  process group is left behind. The CLI on one full-size cell of the
+  keys (long_500k's one-row batch served whole on every data rank, its
+  cache split along the sequence where the data axis divides it), a
+  refusal names its ROADMAP item, and no process group is left behind. The CLI on one full-size cell of the
   production mesh, in a fresh interpreter that never loads ``jax``.
 """
 
+import dataclasses
 import json
 import os
 import re
@@ -36,6 +37,7 @@ from repro_torch.configs import ASSIGNED_ARCHS, SHAPES, all_cells, get_config
 from repro_torch.convert import to_jax_params
 from repro_torch.launch import dryrun, specs
 from repro_torch.launch.mesh import make_debug_mesh
+from repro_torch.train.train_step import SEQUENCE_SPLIT_ITEM
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CELLS = [(a, s) for a, s, runnable, _ in all_cells() if runnable]
@@ -192,26 +194,64 @@ def test_moe_cells_are_ok(arch, shape):
         assert gathers >= cfg.num_layers // cfg.moe.moe_every
 
 
+# The cells that refused until item 13's first half (serving a batch that
+# does not divide over the data ranks): ``items``, what they waited for.
 REFUSED = [("mamba2-780m", "long_500k", [13]),
            ("zamba2-2.7b", "long_500k", [13])]
 
 
+def _cache_of(rows_less: int):
+    """``abstract_cache`` with ``rows_less`` fewer rows than the cell's."""
+    def cache(cfg, shape, dtype, model):
+        return specs.abstract_cache(
+            cfg, dataclasses.replace(shape, seq_len=shape.seq_len - rows_less),
+            dtype, model)
+    return cache
+
+
 @pytest.mark.parametrize("arch,shape,items", REFUSED)
-def test_other_families_are_refused_naming_their_item(arch, shape, items):
-    """Each refusal names its items and no other."""
-    with pytest.raises(NotImplementedError) as e:
-        _lower(arch, shape)
-    named = set(re.findall(r"ROADMAP Queue 1 item (\d+)", str(e.value)))
-    assert named == {str(item) for item in items}, str(e.value)
+def test_other_families_are_refused_naming_their_item(arch, shape, items,
+                                                      monkeypatch):
+    """The long_500k cells, which refused naming item 13 until its serving
+    half, trace ``ok`` on the (2, 2) fake group: one row served whole on
+    both data ranks. The cell's cache of 524,289 rows (the prompt and one
+    more, as the reference sizes it) does not divide over the data axis, so
+    ``kv_cache_spec`` keeps it whole and the tick gathers the logits' blocks
+    and mamba's conv channels alone; at 524,288 rows zamba2's shared-block
+    cache splits along its sequence and each application of the block adds
+    one all-gather, the combine's: its rows' partial output and
+    log-sum-exp, (2 ranks, 1, 2 heads, 1, head_dim + 1) fp32."""
+    assert items == [SEQUENCE_SPLIT_ITEM]
+    counter, info = _lower(arch, shape)
     assert not dist.is_initialized()
+    assert KEYS <= set(info) and info["flops"] > 0
+    cfg = get_config(arch, reduced=True)
+    gathers = counter.by_op["c10d._allgather_base_"][0]
+    monkeypatch.setattr(dryrun, "abstract_cache", _cache_of(1))
+    split, _ = _lower(arch, shape)
+    groups = (cfg.num_layers // cfg.hybrid.attn_every
+              if cfg.family == "hybrid" else 0)
+    assert split.by_op["c10d._allgather_base_"][0] == gathers + groups
+    combine = 2 * 2 * (cfg.resolved_head_dim + 1) * 4
+    assert (split.cost.coll["all-gather"]
+            == counter.cost.coll["all-gather"] + groups * combine)
 
 
 def test_a_refused_cell_is_recorded_as_the_reference_records_an_error(
         tmp_path, monkeypatch):
+    """A refusal that stands: a training cell whose plan cuts the global
+    batch into microbatches of one row, which do not divide over the 32
+    data ranks, raises before any step naming item 13 (the train step split
+    along the sequence), and is recorded as the reference records a failed
+    cell."""
     monkeypatch.undo()                   # the production mesh
-    info = dryrun.run_cell("mamba2-780m", "long_500k", True, str(tmp_path))
+    plan_memory = dryrun.plan_memory
+    monkeypatch.setattr(dryrun, "plan_memory", lambda cfg, tp, dp, shape: (
+        dataclasses.replace(plan_memory(cfg, tp=tp, dp=dp, shape=shape),
+                            microbatches=shape.global_batch)))
+    info = dryrun.run_cell("mamba2-780m", "train_4k", True, str(tmp_path))
     saved = json.loads(
-        (tmp_path / "mamba2-780m_long_500k_2x16x16.json").read_text())
+        (tmp_path / "mamba2-780m_train_4k_2x16x16.json").read_text())
     assert saved["status"] == info["status"] == "error"
     assert "ROADMAP Queue 1 item 13" in saved["error"]
     assert saved["mesh"] == "2x16x16"

@@ -506,6 +506,92 @@ def test_flash_training_route_takes_no_cache_arguments():
                             q_offset=torch.zeros(1, dtype=torch.int32))
 
 
+def _visible_lse(q, k, causal, kv_len, q_offset):
+    """float64 log-sum-exp of each row's visible scaled scores (b, h, sq),
+    +inf for a row that sees no key."""
+    b, h, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    kk = np.repeat(k, h // hkv, axis=1).astype(np.float64)
+    scores = np.einsum("bhqd,bhkd->bhqk", q.astype(np.float64), kk) / np.sqrt(d)
+    kpos = np.arange(skv)
+    ok = kpos[None, None, :] < np.asarray(kv_len)[:, None, None]
+    if causal:
+        qpos = np.arange(sq)[None, :, None] + np.asarray(q_offset)[:, None, None]
+        ok = ok & (kpos[None, None, :] <= qpos)
+    scores = np.where(ok[:, None], scores, -np.inf)
+    top = scores.max(-1, keepdims=True)
+    safe = np.where(np.isfinite(top), top, 0.0)
+    total = np.exp(scores - safe).sum(-1)
+    return np.where(total > 0, safe[..., 0] + np.log(np.maximum(total, 1e-300)),
+                    np.inf)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_forward_plain_with_offsets_matches_naive_attention(causal):
+    """The forward with the log-sum-exp (the partial route's plain version,
+    output unrounded) with a q_offset and a kv_len per sequence: the output
+    against the JAX package's ``naive_attention`` on each sequence alone,
+    keys cut at kv_len, fp32 2e-5; the log-sum-exp against float64, 1e-5;
+    the third sequence's negative offset (a block past its rows) and the
+    fourth's kv_len of 0 see no key: zeros and +inf."""
+    b, h, hkv, sq, skv, d = 4, 4, 2, 3, 24, 16
+    q, k, v = _qkv(31, b, h, hkv, sq, skv, d)
+    offsets, lens = [0, 13, -5, 7], [24, 18, 24, 0]
+    out, lse = ops.flash_attention_partial(
+        *map(torch.from_numpy, (q, k, v)), causal,
+        kv_len=torch.tensor(lens, dtype=torch.int32),
+        q_offset=torch.tensor(offsets, dtype=torch.int32))
+    assert out.dtype == lse.dtype == torch.float32
+    assert out.shape == (b, h, sq, d) and lse.shape == (b, h, sq)
+    for i in range(2):
+        want = naive_attention_jax(
+            jnp.asarray(q[i:i + 1].transpose(0, 2, 1, 3)),
+            jnp.asarray(k[i:i + 1, :, :lens[i]].transpose(0, 2, 1, 3)),
+            jnp.asarray(v[i:i + 1, :, :lens[i]].transpose(0, 2, 1, 3)),
+            causal=causal, q_offset=offsets[i])
+        np.testing.assert_allclose(out[i:i + 1].numpy().transpose(0, 2, 1, 3),
+                                   np.asarray(want), atol=2e-5, rtol=2e-5)
+    np.testing.assert_allclose(lse.numpy(),
+                               _visible_lse(q, k, causal, lens, offsets),
+                               rtol=1e-5, atol=1e-5)
+    assert out[3].abs().max() == 0 and torch.isinf(lse[3]).all()
+    if causal:
+        assert out[2].abs().max() == 0 and (lse[2] == math.inf).all()
+
+
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 2e-6),
+                                        (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("blocks", [2, 4])
+def test_combined_partials_match_the_whole_row(blocks, dtype, atol):
+    """A decode row over a cache of 64 keys split into ``blocks`` blocks,
+    each block's partial (its keys, q_offset the row's position in it) then
+    ``combine_partials`` in block order, against the attention of the
+    whole cache; the row at position 20 leaves the last block(s) with no
+    visible key, which weigh 0. GQA 4 over 2; fp32 2e-6, bf16 1e-2."""
+    from repro_torch.parallel.tensor import combine_partials
+    b, h, hkv, skv, d = 2, 4, 2, 64, 16
+    q, k, v = (torch.from_numpy(a).to(dtype)
+               for a in _qkv(32, b, h, hkv, 1, skv, d))
+    pos = torch.tensor([20, 63], dtype=torch.int32)
+    whole = flash_attention_plain(q, k, v, True, None, pos)
+    rows = skv // blocks
+    parts = [ops.flash_attention_partial(
+        q, k[:, :, r * rows:(r + 1) * rows], v[:, :, r * rows:(r + 1) * rows],
+        True, q_offset=(pos - r * rows).to(torch.int32))
+        for r in range(blocks)]
+    assert torch.isinf(parts[-1][1][0]).all()            # the empty block
+    got = combine_partials(torch.stack([o for o, _ in parts]),
+                           torch.stack([lse for _, lse in parts]), dtype)
+    assert got.dtype == dtype
+    assert (got.float() - whole.float()).abs().max().item() <= atol
+
+
+def test_flash_partial_route_serves_only():
+    q = torch.zeros(1, 2, 1, 16, requires_grad=True)
+    with pytest.raises(ValueError, match="serves only"):
+        ops.flash_attention_partial(q, q, q, True)
+
+
 # b, h, hkv, skv, d -> (splits, kernels a call, scratch bytes): the train_lm
 # layer keeps one split (768 blocks) and three kernels; a small grid splits
 # its group over the smallest divisor that reaches 264 blocks, or the whole
@@ -1458,6 +1544,50 @@ def test_flash_decode_cluster_sizes_match_plain(cuda_device, dtype, atol,
     torch.cuda.synchronize()
     want = flash_attention_plain(q, k, v, True, None, offset)
     assert (got.float() - want.float()).abs().max().item() <= atol
+
+
+# The partial route (serving over a cache split along its sequence): b, h,
+# hkv, sq, skv, d, causal, q_offset, kv_len. zamba2's decode row (32 heads of
+# 160), a GQA row at d 64 (smollm's 9 over 3), a row past the block and a row
+# before it (no visible key: zeros, +inf), a cross-attention chunk of 40
+# rows (the prefill kernels, not causal), a kv_len.
+FLASH_PARTIAL_TABLE = [
+    (1, 32, 32, 1, 4096, 160, True, [3000], None),
+    (4, 9, 3, 1, 2048, 64, True, [2047, 700, 5000, -3], None),
+    (2, 32, 32, 1, 1024, 160, True, [-1, 1023], None),
+    (2, 8, 2, 40, 300, 128, False, None, None),
+    (2, 9, 3, 1, 512, 64, True, [400, 100], [300, 512]),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-4),
+                                        (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("b,h,hkv,sq,skv,d,causal,q_off,lens",
+                         FLASH_PARTIAL_TABLE)
+def test_flash_partial_kernel_matches_plain(cuda_device, dtype, rtol, b, h,
+                                            hkv, sq, skv, d, causal, q_off,
+                                            lens):
+    """The partial route on the card (the decode kernels writing the
+    log-sum-exp at sq <= 8, fp32 output) against its plain version: the
+    output within ``rtol`` of the plain output's largest magnitude (rows
+    over thousands of unit-normal keys average to ~1e-2, under an absolute
+    bf16 tolerance), exact zeros where a row sees no key, the log-sum-exp
+    within 1e-4, +inf at the same rows."""
+    q, k, v, offset, kv_len = _flash_cuda_case(cuda_device, dtype, b, h, hkv,
+                                               sq, skv, d, q_off, lens)
+    before = ops.flash_attention_partial.launches
+    got, lse = ops.flash_attention_partial(q, k, v, causal, kv_len, offset)
+    torch.cuda.synchronize()
+    assert ops.flash_attention_partial.launches == before + 1
+    want, want_lse = flash_attention_forward_plain(q, k, v, causal, kv_len,
+                                                   offset, unrounded=True)
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    assert (got - want).abs().max().item() <= rtol * want.abs().max().item()
+    assert torch.equal(torch.isinf(lse), torch.isinf(want_lse))
+    finite = torch.isfinite(want_lse)
+    assert (got[~finite] == 0).all()
+    assert (lse[finite] - want_lse[finite]).abs().max().item() <= 1e-4
 
 
 # b, h, hkv, sq, skv, causal, q_offset, kv_len at head_dim 160: each of the

@@ -417,17 +417,36 @@ def test_sharded_step_needs_a_device_mesh():
 
 def test_zero3_of_the_ssm_family_raises_before_any_step():
     """The ssm family runs ZeRO-3 (the gloo cases in
-    ``tests/test_torch_distributed_ssm.py``) but, as every family, raises
-    for a one-row batch over two data ranks, naming the sequence split's
-    item alone, before it touches the model."""
+    ``tests/test_torch_distributed_ssm.py``). A one-row batch over two data
+    ranks (a fake group of two): ``shard_model`` takes it for serving, each
+    data rank running the whole row (its caches may split along the
+    sequence over the data axis: ``tests/test_torch_distributed_long.py``),
+    every parameter given its ZeRO-3 piece; the sharded train step over
+    it raises naming the sequence split's item alone, before any step."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    from repro_torch.parallel import build_mesh
     cfg = get_config("mamba2-780m", reduced=True)
     plan = dataclasses.replace(MemoryPlan(1, "float32", True, "dots", 0.0),
                                zero_stage=3)
-    model = get_model(cfg)(cfg, dtype=torch.float32, device="cpu",
-                           generator=torch.Generator().manual_seed(0))
-    before = {n: p.shape for n, p in model.named_parameters()}
-    with pytest.raises(NotImplementedError) as raised:
-        shard_model(cfg, plan, model, MeshSpec((2, 1), ("data", "model")),
-                    batch_rows=1)
-    assert re.findall(r"item (\d+)", str(raised.value)) == ["13"]
-    assert {n: p.shape for n, p in model.named_parameters()} == before
+    make = lambda: get_model(cfg)(cfg, dtype=torch.float32, device="cpu",
+                                  generator=torch.Generator().manual_seed(0))
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=2)
+    try:
+        mesh = build_mesh((2, 1), ("data", "model"), "cpu")
+        model = make()
+        names = {n for n, _ in model.named_parameters()}
+        assert set(shard_model(cfg, plan, model, mesh, batch_rows=1)) == names
+        state = init_train_state(cfg, plan, torch.Generator().manual_seed(0),
+                                 dtype=torch.float32, device="cpu")
+        state = shard_train_state(cfg, plan, state, mesh)
+        before = {n: p.detach().clone() for n, p in state["params"].items()}
+        toks = torch.zeros((1, 16), dtype=torch.long)
+        with pytest.raises(NotImplementedError) as raised:
+            sharded_train_step(cfg, plan, mesh)(
+                state, {"tokens": toks, "targets": toks})
+        assert re.findall(r"item (\d+)", str(raised.value)) == ["13"]
+        assert all(torch.equal(p.detach(), before[n])
+                   for n, p in state["params"].items())
+    finally:
+        dist.destroy_process_group()
