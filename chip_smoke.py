@@ -28,7 +28,15 @@ run with a non-zero exit code (nothing drops to the CPU or to a plain version):
            train_mamba phase's), zamba2-2.7b's layer and a ragged grouped
            case with the final state's cotangent, fp32 and bf16, each with
            its launch plan, every stage's time alone and three
-           bitwise-equal calls
+           bitwise-equal calls; the split sequence's inputs: the attention
+           forward (with the log-sum-exp) and backward with q_offset, a
+           rank's block of a two-rank split (half the rows over all the
+           keys) at the train_lm layer and at train_zamba's (32 heads of
+           160), rank 1's, a ragged length and (train_lm) rank 0's, whose
+           later keys must get zero gradients, three bitwise-equal
+           backward calls each; the SSD scan's forward, training forward
+           and backward from an init_state at the train_mamba layer, the
+           initial state's cotangent among the gradients
   repeats  100 calls each of the attention forward (with the log-sum-exp)
            and backward at the train_lm layer and at a chatglm3-like layer,
            of the RMSNorm backward at the train_lm rows and of the SSD scan
@@ -173,6 +181,18 @@ run with a non-zero exit code (nothing drops to the CPU or to a plain version):
            reckoned, the auxiliary loss within 1e-5 relative, each
            layer's capacity drops equal), then split serving at (1, 2)
            bf16 and fp32 against the whole model
+  parallel_gloo_seq
+           a train step and a prefill with each row's sequence split over
+           the data ranks, on two processes over gloo at (2 data, 1 model),
+           full width: zamba2-2.7b at 6 layers and smollm-135m at full
+           depth, one fp32 step of one row of 4,096 tokens each against
+           make_train_step (parallel_gloo_ssm's checks, every launch as
+           reckoned: every scan twice, attention with q_offset and the scan
+           from an init_state seen by shape); zamba2's prefill of one row
+           of 32,768 tokens into a cache split along its sequence and 3
+           greedy ticks, bf16 and fp32, against the whole model: the
+           logits, both ranks' prefill logits bitwise, the K/V rows, SSM
+           states and conv tails; the phase's seconds
   dryrun   COMET's measured frontend: (a) the op counter
            (repro_torch.core.op_counter) over the train_lm step, a smollm
            prefill (b 1, s 1024) and a decode tick (b 8, max_seq 2048,
@@ -328,10 +348,12 @@ from repro_torch.parallel.compression import compressed_psum  # noqa: E402
 from repro_torch.parallel.sharding import (  # noqa: E402
     SEQ_SPLIT,
     Placement,
+    all_gather_stacked,
     batch_spec,
     cache_shardings,
     gather_full,
     local_shard,
+    shard_cache,
     shard_shape,
     split_caches,
 )
@@ -1370,6 +1392,257 @@ def _ssd_backward_cases() -> list:
     return cases
 
 
+def _offset_attention_case(name, b, h, hkv, s, d, dtype, gen, rank=1,
+                           bitwise=False) -> dict:
+    """The training route with ``q_offset`` at one shape: a rank's block of
+    a two-rank split along the sequence, its ``sq = s // 2`` query rows
+    (rank 0: the first; rank 1: the rest, from ``s - sq``) over the whole
+    sequence's ``s`` keys. The forward with the rows' log-sum-exp and the
+    backward against their plain versions on the same inputs (the backward
+    reading the plain forward's o and lse): the output to ATTN_TOL, the
+    log-sum-exp to LSE_TOL, each gradient to BWD_TOL of its largest; the
+    keys no row sees (rank 0's block: the later rank's) with dK = dV = 0;
+    three backward calls bitwise equal (and three forward calls, with
+    ``bitwise``). ``library_ms``: one ``F.scaled_dot_product_attention``
+    with the block's boolean mask, its backward by autograd (torch.profiler's
+    device time, as ``_attention_backward_case``'s); the bound counts the
+    (query, key) pairs the shifted mask allows (``offset_pairs``)."""
+    sq = s // 2
+    off = 0 if rank == 0 else s - sq
+
+    def draw(heads, rows):
+        t = torch.randn((b, rows, heads, d), generator=gen, device=DEVICE)
+        return t.to(dtype).transpose(1, 2)
+    q, k, v, do = draw(h, sq), draw(hkv, s), draw(hkv, s), draw(h, sq)
+    offset = torch.full((b,), off, dtype=torch.int32, device=DEVICE)
+    out, lse = flash_attention_lse_cuda(q, k, v, True, offset)
+    got = flash_attention_backward_cuda(q, k, v, out, lse, do, True, offset)
+    torch.cuda.synchronize()
+    want_out, want_lse = flash_attention_forward_plain(q, k, v, True, None,
+                                                       offset)
+    out_err = (out.float() - want_out.float()).abs().max().item()
+    lse_err = (lse - want_lse).abs().max().item()
+    lse_scale = max(1.0, want_lse.abs().max().item())
+    want = flash_attention_backward_plain(q, k, v, want_out, want_lse, do,
+                                          True, offset)
+    del want_out, want_lse
+    errs = _scaled_errors(got, want)
+    del want
+    unseen = min(s, sq + off)
+    unseen_zero = not (got[1][:, :, unseen:].any()
+                       or got[2][:, :, unseen:].any())
+    repeats = _bitwise_repeats(lambda: flash_attention_backward_cuda(
+        q, k, v, out, lse, do, True, offset), got)
+    fwd_repeats = (_bitwise_repeats(lambda: flash_attention_lse_cuda(
+        q, k, v, True, offset), (out, lse)) if bitwise else BWD_REPEATS)
+    del got
+    pairs, kv_rows = attn_module.offset_pairs(sq, s, [off] * b)
+    fwd_work = attn_module.forward_work(b, h, hkv, sq, s, d, dtype, True,
+                                        lse=True, pairs=pairs,
+                                        kv_rows=kv_rows)
+    flops, nbytes = attn_module.backward_work(b, h, hkv, sq, s, d, dtype,
+                                              True, pairs)
+    sets = [(q, k, v, out, lse, do)]
+    kernel = time_ms(lambda *a: flash_attention_backward_cuda(
+        *a, True, offset), sets)
+    kernel_trace = trace_ms(lambda *a: flash_attention_backward_cuda(
+        *a, True, offset), sets)
+    forward = time_ms(lambda q_, k_, v_, *_: flash_attention_lse_cuda(
+        q_, k_, v_, True, offset), sets)
+    mask = (torch.arange(s, device=DEVICE)[None, :]
+            <= torch.arange(sq, device=DEVICE)[:, None] + off)
+    forward_library = trace_ms(lambda q_, k_, v_, *_: _sdpa(
+        q_, k_, v_, True, mask), sets)
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    with torch.enable_grad():
+        lib_out = _sdpa(*leaves, True, mask)
+    library = trace_ms(lambda o, g: torch.autograd.grad(
+        o, leaves, g, retain_graph=True), [(lib_out, do)])
+    del lib_out, leaves
+    plain_ms = time_ms(lambda *a: flash_attention_backward_plain(
+        *a, True, offset), sets, iters=10, graph=False)["device"]
+    forward_plain_ms = time_ms(
+        lambda q_, k_, v_, *_: flash_attention_forward_plain(
+            q_, k_, v_, True, None, offset),
+        sets, iters=10, graph=False)["device"]
+    tol = BWD_TOL["flash_attention_backward"][dtype]
+    ok = (out_err <= ATTN_TOL[dtype] and lse_err <= LSE_TOL * lse_scale
+          and all(e <= tol * scale for e, scale in errs) and unseen_zero
+          and repeats == fwd_repeats == BWD_REPEATS)
+    return {
+        "kernel": "flash_attention_backward", "case": name,
+        "shape": {"b": b, "h": h, "hkv": hkv, "sq": sq, "skv": s, "d": d,
+                  "q_offset": off},
+        "dtype": dtype_name(dtype), "q_offset": off,
+        "max_abs_err": max(e for e, _ in errs),
+        "grad_max_abs_err": dict(zip(("dq", "dk", "dv"),
+                                     (e for e, _ in errs))),
+        "grad_max_abs": dict(zip(("dq", "dk", "dv"), (m for _, m in errs))),
+        "tol": tol, "tol_is": "of each gradient's largest magnitude",
+        "forward_out_max_abs_err": out_err, "forward_out_tol": ATTN_TOL[dtype],
+        "lse_max_abs_err": lse_err, "lse_tol": LSE_TOL * lse_scale,
+        "unseen_keys_zero": unseen_zero, "unseen_keys": s - unseen,
+        "bitwise_equal_calls": repeats,
+        "forward_bitwise_equal_calls": fwd_repeats, "ok": ok,
+        "kernel_ms": kernel["device"], "kernel_eager_ms": kernel["eager"],
+        "kernel_trace_ms": kernel_trace["ms"],
+        "kernels_per_call": kernel_trace["launches_per_call"],
+        "forward_lse_ms": forward["device"],
+        "forward_lse_bound_ms": bound(*fwd_work,
+                                      PRODUCT_FLOPS[dtype])["bound_ms"],
+        "forward_plain_ms": forward_plain_ms,
+        "forward_library_ms": forward_library["ms"],
+        "forward_library_backend": forward_library["backend"],
+        "plain_ms": plain_ms, "library_ms": library["ms"],
+        "library_backend": library["backend"],
+        "library_note": "SDPA with the block's boolean mask, its backward "
+                        "by autograd",
+        **bound(flops, nbytes, PRODUCT_FLOPS[dtype]),
+        "flops": flops, "bytes": nbytes,
+    }
+
+
+def _offset_attention_cases() -> list:
+    """The training route with ``q_offset``, from a stream of its own: the
+    train_lm layer (9 heads over 3 KV heads of 64, 8 rows of 2048) and
+    train_zamba's shared block (32 heads of 160, 3 rows of 2048), each as
+    rank 1's block of a two-rank split and at a ragged length (2,047: 1,023
+    rows from 1,024); the train_lm layer as rank 0's block too (its later
+    rank's keys unseen); fp32 and bf16."""
+    gen = torch.Generator(device=DEVICE).manual_seed(8)
+    zamba = get_config(ZAMBA_ARCH)
+    cases = []
+    for dtype in (torch.float32, torch.bfloat16):
+        cases.append(_offset_attention_case(
+            "q_offset rank 1 train_lm", LM_BATCH, 9, 3, LM_SEQ, 64, dtype,
+            gen, bitwise=True))
+        cases.append(_offset_attention_case(
+            "q_offset rank 1 ragged s=2047", LM_BATCH, 9, 3, LM_SEQ - 1, 64,
+            dtype, gen))
+        cases.append(_offset_attention_case(
+            "q_offset rank 0 train_lm", LM_BATCH, 9, 3, LM_SEQ, 64, dtype,
+            gen, rank=0))
+        cases.append(_offset_attention_case(
+            "q_offset rank 1 zamba2 d=160", ZAMBA_BATCH, zamba.num_heads,
+            zamba.num_kv_heads, ZAMBA_SEQ, zamba.resolved_head_dim, dtype,
+            gen, bitwise=True))
+        cases.append(_offset_attention_case(
+            "q_offset rank 1 zamba2 ragged s=2047, d=160", ZAMBA_BATCH,
+            zamba.num_heads, zamba.num_kv_heads, ZAMBA_SEQ - 1,
+            zamba.resolved_head_dim, dtype, gen))
+        torch.cuda.empty_cache()
+    return cases
+
+
+def _ssd_init_cases() -> list:
+    """The SSD scan from an ``init_state`` at train_mamba's layer (8 rows
+    of 2048, 48 heads of 64, n 128), from a stream of its own, fp32 and
+    bf16: the forward (``ssd_scan_cuda``), the training forward (its
+    incoming states, chunk 0's the initial state) and the backward with
+    the initial state's cotangent, against the plain versions: y and the
+    final state to SSD_REL_TOL of their largest, each cotangent to BWD_TOL
+    of its largest (``dinit`` among them), three backward calls bitwise
+    equal. A forward case (``ssd_scan``) and a backward case
+    (``ssd_scan_backward``) each, with their times, bounds and plain
+    versions' times; no library call computes either."""
+    cfg = get_config(MAMBA_ARCH)
+    b, s, h = MAMBA_BATCH, MAMBA_SEQ, cfg.ssm_heads
+    p, n, g, chunk = (cfg.ssm.head_dim, cfg.ssm.state_dim, cfg.ssm.ngroups,
+                      cfg.ssm.chunk_size)
+    gen = torch.Generator(device=DEVICE).manual_seed(9)
+    cases = []
+    di, gn = h * p, g * n
+    shape = {"b": b, "s": s, "h": h, "p": p, "n": n, "g": g, "chunk": chunk,
+             "init_state": True}
+    for dtype in (torch.float32, torch.bfloat16):
+        xbc = torch.randn((b, s, di + 2 * gn), generator=gen,
+                          device=DEVICE).to(dtype)
+
+        def split(t):
+            return (t[..., :di].unflatten(-1, (h, p)),
+                    t[..., di:di + gn].unflatten(-1, (g, n)),
+                    t[..., di + gn:].unflatten(-1, (g, n)))
+        x, B, C = split(xbc)
+        dt = F.softplus(torch.randn((b, s, h), generator=gen, device=DEVICE))
+        A = -torch.exp(0.5 * torch.randn((h,), generator=gen, device=DEVICE))
+        init = torch.randn((b, h, p, n), generator=gen, device=DEVICE)
+        dy = torch.randn((b, s, h, p), generator=gen, device=DEVICE).to(dtype)
+        rel = SSD_REL_TOL[dtype]
+        y, st = ssd_module.ssd_scan_cuda(x, dt, A, B, C, chunk, init)
+        train = ssd_module.ssd_scan_train_cuda(x, dt, A, B, C, chunk, init)
+        torch.cuda.synchronize()
+        want_y, want_st = ssd_scan_plain(x, dt, A, B, C, chunk, init)
+        errs_fwd = _scaled_errors((y, st, train[0], train[1]),
+                                  (want_y, want_st, want_y, want_st))
+        chunk0_is_init = bool(torch.equal(train[4][:, :, 0], init))
+        del y, st, want_y, want_st
+        flops, nbytes = ssd_module.work(b, s, h, p, n, g, chunk, dtype, True)
+        sets = [split(clone_like(xbc))
+                for _ in range(copies_for_cold_l2([xbc, dt]))]
+        kernel = time_ms(lambda x_, B_, C_: ssd_module.ssd_scan_cuda(
+            x_, dt, A, B_, C_, chunk, init), sets, 20)
+        train_ms = time_ms(lambda x_, B_, C_: ssd_module.ssd_scan_train_cuda(
+            x_, dt, A, B_, C_, chunk, init), sets, 20)["device"]
+        cases.append({
+            "kernel": "ssd_scan", "case": "init_state train_mamba layer",
+            "shape": shape, "dtype": dtype_name(dtype),
+            "max_abs_err": max(e for e, _ in errs_fwd),
+            "tol": rel * max(1.0, max(m for _, m in errs_fwd)),
+            "errors": {k: {"max_abs_err": e, "scale": m} for k, (e, m) in zip(
+                ("y", "state", "train_y", "train_state"), errs_fwd)},
+            "rel_tol": rel, "chunk0_incoming_is_init": chunk0_is_init,
+            "ok": chunk0_is_init and all(e <= rel * max(1.0, m)
+                                         for e, m in errs_fwd),
+            "kernel_ms": kernel["device"], "kernel_eager_ms": kernel["eager"],
+            "train_forward_ms": train_ms,
+            "plain_ms": time_ms(lambda x_, B_, C_: ssd_scan_plain(
+                x_, dt, A, B_, C_, chunk, init), sets, 5,
+                graph=False)["device"],
+            "library_ms": None, "library_note": SSD_NO_LIBRARY,
+            **bound(flops, nbytes, PRODUCT_FLOPS[dtype]),
+            "flops": flops, "bytes": nbytes})
+        saved = train[2:]
+        del train
+
+        def call(x_, B_, C_, dy_):
+            return ssd_module.ssd_scan_backward_cuda(
+                x_, dt, A, B_, C_, dy_, None, *saved, chunk, init=True)
+        got = call(x, B, C, dy)
+        torch.cuda.synchronize()
+        errs = _scaled_errors(got, ssd_module.ssd_scan_backward_plain(
+            x, dt, A, B, C, dy, None, chunk, init))
+        repeats = _bitwise_repeats(lambda: call(x, B, C, dy), got)
+        del got
+        tol = BWD_TOL["ssd_scan_backward"][dtype]
+        flops, nbytes = ssd_module.backward_work(b, s, h, p, n, g, chunk,
+                                                 dtype, False, True)
+        bsets = [(*split(clone_like(xbc)), dy.clone())
+                 for _ in range(copies_for_cold_l2([xbc, dy]))]
+        kernel = time_ms(call, bsets, 10, graph=False)
+        names = GRADS_SSD + ("dinit",)
+        cases.append({
+            "kernel": "ssd_scan_backward", "case": "init_state train_mamba "
+            "layer", "shape": shape, "dtype": dtype_name(dtype),
+            "max_abs_err": max(e for e, _ in errs),
+            "grad_max_abs_err": {k: e for k, (e, _) in zip(names, errs)},
+            "grad_max_abs": {k: m for k, (_, m) in zip(names, errs)},
+            "tol": tol, "tol_is": "of each gradient's largest magnitude",
+            "bitwise_equal_calls": repeats,
+            "ok": (all(e <= tol * m for e, m in errs)
+                   and repeats == BWD_REPEATS),
+            "kernel_ms": kernel["device"], "kernel_eager_ms": kernel["eager"],
+            "plain_ms": time_ms(lambda x_, B_, C_, dy_:
+                                ssd_module.ssd_scan_backward_plain(
+                                    x_, dt, A, B_, C_, dy_, None, chunk,
+                                    init), bsets, 3, graph=False)["device"],
+            "library_ms": None, "library_note": SSD_BWD_NO_LIBRARY,
+            **bound(flops, nbytes, PRODUCT_FLOPS[dtype]),
+            "flops": flops, "bytes": nbytes})
+        del saved, sets, bsets
+        torch.cuda.empty_cache()
+    return cases
+
+
 def _bag_tol(want: torch.Tensor, dtype) -> float:
     """Embedding bag, kernel against plain, both directions. fp32: the two
     sum the same terms in another order, up to a few hundred terms a value
@@ -1701,6 +1974,8 @@ def phase_kernels() -> list:
     cases.extend(_bag_cases())
     cases.extend(_backward_cases())
     cases.extend(_ssd_backward_cases())
+    cases.extend(_offset_attention_cases())
+    cases.extend(_ssd_init_cases())
     failed = [c for c in cases
               if not c.get("ok", c["max_abs_err"] <= c["tol"])]
     emit("kernels", cases=cases, failed=len(failed))
@@ -3609,7 +3884,15 @@ class _KernelCalls(TorchDispatchMode):
     shape of each call's first input: (b, s, heads, p) for the SSD scan,
     (b, heads, s, d) for attention, the rows for RMSNorm; an attention call
     whose keys are not as many as its queries (a cross-attention's, a
-    decode tick's) adds ``skv`` and their count."""
+    decode tick's) adds ``skv`` and their count. A training route's
+    attention call with a ``q_offset`` adds ``q_offset``, an SSD scan call
+    from an initial state ``init_state``."""
+
+    TAGGED = {"flash_attention_lse": (4, "q_offset"),
+              "flash_attention_backward": (7, "q_offset"),
+              "ssd_scan": (6, "init_state"),
+              "ssd_scan_train": (6, "init_state"),
+              "ssd_scan_backward": (11, "init_state")}
 
     def __init__(self):
         super().__init__()
@@ -3621,6 +3904,9 @@ class _KernelCalls(TorchDispatchMode):
             if (func._opname.startswith("flash_attention")
                     and args[1].shape[2] != args[0].shape[2]):
                 key += f" skv {args[1].shape[2]}"
+            at, tag = self.TAGGED.get(func._opname, (None, None))
+            if at is not None and len(args) > at and args[at] is not None:
+                key += f" {tag}"
             self.calls[key] = self.calls.get(key, 0) + 1
         return func(*args, **(kwargs or {}))
 
@@ -4304,16 +4590,18 @@ def phase_parallel_gloo_moe() -> dict:
 #     that a rank draws only its half: pos0 524,280 (both halves full, the
 #     writes on rank 1) and 262,142 (the writes cross from rank 0 to rank 1
 #     at the third tick; rank 1 sees no key until then);
-#   * a prefill case: max_seq 8,192, a 6,144-token prompt through the real
+#   * a prefill case: max_seq 8,192, a 6,143-token prompt through the real
 #     prefill (SSD scans and attention kernels), then 3 ticks; rank 0 holds
-#     rows 0-4,095, rank 1 rows 4,096-8,191.
+#     rows 0-4,095, rank 1 rows 4,096-8,191. The prompt's length does not
+#     divide the data axis, so every rank runs it whole (a prompt that
+#     divides runs split along the sequence: parallel_gloo_seq).
 # The whole model runs first and is freed before the split one is drawn.
 LONG_LAYERS = 6
 LONG_ROWS = 524_288
 LONG_POS0 = (524_280, 262_142)
 LONG_TICKS = 4
 LONG_BLOCK = 8_192                  # rows of the cache a seed draws
-LONG_PREFILL = (8_192, 6_144, 3)    # max_seq, prompt, ticks
+LONG_PREFILL = (8_192, 6_143, 3)    # max_seq, prompt, ticks
 LONG_TIMEOUT_S = 300
 LONG_CACHE_TOL = {"float32": 1e-5, "bfloat16": 1e-2}   # of the rows' largest
 LONG_KV = ("attn_k", "attn_v")
@@ -4745,6 +5033,247 @@ def phase_parallel_gloo_long() -> dict:
 # ------------------------------------------------------------------------- #
 # The kernels' line
 # ------------------------------------------------------------------------- #
+
+# The sequence split over the data ranks (ROADMAP item 13's second half) on
+# two processes over gloo at (2 data, 1 model), full width: zamba2-2.7b at
+# 6 of its 54 layers (the shared block once) and smollm-135m at full depth,
+# each one fp32 step of one row of 4,096 tokens (2,048 a rank) against
+# make_train_step in one process under parallel_gloo_ssm's checks; then
+# zamba2's prefill of one row of prefill_32k's 32,768 tokens (16,384 a
+# rank) into a cache split along its sequence and 3 greedy ticks, bf16 and
+# fp32, against the whole model.
+SEQ_PAR_LAYERS = {ZAMBA_ARCH: 6, LM_ARCH: None}     # None: every layer
+SEQ_PAR_BATCH, SEQ_PAR_SEQ = 1, 4096
+SEQ_PREFILL = 32_768
+# The split prefill's caches against the whole model's, of their largest.
+# A rank's projections run on its block of the rows, where cuBLAS may pick
+# other kernels than for the whole prompt, so fp32 is not bit for bit:
+# 6.8e-5 of the largest at a split 6,144-token prompt of parallel_gloo_long's
+# zamba2 on the card. The phase prints the whole model against itself, its
+# prefill of the prompt's first half against the whole prompt's rows
+# there (``whole_half_err``), beside it. bf16: LONG_CACHE_TOL's.
+SEQ_CACHE_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
+SEQ_TIMEOUT_S = 300
+
+
+def _expected_seq_launches(cfg, remat: str) -> dict:
+    """Each kernel's launches in one split step: the one process's (the
+    training entry point's reckoning), every scan twice (``models.mamba.
+    split_ssd_scan``: the block from zero for its final state, then from
+    its incoming state), attention and RMSNorm as many."""
+    if cfg.family == "dense":
+        return _expected_lm_launches(cfg, remat, 1)
+    out = _expected_mamba_launches(cfg, remat, 1)
+    out["ssd_scan"] *= 2
+    out["ssd_scan_backward"] *= 2
+    return out
+
+
+def _seq_prefill(cfg, mesh, prompt: int) -> dict:
+    """A prefill of one row of ``prompt`` tokens split along its sequence
+    over the data ranks (``shard_model``'s ``batch_rows`` of 1: every rank
+    runs its block of the prompt, into a cache split along its sequence)
+    and SSM_SERVE_TICKS greedy ticks, bf16 and then fp32, against the whole
+    model from the same seed, every run fed the bf16 whole model's picks.
+    Per type: each call's logits against the whole model's
+    (``_compare_calls``), whether both ranks' prefill logits are the same
+    bits, the caches after the prefill gathered whole against the whole
+    model's (the K/V rows of the prompt, the SSM states and the conv
+    tails: the largest error over the whole's largest), both prefills' ms
+    by the host clock, the kernels the split calls launched by shape."""
+    plan = plan_memory(cfg, tp=1, dp=1)
+    tokens = torch.randint(0, cfg.vocab_size, (1, prompt), device=DEVICE,
+                           generator=torch.Generator(
+                               device=DEVICE).manual_seed(2))
+    make = lambda dtype: get_model(cfg)(
+        cfg, dtype=dtype, device=DEVICE,
+        generator=torch.Generator(device=DEVICE).manual_seed(1))
+    rows = prompt + SSM_SERVE_TICKS + 1
+    kept = ("ssm", "conv", "attn_k", "attn_v")
+
+    def prefill(model, cache):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = model.prefill(tokens, cache)[0][:, -1].float()
+        torch.cuda.synchronize()
+        return logits, (time.perf_counter() - t0) * 1e3
+
+    def ticks(model, cache, first, feed):
+        out, picks = [first], []
+        for t in range(SSM_SERVE_TICKS):
+            picks.append(out[-1].argmax(-1, keepdim=True) if feed is None
+                         else feed[t])
+            out.append(model.decode_step(cache, picks[-1])[0][:, -1].float())
+        return out, picks
+
+    out, whole_logits, feed = {}, {}, None
+    launches = dict.fromkeys(_kernel_counts(), 0)
+    half = prompt // 2
+    for dtype in (torch.bfloat16, torch.float32):
+        ref = make(dtype)
+        cache = ref.init_cache(1, rows)
+        with torch.no_grad():
+            first, ref_ms = prefill(ref, cache)
+            want_cache = {n: cache[n][:, :, :prompt].clone()
+                          if n.startswith("attn") else cache[n].clone()
+                          for n in kept}
+            want, picks = ticks(ref, cache, first, feed)
+            del cache
+            # the whole model against itself: its first half's rows alone
+            cache = ref.init_cache(1, half)
+            ref.prefill(tokens[:, :half], cache)
+            whole_half_err = {
+                n: ((cache[n][:, :, :half].float()
+                     - want_cache[n][:, :, :half].float()).abs().max()
+                    / max(want_cache[n].float().abs().max().item(), 1e-30)
+                    ).item() for n in ("attn_k", "attn_v")}
+        feed = feed or picks
+        del ref, cache
+        torch.cuda.empty_cache()
+        model = make(dtype)
+        whole = model.init_cache(1, rows)
+        shard_model(cfg, plan, model, mesh, batch_rows=1)
+        specs = cache_shardings(cfg, mesh, whole)
+        cache = shard_cache(cfg, mesh, whole)
+        del whole
+        torch.cuda.empty_cache()
+        with torch.no_grad():
+            _zero_kernel_counts()
+            with _KernelCalls() as calls:
+                first, split_ms = prefill(model, cache)
+                # copies: a whole cache's gather is the cache itself,
+                # which the ticks advance
+                got_cache = {n: gather_full(cache[n], specs[n], mesh).clone()
+                             for n in kept}
+                got, _ = ticks(model, cache, first, feed)
+            for name, n in _kernel_counts().items():
+                launches[name] += n
+        both = all_gather_stacked(got[0].contiguous(),
+                                  mesh.get_group("data"))
+        cache_err = {}
+        for n in kept:
+            g = got_cache[n][:, :, :prompt] if n.startswith("attn") \
+                else got_cache[n]
+            cache_err[n] = ((g.float() - want_cache[n].float()).abs().max()
+                            / max(want_cache[n].float().abs().max().item(),
+                                  1e-30)).item()
+        whole_logits[dtype] = want
+        out[dtype_name(dtype)] = {
+            "calls": _compare_calls(got, want),
+            "logits_bitwise_on_both_ranks": bool(torch.equal(both[0],
+                                                             both[1])),
+            "cache_scaled_err": cache_err, "whole_half_err": whole_half_err,
+            "split_cache_shapes": {n: list(cache[n].shape) for n in kept},
+            "prefill_ms": split_ms, "whole_prefill_ms": ref_ms,
+            "kernel_calls": calls.calls}
+        del model, cache, got_cache, want_cache
+        torch.cuda.empty_cache()
+    for call, w16, w32 in zip(out["bfloat16"]["calls"],
+                              whole_logits[torch.bfloat16],
+                              whole_logits[torch.float32]):
+        call["whole_bf16_vs_fp32"] = (w16 - w32).abs().max().item()
+    return {"serve": out, "serve_launches": launches,
+            "prompt": prompt, "ticks": SSM_SERVE_TICKS}
+
+
+def _gloo_seq_rank(rank: int, directory: str) -> None:
+    """One of two processes on the one card over gloo with CUDA tensors, a
+    (2 data, 1 model) mesh: for each of SEQ_PAR_LAYERS, ``_split_step`` of
+    one row of SEQ_PAR_SEQ tokens, split along the sequence; for zamba2,
+    ``_seq_prefill`` of SEQ_PREFILL tokens. Writes its results as JSON to
+    ``directory``."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{directory}/store",
+                            rank=rank, world_size=2)
+    mesh = build_mesh((2, 1), ("data", "model"))
+    out = {}
+    for arch, layers in SEQ_PAR_LAYERS.items():
+        cfg = get_config(arch)
+        if layers:
+            cfg = dataclasses.replace(cfg, num_layers=layers)
+        batch = _par_batches(cfg, 1, SEQ_PAR_BATCH, SEQ_PAR_SEQ)[0]
+        out[arch] = {"layers": cfg.num_layers,
+                     **_split_step(cfg, mesh, batch, _expected_seq_launches)}
+        if cfg.family == "hybrid":
+            out[arch].update(_seq_prefill(cfg, mesh, SEQ_PREFILL))
+    with open(os.path.join(directory, f"rank_{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def _seq_rank_problems(rank: int, arch: str, r: dict) -> list:
+    """What one rank's results of one model break: the step's checks
+    (``_step_problems``), its kernels at the rank's block with the split's
+    inputs (attention with ``q_offset`` over every row's keys, the scan
+    from an initial state); the prefill's logits, caches and launches."""
+    cfg = get_config(arch)
+    tag, half = f"rank {rank} {arch}", SEQ_PAR_SEQ // 2
+    problems = _step_problems(tag, r)
+    calls = r["step_kernel_calls"]
+    heads, d = cfg.num_heads, cfg.resolved_head_dim
+    want = [f"flash_attention_lse [{SEQ_PAR_BATCH}, {heads}, {half}, {d}] "
+            f"skv {SEQ_PAR_SEQ} q_offset",
+            f"flash_attention_backward [{SEQ_PAR_BATCH}, {heads}, {half}, "
+            f"{d}] skv {SEQ_PAR_SEQ} q_offset"]
+    if cfg.family == "hybrid":
+        scan = f"[{SEQ_PAR_BATCH}, {half}, {cfg.ssm_heads}, {cfg.ssm.head_dim}]"
+        want += [f"ssd_scan_train {scan} init_state",
+                 f"ssd_scan_backward {scan} init_state"]
+    problems += [f"{tag}: no {w} in the step" for w in want
+                 if w not in calls]
+    if "serve" not in r:
+        return problems
+    problems += _serving_problems(tag, r)
+    for dtype, run in r["serve"].items():
+        if not run["logits_bitwise_on_both_ranks"]:
+            problems.append(f"{tag}: {dtype} prefill logits differ between "
+                            "the ranks")
+        tol = SEQ_CACHE_TOL[dtype]
+        for name, err in run["cache_scaled_err"].items():
+            if err > tol:
+                problems.append(f"{tag}: {dtype} prefill's {name} off the "
+                                f"whole model's by {err} > {tol}")
+        block = f"[1, {SEQ_PREFILL // 2}, {cfg.ssm_heads}, {cfg.ssm.head_dim}]"
+        if f"ssd_scan {block} init_state" not in run["kernel_calls"]:
+            problems.append(f"{tag}: {dtype} prefill scanned no block from "
+                            "its incoming state")
+    if r["serve_launches"]["ssd_scan"] != 2 * 2 * r["layers"]:
+        problems.append(f"{tag}: the split prefills launched the SSD scan "
+                        f"{r['serve_launches']['ssd_scan']} times")
+    return problems
+
+
+def phase_parallel_gloo_seq() -> dict:
+    """Two processes on the card over gloo with CUDA tensors: a train step
+    and a prefill with each row's sequence split over the data ranks
+    (``_gloo_seq_rank``), which must pass on every rank. Returns the
+    kernels' launches on this path, both ranks' steps and prefills
+    summed."""
+    t0 = time.perf_counter()
+    ranks = _gloo_pair(_gloo_seq_rank, "parallel_gloo_seq", SEQ_TIMEOUT_S)
+    problems, launches = [], {}
+    for rank, result in enumerate(ranks):
+        if sorted(result) != sorted(SEQ_PAR_LAYERS):
+            problems.append(f"rank {rank} reported {sorted(result)}")
+            continue
+        for arch, r in result.items():
+            problems += _seq_rank_problems(rank, arch, r)
+            for part in ("step_launches", "serve_launches"):
+                for name, n in r.get(part, {}).items():
+                    launches[name] = launches.get(name, 0) + n
+    emit("parallel_gloo_seq", card=_smi("name,power.limit"), mesh=[2, 1],
+         global_batch=SEQ_PAR_BATCH, seq_len=SEQ_PAR_SEQ,
+         prefill=SEQ_PREFILL, layers=SEQ_PAR_LAYERS, ranks=ranks,
+         launches=launches, seconds=time.perf_counter() - t0,
+         problems=problems)
+    if problems:
+        raise SystemExit(f"chip_smoke: parallel_gloo_seq phase failed: "
+                         f"{problems}")
+    return launches
+
 
 KERNELS = (
     # name, source, the TPU kernel it replaces, the main-path case it is timed at
@@ -5780,6 +6309,37 @@ def kernels_line(cases: list, launches_by_path: dict, repeats: list) -> dict:
                  "bitwise_equal_calls": c["forward_bitwise_equal_calls"]}
                 for c in cases if c["kernel"] == "flash_attention_backward"
                 and c["case"] == "zamba2 train d=160"]
+            # the same with q_offset: a rank's block of a sequence split
+            # over two ranks (the kernels phase's q_offset cases)
+            entries[-1]["train_forward_with_lse_q_offset"] = [
+                {"case": c["case"], "dtype": c["dtype"], "shape": c["shape"],
+                 "ms": c["forward_lse_ms"],
+                 "bound_ms": c["forward_lse_bound_ms"],
+                 "library_ms": c["forward_library_ms"],
+                 "plain_ms": c["forward_plain_ms"],
+                 "out_max_abs_err": c["forward_out_max_abs_err"],
+                 "lse_max_abs_err": c["lse_max_abs_err"],
+                 "bitwise_equal_calls": c["forward_bitwise_equal_calls"]}
+                for c in cases if c["kernel"] == "flash_attention_backward"
+                and "q_offset" in c]
+        if name == "flash_attention_backward":
+            entries[-1]["q_offset"] = [
+                {k: c[k] for k in ("case", "shape", "dtype", "kernel_ms",
+                                   "kernel_trace_ms", "plain_ms",
+                                   "library_ms", "library_backend",
+                                   "bound_ms", "bound_by", "max_abs_err",
+                                   "unseen_keys", "unseen_keys_zero",
+                                   "bitwise_equal_calls")}
+                for c in mine if "q_offset" in c]
+        if name in ("ssd_scan", "ssd_scan_backward"):
+            # from an initial state (the kernels phase's init_state cases)
+            entries[-1]["init_state"] = [
+                {k: c[k] for k in ("case", "shape", "dtype", "kernel_ms",
+                                   "train_forward_ms", "plain_ms",
+                                   "library_ms", "bound_ms", "bound_by",
+                                   "max_abs_err", "bitwise_equal_calls")
+                 if k in c}
+                for c in mine if c["shape"].get("init_state")]
     return {"kernels": entries}
 
 
@@ -5818,6 +6378,7 @@ def main() -> int:
     launches["parallel_gloo_split"] = phase_parallel_gloo_split()
     launches["parallel_gloo_moe"] = phase_parallel_gloo_moe()
     launches["parallel_gloo_long"] = phase_parallel_gloo_long()
+    launches["parallel_gloo_seq"] = phase_parallel_gloo_seq()
     phase_dryrun()
     launches["study"] = phase_study()
     launches["run_study"] = phase_run_study()

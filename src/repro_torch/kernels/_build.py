@@ -109,18 +109,18 @@ def lib() -> ctypes.CDLL:
         [ptr] * 6 + [i32] * 6 + [i64] * 12 + [f32, i32, i32, i32, ptr])
     loaded.repro_flash_attention.restype = i32
     loaded.repro_flash_attention_lse.argtypes = (
-        [ptr] * 5 + [i32] * 6 + [i64] * 12 + [f32, i32, i32, ptr])
+        [ptr] * 6 + [i32] * 6 + [i64] * 12 + [f32, i32, i32, ptr])
     loaded.repro_flash_attention_lse.restype = i32
     loaded.repro_flash_attention_partial.argtypes = (
         [ptr] * 7 + [i32] * 6 + [i64] * 12 + [f32, i32, i32, i32, ptr])
     loaded.repro_flash_attention_partial.restype = i32
     loaded.repro_flash_attention_backward.argtypes = (
-        [ptr] * 11 + [i32] * 7 + [i64] * 24 + [f32, i32, i32, ptr])
+        [ptr] * 12 + [i32] * 7 + [i64] * 24 + [f32, i32, i32, ptr])
     loaded.repro_flash_attention_backward.restype = i32
-    loaded.repro_ssd_scan.argtypes = [ptr] * 10 + [i32] * 7 + [i64] * 15 + [i32, i32, ptr]
+    loaded.repro_ssd_scan.argtypes = [ptr] * 11 + [i32] * 7 + [i64] * 15 + [i32, i32, ptr]
     loaded.repro_ssd_scan.restype = i32
     loaded.repro_ssd_scan_backward.argtypes = (
-        [ptr] * 20 + [i32] * 8 + [i64] * 15 + [i32, i32, ptr])
+        [ptr] * 10 + [i32] + [ptr] * 11 + [i32] * 8 + [i64] * 15 + [i32, i32, ptr])
     loaded.repro_ssd_scan_backward.restype = i32
     loaded.repro_embedding_bag.argtypes = [ptr] * 3 + [i32] * 5 + [i64] * 5 + [i32, ptr]
     loaded.repro_embedding_bag.restype = i32

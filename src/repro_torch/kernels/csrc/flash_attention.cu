@@ -34,6 +34,8 @@
 //    at sq <= 8, whose cluster merge (`merge_slots`) holds each row's max and
 //    sum in fp32 and writes the log-sum-exp from them, and writes the
 //    partial output in fp32 (`o_f32`), so that the combine rounds once.
+//    The training route takes `q_offset` too: a rank's block of the rows of
+//    a sequence split over ranks attends over the whole sequence's keys.
 //    The training route also takes head_dim 16 (the reduced test configs), in
 //    the prefill kernels only; serving takes 64, 128 and 160 (zamba2's shared
 //    block: 32 heads of 160, ten k-steps of 16 for bf16, twenty of 8 for
@@ -1374,14 +1376,16 @@ extern "C" int repro_flash_attention(
 
 // The training entry point: also writes the rows' log-sum-exp into `lse`
 // (fp32 (b, h, sq), contiguous), with the prefill kernels at every length.
+// q_offset as the serving entry point's (null: 0): a rank's block of the
+// query rows of a sequence split over ranks, over the whole sequence's keys.
 extern "C" int repro_flash_attention_lse(
-    const void* q, const void* k, const void* v, void* o, void* lse, int b, int h, int hkv,
-    int sq, int skv, int d, long long q_sb, long long q_sh, long long q_ss, long long k_sb,
-    long long k_sh, long long k_ss, long long v_sb, long long v_sh, long long v_ss,
-    long long o_sb, long long o_sh, long long o_ss, float scale, int causal, int dtype,
-    void* stream) {
+    const void* q, const void* k, const void* v, void* o, void* lse, const void* q_offset,
+    int b, int h, int hkv, int sq, int skv, int d, long long q_sb, long long q_sh, long long q_ss,
+    long long k_sb, long long k_sh, long long k_ss, long long v_sb, long long v_sh,
+    long long v_ss, long long o_sb, long long o_sh, long long o_ss, float scale, int causal,
+    int dtype, void* stream) {
   if (lse == nullptr) return (int)cudaErrorInvalidValue;
-  return run(q, k, v, o, lse, nullptr, nullptr, b, h, hkv, sq, skv, d, q_sb, q_sh, q_ss, k_sb,
+  return run(q, k, v, o, lse, nullptr, q_offset, b, h, hkv, sq, skv, d, q_sb, q_sh, q_ss, k_sb,
              k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss, scale, causal, 0, 0, dtype, stream);
 }
 

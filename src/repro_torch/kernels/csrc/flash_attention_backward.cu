@@ -6,7 +6,10 @@
 // src/repro/kernels/flash_attention.py `_flash_kernel`) for training: given
 // q, k, v, the forward's output o, its rows' log-sum-exp lse and dO, it
 // returns dQ, dK, dV. GQA (query head i reads KV head i / (h / hkv)), causal
-// top-left (`kpos <= qpos`) or not; no kv_len, no q_offset.
+// top-left (`kpos <= qpos`) or not, with the forward's per-sequence
+// `q_offset[b]` (`kpos <= qpos + q_offset[b]`: a rank's block of the query
+// rows of a sequence split over ranks, over the whole sequence's keys); no
+// kv_len.
 //
 // The arithmetic is the forward's: S = Q K^T * scale, P = exp(S - lse) (0
 // where masked), with P rounded to the input type where the forward rounds it
@@ -90,6 +93,13 @@
 //    (`attn_bwd_variants.py` times these against other rows and stages.)
 //  * D's row of 40 (fp32) or 20 (bf16) 16-byte chunks is not a power of two
 //    of lanes: 8 or 4 lanes take 5 chunks each, in order.
+//
+// With `q_offset` every causal test reads `qpos + off`: the first query tile
+// of a dK/dV block is the one whose rows may see its first key, the diagonal
+// tiles are those that cross `kpos = qpos + off`, and a dQ block stops at the
+// last key its rows may see. A key tile that no query of the call sees (the
+// keys of a later rank's block, with a small offset) has no (head, query
+// tile) item: its block stages nothing and writes dK = dV = 0.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -113,6 +123,7 @@ struct BwdParams {
   const float* lse;  // (b, h, sq), contiguous
   float* delta;      // (b, h, sq), contiguous: scratch for D
   float* part;       // (2, b, hkv, splits, skv, d) fp32 partial dK, dV; splits > 1 only
+  const int* q_offset;  // (b,) or null: 0; causal only
   void* dq;
   void* dk;
   void* dv;
@@ -194,7 +205,7 @@ __global__ void __launch_bounds__(256) bwd_delta_kernel(BwdParams p) {
 template <bool MASK, int NQ>
 __device__ __forceinline__ void dkdv_probs(float (&s)[NQ][4], float (&dp)[NQ][4],
                                            const float* lse, const float* del, float sl, int kw,
-                                           int q0, const BwdParams& p, int lane) {
+                                           int q0, int off, const BwdParams& p, int lane) {
   const int g = lane >> 2, t = lane & 3;
 #pragma unroll
   for (int n = 0; n < NQ; ++n) {
@@ -208,7 +219,7 @@ __device__ __forceinline__ void dkdv_probs(float (&s)[NQ][4], float (&dp)[NQ][4]
       if (MASK) {
         const int key = kw + g + (e >> 1) * 8;
         const int q = q0 + col + (e & 1);
-        keep = key < p.skv && q < p.sq && (!p.causal || key <= q) ? pr : 0.f;
+        keep = key < p.skv && q < p.sq && (!p.causal || key <= q + off) ? pr : 0.f;
       }
       s[n][e] = keep;                                 // P^T (rounded to T on its way into dV)
       dp[n][e] = keep * (dp[n][e] - (e & 1 ? d.y : d.x));  // dS^T
@@ -222,7 +233,7 @@ __device__ __forceinline__ void dkdv_probs(float (&s)[NQ][4], float (&dp)[NQ][4]
 template <bool MASK, int NK>
 __device__ __forceinline__ void dq_grads(const float (&s)[NK][4], float (&dp)[NK][4],
                                          const float (&lse2)[2], const float (&del)[2], float sl,
-                                         int k0, int qw, const BwdParams& p, int lane) {
+                                         int k0, int qw, int off, const BwdParams& p, int lane) {
   const int g = lane >> 2, t = lane & 3;
 #pragma unroll
   for (int n = 0; n < NK; ++n)
@@ -232,7 +243,7 @@ __device__ __forceinline__ void dq_grads(const float (&s)[NK][4], float (&dp)[NK
       if (MASK) {
         const int key = k0 + n * 8 + 2 * t + (e & 1);
         const int row = qw + g + (e >> 1) * 8;
-        pr = key < p.skv && row < p.sq && (!p.causal || key <= row) ? pr : 0.f;
+        pr = key < p.skv && row < p.sq && (!p.causal || key <= row + off) ? pr : 0.f;
       }
       dp[n][e] = pr * (dp[n][e] - del[e >> 1]);  // dS
     }
@@ -286,16 +297,20 @@ __global__ void __launch_bounds__(kThreads, 2) bwd_dkdv_kernel(BwdParams p) {
   const int bi = blockIdx.z;
   const int heads = p.h / p.hkv / p.splits;  // query heads of this split
   const int h0 = hk * (p.h / p.hkv) + sp * heads;
-  // Causal: query tiles from the one holding row k0.
-  const int qt0 = p.causal ? k0 / BQ : 0;
-  const int nqt = (p.sq + BQ - 1) / BQ - qt0;
+  // Causal: query tiles from the one holding the first row that sees key k0
+  // (row k0 - off); none where that row is past the last.
+  const int off = p.causal && p.q_offset ? p.q_offset[bi] : 0;
+  const int qt0 = p.causal ? max(0, k0 - off) / BQ : 0;
+  const int nqt = p.causal && k0 - off >= p.sq ? 0 : (p.sq + BQ - 1) / BQ - qt0;
   const int items = nqt > 0 ? heads * nqt : 0;  // (head, query tile) pairs
   const float sl = p.scale * kLog2e;
 
-  stage_rows<T, D, kRows, kThreads>(static_cast<const T*>(p.k) + bi * p.k_sb + hk * p.k_sh,
-                                    p.k_ss, k0, p.skv, Ks, threadIdx.x);
-  stage_rows<T, D, kRows, kThreads>(static_cast<const T*>(p.v) + bi * p.v_sb + hk * p.v_sh,
-                                    p.v_ss, k0, p.skv, Vs, threadIdx.x);
+  if (items > 0) {  // a tile no query sees reads nothing and writes zeros
+    stage_rows<T, D, kRows, kThreads>(static_cast<const T*>(p.k) + bi * p.k_sb + hk * p.k_sh,
+                                      p.k_ss, k0, p.skv, Ks, threadIdx.x);
+    stage_rows<T, D, kRows, kThreads>(static_cast<const T*>(p.v) + bi * p.v_sb + hk * p.v_sh,
+                                      p.v_ss, k0, p.skv, Vs, threadIdx.x);
+  }
   // Item i (head h0 + i / nqt, query tile qt0 + i % nqt) into stage i % ST,
   // with its rows' lse and D (zeros past sq, where the mask holds).
   auto issue = [&](int i) {
@@ -349,7 +364,7 @@ __global__ void __launch_bounds__(kThreads, 2) bwd_dkdv_kernel(BwdParams p) {
       }
     }
     // Causal: nothing to do when every query of the tile precedes every key.
-    if (!p.causal || q0 + BQ - 1 >= kw) {
+    if (!p.causal || q0 + BQ - 1 + off >= kw) {
       float s[NQ][4], dp[NQ][4];
 #pragma unroll
       for (int n = 0; n < NQ; ++n)
@@ -358,10 +373,10 @@ __global__ void __launch_bounds__(kThreads, 2) bwd_dkdv_kernel(BwdParams p) {
       warp_scores<T, D, NQ>(s, Kw, Qt, lane, KEEP ? kf : nullptr);   // S^T: keys x queries
       warp_scores<T, D, NQ>(dp, Vw, Gt, lane, KEEP ? vf : nullptr);  // dP^T
       // The mask only where the tile crosses the diagonal or an edge.
-      if (q0 + BQ <= p.sq && kw + 16 <= p.skv && (!p.causal || q0 >= kw + 15))
-        dkdv_probs<false, NQ>(s, dp, lse, del, sl, kw, q0, p, lane);
+      if (q0 + BQ <= p.sq && kw + 16 <= p.skv && (!p.causal || q0 + off >= kw + 15))
+        dkdv_probs<false, NQ>(s, dp, lse, del, sl, kw, q0, off, p, lane);
       else
-        dkdv_probs<true, NQ>(s, dp, lse, del, sl, kw, q0, p, lane);
+        dkdv_probs<true, NQ>(s, dp, lse, del, sl, kw, q0, off, p, lane);
       warp_accumulate<T, D, NQ>(dv, s, Gt, lane);   // dV += P^T dO
       warp_accumulate<T, D, NQ>(dk, dp, Qt, lane);  // dK += dS^T Q
     }
@@ -451,7 +466,8 @@ __global__ void __launch_bounds__(kThreads, kBf16<T> && D <= 128 ? 3 : 2)
   stage_rows<T, D, kRows, kThreads>(static_cast<const T*>(p.dout) + bi * p.do_sb + hi * p.do_sh,
                                     p.do_ss, q0, p.sq, Gs, threadIdx.x);
   // One past the last key any row of this tile may see.
-  const int kv_hi = p.causal ? min(p.skv, min(q0 + kRows, p.sq)) : p.skv;
+  const int off = p.causal && p.q_offset ? p.q_offset[bi] : 0;
+  const int kv_hi = p.causal ? max(0, min(p.skv, min(q0 + kRows, p.sq) + off)) : p.skv;
   const int tiles = (kv_hi + BN - 1) / BN;
   auto issue = [&](int i) {
     T* Kd = ring + (i % ST) * 2 * BN * LD;
@@ -500,7 +516,7 @@ __global__ void __launch_bounds__(kThreads, kBf16<T> && D <= 128 ? 3 : 2)
       }
     }
     // Causal: nothing to do when every key of the tile follows every row.
-    if (!p.causal || k0 <= qw + 15) {
+    if (!p.causal || k0 <= qw + 15 + off) {
       float s[NK][4], dp[NK][4];
 #pragma unroll
       for (int n = 0; n < NK; ++n)
@@ -508,10 +524,10 @@ __global__ void __launch_bounds__(kThreads, kBf16<T> && D <= 128 ? 3 : 2)
         for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
       warp_scores<T, D, NK>(s, Qw, Kt, lane, KEEP ? qf : nullptr);   // S: queries x keys
       warp_scores<T, D, NK>(dp, Gw, Vt, lane, KEEP ? gf : nullptr);  // dP
-      if (k0 + BN <= p.skv && qw + 16 <= p.sq && (!p.causal || k0 + BN - 1 <= qw))
-        dq_grads<false, NK>(s, dp, lse2, del, sl, k0, qw, p, lane);
+      if (k0 + BN <= p.skv && qw + 16 <= p.sq && (!p.causal || k0 + BN - 1 <= qw + off))
+        dq_grads<false, NK>(s, dp, lse2, del, sl, k0, qw, off, p, lane);
       else
-        dq_grads<true, NK>(s, dp, lse2, del, sl, k0, qw, p, lane);
+        dq_grads<true, NK>(s, dp, lse2, del, sl, k0, qw, off, p, lane);
       warp_accumulate<T, D, NK>(dq, dp, Kt, lane);  // dQ += dS K
     }
     __syncthreads();
@@ -574,11 +590,13 @@ cudaError_t launch_d(const BwdParams& p, int d, cudaStream_t stream) {
 // group h / hkv; when it is above 1, `part` is fp32 scratch of 2 b hkv splits
 // skv d values (16-byte aligned), else it may be null. dtype: 0 = float32, 1 =
 // bfloat16. d: 16, 64, 128 or 160 (zamba2's shared block; its own tiles, see
-// the note at the top). Three launches on `stream`, four when splits > 1;
+// the note at the top). q_offset: int32 (b,) on the device or null, as the
+// forward's (causal only). Three launches on `stream`, four when splits > 1;
 // returns the CUDA error code of the first that failed (0 on success).
 extern "C" int repro_flash_attention_backward(
     const void* q, const void* k, const void* v, const void* o, const void* lse,
-    const void* dout, void* delta, void* part, void* dq, void* dk, void* dv, int b, int h,
+    const void* dout, const void* q_offset, void* delta, void* part, void* dq, void* dk,
+    void* dv, int b, int h,
     int hkv, int sq, int skv, int d, int splits, long long q_sb, long long q_sh, long long q_ss,
     long long k_sb, long long k_sh, long long k_ss, long long v_sb, long long v_sh,
     long long v_ss, long long o_sb, long long o_sh, long long o_ss, long long do_sb,
@@ -594,6 +612,7 @@ extern "C" int repro_flash_attention_backward(
   p.lse = static_cast<const float*>(lse);
   p.delta = static_cast<float*>(delta);
   p.part = static_cast<float*>(part);
+  p.q_offset = static_cast<const int*>(q_offset);
   p.dq = dq; p.dk = dk; p.dv = dv;
   p.b = b; p.h = h; p.hkv = hkv; p.sq = sq; p.skv = skv; p.splits = splits;
   p.q_sb = q_sb; p.q_sh = q_sh; p.q_ss = q_ss;

@@ -26,8 +26,11 @@
 //         at a time through a 2-stage ring.
 //      3. `pass`: one thread per (batch, head, state entry) walks the chunks
 //         in order: S_in[c] = S, S = S exp(cs_last[c]) + S_c. It is the only
-//         sequential part and touches each state entry once a chunk. (The
-//         scan starts from zero; an initial state would enter here.)
+//         sequential part and touches each state entry once a chunk. S starts
+//         from the caller's initial state (b, h, p, n) fp32, or from zero:
+//         a rank's block of a sequence split over ranks starts from the
+//         state the earlier blocks leave. The training forward keeps S_in,
+//         so chunk 0's incoming state is the initial state.
 //      4. `outputs`: one block per (batch, head, chunk, 64 rows, 64 columns of
 //         p): exp(cs_i) C_i . S_in^T, then the in-chunk term over the key
 //         tiles j <= i only (x and G through a 2-stage ring), the scores
@@ -87,6 +90,7 @@ struct Params {
   const void* C;
   void* y;
   float* state;   // (b, h, p, n)
+  const float* init;  // (b, h, p, n) or null: the scan starts from zero
   float* G;       // (b, g, nc, qp, qp)
   float* cs;      // (b, h, nc, qp)
   float* S;       // (b, h, nc, p, n): chunk states, then incoming states
@@ -447,7 +451,7 @@ __global__ void __launch_bounds__(kMmaThreads) outputs_mma_kernel(Params p) {
   if (i0 >= qv) return;  // rows past a ragged last chunk
   const long long t0 = (long long)c * p.Q;
   const int rows_end = i0 + kTile;  // cumsums and dt needed for [0, rows_end)
-  const bool carry = c > 0;         // the first chunk starts from a zero state
+  const bool carry = c > 0 || p.init;  // chunk 0's incoming state: zero but for an init
 
   const __nv_bfloat16* xb =
       static_cast<const __nv_bfloat16*>(p.x) + bi * p.x_sb + hi * p.x_sh + p0 + t0 * p.x_ss;
@@ -732,7 +736,7 @@ __global__ void __launch_bounds__(kF32Threads) outputs_f32_kernel(Params p) {
     cs_s[i] = csg[i];
     dt_s[i] = i < qv ? dtb[(long long)i * p.dt_ss] : 0.f;
   }
-  const bool carry = c > 0;
+  const bool carry = c > 0 || p.init;  // as the bf16 kernel's
   if (carry) {
     const float* Sb = p.S + ((long long)blockIdx.x * p.p + p0) * N;
     for (int idx = threadIdx.x; idx < kTile * N; idx += kF32Threads) {
@@ -834,7 +838,7 @@ __global__ void __launch_bounds__(256) pass_kernel(Params p) {
   const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= (long long)p.b * p.h * pn) return;
   const long long bh = e / pn, k = e % pn;
-  float S = 0.f;  // the scan starts from a zero state
+  float S = p.init ? p.init[e] : 0.f;
   for (int c0 = 0; c0 < p.nc; c0 += U) {
     float own[U], cs_last[U];
 #pragma unroll
@@ -933,10 +937,12 @@ cudaError_t run_n(const Params& p, int stages, cudaStream_t st) {
 // scores (b, g, nc, qp, qp), cs (b, h, nc, qp), states (b, h, nc, p, n).
 // chunk: positions per chunk (<= 1024, <= s); n: 16, 32, 64 or 128; p % 8 == 0.
 // stages: a mask of the kernels to launch, in order (1 scores, 2 states, 4 the
-// state pass, 8 outputs; 15 for the whole scan). Returns the CUDA error code of
-// the launches (0 on success).
+// state pass, 8 outputs; 15 for the whole scan). init: the initial state (b, h,
+// p, n) float32, contiguous, or null for zero; the pass reads it. Returns the
+// CUDA error code of the launches (0 on success).
 extern "C" int repro_ssd_scan(const void* x, const void* dt, const void* A, const void* B,
-                              const void* C, void* y, void* state, void* scores, void* cs,
+                              const void* C, const void* init, void* y, void* state,
+                              void* scores, void* cs,
                               void* states, int b, int s, int h, int p, int g, int n, int chunk,
                               long long x_sb, long long x_ss, long long x_sh, long long dt_sb,
                               long long dt_ss, long long dt_sh, long long B_sb, long long B_ss,
@@ -949,6 +955,7 @@ extern "C" int repro_ssd_scan(const void* x, const void* dt, const void* A, cons
   Params prm;
   prm.x = x; prm.dt = static_cast<const float*>(dt); prm.A = static_cast<const float*>(A);
   prm.B = B; prm.C = C; prm.y = y; prm.state = static_cast<float*>(state);
+  prm.init = static_cast<const float*>(init);
   prm.G = static_cast<float*>(scores); prm.cs = static_cast<float*>(cs);
   prm.S = static_cast<float*>(states);
   prm.b = b; prm.s = s; prm.h = h; prm.p = p; prm.g = g; prm.n = n; prm.Q = chunk;

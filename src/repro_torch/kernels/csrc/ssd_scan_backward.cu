@@ -61,7 +61,11 @@
 //   2. `dpass` (`ssd_bwd_pass_kernel`): one thread per (batch, head, state
 //      entry) walks the chunks from last to first: dS_c = D; D = D
 //      exp(cs_last[c]) + U_c, from the final state's cotangent (or 0). dS
-//      overwrites U.
+//      overwrites U. D past chunk 0 is the initial state's cotangent, which
+//      it writes where the caller asks for it (`dinit`): a rank's block of a
+//      sequence split over ranks hands it back to the earlier blocks. The
+//      scan's initial state enters nothing else: the rows take it through
+//      the incoming states the training forward kept.
 //   3. `rows` (`ssd_bwd_rows_kernel`): one block of 4 warps per (64-row tile
 //      i, batch, group, split of the group's heads, chunk), each warp 16
 //      rows; the block walks its split's heads in order and, for each, the
@@ -137,6 +141,8 @@ struct BwdParams {
   const float* cs;      // (b, h, nc, qp): in-chunk cumsums, flat past the last position
   const float* S_in;    // (b, h, nc, p, n): incoming states
   float* dS;            // (b, h, nc, p, n): U, then the final states' cotangents
+  float* dinit;         // (b, h, p, n) or null: the initial state's cotangent
+  int init;             // the forward started from an initial state (chunk 0's S_in)
   float* dcs;           // (b, h, nc, 3, qp): cs's row terms; rs_j; x_j . SB_j
   float* dA_part;       // (b, h, nc, 2): exp(cs_last) <dS, S_in>; the chunk's share of dA
   float* dB_part;       // (splits, b, s, g, n): each split's dB, splits > 1 only
@@ -568,6 +574,7 @@ __global__ void __launch_bounds__(256) ssd_bwd_pass_kernel(BwdParams p) {
       }
     }
   }
+  if (p.dinit) p.dinit[e] = D;
 }
 
 // ------------------------------------------------------------------------- //
@@ -643,7 +650,7 @@ __global__ void __launch_bounds__(kThreads, 2) ssd_bwd_rows_kernel(BwdParams p) 
   const int heads = p.h / p.g / p.splits;
   const int h0 = k.gi * (p.h / p.g) + k.sp * heads;
   const long long t0 = (long long)k.c * p.Q;
-  const bool carry = k.c > 0;  // the first chunk's incoming state is zero
+  const bool carry = k.c > 0 || p.init;  // chunk 0's incoming state: zero but for an init
   const bool live = iw < qv;   // this warp has rows
   const T* Bb = static_cast<const T*>(p.B) + k.bi * p.B_sb + k.gi * p.B_sg + t0 * p.B_ss;
   const T* Cb = static_cast<const T*>(p.C) + k.bi * p.C_sb + k.gi * p.C_sg + t0 * p.C_ss;
@@ -1122,10 +1129,14 @@ cudaError_t run_n(const BwdParams& p, int stages, cudaStream_t st) {
 // chunk <= 1024 and <= s; splits divides h / g (the heads of a group a
 // block sums). stages: a mask of the kernels to launch, in order (1
 // dstates, 2 dpass, 4 rows, 8 cols, 16 finish, 32 reduce; 63 for the whole
-// backward). Returns the CUDA error code of the launches (0 on success).
+// backward). init: 1 where the forward started from an initial state (then
+// `incoming` holds it as chunk 0's, which the rows read), else 0. dinit: (b,
+// h, p, n) float32, contiguous, or null; dpass writes the initial state's
+// cotangent there. Returns the CUDA error code of the launches (0 on success).
 extern "C" int repro_ssd_scan_backward(
     const void* x, const void* dt, const void* A, const void* B, const void* C, const void* dy,
-    const void* dstate, const void* scores, const void* cs, const void* incoming, void* dS,
+    const void* dstate, const void* scores, const void* cs, const void* incoming, int init,
+    void* dinit, void* dS,
     void* dcs, void* dA_part, void* dB_part, void* dC_part, void* dx, void* ddt, void* dA,
     void* dB, void* dC, int b, int s, int h, int p, int g, int n, int chunk, int splits,
     long long x_sb, long long x_ss, long long x_sh, long long dt_sb, long long dt_ss,
@@ -1141,6 +1152,8 @@ extern "C" int repro_ssd_scan_backward(
   prm.B = B; prm.C = C; prm.dy = dy; prm.dstate = static_cast<const float*>(dstate);
   prm.G = static_cast<const float*>(scores); prm.cs = static_cast<const float*>(cs);
   prm.S_in = static_cast<const float*>(incoming); prm.dS = static_cast<float*>(dS);
+  prm.dinit = static_cast<float*>(dinit);
+  prm.init = init;
   prm.dcs = static_cast<float*>(dcs); prm.dA_part = static_cast<float*>(dA_part);
   prm.dB_part = static_cast<float*>(dB_part); prm.dC_part = static_cast<float*>(dC_part);
   prm.dx = dx; prm.ddt = static_cast<float*>(ddt); prm.dA = static_cast<float*>(dA);

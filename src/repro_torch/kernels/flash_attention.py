@@ -15,7 +15,10 @@ Training adds the backward (``csrc/flash_attention_backward.cu``; the JAX
 package has no Pallas backward, ``jax.grad`` differentiates its attention):
 the forward then also returns each query row's log-sum-exp ``lse`` (fp32
 ``(b, h, sq)``), from which the backward recomputes the probabilities. The
-training route takes neither ``kv_len`` nor ``q_offset``. A backward call is
+training route takes ``q_offset`` (not ``kv_len``): a rank's block of the
+query rows of a sequence split along its length over the data ranks attends
+over the whole sequence's keys, its rows at positions ``q_offset[b] + i``;
+the backward writes zeros for the keys no row sees. A backward call is
 three or four kernels (``flash_attention_backward_plan``);
 ``flash_attention_backward_stages_plain`` is their decomposition in plain
 PyTorch.
@@ -131,8 +134,8 @@ def flash_attention_forward_plain(q: torch.Tensor, k: torch.Tensor,
     """The forward with the log-sum-exp, plain PyTorch, any device: the
     output of ``flash_attention_plain`` and each row's log-sum-exp of its
     visible scaled scores, fp32 ``(b, h, sq)`` (+inf for a row that sees no
-    key). The training route's (no ``kv_len``, no ``q_offset``) and, with
-    ``unrounded`` output, the partial route's."""
+    key). The training route's (no ``kv_len``) and, with ``unrounded``
+    output, the partial route's."""
     b, h, sq, _ = q.shape
     skv = k.shape[2]
     out = flash_attention_plain(q, k, v, causal, kv_len, q_offset, unrounded)
@@ -146,7 +149,8 @@ def flash_attention_forward_plain(q: torch.Tensor, k: torch.Tensor,
 def flash_attention_backward_plain(q: torch.Tensor, k: torch.Tensor,
                                    v: torch.Tensor, o: torch.Tensor,
                                    lse: torch.Tensor, do: torch.Tensor,
-                                   causal: bool = True
+                                   causal: bool = True,
+                                   q_offset: Optional[torch.Tensor] = None
                                    ) -> Tuple[torch.Tensor, torch.Tensor,
                                               torch.Tensor]:
     """(dq, dk, dv), plain PyTorch, any device; the kernel's arithmetic.
@@ -155,12 +159,12 @@ def flash_attention_backward_plain(q: torch.Tensor, k: torch.Tensor,
     ``q.dtype`` as the forward's ``P @ V`` did; ``D = rowsum(dO * O)``; the
     rest in fp32 (fp64 for fp64 inputs, where this equals autograd through
     ``flash_attention_plain``). A KV head's gradients sum over the query
-    heads of its group."""
+    heads of its group. ``q_offset``: the forward's."""
     b, h, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
     group = h // hkv
     wt = _work_dtype(q.dtype)
-    allowed = _allowed(b, sq, skv, causal, q.device)
+    allowed = _allowed(b, sq, skv, causal, q.device, None, q_offset)
     probs = torch.where(allowed, torch.exp(_scores(q, k) - lse[..., None]), 0.0)
     g = do.to(wt)
     dv = torch.matmul(probs.to(q.dtype).to(wt).transpose(-1, -2), g)
@@ -180,6 +184,21 @@ def causal_pairs(sq: int, skv: int) -> int:
     query ``i`` sees keys ``0 .. min(i, skv - 1)``."""
     m = min(sq, skv)
     return m * (m + 1) // 2 + (sq - m) * skv
+
+
+def offset_pairs(sq: int, skv: int, offsets) -> Tuple[int, int]:
+    """(the (query, key) pairs of one head, the key rows some query sees),
+    each summed over the batch, that a causal mask shifted by each
+    sequence's ``offsets`` (ints) allows: query ``i`` sees keys ``0 ..
+    min(i + offset, skv - 1)``, none where ``i + offset < 0``."""
+    pairs = rows = 0
+    for off in offsets:
+        lo = min(sq, max(0, -off))                 # rows before: no key
+        hi = min(sq, max(lo, skv - off - 1))       # rows after: every key
+        pairs += ((hi - lo) * (lo + hi - 1) // 2 + (hi - lo) * (off + 1)
+                  + (sq - hi) * skv)
+        rows += min(skv, max(0, sq + off))
+    return pairs, rows
 
 
 def forward_work(b: int, h: int, hkv: int, sq: int, skv: int, d: int,
@@ -210,12 +229,15 @@ def forward_work(b: int, h: int, hkv: int, sq: int, skv: int, d: int,
 
 
 def backward_work(b: int, h: int, hkv: int, sq: int, skv: int, d: int,
-                  dtype: torch.dtype, causal: bool = True
-                  ) -> Tuple[int, int]:
+                  dtype: torch.dtype, causal: bool = True,
+                  pairs: Optional[int] = None) -> Tuple[int, int]:
     """(flops, bytes) of one backward call: five products of ``2 d`` flops
     for each (query, key) pair the mask allows; q, o, dO, k, v and the fp32
-    log-sum-exp read once, dq, dk, dv written once."""
-    pairs = b * (causal_pairs(sq, skv) if causal else sq * skv)
+    log-sum-exp read once, dq, dk, dv written once. ``pairs``: what the
+    call's data allows (``q_offset``: ``offset_pairs``), summed over the
+    batch; by default what the plain causal or full mask allows."""
+    if pairs is None:
+        pairs = b * (causal_pairs(sq, skv) if causal else sq * skv)
     nbytes = ((4 * b * h * sq * d + 4 * b * hkv * skv * d) * dtype.itemsize
               + 4 * b * h * sq)
     return 10 * pairs * h * d, nbytes
@@ -443,23 +465,28 @@ def flash_attention_partial_cuda(q: torch.Tensor, k: torch.Tensor,
 
 
 def flash_attention_lse_cuda(q: torch.Tensor, k: torch.Tensor,
-                             v: torch.Tensor, causal: bool = True
+                             v: torch.Tensor, causal: bool = True,
+                             q_offset: Optional[torch.Tensor] = None
                              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The training route's forward on the card: the output and each row's
     log-sum-exp (fp32 ``(b, h, sq)``), from the prefill kernels at any
     length (a row of at most 8 queries too: the decode kernels write it on
-    the partial route alone), head_dim in ``TRAIN_HEAD_DIMS``. Raises as
+    the partial route alone), head_dim in ``TRAIN_HEAD_DIMS``;
+    ``q_offset`` as ``flash_attention_cuda``'s. Raises as
     ``flash_attention_cuda``."""
     _check_inputs(q, k, v, head_dims=TRAIN_HEAD_DIMS)
     b, h, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
+    if q_offset is not None:
+        _check_index_vector("q_offset", q_offset, b, q.device)
     out = _new_like_heads(b, sq, h, d, q)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     with _build.on_device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         code = _build.lib().repro_flash_attention_lse(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            lse.data_ptr(), b, h, hkv, sq, skv, d,
+            lse.data_ptr(), None if q_offset is None else q_offset.data_ptr(),
+            b, h, hkv, sq, skv, d,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
             *out.stride()[:3],
             1.0 / math.sqrt(d), int(bool(causal)), _DTYPE_CODE[q.dtype],
@@ -498,7 +525,9 @@ def flash_attention_backward_plan(b: int, h: int, hkv: int, skv: int,
 def flash_attention_backward_stages_plain(q: torch.Tensor, k: torch.Tensor,
                                           v: torch.Tensor, o: torch.Tensor,
                                           lse: torch.Tensor, do: torch.Tensor,
-                                          causal: bool, splits: int
+                                          causal: bool, splits: int,
+                                          q_offset: Optional[torch.Tensor]
+                                          = None
                                           ) -> Tuple[torch.Tensor,
                                                      torch.Tensor,
                                                      torch.Tensor]:
@@ -507,7 +536,7 @@ def flash_attention_backward_stages_plain(q: torch.Tensor, k: torch.Tensor,
     query heads, the partial dK and dV (unscaled dK) in the work type; the
     partials summed in split order, dK scaled, rounded once; dQ. Equals
     ``flash_attention_backward_plain`` up to the order of the sums over the
-    group."""
+    group. ``q_offset``: the forward's."""
     b, h, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
     group = h // hkv
@@ -515,7 +544,7 @@ def flash_attention_backward_stages_plain(q: torch.Tensor, k: torch.Tensor,
         raise ValueError(f"splits {splits} does not divide the group {group}")
     wt = _work_dtype(q.dtype)
     scale = 1.0 / math.sqrt(d)
-    allowed = _allowed(b, sq, skv, causal, q.device)
+    allowed = _allowed(b, sq, skv, causal, q.device, None, q_offset)
     probs = torch.where(allowed, torch.exp(_scores(q, k) - lse[..., None]), 0.0)
     g = do.to(wt)
     delta = (g * o.to(wt)).sum(-1, keepdim=True)
@@ -538,7 +567,8 @@ def flash_attention_backward_stages_plain(q: torch.Tensor, k: torch.Tensor,
 def flash_attention_backward_cuda(q: torch.Tensor, k: torch.Tensor,
                                   v: torch.Tensor, o: torch.Tensor,
                                   lse: torch.Tensor, do: torch.Tensor,
-                                  causal: bool = True
+                                  causal: bool = True,
+                                  q_offset: Optional[torch.Tensor] = None
                                   ) -> Tuple[torch.Tensor, torch.Tensor,
                                              torch.Tensor]:
     """Launch the backward's kernels on PyTorch's current stream, as
@@ -547,11 +577,14 @@ def flash_attention_backward_cuda(q: torch.Tensor, k: torch.Tensor,
     transposed like the forward's output. ``o`` and ``lse`` are the
     forward's (``flash_attention_lse_cuda``), ``do`` the output's gradient;
     all taken by their strides. Deterministic: the same inputs give the same
-    bits. head_dim in ``TRAIN_HEAD_DIMS``. Raises on anything the kernels
-    do not take."""
+    bits. head_dim in ``TRAIN_HEAD_DIMS``; ``q_offset``: the forward's. Keys
+    no row sees get zero gradients. Raises on anything the kernels do not
+    take."""
     _check_inputs(q, k, v, ("o", o), ("do", do), head_dims=TRAIN_HEAD_DIMS)
     b, h, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
+    if q_offset is not None:
+        _check_index_vector("q_offset", q_offset, b, q.device)
     if (not lse.is_cuda or lse.device != q.device
             or lse.dtype != torch.float32 or lse.shape != (b, h, sq)
             or not lse.is_contiguous()):
@@ -571,7 +604,8 @@ def flash_attention_backward_cuda(q: torch.Tensor, k: torch.Tensor,
         stream = torch.cuda.current_stream(q.device).cuda_stream
         code = _build.lib().repro_flash_attention_backward(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            lse.data_ptr(), do.data_ptr(), delta.data_ptr(),
+            lse.data_ptr(), do.data_ptr(),
+            None if q_offset is None else q_offset.data_ptr(), delta.data_ptr(),
             None if part is None else part.data_ptr(), dq.data_ptr(),
             dk.data_ptr(), dv.data_ptr(), b, h, hkv, sq, skv, d, splits,
             *(st for t in (q, k, v, o, do, dq, dk, dv)

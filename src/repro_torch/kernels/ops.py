@@ -29,7 +29,10 @@ and backward call the operators): the backward counts in
 a remat policy recomputes during the backward is launched, and counted,
 again. Attention and the SSD scan take a training forward of their own
 (``flash_attention_lse``, ``ssd_scan_train``) that also hands back what
-the backward reads. Attention also takes the partial route
+the backward reads: attention's takes ``q_offset`` and the SSD scan's an
+``init_state``, whose cotangent its backward returns (a rank's block of a
+sequence split along its length over the data ranks). Attention also takes
+the partial route
 (``flash_attention_partial``, counted in ``flash_attention_partial.
 launches``): serving over a cache split along its sequence, a block of
 the keys in, the rows' fp32 output and log-sum-exp out, no gradient.
@@ -142,59 +145,71 @@ _attention_op = _define(
     _attention_work)
 
 
-def _attention_lse_cpu(q, k, v, causal):
-    out, lse = flash_attention_forward_plain(q, k, v, causal)
+def _attention_lse_cpu(q, k, v, causal, q_offset=None):
+    out, lse = flash_attention_forward_plain(q, k, v, causal, None, q_offset)
     return _heads_layout(out), lse
 
 
-def _attention_lse_cuda(q, k, v, causal):
-    out = flash_attention_lse_cuda(q, k, v, causal)
+def _attention_lse_cuda(q, k, v, causal, q_offset=None):
+    out = flash_attention_lse_cuda(q, k, v, causal, q_offset)
     flash_attention.launches += 1
     return out
 
 
-def _attention_lse_fake(q, k, v, causal):
+def _attention_lse_fake(q, k, v, causal, q_offset=None):
     b, h, sq, d = q.shape
     return (_new_like_heads(b, sq, h, d, q),
             q.new_empty((b, h, sq),
                         dtype=torch.promote_types(q.dtype, torch.float32)))
 
 
-def _attention_lse_work(q, k, v, causal):
+def _offset_wide(q, k, q_offset) -> dict:
+    """A call's pairs where ``q_offset`` shifts its mask: from shapes alone,
+    every key as seen by every query (what the kernel may read at most)."""
+    if q_offset is None:
+        return {}
+    b, sq, skv = q.shape[0], q.shape[2], k.shape[2]
+    return {"pairs": b * sq * skv, "kv_rows": b * skv}
+
+
+def _attention_lse_work(q, k, v, causal, q_offset=None):
     b, h, sq, d = q.shape
     return attn_module.forward_work(b, h, k.shape[1], sq, k.shape[2], d,
-                                    q.dtype, causal, lse=True)
+                                    q.dtype, causal, lse=True,
+                                    **_offset_wide(q, k, q_offset))
 
 
 _attention_lse_op = _define(
-    "flash_attention_lse(Tensor q, Tensor k, Tensor v, bool causal) "
-    "-> (Tensor, Tensor)",
+    "flash_attention_lse(Tensor q, Tensor k, Tensor v, bool causal, "
+    "Tensor? q_offset=None) -> (Tensor, Tensor)",
     _attention_lse_cpu, _attention_lse_cuda, _attention_lse_fake,
     _attention_lse_work)
 
 
-def _attention_backward_cpu(q, k, v, o, lse, do, causal):
+def _attention_backward_cpu(q, k, v, o, lse, do, causal, q_offset=None):
     return tuple(_heads_layout(g) for g in flash_attention_backward_plain(
-        q, k, v, o, lse, do, causal))
+        q, k, v, o, lse, do, causal, q_offset))
 
 
-def _attention_backward_cuda(q, k, v, o, lse, do, causal):
-    grads = flash_attention_backward_cuda(q, k, v, o, lse, do, causal)
+def _attention_backward_cuda(q, k, v, o, lse, do, causal, q_offset=None):
+    grads = flash_attention_backward_cuda(q, k, v, o, lse, do, causal,
+                                          q_offset)
     flash_attention.backward_launches += 1
     return grads
 
 
-def _attention_backward_fake(q, k, v, o, lse, do, causal):
+def _attention_backward_fake(q, k, v, o, lse, do, causal, q_offset=None):
     b, h, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
     return (_new_like_heads(b, sq, h, d, q), _new_like_heads(b, skv, hkv, d, k),
             _new_like_heads(b, skv, hkv, d, v))
 
 
-def _attention_backward_work(q, k, v, o, lse, do, causal):
+def _attention_backward_work(q, k, v, o, lse, do, causal, q_offset=None):
     b, h, sq, d = q.shape
+    pairs = _offset_wide(q, k, q_offset).get("pairs")
     return attn_module.backward_work(b, h, k.shape[1], sq, k.shape[2], d,
-                                     q.dtype, causal)
+                                     q.dtype, causal, pairs)
 
 
 def _attention_partial_cpu(q, k, v, causal, kv_len=None, q_offset=None):
@@ -234,7 +249,8 @@ _attention_partial_op = _define(
 
 _attention_backward_op = _define(
     "flash_attention_backward(Tensor q, Tensor k, Tensor v, Tensor o, "
-    "Tensor lse, Tensor do, bool causal) -> (Tensor, Tensor, Tensor)",
+    "Tensor lse, Tensor do, bool causal, Tensor? q_offset=None) "
+    "-> (Tensor, Tensor, Tensor)",
     _attention_backward_cpu, _attention_backward_cuda,
     _attention_backward_fake, _attention_backward_work)
 
@@ -281,38 +297,39 @@ _rmsnorm_backward_op = _define(
 # SSD scan
 # ----------------------------------------------------------------------- #
 
-def _ssd_cuda(x, dt, A, B, C, chunk):
-    out = ssd_scan_cuda(x, dt, A, B, C, chunk)
+def _ssd_cuda(x, dt, A, B, C, chunk, init=None):
+    out = ssd_scan_cuda(x, dt, A, B, C, chunk, init)
     ssd_scan.launches += 1
     return out
 
 
-def _ssd_fake(x, dt, A, B, C, chunk):
+def _ssd_fake(x, dt, A, B, C, chunk, init=None):
     b, _, h, p = x.shape
     return (x.new_empty(x.shape),
             x.new_empty((b, h, p, B.shape[-1]), dtype=torch.float32))
 
 
-def _ssd_work(x, dt, A, B, C, chunk):
+def _ssd_work(x, dt, A, B, C, chunk, init=None):
     b, s, h, p = x.shape
     return ssd_module.work(b, s, h, p, B.shape[-1], B.shape[-2], chunk,
-                           x.dtype)
+                           x.dtype, init is not None)
 
 
 _ssd_op = _define(
-    "ssd_scan(Tensor x, Tensor dt, Tensor A, Tensor B, Tensor C, int chunk) "
-    "-> (Tensor, Tensor)",
-    lambda x, dt, A, B, C, chunk: ssd_scan_plain(x, dt, A, B, C, chunk),
+    "ssd_scan(Tensor x, Tensor dt, Tensor A, Tensor B, Tensor C, int chunk, "
+    "Tensor? init=None) -> (Tensor, Tensor)",
+    lambda x, dt, A, B, C, chunk, init=None: ssd_scan_plain(
+        x, dt, A, B, C, chunk, init),
     _ssd_cuda, _ssd_fake, _ssd_work)
 
 
-def _ssd_train_cuda(x, dt, A, B, C, chunk):
-    out = ssd_scan_train_cuda(x, dt, A, B, C, chunk)
+def _ssd_train_cuda(x, dt, A, B, C, chunk, init=None):
+    out = ssd_scan_train_cuda(x, dt, A, B, C, chunk, init)
     ssd_scan.launches += 1
     return out
 
 
-def _ssd_train_fake(x, dt, A, B, C, chunk):
+def _ssd_train_fake(x, dt, A, B, C, chunk, init=None):
     specs = ssd_module._buffer_specs(x, B, chunk)
     return tuple(x.new_empty(specs[name][0], dtype=specs[name][1])
                  for name in ssd_module.TRAIN_OUTPUTS)
@@ -320,41 +337,58 @@ def _ssd_train_fake(x, dt, A, B, C, chunk):
 
 _ssd_train_op = _define(
     "ssd_scan_train(Tensor x, Tensor dt, Tensor A, Tensor B, Tensor C, "
-    "int chunk) -> (Tensor, Tensor, Tensor, Tensor, Tensor)",
-    lambda x, dt, A, B, C, chunk: ssd_scan_train_plain(x, dt, A, B, C,
-                                                       chunk),
+    "int chunk, Tensor? init=None) "
+    "-> (Tensor, Tensor, Tensor, Tensor, Tensor)",
+    lambda x, dt, A, B, C, chunk, init=None: ssd_scan_train_plain(
+        x, dt, A, B, C, chunk, init),
     _ssd_train_cuda, _ssd_train_fake, _ssd_work)
 
 
+def _ssd_backward_cpu(x, dt, A, B, C, dy, dstate, scores, cs, incoming,
+                      chunk, init=None):
+    grads = ssd_scan_backward_plain(x, dt, A, B, C, dy, dstate, chunk, init)
+    if init is None:
+        grads = grads + (x.new_empty((0,), dtype=torch.float32),)
+    return grads
+
+
 def _ssd_backward_cuda(x, dt, A, B, C, dy, dstate, scores, cs, incoming,
-                       chunk):
+                       chunk, init=None):
     grads = ssd_scan_backward_cuda(x, dt, A, B, C, dy, dstate, scores, cs,
-                                   incoming, chunk)
+                                   incoming, chunk, init=init is not None)
     ssd_scan.backward_launches += 1
+    if init is None:
+        grads = grads + (x.new_empty((0,), dtype=torch.float32),)
     return grads
 
 
 def _ssd_backward_fake(x, dt, A, B, C, dy, dstate, scores, cs, incoming,
-                       chunk):
+                       chunk, init=None):
     specs = ssd_module._backward_buffer_specs(x, B, chunk)
     return tuple(x.new_empty(specs[name][0], dtype=specs[name][1])
-                 for name in ssd_module.BACKWARD_OUTPUTS)
+                 for name in ssd_module.BACKWARD_OUTPUTS) + (
+        x.new_empty((0,) if init is None else init.shape,
+                    dtype=torch.float32),)
 
 
 def _ssd_backward_work(x, dt, A, B, C, dy, dstate, scores, cs, incoming,
-                       chunk):
+                       chunk, init=None):
     b, s, h, p = x.shape
     return ssd_module.backward_work(b, s, h, p, B.shape[-1], B.shape[-2],
-                                    chunk, x.dtype, dstate is not None)
+                                    chunk, x.dtype, dstate is not None,
+                                    init is not None)
 
 
+# ``init``: the forward's initial state, which the plain version reads (it
+# recomputes the forward) and the kernels do not (the incoming states carry
+# it); the last output is its cotangent, empty without one.
 _ssd_backward_op = _define(
     "ssd_scan_backward(Tensor x, Tensor dt, Tensor A, Tensor B, Tensor C, "
     "Tensor dy, Tensor? dstate, Tensor scores, Tensor cs, Tensor incoming, "
-    "int chunk) -> (Tensor, Tensor, Tensor, Tensor, Tensor)",
-    lambda x, dt, A, B, C, dy, dstate, scores, cs, incoming, chunk:
-    ssd_scan_backward_plain(x, dt, A, B, C, dy, dstate, chunk),
-    _ssd_backward_cuda, _ssd_backward_fake, _ssd_backward_work)
+    "int chunk, Tensor? init=None) "
+    "-> (Tensor, Tensor, Tensor, Tensor, Tensor, Tensor)",
+    _ssd_backward_cpu, _ssd_backward_cuda, _ssd_backward_fake,
+    _ssd_backward_work)
 
 
 # ----------------------------------------------------------------------- #
@@ -406,22 +440,25 @@ def _wants_grad(*tensors: torch.Tensor) -> bool:
 
 class _FlashAttention(torch.autograd.Function):
     """The training route: the forward also keeps each row's log-sum-exp,
-    the backward recomputes the probabilities from it."""
+    the backward recomputes the probabilities from it. ``q_offset``: the
+    rows' first position, for a block of them over the whole sequence's
+    keys (the keys no row sees get zero gradients)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal):
-        out, lse = _attention_lse_op(q, k, v, causal)
+    def forward(ctx, q, k, v, causal, q_offset):
+        out, lse = _attention_lse_op(q, k, v, causal, q_offset)
         ctx.causal = causal
-        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.save_for_backward(q, k, v, out, lse, q_offset)
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, out, lse = ctx.saved_tensors
+        q, k, v, out, lse, q_offset = ctx.saved_tensors
         if dout.is_cuda and not rows_aligned(dout):
             dout = dout.contiguous()
-        grads = _attention_backward_op(q, k, v, out, lse, dout, ctx.causal)
-        return (*grads, None)
+        grads = _attention_backward_op(q, k, v, out, lse, dout, ctx.causal,
+                                       q_offset)
+        return (*grads, None, None)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -433,13 +470,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``kv_len`` / ``q_offset``: optional int32 (b,), see
     ``repro_torch.kernels.flash_attention``. When an input requires grad
     (and grad mode is on) the call takes the training route, with a
-    backward, which takes neither."""
+    backward, which takes ``q_offset`` and not ``kv_len``."""
     if _wants_grad(q, k, v):
-        if kv_len is not None or q_offset is not None:
+        if kv_len is not None:
             raise ValueError(
                 "flash attention: the training route (an input requires "
-                "grad) takes neither kv_len nor q_offset")
-        return _FlashAttention.apply(q, k, v, causal)
+                "grad) takes no kv_len")
+        return _FlashAttention.apply(q, k, v, causal, q_offset)
     return _attention_op(q, k, v, causal, kv_len, q_offset)
 
 
@@ -485,38 +522,44 @@ def rmsnorm(x: torch.Tensor, gamma: torch.Tensor,
 class _SSDScan(torch.autograd.Function):
     """The training route: the forward keeps the chunks' scores, cumsums
     and incoming states; the backward reads them. A final state that the
-    loss does not use sends no cotangent (None), and costs nothing."""
+    loss does not use sends no cotangent (None), and costs nothing. An
+    initial state gets its cotangent from the backward's state pass."""
 
     @staticmethod
-    def forward(ctx, x, dt, A, B, C, chunk):
-        y, state, scores, cs, incoming = _ssd_train_op(x, dt, A, B, C, chunk)
+    def forward(ctx, x, dt, A, B, C, chunk, init):
+        y, state, scores, cs, incoming = _ssd_train_op(x, dt, A, B, C, chunk,
+                                                       init)
         ctx.set_materialize_grads(False)
         ctx.chunk = chunk
-        ctx.save_for_backward(x, dt, A, B, C, scores, cs, incoming)
+        ctx.save_for_backward(x, dt, A, B, C, scores, cs, incoming, init)
         return y, state
 
     @staticmethod
     def backward(ctx, dy, dstate):
-        x, dt, A, B, C, scores, cs, incoming = ctx.saved_tensors
+        x, dt, A, B, C, scores, cs, incoming, init = ctx.saved_tensors
         dy = x.new_zeros(x.shape) if dy is None else dy.contiguous()
         if dstate is not None:
             dstate = dstate.contiguous()
-        grads = _ssd_backward_op(x, dt, A, B, C, dy, dstate, scores, cs,
-                                 incoming, ctx.chunk)
-        return (*grads, None)
+        *grads, dinit = _ssd_backward_op(x, dt, A, B, C, dy, dstate, scores,
+                                         cs, incoming, ctx.chunk, init)
+        return (*grads, None, None if init is None else dinit)
 
 
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
-             B: torch.Tensor, C: torch.Tensor, chunk: int = 256
+             B: torch.Tensor, C: torch.Tensor, chunk: int = 256,
+             init_state: Optional[torch.Tensor] = None
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (b, s, h, p), dt: (b, s, h) fp32, A: (h,) fp32, B/C: (b, s, g, n)
     -> (y (b, s, h, p), final state (b, h, p, n) fp32); see
-    ``repro_torch.kernels.ssd_scan``. When an input requires grad (and
-    grad mode is on) the call takes the training route, with a backward,
-    on every device."""
-    if _wants_grad(x, dt, A, B, C):
-        return _SSDScan.apply(x, dt, A, B, C, chunk)
-    return _ssd_op(x, dt, A, B, C, chunk)
+    ``repro_torch.kernels.ssd_scan``. ``init_state``: (b, h, p, n) fp32,
+    contiguous, the state the scan starts from (zero when None). When an
+    input requires grad (and grad mode is on) the call takes the training
+    route, with a backward, on every device; an ``init_state`` then gets
+    its cotangent."""
+    extra = () if init_state is None else (init_state,)
+    if _wants_grad(x, dt, A, B, C, *extra):
+        return _SSDScan.apply(x, dt, A, B, C, chunk, init_state)
+    return _ssd_op(x, dt, A, B, C, chunk, init_state)
 
 
 class _EmbeddingBag(torch.autograd.Function):

@@ -11,7 +11,12 @@ kernel's:
     -> y (b, s, h, p), final state (b, h, p, n) fp32
 
 so that the model hands over views of its conv output and nothing is
-transposed, repeated or padded on the way. The scan starts from a zero state.
+transposed, repeated or padded on the way. The scan starts from a zero state
+or from the caller's ``init_state`` (b, h, p, n) fp32, as the reference's
+``ssd_chunked`` does: a rank's block of a sequence split along its length
+over the data ranks starts from the state the earlier blocks leave. The
+backward then also gives the initial state's cotangent ``dinit`` (b, h, p,
+n) fp32: the D its state pass carries past chunk 0.
 
 On the card one call runs ``STAGES``, one kernel each, in this order, through
 scratch that the wrapper allocates (``ssd_buffers``); with ``q`` positions a
@@ -25,9 +30,9 @@ chunk, ``nc`` chunks and ``qp`` = ``q`` rounded up to ``TILE``:
              last position it stays at that position's value), and the
              chunk's own state (x * dt e^(cs_last - cs))^T B (``states``
              (b, h, nc, p, n) fp32)
-    pass     walks the chunks in order: S_in[c] = S; S = S e^(cs_last[c]) +
-             states[c]; the incoming states overwrite ``states``; S at the
-             end is the final state
+    pass     walks the chunks in order from S = the initial state (or 0):
+             S_in[c] = S; S = S e^(cs_last[c]) + states[c]; the incoming
+             states overwrite ``states``; S at the end is the final state
     outputs  y_i = sum_{j <= i} (G_ij e^(cs_i - cs_j) dt_j) x_j
                    + e^(cs_i) C_i . S_in^T
 
@@ -113,30 +118,32 @@ BACKWARD_MIN_BLOCKS = 8 * 132
 
 
 def work(b: int, s: int, h: int, p: int, n: int, g: int, chunk: int,
-         dtype: torch.dtype) -> Tuple[int, int]:
+         dtype: torch.dtype, init: bool = False) -> Tuple[int, int]:
     """(flops, bytes) of one call, each chunk as long as it is: C B^T on and
     below the diagonal once a group, then for each head G x, C S^T and the
     chunk's state; x, B, C read and y written once in ``dtype``, dt read
-    and the final state written once in fp32, A read once."""
+    and the final state written once in fp32, A read once, and the initial
+    state read once where there is one."""
     q = min(chunk, s)
     lens = [min(q, s - t0) for t0 in range(0, s, q)]
     flops = sum(b * g * L * (L + 1) * n
                 + b * h * (L * (L + 1) * p + 4 * L * p * n) for L in lens)
     nbytes = ((2 * b * s * h * p + 2 * b * s * g * n) * dtype.itemsize
-              + 4 * (b * s * h + h + b * h * p * n))
+              + 4 * (b * s * h + h + (2 if init else 1) * b * h * p * n))
     return flops, nbytes
 
 
 def backward_work(b: int, s: int, h: int, p: int, n: int, g: int,
-                  chunk: int, dtype: torch.dtype, dstate: bool = False
-                  ) -> Tuple[int, int]:
+                  chunk: int, dtype: torch.dtype, dstate: bool = False,
+                  dinit: bool = False) -> Tuple[int, int]:
     """(flops, bytes) of one backward call, each chunk as long as it is:
     C B^T on and below the diagonal once a group; for each head dM = dy
     x^T, M^T dy and the two products of dM E dt with B and C on and below
     the diagonal, and the chunk's four state products (U, dS B, dS^T x,
     S_in^T dy); x, B, C, dy read and dx, dB, dC written once in ``dtype``,
-    dt read and ddt written once in fp32, A read and dA written once, and
-    the final state's cotangent read once where there is one."""
+    dt read and ddt written once in fp32, A read and dA written once, the
+    final state's cotangent read once where there is one and the initial
+    state's written once where it is asked for."""
     q = min(chunk, s)
     lens = [min(q, s - t0) for t0 in range(0, s, q)]
     flops = sum(b * g * L * (L + 1) * n
@@ -144,7 +151,8 @@ def backward_work(b: int, s: int, h: int, p: int, n: int, g: int,
                 for L in lens)
     nbytes = ((3 * b * s * h * p + 4 * b * s * g * n) * dtype.itemsize
               + 4 * (2 * b * s * h + 2 * h
-                     + (b * h * p * n if dstate else 0)))
+                     + (b * h * p * n if dstate else 0)
+                     + (b * h * p * n if dinit else 0)))
     return flops, nbytes
 
 
@@ -154,14 +162,24 @@ def _wide(t: torch.Tensor) -> torch.Tensor:
     return t if t.dtype == torch.float64 else t.float()
 
 
+def _initial(init_state: Optional[torch.Tensor], like: torch.Tensor,
+             shape) -> torch.Tensor:
+    """The scan's starting state in the working type of ``like``, reshaped
+    to ``shape``: the caller's, or zeros."""
+    if init_state is None:
+        return like.new_zeros(shape)
+    return init_state.to(like.dtype).reshape(shape)
+
+
 def ssd_scan_plain(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
-                   B: torch.Tensor, C: torch.Tensor, chunk: int = 256
+                   B: torch.Tensor, C: torch.Tensor, chunk: int = 256,
+                   init_state: Optional[torch.Tensor] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch, any device: the Pallas kernel's chunk loop, one chunk
-    at a time with the state carried, in fp32 (float64 for float64 inputs).
-    The last chunk is simply shorter, which is what padding it with ``dt =
-    0`` computes. The heads of a group meet B and C through a broadcast over
-    an (h // g) axis."""
+    at a time with the state carried, in fp32 (float64 for float64 inputs),
+    from ``init_state`` (b, h, p, n) or zero. The last chunk is simply
+    shorter, which is what padding it with ``dt = 0`` computes. The heads
+    of a group meet B and C through a broadcast over an (h // g) axis."""
     b, s, h, p = x.shape
     g, n = B.shape[-2], B.shape[-1]
     r = h // g
@@ -170,7 +188,7 @@ def ssd_scan_plain(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     dtf = _wide(dt).reshape(b, s, g, r)
     Af = _wide(A).reshape(g, r)
     Bf, Cf = _wide(B), _wide(C)
-    state = xf.new_zeros((b, g, r, p, n))
+    state = _initial(init_state, xf, (b, g, r, p, n))
     ys = []
     for t0 in range(0, s, q):
         sl = slice(t0, min(t0 + q, s))
@@ -241,14 +259,15 @@ def ssd_chunk_states_plain(x: torch.Tensor, dt: torch.Tensor,
             states.reshape(b, h, nc, p, n))
 
 
-def ssd_state_pass_plain(states: torch.Tensor, cs: torch.Tensor
+def ssd_state_pass_plain(states: torch.Tensor, cs: torch.Tensor,
+                         init_state: Optional[torch.Tensor] = None
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Stage ``pass``: from a zero state, S_in[c] = S, S = S e^(cs_last[c])
-    + states[c] -> (the incoming states (b, h, nc, p, n), the final state
-    (b, h, p, n))."""
+    """Stage ``pass``: from ``init_state`` (b, h, p, n) or a zero state,
+    S_in[c] = S, S = S e^(cs_last[c]) + states[c] -> (the incoming states
+    (b, h, nc, p, n), the final state (b, h, p, n))."""
     decay = torch.exp(cs[..., -1])                            # (b, h, nc)
     incoming = torch.empty_like(states)
-    S = torch.zeros_like(states[:, :, 0])
+    S = _initial(init_state, states, states[:, :, 0].shape)
     for c in range(states.shape[2]):
         incoming[:, :, c] = S
         S = S * decay[:, :, c, None, None] + states[:, :, c]
@@ -282,26 +301,28 @@ def ssd_chunk_outputs_plain(x: torch.Tensor, dt: torch.Tensor,
 
 
 def ssd_scan_stages_plain(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
-                          B: torch.Tensor, C: torch.Tensor, chunk: int = 256
+                          B: torch.Tensor, C: torch.Tensor, chunk: int = 256,
+                          init_state: Optional[torch.Tensor] = None
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The stages composed as the kernels compose them: equal to
     ``ssd_scan_plain``."""
     cs, states = ssd_chunk_states_plain(x, dt, A, B, chunk)
-    incoming, final = ssd_state_pass_plain(states, cs)
+    incoming, final = ssd_state_pass_plain(states, cs, init_state)
     return ssd_chunk_outputs_plain(x, dt, cs, B, C, incoming, chunk), final
 
 
 def ssd_scan_train_plain(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
-                         B: torch.Tensor, C: torch.Tensor, chunk: int = 256
+                         B: torch.Tensor, C: torch.Tensor, chunk: int = 256,
+                         init_state: Optional[torch.Tensor] = None
                          ) -> Tuple[torch.Tensor, ...]:
     """The training forward in plain PyTorch: ``TRAIN_OUTPUTS`` (y, the
-    final state, the scores, the cumsums, the incoming states) in the
-    kernels' layouts (``_buffer_specs``), from the stages: the q x q
-    scores padded with zeros to qp x qp, the cumsums with their last
-    value."""
+    final state, the scores, the cumsums, the incoming states, chunk 0's
+    the initial state) in the kernels' layouts (``_buffer_specs``), from
+    the stages: the q x q scores padded with zeros to qp x qp, the cumsums
+    with their last value."""
     G = ssd_chunk_scores_plain(B, C, chunk)
     cs, states = ssd_chunk_states_plain(x, dt, A, B, chunk)
-    incoming, final = ssd_state_pass_plain(states, cs)
+    incoming, final = ssd_state_pass_plain(states, cs, init_state)
     y = ssd_chunk_outputs_plain(x, dt, cs, B, C, incoming, chunk)
     q = cs.shape[-1]
     qp = -(-q // TILE) * TILE
@@ -316,13 +337,17 @@ def ssd_scan_backward_plain(x: torch.Tensor, dt: torch.Tensor,
                             A: torch.Tensor, B: torch.Tensor,
                             C: torch.Tensor, dy: torch.Tensor,
                             dstate: Optional[torch.Tensor] = None,
-                            chunk: int = 256) -> Tuple[torch.Tensor, ...]:
+                            chunk: int = 256,
+                            init_state: Optional[torch.Tensor] = None
+                            ) -> Tuple[torch.Tensor, ...]:
     """The gradient of ``ssd_scan_plain`` in closed form (the module's
     docstring), in fp32 (float64 for float64 inputs), chunk by chunk: a
-    forward walk for each chunk's cumsums and incoming state, then the
-    chunks from last to first with the final state's cotangent carried. dy:
-    (b, s, h, p); dstate: (b, h, p, n) or None. -> (dx, ddt, dA, dB, dC),
-    each in its input's type. The last chunk is simply shorter. Not
+    forward walk for each chunk's cumsums and incoming state (from
+    ``init_state`` or zero), then the chunks from last to first with the
+    final state's cotangent carried. dy: (b, s, h, p); dstate: (b, h, p, n)
+    or None. -> (dx, ddt, dA, dB, dC), each in its input's type, and, with
+    an ``init_state``, its cotangent ``dinit`` (b, h, p, n) fp32: the
+    carried cotangent past chunk 0. The last chunk is simply shorter. Not
     autograd."""
     b, s, h, p = x.shape
     g, n = B.shape[-2], B.shape[-1]
@@ -335,7 +360,7 @@ def ssd_scan_backward_plain(x: torch.Tensor, dt: torch.Tensor,
     Bf, Cf = _wide(B), _wide(C)
     slices = [slice(t0, min(t0 + q, s)) for t0 in range(0, s, q)]
     cums, incoming = [], []
-    S = xf.new_zeros((b, g, r, p, n))
+    S = _initial(init_state, xf, (b, g, r, p, n))
     for sl in slices:
         cs = torch.cumsum(dtf[:, sl] * Af, dim=1)               # (b, L, g, r)
         w = dtf[:, sl] * torch.exp(cs[:, -1:] - cs)
@@ -386,9 +411,12 @@ def ssd_scan_backward_plain(x: torch.Tensor, dt: torch.Tensor,
         dA += (dtc * rev).sum((0, 1))
         U = torch.einsum("bign,bigrp->bgrpn", Cc, dyc * ecs[..., None])
         D = D * ecs[:, -1][..., None, None] + U
-    return (dx.reshape(b, s, h, p).to(x.dtype),
-            ddt.reshape(b, s, h).to(dt.dtype), dA.reshape(h).to(A.dtype),
-            dB.to(B.dtype), dC.to(C.dtype))
+    grads = (dx.reshape(b, s, h, p).to(x.dtype),
+             ddt.reshape(b, s, h).to(dt.dtype), dA.reshape(h).to(A.dtype),
+             dB.to(B.dtype), dC.to(C.dtype))
+    if init_state is None:
+        return grads
+    return grads + (D.reshape(b, h, p, n).to(init_state.dtype),)
 
 
 # ------------------------------------------------------------------------- #
@@ -412,11 +440,12 @@ def ssd_bwd_dstates_plain(dy: torch.Tensor, C: torch.Tensor,
 
 
 def ssd_bwd_state_pass_plain(U: torch.Tensor, cs: torch.Tensor,
-                             dstate: Optional[torch.Tensor] = None
-                             ) -> torch.Tensor:
+                             dstate: Optional[torch.Tensor] = None,
+                             with_dinit: bool = False):
     """Stage ``dpass``: from D = dstate (or 0), the chunks from last to
     first, dS[c] = D, D = D e^(cs_last[c]) + U[c] -> each chunk's final
-    state's cotangent (b, h, nc, p, n)."""
+    state's cotangent (b, h, nc, p, n); with ``with_dinit``, also D past
+    chunk 0, the initial state's cotangent (b, h, p, n)."""
     decay = torch.exp(_wide(cs[..., -1]))                    # (b, h, nc)
     dS = torch.empty_like(U)
     D = (torch.zeros_like(U[:, :, 0]) if dstate is None
@@ -424,7 +453,7 @@ def ssd_bwd_state_pass_plain(U: torch.Tensor, cs: torch.Tensor,
     for c in reversed(range(U.shape[2])):
         dS[:, :, c] = D
         D = D * decay[:, :, c, None, None] + U[:, :, c]
-    return dS
+    return (dS, D) if with_dinit else dS
 
 
 def ssd_scan_backward_plan(b: int, s: int, h: int, g: int, n: int,
@@ -579,7 +608,8 @@ def ssd_scan_backward_stages_plain(x: torch.Tensor, dt: torch.Tensor,
                                    A: torch.Tensor, B: torch.Tensor,
                                    C: torch.Tensor, dy: torch.Tensor,
                                    dstate: Optional[torch.Tensor] = None,
-                                   chunk: int = 256
+                                   chunk: int = 256,
+                                   init_state: Optional[torch.Tensor] = None
                                    ) -> Tuple[torch.Tensor, ...]:
     """The training forward's scratch and the backward's stages composed as
     the kernels compose them, on ``ssd_scan_backward_plan``'s splits: equal
@@ -587,9 +617,10 @@ def ssd_scan_backward_stages_plain(x: torch.Tensor, dt: torch.Tensor,
     b, s, h, _ = x.shape
     g, n = B.shape[2], B.shape[3]
     splits = ssd_scan_backward_plan(b, s, h, g, n, chunk)[0]
-    _, _, scores, cs, incoming = ssd_scan_train_plain(x, dt, A, B, C, chunk)
-    dS = ssd_bwd_state_pass_plain(ssd_bwd_dstates_plain(dy, C, cs, chunk),
-                                  cs, dstate)
+    _, _, scores, cs, incoming = ssd_scan_train_plain(x, dt, A, B, C, chunk,
+                                                      init_state)
+    dS, dinit = ssd_bwd_state_pass_plain(
+        ssd_bwd_dstates_plain(dy, C, cs, chunk), cs, dstate, with_dinit=True)
     dC_part, rows, last = ssd_bwd_rows_plain(x, dt, B, C, dy, scores, cs,
                                              incoming, dS, chunk, splits)
     dx, dB_part, rs, xsb = ssd_bwd_cols_plain(x, dt, B, C, dy, scores, cs,
@@ -597,7 +628,8 @@ def ssd_scan_backward_stages_plain(x: torch.Tensor, dt: torch.Tensor,
     ddt, share = ssd_bwd_finish_plain(torch.stack([rows, rs, xsb], 3), last,
                                       dt, A, cs, chunk)
     dB, dC, dA = ssd_bwd_reduce_plain(dB_part, dC_part, share, B.dtype)
-    return dx, ddt.to(dt.dtype), dA.to(A.dtype), dB, dC
+    grads = (dx, ddt.to(dt.dtype), dA.to(A.dtype), dB, dC)
+    return grads if init_state is None else grads + (dinit,)
 
 
 # ------------------------------------------------------------------------- #
@@ -657,6 +689,21 @@ def _check(x, dt, A, B, C, chunk) -> int:
     return q
 
 
+def _check_state(name: str, t: Optional[torch.Tensor], x: torch.Tensor,
+                 B: torch.Tensor, what: str = "ssd_scan kernel") -> None:
+    """Raise unless ``t`` (an initial state, or None) is a contiguous fp32
+    (b, h, p, n) tensor on x's device."""
+    if t is None:
+        return
+    b, _, h, p = x.shape
+    shape = (b, h, p, B.shape[3])
+    if (t.shape != shape or t.dtype != torch.float32 or t.device != x.device
+            or not t.is_contiguous()):
+        raise ValueError(f"{what}: {name} {tuple(t.shape)} {t.dtype} on "
+                         f"{t.device}; want a contiguous float32 {shape} on "
+                         "x's device")
+
+
 def _buffer_specs(x: torch.Tensor, B: torch.Tensor, chunk: int) -> dict:
     """name -> (shape, dtype) of the outputs and of the stages' scratch."""
     b, s, h, p = x.shape
@@ -680,7 +727,7 @@ def ssd_buffers(x: torch.Tensor, B: torch.Tensor,
 
 
 def _launch(x, dt, A, B, C, q: int, buffers: Dict[str, torch.Tensor],
-            mask: int) -> None:
+            mask: int, init: Optional[torch.Tensor] = None) -> None:
     b, s, h, p = x.shape
     g, n = B.shape[2], B.shape[3]
     y = buffers["y"]
@@ -688,7 +735,8 @@ def _launch(x, dt, A, B, C, q: int, buffers: Dict[str, torch.Tensor],
         stream = torch.cuda.current_stream(x.device).cuda_stream
         code = _build.lib().repro_ssd_scan(
             x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
-            C.data_ptr(), y.data_ptr(), buffers["state"].data_ptr(),
+            C.data_ptr(), None if init is None else init.data_ptr(),
+            y.data_ptr(), buffers["state"].data_ptr(),
             buffers["scores"].data_ptr(), buffers["cs"].data_ptr(),
             buffers["states"].data_ptr(), b, s, h, p, g, n, q,
             *x.stride()[:3], *dt.stride(), *B.stride()[:3], *C.stride()[:3],
@@ -714,46 +762,56 @@ def _check_buffers(buffers: Dict[str, torch.Tensor], specs: dict,
 
 def ssd_stages_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                     B: torch.Tensor, C: torch.Tensor, chunk: int,
-                    buffers: Dict[str, torch.Tensor], stages=STAGES) -> None:
+                    buffers: Dict[str, torch.Tensor], stages=STAGES,
+                    init_state: Optional[torch.Tensor] = None) -> None:
     """Launch the named stage kernels, in ``STAGES``' order, on PyTorch's
     current stream, reading and writing ``buffers`` (as ``ssd_buffers``
-    makes them): a stage reads what the stages before it wrote there. For
-    the card's tests and timings of one stage."""
+    makes them): a stage reads what the stages before it wrote there; the
+    pass starts from ``init_state`` or zero. For the card's tests and
+    timings of one stage."""
     q = _check(x, dt, A, B, C, chunk)
+    _check_state("init_state", init_state, x, B)
     unknown = set(stages) - set(STAGES)
     if unknown:
         raise ValueError(f"ssd_scan kernel: no stage {sorted(unknown)}")
     _check_buffers(buffers, _buffer_specs(x, B, chunk), x.device,
                    "ssd_scan kernel")
     _launch(x, dt, A, B, C, q, buffers,
-            sum(1 << i for i, name in enumerate(STAGES) if name in stages))
+            sum(1 << i for i, name in enumerate(STAGES) if name in stages),
+            init_state)
 
 
 def ssd_scan_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
-                  B: torch.Tensor, C: torch.Tensor, chunk: int = 256
+                  B: torch.Tensor, C: torch.Tensor, chunk: int = 256,
+                  init_state: Optional[torch.Tensor] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the ``KERNELS_PER_CALL`` stage kernels on PyTorch's current
     stream, with no synchronisation. x, B, C are taken by their strides
     (views of the conv output are fine; the last dim must be contiguous and
-    every row 16-byte aligned). Raises on anything the kernels do not take;
-    never computes the result another way."""
+    every row 16-byte aligned); ``init_state``: a contiguous fp32 (b, h, p,
+    n) state the pass starts from, or None for zero. Raises on anything the
+    kernels do not take; never computes the result another way."""
     q = _check(x, dt, A, B, C, chunk)
+    _check_state("init_state", init_state, x, B)
     buffers = ssd_buffers(x, B, chunk)
-    _launch(x, dt, A, B, C, q, buffers, (1 << len(STAGES)) - 1)
+    _launch(x, dt, A, B, C, q, buffers, (1 << len(STAGES)) - 1, init_state)
     return buffers["y"], buffers["state"]
 
 
 def ssd_scan_train_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
-                        B: torch.Tensor, C: torch.Tensor, chunk: int = 256
+                        B: torch.Tensor, C: torch.Tensor, chunk: int = 256,
+                        init_state: Optional[torch.Tensor] = None
                         ) -> Tuple[torch.Tensor, ...]:
     """The training route's forward: the same kernels as ``ssd_scan_cuda``,
     handing back ``TRAIN_OUTPUTS`` (y, the final state, and the scores,
-    cumsums and incoming states the backward reads). Refuses, before it
-    launches, a head_dim the backward does not take."""
+    cumsums and incoming states the backward reads: chunk 0's is
+    ``init_state``). Refuses, before it launches, a head_dim the backward
+    does not take."""
     q = _check(x, dt, A, B, C, chunk)
     _check_backward_head_dim(x.shape[3])
+    _check_state("init_state", init_state, x, B)
     buffers = ssd_buffers(x, B, chunk)
-    _launch(x, dt, A, B, C, q, buffers, (1 << len(STAGES)) - 1)
+    _launch(x, dt, A, B, C, q, buffers, (1 << len(STAGES)) - 1, init_state)
     return tuple(buffers[name] for name in TRAIN_OUTPUTS)
 
 
@@ -828,7 +886,10 @@ def ssd_backward_buffers(x: torch.Tensor, B: torch.Tensor,
 
 
 def _launch_backward(x, dt, A, B, C, dy, dstate, scores, cs, incoming, q,
-                     buffers: Dict[str, torch.Tensor], mask: int) -> None:
+                     buffers: Dict[str, torch.Tensor], mask: int,
+                     dinit: Optional[torch.Tensor] = None) -> None:
+    """``dinit``: where the forward started from an initial state (chunk
+    0's incoming state), the tensor its cotangent goes to; else None."""
     b, s, h, p = x.shape
     g, n = B.shape[2], B.shape[3]
     splits = ssd_scan_backward_plan(b, s, h, g, n, q)[0]
@@ -840,7 +901,8 @@ def _launch_backward(x, dt, A, B, C, dy, dstate, scores, cs, incoming, q,
             C.data_ptr(), dy.data_ptr(),
             None if dstate is None else dstate.data_ptr(),
             scores.data_ptr(), cs.data_ptr(), incoming.data_ptr(),
-            ptr("dS"), ptr("dcs"), ptr("dA_part"), ptr("dB_part"),
+            int(dinit is not None),
+            None if dinit is None else dinit.data_ptr(), ptr("dS"), ptr("dcs"), ptr("dA_part"), ptr("dB_part"),
             ptr("dC_part"), ptr("dx"), ptr("ddt"), ptr("dA"), ptr("dB"),
             ptr("dC"), b, s, h, p, g, n, q, splits, *x.stride()[:3],
             *dt.stride(), *B.stride()[:3], *C.stride()[:3], *dy.stride()[:3],
@@ -851,14 +913,18 @@ def _launch_backward(x, dt, A, B, C, dy, dstate, scores, cs, incoming, q,
 def ssd_scan_backward_stages_cuda(x, dt, A, B, C, dy, dstate, scores, cs,
                                   incoming, chunk: int,
                                   buffers: Dict[str, torch.Tensor],
-                                  stages=BACKWARD_STAGES) -> None:
+                                  stages=BACKWARD_STAGES,
+                                  dinit: Optional[torch.Tensor] = None
+                                  ) -> None:
     """Launch the named backward stage kernels, in ``BACKWARD_STAGES``'
     order, on PyTorch's current stream, reading and writing ``buffers`` (as
     ``ssd_backward_buffers`` makes them): a stage reads what the stages
-    before it wrote there. For the card's tests and timings of one
-    stage."""
+    before it wrote there. ``dinit``: given where the forward started from
+    an initial state (``incoming`` holds it as chunk 0's); ``dpass`` writes
+    its cotangent there. For the card's tests and timings of one stage."""
     q = _check_backward(x, dt, A, B, C, dy, dstate, scores, cs, incoming,
                         chunk)
+    _check_state("dinit", dinit, x, B, "ssd_scan backward kernel")
     unknown = set(stages) - set(BACKWARD_STAGES)
     if unknown:
         raise ValueError(f"ssd_scan backward kernel: no stage "
@@ -868,26 +934,33 @@ def ssd_scan_backward_stages_cuda(x, dt, A, B, C, dy, dstate, scores, cs,
     _launch_backward(x, dt, A, B, C, dy, dstate, scores, cs, incoming, q,
                      buffers, sum(1 << i for i, name
                                   in enumerate(BACKWARD_STAGES)
-                                  if name in stages))
+                                  if name in stages), dinit)
 
 
 def ssd_scan_backward_cuda(x: torch.Tensor, dt: torch.Tensor,
                            A: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
                            dy: torch.Tensor, dstate: Optional[torch.Tensor],
                            scores: torch.Tensor, cs: torch.Tensor,
-                           incoming: torch.Tensor, chunk: int = 256
-                           ) -> Tuple[torch.Tensor, ...]:
+                           incoming: torch.Tensor, chunk: int = 256,
+                           init: bool = False) -> Tuple[torch.Tensor, ...]:
     """Launch the ``BACKWARD_KERNELS_PER_CALL`` kernels on PyTorch's current
     stream, with no synchronisation: the gradient of the scan from dy (x's
     shape and type, rows contiguous and 16-byte aligned), the final state's
     cotangent ``dstate`` (or None) and the training forward's ``scores``,
-    ``cs`` and incoming states. -> (dx, ddt, dA, dB, dC), contiguous, each
-    in its input's type. Deterministic: every value is written by one
-    thread, every sum taken in a fixed order. Raises on anything the
-    kernels do not take; never computes the result another way."""
+    ``cs`` and incoming states; ``init``: the forward started from an
+    initial state (the incoming states hold it as chunk 0's). -> (dx, ddt,
+    dA, dB, dC), contiguous, each in its input's type, and with ``init``
+    the initial state's cotangent, fp32 (b, h, p, n).
+    Deterministic: every value is written by one thread, every sum taken in
+    a fixed order. Raises on anything the kernels do not take; never
+    computes the result another way."""
     q = _check_backward(x, dt, A, B, C, dy, dstate, scores, cs, incoming,
                         chunk)
     buffers = ssd_backward_buffers(x, B, chunk)
+    out = (torch.empty((x.shape[0], x.shape[2], x.shape[3], B.shape[3]),
+                       dtype=torch.float32, device=x.device)
+           if init else None)
     _launch_backward(x, dt, A, B, C, dy, dstate, scores, cs, incoming, q,
-                     buffers, (1 << len(BACKWARD_STAGES)) - 1)
-    return tuple(buffers[name] for name in BACKWARD_OUTPUTS)
+                     buffers, (1 << len(BACKWARD_STAGES)) - 1, out)
+    grads = tuple(buffers[name] for name in BACKWARD_OUTPUTS)
+    return grads if out is None else grads + (out,)

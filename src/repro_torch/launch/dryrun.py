@@ -14,7 +14,9 @@ each cell for a 512-device XLA host mesh. Here, for each cell:
      its placements (``cache_shardings``), and a batch that does not divide
      over the data ranks (long_500k's one row) runs whole on every rank,
      the caches the rules split along the sequence holding a block each
-     (``split_caches``);
+     (``split_caches``), and a train step's microbatch whose rows do not
+     divide splits its sequence over the data axis (the dense, ssm and
+     hybrid families; the others refuse, naming ROADMAP item 13);
   3. one step runs under the op counter (``core/op_counter.py``): the
      sharded train step (``train_4k``), the split prefill (``prefill_32k``)
      or a decode step (``decode_32k``, ``long_500k``), every collective on
@@ -121,8 +123,9 @@ def _serving_cell(cfg: ModelConfig, plan, shape: ShapeConfig, mesh):
              for name, t in whole_cache.items()}
     cache.update(split_caches(mesh, specs))
     del whole_cache
-    batch = {k: _local(v, batch_spec(mesh, tuple(v.shape),
-                                     seq_shard=(k == "tokens")), mesh)
+    # each rank's rows; a batch that does not divide runs whole on every
+    # rank (a prefill then takes the rank's block of the prompt itself)
+    batch = {k: _local(v, batch_spec(mesh, tuple(v.shape)), mesh)
              for k, v in input_specs(cfg, shape).items()}
     extras = {k: v for k, v in batch.items() if k != "tokens"}
     args = (dict(model.named_parameters()), cache, batch)

@@ -23,7 +23,10 @@ group's ranks; the LMs' vocabulary (``embed_tokens``, ``lm_logits``,
 embedding holds a block of the vocabulary. A batch that does not divide over
 the data ranks is served whole on each of them, every attention cache split
 along its sequence over the data axis (``attention_block``'s
-``seq_group``, which ``kv_view`` reads from the cache's ``SEQ_SPLIT``).
+``seq_group``, which ``kv_view`` reads from the cache's ``SEQ_SPLIT``); a
+train step or a prefill of such a batch splits each row's sequence over the
+data axis (``attention_block``'s ``seq``, a ``parallel.sharding.SeqBlock``):
+a rank's queries attend over every rank's keys, gathered.
 ``layer_norm`` is not ported: no model of the reference calls it.
 """
 
@@ -37,10 +40,16 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
-from repro_torch.parallel.sharding import SEQ_SPLIT, all_gather_dim
+from repro_torch.parallel.sharding import (
+    SEQ_SPLIT,
+    SeqBlock,
+    all_gather_dim,
+    all_gather_stacked,
+)
 from repro_torch.parallel.tensor import (
     combine_attention,
     copy_to_region,
+    gather_dim,
     reduce_from_region,
     sum_over_group,
     vocab_parallel_cross_entropy,
@@ -140,11 +149,22 @@ def rope_frequencies(head_dim: int, fraction: float, theta: float,
 
 
 def rope_positions(seq: int, offset: Optional[torch.Tensor],
-                   device) -> torch.Tensor:
-    """Positions of ``seq`` new tokens: (1, seq) from 0, or (b, seq) from
-    each sequence's own clock ``offset`` (b,)."""
-    base = torch.arange(seq, device=device)[None, :]
+                   device, start: int = 0) -> torch.Tensor:
+    """Positions of ``seq`` new tokens: (1, seq) from ``start``, or (b, seq)
+    from each sequence's own clock ``offset`` (b,) plus ``start``. ``start``:
+    the first row of a rank's block of a sequence split along its length
+    (``SeqBlock.first``)."""
+    base = torch.arange(start, start + seq, device=device)[None, :]
     return base if offset is None else base + offset[:, None]
+
+
+def block_offset(seq: Optional[SeqBlock], b: int, device
+                 ) -> Optional[torch.Tensor]:
+    """The attention kernels' ``q_offset`` (b,) int32 of a rank's block of
+    query rows (``seq``'s first row), or None without a split."""
+    if seq is None:
+        return None
+    return torch.full((b,), seq.first, dtype=torch.int32, device=device)
 
 
 def apply_rope(x: torch.Tensor, cos: torch.Tensor,
@@ -222,6 +242,32 @@ def split_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return combine_attention(out, lse, group, q.dtype).transpose(1, 2)
 
 
+def prompt_block(tokens: torch.Tensor, group, min_rows: int = 1
+                 ) -> Tuple[torch.Tensor, Optional[SeqBlock]]:
+    """A prompt of a batch served whole on every data rank (``group``, the
+    data axis's, or None): this rank's block of its rows and the
+    ``SeqBlock`` of the split where the prompt's length divides the group
+    into blocks of at least ``min_rows``, else the prompt whole and None."""
+    s = tokens.shape[1]
+    if group is None or s <= 1:
+        return tokens, None
+    n = dist.get_world_size(group)
+    rows = s // n
+    if n <= 1 or s % n or rows < min_rows:
+        return tokens, None
+    first = dist.get_rank(group) * rows
+    return tokens[:, first:first + rows], SeqBlock(group, first)
+
+
+def last_row(x: torch.Tensor, seq: Optional[SeqBlock]) -> torch.Tensor:
+    """The sequence's last row of ``x`` (b, s, d), (b, 1, d): under ``seq``
+    the last rank's, all-gathered, so that every rank holds the same
+    bits."""
+    if seq is None:
+        return x[:, -1:]
+    return all_gather_stacked(x[:, -1:].contiguous(), seq.group)[-1]
+
+
 def kv_view(cache: dict, k: str, v: str, i: int, clock: bool = True
             ) -> dict:
     """``attention_block``'s ``kv_cache`` of entry ``i`` of a model's
@@ -254,6 +300,7 @@ def attention_block(
     xkv: Optional[torch.Tensor] = None,   # cross-attention source (b, src, d)
     precomputed_kv: bool = False,      # kv_cache holds frozen cross K/V
     group=None,                        # the model axis, weights its shards
+    seq: Optional[SeqBlock] = None,    # x holds this rank's block of rows
 ) -> torch.Tensor:
     """GQA attention. With ``kv_cache`` the new keys and values are
     written into ``kv_cache["k"]`` / ``["v"]`` IN PLACE (the JAX package
@@ -284,7 +331,17 @@ def attention_block(
     last rank), and attends over each rank's block with the kernels'
     partial route, the ranks' rows combined by log-sum-exp
     (``split_attention``); so does a cross-attention over a frozen cross
-    K/V split along its source. Serving only."""
+    K/V split along its source. Serving only.
+
+    With ``seq`` (a ``SeqBlock``: a train step or a prefill whose rows are
+    split along the sequence over the data axis) ``x`` holds this rank's
+    block of every row, from row ``seq.first``: the rotary positions start
+    there (``rope``, where given, holds them already), the block's keys and
+    values are all-gathered along the sequence over ``seq.group``
+    (``gather_dim``: the backward reduce-scatters their gradient back) and
+    its queries attend causally over every row's keys with ``q_offset`` =
+    ``seq.first``. A prefill then writes the rows of its cache block from
+    the gathered keys and values. Self-attention only."""
     b, s, _ = x.shape
     seq_group = None if kv_cache is None else kv_cache.get("seq_group")
     if group is not None:
@@ -318,23 +375,31 @@ def attention_block(
             offset = offset.expand(b)
     if rope_fraction > 0:
         if rope is None:
-            rope = rope_frequencies(head_dim, rope_fraction, rope_theta,
-                                    rope_positions(s, offset, x.device))
+            rope = rope_frequencies(
+                head_dim, rope_fraction, rope_theta,
+                rope_positions(s, offset, x.device,
+                               0 if seq is None else seq.first))
         # One pass over the q and k heads together: the rotation is per
         # element, and eager PyTorch pays for every launch.
         qk = apply_rope(torch.cat([q, k], dim=2), *rope)
         q, k = qk[:, :, :num_heads], qk[:, :, num_heads:]
 
     if kv_cache is None:
-        return project_out(attention(q, k, v, causal=causal))
-    return project_out(_cache_step(q, k, v, kv_cache, offset, seq_group))
+        if seq is not None:
+            k, v = gather_dim(k, 1, seq.group), gather_dim(v, 1, seq.group)
+        return project_out(attention(q, k, v, causal=causal,
+                                     q_offset=block_offset(seq, b, x.device)))
+    return project_out(_cache_step(q, k, v, kv_cache, offset, seq_group,
+                                   seq))
 
 
 def _cache_step(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                kv_cache: dict, offset: torch.Tensor, group) -> torch.Tensor:
+                kv_cache: dict, offset: torch.Tensor, group,
+                seq: Optional[SeqBlock] = None) -> torch.Tensor:
     """``attention_block``'s prefill or decode step over its cache, which
     it writes in place; the attention's output. With ``group`` the cache
-    holds this rank's block of the sequence (see there)."""
+    holds this rank's block of the sequence, with ``seq`` the prompt's rows
+    are this rank's block of it (see there)."""
     kc, vc = kv_cache["k"], kv_cache["v"]
     b, s = q.shape[:2]
     rows = kc.shape[1]                       # this block's
@@ -346,12 +411,17 @@ def _cache_step(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         # attends over the whole zero-filled cache under the causal mask; the
         # masked positions weigh exp(-1e30) = 0, so attending over the prompt
         # alone is the same sum. The prompt's rows in this block are written.
-        if s > total:
-            raise ValueError(f"a prompt of {s} rows, a cache of {total}")
-        n = max(0, min(s - first, rows))
+        if seq is not None:
+            k = all_gather_dim(k.contiguous(), 1, seq.group)
+            v = all_gather_dim(v.contiguous(), 1, seq.group)
+        prompt = k.shape[1]
+        if prompt > total:
+            raise ValueError(f"a prompt of {prompt} rows, a cache of {total}")
+        n = max(0, min(prompt - first, rows))
         kc[:, :n] = k[:, first:first + n].to(kc.dtype)
         vc[:, :n] = v[:, first:first + n].to(vc.dtype)
-        return attention(q, k, v, causal=True)
+        return attention(q, k, v, causal=True,
+                         q_offset=block_offset(seq, b, q.device))
     # Decode: each sequence writes at its own position and attends over the
     # cache up to it. A slot that no request owns keeps ticking and may run
     # past the cache: its position is clamped to the (global) last row,

@@ -39,6 +39,17 @@ row-parallel) with B, C and dt's projections replicated
 the ``conv`` cache stays whole on every rank, each new row's x channels
 all-gathered before it is written. The vocabulary and the shared block
 split as the transformer's do.
+
+A loss or a prefill may run a rank's block of each row's sequence, split
+over the data axis (``seq_block``, set by ``train.sharded_train_step``;
+``prompt_group``, set by ``train.shard_model`` for a batch served whole on
+every data rank; a ``parallel.sharding.SeqBlock``): the conv takes the
+previous block's last ``conv_width - 1`` raw rows as its halo (zeros on the
+first block), the scan starts from the state the earlier blocks leave
+(``split_ssd_scan``) and the shared block attends over every rank's keys
+(``models.common.attention_block``'s ``seq``). Every data rank's gradient
+reaches the blocks it read: the halos' and the states' through the
+all-gathers' reduce-scatters.
 """
 
 from __future__ import annotations
@@ -62,8 +73,10 @@ from repro_torch.models.common import (
     init_generator,
     init_ffn_params,
     kv_view,
+    last_row,
     lm_cross_entropy,
     lm_logits,
+    prompt_block,
     rms_norm,
     rope_frequencies,
     rope_positions,
@@ -71,8 +84,12 @@ from repro_torch.models.common import (
     split_rms_norm,
 )
 from repro_torch.models.transformer import FFN, Attention, _param, apply_remat
-from repro_torch.parallel.sharding import all_gather_dim
-from repro_torch.parallel.tensor import copy_to_region, reduce_from_region
+from repro_torch.parallel.sharding import SeqBlock, all_gather_dim
+from repro_torch.parallel.tensor import (
+    copy_to_region,
+    gather_stacked,
+    reduce_from_region,
+)
 
 
 def _dims(cfg: ModelConfig):
@@ -177,13 +194,15 @@ def _project(w: Dict[str, torch.Tensor], x: torch.Tensor):
     return z, xbc, x @ w["wdt"]
 
 
-def _causal_conv(xbc: torch.Tensor, w: torch.Tensor,
-                 b: torch.Tensor) -> torch.Tensor:
+def _causal_conv(xbc: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                 halo: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Depthwise causal conv1d as the reference writes it: ``width`` shifted
     multiply-adds (no cuDNN, so fp32 stays fp32). xbc: (batch, s, ch),
-    w: (width, ch)."""
+    w: (width, ch); ``halo``: the (batch, width - 1, ch) raw rows before
+    xbc's first (a split sequence's previous block), zeros where None."""
     width, s = w.shape[0], xbc.shape[1]
-    pad = F.pad(xbc, (0, 0, width - 1, 0))
+    pad = (F.pad(xbc, (0, 0, width - 1, 0)) if halo is None
+           else torch.cat([halo.to(xbc.dtype), xbc], dim=1))
     out = pad[:, 0:s] * w[0]
     for i in range(1, width):
         out = out + pad[:, i:i + s] * w[i]
@@ -205,14 +224,56 @@ def _gated_out(lp: MambaLayer, cfg: ModelConfig, w: Dict[str, torch.Tensor],
     return reduce_from_region(y @ w["out_proj"], group)
 
 
-def mamba_layer(lp: MambaLayer, cfg: ModelConfig, x: torch.Tensor
+def split_ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                   B: torch.Tensor, C: torch.Tensor, chunk: int, group
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``ops.ssd_scan`` of this rank's block of a sequence split along its
+    length over ``group`` (rank r of n holds block r): (y of the block, the
+    whole sequence's final state, the same on every rank).
+
+    Each rank scans its block from zero for its final state and takes its
+    total log decay sum(dt A); both are all-gathered (``gather_stacked``),
+    and every rank forms its incoming state from the earlier blocks',
+    S_r = sum_(j < r) e^(decay_(j+1) + ... + decay_(r-1)) final_j, then
+    scans its block from S_r (the kernels' ``init_state``). The scan is
+    linear in its starting state, so that is the whole sequence's scan.
+    Backward, the cotangent of S_r (the kernels' ``dinit``) flows to the
+    earlier blocks' finals and decays, and the gathers' reduce-scatters
+    hand each rank its blocks' share: the gradient reaches every block a
+    rank's output read. Every rank builds the same graph (rank 0's weights
+    are zeros, not a missing term), so that every rank's backward issues
+    its collectives in the same order. The block is scanned twice (from
+    zero, for its final state, and from S_r), each with its backward."""
+    _, final = ops.ssd_scan(x, dt, A, B, C, chunk)
+    finals = gather_stacked(final, group)                    # (n, b, h, p, n)
+    decays = gather_stacked((dt * A).sum(1), group)           # (n, b, h)
+    n = finals.shape[0]
+    # cum[i]: the log decay of blocks 0 .. i - 1
+    cum = torch.cat([torch.zeros_like(decays[:1]), decays.cumsum(0)])
+    rank = dist.get_rank(group)
+    ends = torch.tensor([rank, n], device=x.device)          # S_r, S_n
+    j = torch.arange(n, device=x.device)
+    logw = cum[ends][:, None] - cum[1:][None]                 # (2, n, b, h)
+    logw = torch.where((j[None] < ends[:, None])[..., None, None], logw,
+                       -math.inf)
+    start, whole = torch.einsum("enbh,nbhpk->ebhpk", torch.exp(logw), finals)
+    y, _ = ops.ssd_scan(x, dt, A, B, C, chunk, start.contiguous())
+    return y, whole
+
+
+def mamba_layer(lp: MambaLayer, cfg: ModelConfig, x: torch.Tensor,
+                seq: Optional[SeqBlock] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Full-sequence Mamba2 block from a zero state. x: (b, s, d).
 
     Returns (out, final ssm state (b, h, p, n) fp32, conv tail): the tail is
     the last (width - 1) raw xbc rows, left-padded with zeros for a prompt
     shorter than that — the decode conv state (this rank's channels under
-    ``tp_group``, and h its heads)."""
+    ``tp_group``, and h its heads).
+
+    With ``seq`` x holds this rank's block of each row (see the module; a
+    block of at least width - 1 rows): the out of the block, and the final
+    state and the tail of the whole sequence, the same on every rank."""
     ssm = cfg.ssm
     gn = ssm.ngroups * ssm.state_dim
     w = lp.weights()
@@ -221,10 +282,24 @@ def mamba_layer(lp: MambaLayer, cfg: ModelConfig, x: torch.Tensor
     heads, di = w["A_log"].shape[0], w["wx"].shape[1]
     z, xbc_raw, dt = _project(w, x)
     keep = ssm.conv_width - 1
-    tail = xbc_raw[:, -keep:]
-    if tail.shape[1] < keep:
-        tail = F.pad(tail, (0, 0, keep - tail.shape[1], 0))
-    xbc = _causal_conv(xbc_raw, w["conv_w"], w["conv_b"])
+    halo = None
+    if seq is None:
+        tail = xbc_raw[:, -keep:]
+        if tail.shape[1] < keep:
+            tail = F.pad(tail, (0, 0, keep - tail.shape[1], 0))
+    else:
+        if xbc_raw.shape[1] < keep:
+            raise ValueError(
+                f"a block of {xbc_raw.shape[1]} rows is shorter than the "
+                f"conv's halo of {keep}")
+        # every block's last raw rows: the next block's halo
+        # (rank 0's halo is the last block's times 0: every rank builds the
+        # same graph, see split_ssd_scan)
+        tails = gather_stacked(xbc_raw[:, -keep:], seq.group)
+        rank = dist.get_rank(seq.group)
+        halo = tails[rank - 1] * (rank > 0)
+        tail = tails[-1]
+    xbc = _causal_conv(xbc_raw, w["conv_w"], w["conv_b"], halo)
     # Views of the conv output in the kernel's layout: no copy.
     xi = xbc[..., :di].unflatten(-1, (heads, ssm.head_dim))
     B = xbc[..., di:di + gn].unflatten(-1, (ssm.ngroups, ssm.state_dim))
@@ -233,7 +308,10 @@ def mamba_layer(lp: MambaLayer, cfg: ModelConfig, x: torch.Tensor
     # exact value differs from it by less than 1e-8
     dt = F.softplus(dt.float() + w["dt_bias"])
     A = -torch.exp(w["A_log"])
-    y, state = ops.ssd_scan(xi, dt, A, B, C, ssm.chunk_size)
+    if seq is None:
+        y, state = ops.ssd_scan(xi, dt, A, B, C, ssm.chunk_size)
+    else:
+        y, state = split_ssd_scan(xi, dt, A, B, C, ssm.chunk_size, seq.group)
     return _gated_out(lp, cfg, w, y, xi, z), state, tail
 
 
@@ -296,15 +374,17 @@ class SharedAttn(nn.Module):
         self.cfg = cfg
 
     def forward(self, h: torch.Tensor, emb0: torch.Tensor,
-                kv_cache: Optional[dict], rope) -> torch.Tensor:
+                kv_cache: Optional[dict], rope,
+                seq: Optional[SeqBlock] = None) -> torch.Tensor:
         """h, emb0: (b, s, d) -> h after attention and the FFN, each with
         its residual. ``kv_cache``: this application's {k, v, pos}, written
-        in place; ``rope``: the pass's (cos, sin) tables."""
+        in place; ``rope``: the pass's (cos, sin) tables; ``seq``: h holds
+        this rank's block of a split sequence."""
         cfg = self.cfg
         a_in = torch.cat([h, emb0], dim=-1) if (
             cfg.hybrid.attn_concat_embedding) else h
         h = h + self.attn(rms_norm(a_in, self.ln, cfg.norm_eps), kv_cache,
-                          rope)
+                          rope, seq)
         return h + self.ffn(rms_norm(h, self.ln_ffn, cfg.norm_eps))
 
 
@@ -342,8 +422,11 @@ class Mamba(nn.Module):
         if cfg.family == "hybrid":
             self.shared_attn = SharedAttn(cfg, generator, dtype, device)
         # The model axis's group where ``embed`` holds this rank's block of
-        # the vocabulary (parallel.tensor), as the transformer's.
+        # the vocabulary (parallel.tensor), as the transformer's; the
+        # sequence split of a loss and of a prefill, as the transformer's.
         self.vocab_group = None
+        self.seq_block = None
+        self.prompt_group = None
 
     @property
     def device(self) -> torch.device:
@@ -361,17 +444,20 @@ class Mamba(nn.Module):
         return self.cfg.hybrid.attn_every if self.cfg.family == "hybrid" else 0
 
     def _group(self, first: int, x: torch.Tensor, emb0: torch.Tensor,
-               cache: Optional[dict], rope) -> torch.Tensor:
+               cache: Optional[dict], rope,
+               seq: Optional[SeqBlock] = None) -> torch.Tensor:
         """Layers [first, first + group) from a zero state, then (hybrid)
         the shared block. With a cache, each layer's conv tail and final
         state OVERWRITE the cache's (never start from them) and the shared
-        block writes its K/V."""
+        block writes its K/V. ``seq``: x holds this rank's block of a split
+        sequence."""
         cfg = self.cfg
         every = self.attn_every
         for i in range(first, first + max(every, 1)):
             lp = self.layers[i]
             y, state, tail = mamba_layer(lp, cfg, rms_norm(x, lp.ln,
-                                                           cfg.norm_eps))
+                                                           cfg.norm_eps),
+                                         seq)
             x = x + y
             if cache is not None:
                 cache["ssm"][i].copy_(state)
@@ -380,35 +466,40 @@ class Mamba(nn.Module):
             kv = None
             if cache is not None:
                 kv = kv_view(cache, "attn_k", "attn_v", first // every)
-            x = self.shared_attn(x, emb0, kv, rope)
+            x = self.shared_attn(x, emb0, kv, rope, seq)
         return x
 
-    def _rope(self, s: int, cache: Optional[dict], device):
+    def _rope(self, s: int, cache: Optional[dict], device, start: int = 0):
         """The shared block's rotary tables for this pass (once, not once a
-        group), or None."""
+        group), from position ``start`` on, or None."""
         cfg = self.cfg
         if not self.attn_every or cfg.rope_fraction <= 0:
             return None
         return rope_frequencies(
             cfg.resolved_head_dim, cfg.rope_fraction, cfg.rope_theta,
             rope_positions(s, None if cache is None else cache["pos"],
-                           device))
+                           device, start))
 
     def _trunk(self, tokens: torch.Tensor, cache: Optional[dict],
-               remat: Optional[str] = None) -> torch.Tensor:
+               remat: Optional[str] = None,
+               seq: Optional[SeqBlock] = None) -> torch.Tensor:
         """Embedding and all layers from a zero state. tokens: (b, s) ->
         (b, s, d). With a cache the groups fill it (see ``_group``) and the
-        clock advances by s. ``remat``: the policy each group runs under
-        (none with a cache), as the reference's."""
+        clock advances by the whole sequence. ``remat``: the policy each
+        group runs under (none with a cache), as the reference's. ``seq``:
+        tokens are this rank's block of a split sequence."""
         x = embed_tokens(self.embed, tokens, self.vocab_group)
         emb0 = x
-        rope = self._rope(tokens.shape[1], cache, x.device)
+        rope = self._rope(tokens.shape[1], cache, x.device,
+                          0 if seq is None else seq.first)
         group = apply_remat(self._group, None if cache is not None else remat)
         every = max(self.attn_every, 1)
         for first in range(0, self.cfg.num_layers, every):
-            x = group(first, x, emb0, cache, rope)
+            x = group(first, x, emb0, cache, rope, seq)
         if cache is not None:
-            cache["pos"] = cache["pos"] + tokens.shape[1]
+            rows = tokens.shape[1] * (1 if seq is None
+                                      else dist.get_world_size(seq.group))
+            cache["pos"] = cache["pos"] + rows
         return x
 
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
@@ -433,7 +524,7 @@ class Mamba(nn.Module):
         """batch: {tokens, targets} (b, s) integer -> (total, {ce, aux}): the
         mean token cross-entropy in fp32 (targets of -1 ignored); aux is 0,
         as in the reference."""
-        x = self._trunk(batch["tokens"], None, remat)
+        x = self._trunk(batch["tokens"], None, remat, self.seq_block)
         ce = lm_cross_entropy(self._logits(x), batch["targets"],
                               self.vocab_group)
         aux = torch.zeros((), dtype=torch.float32, device=ce.device)
@@ -469,9 +560,14 @@ class Mamba(nn.Module):
                 ) -> Tuple[torch.Tensor, dict]:
         """Fill the cache from the prompt; logits of the last position,
         (b, 1, padded_vocab). Only that position goes through the final norm
-        and the head."""
-        x = self._trunk(tokens, cache)
-        return self._serving_logits(x[:, -1:, :]), cache
+        and the head. Under ``prompt_group`` this rank runs its block of a
+        prompt whose length divides the group into blocks of at least the
+        conv's halo (``prompt_block``); every rank gets the whole prompt's
+        states and the last row's logits, bitwise the same."""
+        tokens, seq = prompt_block(tokens, self.prompt_group,
+                                   self.cfg.ssm.conv_width - 1)
+        x = self._trunk(tokens, cache, seq=seq)
+        return self._serving_logits(last_row(x, seq)), cache
 
     @torch.no_grad()
     def decode_step(self, cache: dict, tokens: torch.Tensor

@@ -19,6 +19,13 @@ summed into ``aux``), with its remat policies (``apply_remat``) on
 ``torch.utils.checkpoint``; attention and RMSNorm run their kernels in both
 directions on the GPU. Serving (``prefill``, ``decode_step``) runs under
 ``torch.no_grad()``; a decode step ignores the auxiliary loss.
+
+A dense model's loss and prefill run a rank's block of each row's sequence
+where the caller splits it over the data axis (``seq_block``, set by
+``train.sharded_train_step``; ``prompt_group``, set by ``train.
+shard_model`` for a batch served whole on every data rank): the rotary
+positions start at the block's first row and each attention gathers every
+rank's keys (``models.common.attention_block``'s ``seq``).
 """
 
 from __future__ import annotations
@@ -48,9 +55,11 @@ from repro_torch.models.common import (
     init_ffn_params,
     init_moe_params,
     kv_view,
+    last_row,
     lm_cross_entropy,
     lm_logits,
     moe_block,
+    prompt_block,
     rms_norm,
     rope_frequencies,
     rope_positions,
@@ -176,8 +185,8 @@ class Attention(nn.Module):
             kv_cache=kv_cache, group=self.tp_group, **kw)
 
     def forward(self, x: torch.Tensor, kv_cache: Optional[dict],
-                rope=None) -> torch.Tensor:
-        return self.attend(x, kv_cache, causal=True, rope=rope)
+                rope=None, seq=None) -> torch.Tensor:
+        return self.attend(x, kv_cache, causal=True, rope=rope, seq=seq)
 
 
 class FFN(nn.Module):
@@ -295,6 +304,11 @@ class Transformer(nn.Module):
         # rank's block of the vocabulary (parallel.tensor): the loss then
         # runs on the block's logits, serving all-gathers them.
         self.vocab_group = None
+        # A loss's split of each row's sequence over the data axis (a
+        # parallel.sharding.SeqBlock), and the data axis's group over which a
+        # prefill of a batch served whole splits its prompt: see the module.
+        self.seq_block = None
+        self.prompt_group = None
 
     @property
     def device(self) -> torch.device:
@@ -306,8 +320,10 @@ class Transformer(nn.Module):
 
     # ------------------------------------------------------------------ #
     def _attn_part(self, layer: "Block", x: torch.Tensor,
-                   kv: Optional[dict] = None, rope=None) -> torch.Tensor:
-        return layer.attn(rms_norm(x, layer.ln1, self.cfg.norm_eps), kv, rope)
+                   kv: Optional[dict] = None, rope=None, seq=None
+                   ) -> torch.Tensor:
+        return layer.attn(rms_norm(x, layer.ln1, self.cfg.norm_eps), kv, rope,
+                          seq)
 
     def _ffn_part(self, layer: "Block", x: torch.Tensor
                   ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
@@ -318,9 +334,9 @@ class Transformer(nn.Module):
         return layer.ffn(h), None
 
     def _block(self, layer: "Block", x: torch.Tensor,
-               kv: Optional[dict] = None, rope=None
+               kv: Optional[dict] = None, rope=None, seq=None
                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-        x = x + self._attn_part(layer, x, kv, rope)
+        x = x + self._attn_part(layer, x, kv, rope, seq)
         y, aux = self._ffn_part(layer, x)
         return x + y, aux
 
@@ -334,13 +350,14 @@ class Transformer(nn.Module):
         return x
 
     def _trunk(self, x: torch.Tensor, cache: Optional[dict],
-               remat: Optional[str] = None
+               remat: Optional[str] = None, seq=None
                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """All layers over the embedded sequence x (b, s, d) -> (x, the MoE
         layers' summed aux loss, fp32, or None without a MoE layer: a dense
         pass makes no tensor for it). Writes the cache's K/V in place and
-        advances its clock. ``remat``: the policy each layer runs under
-        (none with a cache)."""
+        advances its clock (by the whole sequence). ``remat``: the policy
+        each layer runs under (none with a cache). ``seq``: x holds this
+        rank's block of a sequence split over the data axis."""
         cfg = self.cfg
         if cache is not None:
             remat = None
@@ -353,12 +370,12 @@ class Transformer(nn.Module):
                 cfg.resolved_head_dim, cfg.rope_fraction, cfg.rope_theta,
                 rope_positions(x.shape[1],
                                None if cache is None else cache["pos"],
-                               x.device))
+                               x.device, 0 if seq is None else seq.first))
         if remat == "blocks":
             attn_part = apply_remat(self._attn_part, remat)
             ffn_part = apply_remat(self._ffn_part, remat)
             for layer in self.layers:
-                x = x + attn_part(layer, x, None, rope)
+                x = x + attn_part(layer, x, None, rope, seq)
                 y, layer_aux = ffn_part(layer, x)
                 x = x + y
                 if layer_aux is not None:
@@ -369,11 +386,13 @@ class Transformer(nn.Module):
             kv = None
             if cache is not None:
                 kv = kv_view(cache, "k", "v", i)
-            x, layer_aux = block(layer, x, kv, rope)
+            x, layer_aux = block(layer, x, kv, rope, seq)
             if layer_aux is not None:
                 aux = layer_aux if aux is None else aux + layer_aux
         if cache is not None:
-            cache["pos"] = cache["pos"] + x.shape[1]
+            rows = x.shape[1] * (1 if seq is None
+                                 else dist.get_world_size(seq.group))
+            cache["pos"] = cache["pos"] + rows
         return x, aux
 
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
@@ -404,7 +423,7 @@ class Transformer(nn.Module):
         are dropped), and the MoE layers' summed aux loss (0 without MoE)."""
         patches = batch.get("patches")
         x, aux = self._trunk(self._embed(batch["tokens"], patches), None,
-                             remat)
+                             remat, self.seq_block)
         n_patch = 0 if patches is None else patches.shape[1]
         logits = self._logits(x[:, n_patch:])
         ce = lm_cross_entropy(logits, batch["targets"], self.vocab_group)
@@ -430,9 +449,15 @@ class Transformer(nn.Module):
         """Fill a fresh cache from the prompt (behind ``patches`` for the
         VLM); logits of the last position, (b, 1, padded_vocab). Only that
         position goes through the final norm and the head: the others'
-        logits are not needed to serve."""
-        x, _ = self._trunk(self._embed(tokens, patches), cache)
-        return self._serving_logits(x[:, -1:, :]), cache
+        logits are not needed to serve. A dense model under
+        ``prompt_group`` runs this rank's block of a prompt whose length
+        divides the group (``prompt_block``); every rank gets the last
+        row's logits, bitwise the same."""
+        seq = None
+        if self.cfg.family == "dense":
+            tokens, seq = prompt_block(tokens, self.prompt_group)
+        x, _ = self._trunk(self._embed(tokens, patches), cache, seq=seq)
+        return self._serving_logits(last_row(x, seq)), cache
 
     @torch.no_grad()
     def decode_step(self, cache: dict, tokens: torch.Tensor

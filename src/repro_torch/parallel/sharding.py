@@ -217,6 +217,18 @@ class SeqSplit:
     group: object
 
 
+@dataclasses.dataclass(frozen=True)
+class SeqBlock:
+    """This rank's block of every row of a sequence split along its length
+    over the data axis: the axis's ``group`` and the block's ``first`` row
+    (rank r of n holds rows ``[r S / n, (r + 1) S / n)`` of a sequence of
+    S). The one record of a train step's or a prefill's split, which the
+    models read (``models.common.attention_block``, ``models.mamba.
+    mamba_layer``)."""
+    group: object
+    first: int
+
+
 def rows_divide(mesh: Mesh, rows: int) -> bool:
     """Whether ``rows`` batch rows divide over the data-parallel axes, the
     rule of ``batch_spec`` and ``kv_cache_spec``."""

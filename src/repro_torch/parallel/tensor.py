@@ -29,6 +29,13 @@ attention cache's sequence (``parallel.sharding.sequence_split``): a rank
 attends over its block alone (the kernels' partial route) and
 ``combine_attention`` sums the ranks' partial rows by their log-sum-exp,
 the same bits on every rank.
+
+A train step or a prefill whose rows do not divide over the data ranks
+splits each row's sequence over the data axis instead (``parallel.
+sharding.SeqBlock``): what a rank's block needs of the other blocks (the
+keys and values, the conv's halo, the SSD blocks' states) comes through
+``gather_dim`` / ``gather_stacked``, all-gathers whose backward
+reduce-scatters the gradient back to the rank that sent each piece.
 """
 
 from __future__ import annotations
@@ -65,6 +72,36 @@ class _ReduceFromRegion(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         return grad, None
+
+
+class _GatherStacked(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return all_gather_stacked(x.contiguous(), group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        # every rank's gradient of each rank's piece, summed on its owner
+        out = torch.empty(grad[0].numel(), dtype=grad.dtype,
+                          device=grad.device)
+        dist.reduce_scatter_tensor(out, grad.contiguous().reshape(-1),
+                                   group=ctx.group)
+        return out.view(grad.shape[1:]), None
+
+
+def gather_stacked(x: torch.Tensor, group) -> torch.Tensor:
+    """The group's tensors of ``x``'s shape stacked in rank order, (n, ...),
+    on every rank; backward, each piece's gradient summed over the group on
+    the rank that gave it."""
+    return _GatherStacked.apply(x, group)
+
+
+def gather_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """The group's pieces concatenated along ``dim`` in rank order (a
+    sequence split over the group, whole on every rank); backward, the
+    gradient reduce-scattered back onto each rank's piece."""
+    return gather_stacked(x, group).movedim(0, dim).flatten(dim, dim + 1)
 
 
 def copy_to_region(x: torch.Tensor, group) -> torch.Tensor:

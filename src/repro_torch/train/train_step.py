@@ -24,14 +24,25 @@ the collectives explicit:
   * the global batch is cut into microbatches as the reference cuts it
     (``plan.microbatches`` blocks of consecutive rows), and each rank takes
     its rows of each (``batch_spec``), so that the ranks' microbatch i is
-    the reference's; it runs the microbatched forward and backward on its
+    the reference's. Where a microbatch's rows do not divide over the data
+    ranks and its sequence divides the data axis, each data rank takes its
+    block of every row's positions instead, of the tokens and the targets
+    alike (``batch_spec``'s ``seq_shard``, which the reference gives the
+    tokens; each rank's loss needs its positions' targets): the model runs
+    the block (its ``seq_block``, a ``parallel.sharding.SeqBlock``) for the
+    dense, ssm and hybrid families and refuses the others (ROADMAP item
+    13); where neither divides, every data rank runs the whole microbatch.
+    It runs the microbatched forward and backward on its
     shards (tensor parallelism: ``parallel.tensor``, the MoE's experts by
     expert or by hidden layer; ZeRO-3's parameters gathered over the data
     axis where they are read, a layer held whole by one rank broadcast from
     it: ``parallel.zero``);
   * a rank's loss is weighted by its share of the microbatch's targets, so
     the sum over the data-parallel ranks is the reference's mean over the
-    global microbatch; a MoE layer routes the global microbatch (its
+    global microbatch, and each gradient element counts once in that sum
+    where ranks hold the same positions (every rank in the whole case; the
+    pod axis's ranks under a split of the data axis alone); a MoE layer
+    routes the global microbatch (its
     capacity pick and auxiliary loss over every data rank's tokens:
     ``parallel.tensor.route_over``), so its auxiliary loss is the same on
     every rank and, weighted alike, sums to the reference's;
@@ -61,13 +72,14 @@ from repro_torch.models import get_model
 from repro_torch.parallel.mesh import (
     MODEL_AXIS,
     dp_axes,
-    dp_size,
     mesh_spec,
     mp_size,
 )
 from repro_torch.parallel.policy import MemoryPlan
 from repro_torch.parallel.sharding import (
+    SEQ_AXIS,
     Placement,
+    SeqBlock,
     batch_spec,
     entry_axes,
     gather_full,
@@ -192,11 +204,11 @@ def state_shardings(cfg: ModelConfig, plan: MemoryPlan, state: dict,
             "opt": opt}
 
 
-# ROADMAP Queue 1 item: a train step over a batch too small to split over
-# the data-parallel ranks (13's second half: the sequence split in training
-# and prefill). Serving such a batch runs (shard_model); every family splits
-# over the model axis and runs ZeRO-3.
+# ROADMAP Queue 1 item: a batch too small to split over the data-parallel
+# ranks, its sequence split over the data axis instead (13). Its remainder:
+# the families whose train step and prefill do not split the sequence yet.
 SEQUENCE_SPLIT_ITEM = 13
+SEQUENCE_SPLIT_FAMILIES = ("dense", "ssm", "hybrid")
 
 
 def _refuse_unported(mesh) -> None:
@@ -225,7 +237,9 @@ def shard_model(cfg: ModelConfig, plan: MemoryPlan, model, mesh,
     long_500k's one row), every data rank runs the whole batch and the MoE
     layers route it alone; its cache's pieces (``parallel.sharding.
     shard_cache``) then name the caches split along the sequence over the
-    data axis, and their group."""
+    data axis, and their group, and a prefill whose prompt's length divides
+    the data axis runs this rank's block of it (the model's
+    ``prompt_group``)."""
     _refuse_unported(mesh)
     params = dict(model.named_parameters())
     sh = placements or param_shardings(cfg, params, mesh, fsdp=plan.fsdp)
@@ -239,6 +253,10 @@ def shard_model(cfg: ModelConfig, plan: MemoryPlan, model, mesh,
     route_over(model, [] if whole else [mesh.get_group(a)
                                         for a in dp_axes(mesh)
                                         if sizes[a] > 1])
+    if hasattr(model, "prompt_group"):
+        model.prompt_group = (mesh.get_group(SEQ_AXIS)
+                              if whole and sizes.get(SEQ_AXIS, 1) > 1
+                              else None)
     if plan.fsdp:
         gather_on_use(model, sh, mesh)
     return sh
@@ -331,44 +349,70 @@ def _global_norm(grads: Dict[str, torch.Tensor],
     return torch.sqrt(total).reshape(())
 
 
+def _seq_block(cfg: ModelConfig, mesh, spec, shape) -> Optional[SeqBlock]:
+    """The ``SeqBlock`` of a microbatch whose ``spec`` (``batch_spec``'s,
+    of its tokens of ``shape``) splits the sequence over the data axis, or
+    None; raises for a family whose model does not split it."""
+    if len(spec) < 2 or spec[1] != SEQ_AXIS:
+        return None
+    if cfg.family not in SEQUENCE_SPLIT_FAMILIES:
+        raise NotImplementedError(
+            f"{cfg.arch_id} ({cfg.family}): a microbatch of {shape[0]} rows "
+            "does not divide over the data-parallel ranks, and a train step "
+            f"split along the sequence for the {cfg.family} family waits "
+            f"for ROADMAP Queue 1 item {SEQUENCE_SPLIT_ITEM}")
+    rows = shape[1] // mesh_spec(mesh).shape[SEQ_AXIS]
+    return SeqBlock(mesh.get_group(SEQ_AXIS),
+                    mesh.get_local_rank(SEQ_AXIS) * rows)
+
+
 def sharded_train_step(cfg: ModelConfig, plan: MemoryPlan, mesh,
                        opt_cfg: Optional[AdamWConfig] = None) -> Callable:
     """(state, batch, generator) -> (state, metrics) on a device mesh, for a
     state from ``shard_train_state`` on the same mesh and the global batch
-    (every rank passes the whole batch; each takes its rows of each
-    microbatch). The metrics are ``make_train_step``'s, global (the same on
-    every rank)."""
+    (every rank passes the whole batch; each takes its rows, or its block
+    of every row's positions, of each microbatch). The metrics are
+    ``make_train_step``'s, global (the same on every rank). Raises, before
+    any step, for a sequence split of a family that does not run one."""
     _refuse_unported(mesh)
     opt_cfg = opt_cfg or _default_opt(plan)
     m = max(1, plan.microbatches)
     dp_groups = [mesh.get_group(a) for a in dp_axes(mesh)]
+    sizes = mesh_spec(mesh).shape
+    routed = [mesh.get_group(a) for a in dp_axes(mesh) if sizes[a] > 1]
 
     def train_step(state: dict, batch: Dict[str, torch.Tensor],
                    generator: Optional[torch.Generator] = None):
         params, opt, sh = state["params"], state["opt"], state["shardings"]
+        # microbatch i is rows [i B / m, (i + 1) B / m) (the reference's
+        # reshape to (m, B / m)), split over the data-parallel ranks by rows
+        # or, where they do not divide, along the sequence
+        tokens = batch["tokens"]
+        shape = (tokens.shape[0] // m,) + tuple(tokens.shape[1:])
+        seq_spec = batch_spec(mesh, shape, seq_shard=True)
+        seq = _seq_block(cfg, mesh, seq_spec, shape)
         local = {}
         for k, v in batch.items():
-            # microbatch i is rows [i B / m, (i + 1) B / m), split over the
-            # data-parallel ranks (the reference's reshape to (m, B / m))
             mbs = v.reshape((m, v.shape[0] // m) + tuple(v.shape[1:]))
-            spec = batch_spec(mesh, tuple(mbs.shape[1:]),
-                              seq_shard=(k == "tokens"))
-            if spec[0] is None and dp_size(mesh) > 1:
-                raise NotImplementedError(
-                    f"{k} {tuple(v.shape)}: a microbatch of {mbs.shape[1]} "
-                    f"rows does not divide over {dp_size(mesh)} data-parallel "
-                    "ranks; a train step split along the sequence waits for "
-                    f"ROADMAP Queue 1 item {SEQUENCE_SPLIT_ITEM}")
+            spec = (seq_spec if k in ("tokens", "targets")
+                    else batch_spec(mesh, tuple(mbs.shape[1:])))
             mine = local_shard(mbs, (None,) + spec, mesh)
-            local[k] = mine.reshape((-1,) + tuple(v.shape[1:]))
+            local[k] = mine.reshape((-1,) + tuple(mine.shape[2:]))
+        state["model"].seq_block = seq
+        # a microbatch whole on every data rank routes its MoE tokens alone
+        whole = seq is None and seq_spec[0] is None
+        route_over(state["model"], [] if whole else routed)
         counts = (local["targets"] != -1).reshape(m, -1).sum(1).float()
         totals = counts.clone()
         for group in dp_groups:
             dist.all_reduce(totals, group=group)
         weights = counts / totals.clamp(min=1.0)
-        loss, parts, grads = _forward_backward(
-            state["model"], params, local, m, _acc_dtype(plan), plan.remat,
-            weights)
+        try:
+            loss, parts, grads = _forward_backward(
+                state["model"], params, local, m, _acc_dtype(plan),
+                plan.remat, weights)
+        finally:
+            state["model"].seq_block = None
         summed = torch.stack([loss, parts["ce"], parts["aux"]])
         for group in dp_groups:
             dist.all_reduce(summed, group=group)

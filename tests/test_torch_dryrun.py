@@ -237,24 +237,52 @@ def test_other_families_are_refused_naming_their_item(arch, shape, items,
             == counter.cost.coll["all-gather"] + groups * combine)
 
 
-def test_a_refused_cell_is_recorded_as_the_reference_records_an_error(
-        tmp_path, monkeypatch):
-    """A refusal that stands: a training cell whose plan cuts the global
-    batch into microbatches of one row, which do not divide over the 32
-    data ranks, raises before any step naming item 13 (the train step split
-    along the sequence), and is recorded as the reference records a failed
-    cell."""
-    monkeypatch.undo()                   # the production mesh
+def _one_row_microbatches(monkeypatch):
+    """Plans that cut the global batch into microbatches of one row, which
+    do not divide over the 32 data ranks of the 2 x 16 x 16 mesh."""
     plan_memory = dryrun.plan_memory
     monkeypatch.setattr(dryrun, "plan_memory", lambda cfg, tp, dp, shape: (
         dataclasses.replace(plan_memory(cfg, tp=tp, dp=dp, shape=shape),
                             microbatches=shape.global_batch)))
-    info = dryrun.run_cell("mamba2-780m", "train_4k", True, str(tmp_path))
-    saved = json.loads(
-        (tmp_path / "mamba2-780m_train_4k_2x16x16.json").read_text())
+
+
+def test_a_refused_cell_is_recorded_as_the_reference_records_an_error(
+        tmp_path, monkeypatch):
+    """A refusal that stands: a MoE training cell whose plan cuts the global
+    batch into microbatches of one row splits them along the sequence, which
+    the MoE family does not run yet: it raises before any step naming item
+    13 and the family, and is recorded as the reference records a failed
+    cell."""
+    monkeypatch.undo()                   # the production mesh
+    _one_row_microbatches(monkeypatch)
+    info = dryrun.run_cell("granite-moe-3b-a800m", "train_4k", True,
+                           str(tmp_path))
+    saved = json.loads((tmp_path / "granite-moe-3b-a800m_train_4k_2x16x16"
+                                   ".json").read_text())
     assert saved["status"] == info["status"] == "error"
     assert "ROADMAP Queue 1 item 13" in saved["error"]
+    assert "moe family" in saved["error"]
     assert saved["mesh"] == "2x16x16"
+    assert not dist.is_initialized()
+
+
+def test_a_one_row_microbatch_splits_along_the_sequence(tmp_path,
+                                                        monkeypatch):
+    """The mamba2 cell of one-row microbatches on 2 x 16 x 16, which
+    refused until item 13's second half, traces ``ok``: each microbatch's
+    4,096 positions split over the 16 data ranks, the blocks' halos and
+    SSD states all-gathered over the data axis. At full width, 2 of the 48
+    layers and 16 of the 256 rows, so that it traces in seconds."""
+    monkeypatch.undo()
+    _one_row_microbatches(monkeypatch)
+    monkeypatch.setitem(dryrun.SHAPES, "train_4k", dataclasses.replace(
+        SHAPES["train_4k"], global_batch=16))
+    counter, info = dryrun.lower_cell(
+        "mamba2-780m", "train_4k", True,
+        cfg_transform=lambda cfg: dataclasses.replace(cfg, num_layers=2))
+    assert info["mesh"] == "2x16x16" and info["microbatches"] == 16
+    assert KEYS <= set(info) and info["flops"] > 0
+    assert counter.by_op["c10d._allgather_base_"][0] > 0
     assert not dist.is_initialized()
 
 

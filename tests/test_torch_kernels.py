@@ -497,12 +497,18 @@ def test_flash_forward_plain_lse_is_the_rows_logsumexp():
 
 
 def test_flash_training_route_takes_no_cache_arguments():
+    """The training route refuses a cache's ``kv_len``; it takes
+    ``q_offset``, a rank's block of a sequence split over the data ranks
+    (``tests/test_torch_seq_kernels.py``); the serve route takes both."""
     q = torch.zeros(1, 2, 3, 16, requires_grad=True)
+    kv_len = torch.full((1,), 3, dtype=torch.int32)
     with pytest.raises(ValueError, match="training route"):
-        ops.flash_attention(q, q, q, True,
-                            q_offset=torch.zeros(1, dtype=torch.int32))
+        ops.flash_attention(q, q, q, True, kv_len=kv_len)
+    out = ops.flash_attention(q, q, q, True,
+                              q_offset=torch.zeros(1, dtype=torch.int32))
+    assert out.requires_grad
     with torch.no_grad():        # the serve route takes them
-        ops.flash_attention(q, q, q, True,
+        ops.flash_attention(q, q, q, True, kv_len=kv_len,
                             q_offset=torch.zeros(1, dtype=torch.int32))
 
 

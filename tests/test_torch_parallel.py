@@ -421,8 +421,11 @@ def test_zero3_of_the_ssm_family_raises_before_any_step():
     ranks (a fake group of two): ``shard_model`` takes it for serving, each
     data rank running the whole row (its caches may split along the
     sequence over the data axis: ``tests/test_torch_distributed_long.py``),
-    every parameter given its ZeRO-3 piece; the sharded train step over
-    it raises naming the sequence split's item alone, before any step."""
+    every parameter given its ZeRO-3 piece. The sharded train step over it
+    splits the row's sequence over the data ranks (the numbers on gloo
+    ranks: ``tests/test_torch_distributed_seq.py``); a row whose blocks
+    would be shorter than the conv's halo raises before any step, every
+    parameter as it was."""
     import torch.distributed as dist
     from torch.testing._internal.distributed.fake_pg import FakeStore
     from repro_torch.parallel import build_mesh
@@ -440,13 +443,16 @@ def test_zero3_of_the_ssm_family_raises_before_any_step():
         state = init_train_state(cfg, plan, torch.Generator().manual_seed(0),
                                  dtype=torch.float32, device="cpu")
         state = shard_train_state(cfg, plan, state, mesh)
+        step = sharded_train_step(cfg, plan, mesh)
         before = {n: p.detach().clone() for n, p in state["params"].items()}
-        toks = torch.zeros((1, 16), dtype=torch.long)
-        with pytest.raises(NotImplementedError) as raised:
-            sharded_train_step(cfg, plan, mesh)(
-                state, {"tokens": toks, "targets": toks})
-        assert re.findall(r"item (\d+)", str(raised.value)) == ["13"]
+        short = torch.zeros((1, 4), dtype=torch.long)    # blocks of 2 rows
+        with pytest.raises(ValueError, match="shorter than the conv's halo"):
+            step(state, {"tokens": short, "targets": short})
         assert all(torch.equal(p.detach(), before[n])
                    for n, p in state["params"].items())
+        assert state["model"].seq_block is None
+        toks = torch.zeros((1, 16), dtype=torch.long)
+        _, metrics = step(state, {"tokens": toks, "targets": toks})
+        assert set(metrics) >= {"loss", "grad_norm"}
     finally:
         dist.destroy_process_group()
