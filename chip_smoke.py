@@ -251,6 +251,7 @@ pipes, or as 3xTF32 on the tensor cores).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import hashlib
 import json
@@ -4020,18 +4021,114 @@ def _moe_drops(model, mesh=None) -> list:
     return out
 
 
-def _split_step(cfg, mesh, batch: dict, expected) -> dict:
+# A one-process MoE step held against a split one takes the split's routing
+# decisions: the two runs' gates are fp32 sums in other orders (the split's
+# projections on its block of the rows, its attention over gathered keys),
+# ~1e-6 apart, and a pair whose gate lies that close to its expert's
+# capacity boundary (2.2e-8 at granite's fourth layer in
+# parallel_gloo_seq_families, on an H100) is kept by one run and dropped by
+# the other, moving that expert's gradient by a token. Every pick the oracle so
+# takes otherwise than its own gates would must lie within twice the gates'
+# largest difference of its expert's boundary (``_step_problems``).
+
+
+@contextlib.contextmanager
+def _patched(module, name: str, value):
+    saved = getattr(module, name)
+    setattr(module, name, value)
+    try:
+        yield
+    finally:
+        setattr(module, name, saved)
+
+
+class _FollowedRouting:
+    """Records a split step's gathered combine matrices (``models.common.
+    _gathered``: each MoE layer's gates of the global microbatch), then
+    makes a one-process step pick each expert's tokens by them
+    (``_pick``): its own gates weigh the picks, the split's decide them.
+    ``report()``: the gates' largest difference between the runs and each
+    pair picked otherwise than the oracle's own gates would (the gate's
+    distance from its expert's boundary, the last of its own picks)."""
+
+    def __init__(self):
+        self.records, self.flips, self.noise = [], {}, 0.0
+
+    def recording(self):
+        gathered = model_common._gathered
+
+        def record(*args, **kwargs):
+            out = gathered(*args, **kwargs)
+            self.records.append(out[0].clone())
+            return out
+        return _patched(model_common, "_gathered", record)
+
+    def following(self):
+        pick = model_common._pick
+
+        def follow(routed, t, top_k, capacity_factor, decode, lo, n,
+                   route_groups, seq_rows=None):
+            vals, idx, keep = pick(routed, t, top_k, capacity_factor,
+                                   decode, lo, n, route_groups, seq_rows)
+            if decode or route_groups or not self.records:
+                return vals, idx, keep
+            own = routed.detach()
+            diffs = [(w - own).abs().max().item() for w in self.records]
+            layer = min(range(len(diffs)), key=diffs.__getitem__)
+            self.noise = max(self.noise, diffs[layer])
+            _, followed = model_common.stable_top_k(
+                self.records[layer].T[lo:lo + n], idx.shape[1])
+            gates = own.T[lo:lo + n]
+
+            def kept(rows):                 # (n, t): the routed pairs kept
+                return torch.zeros_like(gates, dtype=torch.bool).scatter(
+                    1, rows, gates.gather(1, rows) > 0)
+            mine = kept(idx)
+            flipped = (mine ^ kept(followed)).nonzero().tolist()
+            self.flips[layer] = [
+                {"expert": lo + e, "token": i,
+                 "kept_by_own_gates": bool(mine[e, i]),
+                 "gap": abs(gates[e, i].item() - vals[e, -1].item())}
+                for e, i in flipped]
+            return routed.T[lo:lo + n].gather(1, followed), followed, keep
+        return _patched(model_common, "_pick", follow)
+
+    def report(self) -> dict:
+        flips = [f for layer in sorted(self.flips) for f in self.flips[layer]]
+        return {"gate_noise": self.noise, "flips": len(flips),
+                "largest_flip_gap": max((f["gap"] for f in flips),
+                                        default=0.0),
+                "flipped": flips[:8]}
+
+
+def _in_turn(fn):
+    """``fn()`` on each rank in turn, the others waiting, each freeing its
+    cached blocks after: the ranks share one card."""
+    out = None
+    for r in range(dist.get_world_size()):
+        if dist.get_rank() == r:
+            out = fn()
+            torch.cuda.empty_cache()
+        dist.barrier()
+    return out
+
+
+def _split_step(cfg, mesh, batch: dict, expected,
+                in_turn: bool = False) -> dict:
     """One sharded step on ``mesh`` against make_train_step from the same
     state and ``batch``: the errors, the split step's kernel launches (counts
     zeroed just before it, read just after) against ``expected(cfg,
-    remat)``. Then, on the same batch, a second step of each: the one
-    process's is timed once warm (its first beside it); the split step's
-    logs the kernels and shapes it calls, so its third is timed. The split
-    state is laid out before the one process's is drawn, so that a rank
-    holds one whole state at a time beside its pieces; ``peak_bytes``: the
-    process's largest allocation on the card. A MoE's first steps also
+    remat)`` and the kernels and shapes it calls. Then, on the same batch, a
+    second step of each, timed once warm (the first beside it). ``in_turn``:
+    the ranks run their one-process steps in turn (``_in_turn``), where two
+    at once would not fit on the card beside the split states (seamless's
+    of a 4,096-token row peaks at ~41 GB a process). The split state is
+    laid out before the one process's is drawn, so that a rank holds one
+    whole state at a time beside its pieces; ``peak_bytes``: the process's
+    largest allocation on the card. A MoE's first steps also
     count, in each of its layers, the (token, expert) pairs each route
-    dropped (``_moe_drops``)."""
+    dropped (``_moe_drops``); there the split step runs first and the one
+    process follows its routing decisions (``_FollowedRouting``)."""
     plan, ocfg = _par_plan_and_opt(cfg)
     torch.cuda.reset_peak_memory_stats()
     state = shard_train_state(cfg, plan, _par_state(cfg, plan, ocfg), mesh)
@@ -4041,10 +4138,19 @@ def _split_step(cfg, mesh, batch: dict, expected) -> dict:
     for moe in _moe_layers(state["model"]) + _moe_layers(ref["model"]):
         moe.stats = {}
     ref_step = make_train_step(cfg, plan, ocfg)
-    ref, ref_m, ref_first = _timed_steps(ref_step, ref, [batch])
+    follow = _FollowedRouting() if _moe_layers(ref["model"]) else None
+    one_step = lambda: _timed_steps(ref_step, ref, [batch])
+    run_ref = (lambda: _in_turn(one_step)) if in_turn else one_step
+    if follow is None:
+        ref, ref_m, ref_first = run_ref()
     _zero_kernel_counts()
-    state, m, first = _timed_steps(step, state, [batch])
+    with _KernelCalls() as calls, (follow.recording() if follow
+                                   else contextlib.nullcontext()):
+        state, m, first = _timed_steps(step, state, [batch])
     launches = _kernel_counts()
+    if follow is not None:
+        with follow.following():
+            ref, ref_m, ref_first = run_ref()
     out = {
         "remat": plan.remat, "loss": m[0]["loss"],
         "ref_loss": ref_m[0]["loss"], "grad_norm": m[0]["grad_norm"],
@@ -4053,15 +4159,14 @@ def _split_step(cfg, mesh, batch: dict, expected) -> dict:
         **_split_errors(state, ref, mesh),
         "step_launches": launches,
         "expected_step_launches": expected(cfg, plan.remat)}
-    if _moe_layers(ref["model"]):
+    if follow is not None:
+        out["routing"] = follow.report()
         out["dropped"] = _moe_drops(state["model"], mesh)
         out["ref_dropped"] = _moe_drops(ref["model"])
         for moe in _moe_layers(state["model"]) + _moe_layers(ref["model"]):
             moe.stats = None
-    ref, _, ref_ms = _timed_steps(ref_step, ref, [batch])
-    del ref
-    with _KernelCalls() as calls:
-        state, _, _ = _timed_steps(step, state, [batch])
+    ref, _, ref_ms = run_ref()
+    del ref, one_step, run_ref
     state, _, ms = _timed_steps(step, state, [batch])
     out.update(step_ms=ms[0], ref_step_ms=ref_ms[0], first_step_ms=first[0],
                ref_first_step_ms=ref_first[0], step_kernel_calls=calls.calls,
@@ -4196,6 +4301,18 @@ def _gloo_ssm_rank(rank: int, directory: str) -> None:
     dist.destroy_process_group()
 
 
+def _routing_problems(tag: str, routing) -> list:
+    """A one-process MoE run that followed a split one's routing
+    (``_FollowedRouting``): each pick it took otherwise than its own gates
+    would must lie within twice the gates' largest difference of its
+    expert's capacity boundary."""
+    if routing and routing["largest_flip_gap"] > 2 * routing["gate_noise"]:
+        return [f"{tag}: the one process's picks differ from the split's "
+                f"{routing['largest_flip_gap']} from a capacity boundary, "
+                "beyond the gates' rounding"]
+    return []
+
+
 def _step_problems(tag: str, r: dict) -> list:
     """What a split step's results break: parallel_gloo's tolerances (the
     master where resolved) and the reckoned launches."""
@@ -4210,6 +4327,7 @@ def _step_problems(tag: str, r: dict) -> list:
           and r["master_where_resolved"]["scaled_err"] <= PAR_OPT_TOL)
     if not ok:
         problems.append(f"{tag}: the split step is off one process")
+    problems += _routing_problems(tag, r.get("routing"))
     for name, n in r["expected_step_launches"].items():
         if r["step_launches"][name] != n:
             problems.append(f"{tag}: {name} launched "
@@ -5051,7 +5169,12 @@ SEQ_PREFILL = 32_768
 # 6.8e-5 of the largest at a split 6,144-token prompt of parallel_gloo_long's
 # zamba2 on the card. The phase prints the whole model against itself, its
 # prefill of the prompt's first half against the whole prompt's rows
-# there (``whole_half_err``), beside it. bf16: LONG_CACHE_TOL's.
+# there (``whole_half_err``), beside it. bf16: LONG_CACHE_TOL's; a MoE's
+# bf16 caches twice the whole bf16 model's distance from the whole fp32
+# one's where that is larger, the logits' rule (``_serving_problems``): in
+# bf16 its top-k expert choices and capacity picks move with the rounding
+# (granite's gates 0.12 apart between the split and the whole model, 212
+# pairs picked otherwise, on an H100), in fp32 none do.
 SEQ_CACHE_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
 SEQ_TIMEOUT_S = 300
 
@@ -5060,41 +5183,58 @@ def _expected_seq_launches(cfg, remat: str) -> dict:
     """Each kernel's launches in one split step: the one process's (the
     training entry point's reckoning), every scan twice (``models.mamba.
     split_ssd_scan``: the block from zero for its final state, then from
-    its incoming state), attention and RMSNorm as many."""
-    if cfg.family == "dense":
+    its incoming state), attention and RMSNorm as many (the encdec's
+    encoder runs whole on every rank)."""
+    if cfg.family in ("dense", "moe"):
         return _expected_lm_launches(cfg, remat, 1)
+    if cfg.family == "encdec":
+        return _expected_encdec_launches(cfg, 0, 0, steps=1, remat=remat)
     out = _expected_mamba_launches(cfg, remat, 1)
     out["ssd_scan"] *= 2
     out["ssd_scan_backward"] *= 2
     return out
 
 
-def _seq_prefill(cfg, mesh, prompt: int) -> dict:
+def _seq_prefill(cfg, mesh, prompt: int, inputs=None) -> dict:
     """A prefill of one row of ``prompt`` tokens split along its sequence
     over the data ranks (``shard_model``'s ``batch_rows`` of 1: every rank
-    runs its block of the prompt, into a cache split along its sequence)
-    and SSM_SERVE_TICKS greedy ticks, bf16 and then fp32, against the whole
-    model from the same seed, every run fed the bf16 whole model's picks.
-    Per type: each call's logits against the whole model's
-    (``_compare_calls``), whether both ranks' prefill logits are the same
-    bits, the caches after the prefill gathered whole against the whole
-    model's (the K/V rows of the prompt, the SSM states and the conv
+    runs its block of the prompt, into a cache split along its sequence;
+    the VLM's ``inputs``, its patches, ahead of the prompt in rank 0's
+    block) and SSM_SERVE_TICKS greedy ticks, bf16 and then fp32, against
+    the whole model from the same seed, every run fed the first bf16 run's
+    picks: the whole model's, or for a MoE the split's, which runs first
+    so that the whole model's prefill follows its routing decisions
+    (``_FollowedRouting``). Per type: each call's logits against the whole
+    model's (``_compare_calls``), whether both ranks' prefill logits are
+    the same bits, the caches after the prefill gathered whole against the
+    whole model's (the K/V rows of the prompt, the SSM states and the conv
     tails: the largest error over the whole's largest), both prefills' ms
     by the host clock, the kernels the split calls launched by shape."""
-    plan = plan_memory(cfg, tp=1, dp=1)
+    inputs = inputs or {}
+    prefix = inputs["patches"].shape[1] if "patches" in inputs else 0
+    # Serving holds no optimizer state: the parameters whole on every data
+    # rank. Under a ZeRO-3 plan (internvl2's) each call would gather them
+    # over the data axis through gloo's host memory: 17.6 s a fp32 prefill
+    # of internvl2's 2 layers on an H100, 84.6 s for its prefills and ticks
+    # of both types.
+    plan = dataclasses.replace(plan_memory(cfg, tp=1, dp=1), zero_stage=1)
     tokens = torch.randint(0, cfg.vocab_size, (1, prompt), device=DEVICE,
                            generator=torch.Generator(
                                device=DEVICE).manual_seed(2))
     make = lambda dtype: get_model(cfg)(
         cfg, dtype=dtype, device=DEVICE,
         generator=torch.Generator(device=DEVICE).manual_seed(1))
-    rows = prompt + SSM_SERVE_TICKS + 1
-    kept = ("ssm", "conv", "attn_k", "attn_v")
+    rows = prefix + prompt + SSM_SERVE_TICKS + 1
+    is_kv = lambda n: n in ("k", "v") or n.startswith("attn")
+    half = prompt // 2
+    launches = dict.fromkeys(_kernel_counts(), 0)
+    routed = lambda follow, how: (getattr(follow, how)() if follow
+                                  else contextlib.nullcontext())
 
     def prefill(model, cache):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        logits = model.prefill(tokens, cache)[0][:, -1].float()
+        logits = model.prefill(tokens, cache, **inputs)[0][:, -1].float()
         torch.cuda.synchronize()
         return logits, (time.perf_counter() - t0) * 1e3
 
@@ -5106,72 +5246,106 @@ def _seq_prefill(cfg, mesh, prompt: int) -> dict:
             out.append(model.decode_step(cache, picks[-1])[0][:, -1].float())
         return out, picks
 
-    out, whole_logits, feed = {}, {}, None
-    launches = dict.fromkeys(_kernel_counts(), 0)
-    half = prompt // 2
-    for dtype in (torch.bfloat16, torch.float32):
+    def run_whole(dtype, feed, follow=None) -> dict:
+        """The whole model's prefill (following ``follow``) and ticks, its
+        caches after the prefill, and its first half's rows alone against
+        them (the whole model against itself)."""
         ref = make(dtype)
         cache = ref.init_cache(1, rows)
+        kept = [n for n in cache if n != "pos"]
         with torch.no_grad():
-            first, ref_ms = prefill(ref, cache)
-            want_cache = {n: cache[n][:, :, :prompt].clone()
-                          if n.startswith("attn") else cache[n].clone()
-                          for n in kept}
-            want, picks = ticks(ref, cache, first, feed)
+            with routed(follow, "following"):
+                first, ms = prefill(ref, cache)
+            want = {n: cache[n][:, :, :prefix + prompt].clone()
+                    if is_kv(n) else cache[n].clone() for n in kept}
+            logits, picks = ticks(ref, cache, first, feed)
             del cache
-            # the whole model against itself: its first half's rows alone
-            cache = ref.init_cache(1, half)
-            ref.prefill(tokens[:, :half], cache)
-            whole_half_err = {
-                n: ((cache[n][:, :, :half].float()
-                     - want_cache[n][:, :, :half].float()).abs().max()
-                    / max(want_cache[n].float().abs().max().item(), 1e-30)
-                    ).item() for n in ("attn_k", "attn_v")}
-        feed = feed or picks
+            upto = prefix + half
+            cache = ref.init_cache(1, upto)
+            ref.prefill(tokens[:, :half], cache, **inputs)
+            half_err = {
+                n: ((cache[n][:, :, :upto].float()
+                     - want[n][:, :, :upto].float()).abs().max()
+                    / max(want[n].float().abs().max().item(), 1e-30)
+                    ).item() for n in kept if is_kv(n)}
         del ref, cache
         torch.cuda.empty_cache()
+        return {"logits": logits, "picks": picks, "cache": want, "ms": ms,
+                "half_err": half_err}
+
+    def run_split(dtype, feed, follow=None) -> dict:
+        """The split prefill (recorded for ``follow``) and ticks, its
+        caches after the prefill gathered whole."""
         model = make(dtype)
         whole = model.init_cache(1, rows)
+        kept = [n for n in whole if n != "pos"]
         shard_model(cfg, plan, model, mesh, batch_rows=1)
         specs = cache_shardings(cfg, mesh, whole)
         cache = shard_cache(cfg, mesh, whole)
         del whole
         torch.cuda.empty_cache()
         with torch.no_grad():
+            dist.barrier(group=mesh.get_group("data"))   # both ranks ready
             _zero_kernel_counts()
             with _KernelCalls() as calls:
-                first, split_ms = prefill(model, cache)
+                with routed(follow, "recording"):
+                    first, ms = prefill(model, cache)
                 # copies: a whole cache's gather is the cache itself,
                 # which the ticks advance
-                got_cache = {n: gather_full(cache[n], specs[n], mesh).clone()
-                             for n in kept}
-                got, _ = ticks(model, cache, first, feed)
+                got = {n: gather_full(cache[n], specs[n], mesh).clone()
+                       for n in kept}
+                logits, picks = ticks(model, cache, first, feed)
             for name, n in _kernel_counts().items():
                 launches[name] += n
-        both = all_gather_stacked(got[0].contiguous(),
+        both = all_gather_stacked(logits[0].contiguous(),
                                   mesh.get_group("data"))
+        shapes = {n: list(cache[n].shape) for n in kept}
+        del model, cache
+        torch.cuda.empty_cache()
+        return {"logits": logits, "picks": picks, "cache": got, "ms": ms,
+                "bitwise": bool(torch.equal(both[0], both[1])),
+                "shapes": shapes, "calls": calls.calls}
+
+    out, whole_logits, whole_kv, feed = {}, {}, {}, None
+    for dtype in (torch.bfloat16, torch.float32):
+        follow = _FollowedRouting() if cfg.moe is not None else None
+        if follow is None:
+            whole = run_whole(dtype, feed)
+            feed = feed or whole["picks"]
+        split = run_split(dtype, feed, follow)
+        if follow is not None:
+            feed = feed or split["picks"]
+            whole = run_whole(dtype, feed, follow)
+        want = whole["cache"]
         cache_err = {}
-        for n in kept:
-            g = got_cache[n][:, :, :prompt] if n.startswith("attn") \
-                else got_cache[n]
-            cache_err[n] = ((g.float() - want_cache[n].float()).abs().max()
-                            / max(want_cache[n].float().abs().max().item(),
+        for n, g in split["cache"].items():
+            g = g[:, :, :prefix + prompt] if is_kv(n) else g
+            cache_err[n] = ((g.float() - want[n].float()).abs().max()
+                            / max(want[n].float().abs().max().item(),
                                   1e-30)).item()
-        whole_logits[dtype] = want
+        whole_logits[dtype] = whole["logits"]
+        whole_kv[dtype] = {n: t for n, t in want.items() if is_kv(n)}
         out[dtype_name(dtype)] = {
-            "calls": _compare_calls(got, want),
-            "logits_bitwise_on_both_ranks": bool(torch.equal(both[0],
-                                                             both[1])),
-            "cache_scaled_err": cache_err, "whole_half_err": whole_half_err,
-            "split_cache_shapes": {n: list(cache[n].shape) for n in kept},
-            "prefill_ms": split_ms, "whole_prefill_ms": ref_ms,
-            "kernel_calls": calls.calls}
-        del model, cache, got_cache, want_cache
+            "calls": _compare_calls(split["logits"], whole["logits"]),
+            "logits_bitwise_on_both_ranks": split["bitwise"],
+            "cache_scaled_err": cache_err,
+            "whole_half_err": whole["half_err"],
+            "split_cache_shapes": split["shapes"],
+            "prefill_ms": split["ms"], "whole_prefill_ms": whole["ms"],
+            "kernel_calls": split["calls"],
+            **({"routing": follow.report()} if follow else {})}
+        del whole, split
         torch.cuda.empty_cache()
     for call, w16, w32 in zip(out["bfloat16"]["calls"],
                               whole_logits[torch.bfloat16],
                               whole_logits[torch.float32]):
         call["whole_bf16_vs_fp32"] = (w16 - w32).abs().max().item()
+    # the K/V caches' yardstick as the logits': the whole bf16 model's
+    # against the whole fp32 model's, of the latter's largest
+    out["bfloat16"]["cache_whole_bf16_vs_fp32"] = {
+        n: ((w16.float() - whole_kv[torch.float32][n]).abs().max()
+            / max(whole_kv[torch.float32][n].abs().max().item(), 1e-30)
+            ).item() for n, w16 in whole_kv[torch.bfloat16].items()}
     return {"serve": out, "serve_launches": launches,
             "prompt": prompt, "ticks": SSM_SERVE_TICKS}
 
@@ -5272,6 +5446,163 @@ def phase_parallel_gloo_seq() -> dict:
     if problems:
         raise SystemExit(f"chip_smoke: parallel_gloo_seq phase failed: "
                          f"{problems}")
+    return launches
+
+
+# The same split for the MoE, encoder-decoder and VLM families (ROADMAP item
+# 13's remainder), two processes over gloo at (2 data, 1 model), full width:
+# granite-moe-3b-a800m at parallel_gloo_moe's 4 of 32 layers, one fp32 step
+# of one row of 4,096 tokens (2,048 a rank, its MoE layers routing both
+# blocks as one microbatch, in the reference's token order) against
+# make_train_step in one process under parallel_gloo_moe's checks, then its
+# prefill of one row of SEQ_FAMILY_PROMPT tokens split along the sequence,
+# bf16 and fp32, against the whole model; seamless-m4t-large-v2 at 4 + 4 of
+# its 24 + 24 layers, one fp32 step of one 4,096-token row over its 2,048
+# source frames (source_frac 0.5), whole on both ranks; internvl2-76b at 2
+# of its 80 layers, the prefill of SEQ_FAMILY_PROMPT tokens behind its 256
+# patches (rank 0's block), bf16 and fp32. internvl2's split step stays off
+# the card: one full-width layer's fp32 train state is 47.5 GB.
+SEQ_FAMILY_PROMPT = 4096
+SEQ_FAMILY_TIMEOUT_S = 400
+
+
+def _seq_family_configs() -> dict:
+    return {MOE_ARCH: _moe_par_config(), **_split_configs()}
+
+
+def _gloo_seq_family_rank(rank: int, directory: str) -> None:
+    """One of two processes on the one card over gloo with CUDA tensors, a
+    (2 data, 1 model) mesh: granite's ``_split_step`` and ``_seq_prefill``,
+    seamless's ``_split_step`` (its one-process steps in turn), internvl2's
+    ``_seq_prefill``, and each part's seconds. Writes its results as JSON
+    to ``directory``."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{directory}/store",
+                            rank=rank, world_size=2)
+    mesh = build_mesh((2, 1), ("data", "model"))
+    cfgs = _seq_family_configs()
+    moe, enc, vlm = cfgs[MOE_ARCH], cfgs[ENCDEC_ARCH], cfgs[VLM_ARCH]
+    t0 = time.perf_counter()
+    batch = _par_batches(moe, 1, SEQ_PAR_BATCH, SEQ_PAR_SEQ)[0]
+    out = {MOE_ARCH: _split_step(moe, mesh, batch, _expected_seq_launches)}
+    t1 = time.perf_counter()
+    out[MOE_ARCH].update(_seq_prefill(moe, mesh, SEQ_FAMILY_PROMPT))
+    t2 = time.perf_counter()
+    batch = _par_batches(enc, 1, SEQ_PAR_BATCH, SEQ_PAR_SEQ)[0]
+    batch["frames"] = _seeded(
+        (SEQ_PAR_BATCH, int(SEQ_PAR_SEQ * enc.encdec.source_frac),
+         enc.d_model), 3)
+    out[ENCDEC_ARCH] = _split_step(enc, mesh, batch, _expected_seq_launches,
+                                   in_turn=True)
+    del batch
+    t3 = time.perf_counter()
+    patches = _seeded((1, vlm.vision.num_patches, vlm.d_model), 5)
+    out[VLM_ARCH] = _seq_prefill(vlm, mesh, SEQ_FAMILY_PROMPT,
+                                 {"patches": patches})
+    out["seconds"] = {"granite step": t1 - t0, "granite prefill": t2 - t1,
+                      "seamless step": t3 - t2,
+                      "internvl2 prefill": time.perf_counter() - t3}
+    with open(os.path.join(directory, f"rank_{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def _seq_family_problems(rank: int, arch: str, r: dict) -> list:
+    """What one rank's results of one model break: the step's checks
+    (``_step_problems``; the MoE's auxiliary loss and each layer's drops
+    against one process's), its attention at the rank's block with
+    ``q_offset`` over every row's keys (the encdec's encoder and
+    cross-attention over the whole source); the prefill's logits (both
+    ranks' bitwise), caches and its attention at the rank's block (rank
+    0's behind the VLM's patches)."""
+    cfg = _seq_family_configs()[arch]
+    tag, half = f"rank {rank} {arch}", SEQ_PAR_SEQ // 2
+    heads, d, b = cfg.num_heads, cfg.resolved_head_dim, SEQ_PAR_BATCH
+    problems = []
+    if "loss" in r:
+        problems += _step_problems(tag, r)
+        want = [f"flash_attention_lse [{b}, {heads}, {half}, {d}] "
+                f"skv {SEQ_PAR_SEQ} q_offset",
+                f"flash_attention_backward [{b}, {heads}, {half}, {d}] "
+                f"skv {SEQ_PAR_SEQ} q_offset"]
+        if cfg.family == "encdec":
+            src = int(SEQ_PAR_SEQ * cfg.encdec.source_frac)
+            cross = "" if src == half else f" skv {src}"
+            want += [f"flash_attention_lse [{b}, {heads}, {src}, {d}]",
+                     f"flash_attention_lse [{b}, {heads}, {half}, {d}]"
+                     + cross]
+        problems += [f"{tag}: no {w} in the step" for w in want
+                     if w not in r["step_kernel_calls"]]
+        if cfg.moe is not None:
+            if abs(r["aux"] - r["ref_aux"]) > MOE_AUX_RTOL * abs(
+                    r["ref_aux"]):
+                problems.append(f"{tag}: aux {r['aux']} against "
+                                f"{r['ref_aux']}")
+            if r["dropped"] != r["ref_dropped"]:
+                problems.append(f"{tag}: dropped {r['dropped']} against "
+                                f"{r['ref_dropped']}")
+    if "serve" in r:
+        problems += _serving_problems(tag, r)
+        prefix = cfg.vision.num_patches if cfg.family == "vlm" else 0
+        rows = SEQ_FAMILY_PROMPT // 2 + (prefix if rank == 0 else 0)
+        call = (f"flash_attention [1, {heads}, {rows}, {d}] "
+                f"skv {prefix + SEQ_FAMILY_PROMPT}")
+        for dtype, run in r["serve"].items():
+            if not run["logits_bitwise_on_both_ranks"]:
+                problems.append(f"{tag}: {dtype} prefill logits differ "
+                                "between the ranks")
+            for name, err in run["cache_scaled_err"].items():
+                tol = SEQ_CACHE_TOL[dtype]
+                if dtype == "bfloat16" and cfg.moe is not None:
+                    tol = max(tol, 2 * run["cache_whole_bf16_vs_fp32"][name])
+                if err > tol:
+                    problems.append(f"{tag}: {dtype} prefill's {name} off "
+                                    f"the whole model's by {err} > {tol}")
+            if call not in run["kernel_calls"]:
+                problems.append(f"{tag}: {dtype} prefill made no {call}")
+            problems += _routing_problems(f"{tag} {dtype} prefill",
+                                          run.get("routing"))
+    return problems
+
+
+def phase_parallel_gloo_seq_families() -> dict:
+    """Two processes on the card over gloo with CUDA tensors: a train step
+    and a prefill with each row's sequence split over the data ranks for
+    the MoE, encdec and VLM families (``_gloo_seq_family_rank``), which
+    must pass on every rank. Returns the kernels' launches on this path,
+    both ranks' steps and prefills summed."""
+    t0 = time.perf_counter()
+    ranks = _gloo_pair(_gloo_seq_family_rank, "parallel_gloo_seq_families",
+                       SEQ_FAMILY_TIMEOUT_S)
+    problems, launches = [], {}
+    for rank, result in enumerate(ranks):
+        if sorted(result) != sorted(["seconds", *_seq_family_configs()]):
+            problems.append(f"rank {rank} reported {sorted(result)}")
+            continue
+        for arch in _seq_family_configs():
+            r = result[arch]
+            problems += _seq_family_problems(rank, arch, r)
+            for part in ("step_launches", "serve_launches"):
+                for name, n in r.get(part, {}).items():
+                    launches[name] = launches.get(name, 0) + n
+    emit("parallel_gloo_seq_families", card=_smi("name,power.limit"),
+         mesh=[2, 1], global_batch=SEQ_PAR_BATCH, seq_len=SEQ_PAR_SEQ,
+         prefill=SEQ_FAMILY_PROMPT,
+         layers={MOE_ARCH: MOE_PAR_LAYERS,
+                 ENCDEC_ARCH: [SPLIT_ENCDEC_LAYERS, SPLIT_ENCDEC_LAYERS],
+                 VLM_ARCH: SPLIT_VLM_LAYERS},
+         left_out=f"{VLM_ARCH}'s split step (one full-width layer's fp32 "
+                  f"train state is 47.5 GB); {ENCDEC_ARCH}'s split prefill "
+                  "(held on the CPU, tests/test_torch_distributed_seq_"
+                  "families.py)",
+         ranks=ranks, launches=launches, seconds=time.perf_counter() - t0,
+         problems=problems)
+    if problems:
+        raise SystemExit(f"chip_smoke: parallel_gloo_seq_families phase "
+                         f"failed: {problems}")
     return launches
 
 
@@ -6379,6 +6710,8 @@ def main() -> int:
     launches["parallel_gloo_moe"] = phase_parallel_gloo_moe()
     launches["parallel_gloo_long"] = phase_parallel_gloo_long()
     launches["parallel_gloo_seq"] = phase_parallel_gloo_seq()
+    launches["parallel_gloo_seq_families"] = (
+        phase_parallel_gloo_seq_families())
     phase_dryrun()
     launches["study"] = phase_study()
     launches["run_study"] = phase_run_study()

@@ -15,8 +15,7 @@ each cell for a 512-device XLA host mesh. Here, for each cell:
      over the data ranks (long_500k's one row) runs whole on every rank,
      the caches the rules split along the sequence holding a block each
      (``split_caches``), and a train step's microbatch whose rows do not
-     divide splits its sequence over the data axis (the dense, ssm and
-     hybrid families; the others refuse, naming ROADMAP item 13);
+     divide splits its sequence over the data axis (every family);
   3. one step runs under the op counter (``core/op_counter.py``): the
      sharded train step (``train_4k``), the split prefill (``prefill_32k``)
      or a decode step (``decode_32k``, ``long_500k``), every collective on

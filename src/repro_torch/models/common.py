@@ -259,6 +259,19 @@ def prompt_block(tokens: torch.Tensor, group, min_rows: int = 1
     return tokens[:, first:first + rows], SeqBlock(group, first)
 
 
+def prefix_block(prefix: Optional[torch.Tensor], seq: Optional[SeqBlock]
+                 ) -> Tuple[Optional[torch.Tensor], Optional[SeqBlock]]:
+    """Rows (b, p, d) ahead of a sequence split over the data axis (the
+    VLM's patches, whole on every rank): rank 0's block holds them. This
+    rank's of them (none on the others) and the ``SeqBlock`` that counts
+    them (``prefix``); without a split, ``prefix`` and ``seq`` as given."""
+    if prefix is None or seq is None:
+        return prefix, seq
+    p, first = prefix.shape[1], seq.first
+    return (prefix[:, :p if first == 0 else 0],
+            SeqBlock(seq.group, first + p if first else 0, p))
+
+
 def last_row(x: torch.Tensor, seq: Optional[SeqBlock]) -> torch.Tensor:
     """The sequence's last row of ``x`` (b, s, d), (b, 1, d): under ``seq``
     the last rank's, all-gathered, so that every rank holds the same
@@ -341,7 +354,8 @@ def attention_block(
     (``gather_dim``: the backward reduce-scatters their gradient back) and
     its queries attend causally over every row's keys with ``q_offset`` =
     ``seq.first``. A prefill then writes the rows of its cache block from
-    the gathered keys and values. Self-attention only."""
+    the gathered keys and values. Self-attention only. Rank 0's block may
+    hold ``seq.prefix`` rows more than the others' (``prefix_block``)."""
     b, s, _ = x.shape
     seq_group = None if kv_cache is None else kv_cache.get("seq_group")
     if group is not None:
@@ -386,7 +400,8 @@ def attention_block(
 
     if kv_cache is None:
         if seq is not None:
-            k, v = gather_dim(k, 1, seq.group), gather_dim(v, 1, seq.group)
+            k = gather_dim(k, 1, seq.group, seq.prefix)
+            v = gather_dim(v, 1, seq.group, seq.prefix)
         return project_out(attention(q, k, v, causal=causal,
                                      q_offset=block_offset(seq, b, x.device)))
     return project_out(_cache_step(q, k, v, kv_cache, offset, seq_group,
@@ -412,8 +427,8 @@ def _cache_step(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         # masked positions weigh exp(-1e30) = 0, so attending over the prompt
         # alone is the same sum. The prompt's rows in this block are written.
         if seq is not None:
-            k = all_gather_dim(k.contiguous(), 1, seq.group)
-            v = all_gather_dim(v.contiguous(), 1, seq.group)
+            k = gather_dim(k, 1, seq.group, seq.prefix)
+            v = gather_dim(v, 1, seq.group, seq.prefix)
         prompt = k.shape[1]
         if prompt > total:
             raise ValueError(f"a prompt of {prompt} rows, a cache of {total}")
@@ -545,28 +560,49 @@ def _capacity(t: int, top_k: int, capacity_factor: float, e: int) -> int:
     return min(t, max(1, int(t * top_k * capacity_factor / e)))
 
 
+def _gathered(routed: torch.Tensor, route_groups,
+              seq_rows: Optional[int] = None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Every rank's combine matrix over ``route_groups`` (outermost first)
+    in the reference's (b, s) token order, and the rank (its index over the
+    groups, ``_coordinate``'s) that holds each token. Where the ranks hold
+    rows, rank order is that order; where each holds a block of the
+    positions of ``seq_rows`` rows (a ``SeqBlock``), the gathered (rank,
+    row, position) is put in (row, rank, position)."""
+    t, count = routed.shape[0], _coordinate(route_groups)[1]
+    whole = routed.detach()
+    for g in reversed(route_groups):                # innermost first
+        whole = all_gather_dim(whole, 0, g)
+    owner = torch.arange(t * count, device=whole.device) // t
+    if seq_rows is not None:
+        whole, owner = (z.view((count, seq_rows, -1) + z.shape[1:])
+                        .transpose(0, 1).reshape(z.shape)
+                        for z in (whole, owner))
+    return whole, owner
+
+
 def _pick(routed: torch.Tensor, t: int, top_k: int, capacity_factor: float,
-          s: int, lo: int, n: int, route_groups):
+          decode: bool, lo: int, n: int, route_groups,
+          seq_rows: Optional[int] = None):
     """Experts ``lo .. lo + n``'s tokens within capacity: (gates (n, c),
-    token rows (n, c), which slots are kept (n, c) or None for all). Alone,
-    each expert's top ``cap`` of the ``t`` tokens. Over ``route_groups``,
-    its top ``cap`` of the global microbatch, ``cap`` from the global
-    count: every rank's combine matrix gathered (rank order is global
-    token order), then the rank's own of the picks, which are its local
-    top ``n_j`` by the same order."""
+    token rows (n, c), which slots are kept (n, c) or None for all). A
+    decode step's expert keeps all ``t``. Alone, each expert's top ``cap``
+    of the ``t`` tokens. Over ``route_groups``, its top ``cap`` of the
+    global microbatch, ``cap`` from the global count: every rank's combine
+    matrix in the reference's token order (``_gathered``), then the rank's
+    own of the picks, which are its local top ``n_j`` by the same order (a
+    rank's tokens keep their global order among themselves)."""
     e = routed.shape[1]
-    if s == 1:
+    if decode:
         return (*stable_top_k(routed.T[lo:lo + n], t), None)
     if not route_groups:
         cap = _capacity(t, top_k, capacity_factor, e)
         return (*stable_top_k(routed.T[lo:lo + n], cap), None)
     index, count = _coordinate(route_groups)
     cap = _capacity(t * count, top_k, capacity_factor, e)
-    whole = routed.detach()
-    for g in reversed(route_groups):                # innermost first
-        whole = all_gather_dim(whole, 0, g)
+    whole, owner = _gathered(routed, route_groups, seq_rows)
     _, picked = stable_top_k(whole.T[lo:lo + n], cap)
-    mine = ((picked >= index * t) & (picked < (index + 1) * t)).sum(1)
+    mine = (owner[picked] == index).sum(1)
     c = min(cap, t)
     vals, idx = stable_top_k(routed.T[lo:lo + n], c)
     return vals, idx, torch.arange(c, device=idx.device) < mine[:, None]
@@ -576,7 +612,7 @@ def moe_block(params: Mapping, x: torch.Tensor, *, top_k: int,
               capacity_factor: float, activation: str,
               aux_loss_weight: float = 0.0, dispatch: str = "gather",
               group=None, shared_group=None, route_groups=(),
-              stats: Optional[dict] = None
+              stats: Optional[dict] = None, seq: Optional[SeqBlock] = None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """MoE FFN. x: (b, s, d) -> (y (b, s, d), the Switch auxiliary loss).
 
@@ -616,6 +652,13 @@ def moe_block(params: Mapping, x: torch.Tensor, *, top_k: int,
     step keeps every token alone, and its auxiliary loss, which serving
     drops, is the rank's own.
 
+    ``seq``: x holds this rank's block of the positions of every row of a
+    sequence split over the data axis (a ``SeqBlock``, equal blocks): the
+    tokens are routed over ``seq.group`` alone, whatever ``route_groups``
+    says (the pod axis's ranks hold the same positions), in the
+    reference's (b, s) order (``_pick``), as a step of ``s > 1`` rows
+    even where the block holds one.
+
     ``stats``: where given, receives this call's ``routed`` (token, expert)
     pairs and those ``kept`` within capacity, on this rank's tokens and
     experts, as tensors."""
@@ -633,7 +676,11 @@ def moe_block(params: Mapping, x: torch.Tensor, *, top_k: int,
         xe = copy_to_region(xt, group)
     n = params["we_up"].shape[0]                  # the experts this rank runs
     lo = dist.get_rank(group) * n if n < e else 0
-    spread = tuple(route_groups) if s > 1 else ()
+    decode = s == 1 and seq is None
+    if seq is not None:
+        spread = (seq.group,)
+    else:
+        spread = () if decode else tuple(route_groups)
     order, _ = torch.sort(gate_idx, dim=-1)                       # (t, k)
     local = order - lo
     inside = (local >= 0) & (local < n)
@@ -645,8 +692,9 @@ def moe_block(params: Mapping, x: torch.Tensor, *, top_k: int,
         y = (ye * cw).sum(0)
         kept = inside
     else:
-        sel_val, sel_idx, keep = _pick(routed, t, top_k, capacity_factor, s,
-                                       lo, n, spread)             # (n, c)
+        sel_val, sel_idx, keep = _pick(
+            routed, t, top_k, capacity_factor, decode, lo, n, spread,
+            None if seq is None else b)                           # (n, c)
         c = sel_idx.shape[1]
         ye = _expert_ffn(params, xe[sel_idx], activation)         # (n, c, d)
         ye = ye * sel_val[..., None].to(ye.dtype)

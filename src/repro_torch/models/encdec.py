@@ -26,10 +26,19 @@ FFNs on their columns, and the vocabulary is split as the transformer's
 they divide over the model axis, else every KV head, each rank reading the
 one its query heads share: as ``kv_cache_spec`` lays out ``cross_k`` /
 ``cross_v``.
+
+The loss and the prefill run a rank's block of each row's target sequence
+where the caller splits it over the data axis (``seq_block``,
+``prompt_group``: as the transformer's). The encoder runs on the whole
+source on every rank; the decoder's self-attention gathers every rank's
+keys, its cross-attention reads the whole encoder output. A rank's backward
+reaches the encoder through its own block's loss alone, so the data axis's
+sum of the gradients is the whole gradient.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -46,7 +55,9 @@ from repro_torch.models.common import (
     init_generator,
     init_ffn_params,
     kv_view,
+    last_row,
     lm_cross_entropy,
+    prompt_block,
     rms_norm,
     rope_frequencies,
     rope_positions,
@@ -108,8 +119,11 @@ class EncDec(nn.Module):
         self.head = _param(dense_init(
             generator, (cfg.d_model, cfg.padded_vocab), dtype), device)
         # The model axis's group where ``embed`` and ``head`` hold this
-        # rank's block of the vocabulary, as the transformer's.
+        # rank's block of the vocabulary, as the transformer's; the
+        # sequence split's records, as the transformer's (see the module).
         self.vocab_group = None
+        self.seq_block = None
+        self.prompt_group = None
 
     @property
     def device(self) -> torch.device:
@@ -120,13 +134,14 @@ class EncDec(nn.Module):
         return self.embed.dtype
 
     # ------------------------------------------------------------------ #
-    def _rope(self, s: int, offset: Optional[torch.Tensor], device):
+    def _rope(self, s: int, offset: Optional[torch.Tensor], device,
+              start: int = 0):
         cfg = self.cfg
         if cfg.rope_fraction <= 0:
             return None
         return rope_frequencies(cfg.resolved_head_dim, cfg.rope_fraction,
                                 cfg.rope_theta,
-                                rope_positions(s, offset, device))
+                                rope_positions(s, offset, device, start))
 
     def _encoder_layer(self, layer: EncoderLayer, x: torch.Tensor,
                        rope) -> torch.Tensor:
@@ -148,7 +163,7 @@ class EncDec(nn.Module):
 
     def _decoder_layer(self, i: int, x: torch.Tensor,
                        enc_out: Optional[torch.Tensor],
-                       cache: Optional[dict], rope) -> torch.Tensor:
+                       cache: Optional[dict], rope, seq=None) -> torch.Tensor:
         cfg = self.cfg
         layer = self.decoder[i]
         self_kv = cross_kv = None
@@ -156,7 +171,8 @@ class EncDec(nn.Module):
             self_kv = kv_view(cache, "self_k", "self_v", i)
             cross_kv = kv_view(cache, "cross_k", "cross_v", i, clock=False)
         x = x + layer.self_attn.attend(rms_norm(x, layer.ln1, cfg.norm_eps),
-                                       self_kv, causal=True, rope=rope)
+                                       self_kv, causal=True, rope=rope,
+                                       seq=seq)
         x = x + layer.cross_attn.attend(
             rms_norm(x, layer.lnx, cfg.norm_eps), cross_kv,
             rope_fraction=0.0, causal=False, xkv=enc_out,
@@ -165,20 +181,23 @@ class EncDec(nn.Module):
 
     def decode_stack(self, x: torch.Tensor, enc_out: Optional[torch.Tensor],
                      cache: Optional[dict] = None,
-                     remat: Optional[str] = None) -> torch.Tensor:
+                     remat: Optional[str] = None, seq=None) -> torch.Tensor:
         """The decoder over embedded tokens x (b, s, d), after ``ln_f``.
         Either ``enc_out`` (training: the cross K/V projected on the fly) or
         ``cache`` (serving: the self K/V, written in place at each
         sequence's position, and the frozen cross K/V) is given; with a
-        cache the clock advances by s. ``remat`` applies without a cache."""
+        cache the clock advances by the whole sequence. ``remat`` applies
+        without a cache. ``seq``: x holds this rank's block of a sequence
+        split over the data axis (a ``SeqBlock``)."""
         rope = self._rope(x.shape[1], None if cache is None else cache["pos"],
-                          x.device)
+                          x.device, 0 if seq is None else seq.first)
         layer_fn = apply_remat(self._decoder_layer,
                                None if cache is not None else remat)
         for i in range(len(self.decoder)):
-            x = layer_fn(i, x, enc_out, cache, rope)
+            x = layer_fn(i, x, enc_out, cache, rope, seq)
         if cache is not None:
-            cache["pos"] = cache["pos"] + x.shape[1]
+            rows = x.shape[1] if seq is None else seq.total(x.shape[1])
+            cache["pos"] = cache["pos"] + rows
         return rms_norm(x, self.ln_f, self.cfg.norm_eps)
 
     def precompute_cross_kv(self, enc_out: torch.Tensor
@@ -220,7 +239,7 @@ class EncDec(nn.Module):
         -1 ignored); aux is 0, as in the reference."""
         enc_out = self.encode(batch["frames"], remat)
         x = self.decode_stack(self._embed(batch["tokens"]), enc_out,
-                              remat=remat)
+                              remat=remat, seq=self.seq_block)
         ce = lm_cross_entropy(self._logits(x), batch["targets"],
                               self.vocab_group)
         aux = torch.zeros((), dtype=torch.float32, device=ce.device)
@@ -247,7 +266,11 @@ class EncDec(nn.Module):
         """Encode ``frames`` into the cache's cross K/V, then fill the self
         K/V from the prompt; logits of the last position, (b, 1,
         padded_vocab). A cross cache split along the source
-        (``SEQ_SPLIT``) takes this rank's block of the frames."""
+        (``SEQ_SPLIT``) takes this rank's block of the frames. Under
+        ``prompt_group`` this rank runs its block of a prompt whose length
+        divides the group (``prompt_block``), its cross-attention over the
+        whole source; every rank gets the last row's logits, bitwise the
+        same."""
         rows = src = cache["cross_k"].shape[2]
         split = cache.get(SEQ_SPLIT)
         rank = 0
@@ -260,11 +283,21 @@ class EncDec(nn.Module):
                 f"gives {frames.shape[1]}")
         ck, cv = self.precompute_cross_kv(self.encode(frames))
         first = rank * rows
-        ck, cv = ck[:, :, first:first + rows], cv[:, :, first:first + rows]
-        cache["cross_k"].copy_(ck)
-        cache["cross_v"].copy_(cv)
-        x = self.decode_stack(self._embed(tokens), None, cache=cache)
-        return serving_logits(self._logits(x[:, -1:]), self.vocab_group), cache
+        cache["cross_k"].copy_(ck[:, :, first:first + rows])
+        cache["cross_v"].copy_(cv[:, :, first:first + rows])
+        tokens, seq = prompt_block(tokens, self.prompt_group)
+        view = cache
+        if seq is not None and src != rows:
+            # this rank's block of the prompt attends over every frame:
+            # the whole cross K/V for the prefill, the cache its block
+            dtype = cache["cross_k"].dtype
+            view = {**cache, "cross_k": ck.to(dtype), "cross_v": cv.to(dtype),
+                    SEQ_SPLIT: dataclasses.replace(split, names=tuple(
+                        n for n in split.names if not n.startswith("cross")))}
+        x = self.decode_stack(self._embed(tokens), None, cache=view, seq=seq)
+        cache["pos"] = view["pos"]
+        return (serving_logits(self._logits(last_row(x, seq)),
+                               self.vocab_group), cache)
 
     @torch.no_grad()
     def decode_step(self, cache: dict, tokens: torch.Tensor

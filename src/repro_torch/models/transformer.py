@@ -20,12 +20,15 @@ summed into ``aux``), with its remat policies (``apply_remat``) on
 directions on the GPU. Serving (``prefill``, ``decode_step``) runs under
 ``torch.no_grad()``; a decode step ignores the auxiliary loss.
 
-A dense model's loss and prefill run a rank's block of each row's sequence
-where the caller splits it over the data axis (``seq_block``, set by
+The loss and the prefill run a rank's block of each row's sequence where
+the caller splits it over the data axis (``seq_block``, set by
 ``train.sharded_train_step``; ``prompt_group``, set by ``train.
 shard_model`` for a batch served whole on every data rank): the rotary
-positions start at the block's first row and each attention gathers every
-rank's keys (``models.common.attention_block``'s ``seq``).
+positions start at the block's first row, each attention gathers every
+rank's keys (``models.common.attention_block``'s ``seq``) and each MoE
+layer routes the blocks as one microbatch in the reference's token order
+(``moe_block``'s ``seq``). The VLM's patches belong to rank 0's block
+(``prefix_block``), so its block is the longer by their rows.
 """
 
 from __future__ import annotations
@@ -59,6 +62,7 @@ from repro_torch.models.common import (
     lm_cross_entropy,
     lm_logits,
     moe_block,
+    prefix_block,
     prompt_block,
     rms_norm,
     rope_frequencies,
@@ -218,7 +222,9 @@ class MoE(nn.Module):
     fewer than all; else by their hidden layers); ``route_groups``, the
     data-parallel groups whose ranks' tokens are routed as one microbatch
     (``moe_block``). ``stats``: a dictionary the caller may set, which each
-    call fills with its routed and kept (token, expert) pairs."""
+    call fills with its routed and kept (token, expert) pairs.
+    ``forward``'s ``seq``: the split (a ``SeqBlock``) x is a block of
+    (``moe_block``)."""
 
     def __init__(self, cfg: ModelConfig, generator, dtype, device):
         super().__init__()
@@ -237,7 +243,8 @@ class MoE(nn.Module):
         self.route_groups = ()
         self.stats = None
 
-    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    def forward(self, x: torch.Tensor, seq=None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
         m = self.cfg.moe
         params = {n: getattr(self, n) for n in self.leaves}
         shared_group = None
@@ -251,7 +258,8 @@ class MoE(nn.Module):
                          aux_loss_weight=m.aux_loss_weight,
                          dispatch=m.dispatch, group=self.tp_group,
                          shared_group=shared_group,
-                         route_groups=self.route_groups, stats=self.stats)
+                         route_groups=self.route_groups, stats=self.stats,
+                         seq=seq)
 
 
 class Block(nn.Module):
@@ -325,19 +333,19 @@ class Transformer(nn.Module):
         return layer.attn(rms_norm(x, layer.ln1, self.cfg.norm_eps), kv, rope,
                           seq)
 
-    def _ffn_part(self, layer: "Block", x: torch.Tensor
+    def _ffn_part(self, layer: "Block", x: torch.Tensor, seq=None
                   ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """The FFN sub-block's output and, for a MoE layer, its aux loss."""
         h = rms_norm(x, layer.ln2, self.cfg.norm_eps)
         if hasattr(layer, "moe"):
-            return layer.moe(h)
+            return layer.moe(h, seq)
         return layer.ffn(h), None
 
     def _block(self, layer: "Block", x: torch.Tensor,
                kv: Optional[dict] = None, rope=None, seq=None
                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         x = x + self._attn_part(layer, x, kv, rope, seq)
-        y, aux = self._ffn_part(layer, x)
+        y, aux = self._ffn_part(layer, x, seq)
         return x + y, aux
 
     def _embed(self, tokens: torch.Tensor,
@@ -376,7 +384,7 @@ class Transformer(nn.Module):
             ffn_part = apply_remat(self._ffn_part, remat)
             for layer in self.layers:
                 x = x + attn_part(layer, x, None, rope, seq)
-                y, layer_aux = ffn_part(layer, x)
+                y, layer_aux = ffn_part(layer, x, seq)
                 x = x + y
                 if layer_aux is not None:
                     aux = layer_aux if aux is None else aux + layer_aux
@@ -390,8 +398,7 @@ class Transformer(nn.Module):
             if layer_aux is not None:
                 aux = layer_aux if aux is None else aux + layer_aux
         if cache is not None:
-            rows = x.shape[1] * (1 if seq is None
-                                 else dist.get_world_size(seq.group))
+            rows = x.shape[1] if seq is None else seq.total(x.shape[1])
             cache["pos"] = cache["pos"] + rows
         return x, aux
 
@@ -421,9 +428,9 @@ class Transformer(nn.Module):
         for the VLM -> (total, {ce, aux}): the mean token cross-entropy in
         fp32 (targets of -1 ignored) over the token positions (the patches'
         are dropped), and the MoE layers' summed aux loss (0 without MoE)."""
-        patches = batch.get("patches")
+        patches, seq = prefix_block(batch.get("patches"), self.seq_block)
         x, aux = self._trunk(self._embed(batch["tokens"], patches), None,
-                             remat, self.seq_block)
+                             remat, seq)
         n_patch = 0 if patches is None else patches.shape[1]
         logits = self._logits(x[:, n_patch:])
         ce = lm_cross_entropy(logits, batch["targets"], self.vocab_group)
@@ -449,13 +456,12 @@ class Transformer(nn.Module):
         """Fill a fresh cache from the prompt (behind ``patches`` for the
         VLM); logits of the last position, (b, 1, padded_vocab). Only that
         position goes through the final norm and the head: the others'
-        logits are not needed to serve. A dense model under
-        ``prompt_group`` runs this rank's block of a prompt whose length
-        divides the group (``prompt_block``); every rank gets the last
+        logits are not needed to serve. Under ``prompt_group`` this rank
+        runs its block of a prompt whose length divides the group
+        (``prompt_block``; the patches on rank 0); every rank gets the last
         row's logits, bitwise the same."""
-        seq = None
-        if self.cfg.family == "dense":
-            tokens, seq = prompt_block(tokens, self.prompt_group)
+        tokens, seq = prompt_block(tokens, self.prompt_group)
+        patches, seq = prefix_block(patches, seq)
         x, _ = self._trunk(self._embed(tokens, patches), cache, seq=seq)
         return self._serving_logits(last_row(x, seq)), cache
 

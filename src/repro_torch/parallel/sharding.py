@@ -222,11 +222,20 @@ class SeqBlock:
     """This rank's block of every row of a sequence split along its length
     over the data axis: the axis's ``group`` and the block's ``first`` row
     (rank r of n holds rows ``[r S / n, (r + 1) S / n)`` of a sequence of
-    S). The one record of a train step's or a prefill's split, which the
-    models read (``models.common.attention_block``, ``models.mamba.
-    mamba_layer``)."""
+    S). ``prefix``: rows ahead of the split tokens (the VLM's patches) that
+    rank 0's block holds as well, so that it holds rows ``[0, P + S / n)``
+    and rank r > 0 rows ``[P + r S / n, P + (r + 1) S / n)`` of P + S. The
+    one record of a train step's or a prefill's split, which the models
+    read (``models.common.attention_block``, ``moe_block``, ``models.
+    mamba.mamba_layer``)."""
     group: object
     first: int
+    prefix: int = 0
+
+    def total(self, rows: int) -> int:
+        """The whole sequence's rows, from this rank's block of ``rows``."""
+        own = rows - (self.prefix if self.first == 0 else 0)
+        return dist.get_world_size(self.group) * own + self.prefix
 
 
 def rows_divide(mesh: Mesh, rows: int) -> bool:

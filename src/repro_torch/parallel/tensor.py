@@ -97,11 +97,23 @@ def gather_stacked(x: torch.Tensor, group) -> torch.Tensor:
     return _GatherStacked.apply(x, group)
 
 
-def gather_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+def gather_dim(x: torch.Tensor, dim: int, group,
+               lead: int = 0) -> torch.Tensor:
     """The group's pieces concatenated along ``dim`` in rank order (a
     sequence split over the group, whole on every rank); backward, the
-    gradient reduce-scattered back onto each rank's piece."""
-    return gather_stacked(x, group).movedim(0, dim).flatten(dim, dim + 1)
+    gradient reduce-scattered back onto each rank's piece. ``lead``: rank
+    0's piece is that many rows longer than the others' (a ``SeqBlock``'s
+    ``prefix``); the all-gather takes equal pieces, so the others' are
+    padded to rank 0's length and the pads dropped from the result."""
+    if not lead:
+        return gather_stacked(x, group).movedim(0, dim).flatten(dim, dim + 1)
+    pad = 0 if dist.get_rank(group) == 0 else lead
+    rows = x.shape[dim] + pad - lead                  # the others' pieces
+    zeros = x.new_zeros(x.shape[:dim] + (pad,) + x.shape[dim + 1:])
+    pieces = gather_stacked(torch.cat([x, zeros], dim), group)
+    rest = pieces[1:].narrow(dim + 1, 0, rows)
+    return torch.cat([pieces[0], rest.movedim(0, dim).flatten(dim, dim + 1)],
+                     dim)
 
 
 def copy_to_region(x: torch.Tensor, group) -> torch.Tensor:

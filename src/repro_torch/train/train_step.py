@@ -29,9 +29,10 @@ the collectives explicit:
     block of every row's positions instead, of the tokens and the targets
     alike (``batch_spec``'s ``seq_shard``, which the reference gives the
     tokens; each rank's loss needs its positions' targets): the model runs
-    the block (its ``seq_block``, a ``parallel.sharding.SeqBlock``) for the
-    dense, ssm and hybrid families and refuses the others (ROADMAP item
-    13); where neither divides, every data rank runs the whole microbatch.
+    the block (its ``seq_block``, a ``parallel.sharding.SeqBlock``), every
+    family (the encdec's frames and the VLM's patches whole on every rank,
+    as the reference leaves them); where neither divides, every data rank
+    runs the whole microbatch.
     It runs the microbatched forward and backward on its
     shards (tensor parallelism: ``parallel.tensor``, the MoE's experts by
     expert or by hidden layer; ZeRO-3's parameters gathered over the data
@@ -42,10 +43,11 @@ the collectives explicit:
     global microbatch, and each gradient element counts once in that sum
     where ranks hold the same positions (every rank in the whole case; the
     pod axis's ranks under a split of the data axis alone); a MoE layer
-    routes the global microbatch (its
-    capacity pick and auxiliary loss over every data rank's tokens:
-    ``parallel.tensor.route_over``), so its auxiliary loss is the same on
-    every rank and, weighted alike, sums to the reference's;
+    routes the global microbatch (its capacity pick and auxiliary loss over
+    every data rank's tokens: ``parallel.tensor.route_over``, or over the
+    data axis alone under a sequence split, whose pod ranks hold the same
+    positions: ``moe_block``'s ``seq``), so its auxiliary loss is the same
+    on every rank and, weighted alike, sums to the reference's;
   * each gradient is reduce-scattered onto its optimizer-state shard (the
     reference's gradient sharding constraint, ``train_step.py:83-86,128``)
     and summed over the data-parallel axes it is not divided over;
@@ -204,13 +206,6 @@ def state_shardings(cfg: ModelConfig, plan: MemoryPlan, state: dict,
             "opt": opt}
 
 
-# ROADMAP Queue 1 item: a batch too small to split over the data-parallel
-# ranks, its sequence split over the data axis instead (13). Its remainder:
-# the families whose train step and prefill do not split the sequence yet.
-SEQUENCE_SPLIT_ITEM = 13
-SEQUENCE_SPLIT_FAMILIES = ("dense", "ssm", "hybrid")
-
-
 def _refuse_unported(mesh) -> None:
     """Raise for a mesh with no processes behind it."""
     if not isinstance(mesh, DeviceMesh):
@@ -349,18 +344,12 @@ def _global_norm(grads: Dict[str, torch.Tensor],
     return torch.sqrt(total).reshape(())
 
 
-def _seq_block(cfg: ModelConfig, mesh, spec, shape) -> Optional[SeqBlock]:
+def _seq_block(mesh, spec, shape) -> Optional[SeqBlock]:
     """The ``SeqBlock`` of a microbatch whose ``spec`` (``batch_spec``'s,
     of its tokens of ``shape``) splits the sequence over the data axis, or
-    None; raises for a family whose model does not split it."""
+    None."""
     if len(spec) < 2 or spec[1] != SEQ_AXIS:
         return None
-    if cfg.family not in SEQUENCE_SPLIT_FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.arch_id} ({cfg.family}): a microbatch of {shape[0]} rows "
-            "does not divide over the data-parallel ranks, and a train step "
-            f"split along the sequence for the {cfg.family} family waits "
-            f"for ROADMAP Queue 1 item {SEQUENCE_SPLIT_ITEM}")
     rows = shape[1] // mesh_spec(mesh).shape[SEQ_AXIS]
     return SeqBlock(mesh.get_group(SEQ_AXIS),
                     mesh.get_local_rank(SEQ_AXIS) * rows)
@@ -372,8 +361,7 @@ def sharded_train_step(cfg: ModelConfig, plan: MemoryPlan, mesh,
     state from ``shard_train_state`` on the same mesh and the global batch
     (every rank passes the whole batch; each takes its rows, or its block
     of every row's positions, of each microbatch). The metrics are
-    ``make_train_step``'s, global (the same on every rank). Raises, before
-    any step, for a sequence split of a family that does not run one."""
+    ``make_train_step``'s, global (the same on every rank)."""
     _refuse_unported(mesh)
     opt_cfg = opt_cfg or _default_opt(plan)
     m = max(1, plan.microbatches)
@@ -390,7 +378,7 @@ def sharded_train_step(cfg: ModelConfig, plan: MemoryPlan, mesh,
         tokens = batch["tokens"]
         shape = (tokens.shape[0] // m,) + tuple(tokens.shape[1:])
         seq_spec = batch_spec(mesh, shape, seq_shard=True)
-        seq = _seq_block(cfg, mesh, seq_spec, shape)
+        seq = _seq_block(mesh, seq_spec, shape)
         local = {}
         for k, v in batch.items():
             mbs = v.reshape((m, v.shape[0] // m) + tuple(v.shape[1:]))
@@ -399,9 +387,10 @@ def sharded_train_step(cfg: ModelConfig, plan: MemoryPlan, mesh,
             mine = local_shard(mbs, (None,) + spec, mesh)
             local[k] = mine.reshape((-1,) + tuple(mine.shape[2:]))
         state["model"].seq_block = seq
-        # a microbatch whole on every data rank routes its MoE tokens alone
-        whole = seq is None and seq_spec[0] is None
-        route_over(state["model"], [] if whole else routed)
+        # a microbatch split by rows routes its MoE tokens over the data
+        # ranks; one split along the sequence over the data axis alone
+        # (the model's seq_block), one whole on every data rank alone
+        route_over(state["model"], [] if seq_spec[0] is None else routed)
         counts = (local["targets"] != -1).reshape(m, -1).sum(1).float()
         totals = counts.clone()
         for group in dp_groups:

@@ -16,9 +16,8 @@ so that each rank's result is held to the reference itself:
     model), and on a (2 pod, 2 data, 1 model) mesh whose pod ranks hold the
     same positions; and where neither the rows nor the sequence divide
     (every data rank runs the whole microbatch). A config that sets
-    ``attn_batch_shard`` gives the same numbers;
-  * the MoE, encoder-decoder and VLM families refuse the split before any
-    step, naming ROADMAP item 13 and the family;
+    ``attn_batch_shard`` gives the same numbers (the MoE, encoder-decoder
+    and VLM families: ``tests/test_torch_distributed_seq_families.py``);
   * the prefill of a batch served whole on every data rank (``shard_model``
     with ``batch_rows``), the prompt's rows split over the data ranks,
     against the reference's ``prefill``: the last row's logits (bitwise the
@@ -50,8 +49,6 @@ from repro_torch.convert import from_jax_params
 from test_torch_distributed import _run_job
 
 ARCHS = ("smollm-135m", "mamba2-780m", "zamba2-2.7b")
-OTHERS = {"granite-moe-3b-a800m": "moe", "seamless-m4t-large-v2": "encdec",
-          "internvl2-76b": "vlm"}
 OPT = dict(lr=1e-3, warmup_steps=0, total_steps=10)
 MAX_SEQ = 128
 # case -> (ranks, mesh shape, mesh axes, batch rows, sequence, microbatches)
@@ -123,21 +120,6 @@ def split_step(arch, case, cfg=None, tag=None):
             "seq_block_cleared": model.seq_block is None}
 
 
-def refusal(arch):
-    \"\"\"The message a sequence split of ``arch``'s family raises with, or
-    None where the step ran.\"\"\"
-    global CFG
-    CFG = get_config(arch, reduced=True)
-    plan = MemoryPlan(1, "float32", True, "dots", 0.0, 1)
-    mesh = build_mesh((2, 1), ("data", "model"), "cpu")
-    state = shard_train_state(CFG, plan, fresh(plan), mesh)
-    try:
-        sharded_train_step(CFG, plan, mesh, OPT)(state, lm_batch(1, 16, 3))
-    except NotImplementedError as err:
-        return str(err)
-    return None
-
-
 def split_prefill(arch, case):
     \"\"\"The prefill of one row served whole on every data rank; rank 0
     saves the logits and the gathered caches.\"\"\"
@@ -177,8 +159,6 @@ if world == 2:
     results["step:attn_batch_shard"] = split_step(
         "smollm-135m", "dp2", dataclasses.replace(CFG, attn_batch_shard=True),
         "attn_batch_shard")
-    for arch in OTHER_ARCHS:
-        results["refusal:" + arch] = refusal(arch)
 """
 
 
@@ -203,8 +183,7 @@ def _job(weights, world, tmp_path_factory):
     body = (_BODY.replace("WEIGHTS_DIR", repr(str(weights[0])))
             .replace("STEP_CASES", repr(STEPS))
             .replace("PREFILL_CASES", repr(PREFILLS))
-            .replace("MAX_ROWS", repr(MAX_SEQ))
-            .replace("OTHER_ARCHS", repr(tuple(OTHERS))))
+            .replace("MAX_ROWS", repr(MAX_SEQ)))
     body = "ARCHS = " + repr(ARCHS) + "\n" + body
     out = tmp_path_factory.mktemp(f"seq_{world}")
     return out, _run_job(body, world, out)
@@ -285,17 +264,6 @@ def test_attn_batch_shard_changes_nothing(two):
     got = torch.load(out / "step_attn_batch_shard_dp2.pt")
     want = torch.load(out / "step_smollm-135m_dp2.pt")
     assert all(torch.equal(got[n], want[n]) for n in want)
-
-
-@pytest.mark.parametrize("arch", list(OTHERS))
-def test_other_families_refuse_the_split(two, arch):
-    """A one-row batch at 2 data ranks: the MoE, encdec and VLM families
-    raise before any step, naming ROADMAP item 13 and the family."""
-    for r in two[1]:
-        message = r[f"refusal:{arch}"]
-        assert message is not None
-        assert "ROADMAP Queue 1 item 13" in message
-        assert f"{OTHERS[arch]} family" in message
 
 
 @functools.lru_cache(maxsize=None)

@@ -37,7 +37,6 @@ from repro_torch.configs import ASSIGNED_ARCHS, SHAPES, all_cells, get_config
 from repro_torch.convert import to_jax_params
 from repro_torch.launch import dryrun, specs
 from repro_torch.launch.mesh import make_debug_mesh
-from repro_torch.train.train_step import SEQUENCE_SPLIT_ITEM
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CELLS = [(a, s) for a, s, runnable, _ in all_cells() if runnable]
@@ -221,7 +220,7 @@ def test_other_families_are_refused_naming_their_item(arch, shape, items,
     cache splits along its sequence and each application of the block adds
     one all-gather, the combine's: its rows' partial output and
     log-sum-exp, (2 ranks, 1, 2 heads, 1, head_dim + 1) fp32."""
-    assert items == [SEQUENCE_SPLIT_ITEM]
+    assert items == [13]
     counter, info = _lower(arch, shape)
     assert not dist.is_initialized()
     assert KEYS <= set(info) and info["flops"] > 0
@@ -248,42 +247,59 @@ def _one_row_microbatches(monkeypatch):
 
 def test_a_refused_cell_is_recorded_as_the_reference_records_an_error(
         tmp_path, monkeypatch):
-    """A refusal that stands: a MoE training cell whose plan cuts the global
-    batch into microbatches of one row splits them along the sequence, which
-    the MoE family does not run yet: it raises before any step naming item
-    13 and the family, and is recorded as the reference records a failed
-    cell."""
+    """A cell that fails inside its fake group (here a training cell whose
+    trace raises, naming a ROADMAP item, as a refusal does) is recorded as
+    the reference records a failed cell: its status, the error and the
+    mesh in the cell's JSON, and no process group left behind."""
     monkeypatch.undo()                   # the production mesh
-    _one_row_microbatches(monkeypatch)
+
+    def refuse(*args, **kwargs):
+        raise NotImplementedError("waits for ROADMAP Queue 1 item 13")
+
+    monkeypatch.setattr(dryrun, "_train_cell", refuse)
     info = dryrun.run_cell("granite-moe-3b-a800m", "train_4k", True,
                            str(tmp_path))
     saved = json.loads((tmp_path / "granite-moe-3b-a800m_train_4k_2x16x16"
                                    ".json").read_text())
     assert saved["status"] == info["status"] == "error"
     assert "ROADMAP Queue 1 item 13" in saved["error"]
-    assert "moe family" in saved["error"]
+    assert saved["error"].startswith("NotImplementedError")
     assert saved["mesh"] == "2x16x16"
     assert not dist.is_initialized()
 
 
-def test_a_one_row_microbatch_splits_along_the_sequence(tmp_path,
-                                                        monkeypatch):
-    """The mamba2 cell of one-row microbatches on 2 x 16 x 16, which
-    refused until item 13's second half, traces ``ok``: each microbatch's
-    4,096 positions split over the 16 data ranks, the blocks' halos and
-    SSD states all-gathered over the data axis. At full width, 2 of the 48
-    layers and 16 of the 256 rows, so that it traces in seconds."""
+def _one_row_cell(arch, monkeypatch):
+    """``arch``'s train_4k cell of one-row microbatches on 2 x 16 x 16 at
+    full width, 2 layers and 16 of the 256 rows, so that it traces in
+    seconds: it traces ``ok``, each microbatch's 4,096 positions split over
+    the 16 data ranks, something all-gathered over the data axis."""
     monkeypatch.undo()
     _one_row_microbatches(monkeypatch)
     monkeypatch.setitem(dryrun.SHAPES, "train_4k", dataclasses.replace(
         SHAPES["train_4k"], global_batch=16))
     counter, info = dryrun.lower_cell(
-        "mamba2-780m", "train_4k", True,
+        arch, "train_4k", True,
         cfg_transform=lambda cfg: dataclasses.replace(cfg, num_layers=2))
     assert info["mesh"] == "2x16x16" and info["microbatches"] == 16
     assert KEYS <= set(info) and info["flops"] > 0
     assert counter.by_op["c10d._allgather_base_"][0] > 0
     assert not dist.is_initialized()
+
+
+def test_a_one_row_microbatch_splits_along_the_sequence(tmp_path,
+                                                        monkeypatch):
+    """The mamba2 cell of one-row microbatches, which refused until item
+    13's second half (``_one_row_cell``): the blocks' halos and SSD states
+    all-gathered over the data axis."""
+    _one_row_cell("mamba2-780m", monkeypatch)
+
+
+def test_a_one_row_moe_microbatch_splits_along_the_sequence(monkeypatch):
+    """granite-moe's cell of one-row microbatches, the dry run's last
+    refusal until item 13's remainder (``_one_row_cell``): its experts
+    route the 16 blocks as one microbatch, the combine matrix all-gathered
+    over the data axis."""
+    _one_row_cell("granite-moe-3b-a800m", monkeypatch)
 
 
 def test_lower_cell_refuses_a_process_that_holds_a_group():
