@@ -237,7 +237,20 @@ run with a non-zero exit code (nothing drops to the CPU or to a plain version):
            baseline x (64, 16), (16, 64), (8, 128)), every cell's breakdown
            equal to time_compiled's for its environment, the wall split into
            the cells' enumeration (_cells), the prefetch (time_compiled) and
-           the record assembly (_eval_cell) on the card and on the CPU.
+           the record assembly (_eval_cell) on the card and on the CPU. Every
+           run_study call here pays the static pre-flight (validate="warn",
+           the default). Then the paper's figure API, each call twice on the
+           card and once on the CPU: cluster_comparison at the paper claims'
+           settings (transformer-1t at seq 2048, batch 1024; the DLRM at
+           batch 65,536; the 11 Table III clusters; A0/B1 for transformer-1t
+           printed), the Fig. 8-13 wrappers at their defaults,
+           pareto_frontier, and successive_halving and evolutionary_search
+           (seed 0) over hetero_cost_study at the pareto shape: every output
+           within 1e-9 relative of the CPU's, two card runs equal, the same
+           frontier, survivors and trace order, and the cells tied to the
+           bit on the CPU tied to the bit on the card. Then validate="error"
+           over the 13 studies above and the search's (none may raise or
+           warn), its milliseconds on a line of its own.
            Hand-written kernels: 0 launches
 
 The last three lines are the card as nvidia-smi names it, one JSON object
@@ -263,6 +276,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -280,7 +294,7 @@ from repro_torch.configs import (  # noqa: E402
     get_config,
     get_dlrm_config,
 )
-from repro_torch.core import dse, study, torch_engine  # noqa: E402
+from repro_torch.core import dse, search, study, torch_engine  # noqa: E402
 from repro_torch.core.cluster import BASELINE_DGX_A100  # noqa: E402
 from repro_torch.core.simulator import time_compiled  # noqa: E402
 from repro_torch.core.study import (  # noqa: E402
@@ -520,6 +534,9 @@ STUDY_STEPS, STUDY_BIG_STEPS = 16, 32          # 4,096 and 32,768 environments
 STUDY_REL, STUDY_ABS = 1e-9, 1e-12
 STUDY_REPS = 3                                 # timed calls, median kept
 DLRM_STUDY_BATCH = 4096                        # fig15's DLRM global batch
+PAPER_DLRM_BATCH = 65536                       # the paper claims' DLRM batch
+PARETO_SHAPE = ShapeConfig("pareto", 2048, 1024, "train")
+TIE_COLUMNS = ("total", "tco", "energy_usd")   # the search's objectives
 
 DEVICE = "cuda"
 _STARTED = time.perf_counter()
@@ -6123,6 +6140,187 @@ def _grid_against_time_compiled(res) -> dict:
     return rows
 
 
+def _leaves(obj, path: str = "") -> list:
+    """(path, value) of every leaf of a figure API's output: dicts by key
+    in order, sequences by index, dataclasses field by field."""
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        obj = dataclasses.asdict(obj)
+    if isinstance(obj, dict):
+        return [leaf for k, v in obj.items()
+                for leaf in _leaves(v, f"{path}/{k}")]
+    if isinstance(obj, (list, tuple)):
+        return [leaf for i, v in enumerate(obj)
+                for leaf in _leaves(v, f"{path}/{i}")]
+    return [(path, obj)]
+
+
+def _leaf_problems(got, want) -> dict:
+    """``got``'s leaves against ``want``'s, by ``_records_problems``'
+    rule: the same paths and types, non-float values exactly, floats
+    within ``STUDY_REL`` relative (``STUDY_ABS``; inf and nan by text)."""
+    a, b = _leaves(got), _leaves(want)
+    if [p for p, _ in a] != [p for p, _ in b]:
+        return {"bad": [["paths", len(a), len(b)]], "n_bad": 1,
+                "max_rel_diff": None}
+    bad, worst = [], 0.0
+    for (path, va), (_, vb) in zip(a, b):
+        if type(va) is not type(vb):
+            bad.append([path, "type"])
+        elif isinstance(vb, float) and math.isfinite(vb):
+            diff = abs(va - vb)
+            worst = max(worst, diff / max(abs(va), abs(vb), 1e-300))
+            if not diff <= max(STUDY_REL * abs(vb), STUDY_ABS):
+                bad.append([path, va, vb])
+        elif isinstance(vb, float):
+            if str(va) != str(vb):
+                bad.append([path, va, vb])
+        elif va != vb:
+            bad.append([path, repr(va), repr(vb)])
+    return {"bad": bad[:8], "n_bad": len(bad), "max_rel_diff": worst}
+
+
+def _leaves_text(obj) -> str:
+    return json.dumps([[p, repr(v)] for p, v in _leaves(obj)])
+
+
+def _exact_ties(records) -> list:
+    """[i, j, column] of every pair of feasible records whose objective
+    column is equal to the bit."""
+    feasible = [i for i, r in enumerate(records) if r["feasible"]]
+    return sorted([i, j, k] for n, i in enumerate(feasible)
+                  for j in feasible[n + 1:] for k in TIE_COLUMNS
+                  if records[i][k] == records[j][k])
+
+
+def _identities(records) -> list:
+    return [[r.get("strategy"), r.get("em_pod_frac"), r.get("search_round")]
+            for r in records]
+
+
+def _search_out(res) -> dict:
+    return {"evaluations": res.evaluations, "trace": res.trace.records,
+            "final": res.final.records}
+
+
+def _paper_api_calls() -> list:
+    """(name, device -> output) of the paper's figure API: the Fig. 15
+    headline, the Fig. 8-13 wrappers at their defaults, the Pareto
+    frontier, the hetero-cost study under it and the two searches of it."""
+    cfg, dlrm, base = get_config(STUDY_ARCH), get_dlrm_config(), \
+        BASELINE_DGX_A100
+    pareto = dse.hetero_cost_study(cfg, PARETO_SHAPE)
+    return [
+        ("cluster_comparison", lambda d: dse.cluster_comparison(
+            cfg, STUDY_SHAPE, dlrm, PAPER_DLRM_BATCH, device=d)),
+        ("mpdp_sweep", lambda d: dse.mpdp_sweep(cfg, STUDY_SHAPE, base,
+                                                device=d)),
+        ("memory_expansion_heatmap", lambda d: dse.memory_expansion_heatmap(
+            cfg, STUDY_SHAPE, base, device=d)),
+        ("compute_scaling", lambda d: dse.compute_scaling(
+            cfg, STUDY_SHAPE, base, 8, 128, device=d)),
+        ("network_scaling", lambda d: dse.network_scaling(
+            cfg, STUDY_SHAPE, base, 64, 16, device=d)),
+        ("bandwidth_rebalance", lambda d: dse.bandwidth_rebalance(
+            cfg, STUDY_SHAPE, base, 64, 16, device=d)),
+        ("dlrm_cluster_size_sweep", lambda d: dse.dlrm_cluster_size_sweep(
+            dlrm, base, device=d)),
+        ("dlrm_memory_expansion", lambda d: dse.dlrm_memory_expansion(
+            dlrm, base, device=d)),
+        ("pareto_frontier", lambda d: dse.pareto_frontier(device=d)),
+        ("hetero_cost_study", lambda d: run_study(pareto, device=d).records),
+        ("successive_halving", lambda d: _search_out(
+            search.successive_halving(pareto, device=d))),
+        ("evolutionary_search", lambda d: _search_out(
+            search.evolutionary_search(pareto, seed=0, device=d))),
+    ]
+
+
+def _timed(fn, device) -> tuple:
+    t0 = time.perf_counter()
+    out = fn(device)
+    if device != "cpu":
+        torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def _paper_api_row(name: str, fn) -> tuple:
+    """One figure API call twice on the card and once on the CPU."""
+    card, card_ms = _timed(fn, DEVICE)
+    again, again_ms = _timed(fn, DEVICE)
+    cpu, cpu_ms = _timed(fn, "cpu")
+    agree = _leaf_problems(card, cpu)
+    equal_runs = _leaves_text(card) == _leaves_text(again)
+    row = {"call": name, "card_ms": [card_ms, again_ms], "cpu_ms": cpu_ms,
+           "card_vs_cpu": agree, "two_card_runs_equal": equal_runs}
+    problems = []
+    if agree["n_bad"]:
+        problems.append({"card_vs_cpu": agree})
+    if not equal_runs:
+        problems.append("two card runs differ")
+    records = want = None
+    if name in ("pareto_frontier", "hetero_cost_study"):
+        records, want = card, cpu
+    elif name in ("successive_halving", "evolutionary_search"):
+        records, want = card["trace"], cpu["trace"]
+        row["evaluations"] = card["evaluations"]
+        row["final"] = _identities(card["final"])
+        if _identities(card["final"]) != _identities(cpu["final"]) \
+                or card["evaluations"] != cpu["evaluations"]:
+            problems.append("survivors or evaluations differ")
+    if records is not None:
+        ties, cpu_ties = _exact_ties(records), _exact_ties(want)
+        row["order"] = _identities(records)[:8]
+        row["exact_ties"] = len(ties)
+        if _identities(records) != _identities(want):
+            problems.append("frontier or trace order differs")
+        if ties != cpu_ties:
+            problems.append({"exact_ties": [len(ties), len(cpu_ties)]})
+    if name == "cluster_comparison":
+        ratio = {k: out["A0"]["transformer-1t"] / out["B1"]["transformer-1t"]
+                 for k, out in (("card", card), ("cpu", cpu))}
+        row["a0_over_b1_transformer_1t"] = ratio
+        rel = abs(ratio["card"] - ratio["cpu"]) / ratio["cpu"]
+        row["a0_over_b1_rel_diff"] = rel
+        if not rel <= STUDY_REL or not 5.0 < ratio["card"] < 10.0:
+            problems.append({"a0_over_b1": ratio})
+    return row, problems
+
+
+def _preflight() -> tuple:
+    """validate="error" over the case studies and the search's spec: the
+    milliseconds of each pre-flight; a finding of any severity above info
+    is a problem."""
+    specs = _default_studies() + [("pareto_hetero_cost", dse.hetero_cost_study(
+        get_config(STUDY_ARCH), PARETO_SHAPE))]
+    ms, problems = {}, []
+    for label, spec in specs:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            t0 = time.perf_counter()
+            try:
+                study._validate_spec(spec, "error")
+            except Exception as err:                  # AnalysisError
+                problems.append({label: str(err)})
+            ms[label] = (time.perf_counter() - t0) * 1e3
+        problems += [{label: str(w.message)} for w in caught]
+    return ms, problems
+
+
+def _paper_api() -> tuple:
+    t0 = time.perf_counter()
+    rows, problems = [], []
+    for name, fn in _paper_api_calls():
+        row, bad = _paper_api_row(name, fn)
+        emit("run_study_paper_api", **row)
+        rows.append(row)
+        problems += [{name: b} for b in bad]
+    ms, bad = _preflight()
+    problems += bad
+    emit("run_study_preflight", validate="error", studies=len(ms),
+         total_ms=sum(ms.values()), ms=ms, findings=bad)
+    return rows, problems, time.perf_counter() - t0
+
+
 def phase_run_study() -> dict:
     """COMET's study runner over the paper's case studies and the study
     phase's grid (see the module docstring). Returns the hand-written
@@ -6145,7 +6343,6 @@ def phase_run_study() -> dict:
     against = _grid_against_time_compiled(card)
     expected = STUDY_STEPS ** 3 * len(spec.strategies.strategies)
     finite = all(math.isfinite(r["total"]) for r in card.records)
-    launches = _kernel_counts()
     emit("run_study_grid", name=spec.name, cells=len(card),
          expected_cells=expected, card=card_split, cpu=cpu_split,
          card_vs_cpu=agree, two_card_runs_equal=equal_runs,
@@ -6159,12 +6356,17 @@ def phase_run_study() -> dict:
     for label, r in against.items():
         if r["cells_outside"]:
             problems.append({"grid_vs_time_compiled": {label: r}})
+    api_rows, api_problems, api_s = _paper_api()
+    problems += api_problems
+    launches = _kernel_counts()
     if any(launches.values()):
         problems.append({"kernel_launches": launches})
-    emit("run_study_summary", studies=len(rows),
+    emit("run_study_summary", studies=len(rows), paper_api_calls=len(api_rows),
+         paper_api_seconds=api_s,
          cells=sum(r["cells"] for r in rows) + len(card),
          max_rel_diff=max([r["card_vs_cpu"]["max_rel_diff"] or 0.0
-                           for r in rows] + [agree["max_rel_diff"] or 0.0]),
+                           for r in rows + api_rows]
+                          + [agree["max_rel_diff"] or 0.0]),
          tolerance={"rel": STUDY_REL, "abs": STUDY_ABS},
          kernel_launches=launches, problems=problems,
          seconds=time.perf_counter() - t_phase)

@@ -1,0 +1,63 @@
+"""Static analysis over the port's COMET IR: workloads, compiled workloads,
+studies, clusters and search output — checked before anything is timed.
+
+The port's copy of the JAX package's ``analysis`` rule packs, held to them
+diagnostic for diagnostic by ``tests/test_torch_analysis.py`` and
+``tests/test_torch_search.py``. Five packs (codes grouped by hundreds
+digit):
+
+* ``W1xx`` (:mod:`repro_torch.analysis.rules_workload`) — Workload
+  invariants,
+* ``C1xx`` (:mod:`repro_torch.analysis.rules_compiled`) — CompiledWorkload
+  vs. its source,
+* ``S1xx`` (:mod:`repro_torch.analysis.rules_study`) — StudySpec
+  executability,
+* ``K1xx`` (:mod:`repro_torch.analysis.rules_cluster`) — cluster
+  well-formedness,
+* ``R1xx`` (:mod:`repro_torch.analysis.rules_search`) — search objective
+  sets and Pareto-frontier annotations.
+
+Entry points: the ``analyze_*`` helpers below and the ``validate=`` gate
+on :func:`repro_torch.core.study.run_study` (S1xx and K1xx). The serving,
+fleet and reliability packs (V1xx, F1xx, Y1xx) and the registry-sweep
+command line are not ported.
+"""
+
+from repro_torch.analysis.diagnostics import (
+    AnalysisError,
+    Diagnostic,
+    Rule,
+    RuleConfig,
+    SEVERITIES,
+    format_report,
+    has_errors,
+    list_rules,
+    max_severity,
+    rule,
+    run_pack,
+)
+from repro_torch.analysis.rules_cluster import analyze_cluster
+from repro_torch.analysis.rules_compiled import analyze_compiled
+from repro_torch.analysis.rules_search import SearchTarget, analyze_search
+from repro_torch.analysis.rules_study import analyze_study
+from repro_torch.analysis.rules_workload import analyze_workload
+
+__all__ = [
+    "AnalysisError",
+    "Diagnostic",
+    "Rule",
+    "RuleConfig",
+    "SEVERITIES",
+    "SearchTarget",
+    "analyze_cluster",
+    "analyze_compiled",
+    "analyze_search",
+    "analyze_study",
+    "analyze_workload",
+    "format_report",
+    "has_errors",
+    "list_rules",
+    "max_severity",
+    "rule",
+    "run_pack",
+]

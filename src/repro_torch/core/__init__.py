@@ -6,10 +6,12 @@ The port's copies of the JAX package's jax-free analytic modules
 ``tests/test_torch_core.py`` and ``tests/test_torch_placement.py``; the port
 of its batch evaluator, ``torch_engine`` (the JAX package's ``jax_engine``)
 under the compiled half of ``simulator``; and its study runner
-(``study.run_study``) with the paper's case studies (``dse``), held record
-for record by ``tests/test_torch_study.py``. ``simulator.time_compiled`` and
-``study.run_study`` run on the GPU unless the caller asks for
-``device="cpu"``.
+(``study.run_study``) with the paper's case studies and their wrappers
+(``dse``, ``strategy``) and the search over them (``search``), held record
+for record by ``tests/test_torch_study.py``,
+``tests/test_torch_paper_claims.py`` and ``tests/test_torch_search.py``.
+``simulator.time_compiled``, ``study.run_study`` and everything that calls
+it run on the GPU unless the caller asks for ``device="cpu"``.
 """
 
 from repro_torch.core.cluster import (  # noqa: F401
@@ -58,5 +60,14 @@ from repro_torch.core.study import (  # noqa: F401
     placement_axis,
     run_study,
     set_by_path,
+)
+from repro_torch.core.strategy import best_strategy, sweep_strategies  # noqa: F401
+from repro_torch.core.search import (  # noqa: F401
+    DEFAULT_OBJECTIVES,
+    Objective,
+    SearchResult,
+    evolutionary_search,
+    pareto_front,
+    successive_halving,
 )
 from repro_torch.core.workload import Workload, decompose, decompose_dlrm  # noqa: F401

@@ -249,6 +249,23 @@ def compile_workload(workload: Workload) -> CompiledWorkload:
     )
 
 
+def pass_event_totals(stage: CompiledStage
+                      ) -> Dict[Tuple[str, str], Tuple[int, float]]:
+    """Occurrence counts and total bytes per (collective, scope) across a
+    stage's two execution streams — what the timeline will actually issue
+    per microbatch, with the (kind, bytes, scope) dedup expanded back out.
+    The static analyzer (C102/C103, :mod:`repro_torch.analysis
+    .rules_compiled`) compares this against the source layer list."""
+    totals: Dict[Tuple[str, str], List[float]] = {}
+    for p in (stage.fwd, stage.bwd):
+        for row in p.ev_comm.tolist():
+            key = (stage.comm_kinds[row], stage.comm_scopes[row])
+            cell = totals.setdefault(key, [0, 0.0])
+            cell[0] += 1
+            cell[1] += float(stage.comm_sizes[row])
+    return {k: (int(c), b) for k, (c, b) in totals.items()}
+
+
 def stage_traffic(stage: CompiledStage, sram: np.ndarray) -> np.ndarray:
     """Per-delay-class memory traffic for a batch of on-chip buffer sizes:
     ``(ncls, nenv)`` bytes.  The §III-C2 tiling estimate

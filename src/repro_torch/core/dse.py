@@ -1,19 +1,24 @@
 """COMET §V case studies as the port's :mod:`repro_torch.core.study` specs.
 
-The port of the JAX package's ``core/dse.py`` builders, held to them record
-for record by ``tests/test_torch_study.py``: each paper figure is a
-``<fig>_study(...) -> StudySpec`` (axes x strategies over one runner), run
-through :func:`repro_torch.core.study.run_study`. The beyond-paper studies
-over mixed fleets (``hetero_cost_study``, ``placement_study``,
-``multi_tenant_study``) and the four-axis ``pp_ep_study`` come along. The
-reference's ``*_sweep`` / ``*_heatmap`` / ``*_ranking`` wrappers and its
+The port of the JAX package's ``core/dse.py``, held to it record for record
+by ``tests/test_torch_study.py`` (the builders) and
+``tests/test_torch_paper_claims.py`` (the wrappers): each paper figure is a
+``<fig>_study(...) -> StudySpec`` (axes x strategies over one runner) plus
+a thin wrapper keeping the seed function's signature and return shape
+(``mpdp_sweep``, ``memory_expansion_heatmap``, ``compute_scaling``,
+``network_scaling``, ``bandwidth_rebalance``, ``dlrm_cluster_size_sweep``,
+``dlrm_memory_expansion``, ``cluster_comparison``). The beyond-paper
+studies over mixed fleets (``hetero_cost_study``, ``placement_study``,
+``multi_tenant_study``) and the four-axis ``pp_ep_study`` come with their
+rankings, and ``pareto_frontier`` searches ``hetero_cost_study``. Every
+wrapper runs on the caller's ``device``, else the GPU. The reference's
 serving, fleet and reliability studies are not ported.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.core.cluster import (
@@ -26,14 +31,17 @@ from repro_torch.core.cluster import (
     TABLE_III_CLUSTERS,
 )
 from repro_torch.core.placement import JobSpec
+from repro_torch.core.strategy import StrategyResult
 from repro_torch.core.study import (
     Axis,
     GridSpace,
     ParallelSpec,
     PowerOfTwoSpace,
+    StudyResult,
     StudySpec,
     as_strategy_space,
     placement_axis,
+    run_study,
 )
 from repro_torch.core.workload import decompose_dlrm
 
@@ -59,6 +67,18 @@ def mpdp_study(cfg: ModelConfig, shape: ShapeConfig, cluster: ClusterConfig,
         strategies=PowerOfTwoSpace(min_mp=min_mp),
         mem_bw_override="local" if assume_infinite_capacity else None)
 
+
+def mpdp_sweep(cfg: ModelConfig, shape: ShapeConfig, cluster: ClusterConfig,
+               assume_infinite_capacity: bool = True,
+               min_mp: int = 1, device=None) -> List[StrategyResult]:
+    """Training-time breakdown for each (MP, DP); §V-B1 assumes infinite
+    per-node capacity at baseline bandwidth."""
+    res = run_study(mpdp_study(cfg, shape, cluster,
+                               assume_infinite_capacity, min_mp),
+                    device=device)
+    return [StrategyResult(c.strategy.mp, c.strategy.dp, c.breakdown,
+                           c.footprint.total) for c in res]
+
 # --------------------------------------------------------------------- #
 # §V-B2 / Fig. 9: expanded-memory bandwidth heatmap
 # --------------------------------------------------------------------- #
@@ -72,6 +92,21 @@ def memory_expansion_study(
         name="fig9-memory-expansion", model=cfg, shape=shape, cluster=cluster,
         strategies=as_strategy_space(strategies) or PowerOfTwoSpace(),
         axes=[_expand_axis(em_bandwidths_gbs)])
+
+
+def memory_expansion_heatmap(
+    cfg: ModelConfig,
+    shape: ShapeConfig,
+    cluster: ClusterConfig,
+    em_bandwidths_gbs: Sequence[float] = (100, 250, 500, 750, 1000, 1500, 2000),
+    strategies: Optional[Sequence[tuple]] = None,
+    device=None,
+) -> Dict[str, Dict[float, float]]:
+    """runtime[strategy_label][bw_EM_GBs], normalized by the caller."""
+    res = run_study(memory_expansion_study(cfg, shape, cluster,
+                                           em_bandwidths_gbs, strategies),
+                    device=device)
+    return res.pivot(index="strategy", columns="bw_em_gbs")
 
 # --------------------------------------------------------------------- #
 # §V-B3 / Fig. 10: per-node compute-capability scaling
@@ -89,6 +124,23 @@ def compute_scaling_study(
         axes=[Axis("compute_x", tuple(compute_factors),
                    path="node.peak_flops", mode="scale"),
               _expand_axis(em_bandwidths_gbs)])
+
+
+def compute_scaling(
+    cfg: ModelConfig,
+    shape: ShapeConfig,
+    cluster: ClusterConfig,
+    mp: int,
+    dp: int,
+    compute_factors: Sequence[float] = (0.5, 1.0, 2.0, 4.0, 8.0),
+    em_bandwidths_gbs: Sequence[float] = (500, 1000, 2000),
+    device=None,
+) -> Dict[float, Dict[float, float]]:
+    """runtime[compute_factor][bw_EM_GBs] for a fixed strategy."""
+    res = run_study(compute_scaling_study(cfg, shape, cluster, mp, dp,
+                                          compute_factors, em_bandwidths_gbs),
+                    device=device)
+    return res.pivot(index="compute_x", columns="bw_em_gbs")
 
 # --------------------------------------------------------------------- #
 # §V-B4 / Fig. 11: intra-/inter-pod bandwidth scaling
@@ -108,6 +160,24 @@ def network_scaling_study(
                    path="topology.intra_bw", mode="scale"),
               Axis("inter_x", tuple(inter_factors),
                    path="topology.inter_bw", mode="scale")])
+
+
+def network_scaling(
+    cfg: ModelConfig,
+    shape: ShapeConfig,
+    cluster: ClusterConfig,
+    mp: int,
+    dp: int,
+    intra_factors: Sequence[float] = (0.5, 1.0, 2.0, 4.0),
+    inter_factors: Sequence[float] = (0.5, 1.0, 2.0, 4.0),
+    device=None,
+) -> Dict[tuple, float]:
+    """runtime[(intra_factor, inter_factor)] at baseline compute/memory."""
+    res = run_study(network_scaling_study(cfg, shape, cluster, mp, dp,
+                                          intra_factors, inter_factors),
+                    device=device)
+    return {(c.point["intra_x"], c.point["inter_x"]): c.breakdown.total
+            for c in res}
 
 # --------------------------------------------------------------------- #
 # §V-B4 / Fig. 12: fixed-aggregate bandwidth re-balancing
@@ -131,6 +201,23 @@ def bandwidth_rebalance_study(
         cluster=cluster, strategies=ParallelSpec(mp=mp, dp=dp),
         mem_bw_override="local",
         axes=[Axis("ratio", tuple(ratios), apply=rebalance)])
+
+
+def bandwidth_rebalance(
+    cfg: ModelConfig,
+    shape: ShapeConfig,
+    cluster: ClusterConfig,
+    mp: int,
+    dp: int,
+    ratios: Sequence[float] = (1, 2, 3, 4, 5, 6, 7, 8, 9.6, 12, 16),
+    device=None,
+) -> Dict[float, float]:
+    """runtime[inter:intra ratio 1:r] with intra+inter = aggregate constant.
+
+    Baseline DGX: 300 + 31.25 = 331.25 GB/s aggregate; ratio 1:9.6."""
+    res = run_study(bandwidth_rebalance_study(cfg, shape, cluster, mp, dp,
+                                              ratios), device=device)
+    return {c.point["ratio"]: c.breakdown.total for c in res}
 
 # --------------------------------------------------------------------- #
 # §V-C / Fig. 13: DLRM cluster-size sweep + memory-expansion study
@@ -156,6 +243,21 @@ def dlrm_cluster_size_study(dlrm_cfg, cluster: ClusterConfig,
                                                 base.node).total / GB})
 
 
+def dlrm_cluster_size_sweep(
+    dlrm_cfg,
+    cluster: ClusterConfig,
+    global_batch: int = 4096,
+    node_counts: Sequence[int] = (64, 32, 16, 8),
+    device=None,
+) -> Dict[int, dict]:
+    """Single-instance DLRM training breakdown vs cluster size (Fig. 13a)."""
+    res = run_study(dlrm_cluster_size_study(dlrm_cfg, cluster, global_batch,
+                                            node_counts), device=device)
+    return {c.point["nodes"]: {**c.breakdown.as_dict(),
+                               "footprint_gb": c.record["footprint_gb"]}
+            for c in res}
+
+
 def dlrm_memory_expansion_study(
     dlrm_cfg, cluster: ClusterConfig, global_batch: int = 4096,
     total_nodes: int = 64, num_instances: int = 8,
@@ -177,6 +279,27 @@ def dlrm_memory_expansion_study(
         job=lambda ctx: JobSpec(
             instances=num_instances,
             nodes_per_instance=ctx.point["nodes_per_inst"]))
+
+
+def dlrm_memory_expansion(
+    dlrm_cfg,
+    cluster: ClusterConfig,
+    global_batch: int = 4096,
+    total_nodes: int = 64,
+    num_instances: int = 8,
+    em_bandwidths_gbs: Sequence[float] = (250, 500, 800, 1000, 1500, 2000),
+    nodes_per_instance_opts: Sequence[int] = (64, 32, 16, 8),
+    device=None,
+) -> Dict[int, Dict[float, float]]:
+    """Fig. 13b: turnaround of ``num_instances`` DLRMs on 64 nodes.
+
+    Using fewer nodes per instance needs expanded memory but runs
+    ceil(64/n) instances concurrently: turnaround = iter_time * n_waves."""
+    res = run_study(dlrm_memory_expansion_study(
+        dlrm_cfg, cluster, global_batch, total_nodes, num_instances,
+        em_bandwidths_gbs, nodes_per_instance_opts), device=device)
+    return res.pivot(index="nodes_per_inst", columns="bw_em_gbs",
+                     values="turnaround")
 
 # --------------------------------------------------------------------- #
 # Beyond Fig. 13: heterogeneous pod mix ranked by perf-per-dollar
@@ -229,6 +352,44 @@ def hetero_cost_study(
         strategies=as_strategy_space(strategies) or PowerOfTwoSpace(min_mp=8),
         axes=[Axis("em_pod_frac", tuple(em_pod_fractions), apply=mix)])
 
+
+def hetero_cost_ranking(cfg: ModelConfig, shape: ShapeConfig,
+                        processes: Optional[int] = None,
+                        device=None,
+                        **kwargs) -> List[Dict[str, float]]:
+    """Feasible (em_pod_frac, strategy) cells, best perf-per-dollar first."""
+    res: StudyResult = run_study(hetero_cost_study(cfg, shape, **kwargs),
+                                 processes=processes, device=device)
+    feasible = [c.record for c in res if c.record["feasible"]]
+    return sorted(feasible, key=lambda r: r["perf_per_dollar"], reverse=True)
+
+
+def pareto_frontier(cfg: Optional[ModelConfig] = None,
+                    shape: Optional[ShapeConfig] = None,
+                    objectives=None,
+                    processes: Optional[int] = None,
+                    device=None,
+                    **kwargs) -> List[Dict[str, float]]:
+    """Demo search study: the (time, TCO, energy) Pareto frontier of the
+    mixed plain/EM fleet design space (``hetero_cost_study``).
+
+    A single perf-per-dollar scalar hides the trade surface; the frontier
+    keeps every fleet fraction x strategy cell no other cell beats on all
+    three axes at once — typically the all-plain fleet (cheap, slow), the
+    all-EM fleet (fast, expensive) and the EM-aware mixes between them.
+    Every record is annotated with ``pareto_rank`` / ``pareto_optimal``
+    (:mod:`repro_torch.core.search`); returns the frontier records,
+    fastest first."""
+    from repro_torch.core.search import DEFAULT_OBJECTIVES, pareto_front
+    cfg = cfg or _default_transformer()
+    shape = shape or ShapeConfig("pareto", 2048, 1024, "train")
+    res = run_study(hetero_cost_study(cfg, shape, **kwargs),
+                    processes=processes, device=device)
+    front = pareto_front(res, objectives if objectives is not None
+                         else DEFAULT_OBJECTIVES)
+    return sorted((c.record for c in front),
+                  key=lambda r: r["total"])
+
 # --------------------------------------------------------------------- #
 # Beyond Fig. 8: the full MP x DP x PP x EP joint sweep
 # --------------------------------------------------------------------- #
@@ -263,6 +424,17 @@ def pp_ep_study(
         strategies=GridSpace(mp=tuple(mp), dp=tuple(dp), pp=tuple(pp),
                              ep=tuple(ep),
                              num_microbatches=tuple(num_microbatches)))
+
+
+def pp_ep_ranking(processes: Optional[int] = None,
+                  device=None,
+                  **kwargs) -> List[Dict[str, float]]:
+    """Feasible four-axis cells, fastest first (per-cluster ranking is a
+    ``select(cluster=...)`` away)."""
+    res = run_study(pp_ep_study(**kwargs), processes=processes,
+                    device=device)
+    feasible = [c.record for c in res if c.record["feasible"]]
+    return sorted(feasible, key=lambda r: r["total"])
 
 # --------------------------------------------------------------------- #
 # §V-D / Fig. 15: comparative training across 11 clusters
@@ -315,6 +487,39 @@ def cluster_comparison_studies(
             nodes_per_instance=_dlrm_nodes_per_instance(ctx.cluster)))
     return transformer, dlrm
 
+
+def cluster_comparison(
+    transformer_cfg: ModelConfig,
+    transformer_shape: ShapeConfig,
+    dlrm_cfg,
+    dlrm_batch: int = 4096,
+    clusters: Optional[Dict[str, ClusterLike]] = None,
+    processes: Optional[int] = None,
+    device=None,
+) -> Dict[str, Dict[str, float]]:
+    """runtime[cluster][workload] for Transformer-1T + 8 DLRM instances.
+
+    Transformer: best feasible (MP, DP) per cluster (capacity-constrained;
+    heterogeneous specs gate on the least-capable group).
+    DLRM: nodes-per-instance per the paper (mem0: 64, mem1: 16, mem2: 8)."""
+    clusters = clusters or TABLE_III_CLUSTERS
+    t_study, d_study = cluster_comparison_studies(
+        transformer_cfg, transformer_shape, dlrm_cfg, dlrm_batch, clusters)
+    t_res = run_study(t_study, processes=processes, device=device)
+    d_res = run_study(d_study, processes=processes, device=device)
+    out: Dict[str, Dict[str, float]] = {}
+    for name, cl in clusters.items():
+        per = t_res.select(cluster=name)
+        fit = [c for c in per
+               if c.record["footprint_bytes"] <= cl.min_node_cap
+               and c.breakdown.feasible]
+        out[name] = {
+            "transformer-1t": (min(c.record["total"] for c in fit) if fit
+                               else float("inf")),
+            "dlrm": d_res.select(cluster=name).cells[0].record["turnaround"],
+        }
+    return out
+
 # --------------------------------------------------------------------- #
 # Placement as a swept study axis; multi-tenant scheduling
 # --------------------------------------------------------------------- #
@@ -355,6 +560,18 @@ def placement_study(
         axes=[Axis("em_pod_frac", tuple(em_pod_fractions),
                    apply=_em_pod_mix(plain, expanded)),
               placement_axis(tuple(placements))])
+
+
+def placement_ranking(processes: Optional[int] = None,
+                      device=None,
+                      **kwargs) -> List[Dict[str, float]]:
+    """Feasible (em_pod_frac, placement, strategy) cells, best
+    perf-per-dollar first."""
+    res = run_study(placement_study(**kwargs), processes=processes,
+                    device=device)
+    feasible = [c.record for c in res if c.record["feasible"]]
+    return sorted(feasible, key=lambda r: r["perf_per_dollar"],
+                  reverse=True)
 
 
 def _default_transformer() -> ModelConfig:
@@ -409,6 +626,16 @@ def multi_tenant_study(
         job=lambda ctx: JobSpec(
             instances=num_instances,
             nodes_per_instance=ctx.point["nodes_per_inst"]))
+
+
+def multi_tenant_ranking(processes: Optional[int] = None,
+                         device=None,
+                         **kwargs) -> List[Dict[str, float]]:
+    """Feasible (nodes_per_inst, placement) cells, best turnaround first."""
+    res = run_study(multi_tenant_study(**kwargs), processes=processes,
+                    device=device)
+    feasible = [c.record for c in res if c.record["feasible"]]
+    return sorted(feasible, key=lambda r: r["turnaround"])
 
 # --------------------------------------------------------------------- #
 # Figure-study registry

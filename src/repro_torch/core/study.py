@@ -23,11 +23,14 @@ this module makes that data:
     as the reference does; :class:`StudyResult` holds them.
 
 ``repro_torch.core.dse`` expresses the paper's case studies (Figs. 8-15) as
-StudySpecs over this runner. There is one engine, the port's compiled one,
-on the caller's ``device``, else the GPU. What the runner does not do
-raises ``NotImplementedError`` naming its ROADMAP item: a process pool, the
-static pre-flight (``validate``), reliability columns, ``pareto_front`` and
-specs that lower through ``to_study()``.
+StudySpecs over this runner, and ``repro_torch.core.search`` searches it
+(``StudyResult.pareto_front`` delegates there). There is one engine, the
+port's compiled one, on the caller's ``device``, else the GPU. Before any
+cell runs, ``validate`` gates the static pre-flight of
+:mod:`repro_torch.analysis` (S1xx on the spec, K1xx on its base cluster).
+What the runner does not do raises ``NotImplementedError`` naming its
+ROADMAP item: a process pool, reliability columns and specs that lower
+through ``to_study()``.
 """
 
 from __future__ import annotations
@@ -38,6 +41,7 @@ import io
 import itertools
 import json
 import math
+import warnings
 from typing import (
     Any,
     Callable,
@@ -855,15 +859,9 @@ PROCESSES_DEFERRED = (
     "run_study(processes > 1) is not ported: a fork pool after CUDA is "
     "initialised is unsafe, and the device batch takes the pool's place "
     "(ROADMAP Queue 1 item 22)")
-VALIDATE_DEFERRED = (
-    "run_study(validate='warn'/'error') is not ported: the static "
-    "pre-flight lives in repro.analysis (ROADMAP Queue 1 item 19)")
 RELIABILITY_DEFERRED = (
     "a study with reliability columns is not ported: they come from "
     "repro.fleet and repro.reliability (ROADMAP Queue 1 item 20)")
-PARETO_DEFERRED = (
-    "StudyResult.pareto_front is not ported: it delegates to "
-    "repro.core.search (ROADMAP Queue 1 item 21)")
 TO_STUDY_DEFERRED = (
     "a spec that lowers through to_study() (repro.serving, repro.fleet) is "
     "not ported (ROADMAP Queue 1 item 23)")
@@ -871,8 +869,29 @@ TO_STUDY_DEFERRED = (
 VALIDATE_MODES = ("off", "warn", "error")
 
 
+def _validate_spec(spec: StudySpec, mode: str) -> None:
+    """Static pre-flight (:mod:`repro_torch.analysis`): S1xx rules on the
+    spec plus K1xx rules on the base cluster.  Pure inspection — it never
+    touches the cells or records, so results are identical across modes."""
+    from repro_torch.analysis import (AnalysisError, analyze_cluster,
+                                      analyze_study, format_report,
+                                      has_errors)
+    diags = analyze_study(spec)
+    if spec.cluster is not None:
+        diags += analyze_cluster(spec.cluster)
+    # Advisory (info) findings don't warrant interrupting a run; they stay
+    # visible through the analyze_* helpers.
+    diags = [d for d in diags if d.severity != "info"]
+    if not diags:
+        return
+    if mode == "error" and has_errors(diags):
+        raise AnalysisError(diags)
+    warnings.warn(f"study {spec.name!r} pre-flight:\n{format_report(diags)}",
+                  stacklevel=3)
+
+
 def run_study(spec: StudySpec, processes: Optional[int] = None,
-              validate: str = "off", device=None) -> "StudyResult":
+              validate: str = "warn", device=None) -> "StudyResult":
     """Evaluate every cell of ``spec`` on the port's compiled engine.
 
     Workload decompositions are memoized by strategy + ``workload_deps``
@@ -884,9 +903,16 @@ def run_study(spec: StudySpec, processes: Optional[int] = None,
     the same non-float values; floats agree with its ``engine="compiled"``
     within 1e-9 relative.
 
-    ``processes > 1``, ``validate`` other than ``"off"``, a spec with
-    reliability columns and an object with ``to_study()`` raise
-    ``NotImplementedError`` naming their ROADMAP item."""
+    ``validate`` gates a static pre-flight over the spec (S1xx rules) and
+    its base cluster (K1xx rules) from :mod:`repro_torch.analysis`:
+    ``"warn"`` (default) reports findings as a warning, ``"error"`` raises
+    :class:`repro_torch.analysis.AnalysisError` on error-severity findings,
+    ``"off"`` skips the pass.  Validation only inspects — records are
+    identical across all three modes.
+
+    ``processes > 1``, a spec with reliability columns and an object with
+    ``to_study()`` raise ``NotImplementedError`` naming their ROADMAP
+    item."""
     device = resolve_device(device)
     if not isinstance(spec, StudySpec):
         if getattr(spec, "to_study", None) is not None:
@@ -896,13 +922,13 @@ def run_study(spec: StudySpec, processes: Optional[int] = None,
     if validate not in VALIDATE_MODES:
         raise ValueError(f"validate must be one of {VALIDATE_MODES}, "
                          f"got {validate!r}")
-    if validate != "off":
-        raise NotImplementedError(VALIDATE_DEFERRED)
     if processes is not None and processes > 1:
         raise NotImplementedError(PROCESSES_DEFERRED)
     if spec.reliability is not None \
             or any(is_reliability_axis(a) for a in spec.axes):
         raise NotImplementedError(RELIABILITY_DEFERRED)
+    if validate != "off":
+        _validate_spec(spec, validate)
     # The memos live here, never in module globals, so an exception
     # anywhere (a raising metric, an infeasible builder) leaves nothing
     # behind that could poison a later run.
@@ -981,8 +1007,14 @@ class StudyResult:
         return self
 
     def pareto_front(self, objectives=None) -> "StudyResult":
-        """The reference's delegate to ``repro.core.search``: not ported."""
-        raise NotImplementedError(PARETO_DEFERRED)
+        """Frontier cells over ``objectives`` (default: the paper's
+        time/TCO/energy triple).  Annotates every record with
+        ``pareto_rank`` / ``pareto_optimal`` in place — a thin delegate
+        to :func:`repro_torch.core.search.pareto_front`."""
+        from repro_torch.core import search
+        return search.pareto_front(
+            self, objectives if objectives is not None
+            else search.DEFAULT_OBJECTIVES)
 
     # -- reshaping / export --------------------------------------------- #
     def pivot(self, index: str, columns: str,
