@@ -46,9 +46,13 @@ run with a non-zero exit code (nothing drops to the CPU or to a plain version):
            none (with the env phase's driver version and GPU UUID, this ties
            a recurrence of an unequal repeat to a machine)
   serve    smollm-135m at full width and depth, bf16, random weights from a
-           seed: the continuous-batching engine answers 16 requests; launch
-           counters show that the run went through the kernels; then the
-           kernel path against the plain path in fp32 on the same weights
+           seed: the continuous-batching engine answers 16 requests through
+           8 slots; launch counters show that the run went through the
+           kernels; the requests each tick admits and the active slots at
+           each decode step, tick for tick, equal to COMET's analytic
+           engine schedule (repro_torch.serving.ServingWorkload.
+           engine_schedule: schedule_equal); then the kernel path against
+           the plain path in fp32 on the same weights
   profile  a few decode ticks under torch.profiler: the device's busy share
   serve_mamba, profile_mamba
            the same for mamba2-780m at full width and depth (prefill through
@@ -184,8 +188,8 @@ run with a non-zero exit code (nothing drops to the CPU or to a plain version):
   parallel_gloo_seq
            a train step and a prefill with each row's sequence split over
            the data ranks, on two processes over gloo at (2 data, 1 model),
-           full width: zamba2-2.7b at 6 layers and smollm-135m at full
-           depth, one fp32 step of one row of 4,096 tokens each against
+           full width: zamba2-2.7b and smollm-135m at 6 layers each, one
+           fp32 step of one row of 4,096 tokens each against
            make_train_step (parallel_gloo_ssm's checks, every launch as
            reckoned: every scan twice, attention with q_offset and the scan
            from an init_state seen by shape); zamba2's prefill of one row
@@ -204,8 +208,9 @@ run with a non-zero exit code (nothing drops to the CPU or to a plain version):
            kernels' operators against direct launches on the decode tick,
            alternating; (b) launch.dryrun.lower_cell over the 32 runnable
            cells on each of the 16 x 16 and 2 x 16 x 16 meshes, on the
-           host, as rank 0 of a fake process group (no group may be held
-           then): every cell ok but long_500k's (item 13 alone)
+           host, as rank 0 of a fake process group, in six spawned
+           processes side by side (no group may be held then): every cell
+           ok
   study    COMET's batch evaluator (repro_torch.core: the port of the JAX
            package's jax_engine) over the paper's transformer-1t study grid:
            the paper shape (seq 2048, batch 1024), strategies (mp, dp) =
@@ -248,9 +253,18 @@ run with a non-zero exit code (nothing drops to the CPU or to a plain version):
            (seed 0) over hetero_cost_study at the pareto shape: every output
            within 1e-9 relative of the CPU's, two card runs equal, the same
            frontier, survivors and trace order, and the cells tied to the
-           bit on the CPU tied to the bit on the card. Then validate="error"
-           over the 13 studies above and the search's (none may raise or
-           warn), its milliseconds on a line of its own.
+           bit on the CPU tied to the bit on the card. Then the serving and
+           reliability studies: serving_ranking() at its defaults (18
+           cells, 3,000 requests each; host code, run once: every cell
+           feasible, disaggregated ahead at the top rate);
+           reliability_ranking() and reliability_headline() (the
+           Young-Daly columns over two cluster shapes) twice on the card
+           and once on the CPU, records within
+           1e-9 relative, the card runs equal, the headline's picks, flip
+           and Daly-vs-naive ratio equal; the block's seconds. Then
+           validate="error" over the 13 studies above, the search's and
+           the serving and reliability studies (none may raise or warn),
+           its milliseconds on a line of its own.
            Hand-written kernels: 0 launches
 
 The last three lines are the card as nvidia-smi names it, one JSON object
@@ -373,6 +387,7 @@ from repro_torch.parallel.sharding import (  # noqa: E402
     split_caches,
 )
 from repro_torch.serve import Engine, EngineConfig, Request  # noqa: E402
+from repro_torch.serving import ServingModel, ServingWorkload  # noqa: E402
 from repro_torch.train import (  # noqa: E402
     Trainer,
     TrainerConfig,
@@ -2158,11 +2173,34 @@ def _expected_launches(cfg, prefills: int, ticks: int) -> dict:
             "ssd_scan": cfg.num_layers * prefills if mamba else 0}
 
 
+def _schedule_spies(engine: Engine, tick_timer) -> tuple:
+    """Record, for the engine's run, the requests each tick's ``_admit``
+    admits and the active slots at each ``decode_step`` (which goes on to
+    ``tick_timer``). Adds no tick and no launch."""
+    admitted, occupancy = [], []
+    admit = engine._admit
+
+    def admit_spy():
+        queued = len(engine.queue)
+        admit()
+        admitted.append(queued - len(engine.queue))
+
+    def decode_spy(cache, tokens):
+        occupancy.append(len(engine.active))
+        return tick_timer(cache, tokens)
+
+    engine._admit = admit_spy
+    engine.model.decode_step = decode_spy
+    return admitted, occupancy
+
+
 def phase_serve(arch: str, phase: str, weight_device: str) -> dict:
     """Full-size ``arch`` in bf16 with random weights drawn on
     ``weight_device`` from seed 0, 16 requests through the engine, launch
-    counts checked; then the kernel path against the plain path in fp32 on
-    the same weights (one prefill of (2, 300) and one decode tick)."""
+    counts checked, and the engine's admissions and occupancy tick for tick
+    against ``repro_torch.serving.ServingWorkload.engine_schedule``; then
+    the kernel path against the plain path in fp32 on the same weights (one
+    prefill of (2, 300) and one decode tick)."""
     cfg = get_config(arch)
     make = lambda dtype: get_model(cfg)(
         cfg, dtype=dtype, device=DEVICE,
@@ -2174,7 +2212,8 @@ def phase_serve(arch: str, phase: str, weight_device: str) -> dict:
     ecfg = EngineConfig(max_batch=8, max_seq=2048, seed=0)
     engine = Engine(cfg, model, ecfg, dtype=torch.bfloat16)
     prefill_timer = model.prefill = _Timed(model.prefill)
-    tick_timer = model.decode_step = _Timed(model.decode_step)
+    tick_timer = _Timed(model.decode_step)
+    admitted, occupancy = _schedule_spies(engine, tick_timer)
 
     rs = np.random.RandomState(0)
     n_requests, new_tokens = 16, 32
@@ -2212,8 +2251,21 @@ def phase_serve(arch: str, phase: str, weight_device: str) -> dict:
     expected = _expected_launches(cfg, prefills, ticks)
     if launches != expected:
         problems.append(f"launches {launches} != {expected}")
+    # The analytic engine schedule (eos_id -1: no request stops early).
+    schedule = ServingWorkload(cfg, ServingModel(
+        max_batch=ecfg.max_batch, max_seq=ecfg.max_seq,
+        max_new_tokens=new_tokens)).engine_schedule(
+            n_requests, new_tokens=[new_tokens] * n_requests)
+    schedule_equal = (schedule.admitted == tuple(admitted)
+                      and schedule.occupancy == tuple(occupancy)
+                      and schedule.prefills == prefills)
+    if not schedule_equal:
+        problems.append({"engine_schedule": {
+            "admitted": [list(schedule.admitted), admitted],
+            "occupancy": [list(schedule.occupancy), occupancy]}})
     peak_bytes = torch.cuda.max_memory_allocated()
     del model.prefill, model.decode_step      # back to the class's methods
+    del engine._admit
 
     # The same weights in fp32: kernel path against plain path on the card.
     model32 = make(torch.float32)
@@ -2260,6 +2312,9 @@ def phase_serve(arch: str, phase: str, weight_device: str) -> dict:
         "tick_ms_mean": float(np.mean(tick_timer.ms)),
         "tick_ms_median": float(np.median(tick_timer.ms)),
         "launches": launches, "peak_memory_bytes": peak_bytes,
+        "schedule_ticks": [len(schedule.occupancy), len(occupancy)],
+        "schedule_admissions": [len(schedule.admitted), len(admitted)],
+        "schedule_equal": schedule_equal,
         "weights_init_seconds": init_seconds,
         "fp32_logit_max_abs_err": logit_err, "fp32_logit_tol": LOGIT_TOL,
         "fp32_logit_max_abs": {"prefill": plain_first.abs().max().item(),
@@ -5171,13 +5226,14 @@ def phase_parallel_gloo_long() -> dict:
 
 # The sequence split over the data ranks (ROADMAP item 13's second half) on
 # two processes over gloo at (2 data, 1 model), full width: zamba2-2.7b at
-# 6 of its 54 layers (the shared block once) and smollm-135m at full depth,
-# each one fp32 step of one row of 4,096 tokens (2,048 a rank) against
+# 6 of its 54 layers (the shared block once) and smollm-135m at 6 of its 30
+# (cut from full depth to keep the script within its time limit), each one
+# fp32 step of one row of 4,096 tokens (2,048 a rank) against
 # make_train_step in one process under parallel_gloo_ssm's checks; then
 # zamba2's prefill of one row of prefill_32k's 32,768 tokens (16,384 a
 # rank) into a cache split along its sequence and 3 greedy ticks, bf16 and
 # fp32, against the whole model.
-SEQ_PAR_LAYERS = {ZAMBA_ARCH: 6, LM_ARCH: None}     # None: every layer
+SEQ_PAR_LAYERS = {ZAMBA_ARCH: 6, LM_ARCH: 6}        # None: every layer
 SEQ_PAR_BATCH, SEQ_PAR_SEQ = 1, 4096
 SEQ_PREFILL = 32_768
 # The split prefill's caches against the whole model's, of their largest.
@@ -6287,17 +6343,23 @@ def _paper_api_row(name: str, fn) -> tuple:
 
 
 def _preflight() -> tuple:
-    """validate="error" over the case studies and the search's spec: the
-    milliseconds of each pre-flight; a finding of any severity above info
-    is a problem."""
-    specs = _default_studies() + [("pareto_hetero_cost", dse.hetero_cost_study(
-        get_config(STUDY_ARCH), PARETO_SHAPE))]
+    """validate="error" over the case studies, the search's spec and the
+    serving and reliability studies (the serving spec lowered through
+    ``to_study()``, as run_study lowers it): the milliseconds of each
+    pre-flight; a finding of any severity above info is a problem."""
+    specs = _default_studies() + [
+        ("pareto_hetero_cost", dse.hetero_cost_study(get_config(STUDY_ARCH),
+                                                     PARETO_SHAPE)),
+        ("serving", dse.serving_study()),
+        ("reliability", dse.reliability_study())]
     ms, problems = {}, []
     for label, spec in specs:
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
             t0 = time.perf_counter()
             try:
+                if not isinstance(spec, StudySpec):
+                    spec = spec.to_study()
                 study._validate_spec(spec, "error")
             except Exception as err:                  # AnalysisError
                 problems.append({label: str(err)})
@@ -6319,6 +6381,63 @@ def _paper_api() -> tuple:
     emit("run_study_preflight", validate="error", studies=len(ms),
          total_ms=sum(ms.values()), ms=ms, findings=bad)
     return rows, problems, time.perf_counter() - t0
+
+
+HEADLINE_KEYS = ("best_failure_free", "best_failure_aware", "ranking_flips",
+                 "daly_vs_naive")
+
+
+def _serving_reliability() -> tuple:
+    """The serving and reliability studies: serving_ranking() at its
+    defaults once (host code: it touches no tensor, so the card has nothing
+    to disagree with; its records are held against the JAX package's in the
+    CPU tests), its cells feasible and the disaggregated placement ahead at
+    the top rate; reliability_ranking() and reliability_headline() twice
+    on the card and once on the CPU (records within 1e-9 relative, the two
+    card runs equal, the headline's picks, flip and Daly-vs-naive ratio
+    equal)."""
+    t0 = time.perf_counter()
+    problems = []
+    card, card_ms = _timed(lambda d: dse.serving_ranking(device=d), DEVICE)
+    per_dollar = {(r["em_pod_frac"], r["rate"], r["placement"]):
+                  r["goodput_per_dollar"] for r in card}
+    top = max(r["rate"] for r in card)
+    win = per_dollar[(0.5, top, "disaggregated")] \
+        / per_dollar[(0.5, top, "colocated")]
+    if len(card) != 18 or not all(r["feasible"] for r in card):
+        problems.append({"serving_cells": len(card)})
+    if not win > 1.2:
+        problems.append({"serving_disaggregated_win_at_top_rate": win})
+
+    reliability = lambda d: dse.reliability_ranking(device=d)
+    runs = [_timed(reliability, DEVICE) for _ in range(2)]
+    rel_cpu, rel_cpu_ms = _timed(reliability, "cpu")
+    agree = _leaf_problems(runs[0][0], rel_cpu)
+    equal_runs = _leaves_text(runs[0][0]) == _leaves_text(runs[1][0])
+    heads = {"card": dse.reliability_headline(runs[0][0]),
+             "card_again": dse.reliability_headline(runs[1][0]),
+             "cpu": dse.reliability_headline(rel_cpu)}
+    picked = {k: [h[k] for h in heads.values()] for k in HEADLINE_KEYS}
+    if agree["n_bad"]:
+        problems.append({"reliability_card_vs_cpu": agree})
+    if not equal_runs:
+        problems.append("reliability: two card runs differ")
+    if any(len(set(map(repr, v))) != 1 for v in picked.values()):
+        problems.append({"reliability_headline": picked})
+    if not (heads["card"]["daly_vs_naive"] >= 1.0
+            and heads["card"]["ranking_flips"]):
+        problems.append({"reliability_headline": heads["card"]})
+    row = {"serving_cells": len(card), "serving_ms": card_ms,
+           "serving_disaggregated_over_colocated_half_em_top_rate": win,
+           "reliability_cells": len(runs[0][0]),
+           "reliability_card_ms": [ms for _, ms in runs],
+           "reliability_cpu_ms": rel_cpu_ms,
+           "reliability_card_vs_cpu": agree,
+           "reliability_two_card_runs_equal": equal_runs,
+           "headline": heads["card"], "headline_equal": {
+               k: len(set(map(repr, v))) == 1 for k, v in picked.items()},
+           "seconds": time.perf_counter() - t0}
+    return row, problems
 
 
 def phase_run_study() -> dict:
@@ -6358,11 +6477,15 @@ def phase_run_study() -> dict:
             problems.append({"grid_vs_time_compiled": {label: r}})
     api_rows, api_problems, api_s = _paper_api()
     problems += api_problems
+    sr_row, sr_problems = _serving_reliability()
+    emit("run_study_serving_reliability", **sr_row, problems=sr_problems)
+    problems += sr_problems
     launches = _kernel_counts()
     if any(launches.values()):
         problems.append({"kernel_launches": launches})
     emit("run_study_summary", studies=len(rows), paper_api_calls=len(api_rows),
          paper_api_seconds=api_s,
+         serving_reliability_seconds=sr_row["seconds"],
          cells=sum(r["cells"] for r in rows) + len(card),
          max_rel_diff=max([r["card_vs_cpu"]["max_rel_diff"] or 0.0
                            for r in rows + api_rows]
@@ -6381,6 +6504,8 @@ DRYRUN_DECODE = (8, 2048)               # batch, max_seq
 DRYRUN_REPS = 5                         # timed calls a step, median kept
 DRYRUN_DISPATCH_CALLS = 20_000          # calls a route, for its host cost
 DRYRUN_TICKS = 300                      # decode ticks a route, alternating
+DRYRUN_WORKERS = 6                      # host processes tracing the sweep's cells
+DRYRUN_SWEEP_TIMEOUT_S = 600            # the sweep's limit (a worker lost hangs a pool)
 
 
 def _dryrun_lm_step(device: str):
@@ -6619,7 +6744,8 @@ def phase_dryrun() -> None:
     ms, model_flops_util, and the counted peak live bytes beside
     torch.cuda.max_memory_allocated. (b) On the host: lower_cell over every
     runnable cell on the 16 x 16 and the 2 x 16 x 16 mesh (a fake process
-    group of 256 / 512 ranks; none may be held here): the ok and refused
+    group of 256 / 512 ranks; none may be held here), DRYRUN_WORKERS
+    processes tracing the cells side by side: the ok and refused
     counts, each cell's trace_s and dominant term; every cell must be ok
     (long_500k's one row too, served whole on every data rank).
     Also the host cost of a call by each dispatcher route, and what the
@@ -6650,9 +6776,18 @@ def phase_dryrun() -> None:
              for multi_pod in (False, True)
              for arch, shape_name, runnable, _ in all_cells() if runnable]
     directory = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
+    # The cells are independent, so a pool of DRYRUN_WORKERS spawned
+    # processes, which hold no process group, traces them side by side (a
+    # worker takes many cells in turn: lower_cell joins and destroys its
+    # fake group for each); the results come back in order. Each cell's
+    # trace_s is taken while the workers share the host.
+    import multiprocessing
     try:
-        infos = [run_cell(arch, shape_name, mp, directory)
-                 for arch, shape_name, mp in cells]
+        with multiprocessing.get_context("spawn").Pool(DRYRUN_WORKERS) as pool:
+            infos = pool.starmap_async(
+                run_cell, [(arch, shape_name, mp, directory)
+                           for arch, shape_name, mp in cells],
+                chunksize=1).get(timeout=DRYRUN_SWEEP_TIMEOUT_S)
     finally:
         shutil.rmtree(directory, ignore_errors=True)
     sweep_s = time.perf_counter() - t0

@@ -1,8 +1,8 @@
 """Diagnostics framework: rule registry, severities, reports.
 
 The port's copy of the JAX package's ``analysis/diagnostics.py``, with a
-registry of its own that holds the five packs the port has (workload,
-compiled, study, cluster, search).
+registry of its own that holds the seven packs the port has (workload,
+compiled, study, cluster, serving, search, reliability).
 
 A *rule* is a pure function over existing IR (a Workload, a
 CompiledWorkload, a StudySpec, a cluster) that yields findings without
@@ -30,7 +30,8 @@ from typing import (Any, Callable, Dict, FrozenSet, Iterable, List, Mapping,
 SEVERITIES: Tuple[str, ...] = ("info", "warning", "error")
 _SEV_RANK: Dict[str, int] = {s: i for i, s in enumerate(SEVERITIES)}
 
-PACKS: Tuple[str, ...] = ("workload", "compiled", "study", "cluster", "search")
+PACKS: Tuple[str, ...] = ("workload", "compiled", "study", "cluster",
+                          "serving", "search", "reliability")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -2,8 +2,9 @@
 
 The port's copies of the JAX package's jax-free analytic modules
 (``topology``, ``collectives``, ``gemm``, ``workload``, ``compiled``,
-``memory``, ``cluster``, ``placement``), held equal to the reference by
-``tests/test_torch_core.py`` and ``tests/test_torch_placement.py``; the port
+``memory``, ``cluster``, ``placement``, ``roofline``), held equal to the
+reference by ``tests/test_torch_core.py``, ``tests/test_torch_placement.py``
+and ``tests/test_torch_serving.py``; the port
 of its batch evaluator, ``torch_engine`` (the JAX package's ``jax_engine``)
 under the compiled half of ``simulator``; and its study runner
 (``study.run_study``) with the paper's case studies and their wrappers

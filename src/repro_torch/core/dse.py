@@ -10,9 +10,16 @@ a thin wrapper keeping the seed function's signature and return shape
 ``dlrm_memory_expansion``, ``cluster_comparison``). The beyond-paper
 studies over mixed fleets (``hetero_cost_study``, ``placement_study``,
 ``multi_tenant_study``) and the four-axis ``pp_ep_study`` come with their
-rankings, and ``pareto_frontier`` searches ``hetero_cost_study``. Every
-wrapper runs on the caller's ``device``, else the GPU. The reference's
-serving, fleet and reliability studies are not ported.
+rankings, and ``pareto_frontier`` searches ``hetero_cost_study``. Beyond
+the paper's training studies, ``serving_study`` (prefill/decode
+disaggregation on a mixed plain/EM fleet, a
+:class:`repro_torch.serving.ServingSpec`) and ``reliability_study`` (the
+closed-form Young–Daly columns over two cluster shapes) come with their
+rankings and ``reliability_headline``, held to the reference's by
+``tests/test_torch_serving.py`` and ``tests/test_torch_reliability.py``.
+Every wrapper runs on the caller's ``device``, else the GPU. The
+reference's fleet studies (``fleet_study``, ``reliability_fleet_study``)
+are not ported yet.
 """
 
 from __future__ import annotations
@@ -636,6 +643,198 @@ def multi_tenant_ranking(processes: Optional[int] = None,
                     device=device)
     feasible = [c.record for c in res if c.record["feasible"]]
     return sorted(feasible, key=lambda r: r["turnaround"])
+
+
+# --------------------------------------------------------------------- #
+# Beyond the paper's training studies: serving-fleet DSE.
+# Prefill/decode rooflines + an SLO-gated traffic simulation decide when
+# disaggregating the two phases onto separate pods beats colocated
+# replicas on goodput-per-dollar.
+# --------------------------------------------------------------------- #
+
+def _serving_pod_mix(plain: str = "B0", expanded: str = "B1",
+                     num_pods: int = 4):
+    """``apply(cluster, frac) -> ClusterSpec`` building a small serving
+    fleet: ``num_pods`` Table III pods, ``frac`` of them memory-expanded
+    (same interconnect; priced by the expanded cluster's cost model)."""
+    base, em = TABLE_III_CLUSTERS[plain], TABLE_III_CLUSTERS[expanded]
+    pod = base.topology.pod_size
+
+    def mix(_, frac: float) -> ClusterSpec:
+        if not 0.0 <= frac <= 1.0:
+            raise ValueError(f"em_pod_frac must be in [0, 1], got {frac}")
+        n_em = int(round(frac * num_pods))
+        pods = tuple(
+            p for p in (PodSpec(base.node, count=num_pods - n_em,
+                                nodes_per_pod=pod),
+                        PodSpec(em.node, count=n_em, nodes_per_pod=pod))
+            if p.count > 0)
+        return ClusterSpec(
+            name=f"serve-{plain}+{expanded}-em{n_em}of{num_pods}",
+            pods=pods, interconnect=base.topology, cost=em.cost,
+            notes=f"serving fleet: {num_pods - n_em} plain + {n_em} EM "
+                  f"pods x {pod} nodes.")
+
+    return mix
+
+
+def serving_study(
+    cfg: Optional[ModelConfig] = None,
+    em_pod_fractions: Sequence[float] = (0.0, 0.25, 0.5),
+    rates: Sequence[float] = (120.0, 280.0, 440.0),
+    placements: Sequence[str] = ("colocated", "disaggregated"),
+    num_requests: int = 3000,
+    plain: str = "B0", expanded: str = "B1", num_pods: int = 4,
+):
+    """Serving DSE over an ``em_pod_frac x rate x placement`` grid.
+
+    Each cell builds a mixed plain/EM fleet, prices one replica's
+    prefill and decode phases on the roofline, then pushes a Poisson
+    trace through the fleet queue to get SLO-gated ``goodput`` (and
+    ``goodput_per_dollar`` via the fleet's TCO).  Colocated replicas
+    stall their whole batch for every admission's prefill (the
+    ``repro_torch.serve.engine`` semantics), so past a traffic knee their
+    TPOT blows through the SLO; disaggregated fleets keep decode pods
+    at pure-decode cadence at the price of dedicating pods (and a KV
+    hand-off per request) to prefill.  Returns a
+    :class:`repro_torch.serving.ServingSpec` — pass it straight to
+    :func:`run_study`."""
+    from repro_torch.configs import get_config
+    from repro_torch.serving import (ServingModel, ServingSpec, SLOSpec,
+                                     TrafficTrace, serving_placement_axis)
+    cfg = cfg or get_config("internlm2-20b")
+    mix = _serving_pod_mix(plain, expanded, num_pods)
+    return ServingSpec(
+        name="serving-disagg-dse", model=cfg,
+        serving=ServingModel(max_batch=32, max_seq=8192,
+                             prompt_len=1024, max_new_tokens=64),
+        trace=TrafficTrace(kind="poisson", rate=float(rates[0]),
+                           num_requests=num_requests),
+        slo=SLOSpec(ttft=1.0, tpot=0.035),
+        axes=[Axis("em_pod_frac", tuple(em_pod_fractions), apply=mix),
+              Axis("rate", tuple(float(r) for r in rates),
+                   path="trace.rate"),
+              serving_placement_axis(tuple(placements))])
+
+
+def serving_ranking(processes: Optional[int] = None,
+                    device=None,
+                    **kwargs) -> List[Dict[str, float]]:
+    """Feasible (em_pod_frac, rate, placement) cells, best
+    goodput-per-dollar first."""
+    res: StudyResult = run_study(serving_study(**kwargs),
+                                 processes=processes, device=device)
+    feasible = [c.record for c in res if c.record["feasible"]]
+    return sorted(feasible, key=lambda r: r["goodput_per_dollar"],
+                  reverse=True)
+
+
+# --------------------------------------------------------------------- #
+# Failure-aware DSE in closed form: Young–Daly goodput columns over a
+# cluster-shape axis engineered so the §V-D perf-per-dollar ranking flips
+# once failures are priced in (goodput_per_dollar).
+# --------------------------------------------------------------------- #
+
+def _reliability_clusters() -> Dict[str, ClusterConfig]:
+    """Two same-aggregate-compute cluster shapes: many cheap half-speed
+    nodes vs a quarter as many double-speed ones.  Failure-free, the
+    many-weak shape wins perf-per-dollar (cheaper capex per FLOP); at
+    finite MTBF its 4x node count quadruples the job-level failure rate
+    and the few-strong shape wins goodput-per-dollar — the ranking-flip
+    headline."""
+    from repro_torch.core.cluster import BASELINE_DGX_A100
+    base = BASELINE_DGX_A100
+    assert base.cost is not None
+    weak = base.node.scaled_compute(0.5).with_expansion(
+        cap=1e15, bw=1000 * GB)
+    strong = base.node.scaled_compute(2.0).with_expansion(
+        cap=1e15, bw=1000 * GB)
+    many = dataclasses.replace(
+        base, name="many-weak", num_nodes=2048, node=weak,
+        cost=dataclasses.replace(base.cost, usd_per_node=7_500))
+    few = dataclasses.replace(
+        base, name="few-strong", num_nodes=512, node=strong,
+        cost=dataclasses.replace(base.cost, usd_per_node=29_000))
+    return {"many-weak": many, "few-strong": few}
+
+
+RELIABILITY_SHAPE = ShapeConfig("reliability", 2048, 1024, "train")
+
+
+def reliability_study(
+    cfg: Optional[ModelConfig] = None,
+    shape: Optional[ShapeConfig] = None,
+    clusters: Optional[Dict[str, ClusterLike]] = None,
+    mtbf_hours: Sequence[float] = (float("inf"), 10_000.0),
+    intervals: Sequence[float] = (0.0, 120.0),
+    mttr_hours: float = 2.0,
+    ckpt_bw: float = 400e9,
+    run_hours: float = 168.0,
+) -> StudySpec:
+    """Transformer-1T failure-aware cluster DSE (closed form).
+
+    Sweeps (cluster shape) x (per-node MTBF, inf = failure-free) x
+    (checkpoint cadence: 0 = the Young–Daly optimum, else a naive fixed
+    interval) with each shape's fill-the-cluster strategy, and attaches
+    the ``ckpt_interval_s / ckpt_overhead_frac / expected_restarts /
+    goodput_frac / goodput_per_dollar`` columns through
+    ``StudySpec.reliability``.  ``reliability_headline`` reads the two
+    claims off the result: the Daly interval beats the naive cadence on
+    goodput, and the perf-per-dollar ranking flips once failures are
+    priced in."""
+    from repro_torch.reliability import FailureModel
+    cfg = cfg or _default_transformer()
+    shape = shape or RELIABILITY_SHAPE
+    cl = dict(clusters) if clusters is not None else _reliability_clusters()
+    return StudySpec(
+        name="reliability-goodput-dse", model=cfg, shape=shape,
+        strategies=GridSpace(mp=(8,), dp=(64, 256)),
+        axes=[Axis("cluster", tuple(cl), apply=lambda _, n: cl[n]),
+              Axis("mtbf_hours", tuple(mtbf_hours),
+                   path="reliability.mtbf_hours"),
+              Axis("ckpt_interval", tuple(intervals),
+                   path="reliability.interval_s")],
+        reliability=FailureModel(mtbf_hours=50_000.0,
+                                 mttr_hours=mttr_hours, ckpt_bw=ckpt_bw,
+                                 run_hours=run_hours))
+
+
+def reliability_ranking(processes: Optional[int] = None,
+                        device=None,
+                        **kwargs) -> List[Dict[str, float]]:
+    """Feasible (cluster, mtbf, cadence) cells, best failure-aware
+    goodput-per-dollar first."""
+    res = run_study(reliability_study(**kwargs), processes=processes,
+                    device=device)
+    feasible = [c.record for c in res if c.record["feasible"]]
+    return sorted(feasible, key=lambda r: r["goodput_per_dollar"],
+                  reverse=True)
+
+
+def reliability_headline(records: Sequence[Dict[str, float]]
+                         ) -> Dict[str, object]:
+    """The two closed-form claims from a ``reliability_ranking`` table:
+    ``daly_vs_naive`` (>= 1: the Young–Daly cadence never loses goodput
+    to the naive fixed one) and ``ranking_flips`` (the failure-free
+    perf-per-dollar winner is not the failure-aware goodput-per-dollar
+    winner)."""
+    import math
+    fin = [r for r in records if math.isfinite(r["mtbf_hours"])]
+    free = [r for r in records if math.isinf(r["mtbf_hours"])]
+    best_aware = max(fin, key=lambda r: r["goodput_per_dollar"])
+    best_free = max(free, key=lambda r: r["perf_per_dollar"])
+    same = [r for r in fin if r["cluster"] == best_aware["cluster"]]
+    daly = max(r["goodput_frac"] for r in same if r["ckpt_interval"] == 0.0)
+    naive = max(r["goodput_frac"] for r in same if r["ckpt_interval"] > 0.0)
+    return {
+        "daly_goodput": daly,
+        "naive_goodput": naive,
+        "daly_vs_naive": daly / naive,
+        "best_failure_free": best_free["cluster"],
+        "best_failure_aware": best_aware["cluster"],
+        "ranking_flips": best_free["cluster"] != best_aware["cluster"],
+    }
+
 
 # --------------------------------------------------------------------- #
 # Figure-study registry

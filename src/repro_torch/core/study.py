@@ -20,17 +20,22 @@ this module makes that data:
     times every (placement, environment) the strategy's cells touch in one
     :func:`repro_torch.core.simulator.time_compiled` batch on the device,
     and assembles the records through :func:`_eval_cell`, cell by cell,
-    as the reference does; :class:`StudyResult` holds them.
+    as the reference does; :class:`StudyResult` holds them. ``run_study``
+    also takes anything with a ``to_study()`` lowering (a
+    :class:`repro_torch.serving.ServingSpec`).
 
 ``repro_torch.core.dse`` expresses the paper's case studies (Figs. 8-15) as
 StudySpecs over this runner, and ``repro_torch.core.search`` searches it
 (``StudyResult.pareto_front`` delegates there). There is one engine, the
 port's compiled one, on the caller's ``device``, else the GPU. Before any
 cell runs, ``validate`` gates the static pre-flight of
-:mod:`repro_torch.analysis` (S1xx on the spec, K1xx on its base cluster).
-What the runner does not do raises ``NotImplementedError`` naming its
-ROADMAP item: a process pool, reliability columns and specs that lower
-through ``to_study()``.
+:mod:`repro_torch.analysis` (S1xx on the spec, K1xx on its base cluster,
+V1xx on a lowered serving spec, Y1xx on a failure model). A spec with a
+``reliability`` failure model grows the closed-form Young–Daly columns
+(:mod:`repro_torch.reliability`), and anything with a ``to_study()``
+lowering (a :class:`repro_torch.serving.ServingSpec`) runs directly. A
+process pool is not ported: ``processes > 1`` raises
+``NotImplementedError`` naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -451,10 +456,12 @@ class StudySpec:
     metrics: Dict[str, Callable[[StudyContext], Any]] = \
         dataclasses.field(default_factory=dict)
     evaluate: Optional[Callable[[StudyContext], Dict[str, Any]]] = None
-    # A failure model for the closed-form Young–Daly columns, with
-    # ``reliability.*`` dotted-path axes rewriting it per cell. Kept so a
-    # spec has the reference's fields; run_study refuses a spec that sets
-    # it (the reliability columns are not ported: RELIABILITY_DEFERRED).
+    # A repro_torch.reliability.FailureModel: every simulated cell then
+    # grows the closed-form Young–Daly columns (ckpt_interval_s /
+    # ckpt_overhead_frac / expected_restarts / goodput_frac and, with a
+    # cost model, goodput_per_dollar).  ``reliability.*`` dotted-path
+    # axes rewrite it per cell.  None (default) adds nothing — records
+    # are bit-for-bit the pre-reliability output.
     reliability: Optional[Any] = None
 
     # Record columns the engine itself writes; an axis shadowing one would
@@ -619,6 +626,42 @@ def _cost_columns(record: Dict[str, Any], cluster: ClusterLike) -> None:
 _DEFAULT_SCHEDULER = ScheduleModel()
 
 
+def _reliability_columns(spec: StudySpec, ctx: StudyContext,
+                         record: Dict[str, Any]) -> None:
+    """Attach the closed-form Young–Daly columns when the spec carries a
+    FailureModel.  ``reliability.*`` axes fold into the model here (the
+    cluster never sees them).  Infeasible cells get zeroed columns so
+    ``best("goodput_per_dollar", maximize=True)`` never recommends a
+    strategy that does not fit."""
+    model = spec.reliability
+    if model is None:
+        return
+    from repro_torch.fleet.resize import instance_state_bytes
+    from repro_torch.reliability.model import reliability_columns
+    for axis in spec.axes:
+        if is_reliability_axis(axis):
+            model = set_by_path(model,
+                                (axis.path or "")[len(_RELIABILITY_PREFIX):],
+                                ctx.point[axis.name],
+                                scale=(axis.mode == "scale"))
+    if not record.get("feasible", True) or ctx.workload is None:
+        record.update(ckpt_interval_s=0.0, ckpt_overhead_frac=0.0,
+                      expected_restarts=0.0, goodput_frac=0.0)
+        if "perf_per_dollar" in record:
+            record["goodput_per_dollar"] = 0.0
+        return
+    num_nodes = (ctx.strategy.num_nodes if ctx.strategy is not None
+                 else ctx.cluster.num_nodes if ctx.cluster is not None
+                 else 0)
+    record.update(reliability_columns(
+        model, instance_state_bytes(ctx.workload), num_nodes))
+    if "perf_per_dollar" in record:
+        # iterations of *useful* work per second per TCO dollar — the
+        # failure-aware §V-D ranking metric.
+        record["goodput_per_dollar"] = \
+            record["goodput_frac"] * record["perf_per_dollar"]
+
+
 def _job_columns(spec: StudySpec, ctx: StudyContext,
                  record: Dict[str, Any], sim_memo: dict,
                  skey: tuple, group_sim) -> None:
@@ -716,6 +759,7 @@ def _eval_cell(spec: StudySpec, strategy: Optional[ParallelSpec],
                           turnaround=float("inf"), makespan=float("inf"))
         if cluster is not None:
             _cost_columns(record, cluster)
+        _reliability_columns(spec, ctx, record)
         for mname, fn in spec.metrics.items():
             try:
                 record[mname] = fn(ctx)
@@ -761,6 +805,7 @@ def _eval_cell(spec: StudySpec, strategy: Optional[ParallelSpec],
     if spec.job is not None:
         _job_columns(spec, ctx, record, sim_memo, skey, group_sim=group_sim)
     _cost_columns(record, cluster)
+    _reliability_columns(spec, ctx, record)
     for mname, fn in spec.metrics.items():
         record[mname] = fn(ctx)
     return CellResult(strategy, ctx.point, cluster, br, br.footprint, record)
@@ -859,19 +904,14 @@ PROCESSES_DEFERRED = (
     "run_study(processes > 1) is not ported: a fork pool after CUDA is "
     "initialised is unsafe, and the device batch takes the pool's place "
     "(ROADMAP Queue 1 item 22)")
-RELIABILITY_DEFERRED = (
-    "a study with reliability columns is not ported: they come from "
-    "repro.fleet and repro.reliability (ROADMAP Queue 1 item 20)")
-TO_STUDY_DEFERRED = (
-    "a spec that lowers through to_study() (repro.serving, repro.fleet) is "
-    "not ported (ROADMAP Queue 1 item 23)")
 
 VALIDATE_MODES = ("off", "warn", "error")
 
 
 def _validate_spec(spec: StudySpec, mode: str) -> None:
     """Static pre-flight (:mod:`repro_torch.analysis`): S1xx rules on the
-    spec plus K1xx rules on the base cluster.  Pure inspection — it never
+    spec plus K1xx rules on the base cluster, V1xx on a lowered serving
+    spec's source and Y1xx on a failure model.  Pure inspection — it never
     touches the cells or records, so results are identical across modes."""
     from repro_torch.analysis import (AnalysisError, analyze_cluster,
                                       analyze_study, format_report,
@@ -879,6 +919,12 @@ def _validate_spec(spec: StudySpec, mode: str) -> None:
     diags = analyze_study(spec)
     if spec.cluster is not None:
         diags += analyze_cluster(spec.cluster)
+    if getattr(spec, "serving", None) is not None:
+        from repro_torch.analysis import analyze_serving
+        diags += analyze_serving(spec.serving)
+    if getattr(spec, "reliability", None) is not None:
+        from repro_torch.analysis import analyze_reliability
+        diags += analyze_reliability(spec)
     # Advisory (info) findings don't warrant interrupting a run; they stay
     # visible through the analyze_* helpers.
     diags = [d for d in diags if d.severity != "info"]
@@ -903,30 +949,33 @@ def run_study(spec: StudySpec, processes: Optional[int] = None,
     the same non-float values; floats agree with its ``engine="compiled"``
     within 1e-9 relative.
 
-    ``validate`` gates a static pre-flight over the spec (S1xx rules) and
-    its base cluster (K1xx rules) from :mod:`repro_torch.analysis`:
+    ``validate`` gates a static pre-flight over the spec (S1xx rules), its
+    base cluster (K1xx rules), a lowered serving spec's source (V1xx) and
+    a failure model (Y1xx) from :mod:`repro_torch.analysis`:
     ``"warn"`` (default) reports findings as a warning, ``"error"`` raises
     :class:`repro_torch.analysis.AnalysisError` on error-severity findings,
     ``"off"`` skips the pass.  Validation only inspects — records are
     identical across all three modes.
 
-    ``processes > 1``, a spec with reliability columns and an object with
-    ``to_study()`` raise ``NotImplementedError`` naming their ROADMAP
+    ``spec`` may also be anything with a ``to_study()`` lowering — a
+    :class:`repro_torch.serving.ServingSpec` runs here directly, with the
+    V1xx serving rules joining the pre-flight.  Such a study evaluates on
+    the host and touches no tensor, but ``device`` resolves all the same.
+    ``processes > 1`` raises ``NotImplementedError`` naming its ROADMAP
     item."""
     device = resolve_device(device)
     if not isinstance(spec, StudySpec):
-        if getattr(spec, "to_study", None) is not None:
-            raise NotImplementedError(TO_STUDY_DEFERRED)
-        raise TypeError(f"run_study wants a StudySpec; got "
-                        f"{type(spec).__name__}")
+        to_study = getattr(spec, "to_study", None)
+        if to_study is None:
+            raise TypeError(
+                f"run_study wants a StudySpec or an object with "
+                f"to_study(); got {type(spec).__name__}")
+        spec = to_study()
     if validate not in VALIDATE_MODES:
         raise ValueError(f"validate must be one of {VALIDATE_MODES}, "
                          f"got {validate!r}")
     if processes is not None and processes > 1:
         raise NotImplementedError(PROCESSES_DEFERRED)
-    if spec.reliability is not None \
-            or any(is_reliability_axis(a) for a in spec.axes):
-        raise NotImplementedError(RELIABILITY_DEFERRED)
     if validate != "off":
         _validate_spec(spec, validate)
     # The memos live here, never in module globals, so an exception

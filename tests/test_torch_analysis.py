@@ -7,8 +7,9 @@ Mirrors ``tests/test_analysis.py``'s ``TestFramework``,
 ``TestValidateEquivalence``) on the port: the same violation planted in
 each package's object gives the same diagnostics, code, severity, location
 and message, and each clean object none. The port's registry holds exactly
-the reference's rules of the five packs it has (code, pack, severity,
-description). ``run_study(validate="warn")`` warns with the reference's
+the reference's rules of the seven packs it has (code, pack, severity,
+description; V1xx and Y1xx are held case by case in
+``tests/test_torch_serving.py`` and ``tests/test_torch_reliability.py``). ``run_study(validate="warn")`` warns with the reference's
 text, ``"error"`` raises on what the reference raises on, and the records
 are identical across ``"off"``, ``"warn"`` and ``"error"``.
 """
@@ -58,7 +59,8 @@ from repro_torch.core.workload import decompose
 
 PAPER = ("paper", 2048, 1024, "train")
 SMALL = ("small", 512, 64, "train")
-PORTED_PACKS = ("workload", "compiled", "study", "cluster", "search")
+PORTED_PACKS = ("workload", "compiled", "study", "cluster", "serving",
+                "search", "reliability")
 
 
 def codes(diags):
@@ -126,6 +128,8 @@ class TestFramework:
         assert len(list_rules("study")) == 4
         assert len(list_rules("cluster")) == 4
         assert len(list_rules("search")) == 3
+        assert len(list_rules("serving")) == 4
+        assert len(list_rules("reliability")) == 5
 
     def test_registry_is_the_references(self):
         def rows(rules):

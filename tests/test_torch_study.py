@@ -528,33 +528,40 @@ def test_set_by_path_on_the_port_configs():
         study.set_by_path(base, "name.upper", 1)
 
 
-@dataclasses.dataclass(frozen=True)
-class _Failures:
-    mtbf_hours: float = 1e4
-
-
 def test_refusals_name_their_roadmap_item():
+    """What the runner refuses names its ROADMAP item (a process pool,
+    item 22); reliability columns (item 20) and a ``to_study()`` lowering
+    (item 23) now run as the reference runs them, record for record."""
+    from repro.reliability import FailureModel as FailureModelJax
+    from repro_torch.reliability import FailureModel
     spec = _small_spec()
     with pytest.raises(NotImplementedError, match="item 22"):
         run_study(spec, processes=2, device="cpu")
     with pytest.raises(ValueError, match="validate"):
         run_study(spec, validate="loud", device="cpu")
-    with pytest.raises(NotImplementedError, match="item 20"):
-        run_study(_small_spec(reliability=_Failures()), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 20"):
-        run_study(_small_spec(
-            reliability=_Failures(),
-            axes=[Axis("mtbf", (1e3,), path="reliability.mtbf_hours")]),
-            device="cpu")
+    ref, mine = run_both(
+        _small_spec(0, reliability=FailureModelJax(mtbf_hours=1e4)),
+        _small_spec(reliability=FailureModel(mtbf_hours=1e4)))
+    assert all("goodput_frac" in r for r in mine.records)
+    ref, mine = run_both(
+        _small_spec(0, reliability=FailureModelJax(),
+                    axes=[study_jax.Axis("mtbf", (1e3,),
+                                         path="reliability.mtbf_hours")]),
+        _small_spec(reliability=FailureModel(),
+                    axes=[Axis("mtbf", (1e3,),
+                               path="reliability.mtbf_hours")]))
+    assert {r["mtbf"] for r in mine.records} == {1e3}
     run_study(_small_spec(strategies=ParallelSpec(mp=2, dp=4)),
               processes=1, device="cpu")
 
     class Lowered:
-        def to_study(self):
-            return spec
+        def __init__(self, spec):
+            self.spec = spec
 
-    with pytest.raises(NotImplementedError, match="item 23"):
-        run_study(Lowered(), device="cpu")
+        def to_study(self):
+            return self.spec
+
+    run_both(Lowered(_small_spec(0)), Lowered(spec))
     with pytest.raises(TypeError, match="StudySpec"):
         run_study(object(), device="cpu")
 
