@@ -261,10 +261,19 @@ run with a non-zero exit code (nothing drops to the CPU or to a plain version):
            Young-Daly columns over two cluster shapes) twice on the card
            and once on the CPU, records within
            1e-9 relative, the card runs equal, the headline's picks, flip
-           and Daly-vs-naive ratio equal; the block's seconds. Then
+           and Daly-vs-naive ratio equal; the block's seconds. Then the
+           fleet timeline (run_study_fleet): fleet_ranking() (12 jobs on a
+           Poisson trace over the mixed EM/plain fleet; static, elastic,
+           elastic+burst) and reliability_fleet_ranking() (wait vs shrink
+           after an injected failure), each twice on the card and once on
+           the CPU: the width profiles timed on the run's device, the
+           timeline on the host; the policies' order, records within 1e-9
+           relative, the card runs equal, the event counts equal, the
+           headlines equal (elastic+burst >= 1.3x over static, shrink
+           ahead of wait); the block's seconds. Before the serving block,
            validate="error" over the 13 studies above, the search's and
-           the serving and reliability studies (none may raise or warn),
-           its milliseconds on a line of its own.
+           the serving, reliability and fleet studies (none may raise or
+           warn), its milliseconds on a line of its own.
            Hand-written kernels: 0 launches
 
 The last three lines are the card as nvidia-smi names it, one JSON object
@@ -6344,14 +6353,17 @@ def _paper_api_row(name: str, fn) -> tuple:
 
 def _preflight() -> tuple:
     """validate="error" over the case studies, the search's spec and the
-    serving and reliability studies (the serving spec lowered through
-    ``to_study()``, as run_study lowers it): the milliseconds of each
-    pre-flight; a finding of any severity above info is a problem."""
+    serving, reliability and fleet studies (the serving and fleet specs
+    lowered through ``to_study()``, as run_study lowers them): the
+    milliseconds of each pre-flight; a finding of any severity above info
+    is a problem."""
     specs = _default_studies() + [
         ("pareto_hetero_cost", dse.hetero_cost_study(get_config(STUDY_ARCH),
                                                      PARETO_SHAPE)),
         ("serving", dse.serving_study()),
-        ("reliability", dse.reliability_study())]
+        ("reliability", dse.reliability_study()),
+        ("fleet", dse.fleet_study()),
+        ("reliability_fleet", dse.reliability_fleet_study())]
     ms, problems = {}, []
     for label, spec in specs:
         with warnings.catch_warnings(record=True) as caught:
@@ -6439,6 +6451,97 @@ def _serving_reliability() -> tuple:
            "seconds": time.perf_counter() - t0}
     return row, problems
 
+FLEET_COUNTS = ("n_events", "preemptions", "resize_events", "burst_events",
+                "jobs_completed", "failures")
+
+
+def _fleet_runs(ranking, key, order) -> tuple:
+    """``ranking(device)`` twice on the card and once on the CPU: the three
+    runs, their ms, and the problems: the records' ``key`` (the swept
+    policy) not in ``order``, card
+    against CPU outside ``STUDY_REL`` / ``STUDY_ABS``, two card runs not
+    equal as text, the event counts not equal across the three."""
+    runs = [_timed(ranking, DEVICE) for _ in range(2)]
+    cpu, cpu_ms = _timed(ranking, "cpu")
+    records = [runs[0][0], runs[1][0], cpu]
+    orders = [[r[key] for r in rs] for rs in records]
+    agree = _leaf_problems(records[0], cpu)
+    equal_runs = _leaves_text(records[0]) == _leaves_text(records[1])
+    counts = {k: [[r[k] for r in rs] for rs in records]
+              for k in FLEET_COUNTS}
+    counts_equal = all(v[0] == v[1] == v[2] for v in counts.values())
+    problems = []
+    if any(o != order for o in orders):
+        problems.append({"order": orders})
+    if agree["n_bad"]:
+        problems.append({"card_vs_cpu": agree})
+    if not equal_runs:
+        problems.append("two card runs differ")
+    if not counts_equal:
+        problems.append({"counts": counts})
+    row = {"cells": len(records[0]), "order": orders[0],
+           "card_ms": [ms for _, ms in runs], "cpu_ms": cpu_ms,
+           "card_vs_cpu": agree, "two_card_runs_equal": equal_runs,
+           "counts": {k: v[0] for k, v in counts.items()},
+           "counts_equal": counts_equal}
+    return records, row, problems
+
+
+def _fleet() -> tuple:
+    """The fleet timeline studies, whose width profiles are timed by the
+    compiled evaluator on the run's device and whose event timeline runs on
+    the host: fleet_ranking() (12 jobs on a Poisson trace over the mixed
+    EM/plain fleet under static, elastic and elastic+burst) and
+    reliability_fleet_ranking() (an injected failure on one 16-node pod,
+    wait vs shrink), each twice on the card and once on the CPU. Held:
+    the policies' order, card against CPU within ``STUDY_REL``, two card
+    runs equal as text, the event counts equal across the three runs, the
+    headlines within ``STUDY_REL`` of the CPU's (the card's two equal as
+    text), elastic+burst's win over static >= 1.3x on turnaround p99 or
+    perf per dollar with resize and burst events (static with none), and
+    shrink ahead of wait on turnaround p99."""
+    t0 = time.perf_counter()
+    problems = []
+    fleet, frow, bad = _fleet_runs(
+        lambda d: dse.fleet_ranking(device=d), "policy",
+        ["elastic", "elastic+burst", "static"])
+    problems += [{"fleet": b} for b in bad]
+    heads = [dse.fleet_headline(rs) for rs in fleet]
+    frow["headline"] = heads[0]
+    frow["headline_card_vs_cpu"] = _leaf_problems(heads[0], heads[2])
+    frow["headline_two_card_runs_equal"] = \
+        _leaves_text(heads[0]) == _leaves_text(heads[1])
+    by = {r["policy"]: r for r in fleet[0]}
+    if frow["headline_card_vs_cpu"]["n_bad"] \
+            or not frow["headline_two_card_runs_equal"]:
+        problems.append({"fleet_headline": heads})
+    if not max(heads[0].values()) >= 1.3:
+        problems.append({"fleet_headline_below_1.3": heads[0]})
+    eb, static = by.get("elastic+burst", {}), by.get("static", {})
+    if not (eb.get("resize_events", 0) > 0 and eb.get("burst_events", 0) > 0
+            and static.get("resize_events") == 0
+            and static.get("burst_events") == 0):
+        problems.append({"fleet_events": frow["counts"]})
+    if any(r["jobs_completed"] != 12 for r in fleet[0]):
+        problems.append({"fleet_jobs_completed": frow["counts"]})
+
+    rel, rrow, bad = _fleet_runs(
+        lambda d: dse.reliability_fleet_ranking(device=d), "degradation",
+        ["shrink", "wait"])
+    problems += [{"reliability_fleet": b} for b in bad]
+    rheads = [dse.reliability_fleet_headline(rs) for rs in rel]
+    rrow["headline"] = rheads[0]
+    rrow["headline_card_vs_cpu"] = _leaf_problems(rheads[0], rheads[2])
+    rrow["headline_two_card_runs_equal"] = \
+        _leaves_text(rheads[0]) == _leaves_text(rheads[1])
+    if rrow["headline_card_vs_cpu"]["n_bad"] \
+            or not rrow["headline_two_card_runs_equal"]:
+        problems.append({"reliability_fleet_headline": rheads})
+    if not rheads[0]["p99_ratio"] > 1.0:
+        problems.append({"reliability_fleet_p99_ratio": rheads[0]})
+    return ({"fleet": frow, "reliability_fleet": rrow,
+             "seconds": time.perf_counter() - t0}, problems)
+
 
 def phase_run_study() -> dict:
     """COMET's study runner over the paper's case studies and the study
@@ -6480,12 +6583,16 @@ def phase_run_study() -> dict:
     sr_row, sr_problems = _serving_reliability()
     emit("run_study_serving_reliability", **sr_row, problems=sr_problems)
     problems += sr_problems
+    fleet_row, fleet_problems = _fleet()
+    emit("run_study_fleet", **fleet_row, problems=fleet_problems)
+    problems += fleet_problems
     launches = _kernel_counts()
     if any(launches.values()):
         problems.append({"kernel_launches": launches})
     emit("run_study_summary", studies=len(rows), paper_api_calls=len(api_rows),
          paper_api_seconds=api_s,
          serving_reliability_seconds=sr_row["seconds"],
+         fleet_seconds=fleet_row["seconds"],
          cells=sum(r["cells"] for r in rows) + len(card),
          max_rel_diff=max([r["card_vs_cpu"]["max_rel_diff"] or 0.0
                            for r in rows + api_rows]

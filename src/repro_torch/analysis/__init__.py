@@ -3,9 +3,9 @@ studies, clusters and search output — checked before anything is timed.
 
 The port's copy of the JAX package's ``analysis`` rule packs, held to them
 diagnostic for diagnostic by ``tests/test_torch_analysis.py`` and
-``tests/test_torch_search.py``, ``tests/test_torch_serving.py`` and
-``tests/test_torch_reliability.py``. Seven packs (codes grouped by hundreds
-digit):
+``tests/test_torch_search.py``, ``tests/test_torch_serving.py``,
+``tests/test_torch_reliability.py`` and ``tests/test_torch_fleet.py``.
+Eight packs (codes grouped by hundreds digit):
 
 * ``W1xx`` (:mod:`repro_torch.analysis.rules_workload`) — Workload
   invariants,
@@ -19,14 +19,18 @@ digit):
   servability (KV fits, SLO/trace sane, decode groups exist),
 * ``R1xx`` (:mod:`repro_torch.analysis.rules_search`) — search objective
   sets and Pareto-frontier annotations,
+* ``F1xx`` (:mod:`repro_torch.analysis.rules_fleet`) — FleetSpec timeline
+  sanity (jobs fit some group, positive trace, burst windows, finite
+  preemption/resize costs),
 * ``Y1xx`` (:mod:`repro_torch.analysis.rules_reliability`) — failure
   models and traces (positive finite MTBF/MTTR/checkpoint-bw, fixed
   interval shorter than the run, non-empty traces, blast radius in range).
 
-Entry points: the ``analyze_*`` helpers below and the ``validate=`` gate
-on :func:`repro_torch.core.study.run_study` (S1xx, K1xx, V1xx, Y1xx). The
-fleet pack (F1xx) and the registry-sweep command line come with the fleet
-(ROADMAP Queue 1 item 19).
+Entry points: the ``analyze_*`` helpers below, the ``validate=`` gate on
+:func:`repro_torch.core.study.run_study` (S1xx, K1xx, V1xx, F1xx, Y1xx), and
+the registry sweep command line (``python -m repro_torch.analysis
+--all-registry``, :mod:`repro_torch.analysis.__main__`): pure inspection,
+no tensor and no device.
 """
 
 from repro_torch.analysis.diagnostics import (
@@ -44,6 +48,7 @@ from repro_torch.analysis.diagnostics import (
 )
 from repro_torch.analysis.rules_cluster import analyze_cluster
 from repro_torch.analysis.rules_compiled import analyze_compiled
+from repro_torch.analysis.rules_fleet import analyze_fleet
 from repro_torch.analysis.rules_reliability import analyze_reliability
 from repro_torch.analysis.rules_search import SearchTarget, analyze_search
 from repro_torch.analysis.rules_serving import analyze_serving
@@ -59,6 +64,7 @@ __all__ = [
     "SearchTarget",
     "analyze_cluster",
     "analyze_compiled",
+    "analyze_fleet",
     "analyze_reliability",
     "analyze_search",
     "analyze_serving",

@@ -1,8 +1,8 @@
 """Diagnostics framework: rule registry, severities, reports.
 
 The port's copy of the JAX package's ``analysis/diagnostics.py``, with a
-registry of its own that holds the seven packs the port has (workload,
-compiled, study, cluster, serving, search, reliability).
+registry of its own that holds the reference's eight packs (workload,
+compiled, study, cluster, serving, search, fleet, reliability).
 
 A *rule* is a pure function over existing IR (a Workload, a
 CompiledWorkload, a StudySpec, a cluster) that yields findings without
@@ -14,8 +14,10 @@ enable/severity overrides live in :class:`RuleConfig`.
 Severity contract:
 
 * ``error``   — the object violates an invariant the engines rely on; a
-  study over it would crash or produce wrong numbers;
-  ``run_study(validate="error")`` refuses to run it.
+  study over it would crash or produce wrong numbers.  The command line
+  (``python -m repro_torch.analysis``) exits non-zero on any
+  error-severity finding, and ``run_study(validate="error")`` refuses to
+  run it.
 * ``warning`` — suspicious but representable (a degenerate communicator,
   an empty strategy space, a bandwidth inversion).
 * ``info``    — advisory (e.g. a cluster with no cost model attached).
@@ -31,7 +33,7 @@ SEVERITIES: Tuple[str, ...] = ("info", "warning", "error")
 _SEV_RANK: Dict[str, int] = {s: i for i, s in enumerate(SEVERITIES)}
 
 PACKS: Tuple[str, ...] = ("workload", "compiled", "study", "cluster",
-                          "serving", "search", "reliability")
+                          "serving", "search", "fleet", "reliability")
 
 
 @dataclasses.dataclass(frozen=True)

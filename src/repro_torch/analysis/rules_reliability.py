@@ -6,9 +6,11 @@ held to it diagnostic for diagnostic by ``tests/test_torch_reliability.py``.
 ``run_study`` runs these under its ``validate=`` gate whenever a
 :class:`repro_torch.core.study.StudySpec` carries a ``reliability``
 :class:`~repro_torch.reliability.FailureModel` (closed-form goodput
-columns). The trace rules (Y103-Y105) read any object with a ``failures``
-:class:`~repro_torch.reliability.FailureTrace`, ``axes`` and ``cluster``:
-the JAX package's ``FleetSpec``, whose port is still to come.
+columns) or a lowered :class:`repro_torch.fleet.FleetStudy`'s source
+:class:`~repro_torch.fleet.FleetSpec` carries an enabled ``failures``
+:class:`~repro_torch.reliability.FailureTrace` (fault injection); the
+registry sweep command line runs them over ``dse.reliability_study`` and
+``dse.reliability_fleet_study``.
 
 ======  ========  =====================================================
 code    severity  invariant
@@ -188,5 +190,5 @@ def analyze_reliability(spec: Any,
                         config: Optional[RuleConfig] = None
                         ) -> List[Diagnostic]:
     """Run the Y1xx pack against a StudySpec carrying a ``reliability``
-    FailureModel or a spec carrying a ``failures`` FailureTrace."""
+    FailureModel or a FleetSpec carrying a ``failures`` FailureTrace."""
     return run_pack("reliability", spec, config=config)

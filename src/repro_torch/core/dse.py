@@ -17,9 +17,14 @@ disaggregation on a mixed plain/EM fleet, a
 closed-form Young–Daly columns over two cluster shapes) come with their
 rankings and ``reliability_headline``, held to the reference's by
 ``tests/test_torch_serving.py`` and ``tests/test_torch_reliability.py``.
-Every wrapper runs on the caller's ``device``, else the GPU. The
-reference's fleet studies (``fleet_study``, ``reliability_fleet_study``)
-are not ported yet.
+The fleet studies (``fleet_study``: static vs elastic vs elastic+burst
+over a Poisson job trace on the mixed EM/plain fleet;
+``reliability_fleet_study``: wait-for-repair vs shrink-to-survive under an
+injected failure, both :class:`repro_torch.fleet.FleetSpec`) come with
+``fleet_ranking`` / ``fleet_headline`` and ``reliability_fleet_ranking`` /
+``reliability_fleet_headline``, held to the reference's by
+``tests/test_torch_fleet.py`` and ``tests/test_torch_reliability.py``.
+Every wrapper runs on the caller's ``device``, else the GPU.
 """
 
 from __future__ import annotations
@@ -728,6 +733,99 @@ def serving_ranking(processes: Optional[int] = None,
     return sorted(feasible, key=lambda r: r["goodput_per_dollar"],
                   reverse=True)
 
+# --------------------------------------------------------------------- #
+# Beyond the paper's static allocation: elastic-fleet DSE.
+# A discrete-event timeline over the mixed EM/plain fleet decides when
+# priority preemption + elastic DP resize + burst parallelism beat the
+# static ScheduleModel allocation on turnaround and perf-per-dollar.
+# --------------------------------------------------------------------- #
+
+def _fleet_job_mix(num_iters_scale: float = 1.0):
+    """The mixed-tenant template tuple ``fleet_study`` stamps arrivals
+    onto: a DLRM batch job pinned (by memory) to the EM pods, elastic
+    chat fine-tunes, a wide tenant, and a high-priority burst job."""
+    from repro_torch.fleet import FleetJobSpec
+
+    def n(iters: int) -> int:
+        return max(1, int(round(iters * num_iters_scale)))
+
+    return (
+        FleetJobSpec(name="dlrm-batch", model="dlrm", global_batch=4096,
+                     nodes_per_instance=16, widths=(16, 32),
+                     iterations=n(120_000), priority=0),
+        FleetJobSpec(name="chat-ft", model="chatglm3-6b", mp=2,
+                     global_batch=256, nodes_per_instance=8,
+                     widths=(8, 16, 32), iterations=n(60), priority=0),
+        FleetJobSpec(name="tenant", model="internlm2-20b", mp=4,
+                     global_batch=512, nodes_per_instance=16,
+                     widths=(16, 32), iterations=n(12), priority=1),
+        FleetJobSpec(name="burst", model="internlm2-20b", mp=4,
+                     global_batch=256, nodes_per_instance=8,
+                     widths=(8, 32), iterations=n(24), burst_iters=n(20),
+                     priority=2, preemptible=False),
+    )
+
+
+def fleet_study(
+    fleet: Optional[ClusterLike] = None,
+    policies: Sequence[str] = ("static", "elastic", "elastic+burst"),
+    rate: float = 1 / 600.0,
+    num_jobs: int = 12,
+    seed: int = 0,
+    num_iters_scale: float = 1.0,
+    placement: str = "em-aware",
+):
+    """Elastic-fleet DSE: a mixed job trace replayed under each fleet
+    policy on the half-EM Fig. 13b fleet.
+
+    Each cell materializes a Poisson arrival trace over the
+    ``_fleet_job_mix`` templates, prices every (job, width) with the
+    port's compiled evaluator on ``run_study``'s device, and replays the
+    timeline under the cell's ``fleet.policy``.  Static cells hold the
+    ``ScheduleModel`` allocation for a job's whole life; elastic cells
+    grow/shrink DP width (priced as checkpoint + reshard via
+    ``remesh_delay``) and preempt by priority; ``elastic+burst``
+    additionally lends the fleet to the high-priority burst job for its
+    bounded window.  Returns a :class:`repro_torch.fleet.FleetSpec` — pass
+    it straight to :func:`run_study`."""
+    from repro_torch.fleet import FleetSpec, FleetTrace
+    return FleetSpec(
+        name="fleet-elastic-dse",
+        jobs=_fleet_job_mix(num_iters_scale),
+        cluster=fleet if fleet is not None else mixed_dlrm_fleet(),
+        ftrace=FleetTrace(kind="poisson", rate=rate, num_jobs=num_jobs,
+                          seed=seed),
+        placement=placement,
+        axes=[Axis("policy", tuple(policies), path="fleet.policy")])
+
+
+def fleet_ranking(processes: Optional[int] = None,
+                  device=None,
+                  **kwargs) -> List[Dict[str, float]]:
+    """Feasible policy cells, best turnaround-p99 first.  The headline
+    claim — elastic+burst beats the static ScheduleModel allocation by
+    >= 1.3x on turnaround-p99 or perf-per-dollar — reads straight off
+    this table (see ``fleet_headline``)."""
+    res: StudyResult = run_study(fleet_study(**kwargs),
+                                 processes=processes, device=device)
+    feasible = [c.record for c in res if c.record["feasible"]]
+    return sorted(feasible, key=lambda r: r["turnaround_p99"])
+
+
+def fleet_headline(records: Sequence[Dict[str, float]]
+                   ) -> Dict[str, float]:
+    """The elastic+burst-vs-static win ratios from a ``fleet_ranking``
+    table: ``{"turnaround_p99_ratio", "perf_per_dollar_ratio"}``
+    (both >1 means the timeline policies beat the static allocation)."""
+    by_policy = {r["policy"]: r for r in records}
+    static, eb = by_policy["static"], by_policy["elastic+burst"]
+    return {
+        "turnaround_p99_ratio":
+            static["turnaround_p99"] / eb["turnaround_p99"],
+        "perf_per_dollar_ratio":
+            eb["perf_per_dollar"] / static["perf_per_dollar"],
+    }
+
 
 # --------------------------------------------------------------------- #
 # Failure-aware DSE in closed form: Young–Daly goodput columns over a
@@ -833,6 +931,100 @@ def reliability_headline(records: Sequence[Dict[str, float]]
         "best_failure_free": best_free["cluster"],
         "best_failure_aware": best_aware["cluster"],
         "ranking_flips": best_free["cluster"] != best_aware["cluster"],
+    }
+
+
+def _reliability_pod(kind: str = "B1") -> ClusterSpec:
+    """A single 16-node Table III pod: with only one group, a killed
+    wide instance cannot relocate — wait-for-repair genuinely waits."""
+    base = TABLE_III_CLUSTERS[kind]
+    pod = base.topology.pod_size
+    return ClusterSpec(
+        name=f"{kind}-pod",
+        pods=(PodSpec(base.node, count=1, nodes_per_pod=pod),),
+        interconnect=base.topology, cost=base.cost,
+        notes=f"One {kind} pod x {pod} nodes for fault-injection studies.")
+
+
+def _reliability_fleet_mix(num_iters_scale: float = 1.0):
+    """Two elastic trainers whose width menu reaches below the base
+    width — the lever shrink-to-survive pulls when a failure leaves
+    fewer than base-width nodes up."""
+    from repro_torch.fleet import FleetJobSpec
+
+    def n(iters: int) -> int:
+        return max(1, int(round(iters * num_iters_scale)))
+
+    return (
+        FleetJobSpec(name="pretrain", model="chatglm3-6b", mp=2,
+                     global_batch=256, nodes_per_instance=8,
+                     widths=(2, 8), iterations=n(40), priority=0),
+        FleetJobSpec(name="finetune", model="chatglm3-6b", mp=2,
+                     global_batch=256, nodes_per_instance=8,
+                     widths=(2, 8), iterations=n(40), arrival=10.0,
+                     priority=0),
+    )
+
+
+def reliability_fleet_study(
+    fleet: Optional[ClusterLike] = None,
+    policies: Sequence[str] = ("wait", "shrink"),
+    fail_time: float = 300.0,
+    fail_nodes: int = 12,
+    repair_s: float = 30_000.0,
+    ckpt_interval_s: float = 120.0,
+    num_iters_scale: float = 1.0,
+    placement: str = "em-aware",
+):
+    """Fault injection in the fleet timeline: an explicit failure downs
+    ``fail_nodes`` of a single 16-node pod mid-run with a long repair,
+    and the ``fleet.degradation`` axis replays the same timeline under
+    wait-for-repair vs shrink-to-survive.  With one group there is
+    nowhere to relocate: the wait cells stall until the repair; the
+    shrink cells restart narrow on what is left —
+    ``reliability_fleet_headline`` reads the turnaround-p99 win off the
+    table.  Returns a :class:`repro_torch.fleet.FleetSpec`."""
+    from repro_torch.fleet import FleetModel, FleetSpec, FleetTrace
+    from repro_torch.reliability import FailureEvent, FailureTrace
+    return FleetSpec(
+        name="fleet-reliability-dse",
+        jobs=_reliability_fleet_mix(num_iters_scale),
+        cluster=fleet if fleet is not None else _reliability_pod(),
+        fleet=FleetModel(policy="elastic",
+                         ckpt_interval_s=ckpt_interval_s),
+        ftrace=FleetTrace(kind="static"),
+        failures=FailureTrace(
+            kind="explicit",
+            events=(FailureEvent(time=fail_time, group=0,
+                                 nodes=fail_nodes, repair_s=repair_s),)),
+        placement=placement,
+        axes=[Axis("degradation", tuple(policies),
+                   path="fleet.degradation")])
+
+
+def reliability_fleet_ranking(processes: Optional[int] = None,
+                              device=None,
+                              **kwargs) -> List[Dict[str, float]]:
+    """Feasible degradation-policy cells, best turnaround-p99 first."""
+    res: StudyResult = run_study(reliability_fleet_study(**kwargs),
+                                 processes=processes, device=device)
+    feasible = [c.record for c in res if c.record["feasible"]]
+    return sorted(feasible, key=lambda r: r["turnaround_p99"])
+
+
+def reliability_fleet_headline(records: Sequence[Dict[str, float]]
+                               ) -> Dict[str, float]:
+    """The fault-injection claim from a ``reliability_fleet_ranking``
+    table: shrink-to-survive beats wait-for-repair on turnaround-p99
+    (``p99_ratio`` > 1)."""
+    by_policy = {r["degradation"]: r for r in records}
+    wait, shrink = by_policy["wait"], by_policy["shrink"]
+    return {
+        "wait_p99": wait["turnaround_p99"],
+        "shrink_p99": shrink["turnaround_p99"],
+        "p99_ratio": wait["turnaround_p99"] / shrink["turnaround_p99"],
+        "wait_goodput": wait["goodput"],
+        "shrink_goodput": shrink["goodput"],
     }
 
 

@@ -22,7 +22,8 @@ this module makes that data:
     and assembles the records through :func:`_eval_cell`, cell by cell,
     as the reference does; :class:`StudyResult` holds them. ``run_study``
     also takes anything with a ``to_study()`` lowering (a
-    :class:`repro_torch.serving.ServingSpec`).
+    :class:`repro_torch.serving.ServingSpec`, a
+    :class:`repro_torch.fleet.FleetSpec`).
 
 ``repro_torch.core.dse`` expresses the paper's case studies (Figs. 8-15) as
 StudySpecs over this runner, and ``repro_torch.core.search`` searches it
@@ -30,10 +31,13 @@ StudySpecs over this runner, and ``repro_torch.core.search`` searches it
 port's compiled one, on the caller's ``device``, else the GPU. Before any
 cell runs, ``validate`` gates the static pre-flight of
 :mod:`repro_torch.analysis` (S1xx on the spec, K1xx on its base cluster,
-V1xx on a lowered serving spec, Y1xx on a failure model). A spec with a
+V1xx on a lowered serving spec, F1xx on a lowered fleet spec, Y1xx on a
+failure model or a fleet's failure trace). A spec with a
 ``reliability`` failure model grows the closed-form Young–Daly columns
 (:mod:`repro_torch.reliability`), and anything with a ``to_study()``
-lowering (a :class:`repro_torch.serving.ServingSpec`) runs directly. A
+lowering (a :class:`repro_torch.serving.ServingSpec`, a
+:class:`repro_torch.fleet.FleetSpec`) runs directly; every cell's
+:class:`StudyContext` carries the run's ``device``. A
 process pool is not ported: ``processes > 1`` raises
 ``NotImplementedError`` naming its ROADMAP item.
 """
@@ -405,7 +409,9 @@ def is_reliability_axis(axis: Axis) -> bool:
 class StudyContext:
     """Everything a workload builder / metric / evaluator can see for one
     cell. ``workload``/``breakdown``/``footprint`` are populated as the
-    engine progresses through the cell."""
+    engine progresses through the cell. ``device`` is the one
+    :func:`run_study` resolved: an evaluator that times anything (a fleet
+    study's width profiles) times it there."""
 
     spec: "StudySpec"
     strategy: Optional[ParallelSpec]
@@ -416,6 +422,7 @@ class StudyContext:
     breakdown: Optional[IterationBreakdown] = None
     footprint: Optional[FootprintReport] = None
     schedule: Optional[Schedule] = None        # set when the spec has a job
+    device: Any = None                         # run_study's device
 
 
 @dataclasses.dataclass
@@ -707,13 +714,13 @@ def _eval_cell(spec: StudySpec, strategy: Optional[ParallelSpec],
                point: Dict[str, Any], cluster: ClusterLike,
                placement: Optional[Placement],
                wl_memo: dict, sim_memo: dict,
-               simulate=None, group_sim=None) -> CellResult:
+               simulate=None, group_sim=None, device=None) -> CellResult:
     """One cell's record. ``simulate`` / ``group_sim`` are the runner's
     closures over the compiled simulator for this cell's strategy; a cell
     without a workload (an ``evaluate`` study, an infeasible strategy)
-    calls neither."""
+    calls neither. ``device`` goes on the cell's context."""
     ctx = StudyContext(spec=spec, strategy=strategy, point=dict(point),
-                       cluster=cluster, placement=placement)
+                       cluster=cluster, placement=placement, device=device)
     base: Dict[str, Any] = {"study": spec.name}
     if strategy is not None:
         base.update(strategy=strategy.label, mp=strategy.mp, dp=strategy.dp,
@@ -835,7 +842,7 @@ def _run_cells_compiled(spec: StudySpec, cells: List[tuple],
             if wkey not in wl_memo:
                 ctx0 = StudyContext(spec=spec, strategy=s0,
                                     point=dict(p0), cluster=cl0,
-                                    placement=pl0)
+                                    placement=pl0, device=device)
                 try:
                     wl_memo[wkey] = (spec.workload
                                      or _default_workload)(ctx0)
@@ -894,7 +901,8 @@ def _run_cells_compiled(spec: StudySpec, cells: List[tuple],
         for i in idxs:
             s, p, cl, pl = cells[i]
             results[i] = _eval_cell(spec, s, p, cl, pl, wl_memo, sim_memo,
-                                    simulate=simulate, group_sim=group_sim)
+                                    simulate=simulate, group_sim=group_sim,
+                                    device=device)
     return results
 
 
@@ -911,8 +919,10 @@ VALIDATE_MODES = ("off", "warn", "error")
 def _validate_spec(spec: StudySpec, mode: str) -> None:
     """Static pre-flight (:mod:`repro_torch.analysis`): S1xx rules on the
     spec plus K1xx rules on the base cluster, V1xx on a lowered serving
-    spec's source and Y1xx on a failure model.  Pure inspection — it never
-    touches the cells or records, so results are identical across modes."""
+    spec's source, F1xx on a lowered fleet spec's source and Y1xx on a
+    failure model (or a fleet's enabled failure trace).  Pure inspection —
+    it never touches the cells or records, so results are identical across
+    modes."""
     from repro_torch.analysis import (AnalysisError, analyze_cluster,
                                       analyze_study, format_report,
                                       has_errors)
@@ -922,9 +932,16 @@ def _validate_spec(spec: StudySpec, mode: str) -> None:
     if getattr(spec, "serving", None) is not None:
         from repro_torch.analysis import analyze_serving
         diags += analyze_serving(spec.serving)
+    fleet = getattr(spec, "fleet", None)
+    if fleet is not None:
+        from repro_torch.analysis import analyze_fleet
+        diags += analyze_fleet(fleet)
     if getattr(spec, "reliability", None) is not None:
         from repro_torch.analysis import analyze_reliability
         diags += analyze_reliability(spec)
+    elif fleet is not None and fleet.failures.enabled:
+        from repro_torch.analysis import analyze_reliability
+        diags += analyze_reliability(fleet)
     # Advisory (info) findings don't warrant interrupting a run; they stay
     # visible through the analyze_* helpers.
     diags = [d for d in diags if d.severity != "info"]
@@ -950,8 +967,9 @@ def run_study(spec: StudySpec, processes: Optional[int] = None,
     within 1e-9 relative.
 
     ``validate`` gates a static pre-flight over the spec (S1xx rules), its
-    base cluster (K1xx rules), a lowered serving spec's source (V1xx) and
-    a failure model (Y1xx) from :mod:`repro_torch.analysis`:
+    base cluster (K1xx rules), a lowered serving spec's source (V1xx), a
+    lowered fleet spec's source (F1xx) and a failure model or a fleet's
+    enabled failure trace (Y1xx) from :mod:`repro_torch.analysis`:
     ``"warn"`` (default) reports findings as a warning, ``"error"`` raises
     :class:`repro_torch.analysis.AnalysisError` on error-severity findings,
     ``"off"`` skips the pass.  Validation only inspects — records are
@@ -961,6 +979,9 @@ def run_study(spec: StudySpec, processes: Optional[int] = None,
     :class:`repro_torch.serving.ServingSpec` runs here directly, with the
     V1xx serving rules joining the pre-flight.  Such a study evaluates on
     the host and touches no tensor, but ``device`` resolves all the same.
+    A :class:`repro_torch.fleet.FleetSpec` runs the same way with the F1xx
+    rules; its width profiles are timed on ``device`` (each cell's
+    ``StudyContext.device``) and its event timeline runs on the host.
     ``processes > 1`` raises ``NotImplementedError`` naming its ROADMAP
     item."""
     device = resolve_device(device)

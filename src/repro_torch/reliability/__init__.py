@@ -9,8 +9,10 @@ expected_restarts / goodput_frac`` columns (``StudySpec.reliability``
 attaches the model; ``reliability.*`` dotted-path axes sweep it), and
 ``goodput_per_dollar`` re-ranks clusters failure-aware.
 :class:`FailureTrace` is the deterministic event stream the fleet timeline
-injects; that timeline (the JAX package's ``fleet.simulator``) is still to be
-ported.
+(:class:`repro_torch.fleet.FleetSimulator`) injects: interval-quantized
+rollback and wait-vs-shrink degradation, with the ``failures /
+lost_work_frac / goodput`` columns of a :class:`repro_torch.fleet.FleetSpec`
+(``dse.reliability_fleet_study``).
 """
 
 from repro_torch.reliability.trace import (BLAST_RADII, FAILURE_TRACE_KINDS,

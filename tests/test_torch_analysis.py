@@ -7,20 +7,30 @@ Mirrors ``tests/test_analysis.py``'s ``TestFramework``,
 ``TestValidateEquivalence``) on the port: the same violation planted in
 each package's object gives the same diagnostics, code, severity, location
 and message, and each clean object none. The port's registry holds exactly
-the reference's rules of the seven packs it has (code, pack, severity,
+the reference's rules of all eight packs (code, pack, severity,
 description; V1xx and Y1xx are held case by case in
-``tests/test_torch_serving.py`` and ``tests/test_torch_reliability.py``). ``run_study(validate="warn")`` warns with the reference's
-text, ``"error"`` raises on what the reference raises on, and the records
-are identical across ``"off"``, ``"warn"`` and ``"error"``.
+``tests/test_torch_serving.py`` and ``tests/test_torch_reliability.py``,
+F1xx here and in ``tests/test_torch_fleet.py``).
+``run_study(validate="warn")`` warns with the reference's text, ``"error"``
+raises on what the reference raises on, and the records are identical
+across ``"off"``, ``"warn"`` and ``"error"``. The registry sweep command
+line (``python -m repro_torch.analysis``, ``TestCli``) takes the
+reference's flags, prints its report and exits with its codes, and its
+``sweep()`` gives the reference's diagnostics.
 """
 
 import copy
 import dataclasses
+import json
+import math
 import warnings
 
 import pytest
 
+import repro.analysis.__main__ as cli_jax
+import repro.fleet as fleet_jax
 from repro.analysis import AnalysisError as AnalysisErrorJax
+from repro.analysis import analyze_fleet as analyze_fleet_jax
 from repro.analysis import analyze_cluster as analyze_cluster_jax
 from repro.analysis import analyze_compiled as analyze_compiled_jax
 from repro.analysis import analyze_study as analyze_study_jax
@@ -34,11 +44,15 @@ from repro.core import dse as dse_jax
 from repro.core import gemm as gemm_jax
 from repro.core import study as study_jax
 from repro.core import workload as workload_jax
+import repro_torch.analysis.__main__ as cli
+import repro_torch.fleet as fleet
 from repro_torch.analysis import (
     AnalysisError,
+    Diagnostic,
     RuleConfig,
     analyze_cluster,
     analyze_compiled,
+    analyze_fleet,
     analyze_study,
     analyze_workload,
     has_errors,
@@ -60,7 +74,7 @@ from repro_torch.core.workload import decompose
 PAPER = ("paper", 2048, 1024, "train")
 SMALL = ("small", 512, 64, "train")
 PORTED_PACKS = ("workload", "compiled", "study", "cluster", "serving",
-                "search", "reliability")
+                "search", "fleet", "reliability")
 
 
 def codes(diags):
@@ -90,6 +104,10 @@ class Pkg:
         self.analyze_compiled = (analyze_compiled_jax, analyze_compiled)[i]
         self.analyze_study = (analyze_study_jax, analyze_study)[i]
         self.analyze_cluster = (analyze_cluster_jax, analyze_cluster)[i]
+        self.analyze_fleet = (analyze_fleet_jax, analyze_fleet)[i]
+        self.fleet = (fleet_jax, fleet)[i]
+        self.cli = (cli_jax, cli)[i]
+        self.AnalysisError = (AnalysisErrorJax, AnalysisError)[i]
 
     @property
     def small_cfg(self):
@@ -130,6 +148,8 @@ class TestFramework:
         assert len(list_rules("search")) == 3
         assert len(list_rules("serving")) == 4
         assert len(list_rules("reliability")) == 5
+        assert len(list_rules("fleet")) == 4
+        assert len(list_rules()) == 34
 
     def test_registry_is_the_references(self):
         def rows(rules):
@@ -646,3 +666,222 @@ class TestValidateEquivalence:
                 mine.name
             study_jax._validate_spec(ref, "error")
             study._validate_spec(mine, "error")
+
+    def test_fleet_studies_pass_the_error_gate(self):
+        """The fleet studies lowered as run_study lowers them: F1xx on the
+        FleetSpec, Y1xx on the injected failure trace, no diagnostic in
+        either package."""
+        for build in (lambda p: p.dse.fleet_study(),
+                      lambda p: p.dse.reliability_fleet_study()):
+            ref, mine = (build(p).to_study() for p in PKGS)
+            assert mine.fleet is not None and mine.name == ref.name
+            study_jax._validate_spec(ref, "error")
+            study._validate_spec(mine, "error")
+
+
+# ===================================================================== #
+# F1xx: fleet rules
+# ===================================================================== #
+
+def _fleet_spec(p, jobs=None, **kw):
+    jobs = jobs if jobs is not None else (
+        p.fleet.FleetJobSpec(name="chat", model="chatglm3-6b", mp=2,
+                             global_batch=256, nodes_per_instance=8,
+                             widths=(8, 16, 32), iterations=10),)
+    return p.fleet.FleetSpec(**{
+        "name": "f-test", "jobs": jobs, "cluster": p.dse.mixed_dlrm_fleet(),
+        "ftrace": p.fleet.FleetTrace(kind="static"),
+        "placement": "em-aware", **kw})
+
+
+def _job(p, name="j", **kw):
+    return p.fleet.FleetJobSpec(name=name, model="chatglm3-6b", mp=2,
+                                **kw)
+
+
+FLEET_CASES = {
+    "clean_fleet_study": ((), lambda p: p.dse.fleet_study()),
+    "clean_reliability_fleet_study": (
+        (), lambda p: p.dse.reliability_fleet_study()),
+    "clean_small": ((), lambda p: _fleet_spec(p)),
+    "f101_wider_than_every_group": (("F101",), lambda p: _fleet_spec(
+        p, jobs=(_job(p, "wide", nodes_per_instance=64),
+                 _job(p, "ok", nodes_per_instance=8)))),
+    "f101_over_own_cap": (("F101",), lambda p: _fleet_spec(
+        p, jobs=(_job(p, "c", nodes_per_instance=16, max_nodes=8),))),
+    "f101_no_cluster_is_silent": ((), lambda p: _fleet_spec(
+        p, cluster=None, jobs=(_job(p, "wide", nodes_per_instance=64),))),
+    "f102_rate_and_jobs": (("F102", "F102", "F102", "F102"),
+                           lambda p: _fleet_spec(
+        p, ftrace=p.fleet.FleetTrace(kind="poisson", rate=0.0, num_jobs=0),
+        axes=[p.study.Axis("rate", (1e-3, -1.0), path="ftrace.rate"),
+              p.study.Axis("n", (4, -2), path="ftrace.num_jobs")])),
+    "f102_static_ignores_rate": ((), lambda p: _fleet_spec(
+        p, ftrace=p.fleet.FleetTrace(kind="static", rate=-1.0))),
+    "f103_burst_window_and_instances": (("F103", "F103", "F103"),
+                                        lambda p: _fleet_spec(
+        p, jobs=(_job(p, "b", nodes_per_instance=8, iterations=4,
+                      burst_iters=9, instances=2),))),
+    "f103_widths_not_divisible": (("F103", "F103"), lambda p: _fleet_spec(
+        p, jobs=(_job(p, "o", nodes_per_instance=8, widths=(3, 9)),))),
+    "f103_dlrm_skips_mp": ((), lambda p: _fleet_spec(
+        p, jobs=(p.fleet.FleetJobSpec(name="d", model="dlrm", mp=4,
+                                      nodes_per_instance=16,
+                                      widths=(16, 18)),))),
+    "f104_costs": (("F104", "F104", "F104", "F104"), lambda p: _fleet_spec(
+        p, fleet=p.fleet.FleetModel(policy="elastic", checkpoint_bw=0.0,
+                                    reshard_bw=math.nan,
+                                    lend_overhead=math.inf),
+        axes=[p.study.Axis("bw", (1e9, -5.0),
+                           path="fleet.reshard_bw")])),
+    "f104_scale_axis_not_swept": ((), lambda p: _fleet_spec(
+        p, axes=[p.study.Axis("bw", (0.5, 2.0), path="fleet.checkpoint_bw",
+                              mode="scale")])),
+}
+
+
+class TestFleetRules:
+    @pytest.mark.parametrize("case", sorted(FLEET_CASES))
+    def test_fleet_rules_are_the_references(self, case):
+        want, build = FLEET_CASES[case]
+        diags = on_both(build, lambda p, spec: p.analyze_fleet(spec))
+        assert [d.code for d in diags] == list(want)
+        assert all(d.severity == "error" for d in diags)
+
+    def test_fleet_rule_config(self):
+        build = FLEET_CASES["f104_costs"][1]
+        cfg = RuleConfig(disable=frozenset({"F104"}))
+        assert analyze_fleet(build(PKGS[1]), config=cfg) == []
+        cfg = RuleConfig(severity={"F104": "warning"})
+        diags = analyze_fleet(build(PKGS[1]), config=cfg)
+        assert {d.severity for d in diags} == {"warning"}
+        assert not has_errors(diags)
+
+    def test_validate_gate_runs_the_fleet_pack(self):
+        """run_study's pre-flight lowers a FleetSpec and raises on an F1xx
+        error with the reference's text; warns with it by default."""
+        texts = []
+        for p in PKGS:
+            bad = FLEET_CASES["f101_over_own_cap"][1](p)
+            run = (study.run_study if p.i else study_jax.run_study)
+            kw = {"device": "cpu"} if p.i else {}
+            with pytest.raises(p.AnalysisError, match="F101") as err:
+                run(bad, validate="error", **kw)
+            texts.append(str(err.value))
+        assert texts[1] == texts[0]
+        with pytest.warns(UserWarning, match="F101"):
+            run_study(FLEET_CASES["f101_over_own_cap"][1](PKGS[1]),
+                      device="cpu")
+
+
+# ===================================================================== #
+# The registry sweep command line
+# ===================================================================== #
+
+SUBSET = ["--models", "smollm-135m", "--clusters", "dojo"]
+
+
+def cli_both(argv, capsys):
+    """``main(argv)`` of each package: (return codes, printed outputs)."""
+    rcs, outs = [], []
+    for p in PKGS:
+        rcs.append(p.cli.main(list(argv)))
+        outs.append(capsys.readouterr().out)
+    return rcs, outs
+
+
+class TestCli:
+    def test_subset_sweep_exits_zero(self, capsys):
+        rcs, outs = cli_both(SUBSET, capsys)
+        assert rcs == [0, 0]
+        assert outs[1] == outs[0]
+        assert outs[1] == \
+            "OK: no diagnostics over 1 model(s) x 1 cluster(s).\n"
+
+    def test_json_report(self, tmp_path, capsys):
+        reports = []
+        for p in PKGS:
+            out = tmp_path / f"report{p.i}.json"
+            assert p.cli.main(SUBSET + ["--json", str(out)]) == 0
+            reports.append(json.loads(out.read_text()))
+        capsys.readouterr()
+        assert reports[1] == reports[0]
+        assert reports[1]["errors"] == 0
+        assert reports[1]["models"] == ["smollm-135m"]
+        assert reports[1]["clusters"] == ["dojo"]
+
+    def test_list_rules(self, capsys):
+        rcs, outs = cli_both(["--list-rules"], capsys)
+        assert rcs == [0, 0]
+        assert outs[1] == outs[0]
+        for code in ("W101", "C103", "S101", "K104", "V101", "R101", "F101",
+                     "F104", "Y105"):
+            assert code in outs[1]
+        assert len(outs[1].splitlines()) == 34
+
+    def test_error_findings_exit_nonzero(self, monkeypatch, capsys):
+        for p, diag in zip(PKGS, (cli_jax.Diagnostic, Diagnostic)):
+            monkeypatch.setattr(p.cli, "sweep", lambda *a, d=diag, **k: [
+                d("W101", "error", "somewhere", "planted")])
+        rcs, outs = cli_both(SUBSET, capsys)
+        assert rcs == [1, 1]
+        assert outs[1] == outs[0]
+        assert "W101" in outs[1]
+
+    def test_warning_findings_exit_zero(self, monkeypatch, capsys):
+        monkeypatch.setattr(cli, "sweep", lambda *a, **k: [
+            Diagnostic("Y105", "warning", "somewhere", "planted")])
+        assert cli.main(SUBSET) == 0
+        assert "Y105" in capsys.readouterr().out
+
+    def test_disable_flag(self, monkeypatch):
+        captured = {}
+
+        def fake_sweep(models, clusters, config=None):
+            captured["args"] = (models, clusters)
+            captured["config"] = config
+            return []
+
+        monkeypatch.setattr(cli, "sweep", fake_sweep)
+        rc = cli.main(SUBSET + ["--disable", "W102", "--severity",
+                                "K101=error"])
+        assert rc == 0
+        assert captured["args"] == (["smollm-135m"], ["dojo"])
+        assert not captured["config"].enabled("W102")
+        assert captured["config"].severity["K101"] == "error"
+
+    def test_flag_errors_and_help(self, capsys):
+        with pytest.raises(SystemExit, match="CODE=LEVEL"):
+            cli.main(SUBSET + ["--severity", "K101"])
+        assert cli.main([]) == 0
+        assert "python -m repro_torch.analysis" in capsys.readouterr().out
+
+    def test_sweep_is_the_references(self):
+        """The port's sweep over a subset (a dense LM and a MoE, a torus and
+        a Table III cluster) gives the reference's diagnostics; so does a
+        sweep whose clusters carry planted faults."""
+        models = ["smollm-135m", "granite-moe-3b-a800m"]
+        clusters = ["dojo", "B1"]
+        diags = [p.cli.sweep(models, clusters) for p in PKGS]
+        assert [d.to_dict() for d in diags[1]] == \
+            [d.to_dict() for d in diags[0]]
+
+    def test_sweep_of_planted_faults_is_the_references(self, monkeypatch):
+        for p in PKGS:
+            real = p.cli.get_cluster
+
+            def planted(name, _real=real, _p=p):
+                cl = _real(name)
+                return cl.with_cost(_p.cluster.CostModel(usd_per_node=-1.0))
+            monkeypatch.setattr(p.cli, "get_cluster", planted)
+        diags = [p.cli.sweep(["smollm-135m"], ["dojo", "B0"],
+                             RuleConfig(severity={"K103": "warning"})
+                             if p.i else cli_jax.RuleConfig(
+                                 severity={"K103": "warning"}))
+                 for p in PKGS]
+        assert [d.to_dict() for d in diags[1]] == \
+            [d.to_dict() for d in diags[0]]
+        assert {d.code for d in diags[1]} == {"K103"}
+        assert {d.severity for d in diags[1]} == {"warning"}
+        assert cli.format_report(diags[1]) == \
+            cli_jax.format_report(diags[0])

@@ -1,28 +1,27 @@
-"""The port's closed-form reliability (``repro_torch.reliability``,
-``fleet/resize.py``, ``StudySpec.reliability``, the Y1xx rules,
-``dse.reliability_study``) against the JAX package's.
+"""The port's reliability (``repro_torch.reliability``, ``fleet/resize.py``,
+``StudySpec.reliability``, fault injection in the fleet timeline, the Y1xx
+rules, ``dse.reliability_study`` and ``dse.reliability_fleet_study``)
+against the JAX package's.
 
 Mirrors ``tests/test_reliability.py``'s ``TestDalyMath``,
-``TestDalyProperties``, ``TestFailureTrace``, ``TestStudyColumns`` (but the
-fleet case), ``TestRules`` and ``TestHeadlines``' closed-form claim on the
-port. The closed-form columns are Python floats on both sides and equal to
-the bit; the failure traces' events are the reference's to the bit (numpy's
-``default_rng([seed, group])`` on both sides). Study records follow the
-runner's rule (``tests/test_torch_study.py``): the reference's keys in its
-order, non-float values equal, floats within 1e-9 relative of its
-``engine="compiled"``. The trace rules Y103-Y105 read a stand-in spec (a
-name, a cluster, axes and a ``failures`` trace), the part of the
-reference's ``FleetSpec`` they read; the fleet's own cases
-(``TestFaultInjection``, ``test_fleet_spec_failure_columns``,
-``test_shrink_beats_wait_on_turnaround_p99``) come with the fleet.
+``TestDalyProperties``, ``TestFailureTrace``, ``TestFaultInjection``,
+``TestStudyColumns``, ``TestRules`` and ``TestHeadlines`` on the port. The
+closed-form columns are Python floats on both sides and equal to the bit;
+the failure traces' events are the reference's to the bit (numpy's
+``default_rng([seed, group])`` on both sides), and so is every fault-injected
+timeline on hand-fed width profiles (the same Python arithmetic). Study
+records follow the runner's rule (``tests/test_torch_study.py``): the
+reference's keys in its order, non-float values equal, floats within 1e-9
+relative of its ``engine="compiled"``. The trace rules Y101 and Y103-Y105
+read each package's ``FleetSpec``.
 """
 
 import dataclasses
 import math
-from typing import Any, Sequence
 
 import pytest
 
+from repro.analysis import AnalysisError as AnalysisErrorJax
 from repro.analysis import analyze_reliability as analyze_reliability_jax
 from repro.configs import get_config as get_config_jax
 from repro.configs.base import ShapeConfig as ShapeConfigJax
@@ -30,6 +29,7 @@ from repro.core import cluster as cluster_jax
 from repro.core import dse as dse_jax
 from repro.core import study as study_jax
 from repro.core import workload as workload_jax
+import repro.fleet as fleet_jax
 import repro.fleet.resize as resize_jax
 import repro.reliability as reliability_jax
 from repro_torch.analysis import AnalysisError, analyze_reliability
@@ -67,11 +67,39 @@ class Pkg:
         self.get_config = (get_config_jax, get_config)[i]
         self.Shape = (ShapeConfigJax, ShapeConfig)[i]
         self.analyze = (analyze_reliability_jax, analyze_reliability)[i]
+        self.fleet = (fleet_jax, fleet)[i]
+        self.AnalysisError = (AnalysisErrorJax, AnalysisError)[i]
 
     def run(self, spec, **kw):
         if self.i:
             return run_study(spec, device="cpu", **kw)
         return study_jax.run_study(spec, engine="compiled", **kw)
+
+    def fleet_spec(self, failures, axes=()):
+        return self.fleet.FleetSpec(
+            name="y-test",
+            jobs=(self.fleet.FleetJobSpec(name="j", nodes_per_instance=4,
+                                          iterations=4),),
+            cluster=self.cluster.BASELINE_DGX_A100, failures=failures,
+            axes=list(axes))
+
+    def job(self, uid=0, width=8, iters=10, it=1.0, **kw):
+        spec = self.fleet.FleetJobSpec(name=kw.pop("name", f"j{uid}"),
+                                       nodes_per_instance=width,
+                                       iterations=iters, **kw)
+        return self.fleet.FleetJob(spec=spec, profiles={
+            w: self.fleet.WidthProfile(iter_times=(it,), fits=(True,),
+                                       state_bytes=STATE)
+            for w in spec.width_menu}, uid=uid)
+
+    def one_failure(self, time=4.5, nodes=8, repair_s=100.0):
+        return self.rel.FailureTrace(
+            kind="explicit",
+            events=(self.rel.FailureEvent(time=time, group=0, nodes=nodes,
+                                          repair_s=repair_s),))
+
+    def sim(self, caps, **kw):
+        return self.fleet.FleetSimulator(caps, **kw)
 
     def tiny_spec(self, reliability=None, axes=()):
         return self.study.StudySpec(
@@ -83,6 +111,7 @@ class Pkg:
             reliability=reliability, axes=list(axes))
 
 
+STATE = 8e9
 REF, PORT = Pkg(0), Pkg(1)
 PKGS = (REF, PORT)
 
@@ -336,6 +365,165 @@ class TestFailureTrace:
 
 
 # --------------------------------------------------------------------- #
+# Fault injection in the fleet timeline
+# --------------------------------------------------------------------- #
+
+def _summary(res):
+    """A FleetResult's fields (outcomes and events included) and its
+    failure-side properties."""
+    return _plain(res), (res.failures, res.lost_work_frac, res.goodput,
+                         res.feasible, res.jobs_completed)
+
+
+def sim_both(fn):
+    """``fn(pkg) -> FleetResult`` in each package: equal to the bit;
+    returns the port's."""
+    ref, mine = (fn(p) for p in PKGS)
+    assert _summary(mine) == _summary(ref)
+    return mine
+
+
+class TestFaultInjection:
+    def test_disabled_trace_is_bit_for_bit_identical(self):
+        def jobs(p):
+            return [p.job(0, width=8, iters=10),
+                    p.job(1, width=4, iters=6, arrival=2.0, priority=1)]
+
+        def run(p, **kw):
+            model = p.fleet.FleetModel(policy="elastic", ckpt_interval_s=2.0)
+            return p.sim((8,), model=model, **kw).run(jobs(p))
+        base = sim_both(run)
+        off = sim_both(lambda p: run(p, failures=p.rel.FailureTrace()))
+        assert off.makespan == base.makespan
+        assert off.busy_node_seconds == base.busy_node_seconds
+        assert off.events == base.events
+        assert off.failures == 0 and off.lost_work_frac == 0.0
+
+    def test_failure_kills_and_recovers(self):
+        def run(p, failures=None):
+            model = p.fleet.FleetModel(policy="static", ckpt_interval_s=2.0)
+            return p.sim((8,), model=model, failures=failures).run(
+                [p.job(0, width=8, iters=10, it=1.0)])
+        res = sim_both(lambda p: run(p, p.one_failure()))
+        clean = sim_both(run)
+        assert res.failures == 1
+        assert res.jobs_completed == 1
+        assert res.makespan > clean.makespan
+        assert res.lost_node_seconds > 0.0
+        assert 0.0 < res.goodput < 1.0
+        kinds = {e.kind for e in res.events}
+        assert {"fail_node", "repair", "fault"} <= kinds
+
+    def test_rollback_is_interval_quantized(self):
+        """With a checkpoint cadence, a failure rolls back only to the
+        last committed interval boundary — strictly less work lost than
+        the same failure with no checkpoints (whole segment discarded)."""
+        def mk(interval):
+            return sim_both(lambda p: p.sim(
+                (8,), model=p.fleet.FleetModel(policy="static",
+                                               ckpt_interval_s=interval),
+                failures=p.one_failure(time=4.5, nodes=8)).run(
+                    [p.job(0, width=8, iters=100, it=1.0)]))
+        with_ckpt, without = mk(2.0), mk(0.0)
+        # no cadence: everything since segment start (4.5s x 8 nodes)
+        assert without.lost_node_seconds == pytest.approx(4.5 * 8)
+        assert 0.0 < with_ckpt.lost_node_seconds < without.lost_node_seconds
+
+    def test_wait_stalls_until_repair(self):
+        res = sim_both(lambda p: p.sim(
+            (8,), model=p.fleet.FleetModel(policy="static",
+                                           degradation="wait",
+                                           ckpt_interval_s=2.0),
+            failures=p.one_failure(time=4.5, nodes=8, repair_s=500.0)).run(
+                [p.job(0, width=8, iters=10, it=1.0)]))
+        assert res.jobs_completed == 1
+        assert res.makespan > 4.5 + 500.0
+
+    def test_shrink_survives_on_remaining_nodes(self):
+        res = sim_both(lambda p: p.sim(
+            (8,), model=p.fleet.FleetModel(policy="static",
+                                           degradation="shrink",
+                                           ckpt_interval_s=2.0),
+            failures=p.one_failure(time=4.5, nodes=6, repair_s=5000.0)).run(
+                [p.job(0, width=8, iters=10, it=1.0, widths=(2, 8))]))
+        assert res.jobs_completed == 1
+        assert res.makespan < 5000.0
+
+    def test_per_job_on_failure_overrides_fleet_default(self):
+        res = sim_both(lambda p: p.sim(
+            (8,), model=p.fleet.FleetModel(policy="static",
+                                           degradation="wait",
+                                           ckpt_interval_s=2.0),
+            failures=p.one_failure(time=4.5, nodes=6, repair_s=5000.0)).run(
+                [p.job(0, width=8, iters=10, it=1.0, widths=(2, 8),
+                       on_failure="shrink")]))
+        assert res.makespan < 5000.0
+
+    def test_capacity_conserved_through_repair(self):
+        """After repair the full width is available again: a second job
+        arriving post-repair starts at full width."""
+        res = sim_both(lambda p: p.sim(
+            (8,), model=p.fleet.FleetModel(policy="static",
+                                           ckpt_interval_s=2.0),
+            failures=p.one_failure(time=2.5, nodes=8, repair_s=50.0)).run(
+                [p.job(0, width=8, iters=5, it=1.0),
+                 p.job(1, width=8, iters=2, it=1.0, arrival=300.0)]))
+        assert res.jobs_completed == 2
+        starts = [e for e in res.events if e.kind == "start"
+                  and e.job == "j1"]
+        assert starts and starts[0].width == 8
+
+    @pytest.mark.parametrize("policy", ["static", "elastic",
+                                        "elastic+burst"])
+    @pytest.mark.parametrize("seed", [0, 3])
+    def test_poisson_faults_daly_cadence_are_the_references(self, policy,
+                                                            seed):
+        """A Poisson failure trace with pod blast radius over a busy
+        two-group fleet, checkpoint cadence at the per-segment Young–Daly
+        optimum: the same timeline in both packages."""
+        def job(p, uid, it, **kw):
+            spec = p.fleet.FleetJobSpec(name=f"j{uid}", **kw)
+            return p.fleet.FleetJob(spec, {
+                w: p.fleet.WidthProfile(iter_times=(it * 8 / w,) * 2,
+                                        fits=(True, True), state_bytes=STATE)
+                for w in spec.width_menu}, uid=uid)
+
+        def fn(p):
+            jobs = [job(p, 0, 3.0, nodes_per_instance=8, iterations=400,
+                        widths=(4, 8, 16), on_failure="shrink"),
+                    job(p, 1, 2.0, nodes_per_instance=4, iterations=300,
+                        priority=1, arrival=50.0),
+                    job(p, 2, 1.5, nodes_per_instance=8, iterations=200,
+                        priority=2, arrival=120.0, widths=(8, 16),
+                        burst_iters=60, preemptible=False)]
+            trace = p.rel.FailureTrace(kind="poisson", mtbf_hours=2.0,
+                                       mttr_hours=0.05, blast="pod",
+                                       horizon_hours=0.5, seed=seed)
+            return p.sim((16, 16), model=p.fleet.FleetModel(policy=policy),
+                         failures=trace, pod_sizes=[4, 8]).run(jobs)
+        res = sim_both(fn)
+        assert any(e.kind == "fail_node" for e in res.events)
+        assert res.jobs_completed == 3
+
+    def test_validation(self):
+        for build in (
+                lambda p: p.fleet.FleetModel(degradation="panic"),
+                lambda p: p.fleet.FleetModel(ckpt_interval_s=-1.0),
+                lambda p: p.fleet.FleetJobSpec(name="x",
+                                               nodes_per_instance=4,
+                                               iterations=1,
+                                               on_failure="retry"),
+                lambda p: p.sim((8,), failures=p.rel.FailureTrace(),
+                                pod_sizes=[8, 8])):
+            texts = []
+            for p in PKGS:
+                with pytest.raises(ValueError) as err:
+                    build(p)
+                texts.append(str(err.value))
+            assert texts[1] == texts[0]
+
+
+# --------------------------------------------------------------------- #
 # Study columns + degenerate equivalence
 # --------------------------------------------------------------------- #
 
@@ -435,21 +623,21 @@ class TestStudyColumns:
         assert res.records == run_study(dse.reliability_study(),
                                         device="cpu").records
 
+    def test_fleet_spec_failure_columns(self):
+        res = run_both(lambda p: p.dse.reliability_fleet_study(
+            num_iters_scale=0.25, fail_time=60.0, repair_s=3_000.0))
+        assert len(res) == 2
+        for cell in res:
+            rec = cell.record
+            assert rec["feasible"]
+            assert rec["failures"] >= 1
+            assert 0.0 <= rec["lost_work_frac"] < 1.0
+            assert 0.0 < rec["goodput"] <= 1.0
+
 
 # --------------------------------------------------------------------- #
 # Y1xx rules
 # --------------------------------------------------------------------- #
-
-@dataclasses.dataclass
-class _TraceSpec:
-    """What the trace rules read of a fleet spec: a name, a cluster, axes
-    and a ``failures`` trace."""
-
-    name: str
-    cluster: Any
-    failures: Any
-    axes: Sequence[Any] = ()
-
 
 def same_diagnostics(build):
     ref, mine = (p.analyze(build(p)) for p in PKGS)
@@ -460,9 +648,7 @@ def same_diagnostics(build):
 class TestRules:
     @staticmethod
     def _trace_spec(p, failures):
-        return _TraceSpec(name="y-test",
-                          cluster=p.cluster.BASELINE_DGX_A100,
-                          failures=failures)
+        return p.fleet_spec(failures)
 
     def test_clean_specs_are_clean(self):
         assert same_diagnostics(lambda p: p.tiny_spec(
@@ -470,6 +656,8 @@ class TestRules:
         assert same_diagnostics(lambda p: p.dse.reliability_study()) == []
         assert same_diagnostics(lambda p: self._trace_spec(
             p, p.rel.FailureTrace(kind="poisson", mtbf_hours=100.0))) == []
+        assert same_diagnostics(
+            lambda p: p.dse.reliability_fleet_study()) == []
 
     def test_y101_bad_swept_rate(self):
         diags = same_diagnostics(lambda p: p.tiny_spec(
@@ -484,9 +672,8 @@ class TestRules:
                                path="reliability.restore_bw")]))
         assert {d.code for d in diags} == {"Y101"}
         assert len(diags) == 5
-        diags = same_diagnostics(lambda p: _TraceSpec(
-            name="y-test", cluster=p.cluster.BASELINE_DGX_A100,
-            failures=p.rel.FailureTrace(kind="poisson", mtbf_hours=100.0),
+        diags = same_diagnostics(lambda p: p.fleet_spec(
+            p.rel.FailureTrace(kind="poisson", mtbf_hours=100.0),
             axes=[p.study.Axis("m", (-1.0,), path="fail.mtbf_hours"),
                   p.study.Axis("r", (math.inf,), path="fail.mttr_hours")]))
         assert [d.code for d in diags] == ["Y101", "Y101"]
@@ -529,6 +716,23 @@ class TestRules:
         assert any(d.code == "Y105" and d.severity == "warning"
                    for d in diags)
 
+    def test_run_study_validate_gates_fleet_failures(self):
+        """A fleet's enabled failure trace joins the pre-flight (Y1xx)
+        when the spec has no failure model; a disabled one does not."""
+        texts = []
+        for p in PKGS:
+            bad = dataclasses.replace(
+                p.dse.reliability_fleet_study(),
+                failures=p.rel.FailureTrace(kind="explicit", events=(
+                    p.rel.FailureEvent(time=1.0, group=0, nodes=99),)))
+            with pytest.raises(p.AnalysisError, match="Y104") as err:
+                p.run(bad, validate="error")
+            texts.append(str(err.value))
+        assert texts[1] == texts[0]
+        off = dataclasses.replace(dse.reliability_fleet_study(),
+                                  failures=FailureTrace(kind="explicit"))
+        assert len(run_study(off, validate="error", device="cpu")) == 2
+
     def test_run_study_validate_gates_reliability(self):
         spec = _tiny_spec(reliability=FailureModel(
             interval_s=200 * 3600.0, run_hours=168.0))
@@ -543,6 +747,20 @@ class TestRules:
 # --------------------------------------------------------------------- #
 
 class TestHeadlines:
+    def test_shrink_beats_wait_on_turnaround_p99(self):
+        recs = dse.reliability_fleet_ranking(device="cpu")
+        ref = dse_jax.reliability_fleet_ranking()
+        assert [r["degradation"] for r in recs] == \
+            [r["degradation"] for r in ref]
+        h = dse.reliability_fleet_headline(recs)
+        h_ref = dse_jax.reliability_fleet_headline(ref)
+        assert list(h) == list(h_ref)
+        for k, v in h_ref.items():
+            assert h[k] == pytest.approx(v, rel=1e-9), k
+        assert h["p99_ratio"] > 1.0
+        assert h["shrink_p99"] < h["wait_p99"]
+        assert h["shrink_goodput"] > h["wait_goodput"]
+
     def test_daly_beats_naive_and_ranking_flips(self):
         recs = dse.reliability_ranking(device="cpu")
         ref = dse_jax.reliability_ranking()
