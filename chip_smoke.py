@@ -103,7 +103,7 @@ run with a non-zero exit code (nothing drops to the CPU or to a plain version):
   train_mamba
            mamba2-780m at full width and depth, fp32 as launch.train trains
            it, weights from a seed: the training entry point's objects take
-           2 warm-up and 10 timed steps on batches of 8 x 2048 tokens, with
+           2 warm-up and 5 timed steps on batches of 8 x 2048 tokens, with
            the memory plan's remat ("dots"), through the SSD scan's forward
            and backward kernels and the RMSNorm kernels both ways; launches
            held to the count reckoned from the layers and the policy; peak
@@ -119,7 +119,7 @@ run with a non-zero exit code (nothing drops to the CPU or to a plain version):
            zamba2-2.7b at full width and depth (54 Mamba2 layers, the shared
            block's 32 heads of 160 after every 6th), fp32 as launch.train
            trains it, weights from a seed, the memory plan (ZeRO-1, fp32 Adam
-           with master, remat "dots"): 2 warm-up and 10 timed steps on
+           with master, remat "dots"): 2 warm-up and 5 timed steps on
            batches of 3 x 2048 tokens (the batch cut to fit the card), through
            the attention kernels both ways at head_dim 160, the SSD scan's
            and the RMSNorm kernels both ways; launches held to the count
@@ -148,7 +148,12 @@ run with a non-zero exit code (nothing drops to the CPU or to a plain version):
            compressed_psum over 64 MiB on NCCL (ms, bytes, error); then two
            processes on the card over gloo with CUDA tensors: the (1, 2) and
            (2, 1) sharded steps against one process (loss, global norm,
-           params, m, v, master), which must pass. gpipe is not run here:
+           params, m, v, master), which must pass, and the (1, 2) step with
+           attn_batch_shard (the 9 heads replicated over the model axis,
+           each rank attending over its row of the 2) against one process
+           and the unsplit (1, 2) step: loss, first moments, parameters,
+           each rank's launches equal to the unsplit step's; every step's
+           ms. gpipe is not run here:
            gloo's point-to-point sends refuse CUDA tensors, so it is held
            on the CPU (tests/test_torch_distributed.py)
   parallel_gloo_ssm
@@ -178,7 +183,7 @@ run with a non-zero exit code (nothing drops to the CPU or to a plain version):
   parallel_gloo_moe
            the MoE split over the model axis and routed over the data axis
            on two processes over gloo: granite-moe-3b-a800m at full width,
-           4 of 32 layers, fp32; a (1 data, 2 model) step with 20 of the 40
+           2 of 32 layers, fp32; a (1 data, 2 model) step with 20 of the 40
            experts a rank (EP) and a (2 data, 1 model) step routing the
            global microbatch, each of 2 x 512 tokens against
            make_train_step (parallel_gloo_ssm's checks, every launch as
@@ -273,7 +278,12 @@ run with a non-zero exit code (nothing drops to the CPU or to a plain version):
            ahead of wait); the block's seconds. Before the serving block,
            validate="error" over the 13 studies above, the search's and
            the serving, reliability and fleet studies (none may raise or
-           warn), its milliseconds on a line of its own.
+           warn), its milliseconds on a line of its own. Then the
+           process pool (run_study_pool, ROADMAP item 22) over the grid,
+           after CUDA is initialised in this process: the CPU's serial run
+           against processes=min(8, cores) on the CPU (records equal as
+           text, both ms, the workers), and processes=2 on the card (one
+           warning, the card's serial records: no fork there).
            Hand-written kernels: 0 launches
 
 The last three lines are the card as nvidia-smi names it, one JSON object
@@ -514,7 +524,7 @@ LM_CHECK_TOL = {torch.float32: {"loss": 1e-5, "grads": 1e-4, "grad_norm": 1e-4},
 # rmsnorm_plain), fp32, at the CPU tests' tolerances against the JAX package.
 MAMBA_ARCH = "mamba2-780m"
 MAMBA_BATCH, MAMBA_SEQ = 8, 2048
-MAMBA_WARMUP, MAMBA_STEPS, MAMBA_PROFILED = 2, 10, 1
+MAMBA_WARMUP, MAMBA_STEPS, MAMBA_PROFILED = 2, 5, 1
 MAMBA_CHECK_LAYERS, MAMBA_CHECK_BATCH, MAMBA_CHECK_SEQ = 2, 4, 1024
 MAMBA_CHECK_TOL = LM_CHECK_TOL[torch.float32]
 
@@ -537,7 +547,7 @@ ZAMBA_ARCH = "zamba2-2.7b"
 # calls of it), one step, the kernel route against the plain route with the
 # scan in float64, under train_mamba_check's rule.
 ZAMBA_BATCH, ZAMBA_SEQ = 3, 2048
-ZAMBA_WARMUP, ZAMBA_STEPS, ZAMBA_PROFILED = 2, 10, 1
+ZAMBA_WARMUP, ZAMBA_STEPS, ZAMBA_PROFILED = 2, 5, 1
 ZAMBA_CHECK_LAYERS, ZAMBA_CHECK_EVERY = 4, 2
 ZAMBA_CHECK_BATCH, ZAMBA_CHECK_SEQ = 4, 1024
 
@@ -3660,6 +3670,7 @@ PSUM_BYTES = 64 * 2 ** 20       # compressed_psum's fp32 input
 PAR2_BATCH, PAR2_SEQ = 2, 512
 PAR_LOSS_TOL, PAR_PARAM_TOL, PAR_NORM_RTOL, PAR_OPT_TOL = 2e-4, 5e-3, 1e-5, 5e-3
 PAR_TIMEOUT_S = 180             # a pair of processes' join
+PAR_BSHARD = "1x2_attn_batch_shard"    # the (1, 2) step, attention by rows
 
 
 def _par_plan_and_opt(cfg):
@@ -3710,8 +3721,11 @@ def _gloo_rank(rank: int, directory: str) -> None:
     """One of two processes on the one card, over gloo with CUDA tensors
     (NCCL refuses two ranks on one GPU): one step of the (1 data, 2 model)
     and of the (2 data, 1 model) sharded step against make_train_step from
-    the same state and batch. Writes its results as JSON to
-    ``directory``."""
+    the same state and batch, and the (1, 2) step again with
+    ``attn_batch_shard`` (smollm's 9 heads, replicated over the 2 model
+    ranks, attend by rows: one of the 2 a rank), also against the unsplit
+    (1, 2) step; each step's kernel launches on this rank. Writes its
+    results as JSON to ``directory``."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.cuda.set_device(0)
@@ -3723,15 +3737,23 @@ def _gloo_rank(rank: int, directory: str) -> None:
     ref = _par_state(cfg, plan, ocfg)
     ref, ref_m, ref_ms = _timed_steps(make_train_step(cfg, plan, ocfg),
                                       ref, [batch])
-    out = {}
-    for shape in ((1, 2), (2, 1)):
+    out, unsplit = {}, None
+    # smollm's 9 heads do not divide over 2 model ranks, so the rules
+    # replicate its attention; attn_batch_shard splits its rows instead
+    split_cfg = dataclasses.replace(cfg, attn_batch_shard=True)
+    for label, shape, c in (("1x2", (1, 2), cfg), ("2x1", (2, 1), cfg),
+                            (PAR_BSHARD, (1, 2), split_cfg)):
         mesh = build_mesh(shape, ("data", "model"))
-        state = shard_train_state(cfg, plan, _par_state(cfg, plan, ocfg),
-                                  mesh)
+        state = shard_train_state(c, plan, _par_state(c, plan, ocfg), mesh)
+        torch.cuda.synchronize()
+        _zero_lm_counts()
         state, m, ms = _timed_steps(
-            sharded_train_step(cfg, plan, mesh, ocfg), state, [batch])
+            sharded_train_step(c, plan, mesh, ocfg), state, [batch])
+        launches = _lm_counts()
+        split = [layer.attn.batch_group is not None
+                 for layer in state["model"].layers]
         full = gather_train_state(state, mesh)
-        out[f"{shape[0]}x{shape[1]}"] = {
+        out[label] = {
             "loss": m[0]["loss"], "ref_loss": ref_m[0]["loss"],
             "grad_norm": m[0]["grad_norm"],
             "ref_grad_norm": ref_m[0]["grad_norm"],
@@ -3741,7 +3763,22 @@ def _gloo_rank(rank: int, directory: str) -> None:
             **{f"{part}_scaled_err": _scaled_err(full["opt"][part],
                                                  ref["opt"][part])
                for part in ("m", "v", "master")},
-            "step_ms": ms[0], "ref_step_ms": ref_ms[0]}
+            "step_ms": ms[0], "ref_step_ms": ref_ms[0],
+            "launches": launches,
+            "attention_split_layers": sum(split)}
+        if label == "1x2":
+            unsplit = (m[0], full)
+        elif label == PAR_BSHARD:
+            # against the unsplit (1, 2) step: the loss, and the first
+            # moments (one step's (1 - b1) g) and the parameters
+            out[label]["vs_unsplit"] = {
+                "loss_diff": abs(m[0]["loss"] - unsplit[0]["loss"]),
+                "m_scaled_err": _scaled_err(full["opt"]["m"],
+                                            unsplit[1]["opt"]["m"]),
+                "param_max_abs_err": max(
+                    (full["params"][n] - p).abs().max().item()
+                    for n, p in unsplit[1]["params"].items())}
+            unsplit = None
         del state, full
         torch.cuda.empty_cache()
     with open(os.path.join(directory, f"rank_{rank}.json"), "w") as f:
@@ -3909,12 +3946,28 @@ def phase_parallel() -> dict:
 def phase_parallel_gloo() -> None:
     """Two processes on the card over gloo with CUDA tensors: the (1, 2)
     and (2, 1) sharded steps of full-width smollm-135m against one process
-    on every rank, which must pass. (gloo refuses ``batch_isend_irecv`` of
-    CUDA tensors, so gpipe is held on the CPU only.)"""
+    on every rank, which must pass, and the (1, 2) step with
+    ``attn_batch_shard`` against one process and the unsplit step. (gloo
+    refuses ``batch_isend_irecv`` of CUDA tensors, so gpipe is held on the
+    CPU only.)"""
     ranks, problems = _gloo_pair(), []
     for rank, result in enumerate(ranks):
-        if sorted(result) != ["1x2", "2x1"]:
+        if sorted(result) != sorted(["1x2", "2x1", PAR_BSHARD]):
             problems.append(f"rank {rank} reported {sorted(result)}")
+            continue
+        split, whole = result[PAR_BSHARD], result["1x2"]
+        near = split["vs_unsplit"]
+        if (split["launches"] != whole["launches"]
+                or not split["launches"]["flash_attention"]
+                or not split["launches"]["flash_attention_backward"]
+                or split["attention_split_layers"]
+                != get_config(LM_ARCH).num_layers
+                or whole["attention_split_layers"]
+                or near["loss_diff"] > PAR_LOSS_TOL
+                or near["m_scaled_err"] > PAR_OPT_TOL
+                or near["param_max_abs_err"] > PAR_PARAM_TOL):
+            problems.append(f"rank {rank} attn_batch_shard off the unsplit "
+                            f"step: {split}")
         for shape, s in result.items():
             ok = (abs(s["loss"] - s["ref_loss"]) <= PAR_LOSS_TOL
                   * max(1.0, abs(s["ref_loss"]))
@@ -3926,7 +3979,10 @@ def phase_parallel_gloo() -> None:
             if not ok:
                 problems.append(f"rank {rank} {shape} off one process: {s}")
     emit("parallel_gloo", global_batch=PAR2_BATCH, seq_len=PAR2_SEQ,
-         ranks=ranks, problems=problems)
+         ranks=ranks,
+         step_ms={label: [r.get(label, {}).get("step_ms") for r in ranks]
+                  for label in ranks[0]},
+         problems=problems)
     if problems:
         raise SystemExit(f"chip_smoke: parallel_gloo phase failed: "
                          f"{problems}")
@@ -4645,8 +4701,8 @@ def phase_parallel_gloo_split() -> dict:
 # granite-moe-3b-a800m split over two processes on the card over gloo, full
 # width (d 1536, 24 query heads over 8 KV heads of 64, 40 experts of d_ff 512
 # top-8 at capacity 1.5, the 51,200-row padded vocabulary), its 32 layers cut
-# to 4: ~482 M parameters, an fp32 train state of ~7.7 GB in one process and
-# half of its experts (20 a rank: EP) on each rank. (1 data, 2 model): one
+# to 2 (4 until the script's time passed 950 s): ~280 M parameters, an fp32
+# train state of ~4.5 GB in one process and half of its experts (20 a rank: EP) on each rank. (1 data, 2 model): one
 # step of PAR2_BATCH x PAR2_SEQ tokens against make_train_step under
 # parallel_gloo_ssm's checks, the second of each timed, then split serving
 # (bf16 and fp32, a prefill of SSM_SERVE_BATCH x SSM_SERVE_PROMPT tokens and
@@ -4655,7 +4711,7 @@ def phase_parallel_gloo_split() -> dict:
 # make_train_step on the whole batch, the same checks, its auxiliary loss
 # within MOE_AUX_RTOL of the one process's (fp32 sums in another order) and
 # each layer's capacity drops equal.
-MOE_PAR_LAYERS = 4
+MOE_PAR_LAYERS = 2
 MOE_PAR_TIMEOUT_S = 300
 MOE_AUX_RTOL = 1e-5
 
@@ -5533,7 +5589,7 @@ def phase_parallel_gloo_seq() -> dict:
 
 # The same split for the MoE, encoder-decoder and VLM families (ROADMAP item
 # 13's remainder), two processes over gloo at (2 data, 1 model), full width:
-# granite-moe-3b-a800m at parallel_gloo_moe's 4 of 32 layers, one fp32 step
+# granite-moe-3b-a800m at parallel_gloo_moe's 2 of 32 layers, one fp32 step
 # of one row of 4,096 tokens (2,048 a rank, its MoE layers routing both
 # blocks as one microbatch, in the reference's token order) against
 # make_train_step in one process under parallel_gloo_moe's checks, then its
@@ -6543,6 +6599,64 @@ def _fleet() -> tuple:
              "seconds": time.perf_counter() - t0}, problems)
 
 
+POOL_PROCESSES = min(8, os.cpu_count() or 1)   # the CPU pool's request
+POOL_CARD_PROCESSES = 2                         # asked for on the card
+
+
+def _study_pool() -> tuple:
+    """run_study's process pool (ROADMAP item 22) over the grid: the CPU's
+    serial run against ``processes=POOL_PROCESSES`` on the CPU (records
+    equal as text, the ms of each, the workers the pool took), then
+    ``processes=2`` on the card against the card's serial run (one warning,
+    the same records: no pool runs there). CUDA is initialised in this
+    process by then, so the CPU pool's workers are shown not to touch it.
+    (row, problems)."""
+    spec = _grid_spec()
+    cuda_ready = torch.cuda.is_initialized()
+    chunks, workers = study.pool_plan(spec, study._cells(spec),
+                                      POOL_PROCESSES)
+    t0 = time.perf_counter()
+    serial = run_study(spec, device="cpu")
+    serial_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    pooled = run_study(spec, processes=POOL_PROCESSES, device="cpu")
+    pool_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    card = run_study(spec, device=DEVICE)
+    torch.cuda.synchronize()
+    card_ms = (time.perf_counter() - t0) * 1e3
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        t0 = time.perf_counter()
+        card_pool = run_study(spec, processes=POOL_CARD_PROCESSES,
+                              device=DEVICE)
+        torch.cuda.synchronize()
+        card_pool_ms = (time.perf_counter() - t0) * 1e3
+    warned = [str(w.message) for w in seen if "device's batch" in
+              str(w.message)]
+    row = {"name": spec.name, "cells": len(serial),
+           "cuda_initialised_before": cuda_ready,
+           "cpu": {"processes": POOL_PROCESSES, "chunks": len(chunks),
+                   "workers": workers, "serial_ms": serial_ms,
+                   "pool_ms": pool_ms, "speedup": serial_ms / pool_ms,
+                   "records_equal": (_records_text(pooled)
+                                     == _records_text(serial))},
+           "card": {"processes": POOL_CARD_PROCESSES, "warnings": warned,
+                    "serial_ms": card_ms, "ms": card_pool_ms,
+                    "records_equal": (_records_text(card_pool)
+                                      == _records_text(card))}}
+    problems = []
+    if not cuda_ready:
+        problems.append("CUDA was not initialised before the CPU pool")
+    if not row["cpu"]["records_equal"]:
+        problems.append("the CPU pool's records differ from the serial run's")
+    if len(warned) != 1:
+        problems.append({"card_pool_warnings": warned})
+    if not row["card"]["records_equal"]:
+        problems.append("processes=2 on the card differs from its serial run")
+    return row, problems
+
+
 def phase_run_study() -> dict:
     """COMET's study runner over the paper's case studies and the study
     phase's grid (see the module docstring). Returns the hand-written
@@ -6586,6 +6700,9 @@ def phase_run_study() -> dict:
     fleet_row, fleet_problems = _fleet()
     emit("run_study_fleet", **fleet_row, problems=fleet_problems)
     problems += fleet_problems
+    pool_row, pool_problems = _study_pool()
+    emit("run_study_pool", **pool_row, problems=pool_problems)
+    problems += pool_problems
     launches = _kernel_counts()
     if any(launches.values()):
         problems.append({"kernel_launches": launches})
@@ -6593,6 +6710,9 @@ def phase_run_study() -> dict:
          paper_api_seconds=api_s,
          serving_reliability_seconds=sr_row["seconds"],
          fleet_seconds=fleet_row["seconds"],
+         pool_ms={"cpu_serial": pool_row["cpu"]["serial_ms"],
+                  "cpu_pool": pool_row["cpu"]["pool_ms"],
+                  "card_processes_2": pool_row["card"]["ms"]},
          cells=sum(r["cells"] for r in rows) + len(card),
          max_rel_diff=max([r["card_vs_cpu"]["max_rel_diff"] or 0.0
                            for r in rows + api_rows]

@@ -37,9 +37,10 @@ failure model or a fleet's failure trace). A spec with a
 (:mod:`repro_torch.reliability`), and anything with a ``to_study()``
 lowering (a :class:`repro_torch.serving.ServingSpec`, a
 :class:`repro_torch.fleet.FleetSpec`) runs directly; every cell's
-:class:`StudyContext` carries the run's ``device``. A
-process pool is not ported: ``processes > 1`` raises
-``NotImplementedError`` naming its ROADMAP item.
+:class:`StudyContext` carries the run's ``device``. On the
+CPU, ``processes > 1`` fans the cells out over a ``fork`` pool of
+one-thread workers, strategy-major (the paper's §V-E); on a GPU the
+device's batch takes the pool's place, with a warning.
 """
 
 from __future__ import annotations
@@ -50,6 +51,8 @@ import io
 import itertools
 import json
 import math
+import multiprocessing
+import os
 import warnings
 from typing import (
     Any,
@@ -62,6 +65,8 @@ from typing import (
     Tuple,
     Union,
 )
+
+import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig, ShapeConfig
@@ -906,12 +911,79 @@ def _run_cells_compiled(spec: StudySpec, cells: List[tuple],
     return results
 
 
-# --- what the runner does not do, and where it is planned --------------- #
+# --- optional process-parallel execution ------------------------------- #
+# Cells are embarrassingly parallel (§V-E). Closures in specs don't pickle,
+# so the spec travels to fork()ed workers via one module global and only
+# chunk indices cross the pipe. Dispatch is strategy-major: one chunk per
+# workload key, so every strategy is decomposed (and lowered) once
+# process-wide. Worker memos are plain locals of _run_cells_compiled
+# (nothing to poison if a chunk raises); _FORK_STATE is reset in a finally.
+# The pool runs on the CPU only: a forked child cannot use CUDA, so on the
+# card the device batch takes the pool's place, and the workers never touch
+# CUDA, which lets the pool run in a process whose CUDA is initialised.
+_FORK_STATE: Optional[tuple] = None     # (spec, cells, chunks)
 
-PROCESSES_DEFERRED = (
-    "run_study(processes > 1) is not ported: a fork pool after CUDA is "
-    "initialised is unsafe, and the device batch takes the pool's place "
-    "(ROADMAP Queue 1 item 22)")
+
+def _strategy_chunks(spec: StudySpec, cells: List[tuple],
+                     processes: int) -> List[List[int]]:
+    """Cell indices grouped by workload key. When there are fewer groups
+    than workers, the biggest groups split in half (each sub-chunk then
+    re-decomposes once, still never per cell) until every worker has
+    something to do."""
+    groups: Dict[tuple, List[int]] = {}
+    for i, (s, p, _, _) in enumerate(cells):
+        groups.setdefault(_workload_key(spec, s, p), []).append(i)
+    chunks = list(groups.values())
+    while chunks and len(chunks) < processes:
+        big = max(range(len(chunks)), key=lambda c: len(chunks[c]))
+        if len(chunks[big]) <= 1:
+            break
+        mid = len(chunks[big]) // 2
+        chunks.append(chunks[big][mid:])
+        chunks[big] = chunks[big][:mid]
+    return chunks
+
+
+def _eval_chunk(ci: int) -> Tuple[List[int], List[CellResult]]:
+    spec, cells, chunks = _FORK_STATE
+    idxs = chunks[ci]
+    return idxs, _run_cells_compiled(spec, [cells[i] for i in idxs], {}, {},
+                                     torch.device("cpu"))
+
+
+def pool_plan(spec: StudySpec, cells: List[tuple],
+              processes: int) -> Tuple[List[List[int]], int]:
+    """(chunks, workers) of a pool of ``processes`` over ``cells``: the
+    strategy-major chunks and the worker count ``run_study`` forks."""
+    chunks = _strategy_chunks(spec, cells, processes)
+    # Workers beyond the chunk count or the core count only add fork and
+    # scheduling overhead to a CPU-bound pool, so cap at both.
+    return chunks, min(processes, len(chunks) or 1,
+                       multiprocessing.cpu_count())
+
+
+def _run_pool(spec: StudySpec, cells: List[tuple],
+              processes: int) -> List[CellResult]:
+    """The cells on a ``fork`` pool of CPU workers, in cell order."""
+    global _FORK_STATE
+    chunks, workers = pool_plan(spec, cells, processes)
+    _FORK_STATE = (spec, cells, chunks)
+    try:
+        ctx = multiprocessing.get_context("fork")
+        # One intra-op thread a worker: a child forked after the parent ran
+        # multi-threaded torch work inherits its thread pool's state but not
+        # its threads, and its first parallel op can wait on them forever.
+        with ctx.Pool(processes=max(1, workers),
+                      initializer=torch.set_num_threads,
+                      initargs=(1,)) as pool:
+            results: List[Optional[CellResult]] = [None] * len(cells)
+            for idxs, rs in pool.imap_unordered(_eval_chunk,
+                                                range(len(chunks))):
+                for i, r in zip(idxs, rs):
+                    results[i] = r
+        return results
+    finally:
+        _FORK_STATE = None
 
 VALIDATE_MODES = ("off", "warn", "error")
 
@@ -982,8 +1054,15 @@ def run_study(spec: StudySpec, processes: Optional[int] = None,
     A :class:`repro_torch.fleet.FleetSpec` runs the same way with the F1xx
     rules; its width profiles are timed on ``device`` (each cell's
     ``StudyContext.device``) and its event timeline runs on the host.
-    ``processes > 1`` raises ``NotImplementedError`` naming its ROADMAP
-    item."""
+
+    ``processes > 1`` on the CPU fans the cells out over a ``fork`` pool
+    (POSIX only; serial elsewhere, and in a pool's worker): the pre-flight
+    runs first, here; dispatch is strategy-major, one chunk per workload
+    key (``_strategy_chunks``), each evaluated by a worker of one thread
+    with fresh memos, and the records come back in cell order, the serial
+    run's. On a GPU no pool runs: a forked worker cannot use CUDA, so the
+    cells run here in the device's batch, the serial run's records, with
+    one warning; the caller's device is kept."""
     device = resolve_device(device)
     if not isinstance(spec, StudySpec):
         to_study = getattr(spec, "to_study", None)
@@ -995,15 +1074,26 @@ def run_study(spec: StudySpec, processes: Optional[int] = None,
     if validate not in VALIDATE_MODES:
         raise ValueError(f"validate must be one of {VALIDATE_MODES}, "
                          f"got {validate!r}")
-    if processes is not None and processes > 1:
-        raise NotImplementedError(PROCESSES_DEFERRED)
     if validate != "off":
         _validate_spec(spec, validate)
+    cells = _cells(spec)
+    if processes is not None and processes > 1:
+        if device.type != "cpu":
+            warnings.warn(
+                f"run_study(processes={processes}) on {device}: a forked "
+                f"worker cannot use the device, so the cells run in this "
+                f"process in the device's batch", stacklevel=2)
+        elif hasattr(os, "fork") and _FORK_STATE is None:
+            # The global makes the fork path non-reentrant; a nested or
+            # concurrent parallel run_study runs serially instead of
+            # clobbering the in-flight study's state.
+            return StudyResult(spec=spec,
+                               cells=_run_pool(spec, cells, processes))
     # The memos live here, never in module globals, so an exception
     # anywhere (a raising metric, an infeasible builder) leaves nothing
     # behind that could poison a later run.
     return StudyResult(spec=spec, cells=_run_cells_compiled(
-        spec, _cells(spec), {}, {}, device))
+        spec, cells, {}, {}, device))
 
 
 # ===================================================================== #

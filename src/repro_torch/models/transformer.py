@@ -69,7 +69,11 @@ from repro_torch.models.common import (
     rope_positions,
     serving_logits,
 )
-from repro_torch.parallel.tensor import copy_to_region
+from repro_torch.parallel.tensor import (
+    copy_to_region,
+    gather_rows,
+    split_rows,
+)
 
 
 def _param(t: torch.Tensor, device: torch.device) -> nn.Parameter:
@@ -126,7 +130,13 @@ class Attention(nn.Module):
     shards of it (set by ``parallel.tensor.apply_tensor_parallel``): ``wq``
     and ``wo`` hold this rank's heads; ``wk``/``wv`` hold its KV heads, or,
     where the KV heads do not divide over the group, all of them, and the
-    rank takes the one its query heads share."""
+    rank takes the one its query heads share.
+
+    ``batch_group``: the model axis's group where the weights are whole on
+    every rank and the config sets ``attn_batch_shard`` (set by
+    ``apply_tensor_parallel``, a ``Transformer``'s layers only): without a
+    cache, each rank then runs the attention on its block of the rows and
+    the blocks are gathered back (``_split_rows``)."""
 
     def __init__(self, cfg: ModelConfig, generator, dtype, device,
                  d_in: Optional[int] = None):
@@ -143,9 +153,29 @@ class Attention(nn.Module):
                                     scale=1.0 / (h * hd) ** 0.5), device)
         self.cfg = cfg
         self.tp_group = None
+        self.batch_group = None
 
     def params(self) -> Dict[str, torch.Tensor]:
         return {"wq": self.wq, "wk": self.wk, "wv": self.wv, "wo": self.wo}
+
+    def _split_rows(self, x: torch.Tensor, params: Dict[str, torch.Tensor]
+                    ) -> torch.Tensor:
+        """This rank's block of the rows of ``x`` (b / tp of them; every
+        rank of ``batch_group`` holds x whole): the reference's batch
+        constraint on q, k and v over ("data", "model"). Points the
+        replicated weights in ``params`` through ``copy_to_region``, so
+        their gradients from each rank's rows are summed over the group;
+        x's gradient comes back whole on every rank."""
+        group = self.batch_group
+        tp = dist.get_world_size(group)
+        if x.shape[0] % tp:
+            raise ValueError(
+                f"attn_batch_shard: the local batch {tuple(x.shape)} has "
+                f"{x.shape[0]} rows, which do not divide over {tp} model "
+                f"ranks")
+        for name, w in params.items():
+            params[name] = copy_to_region(w, group)
+        return split_rows(x, group)
 
     def _local_heads(self, params: Dict[str, torch.Tensor]
                      ) -> Tuple[int, int, Optional[int]]:
@@ -173,20 +203,27 @@ class Attention(nn.Module):
         heads under ``tp_group``; ``kw`` are its options (``causal``,
         ``rope``, ``xkv``, ...). A cache (the self K/V, or a frozen cross
         K/V) holds the rank's KV heads, or every KV head where the rules
-        replicate them, and then the rank reads and writes its own."""
+        replicate them, and then the rank reads and writes its own. Under
+        ``batch_group`` a call without a cache attends over this rank's
+        block of the rows, and the blocks are all-gathered onto every
+        rank."""
         cfg = self.cfg
         params = self.params()
         heads, kv_heads = cfg.num_heads, cfg.num_kv_heads
+        split = self.batch_group is not None and kv_cache is None
+        if split:
+            x = self._split_rows(x, params)
         if self.tp_group is not None:
             heads, kv_heads, kv = self._local_heads(params)
             if kv is not None and kv_cache is not None:
                 kv_cache = {**kv_cache, "k": kv_cache["k"].narrow(2, kv, 1),
                             "v": kv_cache["v"].narrow(2, kv, 1)}
         kw.setdefault("rope_fraction", cfg.rope_fraction)
-        return attention_block(
+        out = attention_block(
             params, x, num_heads=heads, num_kv_heads=kv_heads,
             head_dim=cfg.resolved_head_dim, rope_theta=cfg.rope_theta,
             kv_cache=kv_cache, group=self.tp_group, **kw)
+        return gather_rows(out, self.batch_group) if split else out
 
     def forward(self, x: torch.Tensor, kv_cache: Optional[dict],
                 rope=None, seq=None) -> torch.Tensor:

@@ -36,6 +36,14 @@ sharding.SeqBlock``): what a rank's block needs of the other blocks (the
 keys and values, the conv's halo, the SSD blocks' states) comes through
 ``gather_dim`` / ``gather_stacked``, all-gathers whose backward
 reduce-scatters the gradient back to the rank that sent each piece.
+
+A Transformer's attention that the rules replicate over the model axis (its
+query heads do not divide over it) splits its batch over the axis instead
+where the config sets ``attn_batch_shard``, as the reference's constraint
+on q, k and v does: ``split_rows`` gives each rank its block of the rows
+and ``gather_rows`` gathers the blocks' outputs back onto every rank. The
+replicated weights enter through ``copy_to_region``, so each rank's
+gradient of them, from its rows alone, is summed over the axis.
 """
 
 from __future__ import annotations
@@ -88,6 +96,50 @@ class _GatherStacked(torch.autograd.Function):
         dist.reduce_scatter_tensor(out, grad.contiguous().reshape(-1),
                                    group=ctx.group)
         return out.view(grad.shape[1:]), None
+
+
+class _SplitRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        rows = x.shape[0] // dist.get_world_size(group)
+        return x.narrow(0, dist.get_rank(group) * rows, rows).clone()
+
+    @staticmethod
+    def backward(ctx, grad):
+        # every rank's block of the gradient, so each holds it whole
+        return all_gather_stacked(grad.contiguous(), ctx.group).flatten(
+            0, 1), None
+
+
+class _GatherRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return all_gather_stacked(x.contiguous(), group).flatten(0, 1)
+
+    @staticmethod
+    def backward(ctx, grad):
+        # every rank holds the same gradient of the whole: its own block,
+        # not a sum
+        rows = grad.shape[0] // dist.get_world_size(ctx.group)
+        return grad.narrow(0, dist.get_rank(ctx.group) * rows,
+                           rows).contiguous(), None
+
+
+def split_rows(x: torch.Tensor, group) -> torch.Tensor:
+    """This rank's block of the rows (dim 0) of ``x``, which every rank of
+    ``group`` holds equal, rank r rows ``[r b / n, (r + 1) b / n)``;
+    backward, the blocks' gradients all-gathered: every rank gets the
+    whole gradient."""
+    return _SplitRows.apply(x, group)
+
+
+def gather_rows(x: torch.Tensor, group) -> torch.Tensor:
+    """The group's blocks of rows concatenated in rank order, on every
+    rank (``split_rows``'s inverse); backward, the rank's own block of the
+    gradient, which every rank holds equal."""
+    return _GatherRows.apply(x, group)
 
 
 def gather_stacked(x: torch.Tensor, group) -> torch.Tensor:
@@ -179,7 +231,9 @@ def apply_tensor_parallel(model, placements, group) -> None:
     expert-TP; its shared expert as an FFN); an ``EncDec``'s encoder and
     decoder layers' (the decoder's self- and cross-attention); a
     ``Mamba``'s layers (their SSD heads) and, for the hybrid, its shared
-    block's attention and FFN. Raises, naming the attention, where a rank's
+    block's attention and FFN. A ``Transformer``'s attention that stays
+    replicated takes ``group`` as its ``batch_group`` where the config sets
+    ``attn_batch_shard``. Raises, naming the attention, where a rank's
     query heads would straddle KV groups."""
     def split(name: str):
         return group if MODEL_AXIS in placements[name].axes() else None
@@ -210,6 +264,10 @@ def apply_tensor_parallel(model, placements, group) -> None:
     for i, layer in enumerate(model.layers):
         if hasattr(layer, "attn"):
             point(f"layers.{i}.attn", layer.attn)
+            # a Transformer's replicated attention splits its batch instead
+            # where the config asks (the heads' split is kept where it holds)
+            if layer.attn.tp_group is None and model.cfg.attn_batch_shard:
+                layer.attn.batch_group = group
             if hasattr(layer, "ffn"):
                 point(f"layers.{i}.ffn", layer.ffn)
                 continue

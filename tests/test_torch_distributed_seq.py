@@ -15,9 +15,14 @@ so that each rank's result is held to the reference itself:
     data ranks, at 4 (two microbatches of one row each), at (2 data, 2
     model), and on a (2 pod, 2 data, 1 model) mesh whose pod ranks hold the
     same positions; and where neither the rows nor the sequence divide
-    (every data rank runs the whole microbatch). A config that sets
-    ``attn_batch_shard`` gives the same numbers (the MoE, encoder-decoder
-    and VLM families: ``tests/test_torch_distributed_seq_families.py``);
+    (every data rank runs the whole microbatch). The MoE,
+    encoder-decoder and VLM families: ``tests/test_torch_distributed_seq_
+    families.py``;
+  * ``attn_batch_shard`` on a (1 data, 2 model) mesh whose 3 heads do not
+    divide over the model axis: the batch split over the model ranks gives
+    the unsplit run's loss and gradients, and both runs, a forward and
+    backward and a sharded step, are held to the reference's
+    ``jax.value_and_grad`` and single-device step on the same batch;
   * the prefill of a batch served whole on every data rank (``shard_model``
     with ``batch_rows``), the prompt's rows split over the data ranks,
     against the reference's ``prefill``: the last row's logits (bitwise the
@@ -31,6 +36,7 @@ caches 1e-5 absolute, as ``tests/test_torch_models.py`` holds the port's
 prefill to the reference's.
 """
 
+import dataclasses
 import functools
 
 import jax
@@ -154,12 +160,92 @@ for arch in ARCHS:
         if spec[0] == world:
             results["prefill:" + arch + ":" + case] = split_prefill(arch,
                                                                    case)
+
+
+def batch_shard_run(flag):
+    \"\"\"The reduced smollm with 3 query heads (one KV head), from the
+    reference's weights, on a (1 data, 2 model) mesh: its attention is
+    replicated over the model axis, and with ``flag`` (``attn_batch_shard``)
+    each model rank runs it on its 2 of the 4 rows. One forward and
+    backward, then one sharded step of a fresh copy; rank 0 saves the
+    gradients and the updated parameters, gathered whole.\"\"\"
+    from repro_torch.train.train_step import _forward_backward
+    cfg = dataclasses.replace(CFG, num_heads=3, num_kv_heads=1,
+                              attn_batch_shard=flag)
+    plan = MemoryPlan(1, "float32", True, "dots", 0.0, 1)
+    mesh = build_mesh((1, 2), ("data", "model"), "cpu")
+    toks = tokens(4, 32, seed=21)
+    batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+    model = model_of(cfg, "batch_shard")
+    sh = shard_model(cfg, plan, model, mesh)
+    params = dict(model.named_parameters())
+    loss, _, grads = _forward_backward(model, params, batch, 1,
+                                       torch.float32, plan.remat)
+    whole = {n: gather_full(g, sh[n], mesh) for n, g in grads.items()}
+    split = [layer.attn.batch_group is not None for layer in model.layers]
+    model = model_of(cfg, "batch_shard")
+    params = dict(model.named_parameters())
+    state = {"model": model, "params": params,
+             "opt": init_state(params, OPT)}
+    state = shard_train_state(cfg, plan, state, mesh)
+    state, m = sharded_train_step(cfg, plan, mesh, OPT)(state, batch)
+    full = gather_train_state(state, mesh)
+    if rank == 0:
+        torch.save({"grads": whole, "params": full["params"]},
+                   os.path.join(out, "batch_shard_" + str(flag) + ".pt"))
+    return {"loss": loss.item(), "step_loss": m["loss"].item(),
+            "grad_norm": m["grad_norm"].item(), "split": split,
+            "step_split": [layer.attn.batch_group is not None
+                           for layer in model.layers]}
+
+
 if world == 2:
     CFG = get_config("smollm-135m", reduced=True)
-    results["step:attn_batch_shard"] = split_step(
-        "smollm-135m", "dp2", dataclasses.replace(CFG, attn_batch_shard=True),
-        "attn_batch_shard")
+    for flag in (False, True):
+        results["batch_shard:" + str(flag)] = batch_shard_run(flag)
 """
+
+
+def _batch_shard_configs():
+    """The reduced smollm at 3 query heads and one KV head, so that its
+    heads do not divide over 2 model ranks: (reference's, port's)."""
+    heads = dict(num_heads=3, num_kv_heads=1)
+    return (dataclasses.replace(get_config_jax("smollm-135m", reduced=True),
+                                **heads),
+            dataclasses.replace(get_config("smollm-135m", reduced=True),
+                                **heads))
+
+
+@functools.lru_cache(maxsize=None)
+def _batch_shard_params():
+    cfg_j, _ = _batch_shard_configs()
+    return get_model_jax(cfg_j).init_params(jax.random.PRNGKey(0), cfg_j,
+                                            dtype=jnp.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def _reference_batch_shard():
+    """The reference on the job's batch (4 rows of 32, seed 21), single
+    device: the loss and gradients of ``jax.value_and_grad`` and one step of
+    ``make_train_step`` (loss, global norm, updated parameters), by the
+    port's names."""
+    cfg_j, cfg = _batch_shard_configs()
+    params = _batch_shard_params()
+    toks = _tokens(4, 32, seed=21)
+    batch = {"tokens": jnp.asarray(toks[:, :-1]),
+             "targets": jnp.asarray(toks[:, 1:])}
+    (loss, _), grads = jax.value_and_grad(
+        lambda p: get_model_jax(cfg_j).loss(p, cfg_j, batch),
+        has_aux=True)(params)
+    cj = opt_jax.AdamWConfig(**OPT)
+    step = jax.jit(make_train_step_jax(
+        cfg_j, MemoryPlanJax(1, "float32", True, "dots", 0.0, 1), cj))
+    state, m = step({"params": params, "opt": opt_jax.init_state(params, cj)},
+                    batch, jax.random.PRNGKey(0))
+    port = lambda tree: from_jax_params(jax.tree.map(np.asarray, tree), cfg)
+    return {"loss": float(loss), "grads": port(grads),
+            "step_loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+            "params": port(state["params"])}
 
 
 @pytest.fixture(scope="module")
@@ -176,6 +262,10 @@ def weights(tmp_path_factory):
         torch.save(from_jax_params(jax.tree.map(np.asarray, params),
                                    get_config(arch, reduced=True)),
                    directory / f"weights_{arch}.pt")
+    _, cfg = _batch_shard_configs()
+    torch.save(from_jax_params(jax.tree.map(np.asarray,
+                                            _batch_shard_params()), cfg),
+               directory / "weights_batch_shard.pt")
     return directory, out
 
 
@@ -219,6 +309,15 @@ def _reference_step(arch, b, s, micro):
                             get_config(arch, reduced=True)))
 
 
+def _leaves_within(got, want, tol):
+    """Every leaf of ``got`` within ``tol`` of its leaf's largest
+    magnitude of ``want``."""
+    assert set(got) == set(want)
+    for name, w in want.items():
+        scale = max(w.abs().max().item(), 1e-30)
+        assert (got[name] - w).abs().max().item() <= tol * scale, name
+
+
 def _step_results(two, four, case):
     out, res = two if STEPS[case][0] == 2 else four
     return out, res
@@ -248,22 +347,44 @@ def test_split_step_parameters_follow_the_reference(two, four, arch, case):
     out, _ = _step_results(two, four, case)
     got = torch.load(out / f"step_{arch}_{case}.pt")
     _, _, _, b, s, micro = STEPS[case]
-    want = _reference_step(arch, b, s, micro)[2]
-    assert set(got) == set(want)
-    for name, w in want.items():
-        scale = max(w.abs().max().item(), 1e-30)
-        assert (got[name] - w).abs().max().item() <= 1e-3 * scale, name
+    _leaves_within(got, _reference_step(arch, b, s, micro)[2], 1e-3)
 
 
 def test_attn_batch_shard_changes_nothing(two):
-    """``attn_batch_shard`` only says where the reference's values lie: the
-    split step of a config that sets it gives the same bits."""
+    """``attn_batch_shard`` where the rules replicate the attention over the
+    model axis (3 heads over 2 model ranks): each rank attends over its
+    block of the rows, and the loss and every gradient equal the unsplit
+    run's (the loss within 1e-5 relative, each gradient within 1e-5 of its
+    leaf's largest magnitude)."""
     out, res = two
     for r in res:
-        assert r["step:attn_batch_shard"] == r["step:smollm-135m:dp2"]
-    got = torch.load(out / "step_attn_batch_shard_dp2.pt")
-    want = torch.load(out / "step_smollm-135m_dp2.pt")
-    assert all(torch.equal(got[n], want[n]) for n in want)
+        plain, split = r["batch_shard:False"], r["batch_shard:True"]
+        assert plain["split"] == plain["step_split"] == [False, False]
+        assert split["split"] == split["step_split"] == [True, True]
+        assert split["loss"] == pytest.approx(plain["loss"], rel=1e-5)
+    got = torch.load(out / "batch_shard_True.pt")["grads"]
+    want = torch.load(out / "batch_shard_False.pt")["grads"]
+    _leaves_within(got, want, 1e-5)
+
+
+@pytest.mark.parametrize("flag", [False, True])
+def test_attn_batch_shard_follows_the_reference(two, flag):
+    """The (1 data, 2 model) runs with and without ``attn_batch_shard``
+    against the reference on the same weights and batch: the loss within
+    1e-5 relative of ``jax.value_and_grad``'s and every gradient within
+    1e-5 of its leaf's largest magnitude; the sharded step's loss within
+    1e-5 relative, its global norm within 1e-4 and every updated parameter
+    within 1e-3 of its leaf's largest, as the split steps above."""
+    out, res = two
+    ref = _reference_batch_shard()
+    for r in res:
+        got = r["batch_shard:" + str(flag)]
+        assert got["loss"] == pytest.approx(ref["loss"], rel=1e-5)
+        assert got["step_loss"] == pytest.approx(ref["step_loss"], rel=1e-5)
+        assert got["grad_norm"] == pytest.approx(ref["grad_norm"], rel=1e-4)
+    saved = torch.load(out / f"batch_shard_{flag}.pt")
+    _leaves_within(saved["grads"], ref["grads"], 1e-5)
+    _leaves_within(saved["params"], ref["params"], 1e-3)
 
 
 @functools.lru_cache(maxsize=None)

@@ -13,6 +13,9 @@
   cache split along the sequence where the data axis divides it), a
   refusal names its ROADMAP item, and no process group is left behind. The CLI on one full-size cell of the
   production mesh, in a fresh interpreter that never loads ``jax``.
+* ``attn_batch_shard`` where the attention is replicated over the model
+  axis: 1/tp of the attention kernels' counted FLOPs a rank, and the
+  gathered rows' bytes added to the all-gathers.
 """
 
 import dataclasses
@@ -326,6 +329,35 @@ def test_the_dense_step_counts_its_activations_collectives():
         "all-reduce": (1 + 2 * cfg.num_layers) * act,
         "all-gather": b * cfg.padded_vocab * 2}
     assert counter.by_op["c10d.allreduce_"][0] == 1 + 2 * cfg.num_layers
+
+
+def test_attn_batch_shard_splits_the_attention_rows():
+    """The reduced smollm with 3 heads (one KV head), replicated over the
+    debug mesh's 2 model ranks, at train_4k: with ``attn_batch_shard``
+    rank 0's attention-core FLOPs (the attention kernels' operators,
+    forward and backward) are 1/tp of the run's without it, and the
+    all-gather bytes grow by the gathered rows: each layer gathers its
+    attention's output (b, s, d) in the forward, again in the remat's
+    recompute, and its input's gradient in the backward."""
+    def run(flag):
+        cfg = dataclasses.replace(get_config("smollm-135m", reduced=True),
+                                  num_heads=3, num_kv_heads=1,
+                                  attn_batch_shard=flag)
+        counter, info = dryrun.lower_cell("smollm-135m", "train_4k",
+                                          cfg_transform=lambda _: cfg)
+        core = sum(row[1] for op, row in counter.by_op.items()
+                   if op.startswith("repro_torch.flash_attention"))
+        return cfg, core, info
+    cfg, plain, before = run(False)
+    _, split, after = run(True)
+    tp, dp = 2, 2
+    assert (after["remat"], after["microbatches"]) == ("dots", 1)
+    assert plain > 0 and split == plain / tp
+    shape = SHAPES["train_4k"]
+    rows = (shape.global_batch // dp) * shape.seq_len * cfg.d_model
+    gathered = cfg.num_layers * 3 * rows * 2          # bf16
+    assert (after["coll_breakdown"]["all-gather"]
+            - before["coll_breakdown"]["all-gather"]) == gathered
 
 
 def test_the_cli_writes_a_cell_without_loading_jax(tmp_path):

@@ -195,9 +195,13 @@ class TestWrappersMatchReference:
         assert list(cmp) == list(dse.TABLE_III_CLUSTERS)
 
     def test_processes_still_refused(self, models):
-        with pytest.raises(NotImplementedError, match="item 22"):
-            dse.hetero_cost_ranking(*models[1][:2], processes=2,
-                                    device="cpu")
+        """``processes=2`` is no longer refused (ROADMAP item 22): on the
+        CPU the pool's ranking is the serial run's, record for record."""
+        pooled = dse.hetero_cost_ranking(*models[1][:2], processes=2,
+                                         device="cpu")
+        assert pooled == dse.hetero_cost_ranking(*models[1][:2],
+                                                 device="cpu")
+        assert pooled
 
 
 # ===================================================================== #

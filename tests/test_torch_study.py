@@ -18,6 +18,11 @@ import dataclasses
 import io
 import json
 import math
+import os
+import signal
+import subprocess
+import sys
+import textwrap
 
 import pytest
 import torch
@@ -39,6 +44,7 @@ from repro_torch.core.study import (
     run_study,
 )
 
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 REL = 1e-9
 PAPER = ("paper", 2048, 1024, "train")
 SMALL = ("small", 512, 64, "train")
@@ -529,14 +535,15 @@ def test_set_by_path_on_the_port_configs():
 
 
 def test_refusals_name_their_roadmap_item():
-    """What the runner refuses names its ROADMAP item (a process pool,
-    item 22); reliability columns (item 20) and a ``to_study()`` lowering
-    (item 23) now run as the reference runs them, record for record."""
+    """What the runner refuses (an unknown ``validate``, an object with no
+    ``to_study()``); a process pool (item 22) gives the serial run's
+    records, reliability columns (item 20) and a ``to_study()`` lowering
+    (item 23) run as the reference runs them, record for record."""
     from repro.reliability import FailureModel as FailureModelJax
     from repro_torch.reliability import FailureModel
     spec = _small_spec()
-    with pytest.raises(NotImplementedError, match="item 22"):
-        run_study(spec, processes=2, device="cpu")
+    assert (run_study(spec, processes=2, device="cpu").records
+            == run_study(spec, device="cpu").records)
     with pytest.raises(ValueError, match="validate"):
         run_study(spec, validate="loud", device="cpu")
     ref, mine = run_both(
@@ -564,6 +571,182 @@ def test_refusals_name_their_roadmap_item():
     run_both(Lowered(_small_spec(0)), Lowered(spec))
     with pytest.raises(TypeError, match="StudySpec"):
         run_study(object(), device="cpu")
+
+
+# ===================================================================== #
+# The process pool (ROADMAP item 22): tests/test_compiled.py's TestForkPath
+# ===================================================================== #
+
+def _bounded_run(code: str, timeout: float = 120) -> str:
+    """Runs ``code`` (dedented; this directory on the path) in a fresh
+    interpreter in a session of its own and returns its standard output;
+    fails the test, killing every process of the session, if it outlasts
+    ``timeout`` seconds or exits other than 0. A fork pool that hangs then
+    costs its test alone."""
+    code = ("import sys\nsys.path.insert(0, "
+            + repr(os.path.dirname(os.path.abspath(__file__))) + ")\n"
+            + textwrap.dedent(code))
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"),
+               JAX_PLATFORMS="cpu")
+    proc = subprocess.Popen([sys.executable, "-c", code],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True, env=env, cwd=REPO,
+                            start_new_session=True)
+    try:
+        stdout, stderr = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        pytest.fail(f"the run did not finish in {timeout} s")
+    assert proc.returncode == 0, stderr[-3000:]
+    return stdout
+
+
+class TestForkPath:
+    def test_chunks_partition_cells_by_workload_key(self):
+        spec = _small_spec()
+        cells = study._cells(spec)
+        chunks = study._strategy_chunks(spec, cells, processes=3)
+        assert sorted(i for ch in chunks for i in ch) == \
+            list(range(len(cells)))
+        # No workload key is split while more chunks than workers exist.
+        keys_per_chunk = [{study._workload_key(spec, *cells[i][:2])
+                           for i in ch} for ch in chunks]
+        assert all(len(ks) == 1 for ks in keys_per_chunk)
+        # the reference's chunks, index for index
+        ref_spec = _small_spec(0)
+        assert chunks == study_jax._strategy_chunks(
+            ref_spec, study_jax._cells(ref_spec), processes=3)
+
+    def test_chunks_split_when_fewer_groups_than_workers(self):
+        spec = _small_spec(strategies=ParallelSpec(mp=2, dp=4),
+                           axes=[Axis("bw_x", (0.5, 1.0, 2.0, 4.0),
+                                      path="node.local_bw", mode="scale")])
+        cells = study._cells(spec)
+        chunks = study._strategy_chunks(spec, cells, processes=4)
+        assert len(chunks) == 4
+        assert sorted(i for ch in chunks for i in ch) == \
+            list(range(len(cells)))
+
+    def test_empty_cell_list_with_processes(self):
+        # No strategy fills the 8-node cluster -> zero cells; the chunked
+        # pool must return an empty result, not crash on max([]).
+        spec = _small_spec(strategies=GridSpace(mp=(3,), dp=(3,)), axes=[])
+        assert len(run_study(spec, processes=4, device="cpu")) == 0
+
+    def test_pool_equals_serial(self):
+        """Equal records (the workers' one thread changes no bit here: each
+        chunk is one strategy's batch, as in the serial run) and the
+        reference's forked ``engine="compiled"`` records within 1e-9. The
+        reference's pool, whose workers keep every thread, forks a fresh
+        interpreter, not this one, under a 120 s bound."""
+        spec = _small_spec()
+        serial = run_study(spec, device="cpu")
+        pooled = run_study(spec, processes=2, device="cpu")
+        assert serial.records == pooled.records
+        out = _bounded_run("""
+            from repro.core import study as study_jax
+            from repro_torch.core.study import run_study
+            from test_torch_study import _small_spec, assert_records_equivalent
+            ref = study_jax.run_study(_small_spec(0), processes=2,
+                                      engine="compiled", validate="off")
+            assert_records_equivalent(
+                ref, run_study(_small_spec(), processes=2, device="cpu"))
+            print("equivalent", len(ref))
+        """)
+        assert "equivalent 8" in out
+
+    @pytest.mark.parametrize("name", ["fig8", "placement"])
+    def test_pool_equals_serial_on_the_goldens(self, name):
+        """Two goldens with split chunks (more workers than strategies)
+        and mixed fleets: the pool's records equal the serial run's. The
+        pool of up to 64 workers forks a fresh interpreter under a 120 s
+        bound."""
+        out = _bounded_run(f"""
+            from repro_torch.core.study import run_study
+            from test_torch_study import _golden
+            spec = _golden({name!r}, 1)[0]
+            serial = run_study(spec, device="cpu")
+            assert serial.records == run_study(spec, processes=64,
+                                               device="cpu").records
+            print("equal", len(serial))
+        """)
+        assert "equal " in out
+
+    def test_raising_metric_leaves_run_study_reusable(self):
+        # A worker raising mid-map must not poison module state for later
+        # serial or pooled runs.
+        def boom(ctx):
+            raise RuntimeError("metric exploded")
+
+        bad = _small_spec(metrics={"boom": boom})
+        with pytest.raises(RuntimeError, match="metric exploded"):
+            run_study(bad, processes=2, device="cpu")
+        assert study._FORK_STATE is None
+        good = _small_spec()
+        again = run_study(good, device="cpu")
+        assert run_study(good, processes=2,
+                         device="cpu").records == again.records
+
+    def test_a_pool_after_threaded_work_finishes(self):
+        """A fresh interpreter runs multi-threaded torch work (a 2,000 x
+        2,000 float64 product, a 4 M-element exp and sum), then a pool of
+        two whose metric runs a 500 x 500 float64 product in the worker:
+        it must finish inside 120 s. A child forked after such work that
+        runs a parallel op on the parent's thread pool waits forever
+        (without the pool's one-thread initializer this run hangs)."""
+        out = _bounded_run("""
+            import torch
+            torch.set_num_threads(max(2, torch.get_num_threads()))
+            a = torch.randn(2000, 2000, dtype=torch.float64)
+            (a @ a).sum(); torch.randn(4_000_000).exp().sum()
+            from repro_torch.core.study import run_study
+            from test_torch_study import _small_spec
+
+            def probe(ctx):
+                b = torch.ones(500, 500, dtype=torch.float64)
+                return float((b @ b).sum())
+            spec = _small_spec(metrics={"probe": probe})
+            pooled = run_study(spec, processes=2, device="cpu")
+            assert pooled.records == run_study(spec, device="cpu").records
+            print("pool done", len(pooled))
+        """)
+        assert "pool done 8" in out
+
+    def test_a_nested_pool_runs_serially(self):
+        """A run_study inside a pool's worker (``_FORK_STATE`` set) runs
+        serially with the same records."""
+        spec = _small_spec()
+        inner = {}
+
+        def nested(ctx):
+            if not inner:
+                inner["records"] = run_study(
+                    _small_spec(strategies=ParallelSpec(mp=2, dp=4)),
+                    processes=2, device="cpu").records
+            return len(inner["records"])
+
+        pooled = run_study(_small_spec(metrics={"inner": nested}),
+                           processes=2, device="cpu")
+        assert {r["inner"] for r in pooled.records} == {2}
+        assert study._FORK_STATE is None
+        assert run_study(spec, device="cpu").records == [
+            {k: v for k, v in r.items() if k != "inner"}
+            for r in pooled.records]
+
+
+@pytest.mark.cuda
+def test_the_pool_on_the_card_warns_and_runs_the_batch():
+    """``processes=2`` on the card: no fork, one warning, and the serial
+    card run's records."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the study runner's device path")
+    spec = _small_spec()
+    serial = run_study(spec, device="cuda")
+    with pytest.warns(UserWarning, match="device's batch") as seen:
+        pooled = run_study(spec, processes=2, device="cuda")
+    assert len([w for w in seen if "device's batch" in str(w.message)]) == 1
+    assert pooled.records == serial.records
 
 
 def test_default_dtype_stays_float32():
