@@ -24,7 +24,14 @@ run with a non-zero exit code (nothing drops to the CPU or to a plain version):
            a GQA group not causal, each three bitwise-equal calls;
            seamless-m4t-large-v2's cross-attention at a rank's heads in
            parallel_gloo_split (512 query rows over 1,024 keys, not
-           causal), three bitwise-equal calls; the SSD scan's backward at mamba2-780m's training layer (the
+           causal), three bitwise-equal calls; the reduced configs' head_dim
+           16 (serve_reduced): their decode tick (4 slots, 4 heads over 2,
+           128 keys; and 512) with both decode kernels held and timed at
+           every cluster, a ragged prefill, a 5-token prompt and the partial
+           route over a rank's block of 128 keys, and their RMSNorm at
+           d_model 64 (the tick, the prefill, and forward and backward at
+           torch_train_lm.py's 8 x 128 rows); the SSD scan's backward at
+           mamba2-780m's training layer (the
            train_mamba phase's), zamba2-2.7b's layer and a ragged grouped
            case with the final state's cotangent, fp32 and bf16, each with
            its launch plan, every stage's time alone and three
@@ -78,6 +85,17 @@ run with a non-zero exit code (nothing drops to the CPU or to a plain version):
            engine takes no frames); non-causal encoder and cross-attention
            through the kernels; launches checked, the ticks profiled; then
            the kernel path against the plain path in fp32
+  serve_reduced
+           python -m repro_torch.launch.serve --arch <a> --reduced (its main)
+           for the nine archs it serves (smollm-135m, mamba2-780m,
+           granite-moe-3b-a800m, llama4-maverick-400b-a17b, internvl2-76b,
+           zamba2-2.7b, chatglm3-6b, internlm2-20b, minitron-8b), fp32 and
+           bf16, head_dim 16 through every attention route: tokens/s and
+           seconds a run; fp32 greedy tokens against the same command on the
+           CPU (a difference fails where the CPU's top-2 logit gap there is
+           wider than 1e-4); then examples/torch_serve_lm.py (batched ==
+           solo decoding) and examples/torch_train_lm.py (300 steps, the loss
+           below 7) on the card
   train_dlrm
            dlrm-1.2t at every published width, tables cut to 200,000 rows,
            fp32, weights from a seed: 20 training steps (loss -> backward ->
@@ -300,6 +318,8 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import hashlib
+import importlib.util
+import io
 import json
 import math
 import os
@@ -389,6 +409,7 @@ from repro_torch.models import common as model_common  # noqa: E402
 from repro_torch.models import get_model  # noqa: E402
 from repro_torch.models.dlrm import DLRM  # noqa: E402
 from repro_torch.parallel import build_mesh, dp_axes, plan_memory  # noqa: E402
+from repro_torch.launch import serve as serve_module  # noqa: E402
 from repro_torch.launch.dryrun import run_cell  # noqa: E402
 from repro_torch.launch.specs import abstract_model, model_flops  # noqa: E402
 from repro_torch.parallel import tensor as tensor_module  # noqa: E402
@@ -839,14 +860,21 @@ def _attention_case(name, b, h, hkv, sq, skv, d, causal, dtype, gen,
         "cold_copies": n,
     }
     if clusters:
-        # The cluster size is the decode kernel's one occupancy knob: time
-        # each choice whose shared memory fits a block.
+        # The cluster size is the decode kernel's one occupancy knob: hold
+        # each choice whose shared memory fits a block against the plain
+        # version and time it.
+        fits = [c for c in DECODE_CLUSTERS
+                if decode_cluster_fits(d, dtype, h // hkv * sq, c)]
+        case["cluster_max_abs_err"] = {
+            str(c): (flash_attention_cuda(q, k, v, causal, kv_len_t, q_off_t,
+                                          decode_cluster=c).float()
+                     - want.float()).abs().max().item() for c in fits}
+        case["max_abs_err"] = max(err, *case["cluster_max_abs_err"].values())
         case["cluster_ms"] = {
             str(c): time_ms(lambda a, b_, v_, c=c: flash_attention_cuda(
                 a, b_, v_, causal, kv_len_t, q_off_t, decode_cluster=c),
                 sets)["device"]
-            for c in DECODE_CLUSTERS
-            if decode_cluster_fits(d, dtype, h // hkv * sq, c)}
+            for c in fits}
     return case
 
 
@@ -954,6 +982,13 @@ def _partial_cases() -> list:
             cases.append(_partial_case(
                 "no visible key, d=160", 2, 32, 32, 1, 4096, 160, dtype, gen,
                 [-1, 5000]))
+        # the reduced tick at head_dim 16 over a rank's block of 128 keys:
+        # rows inside, past (300) and before (-1) it
+        gen_reduced = torch.Generator(device=DEVICE).manual_seed(8)
+        for dtype in (torch.bfloat16, torch.float32):
+            cases.append(_partial_case(
+                "reduced decode block, d=16", 4, 4, 2, 1, 128, 16, dtype,
+                gen_reduced, [127, 40, 300, -1]))
     return cases
 
 
@@ -1209,8 +1244,9 @@ def _backward_cases() -> list:
     rows than keys, not causal). RMSNorm: the
     train_lm phase's rows (8 x 2048 of 576, the main case), ragged rows,
     few wide rows, a chatglm3-6b/minitron-8b-width training layer (the
-    same 8 x 2048 rows of 4096) and rows that are not a whole number of
-    16-byte packs."""
+    same 8 x 2048 rows of 4096), rows that are not a whole number of
+    16-byte packs, and the reduced configs' d_model 64 at torch_train_lm.py's
+    rows (8 x 128)."""
     gen = torch.Generator(device=DEVICE).manual_seed(4)
     cases = []
     for dtype in (torch.float32, torch.bfloat16):
@@ -1236,6 +1272,11 @@ def _backward_cases() -> list:
         cases.append(_rmsnorm_backward_case((LM_BATCH * LM_SEQ, 4096), dtype,
                                             gen_wide))
         torch.cuda.empty_cache()
+    # the reduced configs' norms at d_model 64, at torch_train_lm.py's rows
+    # (8 x 128), from a stream of their own
+    gen_64 = torch.Generator(device=DEVICE).manual_seed(8)
+    for dtype in (torch.float32, torch.bfloat16):
+        cases.append(_rmsnorm_backward_case((8 * 128, 64), dtype, gen_64))
     # zamba2's head dim 160, from a stream of its own too: its training
     # layer (the train_zamba phase's shared block, the d 160 main case, with
     # each fused SDPA backend alone beside it), a ragged tile and a GQA
@@ -1912,6 +1953,11 @@ def phase_kernels() -> list:
     # granite-moe's shapes from a fourth, zamba2's and seamless's from a fifth
     gen_moe = torch.Generator(device=DEVICE).manual_seed(4)
     gen_zamba = torch.Generator(device=DEVICE).manual_seed(5)
+    # the reduced configs' head_dim 16 from a sixth
+    gen_reduced = torch.Generator(device=DEVICE).manual_seed(7)
+    # and their norms from a seventh
+    gen_norm_64 = torch.Generator(device=DEVICE).manual_seed(8)
+    rs_reduced = np.random.RandomState(7)
     rs = np.random.RandomState(0)
     rs_attn = np.random.RandomState(3)
     rs_moe = np.random.RandomState(4)
@@ -2022,6 +2068,28 @@ def phase_kernels() -> list:
             cases.append(_attention_case(
                 "seamless cross decode", 8, 16, 16, 1, 1024, 64, False,
                 dtype, gen_zamba))
+            # the reduced configs' head_dim 16 (serve_reduced): their decode
+            # tick (4 slots, 4 heads over 2 KV heads, launch.serve's cache
+            # of 128 rows: a cluster of 8 runs as 4) and the same over 512
+            # keys (a cluster of 8 of its own), each cluster held and timed;
+            # a ragged prefill (the prefill kernels without the log-sum-exp)
+            # and a 5-token prompt (the decode kernels)
+            for skv in (128, 512):
+                cases.append(_attention_case(
+                    f"reduced decode tick skv={skv}, d=16", 4, 4, 2, 1, skv,
+                    16, True, dtype, gen_reduced,
+                    q_offset=rs_reduced.randint(0, skv, size=4).tolist(),
+                    clusters=True))
+            cases.append(_attention_case(
+                "reduced prefill s=23, d=16", 1, 4, 2, 23, 23, 16, True,
+                dtype, gen_reduced))
+            cases.append(_attention_case(
+                "reduced prompt s=5, d=16", 2, 4, 2, 5, 5, 16, True, dtype,
+                gen_reduced))
+            # their norms at d_model 64 (16 fp32 or 8 bf16 packs a row,
+            # fewer than a warp's lanes): the tick and the ragged prefill
+            for shape in ((4, 1, 64), (1, 23, 64)):
+                cases.append(_rmsnorm_case(shape, dtype, gen_norm_64))
     cases.extend(_partial_cases())
     cases.extend(_bag_cases())
     cases.extend(_backward_cases())
@@ -2578,6 +2646,132 @@ def phase_serve_encdec() -> dict:
     if problems:
         raise SystemExit(f"chip_smoke: serve_encdec phase failed: {problems}")
     return result
+
+
+# ------------------------------------------------------------------------- #
+# The reduced configs served at head_dim 16, and the examples
+# ------------------------------------------------------------------------- #
+
+# Every arch launch.serve takes (the encoder-decoder needs frames): the
+# reduced configs, head_dim 16, through the attention kernels' every route.
+SERVE_REDUCED_ARCHS = ("smollm-135m", "mamba2-780m", "granite-moe-3b-a800m",
+                       "llama4-maverick-400b-a17b", "internvl2-76b",
+                       "zamba2-2.7b", "chatglm3-6b", "internlm2-20b",
+                       "minitron-8b")
+# An fp32 greedy token of the card may differ from the CPU's only where the
+# CPU's two best logits lie this close (the same sums in another order).
+GREEDY_GAP_TOL = 1e-4
+# The kernels the phase must have launched (the train example runs the
+# backwards).
+SERVE_REDUCED_KERNELS = ("flash_attention", "flash_attention_backward",
+                         "rmsnorm", "rmsnorm_backward", "ssd_scan")
+
+
+def _top2_gap(cfg, prompt, prefix) -> float:
+    """The CPU's fp32 gap between its two largest logits after ``prompt``
+    and the tokens ``prefix`` it generated before, on the model launch.serve
+    builds (its seed 0, drawn on the CPU)."""
+    model = get_model(cfg)(cfg, dtype=torch.float32, device="cpu",
+                           generator=torch.Generator().manual_seed(0))
+    tokens = torch.as_tensor(np.concatenate(
+        [np.asarray(prompt, np.int64), np.asarray(prefix, np.int64)]))[None]
+    with torch.no_grad():
+        logits, _ = model.prefill(tokens, model.init_cache(
+            1, tokens.shape[1], dtype=torch.float32))
+    top = torch.topk(logits[0, -1].float(), 2).values
+    return (top[0] - top[1]).item()
+
+
+def _first_differences(cfg, card: list, cpu: list) -> list:
+    """For each request whose greedy tokens on the card differ from the
+    CPU's: the first differing position, both tokens there and the CPU's
+    top-2 logit gap at it."""
+    out = []
+    for r_card, r_cpu in zip(card, cpu):
+        pos = next((i for i, (a, b) in enumerate(zip(r_card.out_tokens,
+                                                     r_cpu.out_tokens))
+                    if a != b), None)
+        if pos is not None:
+            out.append({"uid": r_card.uid, "position": pos,
+                        "card": r_card.out_tokens[pos],
+                        "cpu": r_cpu.out_tokens[pos],
+                        "cpu_top2_gap": _top2_gap(cfg, r_cpu.prompt,
+                                                  r_cpu.out_tokens[:pos])})
+    return out
+
+
+def load_example(name: str):
+    """``examples/<name>.py`` as a module (its ``main`` not yet run); the
+    examples' tests load them through this too."""
+    spec = importlib.util.spec_from_file_location(
+        name, ROOT / "examples" / f"{name}.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def phase_serve_reduced() -> dict:
+    """``python -m repro_torch.launch.serve --arch <a> --reduced`` (its
+    ``main``, on the card) for every arch of SERVE_REDUCED_ARCHS in fp32 and
+    bf16: 8 requests of 16 tokens through 4 slots, head_dim 16 on every
+    attention route; tokens/s and seconds a run on lines of their own. In
+    fp32 the greedy tokens against the same command with ``--device cpu``:
+    a difference is reported with the CPU's top-2 logit gap at it, and fails
+    where that gap is wider than GREEDY_GAP_TOL. Then the two examples on
+    the card: ``examples/torch_serve_lm.py`` (batched decoding equal to solo
+    decoding, its own assert) and ``examples/torch_train_lm.py`` (300 steps,
+    the loss below its bound, its own assert). The launch counts are set to
+    0 just before and read just after."""
+    problems = []
+    t_phase = time.perf_counter()
+    _zero_kernel_counts()
+    for arch in SERVE_REDUCED_ARCHS:
+        cfg = get_config(arch, reduced=True)
+        for dtype in ("float32", "bfloat16"):
+            argv = ["--arch", arch, "--reduced", "--dtype", dtype]
+            printed = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(printed):
+                got = serve_module.main(argv)
+            row = {"arch": arch, "dtype": dtype,
+                   "requests": len(got["requests"]), "tokens": got["tokens"],
+                   "seconds": got["seconds"],
+                   "tokens_per_s": got["tokens"] / got["seconds"],
+                   "wall_s": time.perf_counter() - t0}
+            if got["tokens"] != 128 or any(
+                    not 0 <= t < cfg.padded_vocab
+                    for r in got["requests"] for t in r.out_tokens):
+                problems.append(f"{arch} {dtype}: {got['tokens']} tokens of "
+                                "128, or a token outside the vocabulary")
+            if dtype == "float32":
+                with contextlib.redirect_stdout(printed):
+                    cpu = serve_module.main(argv + ["--device", "cpu"])
+                diffs = _first_differences(cfg, got["requests"],
+                                           cpu["requests"])
+                row.update(tokens_equal_cpu=not diffs, differences=diffs,
+                           cpu_seconds=cpu["seconds"])
+                problems += [f"{arch}: token {d} differs from the CPU's "
+                             f"beyond a tie" for d in diffs
+                             if d["cpu_top2_gap"] > GREEDY_GAP_TOL]
+            emit("serve_reduced", **row)
+    for name in ("torch_serve_lm", "torch_train_lm"):
+        printed = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(printed):
+            load_example(name).main([])
+        emit("serve_reduced", example=name,
+             seconds=time.perf_counter() - t0,
+             output=printed.getvalue().splitlines()[-3:])
+    torch.cuda.synchronize()
+    launches = _kernel_counts()
+    problems += [f"{k} never launched" for k in SERVE_REDUCED_KERNELS
+                 if launches[k] <= 0]
+    emit("serve_reduced", archs=len(SERVE_REDUCED_ARCHS), launches=launches,
+         seconds=time.perf_counter() - t_phase, problems=problems)
+    if problems:
+        raise SystemExit(f"chip_smoke: serve_reduced phase failed: "
+                         f"{problems}")
+    return launches
 
 
 # The SSD scan's stage kernels as torch.profiler names them (either type).
@@ -7057,8 +7251,10 @@ def kernels_line(cases: list, launches_by_path: dict, repeats: list) -> dict:
     step's layer, with bf16 beside it); attention also carries the bf16
     1024-token prefill under ``prefill`` and the train_lm forward (with the
     log-sum-exp) under ``train_forward_with_lse`` (train_zamba's at head_dim
-    160 under ``train_forward_with_lse_d160``), its backward the head_dim
-    160 cases under ``head_dim_160``, the embedding bag the
+    160 under ``train_forward_with_lse_d160``) and the reduced configs'
+    head_dim 16 cases under ``head_dim_16``, its backward the head_dim
+    160 cases under ``head_dim_160``, RMSNorm and its backward the reduced
+    configs' d_model 64 cases under ``d_model_64``, the embedding bag the
     same step at Zipf indices under ``zipf``; the two backwards their
     repeats phase's counts under ``repeat_check``. The other shapes' times
     are in the ``kernels`` phase's line."""
@@ -7168,7 +7364,25 @@ def kernels_line(cases: list, launches_by_path: dict, repeats: list) -> dict:
                                    "plain_max_abs", "err_of_plain_max",
                                    "lse_max_abs_err")}
                 for c in mine]
+        if name in ("rmsnorm", "rmsnorm_backward"):
+            # the reduced configs' d_model 64 (serve_reduced's tick and
+            # prefill, torch_train_lm.py's rows), both types
+            entries[-1]["d_model_64"] = [
+                {k: c[k] for k in ("shape", "dtype", "kernel_ms",
+                                   "kernel_eager_ms", "plain_ms",
+                                   "library_ms", "bound_ms", "bound_by",
+                                   "max_abs_err", "tol") if k in c}
+                for c in mine if c["shape"][-1] == 64]
         if name == "flash_attention":
+            # the reduced configs' head dim (serve_reduced), both types: the
+            # decode kernels at every cluster, the prefill kernels
+            entries[-1]["head_dim_16"] = [
+                {k: c[k] for k in ("case", "shape", "dtype", "kernel_ms",
+                                   "kernel_eager_ms", "plain_ms",
+                                   "library_ms", "bound_ms", "bound_by",
+                                   "max_abs_err", "cluster_max_abs_err",
+                                   "cluster_ms") if k in c}
+                for c in mine if c["shape"]["d"] == 16]
             prefill = next(c for c in mine if c["case"] == "prefill s=1024"
                            and c["dtype"] == "bfloat16")
             entries[-1]["prefill"] = {
@@ -7258,6 +7472,7 @@ def main() -> int:
         torch.cuda.empty_cache()
     launches["serve_encdec"] = phase_serve_encdec()["launches"]
     torch.cuda.empty_cache()
+    launches["serve_reduced"] = phase_serve_reduced()
     launches["train_dlrm"] = phase_train_dlrm()
     phase_train_dlrm_check()
     launches["train_lm"] = phase_train_lm()

@@ -36,10 +36,10 @@
 //    partial output in fp32 (`o_f32`), so that the combine rounds once.
 //    The training route takes `q_offset` too: a rank's block of the rows of
 //    a sequence split over ranks attends over the whole sequence's keys.
-//    The training route also takes head_dim 16 (the reduced test configs), in
-//    the prefill kernels only; serving takes 64, 128 and 160 (zamba2's shared
-//    block: 32 heads of 160, ten k-steps of 16 for bf16, twenty of 8 for
-//    3xTF32, twenty 8-column n-tiles of the output).
+//    Every route takes head_dim 16 (the reduced configs: one k-step of Q K^T,
+//    two n-tiles of the output), 64, 128 and 160 (zamba2's shared block: 32
+//    heads of 160, ten k-steps of 16 for bf16, twenty of 8 for 3xTF32,
+//    twenty 8-column n-tiles of the output).
 //
 // Four kernels, chosen by the type and the number of query rows. Both bf16
 // kernels run the same warp step (`mma_attend`): 16 query rows against a kv
@@ -102,7 +102,8 @@
 //    of the keys and its merges, on the fp32 pipes, 4 query rows a block: a
 //    lane scores one key of a 32-key tile against every row (q in shared
 //    memory), keeps the online softmax, and owns D/32 output columns of each
-//    row for P V.
+//    row for P V (at d 16 one column, the two lanes of a column each taking
+//    half the tile's keys, summed by a shuffle at the end).
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -857,7 +858,8 @@ constexpr int DM_WARPS = 4;  // warps a block, each with keys of its own
 // stages and the slots take 173 KiB. At d 160 two stages take 177,408 bytes
 // and each block of the cluster adds a 10,368-byte slot: a cluster of 4 fits
 // a block's 232,448, one of 8 does not (the attribute call refuses it, so
-// it is never launched; the wrapper refuses it first).
+// it is never launched; the wrapper refuses it first). At d 16 two stages
+// take 25,344 bytes and a slot 1,152: every cluster fits.
 template <int D>
 __host__ __device__ constexpr int dm_stages() {
   return D == 64 ? 4 : 2;
@@ -1045,7 +1047,13 @@ __global__ void __launch_bounds__(DEC_WARPS * 32) flash_decode_f32_kernel(Params
   constexpr int PITCH = D + DEC_PITCH_PAD;  // floats
   constexpr int CH = D / 4;                 // 16-byte chunks a row
   constexpr int WS = dec_stages<D>();
-  constexpr int DL = D / 32;                // output columns a lane
+  // P V: a lane owns DL output columns of every row. Below d 32, KS lanes
+  // share a column and each takes every KS-th group of four keys of a tile;
+  // their sums are added by shuffles once the keys are done (m is the same
+  // in every lane, so each lane's share is scaled alike).
+  constexpr int KS = D < 32 ? 32 / D : 1;   // lanes a column: 2 at d 16
+  constexpr int LC = 32 / KS;               // lanes on distinct columns
+  constexpr int DL = D / LC;                // output columns a lane
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* rings = reinterpret_cast<float*>(smem_raw);
   float* qs = rings + DEC_WARPS * dec_warp_ring_floats<D>();
@@ -1063,6 +1071,8 @@ __global__ void __launch_bounds__(DEC_WARPS * 32) flash_decode_f32_kernel(Params
   const int bi = blockIdx.z;
   float* wring = rings + warp * dec_warp_ring_floats<D>();
   float* ps = qs + RM * D + warp * RM * kDecodeTile;
+  const int c0 = (lane % LC) * DL;  // this lane's first output column
+  const int kq = lane / LC;         // its share of the tile's keys
 
   // The block's q rows first (they depend on nothing), zeros past nr.
   for (int c = tid; c < RM * CH; c += DEC_WARPS * 32) {
@@ -1105,7 +1115,8 @@ __global__ void __launch_bounds__(DEC_WARPS * 32) flash_decode_f32_kernel(Params
   __syncthreads();      // ...and for every thread
 
   // m is the same in every lane; l is this lane's keys' share, summed at the
-  // end; acc holds columns lane * DL .. + DL - 1 of each row.
+  // end; acc holds columns c0 .. c0 + DL - 1 of each row, over the keys of
+  // share kq alone until the shuffles after the loop.
   float m[RM], l[RM], acc[RM][DL];
   int lim[RM];
 #pragma unroll
@@ -1161,12 +1172,13 @@ __global__ void __launch_bounds__(DEC_WARPS * 32) flash_decode_f32_kernel(Params
     }
     __syncwarp();
 
-    // acc += P V over the tile's 32 keys.
+    // acc += P V over this lane's share of the tile's 32 keys.
 #pragma unroll 2
-    for (int j = 0; j < kDecodeTile; j += 4) {
+    for (int j0 = 0; j0 < kDecodeTile; j0 += 4 * KS) {
+      const int j = j0 + 4 * kq;
       float vf[4][DL];
 #pragma unroll
-      for (int jj = 0; jj < 4; ++jj) load_cols<DL>(Vt + (j + jj) * PITCH + lane * DL, vf[jj]);
+      for (int jj = 0; jj < 4; ++jj) load_cols<DL>(Vt + (j + jj) * PITCH + c0, vf[jj]);
 #pragma unroll
       for (int r = 0; r < RM; ++r) {
         const float4 pv = *reinterpret_cast<const float4*>(ps + r * kDecodeTile + j);
@@ -1184,6 +1196,12 @@ __global__ void __launch_bounds__(DEC_WARPS * 32) flash_decode_f32_kernel(Params
     cp_async_commit();
   }
   cp_async_wait<0>();
+#pragma unroll
+  for (int r = 0; r < RM; ++r)
+#pragma unroll
+    for (int e = 0; e < DL; ++e)
+#pragma unroll
+      for (int o = LC; o < 32; o <<= 1) acc[r][e] += __shfl_xor_sync(0xffffffffu, acc[r][e], o);
 
   // The warp's partial (m, l, acc) into its own ring, (RM, D) then m, l.
   float* wacc = wring;
@@ -1193,8 +1211,10 @@ __global__ void __launch_bounds__(DEC_WARPS * 32) flash_decode_f32_kernel(Params
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1) lr += __shfl_xor_sync(0xffffffffu, lr, o);
     if (r < nr) {
+      if (kq == 0) {
 #pragma unroll
-      for (int e = 0; e < DL; ++e) wacc[r * D + lane * DL + e] = acc[r][e];
+        for (int e = 0; e < DL; ++e) wacc[r * D + c0 + e] = acc[r][e];
+      }
       if (lane == 0) {
         wacc[RM * D + r] = m[r];
         wacc[RM * D + RM + r] = lr;
@@ -1275,11 +1295,8 @@ template <typename T, int D>
 cudaError_t launch(const Params& p, int cluster, cudaStream_t stream) {
   // The training route's log-sum-exp comes from the prefill kernels at any
   // length; the split serving route (o_f32) takes the decode kernels at
-  // sq <= 8, which then write it too. Neither decode kernel has d 16 (that
-  // head dim is the training route's alone).
-  if constexpr (D == 16) {
-    if (p.lse == nullptr || p.o_f32) return cudaErrorInvalidValue;
-  } else if (p.sq <= kDecodeMaxSq && (p.lse == nullptr || p.o_f32)) {
+  // sq <= 8, which then write it too.
+  if (p.sq <= kDecodeMaxSq && (p.lse == nullptr || p.o_f32)) {
     int csize = cluster > 0 ? cluster : kDecodeDefaultCluster;
     csize = max(1, min(csize, (p.skv + kDecodeTile - 1) / kDecodeTile));  // no wider than the keys
     while (csize & (csize - 1)) --csize;  // 1, 2, 4 or 8: other sizes ran far slower (PERF.md)
@@ -1329,9 +1346,9 @@ cudaError_t launch_d(const Params& p, int d, int cluster, cudaStream_t stream) {
 // the device or null. lse is fp32 (b, h, sq) contiguous or null. o_f32: o is
 // fp32 whatever the inputs' type, and sq <= 8 takes the decode kernels even
 // with lse (the split serving route). dtype: 0 = float32, 1 = bfloat16. d:
-// 64, 128 or 160, or 16 with lse and not o_f32. cluster: blocks a (batch, KV
-// head) splits its keys over on the decode kernels (1, 2, 4 or 8; 0 for the
-// default). Returns the CUDA error code of the launch (0 on success).
+// 16, 64, 128 or 160. cluster: blocks a (batch, KV head) splits its keys
+// over on the decode kernels (1, 2, 4 or 8; 0 for the default). Returns the
+// CUDA error code of the launch (0 on success).
 int run(const void* q, const void* k, const void* v, void* o, void* lse, const void* kv_len,
         const void* q_offset, int b, int h, int hkv, int sq, int skv, int d, long long q_sb,
         long long q_sh, long long q_ss, long long k_sb, long long k_sh, long long k_ss,

@@ -42,11 +42,9 @@ import torch
 from repro_torch.kernels import _build
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-# Serving: 160 is zamba2's shared attention block.
-HEAD_DIMS = (64, 128, 160)
-# The training route (the forward with the log-sum-exp and the backward)
-# takes the reduced configs' head_dim 16 too.
-TRAIN_HEAD_DIMS = (16, 64, 128, 160)
+# Every route (serving, partial, training): 16 is the reduced configs', 160
+# zamba2's shared attention block.
+HEAD_DIMS = (16, 64, 128, 160)
 NEG_INF = -1e30
 # Decode (sq <= 8): each (batch, KV head) splits its keys over a thread block
 # cluster of one of these sizes (4 unless the caller picks another) whose
@@ -254,8 +252,7 @@ def _check_index_vector(name: str, t: torch.Tensor, b: int,
 
 
 def _check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                  *more: Tuple[str, torch.Tensor],
-                  head_dims: Tuple[int, ...] = HEAD_DIMS) -> None:
+                  *more: Tuple[str, torch.Tensor]) -> None:
     """Raise on what the kernels do not take. ``more``: further (name,
     tensor) pairs of q's shape (the backward's o, dO), held to the same type
     and layout rules."""
@@ -286,9 +283,9 @@ def _check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise ValueError(
                 f"flash attention kernel: {name} {tuple(t.shape)} is not q's "
                 f"shape {tuple(q.shape)}")
-    if d not in head_dims:
+    if d not in HEAD_DIMS:
         raise ValueError(
-            f"flash attention kernel takes head_dim in {head_dims}, got {d}")
+            f"flash attention kernel takes head_dim in {HEAD_DIMS}, got {d}")
     if b > 65535 or h > 65535:
         raise ValueError("flash attention kernel: batch and heads <= 65535")
     if 0 in (b, h, sq, skv):
@@ -363,7 +360,8 @@ def backward_smem_bytes(d: int, dtype: torch.dtype) -> Tuple[int, int]:
 def decode_cluster_fits(d: int, dtype: torch.dtype, group_rows: int,
                         cluster: int) -> bool:
     """Whether a decode cluster of ``cluster`` blocks fits a block's shared
-    memory (at d 160, bf16, a cluster of 8 does not)."""
+    memory (at d 160, bf16, a cluster of 8 does not; at d 16 every one
+    does)."""
     return decode_smem_bytes(d, dtype, group_rows, cluster) <= SMEM_PER_BLOCK
 
 
@@ -471,10 +469,9 @@ def flash_attention_lse_cuda(q: torch.Tensor, k: torch.Tensor,
     """The training route's forward on the card: the output and each row's
     log-sum-exp (fp32 ``(b, h, sq)``), from the prefill kernels at any
     length (a row of at most 8 queries too: the decode kernels write it on
-    the partial route alone), head_dim in ``TRAIN_HEAD_DIMS``;
-    ``q_offset`` as ``flash_attention_cuda``'s. Raises as
-    ``flash_attention_cuda``."""
-    _check_inputs(q, k, v, head_dims=TRAIN_HEAD_DIMS)
+    the partial route alone); ``q_offset`` as ``flash_attention_cuda``'s.
+    Raises as ``flash_attention_cuda``."""
+    _check_inputs(q, k, v)
     b, h, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
     if q_offset is not None:
@@ -577,10 +574,9 @@ def flash_attention_backward_cuda(q: torch.Tensor, k: torch.Tensor,
     transposed like the forward's output. ``o`` and ``lse`` are the
     forward's (``flash_attention_lse_cuda``), ``do`` the output's gradient;
     all taken by their strides. Deterministic: the same inputs give the same
-    bits. head_dim in ``TRAIN_HEAD_DIMS``; ``q_offset``: the forward's. Keys
-    no row sees get zero gradients. Raises on anything the kernels do not
-    take."""
-    _check_inputs(q, k, v, ("o", o), ("do", do), head_dims=TRAIN_HEAD_DIMS)
+    bits. ``q_offset``: the forward's. Keys no row sees get zero
+    gradients. Raises on anything the kernels do not take."""
+    _check_inputs(q, k, v, ("o", o), ("do", do))
     b, h, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
     if q_offset is not None:

@@ -3,8 +3,10 @@
     python -m repro_torch.launch.serve --arch smollm-135m \\
         --num-requests 8 --max-new-tokens 16
 
-Runs on the GPU (the kernels are built at the first launch); ``--device cpu``
-runs the plain PyTorch path instead.
+Runs on the GPU (the kernels are built at the first launch), ``--reduced``
+configs too (head_dim 16); ``--device cpu`` runs the plain PyTorch path
+instead. ``main`` returns the completed requests (by uid), the tokens and the
+seconds the engine took.
 """
 
 from __future__ import annotations
@@ -60,9 +62,11 @@ def main(argv=None):
     total_tokens = sum(len(r.out_tokens) for r in done)
     print(f"served {len(done)} requests, {total_tokens} tokens "
           f"in {dt:.2f}s ({total_tokens/dt:.1f} tok/s) on {device}")
-    for r in sorted(done, key=lambda r: r.uid)[:4]:
+    done = sorted(done, key=lambda r: r.uid)
+    for r in done[:4]:
         print(f"  req {r.uid}: prompt[:4]={list(r.prompt[:4])} "
               f"out[:8]={r.out_tokens[:8]}")
+    return {"requests": done, "tokens": total_tokens, "seconds": dt}
 
 
 if __name__ == "__main__":

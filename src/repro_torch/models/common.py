@@ -50,6 +50,7 @@ from repro_torch.parallel.tensor import (
     combine_attention,
     copy_to_region,
     gather_dim,
+    project,
     reduce_from_region,
     sum_over_group,
     vocab_parallel_cross_entropy,
@@ -314,6 +315,7 @@ def attention_block(
     precomputed_kv: bool = False,      # kv_cache holds frozen cross K/V
     group=None,                        # the model axis, weights its shards
     seq: Optional[SeqBlock] = None,    # x holds this rank's block of rows
+    wgrad_group=None,                  # the model axis, weights whole
 ) -> torch.Tensor:
     """GQA attention. With ``kv_cache`` the new keys and values are
     written into ``kv_cache["k"]`` / ``["v"]`` IN PLACE (the JAX package
@@ -332,7 +334,10 @@ def attention_block(
     With ``group``, ``wq``/``wk``/``wv`` hold this rank's heads' columns
     and ``wo`` their rows, ``num_heads``/``num_kv_heads`` count this rank's
     heads, the inputs enter through ``copy_to_region`` and the output is
-    summed over the group (``reduce_from_region``).
+    summed over the group (``reduce_from_region``). With ``wgrad_group``
+    the weights are whole on every rank of the model axis's group and so
+    is ``x``: each rank computes the projections' weight gradients for its
+    block of their rows (``parallel.tensor.project``).
 
     With ``kv_cache["seq_group"]`` (the data axis's group, ``kv_view``) the
     cache's ``k``/``v`` hold this rank's block of ``S / n`` rows of a
@@ -364,10 +369,12 @@ def attention_block(
             xkv = copy_to_region(xkv, group)
 
     def project_out(out: torch.Tensor) -> torch.Tensor:
-        y = out.reshape(b, s, num_heads * head_dim) @ params["wo"]
+        y = project(out.reshape(b, s, num_heads * head_dim), params["wo"],
+                    wgrad_group)
         return y if group is None else reduce_from_region(y, group)
 
-    q = (x @ params["wq"]).reshape(b, s, num_heads, head_dim)
+    q = project(x, params["wq"], wgrad_group).reshape(b, s, num_heads,
+                                                      head_dim)
     if precomputed_kv:
         if kv_cache is None:
             raise ValueError("precomputed_kv needs the cross K/V in kv_cache")
@@ -377,8 +384,10 @@ def attention_block(
                                                seq_group))
         return project_out(attention(q, kc, vc, causal=False))
     src = x if xkv is None else xkv
-    k = (src @ params["wk"]).reshape(b, src.shape[1], num_kv_heads, head_dim)
-    v = (src @ params["wv"]).reshape(b, src.shape[1], num_kv_heads, head_dim)
+    k = project(src, params["wk"], wgrad_group).reshape(
+        b, src.shape[1], num_kv_heads, head_dim)
+    v = project(src, params["wv"], wgrad_group).reshape(
+        b, src.shape[1], num_kv_heads, head_dim)
     if xkv is not None:
         return project_out(attention(q, k, v, causal=False))
 

@@ -136,7 +136,12 @@ class Attention(nn.Module):
     every rank and the config sets ``attn_batch_shard`` (set by
     ``apply_tensor_parallel``, a ``Transformer``'s layers only): without a
     cache, each rank then runs the attention on its block of the rows and
-    the blocks are gathered back (``_split_rows``)."""
+    the blocks are gathered back (``_split_rows``).
+
+    ``wgrad_group``: the model axis's group where the weights are whole on
+    every rank and the rows are not split (set by
+    ``apply_tensor_parallel``): each rank computes the weights' gradient
+    for its block of their rows (``attention_block``)."""
 
     def __init__(self, cfg: ModelConfig, generator, dtype, device,
                  d_in: Optional[int] = None):
@@ -154,6 +159,7 @@ class Attention(nn.Module):
         self.cfg = cfg
         self.tp_group = None
         self.batch_group = None
+        self.wgrad_group = None
 
     def params(self) -> Dict[str, torch.Tensor]:
         return {"wq": self.wq, "wk": self.wk, "wv": self.wv, "wo": self.wo}
@@ -222,7 +228,8 @@ class Attention(nn.Module):
         out = attention_block(
             params, x, num_heads=heads, num_kv_heads=kv_heads,
             head_dim=cfg.resolved_head_dim, rope_theta=cfg.rope_theta,
-            kv_cache=kv_cache, group=self.tp_group, **kw)
+            kv_cache=kv_cache, group=self.tp_group,
+            wgrad_group=self.wgrad_group, **kw)
         return gather_rows(out, self.batch_group) if split else out
 
     def forward(self, x: torch.Tensor, kv_cache: Optional[dict],

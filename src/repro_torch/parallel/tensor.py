@@ -43,7 +43,11 @@ where the config sets ``attn_batch_shard``, as the reference's constraint
 on q, k and v does: ``split_rows`` gives each rank its block of the rows
 and ``gather_rows`` gathers the blocks' outputs back onto every rank. The
 replicated weights enter through ``copy_to_region``, so each rank's
-gradient of them, from its rows alone, is summed over the axis.
+gradient of them, from its rows alone, is summed over the axis. Without
+it, the attention's replicated projections run on every rank whole, and
+each rank computes their weights' gradient for its block of their rows
+alone (``project``), the blocks all-gathered, as the reference's
+partitioner splits that product.
 """
 
 from __future__ import annotations
@@ -54,7 +58,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.parallel.mesh import MODEL_AXIS
-from repro_torch.parallel.sharding import all_gather_stacked
+from repro_torch.parallel.sharding import all_gather_dim, all_gather_stacked
 
 
 class _CopyToRegion(torch.autograd.Function):
@@ -127,6 +131,23 @@ class _GatherRows(torch.autograd.Function):
                            rows).contiguous(), None
 
 
+class _SplitWeightGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, group):
+        ctx.save_for_backward(x, w)
+        ctx.group = group
+        return x @ w
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, w = ctx.saved_tensors
+        rows = w.shape[0] // dist.get_world_size(ctx.group)
+        first = dist.get_rank(ctx.group) * rows
+        x2 = x.reshape(-1, x.shape[-1]).narrow(1, first, rows)
+        dw = x2.t() @ grad.reshape(-1, grad.shape[-1])
+        return grad @ w.t(), all_gather_dim(dw, 0, ctx.group), None
+
+
 def split_rows(x: torch.Tensor, group) -> torch.Tensor:
     """This rank's block of the rows (dim 0) of ``x``, which every rank of
     ``group`` holds equal, rank r rows ``[r b / n, (r + 1) b / n)``;
@@ -140,6 +161,20 @@ def gather_rows(x: torch.Tensor, group) -> torch.Tensor:
     rank (``split_rows``'s inverse); backward, the rank's own block of the
     gradient, which every rank holds equal."""
     return _GatherRows.apply(x, group)
+
+
+def project(x: torch.Tensor, w: torch.Tensor, wgrad_group=None
+            ) -> torch.Tensor:
+    """``x @ w``. With ``wgrad_group``, where ``w`` is whole on every rank
+    of the group and ``x`` the same on each, the backward computes the
+    weight's gradient x^T dy for this rank's block of ``w``'s rows alone
+    and all-gathers the blocks, as the reference's partitioner splits that
+    product over the model axis; the input's gradient is whole on every
+    rank. Rows that do not divide over the group take the plain product."""
+    if (wgrad_group is None
+            or w.shape[0] % dist.get_world_size(wgrad_group)):
+        return x @ w
+    return _SplitWeightGrad.apply(x, w, wgrad_group)
 
 
 def gather_stacked(x: torch.Tensor, group) -> torch.Tensor:
@@ -231,10 +266,11 @@ def apply_tensor_parallel(model, placements, group) -> None:
     expert-TP; its shared expert as an FFN); an ``EncDec``'s encoder and
     decoder layers' (the decoder's self- and cross-attention); a
     ``Mamba``'s layers (their SSD heads) and, for the hybrid, its shared
-    block's attention and FFN. A ``Transformer``'s attention that stays
-    replicated takes ``group`` as its ``batch_group`` where the config sets
-    ``attn_batch_shard``. Raises, naming the attention, where a rank's
-    query heads would straddle KV groups."""
+    block's attention and FFN. An attention that stays replicated takes
+    ``group`` as its ``wgrad_group``, a ``Transformer``'s as its
+    ``batch_group`` instead where the config sets ``attn_batch_shard``.
+    Raises, naming the attention, where a rank's query heads would
+    straddle KV groups."""
     def split(name: str):
         return group if MODEL_AXIS in placements[name].axes() else None
 
@@ -243,7 +279,12 @@ def apply_tensor_parallel(model, placements, group) -> None:
         weight's placement."""
         attn = hasattr(block, "wq")
         block.tp_group = split(f"{name}.{'wq' if attn else 'wu'}")
-        if not attn or block.tp_group is None:
+        if not attn:
+            return
+        if block.tp_group is None:
+            # replicated: the weights' gradient split over the axis
+            if dist.get_world_size(group) > 1:
+                block.wgrad_group = group
             return
         cfg, tp = block.cfg, dist.get_world_size(group)
         per_kv = cfg.num_heads // cfg.num_kv_heads
@@ -268,6 +309,7 @@ def apply_tensor_parallel(model, placements, group) -> None:
             # where the config asks (the heads' split is kept where it holds)
             if layer.attn.tp_group is None and model.cfg.attn_batch_shard:
                 layer.attn.batch_group = group
+                layer.attn.wgrad_group = None
             if hasattr(layer, "ffn"):
                 point(f"layers.{i}.ffn", layer.ffn)
                 continue

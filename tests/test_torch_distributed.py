@@ -220,6 +220,13 @@ results["dp2_tp2_zero3"] = step_pair((2, 2), zero_stage=3)
 results["dp4_zero3"] = step_pair((4, 1), zero_stage=3, batch=8)
 results["tp4_shared_kv"] = step_pair((1, 4), micro=1)
 results["pod2_dp2"] = step_pair((2, 2, 1), ("pod", "data", "model"), batch=8)
+# 3 query heads over 2 model ranks: the attention replicated, its weights'
+# gradient split over the axis (parallel.tensor.project)
+import dataclasses
+_whole = CFG
+CFG = dataclasses.replace(CFG, num_heads=3, num_kv_heads=1)
+results["dp2_tp2_replicated_attn"] = step_pair((2, 2))
+CFG = _whole
 
 # -- serving split over the model axis against one process ----------------
 results["serve_dp2_tp2"] = serve_pair((2, 2))
@@ -499,14 +506,16 @@ def one(tmp_path_factory):
 # ------------------------------------------------------------------------- #
 
 STEP_CASES = ["dp2_tp2", "dp2_tp2_zero3", "dp4_zero3", "tp4_shared_kv",
-              "pod2_dp2"]
+              "pod2_dp2", "dp2_tp2_replicated_attn"]
 
 
 @pytest.mark.parametrize("case", STEP_CASES)
 def test_sharded_step_matches_one_process(four, case):
     """(2 data, 2 model) with ZeRO-1 and with ZeRO-3 (``zero_stage=3``),
     (4, 1) ZeRO-3, (1, 4) (smollm's reduced 4 heads split one a rank, its
-    2 KV heads replicated and shared), (2 pod, 2 data, 1 model): two steps
+    2 KV heads replicated and shared), (2 pod, 2 data, 1 model), (2, 2)
+    with 3 heads, the attention replicated over the model axis and its
+    weights' gradient split over it: two steps
     of two microbatches (one at (1, 4)), every rank's loss and the gathered
     parameters against ``make_train_step`` from the same state."""
     for res in four:

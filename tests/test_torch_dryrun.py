@@ -338,7 +338,9 @@ def test_attn_batch_shard_splits_the_attention_rows():
     forward and backward) are 1/tp of the run's without it, and the
     all-gather bytes grow by the gathered rows: each layer gathers its
     attention's output (b, s, d) in the forward, again in the remat's
-    recompute, and its input's gradient in the backward."""
+    recompute, and its input's gradient in the backward; without it each
+    layer all-gathers its replicated weights' gradients instead (each rank
+    computes its block of their rows, ``parallel.tensor.project``)."""
     def run(flag):
         cfg = dataclasses.replace(get_config("smollm-135m", reduced=True),
                                   num_heads=3, num_kv_heads=1,
@@ -356,8 +358,11 @@ def test_attn_batch_shard_splits_the_attention_rows():
     shape = SHAPES["train_4k"]
     rows = (shape.global_batch // dp) * shape.seq_len * cfg.d_model
     gathered = cfg.num_layers * 3 * rows * 2          # bf16
+    hd = cfg.resolved_head_dim
+    weights = cfg.num_layers * 2 * cfg.d_model * hd * 2 * (
+        cfg.num_heads + cfg.num_kv_heads)
     assert (after["coll_breakdown"]["all-gather"]
-            - before["coll_breakdown"]["all-gather"]) == gathered
+            - before["coll_breakdown"]["all-gather"]) == gathered - weights
 
 
 def test_the_cli_writes_a_cell_without_loading_jax(tmp_path):

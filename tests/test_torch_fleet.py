@@ -52,6 +52,7 @@ from repro_torch.core import cluster, dse, memory, placement, study, workload
 from repro_torch.core.simulator import group_breakdowns_compiled
 from repro_torch.core.study import Axis, StudySpec, run_study
 from test_torch_study import assert_records_equivalent
+from torch_pool_bound import pool_bound
 
 REL = 1e-9
 RESULT_PROPS = ("turnarounds", "turnaround_p50", "turnaround_p99",
@@ -994,7 +995,8 @@ def test_fleet_runs_on_the_card_unless_asked():
     a process pool on the CPU (ROADMAP item 22) gives the serial
     rankings, record for record."""
     for ranking in (dse.fleet_ranking, dse.reliability_fleet_ranking):
-        pooled = ranking(processes=2, device="cpu")
+        with pool_bound():
+            pooled = ranking(processes=2, device="cpu")
         assert pooled and pooled == ranking(device="cpu")
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: the default device resolves")

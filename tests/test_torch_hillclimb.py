@@ -124,13 +124,16 @@ def test_four_variants_on_the_debug_mesh(debug_cell, tmp_path, capsys):
     # bshard: each of the 2 model ranks attends over half the rows, and
     # each layer all-gathers the attention's (b, s, d) bf16 output in the
     # forward and in the remat's recompute, and its input's gradient in
-    # the backward
+    # the backward; the baseline all-gathers the replicated weights'
+    # gradients instead (each rank computes its block of their rows)
     assert core[3] == core[0] / 2 and core[0] > 0
     shape = SHAPES["train_4k"]
     rows = shape.global_batch // 2 * shape.seq_len * cfg.d_model
     grown = (info["bshard"]["coll_breakdown"]["all-gather"]
              - base["coll_breakdown"]["all-gather"])
-    assert grown == cfg.num_layers * 3 * rows * 2
+    weights = cfg.num_layers * 2 * cfg.d_model * cfg.resolved_head_dim * 2 * (
+        cfg.num_heads + cfg.num_kv_heads)
+    assert grown == cfg.num_layers * 3 * rows * 2 - weights
     assert info["bshard"]["flops"] < base["flops"]
     assert info["bshard"]["model_flops"] == base["model_flops"]
 

@@ -319,14 +319,58 @@ def test_forward_shared_memory_at_head_dim_160():
 
 
 def test_flash_attention_head_dims():
-    """Serving takes 64, 128 and 160; the training route (the forward with
-    the log-sum-exp and the backward) takes 160 too, zamba2's shared block,
-    and the reduced configs' 16 (the ``cuda`` tests hold it on the card, and
-    its refusal of a head dim it does not take)."""
+    """One tuple of head dims serves every route (serving, the partial
+    route, the training forward and the backward): 16 (the reduced
+    configs), 64, 128 and 160 (zamba2's shared block), the head dims the
+    sources' dispatch instantiates, in the forward and in the backward."""
     from repro_torch.kernels import flash_attention as fa
-    assert fa.HEAD_DIMS == (64, 128, 160)
-    assert 160 in fa.TRAIN_HEAD_DIMS
-    assert fa.TRAIN_HEAD_DIMS == (16, 64, 128, 160)
+    assert fa.HEAD_DIMS == (16, 64, 128, 160)
+    assert not hasattr(fa, "TRAIN_HEAD_DIMS")
+    for source in ("flash_attention.cu", "flash_attention_backward.cu"):
+        text = (_build.CSRC / source).read_text()
+        dims = re.findall(r"if \(d == (\d+)\) return launch\w*<T, (\d+)>",
+                          text)
+        assert dims and all(a == b for a, b in dims), source
+        assert tuple(int(a) for a, _ in dims) == fa.HEAD_DIMS, source
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8])
+@pytest.mark.parametrize("group_rows", [1, 2, 8])
+def test_decode_shared_memory_at_head_dim_16(dtype, cluster, group_rows):
+    """The decode kernels' shared memory at d 16, reckoned from the
+    source's constants and formulas (``dm_stages``, ``dec_stages``,
+    ``merge_slot_floats``): bf16 25,344 bytes of its own (Q and two stages
+    of each warp's ring, 48-byte rows) and a 1,152-byte merge slot a
+    cluster block; fp32 43,264 (4 rows a block) or 41,536 (one row, a
+    group of one row) and slots of 72 or 20 floats. Every cluster fits, and
+    the wrapper's ``decode_smem_bytes`` is the same reckoning. The fp32
+    kernel's P V at d 16 gives each column two lanes (``KS``), each half of
+    a tile's keys in groups of four."""
+    from repro_torch.kernels import flash_attention as fa
+    src = (_build.CSRC / "flash_attention.cu").read_text()
+    assert "return D == 64 ? 4 : 2;" in src                  # dm_stages
+    assert "return D * (int)sizeof(float) <= 256 ? 2 : 1;" in src
+    assert "return RM * D + (2 * RM + 3) / 4 * 4;" in src   # merge slots
+    assert "constexpr int KS = D < 32 ? 32 / D : 1;" in src
+    d, pitch = 16, 16 + 8
+    slot = lambda rows: rows * d + (2 * rows + 3) // 4 * 4
+    if dtype == torch.bfloat16:
+        own = (fa.DM_ROWS * pitch
+               + fa.DM_WARPS * 2 * 2 * fa.DECODE_TILE * pitch) * 2
+        rows = fa.DM_ROWS
+        assert (own, slot(rows) * 4) == (25_344, 1_152)
+        assert pitch * 2 % 16 == 0          # every ldmatrix row 16-byte aligned
+    else:
+        rows = 1 if group_rows == 1 else fa.DEC_ROWS
+        own = 4 * (fa.DEC_WARPS * 2 * 2 * fa.DECODE_TILE
+                   * (d + fa.DEC_PITCH_PAD) + rows * d
+                   + fa.DEC_WARPS * rows * fa.DECODE_TILE)
+        assert own == {1: 41_536, 4: 43_264}[rows]
+        assert slot(rows) == {1: 20, 4: 72}[rows]
+    assert fa.decode_smem_bytes(d, dtype, group_rows, cluster) == (
+        own + cluster * slot(rows) * 4)
+    assert fa.decode_cluster_fits(d, dtype, group_rows, cluster)
 
 
 def _bwd_constants() -> dict:
@@ -2118,22 +2162,99 @@ def test_flash_training_forward_is_deterministic(cuda_device, dtype):
         assert all(torch.equal(a, b_) for a, b_ in zip(again, first))
 
 
+# The reduced configs' serving at head_dim 16 (b, h, hkv, sq, skv, causal,
+# q_offset, kv_len): their decode tick (4 slots, 4 heads over 2 KV heads,
+# the cache up to 128 rows; one slot at row 0, one at the end), a ragged
+# prefill into the cache's first rows, short prompts (the decode kernels up to
+# 8 rows), a chunk into a cache with both per-sequence arguments, a
+# non-causal row and a sequence with no key.
+FLASH_D16_TABLE = [
+    (4, 4, 2, 1, 128, True, [0, 17, 64, 127], None),
+    (1, 4, 2, 23, 128, True, [0], [23]),
+    (2, 4, 2, 5, 24, True, None, None),
+    (2, 4, 2, 8, 8, True, None, None),
+    (2, 4, 2, 40, 200, True, [160, 37], [200, 77]),
+    (3, 4, 4, 1, 96, False, None, [96, 1, 0]),
+]
+
+
 @pytest.mark.cuda
-def test_flash_serve_route_refuses_head_dim_16(cuda_device):
-    """head_dim 16 is the training route's alone: the serve entry raises
-    on it rather than launch a kernel it has not."""
-    q, k, v, _ = _flash_train_inputs(cuda_device, torch.float32, 1, 4, 2, 20,
-                                     16)
-    with pytest.raises(ValueError, match="head_dim"):
-        flash_attention_cuda(q, k, v, True)
-    out, lse = flash_attention_lse_cuda(q, k, v, True)
-    assert out.shape == q.shape and lse.shape == (1, 4, 20)
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 2e-5),
+                                        (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("b,h,hkv,sq,skv,causal,q_off,lens", FLASH_D16_TABLE)
+def test_flash_serve_route_at_head_dim_16_matches_plain(
+        cuda_device, dtype, atol, b, h, hkv, sq, skv, causal, q_off, lens):
+    """The serving entry point at the reduced configs' head dim: the decode
+    kernels (sq <= 8) and the prefill kernels without the log-sum-exp,
+    counted once, against the plain version."""
+    q, k, v, offset, kv_len = _flash_cuda_case(cuda_device, dtype, b, h, hkv,
+                                               sq, skv, 16, q_off, lens)
+    before = ops.flash_attention.launches
+    got = ops.flash_attention(q, k, v, causal, kv_len, offset)
+    torch.cuda.synchronize()
+    assert ops.flash_attention.launches == before + 1
+    want = flash_attention_plain(q, k, v, causal, kv_len, offset)
+    assert got.shape == want.shape and got.dtype == dtype
+    assert (got.float() - want.float()).abs().max().item() <= atol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 2e-5),
+                                        (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8])
+@pytest.mark.parametrize("h,hkv", [(4, 2), (4, 4)])
+def test_flash_decode_clusters_at_head_dim_16(cuda_device, dtype, atol,
+                                              cluster, h, hkv):
+    """Every decode cluster fits at d 16 and gives the plain result: the
+    reduced tick's GQA group (two rows a KV head) and MHA (one row: the
+    fp32 kernel's one-row blocks), over 128 keys (4 tiles: a cluster of 8
+    is clamped to 4) and over 512."""
+    from repro_torch.kernels.flash_attention import decode_cluster_fits
+    assert decode_cluster_fits(16, dtype, h // hkv, cluster)
+    for skv, offsets in ((128, [0, 17, 64, 127]), (512, [511, 3, 300, 40])):
+        q, k, v, offset, _ = _flash_cuda_case(cuda_device, dtype, 4, h, hkv,
+                                              1, skv, 16, offsets, None)
+        got = flash_attention_cuda(q, k, v, True, None, offset,
+                                   decode_cluster=cluster)
+        torch.cuda.synchronize()
+        want = flash_attention_plain(q, k, v, True, None, offset)
+        assert (got.float() - want.float()).abs().max().item() <= atol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-4),
+                                        (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("b,h,hkv,sq,skv,causal,q_off,lens", [
+    (4, 4, 2, 1, 128, True, [127, 40, 300, -1], None),
+    (2, 4, 2, 1, 64, True, [20, 63], [64, 10]),
+    (2, 4, 2, 24, 96, True, [50, 0], None),
+])
+def test_flash_partial_route_at_head_dim_16_matches_plain(
+        cuda_device, dtype, rtol, b, h, hkv, sq, skv, causal, q_off, lens):
+    """The partial route at d 16 (the decode kernels writing the
+    log-sum-exp and an fp32 output at sq <= 8, the prefill kernels above),
+    held as ``test_flash_partial_kernel_matches_plain`` holds d 64: a row
+    past its block, one before it (zeros, +inf), a kv_len."""
+    q, k, v, offset, kv_len = _flash_cuda_case(cuda_device, dtype, b, h, hkv,
+                                               sq, skv, 16, q_off, lens)
+    before = ops.flash_attention_partial.launches
+    got, lse = ops.flash_attention_partial(q, k, v, causal, kv_len, offset)
+    torch.cuda.synchronize()
+    assert ops.flash_attention_partial.launches == before + 1
+    want, want_lse = flash_attention_forward_plain(q, k, v, causal, kv_len,
+                                                   offset, unrounded=True)
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    assert (got - want).abs().max().item() <= rtol * want.abs().max().item()
+    assert torch.equal(torch.isinf(lse), torch.isinf(want_lse))
+    finite = torch.isfinite(want_lse)
+    assert (got[~finite] == 0).all()
+    assert (lse[finite] - want_lse[finite]).abs().max().item() <= 1e-4
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("s", [2, 3, 5, 8, 9, 65])
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [16, 64, 128])
 def test_flash_short_causal_prefill_both_routes(cuda_device, dtype, s, d):
     """A causal prefill of 2-65 tokens with no q_offset and skv == sq: the
     serve route (the decode kernels up to 8 tokens, the prefill kernels

@@ -31,6 +31,7 @@ from repro.core.simulator import simulate_iteration as simulate_jax
 from repro.core.workload import decompose as decompose_jax
 from repro_torch.configs import ShapeConfig, get_config, get_dlrm_config
 from repro_torch.core import dse, strategy
+from torch_pool_bound import pool_bound
 from repro_torch.core.cluster import BASELINE_DGX_A100, get_cluster
 from repro_torch.core.simulator import simulate_iteration_compiled
 from repro_torch.core.workload import decompose
@@ -197,8 +198,9 @@ class TestWrappersMatchReference:
     def test_processes_still_refused(self, models):
         """``processes=2`` is no longer refused (ROADMAP item 22): on the
         CPU the pool's ranking is the serial run's, record for record."""
-        pooled = dse.hetero_cost_ranking(*models[1][:2], processes=2,
-                                         device="cpu")
+        with pool_bound():
+            pooled = dse.hetero_cost_ranking(*models[1][:2], processes=2,
+                                             device="cpu")
         assert pooled == dse.hetero_cost_ranking(*models[1][:2],
                                                  device="cpu")
         assert pooled

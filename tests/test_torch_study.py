@@ -43,6 +43,7 @@ from repro_torch.core.study import (
     placement_axis,
     run_study,
 )
+from torch_pool_bound import pool_bound
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 REL = 1e-9
@@ -542,8 +543,9 @@ def test_refusals_name_their_roadmap_item():
     from repro.reliability import FailureModel as FailureModelJax
     from repro_torch.reliability import FailureModel
     spec = _small_spec()
-    assert (run_study(spec, processes=2, device="cpu").records
-            == run_study(spec, device="cpu").records)
+    with pool_bound():
+        assert (run_study(spec, processes=2, device="cpu").records
+                == run_study(spec, device="cpu").records)
     with pytest.raises(ValueError, match="validate"):
         run_study(spec, validate="loud", device="cpu")
     ref, mine = run_both(
@@ -632,7 +634,8 @@ class TestForkPath:
         # No strategy fills the 8-node cluster -> zero cells; the chunked
         # pool must return an empty result, not crash on max([]).
         spec = _small_spec(strategies=GridSpace(mp=(3,), dp=(3,)), axes=[])
-        assert len(run_study(spec, processes=4, device="cpu")) == 0
+        with pool_bound():
+            assert len(run_study(spec, processes=4, device="cpu")) == 0
 
     def test_pool_equals_serial(self):
         """Equal records (the workers' one thread changes no bit here: each
@@ -642,7 +645,8 @@ class TestForkPath:
         interpreter, not this one, under a 120 s bound."""
         spec = _small_spec()
         serial = run_study(spec, device="cpu")
-        pooled = run_study(spec, processes=2, device="cpu")
+        with pool_bound():
+            pooled = run_study(spec, processes=2, device="cpu")
         assert serial.records == pooled.records
         out = _bounded_run("""
             from repro.core import study as study_jax
@@ -680,13 +684,15 @@ class TestForkPath:
             raise RuntimeError("metric exploded")
 
         bad = _small_spec(metrics={"boom": boom})
-        with pytest.raises(RuntimeError, match="metric exploded"):
+        with pool_bound(), pytest.raises(RuntimeError,
+                                         match="metric exploded"):
             run_study(bad, processes=2, device="cpu")
         assert study._FORK_STATE is None
         good = _small_spec()
         again = run_study(good, device="cpu")
-        assert run_study(good, processes=2,
-                         device="cpu").records == again.records
+        with pool_bound():
+            assert run_study(good, processes=2,
+                             device="cpu").records == again.records
 
     def test_a_pool_after_threaded_work_finishes(self):
         """A fresh interpreter runs multi-threaded torch work (a 2,000 x
